@@ -1,0 +1,3 @@
+from .item_spec import *
+from .functionals import *
+from .extractor import *

@@ -1,0 +1,200 @@
+"""IOSpec: the wiring layer between data features and modules.
+
+Counterpart of ``mimikit_tpu/io_spec.py``, reduced to the serving side of
+``mulaw_io``: ``InputSpec``/``TargetSpec`` bind an extractor to a transform
+and an IO-module, ``IOSpec`` aggregates them and derives sr/unit.  Losses
+and batch reads come with the training slice and the data layer.
+"""
+from __future__ import annotations
+
+import dataclasses as dtc
+from typing import Dict, Mapping, Tuple
+
+from .config import Config, private_runtime_field
+from .features.extractor import Extractor
+from .features.functionals import (
+    Compose,
+    Continuous,
+    Discrete,
+    FileToSignal,
+    Functional,
+    MuLawCompress,
+    Normalize,
+    RemoveDC,
+)
+from .features.item_spec import Sample, Unit
+from .modules.io import FramedLinearIO, IOModule, MLPIO
+from .modules.targets import CategoricalSampler
+
+__all__ = [
+    "InputSpec",
+    "Objective",
+    "TargetSpec",
+    "IOSpec",
+]
+
+
+@dtc.dataclass
+class _FeatureSpec(Config, type_field=False):
+    extractor_name: str
+    transform: Functional
+    module: IOModule
+    extractor: Extractor = private_runtime_field(None)
+
+    def bind_to(self, extractor: Extractor):
+        self.extractor = extractor
+        return self
+
+    @property
+    def units(self):
+        return [
+            f.unit
+            for f in [self.extractor.functional, self.transform]
+            if f.unit is not None
+        ]
+
+    @property
+    def unit(self) -> Unit:
+        return self.units[-1]
+
+    @property
+    def elem_type(self):
+        el = tuple(
+            f.elem_type
+            for f in [self.extractor.functional, self.transform]
+            if f.elem_type is not None
+        )
+        return el[-1]
+
+    @property
+    def sr(self):
+        srs = [
+            f.unit.sr
+            for f in [self.extractor.functional, self.transform]
+            if isinstance(f.unit, Sample) and f.unit.sr is not None
+        ]
+        return srs[-1] if any(srs) else None
+
+    @property
+    def inv(self):
+        return self.transform.inv
+
+
+@dtc.dataclass
+class InputSpec(_FeatureSpec, type_field=False):
+    def bind_to(self, extractor: Extractor):
+        super().bind_to(extractor)
+        if isinstance(self.elem_type, Discrete):
+            self.module.set(class_size=self.elem_type.size)
+        elif isinstance(self.elem_type, Continuous):
+            self.module.set(in_dim=self.elem_type.size)
+        return self
+
+
+@dtc.dataclass
+class Objective(Config, type_field=False):
+    objective_type: str
+    params: Dict = dtc.field(default_factory=lambda: {})
+    weight: float = 1.0
+
+    def get_sampler(self):
+        if str(self.objective_type) == "categorical_dist":
+            return CategoricalSampler()
+        return None
+
+
+@dtc.dataclass
+class TargetSpec(_FeatureSpec, type_field=False):
+    objective: Objective = None
+    extra_loss_terms: Tuple[Objective, ...] = ()
+
+    def bind_to(self, extractor: Extractor):
+        super().bind_to(extractor)
+        ot = str(self.objective.objective_type)
+        if ot == "reconstruction":
+            self.module.set(out_dim=self.elem_type.size)
+        elif ot == "categorical_dist":
+            if not isinstance(self.elem_type, Discrete):
+                raise TypeError("categorical_dist needs a Discrete target")
+            self.module.set(
+                out_dim=self.elem_type.size, sampler=self.objective.get_sampler()
+            )
+        return self
+
+
+@dtc.dataclass
+class IOSpec(Config, type_field=False):
+    inputs: Tuple[InputSpec, ...]
+    targets: Tuple[TargetSpec, ...]
+
+    def bind_to(self, extractors):
+        """Bind every feature to its extractor.  ``extractors`` maps names to
+        :class:`Extractor` s, or has a ``schema`` attribute that does (the
+        JAX package's ``DatasetConfig``)."""
+        schema: Mapping[str, Extractor] = getattr(extractors, "schema", extractors)
+        for f in [*self.inputs, *self.targets]:
+            f.bind_to(schema[f.extractor_name])
+        return self
+
+    def _unanimous(self, attr: str, label: str):
+        values = {getattr(s, attr) for s in [*self.inputs, *self.targets]}
+        if len(values) > 1:
+            raise RuntimeError(
+                f"Expected to find a single {label} but found several:"
+                f" '{values}'"
+            )
+        return values.pop()
+
+    @property
+    def sr(self):
+        return self._unanimous("sr", "sample_rate")
+
+    @property
+    def unit(self) -> Unit:
+        return self._unanimous("unit", "time unit")
+
+    @dtc.dataclass
+    class MuLawIOConfig(Config):
+        sr: int = 16000
+        q_levels: int = 256
+        compression: float = 1.0
+        input_module_type: str = "framed_linear"
+        mlp_dim: int = 128
+        n_mlp_layers: int = 0
+        min_temperature: float = 1e-4
+        sampler_impl: str = "jax"
+
+    @staticmethod
+    def mulaw_io(config: "IOSpec.MuLawIOConfig", extractor: Extractor = None):
+        c = config
+        if extractor is None:
+            extractor = Extractor(
+                "signal", Compose(FileToSignal(c.sr), Normalize(), RemoveDC())
+            )
+        if c.input_module_type != "framed_linear":
+            raise ValueError(
+                f"input_module_type '{c.input_module_type}' is not ported"
+                " (only 'framed_linear')"
+            )
+        mu_law = MuLawCompress(c.q_levels, c.compression)
+        return IOSpec(
+            inputs=(
+                InputSpec(
+                    extractor_name=extractor.name,
+                    transform=mu_law,
+                    module=FramedLinearIO(),
+                ).bind_to(extractor),
+            ),
+            targets=(
+                TargetSpec(
+                    extractor_name=extractor.name,
+                    transform=mu_law,
+                    module=MLPIO(
+                        hidden_dim=c.mlp_dim,
+                        n_hidden_layers=c.n_mlp_layers,
+                        min_temperature=c.min_temperature,
+                    ),
+                    objective=Objective("categorical_dist"),
+                ).bind_to(extractor),
+            ),
+        )

@@ -1,0 +1,76 @@
+"""Activation factory (counterpart of ``mimikit_tpu/modules/activations.py``).
+
+``ActivationConfig.get()`` returns an ``nn.Module``.  The port carries the
+stateless activations; the learned variants (scaled, phase) are not ported
+yet and raise.
+"""
+from __future__ import annotations
+
+import dataclasses as dtc
+from typing import Callable, Dict
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..config import Config, private_runtime_field
+
+__all__ = ["ActivationConfig", "Mish", "Lambda", "mish"]
+
+
+def mish(x: torch.Tensor) -> torch.Tensor:
+    """``x * tanh(softplus(x))`` — the MLP head's hidden activation."""
+    return x * torch.tanh(F.softplus(x))
+
+
+class Mish(nn.Module):
+    def forward(self, x):
+        return mish(x)
+
+
+class Lambda(nn.Module):
+    """Stateless activation wrapper so plain functions compose as modules."""
+
+    def __init__(self, fn: Callable):
+        super().__init__()
+        self.fn = fn
+
+    def forward(self, x):
+        return self.fn(x)
+
+
+def _glu(x):
+    a, b = torch.chunk(x, 2, dim=-1)
+    return a * torch.sigmoid(b)
+
+
+_PLAIN = {
+    "Tanh": torch.tanh,
+    "Sigmoid": torch.sigmoid,
+    "ReLU": torch.relu,
+    "Softplus": F.softplus,
+    "Identity": lambda x: x,
+    "Abs": torch.abs,
+    "Sin": torch.sin,
+    "Cos": torch.cos,
+    "GLU": _glu,
+    "Softmax": lambda x: torch.softmax(x, dim=-1),
+}
+
+
+@dtc.dataclass
+class ActivationConfig(Config, type_field=False):
+    act: str = "Identity"
+    scaled: bool = False
+    static: bool = False
+    with_rate: bool = False
+    params: Dict = dtc.field(default_factory=lambda: {})
+    dim: int = private_runtime_field(None)
+
+    def get(self) -> nn.Module:
+        act = str(self.act)
+        if self.scaled or act not in ("Mish", *_PLAIN):
+            raise NotImplementedError(
+                f"activation {act!r} (scaled={self.scaled}) is not ported"
+            )
+        return Mish() if act == "Mish" else Lambda(_PLAIN[act])

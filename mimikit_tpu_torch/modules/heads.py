@@ -1,0 +1,59 @@
+"""MLP head with learned temperature (counterpart of
+``mimikit_tpu/modules/heads.py:18-57``).
+
+The last logit parameterizes a per-position temperature (sigmoid, floored at
+``min_temperature``) dividing the remaining logits.  The dense layers live in
+``self.fc`` interleaved with the activations, so the state_dict names are
+PyTorch mimikit's (``fc.0.weight``, ``fc.2.weight``, ...).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .activations import Mish
+
+__all__ = ["MLP", "learned_temperature"]
+
+
+def learned_temperature(logits: torch.Tensor, min_temperature: float) -> torch.Tensor:
+    """``logits[..., :-1] / max(sigmoid(logits[..., -1:]), min_temperature)``."""
+    temp = torch.sigmoid(logits[..., -1:])
+    return logits[..., :-1] / torch.clamp_min(temp, min_temperature)
+
+
+class MLP(nn.Module):
+    def __init__(
+        self,
+        in_dim: int,
+        hidden_dim: int,
+        out_dim: int,
+        n_hidden_layers: int = 0,
+        activation: Optional[nn.Module] = None,
+        use_bias: bool = True,
+        dropout: float = 0.0,
+        min_temperature: Optional[float] = 1e-4,
+    ):
+        super().__init__()
+        act = activation if activation is not None else Mish()
+        self.min_temperature = min_temperature
+        self.dropout = dropout
+        layers = [nn.Linear(in_dim, hidden_dim, bias=use_bias), act]
+        for _ in range(n_hidden_layers):
+            layers += [nn.Linear(hidden_dim, hidden_dim, bias=use_bias), act]
+        out = out_dim + int(min_temperature is not None)
+        layers.append(nn.Linear(hidden_dim, out, bias=use_bias))
+        self.fc = nn.Sequential(*layers)
+
+    def forward(self, x):
+        h = x
+        for i, layer in enumerate(self.fc):
+            h = layer(h)
+            if i % 2 == 1 and self.dropout > 0:
+                h = F.dropout(h, self.dropout, self.training)
+        if self.min_temperature is not None:
+            return learned_temperature(h, self.min_temperature)
+        return h

@@ -1,0 +1,55 @@
+"""Output heads: train/infer switch + temperature sampling (counterpart of
+``mimikit_tpu/modules/targets.py``).
+
+``OutputWrapper`` returns raw distribution parameters in training and
+sampled values at inference; ``CategoricalSampler`` does argmax (no
+temperature) or tempered categorical sampling from an explicit
+``torch.Generator``.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+__all__ = ["OutputWrapper", "CategoricalSampler"]
+
+
+class CategoricalSampler(nn.Module):
+    """argmax (no temperature) or tempered categorical sampling."""
+
+    sampling_params = frozenset({"temperature"})
+
+    def forward(self, logits, *, temperature=None, generator: Optional[torch.Generator] = None,
+                train: bool = False):
+        if train:
+            return logits
+        if temperature is None:
+            return torch.argmax(logits, dim=-1)
+        t = torch.as_tensor(temperature, dtype=logits.dtype, device=logits.device)
+        while t.ndim < logits.ndim:
+            t = t[..., None]
+        probs = torch.softmax(logits / t, dim=-1)
+        flat = probs.reshape(-1, probs.shape[-1])
+        out = torch.multinomial(flat, 1, generator=generator)
+        return out.reshape(probs.shape[:-1])
+
+
+class OutputWrapper(nn.Module):
+    """estimator -> params (train) | sampler(params) (eval)."""
+
+    def __init__(self, estimator: nn.Module, sampler: Optional[nn.Module]):
+        super().__init__()
+        self.estimator = estimator
+        self.sampler = sampler
+
+    def forward(self, x, train: bool = False, **sampler_kwargs):
+        params = self.estimator(x)
+        if not train and self.sampler is not None:
+            return self.sampler(params, train=False, **sampler_kwargs)
+        return params
+
+    @property
+    def sampling_params(self):
+        return getattr(self.sampler, "sampling_params", frozenset())

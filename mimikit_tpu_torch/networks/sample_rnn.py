@@ -1,0 +1,287 @@
+"""SampleRNN: tiered recurrent autoregressive audio model, PyTorch port.
+
+Counterpart of ``mimikit_tpu/networks/sample_rnn.py``.  Coarse frame-level
+LSTM tiers condition finer ones down to a per-sample MLP head.  Module and
+parameter names follow PyTorch mimikit's ``SampleRNN`` (``tiers.{i}``,
+``output_modules.{j}``), the names ``mimikit_tpu/migrate.py`` reads.
+
+Serving: ``generate`` and ``stream`` run on the network's device.  A network
+inside the decode kernel's scope (:func:`supports_kernel_decode`) on CUDA
+always goes through the hand-written kernel: ``decode_single`` for fewer than
+64 streams, ``decode_chunk`` (``_CHUNK`` steps a launch, state carried) for
+wider batches and for every stream.  On the CPU the same wrappers run the
+plain PyTorch twin.  Networks outside the scope run the plain step loop.
+"""
+from __future__ import annotations
+
+import dataclasses as dtc
+from enum import auto
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..features.functionals import Discrete
+from ..modules.io import FramedConv1dIO, FramedLinearIO, ZipReduceVariables
+from ..modules.resamplers import LinearResampler
+from ..modules.rnn import LSTM
+from ..ops.samplernn_decode import (
+    decode_chunk,
+    decode_plain,
+    decode_single,
+    init_decode_state,
+    samplernn_weight_pack,
+    supports_kernel_decode,
+)
+from ..utils import AutoStrEnum, resolve_device
+from .arm import ARMWithHidden, NetworkConfig
+
+__all__ = ["SampleRNN"]
+
+
+class RNNType(AutoStrEnum):
+    lstm = auto()
+    none = auto()
+
+
+class Tier(nn.Module):
+    """One tier: its input module, and for the frame tiers an LSTM and an
+    upsampler (PyTorch mimikit's ``tiers.{i}`` names)."""
+
+    def __init__(self, input_module, rnn=None, up_sampler=None):
+        super().__init__()
+        self.input_module = input_module
+        self.rnn = rnn
+        self.up_sampler = up_sampler
+
+
+class SampleRNN(ARMWithHidden):
+    @dtc.dataclass
+    class Config(NetworkConfig):
+        frame_sizes: Tuple[int, ...] = (16, 8, 8)
+        hidden_dim: int = 256
+        rnn_class: str = "lstm"
+        n_rnn: int = 1
+        rnn_dropout: float = 0.0
+        rnn_bias: bool = True
+        h0_init: str = "zeros"
+        weight_norm: bool = False
+        inputs_mode: str = "sum"
+        io_spec: "IOSpec" = None  # noqa: F821
+
+    # streams below this decode in one launch (decode_single); at and above
+    # it, and for every stream, in _CHUNK-step launches (decode_chunk)
+    _CHUNKED_MIN_B = 64
+    _CHUNK = 2048
+
+    @classmethod
+    def from_config(cls, config: "SampleRNN.Config", device=None, seed: int = 0) -> "SampleRNN":
+        """Build the network on ``device`` (default: the card), with weights
+        drawn from ``seed``."""
+        device = resolve_device(device)
+        if str(config.rnn_class) not in RNNType.__members__ or config.weight_norm:
+            raise NotImplementedError(
+                f"rnn_class={config.rnn_class!r}, weight_norm={config.weight_norm}"
+                " are not ported"
+            )
+        h, fs = config.hidden_dim, tuple(config.frame_sizes)
+        tiers, up_factors = [], []
+        for i, f in enumerate(fs[:-1]):
+            mods = tuple(
+                in_spec.module.copy().set(frame_size=f, hop_length=f, out_dim=h).module()
+                for in_spec in config.io_spec.inputs
+            )
+            up = f // (fs[i + 1] if i < len(fs) - 2 else 1)
+            up_factors.append(up)
+            rnn = (
+                LSTM(h, config.n_rnn, config.rnn_dropout)
+                if str(config.rnn_class) == "lstm" else None
+            )
+            tiers.append(
+                Tier(ZipReduceVariables(config.inputs_mode, mods), rnn,
+                     LinearResampler(h, t_factor=up, d_factor=1))
+            )
+        mods = []
+        for in_spec in config.io_spec.inputs:
+            params = {}
+            if isinstance(in_spec.elem_type, Discrete):
+                if not isinstance(in_spec.module, FramedLinearIO):
+                    raise NotImplementedError("embedding inputs are not ported")
+                params = dict(class_size=in_spec.elem_type.size)
+            mods.append(
+                FramedConv1dIO().set(**params, frame_size=fs[-1], hop_length=1, out_dim=h).module()
+            )
+        tiers.append(Tier(ZipReduceVariables(config.inputs_mode, tuple(mods))))
+        outputs = [
+            t_spec.module.copy().set(in_dim=h).module()
+            for t_spec in config.io_spec.targets
+        ]
+        net = cls(config=config, tiers=tiers, output_modules=outputs, up_factors=up_factors)
+        net.reset_parameters(torch.Generator().manual_seed(seed))
+        return net.to(device)
+
+    def __init__(self, *, config, tiers, output_modules, up_factors):
+        super().__init__()
+        self._config = config
+        self.frame_sizes = tuple(config.frame_sizes)
+        self.up_factors = tuple(up_factors)
+        self.tiers = nn.ModuleList(tiers)
+        self.output_modules = nn.ModuleList(output_modules)
+        self.hidden = None  # carried TBPTT state (train path)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """PyTorch's default initialisation, U(-1/sqrt(fan_in), 1/sqrt(fan_in)),
+        drawn from ``generator``."""
+        for m in self.modules():
+            if isinstance(m, nn.LSTM):
+                bound = 1.0 / np.sqrt(m.hidden_size)
+                params = list(m.parameters())
+            elif isinstance(m, (nn.Linear, nn.Conv1d)):
+                bound = 1.0 / np.sqrt(m.weight[0].numel())
+                params = list(m.parameters(recurse=False))
+            else:
+                continue
+            for p in params:
+                p.copy_(torch.rand(p.shape, generator=generator) * (2 * bound) - bound)
+
+    @property
+    def config(self) -> "SampleRNN.Config":
+        return self._config
+
+    @property
+    def rf(self):
+        return self.frame_sizes[0]
+
+    @property
+    def generate_params(self):
+        return {"temperature"}
+
+    def reset_hidden(self) -> None:
+        self.hidden = None
+
+    # -- training forward (sample_rnn.py:96-124) ------------------------------
+    def forward(self, inputs: Tuple, hidden=None):
+        """inputs: tuple of (B, fs0 + T) tensors.  Returns (outputs, hidden):
+        each output (B, T, Q) logits, ``hidden`` the tiers' final carries."""
+        fs = self.frame_sizes
+        fs0 = fs[0]
+        prev, new_hidden = None, []
+        for i, f in enumerate(fs[:-1]):
+            tier = self.tiers[i]
+            x = tier.input_module(tuple(v[:, fs0 - f : v.shape[1] - f] for v in inputs))
+            if prev is not None:
+                x = x + prev
+            if tier.rnn is not None:
+                x, h = tier.rnn.forward_seq(x, hidden[i] if hidden is not None else None)
+                new_hidden.append(h)
+            prev = tier.up_sampler(x)
+        f = fs[-1]
+        x = self.tiers[-1].input_module(tuple(v[:, fs0 - f : v.shape[1] - 1] for v in inputs))
+        if prev is not None:
+            x = x + prev
+        return tuple(mod(x, train=True) for mod in self.output_modules), tuple(new_hidden)
+
+    # -- one AR step (sample_rnn.py:127-189) -----------------------------------
+    def decode_step(self, t: int, win: Tuple, hidden, tier_out):
+        """One sample step at absolute position ``t``.
+
+        win: tuple of (B, rf) input windows ending at t (exclusive).
+        hidden: per frame tier, the LSTM carry; tier_out: per frame tier, the
+        (B, up_i, H) cached upsampled outputs.  Returns (per-target (B, Q)
+        logits after the learned temperature, new_hidden, new_tier_out) —
+        sampling is the caller's (``ops.samplernn_decode.decode_plain``)."""
+        fs = self.frame_sizes
+        rf, n = fs[0], len(fs)
+        new_hidden, new_tier_out = list(hidden), list(tier_out)
+        for i in range(n - 1):
+            f = fs[i]
+            if t % f:
+                continue
+            tier = self.tiers[i]
+            x = tier.input_module(tuple(w[:, rf - f :] for w in win))  # (B, 1, H)
+            if i > 0:
+                idx = (t // f) % self.up_factors[i - 1]
+                x = x + new_tier_out[i - 1][:, idx : idx + 1]
+            y = x[:, 0]
+            if tier.rnn is not None:
+                y, new_hidden[i] = tier.rnn.step(y, hidden[i])
+            new_tier_out[i] = tier.up_sampler(y[:, None, :])
+        f = fs[-1]
+        x = self.tiers[-1].input_module(tuple(w[:, rf - f :] for w in win))
+        idx = t % fs[-2]
+        x = x + new_tier_out[-1][:, idx : idx + 1]
+        logits = tuple(mod.estimator(x)[:, 0] for mod in self.output_modules)
+        return logits, tuple(new_hidden), tuple(new_tier_out)
+
+    # -- serving ---------------------------------------------------------------
+    def _prompt(self, prompts: Tuple) -> torch.Tensor:
+        if len(prompts) != 1 or len(self.config.io_spec.targets) != 1:
+            raise NotImplementedError("decoding supports one input and one target")
+        prompt = torch.as_tensor(prompts[0]).to(self.device, torch.int32).contiguous()
+        if prompt.shape[1] < self.rf:
+            raise ValueError(
+                f"prompt length {prompt.shape[1]} is shorter than rf={self.rf}"
+            )
+        return prompt
+
+    def _pack(self):
+        return samplernn_weight_pack(self) if supports_kernel_decode(self) else None
+
+    def _chunk(self, pack, prompt, state, t0: int, n: int, seed: int, temperature):
+        if pack is not None:
+            return decode_chunk(pack, prompt, state, t0, n, seed, temperature)
+        return decode_plain(self, prompt, state, t0, n, t0, n, seed, temperature)
+
+    @torch.no_grad()
+    def generate(self, prompts: Tuple, n_steps: int, temperature: Optional[float] = None,
+                 seed: Optional[int] = None) -> Tuple[torch.Tensor]:
+        """Decode ``n_steps`` new samples after each prompt.  ``temperature``
+        None is argmax.  Returns a tuple of one (B, prior_t + n_steps) tensor
+        (prompt + generation) on the network's device."""
+        prompt = self._prompt(prompts)
+        B, prior_t = prompt.shape
+        rf = self.rf
+        if seed is None:
+            seed = self.next_seed()
+        pack = self._pack()
+        if pack is not None and B < self._CHUNKED_MIN_B:
+            toks = decode_single(pack, prompt, n_steps, seed, temperature)
+        else:
+            state = init_decode_state(self, prompt, self._generator)
+            end, chunks = prior_t + n_steps, []
+            for t0 in range(rf, end, self._CHUNK):
+                n = min(self._CHUNK, end - t0)
+                chunks.append(self._chunk(pack, prompt, state, t0, n, seed, temperature))
+            toks = torch.cat(chunks, dim=1)[:, prior_t - rf :]
+        out = torch.cat([prompt, toks], dim=1)
+        return (out.to(torch.as_tensor(prompts[0]).dtype),)
+
+    def stream(self, prompts: Tuple, chunk_steps: int, temperature: Optional[float] = None,
+               seed: Optional[int] = None):
+        """Unbounded generation: yield (B, chunk_steps) numpy token chunks
+        forever, continuing exactly across chunks (the decode state is
+        carried), so the concatenated stream equals one long decode.  Noise
+        is keyed by absolute step, so sampled streams do not depend on
+        ``chunk_steps`` either."""
+        prompt = self._prompt(prompts)
+        prior_t = prompt.shape[1]
+        if seed is None:
+            seed = self.next_seed()
+        pack = self._pack()
+        state = init_decode_state(self, prompt, self._generator)
+        C = min(chunk_steps, self._CHUNK)
+
+        def dev_chunks():
+            t_abs = self.rf
+            while True:
+                with torch.no_grad():
+                    out = self._chunk(pack, prompt, state, t_abs, C, seed, temperature)
+                drop = min(C, max(0, prior_t - t_abs))  # prompt warm-up rows
+                t_abs += C
+                yield out, drop
+
+        from ..loops.streaming import _read_behind_chunks
+
+        yield from _read_behind_chunks(dev_chunks(), chunk_steps)

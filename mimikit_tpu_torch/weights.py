@@ -1,0 +1,78 @@
+"""Carry trained weights from the JAX package into the port.
+
+``samplernn_state_dict_from_jax`` turns a ``mimikit_tpu`` SampleRNN parameter
+tree — nested dicts of numpy arrays, as ``jax.device_get(net.params)`` gives
+it — into the port's state_dict.  It is the inverse of
+``mimikit_tpu/migrate.py:samplernn_params_from_state_dict``: dense kernels
+are transposed to torch's (out, in) layout, the bottom tier's flattened
+(k, out) kernel becomes a (out, 1, k) conv weight, the four per-gate LSTM
+kernels are packed i|f|g|o, and the flax cell's single hidden bias goes into
+``bias_hh`` with ``bias_ih`` zero (``migrate`` sums the two back).
+"""
+from __future__ import annotations
+
+import re
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+__all__ = ["samplernn_state_dict_from_jax"]
+
+_GATES = "ifgo"
+
+
+def samplernn_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX SampleRNN params -> the port's ``SampleRNN`` state_dict (CPU f32)."""
+    sd: Dict[str, np.ndarray] = {}
+    n_tiers = sum(1 for k in params if re.fullmatch(r"tier_inputs_\d+", k))
+
+    def dense(prefix, d):
+        sd[f"{prefix}.weight"] = np.asarray(d["kernel"]).T
+        sd[f"{prefix}.bias"] = np.asarray(d["bias"])
+
+    for i in range(n_tiers):
+        tin = params[f"tier_inputs_{i}"]
+        if "weights" in tin:
+            sd[f"tiers.{i}.input_module.weights"] = np.asarray(tin["weights"])
+        for name, head in tin.items():
+            m = re.fullmatch(r"heads_(\d+)", name)
+            if not m:
+                continue
+            base = f"tiers.{i}.input_module.heads.{m.group(1)}.2"
+            core = head["core"]
+            if "Dense_0" in core:
+                dense(base, core["Dense_0"])
+            else:
+                d = core["Conv1dResampler_0"]["Dense_0"]
+                kernel = np.asarray(d["kernel"])  # (k * c, out), c == 1
+                k, out = kernel.shape
+                sd[f"{base}.2.cv.weight"] = kernel.reshape(k, 1, out).transpose(2, 1, 0)
+                sd[f"{base}.2.cv.bias"] = np.asarray(d["bias"])
+        if f"rnn_t{i}" in params:
+            for name, cell in params[f"rnn_t{i}"].items():
+                layer = int(name[1:])
+                pre = f"tiers.{i}.rnn"
+                sd[f"{pre}.weight_ih_l{layer}"] = np.concatenate(
+                    [np.asarray(cell[f"i{g}"]["kernel"]).T for g in _GATES]
+                )
+                sd[f"{pre}.weight_hh_l{layer}"] = np.concatenate(
+                    [np.asarray(cell[f"h{g}"]["kernel"]).T for g in _GATES]
+                )
+                b = np.concatenate([np.asarray(cell[f"h{g}"]["bias"]) for g in _GATES])
+                sd[f"{pre}.bias_hh_l{layer}"] = b
+                sd[f"{pre}.bias_ih_l{layer}"] = np.zeros_like(b)
+        if f"up_t{i}" in params:
+            dense(f"tiers.{i}.up_sampler.fc", params[f"up_t{i}"]["Dense_0"])
+    for name, out in params.items():
+        m = re.fullmatch(r"outputs_(\d+)", name)
+        if not m:
+            continue
+        core = out["estimator"]["core"]
+        for dname, d in core.items():
+            k = int(dname.split("_")[1])
+            dense(f"output_modules.{m.group(1)}.estimator.0.fc.{2 * k}", d)
+    return {
+        k: torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32))
+        for k, v in sd.items()
+    }

@@ -1,0 +1,121 @@
+"""The port's boundaries: what it imports, where it runs, and the card test.
+
+* ``mimikit_tpu_torch`` imports torch and never jax nor ``mimikit_tpu``;
+  ``chip_smoke.py`` neither (checked in a fresh process and by a source scan);
+* its entry points run on the card unless the caller asks for the CPU, and a
+  CUDA request on a machine without CUDA raises instead of running on the
+  CPU;
+* on a machine with a card, ``chip_smoke.py --quick`` builds the decode
+  kernel and holds it against its plain twin (marked ``cuda``; skipped
+  without a card).
+
+Every torch import happens in a subprocess: this test process has jax.
+"""
+import json
+import os
+import re
+import subprocess
+import sys
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "mimikit_tpu_torch")
+
+
+def _python(code: str, timeout: int = 300) -> subprocess.CompletedProcess:
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    return subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          env=env, cwd=ROOT, timeout=timeout)
+
+
+def _sources():
+    paths = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, files in os.walk(PKG):
+        paths += [os.path.join(d, f) for f in files if f.endswith(".py")]
+    return sorted(paths)
+
+
+_FORBIDDEN = re.compile(
+    r"^\s*(import\s+(jax|flax|optax)\b|from\s+(jax|flax|optax)\b"
+    r"|import\s+mimikit_tpu(?!_torch)\b|from\s+mimikit_tpu(?!_torch)\b)",
+    re.M,
+)
+
+
+_CUDA_CALLS = [
+    "mmk.default_device()",
+    "mmk.SampleRNN.from_config(cfg)",
+    "mmk.SampleRNN.from_config(cfg, device='cuda')",
+    "net.generate((torch.zeros(2, 16, dtype=torch.int32, device='cuda'),), 4)",
+    "sd._launch(pack, p, st, 8, 4, torch.empty(2, 4, dtype=torch.int32), 16, 0, None)",
+]
+
+_PROBE = """
+import json, sys
+import torch, mimikit_tpu_torch as mmk
+from mimikit_tpu_torch.ops import samplernn_decode as sd
+res = {"cuda": torch.cuda.is_available()}
+res["foreign"] = [m for m in sys.modules
+                  if m.split(".")[0] in ("jax", "flax", "optax", "mimikit_tpu")]
+io = mmk.IOSpec.mulaw_io(mmk.IOSpec.MuLawIOConfig(q_levels=32, mlp_dim=16))
+cfg = mmk.SampleRNN.Config(frame_sizes=(8, 4, 2), hidden_dim=16, io_spec=io)
+net = mmk.SampleRNN.from_config(cfg, device="cpu")
+pack = sd.samplernn_weight_pack(net)
+p = torch.zeros(2, 16, dtype=torch.int32)
+st = sd.init_decode_state(net, p)
+for call in CALLS:
+    try:
+        eval(call)
+        res[call] = "ran"
+    except (RuntimeError, AssertionError, ValueError) as e:
+        res[call] = "raised " + type(e).__name__
+out = sd.decode_chunk(pack, p, st, 8, 4, 0, None)
+res["cpu_chunk"] = [list(out.shape), sd.decode_chunk.launches, sd.decode_single.launches]
+print(json.dumps(res))
+"""
+
+
+@pytest.fixture(scope="module")
+def probe():
+    """One fresh process: what importing the port loads, and how each call
+    behaves on this machine."""
+    res = _python(f"CALLS = {_CUDA_CALLS!r}\n" + _PROBE)
+    assert res.returncode == 0, res.stderr[-3000:]
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+def test_fresh_import_loads_neither_jax_nor_the_jax_package(probe):
+    assert probe["foreign"] == []
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: os.path.relpath(p, ROOT))
+def test_source_imports_neither_jax_nor_the_jax_package(path):
+    with open(path) as f:
+        hits = _FORBIDDEN.findall(f.read())
+    assert not hits, hits
+
+
+@pytest.mark.parametrize("call", _CUDA_CALLS)
+def test_cuda_request_without_cuda_raises(probe, call):
+    """No card here: asking for CUDA raises (the kernel launcher refuses a
+    CPU tensor); nothing runs on the CPU instead."""
+    if probe["cuda"]:
+        pytest.skip("a CUDA device is present")
+    assert probe[call].startswith("raised"), probe[call]
+
+
+def test_cpu_tensors_take_the_plain_twin(probe):
+    """The wrappers choose the plain twin by the tensor's device: on CPU
+    tensors they return tokens and count no kernel launch."""
+    assert probe["cpu_chunk"] == [[2, 4], 0, 0]
+
+
+@pytest.mark.cuda
+def test_decode_kernel_matches_plain_twin_on_card():
+    probe = _python("import torch; print(torch.cuda.is_available())")
+    if probe.stdout.strip() != "True":
+        pytest.skip("needs a CUDA device and nvcc (run on the card: python3 chip_smoke.py)")
+    res = subprocess.run([sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--quick"],
+                         capture_output=True, text=True, cwd=ROOT, timeout=900)
+    assert res.returncode == 0, res.stdout[-3000:] + res.stderr[-3000:]
