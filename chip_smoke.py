@@ -7,35 +7,56 @@ CUDA device and ``nvcc``; it imports nothing of JAX or of ``mimikit_tpu``.
 Phases (any failure exits non-zero; no exception is swallowed):
 
 1. environment and build: the card's name and power limit, torch/CUDA
-   versions; build ``csrc/samplernn_decode.cu`` for sm_90a and time it;
-2. kernel against its plain twin, for ``decode_single`` and
-   ``decode_chunk``, argmax and sampled (temperature 0.9), at a small size
-   and at the main path's widths.  The kernel's tokens are verified by
-   teacher forcing: fed back as the prompt of the plain PyTorch twin, every
-   kernel token must score within 1e-4 * max|score| of its row's maximum,
-   and the free-running plain tokens must equal the kernel's up to the
-   first such near-tie.  Several chunk lengths and stream groupings must
-   give identical tokens;
-3. the main path at full width (bench.py's mu-law SampleRNN-3: frame_sizes
-   (16, 8, 8), hidden 256, q 256, a two-layer Mish head; random weights from
-   a seed): ``generate`` with B=4 (decode_single's route) and with B=256 for
-   16384 steps at temperature 0.9 (decode_chunk's route), median of 3 with
-   spread, the B=256 output itself verified as in phase 2; ``stream_audio``
-   over 1600-step chunks, which must equal that output mu-law expanded; each
-   wrapper and its plain twin timed on one call at the main path's shapes;
-4. a ``kernels`` JSON line, the card line, and the device line last.
+   versions; build ``csrc/samplernn_decode.cu`` and ``csrc/fused_lstm.cu``
+   for sm_90a, both nvcc runs started together, and time them;
+2. each kernel against its plain twin at a small size and at the main
+   paths' widths.  ``decode_single`` and ``decode_chunk``, argmax and
+   sampled (temperature 0.9): the kernel's tokens are verified by teacher
+   forcing: fed back as the prompt of the plain PyTorch twin, every kernel
+   token must score within 1e-4 * max|score| of its row's maximum, and the
+   free-running plain tokens must equal the kernel's up to the first such
+   near-tie; several chunk lengths and stream groupings must give identical
+   tokens.  ``lstm_forward`` and ``lstm_backward`` (the fused LSTM layer) at
+   (T, B, H) = (12, 4, 16) and at the two tier shapes of the training path,
+   (128, 32, 256) and (256, 32, 256): h_all, h_T, c_T within 1e-5 +
+   1e-5 * max|plain| and all six gradients within 1e-5 + 1e-4 * max|plain|
+   of the plain versions (f32, summed in another order); and one full
+   SampleRNN-3 train step (B=32 x 2048) with the kernels against the same
+   step on the CPU (plain versions): loss within 1e-5 relative, every
+   parameter's gradient within 1e-5 + 1e-3 * max|plain|;
+3. the serving path at full width (bench.py's mu-law SampleRNN-3:
+   frame_sizes (16, 8, 8), hidden 256, q 256, a two-layer Mish head; random
+   weights from a seed): ``generate`` with B=4 (decode_single's route) and
+   with B=256 for 16384 steps at temperature 0.9 (decode_chunk's route),
+   median of 3 with spread, the B=256 output itself verified as in phase 2;
+   ``stream_audio`` over 1600-step chunks, which must equal that output
+   mu-law expanded;
+4. the training path at full width: 60 s of 16 kHz two-tone audio made with
+   scipy, ``DatasetConfig.create``, ``TrainARMLoop`` at B=32 x 2048 with
+   TBPTT over 8 x 2048 samples, 4 epochs of 8 steps, seeded batches: every
+   epoch's mean loss finite and the last below the first; ``epoch=4.ckpt``
+   reloaded through ``Checkpoint(...).network`` with equal parameters and
+   decoded at B=4 through decode_single (verified as in phase 2); the train
+   step timed (median of 3 windows of 8 steps, CUDA events) and profiled;
+5. each wrapper, its plain twin and (for the LSTM kernels) cuDNN's
+   ``nn.LSTM`` timed at the main paths' shapes; a ``kernels`` JSON line, the
+   card line, and the device line last.
 
 ``--quick`` runs phases 1-2 at the small size only (a build check);
-``--bench`` runs phase 1 and phase 3's timings without the checks, plus
-decode_chunk at B=256 for each number of streams a block owns.
+``--bench`` runs phase 1, phase 3's timings without the checks, decode_chunk
+at B=256 for each number of streams a block owns, the LSTM kernels' timings
+and phase 4.
 """
 import argparse
+import copy
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -50,6 +71,10 @@ SMALL = dict(frame_sizes=(8, 4, 2), hidden_dim=32, q_levels=32, mlp_dim=32)
 TEMPERATURE = 0.9
 TOL = 1e-4  # a kernel token must score within TOL * max|score| of the row max
 N_SMALL, N_WIDE, STREAM_CHUNK, SEED = 4096, 16384, 1600, 1234
+# (T, B, D, H) of the LSTM checks: small, then the two tier LSTMs of the
+# training path (2048 samples a window, frames of 16 and 8, B=32, H=256)
+LSTM_SHAPES = ((12, 4, 8, 16), (128, 32, 256, 256), (256, 32, 256, 256))
+TRAIN_B, TRAIN_LEN, TRAIN_EPOCHS, TRAIN_STEPS = 32, 2048, 4, 8
 
 
 def log(*a):
@@ -271,9 +296,10 @@ def main_path(torch, mmk, net, p4, p256):
     return outs
 
 
-def bench(torch, mmk, sd):
-    """--bench: the main path's timings, and decode_chunk at B=256 for each
-    number of streams a block can own."""
+def bench(torch, mmk, sd, fl):
+    """--bench: the serving path's timings, decode_chunk at B=256 for each
+    number of streams a block can own, the LSTM kernels' timings and the
+    training path (phase 4)."""
     net = make_net(mmk, torch, FULL, seed=0)
     rf = net.rf
     p4, p256 = (make_prompt(torch, B, 2 * rf, FULL["q_levels"], seed=B) for B in (4, 256))
@@ -286,6 +312,268 @@ def bench(torch, mmk, sd):
         med, spr = spread(ms)
         log(f"  decode_chunk B=256 steps={net._CHUNK} group={g}: {med:.3f} ms"
             f" (median of 3, spread {spr:.3%})")
+    lstm_timings(torch, fl)
+    train_path(torch, mmk, fl, sd)
+
+
+
+# -- the fused LSTM layer (training path) ---------------------------------------
+
+def lstm_inputs(torch, T, B, D, H, seed):
+    """Layer inputs x, Wi, Wh, b, h0, c0 and cotangents of h_all, h_T, c_T
+    on the card, drawn from a seed."""
+    g = torch.Generator().manual_seed(seed)
+
+    def mk(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g) * scale).cuda()
+
+    args = (mk(T, B, D), mk(D, 4 * H, scale=D ** -0.5), mk(H, 4 * H, scale=H ** -0.5),
+            mk(4 * H, scale=0.1), mk(B, H, scale=0.3), mk(B, H, scale=0.3))
+    return args, (mk(T, B, H), mk(B, H), mk(B, H))
+
+
+def lstm_kernel_layer(torch, fl, args, cts):
+    """The layer through the kernels: outputs and the six gradients."""
+    ins = [a.clone().requires_grad_() for a in args]
+    out = fl.fused_lstm_layer(*ins)
+    return tuple(o.detach() for o in out), torch.autograd.grad(out, ins, cts)
+
+
+def lstm_plain_layer(torch, fl, args, cts):
+    """The same layer through the plain versions, on the same inputs."""
+    x, Wi, Wh, b, h0, c0 = args
+    T, B, D = x.shape
+    xi = torch.addmm(b, x.reshape(T * B, D), Wi).reshape(T, B, -1)
+    h_all, c_all, gates = fl.lstm_forward_plain(xi, Wh, h0, c0)
+    dxi, dWh, dh0, dc0 = fl.lstm_backward_plain(*cts, gates, c_all, h_all, h0, c0, Wh)
+    d2 = dxi.reshape(T * B, -1)
+    grads = ((d2 @ Wi.t()).reshape(T, B, D), x.reshape(T * B, D).t() @ d2, dWh, d2.sum(0),
+             dh0, dc0)
+    return (h_all, h_all[-1], c_all[-1]), grads
+
+
+def close(name, k, p, atol, rtol):
+    """max |k - p|, raising when it exceeds atol + rtol * max|p|."""
+    err, scale = float((k - p).abs().max()), float(p.abs().max())
+    if not err <= atol + rtol * scale:
+        raise AssertionError(f"{name}: max |kernel - plain| {err:.3e} exceeds"
+                             f" {atol:g} + {rtol:g} * {scale:.3e}")
+    return err
+
+
+def check_lstm(torch, fl, shapes):
+    """Phase 2 for the LSTM kernels; returns {wrapper: largest abs error}."""
+    err = {"lstm_forward": 0.0, "lstm_backward": 0.0}
+    for T, B, D, H in shapes:
+        args, cts = lstm_inputs(torch, T, B, D, H, seed=T + H)
+        k_out, k_grads = lstm_kernel_layer(torch, fl, args, cts)
+        torch.cuda.synchronize()
+        p_out, p_grads = lstm_plain_layer(torch, fl, args, cts)
+        fwd = [close(n, k, p, 1e-5, 1e-5)
+               for n, k, p in zip(("h_all", "h_T", "c_T"), k_out, p_out)]
+        bwd = [close(n, k, p, 1e-5, 1e-4)
+               for n, k, p in zip(("dx", "dWi", "dWh", "db", "dh0", "dc0"), k_grads, p_grads)]
+        err["lstm_forward"] = max(err["lstm_forward"], *fwd)
+        err["lstm_backward"] = max(err["lstm_backward"], *bwd)
+        log(f"  fused LSTM layer (T, B, H) = ({T}, {B}, {H}): ok, max |error| outputs"
+            f" {max(fwd):.3e}, gradients {max(bwd):.3e}"
+            f" (dx, dWi, dWh, db, dh0, dc0: {', '.join(f'{e:.2e}' for e in bwd)})")
+    return err
+
+
+def train_net(mmk, seed, extractor=None):
+    io = mmk.IOSpec.mulaw_io(
+        mmk.IOSpec.MuLawIOConfig(q_levels=FULL["q_levels"], mlp_dim=FULL["mlp_dim"]),
+        extractor=extractor,
+    )
+    cfg = mmk.SampleRNN.Config(frame_sizes=FULL["frame_sizes"],
+                               hidden_dim=FULL["hidden_dim"], io_spec=io)
+    return mmk.SampleRNN.from_config(cfg, device="cuda", seed=seed)
+
+
+def check_train_step(torch, mmk):
+    """One full-width train step's loss and gradients, kernels (on the card)
+    against the plain versions (the same step on the CPU)."""
+    net = train_net(mmk, seed=3)
+    g = torch.Generator().manual_seed(4)
+    x = torch.randint(0, FULL["q_levels"], (TRAIN_B, net.rf + TRAIN_LEN), generator=g)
+    y = torch.randint(0, FULL["q_levels"], (TRAIN_B, TRAIN_LEN), generator=g)
+    runs = []
+    for n, dev in ((net, "cuda"), (copy.deepcopy(net).cpu(), "cpu")):
+        outputs, _ = n((x.to(dev),))
+        loss = n.config.io_spec.loss_fn(outputs, (y.to(dev),))["loss"]
+        loss.backward()
+        runs.append((loss.item(), {k: p.grad.cpu() for k, p in n.named_parameters()}))
+    (lk, gk), (lp, gp) = runs
+    if not abs(lk - lp) <= 1e-5 * abs(lp):
+        raise AssertionError(f"train step loss: kernels {lk!r}, plain {lp!r}")
+    worst = max(close(f"grad {k}", gk[k], gp[k], 1e-5, 1e-3) for k in gp)
+    log(f"  full train step B={TRAIN_B} x {TRAIN_LEN}: ok, loss kernels {lk:.7f} / plain"
+        f" {lp:.7f}, max |grad error| {worst:.3e} over {len(gp)} parameters")
+
+
+def lstm_bound(T, B, H, backward):
+    """(bound_ms, bound_by) of one forward or backward call: f32 operations
+    (recurrent products, the xi add and ~10 (forward) or ~20 (backward)
+    elementwise operations a hidden unit) over the card's f32 rate, against
+    each input read once and each output written once over its memory rate.
+    The chain of T dependent steps is not in the bound."""
+    H4 = 4 * H
+    if not backward:
+        flops = 2 * T * B * H * H4 + T * B * H4 + 10 * T * B * H
+        nbytes = 4 * (T * B * H4 + H * H4 + 2 * B * H + 2 * T * B * H + T * B * H4)
+    else:
+        flops = 2 * (2 * T * B * H4 * H) + 20 * T * B * H
+        nbytes = 4 * (3 * T * B * H + T * B * H4 + 4 * B * H + H * H4
+                      + T * B * H4 + H * H4 + 2 * B * H)
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def lstm_timings(torch, fl):
+    """Per tier shape of the training path: kernel, plain twin and cuDNN
+    ``nn.LSTM`` (the yardstick; the port never calls it) ms for the forward
+    and for the backward (cuDNN: forward + backward)."""
+    out = {}
+    for T, B, D, H in LSTM_SHAPES[1:]:
+        args, cts = lstm_inputs(torch, T, B, D, H, seed=T)
+        x, Wi, Wh, b, h0, c0 = args
+        xi = torch.addmm(b, x.reshape(T * B, D), Wi).reshape(T, B, -1)
+        h_all, c_all, gates = fl.lstm_forward(xi, Wh, h0, c0)
+        bw = (*cts, gates, c_all, h_all, h0, c0, Wh)
+        ref = torch.nn.LSTM(D, H).cuda()
+        xr = x.clone().requires_grad_()
+        hc = (h0[None], c0[None])
+
+        def cudnn_fb():
+            y, _ = ref(xr, hc)
+            y.backward(cts[0])
+
+        row = {}
+        for name, kern, plain, lib in (
+            ("lstm_forward", lambda: fl.lstm_forward(xi, Wh, h0, c0),
+             lambda: fl.lstm_forward_plain(xi, Wh, h0, c0), lambda: ref(xr, hc)),
+            ("lstm_backward", lambda: fl.lstm_backward(*bw),
+             lambda: fl.lstm_backward_plain(*bw), cudnn_fb),
+        ):
+            kern(), lib()
+            k_ms, k_spr = spread(cuda_ms(torch, kern, reps=5))
+            p_ms = cuda_ms(torch, plain, reps=1)[0]
+            l_ms, _ = spread(cuda_ms(torch, lib, reps=5))
+            bound, by = lstm_bound(T, B, H, name == "lstm_backward")
+            row[name] = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=bound, bound_by=by)
+            log(f"  {name} (T, B, H) = ({T}, {B}, {H}): kernel {k_ms:.4f} ms (median of 5,"
+                f" spread {k_spr:.2%}), plain twin {p_ms:.3f} ms, cuDNN nn.LSTM"
+                f" {'forward' if name == 'lstm_forward' else 'forward+backward'} {l_ms:.4f} ms,"
+                f" bound {bound:.4f} ms by {by}")
+        out[T] = row
+    return out
+
+
+def train_path(torch, mmk, fl, sd):
+    """Phase 4; returns (launches, train step ms windows)."""
+    from scipy.io import wavfile
+    from mimikit_tpu_torch.data import h5
+
+    work = os.path.join(ROOT, "build", "chip_smoke_train")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    sr = 16000
+    t = np.arange(sr * 60) / sr
+    y = (0.6 * np.sin(2 * np.pi * 220 * t) + 0.2 * np.sin(2 * np.pi * 587 * t)).astype(np.float32)
+    wav = os.path.join(work, "s.wav")
+    wavfile.write(wav, sr, (y * 32767).astype(np.int16))
+    ds = mmk.DatasetConfig(sources=(wav,), filename=os.path.join(work, "db.h5"),
+                           extractors=(mmk.Extractor.signal(sr=sr),))
+    t0 = time.perf_counter()
+    db = ds.create(mode="w")
+    log(f"  DatasetConfig.create: {db.signal.shape[0]} samples in"
+        f" {time.perf_counter() - t0:.2f} s (file layer: {h5.backend()})")
+    net = train_net(mmk, seed=0, extractor=ds.extractors[0])
+    cfg = mmk.TrainARMConfig(
+        root_dir=os.path.join(work, "tr"), batch_size=TRAIN_B, batch_length=TRAIN_LEN,
+        tbptt_chunk_length=8 * TRAIN_LEN, max_epochs=TRAIN_EPOCHS,
+        limit_train_batches=TRAIN_STEPS, every_n_epochs=2, MONITOR_TRAINING=False,
+        trainer_kwargs={"data_seed": SEED},
+    )
+    loop = mmk.TrainARMLoop.from_config(cfg, db, net)
+    for w in (fl.lstm_forward, fl.lstm_backward, sd.decode_single, sd.decode_chunk):
+        w.launches = 0
+    t0 = time.perf_counter()
+    loop.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    means = [h["loss"] for _, h in loop.metrics.history]
+    if len(means) != TRAIN_EPOCHS or not all(np.isfinite(means)) or not means[-1] < means[0]:
+        raise AssertionError(f"epoch mean losses {means}: not finite and falling")
+    log(f"  TrainARMLoop: {loop.global_step} steps over {TRAIN_EPOCHS} epochs in {wall:.2f} s"
+        f" (first step's set-up included); epoch mean losses {means}")
+
+    files = sorted(os.listdir(os.path.join(cfg.root_dir, loop.hash_)))
+    ck = mmk.Checkpoint(loop.hash_, TRAIN_EPOCHS, cfg.root_dir, device="cuda")
+    if os.path.basename(ck.os_path) not in files:
+        raise AssertionError(f"no epoch={TRAIN_EPOCHS}.ckpt in {files}")
+    net2 = ck.network
+    live = net.state_dict()
+    diff = [k for k, v in net2.state_dict().items() if not torch.equal(v, live[k])]
+    if diff:
+        raise AssertionError(f"reloaded parameters differ: {diff}")
+    prompt = make_prompt(torch, 4, 2 * net2.rf, FULL["q_levels"], seed=9)
+    toks = net2.eval().generate((prompt,), 1024)[0][:, prompt.shape[1]:]
+    gap, parted = verify(torch, sd, net2, prompt, toks, SEED, None)
+    log(f"  {files}: epoch={TRAIN_EPOCHS}.ckpt reloaded with equal parameters; argmax"
+        f" generate B=4 x 1024 from it verified (max gap {gap:.3e}, {parted} streams"
+        f" parted at near-ties)")
+    launches = {w.__name__: w.launches
+                for w in (fl.lstm_forward, fl.lstm_backward, sd.decode_single)}
+    log(f"  launches on the training path: {launches}")
+    if min(launches.values()) == 0:
+        raise AssertionError(f"a kernel of the training path was never launched: {launches}")
+
+    # the train step, as the loop runs it (gather + step), over TBPTT chunks
+    def window():
+        hidden = None
+        for k, (inputs, targets) in enumerate(loop._batches()):
+            if k == TRAIN_STEPS:
+                break
+            _, hidden = loop.train_step(inputs, targets, hidden)
+
+    window()
+    ms = [w / TRAIN_STEPS for w in cuda_ms(torch, window, reps=3)]
+    med, spr = spread(ms)
+    log(f"  train step B={TRAIN_B} x {TRAIN_LEN}: {TRAIN_B * TRAIN_LEN / (med / 1e3):.6g}"
+        f" samples/s (median of 3 windows of {TRAIN_STEPS} steps: {med:.4f} ms/step,"
+        f" spread {spr:.3%}; {ms})")
+    profile_steps(torch, window)
+    return launches
+
+
+def profile_steps(torch, window):
+    """Device time by kernel over one window of train steps (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        window()
+        torch.cuda.synchronize()
+    wall_us = 1e6 * (time.perf_counter() - t0)
+    rows = []
+    for e in prof.key_averages():
+        if not str(getattr(e, "device_type", "")).endswith("CUDA") or "#" in e.key:
+            continue  # a host op or an annotation: its kernels are rows of their own
+        dev = getattr(e, "self_device_time_total", None)
+        if dev is None:
+            dev = getattr(e, "self_cuda_time_total", 0.0)
+        if dev > 0:
+            rows.append((dev, e.key, e.count))
+    rows.sort(reverse=True)
+    total = sum(r[0] for r in rows)
+    log(f"  profile of one window ({TRAIN_STEPS} steps): kernels {total / 1e3:.3f} ms of"
+        f" {wall_us / 1e3:.3f} ms wall (profiler on; idle share {1 - total / wall_us:.1%})")
+    for dev, key, count in rows[:16]:
+        log(f"    {dev / 1e3 / TRAIN_STEPS:9.4f} ms/step  {100 * dev / total:5.1f}%"
+            f"  x{count // TRAIN_STEPS:<3d} {key[:90]}")
 
 
 def main(argv=None) -> int:
@@ -293,7 +581,7 @@ def main(argv=None) -> int:
     mode = ap.add_mutually_exclusive_group()
     mode.add_argument("--quick", action="store_true", help="phases 1-2 at the small size only")
     mode.add_argument("--bench", action="store_true",
-                      help="phase 1 and the main path's timings only, no checks")
+                      help="phase 1, the timings and phase 4; no kernel checks")
     args = ap.parse_args(argv)
 
     import torch
@@ -303,6 +591,7 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, ROOT)
     import mimikit_tpu_torch as mmk
+    from mimikit_tpu_torch.ops import fused_lstm as fl
     from mimikit_tpu_torch.ops import samplernn_decode as sd
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -312,31 +601,43 @@ def main(argv=None) -> int:
     card = card_line()
     log(f"phase 1: {card}; torch {torch.__version__}, CUDA {torch.version.cuda},"
         f" python {sys.version.split()[0]}")
+    def timed_build(build):
+        t = time.perf_counter()
+        build()
+        return time.perf_counter() - t
+
     t = time.perf_counter()
-    sd.build_kernel()
-    build_s = time.perf_counter() - t
-    for line in sd._Kernel.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            log("  ptxas:", line.strip())
-    log(f"  built {sd.SOURCE.name} for sm_90a in {build_s:.1f} s")
+    with ThreadPoolExecutor(2) as pool:  # one nvcc per source, started together
+        builds = [(mod, pool.submit(timed_build, b)) for mod, b in
+                  ((sd, sd.build_kernel), (fl, fl.build_lstm_kernel))]
+        builds = [(mod, f.result()) for mod, f in builds]
+    for mod, build_s in builds:
+        for line in mod._Kernel.build_log.splitlines():
+            if "registers" in line or "spill" in line:
+                log("  ptxas:", line.strip())
+        log(f"  built {mod.SOURCE.name} for sm_90a in {build_s:.1f} s")
+    log(f"  both builds took {time.perf_counter() - t:.1f} s")
 
     if args.bench:
-        bench(torch, mmk, sd)
+        bench(torch, mmk, sd, fl)
         log(card)
         return 0
 
     # -- phase 2 -------------------------------------------------------------
-    log("phase 2: kernel against its plain twin")
+    log("phase 2: each kernel against its plain twin")
     err = check_kernels(torch, mmk, sd, SMALL, 4, 64, 300, (300 + 16, 7, 64), jitter=0.5)
+    err.update(check_lstm(torch, fl, LSTM_SHAPES[:1]))
     if args.quick:
-        log(json.dumps({"ok": True, "quick": True, "max_gap": err}))
+        log(json.dumps({"ok": True, "quick": True, "max_err": err}))
         return 0
     err_full = check_kernels(torch, mmk, sd, FULL, 4, 256, 2048, (2048 + 32, 700, 1600),
                              jitter=0.0)
+    err_full.update(check_lstm(torch, fl, LSTM_SHAPES[1:]))
     err = {k: max(err[k], err_full[k]) for k in err}
+    check_train_step(torch, mmk)
 
     # -- phase 3 -------------------------------------------------------------
-    log("phase 3: the main path at full width")
+    log("phase 3: the serving path at full width")
     net = make_net(mmk, torch, FULL, seed=0)
     rf = net.rf
     p4, p256 = (make_prompt(torch, B, 2 * rf, FULL["q_levels"], seed=B) for B in (4, 256))
@@ -349,9 +650,16 @@ def main(argv=None) -> int:
         f" near-ties")
     launches = {"decode_single": sd.decode_single.launches,
                 "decode_chunk": sd.decode_chunk.launches}
-    log(f"  launches on the main path: {launches}")
+    log(f"  launches on the serving path: {launches}")
     if min(launches.values()) == 0:
-        raise AssertionError(f"a kernel of the main path was never launched: {launches}")
+        raise AssertionError(f"a kernel of the serving path was never launched: {launches}")
+
+    # -- phase 4 -------------------------------------------------------------
+    log("phase 4: the training path at full width")
+    train_launches = train_path(torch, mmk, fl, sd)
+
+    # -- phase 5 -------------------------------------------------------------
+    log("phase 5: each wrapper, its plain twin and its yardstick at the main paths' shapes")
 
     # each wrapper, and its plain twin, on one call at the main path's shapes
     pack = sd.samplernn_weight_pack(net)
@@ -382,8 +690,15 @@ def main(argv=None) -> int:
             launches=launches[name], max_abs_err=err[name], ms=k_ms, plain_ms=p_ms,
             bound_ms=bound, bound_by=by, library_ms=None,
         ))
+    # the LSTM rows at the wider tier shape, (T, B, H) = (256, 32, 256)
+    lstm = lstm_timings(torch, fl)[LSTM_SHAPES[-1][0]]
+    for name, line in (("lstm_forward", 111), ("lstm_backward", 197)):
+        rows.append(dict(
+            name=name, route="cuda", source="mimikit_tpu_torch/csrc/fused_lstm.cu",
+            replaces=f"mimikit_tpu/ops/pallas_lstm.py:{line}",
+            launches=train_launches[name], max_abs_err=err[name], **lstm[name],
+        ))
 
-    # -- phase 4 -------------------------------------------------------------
     log(json.dumps({"kernels": rows}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -4,8 +4,10 @@ A second package beside the JAX one (``mimikit_tpu``, the reference).  It
 imports ``torch`` and never ``jax`` nor anything of ``mimikit_tpu``, keeps
 the JAX package's module layout and flat ``mmk.<Name>`` namespace, and runs
 its hot paths through kernels written by hand for NVIDIA Hopper
-(``csrc/``).  This slice serves mu-law SampleRNN: ``SampleRNN.generate``,
-``SampleRNN.stream``, ``stream_tokens`` and ``stream_audio``.
+(``csrc/``).  It trains mu-law SampleRNN (``DatasetConfig.create``,
+``TrainARMLoop``, ``Checkpoint``; the LSTM tiers through hand-written forward
+and backward kernels) and serves it (``SampleRNN.generate``,
+``SampleRNN.stream``, ``stream_tokens`` and ``stream_audio``).
 
 Entry points run on the card (``cuda``) unless the caller passes
 ``device="cpu"``.
@@ -15,6 +17,7 @@ __version__ = "0.1.0"
 
 from .config import *
 from .utils import *
+from .data import *
 from .features import *
 from .io_spec import *
 from .modules import *
@@ -22,3 +25,5 @@ from .networks import *
 from .loops import *
 from .ops import *
 from .weights import *
+from .optim import *
+from .checkpoint import *

@@ -1,3 +1,4 @@
 from .item_spec import *
 from .functionals import *
 from .extractor import *
+from .dataset import *

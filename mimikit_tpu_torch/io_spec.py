@@ -1,9 +1,11 @@
 """IOSpec: the wiring layer between data features and modules.
 
-Counterpart of ``mimikit_tpu/io_spec.py``, reduced to the serving side of
-``mulaw_io``: ``InputSpec``/``TargetSpec`` bind an extractor to a transform
-and an IO-module, ``IOSpec`` aggregates them and derives sr/unit.  Losses
-and batch reads come with the training slice and the data layer.
+Counterpart of ``mimikit_tpu/io_spec.py``, reduced to ``mulaw_io``:
+``InputSpec``/``TargetSpec`` bind an extractor to a transform and an
+IO-module and turn a network's ``ItemSpec`` into a windowed read
+(``to_batch_item``); ``TargetSpec.loss_fn``/``IOSpec.loss_fn`` score
+outputs (a dict with ``loss`` and one key per objective, weights applied);
+``IOSpec`` aggregates the specs and derives sr/unit.
 """
 from __future__ import annotations
 
@@ -11,6 +13,7 @@ import dataclasses as dtc
 from typing import Dict, Mapping, Tuple
 
 from .config import Config, private_runtime_field
+from .data.batch import AsSlice, Input
 from .features.extractor import Extractor
 from .features.functionals import (
     Compose,
@@ -22,7 +25,8 @@ from .features.functionals import (
     Normalize,
     RemoveDC,
 )
-from .features.item_spec import Sample, Unit
+from .features.item_spec import ItemSpec, Sample, Unit
+from .modules import loss_functions as lfuncs
 from .modules.io import FramedLinearIO, IOModule, MLPIO
 from .modules.targets import CategoricalSampler
 
@@ -75,6 +79,21 @@ class _FeatureSpec(Config, type_field=False):
         ]
         return srs[-1] if any(srs) else None
 
+    def to_batch_item(self, item_spec: ItemSpec) -> Input:
+        """A network ItemSpec as a windowed read of the extractor's array
+        (``mimikit_tpu/io_spec.py:102-116``)."""
+        item_spec = item_spec.to(self.extractor.functional.unit)
+        return Input(
+            data=self.extractor.name,
+            getter=AsSlice(
+                dim=0,
+                shift=item_spec.shift,
+                length=item_spec.length,
+                downsampling=item_spec.stride,
+            ),
+            transform=self.transform,
+        )
+
     @property
     def inv(self):
         return self.transform.inv
@@ -96,6 +115,17 @@ class Objective(Config, type_field=False):
     objective_type: str
     params: Dict = dtc.field(default_factory=lambda: {})
     weight: float = 1.0
+
+    def get_criterion(self):
+        """The loss of this objective: cross-entropy for 'categorical_dist',
+        none for 'none' (a target served but not scored); the other
+        objectives of the JAX package are not ported."""
+        ot = str(self.objective_type)
+        if ot == "categorical_dist":
+            return lfuncs.cross_entropy
+        if ot == "none":
+            return None
+        raise NotImplementedError(f"objective '{ot}' is not ported")
 
     def get_sampler(self):
         if str(self.objective_type) == "categorical_dist":
@@ -120,6 +150,19 @@ class TargetSpec(_FeatureSpec, type_field=False):
                 out_dim=self.elem_type.size, sampler=self.objective.get_sampler()
             )
         return self
+
+    def loss_fn(self, output, target) -> Dict:
+        """``{"loss": total, <objective>: weighted term, ...}``
+        (``mimikit_tpu/io_spec.py:193-205``)."""
+        L = {}
+        crit = self.objective.get_criterion()
+        if crit is not None:
+            L[str(self.objective.objective_type)] = crit(output, target) * self.objective.weight
+        for obj in self.extra_loss_terms:
+            extra = obj.get_criterion()
+            if extra is not None:
+                L[str(obj.objective_type)] = extra(output, target) * obj.weight
+        return {"loss": sum(L.values()) if L else 0.0, **L}
 
 
 @dtc.dataclass
@@ -152,6 +195,22 @@ class IOSpec(Config, type_field=False):
     @property
     def unit(self) -> Unit:
         return self._unanimous("unit", "time unit")
+
+    @property
+    def loss_fn(self):
+        """outputs, targets (tuples, one per target) -> the merged loss dict
+        of every target, ``loss`` their sum (``mimikit_tpu/io_spec.py:243-255``)."""
+
+        def func(output, target):
+            per_target = [
+                spec.loss_fn(o, t) for spec, o, t in zip(self.targets, output, target)
+            ]
+            total = sum(d.pop("loss") for d in per_target)
+            merged = {k: v for d in per_target for k, v in d.items()}
+            merged["loss"] = total
+            return merged
+
+        return func
 
     @dtc.dataclass
     class MuLawIOConfig(Config):

@@ -1,1 +1,5 @@
 from .streaming import *
+from .logger import *
+from .callbacks import *
+from .device_loader import *
+from .train_loops import *

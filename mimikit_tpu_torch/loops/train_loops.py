@@ -1,0 +1,291 @@
+"""Training loop: TBPTT steps, Adam on the one-cycle schedule, checkpoints.
+
+Counterpart of ``mimikit_tpu/loops/train_loops.py``.  One step is the
+network's train forward, the loss, the backward (through the fused LSTM
+kernels on the card) and an optimizer update (``optim.TrainOptimizer``).
+The RNN carry persists across contiguous batches and is detached between
+steps: TBPTT never back-propagates across windows
+(``train_loops.py:410-435``).  It resets at the start of every epoch, at
+every TBPTT chunk boundary and when the batch size changes, as the JAX
+package's default (device-batched) route does.  The JAX loop's
+K-steps-in-one-dispatch ``lax.scan`` is a dispatch trick of its TPU; here
+the steps are a plain Python loop.
+
+``trainer_kwargs`` keys the port runs: ``device_batching`` (default True),
+``data_seed``, ``gradient_clip_val``, ``accumulate_grad_batches``,
+``nan_check_every``.  Every other key raises ``NotImplementedError`` naming
+it (``param_dtype``, ``remat``, ``matmul_precision``, ``data_parallel``,
+``n_model``, ``fsdp``, ``loss_logs_file``, ...), as do ``MONITOR_TRAINING``
+and ``OUTPUT_TRAINING``, which need ``GenerateLoopV2`` (not ported).
+"""
+from __future__ import annotations
+
+import dataclasses as dtc
+import hashlib
+import os
+import warnings
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..config import Config
+from ..features.dataset import DatasetConfig
+from ..optim import TrainOptimizer, onecycle_schedule
+from .callbacks import MMKCheckpoint
+from .device_loader import make_train_loader
+from .logger import EpochMetrics
+
+__all__ = ["TrainARMConfig", "ARMHP", "TrainARMLoop"]
+
+PORTED_TRAINER_KWARGS = frozenset({
+    "device_batching", "data_seed", "gradient_clip_val", "accumulate_grad_batches",
+    "nan_check_every",
+})
+
+
+@dtc.dataclass
+class TrainARMConfig(Config):
+    root_dir: str = "./trainings"
+    batch_size: int = 16
+    batch_length: int = 32
+    downsampling: int = 1
+    oversampling: int = 1
+    sampling_jitter: int = 0
+    shift_error: int = 0
+    tbptt_chunk_length: Optional[int] = None
+
+    max_epochs: int = 2
+    limit_train_batches: Optional[int] = None
+    max_lr: float = 5e-4
+    betas: Tuple[float, float] = (0.9, 0.93)
+    div_factor: float = 3.0
+    final_div_factor: float = 1.0
+    pct_start: float = 0.0
+    cycle_momentum: bool = False
+
+    CHECKPOINT_TRAINING: bool = True
+    MONITOR_TRAINING: bool = True
+    OUTPUT_TRAINING: str = ""
+
+    save_optimizer: bool = False
+    every_n_epochs: int = 2
+    n_examples: int = 3
+    prompt_length_sec: float = 0.5
+    outputs_duration_sec: float = 1.0
+    temperature: Optional[Tuple[float, ...]] = None
+    trainer_kwargs: Dict = dtc.field(default_factory=dict)
+
+
+@dtc.dataclass
+class ARMHP(Config):
+    dataset: DatasetConfig
+    network: object  # NetworkConfig (typed via its own tag)
+    training: TrainARMConfig
+
+
+def _check_ported(cfg: TrainARMConfig) -> None:
+    for key in cfg.trainer_kwargs:
+        if key not in PORTED_TRAINER_KWARGS:
+            raise NotImplementedError(f"trainer_kwargs['{key}'] is not ported")
+    if cfg.MONITOR_TRAINING or cfg.OUTPUT_TRAINING:
+        raise NotImplementedError(
+            "MONITOR_TRAINING and OUTPUT_TRAINING need GenerateLoopV2, which is not"
+            " ported: set MONITOR_TRAINING=False and OUTPUT_TRAINING=''"
+        )
+
+
+def _detach(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.detach()
+    return type(tree)(_detach(x) for x in tree)
+
+
+class TrainARMLoop:
+    """Owns the loader, the optimizer, the step, the callbacks and the run
+    directory ``<root_dir>/<hash of the hp YAML>``."""
+
+    @classmethod
+    def get_os_paths(cls, cfg: ARMHP) -> Tuple[str, str, str]:
+        hash_ = hashlib.sha256(cfg.serialize().encode("utf-8")).hexdigest()[:8]
+        root_dir = os.path.join(cfg.training.root_dir, hash_)
+        output_dir = os.path.join(root_dir, "outputs")
+        return root_dir, hash_, os.path.join(output_dir, "epoch{epoch}_prm{prompt_idx}.wav")
+
+    @classmethod
+    def get_dataloader(cls, dataset, net, cfg: TrainARMConfig):
+        """The device batcher by default (``trainer_kwargs["device_batching"]``
+        False: the host loader); either way seeded by ``data_seed``."""
+        on_device = cfg.trainer_kwargs.get("device_batching", True)
+        return cls._apply_data_seed(make_train_loader(dataset, net, cfg, on_device), cfg)
+
+    @staticmethod
+    def _apply_data_seed(loader, cfg: TrainARMConfig):
+        """``trainer_kwargs={"data_seed": N}`` seeds the loader's and its
+        samplers' RNGs (``train_loops.py:138-169``): the same seed draws the
+        same batches as the JAX package."""
+        seed = cfg.trainer_kwargs.get("data_seed")
+        if seed is not None:
+            seeded = False
+            for obj in (loader, getattr(loader, "batch_sampler", None),
+                        getattr(loader, "sampler", None)):
+                if obj is not None and hasattr(obj, "_rng"):
+                    obj._rng = np.random.RandomState(int(seed))
+                    seeded = True
+            if not seeded:
+                warnings.warn("data_seed was set but the loader exposes no seedable sampler"
+                              " RNG: batch order will NOT be reproducible", stacklevel=3)
+        return loader
+
+    @classmethod
+    def get_optimizer(cls, net, dl, cfg: TrainARMConfig) -> TrainOptimizer:
+        steps_per_epoch = (
+            min(len(dl), cfg.limit_train_batches)
+            if cfg.limit_train_batches is not None else len(dl)
+        )
+        accumulate = int(cfg.trainer_kwargs.get("accumulate_grad_batches", 1))
+        # the schedule ticks once per optimizer update, not per micro-batch
+        total_steps = max(2, steps_per_epoch * cfg.max_epochs // accumulate)
+        # a zero-length warm-up divides by zero in optax's schedule: floor it
+        # at one step (train_loops.py:181-184)
+        pct_start = max(cfg.pct_start, 1.0 / total_steps + 1e-9)
+        schedule = onecycle_schedule(total_steps, cfg.max_lr, pct_start, cfg.div_factor,
+                                     cfg.final_div_factor)
+        return TrainOptimizer(net.parameters(), schedule, cfg.betas,
+                              clip=cfg.trainer_kwargs.get("gradient_clip_val"),
+                              accumulate=accumulate)
+
+    @classmethod
+    def from_config(cls, train_cfg: TrainARMConfig, dataset, network, opt=None):
+        _check_ported(train_cfg)
+        loader = cls.get_dataloader(dataset, network, train_cfg)
+        ds_cfg = (
+            dataset.config if getattr(dataset, "config", None) is not None
+            else DatasetConfig(filename=dataset.filename, sources=tuple(dataset.index))
+        )
+        hp = ARMHP(training=train_cfg, network=network.config, dataset=ds_cfg)
+        return cls(hp, dataset, loader, network, network.config.io_spec.loss_fn, opt)
+
+    @classmethod
+    def from_checkpoint(cls, checkpoint) -> "TrainARMLoop":
+        dataset, network = checkpoint.dataset, checkpoint.network
+        train_cfg = checkpoint.training_config
+        _check_ported(train_cfg)
+        loader = cls.get_dataloader(dataset, network, train_cfg)
+        loop = cls(
+            ARMHP(training=train_cfg, network=network.config, dataset=checkpoint.dataset_config),
+            dataset, loader, network, network.config.io_spec.loss_fn,
+        )
+        loop._restored_opt_state = checkpoint.optimizer_state
+        ts = checkpoint.trainer_state
+        if ts is not None:
+            loop.start_epoch = int(ts["fit_loop"]["epoch"])
+            loop.global_step = int(ts["fit_loop"].get("global_step", 0))
+        return loop
+
+    def __init__(self, hp: ARMHP, dataset, loader, net, loss_fn, opt=None):
+        self._config = hp
+        self.train_cfg = hp.training
+        _check_ported(self.train_cfg)
+        self.root_dir, self.hash_, self.output_template = self.get_os_paths(hp)
+        self.dataset = dataset
+        self.loader = loader
+        self.loss_fn = loss_fn
+        self.net = net
+        self.tbptt_len = self.train_cfg.tbptt_chunk_length
+        if self.tbptt_len is not None:
+            self.tbptt_len //= self.train_cfg.batch_length
+        self.opt = opt
+        self.global_step = 0
+        self.start_epoch = 0
+        self.metrics = EpochMetrics()
+        self._restored_opt_state = None
+        self.callbacks = []
+        if self.train_cfg.CHECKPOINT_TRAINING:
+            self.callbacks.append(
+                MMKCheckpoint(epochs=self.train_cfg.every_n_epochs, root_dir=self.root_dir)
+            )
+
+    @property
+    def config(self) -> ARMHP:
+        return self._config
+
+    def _batches(self):
+        """The loader's batches as tensors on the network's device."""
+        dev = self.net.device
+        for inputs, targets in self.loader:
+            yield (tuple(torch.as_tensor(x).to(dev) for x in inputs),
+                   tuple(torch.as_tensor(x).to(dev) for x in targets))
+
+    def train_step(self, inputs, targets, hidden):
+        """One step: forward from the (detached) carry ``hidden``, loss,
+        backward, optimizer update.  Returns the detached loss dict and the
+        detached new carry."""
+        outputs, new_hidden = self.net(inputs, hidden)
+        d = self.loss_fn(outputs, targets)
+        d["loss"].backward()
+        self.opt.step()
+        return {k: v.detach() for k, v in d.items()}, _detach(new_hidden)
+
+    def run(self) -> "TrainARMLoop":
+        os.makedirs(os.path.join(self.root_dir, "outputs"), exist_ok=True)
+        self.save_hp()
+        print("*" * 64)
+        print("training's id is:", self.hash_)
+        print("*" * 64)
+        cfg = self.train_cfg
+        # the JAX loop draws one batch before the first epoch (it initialises
+        # parameters from it, train_loops.py:545-549); drawing it here too
+        # keeps one data_seed's batch stream identical in both packages
+        next(iter(self.loader))
+        if self.opt is None:
+            self.opt = self.get_optimizer(self.net, self.loader, cfg)
+        if self._restored_opt_state is not None:
+            self.opt.load_state_dict(self._restored_opt_state)
+            self._restored_opt_state = None
+        for cb in self.callbacks:
+            cb.on_fit_start(self)
+        self.metrics.on_fit_start()
+        self.net.train()
+        nan_check_every = int(cfg.trainer_kwargs.get("nan_check_every", 25))
+        epoch, interrupted = self.start_epoch, False
+        try:
+            for epoch in range(self.start_epoch + 1, cfg.max_epochs + 1):
+                self.metrics.on_epoch_start()
+                sums, n_batches, hidden, last_B = None, 0, None, None
+                for batch_idx, (inputs, targets) in enumerate(self._batches()):
+                    if cfg.limit_train_batches is not None and batch_idx >= cfg.limit_train_batches:
+                        break
+                    B = inputs[0].shape[0]
+                    if B != last_B or (self.tbptt_len and batch_idx % self.tbptt_len == 0):
+                        hidden = None
+                    last_B = B
+                    d, hidden = self.train_step(inputs, targets, hidden)
+                    self.global_step += 1
+                    n_batches += 1
+                    sums = d if sums is None else {k: sums[k] + v for k, v in d.items()}
+                    if batch_idx % nan_check_every == 0:
+                        self.metrics.check_loss(float(d["loss"]))
+                if sums is not None:
+                    avgs = {k: float(v) / n_batches for k, v in sums.items()}
+                    self.metrics.check_loss(avgs["loss"])
+                    self.metrics.log_output(avgs)
+                self.metrics.flush_epoch(epoch)
+                for cb in self.callbacks:
+                    cb.on_train_epoch_end(self, epoch, self.global_step)
+                self.on_train_epoch_end(epoch)
+        except KeyboardInterrupt:
+            interrupted = True
+        if interrupted:
+            for cb in self.callbacks:
+                cb.on_train_epoch_end(self, epoch, self.global_step, interrupted=True)
+        self.metrics.on_fit_end()
+        self.dataset.close()
+        return self
+
+    def on_train_epoch_end(self, *args):
+        """Overridable per-epoch hook."""
+
+    def save_hp(self):
+        with open(os.path.join(self.root_dir, "hp.yaml"), "w") as fp:
+            fp.write(self.config.serialize())

@@ -1,12 +1,19 @@
 """Recurrent stacks with explicit carried state (counterpart of
 ``mimikit_tpu/modules/rnn.py``).
 
-``LSTM`` is ``torch.nn.LSTM`` (so the state_dict names are PyTorch mimikit's
-``weight_ih_l0`` ...) with a :meth:`LSTM.step` that advances one timestep
-with flax ``OptimizedLSTMCell`` semantics: gate order i|f|g|o,
-``c' = f*c + i*g``, ``h' = o*tanh(c')``.  The flax cell has one bias, on the
-hidden projection; ``weights.samplernn_state_dict_from_jax`` stores it in
-``bias_hh`` and zeros in ``bias_ih``.
+``LSTM`` keeps PyTorch mimikit's state_dict names (``weight_ih_l0``,
+``weight_hh_l0``, ``bias_ih_l0``, ``bias_hh_l0``) with flax
+``OptimizedLSTMCell`` semantics: gate order i|f|g|o, ``c' = f*c + i*g``,
+``h' = o*tanh(c')``, and ONE bias, on the hidden projection.  That bias is
+the parameter ``bias_hh_l{k}``; ``bias_ih_l{k}`` keeps its state_dict name
+but is a buffer held at zero, so no optimizer moves it.  A non-zero
+``bias_ih`` in a loaded state_dict (a PyTorch mimikit checkpoint) is folded
+into ``bias_hh``, as ``mimikit_tpu/migrate.py`` sums the two.
+
+The sequence path (:meth:`LSTM.forward_seq`, the train forward) runs every
+layer through :func:`~mimikit_tpu_torch.ops.fused_lstm.fused_lstm_layer`:
+on the card the hand-written forward and backward kernels, on the CPU their
+plain versions.  :meth:`LSTM.step` advances one timestep (the decode path).
 
 Carry layout, as in the JAX package: a tuple over layers of ``(c, h)``
 pairs of (B, H) tensors.
@@ -15,9 +22,12 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..ops.fused_lstm import fused_lstm_layer
 
 __all__ = ["LSTM", "lstm_step", "init_rnn_carry"]
 
@@ -54,34 +64,63 @@ def init_rnn_carry(
     return tuple((one(), one()) for _ in range(n_layers))
 
 
-class LSTM(nn.LSTM):
+class LSTM(nn.Module):
     def __init__(self, hidden_dim: int, n_layers: int = 1, dropout: float = 0.0):
-        super().__init__(
-            hidden_dim, hidden_dim, num_layers=n_layers, batch_first=True,
-            dropout=dropout,
-        )
+        super().__init__()
+        self.hidden_size = hidden_dim
+        self.num_layers = n_layers
+        self.dropout = dropout
+        H = hidden_dim
+        for k in range(n_layers):
+            setattr(self, f"weight_ih_l{k}", nn.Parameter(torch.empty(4 * H, H)))
+            setattr(self, f"weight_hh_l{k}", nn.Parameter(torch.empty(4 * H, H)))
+            self.register_buffer(f"bias_ih_l{k}", torch.zeros(4 * H))
+            setattr(self, f"bias_hh_l{k}", nn.Parameter(torch.empty(4 * H)))
+        self._register_load_state_dict_pre_hook(self._fold_input_bias)
+
+    def _fold_input_bias(self, state_dict, prefix, *args):
+        for k in range(self.num_layers):
+            b_ih, b_hh = f"{prefix}bias_ih_l{k}", f"{prefix}bias_hh_l{k}"
+            if b_ih in state_dict and b_hh in state_dict:
+                state_dict[b_hh] = state_dict[b_hh] + state_dict[b_ih]
+                state_dict[b_ih] = torch.zeros_like(state_dict[b_ih])
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """PyTorch's LSTM initialisation, U(-1/sqrt(H), 1/sqrt(H)), drawn from
+        ``generator`` for the weights and the single bias; ``bias_ih`` stays 0."""
+        bound = 1.0 / np.sqrt(self.hidden_size)
+        for k in range(self.num_layers):
+            for name in (f"weight_ih_l{k}", f"weight_hh_l{k}", f"bias_hh_l{k}"):
+                p = getattr(self, name)
+                p.copy_(torch.rand(p.shape, generator=generator) * (2 * bound) - bound)
+            getattr(self, f"bias_ih_l{k}").zero_()
+
+    def _layer(self, k: int):
+        return (getattr(self, f"weight_ih_l{k}"), getattr(self, f"weight_hh_l{k}"),
+                getattr(self, f"bias_ih_l{k}"), getattr(self, f"bias_hh_l{k}"))
 
     def step(self, x, carry):
         """x: (B, H) one timestep -> (y, new_carry)."""
         new_carry = []
         y = x
         for layer, (c, h) in enumerate(carry):
-            c, y = lstm_step(
-                y, c, h,
-                getattr(self, f"weight_ih_l{layer}"),
-                getattr(self, f"weight_hh_l{layer}"),
-                getattr(self, f"bias_ih_l{layer}"),
-                getattr(self, f"bias_hh_l{layer}"),
-            )
+            c, y = lstm_step(y, c, h, *self._layer(layer))
             new_carry.append((c, y))
         return y, tuple(new_carry)
 
     def forward_seq(self, x, carry=None):
-        """x: (B, T, H) -> (y (B, T, H), new_carry)."""
+        """x: (B, T, H) -> (y (B, T, H), new_carry), each layer through the
+        fused LSTM layer (kernels on CUDA, plain versions on the CPU)."""
+        if self.dropout > 0 and self.training:
+            raise NotImplementedError("rnn_dropout is not ported")
+        B = x.shape[0]
         if carry is None:
-            y, (h_n, c_n) = super().forward(x)
-        else:
-            h0 = torch.stack([h for _, h in carry])
-            c0 = torch.stack([c for c, _ in carry])
-            y, (h_n, c_n) = super().forward(x, (h0, c0))
-        return y, tuple((c_n[i], h_n[i]) for i in range(self.num_layers))
+            carry = init_rnn_carry(self.num_layers, B, self.hidden_size, device=x.device)
+        ys = x.transpose(0, 1)
+        new_carry = []
+        for k, (c0, h0) in enumerate(carry):
+            w_ih, w_hh, b_ih, b_hh = self._layer(k)
+            ys, h_T, c_T = fused_lstm_layer(ys, w_ih.t(), w_hh.t(), b_ih + b_hh, h0, c0)
+            new_carry.append((c_T, h_T))
+        return ys.transpose(0, 1), tuple(new_carry)

@@ -5,6 +5,9 @@ LSTM tiers condition finer ones down to a per-sample MLP head.  Module and
 parameter names follow PyTorch mimikit's ``SampleRNN`` (``tiers.{i}``,
 ``output_modules.{j}``), the names ``mimikit_tpu/migrate.py`` reads.
 
+Training: ``forward`` is the train-mode forward, ``train_batch`` the
+windows a training step reads; ``TrainARMLoop`` drives both.
+
 Serving: ``generate`` and ``stream`` run on the network's device.  A network
 inside the decode kernel's scope (:func:`supports_kernel_decode`) on CUDA
 always goes through the hand-written kernel: ``decode_single`` for fewer than
@@ -23,6 +26,7 @@ import torch
 from torch import nn
 
 from ..features.functionals import Discrete
+from ..features.item_spec import ItemSpec
 from ..modules.io import FramedConv1dIO, FramedLinearIO, ZipReduceVariables
 from ..modules.resamplers import LinearResampler
 from ..modules.rnn import LSTM
@@ -133,18 +137,14 @@ class SampleRNN(ARMWithHidden):
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
         """PyTorch's default initialisation, U(-1/sqrt(fan_in), 1/sqrt(fan_in)),
-        drawn from ``generator``."""
+        drawn from ``generator``; the LSTMs' ``bias_ih`` stays zero."""
         for m in self.modules():
-            if isinstance(m, nn.LSTM):
-                bound = 1.0 / np.sqrt(m.hidden_size)
-                params = list(m.parameters())
+            if isinstance(m, LSTM):
+                m.reset_parameters(generator)
             elif isinstance(m, (nn.Linear, nn.Conv1d)):
                 bound = 1.0 / np.sqrt(m.weight[0].numel())
-                params = list(m.parameters(recurse=False))
-            else:
-                continue
-            for p in params:
-                p.copy_(torch.rand(p.shape, generator=generator) * (2 * bound) - bound)
+                for p in m.parameters(recurse=False):
+                    p.copy_(torch.rand(p.shape, generator=generator) * (2 * bound) - bound)
 
     @property
     def config(self) -> "SampleRNN.Config":
@@ -161,10 +161,29 @@ class SampleRNN(ARMWithHidden):
     def reset_hidden(self) -> None:
         self.hidden = None
 
+    # -- batch specs (identical ItemSpec arithmetic to the JAX package,
+    #    ``mimikit_tpu/networks/sample_rnn.py:354-366``) -------------------------
+    def train_batch(self, item_spec: ItemSpec):
+        """(inputs, targets) reads for a training window: each input covers
+        ``frame_sizes[0]`` more samples before the window, each target is the
+        window shifted by ``frame_sizes[0]``."""
+        fs0 = self.frame_sizes[0]
+        return tuple(
+            spec.to_batch_item(ItemSpec(shift=0, length=fs0, unit=spec.unit) + item_spec)
+            for spec in self.config.io_spec.inputs
+        ), tuple(
+            spec.to_batch_item(ItemSpec(shift=fs0, unit=spec.unit) + item_spec)
+            for spec in self.config.io_spec.targets
+        )
+
     # -- training forward (sample_rnn.py:96-124) ------------------------------
     def forward(self, inputs: Tuple, hidden=None):
         """inputs: tuple of (B, fs0 + T) tensors.  Returns (outputs, hidden):
-        each output (B, T, Q) logits, ``hidden`` the tiers' final carries."""
+        each output (B, T, Q) logits, ``hidden`` the tiers' final carries.
+        The LSTM tiers run through the fused LSTM layer (on the card, the
+        hand-written forward and backward kernels).  A carried ``hidden``
+        from an earlier window must come detached: TBPTT never
+        back-propagates across windows (``TrainARMLoop`` detaches it)."""
         fs = self.frame_sizes
         fs0 = fs[0]
         prev, new_hidden = None, []

@@ -1,1 +1,2 @@
 from .samplernn_decode import *
+from .fused_lstm import *

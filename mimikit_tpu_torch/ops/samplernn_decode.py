@@ -26,15 +26,12 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses as dtc
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
 from pathlib import Path
 from typing import Optional, Tuple
 
 import torch
+
+from .nvcc import CSRC, build_library
 
 __all__ = [
     "supports_kernel_decode",
@@ -51,12 +48,7 @@ __all__ = [
 
 MAX_TIERS = 8
 MAX_HEAD = 4
-SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "samplernn_decode.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+SOURCE = CSRC / "samplernn_decode.cu"
 
 
 # -- scope gate (pallas_decode.py:65-100) --------------------------------------
@@ -354,26 +346,10 @@ class _Kernel:
 
 def build_kernel() -> Path:
     """Compile ``csrc/samplernn_decode.cu`` for sm_90a into
-    ``build/kernels/`` (named by the source's hash, so an edited source is
-    never served stale) and return the library's path."""
-    src = SOURCE.read_bytes()
-    path = BUILD_DIR / f"libmmk_samplernn_{hashlib.sha256(src).hexdigest()[:16]}.so"
-    if path.exists():
-        return path
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(nvcc):
-        raise RuntimeError("nvcc not found: the SampleRNN decode kernel cannot be built")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    res = subprocess.run(
-        [nvcc, *NVCC_FLAGS, "-o", tmp, str(SOURCE)], capture_output=True, text=True
-    )
-    _Kernel.build_log = res.stdout + res.stderr
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed on {SOURCE.name}:\n{_Kernel.build_log}")
-    os.replace(tmp, path)
+    ``build/kernels/`` (see :mod:`.nvcc`) and return the library's path."""
+    path, log = build_library(SOURCE, "mmk_samplernn")
+    if log:
+        _Kernel.build_log = log
     return path
 
 

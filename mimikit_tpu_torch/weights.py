@@ -1,4 +1,4 @@
-"""Carry trained weights from the JAX package into the port.
+"""Carry trained weights between the JAX package and the port.
 
 ``samplernn_state_dict_from_jax`` turns a ``mimikit_tpu`` SampleRNN parameter
 tree — nested dicts of numpy arrays, as ``jax.device_get(net.params)`` gives
@@ -8,6 +8,9 @@ are transposed to torch's (out, in) layout, the bottom tier's flattened
 (k, out) kernel becomes a (out, 1, k) conv weight, the four per-gate LSTM
 kernels are packed i|f|g|o, and the flax cell's single hidden bias goes into
 ``bias_hh`` with ``bias_ih`` zero (``migrate`` sums the two back).
+``samplernn_params_to_jax`` is its inverse (the checkpoint writer's map): the
+port's state_dict -> the flax tree of numpy arrays, with the LSTM's one
+bias ``bias_hh + bias_ih`` on the hidden projections.
 """
 from __future__ import annotations
 
@@ -17,7 +20,7 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-__all__ = ["samplernn_state_dict_from_jax"]
+__all__ = ["samplernn_state_dict_from_jax", "samplernn_params_to_jax"]
 
 _GATES = "ifgo"
 
@@ -76,3 +79,63 @@ def samplernn_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
         k: torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32))
         for k, v in sd.items()
     }
+
+
+def samplernn_params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
+    """The port's ``SampleRNN`` state_dict -> the JAX SampleRNN parameter
+    tree (nested dicts of f32 numpy arrays)."""
+    sd = {k: v.detach().cpu().numpy().astype(np.float32) for k, v in state_dict.items()}
+    tree: Dict = {}
+
+    def put(path, arr):
+        node = tree
+        parts = path.split("/")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = np.ascontiguousarray(arr)
+
+    def dense(path, prefix):
+        put(f"{path}/kernel", sd[f"{prefix}.weight"].T)
+        put(f"{path}/bias", sd[f"{prefix}.bias"])
+
+    for key in sd:
+        m = re.fullmatch(r"tiers\.(\d+)\.input_module\.heads\.(\d+)\.2\.weight", key)
+        if m:
+            i, j = m.groups()
+            dense(f"tier_inputs_{i}/heads_{j}/core/Dense_0", key[: -len(".weight")])
+            continue
+        m = re.fullmatch(r"tiers\.(\d+)\.input_module\.heads\.(\d+)\.2\.2\.cv\.weight", key)
+        if m:
+            i, j = m.groups()
+            w = sd[key]  # (out, 1, k) -> (k * 1, out)
+            out, c, k = w.shape
+            base = f"tier_inputs_{i}/heads_{j}/core/Conv1dResampler_0/Dense_0"
+            put(f"{base}/kernel", w.transpose(2, 1, 0).reshape(k * c, out))
+            put(f"{base}/bias", sd[key[: -len(".weight")] + ".bias"])
+            continue
+        m = re.fullmatch(r"tiers\.(\d+)\.input_module\.weights", key)
+        if m:
+            put(f"tier_inputs_{m.group(1)}/weights", sd[key])
+            continue
+        m = re.fullmatch(r"tiers\.(\d+)\.rnn\.weight_ih_l(\d+)", key)
+        if m:
+            i, layer = m.groups()
+            pre, base = f"tiers.{i}.rnn", f"rnn_t{i}/l{layer}"
+            w_ih, w_hh = sd[key], sd[f"{pre}.weight_hh_l{layer}"]
+            b = sd[f"{pre}.bias_hh_l{layer}"] + sd[f"{pre}.bias_ih_l{layer}"]
+            H = w_hh.shape[1]
+            for n, g in enumerate(_GATES):
+                rows = slice(n * H, (n + 1) * H)
+                put(f"{base}/i{g}/kernel", w_ih[rows].T)
+                put(f"{base}/h{g}/kernel", w_hh[rows].T)
+                put(f"{base}/h{g}/bias", b[rows])
+            continue
+        m = re.fullmatch(r"tiers\.(\d+)\.up_sampler\.fc\.weight", key)
+        if m:
+            dense(f"up_t{m.group(1)}/Dense_0", key[: -len(".weight")])
+            continue
+        m = re.fullmatch(r"output_modules\.(\d+)\.estimator\.0\.fc\.(\d+)\.weight", key)
+        if m:
+            j, k = m.groups()
+            dense(f"outputs_{j}/estimator/core/Dense_{int(k) // 2}", key[: -len(".weight")])
+    return tree

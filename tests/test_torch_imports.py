@@ -5,8 +5,8 @@
 * its entry points run on the card unless the caller asks for the CPU, and a
   CUDA request on a machine without CUDA raises instead of running on the
   CPU;
-* on a machine with a card, ``chip_smoke.py --quick`` builds the decode
-  kernel and holds it against its plain twin (marked ``cuda``; skipped
+* on a machine with a card, ``chip_smoke.py --quick`` builds the kernels
+  and holds them against their plain twins (marked ``cuda``; skipped
   without a card).
 
 Every torch import happens in a subprocess: this test process has jax.
@@ -49,11 +49,13 @@ _CUDA_CALLS = [
     "mmk.SampleRNN.from_config(cfg, device='cuda')",
     "net.generate((torch.zeros(2, 16, dtype=torch.int32, device='cuda'),), 4)",
     "sd._launch(pack, p, st, 8, 4, torch.empty(2, 4, dtype=torch.int32), 16, 0, None)",
+    "fl.fused_lstm_layer(*(a.to('cuda') for a in L))",
 ]
 
 _PROBE = """
 import json, sys
 import torch, mimikit_tpu_torch as mmk
+from mimikit_tpu_torch.ops import fused_lstm as fl
 from mimikit_tpu_torch.ops import samplernn_decode as sd
 res = {"cuda": torch.cuda.is_available()}
 res["foreign"] = [m for m in sys.modules
@@ -64,6 +66,8 @@ net = mmk.SampleRNN.from_config(cfg, device="cpu")
 pack = sd.samplernn_weight_pack(net)
 p = torch.zeros(2, 16, dtype=torch.int32)
 st = sd.init_decode_state(net, p)
+L = [torch.randn(3, 2, 8), torch.randn(8, 32), torch.randn(8, 32), torch.randn(32),
+     torch.zeros(2, 8), torch.zeros(2, 8)]
 for call in CALLS:
     try:
         eval(call)
@@ -72,6 +76,10 @@ for call in CALLS:
         res[call] = "raised " + type(e).__name__
 out = sd.decode_chunk(pack, p, st, 8, 4, 0, None)
 res["cpu_chunk"] = [list(out.shape), sd.decode_chunk.launches, sd.decode_single.launches]
+h_all, h_T, c_T = fl.fused_lstm_layer(*(a.requires_grad_() for a in L))
+(h_all.sum() + c_T.sum()).backward()
+res["cpu_lstm"] = [list(h_all.shape), fl.lstm_forward.launches, fl.lstm_backward.launches,
+                   all(a.grad is not None for a in L)]
 print(json.dumps(res))
 """
 
@@ -109,6 +117,12 @@ def test_cpu_tensors_take_the_plain_twin(probe):
     """The wrappers choose the plain twin by the tensor's device: on CPU
     tensors they return tokens and count no kernel launch."""
     assert probe["cpu_chunk"] == [[2, 4], 0, 0]
+
+
+def test_cpu_tensors_take_the_plain_lstm(probe):
+    """The fused LSTM layer on CPU tensors runs its plain versions, forward
+    and backward, and counts no kernel launch."""
+    assert probe["cpu_lstm"] == [[3, 2, 8], 0, 0, True]
 
 
 @pytest.mark.cuda

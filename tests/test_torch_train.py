@@ -1,0 +1,268 @@
+"""The port's training path against the JAX package, on the CPU.
+
+* data: the port's ``Database`` reads a JAX-written h5, and the JAX package
+  reads a port-written h5 of the same source with equal arrays and attrs;
+* batches: the same ``data_seed`` draws identical batches in both packages
+  (host loaders, TBPTT sampler), and the port's ``DeviceBatcher`` serves the
+  host loader's batches;
+* cross-entropy equals the JAX loss's (``rtol=1e-6``) and the one-cycle
+  schedule's LR per step optax's (``rtol=1e-5``: optax evaluates it in f32,
+  the port in f64);
+* three f32 steps of ``TrainARMLoop`` (``limit_train_batches=1``,
+  ``max_epochs=3``: each epoch mean is one step's loss) from the same
+  weights, JAX with ``MMK_FUSED_LSTM=1`` (the Pallas LSTM in interpret
+  mode): losses per step ``rtol=1e-4``; the first step's gradients
+  ``rtol=1e-3, atol=1e-5 * max|g|`` (f32, summed in another order); the
+  final parameters: every element within the total movement Adam allows,
+  ``sum_t 2 * 1.001 * lr_t`` (with b1=0.9, b2=0.93 the normalised step
+  ``|m_hat / sqrt(v_hat)|`` stays below 1.001 over three steps, so each
+  package moves an element by at most ``1.001 * lr_t`` a step, and where
+  ``|g|`` is near Adam's eps the two can move it in opposite directions),
+  and 99% of the elements within ``1e-6 + 1e-4 * |p|``;
+* the port's LSTMs have one bias: ``bias_ih`` stays zero through training
+  and a loaded ``bias_ih`` is folded into ``bias_hh``;
+* the npz file layer (where h5py is missing) round-trips a dataset and a
+  bank;
+* a bank written by the JAX package loads in the port and decodes the same
+  argmax tokens; a bank written by the port loads in the JAX package with
+  the port's parameters;
+* an interrupted run resumes from its checkpoint (``from_checkpoint``),
+  optimizer state included;
+* unported ``trainer_kwargs`` (and ``MONITOR_TRAINING``) raise
+  ``NotImplementedError`` naming the key.
+
+JAX runs in this process; the port in one subprocess for the module
+(``torch_port_worker.py train``).
+"""
+import os
+
+import numpy as np
+import pytest
+from scipy.io import wavfile
+
+import jax
+import mimikit_tpu as mmk
+
+from tests.torch_port_harness import flatten, run_port
+
+SR, Q, H, FS = 16000, 32, 16, (8, 4, 2)
+N_STEPS = 48
+TRAIN = dict(batch_size=4, batch_length=64, tbptt_chunk_length=256, max_epochs=3,
+             limit_train_batches=1, MONITOR_TRAINING=False, every_n_epochs=1,
+             trainer_kwargs={"data_seed": 5})
+SCHED = np.array([[3, 5e-4, 1 / 3 + 1e-9, 3.0, 1.0], [100, 1e-3, 0.25, 25.0, 1e4],
+                  [7, 2e-4, 0.5, 3.0, 10.0]])
+
+
+def _wav(path):
+    rng = np.random.default_rng(0)
+    t = np.arange(SR) / SR
+    y = 0.5 * np.sin(2 * np.pi * 330 * t) + 0.1 * rng.standard_normal(SR)
+    wavfile.write(path, SR, (y / np.abs(y).max() * 0.9 * 32767).astype(np.int16))
+
+
+def _batches(loader, n):
+    out = []
+    for k, (inputs, targets) in enumerate(loader):
+        if k == n:
+            break
+        out.append((np.asarray(inputs[0]), np.asarray(targets[0])))
+    return out
+
+
+@pytest.fixture(scope="module")
+def case(tmp_path_factory):
+    import optax
+
+    from mimikit_tpu.modules.loss_functions import cross_entropy
+
+    work = str(tmp_path_factory.mktemp("train"))
+    wav = os.path.join(work, "a.wav")
+    _wav(wav)
+    ds = mmk.DatasetConfig(sources=(wav,), filename=os.path.join(work, "jax.h5"),
+                           extractors=(mmk.Extractor.signal(SR),))
+    db = ds.create(mode="w")
+    jx = {"signal": db.signal[:]}
+    io = mmk.IOSpec.mulaw_io(mmk.IOSpec.MuLawIOConfig(q_levels=Q, mlp_dim=H),
+                             extractor=ds.extractors[0])
+    net = mmk.SampleRNN.from_config(mmk.SampleRNN.Config(frame_sizes=FS, hidden_dim=H, io_spec=io))
+    net.seed(0)
+    net.init_params()
+    params0 = jax.device_get(net.params)
+    cfg = mmk.TrainARMConfig(root_dir=os.path.join(work, "jax_tr"), **TRAIN)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("MMK_FUSED_LSTM", "1")
+        host_cfg = mmk.TrainARMConfig(**{**TRAIN, "trainer_kwargs": {
+            **TRAIN["trainer_kwargs"], "device_batching": False}})
+        jx["batches"] = _batches(mmk.TrainARMLoop.get_dataloader(db, net, host_cfg), 3)
+        inputs, targets = next(iter(mmk.TrainARMLoop.get_dataloader(db, net, cfg)))
+        key = jax.random.PRNGKey(0)
+
+        def loss(p):
+            outputs, _ = net.module.apply({"params": p}, inputs, None, True,
+                                          rngs={"dropout": key, "sample": key})
+            return io.loss_fn(outputs, targets)["loss"]
+
+        jx["grads0"] = flatten(jax.device_get(jax.grad(loss)(net.params)))
+        loop = mmk.TrainARMLoop.from_config(cfg, db, net)
+        logged = []
+        log_output = loop.metrics.log_output
+        loop.metrics.log_output = lambda d: logged.append(dict(d)) or log_output(d)
+        loop.run()
+        jx["losses"] = np.array([d["loss"] for d in logged])
+        jx["params"] = flatten(jax.device_get(net.params))
+        mp.setenv("MMK_PALLAS_DECODE", "0")
+        bank = mmk.Checkpoint(id=loop.hash_, epoch=3, root_dir=cfg.root_dir)
+        prompt = np.random.default_rng(1).integers(0, Q, (2, 2 * FS[0])).astype(np.int32)
+        jx["bank_tokens"] = np.asarray(
+            bank.network.generate((prompt,), n_steps=N_STEPS, temperature=None)[0])
+    rng = np.random.default_rng(2)
+    logits = rng.standard_normal((3, 5, Q)).astype(np.float32) * 3
+    labels = rng.integers(0, Q, (3, 5)).astype(np.int32)
+    jx["ce"] = float(cross_entropy(logits, labels))
+    jx["sched"] = np.array([[float(optax.cosine_onecycle_schedule(int(n), *rest)(i))
+                             for i in range(12)] for n, *rest in SCHED])
+    db.close()  # the port opens the same file
+    inp = {
+        "work": np.array(work), "wav": np.array(wav), "jax_h5": np.array(ds.filename),
+        "net_yaml": np.array(net.config.serialize()), "train_yaml": np.array(cfg.serialize()),
+        "jax_bank_root": np.array(cfg.root_dir), "jax_bank_id": np.array(loop.hash_),
+        "jax_bank_epoch": np.array(3), "prompt": prompt, "n_steps": np.array(N_STEPS),
+        "ce_logits": logits, "ce_targets": labels, "sched_cfgs": SCHED, "sched_steps": np.array(12),
+        **flatten(params0, "params0/"),
+    }
+    port = run_port("train", inp, work)
+    return jx, port, work
+
+
+def test_port_database_reads_jax_h5(case):
+    jx, port, _ = case
+    np.testing.assert_array_equal(port["jax_h5/signal"], jx["signal"])
+    np.testing.assert_array_equal(port["jax_h5/refs"], [0, jx["signal"].shape[0]])
+    assert [os.path.basename(s) for s in port["jax_h5/sources"]] == ["a.wav"]
+
+
+def test_port_written_h5_reads_in_jax(case):
+    jx, port, work = case
+    assert str(port["h5_backend"]) == "h5py"
+    cfg = mmk.DatasetConfig(filename=os.path.join(work, "port.h5"))
+    db = cfg.get(mode="r")
+    np.testing.assert_array_equal(db.signal[:], jx["signal"])
+    np.testing.assert_array_equal(db.signal.attrs["refs"], [0, jx["signal"].shape[0]])
+    assert db.config.extractors[0].name == "signal"
+    db.close()
+
+
+@pytest.mark.parametrize("k", range(3))
+def test_same_data_seed_draws_the_same_batches(case, k):
+    jx, port, _ = case
+    x, y = jx["batches"][k]
+    np.testing.assert_array_equal(port[f"batches/host/{k}/in"], x)
+    np.testing.assert_array_equal(port[f"batches/host/{k}/tgt"], y)
+
+
+@pytest.mark.parametrize("k", range(3))
+def test_device_batcher_serves_the_host_loader_batches(case, k):
+    _, port, _ = case
+    for part in ("in", "tgt"):
+        np.testing.assert_array_equal(port[f"batches/device/{k}/{part}"],
+                                      port[f"batches/host/{k}/{part}"])
+
+
+def test_cross_entropy_matches_jax(case):
+    jx, port, _ = case
+    np.testing.assert_allclose(float(port["ce"]), jx["ce"], rtol=1e-6)
+
+
+def test_schedule_matches_optax(case):
+    jx, port, _ = case
+    np.testing.assert_allclose(port["sched"], jx["sched"], rtol=1e-5, atol=1e-12)
+
+
+def test_losses_per_step_match_jax_loop(case):
+    jx, port, _ = case
+    assert jx["losses"].shape == port["losses"].shape == (3,)
+    np.testing.assert_allclose(port["losses"], jx["losses"], rtol=1e-4)
+
+
+def test_first_step_gradients_match_jax(case):
+    jx, port, _ = case
+    for k, g in jx["grads0"].items():
+        p = port[f"grads0/{k}"]
+        np.testing.assert_allclose(p, g, rtol=1e-3, atol=1e-5 * float(np.abs(g).max()),
+                                   err_msg=k)
+
+
+def test_final_parameters_within_adams_reach(case):
+    jx, port, _ = case
+    from optax import cosine_onecycle_schedule
+
+    total = TRAIN["max_epochs"] * TRAIN["limit_train_batches"]
+    sched = cosine_onecycle_schedule(total, 5e-4, 1 / total + 1e-9, 3.0, 1.0)
+    lr = [float(sched(i)) for i in range(total)]
+    reach = sum(2 * 1.001 * x for x in lr)
+    close = total_n = 0
+    for k, ref in jx["params"].items():
+        got = port[f"params/{k}"]
+        assert got.shape == ref.shape, k
+        assert np.abs(got - ref).max() <= reach, k
+        close += int((np.abs(got - ref) <= 1e-6 + 1e-4 * np.abs(ref)).sum())
+        total_n += ref.size
+    assert close >= 0.99 * total_n, (close, total_n)
+
+
+def test_bias_ih_stays_zero(case):
+    _, port, _ = case
+    assert float(port["bias_ih_max"]) == 0.0
+
+
+def test_a_loaded_input_bias_folds_into_the_single_lstm_bias(case):
+    """bias_hh takes the sum, bias_ih reads zero, and bias_ih is a buffer
+    (no optimizer moves it) that keeps its state_dict name."""
+    _, port, _ = case
+    assert port["bias_fold"].tolist() == [True, True, True, True]
+
+
+def test_npz_file_layer_round_trips_a_dataset_and_a_bank(case):
+    """Where h5py is not installed the same tree goes to one npz file."""
+    jx, port, _ = case
+    np.testing.assert_array_equal(port["npz/signal"], jx["signal"])
+    np.testing.assert_array_equal(port["npz/refs"], [0, jx["signal"].shape[0]])
+    assert bool(port["npz/bank_equal"]) and int(port["npz/trainer_state"]) == 1
+
+
+def test_interrupted_run_resumes_from_its_checkpoint(case):
+    """An interrupt after epoch 1 saves ``epoch=1.ckpt`` and ``.opt``;
+    ``from_checkpoint`` restarts at epoch 1, step 1, with the optimizer's
+    count restored, and finishes epoch 2."""
+    _, port, _ = case
+    assert port["resume/start"].tolist() == [1, 1]
+    assert port["resume/end"].tolist() == [2, 2]
+    files = set(port["resume/files"].tolist())
+    assert {"epoch=1.ckpt", "epoch=1.opt", "epoch=2.ckpt", "epoch=2.opt", "hp.yaml"} <= files
+
+
+def test_jax_bank_decodes_the_same_argmax_tokens_in_the_port(case):
+    jx, port, _ = case
+    assert port["jax_bank_tokens"].shape == jx["bank_tokens"].shape == (2, 2 * FS[0] + N_STEPS)
+    np.testing.assert_array_equal(port["jax_bank_tokens"], jx["bank_tokens"])
+
+
+def test_port_bank_loads_in_jax(case):
+    _, port, _ = case
+    bank = mmk.Checkpoint(id=str(port["port_bank_id"]), epoch=3,
+                          root_dir=str(port["port_bank_root"]))
+    params = flatten(jax.device_get(bank.network.params))
+    assert bank.trainer_state["fit_loop"] == {"epoch": 3, "global_step": 3}
+    assert set(params) == {k[len("params/"):] for k in port if k.startswith("params/")}
+    for k, v in params.items():
+        np.testing.assert_array_equal(v, port[f"params/{k}"], err_msg=k)
+
+
+@pytest.mark.parametrize("key", ["param_dtype", "remat", "matmul_precision", "data_parallel",
+                                 "n_model", "fsdp", "loss_logs_file", "steps_per_dispatch",
+                                 "MONITOR_TRAINING"])
+def test_unported_trainer_kwargs_raise(case, key):
+    _, port, _ = case
+    msg = str(port[f"unported/{key}"])
+    assert msg.startswith("NotImplementedError") and key in msg, msg

@@ -116,7 +116,199 @@ def sample_rnn_task(inp: dict) -> dict:
     return out
 
 
-TASKS = {"modules": modules_task, "sample_rnn": sample_rnn_task}
+def fused_lstm_task(inp: dict) -> dict:
+    """The fused layer's plain path (CPU tensors): outputs and the six
+    gradients for the given cotangents, and with only h_all's cotangent (the
+    others None); and lstm_backward_plain against autograd through
+    lstm_forward_plain."""
+    from mimikit_tpu_torch.ops import fused_lstm as fl
+
+    out = {}
+    for tag in sorted({k.split("/")[0] for k in inp}):
+        p = f"{tag}/"
+        args = [t(inp[p + n]).clone().requires_grad_() for n in ("x", "Wi", "Wh", "b", "h0", "c0")]
+        cts = [t(inp[p + n]) for n in ("dh_all", "dh_T", "dc_T")]
+        res = fl.fused_lstm_layer(*args)
+        for n, v in zip(("h_all", "h_T", "c_T"), res):
+            out[p + n] = v.detach().numpy()
+        for n, g in zip(("dx", "dWi", "dWh", "db", "dh0", "dc0"), torch.autograd.grad(res, args, cts)):
+            out[p + "grad_" + n] = g.numpy()
+        res = fl.fused_lstm_layer(*args)
+        for n, g in zip(("dx", "dWi", "dWh", "db", "dh0", "dc0"), torch.autograd.grad(res[0], args, cts[0])):
+            out[p + "grad_h_only_" + n] = g.numpy()
+        # the written-out backward against autograd through the plain forward
+        x, Wi, Wh, b, h0, c0 = args
+        T, B, D = x.shape
+        xi = (x.reshape(T * B, D) @ Wi + b).reshape(T, B, -1).detach().requires_grad_()
+        wh, h0_, c0_ = (a.detach().clone().requires_grad_() for a in (Wh, h0, c0))
+        h_all, c_all, gates = fl.lstm_forward_plain(xi, wh, h0_, c0_)
+        auto = torch.autograd.grad((h_all, h_all[-1], c_all[-1]), (xi, wh, h0_, c0_), cts)
+        written = fl.lstm_backward_plain(*cts, gates.detach(), c_all.detach(), h_all.detach(),
+                                         h0_.detach(), c0_.detach(), wh.detach())
+        for n, a, w in zip(("dxi", "dWh", "dh0", "dc0"), auto, written):
+            out[p + "autograd_" + n] = a.numpy()
+            out[p + "written_" + n] = w.numpy()
+    return out
+
+
+def _flax_flat(state_dict, prefix):
+    tree = mmk.samplernn_params_to_jax(state_dict)
+    out = {}
+
+    def rec(node, path):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                rec(v, f"{path}{k}/")
+            else:
+                out[f"{prefix}{path}{k}"] = v
+
+    rec(tree, "")
+    return out
+
+
+def _batches(loader, n):
+    out = []
+    for k, (inputs, targets) in enumerate(loader):
+        if k == n:
+            break
+        out.append((np.asarray(inputs[0]), np.asarray(targets[0])))
+    return out
+
+
+def train_task(inp: dict) -> dict:
+    """The training path on the CPU: the JAX-written h5 read by the port's
+    Database, a port-written h5, seeded batches (host loader and device
+    batcher), cross-entropy, the schedule, three TrainARMLoop steps from the
+    JAX weights, and the JAX-written bank decoded by the port."""
+    import copy
+
+    from mimikit_tpu_torch.data import h5
+
+    out = {}
+    work = str(inp["work"])
+    # the JAX-written h5, through the port's Database
+    db = mmk.Database(str(inp["jax_h5"]))
+    out["jax_h5/signal"] = db.signal[:]
+    out["jax_h5/refs"] = np.asarray(db.signal.attrs["refs"])
+    out["jax_h5/sources"] = np.array([str(x) for x in db.attrs["sources"]])
+    db.close()
+    # a port-written h5 of the same source
+    port_ds = mmk.DatasetConfig(sources=(str(inp["wav"]),), filename=f"{work}/port.h5",
+                                extractors=(mmk.Extractor.signal(16000),))
+    port_ds.create(mode="w").close()
+    out["h5_backend"] = np.array(h5.backend())
+
+    ds = mmk.DatasetConfig(sources=(str(inp["wav"]),), filename=str(inp["jax_h5"]),
+                           extractors=(mmk.Extractor.signal(16000),))
+    db = ds.get(mode="r")
+    cfg = mmk.Config.deserialize(str(inp["train_yaml"]))
+    cfg.root_dir = f"{work}/port_tr"
+    net_cfg = mmk.Config.deserialize(str(inp["net_yaml"]))
+    net_cfg.io_spec.bind_to(ds)
+    net = mmk.SampleRNN.from_config(net_cfg, device="cpu")
+    net.load_state_dict(mmk.samplernn_state_dict_from_jax(unflatten(inp, "params0/")))
+
+    # seeded batches: the host loader, and the device batcher against it
+    host_cfg = copy.deepcopy(cfg)
+    host_cfg.trainer_kwargs["device_batching"] = False
+    host = _batches(mmk.TrainARMLoop.get_dataloader(db, net, host_cfg), 3)
+    dev = _batches(mmk.TrainARMLoop.get_dataloader(db, net, cfg), 3)
+    for k, ((hi, ht), (di, dt)) in enumerate(zip(host, dev)):
+        out[f"batches/host/{k}/in"], out[f"batches/host/{k}/tgt"] = hi, ht
+        out[f"batches/device/{k}/in"], out[f"batches/device/{k}/tgt"] = di, dt
+
+    out["ce"] = mmk.cross_entropy(t(inp["ce_logits"]), t(inp["ce_targets"])).numpy()
+    sched = [mmk.onecycle_schedule(int(n), *map(float, rest)) for n, *rest in inp["sched_cfgs"]]
+    out["sched"] = np.array([[f(i) for i in range(int(inp["sched_steps"]))] for f in sched])
+
+    # the first step's gradients at the initial weights
+    inputs, targets = next(iter(mmk.TrainARMLoop.get_dataloader(db, net, cfg)))
+    outputs, _ = net(inputs)
+    net.config.io_spec.loss_fn(outputs, targets)["loss"].backward()
+    grads = {k: torch.zeros_like(v) for k, v in net.state_dict().items()}
+    grads.update({k: p.grad for k, p in net.named_parameters()})
+    out.update(_flax_flat(grads, "grads0/"))
+    net.zero_grad(set_to_none=True)
+
+    loop = mmk.TrainARMLoop.from_config(cfg, db, net)
+    loop.run()
+    out["losses"] = np.array([h["loss"] for _, h in loop.metrics.history])
+    out.update(_flax_flat(net.state_dict(), "params/"))
+    out["bias_ih_max"] = np.array(max(float(net.tiers[i].rnn.bias_ih_l0.abs().max())
+                                      for i in range(len(net.frame_sizes) - 1)))
+    out["port_bank_root"], out["port_bank_id"] = np.array(cfg.root_dir), np.array(loop.hash_)
+
+    # the JAX-written bank, decoded by the port (argmax)
+    ck = mmk.Checkpoint(str(inp["jax_bank_id"]), int(inp["jax_bank_epoch"]),
+                        str(inp["jax_bank_root"]), device="cpu")
+    out["jax_bank_tokens"] = ck.network.generate((inp["prompt"],), int(inp["n_steps"]))[0].numpy()
+
+    # one LSTM bias: a loaded bias_ih is folded into bias_hh, bias_ih is no parameter
+    rnn = net.tiers[0].rnn
+    sd_ = {k: v.clone() for k, v in rnn.state_dict().items()}
+    sd_["bias_ih_l0"] = torch.ones_like(sd_["bias_ih_l0"])
+    rnn.load_state_dict(sd_)
+    out["bias_fold"] = np.array([
+        torch.equal(rnn.bias_hh_l0.detach(), sd_["bias_hh_l0"] + 1),
+        float(rnn.bias_ih_l0.abs().max()) == 0.0,
+        "bias_ih_l0" not in dict(rnn.named_parameters()),
+        "bias_ih_l0" in rnn.state_dict(),
+    ])
+
+    # the npz file layer (machines without h5py): a dataset and a bank round trip
+    h5py_module, h5.h5py = h5.h5py, None
+    npz_db = mmk.DatasetConfig(sources=(str(inp["wav"]),), filename=f"{work}/npz.h5",
+                               extractors=(mmk.Extractor.signal(16000),)).create(mode="w")
+    npz_db.close()
+    reread = mmk.DatasetConfig(filename=f"{work}/npz.h5").get(mode="r")
+    out["npz/signal"] = reread.signal[:]
+    out["npz/refs"] = np.asarray(reread.signal.attrs["refs"])
+    mmk.Checkpoint("npz", 1, f"{work}/npz_bank").create(net, trainer_state={"fit_loop": {"epoch": 1}})
+    back = mmk.Checkpoint("npz", 1, f"{work}/npz_bank", device="cpu")
+    out["npz/bank_equal"] = np.array(all(
+        torch.equal(v, net.state_dict()[k]) for k, v in back.network.state_dict().items()
+    ))
+    out["npz/trainer_state"] = np.array(back.trainer_state["fit_loop"]["epoch"])
+    h5.h5py = h5py_module
+
+    # resume: an interrupted run saves epoch=1 (+ .opt); from_checkpoint finishes it
+    rcfg = copy.deepcopy(cfg)
+    rcfg.root_dir, rcfg.max_epochs, rcfg.save_optimizer = f"{work}/resume", 2, True
+    rnet = mmk.SampleRNN.from_config(net_cfg, device="cpu")
+    rnet.load_state_dict(mmk.samplernn_state_dict_from_jax(unflatten(inp, "params0/")))
+    first = mmk.TrainARMLoop.from_config(rcfg, db, rnet)
+
+    def stop(*_):
+        raise KeyboardInterrupt
+
+    first.on_train_epoch_end = stop
+    first.run()
+    resumed = mmk.TrainARMLoop.from_checkpoint(
+        mmk.Checkpoint(first.hash_, 1, rcfg.root_dir, device="cpu"))
+    out["resume/start"] = np.array([resumed.start_epoch, resumed.global_step])
+    resumed.run()
+    out["resume/end"] = np.array([resumed.global_step, resumed.opt.count])
+    out["resume/files"] = np.array(sorted(os.listdir(f"{rcfg.root_dir}/{first.hash_}")))
+
+    for key, value in (("param_dtype", "bfloat16"), ("remat", True),
+                       ("matmul_precision", "float32"), ("data_parallel", True),
+                       ("n_model", 2), ("fsdp", True), ("loss_logs_file", "l.h5"),
+                       ("steps_per_dispatch", 4), ("MONITOR_TRAINING", True)):
+        bad = copy.deepcopy(cfg)
+        if key == "MONITOR_TRAINING":
+            bad.MONITOR_TRAINING = True
+        else:
+            bad.trainer_kwargs[key] = value
+        try:
+            mmk.TrainARMLoop.from_config(bad, db, net)
+            out[f"unported/{key}"] = np.array("ran")
+        except NotImplementedError as e:
+            out[f"unported/{key}"] = np.array(f"NotImplementedError: {e}")
+    return out
+
+
+TASKS = {"modules": modules_task, "sample_rnn": sample_rnn_task, "fused_lstm": fused_lstm_task,
+         "train": train_task}
 
 if __name__ == "__main__":
     task, src, dst = sys.argv[1:4]
