@@ -75,6 +75,13 @@ N_SMALL, N_WIDE, STREAM_CHUNK, SEED = 4096, 16384, 1600, 1234
 # training path (2048 samples a window, frames of 16 and 8, B=32, H=256)
 LSTM_SHAPES = ((12, 4, 8, 16), (128, 32, 256, 256), (256, 32, 256, 256))
 TRAIN_B, TRAIN_LEN, TRAIN_EPOCHS, TRAIN_STEPS = 32, 2048, 4, 8
+# WaveNet-10 of benchmarks/bench_decode.py:91-101 (10 kernel-2 layers, dilations
+# 1..512, rf 1,024, dims 128, q 256, a two-layer Mish head of 128), and a
+# small net of the same shape; generate after a prompt of rf + 8 (:136-145)
+WN_FULL = dict(blocks=(10,), dim=128, q_levels=256, mlp_dim=128)
+WN_SMALL = dict(blocks=(3,), dim=16, q_levels=32, mlp_dim=16)
+WN_N, WN_SMALL_B, WN_STREAM_B, WN_STREAM_CHUNKS = 2048, 8, 64, 8
+CAT_SHAPES = ((256, 256), (3, 7, 200))  # the sampler's checks: the path's and a ragged one
 
 
 def log(*a):
@@ -114,24 +121,26 @@ def make_prompt(torch, B, T, q, seed):
     return torch.randint(0, q, (B, T), generator=g, dtype=torch.int32).cuda()
 
 
-def verify(torch, sd, net, prompt, toks, seed, temperature, tf_chunk=1024):
+def verify_tokens(torch, prompt, toks, t_first, tf_scores, free_run, tf_chunk=1024):
     """Teacher-forced check of kernel tokens ``toks`` (B, n) decoded after
-    ``prompt``.  Returns (the largest score gap of a kernel token below its
+    ``prompt``.  ``tf_scores(full, state, t, m)`` gives the plain twin's
+    (m, B, Q) scores of steps t .. t+m-1 with ``full`` (prompt + kernel
+    tokens) as its prompt, carrying ``state`` (the first call takes
+    ``t = t_first``); ``free_run()`` gives the plain twin's own (B, n)
+    tokens.  Returns (the largest score gap of a kernel token below its
     row's maximum, the number of streams where the free-running plain decode
     parted from the kernel's at a near-tie).  Raises when a token is outside
     the tolerance, or when the free-running plain tokens differ before the
     stream's first near-tie."""
     B, prior_t = prompt.shape
-    n, rf = toks.shape[1], net.rf
+    n = toks.shape[1]
     full = torch.cat([prompt, toks.to(torch.int32)], 1).contiguous()
-    state = sd.init_decode_state(net, full)
-    worst = 0.0
+    worst, state = 0.0, None
     near_tie = torch.full((B,), n, dtype=torch.long, device=toks.device)
-    t = rf
+    t = t_first
     while t < prior_t + n:
         m = min(tf_chunk, prior_t + n - t)
-        _, scores = sd.decode_plain(net, full, state, t, m, t, m, seed, temperature,
-                                    return_scores=True)
+        scores, state = tf_scores(full, state, t, m)
         lo = max(t, prior_t)
         if lo < t + m:
             s = scores[lo - t :]                           # (k, B, Q)
@@ -154,10 +163,7 @@ def verify(torch, sd, net, prompt, toks, seed, temperature, tf_chunk=1024):
             )
             near_tie = torch.minimum(near_tie, first)
         t += m
-    state = sd.init_decode_state(net, prompt)
-    plain = sd.decode_plain(net, prompt, state, rf, prior_t + n - rf, prior_t, n, seed,
-                            temperature)
-    diff = plain != toks
+    diff = free_run() != toks
     first_diff = torch.where(diff.any(1), diff.long().argmax(1), torch.full_like(near_tie, n))
     early = first_diff < near_tie
     if bool(early.any()):
@@ -167,6 +173,24 @@ def verify(torch, sd, net, prompt, toks, seed, temperature, tf_chunk=1024):
             f" before the first near-tie (step {int(near_tie[b])})"
         )
     return worst, int((first_diff < n).sum())
+
+
+def verify(torch, sd, net, prompt, toks, seed, temperature):
+    """verify_tokens for the SampleRNN decode kernel (steps from rf)."""
+    prior_t, n, rf = prompt.shape[1], toks.shape[1], net.rf
+
+    def tf_scores(full, state, t, m):
+        state = state or sd.init_decode_state(net, full)
+        _, scores = sd.decode_plain(net, full, state, t, m, t, m, seed, temperature,
+                                    return_scores=True)
+        return scores, state
+
+    def free_run():
+        state = sd.init_decode_state(net, prompt)
+        return sd.decode_plain(net, prompt, state, rf, prior_t + n - rf, prior_t, n, seed,
+                               temperature)
+
+    return verify_tokens(torch, prompt, toks, rf, tf_scores, free_run)
 
 
 def check_kernels(torch, mmk, sd, spec, B_single, B_chunk, n, chunk_lens, jitter):
@@ -315,6 +339,293 @@ def bench(torch, mmk, sd, fl):
     lstm_timings(torch, fl)
     train_path(torch, mmk, fl, sd)
 
+
+
+# -- WaveNet serving (the decode kernel K4/K5 and the categorical sampler K9) ------
+
+def make_wavenet(mmk, torch, wd, spec, seed, sampler_impl="jax", jitter=0.0):
+    io = mmk.IOSpec.mulaw_io(mmk.IOSpec.MuLawIOConfig(
+        q_levels=spec["q_levels"], mlp_dim=spec["mlp_dim"], input_module_type="embedding",
+        sampler_impl=sampler_impl))
+    cfg = mmk.WaveNet.Config(io_spec=io, blocks=spec["blocks"], dims_dilated=(spec["dim"],),
+                             skips_dim=spec["dim"], residuals_dim=spec["dim"], pad_side=0)
+    net = mmk.WaveNet.from_config(cfg, device="cuda", seed=seed).eval()
+    if jitter:  # varied argmax trajectories, as make_net's
+        g = torch.Generator().manual_seed(seed + 1)
+        with torch.no_grad():
+            for p in net.parameters():
+                p.add_(torch.randn(p.shape, generator=g).to(p.device) * jitter)
+    if not wd.supports_kernel_decode(net):
+        raise AssertionError("the WaveNet decode kernel's gate refused the net")
+    return net
+
+
+def verify_wn(torch, wd, pack, prompt, toks, seed, temperature):
+    """verify_tokens for the WaveNet decode kernel (steps from 1)."""
+    prior_t, n = prompt.shape[1], toks.shape[1]
+
+    def tf_scores(full, state, t, m):
+        state = state or wd.init_decode_state(pack, full)
+        _, scores = wd.decode_plain(pack, full, state, t, m, t, m, seed, temperature,
+                                    return_scores=True)
+        return scores, state
+
+    def free_run():
+        state = wd.init_decode_state(pack, prompt)
+        return wd.decode_plain(pack, prompt, state, 1, prior_t + n - 1, prior_t, n, seed,
+                               temperature)
+
+    return verify_tokens(torch, prompt, toks, 1, tf_scores, free_run)
+
+
+def check_wavenet(torch, mmk, wd, spec, B_single, B_chunk, n, chunk_lens, jitter):
+    """Phase 2 for the WaveNet decode kernel at one size; returns {wrapper:
+    largest score gap}."""
+    net = make_wavenet(mmk, torch, wd, spec, seed=1, jitter=jitter)
+    pack = wd.wavenet_weight_pack(net)
+    prior_t, q = net.rf + 8, spec["q_levels"]
+    err = {"wavenet_decode_single": 0.0, "wavenet_decode_chunk": 0.0}
+    for temp in (None, TEMPERATURE):
+        mode = "argmax" if temp is None else f"T={temp}"
+        prompt = make_prompt(torch, B_single, prior_t, q, seed=2)
+        toks = wd.decode_single(pack, prompt, n, 11, temp)
+        torch.cuda.synchronize()
+        if spec is WN_SMALL:
+            for g in wd.GROUPS:
+                if not torch.equal(wd.decode_single(pack, prompt, n, 11, temp, group=g), toks):
+                    raise AssertionError(f"WaveNet decode_single group={g} changed the tokens")
+            if temp is None and len(set(toks[0].tolist())) < 2:
+                raise AssertionError("argmax tokens are constant: the check is vacuous")
+        gap, parted = verify_wn(torch, wd, pack, prompt, toks, 11, temp)
+        err["wavenet_decode_single"] = max(err["wavenet_decode_single"], gap)
+        log(f"  WaveNet decode_single B={B_single} n={n} {mode}: ok, max gap {gap:.3e},"
+            f" {parted} streams parted at near-ties")
+        prompt = make_prompt(torch, B_chunk, prior_t, q, seed=3)
+        runs = []
+        for C in chunk_lens:
+            state = wd.init_decode_state(pack, prompt)
+            parts = [wd.decode_chunk(pack, prompt, state, t0, min(C, prior_t + n - t0), 13, temp)
+                     for t0 in range(1, prior_t + n, C)]
+            runs.append(torch.cat(parts, 1)[:, prior_t - 1 :])
+        torch.cuda.synchronize()
+        for C, r in zip(chunk_lens[1:], runs[1:]):
+            if not torch.equal(r, runs[0]):
+                raise AssertionError(f"WaveNet decode_chunk with chunk {C} changed the tokens")
+        gap, parted = verify_wn(torch, wd, pack, prompt, runs[0], 13, temp)
+        err["wavenet_decode_chunk"] = max(err["wavenet_decode_chunk"], gap)
+        log(f"  WaveNet decode_chunk B={B_chunk} n={n} chunks {chunk_lens} {mode}: ok,"
+            f" max gap {gap:.3e}, {parted} streams parted at near-ties")
+    return err
+
+
+def categorical_scores(torch, x, temperature, seed):
+    """The plain twin's (rows, Q) scores: logits / t + the hashed noise."""
+    from mimikit_tpu_torch.ops.noise import gumbel_rows
+
+    flat = x.reshape(-1, x.shape[-1]).float()
+    return flat / temperature + gumbel_rows(seed, flat.shape[0], flat.shape[1], x.device)
+
+
+def check_categorical(torch, cat):
+    """Phase 2 for the Triton sampler: every drawn index scores within TOL *
+    max|score| of its row's maximum under the plain twin's scores."""
+    worst = 0.0
+    for shape in CAT_SHAPES:
+        x = torch.randn(*shape, generator=torch.Generator().manual_seed(len(shape))).cuda()
+        k = cat.categorical(x, TEMPERATURE, SEED)
+        torch.cuda.synchronize()
+        if tuple(k.shape) != shape[:-1]:
+            raise AssertionError(f"categorical {shape}: output shape {tuple(k.shape)}")
+        s = categorical_scores(torch, x, TEMPERATURE, SEED)
+        gap = s.amax(-1) - s.gather(-1, k.reshape(-1, 1).long())[:, 0]
+        tol = TOL * s.abs().amax(-1)
+        if bool((gap > tol).any()):
+            raise AssertionError(f"categorical {shape}: a drawn index {float(gap.max()):.3e}"
+                                 f" below its row max")
+        same = int((k == cat.categorical_plain(x, TEMPERATURE, SEED)).sum())
+        worst = max(worst, float(gap.max()))
+        log(f"  categorical {shape}: ok, max gap {float(gap.max()):.3e}, {same} of {k.numel()}"
+            f" indices equal to the plain twin's")
+    return {"categorical": worst}
+
+
+def wavenet_path(torch, mmk, wd, cat):
+    """Phase 3b: WaveNet-10 served at full width through the user entry
+    points; returns (net, prompts, launches, gap of the verified output)."""
+    net = make_wavenet(mmk, torch, wd, WN_FULL, seed=0)
+    rf, q = net.rf, WN_FULL["q_levels"]
+    log(f"  WaveNet-10: {net.n_parameters} parameters, rf {rf}")
+    prompts = {B: make_prompt(torch, B, rf + 8, q, seed=B) for B in (256, WN_SMALL_B, WN_STREAM_B)}
+    for w in (wd.decode_single, wd.decode_chunk, cat.categorical):
+        w.launches = 0
+    outs = {}
+    for B in (256, WN_SMALL_B):
+        prompt = prompts[B]
+        net.generate((prompt,), 16, temperature=TEMPERATURE, seed=SEED)  # lazy set-up
+
+        def run():
+            outs[B] = net.generate((prompt,), WN_N, temperature=TEMPERATURE, seed=SEED)[0]
+
+        ms = cuda_ms(torch, run, reps=3)
+        med, spr = spread(ms)
+        toks = outs[B][:, prompt.shape[1]:]
+        if toks.shape != (B, WN_N) or int(toks.min()) < 0 or int(toks.max()) >= q:
+            raise AssertionError(f"WaveNet generate B={B}: bad tokens {tuple(toks.shape)}")
+        if len(set(toks[0].tolist())) < 2:
+            raise AssertionError(f"WaveNet generate B={B}: constant sampled tokens")
+        log(f"  WaveNet generate B={B} n={WN_N} T={TEMPERATURE}: {B * WN_N / (med / 1e3):.6g}"
+            f" samples/s (median of 3: {med:.3f} ms, spread {spr:.3%}; {ms})")
+    gap, parted = verify_wn(torch, wd, wd.wavenet_weight_pack(net), prompts[256],
+                            outs[256][:, rf + 8:], SEED, TEMPERATURE)
+    log(f"  WaveNet generate B=256 output verified: max gap {gap:.3e}, {parted} streams"
+        f" parted at near-ties")
+
+    p64 = prompts[WN_STREAM_B]
+    lat, audio = [], []
+    it = mmk.stream_audio(net, (p64,), STREAM_CHUNK, temperature=TEMPERATURE, seed=SEED)
+    t = time.perf_counter()
+    for _ in range(WN_STREAM_CHUNKS):
+        audio.append(next(it))
+        now = time.perf_counter()
+        lat.append(1e3 * (now - t))
+        t = now
+    it.close()
+    n_cmp = WN_STREAM_CHUNKS * STREAM_CHUNK
+    ref = net.generate((p64,), n_cmp, temperature=TEMPERATURE, seed=SEED)[0][:, rf + 8:]
+    if not np.array_equal(np.concatenate(audio, 1), mmk.MuLawExpand(q)(ref.cpu().numpy())):
+        raise AssertionError("WaveNet stream_audio differs from the expanded generate output")
+    lat_s = sorted(lat)
+    log(f"  WaveNet stream_audio B={WN_STREAM_B}, {WN_STREAM_CHUNKS} chunks of {STREAM_CHUNK}"
+        f" steps (equal to the expanded generate output): per-chunk ms p50"
+        f" {statistics.median(lat):.3f}, p95 {lat_s[int(0.95 * (len(lat) - 1) + 0.5)]:.3f},"
+        f" max {max(lat):.3f} (first {lat[0]:.3f}); {lat}")
+
+    # a bank written by the port, reloaded through Checkpoint(...).network
+    root = os.path.join(ROOT, "build", "chip_smoke_wavenet")
+    shutil.rmtree(root, ignore_errors=True)
+    mmk.Checkpoint("wavenet10", 1, root).create(net)
+    net2 = mmk.Checkpoint("wavenet10", 1, root, device="cuda").network.eval()
+    live = net.state_dict()
+    diff = [k for k, v in net2.state_dict().items() if not torch.equal(v, live[k])]
+    if diff or type(net2) is not type(net):
+        raise AssertionError(f"reloaded WaveNet differs: {type(net2).__name__}, {diff}")
+    p8 = prompts[WN_SMALL_B]
+    toks = net2.generate((p8,), 1024)[0][:, rf + 8:]
+    g2, parted = verify_wn(torch, wd, wd.wavenet_weight_pack(net2), p8, toks, SEED, None)
+    log(f"  epoch=1.ckpt of WaveNet-10 reloaded with equal parameters; argmax generate"
+        f" B={WN_SMALL_B} x 1024 from it verified (max gap {g2:.3e}, {parted} streams parted"
+        f" at near-ties)")
+
+    # one eval forward with sampler_impl="pallas": the sampler on the path
+    net_p = make_wavenet(mmk, torch, wd, WN_FULL, seed=0, sampler_impl="pallas")
+    y = net_p((prompts[256][:, :rf],), temperature=TEMPERATURE)[0]
+    torch.cuda.synchronize()
+    if tuple(y.shape) != (256, 1) or int(y.min()) < 0 or int(y.max()) >= q:
+        raise AssertionError(f"eval forward with sampler_impl='pallas': {tuple(y.shape)}")
+    log(f"  eval forward B=256 with sampler_impl='pallas': ok, {tuple(y.shape)}")
+    launches = {"wavenet_decode_single": wd.decode_single.launches,
+                "wavenet_decode_chunk": wd.decode_chunk.launches,
+                "categorical": cat.categorical.launches}
+    log(f"  launches on the WaveNet serving path: {launches}")
+    if min(launches.values()) == 0:
+        raise AssertionError(f"a kernel of the WaveNet path was never launched: {launches}")
+    return net, prompts, launches, gap
+
+
+def wavenet_bound(pack, B, prior_t, n_steps, out_len):
+    """(bound_ms, bound_by) for one WaveNet decode call: f32 operations of
+    the gated convs, the skip/residual products and the head, against the
+    weights, prompt, tokens and rings (read once, written once) over the
+    memory rate."""
+    D, S = pack.dim, pack.skips_dim
+    mac = sum(2 * D * 2 * D + D * (S + (D if r else 0)) for r in pack.has_res)
+    mac += sum(i * o for i, o in pack.head_dims)
+    flops = 2.0 * mac * B * n_steps
+    state = 4 * B * (D * sum(pack.dilations) + 1)
+    nbytes = 4 * pack.flat.numel() + 4 * B * prior_t + 2 * state + 4 * B * out_len
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def categorical_bound(rows, Q):
+    """(bound_ms, bound_by) for one sampler call: each logit read once and
+    each index written once, against ~20 operations a logit (the scale, the
+    counter hash, two logs, the compare)."""
+    t_ops, t_bytes = 20.0 * rows * Q / PEAK_F32_FLOPS, 4.0 * rows * (Q + 1) / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def wavenet_rows(torch, wd, cat, net, prompts, launches, err):
+    """Phase 5 rows of K4, K5 and K9: kernel, plain twin, yardstick, bound."""
+    pack = wd.wavenet_weight_pack(net)
+    p8, p256 = prompts[WN_SMALL_B], prompts[256]
+    prior_t = p8.shape[1]
+    n_single = prior_t + WN_N - 1
+    C = net._CHUNK
+    x = torch.randn(*CAT_SHAPES[0], generator=torch.Generator().manual_seed(7)).cuda()
+    reps = 100
+
+    def many(fn):
+        return lambda: [fn() for _ in range(reps)]
+
+    calls = {
+        "wavenet_decode_single": (
+            lambda: wd.decode_single(pack, p8, WN_N, SEED, TEMPERATURE),
+            lambda: wd.decode_plain(pack, p8, wd.init_decode_state(pack, p8), 1, n_single,
+                                    prior_t, WN_N, SEED, TEMPERATURE),
+            None, 1, wavenet_bound(pack, WN_SMALL_B, prior_t, n_single, WN_N),
+            "mimikit_tpu/ops/pallas_decode.py:402", f"B={WN_SMALL_B} steps={n_single}"),
+        "wavenet_decode_chunk": (
+            lambda: wd.decode_chunk(pack, p256, wd.init_decode_state(pack, p256), 1, C, SEED,
+                                    TEMPERATURE),
+            lambda: wd.decode_plain(pack, p256, wd.init_decode_state(pack, p256), 1, C, 1, C,
+                                    SEED, TEMPERATURE),
+            None, 1, wavenet_bound(pack, 256, prior_t, C, C),
+            "mimikit_tpu/ops/pallas_decode.py:559", f"B=256 steps={C}"),
+        "categorical": (
+            many(lambda: cat.categorical(x, TEMPERATURE, SEED)),
+            many(lambda: cat.categorical_plain(x, TEMPERATURE, SEED)),
+            many(lambda: torch.multinomial(torch.softmax(x / TEMPERATURE, -1), 1)),
+            reps, categorical_bound(*CAT_SHAPES[0]),
+            "mimikit_tpu/ops/pallas_kernels.py:159", f"(B, Q)={CAT_SHAPES[0]}"),
+    }
+    sources = {"wavenet_decode_single": "mimikit_tpu_torch/csrc/wavenet_decode.cu",
+               "wavenet_decode_chunk": "mimikit_tpu_torch/csrc/wavenet_decode.cu",
+               "categorical": "mimikit_tpu_torch/ops/categorical.py"}
+    rows = []
+    for name, (kern, plain, lib, per, (bound, by), replaces, shape) in calls.items():
+        kern()
+        k_ms, k_spr = spread([m / per for m in cuda_ms(torch, kern, reps=3)])
+        p_ms = cuda_ms(torch, plain, reps=1)[0] / per
+        l_ms = None
+        if lib is not None:
+            lib()
+            l_ms, _ = spread([m / per for m in cuda_ms(torch, lib, reps=3)])
+        log(f"  {name} {shape}: kernel {k_ms:.5f} ms (median of 3, spread {k_spr:.2%}),"
+            f" plain twin {p_ms:.5f} ms, yardstick {l_ms}, bound {bound:.5f} ms by {by}")
+        rows.append(dict(
+            name=name, route="triton" if name == "categorical" else "cuda",
+            source=sources[name], replaces=replaces, launches=launches[name],
+            max_abs_err=err[name], ms=k_ms, plain_ms=p_ms, bound_ms=bound, bound_by=by,
+            library_ms=l_ms,
+        ))
+    return rows
+
+
+def wavenet_bench(torch, mmk, wd, cat):
+    """--bench: WaveNet serving's timings and decode_chunk at B=256 for each
+    number of streams a block can own."""
+    net, prompts, launches, _ = wavenet_path(torch, mmk, wd, cat)
+    pack = wd.wavenet_weight_pack(net)
+    p256 = prompts[256]
+    for g in wd.GROUPS:
+        ms = cuda_ms(torch, lambda: wd.decode_chunk(
+            pack, p256, wd.init_decode_state(pack, p256), 1, net._CHUNK, SEED, TEMPERATURE,
+            group=g), reps=3)
+        med, spr = spread(ms)
+        log(f"  WaveNet decode_chunk B=256 steps={net._CHUNK} group={g}: {med:.3f} ms"
+            f" ({1e3 * med / net._CHUNK:.2f} us a step; median of 3, spread {spr:.3%})")
+    wavenet_rows(torch, wd, cat, net, prompts, launches, {k: 0.0 for k in launches})
 
 
 # -- the fused LSTM layer (training path) ---------------------------------------
@@ -591,8 +902,10 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, ROOT)
     import mimikit_tpu_torch as mmk
+    from mimikit_tpu_torch.ops import categorical as cat
     from mimikit_tpu_torch.ops import fused_lstm as fl
     from mimikit_tpu_torch.ops import samplernn_decode as sd
+    from mimikit_tpu_torch.ops import wavenet_decode as wd
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -607,19 +920,24 @@ def main(argv=None) -> int:
         return time.perf_counter() - t
 
     t = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:  # one nvcc per source, started together
-        builds = [(mod, pool.submit(timed_build, b)) for mod, b in
-                  ((sd, sd.build_kernel), (fl, fl.build_lstm_kernel))]
+    sources = ((sd, sd.build_kernel), (fl, fl.build_lstm_kernel), (wd, wd.build_kernel))
+    with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, started together
+        builds = [(mod, pool.submit(timed_build, b)) for mod, b in sources]
         builds = [(mod, f.result()) for mod, f in builds]
     for mod, build_s in builds:
         for line in mod._Kernel.build_log.splitlines():
             if "registers" in line or "spill" in line:
                 log("  ptxas:", line.strip())
         log(f"  built {mod.SOURCE.name} for sm_90a in {build_s:.1f} s")
-    log(f"  both builds took {time.perf_counter() - t:.1f} s")
+    log(f"  the {len(sources)} builds took {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    cat.categorical(torch.zeros(2, 8).cuda(), 1.0, 0)  # compiles the Triton kernel
+    torch.cuda.synchronize()
+    log(f"  compiled the Triton sampler (ops/categorical.py) in {time.perf_counter() - t:.1f} s")
 
     if args.bench:
         bench(torch, mmk, sd, fl)
+        wavenet_bench(torch, mmk, wd, cat)
         log(card)
         return 0
 
@@ -627,17 +945,22 @@ def main(argv=None) -> int:
     log("phase 2: each kernel against its plain twin")
     err = check_kernels(torch, mmk, sd, SMALL, 4, 64, 300, (300 + 16, 7, 64), jitter=0.5)
     err.update(check_lstm(torch, fl, LSTM_SHAPES[:1]))
+    err.update(check_wavenet(torch, mmk, wd, WN_SMALL, WN_SMALL_B, 40, 300, (300 + 15, 7, 64),
+                             jitter=0.3))
+    err.update(check_categorical(torch, cat))
     if args.quick:
         log(json.dumps({"ok": True, "quick": True, "max_err": err}))
         return 0
     err_full = check_kernels(torch, mmk, sd, FULL, 4, 256, 2048, (2048 + 32, 700, 1600),
                              jitter=0.0)
     err_full.update(check_lstm(torch, fl, LSTM_SHAPES[1:]))
-    err = {k: max(err[k], err_full[k]) for k in err}
+    err_full.update(check_wavenet(torch, mmk, wd, WN_FULL, WN_SMALL_B, 256, 512, (1543, 700),
+                                  jitter=0.0))
+    err = {k: max(err[k], err_full.get(k, 0.0)) for k in err}
     check_train_step(torch, mmk)
 
     # -- phase 3 -------------------------------------------------------------
-    log("phase 3: the serving path at full width")
+    log("phase 3: the serving paths at full width")
     net = make_net(mmk, torch, FULL, seed=0)
     rf = net.rf
     p4, p256 = (make_prompt(torch, B, 2 * rf, FULL["q_levels"], seed=B) for B in (4, 256))
@@ -653,6 +976,8 @@ def main(argv=None) -> int:
     log(f"  launches on the serving path: {launches}")
     if min(launches.values()) == 0:
         raise AssertionError(f"a kernel of the serving path was never launched: {launches}")
+    wn_net, wn_prompts, wn_launches, gap = wavenet_path(torch, mmk, wd, cat)
+    err["wavenet_decode_chunk"] = max(err["wavenet_decode_chunk"], gap)
 
     # -- phase 4 -------------------------------------------------------------
     log("phase 4: the training path at full width")
@@ -698,6 +1023,7 @@ def main(argv=None) -> int:
             replaces=f"mimikit_tpu/ops/pallas_lstm.py:{line}",
             launches=train_launches[name], max_abs_err=err[name], **lstm[name],
         ))
+    rows += wavenet_rows(torch, wd, cat, wn_net, wn_prompts, wn_launches, err)
 
     log(json.dumps({"kernels": rows}))
     log(card)

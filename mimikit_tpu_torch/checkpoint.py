@@ -3,11 +3,11 @@
 Counterpart of ``mimikit_tpu/checkpoint.py``, in the same layout, so each
 package reads the other's banks: the network's parameters as the flax tree
 under ``network/state_dict/<path>`` (the port maps its state_dict there and
-back with ``weights.samplernn_params_to_jax`` /
-``samplernn_state_dict_from_jax``), the network, dataset and training
+back with the maps of :mod:`.weights`), the network, dataset and training
 configs as YAML attrs, and the trainer state.  The optimizer state goes to a
 sibling ``epoch=N.opt`` as torch's own ``state_dict`` (``torch.save``).
-Files go through :mod:`.data.h5`.  Only SampleRNN networks are ported.
+Files go through :mod:`.data.h5`.  SampleRNN and WaveNet networks are
+ported.
 """
 from __future__ import annotations
 
@@ -23,7 +23,12 @@ import yaml
 from .config import Config
 from .data import h5
 from .features.dataset import DatasetConfig
-from .weights import samplernn_params_to_jax, samplernn_state_dict_from_jax
+from .weights import (
+    samplernn_params_to_jax,
+    samplernn_state_dict_from_jax,
+    wavenet_params_to_jax,
+    wavenet_state_dict_from_jax,
+)
 
 __all__ = ["Checkpoint", "CheckpointBank"]
 
@@ -59,11 +64,16 @@ def _unflatten(flat: dict) -> dict:
     return root
 
 
-def _check_network(network) -> None:
+def _weight_maps(network):
+    """(state_dict -> flax tree, flax tree -> state_dict) for ``network``."""
     from .networks.sample_rnn import SampleRNN
+    from .networks.wavenet import WaveNet
 
-    if not isinstance(network, SampleRNN):
-        raise NotImplementedError(f"checkpoints of {type(network).__name__} are not ported")
+    if isinstance(network, SampleRNN):
+        return samplernn_params_to_jax, samplernn_state_dict_from_jax
+    if isinstance(network, WaveNet):
+        return wavenet_params_to_jax, wavenet_state_dict_from_jax
+    raise NotImplementedError(f"checkpoints of {type(network).__name__} are not ported")
 
 
 class CheckpointBank:
@@ -72,12 +82,12 @@ class CheckpointBank:
     @classmethod
     def save(cls, filename: str, network, training_config=None, optimizer_state=None,
              trainer_state: Optional[dict] = None) -> str:
-        _check_network(network)
+        to_jax, _ = _weight_maps(network)
         os.makedirs(os.path.dirname(filename), exist_ok=True)
         with h5.File(filename, "w") as f:
             f.create_group("network").attrs["config"] = network.config.serialize()
             sd = f.create_group("network/state_dict")
-            for path, arr in _flatten(samplernn_params_to_jax(network.state_dict())).items():
+            for path, arr in _flatten(to_jax(network.state_dict())).items():
                 sd.create_dataset(path, data=arr)
             if training_config is not None:
                 f.attrs["dataset"] = training_config.dataset.serialize()
@@ -163,9 +173,8 @@ class Checkpoint:
         cfg = self.network_config
         cfg.io_spec.bind_to(self.dataset_config)
         net = cfg.owner_class.from_config(cfg, device=self.device)
-        _check_network(net)
-        sd = samplernn_state_dict_from_jax(self.state_dict)
-        net.load_state_dict(sd, strict=True)
+        _, from_jax = _weight_maps(net)
+        net.load_state_dict(from_jax(self.state_dict), strict=True)
         return net
 
     @cached_property

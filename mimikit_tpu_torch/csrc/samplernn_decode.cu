@@ -39,14 +39,15 @@
 // one block per SM.  bf16 weights, tensor cores (wgmma) and weights held in
 // shared memory across SMs are the later steps.
 //
-// Randomness: a counter-based hash of (seed, absolute t, stream, class) into
-// 32 bits, kept to 24 bits as u = bits/2^24 + 1e-12, g = -log(-log u).  The
-// plain PyTorch twin computes the same hash, so both see identical noise,
-// and sampled streams do not depend on the chunk length.
+// Randomness: the port's counter hash of (seed, absolute t, stream, class)
+// (noise.cuh).  The plain PyTorch twin computes the same hash, so both see
+// identical noise, and sampled streams do not depend on the chunk length.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "noise.cuh"
 
 #define MMK_MAX_TIERS 8
 #define MMK_MAX_HEAD 4
@@ -98,15 +99,6 @@ struct SrnnDecodeArgs {
   int head_in[MMK_MAX_HEAD];
   int head_out[MMK_MAX_HEAD];
 };
-
-__device__ __forceinline__ uint32_t mix32(uint32_t x) {
-  x ^= x >> 16;
-  x *= 0x7feb352du;
-  x ^= x >> 15;
-  x *= 0x846ca68bu;
-  x ^= x >> 16;
-  return x;
-}
 
 __device__ __forceinline__ float sigmoid_f(float x) { return 1.0f / (1.0f + expf(-x)); }
 
@@ -302,16 +294,12 @@ samplernn_decode_kernel(const SrnnDecodeArgs a) {
       const float* L = logits + g * D;
       const float lt = fmaxf(sigmoid_f(L[Q]), a.min_temperature);
       uint32_t htb = 0;
-      if (!a.argmax) htb = mix32(mix32(mix32(a.seed) ^ (uint32_t)t) ^ (uint32_t)b);
+      if (!a.argmax) htb = decode_noise_key(a.seed, t, b);
       float best = -INFINITY;
       int bestq = 0x7fffffff;
       for (int q = lane; q < Q; q += 32) {
         float v = L[q] / lt;
-        if (!a.argmax) {
-          const uint32_t bits = mix32(htb ^ (uint32_t)q);
-          const float u = (float)(bits >> 8) * (1.0f / 16777216.0f) + 1e-12f;
-          v = v / a.temperature + (-logf(-logf(u)));
-        }
+        if (!a.argmax) v = v / a.temperature + gumbel_from_bits(mix32(htb ^ (uint32_t)q));
         if (v > best) {
           best = v;
           bestq = q;

@@ -1,6 +1,7 @@
 """IOSpec: the wiring layer between data features and modules.
 
-Counterpart of ``mimikit_tpu/io_spec.py``, reduced to ``mulaw_io``:
+Counterpart of ``mimikit_tpu/io_spec.py``, reduced to ``mulaw_io`` (with a
+framed-linear input for SampleRNN or an embedding input for WaveNet):
 ``InputSpec``/``TargetSpec`` bind an extractor to a transform and an
 IO-module and turn a network's ``ItemSpec`` into a windowed read
 (``to_batch_item``); ``TargetSpec.loss_fn``/``IOSpec.loss_fn`` score
@@ -27,7 +28,7 @@ from .features.functionals import (
 )
 from .features.item_spec import ItemSpec, Sample, Unit
 from .modules import loss_functions as lfuncs
-from .modules.io import FramedLinearIO, IOModule, MLPIO
+from .modules.io import EmbeddingIO, FramedLinearIO, IOModule, MLPIO
 from .modules.targets import CategoricalSampler
 
 __all__ = [
@@ -128,8 +129,10 @@ class Objective(Config, type_field=False):
         raise NotImplementedError(f"objective '{ot}' is not ported")
 
     def get_sampler(self):
+        """'categorical_dist' -> a :class:`CategoricalSampler` whose ``impl``
+        is the objective's ``sampler_impl`` param (default "jax")."""
         if str(self.objective_type) == "categorical_dist":
-            return CategoricalSampler()
+            return CategoricalSampler(impl=str(self.params.get("sampler_impl", "jax")))
         return None
 
 
@@ -221,6 +224,8 @@ class IOSpec(Config, type_field=False):
         mlp_dim: int = 128
         n_mlp_layers: int = 0
         min_temperature: float = 1e-4
+        # "pallas": sample through the categorical kernel (ops/categorical.py);
+        # the name is the JAX package's, so YAML reads the same in both
         sampler_impl: str = "jax"
 
     @staticmethod
@@ -230,18 +235,19 @@ class IOSpec(Config, type_field=False):
             extractor = Extractor(
                 "signal", Compose(FileToSignal(c.sr), Normalize(), RemoveDC())
             )
-        if c.input_module_type != "framed_linear":
-            raise ValueError(
-                f"input_module_type '{c.input_module_type}' is not ported"
-                " (only 'framed_linear')"
-            )
         mu_law = MuLawCompress(c.q_levels, c.compression)
+        if c.input_module_type == "framed_linear":
+            module_type = FramedLinearIO
+        elif c.input_module_type == "embedding":
+            module_type = EmbeddingIO
+        else:
+            raise ValueError(f"Unimplemented input_module_type: '{c.input_module_type}'")
         return IOSpec(
             inputs=(
                 InputSpec(
                     extractor_name=extractor.name,
                     transform=mu_law,
-                    module=FramedLinearIO(),
+                    module=module_type(),
                 ).bind_to(extractor),
             ),
             targets=(
@@ -253,7 +259,15 @@ class IOSpec(Config, type_field=False):
                         n_hidden_layers=c.n_mlp_layers,
                         min_temperature=c.min_temperature,
                     ),
-                    objective=Objective("categorical_dist"),
+                    objective=Objective(
+                        "categorical_dist",
+                        # as the JAX package writes it: no params for "jax"
+                        params=(
+                            {"sampler_impl": c.sampler_impl}
+                            if c.sampler_impl != "jax"
+                            else {}
+                        ),
+                    ),
                 ).bind_to(extractor),
             ),
         )

@@ -1,10 +1,13 @@
 """Unbounded streaming generation in bounded-latency chunks.
 
-Counterpart of ``mimikit_tpu/loops/streaming.py`` for networks with an exact
-state-carrying ``stream`` (SampleRNN):
+Counterpart of ``mimikit_tpu/loops/streaming.py``:
 
 * ``stream_tokens(net, prompts, chunk_steps)`` yields ``(B, chunk_steps)``
-  host token arrays forever (the caller breaks out);
+  host token arrays forever (the caller breaks out): through ``net.stream``
+  where the network has one (SampleRNN and WaveNet carry their decode state
+  across chunks exactly), else by re-feeding the last ``rf + 1`` samples as
+  the next prompt (:func:`_refeed_stream`: exact for nets whose decode state
+  is that window);
 * ``stream_audio(...)`` applies the IOSpec target's inverse transform
   (``MuLawExpand``) to every chunk, yielding float audio.
 
@@ -74,11 +77,45 @@ def _read_behind_chunks(dev_chunks, chunk_steps: int) -> Iterator[np.ndarray]:
         pending = entry
 
 
+def _refeed_stream(net, prompt, chunk_steps: int, temperature, seed) -> Iterator[np.ndarray]:
+    """Stream by re-feeding (``mimikit_tpu/loops/streaming.py:50-105``): each
+    chunk is one ``net.generate`` call whose prompt is the last ``rf + 1``
+    samples so far, with a seed drawn per chunk from ``seed``; read one
+    chunk behind."""
+    if not callable(getattr(net, "generate", None)):
+        raise TypeError(
+            f"{type(net).__name__} has no batch `generate` — streaming needs one"
+        )
+    # block-AR nets are exact only when chunk boundaries fall on block ones
+    hop = getattr(getattr(net, "config", None), "hop", None)
+    if hop and hop > 1 and chunk_steps % hop:
+        raise ValueError(
+            f"{type(net).__name__} decodes in blocks of hop={hop}: chunk_steps={chunk_steps}"
+            " must be a multiple of hop for the stream to match one long decode (round"
+            f" chunk_steps up to {-(-chunk_steps // hop) * hop})"
+        )
+    window = int(net.rf) + 1
+    seeds = torch.Generator().manual_seed(0 if seed is None else seed)
+
+    def dev_chunks():
+        buf = torch.as_tensor(prompt)
+        while True:
+            sub = int(torch.randint(0, 2**31 - 1, (1,), generator=seeds))
+            out = net.generate((buf,), chunk_steps, temperature=temperature, seed=sub)[0]
+            new, buf = out[:, buf.shape[1]:].contiguous(), out[:, -window:]
+            yield new, 0
+
+    yield from _read_behind_chunks(dev_chunks(), chunk_steps)
+
+
 def stream_tokens(net, prompts: Tuple, chunk_steps: int, temperature=None,
                   seed=None) -> Iterator[np.ndarray]:
-    """Yield ``(B, chunk_steps)`` generated tokens forever, continuing exactly
-    across chunks (``net.stream``)."""
-    yield from net.stream(prompts, chunk_steps, temperature=temperature, seed=seed)
+    """Yield ``(B, chunk_steps)`` generated tokens forever: ``net.stream``
+    where the network has one, else :func:`_refeed_stream`."""
+    if hasattr(net, "stream"):
+        yield from net.stream(prompts, chunk_steps, temperature=temperature, seed=seed)
+        return
+    yield from _refeed_stream(net, prompts[0], chunk_steps, temperature, seed)
 
 
 def stream_audio(net, prompts: Tuple, chunk_steps: int, temperature=None,

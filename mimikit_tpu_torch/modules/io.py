@@ -26,6 +26,7 @@ from .resamplers import Conv1dResampler
 from .targets import OutputWrapper
 
 __all__ = [
+    "EmbeddingIO",
     "FramedLinearIO",
     "FramedConv1dIO",
     "MLPIO",
@@ -143,6 +144,23 @@ class FramedLinearIO(IOModule):
         self.with_linearizer = True
         self.with_unfold = True
         return self.wrap(nn.Linear(self.frame_size, self.out_dim))
+
+
+class _Embedding(nn.Embedding):
+    """``nn.Embedding`` that takes class indices of any integer dtype."""
+
+    def forward(self, x):
+        return super().forward(x.long())
+
+
+@dtc.dataclass
+class EmbeddingIO(IOModule):
+    """class index -> learned vector — WaveNet's mu-law input.  Its table is
+    ``0.weight`` (PyTorch mimikit's name)."""
+
+    def module(self) -> nn.Module:
+        self.not_none("class_size", "out_dim")
+        return self.wrap(_Embedding(self.class_size, self.out_dim))
 
 
 @dtc.dataclass

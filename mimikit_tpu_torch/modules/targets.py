@@ -17,9 +17,24 @@ __all__ = ["OutputWrapper", "CategoricalSampler"]
 
 
 class CategoricalSampler(nn.Module):
-    """argmax (no temperature) or tempered categorical sampling."""
+    """argmax (no temperature) or tempered categorical sampling.
+
+    ``impl`` keeps the JAX package's config strings, so a YAML reads the same
+    in both packages:
+
+    * ``"jax"`` (default): the port's plain sampling, ``torch.multinomial``
+      over ``softmax(logits / temperature)``;
+    * ``"pallas"``: with a scalar temperature, the Gumbel-argmax sampler
+      ``ops.categorical.categorical`` — the Triton kernel on a CUDA tensor,
+      its plain twin on a CPU one — seeded with a draw from ``generator``.
+      A per-example temperature tuple takes the plain route, as in JAX.
+    """
 
     sampling_params = frozenset({"temperature"})
+
+    def __init__(self, impl: str = "jax"):
+        super().__init__()
+        self.impl = impl
 
     def forward(self, logits, *, temperature=None, generator: Optional[torch.Generator] = None,
                 train: bool = False):
@@ -27,7 +42,14 @@ class CategoricalSampler(nn.Module):
             return logits
         if temperature is None:
             return torch.argmax(logits, dim=-1)
-        t = torch.as_tensor(temperature, dtype=logits.dtype, device=logits.device)
+        t = torch.as_tensor(temperature, dtype=logits.dtype)
+        if self.impl == "pallas" and t.ndim == 0:
+            from ..ops.categorical import categorical
+
+            dev = generator.device if generator is not None else torch.device("cpu")
+            seed = int(torch.randint(0, 2**31 - 1, (), generator=generator, device=dev))
+            return categorical(logits, float(t), seed)
+        t = t.to(logits.device)
         while t.ndim < logits.ndim:
             t = t[..., None]
         probs = torch.softmax(logits / t, dim=-1)

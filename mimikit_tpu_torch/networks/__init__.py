@@ -1,2 +1,3 @@
 from .arm import *
 from .sample_rnn import *
+from .wavenet import *

@@ -1,2 +1,3 @@
 from .samplernn_decode import *
 from .fused_lstm import *
+from .wavenet_decode import *

@@ -31,6 +31,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from .noise import gumbel_noise
 from .nvcc import CSRC, build_library
 
 __all__ = [
@@ -206,37 +207,6 @@ def init_decode_state(net, prompt: torch.Tensor, generator=None) -> DecodeState:
 
 
 # -- the plain twin ------------------------------------------------------------
-
-_MIX1, _MIX2 = 0x7FEB352D, 0x846CA68B
-_M32 = 0xFFFFFFFF
-
-
-def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
-    """(x * c) mod 2**32 for uint32 values held in int64, without overflow."""
-    lo, hi = c & 0xFFFF, c >> 16
-    return (x * lo + (((x * hi) & 0xFFFF) << 16)) & _M32
-
-
-def _mix32(x: torch.Tensor) -> torch.Tensor:
-    x = x ^ (x >> 16)
-    x = _mul32(x, _MIX1)
-    x = x ^ (x >> 15)
-    x = _mul32(x, _MIX2)
-    return x ^ (x >> 16)
-
-
-def gumbel_noise(seed: int, t: int, B: int, Q: int, device) -> torch.Tensor:
-    """(B, Q) f32 Gumbel noise of step ``t``: the kernel's counter hash of
-    (seed, t, stream, class), 24 bits kept, ``-log(-log(bits/2^24 + 1e-12))``."""
-    s = _mix32(torch.tensor(seed & _M32, dtype=torch.int64, device=device))
-    s = _mix32(s ^ (t & _M32))
-    b = torch.arange(B, dtype=torch.int64, device=device)
-    htb = _mix32(s ^ b)[:, None]
-    q = torch.arange(Q, dtype=torch.int64, device=device)[None, :]
-    bits = _mix32(htb ^ q)
-    u = (bits >> 8).to(torch.float32) * (1.0 / (1 << 24)) + 1e-12
-    return -torch.log(-torch.log(u))
-
 
 @torch.no_grad()
 def decode_plain(net, prompt: torch.Tensor, state: DecodeState, t0: int,

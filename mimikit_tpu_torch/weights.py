@@ -11,6 +11,12 @@ kernels are packed i|f|g|o, and the flax cell's single hidden bias goes into
 ``samplernn_params_to_jax`` is its inverse (the checkpoint writer's map): the
 port's state_dict -> the flax tree of numpy arrays, with the LSTM's one
 bias ``bias_hh + bias_ih`` on the hidden projections.
+
+``wavenet_state_dict_from_jax`` and ``wavenet_params_to_jax`` do the same
+for WaveNet, the inverse pair of ``migrate.py:wavenet_params_from_state_dict``:
+a flax conv kernel (k, in, out) is a torch conv weight (out, in, k), a dense
+kernel (in, out) a linear weight (out, in), the embedding table is shared
+as it is.
 """
 from __future__ import annotations
 
@@ -20,7 +26,12 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-__all__ = ["samplernn_state_dict_from_jax", "samplernn_params_to_jax"]
+__all__ = [
+    "samplernn_state_dict_from_jax",
+    "samplernn_params_to_jax",
+    "wavenet_state_dict_from_jax",
+    "wavenet_params_to_jax",
+]
 
 _GATES = "ifgo"
 
@@ -138,4 +149,104 @@ def samplernn_params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
         if m:
             j, k = m.groups()
             dense(f"outputs_{j}/estimator/core/Dense_{int(k) // 2}", key[: -len(".weight")])
+    return tree
+
+
+def _to_torch(sd: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32)) for k, v in sd.items()}
+
+
+def _put(tree: Dict, path: str, arr: np.ndarray) -> None:
+    node = tree
+    parts = path.split("/")
+    for p in parts[:-1]:
+        node = node.setdefault(p, {})
+    node[parts[-1]] = np.ascontiguousarray(arr)
+
+
+def _conv_t(kernel) -> np.ndarray:
+    """flax (k, in, out) <-> torch (out, in, k): the same transpose both ways."""
+    return np.asarray(kernel).transpose(2, 1, 0)
+
+
+# WaveNet layer submodules: flax name pattern -> the port's module path
+_WN_LAYER = (
+    (r"conv_dil(\d+)", "conv_dil.{}.0", True),
+    (r"conv_1x1_(\d+)", "conv_1x1.{}.0", True),
+    (r"conv_(skip|res)", "conv_{}", True),
+    (r"aff_res()", "aff_res", False),
+)
+
+
+def wavenet_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX WaveNet params -> the port's ``WaveNet`` state_dict (CPU f32)."""
+    sd: Dict[str, np.ndarray] = {}
+    for name, node in params.items():
+        m = re.fullmatch(r"input_modules_(\d+)", name)
+        if m:
+            # the port's WaveNet inputs are embeddings (EmbeddingIO)
+            sd[f"input_modules.{m.group(1)}.0.weight"] = np.asarray(
+                node["core"]["Embed_0"]["embedding"])
+            continue
+        m = re.fullmatch(r"layer(\d+)", name)
+        if m:
+            for sub, p in node.items():
+                for pattern, path, is_conv in _WN_LAYER:
+                    mm = re.fullmatch(pattern, sub)
+                    if mm:
+                        base = f"layers.{m.group(1)}.{path.format(*mm.groups())}"
+                        k = np.asarray(p["kernel"])
+                        sd[f"{base}.weight"] = _conv_t(k) if is_conv else k.T
+                        if "bias" in p:
+                            sd[f"{base}.bias"] = np.asarray(p["bias"])
+                        break
+                else:
+                    raise ValueError(f"unmapped WaveNet layer parameter {name}/{sub}")
+            continue
+        m = re.fullmatch(r"output_modules_(\d+)", name)
+        if m:
+            for dname, d in node["estimator"]["core"].items():
+                k = int(dname.split("_")[1])
+                base = f"output_modules.{m.group(1)}.estimator.0.fc.{2 * k}"
+                sd[f"{base}.weight"] = np.asarray(d["kernel"]).T
+                sd[f"{base}.bias"] = np.asarray(d["bias"])
+            continue
+        raise ValueError(f"unmapped WaveNet parameter {name}")
+    return _to_torch(sd)
+
+
+def wavenet_params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
+    """The port's ``WaveNet`` state_dict -> the JAX WaveNet parameter tree
+    (nested dicts of f32 numpy arrays)."""
+    sd = {k: v.detach().cpu().numpy().astype(np.float32) for k, v in state_dict.items()}
+    tree: Dict = {}
+    layer_paths = [
+        (re.compile(r"layers\.(\d+)\.conv_dil\.(\d+)\.0\.(weight|bias)"), "conv_dil{}", True),
+        (re.compile(r"layers\.(\d+)\.conv_1x1\.(\d+)\.0\.(weight|bias)"), "conv_1x1_{}", True),
+        (re.compile(r"layers\.(\d+)\.conv_(skip|res)\.(weight|bias)"), "conv_{}", True),
+        (re.compile(r"layers\.(\d+)\.aff_res()\.(weight|bias)"), "aff_res", False),
+    ]
+    for key, v in sd.items():
+        m = re.fullmatch(r"input_modules\.(\d+)\.0\.weight", key)
+        if m:
+            _put(tree, f"input_modules_{m.group(1)}/core/Embed_0/embedding", v)
+            continue
+        for pattern, sub, is_conv in layer_paths:
+            m = pattern.fullmatch(key)
+            if m:
+                i, d, what = m.groups()
+                base = f"layer{i}/{sub.format(d)}"
+                if what == "bias":
+                    _put(tree, f"{base}/bias", v)
+                else:
+                    _put(tree, f"{base}/kernel", _conv_t(v) if is_conv else v.T)
+                break
+        else:
+            m = re.fullmatch(r"output_modules\.(\d+)\.estimator\.0\.fc\.(\d+)\.(weight|bias)", key)
+            if not m:
+                raise ValueError(f"unmapped WaveNet state_dict entry {key}")
+            j, k, what = m.groups()
+            base = f"output_modules_{j}/estimator/core/Dense_{int(k) // 2}"
+            _put(tree, f"{base}/{'kernel' if what == 'weight' else 'bias'}",
+                 v.T if what == "weight" else v)
     return tree

@@ -50,13 +50,19 @@ _CUDA_CALLS = [
     "net.generate((torch.zeros(2, 16, dtype=torch.int32, device='cuda'),), 4)",
     "sd._launch(pack, p, st, 8, 4, torch.empty(2, 4, dtype=torch.int32), 16, 0, None)",
     "fl.fused_lstm_layer(*(a.to('cuda') for a in L))",
+    "mmk.WaveNet.from_config(wcfg)",
+    "mmk.WaveNet.from_config(wcfg, device='cuda')",
+    "wd._launch(wpack, wp, wst, 1, 4, torch.empty(2, 4, dtype=torch.int32), 1, 0, None)",
+    "cat.categorical(torch.zeros(2, 8, device='cuda'), 1.0, 0)",
 ]
 
 _PROBE = """
 import json, sys
 import torch, mimikit_tpu_torch as mmk
+from mimikit_tpu_torch.ops import categorical as cat
 from mimikit_tpu_torch.ops import fused_lstm as fl
 from mimikit_tpu_torch.ops import samplernn_decode as sd
+from mimikit_tpu_torch.ops import wavenet_decode as wd
 res = {"cuda": torch.cuda.is_available()}
 res["foreign"] = [m for m in sys.modules
                   if m.split(".")[0] in ("jax", "flax", "optax", "mimikit_tpu")]
@@ -68,6 +74,12 @@ p = torch.zeros(2, 16, dtype=torch.int32)
 st = sd.init_decode_state(net, p)
 L = [torch.randn(3, 2, 8), torch.randn(8, 32), torch.randn(8, 32), torch.randn(32),
      torch.zeros(2, 8), torch.zeros(2, 8)]
+wio = mmk.IOSpec.mulaw_io(mmk.IOSpec.MuLawIOConfig(q_levels=32, mlp_dim=16,
+                                                   input_module_type="embedding"))
+wcfg = mmk.WaveNet.Config(io_spec=wio, blocks=(3,), dims_dilated=(16,), skips_dim=16)
+wpack = wd.wavenet_weight_pack(mmk.WaveNet.from_config(wcfg, device="cpu"))
+wp = torch.zeros(2, 9, dtype=torch.int32)
+wst = wd.init_decode_state(wpack, wp)
 for call in CALLS:
     try:
         eval(call)
@@ -80,6 +92,10 @@ h_all, h_T, c_T = fl.fused_lstm_layer(*(a.requires_grad_() for a in L))
 (h_all.sum() + c_T.sum()).backward()
 res["cpu_lstm"] = [list(h_all.shape), fl.lstm_forward.launches, fl.lstm_backward.launches,
                    all(a.grad is not None for a in L)]
+out = wd.decode_chunk(wpack, wp, wst, 1, 4, 0, None)
+res["cpu_wn_chunk"] = [list(out.shape), wd.decode_chunk.launches, wd.decode_single.launches]
+out = cat.categorical(torch.randn(2, 8), 0.9, 0)
+res["cpu_cat"] = [list(out.shape), cat.categorical.launches]
 print(json.dumps(res))
 """
 
@@ -123,6 +139,18 @@ def test_cpu_tensors_take_the_plain_lstm(probe):
     """The fused LSTM layer on CPU tensors runs its plain versions, forward
     and backward, and counts no kernel launch."""
     assert probe["cpu_lstm"] == [[3, 2, 8], 0, 0, True]
+
+
+def test_cpu_tensors_take_the_plain_wavenet_decode(probe):
+    """The WaveNet decode wrappers on CPU tensors run the plain twin and
+    count no kernel launch."""
+    assert probe["cpu_wn_chunk"] == [[2, 4], 0, 0]
+
+
+def test_cpu_tensors_take_the_plain_categorical(probe):
+    """The categorical sampler on a CPU tensor runs its plain twin and
+    counts no kernel launch."""
+    assert probe["cpu_cat"] == [[2], 0]
 
 
 @pytest.mark.cuda

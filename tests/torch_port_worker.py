@@ -7,6 +7,7 @@ frameworks are kept in separate processes).  Every test module runs one
 worker process for all of its cases and exchanges arrays through ``.npz``:
 JAX parameter trees travel flattened with ``/``-joined keys.
 """
+import json
 import os
 import sys
 
@@ -151,19 +152,19 @@ def fused_lstm_task(inp: dict) -> dict:
     return out
 
 
-def _flax_flat(state_dict, prefix):
-    tree = mmk.samplernn_params_to_jax(state_dict)
+def _flat_tree(tree, prefix):
+    """A nested dict of arrays -> {prefix + "a/b/c": array}."""
     out = {}
-
-    def rec(node, path):
-        for k, v in node.items():
-            if isinstance(v, dict):
-                rec(v, f"{path}{k}/")
-            else:
-                out[f"{prefix}{path}{k}"] = v
-
-    rec(tree, "")
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat_tree(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = v
     return out
+
+
+def _flax_flat(state_dict, prefix):
+    return _flat_tree(mmk.samplernn_params_to_jax(state_dict), prefix)
 
 
 def _batches(loader, n):
@@ -307,8 +308,138 @@ def train_task(inp: dict) -> dict:
     return out
 
 
+def load_wavenet(inp: dict, p: str):
+    """The port's WaveNet from the JAX-written YAML, with the JAX weights."""
+    cfg = mmk.Config.deserialize(str(inp[p + "yaml"]))
+    cfg.io_spec.bind_to({"signal": mmk.Extractor.signal()})
+    net = mmk.WaveNet.from_config(cfg, device="cpu").eval()
+    sd_ = mmk.wavenet_state_dict_from_jax(unflatten(inp, p + "params/"))
+    net.load_state_dict(sd_, strict=True)
+    return net, sd_
+
+
+def wavenet_task(inp: dict) -> dict:
+    """Per net: train-mode forward, eval samples, the gate, argmax generate
+    through both kernel wrappers (decode_chunk over several chunks), a short
+    prompt, argmax and sampled streams, the weight maps; per layer case, the
+    layer's outputs; the rf contract; a port-written bank."""
+    from mimikit_tpu_torch.networks.wavenet import WNLayer
+    from mimikit_tpu_torch.ops import wavenet_decode as wd
+
+    # tiny tensors: one thread; a pool of them spins against the other test
+    # processes of a parallel run and slows this task twentyfold
+    torch.set_num_threads(1)
+    out = {}
+    n = int(inp["n_steps"])
+    for tag in sorted({k.split("/")[0] for k in inp if k.startswith("net_")}):
+        p = f"{tag}/"
+        net, sd_ = load_wavenet(inp, p)
+        out.update({f"{p}sd/{k}": v.numpy() for k, v in sd_.items()})
+        out.update(_flat_tree(mmk.wavenet_params_to_jax(net.state_dict()), p + "back/"))
+        with torch.no_grad():
+            out[p + "forward"] = net.train()((t(inp[p + "seq"]),))[0].numpy()
+            out[p + "eval"] = net.eval()((t(inp[p + "seq"]),))[0].numpy()
+        out[p + "in_gate"] = np.array(wd.supports_kernel_decode(net))
+        prompt = inp[p + "prompt"]
+        out[p + "generate"] = net.generate((prompt,), n)[0].numpy()
+        out[p + "short"] = net.generate((inp[p + "short_prompt"],), n)[0].numpy()
+        stream = mmk.stream_tokens(net, (prompt,), 7)
+        out[p + "stream"] = np.concatenate([next(stream) for _ in range(n // 7)], 1)
+        stream.close()
+        net._CHUNKED_MIN_B, net._CHUNK = 1, 16  # decode_chunk over several chunks
+        out[p + "generate_chunked"] = net.generate((prompt,), n)[0].numpy()
+        sampled = net.generate((prompt,), n, temperature=0.9, seed=5)[0].numpy()
+        out[p + "sampled"] = sampled
+        for c in (9, 13):
+            stream = mmk.stream_tokens(net, (prompt,), c, temperature=0.9, seed=5)
+            out[f"{p}sampled_stream_{c}"] = np.concatenate([next(stream) for _ in range(n // c)], 1)
+            stream.close()
+        net.eval().before_generate((prompt,), 0)
+        steps = [net.generate_step((t(prompt[:, : k + 1]),), t=k + 1) for k in range(net.rf, net.rf + 4)]
+        out[p + "generate_step"] = np.stack([s_[0].numpy() for s_ in steps], 1)
+        net.after_generate(steps[-1], 0)
+    if "bank_root" in inp:
+        net, _ = load_wavenet(inp, "net_b3/")
+        root = str(inp["bank_root"])
+        ck = mmk.Checkpoint("wn_jax", 1, root, device="cpu")
+        out["bank/jax_tokens"] = ck.network.generate((inp["net_b3/prompt"],), n)[0].numpy()
+        out["bank/jax_type"] = np.array(type(ck.network).__name__)
+        mmk.Checkpoint("wn_port", 1, root).create(net)
+
+    for tag in sorted({k.split("/")[0] for k in inp if k.startswith("layer_")}):
+        p = f"{tag}/"
+        kw = json.loads(str(inp[p + "kwargs"]))
+        layer = WNLayer(**kw)
+        sd_ = mmk.wavenet_state_dict_from_jax({"layer0": unflatten(inp, p + "params/")})
+        layer.load_state_dict({k[len("layers.0."):]: v for k, v in sd_.items()}, strict=True)
+        skips = t(inp[p + "skips"]) if p + "skips" in inp else None
+        ins_1x1 = tuple(t(inp[f"{p}x1x1_{i}"]) for i in range(len(kw.get("dims_1x1", ()))))
+        with torch.no_grad():
+            y, sk = layer((t(inp[p + "x"]),), ins_1x1, skips)
+        out[p + "y"] = y.numpy()
+        if sk is not None:
+            out[p + "skips"] = sk.numpy()
+
+    io = mmk.IOSpec.mulaw_io(mmk.IOSpec.MuLawIOConfig(q_levels=32, mlp_dim=16,
+                                                      input_module_type="embedding"))
+    rf_nets = []
+    for blocks in inp["rf_blocks"]:
+        cfg = mmk.WaveNet.Config(io_spec=io, blocks=tuple(int(b) for b in blocks if b),
+                                 dims_dilated=(16,))
+        net = mmk.WaveNet.from_config(cfg, device="cpu")
+        rf = net.rf
+        lens = []
+        with torch.no_grad():
+            for T in (rf, rf + 1):
+                lens.append(net.train()((torch.zeros(2, T, dtype=torch.long),))[0].shape[1])
+        try:
+            net((torch.zeros(2, rf - 1, dtype=torch.long),))
+            raised = "ran"
+        except RuntimeError:
+            raised = "RuntimeError"
+        rf_nets.append([str(rf), *map(str, lens), raised])
+    out["rf"] = np.array(rf_nets)
+    return out
+
+
+def categorical_task(inp: dict) -> dict:
+    """The K9 plain twin (CPU tensors), the sampler's routes and the
+    sampler_impl round trip."""
+    from mimikit_tpu_torch.ops import categorical as cat
+
+    torch.set_num_threads(1)  # as wavenet_task
+    out = {}
+    x = t(inp["ragged"])
+    out["ragged"] = cat.categorical(x, 1.0, 3).numpy()
+    sharp = t(inp["sharp"])
+    out["cold"] = cat.categorical(sharp, 0.01, 4).numpy()
+    out["same_a"] = cat.categorical(x, 0.7, 11).numpy()
+    out["same_b"] = cat.categorical(x, 0.7, 11).numpy()
+    out["other"] = cat.categorical(x, 0.7, 12).numpy()
+    rows = t(inp["chi_logits"]).expand(int(inp["chi_n"]), -1).contiguous()
+    out["chi_draws"] = cat.categorical(rows, float(inp["chi_t"]), 21).numpy()
+    out["launches"] = np.array(cat.categorical.launches)
+
+    sampler = mmk.CategoricalSampler(impl="pallas")
+    g = torch.Generator().manual_seed(8)
+    via = sampler(x, temperature=0.7, generator=g).numpy()
+    seed = int(torch.randint(0, 2**31 - 1, (), generator=torch.Generator().manual_seed(8)))
+    out["sampler_pallas"] = via
+    out["sampler_pallas_ref"] = cat.categorical_plain(x, 0.7, seed).numpy()
+    out["sampler_tuple"] = sampler(x[:, 0], temperature=(0.5, 0.7, 0.9),
+                                   generator=torch.Generator().manual_seed(8)).numpy()
+
+    for impl in ("jax", "pallas"):
+        io = mmk.IOSpec.mulaw_io(mmk.IOSpec.MuLawIOConfig(sampler_impl=impl))
+        out[f"io/{impl}/params"] = np.array(json.dumps(io.targets[0].objective.params))
+        out[f"io/{impl}/yaml"] = np.array(io.serialize())
+        jax_io = mmk.Config.deserialize(str(inp[f"io/{impl}/yaml"]), as_type=mmk.IOSpec)
+        out[f"io/{impl}/loaded_impl"] = np.array(jax_io.targets[0].objective.get_sampler().impl)
+    return out
+
+
 TASKS = {"modules": modules_task, "sample_rnn": sample_rnn_task, "fused_lstm": fused_lstm_task,
-         "train": train_task}
+         "train": train_task, "wavenet": wavenet_task, "categorical": categorical_task}
 
 if __name__ == "__main__":
     task, src, dst = sys.argv[1:4]
