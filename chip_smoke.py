@@ -7,8 +7,10 @@ CUDA device and ``nvcc``; it imports nothing of JAX or of ``mimikit_tpu``.
 Phases (any failure exits non-zero; no exception is swallowed):
 
 1. environment and build: the card's name and power limit, torch/CUDA
-   versions; build ``csrc/samplernn_decode.cu`` and ``csrc/fused_lstm.cu``
-   for sm_90a, both nvcc runs started together, and time them;
+   versions; build ``csrc/samplernn_decode.cu``, ``csrc/fused_lstm.cu``,
+   ``csrc/wavenet_decode.cu``, ``csrc/transformer_decode.cu`` and
+   ``csrc/transformer_kv.cu`` for sm_90a, the five nvcc runs started
+   together, and time them; compile the Triton sampler;
 2. each kernel against its plain twin at a small size and at the main
    paths' widths.  ``decode_single`` and ``decode_chunk``, argmax and
    sampled (temperature 0.9): the kernel's tokens are verified by teacher
@@ -23,14 +25,26 @@ Phases (any failure exits non-zero; no exception is swallowed):
    of the plain versions (f32, summed in another order); and one full
    SampleRNN-3 train step (B=32 x 2048) with the kernels against the same
    step on the CPU (plain versions): loss within 1e-5 relative, every
-   parameter's gradient within 1e-5 + 1e-3 * max|plain|;
+   parameter's gradient within 1e-5 + 1e-3 * max|plain|; the WaveNet decode
+   kernel and the categorical sampler as the SampleRNN decode; the
+   transformer kernels by teacher forcing too, K6 (``decode_window``) at B=1
+   and B=2, K7 (``decode_chunk``) at B=1 and B=16 over several chunk
+   lengths, the state carried, at a small size and at full width;
 3. the serving path at full width (bench.py's mu-law SampleRNN-3:
    frame_sizes (16, 8, 8), hidden 256, q 256, a two-layer Mish head; random
    weights from a seed): ``generate`` with B=4 (decode_single's route) and
    with B=256 for 16384 steps at temperature 0.9 (decode_chunk's route),
    median of 3 with spread, the B=256 output itself verified as in phase 2;
    ``stream_audio`` over 1600-step chunks, which must equal that output
-   mu-law expanded;
+   mu-law expanded; WaveNet-10 served the same way; transformer8l
+   (``benchmarks/bench_decode.py:104-115``: d 256, 8 heads, ff 1,024, 8
+   layers, rf 64) ``generate`` at B=1 x 4,096 after a 64-token prompt (one
+   K6 launch, its first 512 tokens verified), two chunks of the default
+   re-feed ``stream_audio`` at B=1 (each one ``generate``), ``stream_audio``
+   with ``MMK_DECODE_KV=1`` at B=1 and B=16 (one K7 launch a 1,600-step
+   chunk; chunk latencies against the 100 ms of audio a chunk holds),
+   ``generate`` at B=16 (the batched window route), and a bank written and
+   reloaded through ``Checkpoint(...).network`` and decoded;
 4. the training path at full width: 60 s of 16 kHz two-tone audio made with
    scipy, ``DatasetConfig.create``, ``TrainARMLoop`` at B=32 x 2048 with
    TBPTT over 8 x 2048 samples, 4 epochs of 8 steps, seeded batches: every
@@ -39,15 +53,18 @@ Phases (any failure exits non-zero; no exception is swallowed):
    decoded at B=4 through decode_single (verified as in phase 2); the train
    step timed (median of 3 windows of 8 steps, CUDA events) and profiled;
 5. each wrapper, its plain twin and (for the LSTM kernels) cuDNN's
-   ``nn.LSTM`` timed at the main paths' shapes; a ``kernels`` JSON line, the
-   card line, and the device line last.
+   ``nn.LSTM``, for K9 ``torch.multinomial``, timed at the main paths'
+   shapes (the transformer twins over 64 steps, scaled); a ``kernels`` JSON
+   line of nine rows, the card line, and the device line last.
 
 ``--quick`` runs phases 1-2 at the small size only (a build check);
 ``--bench`` runs phase 1, phase 3's timings without the checks, decode_chunk
-at B=256 for each number of streams a block owns, the LSTM kernels' timings
-and phase 4.
+at B=256 for each number of streams a block owns, the LSTM kernels' timings,
+phase 4, the WaveNet streams-per-block sweep, K6 forced at B=16 against the
+batched window route, and K7 at B = 1, 4, 16 and 32.
 """
 import argparse
+import contextlib
 import copy
 import json
 import os
@@ -82,10 +99,31 @@ WN_FULL = dict(blocks=(10,), dim=128, q_levels=256, mlp_dim=128)
 WN_SMALL = dict(blocks=(3,), dim=16, q_levels=32, mlp_dim=16)
 WN_N, WN_SMALL_B, WN_STREAM_B, WN_STREAM_CHUNKS = 2048, 8, 64, 8
 CAT_SHAPES = ((256, 256), (3, 7, 200))  # the sampler's checks: the path's and a ragged one
+# transformer8l of benchmarks/bench_decode.py:104-115 (mulaw_io q 256, mlp 128, an
+# embedding input; d 256, 8 heads, ff 1,024, 8 post-norm layers, rf 64), and a
+# small net of the same shape; generate B=1 x 4,096 after a 64-token prompt
+# (:149), the KV stream at B=1 and B=16 in 1,600-step chunks (:306-311)
+TF_FULL = dict(model_dim=256, n_heads=8, feedforward_dim=1024, num_layers=8, rf=64,
+               q_levels=256, mlp_dim=128)
+TF_SMALL = dict(model_dim=32, n_heads=4, feedforward_dim=64, num_layers=2, rf=16, q_levels=32,
+                mlp_dim=16)
+TF_N, TF_N16, TF_KV_B, TF_KV_CHUNKS, TF_VERIFY, TF_PLAIN_STEPS = 4096, 256, 16, 6, 512, 64
 
 
 def log(*a):
     print(*a, flush=True)
+
+
+@contextlib.contextmanager
+def uncounted(*wrappers):
+    """Launches made inside (a reference the path is compared with) are not
+    the path's own: each wrapper's count is put back on the way out."""
+    saved = [w.launches for w in wrappers]
+    try:
+        yield
+    finally:
+        for w, n in zip(wrappers, saved):
+            w.launches = n
 
 
 def card_line() -> str:
@@ -491,7 +529,8 @@ def wavenet_path(torch, mmk, wd, cat):
         t = now
     it.close()
     n_cmp = WN_STREAM_CHUNKS * STREAM_CHUNK
-    ref = net.generate((p64,), n_cmp, temperature=TEMPERATURE, seed=SEED)[0][:, rf + 8:]
+    with uncounted(wd.decode_single, wd.decode_chunk, cat.categorical):
+        ref = net.generate((p64,), n_cmp, temperature=TEMPERATURE, seed=SEED)[0][:, rf + 8:]
     if not np.array_equal(np.concatenate(audio, 1), mmk.MuLawExpand(q)(ref.cpu().numpy())):
         raise AssertionError("WaveNet stream_audio differs from the expanded generate output")
     lat_s = sorted(lat)
@@ -626,6 +665,374 @@ def wavenet_bench(torch, mmk, wd, cat):
         log(f"  WaveNet decode_chunk B=256 steps={net._CHUNK} group={g}: {med:.3f} ms"
             f" ({1e3 * med / net._CHUNK:.2f} us a step; median of 3, spread {spr:.3%})")
     wavenet_rows(torch, wd, cat, net, prompts, launches, {k: 0.0 for k in launches})
+
+
+# -- SimpleTransformer serving (the window-refeed kernel K6, the KV-ring kernel K7) --
+
+def make_transformer(mmk, torch, td, spec, seed, jitter=0.0):
+    io = mmk.IOSpec.mulaw_io(mmk.IOSpec.MuLawIOConfig(
+        q_levels=spec["q_levels"], mlp_dim=spec["mlp_dim"], input_module_type="embedding"))
+    cfg = mmk.SimpleTransformer.Config(
+        io_spec=io, model_dim=spec["model_dim"], n_heads=spec["n_heads"],
+        feedforward_dim=spec["feedforward_dim"], num_layers=spec["num_layers"], rf=spec["rf"],
+        input_dropout=0.0)
+    net = mmk.SimpleTransformer.from_config(cfg, device="cuda", seed=seed).eval()
+    if jitter:  # varied argmax trajectories, as make_net's
+        g = torch.Generator().manual_seed(seed + 1)
+        with torch.no_grad():
+            for p in net.parameters():
+                p.add_(torch.randn(p.shape, generator=g).to(p.device) * jitter)
+    if not td.supports_kernel_decode(net):
+        raise AssertionError("the transformer decode kernels' gate refused the net")
+    return net
+
+
+def verify_window(torch, td, pack, prompt, toks, seed, temperature):
+    """verify_tokens for the window decode kernel (K6): the plain twin scores
+    each position from the window of kernel tokens before it."""
+    prior_t, n = prompt.shape[1], toks.shape[1]
+
+    def tf_scores(full, state, t, m):
+        _, scores = td.decode_window_plain(pack, full, t, m, seed, temperature, return_scores=True)
+        return scores, None
+
+    def free_run():
+        return td.decode_window_plain(pack, prompt, prior_t, n, seed, temperature)
+
+    return verify_tokens(torch, prompt, toks, prior_t, tf_scores, free_run, tf_chunk=256)
+
+
+def verify_kv(torch, tk, pack, prompt, toks, seed, temperature):
+    """verify_tokens for the KV-ring kernel (K7; steps from 1)."""
+    prior_t, n = prompt.shape[1], toks.shape[1]
+
+    def tf_scores(full, state, t, m):
+        state = state or tk.init_kv_state(pack, full)
+        _, scores = tk.decode_chunk_plain(pack, full.t().contiguous(), state, t, m, seed,
+                                          temperature, return_scores=True)
+        return scores, state
+
+    def free_run():
+        state = tk.init_kv_state(pack, prompt)
+        out = tk.decode_chunk_plain(pack, prompt.t().contiguous(), state, 1, prior_t + n - 1, seed,
+                                    temperature)
+        return out[:, prior_t - 1 :]
+
+    return verify_tokens(torch, prompt, toks, 1, tf_scores, free_run)
+
+
+def kv_run(torch, tk, pack, prompt, n, chunk, temperature, seed):
+    """K7 over positions 1 .. prior_t + n - 1 in launches of ``chunk`` steps,
+    the state carried; returns the n tokens after the prompt."""
+    prior_t = prompt.shape[1]
+    prompt_T = prompt.t().contiguous()
+    state = tk.init_kv_state(pack, prompt)
+    parts = [tk.decode_chunk(pack, prompt_T, state, t0, min(chunk, prior_t + n - t0), temperature,
+                             seed)
+             for t0 in range(1, prior_t + n, chunk)]
+    return torch.cat(parts, 1)[:, prior_t - 1 :]
+
+
+def check_transformer(torch, mmk, td, tk, spec, n, kv_batches, chunk_lens, jitter):
+    """Phase 2 for the transformer kernels at one size: K6 at B=1 and B=2, K7
+    at ``kv_batches`` over several chunk lengths, argmax and T=0.9; returns
+    {wrapper: largest score gap}."""
+    net = make_transformer(mmk, torch, td, spec, seed=1, jitter=jitter)
+    pack = td.transformer_weight_pack(net)
+    rf, q = spec["rf"], spec["q_levels"]
+    err = {"transformer_decode_window": 0.0, "transformer_decode_chunk": 0.0}
+    for temp in (None, TEMPERATURE):
+        mode = "argmax" if temp is None else f"T={temp}"
+        for B in (1, 2):
+            prompt = make_prompt(torch, B, rf, q, seed=2 + B)
+            toks = td.decode_window(pack, prompt, n, 11, temp)
+            torch.cuda.synchronize()
+            if spec is TF_SMALL and temp is None and len(set(toks[0].tolist())) < 2:
+                raise AssertionError("K6 argmax tokens are constant: the check is vacuous")
+            gap, parted = verify_window(torch, td, pack, prompt, toks, 11, temp)
+            err["transformer_decode_window"] = max(err["transformer_decode_window"], gap)
+            log(f"  transformer decode_window B={B} n={n} {mode}: ok, max gap {gap:.3e},"
+                f" {parted} streams parted at near-ties")
+        for B in kv_batches:
+            prompt = make_prompt(torch, B, rf, q, seed=5 + B)
+            runs = [kv_run(torch, tk, pack, prompt, n, C, temp, 13) for C in chunk_lens]
+            torch.cuda.synchronize()
+            for C, r in zip(chunk_lens[1:], runs[1:]):
+                if not torch.equal(r, runs[0]):
+                    raise AssertionError(
+                        f"transformer decode_chunk with chunk {C} changed the tokens")
+            if spec is TF_SMALL and temp is None and len(set(runs[0][0].tolist())) < 2:
+                raise AssertionError("K7 argmax tokens are constant: the check is vacuous")
+            gap, parted = verify_kv(torch, tk, pack, prompt, runs[0], 13, temp)
+            err["transformer_decode_chunk"] = max(err["transformer_decode_chunk"], gap)
+            log(f"  transformer decode_chunk B={B} n={n} chunks {chunk_lens} {mode}: ok,"
+                f" max gap {gap:.3e}, {parted} streams parted at near-ties")
+    return err
+
+
+def chunk_latencies(it, n_chunks):
+    """Host ms between successive chunks of a stream, and the chunks."""
+    lat, chunks = [], []
+    t = time.perf_counter()
+    for _ in range(n_chunks):
+        chunks.append(next(it))
+        now = time.perf_counter()
+        lat.append(1e3 * (now - t))
+        t = now
+    it.close()
+    return lat, chunks
+
+
+def latency_line(lat):
+    s = sorted(lat)
+    return (f"per-chunk ms p50 {statistics.median(lat):.3f}, p95"
+            f" {s[int(0.95 * (len(lat) - 1) + 0.5)]:.3f}, max {max(lat):.3f} (first {lat[0]:.3f});"
+            f" {lat}")
+
+
+def transformer_path(torch, mmk, td, tk):
+    """Phase 3c: transformer8l served at full width through the user entry
+    points; returns (net, prompts, launches, gap of the verified output)."""
+    net = make_transformer(mmk, torch, td, TF_FULL, seed=0)
+    rf, q = TF_FULL["rf"], TF_FULL["q_levels"]
+    log(f"  transformer8l: {net.n_parameters} parameters, rf {rf}")
+    prompts = {B: make_prompt(torch, B, rf, q, seed=B) for B in (1, 16)}
+    p1 = prompts[1]
+    expand = mmk.MuLawExpand(q)
+    td.decode_window.launches = 0
+    tk.decode_chunk.launches = 0
+
+    # generate B=1: one K6 launch
+    net.generate((p1,), 16, temperature=TEMPERATURE, seed=SEED)  # lazy set-up
+    outs = {}
+
+    def run():
+        outs[1] = net.generate((p1,), TF_N, temperature=TEMPERATURE, seed=SEED)[0]
+
+    ms = cuda_ms(torch, run, reps=3)
+    med, spr = spread(ms)
+    toks = outs[1][:, rf:]
+    if toks.shape != (1, TF_N) or int(toks.min()) < 0 or int(toks.max()) >= q:
+        raise AssertionError(f"transformer generate B=1: bad tokens {tuple(toks.shape)}")
+    if len(set(toks[0].tolist())) < 2:
+        raise AssertionError("transformer generate B=1: constant sampled tokens")
+    log(f"  transformer generate B=1 n={TF_N} T={TEMPERATURE}: {TF_N / (med / 1e3):.6g} samples/s"
+        f" ({1e3 * med / TF_N:.2f} us a step; median of 3: {med:.3f} ms, spread {spr:.3%}; {ms})")
+    pack = td.transformer_weight_pack(net)
+    pack_ms, pack_spr = spread(cuda_ms(torch, lambda: td.transformer_weight_pack(net), reps=3))
+    log(f"  of which the weight pack each generate call builds: {pack_ms:.3f} ms (median of 3,"
+        f" spread {pack_spr:.3%})")
+    gap, parted = verify_window(torch, td, pack, p1, toks[:, :TF_VERIFY], SEED, TEMPERATURE)
+    log(f"  its first {TF_VERIFY} tokens verified: max gap {gap:.3e}, {parted} streams parted at"
+        f" near-ties")
+
+    # the default stream re-feeds: each chunk is one generate, one K6 launch
+    before = td.decode_window.launches
+    lat, chunks = chunk_latencies(
+        mmk.stream_audio(net, (p1,), STREAM_CHUNK, temperature=TEMPERATURE, seed=SEED), 2)
+    if td.decode_window.launches - before < 2:
+        raise AssertionError("the re-feed stream did not launch K6 once a chunk")
+    seeds = torch.Generator().manual_seed(SEED)
+    buf, ref = p1, []
+    with uncounted(td.decode_window, tk.decode_chunk):
+        for _ in range(2):
+            sub = int(torch.randint(0, 2**31 - 1, (1,), generator=seeds))
+            out = net.generate((buf,), STREAM_CHUNK, temperature=TEMPERATURE, seed=sub)[0]
+            ref.append(out[:, buf.shape[1]:].cpu().numpy())
+            buf = out[:, -(rf + 1):]
+    if not np.array_equal(np.concatenate(chunks, 1), expand(np.concatenate(ref, 1))):
+        raise AssertionError("transformer re-feed stream differs from its chunked generates")
+    log(f"  transformer stream_audio (re-feed) B=1, 2 chunks of {STREAM_CHUNK} steps (equal to"
+        f" the chunked generates): {latency_line(lat)}")
+
+    # MMK_DECODE_KV=1: the KV-ring stream, one K7 launch a chunk
+    os.environ["MMK_DECODE_KV"] = "1"
+    try:
+        for B in (1, TF_KV_B):
+            before = tk.decode_chunk.launches
+            lat, chunks = chunk_latencies(
+                mmk.stream_audio(net, (prompts[B],), STREAM_CHUNK, temperature=TEMPERATURE,
+                                 seed=SEED), TF_KV_CHUNKS)
+            if tk.decode_chunk.launches - before < TF_KV_CHUNKS:
+                raise AssertionError(f"the KV stream B={B} did not launch K7 once a chunk")
+            n_cmp = 2 * STREAM_CHUNK
+            with uncounted(td.decode_window, tk.decode_chunk):
+                ref = kv_run(torch, tk, pack, prompts[B], n_cmp, 1000, TEMPERATURE, SEED)
+            got = np.concatenate(chunks, 1)
+            if got.shape != (B, TF_KV_CHUNKS * STREAM_CHUNK) or not np.array_equal(
+                    got[:, :n_cmp], expand(ref.cpu().numpy())):
+                raise AssertionError(f"transformer KV stream B={B} is not chunk-invariant")
+            log(f"  transformer stream_audio (MMK_DECODE_KV=1) B={B}, {TF_KV_CHUNKS} chunks of"
+                f" {STREAM_CHUNK} steps (its first {n_cmp} equal to 1000-step launches; real time"
+                f" is {STREAM_CHUNK / 16:g} ms a chunk): {latency_line(lat)}")
+    finally:
+        del os.environ["MMK_DECODE_KV"]
+
+    # generate B=16: the batched window route (no kernel)
+    p16 = prompts[TF_KV_B]
+    before = td.decode_window.launches
+    net.generate((p16,), 8, temperature=TEMPERATURE, seed=SEED)
+
+    def run16():
+        outs[16] = net.generate((p16,), TF_N16, temperature=TEMPERATURE, seed=SEED)[0]
+
+    ms = cuda_ms(torch, run16, reps=3)
+    med, spr = spread(ms)
+    toks = outs[16][:, rf:]
+    if toks.shape != (16, TF_N16) or int(toks.min()) < 0 or int(toks.max()) >= q:
+        raise AssertionError(f"transformer generate B=16: bad tokens {tuple(toks.shape)}")
+    if td.decode_window.launches != before:
+        raise AssertionError("transformer generate B=16 launched the B=1 window kernel")
+    log(f"  transformer generate B=16 n={TF_N16} T={TEMPERATURE} (batched window route):"
+        f" {16 * TF_N16 / (med / 1e3):.6g} samples/s ({1e3 * med / TF_N16:.2f} us a step; median"
+        f" of 3: {med:.3f} ms, spread {spr:.3%}; {ms})")
+
+    # a bank written by the port, reloaded through Checkpoint(...).network
+    root = os.path.join(ROOT, "build", "chip_smoke_transformer")
+    shutil.rmtree(root, ignore_errors=True)
+    mmk.Checkpoint("transformer8l", 1, root).create(net)
+    net2 = mmk.Checkpoint("transformer8l", 1, root, device="cuda").network.eval()
+    live = net.state_dict()
+    diff = [k for k, v in net2.state_dict().items() if not torch.equal(v, live[k])]
+    if diff or type(net2) is not type(net):
+        raise AssertionError(f"reloaded transformer differs: {type(net2).__name__}, {diff}")
+    toks = net2.generate((p1,), TF_VERIFY)[0][:, rf:]
+    g2, parted = verify_window(torch, td, td.transformer_weight_pack(net2), p1, toks, SEED, None)
+    log(f"  epoch=1.ckpt of transformer8l reloaded with equal parameters; argmax generate"
+        f" B=1 x {TF_VERIFY} from it verified (max gap {g2:.3e}, {parted} streams parted at"
+        f" near-ties)")
+    launches = {"transformer_decode_window": td.decode_window.launches,
+                "transformer_decode_chunk": tk.decode_chunk.launches}
+    log(f"  launches on the transformer serving path: {launches}")
+    if min(launches.values()) == 0:
+        raise AssertionError(f"a kernel of the transformer path was never launched: {launches}")
+    return net, prompts, launches, max(gap, g2)
+
+
+def window_flops(pack, B):
+    """f32 operations one K6 step needs.  Per stream, every layer but the
+    last over rf rows: the eight d x d projections, the FFN, and both causal
+    attentions' scores and sums over rf(rf+1)/2 (row, key) pairs.  The last
+    layer's self and cross k|v over rf rows and the rest on the last row
+    only, the one the head reads; then the head on that row."""
+    d, ff, rf, L = pack.dim, pack.ff, pack.rf, pack.n_layers
+    pairs = rf * (rf + 1) // 2
+    layer = 2 * rf * (8 * d * d + 2 * d * ff) + 2 * 2 * 2 * pairs * d
+    last = 2 * rf * 4 * d * d + 2 * (4 * d * d + 2 * d * ff) + 2 * 2 * 2 * rf * d
+    return float(B) * ((L - 1) * layer + last + 2 * sum(i * o for i, o in pack.head_dims))
+
+
+def kv_flops(pack, B, prior_t, n_steps):
+    """f32 operations K7's steps 1 .. n_steps need.  Per stream, step and
+    layer the eight d x d projections and the FFN of one row, and both
+    attentions over the min(t, rf) valid slots; the head only where a step
+    samples (t >= prior_t: earlier steps echo the prompt)."""
+    d, ff, rf, L = pack.dim, pack.ff, pack.rf, pack.n_layers
+    ts = range(1, n_steps + 1)
+    slots = sum(min(t, rf) for t in ts)
+    sampled = sum(1 for t in ts if t >= prior_t)
+    layers = L * (n_steps * 2 * (8 * d * d + 2 * d * ff) + 2 * 2 * 2 * slots * d)
+    return float(B) * (layers + sampled * 2 * sum(i * o for i, o in pack.head_dims))
+
+
+def transformer_bound(flops, nbytes):
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def window_bound(pack, B, n_steps):
+    """(bound_ms, bound_by) of one K6 call: its operations, against the
+    weights, the PE table, the window and the tokens read or written once."""
+    nbytes = 4 * (pack.flat.numel() + pack.rf * pack.dim + B * (pack.rf + n_steps))
+    return transformer_bound(window_flops(pack, B) * n_steps, nbytes)
+
+
+def kv_bound(pack, B, prior_t, n_steps):
+    """(bound_ms, bound_by) of one K7 call over steps 1 .. n_steps: its
+    operations, against the weights, the PE rows, the prompt, the tokens and
+    the rings (read once, written once)."""
+    ring = 4 * pack.n_layers * B * pack.rf * 4 * pack.dim
+    nbytes = (4 * (pack.flat.numel() + n_steps * pack.dim + B * (prior_t + n_steps + 2))
+              + 2 * ring)
+    return transformer_bound(kv_flops(pack, B, prior_t, n_steps), nbytes)
+
+
+def transformer_rows(torch, td, tk, net, prompts, launches, err):
+    """Phase 5 rows of K6 and K7: kernel, plain twin (fewer steps, scaled),
+    bound.  No single PyTorch call computes either decode."""
+    pack = td.transformer_weight_pack(net)
+    p1, p16 = prompts[1], prompts[TF_KV_B]
+    rf = pack.rf
+    C = STREAM_CHUNK
+
+    def kv(prompt, n):
+        return lambda: tk.decode_chunk(pack, prompt.t().contiguous(),
+                                       tk.init_kv_state(pack, prompt), 1, n, TEMPERATURE, SEED)
+
+    def kv_plain(prompt, n):
+        return lambda: tk.decode_chunk_plain(pack, prompt.t().contiguous(),
+                                             tk.init_kv_state(pack, prompt), 1, n, SEED,
+                                             TEMPERATURE)
+
+    calls = {
+        "transformer_decode_window": (
+            lambda: td.decode_window(pack, p1, TF_N, SEED, TEMPERATURE),
+            lambda: td.decode_window_plain(pack, p1, rf, TF_PLAIN_STEPS, SEED, TEMPERATURE),
+            TF_N / TF_PLAIN_STEPS, window_bound(pack, 1, TF_N),
+            "mimikit_tpu/ops/pallas_decode.py:1248", f"B=1 steps={TF_N}"),
+        "transformer_decode_chunk": (
+            kv(p16, C), kv_plain(p16, TF_PLAIN_STEPS), C / TF_PLAIN_STEPS,
+            kv_bound(pack, TF_KV_B, rf, C),
+            "mimikit_tpu/ops/pallas_decode.py:1693", f"B={TF_KV_B} steps={C}"),
+    }
+    sources = {"transformer_decode_window": "mimikit_tpu_torch/csrc/transformer_decode.cu",
+               "transformer_decode_chunk": "mimikit_tpu_torch/csrc/transformer_kv.cu"}
+    rows = []
+    for name, (kern, plain, scale, (bound, by), replaces, shape) in calls.items():
+        kern()
+        k_ms, k_spr = spread(cuda_ms(torch, kern, reps=3))
+        p_ms = cuda_ms(torch, plain, reps=1)[0] * scale
+        log(f"  {name} {shape}: kernel {k_ms:.4f} ms (median of 3, spread {k_spr:.2%}), plain twin"
+            f" {p_ms:.3f} ms ({TF_PLAIN_STEPS} steps timed, scaled by {scale:g}), bound"
+            f" {bound:.4f} ms by {by}; library: none (no single PyTorch call)")
+        rows.append(dict(
+            name=name, route="cuda", source=sources[name], replaces=replaces,
+            launches=launches[name], max_abs_err=err[name], ms=k_ms, plain_ms=p_ms,
+            bound_ms=bound, bound_by=by, library_ms=None,
+        ))
+    return rows
+
+
+def transformer_bench(torch, mmk, td, tk):
+    """--bench: transformer8l's serving timings, K6 forced at B=16 against the
+    batched window route, and K7 at B = 1, 4, 16 and 32."""
+    net, prompts, launches, _ = transformer_path(torch, mmk, td, tk)
+    pack = td.transformer_weight_pack(net)
+    rf, q = TF_FULL["rf"], TF_FULL["q_levels"]
+    p16 = prompts[TF_KV_B]
+    n = TF_N16
+    for name, fn in (("K6 forced", lambda: td.decode_window(pack, p16, n, SEED, TEMPERATURE)),
+                     ("batched window route", lambda: net._window_loop(p16, n, TEMPERATURE, SEED)),
+                     ("K6 forced", lambda: td.decode_window(pack, p16, n, SEED, TEMPERATURE)),
+                     ("batched window route", lambda: net._window_loop(p16, n, TEMPERATURE, SEED))):
+        fn()
+        med, spr = spread(cuda_ms(torch, fn, reps=3))
+        log(f"  transformer B=16 x {n} steps, {name}: {med:.3f} ms ({1e3 * med / n:.2f} us a step;"
+            f" median of 3, spread {spr:.3%})")
+    for B in (1, 4, 16, 32):
+        prompt = make_prompt(torch, B, rf, q, seed=40 + B)
+
+        def fn():
+            return kv_run(torch, tk, pack, prompt, STREAM_CHUNK - rf + 1, STREAM_CHUNK,
+                          TEMPERATURE, SEED)
+
+        fn()
+        med, spr = spread(cuda_ms(torch, fn, reps=3))
+        bound, by = kv_bound(pack, B, rf, STREAM_CHUNK)
+        log(f"  transformer decode_chunk B={B} steps={STREAM_CHUNK}: {med:.3f} ms"
+            f" ({1e3 * med / STREAM_CHUNK:.2f} us a step; median of 3, spread {spr:.3%}); bound"
+            f" {bound:.4f} ms by {by}")
+    transformer_rows(torch, td, tk, net, prompts, launches, {k: 0.0 for k in launches})
 
 
 # -- the fused LSTM layer (training path) ---------------------------------------
@@ -897,6 +1304,7 @@ def main(argv=None) -> int:
 
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
@@ -905,6 +1313,8 @@ def main(argv=None) -> int:
     from mimikit_tpu_torch.ops import categorical as cat
     from mimikit_tpu_torch.ops import fused_lstm as fl
     from mimikit_tpu_torch.ops import samplernn_decode as sd
+    from mimikit_tpu_torch.ops import transformer_decode as td
+    from mimikit_tpu_torch.ops import transformer_kv as tk
     from mimikit_tpu_torch.ops import wavenet_decode as wd
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -920,7 +1330,8 @@ def main(argv=None) -> int:
         return time.perf_counter() - t
 
     t = time.perf_counter()
-    sources = ((sd, sd.build_kernel), (fl, fl.build_lstm_kernel), (wd, wd.build_kernel))
+    sources = ((sd, sd.build_kernel), (fl, fl.build_lstm_kernel), (wd, wd.build_kernel),
+               (td, td.build_kernel), (tk, tk.build_kernel))
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, started together
         builds = [(mod, pool.submit(timed_build, b)) for mod, b in sources]
         builds = [(mod, f.result()) for mod, f in builds]
@@ -938,6 +1349,7 @@ def main(argv=None) -> int:
     if args.bench:
         bench(torch, mmk, sd, fl)
         wavenet_bench(torch, mmk, wd, cat)
+        transformer_bench(torch, mmk, td, tk)
         log(card)
         return 0
 
@@ -948,6 +1360,8 @@ def main(argv=None) -> int:
     err.update(check_wavenet(torch, mmk, wd, WN_SMALL, WN_SMALL_B, 40, 300, (300 + 15, 7, 64),
                              jitter=0.3))
     err.update(check_categorical(torch, cat))
+    err.update(check_transformer(torch, mmk, td, tk, TF_SMALL, 300, (1, TF_KV_B),
+                                 (300 + 15, 7, 64), jitter=0.5))
     if args.quick:
         log(json.dumps({"ok": True, "quick": True, "max_err": err}))
         return 0
@@ -956,6 +1370,8 @@ def main(argv=None) -> int:
     err_full.update(check_lstm(torch, fl, LSTM_SHAPES[1:]))
     err_full.update(check_wavenet(torch, mmk, wd, WN_FULL, WN_SMALL_B, 256, 512, (1543, 700),
                                   jitter=0.0))
+    err_full.update(check_transformer(torch, mmk, td, tk, TF_FULL, 256, (1, TF_KV_B),
+                                      (256 + 63, 100), jitter=0.0))
     err = {k: max(err[k], err_full.get(k, 0.0)) for k in err}
     check_train_step(torch, mmk)
 
@@ -978,6 +1394,8 @@ def main(argv=None) -> int:
         raise AssertionError(f"a kernel of the serving path was never launched: {launches}")
     wn_net, wn_prompts, wn_launches, gap = wavenet_path(torch, mmk, wd, cat)
     err["wavenet_decode_chunk"] = max(err["wavenet_decode_chunk"], gap)
+    tf_net, tf_prompts, tf_launches, gap = transformer_path(torch, mmk, td, tk)
+    err["transformer_decode_window"] = max(err["transformer_decode_window"], gap)
 
     # -- phase 4 -------------------------------------------------------------
     log("phase 4: the training path at full width")
@@ -1024,6 +1442,8 @@ def main(argv=None) -> int:
             launches=train_launches[name], max_abs_err=err[name], **lstm[name],
         ))
     rows += wavenet_rows(torch, wd, cat, wn_net, wn_prompts, wn_launches, err)
+    rows += transformer_rows(torch, td, tk, tf_net, tf_prompts, tf_launches, err)
+    log(f"chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
 
     log(json.dumps({"kernels": rows}))
     log(card)

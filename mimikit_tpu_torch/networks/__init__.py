@@ -1,3 +1,4 @@
 from .arm import *
 from .sample_rnn import *
 from .wavenet import *
+from .transformers import *

@@ -1,0 +1,490 @@
+"""SimpleTransformer: a causal transformer over mu-law tokens, PyTorch port.
+
+Counterpart of ``mimikit_tpu/networks/transformers.py:40-856`` (JukeBox and
+``TransformerTier`` are not ported yet).  Each decoder block is flax's: causal
+self-attention, causal cross-attention over the same (PE'd) input sequence,
+an FFN, post- or pre-norm.  Attention follows flax's
+``MultiHeadDotProductAttention`` (q, k and v each projected, q divided by
+sqrt(dH), masked scores at ``finfo(f32).min``, an f32 softmax) and the layer
+norm is flax's (var = max(0, E[x²] - E[x]²), eps 1e-5).  State_dict names are
+those of torch's ``nn.TransformerDecoderLayer`` inside PyTorch mimikit's net
+(``model.layers.{i}.self_attn.in_proj_weight`` (3d, d), ``multihead_attn.*``,
+``linear1``/``linear2``, ``norm1..3``, ``model.norm``,
+``input_module.heads.0.0.weight``, ``output_modules.0.estimator.0.fc.{k}``),
+the names ``mimikit_tpu/migrate.py:transformer_params_from_state_dict`` reads.
+
+Serving routes (the JAX package's semantics, not its TPU budgets):
+
+* ``generate`` with a prompt of at least ``rf`` tokens, a net in the decode
+  kernels' scope (:func:`~..ops.transformer_decode.supports_kernel_decode`)
+  and one stream: one launch of the window-refeed kernel (K6,
+  :func:`~..ops.transformer_decode.decode_window`);
+* the same with several streams, or a net outside the scope: the window
+  re-feed through the network's own batched eval forward (JAX sends B > 1 to
+  its XLA scan, ``transformers.py:538-539,673-675``);
+* a prompt shorter than ``rf``: the KV-cached incremental decoder, which
+  attends over the whole history (``_make_decoder``, ``:452-509``);
+* ``stream``: re-feeding (``loops.streaming._refeed_stream``), so one K6
+  launch a chunk at B=1; under ``MMK_DECODE_KV=1`` a net in the scope streams
+  through the KV-ring kernel (K7, :func:`~..ops.transformer_kv.decode_chunk`)
+  at every B, in chunks of ``max(chunk_steps, 64)`` steps with the state on
+  the card (PARITY.md #10: the KV ring's tokens part from the re-feed's after
+  the first step).
+
+Not carried over, because they budget a TPU core's VMEM or probe its layouts:
+the gates ``_use_pallas_decode`` (``:512-552``) and ``_use_pallas_kv``
+(``:554-593``, with its ``d % 128`` and ``rf % 8`` alignment), the layout
+probes ``MMK_KV_NOREP``, ``MMK_KV_SLOT_MAJOR`` and ``MMK_KV_UNROLL``, and
+``MMK_DECODE_BF16`` (queued with the bf16 decode routes).  Where the JAX gate
+refuses a net it runs its oracle scan, which has the kernel's semantics, so
+sending every net of the scope to the kernels changes no tokens.  Nor is the
+fallback on a kernel failure (``pallas_generate_or_fallback``, the KV stream's
+first-chunk retry, ``:828-850``): a kernel that fails raises.
+"""
+from __future__ import annotations
+
+import dataclasses as dtc
+import math
+import os
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..features.item_spec import ItemSpec, Step
+from ..modules.activations import _PLAIN
+from ..modules.io import ZipReduceVariables
+from ..ops.transformer_decode import (
+    _NEG,
+    decode_window,
+    layer_norm,
+    supports_kernel_decode,
+    transformer_weight_pack,
+)
+from ..ops.transformer_kv import decode_chunk, init_kv_state
+from ..utils import resolve_device
+from .arm import ARM, NetworkConfig
+
+__all__ = ["PositionalEncoding", "SimpleTransformer"]
+
+
+def sinusoidal_pe(max_len: int, d_model: int) -> np.ndarray:
+    """The sinusoidal table (``transformers.py:40-48``), computed as the JAX
+    package computes it (float64, stored as float32)."""
+    pe = np.zeros((max_len, d_model), np.float32)
+    position = np.arange(max_len)[:, None].astype(np.float32)
+    div_term = np.exp(
+        np.arange(0, d_model, 2).astype(np.float32) * (-np.log(10000.0) / d_model)
+    )
+    pe[:, 0::2] = np.sin(position * div_term)
+    pe[:, 1::2] = np.cos(position * div_term[: pe[:, 1::2].shape[1]])
+    return pe
+
+
+class PositionalEncoding(nn.Module):
+    """``x + pe[:T]``, then dropout in training.  The table is a
+    non-persistent buffer: it is no parameter, and ``migrate`` skips
+    ``pe.pe``."""
+
+    def __init__(self, d_model: int, dropout: float = 0.1, max_len: int = 5000):
+        super().__init__()
+        self.dropout = dropout
+        self.register_buffer("pe", torch.from_numpy(sinusoidal_pe(max_len, d_model)),
+                             persistent=False)
+
+    def forward(self, x):
+        x = x + self.pe[: x.shape[1]].to(x.dtype)
+        return F.dropout(x, self.dropout, self.training) if self.dropout > 0 else x
+
+
+class LayerNorm(nn.Module):
+    """Layer norm with flax's formula under torch's ``weight``/``bias`` names."""
+
+    def __init__(self, dim: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x):
+        return layer_norm(x, self.weight, self.bias, self.eps)
+
+
+class MultiheadAttention(nn.Module):
+    """flax's ``MultiHeadDotProductAttention`` under torch's
+    ``nn.MultiheadAttention`` parameter names: ``in_proj_weight`` stacks the
+    q, k and v projections (3d, d), ``out_proj`` merges the heads."""
+
+    def __init__(self, dim: int, n_heads: int, dropout: float = 0.0):
+        super().__init__()
+        self.n_heads, self.dropout = n_heads, dropout
+        self.in_proj_weight = nn.Parameter(torch.empty(3 * dim, dim))
+        self.in_proj_bias = nn.Parameter(torch.zeros(3 * dim))
+        self.out_proj = nn.Linear(dim, dim)
+
+    def project(self, x, part: int):
+        """q (0), k (1) or v (2) of ``x`` (..., d), split into heads."""
+        d = x.shape[-1]
+        w = self.in_proj_weight[part * d : (part + 1) * d]
+        y = F.linear(x, w, self.in_proj_bias[part * d : (part + 1) * d])
+        return y.reshape(*y.shape[:-1], self.n_heads, d // self.n_heads)
+
+    def attend(self, q, k, v, mask=None):
+        """q (B, Tq, nH, dH), k and v (B, Tk, nH, dH) -> (B, Tq, d)."""
+        q = q / math.sqrt(q.shape[-1])
+        scores = torch.einsum("bqhd,bkhd->bhqk", q, k)
+        if mask is not None:
+            scores = scores.masked_fill(~mask, _NEG)
+        p = torch.softmax(scores, dim=-1)
+        if self.dropout > 0 and self.training:
+            p = F.dropout(p, self.dropout)
+        out = torch.einsum("bhqk,bkhd->bqhd", p, v)
+        return self.out_proj(out.reshape(*out.shape[:2], -1))
+
+    def forward(self, x, kv, mask=None):
+        return self.attend(self.project(x, 0), self.project(kv, 1), self.project(kv, 2), mask)
+
+
+class DecoderBlock(nn.Module):
+    """torch ``TransformerDecoderLayer`` equivalent (``transformers.py:67-121``):
+    self-attention, cross-attention on ``memory``, FFN; post- or pre-norm."""
+
+    def __init__(self, model_dim: int, n_heads: int, feedforward_dim: int, dropout: float = 0.0,
+                 activation: str = "ReLU", norm_first: bool = False):
+        super().__init__()
+        self.activation, self.norm_first, self.dropout = str(activation), norm_first, dropout
+        self.self_attn = MultiheadAttention(model_dim, n_heads, dropout)
+        self.multihead_attn = MultiheadAttention(model_dim, n_heads, dropout)
+        self.linear1 = nn.Linear(model_dim, feedforward_dim)
+        self.linear2 = nn.Linear(feedforward_dim, model_dim)
+        self.norm1, self.norm2, self.norm3 = (LayerNorm(model_dim) for _ in range(3))
+
+    def _drop(self, v):
+        return F.dropout(v, self.dropout, self.training) if self.dropout > 0 else v
+
+    def _ffn(self, x):
+        h = self._drop(_PLAIN[self.activation](self.linear1(x)))
+        return self._drop(self.linear2(h))
+
+    def forward(self, x, memory, mask=None):
+        if self.norm_first:
+            h = self.norm1(x)
+            x = x + self._drop(self.self_attn(h, h, mask))
+            x = x + self._drop(self.multihead_attn(self.norm2(x), memory, mask))
+            return x + self._ffn(self.norm3(x))
+        x = self.norm1(x + self._drop(self.self_attn(x, x, mask)))
+        x = self.norm2(x + self._drop(self.multihead_attn(x, memory, mask)))
+        return self.norm3(x + self._ffn(x))
+
+    def step(self, x, memory, cache: dict):
+        """One incremental decode step (flax ``decode=True``): ``x`` and
+        ``memory`` are (B, 1, d); each attention appends its new key and
+        value to ``cache`` and attends over every cached position."""
+        def attend(attn, name, q_in, kv_in):
+            k, v = attn.project(kv_in, 1), attn.project(kv_in, 2)
+            if name in cache:
+                k = torch.cat([cache[name][0], k], 1)
+                v = torch.cat([cache[name][1], v], 1)
+            cache[name] = (k, v)
+            return attn.attend(attn.project(q_in, 0), k, v)
+
+        if self.norm_first:
+            h = self.norm1(x)
+            x = x + attend(self.self_attn, "self", h, h)
+            x = x + attend(self.multihead_attn, "cross", self.norm2(x), memory)
+            return x + self._ffn(self.norm3(x))
+        x = self.norm1(x + attend(self.self_attn, "self", x, x))
+        x = self.norm2(x + attend(self.multihead_attn, "cross", x, memory))
+        return self.norm3(x + self._ffn(x))
+
+
+class DecoderStack(nn.Module):
+    """``transformers.py:124-157``: the blocks under a causal mask, with the
+    input itself as every block's ``memory``; an optional final norm."""
+
+    def __init__(self, model_dim: int, n_heads: int, feedforward_dim: int, num_layers: int,
+                 dropout: float = 0.0, activation: str = "ReLU", norm_first: bool = False,
+                 with_layer_norm: bool = False):
+        super().__init__()
+        self.layers = nn.ModuleList([
+            DecoderBlock(model_dim, n_heads, feedforward_dim, dropout, activation, norm_first)
+            for _ in range(num_layers)
+        ])
+        self.norm = LayerNorm(model_dim) if with_layer_norm else None
+
+    def forward(self, x):
+        T = x.shape[1]
+        mask = torch.tril(torch.ones(T, T, dtype=torch.bool, device=x.device))
+        memory = x
+        for layer in self.layers:
+            x = layer(x, memory, mask)
+        return self.norm(x) if self.norm is not None else x
+
+    def step(self, x, caches: List[dict]):
+        memory = x
+        for layer, cache in zip(self.layers, caches):
+            x = layer.step(x, memory, cache)
+        return self.norm(x) if self.norm is not None else x
+
+
+class SimpleTransformerCore(nn.Module):
+    """Input embedding -> positional encoding -> decoder stack -> heads
+    (``transformers.py:160-223``)."""
+
+    def __init__(self, cfg: dict, input_heads, output_modules):
+        super().__init__()
+        self.input_dropout = cfg["input_dropout"]
+        self.input_module = ZipReduceVariables(mode="sum", heads=tuple(input_heads))
+        self.pe = PositionalEncoding(cfg["model_dim"], dropout=0.0, max_len=2048)
+        self.model = DecoderStack(
+            model_dim=cfg["model_dim"], n_heads=cfg["n_heads"],
+            feedforward_dim=cfg["feedforward_dim"], num_layers=cfg["num_layers"],
+            dropout=cfg["dropout"], activation="ReLU", with_layer_norm=cfg["with_layer_norm"],
+        )
+        self.output_modules = nn.ModuleList(output_modules)
+
+    def _heads(self, y, train: bool, temperature=None, generator=None):
+        if train:
+            return tuple(mod(y, train=True) for mod in self.output_modules)
+        return tuple(mod(y, train=False, temperature=temperature, generator=generator)
+                     for mod in self.output_modules)
+
+    def forward(self, inputs: Tuple, train: bool = False, temperature=None,
+                generator: Optional[torch.Generator] = None):
+        """Train: per-target (B, T, Q) logits.  Eval: the heads' samples at
+        the last position, argmax when ``temperature`` is None."""
+        src = self.input_module(inputs)
+        if train and self.input_dropout > 0:
+            keep = torch.rand(src.shape[0], 1, src.shape[-1], device=src.device)
+            keep = keep >= self.input_dropout
+            src = torch.where(keep, src / (1.0 - self.input_dropout), torch.zeros_like(src))
+        out = self.model(self.pe(src))
+        if not train:
+            return self._heads(out[:, -1:], False, temperature, generator)
+        return self._heads(out, True)
+
+    def decode_step(self, inputs: Tuple, t: int, caches: List[dict], temperature=None,
+                    generator: Optional[torch.Generator] = None):
+        """Incremental mode (``decode=True``): ``inputs`` are one step at
+        absolute position ``t`` (absolute PE); ``caches`` (one dict a layer)
+        grow by one position.  Past the table's end the last row repeats, as
+        JAX's clamped ``dynamic_slice`` reads it."""
+        table = self.pe.pe
+        src = self.input_module(inputs) + table[min(t, table.shape[0] - 1)].to(torch.float32)
+        out = self.model.step(src, caches)
+        return self._heads(out, False, temperature, generator)
+
+
+class SimpleTransformer(SimpleTransformerCore, ARM):
+    @dtc.dataclass
+    class Config(NetworkConfig):
+        io_spec: "IOSpec" = None  # noqa: F821
+        model_dim: int = 256
+        n_heads: int = 8
+        feedforward_dim: int = 1024
+        num_layers: int = 8
+        with_layer_norm: bool = False
+        dropout: float = 0.0
+        input_dropout: float = 0.1
+        rf: int = 64
+
+    # the KV stream's kernel calls run at least this many steps
+    _KV_MIN_CHUNK = 64
+
+    @classmethod
+    def from_config(cls, config: "SimpleTransformer.Config", device=None,
+                    seed: int = 0) -> "SimpleTransformer":
+        """Build the network on ``device`` (default: the card), with weights
+        drawn from ``seed``."""
+        device = resolve_device(device)
+        input_heads = [spec.module.copy().set(out_dim=config.model_dim).module()
+                       for spec in config.io_spec.inputs]
+        output_modules = [spec.module.copy().set(in_dim=config.model_dim).module()
+                          for spec in config.io_spec.targets]
+        cfg = dict(model_dim=config.model_dim, n_heads=config.n_heads,
+                   feedforward_dim=config.feedforward_dim, num_layers=config.num_layers,
+                   with_layer_norm=config.with_layer_norm, dropout=config.dropout,
+                   input_dropout=config.input_dropout)
+        net = cls(config=config, cfg=cfg, input_heads=input_heads, output_modules=output_modules)
+        net.reset_parameters(torch.Generator().manual_seed(seed))
+        return net.to(device)
+
+    def __init__(self, *, config: "SimpleTransformer.Config", **core):
+        super().__init__(**core)
+        self._config = config
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """N(0, 1) embeddings, U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for every
+        projection and dense weight and bias (``in_proj_bias`` zero), unit
+        layer norms; drawn from ``generator``."""
+        for m in self.modules():
+            if isinstance(m, nn.Embedding):
+                m.weight.copy_(torch.randn(m.weight.shape, generator=generator))
+            elif isinstance(m, nn.Linear):
+                bound = 1.0 / np.sqrt(m.in_features)
+                for p in m.parameters(recurse=False):
+                    p.copy_(torch.rand(p.shape, generator=generator) * (2 * bound) - bound)
+            elif isinstance(m, MultiheadAttention):
+                bound = 1.0 / np.sqrt(m.in_proj_weight.shape[1])
+                w = torch.rand(m.in_proj_weight.shape, generator=generator)
+                m.in_proj_weight.copy_(w * (2 * bound) - bound)
+                m.in_proj_bias.zero_()
+
+    @property
+    def config(self) -> "SimpleTransformer.Config":
+        return self._config
+
+    @property
+    def rf(self) -> int:
+        return self._config.rf
+
+    @property
+    def generate_params(self):
+        return {"temperature"}
+
+    def _sample_generator(self, seed: Optional[int] = None) -> torch.Generator:
+        return torch.Generator(device=self.device).manual_seed(
+            self.next_seed() if seed is None else seed)
+
+    def forward(self, inputs: Tuple, **parameters):
+        """Train mode: per-target (B, T, Q) logits.  Eval mode: one sample
+        per stream at the last position, tempered by ``temperature``."""
+        inputs = tuple(torch.as_tensor(x).to(self.device) for x in inputs)
+        if self.training:
+            return super().forward(inputs, train=True)
+        return super().forward(inputs, train=False, temperature=parameters.get("temperature"),
+                               generator=self._sample_generator())
+
+    # -- batch specs (transformers.py:441-450) ---------------------------------
+    def train_batch(self, item_spec: ItemSpec):
+        return tuple(
+            spec.to_batch_item(item_spec) for spec in self.config.io_spec.inputs
+        ), tuple(
+            spec.to_batch_item(ItemSpec(shift=1, length=0, unit=Step()) + item_spec)
+            for spec in self.config.io_spec.targets
+        )
+
+    def test_batch(self, item_spec: ItemSpec):
+        return self.train_batch(item_spec)
+
+    # -- step-wise generation API (transformers.py:295-311) ------------------------
+    def before_generate(self, prompts: Tuple, batch_index: int) -> None:
+        pass
+
+    @torch.no_grad()
+    def generate_step(self, inputs: Tuple, *, t: int = 0, **parameters):
+        """The eval forward on the window ``inputs``."""
+        was = self.training
+        self.eval()
+        try:
+            return self.forward(inputs, **parameters)
+        finally:
+            self.train(was)
+
+    def after_generate(self, final_outputs: Tuple, batch_index: int) -> None:
+        pass
+
+    # -- serving -------------------------------------------------------------------
+    def _prompt(self, prompts: Tuple) -> torch.Tensor:
+        if len(prompts) != 1 or len(self.config.io_spec.targets) != 1:
+            raise NotImplementedError("decoding supports one input and one target")
+        return torch.as_tensor(prompts[0]).to(self.device, torch.int32).contiguous()
+
+    @torch.no_grad()
+    def _window_loop(self, prompt: torch.Tensor, n_steps: int, temperature, seed: int):
+        """The window re-feed (``_make_window_decoder``): each step runs the
+        batched eval forward on the last ``rf`` tokens (window-relative PE)
+        and appends its sample."""
+        B, prior_t = prompt.shape
+        rf = self.rf
+        buf = torch.cat([prompt, prompt.new_zeros(B, n_steps)], 1).long()
+        gen = self._sample_generator(seed)
+        was = self.training
+        self.eval()
+        try:
+            for t in range(prior_t, prior_t + n_steps):
+                out = SimpleTransformerCore.forward(self, (buf[:, t - rf : t],), False,
+                                                    temperature, gen)
+                buf[:, t] = out[0].reshape(B)
+        finally:
+            self.train(was)
+        return buf
+
+    @torch.no_grad()
+    def _kv_cache_loop(self, prompt: torch.Tensor, n_steps: int, temperature, seed: int):
+        """The KV-cached incremental decoder (``_make_decoder``): step t feeds
+        the prompt's token while t < prior_t, else the last prediction, with
+        absolute PE, and attends over the whole history."""
+        B, prior_t = prompt.shape
+        prompt = prompt.long()
+        gen = self._sample_generator(seed)
+        caches = [{} for _ in self.model.layers]
+        was = self.training
+        self.eval()
+        preds, cur = [], prompt[:, 0]
+        try:
+            for t in range(prior_t + n_steps - 1):
+                tok = prompt[:, t] if t < prior_t else cur
+                out = self.decode_step((tok[:, None],), t, caches, temperature, gen)
+                cur = out[0].reshape(B)
+                if t >= prior_t - 1:
+                    preds.append(cur)
+        finally:
+            self.train(was)
+        return torch.cat([prompt, torch.stack(preds, 1)], 1)
+
+    @torch.no_grad()
+    def generate(self, prompts: Tuple, n_steps: int, temperature: Optional[float] = None,
+                 seed: Optional[int] = None) -> Tuple[torch.Tensor]:
+        """Decode ``n_steps`` tokens after each prompt.  ``temperature`` None
+        is argmax.  Returns a tuple of one (B, prior_t + n_steps) tensor
+        (prompt + generation) on the network's device."""
+        prompt = self._prompt(prompts)
+        B, prior_t = prompt.shape
+        if seed is None:
+            seed = self.next_seed()
+        if prior_t < self.rf:
+            out = self._kv_cache_loop(prompt, n_steps, temperature, seed)
+        elif B == 1 and supports_kernel_decode(self):
+            toks = decode_window(transformer_weight_pack(self), prompt, n_steps, seed, temperature)
+            out = torch.cat([prompt, toks], 1)
+        else:
+            out = self._window_loop(prompt, n_steps, temperature, seed)
+        return (out.to(torch.as_tensor(prompts[0]).dtype),)
+
+    def stream(self, prompts: Tuple, chunk_steps: int, temperature: Optional[float] = None,
+               seed: Optional[int] = None):
+        """Unbounded generation: yield (B, chunk_steps) numpy token chunks
+        forever.  Default: window re-feeding (exact: the window is the decode
+        state).  ``MMK_DECODE_KV=1``: the O(1)-a-step KV-ring decode (K7),
+        absolute PE and the rings carried on the card between launches of
+        ``max(chunk_steps, 64)`` steps; its noise is keyed by absolute step,
+        so every chunking draws the same tokens."""
+        prompt = self._prompt(prompts)
+        B, prior_t = prompt.shape
+        if seed is None:
+            seed = self.next_seed()
+        from ..loops.streaming import _read_behind_chunks, _refeed_stream
+
+        kv = os.environ.get("MMK_DECODE_KV") == "1"
+        if not kv or not supports_kernel_decode(self) or prior_t < 1:
+            yield from _refeed_stream(self, prompt, chunk_steps, temperature, seed)
+            return
+        C = max(chunk_steps, self._KV_MIN_CHUNK)
+        pack = transformer_weight_pack(self)
+        prompt_T = prompt.t().contiguous()
+        state = init_kv_state(pack, prompt)
+
+        def dev_chunks():
+            t_abs = 1
+            while True:
+                with torch.no_grad():
+                    out = decode_chunk(pack, prompt_T, state, t_abs, C, temperature, seed)
+                drop = min(C, max(0, prior_t - t_abs))  # prompt echo rows
+                t_abs += C
+                yield out, drop
+
+        yield from _read_behind_chunks(dev_chunks(), chunk_steps)

@@ -367,7 +367,9 @@ def _check(x: torch.Tensor, name: str, dtype, shape, device):
 
 def _launch(pack: SampleRNNPack, prompt, state: DecodeState, t0: int, n_steps: int,
             out: torch.Tensor, out_t0: int, seed: int, temperature: Optional[float],
-            group: Optional[int] = None) -> None:
+            group: Optional[int] = None) -> bool:
+    """Launch the kernel on ``state`` and ``out``; False when there are no
+    steps to run (nothing is launched)."""
     dev = pack.flat.device
     if dev.type != "cuda":
         raise ValueError(f"the decode kernel runs on CUDA tensors, got {dev}")
@@ -386,7 +388,7 @@ def _launch(pack: SampleRNNPack, prompt, state: DecodeState, t0: int, n_steps: i
     if temperature is not None and not temperature > 0:
         raise ValueError(f"temperature must be > 0, got {temperature}")
     if n_steps == 0:
-        return
+        return False
     lib = _library()
     a = _Args()
     a.w, a.prompt, a.win = pack.flat.data_ptr(), prompt.data_ptr(), state.win.data_ptr()
@@ -427,6 +429,7 @@ def _launch(pack: SampleRNNPack, prompt, state: DecodeState, t0: int, n_steps: i
         raise RuntimeError(
             f"samplernn decode kernel launch failed: {lib.mmk_cuda_error_string(err).decode()}"
         )
+    return True
 
 
 def decode_single(pack: SampleRNNPack, prompt: torch.Tensor, n_steps: int, seed: int,
@@ -440,9 +443,9 @@ def decode_single(pack: SampleRNNPack, prompt: torch.Tensor, n_steps: int, seed:
     if prompt.device.type == "cpu":
         return decode_plain(pack.net, prompt, state, rf, n, prior_t, n_steps, seed, temperature)
     out = torch.empty(B, n_steps, dtype=torch.int32, device=prompt.device)
-    _launch(pack, prompt.to(torch.int32).contiguous(), state, rf, n, out, prior_t, seed,
-            temperature, group)
-    decode_single.launches += 1
+    if _launch(pack, prompt.to(torch.int32).contiguous(), state, rf, n, out, prior_t, seed,
+               temperature, group):
+        decode_single.launches += 1
     return out
 
 
@@ -456,8 +459,8 @@ def decode_chunk(pack: SampleRNNPack, prompt: torch.Tensor, state: DecodeState, 
     if prompt.device.type == "cpu":
         return decode_plain(pack.net, prompt, state, t0, n_steps, t0, n_steps, seed, temperature)
     out = torch.empty(B, n_steps, dtype=torch.int32, device=prompt.device)
-    _launch(pack, prompt, state, t0, n_steps, out, t0, seed, temperature, group)
-    decode_chunk.launches += 1
+    if _launch(pack, prompt, state, t0, n_steps, out, t0, seed, temperature, group):
+        decode_chunk.launches += 1
     return out
 
 

@@ -393,7 +393,9 @@ def group_for(pack: WaveNetPack, B: int, device) -> int:
 
 def _launch(pack: WaveNetPack, prompt, state: WaveNetDecodeState, t0: int, n_steps: int,
             out: torch.Tensor, out_t0: int, seed: int, temperature: Optional[float],
-            group: Optional[int] = None) -> None:
+            group: Optional[int] = None) -> bool:
+    """Launch the kernel on ``state`` and ``out``; False when there are no
+    steps to run (nothing is launched)."""
     dev = pack.flat.device
     if dev.type != "cuda":
         raise ValueError(f"the decode kernel runs on CUDA tensors, got {dev}")
@@ -416,7 +418,7 @@ def _launch(pack: WaveNetPack, prompt, state: WaveNetDecodeState, t0: int, n_ste
     if group not in GROUPS or group * per > SMEM_PER_BLOCK:
         raise ValueError(f"group {group} is not one of {GROUPS} or does not fit a block")
     if n_steps == 0:
-        return
+        return False
     lib = _library()
     a = _Args()
     a.w, a.prompt, a.tok = pack.flat.data_ptr(), prompt.data_ptr(), state.tok.data_ptr()
@@ -442,6 +444,7 @@ def _launch(pack: WaveNetPack, prompt, state: WaveNetDecodeState, t0: int, n_ste
         raise RuntimeError(
             f"wavenet decode kernel launch failed: {lib.mmk_wavenet_error_string(err).decode()}"
         )
+    return True
 
 
 def decode_single(pack: WaveNetPack, prompt: torch.Tensor, n_steps: int, seed: int,
@@ -454,9 +457,9 @@ def decode_single(pack: WaveNetPack, prompt: torch.Tensor, n_steps: int, seed: i
     if prompt.device.type == "cpu":
         return decode_plain(pack, prompt, state, 1, n, prior_t, n_steps, seed, temperature)
     out = torch.empty(B, n_steps, dtype=torch.int32, device=prompt.device)
-    _launch(pack, prompt.to(torch.int32).contiguous(), state, 1, n, out, prior_t, seed,
-            temperature, group)
-    decode_single.launches += 1
+    if _launch(pack, prompt.to(torch.int32).contiguous(), state, 1, n, out, prior_t, seed,
+               temperature, group):
+        decode_single.launches += 1
     return out
 
 
@@ -470,8 +473,8 @@ def decode_chunk(pack: WaveNetPack, prompt: torch.Tensor, state: WaveNetDecodeSt
     if prompt.device.type == "cpu":
         return decode_plain(pack, prompt, state, t0, n_steps, t0, n_steps, seed, temperature)
     out = torch.empty(B, n_steps, dtype=torch.int32, device=prompt.device)
-    _launch(pack, prompt, state, t0, n_steps, out, t0, seed, temperature, group)
-    decode_chunk.launches += 1
+    if _launch(pack, prompt, state, t0, n_steps, out, t0, seed, temperature, group):
+        decode_chunk.launches += 1
     return out
 
 

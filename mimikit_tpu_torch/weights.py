@@ -17,6 +17,13 @@ for WaveNet, the inverse pair of ``migrate.py:wavenet_params_from_state_dict``:
 a flax conv kernel (k, in, out) is a torch conv weight (out, in, k), a dense
 kernel (in, out) a linear weight (out, in), the embedding table is shared
 as it is.
+
+``transformer_state_dict_from_jax`` and ``transformer_params_to_jax`` do the
+same for SimpleTransformer, the inverse pair of
+``migrate.py:transformer_params_from_state_dict``: flax's q/k/v kernels (d, nH,
+dH) become the rows of torch's packed ``in_proj_weight`` (3d, d), the out
+kernel (nH, dH, d) ``out_proj.weight`` (d, d), ``ln{k}`` ``norm{k}``, and the
+final norm ``model.norm``.
 """
 from __future__ import annotations
 
@@ -31,6 +38,8 @@ __all__ = [
     "samplernn_params_to_jax",
     "wavenet_state_dict_from_jax",
     "wavenet_params_to_jax",
+    "transformer_state_dict_from_jax",
+    "transformer_params_to_jax",
 ]
 
 _GATES = "ifgo"
@@ -249,4 +258,119 @@ def wavenet_params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
             base = f"output_modules_{j}/estimator/core/Dense_{int(k) // 2}"
             _put(tree, f"{base}/{'kernel' if what == 'weight' else 'bias'}",
                  v.T if what == "weight" else v)
+    return tree
+
+
+# SimpleTransformer attention: flax submodule -> torch's attention module name
+_ATTN = {"self_attn": "self_attn", "cross_attn": "multihead_attn"}
+_QKV = ("query", "key", "value")
+
+
+def transformer_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX SimpleTransformer params -> the port's ``SimpleTransformer``
+    state_dict (CPU f32)."""
+    sd: Dict[str, np.ndarray] = {}
+    for name, node in params.items():
+        m = re.fullmatch(r"input_heads_(\d+)", name)
+        if m:
+            sd[f"input_module.heads.{m.group(1)}.0.weight"] = np.asarray(
+                node["core"]["Embed_0"]["embedding"])
+            continue
+        if name == "model":
+            for blk, p in node.items():
+                if blk == "final_ln":
+                    sd["model.norm.weight"] = np.asarray(p["scale"])
+                    sd["model.norm.bias"] = np.asarray(p["bias"])
+                    continue
+                m = re.fullmatch(r"block(\d+)", blk)
+                if not m:
+                    raise ValueError(f"unmapped SimpleTransformer parameter model/{blk}")
+                base = f"model.layers.{m.group(1)}"
+                for sub, q in p.items():
+                    if sub in _ATTN:
+                        a = f"{base}.{_ATTN[sub]}"
+                        d = np.asarray(q["out"]["kernel"]).shape[-1]
+                        sd[f"{a}.in_proj_weight"] = np.concatenate(
+                            [np.asarray(q[k]["kernel"]).reshape(d, d).T for k in _QKV])
+                        sd[f"{a}.in_proj_bias"] = np.concatenate(
+                            [np.asarray(q[k]["bias"]).reshape(d) for k in _QKV])
+                        sd[f"{a}.out_proj.weight"] = np.asarray(q["out"]["kernel"]).reshape(d, d).T
+                        sd[f"{a}.out_proj.bias"] = np.asarray(q["out"]["bias"])
+                    elif re.fullmatch(r"ln[123]", sub):
+                        sd[f"{base}.norm{sub[2]}.weight"] = np.asarray(q["scale"])
+                        sd[f"{base}.norm{sub[2]}.bias"] = np.asarray(q["bias"])
+                    elif re.fullmatch(r"Dense_[01]", sub):
+                        k = int(sub[-1]) + 1
+                        sd[f"{base}.linear{k}.weight"] = np.asarray(q["kernel"]).T
+                        sd[f"{base}.linear{k}.bias"] = np.asarray(q["bias"])
+                    else:
+                        raise ValueError(f"unmapped SimpleTransformer parameter model/{blk}/{sub}")
+            continue
+        m = re.fullmatch(r"output_modules_(\d+)", name)
+        if m:
+            for dname, d_ in node["estimator"]["core"].items():
+                k = int(dname.split("_")[1])
+                base = f"output_modules.{m.group(1)}.estimator.0.fc.{2 * k}"
+                sd[f"{base}.weight"] = np.asarray(d_["kernel"]).T
+                sd[f"{base}.bias"] = np.asarray(d_["bias"])
+            continue
+        raise ValueError(f"unmapped SimpleTransformer parameter {name}")
+    return _to_torch(sd)
+
+
+def transformer_params_to_jax(state_dict: Mapping[str, torch.Tensor], n_heads: int) -> Dict:
+    """The port's ``SimpleTransformer`` state_dict -> the JAX SimpleTransformer
+    parameter tree (nested dicts of f32 numpy arrays).  A state_dict does not
+    hold the head count flax's (d, nH, dH) kernels need: ``n_heads`` gives it
+    (the net's ``config.n_heads``)."""
+    sd = {k: v.detach().cpu().numpy().astype(np.float32) for k, v in state_dict.items()}
+    tree: Dict = {}
+    flax_attn = {v: k for k, v in _ATTN.items()}
+    for key, v in sd.items():
+        m = re.fullmatch(r"input_module\.heads\.(\d+)\.0\.weight", key)
+        if m:
+            _put(tree, f"input_heads_{m.group(1)}/core/Embed_0/embedding", v)
+            continue
+        m = re.fullmatch(r"model\.norm\.(weight|bias)", key)
+        if m:
+            _put(tree, f"model/final_ln/{'scale' if m.group(1) == 'weight' else 'bias'}", v)
+            continue
+        m = re.fullmatch(r"model\.layers\.(\d+)\.(self_attn|multihead_attn)\.(.+)", key)
+        if m:
+            i, attn, what = m.groups()
+            base = f"model/block{i}/{flax_attn[attn]}"
+            d = v.shape[-1]
+            if what == "in_proj_weight":
+                for k, w in zip(_QKV, np.split(v, 3)):
+                    _put(tree, f"{base}/{k}/kernel", w.T.reshape(d, n_heads, d // n_heads))
+            elif what == "in_proj_bias":
+                d = v.shape[0] // 3
+                for k, b in zip(_QKV, np.split(v, 3)):
+                    _put(tree, f"{base}/{k}/bias", b.reshape(n_heads, d // n_heads))
+            elif what == "out_proj.weight":
+                _put(tree, f"{base}/out/kernel", v.T.reshape(n_heads, d // n_heads, d))
+            elif what == "out_proj.bias":
+                _put(tree, f"{base}/out/bias", v)
+            else:
+                raise ValueError(f"unmapped SimpleTransformer state_dict entry {key}")
+            continue
+        m = re.fullmatch(r"model\.layers\.(\d+)\.norm([123])\.(weight|bias)", key)
+        if m:
+            i, k, what = m.groups()
+            _put(tree, f"model/block{i}/ln{k}/{'scale' if what == 'weight' else 'bias'}", v)
+            continue
+        m = re.fullmatch(r"model\.layers\.(\d+)\.linear([12])\.(weight|bias)", key)
+        if m:
+            i, k, what = m.groups()
+            base = f"model/block{i}/Dense_{int(k) - 1}"
+            _put(tree, f"{base}/{'kernel' if what == 'weight' else 'bias'}",
+                 v.T if what == "weight" else v)
+            continue
+        m = re.fullmatch(r"output_modules\.(\d+)\.estimator\.0\.fc\.(\d+)\.(weight|bias)", key)
+        if not m:
+            raise ValueError(f"unmapped SimpleTransformer state_dict entry {key}")
+        j, k, what = m.groups()
+        base = f"output_modules_{j}/estimator/core/Dense_{int(k) // 2}"
+        _put(tree, f"{base}/{'kernel' if what == 'weight' else 'bias'}",
+             v.T if what == "weight" else v)
     return tree

@@ -5,6 +5,8 @@
 * its entry points run on the card unless the caller asks for the CPU, and a
   CUDA request on a machine without CUDA raises instead of running on the
   CPU;
+* on CPU tensors every kernel wrapper runs its plain twin and counts no
+  launch;
 * on a machine with a card, ``chip_smoke.py --quick`` builds the kernels
   and holds them against their plain twins (marked ``cuda``; skipped
   without a card).
@@ -54,6 +56,11 @@ _CUDA_CALLS = [
     "mmk.WaveNet.from_config(wcfg, device='cuda')",
     "wd._launch(wpack, wp, wst, 1, 4, torch.empty(2, 4, dtype=torch.int32), 1, 0, None)",
     "cat.categorical(torch.zeros(2, 8, device='cuda'), 1.0, 0)",
+    "mmk.SimpleTransformer.from_config(tcfg)",
+    "mmk.SimpleTransformer.from_config(tcfg, device='cuda')",
+    "td._launch(tpack, torch.zeros(1, 16, dtype=torch.int32), 4, 16, 0, None)",
+    "td.decode_window(tpack, torch.zeros(1, 16, dtype=torch.int32, device='cuda'), 4, 0, None)",
+    "tk.decode_chunk(tpack, torch.zeros(16, 2, dtype=torch.int32, device='cuda'), tst, 1, 4, None, 0)",
 ]
 
 _PROBE = """
@@ -62,6 +69,8 @@ import torch, mimikit_tpu_torch as mmk
 from mimikit_tpu_torch.ops import categorical as cat
 from mimikit_tpu_torch.ops import fused_lstm as fl
 from mimikit_tpu_torch.ops import samplernn_decode as sd
+from mimikit_tpu_torch.ops import transformer_decode as td
+from mimikit_tpu_torch.ops import transformer_kv as tk
 from mimikit_tpu_torch.ops import wavenet_decode as wd
 res = {"cuda": torch.cuda.is_available()}
 res["foreign"] = [m for m in sys.modules
@@ -80,6 +89,11 @@ wcfg = mmk.WaveNet.Config(io_spec=wio, blocks=(3,), dims_dilated=(16,), skips_di
 wpack = wd.wavenet_weight_pack(mmk.WaveNet.from_config(wcfg, device="cpu"))
 wp = torch.zeros(2, 9, dtype=torch.int32)
 wst = wd.init_decode_state(wpack, wp)
+tcfg = mmk.SimpleTransformer.Config(io_spec=wio, model_dim=16, n_heads=2, feedforward_dim=32,
+                                    num_layers=2, rf=16)
+tpack = td.transformer_weight_pack(mmk.SimpleTransformer.from_config(tcfg, device="cpu"))
+tp = torch.zeros(2, 16, dtype=torch.int32)
+tst = tk.init_kv_state(tpack, tp)
 for call in CALLS:
     try:
         eval(call)
@@ -96,6 +110,10 @@ out = wd.decode_chunk(wpack, wp, wst, 1, 4, 0, None)
 res["cpu_wn_chunk"] = [list(out.shape), wd.decode_chunk.launches, wd.decode_single.launches]
 out = cat.categorical(torch.randn(2, 8), 0.9, 0)
 res["cpu_cat"] = [list(out.shape), cat.categorical.launches]
+out = td.decode_window(tpack, tp, 4, 0, None)
+res["cpu_tf_window"] = [list(out.shape), td.decode_window.launches]
+out = tk.decode_chunk(tpack, tp.t().contiguous(), tst, 1, 20, 0.9, 0)
+res["cpu_tf_chunk"] = [list(out.shape), tk.decode_chunk.launches]
 print(json.dumps(res))
 """
 
@@ -151,6 +169,13 @@ def test_cpu_tensors_take_the_plain_categorical(probe):
     """The categorical sampler on a CPU tensor runs its plain twin and
     counts no kernel launch."""
     assert probe["cpu_cat"] == [[2], 0]
+
+
+def test_cpu_tensors_take_the_plain_transformer_decodes(probe):
+    """The transformer decode wrappers (window, K6; KV ring, K7) on CPU
+    tensors run their plain twins and count no kernel launch."""
+    assert probe["cpu_tf_window"] == [[2, 4], 0]
+    assert probe["cpu_tf_chunk"] == [[2, 20], 0]
 
 
 @pytest.mark.cuda

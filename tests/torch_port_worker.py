@@ -438,8 +438,107 @@ def categorical_task(inp: dict) -> dict:
     return out
 
 
+def load_transformer(inp: dict, p: str):
+    """The port's SimpleTransformer from the JAX-written YAML, with the JAX
+    weights."""
+    cfg = mmk.Config.deserialize(str(inp[p + "yaml"]))
+    cfg.io_spec.bind_to({"signal": mmk.Extractor.signal()})
+    net = mmk.SimpleTransformer.from_config(cfg, device="cpu").eval()
+    sd_ = mmk.transformer_state_dict_from_jax(unflatten(inp, p + "params/"))
+    net.load_state_dict(sd_, strict=True)
+    return net, sd_
+
+
+def _stream(net, prompt, chunk, n_chunks, **kw):
+    it = mmk.stream_tokens(net, (prompt,), chunk, **kw)
+    out = np.concatenate([next(it) for _ in range(n_chunks)], 1)
+    it.close()
+    return out
+
+
+def transformer_task(inp: dict) -> dict:
+    """Per net: the forward in both modes, the gate, argmax generate through
+    each route (K6's twin at B=1, the batched window route at B=2, the K6
+    wrapper at B=2, the KV-cached decoder for a short prompt), KV streams
+    (argmax over two chunkings and sampled), sampled generate and re-feed
+    streams, the weight maps; the pre-norm stacks; the gate on a SampleRNN;
+    the banks."""
+    from mimikit_tpu_torch.networks.transformers import DecoderStack
+    from mimikit_tpu_torch.ops import transformer_decode as td
+
+    torch.set_num_threads(1)  # as wavenet_task
+    out = {}
+    n = int(inp["n_steps"])
+    for tag in sorted({k.split("/")[0] for k in inp if k.startswith("net_")}):
+        p = f"{tag}/"
+        net, sd_ = load_transformer(inp, p)
+        rf = net.rf
+        out.update({f"{p}sd/{k}": v.numpy() for k, v in sd_.items()})
+        out.update(_flat_tree(mmk.transformer_params_to_jax(net.state_dict(), net.config.n_heads),
+                              p + "back/"))
+        out[p + "state_dict_keys"] = np.array(sorted(net.state_dict()))
+        with torch.no_grad():
+            out[p + "forward"] = net.train()((t(inp[p + "seq"]),))[0].numpy()
+            out[p + "eval"] = net.eval()((t(inp[p + "seq"]),))[0].numpy()
+        in_gate = td.supports_kernel_decode(net)
+        out[p + "in_gate"] = np.array(in_gate)
+        p1, p2, kvp = inp[p + "prompt1"], inp[p + "prompt2"], inp[p + "kv_prompt"]
+        launches = td.decode_window.launches
+        out[p + "generate_b1"] = net.generate((p1,), n)[0].numpy()
+        out[p + "generate_b2"] = net.generate((p2,), n)[0].numpy()
+        out[p + "short"] = net.generate((inp[p + "short"],), n)[0].numpy()
+        out[p + "window_first"] = net.generate((kvp,), 1)[0][:, rf].numpy()
+        if not in_gate:
+            continue
+        out[p + "launches_on_cpu"] = np.array(td.decode_window.launches - launches)
+        pack = td.transformer_weight_pack(net)
+        out[p + "window_b2"] = td.decode_window(pack, t(p2), n, 0, None).numpy()
+        os.environ["MMK_DECODE_KV"] = "1"
+        try:
+            for B in (1, 2):
+                out[f"{p}kv_b{B}_c7"] = _stream(net, kvp[:B], 7, 10)
+                out[f"{p}kv_b{B}_c9"] = _stream(net, kvp[:B], 9, 8)
+            for c, k in ((7, 10), (9, 8)):
+                out[f"{p}kv_sampled_c{c}"] = _stream(net, kvp, c, k, temperature=0.9, seed=5)
+        finally:
+            del os.environ["MMK_DECODE_KV"]
+        out[p + "sampled_a"] = net.generate((p1,), n, temperature=0.9, seed=5)[0].numpy()
+        out[p + "sampled_b"] = net.generate((p1,), n, temperature=0.9, seed=5)[0].numpy()
+        out[p + "refeed"] = _stream(net, p1, 9, 3, temperature=0.9, seed=5)
+        seeds, buf, chunks = torch.Generator().manual_seed(5), t(p1), []
+        for _ in range(3):
+            sub = int(torch.randint(0, 2**31 - 1, (1,), generator=seeds))
+            full = net.generate((buf,), 9, temperature=0.9, seed=sub)[0]
+            chunks.append(full[:, buf.shape[1]:].numpy())
+            buf = full[:, -(rf + 1):]
+        out[p + "refeed_generates"] = np.concatenate(chunks, 1)
+
+    for tag in sorted({k.split("/")[0] for k in inp if k.startswith("stack_")}):
+        p = f"{tag}/"
+        d, nh, ff, L, fln = (int(v) for v in inp[p + "dims"])
+        stack = DecoderStack(d, nh, ff, L, norm_first=True, with_layer_norm=bool(fln))
+        sd_ = mmk.transformer_state_dict_from_jax({"model": unflatten(inp, p + "params/")})
+        stack.load_state_dict({k[len("model."):]: v for k, v in sd_.items()}, strict=True)
+        with torch.no_grad():
+            out[p + "y"] = stack.eval()(t(inp[p + "x"])).numpy()
+
+    srnn_cfg = mmk.Config.deserialize(str(inp["srnn_yaml"]))
+    srnn_cfg.io_spec.bind_to({"signal": mmk.Extractor.signal()})
+    out["srnn_in_gate"] = np.array(
+        td.supports_kernel_decode(mmk.SampleRNN.from_config(srnn_cfg, device="cpu")))
+
+    net, _ = load_transformer(inp, "net_h4/")
+    root = str(inp["bank_root"])
+    ck = mmk.Checkpoint("tf_jax", 1, root, device="cpu")
+    out["bank/jax_tokens"] = ck.network.generate((inp["net_h4/prompt1"],), n)[0].numpy()
+    out["bank/jax_type"] = np.array(type(ck.network).__name__)
+    mmk.Checkpoint("tf_port", 1, root).create(net)
+    return out
+
+
 TASKS = {"modules": modules_task, "sample_rnn": sample_rnn_task, "fused_lstm": fused_lstm_task,
-         "train": train_task, "wavenet": wavenet_task, "categorical": categorical_task}
+         "train": train_task, "wavenet": wavenet_task, "categorical": categorical_task,
+         "transformer": transformer_task}
 
 if __name__ == "__main__":
     task, src, dst = sys.argv[1:4]
