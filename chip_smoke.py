@@ -8,9 +8,10 @@ Phases (any failure exits non-zero; no exception is swallowed):
 
 1. environment and build: the card's name and power limit, torch/CUDA
    versions; build ``csrc/samplernn_decode.cu``, ``csrc/fused_lstm.cu``,
-   ``csrc/wavenet_decode.cu``, ``csrc/transformer_decode.cu`` and
-   ``csrc/transformer_kv.cu`` for sm_90a, the five nvcc runs started
-   together, and time them; compile the Triton sampler;
+   ``csrc/wavenet_decode.cu``, ``csrc/transformer_decode.cu``,
+   ``csrc/transformer_kv.cu`` and ``csrc/jukebox_decode.cu`` for sm_90a, the
+   six nvcc runs started together, and time them; compile the Triton
+   sampler and the Triton mu-law kernel;
 2. each kernel against its plain twin at a small size and at the main
    paths' widths.  ``decode_single`` and ``decode_chunk``, argmax and
    sampled (temperature 0.9): the kernel's tokens are verified by teacher
@@ -29,7 +30,13 @@ Phases (any failure exits non-zero; no exception is swallowed):
    kernel and the categorical sampler as the SampleRNN decode; the
    transformer kernels by teacher forcing too, K6 (``decode_window``) at B=1
    and B=2, K7 (``decode_chunk``) at B=1 and B=16 over several chunk
-   lengths, the state carried, at a small size and at full width;
+   lengths, the state carried, at a small size and at full width; the
+   tier-pyramid kernel (``decode_pyramid``, K8) by teacher forcing at B=1
+   and B=16 over several chunk lengths, the window carried, small and full
+   width; the mu-law pair (K10) at 3,001 and 2,646,000 samples: compress
+   ints equal to the plain twin's except by one where its value before
+   truncation lies within rounding of an integer (1e-5 of it, relative),
+   expand within 1e-6;
 3. the serving path at full width (bench.py's mu-law SampleRNN-3:
    frame_sizes (16, 8, 8), hidden 256, q 256, a two-layer Mish head; random
    weights from a seed): ``generate`` with B=4 (decode_single's route) and
@@ -44,7 +51,13 @@ Phases (any failure exits non-zero; no exception is swallowed):
    with ``MMK_DECODE_KV=1`` at B=1 and B=16 (one K7 launch a 1,600-step
    chunk; chunk latencies against the 100 ms of audio a chunk holds),
    ``generate`` at B=16 (the batched window route), and a bank written and
-   reloaded through ``Checkpoint(...).network`` and decoded;
+   reloaded through ``Checkpoint(...).network`` and decoded; jukebox3
+   (``benchmarks/bench_decode.py:117-126``: frames (32, 16, 4), d 128, 8
+   heads, ff 256, 2 layers a tier, rf 128) ``generate`` at B=1 and B=16 ×
+   4,096 after a 128-token prompt (one K8 launch each, the first 512 tokens
+   verified), ``stream_audio`` at B=1 (one K8 launch a 1,600-step chunk, the
+   window carried; equal to the expanded ``generate`` output), the window
+   route over 64 steps (scaled), and a bank reloaded and decoded;
 4. the training path at full width: 60 s of 16 kHz two-tone audio made with
    scipy, ``DatasetConfig.create``, ``TrainARMLoop`` at B=32 x 2048 with
    TBPTT over 8 x 2048 samples, 4 epochs of 8 steps, seeded batches: every
@@ -52,20 +65,25 @@ Phases (any failure exits non-zero; no exception is swallowed):
    reloaded through ``Checkpoint(...).network`` with equal parameters and
    decoded at B=4 through decode_single (verified as in phase 2); the train
    step timed (median of 3 windows of 8 steps, CUDA events) and profiled;
+   the training audio mu-law compressed through K10a (the dataset's tokens,
+   under phase 2's rule) and expanded back through K10b;
 5. each wrapper, its plain twin and (for the LSTM kernels) cuDNN's
    ``nn.LSTM``, for K9 ``torch.multinomial``, timed at the main paths'
-   shapes (the transformer twins over 64 steps, scaled); a ``kernels`` JSON
-   line of nine rows, the card line, and the device line last.
+   shapes (the transformer and JukeBox twins over 64 steps, scaled; K8 also
+   at B=16 and 32, K10 at 2,646,000 samples); a ``kernels`` JSON line of
+   twelve rows, the card line, and the device line last.
 
 ``--quick`` runs phases 1-2 at the small size only (a build check);
 ``--bench`` runs phase 1, phase 3's timings without the checks, decode_chunk
 at B=256 for each number of streams a block owns, the LSTM kernels' timings,
 phase 4, the WaveNet streams-per-block sweep, K6 forced at B=16 against the
-batched window route, and K7 at B = 1, 4, 16 and 32.
+batched window route, K7 at B = 1, 4, 16 and 32, and the jukebox3 path with
+K8 at B = 1, 16 and 32.
 """
 import argparse
 import contextlib
 import copy
+import itertools
 import json
 import os
 import shutil
@@ -108,6 +126,17 @@ TF_FULL = dict(model_dim=256, n_heads=8, feedforward_dim=1024, num_layers=8, rf=
 TF_SMALL = dict(model_dim=32, n_heads=4, feedforward_dim=64, num_layers=2, rf=16, q_levels=32,
                 mlp_dim=16)
 TF_N, TF_N16, TF_KV_B, TF_KV_CHUNKS, TF_VERIFY, TF_PLAIN_STEPS = 4096, 256, 16, 6, 512, 64
+# jukebox3 of benchmarks/bench_decode.py:117-126 (mulaw_io q 256, mlp 128, a framed-linear
+# input; frames (32, 16, 4), d 128, 8 heads, ff 256, 2 Mish post-norm layers a tier, rf
+# 128: a window of 128), and the JAX tests' small net of the same shape; generate B=1 and
+# B=16 x 4,096 after a 128-token prompt (:172-176,276), the stream at B=1 in 1,600-step
+# chunks
+JB_FULL = dict(frame_sizes=(32, 16, 4), model_dim=128, n_heads=8, feedforward_dim=256,
+               num_layers=2, rf=128, q_levels=256, mlp_dim=128)
+JB_SMALL = dict(frame_sizes=(8, 4, 2), model_dim=32, n_heads=4, feedforward_dim=64, num_layers=2,
+                rf=16, q_levels=32, mlp_dim=16)
+JB_N, JB_B, JB_VERIFY, JB_WIN_STEPS, JB_PLAIN_STEPS, JB_STREAM_CHUNKS = 4096, 16, 512, 64, 64, 6
+MULAW_N = 2_646_000  # benchmarks/bench_preprocessing.py:33-59: 120 s at 22,050 Hz
 
 
 def log(*a):
@@ -289,6 +318,23 @@ def cuda_ms(torch, fn, reps):
     return out
 
 
+def graph_ms(torch, fn, per, reps):
+    """Device milliseconds of one ``fn()``, one value per rep: ``per`` calls
+    captured in a CUDA graph, the graph replayed between a pair of CUDA
+    events, so the host's launch cost stays out of the time."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # capture wants its warm-up on a side stream
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(per):
+            fn()
+    graph.replay()
+    return [m / per for m in cuda_ms(torch, graph.replay, reps)]
+
+
 def decode_bound(pack, B, prior_t, t0, n, out_len):
     """(bound_ms, bound_by) for one decode call: the larger of its f32
     operations over the card's f32 rate and its bytes (each input read once,
@@ -375,7 +421,7 @@ def bench(torch, mmk, sd, fl):
         log(f"  decode_chunk B=256 steps={net._CHUNK} group={g}: {med:.3f} ms"
             f" (median of 3, spread {spr:.3%})")
     lstm_timings(torch, fl)
-    train_path(torch, mmk, fl, sd)
+    train_path(torch, mmk, fl, sd, None)
 
 
 
@@ -602,10 +648,14 @@ def wavenet_rows(torch, wd, cat, net, prompts, launches, err):
     n_single = prior_t + WN_N - 1
     C = net._CHUNK
     x = torch.randn(*CAT_SHAPES[0], generator=torch.Generator().manual_seed(7)).cuda()
-    reps = 100
+    per = 100  # sampler calls a CUDA graph replays: its device time, not the host's launch cost
 
-    def many(fn):
-        return lambda: [fn() for _ in range(reps)]
+    def timed(fn, per, reps, warm=True):
+        if per > 1:
+            return graph_ms(torch, fn, per, reps)
+        if warm:
+            fn()
+        return cuda_ms(torch, fn, reps)
 
     calls = {
         "wavenet_decode_single": (
@@ -622,25 +672,26 @@ def wavenet_rows(torch, wd, cat, net, prompts, launches, err):
             None, 1, wavenet_bound(pack, 256, prior_t, C, C),
             "mimikit_tpu/ops/pallas_decode.py:559", f"B=256 steps={C}"),
         "categorical": (
-            many(lambda: cat.categorical(x, TEMPERATURE, SEED)),
-            many(lambda: cat.categorical_plain(x, TEMPERATURE, SEED)),
-            many(lambda: torch.multinomial(torch.softmax(x / TEMPERATURE, -1), 1)),
-            reps, categorical_bound(*CAT_SHAPES[0]),
+            lambda: cat.categorical(x, TEMPERATURE, SEED),
+            lambda: cat.categorical_plain(x, TEMPERATURE, SEED),
+            lambda: torch.multinomial(torch.softmax(x / TEMPERATURE, -1), 1),
+            per, categorical_bound(*CAT_SHAPES[0]),
             "mimikit_tpu/ops/pallas_kernels.py:159", f"(B, Q)={CAT_SHAPES[0]}"),
     }
     sources = {"wavenet_decode_single": "mimikit_tpu_torch/csrc/wavenet_decode.cu",
                "wavenet_decode_chunk": "mimikit_tpu_torch/csrc/wavenet_decode.cu",
                "categorical": "mimikit_tpu_torch/ops/categorical.py"}
     rows = []
-    for name, (kern, plain, lib, per, (bound, by), replaces, shape) in calls.items():
-        kern()
-        k_ms, k_spr = spread([m / per for m in cuda_ms(torch, kern, reps=3)])
-        p_ms = cuda_ms(torch, plain, reps=1)[0] / per
-        l_ms = None
-        if lib is not None:
-            lib()
-            l_ms, _ = spread([m / per for m in cuda_ms(torch, lib, reps=3)])
-        log(f"  {name} {shape}: kernel {k_ms:.5f} ms (median of 3, spread {k_spr:.2%}),"
+    for name, (kern, plain, lib, n, (bound, by), replaces, shape) in calls.items():
+        with uncounted(cat.categorical):
+            k_ms, k_spr = spread(timed(kern, n, 3))
+            # the sampler's plain twin copies its seed to the card, which no graph
+            # captures: it is timed as a user runs it, n calls from the host
+            p_ms = cuda_ms(torch, lambda: [plain() for _ in range(n)], 1)[0] / n
+            l_ms = None if lib is None else spread(timed(lib, n, 3))[0]
+        how = (f"; kernel and yardstick device time, {n} calls in a CUDA graph; plain twin {n}"
+               " calls from the host") if n > 1 else ""
+        log(f"  {name} {shape}: kernel {k_ms:.5f} ms (median of 3, spread {k_spr:.2%}{how}),"
             f" plain twin {p_ms:.5f} ms, yardstick {l_ms}, bound {bound:.5f} ms by {by}")
         rows.append(dict(
             name=name, route="triton" if name == "categorical" else "cuda",
@@ -839,7 +890,7 @@ def transformer_path(torch, mmk, td, tk):
             sub = int(torch.randint(0, 2**31 - 1, (1,), generator=seeds))
             out = net.generate((buf,), STREAM_CHUNK, temperature=TEMPERATURE, seed=sub)[0]
             ref.append(out[:, buf.shape[1]:].cpu().numpy())
-            buf = out[:, -(rf + 1):]
+            buf = out[:, -net._window_len():]  # the stream re-feeds the window
     if not np.array_equal(np.concatenate(chunks, 1), expand(np.concatenate(ref, 1))):
         raise AssertionError("transformer re-feed stream differs from its chunked generates")
     log(f"  transformer stream_audio (re-feed) B=1, 2 chunks of {STREAM_CHUNK} steps (equal to"
@@ -1035,6 +1086,370 @@ def transformer_bench(torch, mmk, td, tk):
     transformer_rows(torch, td, tk, net, prompts, launches, {k: 0.0 for k in launches})
 
 
+# -- JukeBox serving (the tier-pyramid kernel K8) and the mu-law pair (K10) -----------
+
+def make_jukebox(mmk, torch, jbd, spec, seed, jitter=0.0):
+    io = mmk.IOSpec.mulaw_io(mmk.IOSpec.MuLawIOConfig(q_levels=spec["q_levels"],
+                                                      mlp_dim=spec["mlp_dim"]))
+    cfg = mmk.JukeBox.Config(
+        io_spec=io, frame_sizes=spec["frame_sizes"], model_dim=spec["model_dim"],
+        n_heads=spec["n_heads"], feedforward_dim=spec["feedforward_dim"],
+        num_layers=spec["num_layers"], rf=spec["rf"], input_dropout=0.0)
+    net = mmk.JukeBox.from_config(cfg, device="cuda", seed=seed).eval()
+    if jitter:  # varied argmax trajectories, as make_net's
+        g = torch.Generator().manual_seed(seed + 1)
+        with torch.no_grad():
+            for p in net.parameters():
+                p.add_(torch.randn(p.shape, generator=g).to(p.device) * jitter)
+    if not jbd.supports_kernel_decode(net):
+        raise AssertionError("the tier-pyramid kernel's gate refused the net")
+    return net
+
+
+def pyramid_tf_scores(torch, jbd, pack, full, t, m, seed, temperature):
+    """The plain twin's (m, B, Q) scores of positions t .. t+m-1 of ``full``
+    (B, T): position p read from its lead window, full[p - W + 1 : p + 1]
+    with the last slot the placeholder (0)."""
+    from mimikit_tpu_torch.ops.noise import gumbel_noise
+
+    B, W, Q = full.shape[0], pack.window, pack.q_levels
+    wins = full.unfold(1, W, 1)[:, t - W + 1 : t + m - W + 1].clone()  # (B, m, W)
+    wins[..., -1] = 0
+    s = jbd.pyramid_scores(pack, wins.transpose(0, 1).reshape(m * B, W)).reshape(m, B, Q)
+    if temperature is not None:
+        s = s / temperature + torch.stack(
+            [gumbel_noise(seed, p, B, Q, full.device) for p in range(t, t + m)])
+    return s
+
+
+def verify_pyramid(torch, jbd, pack, prompt, toks, seed, temperature):
+    """verify_tokens for the tier-pyramid kernel: ``prompt`` (B, prior_t >=
+    W) and the kernel's tokens after it, the first at position prior_t."""
+    prior_t, n = prompt.shape[1], toks.shape[1]
+
+    def tf_scores(full, state, t, m):
+        return pyramid_tf_scores(torch, jbd, pack, full, t, m, seed, temperature), None
+
+    def free_run():
+        return jbd.decode_pyramid_plain(pack, jbd.lead_window(prompt, pack.window), prior_t, n,
+                                        seed, temperature)
+
+    return verify_tokens(torch, prompt, toks, prior_t, tf_scores, free_run, tf_chunk=256)
+
+
+def pyramid_run(torch, jbd, pack, prompt, n, chunk, temperature, seed):
+    """K8 over n steps after ``prompt`` (B, >= W) in launches of ``chunk``
+    steps, the window carried on the card; returns the n tokens."""
+    window = jbd.lead_window(prompt, pack.window)
+    t0 = prompt.shape[1]
+    return torch.cat([jbd.decode_pyramid(pack, window, t0 + k, min(chunk, n - k), seed, temperature)
+                      for k in range(0, n, chunk)], 1)
+
+
+def check_jukebox(torch, mmk, jbd, spec, batches, n, chunk_lens, jitter):
+    """Phase 2 for the tier-pyramid kernel at one size: every B of
+    ``batches`` over several chunk lengths (the window carried), argmax and
+    T=0.9; returns {wrapper: largest score gap}."""
+    net = make_jukebox(mmk, torch, jbd, spec, seed=1, jitter=jitter)
+    pack = jbd.jukebox_weight_pack(net)
+    W, q = net._window_len(), spec["q_levels"]
+    worst = 0.0
+    for temp in (None, TEMPERATURE):
+        mode = "argmax" if temp is None else f"T={temp}"
+        for B in batches:
+            prompt = make_prompt(torch, B, W, q, seed=7 + B)
+            runs = [pyramid_run(torch, jbd, pack, prompt, n, C, temp, 13) for C in chunk_lens]
+            torch.cuda.synchronize()
+            for C, r in zip(chunk_lens[1:], runs[1:]):
+                if not torch.equal(r, runs[0]):
+                    raise AssertionError(f"jukebox decode_pyramid with chunk {C} changed the tokens")
+            if temp is None and len(set(runs[0][0].tolist())) < 2:
+                raise AssertionError("K8 argmax tokens are constant: the check is vacuous")
+            gap, parted = verify_pyramid(torch, jbd, pack, prompt, runs[0], 13, temp)
+            worst = max(worst, gap)
+            log(f"  jukebox decode_pyramid B={B} n={n} chunks {chunk_lens} {mode}: ok, max gap"
+                f" {gap:.3e}, {parted} streams parted at near-ties")
+    return {"jukebox_decode_pyramid": worst}
+
+
+def mulaw_near_integer(v, tol=1e-5):
+    """Where the plain twin's value before truncation lies within rounding of
+    an integer: |v - round(v)| <= tol * max(1, |v|) (f32 values reach 256,
+    where one ulp is 1.5e-5)."""
+    return (v - v.round()).abs() <= tol * v.abs().clamp_min(1.0)
+
+
+def check_mulaw_ints(name, got, want, value):
+    """Compress ints ``got`` against ``want``: equal, except by at most one
+    where the plain value before truncation is near an integer; returns the
+    count of such places and the largest |difference|."""
+    diff = (got.long() - want.long()).abs()
+    bad = (diff > 1) | ((diff == 1) & ~mulaw_near_integer(value))
+    if bool(bad.any()):
+        k = int(bad.nonzero()[0])
+        raise AssertionError(f"{name}: int {int(got.reshape(-1)[k])} where {int(want.reshape(-1)[k])}"
+                             f" (value before truncation {float(value.reshape(-1)[k])!r})")
+    return int((diff == 1).sum()), int(diff.max()) if diff.numel() else 0
+
+
+def check_mulaw(torch, mu):
+    """Phase 2 for the mu-law kernel at a ragged small length and at the
+    bench's 2,646,000 samples: compress ints by ``check_mulaw_ints``, expand
+    within 1e-6; returns {wrapper: largest error}."""
+    err = {"mulaw_compress": 0.0, "mulaw_expand": 0.0}
+    for n in (3001, MULAW_N):
+        g = torch.Generator().manual_seed(n)
+        x = (torch.randn(n, generator=g) * 0.4).clamp(-1, 1).cuda()
+        for q, c in ((256, 1.0), (32, 0.5)):
+            got = mu.mulaw_compress(x, q, c)
+            ties, d = check_mulaw_ints(f"mulaw_compress n={n} q={q} c={c}", got,
+                                    mu.mulaw_compress_plain(x, q, c), mu.compress_value(x, q, c))
+            toks = torch.randint(0, q, (n,), generator=g, dtype=torch.int32).cuda()
+            e = close(f"mulaw_expand n={n} q={q} c={c}", mu.mulaw_expand(toks, q, c),
+                      mu.mulaw_expand_plain(toks, q, c), 1e-6, 0.0)
+            err["mulaw_compress"] = max(err["mulaw_compress"], float(d))
+            err["mulaw_expand"] = max(err["mulaw_expand"], e)
+            log(f"  mulaw n={n} q={q} c={c}: compress ok ({ties} ints one apart at near-integer"
+                f" values), expand max |error| {e:.3e}")
+    return err
+
+
+def jukebox_path(torch, mmk, jbd):
+    """Phase 3d: jukebox3 served at full width through the user entry points;
+    returns (net, prompts, launches, gap of the verified outputs)."""
+    net = make_jukebox(mmk, torch, jbd, JB_FULL, seed=0)
+    W, q = net._window_len(), JB_FULL["q_levels"]
+    log(f"  jukebox3: {net.n_parameters} parameters, window {W}")
+    prompts = {B: make_prompt(torch, B, W, q, seed=60 + B) for B in (1, JB_B)}
+    expand = mmk.MuLawExpand(q)
+    jbd.decode_pyramid.launches = 0
+    outs, gap = {}, 0.0
+    for B in (1, JB_B):
+        p = prompts[B]
+        net.generate((p,), 16, temperature=TEMPERATURE, seed=SEED)  # lazy set-up
+        before = jbd.decode_pyramid.launches
+
+        def run():
+            outs[B] = net.generate((p,), JB_N, temperature=TEMPERATURE, seed=SEED)[0]
+
+        ms = cuda_ms(torch, run, reps=3)
+        med, spr = spread(ms)
+        if jbd.decode_pyramid.launches - before != 3:
+            raise AssertionError(f"jukebox generate B={B} did not launch K8 once a call")
+        toks = outs[B][:, W:]
+        if toks.shape != (B, JB_N) or int(toks.min()) < 0 or int(toks.max()) >= q:
+            raise AssertionError(f"jukebox generate B={B}: bad tokens {tuple(toks.shape)}")
+        if len(set(toks[0].tolist())) < 2:
+            raise AssertionError(f"jukebox generate B={B}: constant sampled tokens")
+        log(f"  jukebox generate B={B} n={JB_N} T={TEMPERATURE}: {B * JB_N / (med / 1e3):.6g}"
+            f" samples/s ({1e3 * med / JB_N:.2f} us a step; median of 3: {med:.3f} ms, spread"
+            f" {spr:.3%}; {ms})")
+        with uncounted(jbd.decode_pyramid):
+            g, parted = verify_pyramid(torch, jbd, jbd.jukebox_weight_pack(net), p,
+                                       toks[:, :JB_VERIFY], SEED, TEMPERATURE)
+        gap = max(gap, g)
+        log(f"  its first {JB_VERIFY} tokens verified: max gap {g:.3e}, {parted} streams parted"
+            f" at near-ties")
+
+    # stream_audio B=1: one K8 launch a chunk, the window carried; noise keyed by
+    # position, so the stream is generate's decode with the same seed
+    before = jbd.decode_pyramid.launches
+    lat, chunks = chunk_latencies(
+        mmk.stream_audio(net, (prompts[1],), STREAM_CHUNK, temperature=TEMPERATURE, seed=SEED),
+        JB_STREAM_CHUNKS)
+    if jbd.decode_pyramid.launches - before < JB_STREAM_CHUNKS:
+        raise AssertionError("the jukebox stream did not launch K8 once a chunk")
+    n_cmp = (JB_N // STREAM_CHUNK) * STREAM_CHUNK
+    got = np.concatenate(chunks, 1)
+    if got.shape != (1, JB_STREAM_CHUNKS * STREAM_CHUNK) or not np.array_equal(
+            got[:, :n_cmp], expand(outs[1][:, W : W + n_cmp].cpu().numpy())):
+        raise AssertionError("jukebox stream_audio differs from the expanded generate output")
+    log(f"  jukebox stream_audio B=1, {JB_STREAM_CHUNKS} chunks of {STREAM_CHUNK} steps (its first"
+        f" {n_cmp} equal to the expanded generate output; real time is {STREAM_CHUNK / 16:g} ms a"
+        f" chunk): {latency_line(lat)}")
+
+    # the window route (no kernel), the yardstick of the port's jukebox3_win_b1
+    p1 = prompts[1]
+    net._window_loop(p1, 2, TEMPERATURE, SEED)
+    before = jbd.decode_pyramid.launches
+    win = {}
+
+    def run_win():
+        win["out"] = net._window_loop(p1, JB_WIN_STEPS, None, SEED)
+
+    w_ms, w_spr = spread(cuda_ms(torch, run_win, reps=3))
+    if jbd.decode_pyramid.launches != before:
+        raise AssertionError("the window route launched K8")
+    with uncounted(jbd.decode_pyramid):
+        g, parted = verify_pyramid(torch, jbd, jbd.jukebox_weight_pack(net), p1,
+                                   win["out"][:, W:].to(torch.int32), SEED, None)
+    log(f"  jukebox window route (_window_loop) B=1 x {JB_WIN_STEPS} argmax steps:"
+        f" {1e3 * w_ms / JB_WIN_STEPS:.1f} us a step (median of 3, spread {w_spr:.3%}; scaled to"
+        f" {JB_N} steps {w_ms * JB_N / JB_WIN_STEPS:.1f} ms, {JB_N / (w_ms * JB_N / JB_WIN_STEPS / 1e3):.6g}"
+        f" samples/s); its tokens verified against K8's twin (max gap {g:.3e}, {parted} parted)")
+
+    # a bank written by the port, reloaded through Checkpoint(...).network
+    root = os.path.join(ROOT, "build", "chip_smoke_jukebox")
+    shutil.rmtree(root, ignore_errors=True)
+    mmk.Checkpoint("jukebox3", 1, root).create(net)
+    net2 = mmk.Checkpoint("jukebox3", 1, root, device="cuda").network.eval()
+    live = net.state_dict()
+    diff = [k for k, v in net2.state_dict().items() if not torch.equal(v, live[k])]
+    if diff or type(net2) is not type(net):
+        raise AssertionError(f"reloaded jukebox differs: {type(net2).__name__}, {diff}")
+    before = jbd.decode_pyramid.launches
+    toks = net2.generate((p1,), JB_VERIFY)[0][:, W:]
+    if jbd.decode_pyramid.launches - before != 1:
+        raise AssertionError("the reloaded jukebox did not decode through K8")
+    with uncounted(jbd.decode_pyramid):
+        g2, parted = verify_pyramid(torch, jbd, jbd.jukebox_weight_pack(net2), p1, toks, SEED, None)
+    log(f"  epoch=1.ckpt of jukebox3 reloaded with equal parameters; argmax generate B=1 x"
+        f" {JB_VERIFY} from it verified (max gap {g2:.3e}, {parted} streams parted at near-ties)")
+    launches = {"jukebox_decode_pyramid": jbd.decode_pyramid.launches}
+    log(f"  launches on the jukebox serving path: {launches}")
+    if min(launches.values()) == 0:
+        raise AssertionError(f"a kernel of the jukebox path was never launched: {launches}")
+    return net, prompts, launches, max(gap, g2)
+
+
+def pyramid_flops(pack):
+    """f32 operations one stream-step's output needs: every upper tier in
+    full (framed dense, every layer's cross k|v, per layer q|k|v, the out,
+    cross q and cross out products, the FFN, both causal attentions over
+    n(n+1)/2 (row, key) pairs, the up-sampler), except that the last upper
+    tier's last layer computes the self k|v of every frame and the rest for
+    the last frame only, and its up-sampler the last chunk only; then the
+    bottom conv and the head."""
+    d, ff, L = pack.dim, pack.ff, pack.n_layers
+    flops = 0
+    for i in range(pack.n_up):
+        f, n, t = pack.frames[i], pack.n_frames[i], pack.t_up[i]
+        pairs = n * (n + 1) // 2
+        last = i == pack.n_up - 1
+        flops += 2 * n * f * d + L * 2 * n * d * 2 * d
+        full_layer = 2 * n * d * 3 * d + 3 * 2 * n * d * d + 2 * 2 * n * d * ff + 2 * 2 * 2 * pairs * d
+        last_layer = 2 * n * d * 2 * d + 4 * 2 * d * d + 2 * 2 * d * ff + 2 * 2 * 2 * n * d
+        flops += (L - 1) * full_layer + (last_layer if last else full_layer)
+        flops += 2 * d * d if last else 2 * n * d * t * d
+    flops += 2 * pack.frames[-1] * d
+    flops += 2 * sum(i * o for i, o in pack.head_dims[:-1]) + 2 * pack.head_dims[-1][0] * (
+        pack.q_levels + 1)
+    return float(flops)
+
+
+def pyramid_bound(pack, B, n_steps):
+    """(bound_ms, bound_by) of one K8 call: its operations, against the
+    weights read once and the window (read and written) and tokens."""
+    nbytes = 4 * (pack.flat.numel() + 2 * B * pack.window + B * n_steps)
+    return transformer_bound(pyramid_flops(pack) * B * n_steps, nbytes)
+
+
+def mulaw_bound(n):
+    """(bound_ms, bound_by) of one mu-law call over n elements: 4 bytes read
+    and 4 written an element, against ~20 operations an element."""
+    t_ops, t_bytes = 20.0 * n / PEAK_F32_FLOPS, 8.0 * n / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def jukebox_rows(torch, jbd, mu, net, prompts, launches, err):
+    """Phase 5 rows of K8, K10a and K10b: kernel, plain twin (K8's over
+    JB_PLAIN_STEPS steps, scaled), bound; K8 also at B = 16 and 32.  No
+    single PyTorch call computes either function."""
+    pack = jbd.jukebox_weight_pack(net)
+    W, q = pack.window, JB_FULL["q_levels"]
+    for B in (JB_B, 32):
+        p = prompts.get(B, make_prompt(torch, B, W, q, seed=60 + B))
+        fn = lambda: jbd.decode_pyramid(pack, jbd.lead_window(p, W), W, JB_N, SEED,  # noqa: E731
+                                        TEMPERATURE)
+        fn()
+        med, spr = spread(cuda_ms(torch, fn, reps=3))
+        bound, by = pyramid_bound(pack, B, JB_N)
+        log(f"  jukebox decode_pyramid B={B} steps={JB_N}: {med:.3f} ms ({1e3 * med / JB_N:.2f} us a"
+            f" step, {B * JB_N / (med / 1e3):.6g} samples/s; median of 3, spread {spr:.3%}); bound"
+            f" {bound:.4f} ms by {by}")
+    p1 = prompts[1]
+    g = torch.Generator().manual_seed(5)
+    # 8 inputs of each kind (85 MB), one after another through the graph's
+    # calls: a call reads its input from HBM, not from the 50 MB L2 that the
+    # call before left it in
+    xs = [(torch.randn(MULAW_N, generator=g) * 0.4).clamp(-1, 1).cuda() for _ in range(8)]
+    toks = [torch.randint(0, q, (MULAW_N,), generator=g, dtype=torch.int32).cuda()
+            for _ in range(8)]
+    per = 100  # mu-law calls a CUDA graph replays
+
+    def cycled(fn, inputs):
+        it = itertools.cycle(inputs)
+        return lambda: fn(next(it))
+
+    def events(fn, reps):
+        fn()
+        return cuda_ms(torch, fn, reps)
+
+    def graph(fn, reps):
+        return graph_ms(torch, fn, per, reps)
+
+    calls = {
+        "jukebox_decode_pyramid": (
+            lambda: jbd.decode_pyramid(pack, jbd.lead_window(p1, W), W, JB_N, SEED, TEMPERATURE),
+            lambda: jbd.decode_pyramid_plain(pack, jbd.lead_window(p1, W), W, JB_PLAIN_STEPS, SEED,
+                                             TEMPERATURE),
+            events, JB_N / JB_PLAIN_STEPS, pyramid_bound(pack, 1, JB_N),
+            "mimikit_tpu/ops/pallas_decode.py:2386", "mimikit_tpu_torch/csrc/jukebox_decode.cu",
+            "cuda", f"B=1 steps={JB_N}", "one call between CUDA events"),
+        "mulaw_compress": (
+            cycled(mu.mulaw_compress, xs), cycled(mu.mulaw_compress_plain, xs),
+            graph, 1, mulaw_bound(MULAW_N), "mimikit_tpu/ops/pallas_kernels.py:58",
+            "mimikit_tpu_torch/ops/mulaw.py", "triton", f"n={MULAW_N}",
+            f"device time: {per} calls in a CUDA graph, 8 inputs in turn"),
+        "mulaw_expand": (
+            cycled(mu.mulaw_expand, toks), cycled(mu.mulaw_expand_plain, toks),
+            graph, 1, mulaw_bound(MULAW_N), "mimikit_tpu/ops/pallas_kernels.py:94",
+            "mimikit_tpu_torch/ops/mulaw.py", "triton", f"n={MULAW_N}",
+            f"device time: {per} calls in a CUDA graph, 8 inputs in turn"),
+    }
+    rows = []
+    with uncounted(mu.mulaw_compress, mu.mulaw_expand):
+        timed = {name: (timer(kern, 3), timer(plain, 1)[0] * scale)
+                 for name, (kern, plain, timer, scale, *_) in calls.items()}
+    for name, (_, _, _, scale, (bound, by), replaces, source, route, shape, how) in calls.items():
+        (k_ms, k_spr), p_ms = spread(timed[name][0]), timed[name][1]
+        log(f"  {name} {shape}: kernel {k_ms:.5f} ms (median of 3, spread {k_spr:.2%}; {how}), plain"
+            f" twin {p_ms:.5f} ms{f' ({JB_PLAIN_STEPS} steps timed, scaled by {scale:g})' if scale != 1 else ''},"
+            f" bound {bound:.5f} ms by {by}; library: none (no single PyTorch call)")
+        rows.append(dict(
+            name=name, route=route, source=source, replaces=replaces, launches=launches[name],
+            max_abs_err=err[name], ms=k_ms, plain_ms=p_ms, bound_ms=bound, bound_by=by,
+            library_ms=None,
+        ))
+    return rows
+
+
+def mulaw_path(torch, mmk, mu, db, q):
+    """Phase 4's tokens through K10: the training audio mu-law compressed on
+    the card must give the dataset's tokens (``MuLawCompress``, the loader's
+    spelling) under ``check_mulaw_ints``; expanded back it must equal the
+    plain twin's expansion within 1e-6.  Returns the launches."""
+    signal = np.asarray(db.signal[:], np.float32).reshape(-1)
+    want = torch.from_numpy(np.asarray(mmk.MuLawCompress(q)(signal)))
+    x = torch.from_numpy(signal).cuda()
+    mu.mulaw_compress.launches = 0
+    mu.mulaw_expand.launches = 0
+    toks = mu.mulaw_compress(x, q)
+    back = mu.mulaw_expand(toks, q)
+    launches = {"mulaw_compress": mu.mulaw_compress.launches,
+                "mulaw_expand": mu.mulaw_expand.launches}
+    torch.cuda.synchronize()
+    ties, _ = check_mulaw_ints("the training path's tokens", toks.cpu(), want,
+                            mu.compress_value(x, q).cpu())
+    e = close("the training path's expanded tokens", back, mu.mulaw_expand_plain(toks, q), 1e-6, 0.0)
+    log(f"  {signal.size} samples mu-law compressed through K10a: the dataset's tokens ({ties} one"
+        f" apart at near-integer values), expanded back through K10b (max |error| {e:.3e});"
+        f" launches {launches}")
+    if min(launches.values()) == 0:
+        raise AssertionError(f"a mu-law kernel was never launched: {launches}")
+    return launches
+
+
 # -- the fused LSTM layer (training path) ---------------------------------------
 
 def lstm_inputs(torch, T, B, D, H, seed):
@@ -1188,8 +1603,9 @@ def lstm_timings(torch, fl):
     return out
 
 
-def train_path(torch, mmk, fl, sd):
-    """Phase 4; returns (launches, train step ms windows)."""
+def train_path(torch, mmk, fl, sd, mu):
+    """Phase 4; returns the launches of its kernels (with ``mu``, the mu-law
+    module, K10's on the training audio too)."""
     from scipy.io import wavfile
     from mimikit_tpu_torch.data import h5
 
@@ -1207,6 +1623,7 @@ def train_path(torch, mmk, fl, sd):
     db = ds.create(mode="w")
     log(f"  DatasetConfig.create: {db.signal.shape[0]} samples in"
         f" {time.perf_counter() - t0:.2f} s (file layer: {h5.backend()})")
+    mu_launches = mulaw_path(torch, mmk, mu, db, FULL["q_levels"]) if mu is not None else {}
     net = train_net(mmk, seed=0, extractor=ds.extractors[0])
     cfg = mmk.TrainARMConfig(
         root_dir=os.path.join(work, "tr"), batch_size=TRAIN_B, batch_length=TRAIN_LEN,
@@ -1263,7 +1680,7 @@ def train_path(torch, mmk, fl, sd):
         f" samples/s (median of 3 windows of {TRAIN_STEPS} steps: {med:.4f} ms/step,"
         f" spread {spr:.3%}; {ms})")
     profile_steps(torch, window)
-    return launches
+    return {**launches, **mu_launches}
 
 
 def profile_steps(torch, window):
@@ -1312,6 +1729,8 @@ def main(argv=None) -> int:
     import mimikit_tpu_torch as mmk
     from mimikit_tpu_torch.ops import categorical as cat
     from mimikit_tpu_torch.ops import fused_lstm as fl
+    from mimikit_tpu_torch.ops import jukebox_decode as jbd
+    from mimikit_tpu_torch.ops import mulaw as mu
     from mimikit_tpu_torch.ops import samplernn_decode as sd
     from mimikit_tpu_torch.ops import transformer_decode as td
     from mimikit_tpu_torch.ops import transformer_kv as tk
@@ -1331,7 +1750,7 @@ def main(argv=None) -> int:
 
     t = time.perf_counter()
     sources = ((sd, sd.build_kernel), (fl, fl.build_lstm_kernel), (wd, wd.build_kernel),
-               (td, td.build_kernel), (tk, tk.build_kernel))
+               (td, td.build_kernel), (tk, tk.build_kernel), (jbd, jbd.build_kernel))
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, started together
         builds = [(mod, pool.submit(timed_build, b)) for mod, b in sources]
         builds = [(mod, f.result()) for mod, f in builds]
@@ -1345,16 +1764,24 @@ def main(argv=None) -> int:
     cat.categorical(torch.zeros(2, 8).cuda(), 1.0, 0)  # compiles the Triton kernel
     torch.cuda.synchronize()
     log(f"  compiled the Triton sampler (ops/categorical.py) in {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    mu.mulaw_expand(mu.mulaw_compress(torch.zeros(8).cuda()))  # compiles the Triton mu-law pair
+    torch.cuda.synchronize()
+    log(f"  compiled the Triton mu-law kernel (ops/mulaw.py) in {time.perf_counter() - t:.1f} s")
 
     if args.bench:
         bench(torch, mmk, sd, fl)
         wavenet_bench(torch, mmk, wd, cat)
         transformer_bench(torch, mmk, td, tk)
+        jb_net, jb_prompts, jb_launches, _ = jukebox_path(torch, mmk, jbd)
+        jukebox_rows(torch, jbd, mu, jb_net, jb_prompts,
+                     {**jb_launches, "mulaw_compress": 0, "mulaw_expand": 0},
+                     {"jukebox_decode_pyramid": 0.0, "mulaw_compress": 0.0, "mulaw_expand": 0.0})
         log(card)
         return 0
 
     # -- phase 2 -------------------------------------------------------------
-    log("phase 2: each kernel against its plain twin")
+    log(f"phase 2: each kernel against its plain twin (at {time.perf_counter() - t_start:.1f} s)")
     err = check_kernels(torch, mmk, sd, SMALL, 4, 64, 300, (300 + 16, 7, 64), jitter=0.5)
     err.update(check_lstm(torch, fl, LSTM_SHAPES[:1]))
     err.update(check_wavenet(torch, mmk, wd, WN_SMALL, WN_SMALL_B, 40, 300, (300 + 15, 7, 64),
@@ -1362,6 +1789,9 @@ def main(argv=None) -> int:
     err.update(check_categorical(torch, cat))
     err.update(check_transformer(torch, mmk, td, tk, TF_SMALL, 300, (1, TF_KV_B),
                                  (300 + 15, 7, 64), jitter=0.5))
+    err.update(check_jukebox(torch, mmk, jbd, JB_SMALL, (1, JB_B), 300, (300 + 15, 7, 64),
+                             jitter=0.3))
+    err.update(check_mulaw(torch, mu))
     if args.quick:
         log(json.dumps({"ok": True, "quick": True, "max_err": err}))
         return 0
@@ -1372,11 +1802,13 @@ def main(argv=None) -> int:
                                   jitter=0.0))
     err_full.update(check_transformer(torch, mmk, td, tk, TF_FULL, 256, (1, TF_KV_B),
                                       (256 + 63, 100), jitter=0.0))
+    err_full.update(check_jukebox(torch, mmk, jbd, JB_FULL, (1, JB_B), 256, (256 + 15, 100),
+                                  jitter=0.0))
     err = {k: max(err[k], err_full.get(k, 0.0)) for k in err}
     check_train_step(torch, mmk)
 
     # -- phase 3 -------------------------------------------------------------
-    log("phase 3: the serving paths at full width")
+    log(f"phase 3: the serving paths at full width (at {time.perf_counter() - t_start:.1f} s)")
     net = make_net(mmk, torch, FULL, seed=0)
     rf = net.rf
     p4, p256 = (make_prompt(torch, B, 2 * rf, FULL["q_levels"], seed=B) for B in (4, 256))
@@ -1396,13 +1828,16 @@ def main(argv=None) -> int:
     err["wavenet_decode_chunk"] = max(err["wavenet_decode_chunk"], gap)
     tf_net, tf_prompts, tf_launches, gap = transformer_path(torch, mmk, td, tk)
     err["transformer_decode_window"] = max(err["transformer_decode_window"], gap)
+    jb_net, jb_prompts, jb_launches, gap = jukebox_path(torch, mmk, jbd)
+    err["jukebox_decode_pyramid"] = max(err["jukebox_decode_pyramid"], gap)
 
     # -- phase 4 -------------------------------------------------------------
-    log("phase 4: the training path at full width")
-    train_launches = train_path(torch, mmk, fl, sd)
+    log(f"phase 4: the training path at full width (at {time.perf_counter() - t_start:.1f} s)")
+    train_launches = train_path(torch, mmk, fl, sd, mu)
 
     # -- phase 5 -------------------------------------------------------------
-    log("phase 5: each wrapper, its plain twin and its yardstick at the main paths' shapes")
+    log("phase 5: each wrapper, its plain twin and its yardstick at the main paths' shapes"
+        f" (at {time.perf_counter() - t_start:.1f} s)")
 
     # each wrapper, and its plain twin, on one call at the main path's shapes
     pack = sd.samplernn_weight_pack(net)
@@ -1443,6 +1878,9 @@ def main(argv=None) -> int:
         ))
     rows += wavenet_rows(torch, wd, cat, wn_net, wn_prompts, wn_launches, err)
     rows += transformer_rows(torch, td, tk, tf_net, tf_prompts, tf_launches, err)
+    rows += jukebox_rows(torch, jbd, mu, jb_net, jb_prompts,
+                         {**jb_launches, **{k: train_launches[k] for k in ("mulaw_compress",
+                                                                            "mulaw_expand")}}, err)
     log(f"chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
 
     log(json.dumps({"kernels": rows}))

@@ -6,10 +6,12 @@ the JAX package's module layout and flat ``mmk.<Name>`` namespace, and runs
 its hot paths through kernels written by hand for NVIDIA Hopper
 (``csrc/``).  It trains mu-law SampleRNN (``DatasetConfig.create``,
 ``TrainARMLoop``, ``Checkpoint``; the LSTM tiers through hand-written forward
-and backward kernels) and serves SampleRNN, WaveNet and SimpleTransformer
-(``generate``, ``stream``, ``stream_tokens`` and ``stream_audio``; the
-transformer's window re-feed and its ``MMK_DECODE_KV=1`` KV-ring stream),
-each through hand-written decode kernels.
+and backward kernels) and serves SampleRNN, WaveNet, SimpleTransformer and
+JukeBox (``generate``, ``stream``, ``stream_tokens`` and ``stream_audio``; the
+transformer's window re-feed and its ``MMK_DECODE_KV=1`` KV-ring stream;
+JukeBox's tier pyramid with its window carried across stream chunks), each
+through hand-written decode kernels.  ``ops.mulaw`` is the mu-law pair as
+one Triton kernel.
 
 Entry points run on the card (``cuda``) unless the caller passes
 ``device="cpu"``.

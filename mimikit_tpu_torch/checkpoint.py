@@ -6,8 +6,8 @@ under ``network/state_dict/<path>`` (the port maps its state_dict there and
 back with the maps of :mod:`.weights`), the network, dataset and training
 configs as YAML attrs, and the trainer state.  The optimizer state goes to a
 sibling ``epoch=N.opt`` as torch's own ``state_dict`` (``torch.save``).
-Files go through :mod:`.data.h5`.  SampleRNN, WaveNet and SimpleTransformer
-networks are ported.
+Files go through :mod:`.data.h5`.  SampleRNN, WaveNet, SimpleTransformer and
+JukeBox networks are ported.
 """
 from __future__ import annotations
 
@@ -24,6 +24,8 @@ from .config import Config
 from .data import h5
 from .features.dataset import DatasetConfig
 from .weights import (
+    jukebox_params_to_jax,
+    jukebox_state_dict_from_jax,
     samplernn_params_to_jax,
     samplernn_state_dict_from_jax,
     transformer_params_to_jax,
@@ -69,7 +71,7 @@ def _unflatten(flat: dict) -> dict:
 def _weight_maps(network):
     """(state_dict -> flax tree, flax tree -> state_dict) for ``network``."""
     from .networks.sample_rnn import SampleRNN
-    from .networks.transformers import SimpleTransformer
+    from .networks.transformers import JukeBox, SimpleTransformer
     from .networks.wavenet import WaveNet
 
     if isinstance(network, SampleRNN):
@@ -79,6 +81,9 @@ def _weight_maps(network):
     if isinstance(network, SimpleTransformer):
         n_heads = network.config.n_heads
         return (lambda sd: transformer_params_to_jax(sd, n_heads)), transformer_state_dict_from_jax
+    if isinstance(network, JukeBox):
+        n_heads = network.config.n_heads
+        return (lambda sd: jukebox_params_to_jax(sd, n_heads)), jukebox_state_dict_from_jax
     raise NotImplementedError(f"checkpoints of {type(network).__name__} are not ported")
 
 

@@ -5,9 +5,10 @@ Counterpart of ``mimikit_tpu/loops/streaming.py``:
 * ``stream_tokens(net, prompts, chunk_steps)`` yields ``(B, chunk_steps)``
   host token arrays forever (the caller breaks out): through ``net.stream``
   where the network has one (SampleRNN and WaveNet carry their decode state
-  across chunks exactly), else by re-feeding the last ``rf + 1`` samples as
-  the next prompt (:func:`_refeed_stream`: exact for nets whose decode state
-  is that window);
+  across chunks exactly), else by re-feeding the last ``_window_len()``
+  samples (``rf + 1`` for a net without one) as the next prompt
+  (:func:`_refeed_stream`: exact for nets whose decode state is that
+  window);
 * ``stream_audio(...)`` applies the IOSpec target's inverse transform
   (``MuLawExpand``) to every chunk, yielding float audio.
 
@@ -79,9 +80,12 @@ def _read_behind_chunks(dev_chunks, chunk_steps: int) -> Iterator[np.ndarray]:
 
 def _refeed_stream(net, prompt, chunk_steps: int, temperature, seed) -> Iterator[np.ndarray]:
     """Stream by re-feeding (``mimikit_tpu/loops/streaming.py:50-105``): each
-    chunk is one ``net.generate`` call whose prompt is the last ``rf + 1``
-    samples so far, with a seed drawn per chunk from ``seed``; read one
-    chunk behind."""
+    chunk is one ``net.generate`` call whose prompt is the last samples so
+    far, with a seed drawn per chunk from ``seed``; read one chunk behind.
+    The prompt spans what the net's decode conditions on: ``_window_len()``
+    where the net has one (JukeBox rounds rf up to a multiple of its top
+    frame; re-feeding only rf + 1 would zero-pad that history and part from
+    one long decode), else ``rf + 1``."""
     if not callable(getattr(net, "generate", None)):
         raise TypeError(
             f"{type(net).__name__} has no batch `generate` — streaming needs one"
@@ -94,7 +98,10 @@ def _refeed_stream(net, prompt, chunk_steps: int, temperature, seed) -> Iterator
             " must be a multiple of hop for the stream to match one long decode (round"
             f" chunk_steps up to {-(-chunk_steps // hop) * hop})"
         )
-    window = int(net.rf) + 1
+    if callable(getattr(net, "_window_len", None)):
+        window = int(net._window_len())
+    else:
+        window = int(net.rf) + 1
     seeds = torch.Generator().manual_seed(0 if seed is None else seed)
 
     def dev_chunks():

@@ -47,6 +47,7 @@ def _glu(x):
 _PLAIN = {
     "Tanh": torch.tanh,
     "Sigmoid": torch.sigmoid,
+    "Mish": mish,
     "ReLU": torch.relu,
     "Softplus": F.softplus,
     "Identity": lambda x: x,
@@ -69,7 +70,7 @@ class ActivationConfig(Config, type_field=False):
 
     def get(self) -> nn.Module:
         act = str(self.act)
-        if self.scaled or act not in ("Mish", *_PLAIN):
+        if self.scaled or act not in _PLAIN:
             raise NotImplementedError(
                 f"activation {act!r} (scaled={self.scaled}) is not ported"
             )

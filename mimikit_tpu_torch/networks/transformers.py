@@ -1,19 +1,21 @@
-"""SimpleTransformer: a causal transformer over mu-law tokens, PyTorch port.
+"""The transformer networks, PyTorch port: SimpleTransformer and JukeBox.
 
-Counterpart of ``mimikit_tpu/networks/transformers.py:40-856`` (JukeBox and
-``TransformerTier`` are not ported yet).  Each decoder block is flax's: causal
-self-attention, causal cross-attention over the same (PE'd) input sequence,
-an FFN, post- or pre-norm.  Attention follows flax's
+Counterpart of ``mimikit_tpu/networks/transformers.py``.  Each decoder block
+is flax's: causal self-attention, causal cross-attention over the same (PE'd)
+input sequence, an FFN, post- or pre-norm.  Attention follows flax's
 ``MultiHeadDotProductAttention`` (q, k and v each projected, q divided by
 sqrt(dH), masked scores at ``finfo(f32).min``, an f32 softmax) and the layer
 norm is flax's (var = max(0, E[x²] - E[x]²), eps 1e-5).  State_dict names are
-those of torch's ``nn.TransformerDecoderLayer`` inside PyTorch mimikit's net
+those of torch's ``nn.TransformerDecoderLayer`` inside PyTorch mimikit's nets
 (``model.layers.{i}.self_attn.in_proj_weight`` (3d, d), ``multihead_attn.*``,
 ``linear1``/``linear2``, ``norm1..3``, ``model.norm``,
-``input_module.heads.0.0.weight``, ``output_modules.0.estimator.0.fc.{k}``),
-the names ``mimikit_tpu/migrate.py:transformer_params_from_state_dict`` reads.
+``input_module.heads.0.0.weight``, ``output_modules.0.estimator.0.fc.{k}``;
+JukeBox's under ``tiers.{i}.``, with ``tiers.{i}.input_module.heads.{j}.2``
+and ``tiers.{i}.up_sampler.fc``), the names
+``mimikit_tpu/migrate.py:transformer_params_from_state_dict`` reads.
 
-Serving routes (the JAX package's semantics, not its TPU budgets):
+SimpleTransformer serving routes (the JAX package's semantics, not its TPU
+budgets):
 
 * ``generate`` with a prompt of at least ``rf`` tokens, a net in the decode
   kernels' scope (:func:`~..ops.transformer_decode.supports_kernel_decode`)
@@ -31,15 +33,30 @@ Serving routes (the JAX package's semantics, not its TPU budgets):
   the card (PARITY.md #10: the KV ring's tokens part from the re-feed's after
   the first step).
 
+JukeBox serving routes:
+
+* ``generate``: the prompt left-padded with zeros to the window, then, for a
+  net in the tier-pyramid kernel's scope
+  (:func:`~..ops.jukebox_decode.supports_kernel_decode`), one launch of K8
+  (:func:`~..ops.jukebox_decode.decode_pyramid`) at every B; outside the
+  scope the window re-feed with its one-token lead;
+* ``stream``: in the scope, one K8 launch a chunk with the (B, W) lead window
+  carried on the card and the weight pack built once a stream; outside it,
+  the window re-feed (``_refeed_stream``, which re-feeds ``_window_len()``
+  tokens).
+
 Not carried over, because they budget a TPU core's VMEM or probe its layouts:
-the gates ``_use_pallas_decode`` (``:512-552``) and ``_use_pallas_kv``
-(``:554-593``, with its ``d % 128`` and ``rf % 8`` alignment), the layout
-probes ``MMK_KV_NOREP``, ``MMK_KV_SLOT_MAJOR`` and ``MMK_KV_UNROLL``, and
-``MMK_DECODE_BF16`` (queued with the bf16 decode routes).  Where the JAX gate
-refuses a net it runs its oracle scan, which has the kernel's semantics, so
-sending every net of the scope to the kernels changes no tokens.  Nor is the
-fallback on a kernel failure (``pallas_generate_or_fallback``, the KV stream's
-first-chunk retry, ``:828-850``): a kernel that fails raises.
+the gates ``_use_pallas_decode`` (SimpleTransformer ``:512-552``, JukeBox
+``:1110-1152``) and ``_use_pallas_kv`` (``:554-593``, with its ``d % 128`` and
+``rf % 8`` alignment), the layout probes ``MMK_KV_NOREP``,
+``MMK_KV_SLOT_MAJOR`` and ``MMK_KV_UNROLL``, and ``MMK_DECODE_BF16`` (queued
+with the bf16 decode routes); nor does the port read ``MMK_PALLAS_DECODE``.
+Where the JAX gate refuses a net it runs its oracle scan, which has the
+kernel's semantics, so sending every net of the scope to the kernels changes
+no tokens.  Nor is the fallback on a kernel failure
+(``pallas_generate_or_fallback``, the KV stream's first-chunk retry
+``:828-850``, JukeBox's first-chunk stream fallback ``:1295-1362``): a kernel
+that fails raises.
 """
 from __future__ import annotations
 
@@ -53,9 +70,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..features.functionals import Discrete
 from ..features.item_spec import ItemSpec, Step
 from ..modules.activations import _PLAIN
-from ..modules.io import ZipReduceVariables
+from ..modules.io import FramedConv1dIO, FramedLinearIO, ZipReduceVariables
+from ..modules.resamplers import LinearResampler
+from ..ops import jukebox_decode as jbd
 from ..ops.transformer_decode import (
     _NEG,
     decode_window,
@@ -67,7 +87,7 @@ from ..ops.transformer_kv import decode_chunk, init_kv_state
 from ..utils import resolve_device
 from .arm import ARM, NetworkConfig
 
-__all__ = ["PositionalEncoding", "SimpleTransformer"]
+__all__ = ["PositionalEncoding", "SimpleTransformer", "TransformerTier", "JukeBox"]
 
 
 def sinusoidal_pe(max_len: int, d_model: int) -> np.ndarray:
@@ -277,7 +297,119 @@ class SimpleTransformerCore(nn.Module):
         return self._heads(out, False, temperature, generator)
 
 
-class SimpleTransformer(SimpleTransformerCore, ARM):
+class _StatefulTransformerARM(ARM):
+    """The ARM plumbing the transformer networks share
+    (``transformers.py:226-396``): the network is its core module (listed
+    after this class, so :meth:`_core` reaches the core's ``forward``), the
+    eval forward samples with a ``torch.Generator``, and the window re-feed
+    decode reads ``_window_len()`` tokens ending ``_decode_win_lead`` past
+    the write position."""
+
+    # how far past the write position the re-feed window reaches: 0 for a net
+    # that reads every window token (SimpleTransformer), 1 for JukeBox, whose
+    # core never reads the final window slot (PARITY.md #6)
+    _decode_win_lead = 0
+
+    def __init__(self, *, config, **core):
+        super().__init__(**core)
+        self._config = config
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """N(0, 1) embeddings, U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for every
+        projection, dense and conv weight and bias (``in_proj_bias`` zero),
+        unit layer norms; drawn from ``generator``."""
+        for m in self.modules():
+            if isinstance(m, nn.Embedding):
+                m.weight.copy_(torch.randn(m.weight.shape, generator=generator))
+            elif isinstance(m, (nn.Linear, nn.Conv1d)):
+                bound = 1.0 / np.sqrt(m.weight[0].numel())
+                for p in m.parameters(recurse=False):
+                    p.copy_(torch.rand(p.shape, generator=generator) * (2 * bound) - bound)
+            elif isinstance(m, MultiheadAttention):
+                bound = 1.0 / np.sqrt(m.in_proj_weight.shape[1])
+                w = torch.rand(m.in_proj_weight.shape, generator=generator)
+                m.in_proj_weight.copy_(w * (2 * bound) - bound)
+                m.in_proj_bias.zero_()
+
+    @property
+    def config(self):
+        return self._config
+
+    @property
+    def rf(self) -> int:
+        return self._config.rf
+
+    @property
+    def generate_params(self):
+        return {"temperature"}
+
+    def _window_len(self) -> int:
+        return self.rf
+
+    def _sample_generator(self, seed: Optional[int] = None) -> torch.Generator:
+        return torch.Generator(device=self.device).manual_seed(
+            self.next_seed() if seed is None else seed)
+
+    def _core(self, inputs: Tuple, train: bool, temperature=None,
+              generator: Optional[torch.Generator] = None):
+        """The core module's forward."""
+        return super().forward(inputs, train, temperature, generator)
+
+    def forward(self, inputs: Tuple, **parameters):
+        """Train mode: per-target (B, T, Q) logits.  Eval mode: one sample
+        per stream at the last position, tempered by ``temperature``."""
+        inputs = tuple(torch.as_tensor(x).to(self.device) for x in inputs)
+        if self.training:
+            return self._core(inputs, True)
+        return self._core(inputs, False, parameters.get("temperature"), self._sample_generator())
+
+    # -- step-wise generation API (transformers.py:295-311) ------------------------
+    def before_generate(self, prompts: Tuple, batch_index: int) -> None:
+        pass
+
+    @torch.no_grad()
+    def generate_step(self, inputs: Tuple, *, t: int = 0, **parameters):
+        """The eval forward on the window ``inputs``."""
+        was = self.training
+        self.eval()
+        try:
+            return self.forward(inputs, **parameters)
+        finally:
+            self.train(was)
+
+    def after_generate(self, final_outputs: Tuple, batch_index: int) -> None:
+        pass
+
+    # -- serving -------------------------------------------------------------------
+    def _prompt(self, prompts: Tuple) -> torch.Tensor:
+        if len(prompts) != 1 or len(self.config.io_spec.targets) != 1:
+            raise NotImplementedError("decoding supports one input and one target")
+        return torch.as_tensor(prompts[0]).to(self.device, torch.int32).contiguous()
+
+    @torch.no_grad()
+    def _window_loop(self, prompt: torch.Tensor, n_steps: int, temperature, seed: int):
+        """The window re-feed (``_make_window_decoder``): the token at t is
+        the batched eval forward's sample on ``buf[t - W + lead : t + lead]``
+        (W = ``_window_len()``, window-relative PE), appended to the buffer.
+        With lead 1 the window's last slot is the never-read placeholder for
+        t.  ``prompt`` holds at least W - lead tokens."""
+        B, prior_t = prompt.shape
+        W, lead = self._window_len(), self._decode_win_lead
+        buf = torch.cat([prompt, prompt.new_zeros(B, n_steps)], 1).long()
+        gen = self._sample_generator(seed)
+        was = self.training
+        self.eval()
+        try:
+            for t in range(prior_t, prior_t + n_steps):
+                out = self._core((buf[:, t - W + lead : t + lead],), False, temperature, gen)
+                buf[:, t] = out[0].reshape(B)
+        finally:
+            self.train(was)
+        return buf
+
+
+class SimpleTransformer(_StatefulTransformerARM, SimpleTransformerCore):
     @dtc.dataclass
     class Config(NetworkConfig):
         io_spec: "IOSpec" = None  # noqa: F821
@@ -311,53 +443,6 @@ class SimpleTransformer(SimpleTransformerCore, ARM):
         net.reset_parameters(torch.Generator().manual_seed(seed))
         return net.to(device)
 
-    def __init__(self, *, config: "SimpleTransformer.Config", **core):
-        super().__init__(**core)
-        self._config = config
-
-    @torch.no_grad()
-    def reset_parameters(self, generator: torch.Generator) -> None:
-        """N(0, 1) embeddings, U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for every
-        projection and dense weight and bias (``in_proj_bias`` zero), unit
-        layer norms; drawn from ``generator``."""
-        for m in self.modules():
-            if isinstance(m, nn.Embedding):
-                m.weight.copy_(torch.randn(m.weight.shape, generator=generator))
-            elif isinstance(m, nn.Linear):
-                bound = 1.0 / np.sqrt(m.in_features)
-                for p in m.parameters(recurse=False):
-                    p.copy_(torch.rand(p.shape, generator=generator) * (2 * bound) - bound)
-            elif isinstance(m, MultiheadAttention):
-                bound = 1.0 / np.sqrt(m.in_proj_weight.shape[1])
-                w = torch.rand(m.in_proj_weight.shape, generator=generator)
-                m.in_proj_weight.copy_(w * (2 * bound) - bound)
-                m.in_proj_bias.zero_()
-
-    @property
-    def config(self) -> "SimpleTransformer.Config":
-        return self._config
-
-    @property
-    def rf(self) -> int:
-        return self._config.rf
-
-    @property
-    def generate_params(self):
-        return {"temperature"}
-
-    def _sample_generator(self, seed: Optional[int] = None) -> torch.Generator:
-        return torch.Generator(device=self.device).manual_seed(
-            self.next_seed() if seed is None else seed)
-
-    def forward(self, inputs: Tuple, **parameters):
-        """Train mode: per-target (B, T, Q) logits.  Eval mode: one sample
-        per stream at the last position, tempered by ``temperature``."""
-        inputs = tuple(torch.as_tensor(x).to(self.device) for x in inputs)
-        if self.training:
-            return super().forward(inputs, train=True)
-        return super().forward(inputs, train=False, temperature=parameters.get("temperature"),
-                               generator=self._sample_generator())
-
     # -- batch specs (transformers.py:441-450) ---------------------------------
     def train_batch(self, item_spec: ItemSpec):
         return tuple(
@@ -370,49 +455,7 @@ class SimpleTransformer(SimpleTransformerCore, ARM):
     def test_batch(self, item_spec: ItemSpec):
         return self.train_batch(item_spec)
 
-    # -- step-wise generation API (transformers.py:295-311) ------------------------
-    def before_generate(self, prompts: Tuple, batch_index: int) -> None:
-        pass
-
-    @torch.no_grad()
-    def generate_step(self, inputs: Tuple, *, t: int = 0, **parameters):
-        """The eval forward on the window ``inputs``."""
-        was = self.training
-        self.eval()
-        try:
-            return self.forward(inputs, **parameters)
-        finally:
-            self.train(was)
-
-    def after_generate(self, final_outputs: Tuple, batch_index: int) -> None:
-        pass
-
     # -- serving -------------------------------------------------------------------
-    def _prompt(self, prompts: Tuple) -> torch.Tensor:
-        if len(prompts) != 1 or len(self.config.io_spec.targets) != 1:
-            raise NotImplementedError("decoding supports one input and one target")
-        return torch.as_tensor(prompts[0]).to(self.device, torch.int32).contiguous()
-
-    @torch.no_grad()
-    def _window_loop(self, prompt: torch.Tensor, n_steps: int, temperature, seed: int):
-        """The window re-feed (``_make_window_decoder``): each step runs the
-        batched eval forward on the last ``rf`` tokens (window-relative PE)
-        and appends its sample."""
-        B, prior_t = prompt.shape
-        rf = self.rf
-        buf = torch.cat([prompt, prompt.new_zeros(B, n_steps)], 1).long()
-        gen = self._sample_generator(seed)
-        was = self.training
-        self.eval()
-        try:
-            for t in range(prior_t, prior_t + n_steps):
-                out = SimpleTransformerCore.forward(self, (buf[:, t - rf : t],), False,
-                                                    temperature, gen)
-                buf[:, t] = out[0].reshape(B)
-        finally:
-            self.train(was)
-        return buf
-
     @torch.no_grad()
     def _kv_cache_loop(self, prompt: torch.Tensor, n_steps: int, temperature, seed: int):
         """The KV-cached incremental decoder (``_make_decoder``): step t feeds
@@ -486,5 +529,244 @@ class SimpleTransformer(SimpleTransformerCore, ARM):
                 drop = min(C, max(0, prior_t - t_abs))  # prompt echo rows
                 t_abs += C
                 yield out, drop
+
+        yield from _read_behind_chunks(dev_chunks(), chunk_steps)
+
+
+# -- JukeBox --------------------------------------------------------------------------
+
+class TransformerTier(nn.Module):
+    """A SampleRNN-style tier with a transformer in place of the RNN
+    (``transformers.py:859-910``): the input module (a
+    ``ZipReduceVariables`` of framed heads), ``+ x_upper``, the positional
+    encoding, the decoder stack, tanh, then the linear up-sampler.  The
+    bottom tier (``model_dim=None``) is its input module alone."""
+
+    def __init__(self, input_module: nn.Module, model_dim: Optional[int] = 256, n_heads: int = 8,
+                 feedforward_dim: int = 1024, num_layers: int = 8, with_layer_norm: bool = False,
+                 dropout: float = 0.0, activation: str = "Mish", norm_first: bool = False,
+                 positional_encoding: Optional[int] = 4096, up_sampling: Optional[int] = None):
+        super().__init__()
+        self.input_module = input_module
+        self.model_dim = model_dim
+        if model_dim is not None:
+            self.pe = (PositionalEncoding(model_dim, dropout=0.0, max_len=positional_encoding)
+                       if positional_encoding is not None else None)
+            self.model = DecoderStack(
+                model_dim=model_dim, n_heads=n_heads, feedforward_dim=feedforward_dim,
+                num_layers=num_layers, dropout=dropout, activation=activation,
+                norm_first=norm_first, with_layer_norm=with_layer_norm,
+            )
+        self.up_sampler = None
+        if up_sampling is not None:
+            self.up_sampler = LinearResampler(model_dim, t_factor=up_sampling, d_factor=1)
+
+    def forward(self, inputs: Tuple, x_upper=None):
+        x = self.input_module(inputs)
+        if x_upper is not None:
+            x = x + x_upper
+        if self.model_dim is not None:
+            if self.pe is not None:
+                x = self.pe(x)
+            x = torch.tanh(self.model(x))
+        if self.up_sampler is not None:
+            x = self.up_sampler(x)
+        return x
+
+
+class JukeBoxCore(nn.Module):
+    """The tier pyramid (``transformers.py:913-940``).  Each upper tier of
+    frame size fs reads ``x[:, fs0 - fs : T - fs]``; the bottom tier reads
+    ``x[:, fs0 - fs : T - 1]``, so the final input token is never read (in
+    training it is the last target).  In eval only the last bottom position
+    goes to the heads."""
+
+    def __init__(self, frame_sizes: Tuple[int, ...], tiers, output_modules):
+        super().__init__()
+        self.frame_sizes = tuple(frame_sizes)
+        self.tiers = nn.ModuleList(tiers)
+        self.output_modules = nn.ModuleList(output_modules)
+
+    def forward(self, inputs: Tuple, train: bool = False, temperature=None,
+                generator: Optional[torch.Generator] = None):
+        prev = None
+        fs0 = self.frame_sizes[0]
+        for tier, fs in zip(self.tiers[:-1], self.frame_sizes[:-1]):
+            prev = tier(tuple(x[:, fs0 - fs : x.shape[1] - fs] for x in inputs), prev)
+        fs = self.frame_sizes[-1]
+        prev = self.tiers[-1](tuple(x[:, fs0 - fs : x.shape[1] - 1] for x in inputs), prev)
+        if train:
+            return tuple(mod(prev, train=True) for mod in self.output_modules)
+        return tuple(mod(prev[:, -1:], train=False, temperature=temperature, generator=generator)
+                     for mod in self.output_modules)
+
+
+class JukeBox(_StatefulTransformerARM, JukeBoxCore):
+    """JukeBox: transformer tiers over framed mu-law tokens
+    (``transformers.py:956-1416``).
+
+    Its decode window leads the write position by one (``_decode_win_lead``,
+    PARITY.md #6): the window for position t is ``buf[t - W + 1 : t + 1]``,
+    whose last slot, the placeholder for t, the core never reads."""
+
+    _decode_win_lead = 1
+
+    @dtc.dataclass
+    class Config(NetworkConfig):
+        io_spec: "IOSpec" = None  # noqa: F821
+        frame_sizes: Tuple[int, ...] = (32, 16, 4)
+        model_dim: int = 256
+        n_heads: int = 8
+        feedforward_dim: int = 1024
+        num_layers: int = 1
+        layer_activation: str = "Mish"
+        norm_first: bool = False
+        with_layer_norm: bool = False
+        dropout: float = 0.0
+        positional_encoding: Optional[int] = 4096
+        weight_norm: bool = False
+        input_dropout: float = 0.0
+        rf: int = 64
+        ref_compat: bool = False
+
+    @classmethod
+    def from_config(cls, config: "JukeBox.Config", device=None, seed: int = 0) -> "JukeBox":
+        """Build the network on ``device`` (default: the card), with weights
+        drawn from ``seed``.  ``weight_norm``, ``ref_compat`` and embedding
+        inputs (``EmbeddingConv1d``) are not ported (``ROADMAP.md``)."""
+        device = resolve_device(device)
+        if config.weight_norm or config.ref_compat:
+            raise NotImplementedError(
+                f"JukeBox weight_norm={config.weight_norm}, ref_compat={config.ref_compat}: weight"
+                " norm and the Conv1dResampler scramble are not ported (ROADMAP.md)")
+        for spec in config.io_spec.inputs:
+            if not isinstance(spec.module, FramedLinearIO):
+                raise NotImplementedError(
+                    f"JukeBox inputs of {type(spec.module).__name__} (EmbeddingConv1d in the"
+                    " bottom tier) are not ported (ROADMAP.md)")
+        d, fs_list = config.model_dim, tuple(config.frame_sizes)
+        tiers = []
+        for i, fs in enumerate(fs_list[:-1]):
+            mods = tuple(spec.module.copy().set(frame_size=fs, hop_length=fs, out_dim=d).module()
+                         for spec in config.io_spec.inputs)
+            tiers.append(TransformerTier(
+                ZipReduceVariables(mode="sum", heads=mods), model_dim=d, n_heads=config.n_heads,
+                feedforward_dim=config.feedforward_dim, num_layers=config.num_layers,
+                with_layer_norm=config.with_layer_norm, dropout=config.dropout,
+                activation=str(config.layer_activation), norm_first=config.norm_first,
+                positional_encoding=config.positional_encoding,
+                up_sampling=fs // (fs_list[i + 1] if i < len(fs_list) - 2 else 1),
+            ))
+        mods = []
+        for spec in config.io_spec.inputs:
+            params = (dict(class_size=spec.elem_type.size)
+                      if isinstance(spec.elem_type, Discrete) else {})
+            mods.append(FramedConv1dIO().set(**params, frame_size=fs_list[-1], hop_length=1,
+                                             out_dim=d).module())
+        tiers.append(TransformerTier(ZipReduceVariables(mode="sum", heads=tuple(mods)),
+                                     model_dim=None))
+        outputs = [spec.module.copy().set(in_dim=d).module() for spec in config.io_spec.targets]
+        net = cls(config=config, frame_sizes=fs_list, tiers=tiers, output_modules=outputs)
+        net.reset_parameters(torch.Generator().manual_seed(seed))
+        return net.to(device)
+
+    def _window_len(self) -> int:
+        """The tier pyramid frames evenly at every level: ``rf`` rounded up to
+        a multiple of ``frame_sizes[0]``, at least two top frames
+        (``transformers.py:1091-1098``)."""
+        fs0 = self._config.frame_sizes[0]
+        return max(2 * fs0, -(-self.rf // fs0) * fs0)
+
+    @torch.no_grad()
+    def generate_step(self, inputs: Tuple, *, t: int = 0, **parameters):
+        """Stepwise callers feed the lead-0 window ``[t - W, t)`` and write
+        the result at t: drop the oldest token and append the placeholder
+        slot, the same one-token lead as the fast decode
+        (``transformers.py:972-987``)."""
+        shifted = tuple(
+            torch.cat([torch.as_tensor(x)[:, 1:], torch.as_tensor(x).new_zeros(len(x), 1)], 1)
+            for x in inputs
+        )
+        return super().generate_step(shifted, t=t, **parameters)
+
+    # -- batch specs (transformers.py:1387-1416) --------------------------------
+    def train_batch(self, item_spec: ItemSpec):
+        fs0 = self._config.frame_sizes[0]
+        return tuple(
+            spec.to_batch_item(ItemSpec(shift=0, length=fs0, unit=spec.unit) + item_spec)
+            for spec in self.config.io_spec.inputs
+        ), tuple(
+            spec.to_batch_item(ItemSpec(shift=fs0, unit=spec.unit) + item_spec)
+            for spec in self.config.io_spec.targets
+        )
+
+    def test_batch(self, item_spec: ItemSpec):
+        fs0 = self._config.frame_sizes[0]
+        return tuple(
+            spec.to_batch_item(item_spec.to(spec.unit)) for spec in self.config.io_spec.inputs
+        ), tuple(
+            spec.to_batch_item(ItemSpec(shift=fs0, length=-fs0, unit=spec.unit) + item_spec)
+            for spec in self.config.io_spec.targets
+        )
+
+    # -- serving -------------------------------------------------------------------
+    def _padded(self, prompt: torch.Tensor) -> Tuple[torch.Tensor, int]:
+        """The prompt left-padded with zeros to the window (``:1160-1165``)
+        and the pad's length."""
+        pad = max(self._window_len() - prompt.shape[1], 0)
+        if pad:
+            prompt = torch.cat([prompt.new_zeros(prompt.shape[0], pad), prompt], 1)
+        return prompt, pad
+
+    @torch.no_grad()
+    def generate(self, prompts: Tuple, n_steps: int, temperature: Optional[float] = None,
+                 seed: Optional[int] = None) -> Tuple[torch.Tensor]:
+        """Decode ``n_steps`` tokens after each prompt (``:1216-1247``); a
+        prompt shorter than the window is left-padded with zeros, then
+        stripped.  A net in the kernel's scope decodes in one launch of the
+        tier-pyramid kernel (K8) at every B; others run the window re-feed.
+        ``temperature`` None is argmax.  Returns a tuple of one (B, prior_t +
+        n_steps) tensor on the network's device."""
+        prompt = self._prompt(prompts)
+        if seed is None:
+            seed = self.next_seed()
+        x, pad = self._padded(prompt)
+        if jbd.supports_kernel_decode(self):
+            window = jbd.lead_window(x, self._window_len())
+            toks = jbd.decode_pyramid(jbd.jukebox_weight_pack(self), window, x.shape[1], n_steps,
+                                      seed, temperature)
+            out = torch.cat([x, toks.to(x.dtype)], 1)
+        else:
+            out = self._window_loop(x, n_steps, temperature, seed)
+        return (out[:, pad:].to(torch.as_tensor(prompts[0]).dtype),)
+
+    def stream(self, prompts: Tuple, chunk_steps: int, temperature: Optional[float] = None,
+               seed: Optional[int] = None):
+        """Unbounded generation: yield (B, chunk_steps) numpy token chunks
+        forever (``:1249-1385``).  In the kernel's scope: one K8 launch a
+        chunk, the (B, W) lead window — JukeBox's whole decode state — carried
+        on the device between launches, the weight pack built once; noise is
+        keyed by absolute position, so the stream equals one long ``generate``
+        with the same seed, argmax or sampled.  Otherwise the window
+        re-feed."""
+        prompt = self._prompt(prompts)
+        if seed is None:
+            seed = self.next_seed()
+        from ..loops.streaming import _read_behind_chunks, _refeed_stream
+
+        if not jbd.supports_kernel_decode(self):
+            yield from _refeed_stream(self, prompt, chunk_steps, temperature, seed)
+            return
+        x, _ = self._padded(prompt)
+        pack = jbd.jukebox_weight_pack(self)
+        window = jbd.lead_window(x, self._window_len())
+
+        def dev_chunks():
+            t = x.shape[1]
+            while True:
+                with torch.no_grad():
+                    out = jbd.decode_pyramid(pack, window, t, chunk_steps, seed, temperature)
+                t += chunk_steps
+                yield out, 0
 
         yield from _read_behind_chunks(dev_chunks(), chunk_steps)

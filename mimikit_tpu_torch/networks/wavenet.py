@@ -36,7 +36,7 @@ import torch
 from torch import nn
 
 from ..features.item_spec import ItemSpec, Step
-from ..modules.activations import _PLAIN, mish
+from ..modules.activations import _PLAIN
 from ..modules.misc import causal_pad
 from ..ops.wavenet_decode import (
     decode_chunk,
@@ -49,8 +49,6 @@ from ..utils import resolve_device
 from .arm import ARM, NetworkConfig
 
 __all__ = ["WNLayer", "WaveNetCore", "WaveNet"]
-
-_ACTS = {**_PLAIN, "Mish": mish}
 
 
 def _conv(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
@@ -137,13 +135,13 @@ class WNLayer(nn.Module):
 
     def forward(self, inputs_dilated: Tuple, inputs_1x1: Tuple = (), skips=None,
                 decode: bool = False):
-        act_f = _ACTS[str(self.act_f)]
+        act_f = _PLAIN[str(self.act_f)]
         x_in = inputs_dilated[0]
         if self.needs_padding and not decode:
             x_in = causal_pad(x_in, (self.pad_side * self.cause, 0))
         trim_1x1 = not self.needs_padding and not decode
         if self.has_gated_units:
-            act_g = _ACTS[str(self.act_g)]
+            act_g = _PLAIN[str(self.act_g)]
             cond_f, cond_g = 0.0, 0.0
             for conv, c in zip(self.conv_1x1, inputs_1x1):
                 y_f, y_g = torch.chunk(_conv(conv, self.trim_cause(c) if trim_1x1 else c), 2, -1)

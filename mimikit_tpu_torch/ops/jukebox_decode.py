@@ -1,0 +1,536 @@
+"""JukeBox tier-pyramid decode: the CUDA kernel, its wrapper and its plain twin.
+
+The kernel (``csrc/jukebox_decode.cu``) replaces the TPU kernel
+``make_jukebox_pallas_decoder`` (K8, ``mimikit_tpu/ops/pallas_decode.py:2386``,
+gate ``supports_pallas_jukebox`` ``:2227``, pack ``jukebox_weight_pack``
+``:2286``): the whole autoregressive loop in one launch.  Each step reads
+the (B, W) lead window — the last W - 1 tokens and a never-read placeholder
+for the position being predicted — linearises it as (tok / Q - 0.5) * 2 and,
+for each upper tier i of frame size f: frames the span
+``[fs0 - f, W - f)`` into n_i frames, runs the framed dense, adds the tier
+above's up-sampled rows and the frame-relative PE, then the post-norm
+decoder layers (causal self-attention, causal cross-attention on the tier's
+PE'd input, a Mish or ReLU FFN, three layer norms), tanh and the linear
+up-sampler; the bottom tier's framed conv reads the last fs_b real tokens
+(window slots W - 1 - fs_b .. W - 2) plus the last up-sampled row; the Mish
+head divides its logits by max(sigmoid(extra logit), min_temperature), then
+by the temperature plus Gumbel noise when sampling; the argmax token fills
+the placeholder and the window moves on by one.
+
+This module holds:
+
+* :func:`supports_kernel_decode`, the scope gate (``supports_pallas_jukebox``
+  plus the kernel's own limits);
+* :func:`jukebox_weight_pack`, the kernel's view of the weights;
+* :func:`lead_window`, the (B, W) window of a padded prompt;
+* :func:`pyramid_scores` (a batch of windows at once, for teacher forcing)
+  and :func:`decode_pyramid_plain`, the plain twin;
+* :func:`decode_pyramid`, the counted wrapper, which leaves the advanced
+  window in place, so a stream carries it from one launch to the next.
+
+Not carried over: the per-row bias tiling of ``jukebox_weight_pack``
+(``pallas_decode.py:2289-2307``), which works around a Mosaic layout rule,
+and the ``pltpu.roll`` framing and frame-major row order (``:2417-2423,
+2536-2559``), Mosaic layout choices; the kernel's rows are a stream's frames
+in order.  What bounds the kernel on an H100, and what its design does about
+it, is in the source note of the ``.cu`` file.  The wrapper's rule: a CPU
+tensor takes the plain twin, a CUDA tensor launches the kernel or raises;
+there is no fallback.  The kernel is built with ``nvcc`` at first use into
+``build/kernels/`` (:mod:`.nvcc`); nothing is compiled when this module is
+imported.
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses as dtc
+import warnings
+from pathlib import Path
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from .noise import gumbel_noise
+from .nvcc import CSRC, build_library
+from .samplernn_decode import SMEM_PER_BLOCK, _check, _head_is_plain_mish
+from .transformer_decode import LAYER_KINDS, _attend_causal, layer_norm
+
+__all__ = ["jukebox_weight_pack", "JukeBoxPack"]
+
+THREADS = 512  # a block's threads, JB_THREADS in the .cu
+MAX_TIERS = 4  # upper tiers, JB_MAX_TIERS
+MAX_HEAD = 8  # head layers, JB_MAX_HEAD
+MAX_ROWS = 8  # rows one pass of a product keeps in registers, JB_MAXR
+MAX_COLS = 2048  # columns of the widest product, JB_MAXN
+SOURCE = CSRC / "jukebox_decode.cu"
+
+
+def _r4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+# -- scope gate (pallas_decode.py:2227-2283) -------------------------------------
+
+def _geometry(cfg, W: int):
+    """(frame sizes, frames of each upper tier, up-sampling of each)."""
+    fs = tuple(int(f) for f in cfg.frame_sizes)
+    span = W - fs[0]
+    n_frames = tuple(span // f for f in fs[:-1])
+    t_up = tuple(f // (fs[i + 1] if i < len(fs) - 2 else 1) for i, f in enumerate(fs[:-1]))
+    return fs, n_frames, t_up
+
+
+def smem_floats(W: int, rows: int, d: int, ff: int, L: int, head_width: int) -> int:
+    """A block's dynamic shared memory in floats (``jb_smem_floats`` in the
+    ``.cu``): the products' partial sums, the window and its linearised
+    values, a tier's activations for ``rows`` frames, the head's rows."""
+    return (MAX_ROWS * MAX_COLS + 2 * _r4(W) + rows * (8 * d + 2 * L * d + ff)
+            + 2 * _r4(max(d, head_width)) + 2 * (THREADS // 32))
+
+
+def supports_kernel_decode(net) -> bool:
+    """True for the standard JukeBox that the kernel decodes: the nets
+    :func:`_standard_jukebox` admits, within the kernel's own limits
+    (:func:`_fits`).  A standard net beyond those limits (at jukebox3's
+    widths, a window of more than 384 tokens: tier 1's frames then outgrow a
+    block's shared memory) takes the window re-feed route, 50 to 65 times
+    slower a step on an H100 at those widths (``chip_smoke.py`` times both
+    routes); a warning says so, once for each net shape."""
+    if not _standard_jukebox(net):
+        return False
+    cfg = net.config
+    W = net._window_len()
+    _, n_frames, t_up = _geometry(cfg, W)
+    t_mod = cfg.io_spec.targets[0].module
+    head_dims = [(cfg.model_dim, t_mod.hidden_dim)] + [(t_mod.hidden_dim, t_mod.hidden_dim)] * (
+        t_mod.n_hidden_layers) + [(t_mod.hidden_dim, _r4(cfg.io_spec.targets[0].elem_type.size + 1))]
+    if (t_mod.hidden_dim % 4 == 0 and cfg.positional_encoding >= max(n_frames)
+            and _fits(W, cfg.model_dim, cfg.feedforward_dim, cfg.num_layers, n_frames, t_up,
+                      head_dims)):
+        return True
+    warnings.warn(
+        f"this JukeBox (window {W}, model_dim {cfg.model_dim}, feedforward_dim "
+        f"{cfg.feedforward_dim}, head width {t_mod.hidden_dim}, frames {n_frames}) is outside the "
+        "tier-pyramid kernel's limits (see ops.jukebox_decode.supports_kernel_decode): it decodes "
+        "through the window re-feed route, one forward a step", stacklevel=2)
+    return False
+
+
+def _standard_jukebox(net) -> bool:
+    """The scope of the TPU kernel's gate: framed-linear mu-law inputs, Mish
+    or ReLU post-norm tier blocks with sinusoidal PE, linear up-samplers, the
+    framed-conv bottom tier and one learned-temperature plain-Mish MLP head
+    with a categorical objective; no ``ref_compat`` (its Conv1dResampler
+    scramble), weight norm, final norm, pre-norm or dropout."""
+    from ..features.functionals import Discrete
+    from ..modules.io import FramedLinearIO, MLPIO
+
+    if type(net).__name__ != "JukeBox":
+        return False
+    cfg = net.config
+    if cfg.ref_compat or cfg.weight_norm or cfg.with_layer_norm or cfg.norm_first or cfg.dropout:
+        return False
+    if cfg.positional_encoding is None or str(cfg.layer_activation) not in ("Mish", "ReLU"):
+        return False
+    if cfg.model_dim % cfg.n_heads or len(cfg.frame_sizes) < 2:
+        return False
+    fs, _, _ = _geometry(cfg, net._window_len())
+    span = net._window_len() - fs[0]
+    if span <= 0:
+        return False
+    for i, f in enumerate(fs[:-1]):
+        if span % f or f % (fs[i + 1] if i < len(fs) - 2 else 1):
+            return False
+    io = cfg.io_spec
+    if len(io.inputs) != 1 or len(io.targets) != 1:
+        return False
+    if not isinstance(io.inputs[0].elem_type, Discrete):
+        return False
+    if not isinstance(io.inputs[0].module, FramedLinearIO):
+        return False
+    act = getattr(io.inputs[0].module, "activation", None)
+    if act is not None and str(getattr(act, "act", "Identity")) != "Identity":
+        return False
+    t_mod = io.targets[0].module
+    if not isinstance(t_mod, MLPIO) or t_mod.min_temperature is None:
+        return False
+    if not _head_is_plain_mish(t_mod) or getattr(t_mod, "weight_norm", False):
+        return False
+    return str(getattr(io.targets[0].objective, "objective_type", "")) == "categorical_dist"
+
+
+def _fits(W: int, d: int, ff: int, L: int, n_frames, t_up, head_dims) -> bool:
+    """The kernel's own limits: ``model_dim``, ``feedforward_dim`` (and the
+    head's hidden width, checked by the gate) multiples of 4 (16-byte
+    loads); at most ``MAX_TIERS`` upper tiers and ``MAX_HEAD`` head layers;
+    every product at most ``MAX_COLS`` columns (3d, 2·layers·d, ff, each
+    inner up-sampler's t·d, the head's widths); a block's shared memory
+    (:func:`smem_floats`).  The gate adds a PE table of at least each
+    tier's frames."""
+    head_width = max(w for dims in head_dims for w in dims)
+    widths = [3 * d, 2 * L * d, ff, head_width] + [t * d for t in t_up[:-1]]
+    return (d % 4 == 0 and ff % 4 == 0 and len(n_frames) <= MAX_TIERS
+            and len(head_dims) <= MAX_HEAD and max(widths) <= MAX_COLS
+            and 4 * smem_floats(W, max(n_frames), d, ff, L, head_width) <= SMEM_PER_BLOCK)
+
+
+# -- weight pack -------------------------------------------------------------------
+
+@dtc.dataclass
+class JukeBoxPack:
+    """The kernel's view of a JukeBox: every weight in one flat f32 buffer
+    and each tensor's (offset, shape) in it, with the static sizes.  Upper
+    tier i's tensors are ``win.i``/``bin.i`` (framed dense, (f, d)),
+    ``pe.i`` (its n_i frames' PE rows), layer l's ``<kind>.i.l``
+    (``LAYER_KINDS``, ``layer_strides[i]`` floats after layer l - 1's),
+    ``wckv.i``/``bckv.i`` (every layer's cross [Wk | Wv], (d, 2Ld)),
+    ``wup.i``/``bup.i`` (the up-sampler, (d, t·d)); then the bottom conv
+    ``wbot`` (fs_b, d), ``bbot``, and the head ``wh{k}``/``bh{k}``, the last
+    layer's columns padded with zeros to a multiple of 4."""
+
+    flat: torch.Tensor
+    offsets: dict
+    dim: int
+    n_heads: int
+    ff: int
+    n_layers: int
+    window: int
+    frames: Tuple[int, ...]
+    n_frames: Tuple[int, ...]
+    t_up: Tuple[int, ...]
+    q_levels: int
+    head_dims: Tuple[Tuple[int, int], ...]
+    min_temperature: float
+    mish_ffn: bool
+    layer_strides: Tuple[int, ...]
+
+    @property
+    def n_up(self) -> int:
+        return len(self.frames) - 1
+
+    def view(self, name: str) -> torch.Tensor:
+        off, shape = self.offsets[name]
+        n = int(np.prod(shape))
+        return self.flat[off : off + n].view(shape)
+
+    def layer(self, i: int, l: int):
+        """Tier i's layer l's tensors in ``LAYER_KINDS`` order."""
+        return [self.view(f"{k}.{i}.{l}") for k in LAYER_KINDS]
+
+
+@torch.no_grad()
+def jukebox_weight_pack(net) -> JukeBoxPack:
+    """Flatten ``net``'s weights into the kernel's layout, on its device.
+    Every product is ``x @ W`` (K, N) row-major; each tensor starts at a
+    multiple of 4 floats."""
+    from ..networks.transformers import sinusoidal_pe
+
+    cfg = net.config
+    d, L, W = cfg.model_dim, cfg.num_layers, net._window_len()
+    fs, n_frames, t_up = _geometry(cfg, W)
+    pe = torch.from_numpy(sinusoidal_pe(cfg.positional_encoding, d))
+    parts, offsets, pos = [], {}, 0
+
+    def add(name, x):
+        nonlocal pos
+        x = x.detach().to(torch.float32).contiguous()
+        offsets[name] = (pos, tuple(x.shape))
+        pad = -x.numel() % 4
+        parts.append(x.reshape(-1))
+        if pad:
+            parts.append(x.new_zeros(pad))
+        pos += x.numel() + pad
+
+    strides = []
+    for i, tier in enumerate(net.tiers[:-1]):
+        dense = tier.input_module.heads[0][2]
+        add(f"win.{i}", dense.weight.t())
+        add(f"bin.{i}", dense.bias)
+        add(f"pe.{i}", pe[: n_frames[i]].to(net.device))
+        ckv_w, ckv_b = [], []
+        for l, layer in enumerate(tier.model.layers):
+            sa, ca = layer.self_attn, layer.multihead_attn
+            for k, x in zip(LAYER_KINDS, (
+                    sa.in_proj_weight.t(), sa.in_proj_bias, sa.out_proj.weight.t(), sa.out_proj.bias,
+                    ca.in_proj_weight[:d].t(), ca.in_proj_bias[:d], ca.out_proj.weight.t(),
+                    ca.out_proj.bias, layer.norm1.weight, layer.norm1.bias, layer.norm2.weight,
+                    layer.norm2.bias, layer.norm3.weight, layer.norm3.bias,
+                    layer.linear1.weight.t(), layer.linear1.bias, layer.linear2.weight.t(),
+                    layer.linear2.bias)):
+                add(f"{k}.{i}.{l}", x)
+            ckv_w.append(ca.in_proj_weight[d:].t())  # (d, 2d): [Wk | Wv]
+            ckv_b.append(ca.in_proj_bias[d:])
+        stride = offsets[f"wqkv.{i}.1"][0] - offsets[f"wqkv.{i}.0"][0] if L > 1 else 0
+        for l in range(1, L):  # every layer lies one stride after the one before
+            for k in LAYER_KINDS:
+                assert offsets[f"{k}.{i}.{l}"][0] == offsets[f"{k}.{i}.0"][0] + l * stride
+        strides.append(stride)
+        add(f"wckv.{i}", torch.cat(ckv_w, 1))
+        add(f"bckv.{i}", torch.cat(ckv_b))
+        add(f"wup.{i}", tier.up_sampler.fc.weight.t())
+        add(f"bup.{i}", tier.up_sampler.fc.bias)
+    conv = net.tiers[-1].input_module.heads[0][2][2].cv  # (d, 1, fs_b)
+    add("wbot", conv.weight[:, 0, :].t())
+    add("bbot", conv.bias)
+    mlp = net.output_modules[0].estimator[0]
+    linears = list(mlp.fc)[0::2]
+    head_dims = []
+    for k, lin in enumerate(linears):
+        wt, b = lin.weight.t(), lin.bias
+        out = _r4(lin.out_features)
+        if out != lin.out_features:
+            wt = F.pad(wt, (0, out - lin.out_features))
+            b = F.pad(b, (0, out - lin.out_features))
+        add(f"wh{k}", wt)
+        add(f"bh{k}", b)
+        head_dims.append((lin.in_features, out))
+    return JukeBoxPack(
+        flat=torch.cat(parts), offsets=offsets, dim=d, n_heads=cfg.n_heads,
+        ff=cfg.feedforward_dim, n_layers=L, window=W, frames=fs, n_frames=n_frames, t_up=t_up,
+        q_levels=linears[-1].out_features - 1, head_dims=tuple(head_dims),
+        min_temperature=float(mlp.min_temperature),
+        mish_ffn=str(cfg.layer_activation) == "Mish", layer_strides=tuple(strides),
+    )
+
+
+def lead_window(x: torch.Tensor, W: int) -> torch.Tensor:
+    """The (B, W) int32 lead window after the tokens ``x`` (B, T >= W - 1):
+    the last W - 1 tokens, then the never-read placeholder slot for the
+    position being predicted (``_lead_window``, ``transformers.py:943-953``)."""
+    tail = x[:, x.shape[1] - (W - 1):].to(torch.int32)
+    return torch.cat([tail, tail.new_zeros(x.shape[0], 1)], 1).contiguous()
+
+
+# -- the plain twin ----------------------------------------------------------------
+
+def _mish(x):
+    return x * torch.tanh(F.softplus(x))
+
+
+def _head(pack: JukeBoxPack, x: torch.Tensor) -> torch.Tensor:
+    """(N, d) bottom rows -> (N, Q) scores: the Mish MLP, logits[:Q] /
+    max(sigmoid(logits[Q]), min_temperature)."""
+    n = len(pack.head_dims)
+    for k in range(n):
+        x = torch.addmm(pack.view(f"bh{k}"), x, pack.view(f"wh{k}"))
+        if k < n - 1:
+            x = _mish(x)
+    Q = pack.q_levels
+    return x[:, :Q] / torch.clamp_min(torch.sigmoid(x[:, Q : Q + 1]), pack.min_temperature)
+
+
+@torch.no_grad()
+def pyramid_scores(pack: JukeBoxPack, win: torch.Tensor) -> torch.Tensor:
+    """The K8 step without its sampling: (N, W) lead windows -> (N, Q)
+    scores of the position each window's placeholder stands for."""
+    N, W = win.shape
+    d, nH = pack.dim, pack.n_heads
+    act = _mish if pack.mish_ffn else torch.relu
+    lin = (win.to(torch.float32) / pack.q_levels - 0.5) * 2
+    fs0 = pack.frames[0]
+    x_up = None
+    for i in range(pack.n_up):
+        f, n, t = pack.frames[i], pack.n_frames[i], pack.t_up[i]
+        frames = lin[:, fs0 - f : fs0 - f + n * f].reshape(N, n, f)
+        x = torch.matmul(frames, pack.view(f"win.{i}")) + pack.view(f"bin.{i}")
+        if x_up is not None:
+            x = x + x_up
+        x = x + pack.view(f"pe.{i}")
+        mkv = torch.matmul(x, pack.view(f"wckv.{i}")) + pack.view(f"bckv.{i}")
+        for l in range(pack.n_layers):
+            (wqkv, bqkv, wo, bo, wcq, bcq, wco, bco,
+             g1, b1_, g2, b2_, g3, b3_, w1, b1, w2, b2) = pack.layer(i, l)
+            qkv = torch.matmul(x, wqkv) + bqkv
+            a = _attend_causal(qkv[..., :d], qkv[..., d : 2 * d], qkv[..., 2 * d :], nH)
+            x = layer_norm(x + (torch.matmul(a, wo) + bo), g1, b1_)
+            q = torch.matmul(x, wcq) + bcq
+            kv = mkv[..., 2 * l * d : 2 * (l + 1) * d]
+            a = _attend_causal(q, kv[..., :d], kv[..., d:], nH)
+            x = layer_norm(x + (torch.matmul(a, wco) + bco), g2, b2_)
+            h = act(torch.matmul(x, w1) + b1)
+            x = layer_norm(x + (torch.matmul(h, w2) + b2), g3, b3_)
+        x = torch.tanh(x)
+        wup, bup = pack.view(f"wup.{i}"), pack.view(f"bup.{i}")
+        if i < pack.n_up - 1:  # next-tier frame m is chunk m % t of frame m // t
+            x_up = (torch.matmul(x, wup) + bup).reshape(N, n * t, d)
+        else:  # the bottom reads the last chunk of the last frame only
+            x_up = torch.addmm(bup[(t - 1) * d :], x[:, -1], wup[:, (t - 1) * d :])
+    fb = pack.frames[-1]
+    bot = torch.addmm(pack.view("bbot"), lin[:, W - 1 - fb : W - 1], pack.view("wbot")) + x_up
+    return _head(pack, bot)
+
+
+@torch.no_grad()
+def decode_pyramid_plain(pack: JukeBoxPack, window: torch.Tensor, t0: int, n_steps: int,
+                         seed: int, temperature: Optional[float]) -> torch.Tensor:
+    """The plain PyTorch twin of the kernel: ``n_steps`` tokens from the
+    (B, W) lead ``window``, the first at absolute position ``t0``; sampling
+    adds the noise of (seed, position, stream, class).  Advances ``window``
+    in place.  Returns (B, n_steps) int32."""
+    B, W = window.shape
+    out = torch.zeros(B, n_steps, dtype=torch.int32, device=window.device)
+    for i in range(n_steps):
+        s = pyramid_scores(pack, window)
+        if temperature is not None:
+            s = s / temperature + gumbel_noise(seed, t0 + i, B, pack.q_levels, window.device)
+        tok = torch.argmax(s, dim=-1).to(torch.int32)
+        out[:, i] = tok
+        window.copy_(torch.cat([window[:, 1 : W - 1], tok[:, None], torch.zeros_like(tok)[:, None]],
+                               1))
+    return out
+
+
+# -- the kernel: build, bind, launch -------------------------------------------------
+
+class _Args(ctypes.Structure):
+    """Mirror of ``JbArgs`` in ``csrc/jukebox_decode.cu``."""
+
+    _fields_ = [
+        ("w", ctypes.c_void_p),
+        ("window", ctypes.c_void_p),
+        ("out", ctypes.c_void_p),
+        ("off_in_w", ctypes.c_longlong * MAX_TIERS),
+        ("off_in_b", ctypes.c_longlong * MAX_TIERS),
+        ("off_pe", ctypes.c_longlong * MAX_TIERS),
+        ("off_ckv_w", ctypes.c_longlong * MAX_TIERS),
+        ("off_ckv_b", ctypes.c_longlong * MAX_TIERS),
+        ("off_up_w", ctypes.c_longlong * MAX_TIERS),
+        ("off_up_b", ctypes.c_longlong * MAX_TIERS),
+        ("off_layer", (ctypes.c_longlong * len(LAYER_KINDS)) * MAX_TIERS),
+        ("layer_stride", ctypes.c_longlong * MAX_TIERS),
+        ("off_bot_w", ctypes.c_longlong),
+        ("off_bot_b", ctypes.c_longlong),
+        ("off_wh", ctypes.c_longlong * MAX_HEAD),
+        ("off_bh", ctypes.c_longlong * MAX_HEAD),
+        ("t0", ctypes.c_longlong),
+        ("frame", ctypes.c_int * (MAX_TIERS + 1)),
+        ("n_frames", ctypes.c_int * MAX_TIERS),
+        ("t_up", ctypes.c_int * MAX_TIERS),
+        ("head_in", ctypes.c_int * MAX_HEAD),
+        ("head_out", ctypes.c_int * MAX_HEAD),
+        ("n_up", ctypes.c_int),
+        ("B", ctypes.c_int),
+        ("n_steps", ctypes.c_int),
+        ("W", ctypes.c_int),
+        ("d", ctypes.c_int),
+        ("n_heads", ctypes.c_int),
+        ("ff", ctypes.c_int),
+        ("n_layers", ctypes.c_int),
+        ("Q", ctypes.c_int),
+        ("n_head", ctypes.c_int),
+        ("rows", ctypes.c_int),
+        ("head_width", ctypes.c_int),
+        ("mish_ffn", ctypes.c_int),
+        ("argmax", ctypes.c_int),
+        ("seed", ctypes.c_uint),
+        ("temperature", ctypes.c_float),
+        ("min_temperature", ctypes.c_float),
+        ("inv_sqrt_dh", ctypes.c_float),
+    ]
+
+
+def _fill_args(a, pack: JukeBoxPack) -> None:
+    off = lambda name: pack.offsets[name][0]  # noqa: E731
+    for i in range(pack.n_up):
+        a.off_in_w[i], a.off_in_b[i], a.off_pe[i] = off(f"win.{i}"), off(f"bin.{i}"), off(f"pe.{i}")
+        a.off_ckv_w[i], a.off_ckv_b[i] = off(f"wckv.{i}"), off(f"bckv.{i}")
+        a.off_up_w[i], a.off_up_b[i] = off(f"wup.{i}"), off(f"bup.{i}")
+        for k, kind in enumerate(LAYER_KINDS):
+            a.off_layer[i][k] = off(f"{kind}.{i}.0")
+        a.layer_stride[i] = pack.layer_strides[i]
+        a.n_frames[i], a.t_up[i] = pack.n_frames[i], pack.t_up[i]
+    for i, f in enumerate(pack.frames):
+        a.frame[i] = f
+    a.off_bot_w, a.off_bot_b = off("wbot"), off("bbot")
+    for k, (d_in, d_out) in enumerate(pack.head_dims):
+        a.off_wh[k], a.off_bh[k] = off(f"wh{k}"), off(f"bh{k}")
+        a.head_in[k], a.head_out[k] = d_in, d_out
+    a.n_up, a.W, a.d, a.n_heads, a.ff = pack.n_up, pack.window, pack.dim, pack.n_heads, pack.ff
+    a.n_layers, a.Q, a.n_head = pack.n_layers, pack.q_levels, len(pack.head_dims)
+    a.rows = max(pack.n_frames)
+    a.head_width = max(w for dims in pack.head_dims for w in dims)
+    a.mish_ffn = int(pack.mish_ffn)
+    a.min_temperature = pack.min_temperature
+    a.inv_sqrt_dh = float(np.float32(1.0 / np.sqrt(pack.dim // pack.n_heads)))
+
+
+def _check_pack(pack: JukeBoxPack, dev) -> None:
+    _check(pack.flat, "weights", torch.float32, pack.flat.shape, dev)
+    if not _fits(pack.window, pack.dim, pack.ff, pack.n_layers, pack.n_frames, pack.t_up,
+                 pack.head_dims):
+        raise ValueError("the net is outside the tier-pyramid kernel's limits")
+
+
+class _Kernel:
+    """The built library (one per process) and its compiler output."""
+
+    lib = None
+    build_log = ""
+
+
+def build_kernel() -> Path:
+    """Compile ``csrc/jukebox_decode.cu`` for sm_90a into ``build/kernels/``
+    (see :mod:`.nvcc`) and return the library's path."""
+    path, log = build_library(SOURCE, "mmk_jukebox")
+    if log:
+        _Kernel.build_log = log
+    return path
+
+
+def _library():
+    if _Kernel.lib is None:
+        lib = ctypes.CDLL(str(build_kernel()))
+        lib.mmk_jb_decode.argtypes = [ctypes.POINTER(_Args), ctypes.c_void_p]
+        lib.mmk_jb_decode.restype = ctypes.c_int
+        lib.mmk_jb_args_size.argtypes = []
+        lib.mmk_jb_args_size.restype = ctypes.c_int
+        lib.mmk_jb_error_string.argtypes = [ctypes.c_int]
+        lib.mmk_jb_error_string.restype = ctypes.c_char_p
+        if lib.mmk_jb_args_size() != ctypes.sizeof(_Args):
+            raise RuntimeError("JbArgs layout differs between C and Python")
+        _Kernel.lib = lib
+    return _Kernel.lib
+
+
+def _launch(pack: JukeBoxPack, window: torch.Tensor, t0: int, n_steps: int, seed: int,
+            temperature: Optional[float]) -> torch.Tensor:
+    dev = pack.flat.device
+    if dev.type != "cuda":
+        raise ValueError(f"the tier-pyramid decode kernel runs on CUDA tensors, got {dev}")
+    B = window.shape[0]
+    _check_pack(pack, dev)
+    _check(window, "window", torch.int32, (B, pack.window), dev)
+    if temperature is not None and not temperature > 0:
+        raise ValueError(f"temperature must be > 0, got {temperature}")
+    out = torch.empty(B, n_steps, dtype=torch.int32, device=dev)
+    if n_steps == 0 or B == 0:
+        return out
+    lib = _library()
+    a = _Args()
+    _fill_args(a, pack)
+    a.B, a.n_steps, a.t0 = B, n_steps, t0
+    a.argmax = int(temperature is None)
+    a.seed = seed & 0xFFFFFFFF
+    a.temperature = 1.0 if temperature is None else float(temperature)
+    a.w, a.window, a.out = pack.flat.data_ptr(), window.data_ptr(), out.data_ptr()
+    err = lib.mmk_jb_decode(ctypes.byref(a), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError("tier-pyramid decode kernel launch failed: "
+                           f"{lib.mmk_jb_error_string(err).decode()}")
+    decode_pyramid.launches += 1
+    return out
+
+
+def decode_pyramid(pack: JukeBoxPack, window: torch.Tensor, t0: int, n_steps: int, seed: int,
+                   temperature: Optional[float]) -> torch.Tensor:
+    """K8's route: decode ``n_steps`` tokens from the (B, W) int32 lead
+    ``window`` in one launch, the first at absolute position ``t0`` (its
+    noise keyed by that position).  Returns (B, n_steps) int32 and leaves
+    the advanced window in ``window``."""
+    if window.device.type == "cpu":
+        return decode_pyramid_plain(pack, window, t0, n_steps, seed, temperature)
+    return _launch(pack, window, t0, n_steps, seed, temperature)
+
+
+decode_pyramid.launches = 0

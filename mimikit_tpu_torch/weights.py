@@ -24,6 +24,15 @@ same for SimpleTransformer, the inverse pair of
 dH) become the rows of torch's packed ``in_proj_weight`` (3d, d), the out
 kernel (nH, dH, d) ``out_proj.weight`` (d, d), ``ln{k}`` ``norm{k}``, and the
 final norm ``model.norm``.
+
+``jukebox_state_dict_from_jax`` and ``jukebox_params_to_jax`` do the same for
+JukeBox under the names of PyTorch mimikit's JukeBox, which ``migrate``
+reads for it (``migrate.py:467-492,378-414``): tier i's decoder layers are
+``tiers.{i}.model.layers.{l}.*`` (SimpleTransformer's per-layer names), its
+framed dense ``tiers.{i}.input_module.heads.{j}.2``, its up-sampler
+``tiers.{i}.up_sampler.fc``, and the bottom tier's framed conv
+``tiers.{n-1}.input_module.heads.{j}.2.2.cv.weight`` (out, 1, k), the flax
+(k, out) kernel transposed.
 """
 from __future__ import annotations
 
@@ -40,6 +49,8 @@ __all__ = [
     "wavenet_params_to_jax",
     "transformer_state_dict_from_jax",
     "transformer_params_to_jax",
+    "jukebox_state_dict_from_jax",
+    "jukebox_params_to_jax",
 ]
 
 _GATES = "ifgo"
@@ -263,7 +274,49 @@ def wavenet_params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
 
 # SimpleTransformer attention: flax submodule -> torch's attention module name
 _ATTN = {"self_attn": "self_attn", "cross_attn": "multihead_attn"}
+_FLAX_ATTN = {v: k for k, v in _ATTN.items()}
 _QKV = ("query", "key", "value")
+
+
+def _stack_from_jax(node: Mapping, base: str, sd: Dict[str, np.ndarray]) -> None:
+    """A flax ``DecoderStack``'s params (``block{l}``, ``final_ln``) -> the
+    port's ``{base}.layers.{l}.*`` and ``{base}.norm.*``."""
+    for blk, p in node.items():
+        if blk == "final_ln":
+            sd[f"{base}.norm.weight"] = np.asarray(p["scale"])
+            sd[f"{base}.norm.bias"] = np.asarray(p["bias"])
+            continue
+        m = re.fullmatch(r"block(\d+)", blk)
+        if not m:
+            raise ValueError(f"unmapped transformer parameter {base}/{blk}")
+        layer = f"{base}.layers.{m.group(1)}"
+        for sub, q in p.items():
+            if sub in _ATTN:
+                a = f"{layer}.{_ATTN[sub]}"
+                d = np.asarray(q["out"]["kernel"]).shape[-1]
+                sd[f"{a}.in_proj_weight"] = np.concatenate(
+                    [np.asarray(q[k]["kernel"]).reshape(d, d).T for k in _QKV])
+                sd[f"{a}.in_proj_bias"] = np.concatenate(
+                    [np.asarray(q[k]["bias"]).reshape(d) for k in _QKV])
+                sd[f"{a}.out_proj.weight"] = np.asarray(q["out"]["kernel"]).reshape(d, d).T
+                sd[f"{a}.out_proj.bias"] = np.asarray(q["out"]["bias"])
+            elif re.fullmatch(r"ln[123]", sub):
+                sd[f"{layer}.norm{sub[2]}.weight"] = np.asarray(q["scale"])
+                sd[f"{layer}.norm{sub[2]}.bias"] = np.asarray(q["bias"])
+            elif re.fullmatch(r"Dense_[01]", sub):
+                k = int(sub[-1]) + 1
+                sd[f"{layer}.linear{k}.weight"] = np.asarray(q["kernel"]).T
+                sd[f"{layer}.linear{k}.bias"] = np.asarray(q["bias"])
+            else:
+                raise ValueError(f"unmapped transformer parameter {base}/{blk}/{sub}")
+
+
+def _head_from_jax(node: Mapping, j: str, sd: Dict[str, np.ndarray]) -> None:
+    """An MLP head's ``estimator/core/Dense_{k}`` -> ``output_modules.{j}.estimator.0.fc.{2k}``."""
+    for dname, d_ in node["estimator"]["core"].items():
+        base = f"output_modules.{j}.estimator.0.fc.{2 * int(dname.split('_')[1])}"
+        sd[f"{base}.weight"] = np.asarray(d_["kernel"]).T
+        sd[f"{base}.bias"] = np.asarray(d_["bias"])
 
 
 def transformer_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
@@ -277,45 +330,69 @@ def transformer_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
                 node["core"]["Embed_0"]["embedding"])
             continue
         if name == "model":
-            for blk, p in node.items():
-                if blk == "final_ln":
-                    sd["model.norm.weight"] = np.asarray(p["scale"])
-                    sd["model.norm.bias"] = np.asarray(p["bias"])
-                    continue
-                m = re.fullmatch(r"block(\d+)", blk)
-                if not m:
-                    raise ValueError(f"unmapped SimpleTransformer parameter model/{blk}")
-                base = f"model.layers.{m.group(1)}"
-                for sub, q in p.items():
-                    if sub in _ATTN:
-                        a = f"{base}.{_ATTN[sub]}"
-                        d = np.asarray(q["out"]["kernel"]).shape[-1]
-                        sd[f"{a}.in_proj_weight"] = np.concatenate(
-                            [np.asarray(q[k]["kernel"]).reshape(d, d).T for k in _QKV])
-                        sd[f"{a}.in_proj_bias"] = np.concatenate(
-                            [np.asarray(q[k]["bias"]).reshape(d) for k in _QKV])
-                        sd[f"{a}.out_proj.weight"] = np.asarray(q["out"]["kernel"]).reshape(d, d).T
-                        sd[f"{a}.out_proj.bias"] = np.asarray(q["out"]["bias"])
-                    elif re.fullmatch(r"ln[123]", sub):
-                        sd[f"{base}.norm{sub[2]}.weight"] = np.asarray(q["scale"])
-                        sd[f"{base}.norm{sub[2]}.bias"] = np.asarray(q["bias"])
-                    elif re.fullmatch(r"Dense_[01]", sub):
-                        k = int(sub[-1]) + 1
-                        sd[f"{base}.linear{k}.weight"] = np.asarray(q["kernel"]).T
-                        sd[f"{base}.linear{k}.bias"] = np.asarray(q["bias"])
-                    else:
-                        raise ValueError(f"unmapped SimpleTransformer parameter model/{blk}/{sub}")
+            _stack_from_jax(node, "model", sd)
             continue
         m = re.fullmatch(r"output_modules_(\d+)", name)
         if m:
-            for dname, d_ in node["estimator"]["core"].items():
-                k = int(dname.split("_")[1])
-                base = f"output_modules.{m.group(1)}.estimator.0.fc.{2 * k}"
-                sd[f"{base}.weight"] = np.asarray(d_["kernel"]).T
-                sd[f"{base}.bias"] = np.asarray(d_["bias"])
+            _head_from_jax(node, m.group(1), sd)
             continue
         raise ValueError(f"unmapped SimpleTransformer parameter {name}")
     return _to_torch(sd)
+
+
+def _stack_key_to_jax(tree: Dict, key: str, v: np.ndarray, base: str, flax_base: str,
+                      n_heads: int) -> bool:
+    """Map one ``{base}.layers.{l}.*`` or ``{base}.norm.*`` entry of a
+    decoder stack onto the flax tree under ``flax_base``; False when ``key``
+    is not one."""
+    b = re.escape(base)
+    m = re.fullmatch(rf"{b}\.norm\.(weight|bias)", key)
+    if m:
+        _put(tree, f"{flax_base}/final_ln/{'scale' if m.group(1) == 'weight' else 'bias'}", v)
+        return True
+    m = re.fullmatch(rf"{b}\.layers\.(\d+)\.(self_attn|multihead_attn)\.(.+)", key)
+    if m:
+        i, attn, what = m.groups()
+        blk = f"{flax_base}/block{i}/{_FLAX_ATTN[attn]}"
+        d = v.shape[-1]
+        if what == "in_proj_weight":
+            for k, w in zip(_QKV, np.split(v, 3)):
+                _put(tree, f"{blk}/{k}/kernel", w.T.reshape(d, n_heads, d // n_heads))
+        elif what == "in_proj_bias":
+            d = v.shape[0] // 3
+            for k, b_ in zip(_QKV, np.split(v, 3)):
+                _put(tree, f"{blk}/{k}/bias", b_.reshape(n_heads, d // n_heads))
+        elif what == "out_proj.weight":
+            _put(tree, f"{blk}/out/kernel", v.T.reshape(n_heads, d // n_heads, d))
+        elif what == "out_proj.bias":
+            _put(tree, f"{blk}/out/bias", v)
+        else:
+            raise ValueError(f"unmapped transformer state_dict entry {key}")
+        return True
+    m = re.fullmatch(rf"{b}\.layers\.(\d+)\.norm([123])\.(weight|bias)", key)
+    if m:
+        i, k, what = m.groups()
+        _put(tree, f"{flax_base}/block{i}/ln{k}/{'scale' if what == 'weight' else 'bias'}", v)
+        return True
+    m = re.fullmatch(rf"{b}\.layers\.(\d+)\.linear([12])\.(weight|bias)", key)
+    if m:
+        i, k, what = m.groups()
+        _put(tree, f"{flax_base}/block{i}/Dense_{int(k) - 1}/"
+                   f"{'kernel' if what == 'weight' else 'bias'}", v.T if what == "weight" else v)
+        return True
+    return False
+
+
+def _head_key_to_jax(tree: Dict, key: str, v: np.ndarray) -> bool:
+    """Map one ``output_modules.{j}.estimator.0.fc.{2k}`` entry; False when
+    ``key`` is not one."""
+    m = re.fullmatch(r"output_modules\.(\d+)\.estimator\.0\.fc\.(\d+)\.(weight|bias)", key)
+    if not m:
+        return False
+    j, k, what = m.groups()
+    base = f"output_modules_{j}/estimator/core/Dense_{int(k) // 2}"
+    _put(tree, f"{base}/{'kernel' if what == 'weight' else 'bias'}", v.T if what == "weight" else v)
+    return True
 
 
 def transformer_params_to_jax(state_dict: Mapping[str, torch.Tensor], n_heads: int) -> Dict:
@@ -325,52 +402,86 @@ def transformer_params_to_jax(state_dict: Mapping[str, torch.Tensor], n_heads: i
     (the net's ``config.n_heads``)."""
     sd = {k: v.detach().cpu().numpy().astype(np.float32) for k, v in state_dict.items()}
     tree: Dict = {}
-    flax_attn = {v: k for k, v in _ATTN.items()}
     for key, v in sd.items():
         m = re.fullmatch(r"input_module\.heads\.(\d+)\.0\.weight", key)
         if m:
             _put(tree, f"input_heads_{m.group(1)}/core/Embed_0/embedding", v)
             continue
-        m = re.fullmatch(r"model\.norm\.(weight|bias)", key)
-        if m:
-            _put(tree, f"model/final_ln/{'scale' if m.group(1) == 'weight' else 'bias'}", v)
+        if _stack_key_to_jax(tree, key, v, "model", "model", n_heads):
             continue
-        m = re.fullmatch(r"model\.layers\.(\d+)\.(self_attn|multihead_attn)\.(.+)", key)
-        if m:
-            i, attn, what = m.groups()
-            base = f"model/block{i}/{flax_attn[attn]}"
-            d = v.shape[-1]
-            if what == "in_proj_weight":
-                for k, w in zip(_QKV, np.split(v, 3)):
-                    _put(tree, f"{base}/{k}/kernel", w.T.reshape(d, n_heads, d // n_heads))
-            elif what == "in_proj_bias":
-                d = v.shape[0] // 3
-                for k, b in zip(_QKV, np.split(v, 3)):
-                    _put(tree, f"{base}/{k}/bias", b.reshape(n_heads, d // n_heads))
-            elif what == "out_proj.weight":
-                _put(tree, f"{base}/out/kernel", v.T.reshape(n_heads, d // n_heads, d))
-            elif what == "out_proj.bias":
-                _put(tree, f"{base}/out/bias", v)
-            else:
-                raise ValueError(f"unmapped SimpleTransformer state_dict entry {key}")
-            continue
-        m = re.fullmatch(r"model\.layers\.(\d+)\.norm([123])\.(weight|bias)", key)
-        if m:
-            i, k, what = m.groups()
-            _put(tree, f"model/block{i}/ln{k}/{'scale' if what == 'weight' else 'bias'}", v)
-            continue
-        m = re.fullmatch(r"model\.layers\.(\d+)\.linear([12])\.(weight|bias)", key)
-        if m:
-            i, k, what = m.groups()
-            base = f"model/block{i}/Dense_{int(k) - 1}"
-            _put(tree, f"{base}/{'kernel' if what == 'weight' else 'bias'}",
-                 v.T if what == "weight" else v)
-            continue
-        m = re.fullmatch(r"output_modules\.(\d+)\.estimator\.0\.fc\.(\d+)\.(weight|bias)", key)
-        if not m:
+        if not _head_key_to_jax(tree, key, v):
             raise ValueError(f"unmapped SimpleTransformer state_dict entry {key}")
-        j, k, what = m.groups()
-        base = f"output_modules_{j}/estimator/core/Dense_{int(k) // 2}"
-        _put(tree, f"{base}/{'kernel' if what == 'weight' else 'bias'}",
-             v.T if what == "weight" else v)
+    return tree
+
+
+def jukebox_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX JukeBox params -> the port's ``JukeBox`` state_dict (CPU f32)."""
+    sd: Dict[str, np.ndarray] = {}
+    for name, node in params.items():
+        m = re.fullmatch(r"tiers_(\d+)", name)
+        if m:
+            base = f"tiers.{m.group(1)}"
+            for sub, p in node.items():
+                if sub == "model":
+                    _stack_from_jax(p, f"{base}.model", sd)
+                elif sub == "up_sampler":
+                    sd[f"{base}.up_sampler.fc.weight"] = np.asarray(p["Dense_0"]["kernel"]).T
+                    sd[f"{base}.up_sampler.fc.bias"] = np.asarray(p["Dense_0"]["bias"])
+                elif sub == "input_module":
+                    for head, h in p.items():
+                        j = re.fullmatch(r"heads_(\d+)", head).group(1)
+                        core, pre = h["core"], f"{base}.input_module.heads.{j}.2"
+                        if "Dense_0" in core:
+                            sd[f"{pre}.weight"] = np.asarray(core["Dense_0"]["kernel"]).T
+                            sd[f"{pre}.bias"] = np.asarray(core["Dense_0"]["bias"])
+                        else:  # the bottom's framed conv: (k, out) -> (out, 1, k)
+                            d_ = core["Conv1dResampler_0"]["Dense_0"]
+                            sd[f"{pre}.2.cv.weight"] = np.asarray(d_["kernel"]).T[:, None, :]
+                            sd[f"{pre}.2.cv.bias"] = np.asarray(d_["bias"])
+                else:
+                    raise ValueError(f"unmapped JukeBox parameter {name}/{sub}")
+            continue
+        m = re.fullmatch(r"output_modules_(\d+)", name)
+        if not m:
+            raise ValueError(f"unmapped JukeBox parameter {name}")
+        _head_from_jax(node, m.group(1), sd)
+    return _to_torch(sd)
+
+
+def jukebox_params_to_jax(state_dict: Mapping[str, torch.Tensor], n_heads: int) -> Dict:
+    """The port's ``JukeBox`` state_dict -> the JAX JukeBox parameter tree
+    (nested dicts of f32 numpy arrays); ``n_heads`` as for
+    :func:`transformer_params_to_jax`."""
+    sd = {k: v.detach().cpu().numpy().astype(np.float32) for k, v in state_dict.items()}
+    tree: Dict = {}
+    for key, v in sd.items():
+        m = re.fullmatch(r"tiers\.(\d+)\.(.+)", key)
+        if m:
+            i, rest = m.groups()
+            if _stack_key_to_jax(tree, key, v, f"tiers.{i}.model", f"tiers_{i}/model", n_heads):
+                continue
+            mm = re.fullmatch(r"up_sampler\.fc\.(weight|bias)", rest)
+            if mm:
+                what = mm.group(1)
+                _put(tree, f"tiers_{i}/up_sampler/Dense_0/{'kernel' if what == 'weight' else 'bias'}",
+                     v.T if what == "weight" else v)
+                continue
+            mm = re.fullmatch(r"input_module\.heads\.(\d+)\.2\.(weight|bias)", rest)
+            if mm:
+                j, what = mm.groups()
+                _put(tree, f"tiers_{i}/input_module/heads_{j}/core/Dense_0/"
+                           f"{'kernel' if what == 'weight' else 'bias'}",
+                     v.T if what == "weight" else v)
+                continue
+            mm = re.fullmatch(r"input_module\.heads\.(\d+)\.2\.2\.cv\.(weight|bias)", rest)
+            if mm:
+                j, what = mm.groups()
+                base = f"tiers_{i}/input_module/heads_{j}/core/Conv1dResampler_0/Dense_0"
+                if what == "weight":  # (out, 1, k) -> (k, out)
+                    _put(tree, f"{base}/kernel", v[:, 0, :].T)
+                else:
+                    _put(tree, f"{base}/bias", v)
+                continue
+        if not _head_key_to_jax(tree, key, v):
+            raise ValueError(f"unmapped JukeBox state_dict entry {key}")
     return tree

@@ -6,7 +6,7 @@
   CUDA request on a machine without CUDA raises instead of running on the
   CPU;
 * on CPU tensors every kernel wrapper runs its plain twin and counts no
-  launch;
+  launch (the tier-pyramid decode leaves its advanced window in place);
 * on a machine with a card, ``chip_smoke.py --quick`` builds the kernels
   and holds them against their plain twins (marked ``cuda``; skipped
   without a card).
@@ -61,6 +61,12 @@ _CUDA_CALLS = [
     "td._launch(tpack, torch.zeros(1, 16, dtype=torch.int32), 4, 16, 0, None)",
     "td.decode_window(tpack, torch.zeros(1, 16, dtype=torch.int32, device='cuda'), 4, 0, None)",
     "tk.decode_chunk(tpack, torch.zeros(16, 2, dtype=torch.int32, device='cuda'), tst, 1, 4, None, 0)",
+    "mmk.JukeBox.from_config(jcfg)",
+    "mmk.JukeBox.from_config(jcfg, device='cuda')",
+    "jbd._launch(jpack, torch.zeros(1, 16, dtype=torch.int32), 16, 4, 0, None)",
+    "jbd.decode_pyramid(jpack, torch.zeros(1, 16, dtype=torch.int32, device='cuda'), 16, 4, 0, None)",
+    "mu.mulaw_compress(torch.zeros(8, device='cuda'))",
+    "mu.mulaw_expand(torch.zeros(8, dtype=torch.int32, device='cuda'))",
 ]
 
 _PROBE = """
@@ -68,6 +74,8 @@ import json, sys
 import torch, mimikit_tpu_torch as mmk
 from mimikit_tpu_torch.ops import categorical as cat
 from mimikit_tpu_torch.ops import fused_lstm as fl
+from mimikit_tpu_torch.ops import jukebox_decode as jbd
+from mimikit_tpu_torch.ops import mulaw as mu
 from mimikit_tpu_torch.ops import samplernn_decode as sd
 from mimikit_tpu_torch.ops import transformer_decode as td
 from mimikit_tpu_torch.ops import transformer_kv as tk
@@ -94,6 +102,9 @@ tcfg = mmk.SimpleTransformer.Config(io_spec=wio, model_dim=16, n_heads=2, feedfo
 tpack = td.transformer_weight_pack(mmk.SimpleTransformer.from_config(tcfg, device="cpu"))
 tp = torch.zeros(2, 16, dtype=torch.int32)
 tst = tk.init_kv_state(tpack, tp)
+jcfg = mmk.JukeBox.Config(io_spec=io, frame_sizes=(8, 4, 2), model_dim=16, n_heads=2,
+                          feedforward_dim=32, num_layers=1, rf=16)
+jpack = jbd.jukebox_weight_pack(mmk.JukeBox.from_config(jcfg, device="cpu"))
 for call in CALLS:
     try:
         eval(call)
@@ -114,6 +125,12 @@ out = td.decode_window(tpack, tp, 4, 0, None)
 res["cpu_tf_window"] = [list(out.shape), td.decode_window.launches]
 out = tk.decode_chunk(tpack, tp.t().contiguous(), tst, 1, 20, 0.9, 0)
 res["cpu_tf_chunk"] = [list(out.shape), tk.decode_chunk.launches]
+win = torch.zeros(2, 16, dtype=torch.int32)
+out = jbd.decode_pyramid(jpack, win, 16, 5, 0, 0.9)
+res["cpu_jb"] = [list(out.shape), jbd.decode_pyramid.launches, bool((win[:, -1] == 0).all()),
+                 win[:, -6:-1].tolist() == out.tolist()]
+out = mu.mulaw_expand(mu.mulaw_compress(torch.linspace(-1, 1, 9)))
+res["cpu_mulaw"] = [list(out.shape), mu.mulaw_compress.launches, mu.mulaw_expand.launches]
 print(json.dumps(res))
 """
 
@@ -176,6 +193,17 @@ def test_cpu_tensors_take_the_plain_transformer_decodes(probe):
     tensors run their plain twins and count no kernel launch."""
     assert probe["cpu_tf_window"] == [[2, 4], 0]
     assert probe["cpu_tf_chunk"] == [[2, 20], 0]
+
+
+def test_cpu_tensors_take_the_plain_pyramid_decode(probe):
+    """The tier-pyramid decode wrapper on CPU tensors runs the plain twin,
+    counts no kernel launch and leaves the advanced window in place: the
+    tokens in the slots before the placeholder, the placeholder zero."""
+    assert probe["cpu_jb"] == [[2, 5], 0, True, True]
+
+
+def test_cpu_tensors_take_the_plain_mulaw(probe):
+    assert probe["cpu_mulaw"] == [[9], 0, 0]
 
 
 @pytest.mark.cuda

@@ -7,9 +7,11 @@ frameworks are kept in separate processes).  Every test module runs one
 worker process for all of its cases and exchanges arrays through ``.npz``:
 JAX parameter trees travel flattened with ``/``-joined keys.
 """
+import copy
 import json
 import os
 import sys
+import warnings
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -510,7 +512,7 @@ def transformer_task(inp: dict) -> dict:
             sub = int(torch.randint(0, 2**31 - 1, (1,), generator=seeds))
             full = net.generate((buf,), 9, temperature=0.9, seed=sub)[0]
             chunks.append(full[:, buf.shape[1]:].numpy())
-            buf = full[:, -(rf + 1):]
+            buf = full[:, -net._window_len():]
         out[p + "refeed_generates"] = np.concatenate(chunks, 1)
 
     for tag in sorted({k.split("/")[0] for k in inp if k.startswith("stack_")}):
@@ -536,9 +538,144 @@ def transformer_task(inp: dict) -> dict:
     return out
 
 
+def load_jukebox(inp: dict, p: str):
+    """The port's JukeBox from the JAX-written YAML, with the JAX weights."""
+    cfg = mmk.Config.deserialize(str(inp[p + "yaml"]))
+    cfg.io_spec.bind_to({"signal": mmk.Extractor.signal()})
+    net = mmk.JukeBox.from_config(cfg, device="cpu").eval()
+    sd_ = mmk.jukebox_state_dict_from_jax(unflatten(inp, p + "params/"))
+    net.load_state_dict(sd_, strict=True)
+    return net, sd_
+
+
+def jukebox_task(inp: dict) -> dict:
+    """Per net: the train forward, the eval forward's blindness to the last
+    token, the gate, argmax generate at B = 1, 2, 4 and for a short and a
+    long prompt, the window route, generate_step, streams (argmax; sampled
+    over two chunkings), the weight maps, the YAML; the refused and unported
+    variants; the rf-12 re-feed stream; the banks."""
+    from mimikit_tpu_torch.loops.streaming import _refeed_stream
+    from mimikit_tpu_torch.ops import jukebox_decode as jbd
+
+    torch.set_num_threads(1)  # as wavenet_task
+    out = {}
+    n = int(inp["n_steps"])
+    for tag in sorted({k.split("/")[0] for k in inp if k.startswith("net_")}):
+        p = f"{tag}/"
+        net, sd_ = load_jukebox(inp, p)
+        W = net._window_len()
+        out[p + "yaml_back"] = np.array(net.config.serialize())
+        out.update({f"{p}sd/{k}": v.numpy() for k, v in sd_.items()})
+        out.update(_flat_tree(mmk.jukebox_params_to_jax(net.state_dict(), net.config.n_heads),
+                              p + "back/"))
+        out[p + "state_dict_keys"] = np.array(sorted(net.state_dict()))
+        seq = t(inp[p + "seq"])
+        changed = seq.clone()
+        changed[:, -1] = (changed[:, -1] + 7) % net.config.io_spec.inputs[0].elem_type.size
+        with torch.no_grad():
+            out[p + "forward"] = net.train()((seq,))[0].numpy()
+            out[p + "eval"] = net.eval()((seq,))[0].numpy()
+            out[p + "eval_last_changed"] = net((changed,))[0].numpy()
+        in_gate = jbd.supports_kernel_decode(net)
+        out[p + "in_gate"] = np.array(in_gate)
+        launches = jbd.decode_pyramid.launches
+        for B in (1, 2, 4):
+            out[f"{p}generate_b{B}"] = net.generate((inp[f"{p}prompt{B}"],), n)[0].numpy()
+        out[p + "short"] = net.generate((inp[p + "short"],), n)[0].numpy()
+        out[p + "long"] = net.generate((inp[p + "long"],), n)[0].numpy()
+        out[p + "launches_on_cpu"] = np.array(jbd.decode_pyramid.launches - launches)
+        full = t(out[p + "generate_b2"])
+        out[p + "generate_step"] = np.stack(
+            [net.generate_step((full[:, k - W : k],), t=k)[0].reshape(-1).numpy()
+             for k in range(W, W + 8)], 1)
+        p2 = inp[p + "prompt2"]
+        out[p + "stream_b2"] = _stream(net, p2, 8, 3)
+        if not in_gate:
+            continue
+        out[p + "window_loop_b2"] = net._window_loop(t(p2), n, None, 0).numpy()
+        out[p + "stream_b1"] = _stream(net, inp[p + "prompt1"], 8, 3)
+        out[p + "sampled_a"] = net.generate((p2,), n, temperature=0.9, seed=5)[0].numpy()
+        out[p + "sampled_b"] = net.generate((p2,), n, temperature=0.9, seed=5)[0].numpy()
+        out[p + "sampled_c7"] = _stream(net, p2, 7, 3, temperature=0.9, seed=5)
+        out[p + "sampled_c9"] = _stream(net, p2, 9, 3, temperature=0.9, seed=5)
+
+    for tag in sorted({k.split("/")[0] for k in inp if k.startswith("refused_")}):
+        cfg = mmk.Config.deserialize(str(inp[f"{tag}/yaml"]))
+        cfg.io_spec.bind_to({"signal": mmk.Extractor.signal()})
+        flip = cfg.ref_compat  # the port builds no ref_compat net: the flag is set afterwards
+        cfg.ref_compat = False
+        net = mmk.JukeBox.from_config(cfg, device="cpu")
+        net.config.ref_compat = flip
+        out[f"{tag}/in_gate"] = np.array(jbd.supports_kernel_decode(net))
+
+    cfg = mmk.Config.deserialize(str(inp["wide/yaml"]))
+    cfg.io_spec.bind_to({"signal": mmk.Extractor.signal()})
+    wide = mmk.JukeBox.from_config(cfg, device="cpu")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        out["wide/in_gate"] = np.array(jbd.supports_kernel_decode(wide))
+    out["wide/warnings"] = np.array([str(w.message) for w in caught], dtype=str)
+
+    base = mmk.Config.deserialize(str(inp["net_f842/yaml"]))
+    base.io_spec.bind_to({"signal": mmk.Extractor.signal()})
+    emb = mmk.IOSpec.mulaw_io(mmk.IOSpec.MuLawIOConfig(q_levels=32, mlp_dim=16,
+                                                       input_module_type="embedding"))
+    for what, cfg in (("ref_compat", dict(ref_compat=True)), ("weight_norm", dict(weight_norm=True)),
+                      ("embedding", dict(io_spec=emb))):
+        variant = copy.deepcopy(base)
+        for k, v in cfg.items():
+            setattr(variant, k, v)
+        try:
+            mmk.JukeBox.from_config(variant, device="cpu")
+            out[f"unported/{what}"] = np.array("ran")
+        except NotImplementedError as e:
+            out[f"unported/{what}"] = np.array(f"NotImplementedError: {e}")
+
+    net, _ = load_jukebox(inp, "rf12/")
+    prompt = t(inp["rf12/prompt"])
+    it = _refeed_stream(net, prompt, 8, None, 0)
+    out["rf12/refeed"] = np.concatenate([next(it) for _ in range(4)], 1)
+    it.close()
+    buf, chunks = prompt, []
+    for _ in range(4):  # re-feeding rf + 1 tokens instead of the window
+        full = net.generate((buf,), 8)[0]
+        chunks.append(full[:, buf.shape[1]:].numpy())
+        buf = full[:, -(net.rf + 1):]
+    out["rf12/refeed_rf1"] = np.concatenate(chunks, 1)
+
+    net, _ = load_jukebox(inp, "net_f842/")
+    root = str(inp["bank_root"])
+    ck = mmk.Checkpoint("jb_jax", 1, root, device="cpu")
+    out["bank/jax_tokens"] = ck.network.generate((inp["net_f842/prompt1"],), n)[0].numpy()
+    out["bank/jax_type"] = np.array(type(ck.network).__name__)
+    mmk.Checkpoint("jb_port", 1, root).create(net)
+    return out
+
+
+def mulaw_task(inp: dict) -> dict:
+    """The K10 wrappers on CPU tensors (their plain twins) for every input
+    and level; their launch counts; whether importing the module loaded
+    triton."""
+    from mimikit_tpu_torch.ops import mulaw
+
+    out = {"triton_loaded": np.array("triton" in sys.modules)}
+    for key, x in inp.items():
+        if key.startswith("q/"):
+            _, name, q, c = key.split("/")
+            out[f"expand/{name}/{q}/{c}"] = mulaw.mulaw_expand(t(x), int(q), float(c)).numpy()
+        else:
+            for q, c in ((256, 1.0), (256, 0.5), (32, 1.0), (32, 0.5)):
+                out[f"compress/{key[2:]}/{q}/{c}"] = mulaw.mulaw_compress(t(x), q, c).numpy()
+    x = t(inp["x/randn"])
+    out["cpu/launches"] = np.array([mulaw.mulaw_compress.launches, mulaw.mulaw_expand.launches])
+    out["cpu/equal_plain"] = np.array(torch.equal(mulaw.mulaw_compress(x), mulaw.mulaw_compress_plain(x)))
+    return out
+
+
 TASKS = {"modules": modules_task, "sample_rnn": sample_rnn_task, "fused_lstm": fused_lstm_task,
          "train": train_task, "wavenet": wavenet_task, "categorical": categorical_task,
-         "transformer": transformer_task}
+         "transformer": transformer_task, "jukebox": jukebox_task,
+         "mulaw": mulaw_task}
 
 if __name__ == "__main__":
     task, src, dst = sys.argv[1:4]
