@@ -28,9 +28,11 @@ Phases (any failure exits non-zero; no exception is swallowed):
    step on the CPU (plain versions): loss within 1e-5 relative, every
    parameter's gradient within 1e-5 + 1e-3 * max|plain|; the WaveNet decode
    kernel and the categorical sampler as the SampleRNN decode; the
-   transformer kernels by teacher forcing too, K6 (``decode_window``) at B=1
-   and B=2, K7 (``decode_chunk``) at B=1 and B=16 over several chunk
-   lengths, the state carried, at a small size and at full width; the
+   transformer kernels by teacher forcing too, K6 (``decode_window``) at
+   B=1, 2 and 16 and K7 (``decode_chunk``) at B=1, 16 and 32, each over
+   several chunk lengths (K6's window, K7's state carried; the tokens must
+   not change), at a small size and at full width, with the grid barriers a
+   step each kernel's block 0 counted (4L + 1 and 3L + 1); the
    tier-pyramid kernel (``decode_pyramid``, K8) by teacher forcing at B=1
    and B=16 over several chunk lengths, the window carried, small and full
    width; the mu-law pair (K10) at 3,001 and 2,646,000 samples: compress
@@ -50,7 +52,9 @@ Phases (any failure exits non-zero; no exception is swallowed):
    re-feed ``stream_audio`` at B=1 (each one ``generate``), ``stream_audio``
    with ``MMK_DECODE_KV=1`` at B=1 and B=16 (one K7 launch a 1,600-step
    chunk; chunk latencies against the 100 ms of audio a chunk holds),
-   ``generate`` at B=16 (the batched window route), and a bank written and
+   ``generate`` at B=16 (one K6 launch), the batched window route at B=16
+   over 256 argmax steps as a yardstick (``transformer8l_win_b16``, no
+   kernel), and a bank written and
    reloaded through ``Checkpoint(...).network`` and decoded; jukebox3
    (``benchmarks/bench_decode.py:117-126``: frames (32, 16, 4), d 128, 8
    heads, ff 256, 2 layers a tier, rf 128) ``generate`` at B=1 and B=16 ×
@@ -76,7 +80,7 @@ Phases (any failure exits non-zero; no exception is swallowed):
 ``--quick`` runs phases 1-2 at the small size only (a build check);
 ``--bench`` runs phase 1, phase 3's timings without the checks, decode_chunk
 at B=256 for each number of streams a block owns, the LSTM kernels' timings,
-phase 4, the WaveNet streams-per-block sweep, K6 forced at B=16 against the
+phase 4, the WaveNet streams-per-block sweep, K6 at B=16 against the
 batched window route, K7 at B = 1, 4, 16 and 32, and the jukebox3 path with
 K8 at B = 1, 16 and 32.
 """
@@ -126,6 +130,14 @@ TF_FULL = dict(model_dim=256, n_heads=8, feedforward_dim=1024, num_layers=8, rf=
 TF_SMALL = dict(model_dim=32, n_heads=4, feedforward_dim=64, num_layers=2, rf=16, q_levels=32,
                 mlp_dim=16)
 TF_N, TF_N16, TF_KV_B, TF_KV_CHUNKS, TF_VERIFY, TF_PLAIN_STEPS = 4096, 256, 16, 6, 512, 64
+TF_WIN_BATCHES, TF_KV_BATCHES = (1, 2, 16), (1, 16, 32)  # phase 2's K6 and K7 checks
+# windows longer than an attention tile (TF_KT, 64 keys): the small net at rf 160
+# (three tiles, the last one partial), and transformer8l's widths at the rf 512 of
+# benchmarks/bench_train.py:331-335
+TF_SMALL_LONG = dict(TF_SMALL, rf=160)
+TF_LONG = dict(TF_FULL, rf=512)
+# K6 against the batched window route as B grows (generate's B limit), steps a call
+TF_SWEEP_BATCHES, TF_SWEEP_N = (16, 32, 40, 48, 64, 128, 256), 16
 # jukebox3 of benchmarks/bench_decode.py:117-126 (mulaw_io q 256, mlp 128, a framed-linear
 # input; frames (32, 16, 4), d 128, 8 heads, ff 256, 2 Mish post-norm layers a tier, rf
 # 128: a window of 128), and the JAX tests' small net of the same shape; generate B=1 and
@@ -141,6 +153,11 @@ MULAW_N = 2_646_000  # benchmarks/bench_preprocessing.py:33-59: 120 s at 22,050 
 
 def log(*a):
     print(*a, flush=True)
+
+
+def merge_max(a, b):
+    """{key: the larger of a's and b's value}."""
+    return {k: max(a.get(k, 0.0), b.get(k, 0.0)) for k in {**a, **b}}
 
 
 @contextlib.contextmanager
@@ -784,40 +801,73 @@ def kv_run(torch, tk, pack, prompt, n, chunk, temperature, seed):
     return torch.cat(parts, 1)[:, prior_t - 1 :]
 
 
-def check_transformer(torch, mmk, td, tk, spec, n, kv_batches, chunk_lens, jitter):
-    """Phase 2 for the transformer kernels at one size: K6 at B=1 and B=2, K7
-    at ``kv_batches`` over several chunk lengths, argmax and T=0.9; returns
+def window_run(torch, td, pack, prompt, n, chunk, temperature, seed):
+    """K6 over the n tokens after ``prompt`` in launches of ``chunk`` steps,
+    each launch's prompt the tokens so far (the window is K6's whole state,
+    and its noise is keyed by absolute position)."""
+    buf = prompt
+    while buf.shape[1] < prompt.shape[1] + n:
+        m = min(chunk, prompt.shape[1] + n - buf.shape[1])
+        buf = torch.cat([buf, td.decode_window(pack, buf, m, seed, temperature)], 1)
+    return buf[:, prompt.shape[1]:]
+
+
+def barriers_per_step(wrapper, n_steps):
+    """Grid barriers a step of the wrapper's last launch, as block 0 counted
+    them (one before the first step)."""
+    return (int(wrapper.last_barriers) - 1) / n_steps
+
+
+def check_transformer(torch, mmk, td, tk, spec, n, window_batches, kv_batches, chunk_lens,
+                      jitter):
+    """Phase 2 for the transformer kernels at one size: K6 at
+    ``window_batches`` and K7 at ``kv_batches``, each over several chunk
+    lengths (the tokens must not change), argmax and T=0.9; returns
     {wrapper: largest score gap}."""
     net = make_transformer(mmk, torch, td, spec, seed=1, jitter=jitter)
     pack = td.transformer_weight_pack(net)
-    rf, q = spec["rf"], spec["q_levels"]
+    rf, q, L = spec["rf"], spec["q_levels"], spec["num_layers"]
     err = {"transformer_decode_window": 0.0, "transformer_decode_chunk": 0.0}
     for temp in (None, TEMPERATURE):
         mode = "argmax" if temp is None else f"T={temp}"
-        for B in (1, 2):
+        for B in window_batches:
             prompt = make_prompt(torch, B, rf, q, seed=2 + B)
-            toks = td.decode_window(pack, prompt, n, 11, temp)
+            runs = [window_run(torch, td, pack, prompt, n, C, temp, 11) for C in chunk_lens]
             torch.cuda.synchronize()
-            if spec is TF_SMALL and temp is None and len(set(toks[0].tolist())) < 2:
+            per_step = barriers_per_step(td.decode_window, n % chunk_lens[-1] or chunk_lens[-1])
+            if per_step != 4 * L + 1:
+                raise AssertionError(f"K6 passed {per_step} grid barriers a step, not 4L + 1")
+            for C, r in zip(chunk_lens[1:], runs[1:]):
+                if not torch.equal(r, runs[0]):
+                    raise AssertionError(
+                        f"transformer decode_window with chunk {C} changed the tokens")
+            if temp is None and len(set(runs[0][0].tolist())) < 2:
                 raise AssertionError("K6 argmax tokens are constant: the check is vacuous")
-            gap, parted = verify_window(torch, td, pack, prompt, toks, 11, temp)
+            gap, parted = verify_window(torch, td, pack, prompt, runs[0], 11, temp)
             err["transformer_decode_window"] = max(err["transformer_decode_window"], gap)
-            log(f"  transformer decode_window B={B} n={n} {mode}: ok, max gap {gap:.3e},"
-                f" {parted} streams parted at near-ties")
+            log(f"  transformer decode_window rf={rf} B={B} n={n} chunks {chunk_lens} {mode}: ok,"
+                f" max gap"
+                f" {gap:.3e}, {parted} streams parted at near-ties; {per_step:g} grid barriers a"
+                f" step ({L} layers)")
         for B in kv_batches:
             prompt = make_prompt(torch, B, rf, q, seed=5 + B)
             runs = [kv_run(torch, tk, pack, prompt, n, C, temp, 13) for C in chunk_lens]
             torch.cuda.synchronize()
+            steps = rf + n - 1  # K7 runs positions 1 .. rf + n - 1
+            per_step = barriers_per_step(tk.decode_chunk, steps % chunk_lens[-1] or chunk_lens[-1])
+            if per_step != 3 * L + 1:
+                raise AssertionError(f"K7 passed {per_step} grid barriers a step, not 3L + 1")
             for C, r in zip(chunk_lens[1:], runs[1:]):
                 if not torch.equal(r, runs[0]):
                     raise AssertionError(
                         f"transformer decode_chunk with chunk {C} changed the tokens")
-            if spec is TF_SMALL and temp is None and len(set(runs[0][0].tolist())) < 2:
+            if temp is None and len(set(runs[0][0].tolist())) < 2:
                 raise AssertionError("K7 argmax tokens are constant: the check is vacuous")
             gap, parted = verify_kv(torch, tk, pack, prompt, runs[0], 13, temp)
             err["transformer_decode_chunk"] = max(err["transformer_decode_chunk"], gap)
-            log(f"  transformer decode_chunk B={B} n={n} chunks {chunk_lens} {mode}: ok,"
-                f" max gap {gap:.3e}, {parted} streams parted at near-ties")
+            log(f"  transformer decode_chunk rf={rf} B={B} n={n} chunks {chunk_lens} {mode}: ok,"
+                f" max gap {gap:.3e}, {parted} streams parted at near-ties; {per_step:g} grid"
+                f" barriers a step ({L} layers)")
     return err
 
 
@@ -919,10 +969,10 @@ def transformer_path(torch, mmk, td, tk):
     finally:
         del os.environ["MMK_DECODE_KV"]
 
-    # generate B=16: the batched window route (no kernel)
+    # generate B=16: one K6 launch
     p16 = prompts[TF_KV_B]
-    before = td.decode_window.launches
     net.generate((p16,), 8, temperature=TEMPERATURE, seed=SEED)
+    before = td.decode_window.launches
 
     def run16():
         outs[16] = net.generate((p16,), TF_N16, temperature=TEMPERATURE, seed=SEED)[0]
@@ -932,11 +982,35 @@ def transformer_path(torch, mmk, td, tk):
     toks = outs[16][:, rf:]
     if toks.shape != (16, TF_N16) or int(toks.min()) < 0 or int(toks.max()) >= q:
         raise AssertionError(f"transformer generate B=16: bad tokens {tuple(toks.shape)}")
-    if td.decode_window.launches != before:
-        raise AssertionError("transformer generate B=16 launched the B=1 window kernel")
-    log(f"  transformer generate B=16 n={TF_N16} T={TEMPERATURE} (batched window route):"
+    if td.decode_window.launches - before != 3:
+        raise AssertionError("transformer generate B=16 did not launch K6 once a call")
+    with uncounted(td.decode_window):
+        g16, parted = verify_window(torch, td, pack, p16, toks[:, :TF_N16], SEED, TEMPERATURE)
+    gap = max(gap, g16)
+    log(f"  transformer generate B=16 n={TF_N16} T={TEMPERATURE} (one K6 launch):"
         f" {16 * TF_N16 / (med / 1e3):.6g} samples/s ({1e3 * med / TF_N16:.2f} us a step; median"
-        f" of 3: {med:.3f} ms, spread {spr:.3%}; {ms})")
+        f" of 3: {med:.3f} ms, spread {spr:.3%}; {ms}); verified: max gap {g16:.3e}, {parted}"
+        f" streams parted at near-ties")
+
+    # the batched window route (no kernel), the yardstick transformer8l_win_b16
+    net._window_loop(p16, 2, TEMPERATURE, SEED)
+    win = {}
+
+    def run_win():
+        win["out"] = net._window_loop(p16, TF_N16, None, SEED)
+
+    w_ms, w_spr = spread(cuda_ms(torch, run_win, reps=3))
+    if td.decode_window.launches - before != 3:
+        raise AssertionError("the window route launched K6")
+    with uncounted(td.decode_window):
+        g, parted = verify_window(torch, td, pack, p16, win["out"][:, rf:].to(torch.int32), SEED,
+                                  None)
+    log(f"  transformer8l_win_b16: window route (_window_loop) B=16 x {TF_N16} argmax steps:"
+        f" {1e3 * w_ms / TF_N16:.1f} us a step (median of 3, spread {w_spr:.3%};"
+        f" {16 * TF_N16 / (w_ms / 1e3):.6g} samples/s); its tokens verified against K6's twin"
+        f" (max gap {g:.3e}, {parted} parted)")
+
+    route_sweep(torch, td, net, pack, rf, q)
 
     # a bank written by the port, reloaded through Checkpoint(...).network
     root = os.path.join(ROOT, "build", "chip_smoke_transformer")
@@ -958,6 +1032,30 @@ def transformer_path(torch, mmk, td, tk):
     if min(launches.values()) == 0:
         raise AssertionError(f"a kernel of the transformer path was never launched: {launches}")
     return net, prompts, launches, max(gap, g2)
+
+
+def route_sweep(torch, td, net, pack, rf, q):
+    """K6 against the batched window route at each of ``TF_SWEEP_BATCHES``
+    streams (argmax, ``TF_SWEEP_N`` steps a call): the measurement behind
+    ``SimpleTransformer._K6_MAX_BATCH``.  Checks that ``generate`` takes the
+    route the limit names at each B (its launches there are not the path's)."""
+    for B in TF_SWEEP_BATCHES:
+        prompt = make_prompt(torch, B, rf, q, seed=60 + B)
+        with uncounted(td.decode_window):
+            before = td.decode_window.launches
+            net.generate((prompt,), 1, seed=SEED)
+            if (td.decode_window.launches > before) != (B <= net._K6_MAX_BATCH):
+                raise AssertionError(f"transformer generate B={B} took the wrong route")
+            k_fn = lambda: td.decode_window(pack, prompt, TF_SWEEP_N, SEED, None)  # noqa: E731
+            k_fn()
+            k_ms, k_spr = spread(cuda_ms(torch, k_fn, reps=3))
+        w_fn = lambda: net._window_loop(prompt, TF_SWEEP_N, None, SEED)  # noqa: E731
+        w_fn()
+        w_ms, w_spr = spread(cuda_ms(torch, w_fn, reps=3))
+        route = "K6" if B <= net._K6_MAX_BATCH else "the window route"
+        log(f"  transformer B={B} x {TF_SWEEP_N} argmax steps: K6 {1e3 * k_ms / TF_SWEEP_N:.1f} us"
+            f" a step (spread {k_spr:.2%}), window route {1e3 * w_ms / TF_SWEEP_N:.1f} us a step"
+            f" (spread {w_spr:.2%}; medians of 3); generate takes {route}")
 
 
 def window_flops(pack, B):
@@ -1055,16 +1153,16 @@ def transformer_rows(torch, td, tk, net, prompts, launches, err):
 
 
 def transformer_bench(torch, mmk, td, tk):
-    """--bench: transformer8l's serving timings, K6 forced at B=16 against the
+    """--bench: transformer8l's serving timings, K6 at B=16 against the
     batched window route, and K7 at B = 1, 4, 16 and 32."""
     net, prompts, launches, _ = transformer_path(torch, mmk, td, tk)
     pack = td.transformer_weight_pack(net)
     rf, q = TF_FULL["rf"], TF_FULL["q_levels"]
     p16 = prompts[TF_KV_B]
     n = TF_N16
-    for name, fn in (("K6 forced", lambda: td.decode_window(pack, p16, n, SEED, TEMPERATURE)),
+    for name, fn in (("K6", lambda: td.decode_window(pack, p16, n, SEED, TEMPERATURE)),
                      ("batched window route", lambda: net._window_loop(p16, n, TEMPERATURE, SEED)),
-                     ("K6 forced", lambda: td.decode_window(pack, p16, n, SEED, TEMPERATURE)),
+                     ("K6", lambda: td.decode_window(pack, p16, n, SEED, TEMPERATURE)),
                      ("batched window route", lambda: net._window_loop(p16, n, TEMPERATURE, SEED))):
         fn()
         med, spr = spread(cuda_ms(torch, fn, reps=3))
@@ -1787,8 +1885,10 @@ def main(argv=None) -> int:
     err.update(check_wavenet(torch, mmk, wd, WN_SMALL, WN_SMALL_B, 40, 300, (300 + 15, 7, 64),
                              jitter=0.3))
     err.update(check_categorical(torch, cat))
-    err.update(check_transformer(torch, mmk, td, tk, TF_SMALL, 300, (1, TF_KV_B),
-                                 (300 + 15, 7, 64), jitter=0.5))
+    err.update(check_transformer(torch, mmk, td, tk, TF_SMALL, 300, TF_WIN_BATCHES,
+                                 TF_KV_BATCHES, (300 + 15, 7, 64), jitter=0.5))
+    err = merge_max(err, check_transformer(torch, mmk, td, tk, TF_SMALL_LONG, 100, (1, 2), (1, 16),
+                                           (100 + 15, 7, 64), jitter=0.5))
     err.update(check_jukebox(torch, mmk, jbd, JB_SMALL, (1, JB_B), 300, (300 + 15, 7, 64),
                              jitter=0.3))
     err.update(check_mulaw(torch, mu))
@@ -1800,8 +1900,10 @@ def main(argv=None) -> int:
     err_full.update(check_lstm(torch, fl, LSTM_SHAPES[1:]))
     err_full.update(check_wavenet(torch, mmk, wd, WN_FULL, WN_SMALL_B, 256, 512, (1543, 700),
                                   jitter=0.0))
-    err_full.update(check_transformer(torch, mmk, td, tk, TF_FULL, 256, (1, TF_KV_B),
-                                      (256 + 63, 100), jitter=0.0))
+    err_full.update(check_transformer(torch, mmk, td, tk, TF_FULL, 256, TF_WIN_BATCHES,
+                                      TF_KV_BATCHES, (256 + 63, 100), jitter=0.0))
+    err_full = merge_max(err_full, check_transformer(torch, mmk, td, tk, TF_LONG, 48, (1, 2),
+                                                     (1, 16), (48 + 63, 20), jitter=0.0))
     err_full.update(check_jukebox(torch, mmk, jbd, JB_FULL, (1, JB_B), 256, (256 + 15, 100),
                                   jitter=0.0))
     err = {k: max(err[k], err_full.get(k, 0.0)) for k in err}

@@ -1,31 +1,53 @@
 // Device code shared by the two SimpleTransformer decode kernels
 // (transformer_decode.cu, K6; transformer_kv.cu, K7).
 //
-// Both kernels are one persistent cooperative launch: every block of the grid
-// (one a streaming multiprocessor) works on each stage of a step, and a grid
-// barrier (cooperative_groups::this_grid().sync(); 1.1 us on the 132 blocks
-// of an H100, tools/profile_transformer_decode.py) separates dependent stages.  A stage is one of:
+// Both kernels are one persistent cooperative launch: a block on every
+// streaming multiprocessor, and a grid barrier (cooperative_groups
+// this_grid().sync(); 1.1 us on the 132 blocks of an H100,
+// tools/profile_transformer_decode.py) between dependent stages.  A stage is
+// a list of tasks spread over the blocks (task t on block t % grid); each
+// task is the work of a few rows (TF_R at most) on one slice of the weights:
 //
-//  * a tiled f32 product Y = act(X . W + b) (+ residual) over every block
-//    (gemm_stage): a block owns one output tile of 16 rows x 16 columns at a
-//    time, so each weight tile is read once a step for every 16 rows.  K runs
-//    in chunks of 128; a chunk's operands arrive as four 16-byte loads a
-//    thread, issued together, the next chunk's in flight during the current
-//    one's products.  X's rows can be layer-normed as they are loaded (the
-//    norm that ends the previous sub-layer); the blocks that own the tiles
-//    of the first 16 columns then write the normed rows out for the residual
-//    of the next product;
-//  * attention (attn_block): a block a (stream, head[, block of 16 query
-//    rows]), the keys and values staged in shared memory, a warp a query;
-//  * the head and the sampling, a block a stream, the dense layers split
-//    over K so that each thread has few dependent loads.
+//  * fold on load (tf_fold): a task's input rows are built where they are
+//    read, from the previous stage's split-K partial sums, added in a fixed
+//    order (partial 0, 1, ... then the bias, then the residual), and layer-
+//    normed.  No stage writes a finished activation for another to re-read,
+//    so a product and the norm that follows it need no barrier of their own.
+//    One designated task of each row tile also writes the normed rows out,
+//    as the residual of a later stage;
+//  * products (tf_product): Y = X . W of the task's rows, X and the weight
+//    slice both in shared memory, a thread a column, K split over thread
+//    groups when the slice is narrow, the groups' sums added in group
+//    order.  A partial product over a slice of K (attention's out product
+//    per head, FFN 2 per hidden slice) is written to its own buffer, never
+//    added atomically, so every sum runs in the same order whatever the
+//    chunking, the batch or the grid;
+//  * attention (attn_block): the keys and values a task's rows see staged
+//    in shared memory, whole up to TF_KT keys, else TF_KT at a time with an
+//    online softmax; a warp a query;
+//  * the head and the sampling, a block a stream.
 //
-// Arithmetic: f32 on CUDA cores, fused multiply-adds summed in k order, the
-// layer norm as flax computes it (var = max(0, E[x^2] - E[x]^2), eps 1e-5),
-// exact expf/logf/sqrtf.  Data written during the launch (activations,
-// tokens, rings) is read with plain loads (never the read-only path), after a
-// grid barrier.  The products need d and ff to be multiples of 4 (the 16-byte
-// loads); the gate (ops/transformer_decode.supports_kernel_decode) checks it.
+// Weights in flight across the barrier: the weights never change during a
+// launch, so once a block has finished its last task of a stage it issues
+// the copies of its first task of the next stage into its weight buffer
+// (the weight slice, the slice's biases, the fold's bias and norm) and only
+// then waits at the grid barrier.  The copies go through the bulk copy
+// engine (tf_copy_run: TMA's 1-D cp.async.bulk, completion counted on an
+// mbarrier in shared memory): the pack stores every column-sliced matrix in
+// column blocks (ops/transformer_decode.transformer_weight_pack), so a
+// task's slice is a few contiguous runs, a few instructions to issue.  After
+// the barrier only the task's activation rows (a few KB, written during the
+// launch) come from L2, with plain loads: data written during the launch is
+// never read through the read-only path or by an async copy.
+//
+// Grid barriers a step: 3L + 1 in K7, 4L + 1 in K6 (each kernel's note says
+// which stages), against 8L + 1 before this design.
+//
+// Arithmetic: f32 on CUDA cores, fused multiply-adds in k order within a
+// slice, the layer norm as flax computes it (var = max(0, E[x^2] - E[x]^2),
+// eps 1e-5), exact expf/logf/sqrtf.  d and ff must be multiples of 4; the
+// gate (ops/transformer_decode.supports_kernel_decode) checks it and that
+// tf_smem fits a block.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -37,13 +59,25 @@
 
 namespace cg = cooperative_groups;
 
+// Profiling hooks, empty here: tools/profile_transformer_decode.py defines
+// them in its copy of the sources to stamp block 0's clock at each phase of
+// a task (TF_MARK: 0 fold, 1 weight wait, 2 first product, 3 attention, 4
+// second product, 5 next stage's weight issue) and of each stage kind
+// (TF_STAGE).
+#ifndef TF_MARK
+#define TF_MARK(phase)
+#endif
+#ifndef TF_STAGE
+#define TF_STAGE(kind)
+#endif
+
 #define TF_THREADS 256
 #define TF_WARPS (TF_THREADS / 32)
-#define TF_BM 16
-#define TF_BN 16
-#define TF_BK 128
-#define TF_AP (TF_BK + 4)  // row pitch of the X chunk in shared memory
-#define TF_QB 16           // query rows a window-attention task
+#define TF_R 16      // rows a task at most
+#define TF_HS 64     // FFN hidden units a task (a K slice of FFN 2)
+#define TF_TN 64     // columns a K6 q|k|v (or cross k|v) task
+#define TF_QB 8      // query rows a K6 attention task
+#define TF_KT 64     // keys an attention tile
 #define TF_MAX_HEAD 8
 
 // A layer's tensors, in LAYER_KINDS order (mimikit_tpu_torch/ops/transformer_decode.py).
@@ -51,6 +85,9 @@ enum TfKind {
   K_WQKV, K_BQKV, K_WO, K_BO, K_WCQ, K_BCQ, K_WCO, K_BCO,
   K_LN1W, K_LN1B, K_LN2W, K_LN2B, K_LN3W, K_LN3B, K_W1, K_B1, K_W2, K_B2, TF_N_KINDS
 };
+
+__host__ __device__ inline int tf_round4(int n) { return (n + 3) & ~3; }
+__host__ __device__ inline int tf_cdiv(int a, int b) { return (a + b - 1) / b; }
 
 __device__ __forceinline__ float tf_warp_sum(float v) {
 #pragma unroll
@@ -71,271 +108,431 @@ __device__ __forceinline__ float tf_mish(float x) {
   return x * tanhf(sp);
 }
 
-// The scratch activations of one launch, for M rows (B * rf for K6, B for K7).
-struct TfBufs {
-  float* x0;   // (M, d) the PE'd input (the cross-attention's memory)
-  float* x;    // (M, d) a sub-layer's input after its norm
-  float* h;    // (M, d) a sub-layer's output before its norm
-  float* qkv;  // (M, 3d) self q | k | v
-  float* att;  // (M, d) attention output
-  float* cq;   // (M, d) cross q
-  float* ckv;  // (M, 2Ld) every layer's cross k | v
-  float* ff;   // (M, ff) FFN hidden
+// -- shared memory ----------------------------------------------------------------
+
+// FFN hidden units a task: TF_HS, or all of a narrower FFN.
+__host__ __device__ inline int tf_hs(int ff) { return ff < TF_HS ? ff : TF_HS; }
+
+// Shared memory of an attention task with n_q queries of head width dh, in
+// floats: one tile of TF_KT keys and values, the queries, each query's
+// running max and sum, a warp's scores over the tile.  It does not grow with
+// the keys (rf): they are staged TF_KT at a time.
+__host__ __device__ inline int tf_attn_floats(int n_q, int dh) {
+  return tf_round4(TF_KT * (dh + 1)) + tf_round4(TF_KT * dh) + tf_round4(n_q * dh) +
+         tf_round4(2 * n_q) + TF_WARPS * TF_KT;
+}
+
+// The regions of a block's dynamic shared memory, offsets in floats:
+//   w    the weight buffer (the prefetch target): the largest task slice,
+//        about max(4 d dh, 2 d hs, d TF_TN)
+//   bias the biases of the task's product columns (copied with the weights)
+//   fp   the bias and the norm's scale and offset its fold adds (3 d, copied too)
+//   x    TF_R rows of d (a task's folded input rows)
+//   x2   TF_R rows of d (K7's x0 rows, for the cross k|v)
+//   t    TF_R rows of q|k|v (3 dh), attention output (dh) and FFN hidden (hs)
+//   u    scratch shared in turn by the products' group sums (TF_THREADS
+//        TF_R), attention's staging (tf_attn_floats) and the head
+//   mbar the mbarrier of the weight buffer's bulk copies
+struct TfSmem {
+  int w, bias, fp, x, x2, t, u, mbar, total;
+  int ld_qkv, ld_att, ld_hid;  // row pitches in t
+  int att, hid;                // offsets of the attention output and the hidden rows in t
 };
 
-__host__ __device__ inline long long tf_scratch_floats(long long M, int d, int ff, int L) {
-  return M * (8LL * d + 2LL * L * d + ff);
+__host__ __device__ inline TfSmem tf_smem(int d, int n_heads, int ff, int n_q, int head_w) {
+  const int dh = d / n_heads, hs = tf_hs(ff);
+  TfSmem s;
+  s.ld_qkv = tf_round4(3 * dh);
+  s.ld_att = tf_round4(dh);
+  s.ld_hid = tf_round4(hs);
+  // the largest task slice: K7's self q|k|v + Wo rows, its cross q + cross
+  // k|v + Wco rows, either kernel's FFN slice, K6's q|k|v column tile
+  int w = tf_round4(3 * d * dh) + dh * d;
+  const int cross = tf_round4(d * dh) + tf_round4(2 * d * dh) + dh * d;
+  const int ffn = tf_round4(d * hs) + hs * d;
+  if (cross > w) w = cross;
+  if (ffn > w) w = ffn;
+  if (d * TF_TN > w) w = d * TF_TN;
+  int u = TF_THREADS * TF_R;
+  const int attn = tf_attn_floats(n_q, dh);
+  if (attn > u) u = attn;
+  const int w32 = (head_w + 31) & ~31;
+  const int head = tf_round4(d) + 2 * tf_round4(head_w) + (w32 > TF_THREADS ? w32 : TF_THREADS) +
+                   2 * TF_WARPS;
+  if (head > u) u = head;
+  int nb = 3 * dh;  // the biases of a task's columns, gathered with its weights
+  if (TF_TN > nb) nb = TF_TN;
+  if (hs > nb) nb = hs;
+  s.w = 0;
+  s.bias = s.w + tf_round4(w);
+  s.fp = s.bias + tf_round4(nb);
+  s.x = s.fp + 3 * d;
+  s.x2 = s.x + TF_R * d;
+  s.t = s.x2 + TF_R * d;
+  s.att = TF_R * s.ld_qkv;
+  s.hid = s.att + TF_R * s.ld_att;
+  s.u = s.t + s.hid + TF_R * s.ld_hid;
+  s.mbar = s.u + tf_round4(u);  // the weight buffer's mbarrier (8 bytes)
+  s.total = s.mbar + 4;
+  return s;
 }
 
-__device__ __forceinline__ TfBufs tf_bufs(float* s, long long M, int d, int ff, int L) {
-  TfBufs b;
-  b.x0 = s;
-  b.x = b.x0 + M * d;
-  b.h = b.x + M * d;
-  b.qkv = b.h + M * d;
-  b.att = b.qkv + 3 * M * d;
-  b.cq = b.att + M * d;
-  b.ckv = b.cq + M * d;
-  b.ff = b.ckv + 2LL * L * M * d;
-  return b;
-}
-
-__host__ __device__ inline int tf_round4(int n) { return (n + 3) & ~3; }
-
-// Shared memory of an attention task over n_keys keys and n_q queries of
-// head width dh, in floats.
-__host__ __device__ inline int tf_attn_floats(int n_keys, int n_q, int dh) {
-  return tf_round4(n_keys * (dh + 1)) + tf_round4(n_keys * dh) + tf_round4(n_q * dh) +
-         TF_WARPS * tf_round4(n_keys);
-}
-
-// Dynamic shared memory of one block, in floats: the largest stage's.
-__host__ inline long long tf_smem_floats(int d, int n_heads, int rf, int n_q, int n_head,
-                                         const int* head_in, const int* head_out) {
-  long long gemm = TF_BM * TF_AP + TF_BK * TF_BN + 2 * TF_BM;
-  long long attn = tf_attn_floats(rf, n_q, d / n_heads);
+// The widest layer of the head chain (its input or output).
+__host__ __device__ inline int tf_head_width(int n_head, const int* head_in, const int* head_out) {
   int w = 0;
   for (int k = 0; k < n_head; ++k) {
     if (head_in[k] > w) w = head_in[k];
     if (head_out[k] > w) w = head_out[k];
   }
-  const int w32 = (w + 31) & ~31;
-  long long head = tf_round4(d) + 2LL * tf_round4(w) + (w32 > TF_THREADS ? w32 : TF_THREADS) +
-                   2 * TF_WARPS;
-  long long m = gemm > attn ? gemm : attn;
-  return m > head ? m : head;
+  return w;
 }
 
-// -- products ---------------------------------------------------------------------
+// Rows a task of a stage with `rows` rows and `col_tasks` tasks a row tile:
+// enough to give every block about one task, at most TF_R.  It depends on
+// the widths, B and the grid, never on the number of steps.
+__device__ __forceinline__ int tf_rows_per_task(int rows, int col_tasks) {
+  int r = tf_cdiv(rows * col_tasks, (int)gridDim.x);
+  return r < 1 ? 1 : (r > TF_R ? TF_R : r);
+}
 
-struct GemmJob {
-  const float* X;     // (M, K) rows, leading dimension ldx
-  int ldx;
-  const float* ln_w;  // non-null: each X row is layer-normed (over its K values) on load
-  const float* ln_b;
-  float* xout;        // non-null (with ln_w): the normed rows are written here, (M, K)
-  const float* W;     // (K, N) row-major, leading dimension ldw; read-only
-  int ldw;
-  const float* bias;  // (N), read-only
-  const float* res;   // non-null: a residual (M, N) added last, leading dimension ldr
-  int ldr;
-  float* Y;           // (M, N), leading dimension ldy
-  int ldy;
-  int M, N, K, relu;
+// Layer l's tensor `kind` in the packed weights of either kernel's arguments.
+template <class A>
+__device__ __forceinline__ const float* tf_layer_w(const A& a, int l, int kind) {
+  return a.w + a.off_layer[kind] + (long long)l * a.layer_stride;
+}
+
+// -- weight copies (the bulk copy engine) ----------------------------------------------
+
+// A task's weight slice goes in one 16-byte-aligned bulk copy (TMA's 1-D
+// cp.async.bulk) a contiguous run, each reporting its bytes to an mbarrier
+// in shared memory; the block waits on the barrier's phase.  A thread issues
+// one or two instructions, so the issue costs little before the grid
+// barrier.  Every run is 16-byte aligned and a multiple of 16 bytes: the
+// pack starts each tensor and each column block at a multiple of 4 floats,
+// and the gate asks d, ff and d / n_heads to be multiples of 4.
+__device__ __forceinline__ unsigned tf_smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void tf_bulk_copy(float* dst, const float* src, unsigned bytes,
+                                             uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(tf_smem_addr(dst)), "l"(src), "r"(bytes), "r"(tf_smem_addr(bar))
+      : "memory");
+}
+
+#define TF_BULK_MAX 32768  // bytes a single bulk copy at most
+
+// Copy the contiguous run src[0 .. n) into dst, in copies of TF_BULK_MAX
+// bytes spread over the block's threads; returns the bytes.
+__device__ __forceinline__ unsigned tf_copy_run(float* dst, const float* src, int n,
+                                                uint64_t* bar) {
+  const unsigned total = 4u * n;
+  for (unsigned off = TF_BULK_MAX * threadIdx.x; off < total; off += TF_BULK_MAX * TF_THREADS)
+    tf_bulk_copy(dst + off / 4, src + off / 4, min((unsigned)TF_BULK_MAX, total - off), bar);
+  return total;
+}
+
+// The block's weight buffer: its mbarrier and phase.  A block issues a
+// task's copies (begin, the tf_copy_run calls, expect) at most one task
+// ahead, and waits for them before it runs the task.
+struct TfWeightBuffer {
+  uint64_t* bar;
+  mutable unsigned phase;
+  mutable bool pending;  // copies issued and not yet waited for
+
+  __device__ __forceinline__ void init(uint64_t* b) {
+    bar = b;
+    phase = 0;
+    pending = false;
+    if (threadIdx.x == 0) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(tf_smem_addr(bar)));
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+  }
+  // Before overwriting the buffer through the async proxy: its last reads
+  // were generic.
+  __device__ __forceinline__ void begin() const {
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  // Thread 0 arrives on the barrier, expecting the copies' bytes.
+  __device__ __forceinline__ void expect(unsigned bytes) const {
+    if (threadIdx.x == 0)
+      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                   ::"r"(tf_smem_addr(bar)), "r"(bytes) : "memory");
+    pending = true;
+  }
+  __device__ __forceinline__ void wait() const {
+    if (!pending) return;
+    unsigned done = 0;
+    while (!done)
+      asm volatile(
+          "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+          " selp.u32 %0, 1, 0, p;\n}\n"
+          : "=r"(done) : "r"(tf_smem_addr(bar)), "r"(phase) : "memory");
+    phase ^= 1;
+    pending = false;
+  }
 };
 
-__device__ __forceinline__ int gemm_tiles(const GemmJob& j) {
-  return ((j.M + TF_BM - 1) / TF_BM) * ((j.N + TF_BN - 1) / TF_BN);
+// A fold's bias (layer l's tensor `bias`) and norm (its tensor `ln`: the
+// scale, then the offset, adjacent in the pack) into fp[0 .. 3d); returns
+// the bytes.
+template <class A>
+__device__ __forceinline__ unsigned tf_copy_fold_params(const A& a, float* fp, int l, int bias,
+                                                        int ln, uint64_t* bar) {
+  return tf_copy_run(fp, tf_layer_w(a, l, bias), a.d, bar) +
+         tf_copy_run(fp + a.d, tf_layer_w(a, l, ln), 2 * a.d, bar);
 }
 
-// One K chunk of the tile's operands into registers: two float4 of X (rows 8
-// apart) and two of W (rows 64 apart) a thread, all four loads issued together.
-__device__ __forceinline__ void gemm_load(const GemmJob& j, int m0, int n0, int k0, float4 (&ra)[2],
-                                          float4 (&rw)[2]) {
-  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-#pragma unroll
-  for (int u = 0; u < 2; ++u) {
-    const int idx = threadIdx.x + u * TF_THREADS;
-    const int r = idx / (TF_BK / 4), k = 4 * (idx % (TF_BK / 4));
-    const int m = m0 + r, kk = k0 + k;
-    ra[u] = (m < j.M && kk < j.K)
-                ? *reinterpret_cast<const float4*>(j.X + (long long)m * j.ldx + kk)
-                : zero;
-  }
-#pragma unroll
-  for (int u = 0; u < 2; ++u) {
-    const int idx = threadIdx.x + u * TF_THREADS;
-    const int k = idx / (TF_BN / 4), c = 4 * (idx % (TF_BN / 4));
-    const int kk = k0 + k, n = n0 + c;
-    rw[u] = (kk < j.K && n < j.N)
-                ? __ldg(reinterpret_cast<const float4*>(j.W + (long long)kk * j.ldw + n))
-                : zero;
-  }
-}
+// -- fold on load -------------------------------------------------------------------
 
-// The chunk from registers into shared memory, X normed on the way when the
-// job has a norm.
-__device__ __forceinline__ void gemm_store(const GemmJob& j, int m0, int k0, const float4 (&ra)[2],
-                                           const float4 (&rw)[2], float* As, float* Ws,
-                                           const float* mean, const float* rstd) {
+// Rows r < R of a tile, physical row row0 + r * rstride (of d floats):
+//   v = res[row] + (parts[0][row] + ... + parts[n_parts - 1][row] + bias)
+// (res or the parts may be absent), layer-normed with (g, b) when g is not
+// null, into X (row pitch ldx); xout, when not null, gets the rows too.
+// bias, g and b may lie in shared memory (a task's copies) or global.  The
+// block's threads first take (row, 4 columns) items, each issuing its
+// partials' 16-byte loads TF_FOLD_BATCH at a time, so a fold costs a few L2
+// round trips however many partials it adds; then a warp a row takes the
+// statistics from shared memory.  The caller's rows are ready after it
+// returns.
+#define TF_FOLD_BATCH 16
+__device__ __noinline__ void tf_fold(float* X, int ldx, int R, long long row0, int rstride,
+                                     int d, const float* res, const float* parts,
+                                     long long pstride, int n_parts, const float* bias,
+                                     const float* g, const float* b, float* xout) {
+  const int d4 = d / 4;
+  for (int item = threadIdx.x; item < R * d4; item += TF_THREADS) {
+    const int r = item / d4, k = 4 * (item % d4);
+    const long long off = (row0 + (long long)r * rstride) * d + k;
+    float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    const float4 rr = res != nullptr ? *reinterpret_cast<const float4*>(res + off) : v;
+    if (n_parts > 0) {
+      const float* p = parts + off;
+      for (int q0 = 0; q0 < n_parts; q0 += TF_FOLD_BATCH) {
+        float4 u[TF_FOLD_BATCH];
 #pragma unroll
-  for (int u = 0; u < 2; ++u) {
-    const int idx = threadIdx.x + u * TF_THREADS;
-    const int r = idx / (TF_BK / 4), k = 4 * (idx % (TF_BK / 4));
-    const int kk = k0 + k;
-    float4 v = ra[u];
-    if (j.ln_w != nullptr && m0 + r < j.M && kk < j.K) {
-      const float4 g = __ldg(reinterpret_cast<const float4*>(j.ln_w + kk));
-      const float4 b = __ldg(reinterpret_cast<const float4*>(j.ln_b + kk));
-      const float mu = mean[r], rs = rstd[r];
-      v = make_float4((v.x - mu) * rs * g.x + b.x, (v.y - mu) * rs * g.y + b.y,
-                      (v.z - mu) * rs * g.z + b.z, (v.w - mu) * rs * g.w + b.w);
-    }
-    *reinterpret_cast<float4*>(As + r * TF_AP + k) = v;
-  }
+        for (int q = 0; q < TF_FOLD_BATCH; ++q)
+          if (q0 + q < n_parts)
+            u[q] = *reinterpret_cast<const float4*>(p + (q0 + q) * pstride);
 #pragma unroll
-  for (int u = 0; u < 2; ++u)
-    *reinterpret_cast<float4*>(Ws + 4 * (threadIdx.x + u * TF_THREADS)) = rw[u];
-}
-
-// One 16 x 16 output tile: thread (tx, ty) owns row ty, column tx.
-__device__ __forceinline__ void gemm_tile(const GemmJob& j, int m0, int n0, bool write_x,
-                                          float* smem) {
-  float* As = smem;                    // [TF_BM][TF_AP]: the X chunk, row-major
-  float* Ws = As + TF_BM * TF_AP;      // [TF_BK][TF_BN]
-  float* mean = Ws + TF_BK * TF_BN;    // [TF_BM]
-  float* rstd = mean + TF_BM;          // [TF_BM]
-  const int tid = threadIdx.x, tx = tid % TF_BN, ty = tid / TF_BN;
-  const int warp = tid >> 5, lane = tid & 31;
-  float4 ra[2], rw[2];
-  gemm_load(j, m0, n0, 0, ra, rw);
-  if (j.ln_w != nullptr) {
-    for (int r = warp; r < TF_BM; r += TF_WARPS) {
-      const int m = m0 + r;
-      float s = 0.0f, s2 = 0.0f;
-      const float* xr = j.X + (long long)m * j.ldx;
-      if (m < j.M) {
-#pragma unroll 8
-        for (int k = lane; k < j.K; k += 32) {
-          const float v = xr[k];
-          s += v;
-          s2 = fmaf(v, v, s2);
+        for (int q = 0; q < TF_FOLD_BATCH; ++q) {
+          if (q0 + q < n_parts) {
+            if (q0 + q == 0) {
+              v = u[q];
+            } else {
+              v.x += u[q].x;
+              v.y += u[q].y;
+              v.z += u[q].z;
+              v.w += u[q].w;
+            }
+          }
         }
+      }
+      if (bias != nullptr) {
+        const float4 bb = *reinterpret_cast<const float4*>(bias + k);
+        v.x += bb.x;
+        v.y += bb.y;
+        v.z += bb.z;
+        v.w += bb.w;
+      }
+    }
+    if (res != nullptr) v = make_float4(rr.x + v.x, rr.y + v.y, rr.z + v.z, rr.w + v.w);
+    *reinterpret_cast<float4*>(X + r * ldx + k) = v;
+    if (g == nullptr && xout != nullptr) *reinterpret_cast<float4*>(xout + off) = v;
+  }
+  __syncthreads();
+  if (g != nullptr) {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    for (int r = warp; r < R; r += TF_WARPS) {
+      float* x = X + r * ldx;
+      float s = 0.0f, s2 = 0.0f;
+      for (int k = lane; k < d; k += 32) {
+        s += x[k];
+        s2 = fmaf(x[k], x[k], s2);
       }
       s = tf_warp_sum(s);
       s2 = tf_warp_sum(s2);
-      const float mu = s / (float)j.K;
-      const float var = fmaxf(s2 / (float)j.K - mu * mu, 0.0f);
+      const float mu = s / (float)d;
+      const float var = fmaxf(s2 / (float)d - mu * mu, 0.0f);
       const float rs = 1.0f / sqrtf(var + 1e-5f);
-      if (lane == 0) {
-        mean[r] = mu;
-        rstd[r] = rs;
-      }
-      if (write_x && m < j.M) {
-#pragma unroll 8
-        for (int k = lane; k < j.K; k += 32)
-          j.xout[(long long)m * j.K + k] =
-              (xr[k] - mu) * rs * __ldg(j.ln_w + k) + __ldg(j.ln_b + k);
+      float* xo = xout != nullptr ? xout + (row0 + (long long)r * rstride) * d : nullptr;
+      for (int k = lane; k < d; k += 32) {
+        const float v = (x[k] - mu) * rs * g[k] + b[k];
+        x[k] = v;
+        if (xo != nullptr) xo[k] = v;
       }
     }
     __syncthreads();
   }
-  float acc = 0.0f;
-  for (int k0 = 0; k0 < j.K; k0 += TF_BK) {
-    gemm_store(j, m0, k0, ra, rw, As, Ws, mean, rstd);
-    __syncthreads();
-    if (k0 + TF_BK < j.K) gemm_load(j, m0, n0, k0 + TF_BK, ra, rw);
-    const float* a = As + ty * TF_AP;
-#pragma unroll 8
-    for (int k = 0; k < TF_BK; k += 4) {
-      const float4 av = *reinterpret_cast<const float4*>(a + k);
-      acc = fmaf(av.x, Ws[(k + 0) * TF_BN + tx], acc);
-      acc = fmaf(av.y, Ws[(k + 1) * TF_BN + tx], acc);
-      acc = fmaf(av.z, Ws[(k + 2) * TF_BN + tx], acc);
-      acc = fmaf(av.w, Ws[(k + 3) * TF_BN + tx], acc);
+}
+
+// -- products -----------------------------------------------------------------------
+
+// Y[r][c] = act(sum_k X[r][k] W[k][c] + bias[c]) for r < R <= TF_R, c < N,
+// X (row pitch ldx, a multiple of 4) and W in shared memory,
+// Y with row pitch ldy, bias optional (null), act relu or none.  A thread a
+// column (columns in blocks of TF_THREADS); when N is narrower, K is split
+// over TF_THREADS / N thread groups (each of at least 16 terms, a multiple
+// of 4), summed in group order through `red` (TF_THREADS * TF_R floats).
+// One copy of the code serves every product of a kernel (not inlined): a
+// step runs each stage once per block, so every stage's code would
+// otherwise be fetched into the instruction cache anew.
+__device__ __forceinline__ void tf_out(float* Y, long long ldy, const float* bias, int relu,
+                                       int r, int c, float v) {
+  if (bias != nullptr) v += bias[c];
+  if (relu) v = fmaxf(v, 0.0f);
+  Y[r * ldy + c] = v;
+}
+
+template <int RP>
+__device__ __noinline__ void tf_product_rows(const float* X, int ldx, int R, const float* W,
+                                             int bw, int bstride, int K, int N, float* red,
+                                             float* Y, long long ldy, const float* bias,
+                                             int relu) {
+  const int nc = N < TF_THREADS ? N : TF_THREADS;
+  int groups = TF_THREADS / nc;
+  const int most = tf_cdiv(K, 16);
+  if (groups > most) groups = most;
+  if (groups < 1) groups = 1;
+  const int kc = tf_round4(tf_cdiv(K, groups));
+  const int g = threadIdx.x / nc, c0 = threadIdx.x % nc;
+  for (int cb = 0; cb < N; cb += nc) {
+    const int c = cb + c0;
+    const bool active = g < groups && c < N;
+    float acc[RP];
+#pragma unroll
+    for (int r = 0; r < RP; ++r) acc[r] = 0.0f;
+    if (active) {
+      const float* wc = W + (c / bw) * bstride + c % bw;  // column c, row pitch bw
+      const int k1 = min(K, (g + 1) * kc);
+      int k = g * kc;
+      for (; k + 4 <= k1; k += 4) {
+        const float w0 = wc[(k + 0) * bw], w1 = wc[(k + 1) * bw];
+        const float w2 = wc[(k + 2) * bw], w3 = wc[(k + 3) * bw];
+#pragma unroll
+        for (int r = 0; r < RP; ++r) {
+          const float4 xv = *reinterpret_cast<const float4*>(X + r * ldx + k);
+          float a = acc[r];
+          a = fmaf(xv.x, w0, a);
+          a = fmaf(xv.y, w1, a);
+          a = fmaf(xv.z, w2, a);
+          a = fmaf(xv.w, w3, a);
+          acc[r] = a;
+        }
+      }
+      for (; k < k1; ++k) {
+        const float w = wc[k * bw];
+#pragma unroll
+        for (int r = 0; r < RP; ++r) acc[r] = fmaf(X[r * ldx + k], w, acc[r]);
+      }
+    }
+    if (groups == 1) {
+      if (active) {
+#pragma unroll
+        for (int r = 0; r < RP; ++r)
+          if (r < R) tf_out(Y, ldy, bias, relu, r, c, acc[r]);
+      }
+    } else {
+      if (active) {
+#pragma unroll
+        for (int r = 0; r < RP; ++r)
+          if (r < R) red[(g * R + r) * nc + c0] = acc[r];
+      }
+      __syncthreads();
+      for (int idx = threadIdx.x; idx < R * nc; idx += TF_THREADS) {
+        const int r = idx / nc, cc = idx % nc;
+        if (cb + cc < N) {
+          float v = red[r * nc + cc];
+          for (int q = 1; q < groups; ++q) v += red[(q * R + r) * nc + cc];
+          tf_out(Y, ldy, bias, relu, r, cb + cc, v);
+        }
+      }
     }
     __syncthreads();
   }
-  const int m = m0 + ty, n = n0 + tx;
-  if (m < j.M && n < j.N) {
-    float v = acc + (j.bias != nullptr ? __ldg(j.bias + n) : 0.0f);
-    if (j.relu) v = fmaxf(v, 0.0f);
-    if (j.res != nullptr) v = j.res[(long long)m * j.ldr + n] + v;
-    j.Y[(long long)m * j.ldy + n] = v;
-  }
 }
 
-// Every tile of the jobs, spread over the grid (consecutive blocks take the
-// row tiles of one column tile).  The caller puts a grid barrier after it.
-__device__ __forceinline__ void gemm_stage(const GemmJob* jobs, int n_jobs, float* smem) {
-  int total = 0;
-  for (int q = 0; q < n_jobs; ++q) total += gemm_tiles(jobs[q]);
-  for (int t = blockIdx.x; t < total; t += gridDim.x) {
-    int q = 0, tt = t;
-    while (tt >= gemm_tiles(jobs[q])) {
-      tt -= gemm_tiles(jobs[q]);
-      ++q;
-    }
-    const GemmJob& j = jobs[q];
-    const int tm = (j.M + TF_BM - 1) / TF_BM;
-    const int mt = tt % tm, nt = tt / tm;
-    gemm_tile(j, mt * TF_BM, nt * TF_BN, j.xout != nullptr && nt == 0, smem);
-    __syncthreads();
-  }
-}
-
-__device__ __forceinline__ GemmJob gemm_job(const float* X, int ldx, const float* W, int ldw,
-                                            const float* bias, float* Y, int ldy, int M, int N,
-                                            int K) {
-  GemmJob j;
-  j.X = X;
-  j.ldx = ldx;
-  j.ln_w = nullptr;
-  j.ln_b = nullptr;
-  j.xout = nullptr;
-  j.W = W;
-  j.ldw = ldw;
-  j.bias = bias;
-  j.res = nullptr;
-  j.ldr = 0;
-  j.Y = Y;
-  j.ldy = ldy;
-  j.M = M;
-  j.N = N;
-  j.K = K;
-  j.relu = 0;
-  return j;
+// The product for R rows, run as if for the next power of two: the extra
+// rows of X lie inside the task's row buffer and their results are dropped.
+// W is a (K, N) matrix stored in column blocks of width bw, block j at W + j
+// * bstride, each (K, bw) row-major (one block: bw = N).
+__device__ __forceinline__ void tf_product(const float* X, int ldx, int R, const float* W, int bw,
+                                           int bstride, int K, int N, float* red, float* Y,
+                                           long long ldy, const float* bias, int relu) {
+  if (R <= 1)
+    tf_product_rows<1>(X, ldx, R, W, bw, bstride, K, N, red, Y, ldy, bias, relu);
+  else if (R <= 2)
+    tf_product_rows<2>(X, ldx, R, W, bw, bstride, K, N, red, Y, ldy, bias, relu);
+  else if (R <= 4)
+    tf_product_rows<4>(X, ldx, R, W, bw, bstride, K, N, red, Y, ldy, bias, relu);
+  else if (R <= 8)
+    tf_product_rows<8>(X, ldx, R, W, bw, bstride, K, N, red, Y, ldy, bias, relu);
+  else
+    tf_product_rows<16>(X, ldx, R, W, bw, bstride, K, N, red, Y, ldy, bias, relu);
 }
 
 // -- attention (a block a task) ---------------------------------------------------------
 
-// One head's attention for n_q query rows over n_keys key rows, by the block:
-// query i sees keys 0 .. i (causal) or all n_keys.  Q, K, V point at the
-// head's first row (leading dimensions ldq, ldk, ldv); out rows have leading
-// dimension ldo.  Scores are q . k * inv (q_first: each q element scaled
-// first, as K6 and the window twin scale; else the sum scaled, as the KV
-// oracle does), masked keys excluded, softmax with the max over this head's
-// own scores, then the weighted sum of the values.
-__device__ __forceinline__ void attn_block(const float* Q, int ldq, const float* K, int ldk,
-                                           const float* V, int ldv, float* out, int ldo,
-                                           int n_q, int n_keys, int q_offset, bool causal,
-                                           int dh, float inv, bool q_first, float* smem) {
-  float* Ks = smem;                                   // [n_keys][dh + 1]
-  float* Vs = Ks + tf_round4(n_keys * (dh + 1));      // [n_keys][dh]
-  float* Qs = Vs + tf_round4(n_keys * dh);            // [n_q][dh]
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* p = Qs + tf_round4(n_q * dh) + warp * tf_round4(n_keys);
+// Rows 0 .. n of a head's keys K and values V (leading dimensions ldk, ldv)
+// into Ks [n][dh + 1] and Vs [n][dh] in shared memory, in 16-byte loads, all
+// of a thread's issued together.  Every caller's rows are 16-byte aligned:
+// the gate asks d and d / n_heads to be multiples of 4, and each key and
+// value row starts a multiple of 4 floats into its buffer.
+__device__ __forceinline__ void tf_stage_kv(float* Ks, float* Vs, const float* K, int ldk,
+                                            const float* V, int ldv, int n, int dh) {
+  const int dh4 = dh / 4;
 #pragma unroll 4
-  for (int idx = threadIdx.x; idx < n_keys * dh; idx += TF_THREADS) {
-    const int r = idx / dh, c = idx % dh;
-    Ks[r * (dh + 1) + c] = K[(long long)r * ldk + c];
-    Vs[idx] = V[(long long)r * ldv + c];
+  for (int idx = threadIdx.x; idx < n * dh4; idx += TF_THREADS) {
+    const int r = idx / dh4, c = 4 * (idx % dh4);
+    const float4 kv = *reinterpret_cast<const float4*>(K + (long long)r * ldk + c);
+    const float4 vv = *reinterpret_cast<const float4*>(V + (long long)r * ldv + c);
+    float* kr = Ks + r * (dh + 1) + c;
+    kr[0] = kv.x;
+    kr[1] = kv.y;
+    kr[2] = kv.z;
+    kr[3] = kv.w;
+    *reinterpret_cast<float4*>(Vs + r * dh + c) = vv;
   }
+}
+
+// Q (n_q rows, leading dimension ldq) into Qs [n_q][dh], each element scaled
+// by inv when q_first.
+__device__ __forceinline__ void tf_stage_q(float* Qs, const float* Q, int ldq, int n_q, int dh,
+                                           float inv, bool q_first) {
   for (int idx = threadIdx.x; idx < n_q * dh; idx += TF_THREADS) {
     const int r = idx / dh, c = idx % dh;
     const float q = Q[(long long)r * ldq + c];
     Qs[idx] = q_first ? q * inv : q;
   }
+}
+
+// One head's attention for n_q query rows over n_keys key rows, by the block:
+// query i sees keys 0 .. q_offset + i (causal) or all n_keys.  Q, K, V point
+// at the head's first row (leading dimensions ldq, ldk, ldv; K and V may be
+// written during the launch, Q may lie in shared memory); the out rows
+// (leading dimension ldo) lie in shared memory.  Scores are q . k * inv
+// (q_first: each q element scaled first, as K6 and the window twin scale;
+// else the sum scaled, as the KV oracle does), masked keys excluded, softmax
+// with the max over this head's own scores, then the weighted sum of the
+// values.  The order of every sum depends on n_keys only, so every chunking
+// of a stream adds alike.  attn_whole stages all n_keys <= TF_KT keys at
+// once; attn_tiled stages TF_KT at a time (any rf).  Both fit in
+// tf_attn_floats(n_q, dh) floats of `smem`.
+__device__ __noinline__ void attn_whole(const float* Q, int ldq, const float* K, int ldk,
+                                        const float* V, int ldv, float* out, int ldo, int n_q,
+                                        int n_keys, int q_offset, bool causal, int dh, float inv,
+                                        bool q_first, float* smem) {
+  float* Ks = smem;                                   // [n_keys][dh + 1]
+  float* Vs = Ks + tf_round4(n_keys * (dh + 1));      // [n_keys][dh]
+  float* Qs = Vs + tf_round4(n_keys * dh);            // [n_q][dh]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* p = Qs + tf_round4(n_q * dh) + warp * tf_round4(n_keys);
+  tf_stage_kv(Ks, Vs, K, ldk, V, ldv, n_keys, dh);
+  tf_stage_q(Qs, Q, ldq, n_q, dh, inv, q_first);
   __syncthreads();
   for (int i = warp; i < n_q; i += TF_WARPS) {
     const int cnt = causal ? q_offset + i + 1 : n_keys;
@@ -358,16 +555,104 @@ __device__ __forceinline__ void attn_block(const float* Q, int ldq, const float*
       sum += e;
     }
     sum = tf_warp_sum(sum);
+    for (int j = lane; j < cnt; j += 32) p[j] = p[j] / sum;
     __syncwarp();
     for (int c = lane; c < dh; c += 32) {
       float acc = 0.0f;
 #pragma unroll 8
-      for (int j = 0; j < cnt; ++j) acc = fmaf(p[j] / sum, Vs[j * dh + c], acc);
+      for (int j = 0; j < cnt; ++j) acc = fmaf(p[j], Vs[j * dh + c], acc);
       out[(long long)i * ldo + c] = acc;
     }
     __syncwarp();
   }
   __syncthreads();
+}
+
+// The keys in tiles of TF_KT, in key order, with an online softmax: a
+// query's running max m and sum l, and its out row, are rescaled by
+// exp(m_old - m_new) when a tile raises the max, and the out row is divided
+// by l after the last tile.
+__device__ __noinline__ void attn_tiled(const float* Q, int ldq, const float* K, int ldk,
+                                        const float* V, int ldv, float* out, int ldo, int n_q,
+                                        int n_keys, int q_offset, bool causal, int dh, float inv,
+                                        bool q_first, float* smem) {
+  float* Ks = smem;                                   // [TF_KT][dh + 1]
+  float* Vs = Ks + tf_round4(TF_KT * (dh + 1));       // [TF_KT][dh]
+  float* Qs = Vs + tf_round4(TF_KT * dh);             // [n_q][dh]
+  float* ml = Qs + tf_round4(n_q * dh);               // [n_q][2]: running max, running sum
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* p = ml + tf_round4(2 * n_q) + warp * TF_KT;
+  tf_stage_q(Qs, Q, ldq, n_q, dh, inv, q_first);
+  for (int i = threadIdx.x; i < n_q; i += TF_THREADS) {
+    ml[2 * i] = -INFINITY;
+    ml[2 * i + 1] = 0.0f;
+  }
+  for (int j0 = 0; j0 < n_keys; j0 += TF_KT) {
+    const int kt = min(TF_KT, n_keys - j0);
+    tf_stage_kv(Ks, Vs, K + (long long)j0 * ldk, ldk, V + (long long)j0 * ldv, ldv, kt, dh);
+    __syncthreads();
+    for (int i = warp; i < n_q; i += TF_WARPS) {
+      int cnt = (causal ? min(q_offset + i + 1, n_keys) : n_keys) - j0;
+      if (cnt <= 0) continue;  // a causal query that sees none of this tile
+      if (cnt > kt) cnt = kt;
+      const float* q = Qs + i * dh;
+      float mx = -INFINITY;
+      for (int j = lane; j < cnt; j += 32) {
+        const float* k = Ks + j * (dh + 1);
+        float sc = 0.0f;
+#pragma unroll 8
+        for (int c = 0; c < dh; ++c) sc = fmaf(q[c], k[c], sc);
+        if (!q_first) sc *= inv;
+        p[j] = sc;
+        mx = fmaxf(mx, sc);
+      }
+      mx = tf_warp_max(mx);
+      const float m_old = ml[2 * i], l_old = ml[2 * i + 1];
+      const float m_new = fmaxf(m_old, mx);
+      const float scale = expf(m_old - m_new);  // 0 at the first tile (m_old = -inf)
+      float sum = 0.0f;
+      for (int j = lane; j < cnt; j += 32) {
+        const float e = expf(p[j] - m_new);
+        p[j] = e;
+        sum += e;
+      }
+      sum = tf_warp_sum(sum);
+      __syncwarp();
+      for (int c = lane; c < dh; c += 32) {
+        float acc = j0 == 0 ? 0.0f : out[(long long)i * ldo + c] * scale;
+#pragma unroll 8
+        for (int j = 0; j < cnt; ++j) acc = fmaf(p[j], Vs[j * dh + c], acc);
+        out[(long long)i * ldo + c] = acc;
+      }
+      __syncwarp();
+      if (lane == 0) {
+        ml[2 * i] = m_new;
+        ml[2 * i + 1] = l_old * scale + sum;
+      }
+      __syncwarp();
+    }
+    __syncthreads();
+  }
+  for (int i = warp; i < n_q; i += TF_WARPS) {
+    const float l = ml[2 * i + 1];
+    for (int c = lane; c < dh; c += 32) out[(long long)i * ldo + c] /= l;
+  }
+  __syncthreads();
+}
+
+// A task's attention: attn_whole for a window of at most TF_KT keys (one
+// pass; the tiles' bookkeeping costs ~1 us a call at rf 64 on an H100,
+// tools/profile_transformer_decode.py), else attn_tiled.
+__device__ __forceinline__ void attn_block(const float* Q, int ldq, const float* K, int ldk,
+                                           const float* V, int ldv, float* out, int ldo,
+                                           int n_q, int n_keys, int q_offset, bool causal,
+                                           int dh, float inv, bool q_first, float* smem) {
+  if (n_keys <= TF_KT)
+    attn_whole(Q, ldq, K, ldk, V, ldv, out, ldo, n_q, n_keys, q_offset, causal, dh, inv, q_first,
+               smem);
+  else
+    attn_tiled(Q, ldq, K, ldk, V, ldv, out, ldo, n_q, n_keys, q_offset, causal, dh, inv, q_first,
+               smem);
 }
 
 // -- the head and the sampling (a block a stream) -----------------------------------
@@ -438,84 +723,36 @@ __device__ __forceinline__ void tf_block_dense(const float* in, int K, int N, co
   __syncthreads();
 }
 
-struct TfHead {
-  const float* w;                // packed weights
-  const float* ln_w;             // the last layer's third norm
-  const float* ln_b;
-  const float* lnf_w;            // the final norm, or null
-  const float* lnf_b;
-  long long off_wh[TF_MAX_HEAD];
-  long long off_bh[TF_MAX_HEAD];
-  int head_in[TF_MAX_HEAD];
-  int head_out[TF_MAX_HEAD];
-  int n_head, d, Q, argmax;
-  unsigned int seed;
-  float temperature, min_temperature;
-};
-
-// Layer l's tensor `kind` in the packed weights of either kernel's arguments.
+// The token after one stream's last row: `smem` starts with that row (d
+// floats, after the last layer's third norm), read from either kernel's
+// arguments `a`.  The optional final norm, the Mish MLP, logits[:Q] /
+// max(sigmoid(logits[Q]), min_temperature), / temperature + the noise of
+// (seed, t, b) when sampling, argmax with ties to the lowest index.  Every
+// thread returns the token.
 template <class A>
-__device__ __forceinline__ const float* tf_layer_w(const A& a, int l, int kind) {
-  return a.w + a.off_layer[kind] + (long long)l * a.layer_stride;
-}
-
-// The head's view of either kernel's arguments.
-template <class A>
-__device__ __forceinline__ TfHead tf_head_args(const A& a) {
-  TfHead hd;
-  hd.w = a.w;
-  hd.ln_w = tf_layer_w(a, a.n_layers - 1, K_LN3W);
-  hd.ln_b = tf_layer_w(a, a.n_layers - 1, K_LN3B);
-  hd.lnf_w = a.final_ln ? a.w + a.off_lnf_w : nullptr;
-  hd.lnf_b = a.final_ln ? a.w + a.off_lnf_b : nullptr;
-  for (int k = 0; k < TF_MAX_HEAD; ++k) {
-    hd.off_wh[k] = a.off_wh[k];
-    hd.off_bh[k] = a.off_bh[k];
-    hd.head_in[k] = a.head_in[k];
-    hd.head_out[k] = a.head_out[k];
-  }
-  hd.n_head = a.n_head;
-  hd.d = a.d;
-  hd.Q = a.Q;
-  hd.argmax = a.argmax;
-  hd.seed = a.seed;
-  hd.temperature = a.temperature;
-  hd.min_temperature = a.min_temperature;
-  return hd;
-}
-
-// The token after one stream's last row `src` (before the last layer's third
-// norm): the norms, the Mish MLP, logits[:Q] / max(sigmoid(logits[Q]),
-// min_temperature), / temperature + the noise of (seed, t, b) when sampling,
-// argmax with ties to the lowest index.  Every thread returns the token.
-__device__ __forceinline__ int tf_head_token(const TfHead& hd, const float* src, long long t,
-                                             int b, float* smem) {
-  const int d = hd.d;
-  int w = 0;
-  for (int k = 0; k < hd.n_head; ++k) w = max(w, max(hd.head_in[k], hd.head_out[k]));
+__device__ __forceinline__ int tf_head_token(const A& a, long long t, int b, float* smem) {
+  const int d = a.d;
+  const int w = tf_head_width(a.n_head, a.head_in, a.head_out);
   float* x = smem;
   float* h0 = x + tf_round4(d);
   float* h1 = h0 + tf_round4(w);
   float* red = h1 + tf_round4(w);  // max(TF_THREADS, 32-rounded w) floats
-  for (int k = threadIdx.x; k < d; k += TF_THREADS) x[k] = src[k];
-  __syncthreads();
-  tf_block_ln(x, d, hd.ln_w, hd.ln_b, red);
-  if (hd.lnf_w != nullptr) tf_block_ln(x, d, hd.lnf_w, hd.lnf_b, red);
+  if (a.final_ln) tf_block_ln(x, d, a.w + a.off_lnf_w, a.w + a.off_lnf_b, red);
   const float* in = x;
-  for (int k = 0; k < hd.n_head; ++k) {
+  for (int k = 0; k < a.n_head; ++k) {
     float* out = (k & 1) ? h1 : h0;
-    tf_block_dense(in, hd.head_in[k], hd.head_out[k], hd.w + hd.off_wh[k], hd.w + hd.off_bh[k],
-                   k < hd.n_head - 1, out, red);
+    tf_block_dense(in, a.head_in[k], a.head_out[k], a.w + a.off_wh[k], a.w + a.off_bh[k],
+                   k < a.n_head - 1, out, red);
     in = out;
   }
-  const int Q = hd.Q;
-  const float lt = fmaxf(tf_sigmoid(in[Q]), hd.min_temperature);
-  const uint32_t key = hd.argmax ? 0u : decode_noise_key(hd.seed, t, b);
+  const int Q = a.Q;
+  const float lt = fmaxf(tf_sigmoid(in[Q]), a.min_temperature);
+  const uint32_t key = a.argmax ? 0u : decode_noise_key(a.seed, t, b);
   float best = -INFINITY;
   int bestq = 0x7fffffff;
   for (int q = threadIdx.x; q < Q; q += TF_THREADS) {
     float v = in[q] / lt;
-    if (!hd.argmax) v = v / hd.temperature + gumbel_from_bits(mix32(key ^ (uint32_t)q));
+    if (!a.argmax) v = v / a.temperature + gumbel_from_bits(mix32(key ^ (uint32_t)q));
     if (v > best) {
       best = v;
       bestq = q;

@@ -78,10 +78,13 @@ def _read_behind_chunks(dev_chunks, chunk_steps: int) -> Iterator[np.ndarray]:
         pending = entry
 
 
-def _refeed_stream(net, prompt, chunk_steps: int, temperature, seed) -> Iterator[np.ndarray]:
+def _refeed_stream(net, prompt, chunk_steps: int, temperature, seed,
+                   generate=None) -> Iterator[np.ndarray]:
     """Stream by re-feeding (``mimikit_tpu/loops/streaming.py:50-105``): each
-    chunk is one ``net.generate`` call whose prompt is the last samples so
-    far, with a seed drawn per chunk from ``seed``; read one chunk behind.
+    chunk is one ``net.generate`` call (or ``generate``, its stand-in with
+    the same arguments: SimpleTransformer's holds a weight pack built once a
+    stream) whose prompt is the last samples so far, with a seed drawn per
+    chunk from ``seed``; read one chunk behind.
     The prompt spans what the net's decode conditions on: ``_window_len()``
     where the net has one (JukeBox rounds rf up to a multiple of its top
     frame; re-feeding only rf + 1 would zero-pad that history and part from
@@ -103,12 +106,14 @@ def _refeed_stream(net, prompt, chunk_steps: int, temperature, seed) -> Iterator
     else:
         window = int(net.rf) + 1
     seeds = torch.Generator().manual_seed(0 if seed is None else seed)
+    if generate is None:
+        generate = net.generate
 
     def dev_chunks():
         buf = torch.as_tensor(prompt)
         while True:
             sub = int(torch.randint(0, 2**31 - 1, (1,), generator=seeds))
-            out = net.generate((buf,), chunk_steps, temperature=temperature, seed=sub)[0]
+            out = generate((buf,), chunk_steps, temperature=temperature, seed=sub)[0]
             new, buf = out[:, buf.shape[1]:].contiguous(), out[:, -window:]
             yield new, 0
 

@@ -31,6 +31,7 @@ import torch
 
 from ..config import Config
 from ..features.dataset import DatasetConfig
+from ..networks.arm import ARMWithHidden
 from ..optim import TrainOptimizer, onecycle_schedule
 from .callbacks import MMKCheckpoint
 from .device_loader import make_train_loader
@@ -96,6 +97,8 @@ def _check_ported(cfg: TrainARMConfig) -> None:
 
 
 def _detach(tree):
+    if tree is None:
+        return None
     if isinstance(tree, torch.Tensor):
         return tree.detach()
     return type(tree)(_detach(x) for x in tree)
@@ -192,6 +195,7 @@ class TrainARMLoop:
         self.loader = loader
         self.loss_fn = loss_fn
         self.net = net
+        self._carries_hidden = isinstance(net, ARMWithHidden)
         self.tbptt_len = self.train_cfg.tbptt_chunk_length
         if self.tbptt_len is not None:
             self.tbptt_len //= self.train_cfg.batch_length
@@ -220,8 +224,14 @@ class TrainARMLoop:
     def train_step(self, inputs, targets, hidden):
         """One step: forward from the (detached) carry ``hidden``, loss,
         backward, optimizer update.  Returns the detached loss dict and the
-        detached new carry."""
-        outputs, new_hidden = self.net(inputs, hidden)
+        detached new carry.  A net without a hidden carry (not an
+        ``ARMWithHidden``: WaveNet, SimpleTransformer, JukeBox) is called
+        without one and carries None, as the JAX loop's uniform
+        ``apply_train`` gets None back from them."""
+        if self._carries_hidden:
+            outputs, new_hidden = self.net(inputs, hidden)
+        else:
+            outputs, new_hidden = self.net(inputs), None
         d = self.loss_fn(outputs, targets)
         d["loss"].backward()
         self.opt.step()

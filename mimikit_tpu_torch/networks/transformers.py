@@ -17,21 +17,23 @@ and ``tiers.{i}.up_sampler.fc``), the names
 SimpleTransformer serving routes (the JAX package's semantics, not its TPU
 budgets):
 
-* ``generate`` with a prompt of at least ``rf`` tokens, a net in the decode
-  kernels' scope (:func:`~..ops.transformer_decode.supports_kernel_decode`)
-  and one stream: one launch of the window-refeed kernel (K6,
-  :func:`~..ops.transformer_decode.decode_window`);
-* the same with several streams, or a net outside the scope: the window
-  re-feed through the network's own batched eval forward (JAX sends B > 1 to
-  its XLA scan, ``transformers.py:538-539,673-675``);
+* ``generate`` with a prompt of at least ``rf`` tokens and a net in the
+  decode kernels' scope
+  (:func:`~..ops.transformer_decode.supports_kernel_decode`), up to
+  ``_K6_MAX_BATCH`` (32) streams: one launch of the window-refeed kernel (K6,
+  :func:`~..ops.transformer_decode.decode_window`; JAX's v5e-measured
+  ``B == 1`` split, ``transformers.py:538-539``, is not carried over: on the
+  H100 K6 beats the batched window route up to about 40 streams);
+* more streams, or a net outside the scope: the window re-feed through the
+  network's own batched eval forward;
 * a prompt shorter than ``rf``: the KV-cached incremental decoder, which
   attends over the whole history (``_make_decoder``, ``:452-509``);
 * ``stream``: re-feeding (``loops.streaming._refeed_stream``), so one K6
-  launch a chunk at B=1; under ``MMK_DECODE_KV=1`` a net in the scope streams
-  through the KV-ring kernel (K7, :func:`~..ops.transformer_kv.decode_chunk`)
-  at every B, in chunks of ``max(chunk_steps, 64)`` steps with the state on
-  the card (PARITY.md #10: the KV ring's tokens part from the re-feed's after
-  the first step).
+  launch a chunk, the weight pack built once a stream; under
+  ``MMK_DECODE_KV=1`` a net in the scope streams through the KV-ring kernel
+  (K7, :func:`~..ops.transformer_kv.decode_chunk`) at every B, in chunks of
+  ``max(chunk_steps, 64)`` steps with the state on the card (PARITY.md #10:
+  the KV ring's tokens part from the re-feed's after the first step).
 
 JukeBox serving routes:
 
@@ -424,6 +426,12 @@ class SimpleTransformer(_StatefulTransformerARM, SimpleTransformerCore):
 
     # the KV stream's kernel calls run at least this many steps
     _KV_MIN_CHUNK = 64
+    # generate sends at most this many streams to K6, more to the batched
+    # window route: K6's step grows with each stream (~245 us), the window
+    # route's barely.  chip_smoke.py times both on an H100 at transformer8l's
+    # widths: at B=32 K6 takes 7.9 ms a step against 13.9, at B=48 11.8
+    # against 9.0
+    _K6_MAX_BATCH = 32
 
     @classmethod
     def from_config(cls, config: "SimpleTransformer.Config", device=None,
@@ -485,18 +493,29 @@ class SimpleTransformer(_StatefulTransformerARM, SimpleTransformerCore):
         """Decode ``n_steps`` tokens after each prompt.  ``temperature`` None
         is argmax.  Returns a tuple of one (B, prior_t + n_steps) tensor
         (prompt + generation) on the network's device."""
+        return self._generate(prompts, n_steps, temperature, seed, None)
+
+    def _generate(self, prompts: Tuple, n_steps: int, temperature, seed, pack):
+        """``generate``, with K6's weight pack given (a re-feed stream builds
+        it once) or built here."""
         prompt = self._prompt(prompts)
         B, prior_t = prompt.shape
         if seed is None:
             seed = self.next_seed()
         if prior_t < self.rf:
             out = self._kv_cache_loop(prompt, n_steps, temperature, seed)
-        elif B == 1 and supports_kernel_decode(self):
-            toks = decode_window(transformer_weight_pack(self), prompt, n_steps, seed, temperature)
-            out = torch.cat([prompt, toks], 1)
+        elif self._k6_route(B):
+            if pack is None:
+                pack = transformer_weight_pack(self)
+            out = torch.cat([prompt, decode_window(pack, prompt, n_steps, seed, temperature)], 1)
         else:
             out = self._window_loop(prompt, n_steps, temperature, seed)
         return (out.to(torch.as_tensor(prompts[0]).dtype),)
+
+    def _k6_route(self, B: int) -> bool:
+        """Whether ``generate`` decodes B streams (after a prompt of at
+        least rf) through K6."""
+        return B <= self._K6_MAX_BATCH and supports_kernel_decode(self)
 
     def stream(self, prompts: Tuple, chunk_steps: int, temperature: Optional[float] = None,
                seed: Optional[int] = None):
@@ -514,7 +533,12 @@ class SimpleTransformer(_StatefulTransformerARM, SimpleTransformerCore):
 
         kv = os.environ.get("MMK_DECODE_KV") == "1"
         if not kv or not supports_kernel_decode(self) or prior_t < 1:
-            yield from _refeed_stream(self, prompt, chunk_steps, temperature, seed)
+            pack = transformer_weight_pack(self) if self._k6_route(B) else None
+
+            def generate(prompts, n_steps, temperature, seed):
+                return self._generate(prompts, n_steps, temperature, seed, pack)
+
+            yield from _refeed_stream(self, prompt, chunk_steps, temperature, seed, generate)
             return
         C = max(chunk_steps, self._KV_MIN_CHUNK)
         pack = transformer_weight_pack(self)

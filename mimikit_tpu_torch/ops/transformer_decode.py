@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses as dtc
+import warnings
 from pathlib import Path
 from typing import Optional, Tuple
 
@@ -50,7 +51,11 @@ __all__ = ["transformer_weight_pack", "TransformerPack"]
 THREADS = 256  # a block's threads, TF_THREADS in csrc/transformer_common.cuh
 MAX_HEAD = 8
 MAX_WIDTH = 4096  # every head layer's width at most this
-QUERY_BLOCK = 16  # query rows a window-attention task, TF_QB
+QUERY_BLOCK = 8  # query rows a window-attention task, TF_QB
+KEY_TILE = 64  # keys an attention tile, TF_KT
+FFN_SLICE = 64  # FFN hidden units a task, TF_HS
+COL_TILE = 64  # columns a q|k|v task, TF_TN
+MAX_ROWS = 16  # rows a task at most, TF_R
 TWIN_BATCH = 64  # teacher-forced positions the plain twin scores in one batch
 SOURCE = CSRC / "transformer_decode.cu"
 LAYER_KINDS = ("wqkv", "bqkv", "wo", "bo", "wcq", "bcq", "wco", "bco", "ln1_w", "ln1_b",
@@ -61,13 +66,31 @@ _NEG = torch.finfo(torch.float32).min
 # -- scope gate (pallas_decode.py:1144-1179) -------------------------------------
 
 def supports_kernel_decode(net) -> bool:
-    """True for the standard SimpleTransformer: post-norm ReLU blocks (the
-    core's own), one embedding input, one learned-temperature plain-Mish MLP
-    head, a categorical objective.  The port adds the kernels' own limits:
-    ``model_dim`` and ``feedforward_dim`` multiples of 4 (16-byte loads), at
-    most ``MAX_HEAD`` head layers of at most ``MAX_WIDTH`` columns, and one
-    head's keys and values over ``rf`` positions within a block's shared
-    memory."""
+    """True for the standard SimpleTransformer that the kernels decode: the
+    nets :func:`_standard_transformer` admits, within the kernels' own limits
+    (:func:`_fits`).  A standard net beyond those limits takes the batched
+    window re-feed route, about 24 times slower a step at B=1 on an H100 at
+    transformer8l's widths (``chip_smoke.py`` times both routes); a warning
+    says so, once for each net shape."""
+    if not _standard_transformer(net):
+        return False
+    cfg = net.config
+    t_mod = cfg.io_spec.targets[0].module
+    widths = (t_mod.hidden_dim, cfg.io_spec.targets[0].elem_type.size + 1)
+    if _fits(cfg.model_dim, cfg.n_heads, cfg.feedforward_dim, t_mod.n_hidden_layers + 2, widths):
+        return True
+    warnings.warn(
+        f"this SimpleTransformer (model_dim {cfg.model_dim}, n_heads {cfg.n_heads},"
+        f" feedforward_dim {cfg.feedforward_dim}, head widths {widths}) is outside the transformer"
+        " decode kernels' limits (see ops.transformer_decode.supports_kernel_decode): it decodes"
+        " through the window re-feed route, one forward a step", stacklevel=2)
+    return False
+
+
+def _standard_transformer(net) -> bool:
+    """The scope of the TPU kernel's gate: post-norm ReLU blocks (the core's
+    own), one embedding input, one learned-temperature plain-Mish MLP head,
+    a categorical objective."""
     from ..features.functionals import Discrete
     from ..modules.io import EmbeddingIO, MLPIO
 
@@ -90,20 +113,43 @@ def supports_kernel_decode(net) -> bool:
         return False
     if getattr(t_mod, "weight_norm", False) or getattr(cfg, "weight_norm", False):
         return False
-    if str(getattr(io.targets[0].objective, "objective_type", "")) != "categorical_dist":
-        return False
-    if cfg.model_dim % 4 or cfg.feedforward_dim % 4:
-        return False
-    widths = (t_mod.hidden_dim, io.targets[0].elem_type.size + 1)
-    return (t_mod.n_hidden_layers + 2 <= MAX_HEAD and max(widths) <= MAX_WIDTH
-            and _attn_smem_bytes(cfg.rf, cfg.model_dim // cfg.n_heads) <= SMEM_PER_BLOCK)
+    return str(getattr(io.targets[0].objective, "objective_type", "")) == "categorical_dist"
 
 
-def _attn_smem_bytes(rf: int, dh: int) -> int:
-    """Shared memory of a window-attention task (``tf_attn_floats`` in
-    ``csrc/transformer_common.cuh``): keys, values, queries, scores."""
+def _fits(d: int, n_heads: int, ff: int, n_head_layers: int, head_widths) -> bool:
+    """The kernels' limits: d, ff and d / n_heads multiples of 4 (16-byte
+    loads and bulk copies), at most ``MAX_HEAD`` head layers of at most
+    ``MAX_WIDTH`` columns, and a block's shared memory (:func:`smem_bytes`)
+    within what a block may use.  None depends on rf: attention stages its
+    keys ``KEY_TILE`` at a time.  The largest task's weight slice, 4 d²/n_heads
+    floats, sets the limit: with 8 heads d up to 256 fits (transformer8l's
+    widths take 195 KB of the 227), with 4 heads d up to 192."""
+    if d % 4 or ff % 4 or (d // n_heads) % 4:
+        return False
+    return (n_head_layers <= MAX_HEAD and max(head_widths) <= MAX_WIDTH
+            and smem_bytes(d, n_heads, ff, max(*head_widths, d)) <= SMEM_PER_BLOCK)
+
+
+def smem_bytes(d: int, n_heads: int, ff: int, head_width: int) -> int:
+    """A block's dynamic shared memory in K6 (``tf_smem`` in
+    ``csrc/transformer_common.cuh``; K7 needs no more): the weight buffer
+    (the largest task's weight slice), its columns' biases and its fold's
+    bias and norm, ``MAX_ROWS`` rows of x and of x0, the q|k|v, attention
+    and FFN-hidden rows, one scratch region for the products' group sums, an
+    attention task's tile of ``KEY_TILE`` keys and values with its queries,
+    running maxima and sums and scores, or the head, and the weight buffer's
+    mbarrier."""
     r4 = lambda n: -(-n // 4) * 4  # noqa: E731
-    return 4 * (r4(rf * (dh + 1)) + r4(rf * dh) + r4(QUERY_BLOCK * dh) + (THREADS // 32) * r4(rf))
+    dh, hs = d // n_heads, min(ff, FFN_SLICE)
+    w = max(r4(3 * d * dh) + dh * d, r4(d * dh) + r4(2 * d * dh) + dh * d, r4(d * hs) + hs * d,
+            d * COL_TILE)
+    attn = (r4(KEY_TILE * (dh + 1)) + r4(KEY_TILE * dh) + r4(QUERY_BLOCK * dh)
+            + r4(2 * QUERY_BLOCK) + (THREADS // 32) * KEY_TILE)
+    w32 = -(-head_width // 32) * 32
+    head = r4(d) + 2 * r4(head_width) + max(w32, THREADS) + 2 * (THREADS // 32)
+    rows = MAX_ROWS * (2 * d + r4(3 * dh) + r4(dh) + r4(hs))
+    bias = r4(max(3 * dh, COL_TILE, hs))
+    return 4 * (r4(w) + bias + 3 * d + rows + r4(max(THREADS * MAX_ROWS, attn, head)) + 4)
 
 
 # -- weight pack ---------------------------------------------------------------------
@@ -113,10 +159,15 @@ class TransformerPack:
     """The kernels' view of a SimpleTransformer: every weight in one flat f32
     buffer, each tensor's (offset, shape) in it, the static sizes, and the
     window's PE table (rf, d).  Layer l's tensors are named ``<kind>.<l>``
-    (``LAYER_KINDS``) and lie ``layer_stride`` floats after layer l-1's."""
+    (``LAYER_KINDS``) and lie ``layer_stride`` floats after layer l-1's.  The
+    matrices in ``blocked`` are stored as column blocks of the given width,
+    each block (K, width) row-major, the blocks in column order (the last one
+    narrower when the width does not divide N): a kernel task's column slice
+    is then one contiguous run of memory, one bulk copy."""
 
     flat: torch.Tensor
     offsets: dict
+    blocked: dict
     dim: int
     n_heads: int
     ff: int
@@ -130,9 +181,18 @@ class TransformerPack:
     pe_window: torch.Tensor
 
     def view(self, name: str) -> torch.Tensor:
+        """The tensor ``name`` (a blocked matrix reassembled, as a copy)."""
         off, shape = self.offsets[name]
         n = int(np.prod(shape))
-        return self.flat[off : off + n].view(shape)
+        if name not in self.blocked:
+            return self.flat[off : off + n].view(shape)
+        (K, N), bw = shape, self.blocked[name]
+        full = N // bw
+        cols = [self.flat[off : off + K * full * bw].view(full, K, bw).permute(1, 0, 2)
+                .reshape(K, full * bw)]
+        if N > full * bw:
+            cols.append(self.flat[off + K * full * bw : off + n].view(K, N - full * bw))
+        return torch.cat(cols, 1)
 
     def layer(self, l: int):
         """Layer l's tensors in ``LAYER_KINDS`` order."""
@@ -149,18 +209,28 @@ def transformer_weight_pack(net) -> TransformerPack:
     ``b1``, ``w2`` (ff, d), ``b2``; then ``wckv`` (d, 2Ld) holding layer l's
     cross [Wk | Wv] in columns 2ld .. 2(l+1)d, and ``bckv``; the final norm
     (``lnf_w``, ``lnf_b``) when the net has one; the head chain
-    ``wh{k}``/``bh{k}``.  Every product is ``x @ W`` (K, N) row-major; each
-    tensor starts at a multiple of 4 floats."""
+    ``wh{k}``/``bh{k}``.  Every product is ``x @ W`` (K, N); ``wqkv``,
+    ``wcq`` and ``wckv`` are stored in column blocks of a head's width, ``w1``
+    in blocks of ``FFN_SLICE`` columns (the kernels' task slices), the rest
+    row-major; each tensor starts at a multiple of 4 floats."""
     from ..networks.transformers import sinusoidal_pe
 
     cfg = net.config
     d, L = cfg.model_dim, cfg.num_layers
-    parts, offsets, pos = [], {}, 0
+    dh, hs = d // cfg.n_heads, min(cfg.feedforward_dim, FFN_SLICE)
+    parts, offsets, blocked, pos = [], {}, {}, 0
 
-    def add(name, x):
+    def add(name, x, block=None):
         nonlocal pos
-        x = x.detach().to(torch.float32).contiguous()
+        x = x.detach().to(torch.float32)
         offsets[name] = (pos, tuple(x.shape))
+        if block is not None:
+            blocked[name] = block
+            K, N = x.shape
+            full = N // block * block  # whole blocks, then the narrower last one
+            x = torch.cat([x[:, :full].reshape(K, -1, block).transpose(0, 1).reshape(-1),
+                           x[:, full:].reshape(-1)])
+        x = x.contiguous()
         pad = -x.numel() % 4
         parts.append(x.reshape(-1))
         if pad:
@@ -171,24 +241,24 @@ def transformer_weight_pack(net) -> TransformerPack:
     ckv_w, ckv_b = [], []
     for l, layer in enumerate(net.model.layers):
         sa, ca = layer.self_attn, layer.multihead_attn
-        add(f"wqkv.{l}", sa.in_proj_weight.t())
+        add(f"wqkv.{l}", sa.in_proj_weight.t(), dh)
         add(f"bqkv.{l}", sa.in_proj_bias)
         add(f"wo.{l}", sa.out_proj.weight.t())
         add(f"bo.{l}", sa.out_proj.bias)
-        add(f"wcq.{l}", ca.in_proj_weight[:d].t())
+        add(f"wcq.{l}", ca.in_proj_weight[:d].t(), dh)
         add(f"bcq.{l}", ca.in_proj_bias[:d])
         add(f"wco.{l}", ca.out_proj.weight.t())
         add(f"bco.{l}", ca.out_proj.bias)
         for k, norm in enumerate((layer.norm1, layer.norm2, layer.norm3)):
             add(f"ln{k + 1}_w.{l}", norm.weight)
             add(f"ln{k + 1}_b.{l}", norm.bias)
-        add(f"w1.{l}", layer.linear1.weight.t())
+        add(f"w1.{l}", layer.linear1.weight.t(), hs)
         add(f"b1.{l}", layer.linear1.bias)
         add(f"w2.{l}", layer.linear2.weight.t())
         add(f"b2.{l}", layer.linear2.bias)
         ckv_w.append(ca.in_proj_weight[d:].t())  # (d, 2d): [Wk | Wv]
         ckv_b.append(ca.in_proj_bias[d:])
-    add("wckv", torch.cat(ckv_w, 1))
+    add("wckv", torch.cat(ckv_w, 1), dh)
     add("bckv", torch.cat(ckv_b))
     final_ln = net.model.norm is not None
     if final_ln:
@@ -205,8 +275,8 @@ def transformer_weight_pack(net) -> TransformerPack:
             assert offsets[f"{k}.{l}"][0] == offsets[f"{k}.0"][0] + l * stride
     flat = torch.cat(parts)
     return TransformerPack(
-        flat=flat, offsets=offsets, dim=d, n_heads=cfg.n_heads, ff=cfg.feedforward_dim,
-        n_layers=L, rf=cfg.rf, q_levels=linears[-1].out_features - 1,
+        flat=flat, offsets=offsets, blocked=blocked, dim=d, n_heads=cfg.n_heads,
+        ff=cfg.feedforward_dim, n_layers=L, rf=cfg.rf, q_levels=linears[-1].out_features - 1,
         head_dims=tuple((lin.in_features, lin.out_features) for lin in linears),
         min_temperature=float(mlp.min_temperature), final_ln=final_ln, layer_stride=stride,
         pe_window=torch.from_numpy(sinusoidal_pe(cfg.rf, d)).to(flat.device),
@@ -320,6 +390,7 @@ class _Args(ctypes.Structure):
         ("pe", ctypes.c_void_p),
         ("buf", ctypes.c_void_p),
         ("scratch", ctypes.c_void_p),
+        ("barriers", ctypes.c_void_p),
         ("off_emb", ctypes.c_longlong),
         ("off_ckv_w", ctypes.c_longlong),
         ("off_ckv_b", ctypes.c_longlong),
@@ -371,10 +442,8 @@ def fill_weight_args(a, pack: TransformerPack) -> None:
 
 def check_pack(pack: TransformerPack, dev) -> None:
     _check(pack.flat, "weights", torch.float32, pack.flat.shape, dev)
-    widest = max(w for dims in pack.head_dims for w in dims)
-    if (len(pack.head_dims) > MAX_HEAD or widest > MAX_WIDTH
-            or pack.dim % 4 or pack.ff % 4
-            or _attn_smem_bytes(pack.rf, pack.dim // pack.n_heads) > SMEM_PER_BLOCK):
+    widths = [w for dims in pack.head_dims for w in dims]
+    if not _fits(pack.dim, pack.n_heads, pack.ff, len(pack.head_dims), widths):
         raise ValueError("the net is outside the transformer kernels' limits")
 
 
@@ -403,6 +472,8 @@ def _library():
         lib.mmk_tf_window_args_size.restype = ctypes.c_int
         lib.mmk_tf_window_scratch_floats.argtypes = [ctypes.POINTER(_Args)]
         lib.mmk_tf_window_scratch_floats.restype = ctypes.c_longlong
+        lib.mmk_tf_window_smem_bytes.argtypes = [ctypes.POINTER(_Args)]
+        lib.mmk_tf_window_smem_bytes.restype = ctypes.c_longlong
         lib.mmk_tf_error_string.argtypes = [ctypes.c_int]
         lib.mmk_tf_error_string.restype = ctypes.c_char_p
         if lib.mmk_tf_window_args_size() != ctypes.sizeof(_Args):
@@ -432,14 +503,21 @@ def _launch(pack: TransformerPack, window: torch.Tensor, n_steps: int, t0: int, 
     a.argmax = int(temperature is None)
     a.seed = seed & 0xFFFFFFFF
     a.temperature = 1.0 if temperature is None else float(temperature)
+    widest = max(max(dims) for dims in pack.head_dims)
+    if lib.mmk_tf_window_smem_bytes(ctypes.byref(a)) != smem_bytes(
+            pack.dim, pack.n_heads, pack.ff, widest):
+        raise RuntimeError("the window kernel's shared memory differs from the gate's count")
     scratch = torch.empty(lib.mmk_tf_window_scratch_floats(ctypes.byref(a)), device=dev)
+    barriers = torch.zeros(1, dtype=torch.int64, device=dev)
     a.w, a.pe, a.buf, a.scratch = (pack.flat.data_ptr(), pack.pe_window.data_ptr(),
                                    buf.data_ptr(), scratch.data_ptr())
+    a.barriers = barriers.data_ptr()
     err = lib.mmk_tf_window_decode(ctypes.byref(a), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError("transformer window decode kernel launch failed: "
                            f"{lib.mmk_tf_error_string(err).decode()}")
     decode_window.launches += 1
+    decode_window.last_barriers = barriers
     return buf[:, rf:]
 
 
@@ -458,3 +536,6 @@ def decode_window(pack: TransformerPack, prompt: torch.Tensor, n_steps: int, see
 
 
 decode_window.launches = 0
+# the grid barriers block 0 passed in the last launch, a (1,) device tensor:
+# one before the first step, then 4L + 1 a step
+decode_window.last_barriers = None

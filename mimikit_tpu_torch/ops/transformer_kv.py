@@ -36,7 +36,7 @@ import torch
 
 from .noise import gumbel_noise
 from .nvcc import CSRC, build_library
-from .samplernn_decode import _check
+from .samplernn_decode import SMEM_PER_BLOCK, _check
 from .transformer_decode import (
     _NEG,
     LAYER_KINDS,
@@ -165,6 +165,7 @@ class _Args(ctypes.Structure):
         ("ring", ctypes.c_void_p),
         ("out", ctypes.c_void_p),
         ("scratch", ctypes.c_void_p),
+        ("barriers", ctypes.c_void_p),
         ("off_emb", ctypes.c_longlong),
         ("off_ckv_w", ctypes.c_longlong),
         ("off_ckv_b", ctypes.c_longlong),
@@ -221,6 +222,8 @@ def _library():
         lib.mmk_tf_kv_args_size.restype = ctypes.c_int
         lib.mmk_tf_kv_scratch_floats.argtypes = [ctypes.POINTER(_Args)]
         lib.mmk_tf_kv_scratch_floats.restype = ctypes.c_longlong
+        lib.mmk_tf_kv_smem_bytes.argtypes = [ctypes.POINTER(_Args)]
+        lib.mmk_tf_kv_smem_bytes.restype = ctypes.c_longlong
         lib.mmk_tf_kv_error_string.argtypes = [ctypes.c_int]
         lib.mmk_tf_kv_error_string.restype = ctypes.c_char_p
         if lib.mmk_tf_kv_args_size() != ctypes.sizeof(_Args):
@@ -259,16 +262,23 @@ def decode_chunk(pack: TransformerPack, prompt_T: torch.Tensor, state: Transform
     a.argmax = int(temperature is None)
     a.seed = seed & 0xFFFFFFFF
     a.temperature = 1.0 if temperature is None else float(temperature)
+    if lib.mmk_tf_kv_smem_bytes(ctypes.byref(a)) > SMEM_PER_BLOCK:
+        raise ValueError("the net is outside the transformer kernels' limits")
     scratch = torch.empty(lib.mmk_tf_kv_scratch_floats(ctypes.byref(a)), device=dev)
+    barriers = torch.zeros(1, dtype=torch.int64, device=dev)
     a.w, a.pe, a.prompt_T = pack.flat.data_ptr(), pe.data_ptr(), prompt_T.data_ptr()
     a.tok, a.ring, a.out = state.tok.data_ptr(), state.ring.data_ptr(), out.data_ptr()
-    a.scratch = scratch.data_ptr()
+    a.scratch, a.barriers = scratch.data_ptr(), barriers.data_ptr()
     err = lib.mmk_tf_kv_decode(ctypes.byref(a), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError("transformer KV decode kernel launch failed: "
                            f"{lib.mmk_tf_kv_error_string(err).decode()}")
     decode_chunk.launches += 1
+    decode_chunk.last_barriers = barriers
     return out
 
 
 decode_chunk.launches = 0
+# the grid barriers block 0 passed in the last launch, a (1,) device tensor:
+# one before the first step, then 3L + 1 a step
+decode_chunk.last_barriers = None

@@ -266,3 +266,87 @@ def test_unported_trainer_kwargs_raise(case, key):
     _, port, _ = case
     msg = str(port[f"unported/{key}"])
     assert msg.startswith("NotImplementedError") and key in msg, msg
+
+
+# -- the stateless nets through TrainARMLoop -----------------------------------------
+
+STATELESS = ("wavenet", "transformer", "jukebox")
+
+
+def _stateless_net(kind, ds):
+    """A small net of ``kind`` bound to ``ds``, dropout 0, with parameters
+    drawn from a numpy seed (N(0, 0.1); norm scales 1 + that)."""
+    import jax.numpy as jnp
+
+    emb = "embedding" if kind != "jukebox" else "framed_linear"
+    io = mmk.IOSpec.mulaw_io(mmk.IOSpec.MuLawIOConfig(q_levels=Q, mlp_dim=H,
+                                                      input_module_type=emb),
+                             extractor=ds.extractors[0])
+    if kind == "wavenet":
+        net = mmk.WaveNet.from_config(mmk.WaveNet.Config(
+            io_spec=io, blocks=(3,), dims_dilated=(H,), skips_dim=H, residuals_dim=H,
+            pad_side=0))
+        length = net.rf + 1
+    elif kind == "transformer":
+        net = mmk.SimpleTransformer.from_config(mmk.SimpleTransformer.Config(
+            io_spec=io, model_dim=32, n_heads=4, feedforward_dim=64, num_layers=2, rf=16,
+            input_dropout=0.0))
+        length = 16
+    else:
+        net = mmk.JukeBox.from_config(mmk.JukeBox.Config(
+            io_spec=io, frame_sizes=(8, 4, 2), model_dim=32, n_heads=4, feedforward_dim=64,
+            num_layers=2, rf=16, input_dropout=0.0))
+        length = net._window_len()
+    net.seed(0)
+    shapes = jax.eval_shape(
+        lambda k: net.module.init({"params": k, "dropout": k, "sample": k},
+                                  (jnp.zeros((1, length), jnp.int32),), None, True),
+        jax.random.PRNGKey(0))["params"]
+    rng = np.random.default_rng(3)
+
+    def draw(path, s):
+        key = jax.tree_util.keystr(path)
+        return jnp.asarray(rng.standard_normal(s.shape) * 0.1 + ("scale" in key), jnp.float32)
+
+    net.params = jax.tree_util.tree_map_with_path(draw, shapes)
+    return net
+
+
+@pytest.fixture(scope="module")
+def stateless(tmp_path_factory):
+    """Three f32 steps of the JAX TrainARMLoop for each stateless net, from
+    the weights the port gets; the port trains the same nets in one
+    subprocess (``torch_port_worker.py train_stateless``)."""
+    work = str(tmp_path_factory.mktemp("train_stateless"))
+    wav = os.path.join(work, "a.wav")
+    _wav(wav)
+    ds = mmk.DatasetConfig(sources=(wav,), filename=os.path.join(work, "jax.h5"),
+                           extractors=(mmk.Extractor.signal(SR),))
+    db = ds.create(mode="w")
+    jx, inp = {}, {"work": np.array(work), "wav": np.array(wav), "jax_h5": np.array(ds.filename)}
+    for kind in STATELESS:
+        net = _stateless_net(kind, ds)
+        cfg = mmk.TrainARMConfig(root_dir=os.path.join(work, f"jax_{kind}"), **TRAIN)
+        inp[f"{kind}/net_yaml"] = np.array(net.config.serialize())
+        inp[f"{kind}/train_yaml"] = np.array(cfg.serialize())
+        inp.update(flatten(jax.device_get(net.params), f"{kind}/params0/"))
+        loop = mmk.TrainARMLoop.from_config(cfg, db, net)
+        logged = []
+        log_output = loop.metrics.log_output
+        loop.metrics.log_output = (
+            lambda d, logged=logged, f=log_output: logged.append(dict(d)) or f(d))
+        loop.run()
+        jx[kind] = np.array([d["loss"] for d in logged])
+    db.close()
+    return jx, run_port("train_stateless", inp, work)
+
+
+@pytest.mark.parametrize("kind", STATELESS)
+def test_stateless_net_losses_per_step_match_jax_loop(stateless, kind):
+    """WaveNet, SimpleTransformer and JukeBox carry no hidden state: the
+    port's loop calls them without one, and three f32 steps give the JAX
+    loop's losses."""
+    jx, port = stateless
+    assert jx[kind].shape == port[f"{kind}/losses"].shape == (3,)
+    assert np.all(np.isfinite(port[f"{kind}/losses"]))
+    np.testing.assert_allclose(port[f"{kind}/losses"], jx[kind], rtol=1e-4)

@@ -9,8 +9,10 @@ checked against on the card — to the JAX reference:
   and pre-norm decoder stacks equal JAX's within ``atol=1e-5``,
   ``rtol=1e-5`` (f32 summed in another order);
 * argmax ``generate`` tokens equal the JAX window scan
-  (``MMK_PALLAS_DECODE=0``) through each route — K6's twin at B=1, the
-  batched window route at B=2, the KV-cached decoder for a short prompt —
+  (``MMK_PALLAS_DECODE=0``) through each route — K6's twin at B=1 and B=2
+  for nets in the kernels' scope (one ``decode_window`` call), the batched
+  window route outside it, past ``_K6_MAX_BATCH`` streams and called
+  directly at B=2, the KV-cached decoder for a short prompt —
   and, for nets in the kernels' scope, K6
   (``make_transformer_pallas_decoder``) in interpret mode at B=1 and, through
   the ``decode_window`` wrapper, at B=2;
@@ -18,8 +20,10 @@ checked against on the card — to the JAX reference:
   and K7 (``make_transformer_kv_ring_pallas``) in interpret mode (d=128,
   chunks of 7, so 64-step kernel calls over 70 tokens, the state carried),
   are chunk-invariant, and start with the window decoder's prediction;
-* sampled decodes reproduce from a seed; the gate, the weight maps and the
-  checkpoint banks agree with the JAX package.
+* sampled decodes reproduce from a seed, a re-feed stream builds K6's
+  weight pack once; the gate, the weight maps and the checkpoint banks agree
+  with the JAX package, and the gate admits transformer8l at rf 512 and warns
+  where only the kernels' limits refuse a net.
 
 JAX runs in this process; the port in one subprocess for the module
 (``torch_port_worker.py transformer``).  Weights are drawn from a numpy seed
@@ -38,6 +42,7 @@ from mimikit_tpu.ops.pallas_decode import supports_pallas_transformer
 from tests.torch_port_harness import flatten, run_port
 
 Q, RF, N_STEPS = 32, 16, 24
+WIDE_B = 33  # one stream more than SimpleTransformer._K6_MAX_BATCH
 WEIGHT_STD = 0.25
 NETS = {
     "h4": dict(model_dim=32, n_heads=4),
@@ -49,6 +54,9 @@ IN_GATE = ["h4", "h2_fln_mlp1", "d128"]
 K6_NETS = ["h4", "h2_fln_mlp1"]
 ORACLE_NETS = ["h4", "h2_fln_mlp1"]  # the KV oracle scan; d128 runs K7 in interpret mode
 STACKS = {"pre_h2": (32, 2, 64, 2, False), "pre_h4_fln": (32, 4, 64, 2, True)}
+# (d, ff, layers, rf), 8 heads, q 256: transformer8l's widths at the rf 512 of
+# benchmarks/bench_train.py:331-335, and a net twice as wide
+GATE_NETS = {"long": (256, 1024, 8, 512), "wide": (512, 2048, 1, 64)}
 
 
 def _draw(shapes, seed: int, std: float = WEIGHT_STD):
@@ -116,9 +124,10 @@ def case(tmp_path_factory):
             p2 = rng.integers(0, Q, (2, RF + 4)).astype(np.int32)
             short = rng.integers(0, Q, (2, 5)).astype(np.int32)
             kvp = rng.integers(0, Q, (2, RF)).astype(np.int32)
+            wide_b = np.random.default_rng(33).integers(0, Q, (WIDE_B, RF + 4)).astype(np.int32)
             inp.update({p + "yaml": np.array(net.config.serialize()), p + "seq": seq,
                         p + "prompt1": p1, p + "prompt2": p2, p + "short": short,
-                        p + "kv_prompt": kvp})
+                        p + "kv_prompt": kvp, p + "prompt_wide_b": wide_b})
             inp.update(flatten(jax.device_get(net.params), p + "params/"))
             jx[p + "forward"] = _apply(net, seq, True)
             jx[p + "eval"] = _apply(net, seq, False)
@@ -127,6 +136,7 @@ def case(tmp_path_factory):
             mp.delenv("MMK_DECODE_KV", raising=False)
             jx[p + "scan_b1"] = _generate(net, p1)
             jx[p + "scan_b2"] = _generate(net, p2)
+            jx[p + "scan_wide_b"] = _generate(net, wide_b)
             jx[p + "short"] = _generate(net, short)
             if tag in K6_NETS:
                 mp.setenv("MMK_PALLAS_DECODE", "1")
@@ -156,6 +166,15 @@ def case(tmp_path_factory):
             jx[p + "y"] = np.asarray(jax.jit(stack.apply)({"params": params}, x))
             inp.update({p + "dims": np.array([d, nh, ff, L, int(fln)]), p + "x": x})
             inp.update(flatten(jax.device_get(params), p + "params/"))
+        for tag, (d, ff, L, rf) in GATE_NETS.items():
+            io = mmk.IOSpec.mulaw_io(mmk.IOSpec.MuLawIOConfig(
+                q_levels=256, mlp_dim=128, input_module_type="embedding"))
+            cfg = mmk.SimpleTransformer.Config(io_spec=io, model_dim=d, n_heads=8,
+                                               feedforward_dim=ff, num_layers=L, rf=rf,
+                                               input_dropout=0.0)
+            inp[f"{tag}/yaml"] = np.array(cfg.serialize())
+            jx[f"{tag}/in_gate"] = supports_pallas_transformer(
+                mmk.SimpleTransformer.from_config(cfg))
         srnn = mmk.SampleRNN.from_config(mmk.SampleRNN.Config(
             frame_sizes=(8, 4, 2), hidden_dim=16,
             io_spec=mmk.IOSpec.mulaw_io(mmk.IOSpec.MuLawIOConfig(q_levels=32, mlp_dim=16))))
@@ -203,6 +222,25 @@ def test_kernel_scope_gate_matches_jax(case, net):
     assert bool(port[p + "in_gate"]) == bool(jx[p + "in_gate"]) == (net in IN_GATE)
 
 
+def test_gate_admits_transformer8l_at_rf_512(case):
+    """Attention stages its keys a tile at a time, so rf does not bound the
+    kernels: transformer8l's widths at rf 512 stay in their scope."""
+    _, jx, port, _ = case
+    assert jx["long/in_gate"] and bool(port["long/in_gate"])
+    assert port["long/warnings"].size == 0
+
+
+def test_gate_warns_where_only_the_kernel_limits_refuse(case):
+    """At d 512 with 8 heads the JAX gate admits the net; the port's refuses
+    it (its largest task's weight slice outgrows a block's shared memory),
+    with a warning that it decodes through the window route."""
+    _, jx, port, _ = case
+    assert jx["wide/in_gate"]
+    assert not bool(port["wide/in_gate"])
+    msgs = port["wide/warnings"].tolist()
+    assert len(msgs) == 1 and "outside the transformer decode kernels' limits" in msgs[0]
+
+
 def test_gate_refuses_a_samplernn(case):
     _, jx, port, _ = case
     assert not bool(port["srnn_in_gate"]) and not jx["srnn_in_gate"]
@@ -221,9 +259,42 @@ def test_argmax_generate_b1_matches_jax_scan(case, net):
 
 @pytest.mark.parametrize("net", NETS)
 def test_batched_window_route_b2_matches_jax_scan(case, net):
+    """The batched window route (``_window_loop``, called directly: a net in
+    the kernels' scope sends B=2 to K6) at B=2."""
     _, jx, port, _ = case
     p = f"net_{net}/"
+    assert np.array_equal(port[p + "window_route_b2"], jx[p + "scan_b2"])
+
+
+@pytest.mark.parametrize("net", IN_GATE)
+def test_in_gate_generate_b2_goes_through_decode_window(case, net):
+    """A net in the kernels' scope sends B > 1 to K6's route (on the CPU
+    its plain twin): B=2 makes one ``decode_window`` call and gives the JAX
+    scan's argmax tokens."""
+    _, jx, port, _ = case
+    p = f"net_{net}/"
+    assert int(port[p + "generate_b2_window_calls"]) == 1
     assert np.array_equal(port[p + "generate_b2"], jx[p + "scan_b2"])
+
+
+@pytest.mark.parametrize("net", IN_GATE)
+def test_in_gate_generate_above_the_k6_limit_takes_the_window_route(case, net):
+    """Past ``SimpleTransformer._K6_MAX_BATCH`` streams (K6 grows with each
+    stream, the window route barely) ``generate`` takes the batched window
+    route: no ``decode_window`` call, the JAX scan's argmax tokens."""
+    _, jx, port, _ = case
+    p = f"net_{net}/"
+    assert int(port["k6_max_batch"]) == WIDE_B - 1
+    assert int(port[p + "generate_wide_b_window_calls"]) == 0
+    assert np.array_equal(port[p + "generate_wide_b"], jx[p + "scan_wide_b"])
+
+
+@pytest.mark.parametrize("net", IN_GATE)
+def test_refeed_stream_builds_one_weight_pack(case, net):
+    """A re-feed stream of three chunks (four ``generate`` calls: the read is
+    one chunk behind) builds K6's weight pack once."""
+    _, _, port, _ = case
+    assert int(port[f"net_{net}/refeed_packs"]) == 1
 
 
 @pytest.mark.parametrize("net", K6_NETS)

@@ -7,6 +7,7 @@ frameworks are kept in separate processes).  Every test module runs one
 worker process for all of its cases and exchanges arrays through ``.npz``:
 JAX parameter trees travel flattened with ``/``-joined keys.
 """
+import contextlib
 import copy
 import json
 import os
@@ -310,6 +311,30 @@ def train_task(inp: dict) -> dict:
     return out
 
 
+def train_stateless_task(inp: dict) -> dict:
+    """Three TrainARMLoop steps of each stateless net (WaveNet,
+    SimpleTransformer, JukeBox) from the JAX weights, on the JAX-written h5."""
+    from_jax = {"wavenet": (mmk.WaveNet, mmk.wavenet_state_dict_from_jax),
+                "transformer": (mmk.SimpleTransformer, mmk.transformer_state_dict_from_jax),
+                "jukebox": (mmk.JukeBox, mmk.jukebox_state_dict_from_jax)}
+    out = {}
+    work = str(inp["work"])
+    ds = mmk.DatasetConfig(sources=(str(inp["wav"]),), filename=str(inp["jax_h5"]),
+                           extractors=(mmk.Extractor.signal(16000),))
+    for kind, (cls, to_sd) in from_jax.items():
+        db = ds.get(mode="r")
+        cfg = mmk.Config.deserialize(str(inp[f"{kind}/train_yaml"]))
+        cfg.root_dir = f"{work}/port_{kind}"
+        net_cfg = mmk.Config.deserialize(str(inp[f"{kind}/net_yaml"]))
+        net_cfg.io_spec.bind_to(ds)
+        net = cls.from_config(net_cfg, device="cpu")
+        net.load_state_dict(to_sd(unflatten(inp, f"{kind}/params0/")), strict=True)
+        loop = mmk.TrainARMLoop.from_config(cfg, db, net)
+        loop.run()
+        out[f"{kind}/losses"] = np.array([h["loss"] for _, h in loop.metrics.history])
+    return out
+
+
 def load_wavenet(inp: dict, p: str):
     """The port's WaveNet from the JAX-written YAML, with the JAX weights."""
     cfg = mmk.Config.deserialize(str(inp[p + "yaml"]))
@@ -451,6 +476,23 @@ def load_transformer(inp: dict, p: str):
     return net, sd_
 
 
+@contextlib.contextmanager
+def _counting(module, name):
+    """Count the calls of ``module.name`` inside the block: yields a one-item
+    list that holds the count."""
+    fn, calls = getattr(module, name), [0]
+
+    def counted(*args, **kwargs):
+        calls[0] += 1
+        return fn(*args, **kwargs)
+
+    setattr(module, name, counted)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, fn)
+
+
 def _stream(net, prompt, chunk, n_chunks, **kw):
     it = mmk.stream_tokens(net, (prompt,), chunk, **kw)
     out = np.concatenate([next(it) for _ in range(n_chunks)], 1)
@@ -460,11 +502,13 @@ def _stream(net, prompt, chunk, n_chunks, **kw):
 
 def transformer_task(inp: dict) -> dict:
     """Per net: the forward in both modes, the gate, argmax generate through
-    each route (K6's twin at B=1, the batched window route at B=2, the K6
-    wrapper at B=2, the KV-cached decoder for a short prompt), KV streams
-    (argmax over two chunkings and sampled), sampled generate and re-feed
-    streams, the weight maps; the pre-norm stacks; the gate on a SampleRNN;
-    the banks."""
+    each route (K6's twin at B=1 and 2, the batched window route called at
+    B=2 and taken past ``_K6_MAX_BATCH`` streams, the K6 wrapper at B=2, the
+    KV-cached decoder for a short prompt), KV streams (argmax over two
+    chunkings and sampled), sampled generate and re-feed streams, the weight
+    maps; the pre-norm stacks; the gate on a SampleRNN and on two nets built
+    from their YAML; the banks."""
+    from mimikit_tpu_torch.networks import transformers as tf_net
     from mimikit_tpu_torch.networks.transformers import DecoderStack
     from mimikit_tpu_torch.ops import transformer_decode as td
 
@@ -487,7 +531,13 @@ def transformer_task(inp: dict) -> dict:
         p1, p2, kvp = inp[p + "prompt1"], inp[p + "prompt2"], inp[p + "kv_prompt"]
         launches = td.decode_window.launches
         out[p + "generate_b1"] = net.generate((p1,), n)[0].numpy()
-        out[p + "generate_b2"] = net.generate((p2,), n)[0].numpy()
+        with _counting(tf_net, "decode_window") as calls:
+            out[p + "generate_b2"] = net.generate((p2,), n)[0].numpy()
+        out[p + "generate_b2_window_calls"] = np.array(calls[0])
+        out[p + "window_route_b2"] = net._window_loop(t(p2), n, None, 0).numpy()
+        with _counting(tf_net, "decode_window") as calls:
+            out[p + "generate_wide_b"] = net.generate((inp[p + "prompt_wide_b"],), n)[0].numpy()
+        out[p + "generate_wide_b_window_calls"] = np.array(calls[0])
         out[p + "short"] = net.generate((inp[p + "short"],), n)[0].numpy()
         out[p + "window_first"] = net.generate((kvp,), 1)[0][:, rf].numpy()
         if not in_gate:
@@ -506,7 +556,9 @@ def transformer_task(inp: dict) -> dict:
             del os.environ["MMK_DECODE_KV"]
         out[p + "sampled_a"] = net.generate((p1,), n, temperature=0.9, seed=5)[0].numpy()
         out[p + "sampled_b"] = net.generate((p1,), n, temperature=0.9, seed=5)[0].numpy()
-        out[p + "refeed"] = _stream(net, p1, 9, 3, temperature=0.9, seed=5)
+        with _counting(tf_net, "transformer_weight_pack") as packs:
+            out[p + "refeed"] = _stream(net, p1, 9, 3, temperature=0.9, seed=5)
+        out[p + "refeed_packs"] = np.array(packs[0])
         seeds, buf, chunks = torch.Generator().manual_seed(5), t(p1), []
         for _ in range(3):
             sub = int(torch.randint(0, 2**31 - 1, (1,), generator=seeds))
@@ -523,6 +575,16 @@ def transformer_task(inp: dict) -> dict:
         stack.load_state_dict({k[len("model."):]: v for k, v in sd_.items()}, strict=True)
         with torch.no_grad():
             out[p + "y"] = stack.eval()(t(inp[p + "x"])).numpy()
+
+    out["k6_max_batch"] = np.array(mmk.SimpleTransformer._K6_MAX_BATCH)
+    for tag in ("long", "wide"):  # the gate on nets built from their YAML, no weights needed
+        cfg = mmk.Config.deserialize(str(inp[f"{tag}/yaml"]))
+        cfg.io_spec.bind_to({"signal": mmk.Extractor.signal()})
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out[f"{tag}/in_gate"] = np.array(td.supports_kernel_decode(
+                mmk.SimpleTransformer.from_config(cfg, device="cpu")))
+        out[f"{tag}/warnings"] = np.array([str(w.message) for w in caught], dtype=str)
 
     srnn_cfg = mmk.Config.deserialize(str(inp["srnn_yaml"]))
     srnn_cfg.io_spec.bind_to({"signal": mmk.Extractor.signal()})
@@ -673,7 +735,8 @@ def mulaw_task(inp: dict) -> dict:
 
 
 TASKS = {"modules": modules_task, "sample_rnn": sample_rnn_task, "fused_lstm": fused_lstm_task,
-         "train": train_task, "wavenet": wavenet_task, "categorical": categorical_task,
+         "train": train_task, "train_stateless": train_stateless_task,
+         "wavenet": wavenet_task, "categorical": categorical_task,
          "transformer": transformer_task, "jukebox": jukebox_task,
          "mulaw": mulaw_task}
 

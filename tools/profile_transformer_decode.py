@@ -10,12 +10,19 @@ Usage, on a machine with one card, from the root of a checkout:
    (``decode_window``) at B = 1, 2 and 16 and K7 (``decode_chunk``) at
    B = 1, 16 and 32, on transformer8l with random weights: a copy of the two
    sources under ``build/profile_transformer/`` stamps ``clock64()`` in
-   block 0 after every grid barrier and sums the cycles between barriers by
-   the stage that ended there; the shares scale the step's wall time.
+   block 0 after every grid barrier and at each phase of block 0's task
+   (``TF_MARK``: the fold, the weight wait, the products, the attention, the
+   next stage's weight issue), and sums the cycles by stage kind and phase;
+   the shares scale the step's wall time.
 
-The stage kinds: the q|k|v products (with every layer's cross k|v at layer
-0), self-attention, the out product, the norm-1 + cross-q product,
-cross-attention, the cross out product, norm 2 + FFN 1, FFN 2, the head.
+The stage kinds (``csrc/transformer_common.cuh``).  K6: (1) norm 3 folded
+on load + the q|k|v products (with every layer's cross k|v at layer 0), (2)
+self-attention + its out product, (3) norm 1 + cross q + cross-attention +
+its out product, (4) norm 2 + FFN 1 + FFN 2, the head.  K7: (A) norm 3 +
+q|k|v + self-attention + out product, (B) norm 1 + cross q|k|v +
+cross-attention + out product, (C) norm 2 + FFN, the head.  Each kind's
+time includes block 0's wait at the barrier that ends it, so the shares
+also say which stage the slowest block spends longest in.
 The copies are built with nvcc as the package builds its own (``ops/nvcc.py``);
 nothing under ``mimikit_tpu_torch/`` changes.
 """
@@ -38,8 +45,19 @@ from mimikit_tpu_torch.ops import transformer_kv as tk  # noqa: E402
 from mimikit_tpu_torch.ops.nvcc import NVCC_FLAGS  # noqa: E402
 
 WORK = ROOT / "build" / "profile_transformer"
-KINDS = ("qkv (+ cross kv)", "self-attention", "out", "norm 1 + cross q", "cross-attention",
-         "cross out", "norm 2 + FFN 1", "FFN 2", "head", "first x0")
+KINDS = {
+    "transformer_decode.cu": ("1 norm 3 + qkv (+ cross kv)", "2 self-attention + out",
+                              "3 norm 1 + cross q, attention, out", "4 norm 2 + FFN", "head",
+                              "first x0"),
+    "transformer_kv.cu": ("A norm 3 + qkv + attention + out",
+                          "B norm 1 + cross qkv, attention, out", "C norm 2 + FFN", "head",
+                          "first x0"),
+}
+# the phases of a task block 0 runs (TF_MARK in csrc/transformer_common.cuh)
+PHASES = ("fold", "weight wait", "product 1", "attention", "product 2", "issue")
+# the label of each grid barrier in order of appearance in the source: the
+# first x0's, the stage loop's (by the stage's kind), the head's
+LABELS = {"transformer_decode.cu": ("5", "st % 4", "4"), "transformer_kv.cu": ("4", "st % 3", "3")}
 
 BARRIER_SRC = r"""
 #include <cooperative_groups.h>
@@ -57,14 +75,19 @@ extern "C" int run(int n, int blocks, void* stream) {
 """
 
 PROFILE_DEFS = r"""
-__device__ long long g_prof[16];
-#define PROF(k) do { if (blockIdx.x == 0 && threadIdx.x == 0) { \
-  long long _t = clock64(); g_prof[k] += _t - _t0; _t0 = _t; } } while (0)
+__device__ long long g_prof[64];
+__device__ long long g_last;
+__device__ int g_kind;
+#define PROF_AT(i) do { if (blockIdx.x == 0 && threadIdx.x == 0) { \
+  long long _t = clock64(); g_prof[i] += _t - g_last; g_last = _t; } } while (0)
+#define PROF(k) PROF_AT(k)
+#define TF_MARK(p) PROF_AT(8 + 8 * g_kind + (p))
+#define TF_STAGE(k) do { if (blockIdx.x == 0 && threadIdx.x == 0) g_kind = (k); } while (0)
 extern "C" int mmk_prof_read(long long* out) {
-  return (int)cudaMemcpyFromSymbol(out, g_prof, sizeof(long long) * 16);
+  return (int)cudaMemcpyFromSymbol(out, g_prof, sizeof(long long) * 64);
 }
 extern "C" int mmk_prof_reset() {
-  long long z[16] = {0};
+  long long z[64] = {0};
   return (int)cudaMemcpyToSymbol(g_prof, z, sizeof(z));
 }
 """
@@ -98,17 +121,18 @@ def barrier_cost():
 
 
 def instrumented(mod, name: str):
-    """Build ``name`` with a clock stamp after each grid barrier, labelled in
-    order of appearance, and point ``mod`` at it."""
+    """Build ``name`` with a clock stamp after each grid barrier, labelled by
+    the stage kind it ends, and point ``mod`` at it."""
     src = (WORK / name).read_text()
     src = src.replace('#include "transformer_common.cuh"',
-                      '#include "transformer_common.cuh"\n' + PROFILE_DEFS)
+                      PROFILE_DEFS + '#include "transformer_common.cuh"')
     src = src.replace("cg::grid_group grid = cg::this_grid();",
-                      "cg::grid_group grid = cg::this_grid();\n  long long _t0 = clock64();")
-    labels = iter([9, 0, 1, 2, 3, 4, 5, 6, 7, 8])
+                      "cg::grid_group grid = cg::this_grid();\n"
+                      "  if (blockIdx.x == 0 && threadIdx.x == 0) g_last = clock64();")
+    labels = iter(LABELS[name])
     src, n = re.subn(r"grid\.sync\(\);", lambda m: f"grid.sync(); PROF({next(labels)});", src)
-    if n != 10:
-        raise RuntimeError(f"{name}: {n} grid barriers, the labels expect 10")
+    if n != len(LABELS[name]):
+        raise RuntimeError(f"{name}: {n} grid barriers, the labels expect {len(LABELS[name])}")
     (WORK / name).write_text(src)
     mod.SOURCE = WORK / name
     mod._Kernel.lib = None
@@ -116,17 +140,23 @@ def instrumented(mod, name: str):
 
 
 def report(mod, label: str, fn, steps: int) -> None:
+    kinds = KINDS[mod.SOURCE.name]
     fn()
     torch.cuda.synchronize()
     lib = mod._Kernel.lib
     lib.mmk_prof_reset()
     wall_us = 1e3 * event_ms(fn) / steps
-    buf = (ctypes.c_longlong * 16)()
+    buf = (ctypes.c_longlong * 64)()
     lib.mmk_prof_read(buf)
-    total = sum(buf[:10])
+    total = sum(buf)
     print(f"{label}: {wall_us:.1f} us a step", flush=True)
-    for k in range(10):
-        print(f"  {KINDS[k]:18s} {100 * buf[k] / total:5.1f} %  {wall_us * buf[k] / total:8.2f} us")
+    for k, kind in enumerate(kinds):
+        phases = [buf[8 + 8 * k + p] for p in range(len(PHASES))]
+        us = [wall_us * v / total for v in phases]
+        print(f"  {kind:38s} {100 * (buf[k] + sum(phases)) / total:5.1f} %"
+              f"  {wall_us * (buf[k] + sum(phases)) / total:8.2f} us: barrier wait"
+              f" {wall_us * buf[k] / total:.2f}, " + ", ".join(
+                  f"{name} {u:.2f}" for name, u in zip(PHASES, us) if u > 0))
 
 
 def main():
