@@ -38,7 +38,12 @@ Phases (any failure exits non-zero; no exception is swallowed):
    width; the mu-law pair (K10) at 3,001 and 2,646,000 samples: compress
    ints equal to the plain twin's except by one where its value before
    truncation lies within rounding of an integer (1e-5 of it, relative),
-   expand within 1e-6;
+   expand within 1e-6; the bf16 instantiations the same way against their
+   bf16 twins: ``decode_single``/``decode_chunk`` on a bf16 pack (B=4 and
+   B=64 small, B=4 and B=256 at full width) and K7 on a bf16 pack at B=1,
+   16 and 32, small and full width, argmax and T=0.9; at the small width a
+   control too, the f32 instantiation on bf16-valued weights (a kernel
+   that skips the input rounding), whose tokens the bf16 check must refuse;
 3. the serving path at full width (bench.py's mu-law SampleRNN-3:
    frame_sizes (16, 8, 8), hidden 256, q 256, a two-layer Mish head; random
    weights from a seed): ``generate`` with B=4 (decode_single's route) and
@@ -61,7 +66,14 @@ Phases (any failure exits non-zero; no exception is swallowed):
    4,096 after a 128-token prompt (one K8 launch each, the first 512 tokens
    verified), ``stream_audio`` at B=1 (one K8 launch a 1,600-step chunk, the
    window carried; equal to the expanded ``generate`` output), the window
-   route over 64 steps (scaled), and a bank reloaded and decoded;
+   route over 64 steps (scaled), and a bank reloaded and decoded; then the
+   bf16 routes, each number printed beside the f32 one of the same run:
+   ``MMK_PALLAS_BF16=1`` SampleRNN-3 as above (every launch the bf16
+   instantiation, the B=256 output's first 1,024 steps verified against the
+   bf16 twin), ``MMK_DECODE_KV=1 MMK_DECODE_BF16=1`` transformer8l KV
+   streams at B=1 and 16 (K7 on a bf16 pack; chunk-invariant; B=16's first
+   256 tokens verified), and ``transformer8l_win_b16`` with
+   ``MMK_DECODE_BF16=1`` (the window route in bf16);
 4. the training path at full width: 60 s of 16 kHz two-tone audio made with
    scipy, ``DatasetConfig.create``, ``TrainARMLoop`` at B=32 x 2048 with
    TBPTT over 8 x 2048 samples, 4 epochs of 8 steps, seeded batches: every
@@ -74,8 +86,9 @@ Phases (any failure exits non-zero; no exception is swallowed):
 5. each wrapper, its plain twin and (for the LSTM kernels) cuDNN's
    ``nn.LSTM``, for K9 ``torch.multinomial``, timed at the main paths'
    shapes (the transformer and JukeBox twins over 64 steps, scaled; K8 also
-   at B=16 and 32, K10 at 2,646,000 samples); a ``kernels`` JSON line of
-   twelve rows, the card line, and the device line last.
+   at B=16 and 32, K10 at 2,646,000 samples; the bf16 twins over fewer
+   steps, scaled); a ``kernels`` JSON line of fifteen rows (the twelve and
+   K1-, K2- and K7-bf16), the card line, and the device line last.
 
 ``--quick`` runs phases 1-2 at the small size only (a build check);
 ``--bench`` runs phase 1, phase 3's timings without the checks, decode_chunk
@@ -102,14 +115,25 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # published H100 SXM peaks (NVIDIA data sheet, at a 700 W power limit):
-# f32 outside the tensor cores, and HBM3 bandwidth
+# f32 outside the tensor cores, dense bf16 on the tensor cores (the bound of
+# the bf16-weight kernels), and HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 FULL = dict(frame_sizes=(16, 8, 8), hidden_dim=256, q_levels=256, mlp_dim=256)
 SMALL = dict(frame_sizes=(8, 4, 2), hidden_dim=32, q_levels=32, mlp_dim=32)
 TEMPERATURE = 0.9
 TOL = 1e-4  # a kernel token must score within TOL * max|score| of the row max
+# the bf16 instantiations: rows beyond TOL widened by the twin's own order
+# spread (one-ulp flips of bf16-rounded activations; verify_tokens) may be at
+# most this share of the rows, each at most this far below its row's max.
+# Set between the correct kernels (at most 0.12 % of rows, 2.8e-3 of a row's
+# scale) and the control at the small width (the f32 instantiation on
+# bf16-valued weights: no input rounding; at least 0.64 % of rows, and gaps
+# past 1.5e-2 in most checks), from tools/bf16_check_power.py
+BF16_FLIP_ROWS, BF16_FLIP_MAX = 0.003, 1e-2
 N_SMALL, N_WIDE, STREAM_CHUNK, SEED = 4096, 16384, 1600, 1234
+N_BF16_VERIFY = 1024  # phase 3's bf16 B=256 output: its first steps verified
 # (T, B, D, H) of the LSTM checks: small, then the two tier LSTMs of the
 # training path (2048 samples a window, frames of 16 and 8, B=32, H=256)
 LSTM_SHAPES = ((12, 4, 8, 16), (128, 32, 256, 256), (256, 32, 256, 256))
@@ -130,6 +154,7 @@ TF_FULL = dict(model_dim=256, n_heads=8, feedforward_dim=1024, num_layers=8, rf=
 TF_SMALL = dict(model_dim=32, n_heads=4, feedforward_dim=64, num_layers=2, rf=16, q_levels=32,
                 mlp_dim=16)
 TF_N, TF_N16, TF_KV_B, TF_KV_CHUNKS, TF_VERIFY, TF_PLAIN_STEPS = 4096, 256, 16, 6, 512, 64
+BF16_PLAIN_STEPS = 512  # the SampleRNN bf16 twins' timed steps (phase 5), scaled
 TF_WIN_BATCHES, TF_KV_BATCHES = (1, 2, 16), (1, 16, 32)  # phase 2's K6 and K7 checks
 # windows longer than an attention tile (TF_KT, 64 keys): the small net at rf 160
 # (three tiles, the last one partial), and transformer8l's widths at the rf 512 of
@@ -151,6 +176,11 @@ JB_N, JB_B, JB_VERIFY, JB_WIN_STEPS, JB_PLAIN_STEPS, JB_STREAM_CHUNKS = 4096, 16
 MULAW_N = 2_646_000  # benchmarks/bench_preprocessing.py:33-59: 120 s at 22,050 Hz
 
 
+# the main paths' headline numbers, f32 and bf16, for the lines that print
+# them side by side
+SUMMARY = {}
+
+
 def log(*a):
     print(*a, flush=True)
 
@@ -164,12 +194,14 @@ def merge_max(a, b):
 def uncounted(*wrappers):
     """Launches made inside (a reference the path is compared with) are not
     the path's own: each wrapper's count is put back on the way out."""
-    saved = [w.launches for w in wrappers]
+    names = ("launches", "launches_bf16")
+    saved = [{k: getattr(w, k) for k in names if hasattr(w, k)} for w in wrappers]
     try:
         yield
     finally:
-        for w, n in zip(wrappers, saved):
-            w.launches = n
+        for w, counts in zip(wrappers, saved):
+            for k, n in counts.items():
+                setattr(w, k, n)
 
 
 def card_line() -> str:
@@ -205,7 +237,8 @@ def make_prompt(torch, B, T, q, seed):
     return torch.randint(0, q, (B, T), generator=g, dtype=torch.int32).cuda()
 
 
-def verify_tokens(torch, prompt, toks, t_first, tf_scores, free_run, tf_chunk=1024):
+def verify_tokens(torch, prompt, toks, t_first, tf_scores, free_run, tf_chunk=1024,
+                  tf_scores_alt=None):
     """Teacher-forced check of kernel tokens ``toks`` (B, n) decoded after
     ``prompt``.  ``tf_scores(full, state, t, m)`` gives the plain twin's
     (m, B, Q) scores of steps t .. t+m-1 with ``full`` (prompt + kernel
@@ -215,32 +248,59 @@ def verify_tokens(torch, prompt, toks, t_first, tf_scores, free_run, tf_chunk=10
     row's maximum, the number of streams where the free-running plain decode
     parted from the kernel's at a near-tie).  Raises when a token is outside
     the tolerance, or when the free-running plain tokens differ before the
-    stream's first near-tie."""
+    stream's first near-tie.
+
+    ``tf_scores_alt``, for the bf16 twins: the same scores with the products
+    summed in another order (f64).  Rounding each product's input to bf16
+    turns a last-bit difference of a sum into a one-ulp difference of an
+    activation now and then, and in some rows that moves the scores far
+    past 1e-4, between two orders of the twin itself as between the twin and
+    the kernel.  So a row's tolerance is widened by how far the other order
+    moves that row's scores: what the order alone does there, measured.  A
+    flip of the kernel's own order can still land in a row the other order
+    left alone: such rows may be at most ``BF16_FLIP_ROWS`` of all, each
+    within ``BF16_FLIP_MAX`` of its row's scale.  The log line says how far
+    the order moved the rows, and how many rows lay beyond.  At the small
+    width a kernel that skips the input rounding lands well past those
+    limits, and the small checks run such a control and require this check
+    to refuse it; at full width the order's own flips are as many as the
+    control's, and the check catches gross faults only."""
     B, prior_t = prompt.shape
     n = toks.shape[1]
     full = torch.cat([prompt, toks.to(torch.int32)], 1).contiguous()
-    worst, state = 0.0, None
+    worst, state, state_alt, spread_max, widened, flips, flip_max = 0.0, None, None, 0.0, 0, 0, 0.0
     near_tie = torch.full((B,), n, dtype=torch.long, device=toks.device)
     t = t_first
     while t < prior_t + n:
         m = min(tf_chunk, prior_t + n - t)
         scores, state = tf_scores(full, state, t, m)
+        if tf_scores_alt is not None:
+            alt, state_alt = tf_scores_alt(full, state_alt, t, m)
         lo = max(t, prior_t)
         if lo < t + m:
             s = scores[lo - t :]                           # (k, B, Q)
             tok = full[:, lo : t + m].T.long()             # (k, B)
             top2 = s.topk(2, dim=-1).values
             tol = TOL * s.abs().amax(-1)
+            if tf_scores_alt is not None:
+                spread = (s - alt[lo - t :]).abs().amax(-1)
+                spread_max = max(spread_max, float((spread / s.abs().amax(-1)).max()))
+                widened += int((spread > tol).sum())
+                tol = tol + spread
             gap = top2[..., 0] - s.gather(-1, tok[..., None])[..., 0]
             bad = gap > tol
-            if bool(bad.any()):
+            if tf_scores_alt is None and bool(bad.any()):
                 k, b = (int(v) for v in bad.nonzero()[0])
                 raise AssertionError(
                     f"kernel token at step {lo + k}, stream {b}: {float(gap[k, b]):.3e}"
                     f" below the row max (tolerance {float(tol[k, b]):.3e})"
                 )
+            if bool(bad.any()):  # bf16: a one-ulp flip the other order did not show
+                flips += int(bad.sum())
+                flip_max = max(flip_max, float((gap / s.abs().amax(-1))[bad].max()))
             worst = max(worst, float(gap.max()))
-            ties = (top2[..., 0] - top2[..., 1]) <= tol    # (k, B)
+            # a near-tie, or a flip row, ends the prefix the free run must match
+            ties = ((top2[..., 0] - top2[..., 1]) <= tol) | bad    # (k, B)
             first = torch.where(
                 ties.any(0), ties.long().argmax(0) + (lo - prior_t),
                 torch.full_like(near_tie, n),
@@ -256,32 +316,78 @@ def verify_tokens(torch, prompt, toks, t_first, tf_scores, free_run, tf_chunk=10
             f"stream {b}: plain and kernel tokens differ at step {int(first_diff[b])},"
             f" before the first near-tie (step {int(near_tie[b])})"
         )
+    if tf_scores_alt is not None:
+        log(f"    (bf16 twin: the f64-summed twin moved a row's scores by up to {spread_max:.3e}"
+            f" of its scale; {widened} of {B * n} rows' tolerances widened past 1e-4; {flips}"
+            f" rows beyond that, the largest {flip_max:.3e} of its scale)")
+        if flips > BF16_FLIP_ROWS * B * n or flip_max > BF16_FLIP_MAX:
+            raise AssertionError(
+                f"{flips} of {B * n} bf16 kernel tokens lie beyond their rows' tolerance (at most"
+                f" {BF16_FLIP_ROWS:.2%} may), the largest {flip_max:.3e} of its row's scale (at"
+                f" most {BF16_FLIP_MAX:g})")
     return worst, int((first_diff < n).sum())
 
 
-def verify(torch, sd, net, prompt, toks, seed, temperature):
-    """verify_tokens for the SampleRNN decode kernel (steps from rf)."""
+def verify(torch, sd, model, prompt, toks, seed, temperature):
+    """verify_tokens for the SampleRNN decode kernel (steps from rf);
+    ``model`` is the net (the f32 twin) or a bf16 pack (the bf16 twin)."""
+    net = getattr(model, "net", model)
     prior_t, n, rf = prompt.shape[1], toks.shape[1], net.rf
 
-    def tf_scores(full, state, t, m):
+    def tf_scores(full, state, t, m, acc=torch.float32):
         state = state or sd.init_decode_state(net, full)
-        _, scores = sd.decode_plain(net, full, state, t, m, t, m, seed, temperature,
-                                    return_scores=True)
+        _, scores = sd.decode_plain(model, full, state, t, m, t, m, seed, temperature,
+                                    return_scores=True, accumulate=acc)
         return scores, state
+
+    def tf_scores_alt(full, state, t, m):
+        return tf_scores(full, state, t, m, torch.float64)
 
     def free_run():
         state = sd.init_decode_state(net, prompt)
-        return sd.decode_plain(net, prompt, state, rf, prior_t + n - rf, prior_t, n, seed,
+        return sd.decode_plain(model, prompt, state, rf, prior_t + n - rf, prior_t, n, seed,
                                temperature)
 
-    return verify_tokens(torch, prompt, toks, rf, tf_scores, free_run)
+    bf16 = model is not net and model.flat.dtype == torch.bfloat16
+    return verify_tokens(torch, prompt, toks, rf, tf_scores, free_run,
+                         tf_scores_alt=tf_scores_alt if bf16 else None)
 
 
-def check_kernels(torch, mmk, sd, spec, B_single, B_chunk, n, chunk_lens, jitter):
-    """Phase 2 at one size; returns {wrapper: largest score gap}."""
+def bf16_valued(torch, net):
+    """A copy of ``net`` whose parameters hold their bf16-rounded values in
+    f32: packed in f32, the bf16 route's weights read by the f32
+    instantiation, which leaves the products' inputs unrounded."""
+    net = copy.deepcopy(net)
+    with torch.no_grad():
+        for p in net.parameters():
+            p.copy_(p.to(torch.bfloat16).float())
+    return net
+
+
+def expect_caught(what, check):
+    """``check()`` verifies a control's tokens (a kernel with a known fault):
+    it must raise, else the check cannot tell that fault."""
+    try:
+        check()
+    except AssertionError as e:
+        log(f"    control {what}: caught ({e})")
+        return
+    raise AssertionError(f"the check passed the control {what}: it cannot tell the fault")
+
+
+def check_kernels(torch, mmk, sd, spec, B_single, B_chunk, n, chunk_lens, jitter, bf16=False,
+                  control=False):
+    """Phase 2 at one size, on the f32 pack or (``bf16``) the bf16 one, each
+    against its own twin; returns {wrapper: largest score gap} (the bf16
+    instantiation's keys end in ``_bf16``).  With ``control`` (bf16), the
+    f32 instantiation on the bf16-valued weights (no input rounding) runs the
+    same calls, and the bf16 check must refuse its tokens."""
     net = make_net(mmk, torch, spec, seed=1, jitter=jitter)
-    pack = sd.samplernn_weight_pack(net)
+    pack = sd.samplernn_weight_pack(net, torch.bfloat16 if bf16 else torch.float32)
+    ctl = sd.samplernn_weight_pack(bf16_valued(torch, net)) if control else None
+    twin = pack if bf16 else net
     rf, q = net.rf, spec["q_levels"]
+    sfx = "_bf16" if bf16 else ""
     err = {"decode_single": 0.0, "decode_chunk": 0.0}
     for temp in (None, TEMPERATURE):
         mode = "argmax" if temp is None else f"T={temp}"
@@ -296,10 +402,15 @@ def check_kernels(torch, mmk, sd, spec, B_single, B_chunk, n, chunk_lens, jitter
                     raise AssertionError(f"decode_single group={g} changed the tokens")
             if temp is None and len(set(toks[0].tolist())) < 2:
                 raise AssertionError("argmax tokens are constant: the check is vacuous")
-        gap, parted = verify(torch, sd, net, prompt, toks, 11, temp)
+        gap, parted = verify(torch, sd, twin, prompt, toks, 11, temp)
         err["decode_single"] = max(err["decode_single"], gap)
-        log(f"  decode_single B={B_single} n={n} {mode}: ok, max gap {gap:.3e},"
+        log(f"  decode_single{sfx} B={B_single} n={n} {mode}: ok, max gap {gap:.3e},"
             f" {parted} streams parted at near-ties")
+        if ctl is not None:
+            with uncounted(sd.decode_single):
+                bad = sd.decode_single(ctl, prompt, n, 11, temp)
+            expect_caught(f"decode_single B={B_single} {mode}",
+                          lambda: verify(torch, sd, twin, prompt, bad, 11, temp))
         # decode_chunk: the state carried across launches of several lengths
         prompt = make_prompt(torch, B_chunk, 2 * rf, q, seed=3)
         prior_t = prompt.shape[1]
@@ -315,11 +426,17 @@ def check_kernels(torch, mmk, sd, spec, B_single, B_chunk, n, chunk_lens, jitter
         for C, r in zip(chunk_lens[1:], runs[1:]):
             if not torch.equal(r, runs[0]):
                 raise AssertionError(f"decode_chunk with chunk {C} changed the tokens")
-        gap, parted = verify(torch, sd, net, prompt, runs[0], 13, temp)
+        gap, parted = verify(torch, sd, twin, prompt, runs[0], 13, temp)
         err["decode_chunk"] = max(err["decode_chunk"], gap)
-        log(f"  decode_chunk B={B_chunk} n={n} chunks {chunk_lens} {mode}: ok,"
+        log(f"  decode_chunk{sfx} B={B_chunk} n={n} chunks {chunk_lens} {mode}: ok,"
             f" max gap {gap:.3e}, {parted} streams parted at near-ties")
-    return err
+        if ctl is not None:
+            with uncounted(sd.decode_chunk):
+                bad = sd.decode_chunk(ctl, prompt, sd.init_decode_state(net, prompt), rf,
+                                      prior_t + n - rf, 13, temp)[:, prior_t - rf :]
+            expect_caught(f"decode_chunk B={B_chunk} {mode}",
+                          lambda: verify(torch, sd, twin, prompt, bad, 13, temp))
+    return {k + sfx: v for k, v in err.items()}
 
 
 def cuda_ms(torch, fn, reps):
@@ -353,9 +470,10 @@ def graph_ms(torch, fn, per, reps):
 
 
 def decode_bound(pack, B, prior_t, t0, n, out_len):
-    """(bound_ms, bound_by) for one decode call: the larger of its f32
-    operations over the card's f32 rate and its bytes (each input read once,
-    each output written once) over the memory rate."""
+    """(bound_ms, bound_by) for one decode call: the larger of its operations
+    over the card's rate for the pack's type (f32 on the CUDA cores; bf16 on
+    the tensor cores) and its bytes (each input read once, the weights at
+    the pack's width, each output written once) over the memory rate."""
     fs, up, H = pack.frame_sizes, pack.up_factors, pack.hidden_dim
     steps = range(t0, t0 + n)
     mac = n * (fs[-1] * H + sum(i * o for i, o in pack.head_dims))
@@ -364,9 +482,15 @@ def decode_bound(pack, B, prior_t, t0, n, out_len):
         mac += fires * (fs[i] * H + 2 * H * 4 * H + H * up[i] * H)
     flops = 2.0 * mac * B
     state = 4 * B * (fs[0] + 2 * (len(fs) - 1) * H + sum(up) * H)
-    nbytes = 4 * pack.flat.numel() + 4 * B * prior_t + 2 * state + 4 * B * out_len
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+    nbytes = (pack.flat.element_size() * pack.flat.numel() + 4 * B * prior_t + 2 * state
+              + 4 * B * out_len)
+    t_ops, t_bytes = flops / peak_flops(pack), nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def peak_flops(pack) -> float:
+    """The card's operation rate for a weight pack's type."""
+    return PEAK_F32_FLOPS if pack.flat.element_size() == 4 else PEAK_BF16_FLOPS
 
 
 def spread(xs):
@@ -374,11 +498,12 @@ def spread(xs):
     return med, (max(xs) - min(xs)) / med
 
 
-def main_path(torch, mmk, net, p4, p256):
+def main_path(torch, mmk, net, p4, p256, label=""):
     """Time the user entry points at full width; returns the generated
-    buffers {B: (B, prior_t + n)}."""
+    buffers {B: (B, prior_t + n)}.  Each timing lands in ``SUMMARY`` under
+    ``label``."""
     q = FULL["q_levels"]
-    log(f"  SampleRNN-3: {net.n_parameters} parameters")
+    log(f"  SampleRNN-3{label}: {net.n_parameters} parameters")
     outs = {}
     for B, prompt, n in ((4, p4, N_SMALL), (256, p256, N_WIDE)):
         net.generate((prompt,), 64, temperature=TEMPERATURE, seed=SEED)  # lazy set-up
@@ -393,7 +518,8 @@ def main_path(torch, mmk, net, p4, p256):
             raise AssertionError(f"generate B={B}: bad tokens {tuple(toks.shape)}")
         if len(set(toks[0].tolist())) < 2:
             raise AssertionError(f"generate B={B}: constant sampled tokens")
-        log(f"  generate B={B} n={n} T={TEMPERATURE}: {B * n / (med / 1e3):.6g} samples/s"
+        SUMMARY[f"srnn{label}_b{B}_ms"] = med
+        log(f"  generate{label} B={B} n={n} T={TEMPERATURE}: {B * n / (med / 1e3):.6g} samples/s"
             f" (median of 3: {med:.3f} ms, spread {spr:.3%}; {ms})")
 
     lat, audio = [], []
@@ -414,7 +540,9 @@ def main_path(torch, mmk, net, p4, p256):
     if got.shape != ref.shape or not np.array_equal(got, ref):
         raise AssertionError("stream_audio differs from the expanded generate output")
     lat_s = sorted(lat)
-    log(f"  stream_audio B=256, 12 chunks of {STREAM_CHUNK} steps (equal to the expanded"
+    SUMMARY[f"srnn{label}_chunk_p50_ms"] = statistics.median(lat)
+    SUMMARY[f"srnn{label}_chunk_p95_ms"] = lat_s[int(0.95 * (len(lat) - 1) + 0.5)]
+    log(f"  stream_audio{label} B=256, 12 chunks of {STREAM_CHUNK} steps (equal to the expanded"
         f" generate output): per-chunk ms p50"
         f" {statistics.median(lat):.3f}, p95 {lat_s[int(0.95 * (len(lat) - 1) + 0.5)]:.3f},"
         f" max {max(lat):.3f} (first {lat[0]:.3f}); {lat}")
@@ -774,11 +902,14 @@ def verify_kv(torch, tk, pack, prompt, toks, seed, temperature):
     """verify_tokens for the KV-ring kernel (K7; steps from 1)."""
     prior_t, n = prompt.shape[1], toks.shape[1]
 
-    def tf_scores(full, state, t, m):
+    def tf_scores(full, state, t, m, acc=torch.float32):
         state = state or tk.init_kv_state(pack, full)
         _, scores = tk.decode_chunk_plain(pack, full.t().contiguous(), state, t, m, seed,
-                                          temperature, return_scores=True)
+                                          temperature, return_scores=True, accumulate=acc)
         return scores, state
+
+    def tf_scores_alt(full, state, t, m):
+        return tf_scores(full, state, t, m, torch.float64)
 
     def free_run():
         state = tk.init_kv_state(pack, prompt)
@@ -786,7 +917,9 @@ def verify_kv(torch, tk, pack, prompt, toks, seed, temperature):
                                     temperature)
         return out[:, prior_t - 1 :]
 
-    return verify_tokens(torch, prompt, toks, 1, tf_scores, free_run)
+    bf16 = pack.flat.dtype == torch.bfloat16
+    return verify_tokens(torch, prompt, toks, 1, tf_scores, free_run,
+                         tf_scores_alt=tf_scores_alt if bf16 else None)
 
 
 def kv_run(torch, tk, pack, prompt, n, chunk, temperature, seed):
@@ -819,14 +952,23 @@ def barriers_per_step(wrapper, n_steps):
 
 
 def check_transformer(torch, mmk, td, tk, spec, n, window_batches, kv_batches, chunk_lens,
-                      jitter):
+                      jitter, bf16=False, control=False):
     """Phase 2 for the transformer kernels at one size: K6 at
     ``window_batches`` and K7 at ``kv_batches``, each over several chunk
-    lengths (the tokens must not change), argmax and T=0.9; returns
-    {wrapper: largest score gap}."""
+    lengths (the tokens must not change), argmax and T=0.9; with ``bf16``
+    K7 alone, on the bf16 pack against its bf16 twin (K6 has no bf16
+    variant), and with ``control`` K7's f32 instantiation on the
+    bf16-valued weights too, whose tokens the bf16 check must refuse.
+    Returns {wrapper: largest score gap} (K7's bf16 key ends in ``_bf16``)."""
     net = make_transformer(mmk, torch, td, spec, seed=1, jitter=jitter)
-    pack = td.transformer_weight_pack(net)
+    if bf16 and not td.supports_kernel_decode(net, wbytes=2):
+        raise AssertionError("K7's bf16 gate refused the net")
+    pack = td.transformer_weight_pack(net, torch.bfloat16 if bf16 else torch.float32)
+    ctl = td.transformer_weight_pack(bf16_valued(torch, net)) if control else None
     rf, q, L = spec["rf"], spec["q_levels"], spec["num_layers"]
+    sfx = "_bf16" if bf16 else ""
+    if bf16:
+        window_batches = ()
     err = {"transformer_decode_window": 0.0, "transformer_decode_chunk": 0.0}
     for temp in (None, TEMPERATURE):
         mode = "argmax" if temp is None else f"T={temp}"
@@ -865,9 +1007,16 @@ def check_transformer(torch, mmk, td, tk, spec, n, window_batches, kv_batches, c
                 raise AssertionError("K7 argmax tokens are constant: the check is vacuous")
             gap, parted = verify_kv(torch, tk, pack, prompt, runs[0], 13, temp)
             err["transformer_decode_chunk"] = max(err["transformer_decode_chunk"], gap)
-            log(f"  transformer decode_chunk rf={rf} B={B} n={n} chunks {chunk_lens} {mode}: ok,"
-                f" max gap {gap:.3e}, {parted} streams parted at near-ties; {per_step:g} grid"
+            log(f"  transformer decode_chunk{sfx} rf={rf} B={B} n={n} chunks {chunk_lens} {mode}:"
+                f" ok, max gap {gap:.3e}, {parted} streams parted at near-ties; {per_step:g} grid"
                 f" barriers a step ({L} layers)")
+            if ctl is not None:
+                with uncounted(tk.decode_chunk):
+                    bad = kv_run(torch, tk, ctl, prompt, n, chunk_lens[0], temp, 13)
+                expect_caught(f"transformer decode_chunk B={B} {mode}",
+                              lambda: verify_kv(torch, tk, pack, prompt, bad, 13, temp))
+    if bf16:
+        return {"transformer_decode_chunk_bf16": err["transformer_decode_chunk"]}
     return err
 
 
@@ -963,6 +1112,7 @@ def transformer_path(torch, mmk, td, tk):
             if got.shape != (B, TF_KV_CHUNKS * STREAM_CHUNK) or not np.array_equal(
                     got[:, :n_cmp], expand(ref.cpu().numpy())):
                 raise AssertionError(f"transformer KV stream B={B} is not chunk-invariant")
+            SUMMARY[f"kv_b{B}_chunk_p50_ms"] = statistics.median(lat)
             log(f"  transformer stream_audio (MMK_DECODE_KV=1) B={B}, {TF_KV_CHUNKS} chunks of"
                 f" {STREAM_CHUNK} steps (its first {n_cmp} equal to 1000-step launches; real time"
                 f" is {STREAM_CHUNK / 16:g} ms a chunk): {latency_line(lat)}")
@@ -1000,6 +1150,8 @@ def transformer_path(torch, mmk, td, tk):
         win["out"] = net._window_loop(p16, TF_N16, None, SEED)
 
     w_ms, w_spr = spread(cuda_ms(torch, run_win, reps=3))
+    SUMMARY["win_b16_us"] = 1e3 * w_ms / TF_N16
+    SUMMARY["win_b16_tokens"] = win["out"]
     if td.decode_window.launches - before != 3:
         raise AssertionError("the window route launched K6")
     with uncounted(td.decode_window):
@@ -1084,8 +1236,8 @@ def kv_flops(pack, B, prior_t, n_steps):
     return float(B) * (layers + sampled * 2 * sum(i * o for i, o in pack.head_dims))
 
 
-def transformer_bound(flops, nbytes):
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+def transformer_bound(flops, nbytes, peak=PEAK_F32_FLOPS):
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -1098,12 +1250,13 @@ def window_bound(pack, B, n_steps):
 
 def kv_bound(pack, B, prior_t, n_steps):
     """(bound_ms, bound_by) of one K7 call over steps 1 .. n_steps: its
-    operations, against the weights, the PE rows, the prompt, the tokens and
-    the rings (read once, written once)."""
+    operations (over the rate of the pack's type), against the weights (at
+    the pack's width), the PE rows, the prompt, the tokens and the f32 rings
+    (read once, written once)."""
     ring = 4 * pack.n_layers * B * pack.rf * 4 * pack.dim
-    nbytes = (4 * (pack.flat.numel() + n_steps * pack.dim + B * (prior_t + n_steps + 2))
-              + 2 * ring)
-    return transformer_bound(kv_flops(pack, B, prior_t, n_steps), nbytes)
+    nbytes = (pack.wbytes * pack.flat.numel() + 4 * (n_steps * pack.dim
+                                                     + B * (prior_t + n_steps + 2)) + 2 * ring)
+    return transformer_bound(kv_flops(pack, B, prior_t, n_steps), nbytes, peak_flops(pack))
 
 
 def transformer_rows(torch, td, tk, net, prompts, launches, err):
@@ -1182,6 +1335,184 @@ def transformer_bench(torch, mmk, td, tk):
             f" ({1e3 * med / STREAM_CHUNK:.2f} us a step; median of 3, spread {spr:.3%}); bound"
             f" {bound:.4f} ms by {by}")
     transformer_rows(torch, td, tk, net, prompts, launches, {k: 0.0 for k in launches})
+
+
+# -- the bf16 routes: K1/K2 and K7 on bf16 weights, the window route in bf16 -----------
+
+@contextlib.contextmanager
+def env_set(**kv):
+    """Set environment variables inside the block (the serving knobs)."""
+    old = {k: os.environ.get(k) for k in kv}
+    os.environ.update(kv)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def versus(what, key16, key32, unit):
+    """A line with a bf16 number beside the f32 one of the same run."""
+    a, b = SUMMARY[key16], SUMMARY[key32]
+    log(f"  {what}: bf16 {a:.3f} {unit} against f32 {b:.3f} {unit} ({a / b:.3f}x)")
+
+
+def samplernn_bf16_path(torch, mmk, sd, net, p4, p256):
+    """Phase 3 under ``MMK_PALLAS_BF16=1``: SampleRNN-3's main path
+    (``main_path``: generate at B=4, decode_single's route, and B=256,
+    decode_chunk's; stream_audio), every launch the bf16 instantiation; the
+    B=256 output's first ``N_BF16_VERIFY`` steps verified against the bf16
+    twin; each number beside the f32 run's.  Returns (launches, gap)."""
+    for w in (sd.decode_single, sd.decode_chunk):
+        w.launches = w.launches_bf16 = 0
+    with env_set(MMK_PALLAS_BF16="1"):
+        outs = main_path(torch, mmk, net, p4, p256, label="_bf16")
+    launches = {"decode_single_bf16": sd.decode_single.launches_bf16,
+                "decode_chunk_bf16": sd.decode_chunk.launches_bf16}
+    log(f"  launches on the bf16 serving path: {launches}")
+    if (launches["decode_single_bf16"] != sd.decode_single.launches
+            or launches["decode_chunk_bf16"] != sd.decode_chunk.launches):
+        raise AssertionError("the bf16 serving path launched the f32 instantiation")
+    if min(launches.values()) == 0:
+        raise AssertionError(f"a kernel of the bf16 serving path was never launched: {launches}")
+    pack16 = sd.samplernn_weight_pack(net, torch.bfloat16)
+    prior_t = p256.shape[1]
+    with uncounted(sd.decode_single, sd.decode_chunk):
+        gap, parted = verify(torch, sd, pack16, p256,
+                             outs[256][:, prior_t : prior_t + N_BF16_VERIFY], SEED, TEMPERATURE)
+    log(f"  generate_bf16 B=256 output, its first {N_BF16_VERIFY} steps verified against the bf16"
+        f" twin: max gap {gap:.3e}, {parted} streams parted at near-ties")
+    versus("SampleRNN-3 generate B=256 x 16384", "srnn_bf16_b256_ms", "srnn_b256_ms", "ms")
+    versus("SampleRNN-3 generate B=4 x 4096", "srnn_bf16_b4_ms", "srnn_b4_ms", "ms")
+    versus("SampleRNN-3 stream_audio chunk p50", "srnn_bf16_chunk_p50_ms", "srnn_chunk_p50_ms",
+           "ms")
+    versus("SampleRNN-3 stream_audio chunk p95", "srnn_bf16_chunk_p95_ms", "srnn_chunk_p95_ms",
+           "ms")
+    return launches, gap
+
+
+def transformer_bf16_path(torch, mmk, td, tk, net, prompts):
+    """Phase 3 under ``MMK_DECODE_BF16=1``: transformer8l's KV stream
+    (``MMK_DECODE_KV=1``) at B=1 and 16, every launch K7's bf16
+    instantiation, its first chunks equal to 1000-step launches and the
+    B=16 stream's first 256 tokens verified against the bf16 twin; then the
+    window route in bf16 at B=16 (``transformer8l_win_b16``).  Each number
+    beside the f32 run's.  Returns (launches, gap)."""
+    q, rf = TF_FULL["q_levels"], TF_FULL["rf"]
+    expand = mmk.MuLawExpand(q)
+    pack16 = td.transformer_weight_pack(net, torch.bfloat16)
+    tk.decode_chunk.launches = tk.decode_chunk.launches_bf16 = 0
+    gap = 0.0
+    with env_set(MMK_DECODE_KV="1", MMK_DECODE_BF16="1"):
+        for B in (1, TF_KV_B):
+            lat, chunks = chunk_latencies(
+                mmk.stream_audio(net, (prompts[B],), STREAM_CHUNK, temperature=TEMPERATURE,
+                                 seed=SEED), TF_KV_CHUNKS)
+            n_cmp = 2 * STREAM_CHUNK
+            with uncounted(tk.decode_chunk):
+                ref = kv_run(torch, tk, pack16, prompts[B], n_cmp, 1000, TEMPERATURE, SEED)
+                if B == TF_KV_B:
+                    gap, parted = verify_kv(torch, tk, pack16, prompts[B], ref[:, :256], SEED,
+                                            TEMPERATURE)
+                    log(f"  the bf16 KV stream B={B}: its first 256 tokens verified against the"
+                        f" bf16 twin: max gap {gap:.3e}, {parted} streams parted at near-ties")
+            got = np.concatenate(chunks, 1)
+            if got.shape != (B, TF_KV_CHUNKS * STREAM_CHUNK) or not np.array_equal(
+                    got[:, :n_cmp], expand(ref.cpu().numpy())):
+                raise AssertionError(f"transformer bf16 KV stream B={B} is not chunk-invariant")
+            SUMMARY[f"kv_bf16_b{B}_chunk_p50_ms"] = statistics.median(lat)
+            log(f"  transformer stream_audio (MMK_DECODE_KV=1 MMK_DECODE_BF16=1) B={B},"
+                f" {TF_KV_CHUNKS} chunks of {STREAM_CHUNK} steps (its first {n_cmp} equal to"
+                f" 1000-step launches): {latency_line(lat)}")
+            versus(f"transformer8l KV chunk p50 B={B}", f"kv_bf16_b{B}_chunk_p50_ms",
+                   f"kv_b{B}_chunk_p50_ms", "ms")
+    launches = {"transformer_decode_chunk_bf16": tk.decode_chunk.launches_bf16}
+    log(f"  launches on the bf16 KV path: {launches}")
+    if launches["transformer_decode_chunk_bf16"] != tk.decode_chunk.launches:
+        raise AssertionError("the bf16 KV stream launched K7's f32 instantiation")
+    if launches["transformer_decode_chunk_bf16"] == 0:
+        raise AssertionError("the bf16 KV stream never launched K7")
+    # the window route in bf16: a bf16 copy of the net, no kernel
+    p16 = prompts[TF_KV_B]
+    win = {}
+    with env_set(MMK_DECODE_BF16="1"):
+        net._window_loop(p16, 2, TEMPERATURE, SEED)
+
+        def run_win():
+            win["out"] = net._window_loop(p16, TF_N16, None, SEED)
+
+        w_ms, w_spr = spread(cuda_ms(torch, run_win, reps=3))
+    toks = win["out"][:, rf:]
+    if toks.shape != (TF_KV_B, TF_N16) or int(toks.min()) < 0 or int(toks.max()) >= q:
+        raise AssertionError(f"the bf16 window route: bad tokens {tuple(toks.shape)}")
+    if len(set(toks[0].tolist())) < 2:
+        raise AssertionError("the bf16 window route: constant argmax tokens")
+    SUMMARY["win_bf16_b16_us"] = 1e3 * w_ms / TF_N16
+    same = float((toks == SUMMARY["win_b16_tokens"][:, rf:]).float().mean())
+    log(f"  transformer8l_win_b16 (MMK_DECODE_BF16=1): window route B=16 x {TF_N16} argmax steps"
+        f" in bf16: {SUMMARY['win_bf16_b16_us']:.1f} us a step (median of 3, spread {w_spr:.3%});"
+        f" {same:.1%} of its tokens equal the f32 route's")
+    versus("transformer8l_win_b16 step", "win_bf16_b16_us", "win_b16_us", "us")
+    return launches, gap
+
+
+def bf16_rows(torch, sd, td, tk, net, p4, p256, tf_net, tf_prompts, launches, err):
+    """Phase 5 rows of the bf16 instantiations at the bf16 main paths'
+    shapes: K1-bf16 (decode_single B=4), K2-bf16 (decode_chunk B=256), K7-bf16
+    (B=16, steps 1-1,600); each plain twin (the bf16 twin) over fewer steps,
+    scaled; bounds with the weights at 2 bytes and the operations at the
+    tensor cores' bf16 rate.  No single PyTorch call computes a decode."""
+    rf = net.rf
+    pack16 = sd.samplernn_weight_pack(net, torch.bfloat16)
+    tpack16 = td.transformer_weight_pack(tf_net, torch.bfloat16)
+    p16 = tf_prompts[TF_KV_B]
+    C, n_twin = STREAM_CHUNK, BF16_PLAIN_STEPS
+    n4 = p4.shape[1] + N_SMALL - rf
+    calls = {
+        "decode_single_bf16": (
+            lambda: sd.decode_single(pack16, p4, N_SMALL, SEED, TEMPERATURE),
+            lambda: sd.decode_plain(pack16, p4, sd.init_decode_state(net, p4), rf, n_twin,
+                                    p4.shape[1], n_twin, SEED, TEMPERATURE),
+            n4 / n_twin, decode_bound(pack16, 4, p4.shape[1], rf, n4, N_SMALL),
+            "mimikit_tpu_torch/csrc/samplernn_decode.cu", "mimikit_tpu/ops/pallas_decode.py:148",
+            f"B=4 steps={n4}"),
+        "decode_chunk_bf16": (
+            lambda: sd.decode_chunk(pack16, p256, sd.init_decode_state(net, p256), rf,
+                                    net._CHUNK, SEED, TEMPERATURE),
+            lambda: sd.decode_plain(pack16, p256, sd.init_decode_state(net, p256), rf, n_twin, rf,
+                                    n_twin, SEED, TEMPERATURE),
+            net._CHUNK / n_twin,
+            decode_bound(pack16, 256, p256.shape[1], rf, net._CHUNK, net._CHUNK),
+            "mimikit_tpu_torch/csrc/samplernn_decode.cu", "mimikit_tpu/ops/pallas_decode.py:868",
+            f"B=256 steps={net._CHUNK}"),
+        "transformer_decode_chunk_bf16": (
+            lambda: tk.decode_chunk(tpack16, p16.t().contiguous(), tk.init_kv_state(tpack16, p16),
+                                    1, C, TEMPERATURE, SEED),
+            lambda: tk.decode_chunk_plain(tpack16, p16.t().contiguous(),
+                                          tk.init_kv_state(tpack16, p16), 1, TF_PLAIN_STEPS,
+                                          SEED, TEMPERATURE),
+            C / TF_PLAIN_STEPS, kv_bound(tpack16, TF_KV_B, TF_FULL["rf"], C),
+            "mimikit_tpu_torch/csrc/transformer_kv.cu", "mimikit_tpu/ops/pallas_decode.py:1693",
+            f"B={TF_KV_B} steps={C}"),
+    }
+    rows = []
+    with uncounted(sd.decode_single, sd.decode_chunk, tk.decode_chunk):
+        for name, (kern, plain, scale, (bound, by), source, replaces, shape) in calls.items():
+            kern()
+            k_ms, k_spr = spread(cuda_ms(torch, kern, reps=3))
+            p_ms = cuda_ms(torch, plain, reps=1)[0] * scale
+            log(f"  {name} {shape}: kernel {k_ms:.4f} ms (median of 3, spread {k_spr:.2%}),"
+                f" plain twin {p_ms:.3f} ms (fewer steps timed, scaled by {scale:g}), bound"
+                f" {bound:.4f} ms by {by}; library: none (no single PyTorch call)")
+            rows.append(dict(
+                name=name, route="cuda", source=source, replaces=replaces,
+                launches=launches[name], max_abs_err=err[name], ms=k_ms, plain_ms=p_ms,
+                bound_ms=bound, bound_by=by, library_ms=None,
+            ))
+    return rows
 
 
 # -- JukeBox serving (the tier-pyramid kernel K8) and the mu-law pair (K10) -----------
@@ -1880,34 +2211,61 @@ def main(argv=None) -> int:
 
     # -- phase 2 -------------------------------------------------------------
     log(f"phase 2: each kernel against its plain twin (at {time.perf_counter() - t_start:.1f} s)")
+    t_mark = [time.perf_counter()]
+
+    def stamp(what):
+        now = time.perf_counter()
+        log(f"  [{what}: {now - t_mark[0]:.1f} s]")
+        t_mark[0] = now
+
     err = check_kernels(torch, mmk, sd, SMALL, 4, 64, 300, (300 + 16, 7, 64), jitter=0.5)
+    err.update(check_kernels(torch, mmk, sd, SMALL, 4, 64, 300, (300 + 16, 7, 64), jitter=0.5,
+                             bf16=True, control=True))
+    stamp("SampleRNN decode, small, f32 and bf16")
     err.update(check_lstm(torch, fl, LSTM_SHAPES[:1]))
     err.update(check_wavenet(torch, mmk, wd, WN_SMALL, WN_SMALL_B, 40, 300, (300 + 15, 7, 64),
                              jitter=0.3))
     err.update(check_categorical(torch, cat))
+    stamp("LSTM, WaveNet and the sampler, small")
     err.update(check_transformer(torch, mmk, td, tk, TF_SMALL, 300, TF_WIN_BATCHES,
                                  TF_KV_BATCHES, (300 + 15, 7, 64), jitter=0.5))
+    err.update(check_transformer(torch, mmk, td, tk, TF_SMALL, 150, (), TF_KV_BATCHES,
+                                 (150 + 15, 7, 64), jitter=0.5, bf16=True, control=True))
     err = merge_max(err, check_transformer(torch, mmk, td, tk, TF_SMALL_LONG, 100, (1, 2), (1, 16),
                                            (100 + 15, 7, 64), jitter=0.5))
+    stamp("K6 and K7, small, f32 and bf16")
     err.update(check_jukebox(torch, mmk, jbd, JB_SMALL, (1, JB_B), 300, (300 + 15, 7, 64),
                              jitter=0.3))
     err.update(check_mulaw(torch, mu))
+    stamp("K8 and K10, small")
     if args.quick:
         log(json.dumps({"ok": True, "quick": True, "max_err": err}))
         return 0
     err_full = check_kernels(torch, mmk, sd, FULL, 4, 256, 2048, (2048 + 32, 700, 1600),
                              jitter=0.0)
+    stamp("SampleRNN decode, full width, f32")
+    err_full.update(check_kernels(torch, mmk, sd, FULL, 4, 256, 1024, (1024 + 32, 700),
+                                  jitter=0.0, bf16=True))
+    stamp("SampleRNN decode, full width, bf16")
     err_full.update(check_lstm(torch, fl, LSTM_SHAPES[1:]))
     err_full.update(check_wavenet(torch, mmk, wd, WN_FULL, WN_SMALL_B, 256, 512, (1543, 700),
                                   jitter=0.0))
+    stamp("LSTM and WaveNet, full width")
     err_full.update(check_transformer(torch, mmk, td, tk, TF_FULL, 256, TF_WIN_BATCHES,
                                       TF_KV_BATCHES, (256 + 63, 100), jitter=0.0))
+    stamp("K6 and K7, full width, f32")
+    err_full.update(check_transformer(torch, mmk, td, tk, TF_FULL, 64, (), TF_KV_BATCHES,
+                                      (64 + 63, 100), jitter=0.0, bf16=True))
+    stamp("K7, full width, bf16")
     err_full = merge_max(err_full, check_transformer(torch, mmk, td, tk, TF_LONG, 48, (1, 2),
                                                      (1, 16), (48 + 63, 20), jitter=0.0))
+    stamp("K6 and K7 at rf 512")
     err_full.update(check_jukebox(torch, mmk, jbd, JB_FULL, (1, JB_B), 256, (256 + 15, 100),
                                   jitter=0.0))
+    stamp("K8, full width")
     err = {k: max(err[k], err_full.get(k, 0.0)) for k in err}
     check_train_step(torch, mmk)
+    stamp("a full train step")
 
     # -- phase 3 -------------------------------------------------------------
     log(f"phase 3: the serving paths at full width (at {time.perf_counter() - t_start:.1f} s)")
@@ -1926,11 +2284,21 @@ def main(argv=None) -> int:
     log(f"  launches on the serving path: {launches}")
     if min(launches.values()) == 0:
         raise AssertionError(f"a kernel of the serving path was never launched: {launches}")
+    stamp("SampleRNN-3, f32")
+    srnn16_launches, gap = samplernn_bf16_path(torch, mmk, sd, net, p4, p256)
+    err["decode_chunk_bf16"] = max(err["decode_chunk_bf16"], gap)
+    stamp("SampleRNN-3, bf16")
     wn_net, wn_prompts, wn_launches, gap = wavenet_path(torch, mmk, wd, cat)
+    stamp("WaveNet-10")
     err["wavenet_decode_chunk"] = max(err["wavenet_decode_chunk"], gap)
     tf_net, tf_prompts, tf_launches, gap = transformer_path(torch, mmk, td, tk)
     err["transformer_decode_window"] = max(err["transformer_decode_window"], gap)
+    stamp("transformer8l, f32")
+    tf16_launches, gap = transformer_bf16_path(torch, mmk, td, tk, tf_net, tf_prompts)
+    err["transformer_decode_chunk_bf16"] = max(err["transformer_decode_chunk_bf16"], gap)
+    stamp("transformer8l, bf16")
     jb_net, jb_prompts, jb_launches, gap = jukebox_path(torch, mmk, jbd)
+    stamp("jukebox3")
     err["jukebox_decode_pyramid"] = max(err["jukebox_decode_pyramid"], gap)
 
     # -- phase 4 -------------------------------------------------------------
@@ -1980,6 +2348,8 @@ def main(argv=None) -> int:
         ))
     rows += wavenet_rows(torch, wd, cat, wn_net, wn_prompts, wn_launches, err)
     rows += transformer_rows(torch, td, tk, tf_net, tf_prompts, tf_launches, err)
+    rows += bf16_rows(torch, sd, td, tk, net, p4, p256, tf_net, tf_prompts,
+                      {**srnn16_launches, **tf16_launches}, err)
     rows += jukebox_rows(torch, jbd, mu, jb_net, jb_prompts,
                          {**jb_launches, **{k: train_launches[k] for k in ("mulaw_compress",
                                                                             "mulaw_expand")}}, err)

@@ -36,13 +36,26 @@
 // of weights from L2 each step, so the L2's bandwidth across the blocks and
 // the latency of each thread's dependent loads set the pace; the design
 // answers with G accumulators per load, 16 loads in flight per thread and
-// one block per SM.  bf16 weights, tensor cores (wgmma) and weights held in
-// shared memory across SMs are the later steps.
+// one block per SM.  Tensor cores (wgmma) and weights held in shared memory
+// across SMs are the later steps.
+//
+// bf16 weights (MMK_PALLAS_BF16=1; the TPU kernels' weight_dtype="bf16",
+// pallas_decode.py:179-187): the same kernel instantiated on
+// __nv_bfloat16 weights.  Each weight and bias is a 2-byte load converted to
+// f32; each product's input activation is rounded to bf16 where JAX's wdot
+// rounds it (the framed samples, x and h of the gates, h of the upsampler,
+// each head layer's input; the block rounds a product's input rows in shared
+// memory once, before the product); products and sums stay f32, in the same
+// order as the f32 instantiation; the x + tier-cache add, the LSTM cell, the carries
+// and the caches stay f32.  It halves the weight bytes each step re-reads
+// from L2 (7.4 MB to 3.7 MB at the full width), the traffic this version is
+// bound by; the operations are unchanged.
 //
 // Randomness: the port's counter hash of (seed, absolute t, stream, class)
 // (noise.cuh).  The plain PyTorch twin computes the same hash, so both see
 // identical noise, and sampled streams do not depend on the chunk length.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -56,7 +69,7 @@
 // Mirrors SrnnDecodeArgs in mimikit_tpu_torch/ops/samplernn_decode.py:
 // pointers, then 64-bit integers, then 32-bit fields (no padding between).
 struct SrnnDecodeArgs {
-  const float* w;      // packed weights (samplernn_weight_pack)
+  const void* w;       // packed weights (samplernn_weight_pack), f32 or bf16
   const int* prompt;   // (B, prior_t)
   int* win;            // (B, rf), oldest sample first; in/out
   float* h;            // (n_tiers-1, B, H); in/out
@@ -93,6 +106,7 @@ struct SrnnDecodeArgs {
   unsigned int seed;
   float temperature;
   float min_temperature;
+  int bf16;            // the weights are __nv_bfloat16 (else float)
   int fs[MMK_MAX_TIERS];
   int up[MMK_MAX_TIERS];
   int cache_row[MMK_MAX_TIERS];      // first cache row of tier i
@@ -102,6 +116,21 @@ struct SrnnDecodeArgs {
 
 __device__ __forceinline__ float sigmoid_f(float x) { return 1.0f / (1.0f + expf(-x)); }
 
+// A weight as f32, and a product input as the weight type rounds it: both
+// the identity for f32 weights.
+__device__ __forceinline__ float wload(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float wload(const __nv_bfloat16* p) {
+  return __bfloat162float(__ldg(p));
+}
+template <class WT>
+__device__ __forceinline__ float wround(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ float wround<__nv_bfloat16>(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
 __device__ __forceinline__ float mish_f(float x) {
   float sp = fmaxf(x, 0.0f) + log1pf(expf(-fabsf(x)));
   return x * tanhf(sp);
@@ -109,24 +138,25 @@ __device__ __forceinline__ float mish_f(float x) {
 
 // Y[g][col] = act(X[g][:K] . W[:K][col] + bias[col]) for the G rows of X.
 // W is (K, N) row-major; X rows are 16-byte aligned (xs % 4 == 0).  Rows
-// g >= n_valid are computed but not stored (ragged last group).
-template <int G, bool MISH>
-__device__ __forceinline__ void dense(const float* __restrict__ W,
-                                      const float* __restrict__ bias,
+// g >= n_valid are computed but not stored (ragged last group).  With bf16
+// weights the caller has rounded X to bf16 (round_inputs).
+template <int G, bool MISH, class WT>
+__device__ __forceinline__ void dense(const WT* __restrict__ W,
+                                      const WT* __restrict__ bias,
                                       const float* X, int xs, int K, int N,
                                       float* Y, long long ys, int n_valid) {
   for (int col = threadIdx.x; col < N; col += blockDim.x) {
     float acc[G];
 #pragma unroll
     for (int g = 0; g < G; ++g) acc[g] = 0.0f;
-    const float* wp = W + col;
+    const WT* wp = W + col;
     int k = 0;
     // 16 weight loads in flight before their multiply-adds: the loop waits
     // on L2 latency, not on arithmetic
     for (; k + 16 <= K; k += 16) {
       float wv[16];
 #pragma unroll
-      for (int u = 0; u < 16; ++u) wv[u] = __ldg(wp + (size_t)(k + u) * N);
+      for (int u = 0; u < 16; ++u) wv[u] = wload(wp + (size_t)(k + u) * N);
 #pragma unroll
       for (int g = 0; g < G; ++g) {
 #pragma unroll
@@ -140,10 +170,10 @@ __device__ __forceinline__ void dense(const float* __restrict__ W,
       }
     }
     for (; k + 4 <= K; k += 4) {
-      const float w0 = __ldg(wp + (size_t)(k + 0) * N);
-      const float w1 = __ldg(wp + (size_t)(k + 1) * N);
-      const float w2 = __ldg(wp + (size_t)(k + 2) * N);
-      const float w3 = __ldg(wp + (size_t)(k + 3) * N);
+      const float w0 = wload(wp + (size_t)(k + 0) * N);
+      const float w1 = wload(wp + (size_t)(k + 1) * N);
+      const float w2 = wload(wp + (size_t)(k + 2) * N);
+      const float w3 = wload(wp + (size_t)(k + 3) * N);
 #pragma unroll
       for (int g = 0; g < G; ++g) {
         const float4 xv = *reinterpret_cast<const float4*>(X + g * xs + k);
@@ -154,11 +184,11 @@ __device__ __forceinline__ void dense(const float* __restrict__ W,
       }
     }
     for (; k < K; ++k) {
-      const float wv = __ldg(wp + (size_t)k * N);
+      const float wv = wload(wp + (size_t)k * N);
 #pragma unroll
       for (int g = 0; g < G; ++g) acc[g] = fmaf(X[g * xs + k], wv, acc[g]);
     }
-    const float bv = __ldg(bias + col);
+    const float bv = wload(bias + col);
 #pragma unroll
     for (int g = 0; g < G; ++g) {
       float v = acc[g] + bv;
@@ -168,7 +198,21 @@ __device__ __forceinline__ void dense(const float* __restrict__ W,
   }
 }
 
-template <int G>
+// A product reads its input rounded to bf16 when the weights are bf16 (JAX's
+// wdot): the rows r < n_rows of X (K wide, row stride xs) rounded in place,
+// once, by the block, before the product; nothing for f32 weights.
+template <class WT>
+__device__ __forceinline__ void round_inputs(float* X, int xs, int n_rows, int K) {}
+template <>
+__device__ __forceinline__ void round_inputs<__nv_bfloat16>(float* X, int xs, int n_rows, int K) {
+  for (int idx = threadIdx.x; idx < n_rows * K; idx += blockDim.x) {
+    float* x = X + (idx / K) * xs + idx % K;
+    *x = wround<__nv_bfloat16>(*x);
+  }
+  __syncthreads();
+}
+
+template <int G, class WT>
 __global__ void __launch_bounds__(MMK_THREADS)
 samplernn_decode_kernel(const SrnnDecodeArgs a) {
   extern __shared__ __align__(16) float smem[];
@@ -183,7 +227,7 @@ samplernn_decode_kernel(const SrnnDecodeArgs a) {
   const int b0 = blockIdx.x * G;
   const int n_valid = min(G, B - b0);
   const long long cstride = (long long)a.cache_rows * H;  // per stream
-  const float* w = a.w;
+  const WT* w = static_cast<const WT*>(a.w);
 
   // ring[g][s % rf] holds sample s; the window of step t is [t-rf, t)
   for (int idx = tid; idx < G * rf; idx += nth) {
@@ -200,8 +244,8 @@ samplernn_decode_kernel(const SrnnDecodeArgs a) {
     for (int k = 0; k < a.n_tiers - 1; ++k) {
       const int f = a.fs[k];
       if (t % f != 0) continue;
-      const float* Win = w + a.off_win[k];
-      const float* bin = w + a.off_bin[k];
+      const WT* Win = w + a.off_win[k];
+      const WT* bin = w + a.off_bin[k];
       const int prev_row =
           k > 0 ? a.cache_row[k - 1] + (int)((t / f) % a.up[k - 1]) : 0;
       for (int idx = tid; idx < G * H; idx += nth) {
@@ -210,16 +254,17 @@ samplernn_decode_kernel(const SrnnDecodeArgs a) {
         float acc = 0.0f;
         for (int kk = 0; kk < f; ++kk) {
           const int tok = ring[g * rf + (tm + rf - f + kk) % rf];
-          const float xv = ((float)tok / (float)Q - 0.5f) * 2.0f;
-          acc = fmaf(xv, __ldg(Win + kk * H + j), acc);
+          const float xv = wround<WT>(((float)tok / (float)Q - 0.5f) * 2.0f);
+          acc = fmaf(xv, wload(Win + kk * H + j), acc);
         }
-        acc += __ldg(bin + j);
+        acc += wload(bin + j);
         if (k > 0) acc += a.cache[b * cstride + (long long)prev_row * H + j];
         bufX[g * D + j] = acc;
         bufX[g * D + H + j] = a.h[((long long)k * B + b) * H + j];
       }
       __syncthreads();
-      dense<G, false>(w + a.off_wx[k], w + a.off_bx[k], bufX, D, 2 * H, 4 * H,
+      round_inputs<WT>(bufX, D, G, 2 * H);
+      dense<G, false, WT>(w + a.off_wx[k], w + a.off_bx[k], bufX, D, 2 * H, 4 * H,
                       bufY, D, G);
       __syncthreads();
       for (int idx = tid; idx < G * H; idx += nth) {
@@ -240,7 +285,8 @@ samplernn_decode_kernel(const SrnnDecodeArgs a) {
         bufZ[g * D + j] = h2;
       }
       __syncthreads();
-      dense<G, false>(w + a.off_wup[k], w + a.off_bup[k], bufZ, D, H,
+      round_inputs<WT>(bufZ, D, G, H);
+      dense<G, false, WT>(w + a.off_wup[k], w + a.off_bup[k], bufZ, D, H,
                       a.up[k] * H,
                       a.cache + b0 * cstride + (long long)a.cache_row[k] * H,
                       cstride, n_valid);
@@ -251,18 +297,18 @@ samplernn_decode_kernel(const SrnnDecodeArgs a) {
     {
       const int f = a.fs[a.n_tiers - 1];
       const int row = a.cache_row[a.n_tiers - 2] + (int)(t % a.fs[a.n_tiers - 2]);
-      const float* Wb = w + a.off_wbot;
-      const float* bb = w + a.off_bbot;
+      const WT* Wb = w + a.off_wbot;
+      const WT* bb = w + a.off_bbot;
       for (int idx = tid; idx < G * H; idx += nth) {
         const int g = idx / H, j = idx % H;
         const int b = min(b0 + g, B - 1);
         float acc = 0.0f;
         for (int kk = 0; kk < f; ++kk) {
           const int tok = ring[g * rf + (tm + rf - f + kk) % rf];
-          const float xv = ((float)tok / (float)Q - 0.5f) * 2.0f;
-          acc = fmaf(xv, __ldg(Wb + kk * H + j), acc);
+          const float xv = wround<WT>(((float)tok / (float)Q - 0.5f) * 2.0f);
+          acc = fmaf(xv, wload(Wb + kk * H + j), acc);
         }
-        acc += __ldg(bb + j);
+        acc += wload(bb + j);
         acc += a.cache[b * cstride + (long long)row * H + j];
         bufX[g * D + j] = acc;
       }
@@ -273,12 +319,13 @@ samplernn_decode_kernel(const SrnnDecodeArgs a) {
     float* hin = bufX;
     float* hout = bufY;
     for (int l = 0; l < a.n_head; ++l) {
+      round_inputs<WT>(hin, D, G, a.head_in[l]);
       if (l < a.n_head - 1)
-        dense<G, true>(w + a.off_wh[l], w + a.off_bh[l], hin, D, a.head_in[l],
-                       a.head_out[l], hout, D, G);
+        dense<G, true, WT>(w + a.off_wh[l], w + a.off_bh[l], hin, D, a.head_in[l],
+                           a.head_out[l], hout, D, G);
       else
-        dense<G, false>(w + a.off_wh[l], w + a.off_bh[l], hin, D, a.head_in[l],
-                        a.head_out[l], hout, D, G);
+        dense<G, false, WT>(w + a.off_wh[l], w + a.off_bh[l], hin, D, a.head_in[l],
+                            a.head_out[l], hout, D, G);
       __syncthreads();
       float* tmp = hin;
       hin = hout;
@@ -333,17 +380,28 @@ samplernn_decode_kernel(const SrnnDecodeArgs a) {
   }
 }
 
-template <int G>
+template <int G, class WT>
 static int launch(const SrnnDecodeArgs& a, cudaStream_t stream) {
   const size_t smem = (size_t)G * (3 * (size_t)a.dstride * sizeof(float) +
                                    (size_t)a.rf * sizeof(int));
-  cudaError_t e = cudaFuncSetAttribute(samplernn_decode_kernel<G>,
+  cudaError_t e = cudaFuncSetAttribute(samplernn_decode_kernel<G, WT>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
   if (e != cudaSuccess) return (int)e;
   const int grid = (a.B + G - 1) / G;
-  samplernn_decode_kernel<G><<<grid, MMK_THREADS, smem, stream>>>(a);
+  samplernn_decode_kernel<G, WT><<<grid, MMK_THREADS, smem, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+template <class WT>
+static int launch_group(const SrnnDecodeArgs& a, cudaStream_t s) {
+  switch (a.group) {
+    case 1: return launch<1, WT>(a, s);
+    case 2: return launch<2, WT>(a, s);
+    case 4: return launch<4, WT>(a, s);
+    case 8: return launch<8, WT>(a, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 extern "C" {
@@ -354,13 +412,7 @@ int mmk_samplernn_args_size(void) { return (int)sizeof(SrnnDecodeArgs); }
 // Returns the cudaError_t of the launch (0 on success).
 int mmk_samplernn_decode(const SrnnDecodeArgs* args, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  switch (args->group) {
-    case 1: return launch<1>(*args, s);
-    case 2: return launch<2>(*args, s);
-    case 4: return launch<4>(*args, s);
-    case 8: return launch<8>(*args, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return args->bf16 ? launch_group<__nv_bfloat16>(*args, s) : launch_group<float>(*args, s);
 }
 
 const char* mmk_cuda_error_string(int err) {

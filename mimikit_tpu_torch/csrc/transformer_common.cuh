@@ -48,9 +48,21 @@
 // eps 1e-5), exact expf/logf/sqrtf.  d and ff must be multiples of 4; the
 // gate (ops/transformer_decode.supports_kernel_decode) checks it and that
 // tf_smem fits a block.
+//
+// The weight type WT.  Every function that reads the packed weights takes
+// them as float or as __nv_bfloat16 (K7's bf16 route, MMK_DECODE_BF16=1):
+// the copies move sizeof(WT) bytes a weight into a buffer of that type, a
+// weight, bias or norm affine is converted to f32 where it is read
+// (tf_wf, tf_w4, tf_wldg), and a product rounds each input activation to
+// bf16 as it reads it (tf_in; JAX's K7 rounds every dot input,
+// pallas_decode.py:1817).  Sums, norms, attention and the K/V rings stay
+// f32.  Under bf16, d, ff and d / n_heads must be multiples of 8 (16-byte
+// copies of 2-byte weights).  For WT = float every helper is the identity,
+// so K6 and K7's f32 instantiation compile to the f32 arithmetic above.
 #pragma once
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -89,6 +101,50 @@ enum TfKind {
 __host__ __device__ inline int tf_round4(int n) { return (n + 3) & ~3; }
 __host__ __device__ inline int tf_cdiv(int a, int b) { return (a + b - 1) / b; }
 
+// -- the weight type ------------------------------------------------------------------
+
+// n weights rounded up to a whole 16 bytes (4 floats, 8 bf16).
+template <class WT>
+__host__ __device__ inline int tf_roundw(int n) {
+  return sizeof(WT) == 4 ? tf_round4(n) : (n + 7) & ~7;
+}
+
+// A weight as f32: from shared memory (tf_wf), through the read-only path
+// (tf_wldg), or four adjacent ones (tf_w4; 16-byte aligned for float, 8 for
+// bf16).
+__device__ __forceinline__ float tf_wf(float v) { return v; }
+__device__ __forceinline__ float tf_wf(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float tf_wldg(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float tf_wldg(const __nv_bfloat16* p) {
+  return __bfloat162float(__ldg(p));
+}
+__device__ __forceinline__ float4 tf_w4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 tf_w4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+// A product's input activation as a product with WT weights reads it.
+template <class WT>
+__device__ __forceinline__ float tf_in(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ float tf_in<__nv_bfloat16>(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// T itself, in a context that does not deduce it: a parameter of this type
+// (a bias, possibly null) takes WT from another argument or the default.
+template <class T>
+struct tf_id {
+  typedef T type;
+};
+
 __device__ __forceinline__ float tf_warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -124,22 +180,34 @@ __host__ __device__ inline int tf_attn_floats(int n_q, int dh) {
 
 // The regions of a block's dynamic shared memory, offsets in floats:
 //   w    the weight buffer (the prefetch target): the largest task slice,
-//        about max(4 d dh, 2 d hs, d TF_TN)
+//        about max(4 d dh, 2 d hs, d TF_TN) weights
 //   bias the biases of the task's product columns (copied with the weights)
 //   fp   the bias and the norm's scale and offset its fold adds (3 d, copied too)
+//   (w, bias and fp hold weights of wbytes bytes; the offsets count floats)
 //   x    TF_R rows of d (a task's folded input rows)
 //   x2   TF_R rows of d (K7's x0 rows, for the cross k|v)
 //   t    TF_R rows of q|k|v (3 dh), attention output (dh) and FFN hidden (hs)
 //   u    scratch shared in turn by the products' group sums (TF_THREADS
 //        TF_R), attention's staging (tf_attn_floats) and the head
 //   mbar the mbarrier of the weight buffer's bulk copies
+// n weights of wbytes bytes (4 or 2) rounded up to a whole 16 bytes, in
+// weights; and n weights in floats.  For f32 they are the expressions the
+// f32-only layout used, so K6's code does not change.
+__host__ __device__ inline int tf_round_bytes(int n, int wbytes) {
+  return wbytes == 4 ? tf_round4(n) : (n + 7) & ~7;
+}
+__host__ __device__ inline int tf_in_floats(int n, int wbytes) {
+  return wbytes == 4 ? n : (n * wbytes + 3) / 4;
+}
+
 struct TfSmem {
   int w, bias, fp, x, x2, t, u, mbar, total;
   int ld_qkv, ld_att, ld_hid;  // row pitches in t
   int att, hid;                // offsets of the attention output and the hidden rows in t
 };
 
-__host__ __device__ inline TfSmem tf_smem(int d, int n_heads, int ff, int n_q, int head_w) {
+__host__ __device__ inline TfSmem tf_smem(int d, int n_heads, int ff, int n_q, int head_w,
+                                          int wbytes = 4) {
   const int dh = d / n_heads, hs = tf_hs(ff);
   TfSmem s;
   s.ld_qkv = tf_round4(3 * dh);
@@ -147,9 +215,10 @@ __host__ __device__ inline TfSmem tf_smem(int d, int n_heads, int ff, int n_q, i
   s.ld_hid = tf_round4(hs);
   // the largest task slice: K7's self q|k|v + Wo rows, its cross q + cross
   // k|v + Wco rows, either kernel's FFN slice, K6's q|k|v column tile
-  int w = tf_round4(3 * d * dh) + dh * d;
-  const int cross = tf_round4(d * dh) + tf_round4(2 * d * dh) + dh * d;
-  const int ffn = tf_round4(d * hs) + hs * d;
+  int w = tf_round_bytes(3 * d * dh, wbytes) + dh * d;
+  const int cross =
+      tf_round_bytes(d * dh, wbytes) + tf_round_bytes(2 * d * dh, wbytes) + dh * d;
+  const int ffn = tf_round_bytes(d * hs, wbytes) + hs * d;
   if (cross > w) w = cross;
   if (ffn > w) w = ffn;
   if (d * TF_TN > w) w = d * TF_TN;
@@ -164,9 +233,9 @@ __host__ __device__ inline TfSmem tf_smem(int d, int n_heads, int ff, int n_q, i
   if (TF_TN > nb) nb = TF_TN;
   if (hs > nb) nb = hs;
   s.w = 0;
-  s.bias = s.w + tf_round4(w);
-  s.fp = s.bias + tf_round4(nb);
-  s.x = s.fp + 3 * d;
+  s.bias = s.w + tf_round4(tf_in_floats(w, wbytes));
+  s.fp = s.bias + tf_round4(tf_in_floats(nb, wbytes));
+  s.x = s.fp + tf_in_floats(3 * d, wbytes);  // d: a multiple of 4 (f32), 8 (bf16)
   s.x2 = s.x + TF_R * d;
   s.t = s.x2 + TF_R * d;
   s.att = TF_R * s.ld_qkv;
@@ -195,10 +264,16 @@ __device__ __forceinline__ int tf_rows_per_task(int rows, int col_tasks) {
   return r < 1 ? 1 : (r > TF_R ? TF_R : r);
 }
 
+// The packed weights of either kernel's arguments, as WT.
+template <class WT, class A>
+__device__ __forceinline__ const WT* tf_wbase(const A& a) {
+  return reinterpret_cast<const WT*>(a.w);
+}
+
 // Layer l's tensor `kind` in the packed weights of either kernel's arguments.
-template <class A>
-__device__ __forceinline__ const float* tf_layer_w(const A& a, int l, int kind) {
-  return a.w + a.off_layer[kind] + (long long)l * a.layer_stride;
+template <class WT = float, class A>
+__device__ __forceinline__ const WT* tf_layer_w(const A& a, int l, int kind) {
+  return tf_wbase<WT>(a) + a.off_layer[kind] + (long long)l * a.layer_stride;
 }
 
 // -- weight copies (the bulk copy engine) ----------------------------------------------
@@ -214,7 +289,7 @@ __device__ __forceinline__ unsigned tf_smem_addr(const void* p) {
   return (unsigned)__cvta_generic_to_shared(p);
 }
 
-__device__ __forceinline__ void tf_bulk_copy(float* dst, const float* src, unsigned bytes,
+__device__ __forceinline__ void tf_bulk_copy(void* dst, const void* src, unsigned bytes,
                                              uint64_t* bar) {
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
@@ -224,13 +299,14 @@ __device__ __forceinline__ void tf_bulk_copy(float* dst, const float* src, unsig
 
 #define TF_BULK_MAX 32768  // bytes a single bulk copy at most
 
-// Copy the contiguous run src[0 .. n) into dst, in copies of TF_BULK_MAX
-// bytes spread over the block's threads; returns the bytes.
-__device__ __forceinline__ unsigned tf_copy_run(float* dst, const float* src, int n,
-                                                uint64_t* bar) {
-  const unsigned total = 4u * n;
+// Copy the contiguous run src[0 .. n) of n weights into dst, in copies of
+// TF_BULK_MAX bytes spread over the block's threads; returns the bytes.
+template <class WT>
+__device__ __forceinline__ unsigned tf_copy_run(WT* dst, const WT* src, int n, uint64_t* bar) {
+  constexpr unsigned E = sizeof(WT);
+  const unsigned total = E * n;
   for (unsigned off = TF_BULK_MAX * threadIdx.x; off < total; off += TF_BULK_MAX * TF_THREADS)
-    tf_bulk_copy(dst + off / 4, src + off / 4, min((unsigned)TF_BULK_MAX, total - off), bar);
+    tf_bulk_copy(dst + off / E, src + off / E, min((unsigned)TF_BULK_MAX, total - off), bar);
   return total;
 }
 
@@ -280,11 +356,11 @@ struct TfWeightBuffer {
 // A fold's bias (layer l's tensor `bias`) and norm (its tensor `ln`: the
 // scale, then the offset, adjacent in the pack) into fp[0 .. 3d); returns
 // the bytes.
-template <class A>
-__device__ __forceinline__ unsigned tf_copy_fold_params(const A& a, float* fp, int l, int bias,
+template <class WT, class A>
+__device__ __forceinline__ unsigned tf_copy_fold_params(const A& a, WT* fp, int l, int bias,
                                                         int ln, uint64_t* bar) {
-  return tf_copy_run(fp, tf_layer_w(a, l, bias), a.d, bar) +
-         tf_copy_run(fp + a.d, tf_layer_w(a, l, ln), 2 * a.d, bar);
+  return tf_copy_run(fp, tf_layer_w<WT>(a, l, bias), a.d, bar) +
+         tf_copy_run(fp + a.d, tf_layer_w<WT>(a, l, ln), 2 * a.d, bar);
 }
 
 // -- fold on load -------------------------------------------------------------------
@@ -293,17 +369,21 @@ __device__ __forceinline__ unsigned tf_copy_fold_params(const A& a, float* fp, i
 //   v = res[row] + (parts[0][row] + ... + parts[n_parts - 1][row] + bias)
 // (res or the parts may be absent), layer-normed with (g, b) when g is not
 // null, into X (row pitch ldx); xout, when not null, gets the rows too.
-// bias, g and b may lie in shared memory (a task's copies) or global.  The
+// bias, g and b (weights of type WT) may lie in shared memory (a task's
+// copies) or global.  The
 // block's threads first take (row, 4 columns) items, each issuing its
 // partials' 16-byte loads TF_FOLD_BATCH at a time, so a fold costs a few L2
 // round trips however many partials it adds; then a warp a row takes the
 // statistics from shared memory.  The caller's rows are ready after it
 // returns.
 #define TF_FOLD_BATCH 16
+template <class WT = float>
 __device__ __noinline__ void tf_fold(float* X, int ldx, int R, long long row0, int rstride,
                                      int d, const float* res, const float* parts,
-                                     long long pstride, int n_parts, const float* bias,
-                                     const float* g, const float* b, float* xout) {
+                                     long long pstride, int n_parts,
+                                     const typename tf_id<WT>::type* bias,
+                                     const typename tf_id<WT>::type* g,
+                                     const typename tf_id<WT>::type* b, float* xout) {
   const int d4 = d / 4;
   for (int item = threadIdx.x; item < R * d4; item += TF_THREADS) {
     const int r = item / d4, k = 4 * (item % d4);
@@ -333,7 +413,7 @@ __device__ __noinline__ void tf_fold(float* X, int ldx, int R, long long row0, i
         }
       }
       if (bias != nullptr) {
-        const float4 bb = *reinterpret_cast<const float4*>(bias + k);
+        const float4 bb = tf_w4(bias + k);
         v.x += bb.x;
         v.y += bb.y;
         v.z += bb.z;
@@ -361,7 +441,7 @@ __device__ __noinline__ void tf_fold(float* X, int ldx, int R, long long row0, i
       const float rs = 1.0f / sqrtf(var + 1e-5f);
       float* xo = xout != nullptr ? xout + (row0 + (long long)r * rstride) * d : nullptr;
       for (int k = lane; k < d; k += 32) {
-        const float v = (x[k] - mu) * rs * g[k] + b[k];
+        const float v = (x[k] - mu) * rs * tf_wf(g[k]) + tf_wf(b[k]);
         x[k] = v;
         if (xo != nullptr) xo[k] = v;
       }
@@ -373,7 +453,8 @@ __device__ __noinline__ void tf_fold(float* X, int ldx, int R, long long row0, i
 // -- products -----------------------------------------------------------------------
 
 // Y[r][c] = act(sum_k X[r][k] W[k][c] + bias[c]) for r < R <= TF_R, c < N,
-// X (row pitch ldx, a multiple of 4) and W in shared memory,
+// X (row pitch ldx, a multiple of 4) and W (weights of type WT, each X
+// element read through tf_in) in shared memory,
 // Y with row pitch ldy, bias optional (null), act relu or none.  A thread a
 // column (columns in blocks of TF_THREADS); when N is narrower, K is split
 // over TF_THREADS / N thread groups (each of at least 16 terms, a multiple
@@ -381,17 +462,18 @@ __device__ __noinline__ void tf_fold(float* X, int ldx, int R, long long row0, i
 // One copy of the code serves every product of a kernel (not inlined): a
 // step runs each stage once per block, so every stage's code would
 // otherwise be fetched into the instruction cache anew.
-__device__ __forceinline__ void tf_out(float* Y, long long ldy, const float* bias, int relu,
-                                       int r, int c, float v) {
-  if (bias != nullptr) v += bias[c];
+template <class WT>
+__device__ __forceinline__ void tf_out(float* Y, long long ldy, const WT* bias, int relu, int r,
+                                       int c, float v) {
+  if (bias != nullptr) v += tf_wf(bias[c]);
   if (relu) v = fmaxf(v, 0.0f);
   Y[r * ldy + c] = v;
 }
 
-template <int RP>
-__device__ __noinline__ void tf_product_rows(const float* X, int ldx, int R, const float* W,
+template <int RP, class WT>
+__device__ __noinline__ void tf_product_rows(const float* X, int ldx, int R, const WT* W,
                                              int bw, int bstride, int K, int N, float* red,
-                                             float* Y, long long ldy, const float* bias,
+                                             float* Y, long long ldy, const WT* bias,
                                              int relu) {
   const int nc = N < TF_THREADS ? N : TF_THREADS;
   int groups = TF_THREADS / nc;
@@ -407,27 +489,27 @@ __device__ __noinline__ void tf_product_rows(const float* X, int ldx, int R, con
 #pragma unroll
     for (int r = 0; r < RP; ++r) acc[r] = 0.0f;
     if (active) {
-      const float* wc = W + (c / bw) * bstride + c % bw;  // column c, row pitch bw
+      const WT* wc = W + (c / bw) * bstride + c % bw;  // column c, row pitch bw
       const int k1 = min(K, (g + 1) * kc);
       int k = g * kc;
       for (; k + 4 <= k1; k += 4) {
-        const float w0 = wc[(k + 0) * bw], w1 = wc[(k + 1) * bw];
-        const float w2 = wc[(k + 2) * bw], w3 = wc[(k + 3) * bw];
+        const float w0 = tf_wf(wc[(k + 0) * bw]), w1 = tf_wf(wc[(k + 1) * bw]);
+        const float w2 = tf_wf(wc[(k + 2) * bw]), w3 = tf_wf(wc[(k + 3) * bw]);
 #pragma unroll
         for (int r = 0; r < RP; ++r) {
           const float4 xv = *reinterpret_cast<const float4*>(X + r * ldx + k);
           float a = acc[r];
-          a = fmaf(xv.x, w0, a);
-          a = fmaf(xv.y, w1, a);
-          a = fmaf(xv.z, w2, a);
-          a = fmaf(xv.w, w3, a);
+          a = fmaf(tf_in<WT>(xv.x), w0, a);
+          a = fmaf(tf_in<WT>(xv.y), w1, a);
+          a = fmaf(tf_in<WT>(xv.z), w2, a);
+          a = fmaf(tf_in<WT>(xv.w), w3, a);
           acc[r] = a;
         }
       }
       for (; k < k1; ++k) {
-        const float w = wc[k * bw];
+        const float w = tf_wf(wc[k * bw]);
 #pragma unroll
-        for (int r = 0; r < RP; ++r) acc[r] = fmaf(X[r * ldx + k], w, acc[r]);
+        for (int r = 0; r < RP; ++r) acc[r] = fmaf(tf_in<WT>(X[r * ldx + k]), w, acc[r]);
       }
     }
     if (groups == 1) {
@@ -460,19 +542,21 @@ __device__ __noinline__ void tf_product_rows(const float* X, int ldx, int R, con
 // rows of X lie inside the task's row buffer and their results are dropped.
 // W is a (K, N) matrix stored in column blocks of width bw, block j at W + j
 // * bstride, each (K, bw) row-major (one block: bw = N).
-__device__ __forceinline__ void tf_product(const float* X, int ldx, int R, const float* W, int bw,
+template <class WT>
+__device__ __forceinline__ void tf_product(const float* X, int ldx, int R, const WT* W, int bw,
                                            int bstride, int K, int N, float* red, float* Y,
-                                           long long ldy, const float* bias, int relu) {
+                                           long long ldy, const typename tf_id<WT>::type* bias,
+                                           int relu) {
   if (R <= 1)
-    tf_product_rows<1>(X, ldx, R, W, bw, bstride, K, N, red, Y, ldy, bias, relu);
+    tf_product_rows<1, WT>(X, ldx, R, W, bw, bstride, K, N, red, Y, ldy, bias, relu);
   else if (R <= 2)
-    tf_product_rows<2>(X, ldx, R, W, bw, bstride, K, N, red, Y, ldy, bias, relu);
+    tf_product_rows<2, WT>(X, ldx, R, W, bw, bstride, K, N, red, Y, ldy, bias, relu);
   else if (R <= 4)
-    tf_product_rows<4>(X, ldx, R, W, bw, bstride, K, N, red, Y, ldy, bias, relu);
+    tf_product_rows<4, WT>(X, ldx, R, W, bw, bstride, K, N, red, Y, ldy, bias, relu);
   else if (R <= 8)
-    tf_product_rows<8>(X, ldx, R, W, bw, bstride, K, N, red, Y, ldy, bias, relu);
+    tf_product_rows<8, WT>(X, ldx, R, W, bw, bstride, K, N, red, Y, ldy, bias, relu);
   else
-    tf_product_rows<16>(X, ldx, R, W, bw, bstride, K, N, red, Y, ldy, bias, relu);
+    tf_product_rows<16, WT>(X, ldx, R, W, bw, bstride, K, N, red, Y, ldy, bias, relu);
 }
 
 // -- attention (a block a task) ---------------------------------------------------------
@@ -677,7 +761,8 @@ __device__ __forceinline__ void tf_block_sum2(float& a, float& b, float* red) {
 }
 
 // x (d) in shared memory, normed in place.
-__device__ __forceinline__ void tf_block_ln(float* x, int d, const float* g, const float* b,
+template <class WT>
+__device__ __forceinline__ void tf_block_ln(float* x, int d, const WT* g, const WT* b,
                                             float* red) {
   float s = 0.0f, s2 = 0.0f;
   for (int k = threadIdx.x; k < d; k += TF_THREADS) {
@@ -689,15 +774,16 @@ __device__ __forceinline__ void tf_block_ln(float* x, int d, const float* g, con
   const float var = fmaxf(s2 / (float)d - mu * mu, 0.0f);
   const float rs = 1.0f / sqrtf(var + 1e-5f);
   for (int k = threadIdx.x; k < d; k += TF_THREADS)
-    x[k] = (x[k] - mu) * rs * __ldg(g + k) + __ldg(b + k);
+    x[k] = (x[k] - mu) * rs * tf_wldg(g + k) + tf_wldg(b + k);
   __syncthreads();
 }
 
 // out[c] = act(in . W[:, c] + bias[c]) for c < N, W (K, N) row-major, by the
 // block: the contraction split over as many thread groups as fit (at least
 // 32 terms a group), the groups' partial sums added in group order.
-__device__ __forceinline__ void tf_block_dense(const float* in, int K, int N, const float* W,
-                                               const float* bias, bool mish, float* out,
+template <class WT>
+__device__ __forceinline__ void tf_block_dense(const float* in, int K, int N, const WT* W,
+                                               const WT* bias, bool mish, float* out,
                                                float* red) {
   const int Np = (N + 31) & ~31;
   int groups = TF_THREADS / Np;
@@ -710,14 +796,15 @@ __device__ __forceinline__ void tf_block_dense(const float* in, int K, int N, co
     const int k1 = min(K, (g + 1) * kc);
     float acc = 0.0f;
 #pragma unroll 16
-    for (int k = g * kc; k < k1; ++k) acc = fmaf(in[k], __ldg(W + (long long)k * N + c), acc);
+    for (int k = g * kc; k < k1; ++k)
+      acc = fmaf(tf_in<WT>(in[k]), tf_wldg(W + (long long)k * N + c), acc);
     red[g * Np + c] = acc;
   }
   __syncthreads();
   for (int c = threadIdx.x; c < N; c += TF_THREADS) {
     float v = red[c];
     for (int g = 1; g < groups; ++g) v += red[g * Np + c];
-    v += __ldg(bias + c);
+    v += tf_wldg(bias + c);
     out[c] = mish ? tf_mish(v) : v;
   }
   __syncthreads();
@@ -729,7 +816,7 @@ __device__ __forceinline__ void tf_block_dense(const float* in, int K, int N, co
 // max(sigmoid(logits[Q]), min_temperature), / temperature + the noise of
 // (seed, t, b) when sampling, argmax with ties to the lowest index.  Every
 // thread returns the token.
-template <class A>
+template <class WT = float, class A>
 __device__ __forceinline__ int tf_head_token(const A& a, long long t, int b, float* smem) {
   const int d = a.d;
   const int w = tf_head_width(a.n_head, a.head_in, a.head_out);
@@ -737,12 +824,13 @@ __device__ __forceinline__ int tf_head_token(const A& a, long long t, int b, flo
   float* h0 = x + tf_round4(d);
   float* h1 = h0 + tf_round4(w);
   float* red = h1 + tf_round4(w);  // max(TF_THREADS, 32-rounded w) floats
-  if (a.final_ln) tf_block_ln(x, d, a.w + a.off_lnf_w, a.w + a.off_lnf_b, red);
+  if (a.final_ln)
+    tf_block_ln(x, d, tf_wbase<WT>(a) + a.off_lnf_w, tf_wbase<WT>(a) + a.off_lnf_b, red);
   const float* in = x;
   for (int k = 0; k < a.n_head; ++k) {
     float* out = (k & 1) ? h1 : h0;
-    tf_block_dense(in, a.head_in[k], a.head_out[k], a.w + a.off_wh[k], a.w + a.off_bh[k],
-                   k < a.n_head - 1, out, red);
+    tf_block_dense(in, a.head_in[k], a.head_out[k], tf_wbase<WT>(a) + a.off_wh[k],
+                   tf_wbase<WT>(a) + a.off_bh[k], k < a.n_head - 1, out, red);
     in = out;
   }
   const int Q = a.Q;

@@ -60,6 +60,20 @@
 // the next copies' issue ~2; each a chain on one SM, none near the card's
 // rates.
 //
+// bf16 weights (MMK_DECODE_BF16=1 under MMK_DECODE_KV=1; the TPU kernel's
+// bf16=True, pallas_decode.py:1716-1734): the kernel instantiated on
+// __nv_bfloat16 (transformer_common.cuh's weight type).  The pack holds every
+// weight, bias, norm affine and the embedding in bf16; each product rounds
+// its input activation to bf16 as it reads it (x for q|k|v, the cross q and
+// FFN 1, x0 for the cross k|v, the attention rows for the out products, the
+// hidden rows for FFN 2, each head layer's input), as JAX's K7 rounds every
+// dot input; the sums, the softmax, the norms' arithmetic, the PE rows, the
+// residuals and the rings stay f32.  A step's weights are 16.9 MB instead of
+// 33.8: the bytes bound halves (a 1,600-step chunk at B = 16: ~8 ms), the
+// operation bound does not move, and since the chain of stages sets the pace
+// (above), the step time is expected to move little.  Its gate asks d, ff
+// and d / n_heads to be multiples of 8.
+//
 // Randomness: the port's counter hash of (seed, absolute step, stream,
 // class) (noise.cuh): the plain twin draws the same noise, and any chunking
 // of a stream draws the same tokens.
@@ -68,7 +82,7 @@
 
 // Mirrors _Args in mimikit_tpu_torch/ops/transformer_kv.py.
 struct TfKVArgs {
-  const float* w;      // packed weights (transformer_weight_pack)
+  const void* w;       // packed weights (transformer_weight_pack), f32 or bf16
   const float* pe;     // (n_steps, d) absolute PE of positions t0 - 1 ..
   const int* prompt_T; // (prior_t, B)
   int* tok;            // (B,) token at position t0 - 1; in/out
@@ -105,6 +119,7 @@ struct TfKVArgs {
   float temperature;
   float min_temperature;
   float inv_sqrt_dh;
+  int bf16;            // the weights are __nv_bfloat16 (else float)
 };
 
 // The scratch activations, B rows each: x0 (the PE'd input), xa (a layer's
@@ -120,6 +135,7 @@ __host__ __device__ inline long long kv_scratch_floats(int B, int d, int n_heads
   return (long long)B * d * (4 + 2LL * n_heads + S);
 }
 
+template <class WT>
 struct KV {
   const TfKVArgs& a;
   TfSmem L;
@@ -136,7 +152,7 @@ struct KV {
     ff = a.ff;
     hs = tf_hs(ff);
     S = tf_cdiv(ff, hs);
-    L = tf_smem(d, nH, ff, 1, tf_head_width(a.n_head, a.head_in, a.head_out));
+    L = tf_smem(d, nH, ff, 1, tf_head_width(a.n_head, a.head_in, a.head_out), (int)sizeof(WT));
     wb.init(reinterpret_cast<uint64_t*>(sm + L.mbar));
     const long long Bd = (long long)B * d;
     s.x0 = a.scratch;
@@ -148,8 +164,8 @@ struct KV {
     s.pf = s.pc + nH * Bd;
   }
 
-  __device__ __forceinline__ const float* lw(int l, int kind) const {
-    return tf_layer_w(a, l, kind);
+  __device__ __forceinline__ const WT* lw(int l, int kind) const {
+    return tf_layer_w<WT>(a, l, kind);
   }
 
   // stage st = 3 l + kind (kind 0: A, 1: B, 2: C); st = 3L is the head
@@ -174,41 +190,42 @@ struct KV {
   __device__ __forceinline__ unsigned copy_slice(int st, int task) const {
     const int l = st / 3, kind = st % 3;
     unsigned bytes = 0;
-    float* W = sm + L.w;
-    float* bias = sm + L.bias;
-    float* fp = sm + L.fp;
+    WT* W = reinterpret_cast<WT*>(sm + L.w);
+    WT* bias = reinterpret_cast<WT*>(sm + L.bias);
+    WT* fp = reinterpret_cast<WT*>(sm + L.fp);
     if (kind == 0) {
       const int h = task % nH;
       if (l > 0) bytes += tf_copy_fold_params(a, fp, l - 1, K_B2, K_LN3W, wb.bar);
-      const float* wqkv = lw(l, K_WQKV);  // column blocks of d x dH: q, k, v of head h
+      const WT* wqkv = lw(l, K_WQKV);  // column blocks of d x dH: q, k, v of head h
       for (int p = 0; p < 3; ++p) {
         bytes += tf_copy_run(W + p * d * dH, wqkv + (long long)(p * nH + h) * d * dH,
                              d * dH, wb.bar);
         bytes += tf_copy_run(bias + p * dH, lw(l, K_BQKV) + p * d + h * dH, dH, wb.bar);
       }
-      bytes += tf_copy_run(W + tf_round4(3 * d * dH), lw(l, K_WO) + (long long)h * dH * d,
+      bytes += tf_copy_run(W + tf_roundw<WT>(3 * d * dH), lw(l, K_WO) + (long long)h * dH * d,
                            dH * d, wb.bar);
     } else if (kind == 1) {
       const int h = task % nH;
       bytes += tf_copy_fold_params(a, fp, l, K_BO, K_LN1W, wb.bar);
       // column blocks of d x dH: layer l's cross k of head h, then its v
-      const float* wckv = a.w + a.off_ckv_w + (long long)(2 * l * nH + h) * d * dH;
-      const float* bckv = a.w + a.off_ckv_b + 2 * l * d + h * dH;
+      const WT* wckv = tf_wbase<WT>(a) + a.off_ckv_w + (long long)(2 * l * nH + h) * d * dH;
+      const WT* bckv = tf_wbase<WT>(a) + a.off_ckv_b + 2 * l * d + h * dH;
       bytes += tf_copy_run(W, lw(l, K_WCQ) + (long long)h * d * dH, d * dH, wb.bar);
       bytes += tf_copy_run(bias, lw(l, K_BCQ) + h * dH, dH, wb.bar);
-      float* Wkv = W + tf_round4(d * dH);
+      WT* Wkv = W + tf_roundw<WT>(d * dH);
       bytes += tf_copy_run(Wkv, wckv, d * dH, wb.bar);
       bytes += tf_copy_run(Wkv + d * dH, wckv + (long long)nH * d * dH, d * dH, wb.bar);
       bytes += tf_copy_run(bias + dH, bckv, dH, wb.bar);
       bytes += tf_copy_run(bias + 2 * dH, bckv + d, dH, wb.bar);
-      bytes += tf_copy_run(Wkv + tf_round4(2 * d * dH), lw(l, K_WCO) + (long long)h * dH * d,
+      bytes += tf_copy_run(Wkv + tf_roundw<WT>(2 * d * dH), lw(l, K_WCO) + (long long)h * dH * d,
                            dH * d, wb.bar);
     } else {
       const int sl = task % S, c0 = sl * hs, n = min(hs, ff - c0);
       bytes += tf_copy_fold_params(a, fp, l, K_BCO, K_LN2W, wb.bar);
       bytes += tf_copy_run(W, lw(l, K_W1) + (long long)c0 * d, d * n, wb.bar);
       bytes += tf_copy_run(bias, lw(l, K_B1) + c0, n, wb.bar);
-      bytes += tf_copy_run(W + tf_round4(d * hs), lw(l, K_W2) + (long long)c0 * d, n * d, wb.bar);
+      bytes += tf_copy_run(W + tf_roundw<WT>(d * hs), lw(l, K_W2) + (long long)c0 * d, n * d,
+                           wb.bar);
     }
     return bytes;
   }
@@ -235,12 +252,12 @@ struct KV {
 
   __device__ __forceinline__ void run_task(int st, int task, int slot, int vcount) const {
     const int l = st / 3, kind = st % 3;
-    float* W = sm + L.w;
+    const WT* W = reinterpret_cast<const WT*>(sm + L.w);
     float* X = sm + L.x;
     float* T = sm + L.t;
     float* U = sm + L.u;
-    float* bias = sm + L.bias;
-    float* fp = sm + L.fp;
+    const WT* bias = reinterpret_cast<const WT*>(sm + L.bias);
+    const WT* fp = reinterpret_cast<const WT*>(sm + L.fp);
     const long long Bd = (long long)B * d;
     const int R = rows_per_task(kind);
     wb.wait();  // the slice and the fold's parameters
@@ -249,56 +266,57 @@ struct KV {
     if (kind == 0) {
       const int h = task % nH, r0 = (task / nH) * R, Rt = min(R, B - r0);
       if (l == 0)
-        tf_fold(X, d, Rt, r0, 1, d, s.x0, nullptr, 0, 0, nullptr, nullptr, nullptr, nullptr);
+        tf_fold<WT>(X, d, Rt, r0, 1, d, s.x0, nullptr, 0, 0, nullptr, nullptr, nullptr, nullptr);
       else
-        tf_fold(X, d, Rt, r0, 1, d, s.x2, s.pf, Bd, S, fp, fp + d, fp + 2 * d,
-                h == 0 ? s.xa : nullptr);
+        tf_fold<WT>(X, d, Rt, r0, 1, d, s.x2, s.pf, Bd, S, fp, fp + d, fp + 2 * d,
+                    h == 0 ? s.xa : nullptr);
       TF_MARK(0);
       tf_product(X, d, Rt, W, dH, d * dH, d, 3 * dH, U, T, L.ld_qkv, bias, 0);  // q|k|v
       TF_MARK(2);
       ring_attend(l, r0, Rt, h, 0, slot, vcount);
       TF_MARK(3);
-      tf_product(T + L.att, L.ld_att, Rt, W + tf_round4(3 * d * dH), d, 0, dH, d, U,
+      tf_product(T + L.att, L.ld_att, Rt, W + tf_roundw<WT>(3 * d * dH), d, 0, dH, d, U,
                  s.po + h * Bd + (long long)r0 * d, d, nullptr, 0);
       TF_MARK(4);
     } else if (kind == 1) {
       const int h = task % nH, r0 = (task / nH) * R, Rt = min(R, B - r0);
       float* X2 = sm + L.x2;
-      tf_fold(X, d, Rt, r0, 1, d, l == 0 ? s.x0 : s.xa, s.po, Bd, nH, fp, fp + d, fp + 2 * d,
-              h == 0 ? s.x1 : nullptr);
-      tf_fold(X2, d, Rt, r0, 1, d, s.x0, nullptr, 0, 0, nullptr, nullptr, nullptr, nullptr);
+      tf_fold<WT>(X, d, Rt, r0, 1, d, l == 0 ? s.x0 : s.xa, s.po, Bd, nH, fp, fp + d,
+                  fp + 2 * d, h == 0 ? s.x1 : nullptr);
+      tf_fold<WT>(X2, d, Rt, r0, 1, d, s.x0, nullptr, 0, 0, nullptr, nullptr, nullptr, nullptr);
       TF_MARK(0);
       tf_product(X, d, Rt, W, dH, 0, d, dH, U, T, L.ld_qkv, bias, 0);  // cross q
-      tf_product(X2, d, Rt, W + tf_round4(d * dH), dH, d * dH, d, 2 * dH, U, T + dH, L.ld_qkv,
-                 bias + dH, 0);  // cross k|v of x0
+      tf_product(X2, d, Rt, W + tf_roundw<WT>(d * dH), dH, d * dH, d, 2 * dH, U, T + dH,
+                 L.ld_qkv, bias + dH, 0);  // cross k|v of x0
       TF_MARK(2);
       ring_attend(l, r0, Rt, h, 2 * d, slot, vcount);
       TF_MARK(3);
-      tf_product(T + L.att, L.ld_att, Rt, W + tf_round4(d * dH) + tf_round4(2 * d * dH), d, 0, dH,
-                 d, U, s.pc + h * Bd + (long long)r0 * d, d, nullptr, 0);
+      tf_product(T + L.att, L.ld_att, Rt, W + tf_roundw<WT>(d * dH) + tf_roundw<WT>(2 * d * dH),
+                 d, 0, dH, d, U, s.pc + h * Bd + (long long)r0 * d, d, nullptr, 0);
       TF_MARK(4);
     } else {
       const int sl = task % S, r0 = (task / S) * R, Rt = min(R, B - r0);
       const int c0 = sl * hs, n = min(hs, ff - c0);
-      tf_fold(X, d, Rt, r0, 1, d, s.x1, s.pc, Bd, nH, fp, fp + d, fp + 2 * d,
-              sl == 0 ? s.x2 : nullptr);
+      tf_fold<WT>(X, d, Rt, r0, 1, d, s.x1, s.pc, Bd, nH, fp, fp + d, fp + 2 * d,
+                  sl == 0 ? s.x2 : nullptr);
       TF_MARK(0);
       float* hid = T + L.hid;
       tf_product(X, d, Rt, W, n, 0, d, n, U, hid, L.ld_hid, bias, 1);  // relu(x W1 + b1)
       TF_MARK(2);
-      tf_product(hid, L.ld_hid, Rt, W + tf_round4(d * hs), d, 0, n, d, U,
+      tf_product(hid, L.ld_hid, Rt, W + tf_roundw<WT>(d * hs), d, 0, n, d, U,
                  s.pf + sl * Bd + (long long)r0 * d, d, nullptr, 0);
       TF_MARK(4);
     }
   }
 };
 
+template <class WT>
 __global__ void __launch_bounds__(TF_THREADS, 1) tf_kv_kernel(const __grid_constant__ TfKVArgs a) {
   extern __shared__ __align__(16) float smem[];
   cg::grid_group grid = cg::this_grid();
-  const KV k(a, smem);
+  const KV<WT> k(a, smem);
   const int d = a.d, B = a.B, L = a.n_layers;
-  const float* emb = a.w + a.off_emb;
+  const WT* emb = tf_wbase<WT>(a) + a.off_emb;
   long long n_sync = 0;
 
   // x0 of the first iteration: the token at t0 - 1
@@ -308,7 +326,7 @@ __global__ void __launch_bounds__(TF_THREADS, 1) tf_kv_kernel(const __grid_const
          idx += gridDim.x * TF_THREADS) {
       const int b = idx / d, c = idx % d;
       const int tk = sp < a.prior_t ? a.prompt_T[sp * B + b] : a.tok[b];
-      k.s.x0[idx] = __ldg(emb + (long long)tk * d + c) + __ldg(a.pe + c);
+      k.s.x0[idx] = tf_wldg(emb + (long long)tk * d + c) + __ldg(a.pe + c);
     }
   }
   k.issue(0, blockIdx.x);
@@ -334,9 +352,10 @@ __global__ void __launch_bounds__(TF_THREADS, 1) tf_kv_kernel(const __grid_const
     // and the next iteration's push
     float* x = smem + k.L.u;
     for (int b = blockIdx.x; b < B; b += gridDim.x) {
-      tf_fold(x, d, 1, b, 1, d, k.s.x2, k.s.pf, (long long)B * d, k.S, tf_layer_w(a, L - 1, K_B2),
-              tf_layer_w(a, L - 1, K_LN3W), tf_layer_w(a, L - 1, K_LN3B), nullptr);
-      int tk = tf_head_token(a, t, b, x);
+      tf_fold<WT>(x, d, 1, b, 1, d, k.s.x2, k.s.pf, (long long)B * d, k.S,
+                  tf_layer_w<WT>(a, L - 1, K_B2), tf_layer_w<WT>(a, L - 1, K_LN3W),
+                  tf_layer_w<WT>(a, L - 1, K_LN3B), nullptr);
+      int tk = tf_head_token<WT>(a, t, b, x);
       if (t < a.prior_t) tk = a.prompt_T[t * B + b];
       if (threadIdx.x == 0) {
         a.out[(long long)b * a.n_steps + i] = tk;
@@ -345,7 +364,7 @@ __global__ void __launch_bounds__(TF_THREADS, 1) tf_kv_kernel(const __grid_const
       if (i + 1 < a.n_steps)
         for (int c = threadIdx.x; c < d; c += TF_THREADS)
           k.s.x0[(long long)b * d + c] =
-              __ldg(emb + (long long)tk * d + c) + __ldg(a.pe + (long long)(i + 1) * d + c);
+              tf_wldg(emb + (long long)tk * d + c) + __ldg(a.pe + (long long)(i + 1) * d + c);
       __syncthreads();
     }
     if (i + 1 < a.n_steps) k.issue(0, blockIdx.x);
@@ -365,8 +384,8 @@ long long mmk_tf_kv_scratch_floats(const TfKVArgs* a) {
 
 long long mmk_tf_kv_smem_bytes(const TfKVArgs* a) {
   return (long long)sizeof(float) *
-         tf_smem(a->d, a->n_heads, a->ff, 1, tf_head_width(a->n_head, a->head_in,
-                                                                  a->head_out))
+         tf_smem(a->d, a->n_heads, a->ff, 1, tf_head_width(a->n_head, a->head_in, a->head_out),
+                 a->bf16 ? 2 : 4)
              .total;
 }
 
@@ -374,8 +393,9 @@ long long mmk_tf_kv_smem_bytes(const TfKVArgs* a) {
 // Returns the cudaError_t of the launch (0 on success).
 int mmk_tf_kv_decode(const TfKVArgs* args, void* stream) {
   TfKVArgs a = *args;
-  return tf_launch_cooperative((const void*)tf_kv_kernel, &a,
-                               (size_t)mmk_tf_kv_smem_bytes(&a), (cudaStream_t)stream);
+  const void* fn = a.bf16 ? (const void*)tf_kv_kernel<__nv_bfloat16>
+                          : (const void*)tf_kv_kernel<float>;
+  return tf_launch_cooperative(fn, &a, (size_t)mmk_tf_kv_smem_bytes(&a), (cudaStream_t)stream);
 }
 
 const char* mmk_tf_kv_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

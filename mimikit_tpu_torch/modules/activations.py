@@ -19,8 +19,13 @@ __all__ = ["ActivationConfig", "Mish", "Lambda", "mish"]
 
 
 def mish(x: torch.Tensor) -> torch.Tensor:
-    """``x * tanh(softplus(x))`` — the MLP head's hidden activation."""
-    return x * torch.tanh(F.softplus(x))
+    """``x * tanh(softplus(x))`` — the MLP head's hidden activation.  Below
+    f32 each step of JAX's softplus (``max(x, 0) + log1p(exp(-|x|))``) and
+    of the product rounds to the input's dtype, as JAX's ops do."""
+    if x.dtype == torch.float32:
+        return x * torch.tanh(F.softplus(x))
+    sp = torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-torch.abs(x)))
+    return x * torch.tanh(sp)
 
 
 class Mish(nn.Module):

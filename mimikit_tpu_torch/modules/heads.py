@@ -15,6 +15,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .activations import Mish
+from .dense import Dense
 
 __all__ = ["MLP", "learned_temperature"]
 
@@ -41,11 +42,11 @@ class MLP(nn.Module):
         act = activation if activation is not None else Mish()
         self.min_temperature = min_temperature
         self.dropout = dropout
-        layers = [nn.Linear(in_dim, hidden_dim, bias=use_bias), act]
+        layers = [Dense(in_dim, hidden_dim, bias=use_bias), act]
         for _ in range(n_hidden_layers):
-            layers += [nn.Linear(hidden_dim, hidden_dim, bias=use_bias), act]
+            layers += [Dense(hidden_dim, hidden_dim, bias=use_bias), act]
         out = out_dim + int(min_temperature is not None)
-        layers.append(nn.Linear(hidden_dim, out, bias=use_bias))
+        layers.append(Dense(hidden_dim, out, bias=use_bias))
         self.fc = nn.Sequential(*layers)
 
     def forward(self, x):

@@ -20,7 +20,9 @@ import torch
 from torch import nn
 
 from ..config import Config, private_runtime_field
+from ..precision import compute_dtype
 from .activations import ActivationConfig
+from .dense import Dense
 from .heads import MLP
 from .resamplers import Conv1dResampler
 from .targets import OutputWrapper
@@ -38,14 +40,15 @@ __all__ = [
 
 
 class Linearizer(nn.Module):
-    """class index -> [-1, 1] float."""
+    """class index -> [-1, 1] float, in the mixed-precision policy's compute
+    dtype (``precision.compute_dtype``: f32 outside any policy)."""
 
     def __init__(self, class_size: int):
         super().__init__()
         self.class_size = class_size
 
     def forward(self, x):
-        return ((x.to(torch.float32) / self.class_size) - 0.5) * 2
+        return ((x.to(compute_dtype()) / self.class_size) - 0.5) * 2
 
 
 class Unfold(nn.Module):
@@ -143,7 +146,7 @@ class FramedLinearIO(IOModule):
         self.not_none("frame_size", "hop_length", "out_dim", "class_size")
         self.with_linearizer = True
         self.with_unfold = True
-        return self.wrap(nn.Linear(self.frame_size, self.out_dim))
+        return self.wrap(Dense(self.frame_size, self.out_dim))
 
 
 class _Embedding(nn.Embedding):

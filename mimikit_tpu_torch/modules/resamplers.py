@@ -8,7 +8,11 @@ SampleRNN bottom tier's input.
 """
 from __future__ import annotations
 
+import torch
+import torch.nn.functional as F
 from torch import nn
+
+from .dense import Dense
 
 __all__ = ["LinearResampler", "Conv1dResampler"]
 
@@ -17,7 +21,7 @@ class LinearResampler(nn.Module):
     def __init__(self, in_dim: int, t_factor: float, d_factor: float = 1):
         super().__init__()
         self.t_factor, self.d_factor = t_factor, d_factor
-        self.fc = nn.Linear(in_dim, int(in_dim * t_factor * d_factor))
+        self.fc = Dense(in_dim, int(in_dim * t_factor * d_factor))
 
     def forward(self, x):
         B, T, D = x.shape
@@ -37,4 +41,9 @@ class Conv1dResampler(nn.Module):
         self.cv = nn.Conv1d(in_dim, int(in_dim * d_factor), k, stride=k, bias=use_bias)
 
     def forward(self, x):
-        return self.cv(x.transpose(1, 2)).transpose(1, 2)
+        x = x.transpose(1, 2)
+        if x.dtype == torch.float32 or self.cv.bias is None:
+            return self.cv(x).transpose(1, 2)
+        # below f32, rounded as flax's Dense on the window (see modules/dense.py)
+        y = F.conv1d(x, self.cv.weight, None, self.cv.stride) + self.cv.bias[:, None]
+        return y.transpose(1, 2)

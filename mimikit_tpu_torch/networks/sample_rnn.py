@@ -14,10 +14,17 @@ always goes through the hand-written kernel: ``decode_single`` for fewer than
 64 streams, ``decode_chunk`` (``_CHUNK`` steps a launch, state carried) for
 wider batches and for every stream.  On the CPU the same wrappers run the
 plain PyTorch twin.  Networks outside the scope run the plain step loop.
+
+``MMK_PALLAS_BF16=1`` (``_pallas_weight_dtype``, as in the JAX package) packs
+the kernel's weights in bfloat16: each product's input is rounded to bf16 and
+summed in f32, so tokens may part from the f32 decode at near-ties (the
+parity criterion is teacher forcing, not token identity).  It applies to
+networks in the kernel's scope; the plain step loop stays f32.
 """
 from __future__ import annotations
 
 import dataclasses as dtc
+import os
 from enum import auto
 from typing import Optional, Tuple
 
@@ -245,8 +252,19 @@ class SampleRNN(ARMWithHidden):
             )
         return prompt
 
+    @staticmethod
+    def _pallas_weight_dtype() -> torch.dtype:
+        """bfloat16 under ``MMK_PALLAS_BF16=1`` (half the weight bytes a step
+        reads, bf16-rounded products), else float32
+        (``mimikit_tpu/networks/sample_rnn.py:736-741``)."""
+        return torch.bfloat16 if os.environ.get("MMK_PALLAS_BF16") == "1" else torch.float32
+
     def _pack(self):
-        return samplernn_weight_pack(self) if supports_kernel_decode(self) else None
+        """The decode kernel's weight pack in ``_pallas_weight_dtype()``, or
+        None for a net outside the kernel's scope."""
+        if not supports_kernel_decode(self):
+            return None
+        return samplernn_weight_pack(self, self._pallas_weight_dtype())
 
     def _chunk(self, pack, prompt, state, t0: int, n: int, seed: int, temperature):
         if pack is not None:

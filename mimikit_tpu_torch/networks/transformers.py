@@ -47,12 +47,32 @@ JukeBox serving routes:
   the window re-feed (``_refeed_stream``, which re-feeds ``_window_len()``
   tokens).
 
+bf16 routes, ``MMK_DECODE_BF16=1`` (``transformers.py:326-372,735-748``):
+
+* the KV stream (with ``MMK_DECODE_KV=1``) of a net in K7's bf16 scope (d,
+  ff and d / n_heads multiples of 8) runs K7 on a bfloat16 weight pack: each
+  product's input rounded to bf16, sums, softmax, norms, PE rows and the K/V
+  rings f32.  A net outside that scope streams through the f32 route, with a
+  warning (JAX's fused gate warns and runs its f32 ring scan);
+* the window re-feed (SimpleTransformer's ``generate`` past
+  ``_K6_MAX_BATCH`` streams or outside K6's scope, JukeBox's outside K8's
+  scope, and their re-feed streams) runs its forward on a bfloat16 copy of
+  the net (``precision.cast_floats``) inside ``precision.compute(bfloat16)``:
+  activations in bf16, the norms' statistics in f32, as flax computes them
+  with bf16 parameters; the token buffer stays int.  The copy is built once
+  a ``generate`` call, once a re-feed stream;
+* K6 and K8 have no bf16 variant in JAX either: their routes stay f32.
+
+bf16 tokens may part from the f32 ones at near-ties: the parity criterion of
+these routes is teacher forcing (each token within a tolerance of its row's
+maximum under the bf16 twin), not token identity.
+
 Not carried over, because they budget a TPU core's VMEM or probe its layouts:
 the gates ``_use_pallas_decode`` (SimpleTransformer ``:512-552``, JukeBox
 ``:1110-1152``) and ``_use_pallas_kv`` (``:554-593``, with its ``d % 128`` and
-``rf % 8`` alignment), the layout probes ``MMK_KV_NOREP``,
-``MMK_KV_SLOT_MAJOR`` and ``MMK_KV_UNROLL``, and ``MMK_DECODE_BF16`` (queued
-with the bf16 decode routes); nor does the port read ``MMK_PALLAS_DECODE``.
+``rf % 8`` alignment) and the layout probes ``MMK_KV_NOREP``,
+``MMK_KV_SLOT_MAJOR`` and ``MMK_KV_UNROLL``; nor does the port read
+``MMK_PALLAS_DECODE``.
 Where the JAX gate refuses a net it runs its oracle scan, which has the
 kernel's semantics, so sending every net of the scope to the kernels changes
 no tokens.  Nor is the fallback on a kernel failure
@@ -75,11 +95,12 @@ from torch import nn
 from ..features.functionals import Discrete
 from ..features.item_spec import ItemSpec, Step
 from ..modules.activations import _PLAIN
+from ..modules.dense import Dense, dense
 from ..modules.io import FramedConv1dIO, FramedLinearIO, ZipReduceVariables
 from ..modules.resamplers import LinearResampler
+from .. import precision
 from ..ops import jukebox_decode as jbd
 from ..ops.transformer_decode import (
-    _NEG,
     decode_window,
     layer_norm,
     supports_kernel_decode,
@@ -90,6 +111,11 @@ from ..utils import resolve_device
 from .arm import ARM, NetworkConfig
 
 __all__ = ["PositionalEncoding", "SimpleTransformer", "TransformerTier", "JukeBox"]
+
+
+def _decode_bf16() -> bool:
+    """``MMK_DECODE_BF16=1``: the bf16 decode routes (see the module note)."""
+    return os.environ.get("MMK_DECODE_BF16") == "1"
 
 
 def sinusoidal_pe(max_len: int, d_model: int) -> np.ndarray:
@@ -121,6 +147,16 @@ class PositionalEncoding(nn.Module):
         return F.dropout(x, self.dropout, self.training) if self.dropout > 0 else x
 
 
+def _softmax(scores):
+    """Softmax over the last axis; below f32 each of flax's steps (the
+    shifted scores, their exponentials, the sum, the quotient) is rounded to
+    the scores' dtype."""
+    if scores.dtype == torch.float32:
+        return torch.softmax(scores, dim=-1)
+    e = torch.exp(scores - scores.amax(-1, keepdim=True))
+    return e / e.sum(-1, keepdim=True)
+
+
 class LayerNorm(nn.Module):
     """Layer norm with flax's formula under torch's ``weight``/``bias`` names."""
 
@@ -144,22 +180,24 @@ class MultiheadAttention(nn.Module):
         self.n_heads, self.dropout = n_heads, dropout
         self.in_proj_weight = nn.Parameter(torch.empty(3 * dim, dim))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * dim))
-        self.out_proj = nn.Linear(dim, dim)
+        self.out_proj = Dense(dim, dim)
 
     def project(self, x, part: int):
         """q (0), k (1) or v (2) of ``x`` (..., d), split into heads."""
         d = x.shape[-1]
         w = self.in_proj_weight[part * d : (part + 1) * d]
-        y = F.linear(x, w, self.in_proj_bias[part * d : (part + 1) * d])
+        y = dense(x, w, self.in_proj_bias[part * d : (part + 1) * d])
         return y.reshape(*y.shape[:-1], self.n_heads, d // self.n_heads)
 
     def attend(self, q, k, v, mask=None):
-        """q (B, Tq, nH, dH), k and v (B, Tk, nH, dH) -> (B, Tq, d)."""
-        q = q / math.sqrt(q.shape[-1])
+        """q (B, Tq, nH, dH), k and v (B, Tk, nH, dH) -> (B, Tq, d).  q is
+        divided by sqrt(dH) in q's dtype and masked scores are that dtype's
+        lowest value, as flax does them."""
+        q = q / torch.tensor(math.sqrt(q.shape[-1]), dtype=q.dtype)
         scores = torch.einsum("bqhd,bkhd->bhqk", q, k)
         if mask is not None:
-            scores = scores.masked_fill(~mask, _NEG)
-        p = torch.softmax(scores, dim=-1)
+            scores = scores.masked_fill(~mask, torch.finfo(scores.dtype).min)
+        p = _softmax(scores)
         if self.dropout > 0 and self.training:
             p = F.dropout(p, self.dropout)
         out = torch.einsum("bhqk,bkhd->bqhd", p, v)
@@ -179,8 +217,8 @@ class DecoderBlock(nn.Module):
         self.activation, self.norm_first, self.dropout = str(activation), norm_first, dropout
         self.self_attn = MultiheadAttention(model_dim, n_heads, dropout)
         self.multihead_attn = MultiheadAttention(model_dim, n_heads, dropout)
-        self.linear1 = nn.Linear(model_dim, feedforward_dim)
-        self.linear2 = nn.Linear(feedforward_dim, model_dim)
+        self.linear1 = Dense(model_dim, feedforward_dim)
+        self.linear2 = Dense(feedforward_dim, model_dim)
         self.norm1, self.norm2, self.norm3 = (LayerNorm(model_dim) for _ in range(3))
 
     def _drop(self, v):
@@ -389,25 +427,38 @@ class _StatefulTransformerARM(ARM):
             raise NotImplementedError("decoding supports one input and one target")
         return torch.as_tensor(prompts[0]).to(self.device, torch.int32).contiguous()
 
+    def _window_net(self):
+        """The module the window re-feed runs its forward on: the network,
+        or under ``MMK_DECODE_BF16=1`` a bfloat16 copy of it
+        (``precision.cast_floats``; ``transformers.py:351-372``)."""
+        return precision.cast_floats(self, torch.bfloat16) if _decode_bf16() else self
+
     @torch.no_grad()
-    def _window_loop(self, prompt: torch.Tensor, n_steps: int, temperature, seed: int):
+    def _window_loop(self, prompt: torch.Tensor, n_steps: int, temperature, seed: int,
+                     net=None):
         """The window re-feed (``_make_window_decoder``): the token at t is
         the batched eval forward's sample on ``buf[t - W + lead : t + lead]``
         (W = ``_window_len()``, window-relative PE), appended to the buffer.
         With lead 1 the window's last slot is the never-read placeholder for
-        t.  ``prompt`` holds at least W - lead tokens."""
+        t.  ``prompt`` holds at least W - lead tokens.  The forward runs on
+        ``net`` (``_window_net()`` when None: a bf16 copy under
+        ``MMK_DECODE_BF16=1``), in its parameters' dtype; the buffer stays
+        int."""
         B, prior_t = prompt.shape
         W, lead = self._window_len(), self._decode_win_lead
+        net = self._window_net() if net is None else net
+        dtype = next(net.parameters()).dtype
         buf = torch.cat([prompt, prompt.new_zeros(B, n_steps)], 1).long()
         gen = self._sample_generator(seed)
-        was = self.training
-        self.eval()
+        was = net.training
+        net.eval()
         try:
-            for t in range(prior_t, prior_t + n_steps):
-                out = self._core((buf[:, t - W + lead : t + lead],), False, temperature, gen)
-                buf[:, t] = out[0].reshape(B)
+            with precision.compute(dtype):
+                for t in range(prior_t, prior_t + n_steps):
+                    out = net._core((buf[:, t - W + lead : t + lead],), False, temperature, gen)
+                    buf[:, t] = out[0].reshape(B)
         finally:
-            self.train(was)
+            net.train(was)
         return buf
 
 
@@ -495,9 +546,10 @@ class SimpleTransformer(_StatefulTransformerARM, SimpleTransformerCore):
         (prompt + generation) on the network's device."""
         return self._generate(prompts, n_steps, temperature, seed, None)
 
-    def _generate(self, prompts: Tuple, n_steps: int, temperature, seed, pack):
-        """``generate``, with K6's weight pack given (a re-feed stream builds
-        it once) or built here."""
+    def _generate(self, prompts: Tuple, n_steps: int, temperature, seed, built):
+        """``generate``, with what its route builds once given (a re-feed
+        stream builds it once: K6's weight pack, or the window route's net,
+        ``_window_net()``) or built here."""
         prompt = self._prompt(prompts)
         B, prior_t = prompt.shape
         if seed is None:
@@ -505,11 +557,11 @@ class SimpleTransformer(_StatefulTransformerARM, SimpleTransformerCore):
         if prior_t < self.rf:
             out = self._kv_cache_loop(prompt, n_steps, temperature, seed)
         elif self._k6_route(B):
-            if pack is None:
-                pack = transformer_weight_pack(self)
-            out = torch.cat([prompt, decode_window(pack, prompt, n_steps, seed, temperature)], 1)
+            if built is None:
+                built = transformer_weight_pack(self)
+            out = torch.cat([prompt, decode_window(built, prompt, n_steps, seed, temperature)], 1)
         else:
-            out = self._window_loop(prompt, n_steps, temperature, seed)
+            out = self._window_loop(prompt, n_steps, temperature, seed, built)
         return (out.to(torch.as_tensor(prompts[0]).dtype),)
 
     def _k6_route(self, B: int) -> bool:
@@ -524,7 +576,10 @@ class SimpleTransformer(_StatefulTransformerARM, SimpleTransformerCore):
         state).  ``MMK_DECODE_KV=1``: the O(1)-a-step KV-ring decode (K7),
         absolute PE and the rings carried on the card between launches of
         ``max(chunk_steps, 64)`` steps; its noise is keyed by absolute step,
-        so every chunking draws the same tokens."""
+        so every chunking draws the same tokens.  ``MMK_DECODE_BF16=1``: K7
+        on a bfloat16 weight pack where K7's bf16 scope admits the net (else
+        the f32 route, with a warning), and the re-feed's window route in
+        bf16."""
         prompt = self._prompt(prompts)
         B, prior_t = prompt.shape
         if seed is None:
@@ -533,15 +588,16 @@ class SimpleTransformer(_StatefulTransformerARM, SimpleTransformerCore):
 
         kv = os.environ.get("MMK_DECODE_KV") == "1"
         if not kv or not supports_kernel_decode(self) or prior_t < 1:
-            pack = transformer_weight_pack(self) if self._k6_route(B) else None
+            built = transformer_weight_pack(self) if self._k6_route(B) else self._window_net()
 
             def generate(prompts, n_steps, temperature, seed):
-                return self._generate(prompts, n_steps, temperature, seed, pack)
+                return self._generate(prompts, n_steps, temperature, seed, built)
 
             yield from _refeed_stream(self, prompt, chunk_steps, temperature, seed, generate)
             return
         C = max(chunk_steps, self._KV_MIN_CHUNK)
-        pack = transformer_weight_pack(self)
+        bf16 = _decode_bf16() and supports_kernel_decode(self, wbytes=2)
+        pack = transformer_weight_pack(self, torch.bfloat16 if bf16 else torch.float32)
         prompt_T = prompt.t().contiguous()
         state = init_kv_state(pack, prompt)
 
@@ -751,6 +807,11 @@ class JukeBox(_StatefulTransformerARM, JukeBoxCore):
         tier-pyramid kernel (K8) at every B; others run the window re-feed.
         ``temperature`` None is argmax.  Returns a tuple of one (B, prior_t +
         n_steps) tensor on the network's device."""
+        return self._generate(prompts, n_steps, temperature, seed, None)
+
+    def _generate(self, prompts: Tuple, n_steps: int, temperature, seed, net):
+        """``generate``, with the window route's net (``_window_net()``)
+        given (a re-feed stream builds it once) or built here."""
         prompt = self._prompt(prompts)
         if seed is None:
             seed = self.next_seed()
@@ -761,7 +822,7 @@ class JukeBox(_StatefulTransformerARM, JukeBoxCore):
                                       seed, temperature)
             out = torch.cat([x, toks.to(x.dtype)], 1)
         else:
-            out = self._window_loop(x, n_steps, temperature, seed)
+            out = self._window_loop(x, n_steps, temperature, seed, net)
         return (out[:, pad:].to(torch.as_tensor(prompts[0]).dtype),)
 
     def stream(self, prompts: Tuple, chunk_steps: int, temperature: Optional[float] = None,
@@ -779,7 +840,12 @@ class JukeBox(_StatefulTransformerARM, JukeBoxCore):
         from ..loops.streaming import _read_behind_chunks, _refeed_stream
 
         if not jbd.supports_kernel_decode(self):
-            yield from _refeed_stream(self, prompt, chunk_steps, temperature, seed)
+            net = self._window_net()
+
+            def generate(prompts, n_steps, temperature, seed):
+                return self._generate(prompts, n_steps, temperature, seed, net)
+
+            yield from _refeed_stream(self, prompt, chunk_steps, temperature, seed, generate)
             return
         x, _ = self._padded(prompt)
         pack = jbd.jukebox_weight_pack(self)

@@ -26,11 +26,13 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses as dtc
+import math
 from pathlib import Path
 from typing import Optional, Tuple
 
 import torch
 
+from ..modules.activations import mish
 from .noise import gumbel_noise
 from .nvcc import CSRC, build_library
 
@@ -98,9 +100,10 @@ def supports_kernel_decode(net) -> bool:
 
 @dtc.dataclass
 class SampleRNNPack:
-    """The kernel's view of a SampleRNN: every weight in one flat f32 buffer,
-    each tensor's (offset, shape) in it, and the static sizes the kernel
-    reads.  ``net`` is kept for the plain twin (the CPU route)."""
+    """The kernel's view of a SampleRNN: every weight in one flat buffer
+    (float32, or bfloat16 for the bf16 route), each tensor's (offset, shape)
+    in it, and the static sizes the kernel reads.  ``net`` is kept for the
+    f32 plain twin (the CPU route)."""
 
     net: object
     flat: torch.Tensor
@@ -112,26 +115,39 @@ class SampleRNNPack:
     head_dims: Tuple[Tuple[int, int], ...]
     min_temperature: float
 
+    def view(self, name: str) -> torch.Tensor:
+        """The tensor ``name``, in the pack's dtype (a view of ``flat``)."""
+        off, shape = self.offsets[name]
+        return self.flat[off : off + math.prod(shape)].view(shape)
+
 
 @torch.no_grad()
-def samplernn_weight_pack(net) -> SampleRNNPack:
-    """Flatten ``net``'s weights into the kernel's layout, on ``net``'s device.
+def samplernn_weight_pack(net, dtype: torch.dtype = torch.float32) -> SampleRNNPack:
+    """Flatten ``net``'s weights into the kernel's layout, on ``net``'s
+    device, stored in ``dtype``: float32, or bfloat16 (the bf16 route,
+    ``MMK_PALLAS_BF16=1``: half the weight bytes, each product's input
+    rounded to bf16 and summed in f32; ``pallas_decode.py:103-145,179-187``).
 
     Per non-bottom tier i: ``win{i}`` (fs_i, H), ``bin{i}`` (H), ``wx{i}``
     = [W_ih^T; W_hh^T] (2H, 4H) [gate order i|f|g|o], ``bx{i}`` = b_ih + b_hh
     (4H), ``wup{i}`` (H, up_i*H), ``bup{i}``; then ``wbot`` (fs_-1, H),
     ``bbot``; then the head chain ``wh{k}``/``bh{k}`` (the last layer emits
     Q+1 logits, the extra one being the learned temperature).  Each tensor
-    starts at a multiple of 4 floats.
+    starts at a multiple of 16 bytes.  Every tensor is summed or concatenated
+    in f32 and then cast, so a bf16 pack holds the f32 pack's values rounded
+    once.
     """
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"the decode kernel takes float32 or bfloat16 weights, not {dtype}")
+    align = 16 // torch.empty((), dtype=dtype).element_size()
     parts, offsets = [], {}
     pos = 0
 
     def add(name, x):
         nonlocal pos
-        x = x.detach().to(torch.float32).contiguous()
+        x = x.detach().to(torch.float32).to(dtype).contiguous()
         offsets[name] = (pos, tuple(x.shape))
-        pad = -x.numel() % 4
+        pad = -x.numel() % align
         parts.append(x.reshape(-1))
         if pad:
             parts.append(x.new_zeros(pad))
@@ -208,33 +224,95 @@ def init_decode_state(net, prompt: torch.Tensor, generator=None) -> DecodeState:
 
 # -- the plain twin ------------------------------------------------------------
 
+def _dense_bf16(pack: SampleRNNPack, x: torch.Tensor, w: str, b: str,
+                acc: torch.dtype = torch.float32) -> torch.Tensor:
+    """A product of the bf16 route: the input rounded to bf16, the bf16
+    weights and bias read exactly, the products summed in ``acc`` (f32, as
+    the kernel sums), the result f32."""
+    y = x.to(torch.bfloat16).to(acc) @ pack.view(w).to(acc) + pack.view(b).to(acc)
+    return y.float()
+
+
+def _step_bf16(pack: SampleRNNPack, t: int, win: torch.Tensor, h: torch.Tensor,
+               c: torch.Tensor, cache: torch.Tensor,
+               acc: torch.dtype = torch.float32) -> torch.Tensor:
+    """One step of the bf16 route (``pallas_decode.py:219-266`` with
+    ``weight_dtype="bf16"``) on the state tensors, updated in place: ``win``
+    (B, rf) int64, ``h``/``c`` (n_tiers-1, B, H), ``cache`` (B, sum(up), H).
+    The frame tier's gates take [x | h] through one product, as the kernel
+    does; its products sum in ``acc``.  Returns the (B, Q) logits after the
+    learned temperature."""
+    fs, up, H = pack.frame_sizes, pack.up_factors, pack.hidden_dim
+    rf, Q = fs[0], pack.q_levels
+    xf = (win.float() / Q - 0.5) * 2.0
+    rows = [0]
+    for u in up:
+        rows.append(rows[-1] + u)
+    for i in range(len(fs) - 1):
+        f = fs[i]
+        if t % f:
+            continue
+        x = _dense_bf16(pack, xf[:, rf - f :], f"win{i}", f"bin{i}", acc)
+        if i > 0:
+            x = x + cache[:, rows[i - 1] + (t // f) % up[i - 1]]
+        g = _dense_bf16(pack, torch.cat([x, h[i]], 1), f"wx{i}", f"bx{i}", acc)
+        gi, gf = torch.sigmoid(g[:, :H]), torch.sigmoid(g[:, H : 2 * H])
+        gg, go = torch.tanh(g[:, 2 * H : 3 * H]), torch.sigmoid(g[:, 3 * H :])
+        c[i] = gf * c[i] + gi * gg
+        h[i] = go * torch.tanh(c[i])
+        cache[:, rows[i] : rows[i + 1]] = _dense_bf16(
+            pack, h[i], f"wup{i}", f"bup{i}", acc).view(-1, up[i], H)
+    x = _dense_bf16(pack, xf[:, rf - fs[-1] :], "wbot", "bbot", acc)
+    x = x + cache[:, rows[-2] + t % fs[-2]]
+    n = len(pack.head_dims)
+    for k in range(n - 1):
+        x = mish(_dense_bf16(pack, x, f"wh{k}", f"bh{k}", acc))
+    logits = _dense_bf16(pack, x, f"wh{n - 1}", f"bh{n - 1}", acc)
+    return logits[:, :Q] / torch.clamp_min(torch.sigmoid(logits[:, Q : Q + 1]),
+                                           pack.min_temperature)
+
+
 @torch.no_grad()
-def decode_plain(net, prompt: torch.Tensor, state: DecodeState, t0: int,
+def decode_plain(model, prompt: torch.Tensor, state: DecodeState, t0: int,
                  n_steps: int, out_t0: int, out_len: int, seed: int,
-                 temperature: Optional[float], return_scores: bool = False):
-    """The plain PyTorch twin of the kernel: ``n_steps`` steps of
-    ``net.decode_step`` from absolute step ``t0``, the same sampling rule and
-    noise, teacher-forcing while ``t < prior_t``.  ``state`` is updated in
-    place.  Returns ``out`` (B, out_len) int32 holding the tokens of steps
-    ``out_t0 ..``; with ``return_scores`` also the (n_steps, B, Q) scores
-    the argmax ran over (tempered logits, plus noise when sampling)."""
+                 temperature: Optional[float], return_scores: bool = False,
+                 accumulate: torch.dtype = torch.float32):
+    """The plain PyTorch twin of the kernel: ``n_steps`` steps from absolute
+    step ``t0``, the same sampling rule and noise, teacher-forcing while ``t
+    < prior_t``.  ``model`` is the SampleRNN, or its pack: a float32 pack and
+    the net step through ``net.decode_step``, a bfloat16 pack through the
+    bf16 route's step (:func:`_step_bf16`), its products summed in
+    ``accumulate`` (f32, as the kernel sums; float64 sums in another order,
+    which measures how far the order alone moves the bf16 route's scores).
+    ``state`` is updated in place.
+    Returns ``out`` (B, out_len) int32 holding the tokens of steps ``out_t0
+    ..``; with ``return_scores`` also the (n_steps, B, Q) scores the argmax
+    ran over (tempered logits, plus noise when sampling)."""
+    bf16 = isinstance(model, SampleRNNPack) and model.flat.dtype == torch.bfloat16
+    net = model.net if isinstance(model, SampleRNNPack) else model
     B, prior_t = prompt.shape
     n_t = len(net.frame_sizes) - 1
     rows = [0]
     for u in net.up_factors:
         rows.append(rows[-1] + u)
     win = state.win.to(torch.int64)
-    hidden = tuple(
-        tuple((state.c[i, l], state.h[i, l]) for l in range(state.h.shape[1]))
-        for i in range(n_t)
-    )
-    tier_out = tuple(state.cache[:, rows[i] : rows[i + 1]] for i in range(n_t))
+    if bf16:
+        h, c, cache = state.h[:, 0].clone(), state.c[:, 0].clone(), state.cache.clone()
+    else:
+        hidden = tuple(
+            tuple((state.c[i, l], state.h[i, l]) for l in range(state.h.shape[1]))
+            for i in range(n_t)
+        )
+        tier_out = tuple(state.cache[:, rows[i] : rows[i + 1]] for i in range(n_t))
     out = torch.zeros(B, out_len, dtype=torch.int32, device=prompt.device)
     scores_all = []
     for i in range(n_steps):
         t = t0 + i
-        logits, hidden, tier_out = net.decode_step(t, (win,), hidden, tier_out)
-        scores = logits[0]
+        if bf16:
+            scores = _step_bf16(model, t, win, h, c, cache, accumulate)
+        else:
+            logits, hidden, tier_out = net.decode_step(t, (win,), hidden, tier_out)
+            scores = logits[0]
         if temperature is not None:
             scores = scores / temperature + gumbel_noise(
                 seed, t, B, scores.shape[-1], scores.device
@@ -248,11 +326,16 @@ def decode_plain(net, prompt: torch.Tensor, state: DecodeState, t0: int,
             scores_all.append(scores)
         win = torch.cat([win[:, 1:], tok[:, None]], dim=1)
     state.win.copy_(win)
-    for i in range(n_t):
-        for l, (c, h) in enumerate(hidden[i]):
-            state.c[i, l].copy_(c)
-            state.h[i, l].copy_(h)
-        state.cache[:, rows[i] : rows[i + 1]].copy_(tier_out[i])
+    if bf16:
+        state.h[:, 0].copy_(h)
+        state.c[:, 0].copy_(c)
+        state.cache.copy_(cache)
+    else:
+        for i in range(n_t):
+            for l, (c_, h_) in enumerate(hidden[i]):
+                state.c[i, l].copy_(c_)
+                state.h[i, l].copy_(h_)
+            state.cache[:, rows[i] : rows[i + 1]].copy_(tier_out[i])
     if return_scores:
         return out, torch.stack(scores_all)
     return out
@@ -299,6 +382,7 @@ class _Args(ctypes.Structure):
         ("seed", ctypes.c_uint),
         ("temperature", ctypes.c_float),
         ("min_temperature", ctypes.c_float),
+        ("bf16", ctypes.c_int),
         ("fs", ctypes.c_int * MAX_TIERS),
         ("up", ctypes.c_int * MAX_TIERS),
         ("cache_row", ctypes.c_int * MAX_TIERS),
@@ -376,7 +460,9 @@ def _launch(pack: SampleRNNPack, prompt, state: DecodeState, t0: int, n_steps: i
     fs, up, H, Q = pack.frame_sizes, pack.up_factors, pack.hidden_dim, pack.q_levels
     B, prior_t = prompt.shape
     rf, n_t = fs[0], len(fs) - 1
-    _check(pack.flat, "weights", torch.float32, pack.flat.shape, dev)
+    if pack.flat.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"weights have dtype {pack.flat.dtype}, expected float32 or bfloat16")
+    _check(pack.flat, "weights", pack.flat.dtype, pack.flat.shape, dev)
     _check(prompt, "prompt", torch.int32, (B, prior_t), dev)
     _check(state.win, "state.win", torch.int32, (B, rf), dev)
     _check(state.h, "state.h", torch.float32, (n_t, 1, B, H), dev)
@@ -417,6 +503,7 @@ def _launch(pack: SampleRNNPack, prompt, state: DecodeState, t0: int, n_steps: i
     a.seed = seed & 0xFFFFFFFF
     a.temperature = 1.0 if temperature is None else float(temperature)
     a.min_temperature = pack.min_temperature
+    a.bf16 = int(pack.flat.dtype == torch.bfloat16)
     row = 0
     for i in range(len(fs)):
         a.fs[i] = fs[i]
@@ -441,11 +528,12 @@ def decode_single(pack: SampleRNNPack, prompt: torch.Tensor, n_steps: int, seed:
     state = init_decode_state(pack.net, prompt)
     n = prior_t + n_steps - rf
     if prompt.device.type == "cpu":
-        return decode_plain(pack.net, prompt, state, rf, n, prior_t, n_steps, seed, temperature)
+        return decode_plain(pack, prompt, state, rf, n, prior_t, n_steps, seed, temperature)
     out = torch.empty(B, n_steps, dtype=torch.int32, device=prompt.device)
     if _launch(pack, prompt.to(torch.int32).contiguous(), state, rf, n, out, prior_t, seed,
                temperature, group):
         decode_single.launches += 1
+        decode_single.launches_bf16 += int(pack.flat.dtype == torch.bfloat16)
     return out
 
 
@@ -457,12 +545,14 @@ def decode_chunk(pack: SampleRNNPack, prompt: torch.Tensor, state: DecodeState, 
     where ``t < prior_t``."""
     B = prompt.shape[0]
     if prompt.device.type == "cpu":
-        return decode_plain(pack.net, prompt, state, t0, n_steps, t0, n_steps, seed, temperature)
+        return decode_plain(pack, prompt, state, t0, n_steps, t0, n_steps, seed, temperature)
     out = torch.empty(B, n_steps, dtype=torch.int32, device=prompt.device)
     if _launch(pack, prompt, state, t0, n_steps, out, t0, seed, temperature, group):
         decode_chunk.launches += 1
+        decode_chunk.launches_bf16 += int(pack.flat.dtype == torch.bfloat16)
     return out
 
 
-decode_single.launches = 0
-decode_chunk.launches = 0
+# kernel launches, all of them and those of the bf16 instantiation
+decode_single.launches = decode_single.launches_bf16 = 0
+decode_chunk.launches = decode_chunk.launches_bf16 = 0

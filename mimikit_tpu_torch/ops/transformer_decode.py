@@ -65,25 +65,30 @@ _NEG = torch.finfo(torch.float32).min
 
 # -- scope gate (pallas_decode.py:1144-1179) -------------------------------------
 
-def supports_kernel_decode(net) -> bool:
+def supports_kernel_decode(net, wbytes: int = 4) -> bool:
     """True for the standard SimpleTransformer that the kernels decode: the
     nets :func:`_standard_transformer` admits, within the kernels' own limits
-    (:func:`_fits`).  A standard net beyond those limits takes the batched
-    window re-feed route, about 24 times slower a step at B=1 on an H100 at
-    transformer8l's widths (``chip_smoke.py`` times both routes); a warning
-    says so, once for each net shape."""
+    (:func:`_fits`) for weights of ``wbytes`` bytes (4, or 2 for K7's bf16
+    pack).  A standard net beyond the f32 limits takes the batched window
+    re-feed route, about 24 times slower a step at B=1 on an H100 at
+    transformer8l's widths (``chip_smoke.py`` times both routes); one beyond
+    the bf16 limits only streams through the f32 route.  A warning says so,
+    once for each net shape."""
     if not _standard_transformer(net):
         return False
     cfg = net.config
     t_mod = cfg.io_spec.targets[0].module
     widths = (t_mod.hidden_dim, cfg.io_spec.targets[0].elem_type.size + 1)
-    if _fits(cfg.model_dim, cfg.n_heads, cfg.feedforward_dim, t_mod.n_hidden_layers + 2, widths):
+    if _fits(cfg.model_dim, cfg.n_heads, cfg.feedforward_dim, t_mod.n_hidden_layers + 2, widths,
+             wbytes):
         return True
+    where = ("it decodes through the window re-feed route, one forward a step" if wbytes == 4
+             else "MMK_DECODE_BF16=1 streams it through the f32 route instead")
     warnings.warn(
         f"this SimpleTransformer (model_dim {cfg.model_dim}, n_heads {cfg.n_heads},"
         f" feedforward_dim {cfg.feedforward_dim}, head widths {widths}) is outside the transformer"
-        " decode kernels' limits (see ops.transformer_decode.supports_kernel_decode): it decodes"
-        " through the window re-feed route, one forward a step", stacklevel=2)
+        f" decode kernels' limits for {8 * wbytes}-bit weights (see"
+        f" ops.transformer_decode.supports_kernel_decode): {where}", stacklevel=2)
     return False
 
 
@@ -116,50 +121,60 @@ def _standard_transformer(net) -> bool:
     return str(getattr(io.targets[0].objective, "objective_type", "")) == "categorical_dist"
 
 
-def _fits(d: int, n_heads: int, ff: int, n_head_layers: int, head_widths) -> bool:
-    """The kernels' limits: d, ff and d / n_heads multiples of 4 (16-byte
-    loads and bulk copies), at most ``MAX_HEAD`` head layers of at most
-    ``MAX_WIDTH`` columns, and a block's shared memory (:func:`smem_bytes`)
-    within what a block may use.  None depends on rf: attention stages its
-    keys ``KEY_TILE`` at a time.  The largest task's weight slice, 4 d²/n_heads
-    floats, sets the limit: with 8 heads d up to 256 fits (transformer8l's
-    widths take 195 KB of the 227), with 4 heads d up to 192."""
-    if d % 4 or ff % 4 or (d // n_heads) % 4:
+def _fits(d: int, n_heads: int, ff: int, n_head_layers: int, head_widths,
+          wbytes: int = 4) -> bool:
+    """The kernels' limits for weights of ``wbytes`` bytes (4: f32, 2: the
+    bf16 pack): d, ff and d / n_heads multiples of 16 / wbytes elements (4
+    for f32, 8 for bf16: 16-byte loads and bulk copies), at most ``MAX_HEAD``
+    head layers of at most ``MAX_WIDTH`` columns, and a block's shared memory
+    (:func:`smem_bytes`) within what a block may use.  None depends on rf:
+    attention stages its keys ``KEY_TILE`` at a time.  The largest task's
+    weight slice, 4 d²/n_heads weights, sets the limit: in f32 with 8 heads
+    d up to 256 fits (transformer8l's widths take 195 KB of the 227), with 4
+    heads d up to 192."""
+    m = 16 // wbytes
+    if d % m or ff % m or (d // n_heads) % m:
         return False
     return (n_head_layers <= MAX_HEAD and max(head_widths) <= MAX_WIDTH
-            and smem_bytes(d, n_heads, ff, max(*head_widths, d)) <= SMEM_PER_BLOCK)
+            and smem_bytes(d, n_heads, ff, max(*head_widths, d), wbytes) <= SMEM_PER_BLOCK)
 
 
-def smem_bytes(d: int, n_heads: int, ff: int, head_width: int) -> int:
+def smem_bytes(d: int, n_heads: int, ff: int, head_width: int, wbytes: int = 4) -> int:
     """A block's dynamic shared memory in K6 (``tf_smem`` in
-    ``csrc/transformer_common.cuh``; K7 needs no more): the weight buffer
-    (the largest task's weight slice), its columns' biases and its fold's
-    bias and norm, ``MAX_ROWS`` rows of x and of x0, the q|k|v, attention
-    and FFN-hidden rows, one scratch region for the products' group sums, an
+    ``csrc/transformer_common.cuh``; K7 needs no more) for weights of
+    ``wbytes`` bytes: the weight buffer (the largest task's weight slice),
+    its columns' biases and its fold's bias and norm (each in the weights'
+    type), ``MAX_ROWS`` rows of x and of x0, the q|k|v, attention and
+    FFN-hidden rows, one scratch region for the products' group sums, an
     attention task's tile of ``KEY_TILE`` keys and values with its queries,
     running maxima and sums and scores, or the head, and the weight buffer's
     mbarrier."""
     r4 = lambda n: -(-n // 4) * 4  # noqa: E731
+    m = 16 // wbytes  # weights in 16 bytes
+    rw = lambda n: -(-n // m) * m  # noqa: E731
+    as_floats = lambda n: r4(-(-n * wbytes // 4))  # noqa: E731  n weights, in whole floats
     dh, hs = d // n_heads, min(ff, FFN_SLICE)
-    w = max(r4(3 * d * dh) + dh * d, r4(d * dh) + r4(2 * d * dh) + dh * d, r4(d * hs) + hs * d,
+    w = max(rw(3 * d * dh) + dh * d, rw(d * dh) + rw(2 * d * dh) + dh * d, rw(d * hs) + hs * d,
             d * COL_TILE)
     attn = (r4(KEY_TILE * (dh + 1)) + r4(KEY_TILE * dh) + r4(QUERY_BLOCK * dh)
             + r4(2 * QUERY_BLOCK) + (THREADS // 32) * KEY_TILE)
     w32 = -(-head_width // 32) * 32
     head = r4(d) + 2 * r4(head_width) + max(w32, THREADS) + 2 * (THREADS // 32)
     rows = MAX_ROWS * (2 * d + r4(3 * dh) + r4(dh) + r4(hs))
-    bias = r4(max(3 * dh, COL_TILE, hs))
-    return 4 * (r4(w) + bias + 3 * d + rows + r4(max(THREADS * MAX_ROWS, attn, head)) + 4)
+    bias = as_floats(max(3 * dh, COL_TILE, hs))
+    return 4 * (as_floats(w) + bias + as_floats(3 * d) + rows
+                + r4(max(THREADS * MAX_ROWS, attn, head)) + 4)
 
 
 # -- weight pack ---------------------------------------------------------------------
 
 @dtc.dataclass
 class TransformerPack:
-    """The kernels' view of a SimpleTransformer: every weight in one flat f32
-    buffer, each tensor's (offset, shape) in it, the static sizes, and the
-    window's PE table (rf, d).  Layer l's tensors are named ``<kind>.<l>``
-    (``LAYER_KINDS``) and lie ``layer_stride`` floats after layer l-1's.  The
+    """The kernels' view of a SimpleTransformer: every weight in one flat
+    buffer (float32; bfloat16 for K7's bf16 route), each tensor's (offset,
+    shape) in it, the static sizes, and the window's PE table (rf, d), f32.
+    Layer l's tensors are named ``<kind>.<l>`` (``LAYER_KINDS``) and lie
+    ``layer_stride`` elements after layer l-1's.  The
     matrices in ``blocked`` are stored as column blocks of the given width,
     each block (K, width) row-major, the blocks in column order (the last one
     narrower when the width does not divide N): a kernel task's column slice
@@ -198,10 +213,19 @@ class TransformerPack:
         """Layer l's tensors in ``LAYER_KINDS`` order."""
         return [self.view(f"{k}.{l}") for k in LAYER_KINDS]
 
+    @property
+    def wbytes(self) -> int:
+        """Bytes a weight: 4 (f32) or 2 (bf16)."""
+        return self.flat.element_size()
+
 
 @torch.no_grad()
-def transformer_weight_pack(net) -> TransformerPack:
-    """Flatten ``net``'s weights into the kernels' layout, on its device.
+def transformer_weight_pack(net, dtype: torch.dtype = torch.float32) -> TransformerPack:
+    """Flatten ``net``'s weights into the kernels' layout, on its device,
+    stored in ``dtype``: float32 (K6 and K7), or bfloat16 (K7's bf16 route,
+    ``MMK_DECODE_BF16=1``; ``pallas_decode.py:2200-2207`` casts every weight,
+    bias, norm affine and the embedding table).  Each tensor is built in f32
+    and cast once.
 
     ``emb`` (Q, d); per layer l: ``wqkv`` = [Wq | Wk | Wv] (d, 3d) of the
     self-attention and ``bqkv``, ``wo`` (d, d), ``bo``, the cross-attention's
@@ -212,9 +236,12 @@ def transformer_weight_pack(net) -> TransformerPack:
     ``wh{k}``/``bh{k}``.  Every product is ``x @ W`` (K, N); ``wqkv``,
     ``wcq`` and ``wckv`` are stored in column blocks of a head's width, ``w1``
     in blocks of ``FFN_SLICE`` columns (the kernels' task slices), the rest
-    row-major; each tensor starts at a multiple of 4 floats."""
+    row-major; each tensor starts at a multiple of 16 bytes."""
     from ..networks.transformers import sinusoidal_pe
 
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"the transformer kernels take float32 or bfloat16 weights, not {dtype}")
+    align = 16 // torch.empty((), dtype=dtype).element_size()
     cfg = net.config
     d, L = cfg.model_dim, cfg.num_layers
     dh, hs = d // cfg.n_heads, min(cfg.feedforward_dim, FFN_SLICE)
@@ -230,8 +257,8 @@ def transformer_weight_pack(net) -> TransformerPack:
             full = N // block * block  # whole blocks, then the narrower last one
             x = torch.cat([x[:, :full].reshape(K, -1, block).transpose(0, 1).reshape(-1),
                            x[:, full:].reshape(-1)])
-        x = x.contiguous()
-        pad = -x.numel() % 4
+        x = x.to(dtype).contiguous()
+        pad = -x.numel() % align
         parts.append(x.reshape(-1))
         if pad:
             parts.append(x.new_zeros(pad))
@@ -288,21 +315,45 @@ def transformer_weight_pack(net) -> TransformerPack:
 def layer_norm(x, weight, bias, eps: float = 1e-5):
     """flax's LayerNorm (``pallas_decode.py:1317-1322``): var = max(0,
     E[x²] - E[x]²).  The network, both kernels and both plain twins use this
-    formula."""
+    formula.  A bf16 ``x`` is normed in f32 and the result rounded to bf16,
+    as flax computes it with bf16 inputs and parameters."""
+    dt = x.dtype
+    x = x.float()
     mean = x.mean(-1, keepdim=True)
     mean2 = (x * x).mean(-1, keepdim=True)
     var = torch.clamp_min(mean2 - mean * mean, 0.0)
-    return (x - mean) * torch.rsqrt(var + eps) * weight + bias
+    return ((x - mean) * torch.rsqrt(var + eps) * weight.float() + bias.float()).to(dt)
 
 
-def head_scores(pack: TransformerPack, x: torch.Tensor) -> torch.Tensor:
+def dot_input(pack: TransformerPack):
+    """How a product of the pack's kernels reads its input: as it is for an
+    f32 pack, rounded to bf16 for a bf16 pack (``pallas_decode.py:1817``:
+    every dot input ``.astype(dt)``; the products and sums stay f32)."""
+    if pack.flat.dtype == torch.bfloat16:
+        return lambda x: x.to(torch.bfloat16).float()
+    return lambda x: x
+
+
+def addmm_in(acc: torch.dtype):
+    """``torch.addmm`` with the products summed in ``acc`` and the result in
+    f32 (for f32, ``torch.addmm`` itself)."""
+    if acc == torch.float32:
+        return torch.addmm
+    return lambda b, x, w: torch.addmm(b.to(acc), x.to(acc), w.to(acc)).float()
+
+
+def head_scores(pack: TransformerPack, x: torch.Tensor,
+                accumulate: torch.dtype = torch.float32) -> torch.Tensor:
     """(N, d) rows after the last layer -> (N, Q) scores: the optional final
-    norm, the Mish MLP, logits[:Q] / max(sigmoid(logits[Q]), min_temperature)."""
+    norm, the Mish MLP, logits[:Q] / max(sigmoid(logits[Q]), min_temperature).
+    A bf16 pack's weights are read as f32 and each product's input rounded
+    to bf16; the products sum in ``accumulate``."""
+    rnd, mm = dot_input(pack), addmm_in(accumulate)
     if pack.final_ln:
-        x = layer_norm(x, pack.view("lnf_w"), pack.view("lnf_b"))
+        x = layer_norm(x, pack.view("lnf_w").float(), pack.view("lnf_b").float())
     n = len(pack.head_dims)
     for k in range(n):
-        x = torch.addmm(pack.view(f"bh{k}"), x, pack.view(f"wh{k}"))
+        x = mm(pack.view(f"bh{k}").float(), rnd(x), pack.view(f"wh{k}").float())
         if k < n - 1:
             x = x * torch.tanh(F.softplus(x))
     Q = pack.q_levels
@@ -440,10 +491,14 @@ def fill_weight_args(a, pack: TransformerPack) -> None:
     a.inv_sqrt_dh = float(np.float32(1.0 / np.sqrt(pack.dim // pack.n_heads)))
 
 
-def check_pack(pack: TransformerPack, dev) -> None:
-    _check(pack.flat, "weights", torch.float32, pack.flat.shape, dev)
+def check_pack(pack: TransformerPack, dev, dtypes=(torch.float32,)) -> None:
+    """Raise unless the pack lies on ``dev`` in one of ``dtypes`` and its
+    net is inside the kernels' limits for that weight type."""
+    if pack.flat.dtype not in dtypes:
+        raise ValueError(f"weights have dtype {pack.flat.dtype}, expected one of {dtypes}")
+    _check(pack.flat, "weights", pack.flat.dtype, pack.flat.shape, dev)
     widths = [w for dims in pack.head_dims for w in dims]
-    if not _fits(pack.dim, pack.n_heads, pack.ff, len(pack.head_dims), widths):
+    if not _fits(pack.dim, pack.n_heads, pack.ff, len(pack.head_dims), widths, pack.wbytes):
         raise ValueError("the net is outside the transformer kernels' limits")
 
 
@@ -529,6 +584,8 @@ def decode_window(pack: TransformerPack, prompt: torch.Tensor, n_steps: int, see
     B, prior_t = prompt.shape
     if prior_t < pack.rf:
         raise ValueError(f"the window decode needs a prompt of at least rf={pack.rf} tokens")
+    if pack.flat.dtype != torch.float32:  # JAX's K6 has no bf16 variant either
+        raise ValueError(f"the window decode takes a float32 pack, not {pack.flat.dtype}")
     if prompt.device.type == "cpu":
         return decode_window_plain(pack, prompt, prior_t, n_steps, seed, temperature)
     window = prompt[:, prior_t - pack.rf :].to(torch.int32).contiguous()

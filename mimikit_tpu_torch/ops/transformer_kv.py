@@ -42,8 +42,10 @@ from .transformer_decode import (
     LAYER_KINDS,
     MAX_HEAD,
     TransformerPack,
+    addmm_in,
     check_pack,
     fill_weight_args,
+    dot_input,
     head_scores,
     layer_norm,
 )
@@ -101,17 +103,24 @@ def _attend_ring(q, K, V, vcount: int, n_heads: int):
 @torch.no_grad()
 def decode_chunk_plain(pack: TransformerPack, prompt_T: torch.Tensor, state: TransformerKVState,
                        t0: int, n_steps: int, seed: int, temperature: Optional[float],
-                       return_scores: bool = False):
+                       return_scores: bool = False, accumulate: torch.dtype = torch.float32):
     """The plain PyTorch twin of the kernel (the oracle's step): steps ``t0 ..
     t0 + n_steps - 1`` on ``state`` (updated in place), teacher-forcing and
-    echoing while ``t < prior_t``.  Returns (B, n_steps) int32, column i the
-    token at position t0 + i; with ``return_scores`` also the (n_steps, B, Q)
-    scores the argmax ran over."""
+    echoing while ``t < prior_t``.  A bf16 pack is the bf16 route's twin
+    (``pallas_decode.py:1716-1734``): its weights, biases, norm affines and
+    embedding read as f32, each product's input rounded to bf16; the sums,
+    the softmax, the norms' arithmetic, the PE rows and the rings stay f32.
+    The products sum in ``accumulate`` (f32, as the kernel sums; float64 sums
+    in another order, which measures how far the order alone moves the
+    scores).  Returns (B, n_steps) int32, column i the token at position t0 +
+    i; with ``return_scores`` also the (n_steps, B, Q) scores the argmax ran
+    over."""
     prior_t, B = prompt_T.shape
     d, rf, L, Q = pack.dim, pack.rf, pack.n_layers, pack.q_levels
     dev = prompt_T.device
     prompt_T = prompt_T.long()
-    emb, wckv, bckv = pack.view("emb"), pack.view("wckv"), pack.view("bckv")
+    rnd, addmm = dot_input(pack), addmm_in(accumulate)
+    emb, wckv, bckv = (pack.view(k).float() for k in ("emb", "wckv", "bckv"))
     pe = pe_rows(t0 - 1, n_steps, d, dev)
     ring = state.ring
     tok = state.tok.long()
@@ -122,24 +131,24 @@ def decode_chunk_plain(pack: TransformerPack, prompt_T: torch.Tensor, state: Tra
         s = t - 1
         slot, vcount = s % rf, min(t, rf)
         x0 = emb[prompt_T[s] if s < prior_t else tok] + pe[i]
-        ckv = torch.addmm(bckv, x0, wckv)
+        ckv = addmm(bckv, rnd(x0), wckv)
         x = x0
         for l in range(L):
             (wqkv, bqkv, wo, bo, wcq, bcq, wco, bco,
-             g1, b1_, g2, b2_, g3, b3_, w1, b1, w2, b2) = pack.layer(l)
-            qkv = torch.addmm(bqkv, x, wqkv)
+             g1, b1_, g2, b2_, g3, b3_, w1, b1, w2, b2) = (w.float() for w in pack.layer(l))
+            qkv = addmm(bqkv, rnd(x), wqkv)
             ring[l, :, slot, : 2 * d] = qkv[:, d:]
             a = _attend_ring(qkv[:, :d], ring[l, :, :, :d], ring[l, :, :, d : 2 * d], vcount,
                              pack.n_heads)
-            x = layer_norm(x + torch.addmm(bo, a, wo), g1, b1_)
+            x = layer_norm(x + addmm(bo, rnd(a), wo), g1, b1_)
             ring[l, :, slot, 2 * d :] = ckv[:, 2 * l * d : 2 * (l + 1) * d]
-            q = torch.addmm(bcq, x, wcq)
+            q = addmm(bcq, rnd(x), wcq)
             a = _attend_ring(q, ring[l, :, :, 2 * d : 3 * d], ring[l, :, :, 3 * d :], vcount,
                              pack.n_heads)
-            x = layer_norm(x + torch.addmm(bco, a, wco), g2, b2_)
-            h = torch.relu(torch.addmm(b1, x, w1))
-            x = layer_norm(x + torch.addmm(b2, h, w2), g3, b3_)
-        scores = head_scores(pack, x)
+            x = layer_norm(x + addmm(bco, rnd(a), wco), g2, b2_)
+            h = torch.relu(addmm(b1, rnd(x), w1))
+            x = layer_norm(x + addmm(b2, rnd(h), w2), g3, b3_)
+        scores = head_scores(pack, x, accumulate)
         if temperature is not None:
             scores = scores / temperature + gumbel_noise(seed, t, B, Q, dev)
         tok = prompt_T[t] if t < prior_t else torch.argmax(scores, dim=-1)
@@ -194,6 +203,7 @@ class _Args(ctypes.Structure):
         ("temperature", ctypes.c_float),
         ("min_temperature", ctypes.c_float),
         ("inv_sqrt_dh", ctypes.c_float),
+        ("bf16", ctypes.c_int),
     ]
 
 
@@ -242,7 +252,7 @@ def decode_chunk(pack: TransformerPack, prompt_T: torch.Tensor, state: Transform
     dev = prompt_T.device
     if dev.type == "cpu":
         return decode_chunk_plain(pack, prompt_T, state, t0, n_steps, seed, temperature)
-    check_pack(pack, dev)
+    check_pack(pack, dev, (torch.float32, torch.bfloat16))
     _check(prompt_T, "prompt_T", torch.int32, (prior_t, B), dev)
     _check(state.tok, "state.tok", torch.int32, (B,), dev)
     _check(state.ring, "state.ring", torch.float32,
@@ -262,6 +272,7 @@ def decode_chunk(pack: TransformerPack, prompt_T: torch.Tensor, state: Transform
     a.argmax = int(temperature is None)
     a.seed = seed & 0xFFFFFFFF
     a.temperature = 1.0 if temperature is None else float(temperature)
+    a.bf16 = int(pack.flat.dtype == torch.bfloat16)
     if lib.mmk_tf_kv_smem_bytes(ctypes.byref(a)) > SMEM_PER_BLOCK:
         raise ValueError("the net is outside the transformer kernels' limits")
     scratch = torch.empty(lib.mmk_tf_kv_scratch_floats(ctypes.byref(a)), device=dev)
@@ -274,11 +285,13 @@ def decode_chunk(pack: TransformerPack, prompt_T: torch.Tensor, state: Transform
         raise RuntimeError("transformer KV decode kernel launch failed: "
                            f"{lib.mmk_tf_kv_error_string(err).decode()}")
     decode_chunk.launches += 1
+    decode_chunk.launches_bf16 += a.bf16
     decode_chunk.last_barriers = barriers
     return out
 
 
-decode_chunk.launches = 0
+# kernel launches, all of them and those of the bf16 instantiation
+decode_chunk.launches = decode_chunk.launches_bf16 = 0
 # the grid barriers block 0 passed in the last launch, a (1,) device tensor:
 # one before the first step, then 3L + 1 a step
 decode_chunk.last_barriers = None

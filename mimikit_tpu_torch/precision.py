@@ -1,0 +1,81 @@
+"""Mixed-precision policy: the compute dtype and the casts that follow it.
+
+Counterpart of the serving half of ``mimikit_tpu/precision.py``, on torch
+dtypes.  :func:`compute` sets, for the code in its block, the dtype that
+modules creating float tensors from non-float inputs (the class-index
+``Linearizer``, the positional-encoding tables) produce, read through
+:func:`compute_dtype`; everything else follows its inputs' and parameters'
+dtypes.  :func:`cast_floats` gives a copy of a module, or of a dict of
+tensors, with every floating tensor cast.
+
+Used by the bf16 window re-feed (``MMK_DECODE_BF16=1``,
+``networks/transformers.py``): a bf16 copy of the net, its forward inside
+``compute(torch.bfloat16)``.  The loss barrier of the JAX module
+(``loss_barrier``) pins one XLA materialization and has no counterpart here.
+"""
+from __future__ import annotations
+
+import contextlib
+import contextvars
+import copy
+from typing import Optional
+
+import torch
+from torch import nn
+
+__all__ = ["compute_dtype", "compute", "cast_floats", "resolve_dtype"]
+
+_COMPUTE_DTYPE: contextvars.ContextVar = contextvars.ContextVar(
+    "mmk_torch_compute_dtype", default=None
+)
+
+
+def compute_dtype(default: torch.dtype = torch.float32) -> torch.dtype:
+    """The policy's compute dtype, or ``default`` outside any policy."""
+    d = _COMPUTE_DTYPE.get()
+    return default if d is None else d
+
+
+@contextlib.contextmanager
+def compute(dtype: torch.dtype):
+    """Set the compute dtype for the code in the block."""
+    token = _COMPUTE_DTYPE.set(dtype)
+    try:
+        yield
+    finally:
+        _COMPUTE_DTYPE.reset(token)
+
+
+def resolve_dtype(name) -> Optional[torch.dtype]:
+    """A ``param_dtype`` value (``"bfloat16"``, ``"bf16"``, ``"float16"``,
+    ``"float32"``, a torch dtype or None) -> the torch dtype, or None for f32
+    (no policy)."""
+    if name is None:
+        return None
+    if isinstance(name, str):
+        key = name.lower().replace("torch.", "").replace("jnp.", "")
+        if key in ("bfloat16", "bf16"):
+            return torch.bfloat16
+        if key in ("float16", "fp16", "half"):
+            return torch.float16
+        if key in ("float32", "f32", "fp32"):
+            return None
+        raise ValueError(f"unknown param_dtype '{name}'")
+    if not isinstance(name, torch.dtype):
+        raise ValueError(f"unknown param_dtype {name!r}")
+    return None if name == torch.float32 else name
+
+
+def cast_floats(tree, dtype: torch.dtype):
+    """A copy of ``tree`` with every floating tensor cast to ``dtype``:
+    ``tree`` an ``nn.Module`` (parameters and buffers; the original is left
+    as it is) or a dict of tensors (other values pass through)."""
+    if isinstance(tree, nn.Module):
+        out = copy.deepcopy(tree)
+        with torch.no_grad():
+            for t in list(out.parameters()) + list(out.buffers()):
+                if t.is_floating_point():
+                    t.data = t.data.to(dtype)
+        return out
+    return {k: (v.to(dtype) if isinstance(v, torch.Tensor) and v.is_floating_point() else v)
+            for k, v in tree.items()}

@@ -7,6 +7,7 @@
   CPU;
 * on CPU tensors every kernel wrapper runs its plain twin and counts no
   launch (the tier-pyramid decode leaves its advanced window in place);
+* ``precision.py``: the compute-dtype context, the casts, the dtype names;
 * on a machine with a card, ``chip_smoke.py --quick`` builds the kernels
   and holds them against their plain twins (marked ``cuda``; skipped
   without a card).
@@ -51,6 +52,7 @@ _CUDA_CALLS = [
     "mmk.SampleRNN.from_config(cfg, device='cuda')",
     "net.generate((torch.zeros(2, 16, dtype=torch.int32, device='cuda'),), 4)",
     "sd._launch(pack, p, st, 8, 4, torch.empty(2, 4, dtype=torch.int32), 16, 0, None)",
+    "sd._launch(pack16, p, st, 8, 4, torch.empty(2, 4, dtype=torch.int32), 16, 0, None)",
     "fl.fused_lstm_layer(*(a.to('cuda') for a in L))",
     "mmk.WaveNet.from_config(wcfg)",
     "mmk.WaveNet.from_config(wcfg, device='cuda')",
@@ -61,6 +63,7 @@ _CUDA_CALLS = [
     "td._launch(tpack, torch.zeros(1, 16, dtype=torch.int32), 4, 16, 0, None)",
     "td.decode_window(tpack, torch.zeros(1, 16, dtype=torch.int32, device='cuda'), 4, 0, None)",
     "tk.decode_chunk(tpack, torch.zeros(16, 2, dtype=torch.int32, device='cuda'), tst, 1, 4, None, 0)",
+    "tk.decode_chunk(tpack16, torch.zeros(16, 2, dtype=torch.int32, device='cuda'), tst, 1, 4, None, 0)",
     "mmk.JukeBox.from_config(jcfg)",
     "mmk.JukeBox.from_config(jcfg, device='cuda')",
     "jbd._launch(jpack, torch.zeros(1, 16, dtype=torch.int32), 16, 4, 0, None)",
@@ -87,6 +90,7 @@ io = mmk.IOSpec.mulaw_io(mmk.IOSpec.MuLawIOConfig(q_levels=32, mlp_dim=16))
 cfg = mmk.SampleRNN.Config(frame_sizes=(8, 4, 2), hidden_dim=16, io_spec=io)
 net = mmk.SampleRNN.from_config(cfg, device="cpu")
 pack = sd.samplernn_weight_pack(net)
+pack16 = sd.samplernn_weight_pack(net, torch.bfloat16)
 p = torch.zeros(2, 16, dtype=torch.int32)
 st = sd.init_decode_state(net, p)
 L = [torch.randn(3, 2, 8), torch.randn(8, 32), torch.randn(8, 32), torch.randn(32),
@@ -100,6 +104,8 @@ wst = wd.init_decode_state(wpack, wp)
 tcfg = mmk.SimpleTransformer.Config(io_spec=wio, model_dim=16, n_heads=2, feedforward_dim=32,
                                     num_layers=2, rf=16)
 tpack = td.transformer_weight_pack(mmk.SimpleTransformer.from_config(tcfg, device="cpu"))
+tpack16 = td.transformer_weight_pack(mmk.SimpleTransformer.from_config(tcfg, device="cpu"),
+                                     torch.bfloat16)
 tp = torch.zeros(2, 16, dtype=torch.int32)
 tst = tk.init_kv_state(tpack, tp)
 jcfg = mmk.JukeBox.Config(io_spec=io, frame_sizes=(8, 4, 2), model_dim=16, n_heads=2,
@@ -131,6 +137,30 @@ res["cpu_jb"] = [list(out.shape), jbd.decode_pyramid.launches, bool((win[:, -1] 
                  win[:, -6:-1].tolist() == out.tolist()]
 out = mu.mulaw_expand(mu.mulaw_compress(torch.linspace(-1, 1, 9)))
 res["cpu_mulaw"] = [list(out.shape), mu.mulaw_compress.launches, mu.mulaw_expand.launches]
+from mimikit_tpu_torch import precision as prec
+lin = mmk.Linearizer(32)
+toks = torch.arange(32)
+outside = lin(toks)
+with prec.compute(torch.bfloat16):
+    inside = [str(prec.compute_dtype()), str(lin(toks).dtype),
+              bool((lin(toks).float() == outside).all())]
+copy16 = prec.cast_floats(net, torch.bfloat16)
+tree = prec.cast_floats({"w": torch.ones(2), "i": torch.arange(2), "n": 3}, torch.bfloat16)
+res["precision"] = {
+    "default": str(prec.compute_dtype()), "inside": inside, "after": str(prec.compute_dtype()),
+    "linearizer": str(outside.dtype),
+    "copy": sorted({str(t.dtype) for t in copy16.parameters()}),
+    "original": sorted({str(t.dtype) for t in net.parameters()}),
+    "tree": [str(tree["w"].dtype), str(tree["i"].dtype), tree["n"]],
+    "resolve": [str(prec.resolve_dtype(n)) for n in ("bf16", "bfloat16", "float32", None,
+                                                      torch.float16, torch.float32)],
+    "packs": [str(pack16.flat.dtype), str(tpack16.flat.dtype), str(tpack16.pe_window.dtype)],
+}
+try:
+    prec.resolve_dtype("int8")
+    res["precision"]["bad"] = "accepted"
+except ValueError:
+    res["precision"]["bad"] = "raised"
 print(json.dumps(res))
 """
 
@@ -204,6 +234,24 @@ def test_cpu_tensors_take_the_plain_pyramid_decode(probe):
 
 def test_cpu_tensors_take_the_plain_mulaw(probe):
     assert probe["cpu_mulaw"] == [[9], 0, 0]
+
+
+def test_precision_policy(probe):
+    """precision.py: the compute dtype is f32 outside a policy and bf16
+    inside ``compute(bfloat16)`` (the class-index linearizer follows it,
+    exactly: the mu-law classes are bf16 values); ``cast_floats`` copies a
+    module (the original stays f32) or a dict (ints pass); ``resolve_dtype``
+    maps the trainer's names; the weight packs take bf16, the PE rows stay
+    f32."""
+    got = probe["precision"]
+    assert got["default"] == got["after"] == got["linearizer"] == "torch.float32"
+    assert got["inside"] == ["torch.bfloat16", "torch.bfloat16", True]
+    assert got["copy"] == ["torch.bfloat16"] and got["original"] == ["torch.float32"]
+    assert got["tree"] == ["torch.bfloat16", "torch.int64", 3]
+    assert got["resolve"] == ["torch.bfloat16", "torch.bfloat16", "None", "None",
+                              "torch.float16", "None"]
+    assert got["bad"] == "raised"
+    assert got["packs"] == ["torch.bfloat16", "torch.bfloat16", "torch.float32"]
 
 
 @pytest.mark.cuda

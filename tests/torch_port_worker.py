@@ -734,11 +734,187 @@ def mulaw_task(inp: dict) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def _env(**kv):
+    """Set environment variables inside the block."""
+    old = {k: os.environ.get(k) for k in kv}
+    os.environ.update(kv)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                del os.environ[k]
+            else:
+                os.environ[k] = v
+
+
+@contextlib.contextmanager
+def _dtypes_of(module, name):
+    """Record the weight dtype of each pack passed to ``module.name`` (its
+    first argument) inside the block: yields the list."""
+    fn, seen = getattr(module, name), []
+
+    def recorded(pack, *args, **kwargs):
+        seen.append(str(pack.flat.dtype))
+        return fn(pack, *args, **kwargs)
+
+    setattr(module, name, recorded)
+    try:
+        yield seen
+    finally:
+        setattr(module, name, fn)
+
+
+def _window_scores(net16, full, n_first, W, lead):
+    """The bf16 window route's scores of positions n_first .. of ``full``
+    (B, T): each position's window, the bf16 copy's forward (train mode, the
+    last position's logits), batched over all windows.  (n, B, Q)."""
+    from mimikit_tpu_torch import precision
+
+    B, T = full.shape
+    wins = torch.stack([full[:, p - W + lead : p + lead] for p in range(n_first, T)])
+    with torch.no_grad(), precision.compute(torch.bfloat16):
+        logits = net16._core((wins.reshape(-1, W),), True)[0][:, -1]
+    return logits.float().reshape(T - n_first, B, -1)
+
+
+def _bf16_valued(net):
+    """A copy of ``net`` whose parameters hold their bf16-rounded values in
+    f32: the bf16 routes' weights, products of unrounded inputs."""
+    net = copy.deepcopy(net)
+    with torch.no_grad():
+        for p in net.parameters():
+            p.copy_(p.to(torch.bfloat16).float())
+    return net
+
+
+def bf16_decode_task(inp: dict) -> dict:
+    """The bf16 decode routes on the CPU (their plain twins): SampleRNN's
+    generate at B=2 (K1's route) and 64 (K2's) and stream under
+    MMK_PALLAS_BF16=1, with the packs' dtypes and the bf16 twin's
+    teacher-forced scores of JAX's tokens; the transformer KV stream under
+    MMK_DECODE_KV=1 MMK_DECODE_BF16=1 over two chunkings, with the same; the
+    bf16 window route of a SimpleTransformer (called directly, and through
+    generate and a re-feed stream past _K6_MAX_BATCH streams) and of two
+    JukeBoxes (called directly; a net outside K8's scope through generate),
+    with the bf16 copy's scores of JAX's tokens and the copies built; the
+    f32 fallback and its warning where K7's bf16 limits refuse a net."""
+    from mimikit_tpu_torch.networks import sample_rnn as srnn_net
+    from mimikit_tpu_torch.networks import transformers as tf_net
+    from mimikit_tpu_torch.ops import transformer_kv as tk
+
+    torch.set_num_threads(1)  # as wavenet_task
+    out = {}
+    n = int(inp["n_steps"])
+
+    # SampleRNN, MMK_PALLAS_BF16=1
+    net, _ = load_net(inp, "srnn/")
+    rf = net.rf
+    pack16 = sd.samplernn_weight_pack(net, torch.bfloat16)
+    with _env(MMK_PALLAS_BF16="1"):
+        for tag in ("b2", "b32", "b64"):
+            with _dtypes_of(srnn_net, "decode_single") as single, \
+                    _dtypes_of(srnn_net, "decode_chunk") as chunk:
+                out[f"srnn/{tag}"] = net.generate((inp[f"srnn/prompt_{tag}"],), n)[0].numpy()
+            out[f"srnn/{tag}_single"] = np.array(single, dtype=str)
+            out[f"srnn/{tag}_chunk"] = np.array(chunk, dtype=str)
+        with _dtypes_of(srnn_net, "decode_chunk") as chunk:
+            out["srnn/stream"] = _stream(net, inp["srnn/prompt_b2"], 7, n // 7)
+        out["srnn/stream_chunk"] = np.array(chunk, dtype=str)
+    for tag in ("b2", "b32", "b64", "stream"):
+        full = t(inp[f"srnn/jax_{tag}"]).to(torch.int32)
+        state = sd.init_decode_state(net, full)
+        L = full.shape[1]
+        _, scores = sd.decode_plain(pack16, full, state, rf, L - rf, rf, L - rf, 0, None,
+                                    return_scores=True)
+        out[f"srnn/tf_{tag}"] = scores.numpy()  # step rf + i predicts position rf + i
+    # the control: bf16 weights with f32 product inputs (no input rounding)
+    net_r = _bf16_valued(net)
+    for tag in ("b32", "b64"):
+        prompt = t(inp[f"srnn/prompt_{tag}"]).to(torch.int32)
+        out[f"ctl/srnn_{tag}"] = sd.decode_plain(net_r, prompt, sd.init_decode_state(net_r, prompt),
+                                                 rf, prompt.shape[1] + n - rf, prompt.shape[1],
+                                                 n, 0, None).numpy()
+        full = t(inp[f"srnn/jax_{tag}"]).to(torch.int32)
+        L = full.shape[1]
+        _, scores = sd.decode_plain(net_r, full, sd.init_decode_state(net_r, full), rf, L - rf, rf,
+                                    L - rf, 0, None, return_scores=True)
+        out[f"ctl/srnn_tf_{tag}"] = scores.numpy()
+
+    # SimpleTransformer KV stream, MMK_DECODE_KV=1 MMK_DECODE_BF16=1
+    net, _ = load_transformer(inp, "kv/")
+    prompt = inp["kv/prompt"]
+    with _env(MMK_DECODE_KV="1", MMK_DECODE_BF16="1"):
+        with _dtypes_of(tf_net, "decode_chunk") as packs:
+            n_kv = 7 * int(inp["kv/n_chunks"])
+            out["kv/c7"] = _stream(net, prompt, 7, n_kv // 7)
+            out["kv/c9"] = _stream(net, prompt, 9, -(-n_kv // 9))
+    out["kv/packs"] = np.array(packs, dtype=str)
+    full = t(inp["kv/jax"]).to(torch.int32)
+    pack16 = tf_net.transformer_weight_pack(net, torch.bfloat16)
+    state = tk.init_kv_state(pack16, full)
+    _, scores = tk.decode_chunk_plain(pack16, full.t().contiguous(), state, 1, full.shape[1] - 1,
+                                      0, None, return_scores=True)
+    out["kv/tf"] = scores.numpy()  # step 1 + i predicts position 1 + i
+    pack_r = tf_net.transformer_weight_pack(_bf16_valued(net), torch.float32)  # the control
+    prompt_T = t(prompt).to(torch.int32).t().contiguous()
+    out["ctl/kv"] = tk.decode_chunk_plain(pack_r, prompt_T, tk.init_kv_state(pack_r, t(prompt).to(torch.int32)), 1,
+                                          full.shape[1] - 1, 0, None)[:, prompt.shape[1] - 1:].numpy()
+    _, scores = tk.decode_chunk_plain(pack_r, full.t().contiguous(), tk.init_kv_state(pack_r, full),
+                                      1, full.shape[1] - 1, 0, None, return_scores=True)
+    out["ctl/kv_tf"] = scores.numpy()
+
+    # the bf16 window route, MMK_DECODE_BF16=1
+    with _env(MMK_DECODE_BF16="1"):
+        net, _ = load_transformer(inp, "win_tf/")
+        p2, wide = t(inp["win_tf/prompt"]), inp["win_tf/prompt_wide"]
+        out["win_tf/direct"] = net._window_loop(p2, n, None, 0).numpy()
+        with _counting(tf_net.precision, "cast_floats") as copies:
+            out["win_tf/wide"] = net.generate((wide,), n)[0].numpy()
+        out["win_tf/wide_copies"] = np.array(copies[0])
+        with _counting(tf_net.precision, "cast_floats") as copies:
+            out["win_tf/refeed"] = _stream(net, wide, 9, 3)
+        out["win_tf/refeed_copies"] = np.array(copies[0])
+        net16, W = net._window_net(), net._window_len()
+        out["win_tf/copy_dtype"] = np.array(str(next(net16.parameters()).dtype))
+        for tag in ("direct", "wide"):
+            full = t(inp[f"win_tf/jax_{tag}"]).long()
+            out[f"win_tf/tf_{tag}"] = _window_scores(net16, full, full.shape[1] - n, W, 0).numpy()
+        for tag in ("jb", "jb_out"):
+            net, _ = load_jukebox(inp, f"win_{tag}/")
+            prompt = t(inp[f"win_{tag}/prompt"])
+            if tag == "jb":
+                out[f"win_{tag}/tokens"] = net._window_loop(prompt, n, None, 0).numpy()
+            else:
+                with _counting(tf_net.precision, "cast_floats") as copies:
+                    out[f"win_{tag}/tokens"] = net.generate((prompt,), n)[0].numpy()
+                out[f"win_{tag}/copies"] = np.array(copies[0])
+            full = t(inp[f"win_{tag}/jax"]).long()
+            out[f"win_{tag}/tf"] = _window_scores(net._window_net(), full, full.shape[1] - n,
+                                                  net._window_len(), 1).numpy()
+
+    # K7's bf16 limits refuse the net (d / n_heads = 20): the f32 K7 route, warned
+    cfg = mmk.Config.deserialize(str(inp["warn/yaml"]))
+    cfg.io_spec.bind_to({"signal": mmk.Extractor.signal()})
+    net = mmk.SimpleTransformer.from_config(cfg, device="cpu", seed=3).eval()
+    prompt = inp["warn/prompt"]
+    with _env(MMK_DECODE_KV="1"):
+        out["warn/f32"] = _stream(net, prompt, 7, 10)
+        with _env(MMK_DECODE_BF16="1"), _dtypes_of(tf_net, "decode_chunk") as packs, \
+                warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out["warn/bf16"] = _stream(net, prompt, 7, 10)
+    out["warn/packs"] = np.array(packs, dtype=str)
+    out["warn/warnings"] = np.array([str(w.message) for w in caught], dtype=str)
+    return out
+
+
 TASKS = {"modules": modules_task, "sample_rnn": sample_rnn_task, "fused_lstm": fused_lstm_task,
          "train": train_task, "train_stateless": train_stateless_task,
          "wavenet": wavenet_task, "categorical": categorical_task,
          "transformer": transformer_task, "jukebox": jukebox_task,
-         "mulaw": mulaw_task}
+         "mulaw": mulaw_task, "bf16_decode": bf16_decode_task}
 
 if __name__ == "__main__":
     task, src, dst = sys.argv[1:4]
