@@ -23,7 +23,13 @@ Phases (any failure exits non-zero; no exception is swallowed):
    (T, B, H) = (12, 4, 16) and at the two tier shapes of the training path,
    (128, 32, 256) and (256, 32, 256): h_all, h_T, c_T within 1e-5 +
    1e-5 * max|plain| and all six gradients within 1e-5 + 1e-4 * max|plain|
-   of the plain versions (f32, summed in another order); and one full
+   of the plain versions (f32, summed in another order), and their bf16
+   instantiation (the ``param_dtype="bfloat16"`` streams) against the bf16
+   twins at the same shapes (the small one at four input seeds): every
+   output and gradient within 2 bf16 ulps of its scale and at most 1 %
+   (small) or 25 % (the tier shapes) of a case's elements different, limits
+   that a control (the f32 instantiation on the bf16 values: no rounding of
+   h and dz) must fail at every case; and one full
    SampleRNN-3 train step (B=32 x 2048) with the kernels against the same
    step on the CPU (plain versions): loss within 1e-5 relative, every
    parameter's gradient within 1e-5 + 1e-3 * max|plain|; the WaveNet decode
@@ -82,13 +88,19 @@ Phases (any failure exits non-zero; no exception is swallowed):
    decoded at B=4 through decode_single (verified as in phase 2); the train
    step timed (median of 3 windows of 8 steps, CUDA events) and profiled;
    the training audio mu-law compressed through K10a (the dataset's tokens,
-   under phase 2's rule) and expanded back through K10b;
+   under phase 2's rule) and expanded back through K10b; then the same run
+   under ``trainer_kwargs={"param_dtype": "bfloat16"}``: master parameters
+   and optimizer state f32, every LSTM call the bf16 instantiation (no f32
+   K3 launch), epoch mean losses finite and falling, the last within
+   max(10 %, 5e-3) of the f32 run's, the step timed and profiled beside the
+   f32 one;
 5. each wrapper, its plain twin and (for the LSTM kernels) cuDNN's
-   ``nn.LSTM``, for K9 ``torch.multinomial``, timed at the main paths'
-   shapes (the transformer and JukeBox twins over 64 steps, scaled; K8 also
-   at B=16 and 32, K10 at 2,646,000 samples; the bf16 twins over fewer
-   steps, scaled); a ``kernels`` JSON line of fifteen rows (the twelve and
-   K1-, K2- and K7-bf16), the card line, and the device line last.
+   ``nn.LSTM`` in the same dtype, for K9 ``torch.multinomial``, timed at
+   the main paths' shapes (the transformer and JukeBox twins over 64 steps,
+   scaled; K8 also at B=16 and 32, K10 at 2,646,000 samples; the bf16
+   decode twins over fewer steps, scaled); a ``kernels`` JSON line of
+   seventeen rows (the twelve and K1-, K2-, K3a-, K3b- and K7-bf16), the
+   card line, and the device line last.
 
 ``--quick`` runs phases 1-2 at the small size only (a build check);
 ``--bench`` runs phase 1, phase 3's timings without the checks, decode_chunk
@@ -137,6 +149,16 @@ N_BF16_VERIFY = 1024  # phase 3's bf16 B=256 output: its first steps verified
 # (T, B, D, H) of the LSTM checks: small, then the two tier LSTMs of the
 # training path (2048 samples a window, frames of 16 and 8, B=32, H=256)
 LSTM_SHAPES = ((12, 4, 8, 16), (128, 32, 256, 256), (256, 32, 256, 256))
+# the bf16 LSTM kernels against their bf16 twin: every output and gradient
+# within BF16_LSTM_ULPS bf16 ulps of its scale, and at most BF16_LSTM_SHARE
+# (the small case; the tier shapes) of a case's elements different.  The two
+# round the same values; an f32 sum in another order flips a rounding now and
+# then, and a flipped h feeds the later steps, more of them the longer and
+# wider the layer.  Set between the correct kernels (at most 0.17 % small,
+# 18.7 % at the tier shapes; the twin on the CPU against the twin on the card
+# 20.1 %) and a control that skips the rounding of h and dz (at least 33.7 %
+# small, 34.1 % at the tier shapes), from tools/bf16_lstm_check_power.py
+BF16_LSTM_ULPS, BF16_LSTM_SHARE = 2.0, (0.01, 0.25)
 TRAIN_B, TRAIN_LEN, TRAIN_EPOCHS, TRAIN_STEPS = 32, 2048, 4, 8
 # WaveNet-10 of benchmarks/bench_decode.py:91-101 (10 kernel-2 layers, dilations
 # 1..512, rf 1,024, dims 128, q 256, a two-layer Mish head of 128), and a
@@ -565,7 +587,8 @@ def bench(torch, mmk, sd, fl):
         med, spr = spread(ms)
         log(f"  decode_chunk B=256 steps={net._CHUNK} group={g}: {med:.3f} ms"
             f" (median of 3, spread {spr:.3%})")
-    lstm_timings(torch, fl)
+    lstm_timings(torch, fl, torch.float32)
+    lstm_timings(torch, fl, torch.bfloat16)
     train_path(torch, mmk, fl, sd, None)
 
 
@@ -1901,16 +1924,23 @@ def lstm_kernel_layer(torch, fl, args, cts):
     return tuple(o.detach() for o in out), torch.autograd.grad(out, ins, cts)
 
 
-def lstm_plain_layer(torch, fl, args, cts):
-    """The same layer through the plain versions, on the same inputs."""
+def lstm_plain_layer(torch, fl, args, cts, forward=None, backward=None):
+    """The same layer through the plain versions (or ``forward`` and
+    ``backward`` in their place), on the same inputs: on bf16 streams the
+    products outside the kernels take the bf16 values in f32 and round once,
+    as ``_FusedLSTMLayer`` does."""
+    forward = forward or fl.lstm_forward_plain
+    backward = backward or fl.lstm_backward_plain
     x, Wi, Wh, b, h0, c0 = args
     T, B, D = x.shape
-    xi = torch.addmm(b, x.reshape(T * B, D), Wi).reshape(T, B, -1)
-    h_all, c_all, gates = fl.lstm_forward_plain(xi, Wh, h0, c0)
-    dxi, dWh, dh0, dc0 = fl.lstm_backward_plain(*cts, gates, c_all, h_all, h0, c0, Wh)
-    d2 = dxi.reshape(T * B, -1)
-    grads = ((d2 @ Wi.t()).reshape(T, B, D), x.reshape(T * B, D).t() @ d2, dWh, d2.sum(0),
-             dh0, dc0)
+    dt = x.dtype
+    x2 = x.reshape(T * B, D).float()
+    xi = torch.addmm(b.float(), x2, Wi.float()).to(dt).reshape(T, B, -1)
+    h_all, c_all, gates = forward(xi, Wh, h0, c0)
+    dxi, dWh, dh0, dc0 = backward(*cts, gates, c_all, h_all, h0, c0, Wh)
+    d2 = dxi.reshape(T * B, -1).float()
+    grads = ((d2 @ Wi.float().t()).to(dt).reshape(T, B, D), (x2.t() @ d2).to(dt), dWh,
+             d2.sum(0).to(dt), dh0, dc0)
     return (h_all, h_all[-1], c_all[-1]), grads
 
 
@@ -1940,6 +1970,90 @@ def check_lstm(torch, fl, shapes):
         log(f"  fused LSTM layer (T, B, H) = ({T}, {B}, {H}): ok, max |error| outputs"
             f" {max(fwd):.3e}, gradients {max(bwd):.3e}"
             f" (dx, dWi, dWh, db, dh0, dc0: {', '.join(f'{e:.2e}' for e in bwd)})")
+    return err
+
+
+LSTM_NAMES = ("h_all", "h_T", "c_T", "dx", "dWi", "dWh", "db", "dh0", "dc0")
+
+
+def bf16_ulps(k, p):
+    """(max |k - p| in bf16 ulps of p's scale, elements that differ): the
+    ulp of the scale s = max|p| is 2^(floor(log2 s) - 7)."""
+    k, p = k.float(), p.float()
+    scale = float(p.abs().max())
+    ulp = 2.0 ** (np.floor(np.log2(scale)) - 7) if scale > 0 else 2.0 ** -133
+    return float((k - p).abs().max()) / ulp, int((k != p).sum())
+
+
+def unrounded(torch, kernel):
+    """``kernel`` (an LSTM wrapper) as the f32 instantiation on the bf16
+    streams' values, its outputs rounded to bf16 where stored: a kernel that
+    skips the rounding of h and dz, the control of the bf16 check."""
+    def run(*streams):
+        return tuple(o.to(torch.bfloat16) for o in kernel(*(v.float() for v in streams)))
+    return run
+
+
+def lstm_bf16_gaps(torch, fl, args, cts, control=False):
+    """The bf16 layer through the kernels (with ``control``, through
+    ``unrounded`` kernels) against its bf16 twin on the same inputs:
+    {tensor: (ulps, differing elements, elements)} for the three outputs and
+    the six gradients, the kernels' (outputs, gradients) and the twin's."""
+    if control:
+        with uncounted(fl.lstm_forward, fl.lstm_backward):
+            k_out, k_grads = lstm_plain_layer(torch, fl, args, cts,
+                                              unrounded(torch, fl.lstm_forward),
+                                              unrounded(torch, fl.lstm_backward))
+    else:
+        k_out, k_grads = lstm_kernel_layer(torch, fl, args, cts)
+    torch.cuda.synchronize()
+    p_out, p_grads = lstm_plain_layer(torch, fl, args, cts)
+    gaps = {n: (*bf16_ulps(k, p), p.numel())
+            for n, k, p in zip(LSTM_NAMES, (*k_out, *k_grads), (*p_out, *p_grads))}
+    return gaps, (k_out, k_grads), (p_out, p_grads)
+
+
+def bf16_lstm_verdict(gaps, share_limit):
+    """Raise unless every tensor lies within BF16_LSTM_ULPS ulps of its scale
+    and at most ``share_limit`` of the case's elements differ; returns
+    (largest ulps, share of elements that differ)."""
+    worst = max(g[0] for g in gaps.values())
+    share = sum(g[1] for g in gaps.values()) / sum(g[2] for g in gaps.values())
+    over = [n for n, g in gaps.items() if g[0] > BF16_LSTM_ULPS]
+    if over or share > share_limit:
+        raise AssertionError(f"{over or 'no tensor'} beyond {BF16_LSTM_ULPS} ulps (largest"
+                             f" {worst:.3f}); {share:.3%} of the elements differ (limit"
+                             f" {share_limit:.0%})")
+    return worst, share
+
+
+def lstm_bf16_inputs(torch, T, B, D, H, seed):
+    args, cts = lstm_inputs(torch, T, B, D, H, seed)
+    return (tuple(a.to(torch.bfloat16) for a in args),
+            tuple(c.to(torch.bfloat16) for c in cts))
+
+
+def check_lstm_bf16(torch, fl, shapes, share_limit, seeds=(0,)):
+    """Phase 2 for the bf16 instantiation: the layer through the bf16 kernels
+    against its bf16 twin (``bf16_lstm_verdict``), each shape at each input
+    seed, then the control (``unrounded`` kernels) on the same inputs, which
+    the check must refuse.  Returns {wrapper_bf16: largest abs error}."""
+    err = {"lstm_forward_bf16": 0.0, "lstm_backward_bf16": 0.0}
+    for (T, B, D, H), seed in itertools.product(shapes, seeds):
+        args, cts = lstm_bf16_inputs(torch, T, B, D, H, seed=T + H + 1 + seed)
+        gaps, (k_out, k_grads), (p_out, p_grads) = lstm_bf16_gaps(torch, fl, args, cts)
+        worst, share = bf16_lstm_verdict(gaps, share_limit)
+        for key, ks, ps in (("lstm_forward_bf16", k_out, p_out),
+                            ("lstm_backward_bf16", k_grads, p_grads)):
+            err[key] = max(err[key], *(float((k.float() - p.float()).abs().max())
+                                       for k, p in zip(ks, ps)))
+        log(f"  fused LSTM layer bf16 (T, B, H) = ({T}, {B}, {H}) seed {seed}: ok, largest gap"
+            f" {worst:.3f}"
+            f" bf16 ulps of a tensor's scale, {share:.3%} of the elements differ"
+            f" ({', '.join(f'{n} {g[0]:.2f}' for n, g in gaps.items())})")
+        bad, _, _ = lstm_bf16_gaps(torch, fl, args, cts, control=True)
+        expect_caught(f"fused LSTM layer bf16 ({T}, {B}, {H}) seed {seed}",
+                      lambda: bf16_lstm_verdict(bad, share_limit))
     return err
 
 
@@ -1974,36 +2088,43 @@ def check_train_step(torch, mmk):
         f" {lp:.7f}, max |grad error| {worst:.3e} over {len(gp)} parameters")
 
 
-def lstm_bound(T, B, H, backward):
-    """(bound_ms, bound_by) of one forward or backward call: f32 operations
-    (recurrent products, the xi add and ~10 (forward) or ~20 (backward)
-    elementwise operations a hidden unit) over the card's f32 rate, against
-    each input read once and each output written once over its memory rate.
-    The chain of T dependent steps is not in the bound."""
+def lstm_bound(T, B, H, backward, esize=4):
+    """(bound_ms, bound_by) of one forward or backward call on ``esize``-byte
+    streams: operations (recurrent products, the xi add and ~10 (forward) or
+    ~20 (backward) elementwise operations a hidden unit) over the card's rate
+    for the streams' type (f32 on the CUDA cores; bf16 on the tensor cores),
+    against each input read once and each output written once over its
+    memory rate.  The chain of T dependent steps is not in the bound."""
     H4 = 4 * H
     if not backward:
         flops = 2 * T * B * H * H4 + T * B * H4 + 10 * T * B * H
-        nbytes = 4 * (T * B * H4 + H * H4 + 2 * B * H + 2 * T * B * H + T * B * H4)
+        nbytes = esize * (T * B * H4 + H * H4 + 2 * B * H + 2 * T * B * H + T * B * H4)
     else:
         flops = 2 * (2 * T * B * H4 * H) + 20 * T * B * H
-        nbytes = 4 * (3 * T * B * H + T * B * H4 + 4 * B * H + H * H4
-                      + T * B * H4 + H * H4 + 2 * B * H)
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+        nbytes = esize * (3 * T * B * H + T * B * H4 + 4 * B * H + H * H4
+                          + T * B * H4 + H * H4 + 2 * B * H)
+    peak = PEAK_F32_FLOPS if esize == 4 else PEAK_BF16_FLOPS
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def lstm_timings(torch, fl):
-    """Per tier shape of the training path: kernel, plain twin and cuDNN
-    ``nn.LSTM`` (the yardstick; the port never calls it) ms for the forward
-    and for the backward (cuDNN: forward + backward)."""
+def lstm_timings(torch, fl, dtype):
+    """Per tier shape of the training path, on ``dtype`` streams: kernel,
+    plain twin and cuDNN ``nn.LSTM`` in the same dtype (the yardstick; the
+    port never calls it) ms for the forward and for the backward (cuDNN:
+    forward + backward; None where cuDNN refuses the dtype).  The rows' names
+    end in ``_bf16`` on bf16 streams."""
     out = {}
+    sfx = "_bf16" if dtype == torch.bfloat16 else ""
     for T, B, D, H in LSTM_SHAPES[1:]:
         args, cts = lstm_inputs(torch, T, B, D, H, seed=T)
-        x, Wi, Wh, b, h0, c0 = args
-        xi = torch.addmm(b, x.reshape(T * B, D), Wi).reshape(T, B, -1)
+        x, Wi, Wh, b, h0, c0 = (a.to(dtype) for a in args)
+        cts = tuple(c.to(dtype) for c in cts)
+        xi = torch.addmm(b.float(), x.reshape(T * B, D).float(), Wi.float()).to(dtype)
+        xi = xi.reshape(T, B, -1)
         h_all, c_all, gates = fl.lstm_forward(xi, Wh, h0, c0)
         bw = (*cts, gates, c_all, h_all, h0, c0, Wh)
-        ref = torch.nn.LSTM(D, H).cuda()
+        ref = torch.nn.LSTM(D, H).cuda().to(dtype)
         xr = x.clone().requires_grad_()
         hc = (h0[None], c0[None])
 
@@ -2018,16 +2139,23 @@ def lstm_timings(torch, fl):
             ("lstm_backward", lambda: fl.lstm_backward(*bw),
              lambda: fl.lstm_backward_plain(*bw), cudnn_fb),
         ):
-            kern(), lib()
+            kern()
             k_ms, k_spr = spread(cuda_ms(torch, kern, reps=5))
             p_ms = cuda_ms(torch, plain, reps=1)[0]
-            l_ms, _ = spread(cuda_ms(torch, lib, reps=5))
-            bound, by = lstm_bound(T, B, H, name == "lstm_backward")
-            row[name] = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=bound, bound_by=by)
-            log(f"  {name} (T, B, H) = ({T}, {B}, {H}): kernel {k_ms:.4f} ms (median of 5,"
-                f" spread {k_spr:.2%}), plain twin {p_ms:.3f} ms, cuDNN nn.LSTM"
-                f" {'forward' if name == 'lstm_forward' else 'forward+backward'} {l_ms:.4f} ms,"
-                f" bound {bound:.4f} ms by {by}")
+            what = "forward" if name == "lstm_forward" else "forward+backward"
+            try:  # the yardstick may refuse a dtype; the port never calls it
+                lib()
+            except RuntimeError as e:
+                l_ms, lib_line = None, f"cuDNN nn.LSTM refuses {dtype}: {str(e)[:120]}"
+            else:
+                l_ms = spread(cuda_ms(torch, lib, reps=5))[0]
+                lib_line = f"cuDNN nn.LSTM {what} {l_ms:.4f} ms"
+            bound, by = lstm_bound(T, B, H, name == "lstm_backward", x.element_size())
+            row[name + sfx] = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=bound,
+                                   bound_by=by)
+            log(f"  {name + sfx} (T, B, H) = ({T}, {B}, {H}): kernel {k_ms:.4f} ms (median of"
+                f" 5, spread {k_spr:.2%}), plain twin {p_ms:.3f} ms, {lib_line}, bound"
+                f" {bound:.4f} ms by {by}")
         out[T] = row
     return out
 
@@ -2094,7 +2222,15 @@ def train_path(torch, mmk, fl, sd, mu):
     if min(launches.values()) == 0:
         raise AssertionError(f"a kernel of the training path was never launched: {launches}")
 
-    # the train step, as the loop runs it (gather + step), over TBPTT chunks
+    time_steps(torch, loop, "")
+    bf16_launches = train_bf16_path(torch, mmk, fl, ds, cfg, means)
+    return {**launches, **mu_launches, **bf16_launches}
+
+
+def time_steps(torch, loop, label):
+    """The train step as the loop runs it (gather + step) over TBPTT chunks:
+    median of 3 windows of TRAIN_STEPS steps (CUDA events), then one window
+    profiled; the median goes to SUMMARY["train_step{label}_ms"]."""
     def window():
         hidden = None
         for k, (inputs, targets) in enumerate(loop._batches()):
@@ -2105,11 +2241,59 @@ def train_path(torch, mmk, fl, sd, mu):
     window()
     ms = [w / TRAIN_STEPS for w in cuda_ms(torch, window, reps=3)]
     med, spr = spread(ms)
-    log(f"  train step B={TRAIN_B} x {TRAIN_LEN}: {TRAIN_B * TRAIN_LEN / (med / 1e3):.6g}"
+    SUMMARY[f"train_step{label}_ms"] = med
+    log(f"  train step{label} B={TRAIN_B} x {TRAIN_LEN}: {TRAIN_B * TRAIN_LEN / (med / 1e3):.6g}"
         f" samples/s (median of 3 windows of {TRAIN_STEPS} steps: {med:.4f} ms/step,"
         f" spread {spr:.3%}; {ms})")
     profile_steps(torch, window)
-    return {**launches, **mu_launches}
+
+
+def train_bf16_path(torch, mmk, fl, ds, cfg32, means32):
+    """Phase 4 under ``trainer_kwargs={"param_dtype": "bfloat16"}``: the same
+    net, data_seed, epochs and steps as the f32 run.  Every master parameter
+    and the optimizer state stay f32; every LSTM call is the bf16
+    instantiation (no f32 K3 launch in the run); the epoch mean losses are
+    finite and falling, the last within max(10 %, 5e-3) of the f32 run's (the
+    JAX package's criterion, tests/test_precision.py:193-205); the step is
+    timed and profiled beside the f32 one.  Returns the bf16 launches."""
+    db = ds.get(mode="r")
+    net = train_net(mmk, seed=0, extractor=ds.extractors[0])
+    cfg = copy.deepcopy(cfg32)
+    cfg.root_dir = os.path.join(os.path.dirname(cfg32.root_dir), "tr_bf16")
+    cfg.trainer_kwargs = {**cfg32.trainer_kwargs, "param_dtype": "bfloat16"}
+    loop = mmk.TrainARMLoop.from_config(cfg, db, net)
+    for w in (fl.lstm_forward, fl.lstm_backward):
+        w.launches = w.launches_bf16 = 0
+    t0 = time.perf_counter()
+    loop.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    means = [h["loss"] for _, h in loop.metrics.history]
+    if len(means) != TRAIN_EPOCHS or not all(np.isfinite(means)) or not means[-1] < means[0]:
+        raise AssertionError(f"bf16 epoch mean losses {means}: not finite and falling")
+    limit = max(0.1 * abs(means32[-1]), 5e-3)
+    if not abs(means[-1] - means32[-1]) <= limit:
+        raise AssertionError(f"bf16 last epoch mean loss {means[-1]} is not within {limit:.4g}"
+                             f" of the f32 run's {means32[-1]}")
+    kinds = {p.dtype for p in net.parameters()} | {
+        v.dtype for st in loop.opt.adam.state.values() for v in st.values()
+        if isinstance(v, torch.Tensor) and v.is_floating_point()}
+    if kinds != {torch.float32}:
+        raise AssertionError(f"bf16 training: master parameters or optimizer state in {kinds}")
+    launches = {"lstm_forward_bf16": fl.lstm_forward.launches_bf16,
+                "lstm_backward_bf16": fl.lstm_backward.launches_bf16}
+    f32 = fl.lstm_forward.launches + fl.lstm_backward.launches
+    log(f"  TrainARMLoop (param_dtype=bfloat16): {loop.global_step} steps over {TRAIN_EPOCHS}"
+        f" epochs in {wall:.2f} s; epoch mean losses {means} (f32 run: {means32}; last within"
+        f" {abs(means[-1] - means32[-1]):.4g} of it, limit {limit:.4g}); master parameters and"
+        f" optimizer state f32; launches {launches}, f32 K3 launches {f32}")
+    if f32 or min(launches.values()) == 0:
+        raise AssertionError(f"the bf16 training path did not run only the bf16 K3: {launches},"
+                             f" {f32} f32 launches")
+    time_steps(torch, loop, "_bf16")
+    versus(f"SampleRNN-3 train step B={TRAIN_B} x {TRAIN_LEN}", "train_step_bf16_ms",
+           "train_step_ms", "ms")
+    return launches
 
 
 def profile_steps(torch, window):
@@ -2223,6 +2407,7 @@ def main(argv=None) -> int:
                              bf16=True, control=True))
     stamp("SampleRNN decode, small, f32 and bf16")
     err.update(check_lstm(torch, fl, LSTM_SHAPES[:1]))
+    err.update(check_lstm_bf16(torch, fl, LSTM_SHAPES[:1], BF16_LSTM_SHARE[0], seeds=range(4)))
     err.update(check_wavenet(torch, mmk, wd, WN_SMALL, WN_SMALL_B, 40, 300, (300 + 15, 7, 64),
                              jitter=0.3))
     err.update(check_categorical(torch, cat))
@@ -2248,6 +2433,7 @@ def main(argv=None) -> int:
                                   jitter=0.0, bf16=True))
     stamp("SampleRNN decode, full width, bf16")
     err_full.update(check_lstm(torch, fl, LSTM_SHAPES[1:]))
+    err_full.update(check_lstm_bf16(torch, fl, LSTM_SHAPES[1:], BF16_LSTM_SHARE[1]))
     err_full.update(check_wavenet(torch, mmk, wd, WN_FULL, WN_SMALL_B, 256, 512, (1543, 700),
                                   jitter=0.0))
     stamp("LSTM and WaveNet, full width")
@@ -2338,9 +2524,11 @@ def main(argv=None) -> int:
             launches=launches[name], max_abs_err=err[name], ms=k_ms, plain_ms=p_ms,
             bound_ms=bound, bound_by=by, library_ms=None,
         ))
-    # the LSTM rows at the wider tier shape, (T, B, H) = (256, 32, 256)
-    lstm = lstm_timings(torch, fl)[LSTM_SHAPES[-1][0]]
-    for name, line in (("lstm_forward", 111), ("lstm_backward", 197)):
+    # the LSTM rows at the wider tier shape, (T, B, H) = (256, 32, 256), f32 and bf16
+    lstm = {**lstm_timings(torch, fl, torch.float32)[LSTM_SHAPES[-1][0]],
+            **lstm_timings(torch, fl, torch.bfloat16)[LSTM_SHAPES[-1][0]]}
+    for name, line in (("lstm_forward", 111), ("lstm_backward", 197),
+                       ("lstm_forward_bf16", 111), ("lstm_backward_bf16", 197)):
         rows.append(dict(
             name=name, route="cuda", source="mimikit_tpu_torch/csrc/fused_lstm.cu",
             replaces=f"mimikit_tpu/ops/pallas_lstm.py:{line}",

@@ -13,13 +13,34 @@ the steps are a plain Python loop.
 
 ``trainer_kwargs`` keys the port runs: ``device_batching`` (default True),
 ``data_seed``, ``gradient_clip_val``, ``accumulate_grad_batches``,
-``nan_check_every``.  Every other key raises ``NotImplementedError`` naming
-it (``param_dtype``, ``remat``, ``matmul_precision``, ``data_parallel``,
-``n_model``, ``fsdp``, ``loss_logs_file``, ...), as do ``MONITOR_TRAINING``
-and ``OUTPUT_TRAINING``, which need ``GenerateLoopV2`` (not ported).
+``nan_check_every``, and
+
+* ``param_dtype`` (``"bfloat16"``, ``"float16"``, ``"float32"``): the mixed-
+  precision policy of ``mimikit_tpu/loops/train_loops.py:394-408``.  The
+  master parameters and the optimizer state stay f32; each step casts the
+  parameters, the float inputs and the carry to the policy's dtype
+  (``precision.cast_parameters``, ``torch.func.functional_call``), runs the
+  forward inside ``precision.compute``, casts the outputs and the new carry
+  to f32, takes the loss in f32 and steps the f32 masters with the
+  gradients that come back through the casts.  SampleRNN's LSTM tiers then
+  run the bf16-stream LSTM kernels;
+* ``matmul_precision``: JAX's matmul precision names mapped to
+  ``torch.set_float32_matmul_precision`` for each step (``"float32"`` /
+  ``"highest"``: full f32; ``"tensorfloat32"`` / ``"high"`` /
+  ``"bfloat16_3x"``: TF32; ``"bfloat16"`` / ``"default"`` / ``"fastest"``:
+  ``"medium"``), the previous value restored after the step;
+* ``steps_per_dispatch`` and ``flat_optimizer``: accepted and ignored.  They
+  group TPU dispatches and lay out the optimizer state for XLA
+  (``train_loops.py:568,788``); the port's loop runs one step a call.
+
+Every other key raises ``NotImplementedError`` naming it (``remat``,
+``data_parallel``, ``n_model``, ``fsdp``, ``loss_logs_file``, ...), as do
+``MONITOR_TRAINING`` and ``OUTPUT_TRAINING``, which need ``GenerateLoopV2``
+(not ported).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses as dtc
 import hashlib
 import os
@@ -28,7 +49,9 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.func import functional_call
 
+from .. import precision
 from ..config import Config
 from ..features.dataset import DatasetConfig
 from ..networks.arm import ARMWithHidden
@@ -41,8 +64,15 @@ __all__ = ["TrainARMConfig", "ARMHP", "TrainARMLoop"]
 
 PORTED_TRAINER_KWARGS = frozenset({
     "device_batching", "data_seed", "gradient_clip_val", "accumulate_grad_batches",
-    "nan_check_every",
+    "nan_check_every", "param_dtype", "matmul_precision", "steps_per_dispatch",
+    "flat_optimizer",
 })
+# JAX's matmul precision names -> torch.set_float32_matmul_precision's
+MATMUL_PRECISION = {
+    "float32": "highest", "highest": "highest",
+    "tensorfloat32": "high", "high": "high", "bfloat16_3x": "high",
+    "bfloat16": "medium", "default": "medium", "fastest": "medium",
+}
 
 
 @dtc.dataclass
@@ -94,6 +124,24 @@ def _check_ported(cfg: TrainARMConfig) -> None:
             "MONITOR_TRAINING and OUTPUT_TRAINING need GenerateLoopV2, which is not"
             " ported: set MONITOR_TRAINING=False and OUTPUT_TRAINING=''"
         )
+    name = cfg.trainer_kwargs.get("matmul_precision")
+    if name is not None and str(name).lower() not in MATMUL_PRECISION:
+        raise ValueError(f"unknown matmul_precision {name!r}")
+
+
+@contextlib.contextmanager
+def matmul_precision(name: Optional[str]):
+    """``torch.set_float32_matmul_precision`` for JAX's precision ``name``
+    inside the block (nothing for None), the previous value restored."""
+    if name is None:
+        yield
+        return
+    previous = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision(MATMUL_PRECISION[str(name).lower()])
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(previous)
 
 
 def _detach(tree):
@@ -196,6 +244,7 @@ class TrainARMLoop:
         self.loss_fn = loss_fn
         self.net = net
         self._carries_hidden = isinstance(net, ARMWithHidden)
+        self.half = precision.resolve_dtype(self.train_cfg.trainer_kwargs.get("param_dtype"))
         self.tbptt_len = self.train_cfg.tbptt_chunk_length
         if self.tbptt_len is not None:
             self.tbptt_len //= self.train_cfg.batch_length
@@ -221,20 +270,38 @@ class TrainARMLoop:
             yield (tuple(torch.as_tensor(x).to(dev) for x in inputs),
                    tuple(torch.as_tensor(x).to(dev) for x in targets))
 
-    def train_step(self, inputs, targets, hidden):
-        """One step: forward from the (detached) carry ``hidden``, loss,
-        backward, optimizer update.  Returns the detached loss dict and the
-        detached new carry.  A net without a hidden carry (not an
-        ``ARMWithHidden``: WaveNet, SimpleTransformer, JukeBox) is called
-        without one and carries None, as the JAX loop's uniform
-        ``apply_train`` gets None back from them."""
+    def _apply_train(self, inputs, hidden):
+        """The train forward: (outputs, new carry).  A net without a hidden
+        carry (not an ``ARMWithHidden``: WaveNet, SimpleTransformer, JukeBox)
+        is called without one and carries None, as the JAX loop's uniform
+        ``apply_train`` gets None back from them.  Under ``param_dtype`` the
+        parameters, float inputs and carry are cast to the policy's dtype,
+        the forward runs inside ``precision.compute``, and the outputs and the
+        new carry come back in f32 (``train_loops.py:397-408``)."""
+        if self.half is None:
+            if self._carries_hidden:
+                return self.net(inputs, hidden)
+            return self.net(inputs), None
+        params = precision.cast_parameters(self.net, self.half)
+        args = (precision.cast_tree(inputs, self.half),)
         if self._carries_hidden:
-            outputs, new_hidden = self.net(inputs, hidden)
-        else:
-            outputs, new_hidden = self.net(inputs), None
-        d = self.loss_fn(outputs, targets)
-        d["loss"].backward()
-        self.opt.step()
+            args += (precision.cast_tree(hidden, self.half),)
+        with precision.compute(self.half):
+            out = functional_call(self.net, params, args)
+        outputs, new_hidden = out if self._carries_hidden else (out, None)
+        return (precision.cast_tree(outputs, torch.float32),
+                precision.cast_tree(new_hidden, torch.float32))
+
+    def train_step(self, inputs, targets, hidden):
+        """One step: forward from the (detached) carry ``hidden``, loss (in
+        f32), backward, optimizer update of the f32 parameters, under the
+        step's ``matmul_precision``.  Returns the detached loss dict and the
+        detached new carry."""
+        with matmul_precision(self.train_cfg.trainer_kwargs.get("matmul_precision")):
+            outputs, new_hidden = self._apply_train(inputs, hidden)
+            d = self.loss_fn(outputs, targets)
+            d["loss"].backward()
+            self.opt.step()
         return {k: v.detach() for k, v in d.items()}, _detach(new_hidden)
 
     def run(self) -> "TrainARMLoop":

@@ -48,17 +48,19 @@ def init_rnn_carry(
     init: str = "zeros",
     device=None,
     generator: Optional[torch.Generator] = None,
+    dtype: torch.dtype = torch.float32,
 ) -> Tuple:
-    """Initial carry: 'zeros' | 'ones' | 'randn' (the reference's ``h0_init``)."""
+    """Initial carry: 'zeros' | 'ones' | 'randn' (the reference's ``h0_init``),
+    in ``dtype``."""
 
     def one():
         shape = (batch_size, hidden_dim)
         if init == "zeros":
-            return torch.zeros(shape, device=device)
+            return torch.zeros(shape, device=device, dtype=dtype)
         if init == "ones":
-            return torch.ones(shape, device=device)
+            return torch.ones(shape, device=device, dtype=dtype)
         if init == "randn":
-            return torch.randn(shape, generator=generator).to(device)
+            return torch.randn(shape, generator=generator).to(device, dtype)
         raise ValueError(init)
 
     return tuple((one(), one()) for _ in range(n_layers))
@@ -111,16 +113,21 @@ class LSTM(nn.Module):
 
     def forward_seq(self, x, carry=None):
         """x: (B, T, H) -> (y (B, T, H), new_carry), each layer through the
-        fused LSTM layer (kernels on CUDA, plain versions on the CPU)."""
+        fused LSTM layer (kernels on CUDA, plain versions on the CPU).  The
+        default carry is made in x's dtype, and each layer's outputs and carry
+        come back in it (``mimikit_tpu/modules/rnn.py:172-177``): under a bf16
+        policy the rest of the net stays bf16."""
         if self.dropout > 0 and self.training:
             raise NotImplementedError("rnn_dropout is not ported")
-        B = x.shape[0]
+        B, dt = x.shape[0], x.dtype
         if carry is None:
-            carry = init_rnn_carry(self.num_layers, B, self.hidden_size, device=x.device)
+            carry = init_rnn_carry(self.num_layers, B, self.hidden_size, device=x.device,
+                                   dtype=dt)
         ys = x.transpose(0, 1)
         new_carry = []
         for k, (c0, h0) in enumerate(carry):
             w_ih, w_hh, b_ih, b_hh = self._layer(k)
             ys, h_T, c_T = fused_lstm_layer(ys, w_ih.t(), w_hh.t(), b_ih + b_hh, h0, c0)
-            new_carry.append((c_T, h_T))
+            ys = ys.to(dt)
+            new_carry.append((c_T.to(dt), h_T.to(dt)))
         return ys.transpose(0, 1), tuple(new_carry)

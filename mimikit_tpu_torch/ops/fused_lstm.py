@@ -20,7 +20,17 @@ the top of the ``.cu`` file.
 The wrappers' rule: a CPU tensor takes the plain version
 (:func:`lstm_forward_plain`, :func:`lstm_backward_plain`, step loops that
 mirror the kernels' arithmetic); a CUDA tensor launches the kernel or raises.
-Each wrapper counts its launches in ``.launches``.
+
+Stream types (``pallas_lstm.py:29-36,308``): float32, or bfloat16 for the
+``param_dtype="bfloat16"`` training policy.  Every stream of a call has one
+dtype, checked.  On bf16 streams the carries and the arithmetic stay f32;
+h (the stored h_all and the next product's input) and the backward's dz (the
+stored dxi and the input of ``dz @ Wh^T``) are rounded to bf16 once, and c,
+the gates, dh0, dc0 and dWh where they are stored.  The layer's products
+outside the kernels take the bf16 values in f32 and round their results
+once, as ``pallas_lstm.py:244-278`` does; a float16 layer runs the f32
+kernels and returns float16.  Each wrapper counts its f32 launches in
+``.launches`` and its bf16 ones in ``.launches_bf16``.
 """
 from __future__ import annotations
 
@@ -52,89 +62,113 @@ _MAX_CLUSTERS = 8  # groups of batch rows that run at once with room to spare
 
 # -- plain versions ---------------------------------------------------------------
 
+_STREAM_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _rounding(dtype: torch.dtype):
+    """f32 -> f32 rounded through ``dtype`` (the identity for float32)."""
+    if dtype == torch.float32:
+        return lambda v: v
+    return lambda v: v.to(dtype).float()
+
+
 def lstm_forward_plain(xi: torch.Tensor, Wh: torch.Tensor, h0: torch.Tensor,
                        c0: torch.Tensor):
     """The forward kernel's arithmetic as a PyTorch step loop
     (``pallas_lstm.py:95-109``).  xi (T, B, 4H); returns h_all, c_all
-    (T, B, H) and the post-activation gates (T, B, 4H)."""
+    (T, B, H) and the post-activation gates (T, B, 4H), in xi's dtype.  On
+    bf16 streams the arithmetic and the c carry are f32, the product takes the
+    rounded h (bf16 values multiplied in f32: exact products, f32 sums), and
+    h, c and the gates are rounded where stored."""
+    dt = xi.dtype
+    rnd = _rounding(dt)
     H = Wh.shape[0]
-    h, c = h0, c0
+    Wh = Wh.float()
+    h, c = h0.float(), c0.float()
     hs, cs, gs = [], [], []
     for t in range(xi.shape[0]):
-        z = xi[t] + h @ Wh
+        z = xi[t].float() + h @ Wh
         i = torch.sigmoid(z[:, :H])
         f = torch.sigmoid(z[:, H : 2 * H])
         g = torch.tanh(z[:, 2 * H : 3 * H])
         o = torch.sigmoid(z[:, 3 * H :])
         c = f * c + i * g
-        h = o * torch.tanh(c)
+        h = rnd(o * torch.tanh(c))
         hs.append(h)
         cs.append(c)
         gs.append(torch.cat([i, f, g, o], dim=1))
-    return torch.stack(hs), torch.stack(cs), torch.stack(gs)
+    return tuple(torch.stack(v).to(dt) for v in (hs, cs, gs))
 
 
 def lstm_backward_plain(dh_all, dh_T, dc_T, gates, c_all, h_all, h0, c0, Wh):
     """The backward kernel's arithmetic as a reverse-time PyTorch loop,
     written out as ``bwd_kernel`` is (``pallas_lstm.py:143-195``), with
-    ``dWh`` summed step by step.  Returns dxi (T, B, 4H), dWh (H, 4H), dh0,
-    dc0 (B, H)."""
+    ``dWh`` summed step by step in f32.  Returns dxi (T, B, 4H), dWh (H, 4H),
+    dh0, dc0 (B, H), in the streams' dtype.  On bf16 streams the dh and dc
+    carries are f32, dz is rounded to bf16 once (the stored dxi and the input
+    of ``dz @ Wh^T``), and dWh, dh0 and dc0 are rounded where stored."""
+    dt = gates.dtype
+    rnd = _rounding(dt)
     T, B, H = c_all.shape
-    dh_c, dc_c = dh_T, dc_T
+    Wh = Wh.float()
+    dh_c, dc_c = dh_T.float(), dc_T.float()
     dWh = torch.zeros_like(Wh)
-    dxi = torch.empty_like(gates)
+    dxi = torch.empty(gates.shape, dtype=torch.float32, device=gates.device)
     for t in range(T - 1, -1, -1):
-        dh = dh_all[t] + dh_c
-        i, f, g, o = gates[t].split(H, dim=1)
-        tc = torch.tanh(c_all[t])
+        dh = dh_all[t].float() + dh_c
+        i, f, g, o = gates[t].float().split(H, dim=1)
+        tc = torch.tanh(c_all[t].float())
         do = dh * tc
         dc = dc_c + dh * o * (1.0 - tc * tc)
-        c_prev = c_all[t - 1] if t > 0 else c0
-        dz = torch.cat([
+        c_prev = (c_all[t - 1] if t > 0 else c0).float()
+        dz = rnd(torch.cat([
             dc * g * i * (1.0 - i),
             dc * c_prev * f * (1.0 - f),
             dc * i * (1.0 - g * g),
             do * o * (1.0 - o),
-        ], dim=1)
+        ], dim=1))
         dxi[t] = dz
         dh_c = dz @ Wh.t()
         dc_c = dc * f
-        h_prev = h_all[t - 1] if t > 0 else h0
+        h_prev = (h_all[t - 1] if t > 0 else h0).float()
         dWh += h_prev.t() @ dz
-    return dxi, dWh, dh_c, dc_c
+    return tuple(v.to(dt) for v in (dxi, dWh, dh_c, dc_c))
 
 
 # -- the kernels: scope, build, bind, launch ------------------------------------------
 
-def _fwd_smem(H: int, rows: int) -> int:
-    """Bytes of shared memory of the forward kernel (``fwd_smem`` in the .cu)."""
+def _fwd_smem(H: int, rows: int, esize: int = 4) -> int:
+    """Bytes of shared memory of the forward kernel (``fwd_smem`` in the .cu)
+    for ``esize``-byte streams (the Wh slice's element; the rest is f32)."""
     U = H // CLUSTER
     NC = 4 * U
-    return 4 * (H * NC + rows * H + 2 * rows * U + (THREADS // NC) * rows * NC)
+    return esize * H * NC + 4 * (rows * H + 2 * rows * U + (THREADS // NC) * rows * NC)
 
 
-def _bwd_smem(H: int, rows: int) -> int:
+def _bwd_smem(H: int, rows: int, esize: int = 4) -> int:
     """Bytes of shared memory of the backward kernel (``bwd_smem`` in the .cu)."""
     U = H // CLUSTER
     NC = 4 * U
-    return 4 * (4 * H * U + rows * 4 * H + 2 * rows * NC + (THREADS // U) * rows * U)
+    return esize * 4 * H * U + 4 * (rows * 4 * H + 2 * rows * NC + (THREADS // U) * rows * U)
 
 
-def lstm_kernel_rows(B: int, H: int) -> int:
-    """Batch rows per cluster for the kernels at (B, H): the fewest that keep
-    the clusters to at most 8 (64 SMs), within the kernels' limits.  Raises
-    ``ValueError`` outside the scope: H must be a multiple of 8 and the Wh
-    slice plus buffers must fit a block's shared memory (up to H = 328)."""
+def lstm_kernel_rows(B: int, H: int, esize: int = 4) -> int:
+    """Batch rows per cluster for the kernels at (B, H) on ``esize``-byte
+    streams (4: f32, 2: bf16): the fewest that keep the clusters to at most
+    8 (64 SMs), within the kernels' limits.  Raises ``ValueError`` outside
+    the scope: H must be a multiple of 8 and the Wh slice plus buffers must
+    fit a block's shared memory (up to H = 328 in f32)."""
     if B < 1 or H < CLUSTER or H % CLUSTER:
         raise ValueError(f"the LSTM kernels need B >= 1 and H a multiple of 8, got B={B}, H={H}")
     U = H // CLUSTER
     fits = [
         r for r in _ROW_GROUPS
         if 4 * U <= THREADS and r * U <= THREADS
-        and max(_fwd_smem(H, r), _bwd_smem(H, r)) <= SMEM_PER_BLOCK
+        and max(_fwd_smem(H, r, esize), _bwd_smem(H, r, esize)) <= SMEM_PER_BLOCK
     ]
     if not fits:
-        raise ValueError(f"H={H} exceeds the LSTM kernels' shared-memory budget (H <= 328)")
+        raise ValueError(f"H={H} exceeds the LSTM kernels' shared-memory budget on"
+                         f" {esize}-byte streams (H <= 328 in f32)")
     for r in fits:
         if -(-B // r) <= _MAX_CLUSTERS:
             return r
@@ -169,33 +203,46 @@ def _library():
     if _Kernel.lib is None:
         lib = ctypes.CDLL(str(build_lstm_kernel()))
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.mmk_lstm_forward.argtypes = [p] * 7 + [i] * 4 + [p]
+        lib.mmk_lstm_forward.argtypes = [p] * 7 + [i] * 5 + [p]
         lib.mmk_lstm_forward.restype = i
-        lib.mmk_lstm_backward.argtypes = [p] * 14 + [i] * 5 + [p]
+        lib.mmk_lstm_backward.argtypes = [p] * 14 + [i] * 6 + [p]
         lib.mmk_lstm_backward.restype = i
         for fn in (lib.mmk_lstm_fwd_smem, lib.mmk_lstm_bwd_smem):
-            fn.argtypes = [i, i]
+            fn.argtypes = [i, i, i]
             fn.restype = ctypes.c_longlong
         lib.mmk_lstm_error_string.argtypes = [i]
         lib.mmk_lstm_error_string.restype = ctypes.c_char_p
-        for H, r in ((256, 4), (16, 1)):
-            if (lib.mmk_lstm_fwd_smem(H, r), lib.mmk_lstm_bwd_smem(H, r)) != (
-                _fwd_smem(H, r), _bwd_smem(H, r)
+        for H, r, es in ((256, 4, 4), (16, 1, 4), (256, 4, 2), (16, 1, 2)):
+            if (lib.mmk_lstm_fwd_smem(H, r, es), lib.mmk_lstm_bwd_smem(H, r, es)) != (
+                _fwd_smem(H, r, es), _bwd_smem(H, r, es)
             ):
                 raise RuntimeError("the LSTM kernels' shared-memory sizes differ between C and Python")
         _Kernel.lib = lib
     return _Kernel.lib
 
 
-def _check(x: torch.Tensor, name: str, shape, device):
+def _check(x: torch.Tensor, name: str, shape, device, dtype):
     if x.device != device:
         raise ValueError(f"{name} is on {x.device}, expected {device}")
-    if x.dtype != torch.float32:
-        raise ValueError(f"{name} has dtype {x.dtype}; the LSTM kernels take float32")
+    if x.dtype != dtype:
+        raise ValueError(f"{name} has dtype {x.dtype}; this call's streams are {dtype}")
     if tuple(x.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {tuple(shape)}")
     if not x.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def _stream_dtype(x: torch.Tensor) -> torch.dtype:
+    if x.dtype not in _STREAM_DTYPES:
+        raise ValueError(f"the LSTM kernels take float32 or bfloat16 streams, got {x.dtype}")
+    return x.dtype
+
+
+def _count(wrapper, dtype: torch.dtype):
+    if dtype == torch.bfloat16:
+        wrapper.launches_bf16 += 1
+    else:
+        wrapper.launches += 1
 
 
 def _raise_on(err: int, what: str):
@@ -205,67 +252,72 @@ def _raise_on(err: int, what: str):
 
 def lstm_forward(xi: torch.Tensor, Wh: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor):
     """K3a: the recurrence over xi (T, B, 4H) from (h0, c0) (B, H) with Wh
-    (H, 4H).  Returns h_all, c_all (T, B, H) and gates (T, B, 4H)."""
+    (H, 4H).  Returns h_all, c_all (T, B, H) and gates (T, B, 4H), in the
+    streams' dtype (float32 or bfloat16, one for all four inputs)."""
     if xi.device.type == "cpu":
         return lstm_forward_plain(xi, Wh, h0, c0)
     T, B, H4 = xi.shape
     H = Wh.shape[0]
-    dev = xi.device
-    rows = lstm_kernel_rows(B, H)
+    dev, dt = xi.device, _stream_dtype(xi)
+    rows = lstm_kernel_rows(B, H, xi.element_size())
     if T < 1 or H4 != 4 * H:
         raise ValueError(f"xi has shape {tuple(xi.shape)}, expected (T >= 1, B, {4 * H})")
     for x, name, shape in ((xi, "xi", (T, B, H4)), (Wh, "Wh", (H, H4)),
                            (h0, "h0", (B, H)), (c0, "c0", (B, H))):
-        _check(x, name, shape, dev)
+        _check(x, name, shape, dev, dt)
     lib = _library()
-    h_all = torch.empty(T, B, H, device=dev)
-    c_all = torch.empty(T, B, H, device=dev)
-    gates = torch.empty(T, B, H4, device=dev)
+    h_all = torch.empty(T, B, H, device=dev, dtype=dt)
+    c_all = torch.empty(T, B, H, device=dev, dtype=dt)
+    gates = torch.empty(T, B, H4, device=dev, dtype=dt)
     err = lib.mmk_lstm_forward(
         xi.data_ptr(), Wh.data_ptr(), h0.data_ptr(), c0.data_ptr(), h_all.data_ptr(),
-        c_all.data_ptr(), gates.data_ptr(), T, B, H, rows,
+        c_all.data_ptr(), gates.data_ptr(), T, B, H, rows, int(dt == torch.bfloat16),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(err, "LSTM forward kernel")
-    lstm_forward.launches += 1
+    _count(lstm_forward, dt)
     return h_all, c_all, gates
 
 
 def lstm_backward(dh_all, dh_T, dc_T, gates, c_all, h_all, h0, c0, Wh):
     """K3b: the reverse-time walk and dWh.  Returns dxi (T, B, 4H), dWh
-    (H, 4H), dh0 and dc0 (B, H)."""
+    (H, 4H), dh0 and dc0 (B, H), in the streams' dtype (one for all nine
+    inputs)."""
     if gates.device.type == "cpu":
         return lstm_backward_plain(dh_all, dh_T, dc_T, gates, c_all, h_all, h0, c0, Wh)
     T, B, H = c_all.shape
-    dev = gates.device
-    rows = lstm_kernel_rows(B, H)
+    dev, dt = gates.device, _stream_dtype(gates)
+    rows = lstm_kernel_rows(B, H, gates.element_size())
     for x, name, shape in (
         (dh_all, "dh_all", (T, B, H)), (dh_T, "dh_T", (B, H)), (dc_T, "dc_T", (B, H)),
         (gates, "gates", (T, B, 4 * H)), (c_all, "c_all", (T, B, H)),
         (h_all, "h_all", (T, B, H)), (h0, "h0", (B, H)), (c0, "c0", (B, H)),
         (Wh, "Wh", (H, 4 * H)),
     ):
-        _check(x, name, shape, dev)
+        _check(x, name, shape, dev, dt)
     lib = _library()
-    dxi = torch.empty(T, B, 4 * H, device=dev)
-    dWh = torch.empty(H, 4 * H, device=dev)
-    dh0 = torch.empty(B, H, device=dev)
-    dc0 = torch.empty(B, H, device=dev)
+    dxi = torch.empty(T, B, 4 * H, device=dev, dtype=dt)
+    dWh = torch.empty(H, 4 * H, device=dev, dtype=dt)
+    dh0 = torch.empty(B, H, device=dev, dtype=dt)
+    dc0 = torch.empty(B, H, device=dev, dtype=dt)
     splits = dwh_splits(T * B, H)
-    part = torch.empty(splits, H, 4 * H, device=dev) if splits > 1 else dWh
+    # f32 partial tiles; f32 with one split writes dWh directly
+    part = (torch.empty(splits, H, 4 * H, device=dev)
+            if splits > 1 or dt != torch.float32 else dWh)
     err = lib.mmk_lstm_backward(
         dh_all.data_ptr(), dh_T.data_ptr(), dc_T.data_ptr(), gates.data_ptr(),
         c_all.data_ptr(), h_all.data_ptr(), h0.data_ptr(), c0.data_ptr(), Wh.data_ptr(),
         dxi.data_ptr(), dWh.data_ptr(), part.data_ptr(), dh0.data_ptr(), dc0.data_ptr(),
-        T, B, H, rows, splits, torch.cuda.current_stream(dev).cuda_stream,
+        T, B, H, rows, splits, int(dt == torch.bfloat16),
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(err, "LSTM backward kernel")
-    lstm_backward.launches += 1
+    _count(lstm_backward, dt)
     return dxi, dWh, dh0, dc0
 
 
-lstm_forward.launches = 0
-lstm_backward.launches = 0
+lstm_forward.launches = lstm_forward.launches_bf16 = 0
+lstm_backward.launches = lstm_backward.launches_bf16 = 0
 
 
 # -- the layer ---------------------------------------------------------------------------
@@ -277,12 +329,18 @@ def _materialize(ct: Optional[torch.Tensor], like: torch.Tensor) -> torch.Tensor
 
 
 class _FusedLSTMLayer(torch.autograd.Function):
-    """The layer with the kernels' backward (``pallas_lstm.py:239-289``)."""
+    """The layer with the kernels' backward (``pallas_lstm.py:239-289``).
+    Its products outside the kernels take the streams' values in f32 and
+    round their results once to the streams' dtype (bf16: ``xi`` after the
+    bias, ``dx``, ``dWi`` and ``db``, as the Pallas layer's einsums with
+    ``preferred_element_type=f32`` do; f32: the plain products)."""
 
     @staticmethod
     def forward(ctx, x, Wi, Wh, b, h0, c0):
         T, B, D = x.shape
-        xi = torch.addmm(b, x.reshape(T * B, D), Wi).reshape(T, B, -1)
+        dt = x.dtype
+        xi = torch.addmm(b.float(), x.reshape(T * B, D).float(), Wi.float())
+        xi = xi.to(dt).reshape(T, B, -1)
         h_all, c_all, gates = lstm_forward(xi, Wh, h0, c0)
         ctx.save_for_backward(x, Wi, Wh, h0, c0, h_all, c_all, gates)
         ctx.set_materialize_grads(False)
@@ -292,15 +350,16 @@ class _FusedLSTMLayer(torch.autograd.Function):
     def backward(ctx, dh_all, dh_T, dc_T):
         x, Wi, Wh, h0, c0, h_all, c_all, gates = ctx.saved_tensors
         T, B, D = x.shape
+        dt = x.dtype
         dxi, dWh, dh0, dc0 = lstm_backward(
             _materialize(dh_all, h_all), _materialize(dh_T, h0), _materialize(dc_T, c0),
             gates, c_all, h_all, h0, c0, Wh,
         )
-        dxi2 = dxi.reshape(T * B, -1)
+        dxi2 = dxi.reshape(T * B, -1).float()
         need = ctx.needs_input_grad
-        dx = (dxi2 @ Wi.t()).reshape(T, B, D) if need[0] else None
-        dWi = x.reshape(T * B, D).t() @ dxi2 if need[1] else None
-        db = dxi2.sum(0) if need[3] else None
+        dx = (dxi2 @ Wi.float().t()).to(dt).reshape(T, B, D) if need[0] else None
+        dWi = (x.reshape(T * B, D).float().t() @ dxi2).to(dt) if need[1] else None
+        db = dxi2.sum(0).to(dt) if need[3] else None
         return dx, dWi, dWh, db, dh0, dc0
 
 
@@ -310,9 +369,18 @@ def fused_lstm_layer(x: torch.Tensor, Wi: torch.Tensor, Wh: torch.Tensor, b: tor
     (H, 4H), b (4H,) in gate order i|f|g|o; h0, c0 (B, H).  Returns
     ``(h_all (T, B, H), h_T, c_T)``, differentiable in every argument.  On
     CUDA tensors the kernels run, or the call raises (outside their scope:
-    see :func:`lstm_kernel_rows`); on CPU tensors the plain versions run."""
+    see :func:`lstm_kernel_rows`); on CPU tensors the plain versions run.
+
+    The dtype follows ``x`` (``pallas_lstm.py:308``): bfloat16 runs the
+    bf16-stream kernels; any other dtype runs the f32 kernels, and a float16
+    ``x`` gets float16 outputs back.  Every argument is cast to the layer's
+    dtype."""
     if x.dim() != 3 or Wh.dim() != 2 or Wh.shape[1] != 4 * Wh.shape[0]:
         raise ValueError(f"bad shapes: x {tuple(x.shape)}, Wh {tuple(Wh.shape)}")
-    return _FusedLSTMLayer.apply(
-        x.contiguous(), Wi, Wh.contiguous(), b, h0.contiguous(), c0.contiguous()
+    dt = torch.bfloat16 if x.dtype == torch.bfloat16 else torch.float32
+    out = _FusedLSTMLayer.apply(
+        *(a.to(dt).contiguous() for a in (x, Wi, Wh, b, h0, c0))
     )
+    if x.dtype == torch.float16:
+        return tuple(o.to(x.dtype) for o in out)
+    return out

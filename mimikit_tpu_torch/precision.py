@@ -1,17 +1,29 @@
 """Mixed-precision policy: the compute dtype and the casts that follow it.
 
-Counterpart of the serving half of ``mimikit_tpu/precision.py``, on torch
-dtypes.  :func:`compute` sets, for the code in its block, the dtype that
-modules creating float tensors from non-float inputs (the class-index
+Counterpart of ``mimikit_tpu/precision.py``, on torch dtypes.
+:func:`compute` sets, for the code in its block, the dtype that modules
+creating float tensors from non-float inputs (the class-index
 ``Linearizer``, the positional-encoding tables) produce, read through
 :func:`compute_dtype`; everything else follows its inputs' and parameters'
-dtypes.  :func:`cast_floats` gives a copy of a module, or of a dict of
-tensors, with every floating tensor cast.
+dtypes.
 
-Used by the bf16 window re-feed (``MMK_DECODE_BF16=1``,
-``networks/transformers.py``): a bf16 copy of the net, its forward inside
-``compute(torch.bfloat16)``.  The loss barrier of the JAX module
-(``loss_barrier``) pins one XLA materialization and has no counterpart here.
+Serving: :func:`cast_floats` gives a copy of a module, or of a dict of
+tensors, with every floating tensor cast (the bf16 window re-feed,
+``MMK_DECODE_BF16=1``, ``networks/transformers.py``: a bf16 copy of the net,
+its forward inside ``compute(torch.bfloat16)``).
+
+Training (``trainer_kwargs={"param_dtype": "bfloat16"}``,
+``loops/train_loops.py``): the step keeps f32 master parameters and
+optimizer state and runs the forward and backward in the policy's dtype.
+:func:`cast_parameters` gives ``{name: p.to(dtype)}`` for every floating
+parameter and buffer of a module, for ``torch.func.functional_call``, and
+:func:`cast_tree` the same cast for the input and hidden tuples (integer
+tensors pass through).  The casts are differentiable: the gradients come back
+to the f32 masters as bf16 values in f32, as the transpose of JAX's
+``convert_element_type`` gives them (``mimikit_tpu/precision.py:134-142``).
+The loss takes the outputs cast to f32.  The loss barrier of the JAX module
+(``loss_barrier``) pins one XLA materialization of the logits and has no
+counterpart here: eager PyTorch computes them once.
 """
 from __future__ import annotations
 
@@ -23,7 +35,8 @@ from typing import Optional
 import torch
 from torch import nn
 
-__all__ = ["compute_dtype", "compute", "cast_floats", "resolve_dtype"]
+__all__ = ["compute_dtype", "compute", "cast_floats", "cast_parameters", "cast_tree",
+           "resolve_dtype"]
 
 _COMPUTE_DTYPE: contextvars.ContextVar = contextvars.ContextVar(
     "mmk_torch_compute_dtype", default=None
@@ -79,3 +92,22 @@ def cast_floats(tree, dtype: torch.dtype):
         return out
     return {k: (v.to(dtype) if isinstance(v, torch.Tensor) and v.is_floating_point() else v)
             for k, v in tree.items()}
+
+
+def cast_parameters(module: nn.Module, dtype: torch.dtype) -> dict:
+    """``{name: tensor.to(dtype)}`` for every floating parameter and buffer of
+    ``module`` (others as they are), for ``torch.func.functional_call``; the
+    module itself is left as it is, and gradients flow back through the
+    casts to its parameters."""
+    named = list(module.named_parameters()) + list(module.named_buffers())
+    return {k: (v.to(dtype) if v.is_floating_point() else v) for k, v in named}
+
+
+def cast_tree(tree, dtype: torch.dtype):
+    """``tree`` (a tensor, None, or nested tuples of them) with every floating
+    tensor cast to ``dtype``, differentiably; other values pass through."""
+    if isinstance(tree, torch.Tensor):
+        return tree.to(dtype) if tree.is_floating_point() else tree
+    if isinstance(tree, tuple):
+        return tuple(cast_tree(x, dtype) for x in tree)
+    return tree

@@ -27,7 +27,12 @@
   argmax tokens; a bank written by the port loads in the JAX package with
   the port's parameters;
 * an interrupted run resumes from its checkpoint (``from_checkpoint``),
-  optimizer state included;
+  optimizer state included, and a ``param_dtype="bfloat16"`` run resumes
+  from its hp.yaml under the same policy;
+* ``matmul_precision`` sets ``torch.set_float32_matmul_precision`` for each
+  step (JAX's names mapped to torch's) and puts the previous value back;
+  ``steps_per_dispatch`` and ``flat_optimizer`` (TPU dispatch and optimizer
+  layout) leave the losses as they are;
 * unported ``trainer_kwargs`` (and ``MONITOR_TRAINING``) raise
   ``NotImplementedError`` naming the key.
 
@@ -259,8 +264,39 @@ def test_port_bank_loads_in_jax(case):
         np.testing.assert_array_equal(v, port[f"params/{k}"], err_msg=k)
 
 
-@pytest.mark.parametrize("key", ["param_dtype", "remat", "matmul_precision", "data_parallel",
-                                 "n_model", "fsdp", "loss_logs_file", "steps_per_dispatch",
+def test_bf16_run_resumes_from_its_hp_yaml_under_its_policy(case):
+    """An interrupted ``param_dtype="bfloat16"`` run: ``from_checkpoint``
+    reads the policy from its hp.yaml and finishes epoch 2 with f32 master
+    parameters and finite losses."""
+    _, port, _ = case
+    assert str(port["bf16_resume/policy"]) == "torch.bfloat16"
+    assert port["bf16_resume/end"].tolist() == [2, 2]
+    assert np.all(np.isfinite(port["bf16_resume/losses"]))
+    assert port["bf16_resume/dtypes"].tolist() == ["torch.float32"]
+
+
+@pytest.mark.parametrize("name,torch_name", [("float32", "highest"), ("tensorfloat32", "high"),
+                                             ("bfloat16", "medium")])
+def test_matmul_precision_is_set_for_each_step_and_restored(case, name, torch_name):
+    """JAX's matmul precision names (``train_loops.py:337-342,410-414``) map
+    to torch's for every step's forward; the value set before the run
+    ("high") is back after it."""
+    _, port, _ = case
+    seen = port[f"matmul/{name}"].tolist()
+    assert seen[:-1] and set(seen[:-1]) == {torch_name}, seen
+    assert seen[-1] == "high"
+
+
+@pytest.mark.parametrize("key", ["steps_per_dispatch", "flat_optimizer"])
+def test_tpu_dispatch_kwargs_are_no_ops(case, key):
+    """``steps_per_dispatch`` (``train_loops.py:788``) and ``flat_optimizer``
+    (``:568``) group TPU dispatches and lay out the optimizer state for XLA:
+    the port accepts them and trains exactly as without them."""
+    _, port, _ = case
+    np.testing.assert_array_equal(port[f"noop/{key}"], port["losses"])
+
+
+@pytest.mark.parametrize("key", ["remat", "data_parallel", "n_model", "fsdp", "loss_logs_file",
                                  "MONITOR_TRAINING"])
 def test_unported_trainer_kwargs_raise(case, key):
     _, port, _ = case

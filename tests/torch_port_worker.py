@@ -294,10 +294,52 @@ def train_task(inp: dict) -> dict:
     out["resume/end"] = np.array([resumed.global_step, resumed.opt.count])
     out["resume/files"] = np.array(sorted(os.listdir(f"{rcfg.root_dir}/{first.hash_}")))
 
-    for key, value in (("param_dtype", "bfloat16"), ("remat", True),
-                       ("matmul_precision", "float32"), ("data_parallel", True),
+    # param_dtype: an interrupted bf16 run resumes from its hp.yaml under its policy
+    rcfg = copy.deepcopy(cfg)
+    rcfg.root_dir, rcfg.max_epochs, rcfg.save_optimizer = f"{work}/resume_bf16", 2, True
+    rcfg.trainer_kwargs["param_dtype"] = "bfloat16"
+    rnet = mmk.SampleRNN.from_config(net_cfg, device="cpu")
+    rnet.load_state_dict(mmk.samplernn_state_dict_from_jax(unflatten(inp, "params0/")))
+    first = mmk.TrainARMLoop.from_config(rcfg, ds.get(mode="r"), rnet)
+    first.on_train_epoch_end = stop
+    first.run()
+    resumed = mmk.TrainARMLoop.from_checkpoint(
+        mmk.Checkpoint(first.hash_, 1, rcfg.root_dir, device="cpu"))
+    resumed.run()
+    out["bf16_resume/policy"] = np.array(str(resumed.half))
+    out["bf16_resume/end"] = np.array([resumed.global_step, resumed.opt.count])
+    out["bf16_resume/losses"] = np.array([h["loss"] for _, h in resumed.metrics.history])
+    out["bf16_resume/dtypes"] = np.array(sorted({str(p.dtype)
+                                                 for p in resumed.net.parameters()}))
+
+    # matmul_precision: set for each step, the previous value restored after it
+    previous = torch.get_float32_matmul_precision()
+    for name in ("float32", "tensorfloat32", "bfloat16"):
+        mcfg = copy.deepcopy(cfg)
+        mcfg.root_dir, mcfg.max_epochs = f"{work}/matmul_{name}", 1
+        mcfg.trainer_kwargs["matmul_precision"] = name
+        torch.set_float32_matmul_precision("high")
+        mnet = mmk.SampleRNN.from_config(net_cfg, device="cpu")
+        seen = []
+        mnet.register_forward_pre_hook(lambda *_: seen.append(torch.get_float32_matmul_precision()))
+        mmk.TrainARMLoop.from_config(mcfg, ds.get(mode="r"), mnet).run()
+        out[f"matmul/{name}"] = np.array(seen + [torch.get_float32_matmul_precision()])
+    torch.set_float32_matmul_precision(previous)
+
+    # the TPU dispatch and optimizer-layout knobs change nothing
+    for key, value in (("steps_per_dispatch", 4), ("flat_optimizer", True)):
+        ncfg = copy.deepcopy(cfg)
+        ncfg.root_dir = f"{work}/noop_{key}"
+        ncfg.trainer_kwargs[key] = value
+        nnet = mmk.SampleRNN.from_config(net_cfg, device="cpu")
+        nnet.load_state_dict(mmk.samplernn_state_dict_from_jax(unflatten(inp, "params0/")))
+        nloop = mmk.TrainARMLoop.from_config(ncfg, ds.get(mode="r"), nnet)
+        nloop.run()
+        out[f"noop/{key}"] = np.array([h["loss"] for _, h in nloop.metrics.history])
+
+    for key, value in (("remat", True), ("data_parallel", True),
                        ("n_model", 2), ("fsdp", True), ("loss_logs_file", "l.h5"),
-                       ("steps_per_dispatch", 4), ("MONITOR_TRAINING", True)):
+                       ("MONITOR_TRAINING", True)):
         bad = copy.deepcopy(cfg)
         if key == "MONITOR_TRAINING":
             bad.MONITOR_TRAINING = True
@@ -910,11 +952,91 @@ def bf16_decode_task(inp: dict) -> dict:
     return out
 
 
+def _unrounded(fn):
+    """``fn`` (an LSTM plain version) in f32 on the bf16 streams' values,
+    its outputs rounded to bf16: a kernel that skips the rounding of h and
+    dz (the control of ``test_torch_bf16_train.py``)."""
+    def run(*streams):
+        return tuple(o.to(torch.bfloat16) for o in fn(*(v.float() for v in streams)))
+    return run
+
+
+GRAD_NAMES = ("dx", "dWi", "dWh", "db", "dh0", "dc0")
+
+
+def _bf16_layer(fl, inp, p, out, q):
+    """The bf16 layer's outputs and six gradients (all cotangents; h_all's
+    only) on the case ``p``, saved under ``q``."""
+    args = [t(inp[p + n]).to(torch.bfloat16).requires_grad_()
+            for n in ("x", "Wi", "Wh", "b", "h0", "c0")]
+    cts = [t(inp[p + n]).to(torch.bfloat16) for n in ("dh_all", "dh_T", "dc_T")]
+    res = fl.fused_lstm_layer(*args)
+    for n, v in zip(("h_all", "h_T", "c_T"), res):
+        out[q + n] = v.detach().float().numpy()
+    for n, g in zip(GRAD_NAMES, torch.autograd.grad(res, args, cts)):
+        out[q + "grad_" + n] = g.float().numpy()
+    res = fl.fused_lstm_layer(*args)
+    for n, g in zip(GRAD_NAMES, torch.autograd.grad(res[0], args, cts[0])):
+        out[q + "grad_h_only_" + n] = g.float().numpy()
+
+
+def bf16_train_task(inp: dict) -> dict:
+    """The bf16 training path on the CPU: the bf16 fused LSTM layer (and its
+    control) on JAX's cases; the dtypes of SampleRNN's train forward under
+    the policy; three TrainARMLoop steps under ``param_dtype="bfloat16"``
+    from the JAX weights; the cross-entropy of bf16 logits."""
+    from mimikit_tpu_torch import precision
+    from mimikit_tpu_torch.ops import fused_lstm as fl
+
+    out = {}
+    for tag in sorted({k.split("/")[1] for k in inp if k.startswith("layer/")}):
+        p = f"layer/{tag}/"
+        _bf16_layer(fl, inp, p, out, p)
+        saved = fl.lstm_forward, fl.lstm_backward
+        fl.lstm_forward = _unrounded(fl.lstm_forward_plain)
+        fl.lstm_backward = _unrounded(fl.lstm_backward_plain)
+        try:
+            _bf16_layer(fl, inp, p, out, f"control/{tag}/")
+        finally:
+            fl.lstm_forward, fl.lstm_backward = saved
+
+    work = str(inp["work"])
+    ds = mmk.DatasetConfig(sources=(str(inp["wav"]),), filename=str(inp["jax_h5"]),
+                           extractors=(mmk.Extractor.signal(16000),))
+    db = ds.get(mode="r")
+    cfg = mmk.Config.deserialize(str(inp["train_yaml"]))
+    cfg.root_dir = f"{work}/port_bf16"
+    net_cfg = mmk.Config.deserialize(str(inp["net_yaml"]))
+    net_cfg.io_spec.bind_to(ds)
+    net = mmk.SampleRNN.from_config(net_cfg, device="cpu")
+    net.load_state_dict(mmk.samplernn_state_dict_from_jax(unflatten(inp, "params0/")))
+
+    # the train forward under the policy: every float output and carry
+    inputs, _ = next(iter(mmk.TrainARMLoop.get_dataloader(db, net, cfg)))
+    with precision.compute(torch.bfloat16):
+        outputs, hidden = torch.func.functional_call(
+            net, precision.cast_parameters(net, torch.bfloat16),
+            (tuple(torch.as_tensor(x) for x in inputs), None))
+    leaves = list(outputs) + [x for tier in hidden for layer in tier for x in layer]
+    out["forward_dtypes"] = np.array([str(x.dtype) for x in leaves])
+
+    loop = mmk.TrainARMLoop.from_config(cfg, db, net)
+    loop.run()
+    out["losses"] = np.array([h["loss"] for _, h in loop.metrics.history])
+    out["master_dtypes"] = np.array(sorted({str(p.dtype) for p in net.parameters()} | {
+        str(v.dtype) for st in loop.opt.adam.state.values() for v in st.values()
+        if isinstance(v, torch.Tensor) and v.is_floating_point()}))
+
+    logits = t(inp["ce_logits"]).to(torch.bfloat16)
+    out["ce_huge"] = mmk.cross_entropy(logits, t(inp["ce_targets"])).numpy()
+    return out
+
+
 TASKS = {"modules": modules_task, "sample_rnn": sample_rnn_task, "fused_lstm": fused_lstm_task,
          "train": train_task, "train_stateless": train_stateless_task,
          "wavenet": wavenet_task, "categorical": categorical_task,
          "transformer": transformer_task, "jukebox": jukebox_task,
-         "mulaw": mulaw_task, "bf16_decode": bf16_decode_task}
+         "mulaw": mulaw_task, "bf16_decode": bf16_decode_task, "bf16_train": bf16_train_task}
 
 if __name__ == "__main__":
     task, src, dst = sys.argv[1:4]

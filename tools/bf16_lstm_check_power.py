@@ -1,0 +1,64 @@
+"""How well the bf16 LSTM check tells the bf16 kernels from a faulty one.
+
+Usage, on a machine with one card: ``python3 tools/bf16_lstm_check_power.py``
+(about a minute).  It runs the cases of ``chip_smoke.py``'s phase 2 for the
+bf16 instantiation of the fused LSTM layer (K3a/K3b): (T, B, H) = (12, 4, 16)
+at eight input seeds, and the two tier shapes of the training path, (128,
+32, 256) and (256, 32, 256), at two, with three sources against the bf16 twin
+on the card:
+
+* ``bf16``: the layer through the bf16 kernels (the route under test);
+* ``control``: the f32 instantiation on the bf16 streams' values, outputs
+  rounded where stored: kernels that skip the rounding of h and dz (the
+  fault the check must catch, ``chip_smoke.unrounded``);
+* ``alt``: the bf16 twin on the CPU (a correct computation that sums in
+  another order).
+
+Per case and source it prints the largest gap over the outputs and the six
+gradients in bf16 ulps of each tensor's scale, the share of the case's
+elements that differ from the twin, and each tensor's gap: what
+``chip_smoke.bf16_lstm_verdict`` holds against ``BF16_LSTM_ULPS`` and
+``BF16_LSTM_SHARE``.
+"""
+import os
+import sys
+
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+import chip_smoke as cs  # noqa: E402
+from mimikit_tpu_torch.ops import fused_lstm as fl  # noqa: E402
+
+CASES = [((12, 4, 8, 16), seed) for seed in range(8)] + [
+    ((T, 32, 256, 256), seed) for T in (128, 256) for seed in range(2)]
+
+
+def line(tag, source, gaps):
+    worst = max(g[0] for g in gaps.values())
+    share = sum(g[1] for g in gaps.values()) / sum(g[2] for g in gaps.values())
+    each = ", ".join(f"{n} {g[0]:.2f}/{g[1] / g[2]:.1%}" for n, g in gaps.items())
+    print(f"{tag} {source}: largest {worst:.3f} ulps, {share:.3%} of elements differ"
+          f" ({each})", flush=True)
+
+
+def main():
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(cs.card_line(), flush=True)
+    for (T, B, D, H), seed in CASES:
+        tag = f"(T, B, H) = ({T}, {B}, {H}) seed {seed}"
+        args, cts = cs.lstm_bf16_inputs(torch, T, B, D, H, seed=1000 + seed)
+        gaps, _, (p_out, p_grads) = cs.lstm_bf16_gaps(torch, fl, args, cts)
+        line(tag, "bf16", gaps)
+        bad, _, _ = cs.lstm_bf16_gaps(torch, fl, args, cts, control=True)
+        line(tag, "control", bad)
+        c_out, c_grads = cs.lstm_plain_layer(torch, fl, tuple(a.cpu() for a in args),
+                                             tuple(c.cpu() for c in cts))
+        alt = {n: (*cs.bf16_ulps(c.cuda(), p), p.numel())
+               for n, c, p in zip(cs.LSTM_NAMES, (*c_out, *c_grads), (*p_out, *p_grads))}
+        line(tag, "alt", alt)
+
+
+if __name__ == "__main__":
+    main()
