@@ -9,9 +9,10 @@ Phases (any failure exits non-zero; no exception is swallowed):
 1. environment and build: the card's name and power limit, torch/CUDA
    versions; build ``csrc/samplernn_decode.cu``, ``csrc/fused_lstm.cu``,
    ``csrc/wavenet_decode.cu``, ``csrc/transformer_decode.cu``,
-   ``csrc/transformer_kv.cu`` and ``csrc/jukebox_decode.cu`` for sm_90a, the
-   six nvcc runs started together, and time them; compile the Triton
-   sampler and the Triton mu-law kernel;
+   ``csrc/transformer_kv.cu``, ``csrc/jukebox_decode.cu`` and
+   ``csrc/jukebox_cluster.cu`` for sm_90a, the seven nvcc runs started
+   together, and time them; compile the Triton sampler and the Triton mu-law
+   kernel;
 2. each kernel against its plain twin at a small size and at the main
    paths' widths.  ``decode_single`` and ``decode_chunk``, argmax and
    sampled (temperature 0.9): the kernel's tokens are verified by teacher
@@ -39,9 +40,14 @@ Phases (any failure exits non-zero; no exception is swallowed):
    several chunk lengths (K6's window, K7's state carried; the tokens must
    not change), at a small size and at full width, with the grid barriers a
    step each kernel's block 0 counted (4L + 1 and 3L + 1); the
-   tier-pyramid kernel (``decode_pyramid``, K8) by teacher forcing at B=1
-   and B=16 over several chunk lengths, the window carried, small and full
-   width; the mu-law pair (K10) at 3,001 and 2,646,000 samples: compress
+   tier-pyramid kernels (``decode_pyramid``, K8) by teacher forcing at B=1,
+   2, 8 and 32 through the route (the cluster kernel in clusters of 16
+   blocks up to 7 streams, of 8 up to 15, the block kernel beyond:
+   ``K8_CLUSTER_ROUTE``) and the cluster kernel at one stream more than the
+   clusters of 16 that fit (clusters loop over streams), over several chunk
+   lengths, the window carried, small and full width, with the cluster
+   barriers a step its block 0 counted (n_up (1 + 6L) + 1 + head layers,
+   29); the mu-law pair (K10) at 3,001 and 2,646,000 samples: compress
    ints equal to the plain twin's except by one where its value before
    truncation lies within rounding of an integer (1e-5 of it, relative),
    expand within 1e-6; the bf16 instantiations the same way against their
@@ -68,11 +74,16 @@ Phases (any failure exits non-zero; no exception is swallowed):
    kernel), and a bank written and
    reloaded through ``Checkpoint(...).network`` and decoded; jukebox3
    (``benchmarks/bench_decode.py:117-126``: frames (32, 16, 4), d 128, 8
-   heads, ff 256, 2 layers a tier, rf 128) ``generate`` at B=1 and B=16 ×
-   4,096 after a 128-token prompt (one K8 launch each, the first 512 tokens
-   verified), ``stream_audio`` at B=1 (one K8 launch a 1,600-step chunk, the
-   window carried; equal to the expanded ``generate`` output), the window
-   route over 64 steps (scaled), and a bank reloaded and decoded; then the
+   heads, ff 256, 2 layers a tier, rf 128) ``generate`` at B=1 and B=8 ×
+   4,096 after a 128-token prompt (one launch of the cluster kernel each, in
+   clusters of 16 and of 8 blocks) and at B=16 (one of the block kernel),
+   the first 512 tokens verified,
+   ``stream_audio`` at B=1 (one launch of the cluster kernel a 1,600-step
+   chunk, the window carried; equal to the expanded ``generate`` output),
+   the window route over 64 steps (scaled), a bank reloaded and decoded,
+   and the route sweep: the cluster kernel at both sizes and the block
+   kernel at B = 1 … 64 × 256 steps, ``generate``'s choice at each B
+   against ``K8_CLUSTER_ROUTE``; then the
    bf16 routes, each number printed beside the f32 one of the same run:
    ``MMK_PALLAS_BF16=1`` SampleRNN-3 as above (every launch the bf16
    instantiation, the B=256 output's first 1,024 steps verified against the
@@ -97,17 +108,19 @@ Phases (any failure exits non-zero; no exception is swallowed):
 5. each wrapper, its plain twin and (for the LSTM kernels) cuDNN's
    ``nn.LSTM`` in the same dtype, for K9 ``torch.multinomial``, timed at
    the main paths' shapes (the transformer and JukeBox twins over 64 steps,
-   scaled; K8 also at B=16 and 32, K10 at 2,646,000 samples; the bf16
-   decode twins over fewer steps, scaled); a ``kernels`` JSON line of
-   seventeen rows (the twelve and K1-, K2-, K3a-, K3b- and K7-bf16), the
-   card line, and the device line last.
+   scaled; K8's block kernel also at B=16 and 32, K10 at 2,646,000 samples;
+   the bf16 decode twins over fewer steps, scaled); a ``kernels`` JSON line
+   of eighteen rows (the twelve, K8's cluster kernel, and K1-, K2-, K3a-,
+   K3b- and K7-bf16), the card line, and the device line last.
 
 ``--quick`` runs phases 1-2 at the small size only (a build check);
 ``--bench`` runs phase 1, phase 3's timings without the checks, decode_chunk
 at B=256 for each number of streams a block owns, the LSTM kernels' timings,
 phase 4, the WaveNet streams-per-block sweep, K6 at B=16 against the
 batched window route, K7 at B = 1, 4, 16 and 32, and the jukebox3 path with
-K8 at B = 1, 16 and 32.
+both K8 kernels at B = 1, 16 and 32, a cluster exchange's cost
+(``tools/cluster_exchange_probe.py``), the cluster size, the clusters that
+fit, the cluster barriers a step and the route sweep.
 """
 import argparse
 import contextlib
@@ -195,6 +208,12 @@ JB_FULL = dict(frame_sizes=(32, 16, 4), model_dim=128, n_heads=8, feedforward_di
 JB_SMALL = dict(frame_sizes=(8, 4, 2), model_dim=32, n_heads=4, feedforward_dim=64, num_layers=2,
                 rf=16, q_levels=32, mlp_dim=16)
 JB_N, JB_B, JB_VERIFY, JB_WIN_STEPS, JB_PLAIN_STEPS, JB_STREAM_CHUNKS = 4096, 16, 512, 64, 64, 6
+# phase 2 checks K8 at these B through the route (clusters of 16 blocks, of 8, then the
+# block kernel: ops/jukebox_decode.K8_CLUSTER_ROUTE); the path's generate at B = 1 and 8
+# takes the cluster kernel, at B = 16 the block kernel; the route sweep times the kernel
+# at both cluster sizes and the block kernel at each B, JB_SWEEP_N steps a call
+JB_CHECK_BATCHES, JB_PATH_BATCHES = (1, 2, 8, 32), (1, 8, 16)
+JB_WIDE, JB_SWEEP_BATCHES, JB_SWEEP_N = 32, (1, 2, 4, 8, 16, 32, 64), 256
 MULAW_N = 2_646_000  # benchmarks/bench_preprocessing.py:33-59: 120 s at 22,050 Hz
 
 
@@ -216,7 +235,7 @@ def merge_max(a, b):
 def uncounted(*wrappers):
     """Launches made inside (a reference the path is compared with) are not
     the path's own: each wrapper's count is put back on the way out."""
-    names = ("launches", "launches_bf16")
+    names = ("launches", "launches_bf16", "launches_cluster")
     saved = [{k: getattr(w, k) for k in names if hasattr(w, k)} for w in wrappers]
     try:
         yield
@@ -1589,39 +1608,77 @@ def verify_pyramid(torch, jbd, pack, prompt, toks, seed, temperature):
     return verify_tokens(torch, prompt, toks, prior_t, tf_scores, free_run, tf_chunk=256)
 
 
-def pyramid_run(torch, jbd, pack, prompt, n, chunk, temperature, seed):
+def pyramid_run(torch, jbd, pack, prompt, n, chunk, temperature, seed, launch=None):
     """K8 over n steps after ``prompt`` (B, >= W) in launches of ``chunk``
-    steps, the window carried on the card; returns the n tokens."""
+    steps, the window carried on the card; returns the n tokens.  ``launch``
+    (default ``decode_pyramid``, the route) takes decode_pyramid's
+    arguments: ``jbd._launch`` for the block kernel, ``jbd._launch_cluster``
+    for the cluster kernel whatever B."""
+    launch = launch or jbd.decode_pyramid
     window = jbd.lead_window(prompt, pack.window)
     t0 = prompt.shape[1]
-    return torch.cat([jbd.decode_pyramid(pack, window, t0 + k, min(chunk, n - k), seed, temperature)
+    return torch.cat([launch(pack, window, t0 + k, min(chunk, n - k), seed, temperature)
                       for k in range(0, n, chunk)], 1)
 
 
+def cluster_barriers_per_step(pack):
+    """The cluster kernel's exchanges a step (its source note): one for each
+    tier's framed dense, six a layer, one for the bottom, one a head layer."""
+    return pack.n_up * (1 + 6 * pack.n_layers) + 1 + len(pack.head_dims)
+
+
 def check_jukebox(torch, mmk, jbd, spec, batches, n, chunk_lens, jitter):
-    """Phase 2 for the tier-pyramid kernel at one size: every B of
-    ``batches`` over several chunk lengths (the window carried), argmax and
-    T=0.9; returns {wrapper: largest score gap}."""
+    """Phase 2 for both tier-pyramid kernels at one size: every B of
+    ``batches`` through the route (the cluster kernel up to
+    ``_K8_CLUSTER_MAX_B`` streams, the block kernel beyond), and the
+    cluster kernel at one stream more than the clusters that fit (clusters
+    loop over streams), each over several chunk lengths (the window
+    carried; the tokens must not change), argmax and T=0.9; the cluster
+    kernel's barriers a step as its block 0 counted them.  Returns
+    {wrapper: largest score gap}, the block kernel's under
+    ``jukebox_decode_pyramid``, the cluster kernel's under
+    ``jukebox_decode_cluster``."""
     net = make_jukebox(mmk, torch, jbd, spec, seed=1, jitter=jitter)
     pack = jbd.jukebox_weight_pack(net)
     W, q = net._window_len(), spec["q_levels"]
-    worst = 0.0
+    worst = {"jukebox_decode_pyramid": 0.0, "jukebox_decode_cluster": 0.0}
+    # the clusters that fit on the card at this net's shared memory
+    one = make_prompt(torch, 1, W, q, seed=1)
+    jbd._launch_cluster(pack, jbd.lead_window(one, W), W, 1, 0, None)
+    loop_b = jbd.decode_pyramid.last_clusters + 1
+    cases = [(B, None) for B in batches] + [(loop_b, jbd._launch_cluster)]
     for temp in (None, TEMPERATURE):
         mode = "argmax" if temp is None else f"T={temp}"
-        for B in batches:
+        for B, launch in cases:
             prompt = make_prompt(torch, B, W, q, seed=7 + B)
-            runs = [pyramid_run(torch, jbd, pack, prompt, n, C, temp, 13) for C in chunk_lens]
+            before = jbd.decode_pyramid.launches_cluster
+            runs = [pyramid_run(torch, jbd, pack, prompt, n, C, temp, 13, launch)
+                    for C in chunk_lens]
             torch.cuda.synchronize()
+            cluster = jbd.decode_pyramid.launches_cluster > before
+            if launch is None and cluster != jbd.uses_cluster_kernel(pack, B):
+                raise AssertionError(f"jukebox decode_pyramid B={B} took the wrong kernel")
+            name = "jukebox_decode_cluster" if cluster else "jukebox_decode_pyramid"
+            extra = ""
+            if cluster:
+                last = n % chunk_lens[-1] or chunk_lens[-1]
+                per_step = int(jbd.decode_pyramid.last_barriers) / last
+                if per_step != cluster_barriers_per_step(pack):
+                    raise AssertionError(f"the cluster kernel passed {per_step} cluster barriers a"
+                                         f" step, not {cluster_barriers_per_step(pack)}")
+                extra = (f"; {per_step:g} cluster barriers a step, clusters of"
+                         f" {jbd.decode_pyramid.last_cluster_size},"
+                         f" {jbd.decode_pyramid.last_clusters} fit")
             for C, r in zip(chunk_lens[1:], runs[1:]):
                 if not torch.equal(r, runs[0]):
-                    raise AssertionError(f"jukebox decode_pyramid with chunk {C} changed the tokens")
+                    raise AssertionError(f"jukebox {name} with chunk {C} changed the tokens")
             if temp is None and len(set(runs[0][0].tolist())) < 2:
                 raise AssertionError("K8 argmax tokens are constant: the check is vacuous")
             gap, parted = verify_pyramid(torch, jbd, pack, prompt, runs[0], 13, temp)
-            worst = max(worst, gap)
-            log(f"  jukebox decode_pyramid B={B} n={n} chunks {chunk_lens} {mode}: ok, max gap"
-                f" {gap:.3e}, {parted} streams parted at near-ties")
-    return {"jukebox_decode_pyramid": worst}
+            worst[name] = max(worst[name], gap)
+            log(f"  jukebox {name} B={B} n={n} chunks {chunk_lens} {mode}: ok, max gap"
+                f" {gap:.3e}, {parted} streams parted at near-ties{extra}")
+    return worst
 
 
 def mulaw_near_integer(v, tol=1e-5):
@@ -1668,49 +1725,63 @@ def check_mulaw(torch, mu):
 
 def jukebox_path(torch, mmk, jbd):
     """Phase 3d: jukebox3 served at full width through the user entry points;
-    returns (net, prompts, launches, gap of the verified outputs)."""
+    returns (net, prompts, launches, {wrapper: gap of its verified outputs})."""
     net = make_jukebox(mmk, torch, jbd, JB_FULL, seed=0)
     W, q = net._window_len(), JB_FULL["q_levels"]
     log(f"  jukebox3: {net.n_parameters} parameters, window {W}")
-    prompts = {B: make_prompt(torch, B, W, q, seed=60 + B) for B in (1, JB_B)}
+    prompts = {B: make_prompt(torch, B, W, q, seed=60 + B) for B in JB_PATH_BATCHES}
     expand = mmk.MuLawExpand(q)
-    jbd.decode_pyramid.launches = 0
-    outs, gap = {}, 0.0
-    for B in (1, JB_B):
+    pack = jbd.jukebox_weight_pack(net)
+    for B in prompts:
+        net.generate((prompts[B],), 16, temperature=TEMPERATURE, seed=SEED)  # lazy set-up
+    gaps = {"jukebox_decode_pyramid": 0.0, "jukebox_decode_cluster": 0.0}
+    jbd.decode_pyramid.launches = jbd.decode_pyramid.launches_cluster = 0
+    outs = {}
+    for B in JB_PATH_BATCHES:
         p = prompts[B]
-        net.generate((p,), 16, temperature=TEMPERATURE, seed=SEED)  # lazy set-up
-        before = jbd.decode_pyramid.launches
+        cluster = jbd.uses_cluster_kernel(pack, B)
+        counter = "launches_cluster" if cluster else "launches"
+        before = getattr(jbd.decode_pyramid, counter)
+        before_cluster = jbd.decode_pyramid.launches_cluster
 
         def run():
             outs[B] = net.generate((p,), JB_N, temperature=TEMPERATURE, seed=SEED)[0]
 
         ms = cuda_ms(torch, run, reps=3)
         med, spr = spread(ms)
-        if jbd.decode_pyramid.launches - before != 3:
-            raise AssertionError(f"jukebox generate B={B} did not launch K8 once a call")
+        if getattr(jbd.decode_pyramid, counter) - before != 3 or (
+                not cluster and jbd.decode_pyramid.launches_cluster != before_cluster):
+            raise AssertionError(f"jukebox generate B={B} did not launch the"
+                                 f" {'cluster' if cluster else 'block'} kernel once a call")
+        SUMMARY[f"jukebox3_b{B}_us"] = 1e3 * med / JB_N
         toks = outs[B][:, W:]
         if toks.shape != (B, JB_N) or int(toks.min()) < 0 or int(toks.max()) >= q:
             raise AssertionError(f"jukebox generate B={B}: bad tokens {tuple(toks.shape)}")
         if len(set(toks[0].tolist())) < 2:
             raise AssertionError(f"jukebox generate B={B}: constant sampled tokens")
-        log(f"  jukebox generate B={B} n={JB_N} T={TEMPERATURE}: {B * JB_N / (med / 1e3):.6g}"
-            f" samples/s ({1e3 * med / JB_N:.2f} us a step; median of 3: {med:.3f} ms, spread"
-            f" {spr:.3%}; {ms})")
+        kind = (f"cluster kernel, {jbd.cluster_size_for(pack, B)} blocks" if cluster
+                else "block kernel")
+        log(f"  jukebox generate B={B} n={JB_N} T={TEMPERATURE} ({kind}):"
+            f" {B * JB_N / (med / 1e3):.6g} samples/s ({1e3 * med / JB_N:.2f} us a step;"
+            f" median of 3: {med:.3f} ms, spread {spr:.3%}; {ms})")
         with uncounted(jbd.decode_pyramid):
             g, parted = verify_pyramid(torch, jbd, jbd.jukebox_weight_pack(net), p,
                                        toks[:, :JB_VERIFY], SEED, TEMPERATURE)
-        gap = max(gap, g)
+        name = "jukebox_decode_cluster" if cluster else "jukebox_decode_pyramid"
+        gaps[name] = max(gaps[name], g)
         log(f"  its first {JB_VERIFY} tokens verified: max gap {g:.3e}, {parted} streams parted"
             f" at near-ties")
 
-    # stream_audio B=1: one K8 launch a chunk, the window carried; noise keyed by
-    # position, so the stream is generate's decode with the same seed
-    before = jbd.decode_pyramid.launches
+    # stream_audio B=1: one launch of the cluster kernel a chunk, the window
+    # carried; noise keyed by position, so the stream is generate's decode with
+    # the same seed
+    before = jbd.decode_pyramid.launches_cluster
     lat, chunks = chunk_latencies(
         mmk.stream_audio(net, (prompts[1],), STREAM_CHUNK, temperature=TEMPERATURE, seed=SEED),
         JB_STREAM_CHUNKS)
-    if jbd.decode_pyramid.launches - before < JB_STREAM_CHUNKS:
-        raise AssertionError("the jukebox stream did not launch K8 once a chunk")
+    if jbd.decode_pyramid.launches_cluster - before < JB_STREAM_CHUNKS:
+        raise AssertionError("the jukebox stream did not launch the cluster kernel once a chunk")
+    SUMMARY["jukebox3_chunk_p50_ms"] = statistics.median(lat)
     n_cmp = (JB_N // STREAM_CHUNK) * STREAM_CHUNK
     got = np.concatenate(chunks, 1)
     if got.shape != (1, JB_STREAM_CHUNKS * STREAM_CHUNK) or not np.array_equal(
@@ -1749,19 +1820,87 @@ def jukebox_path(torch, mmk, jbd):
     diff = [k for k, v in net2.state_dict().items() if not torch.equal(v, live[k])]
     if diff or type(net2) is not type(net):
         raise AssertionError(f"reloaded jukebox differs: {type(net2).__name__}, {diff}")
-    before = jbd.decode_pyramid.launches
+    before = jbd.decode_pyramid.launches_cluster
     toks = net2.generate((p1,), JB_VERIFY)[0][:, W:]
-    if jbd.decode_pyramid.launches - before != 1:
-        raise AssertionError("the reloaded jukebox did not decode through K8")
+    if jbd.decode_pyramid.launches_cluster - before != 1:
+        raise AssertionError("the reloaded jukebox did not decode through the cluster kernel")
     with uncounted(jbd.decode_pyramid):
         g2, parted = verify_pyramid(torch, jbd, jbd.jukebox_weight_pack(net2), p1, toks, SEED, None)
     log(f"  epoch=1.ckpt of jukebox3 reloaded with equal parameters; argmax generate B=1 x"
         f" {JB_VERIFY} from it verified (max gap {g2:.3e}, {parted} streams parted at near-ties)")
-    launches = {"jukebox_decode_pyramid": jbd.decode_pyramid.launches}
+    launches = {"jukebox_decode_pyramid": (jbd.decode_pyramid.launches
+                                           - jbd.decode_pyramid.launches_cluster),
+                "jukebox_decode_cluster": jbd.decode_pyramid.launches_cluster}
     log(f"  launches on the jukebox serving path: {launches}")
     if min(launches.values()) == 0:
         raise AssertionError(f"a kernel of the jukebox path was never launched: {launches}")
-    return net, prompts, launches, max(gap, g2)
+    gaps["jukebox_decode_cluster"] = max(gaps["jukebox_decode_cluster"], g2)
+    return net, prompts, launches, gaps
+
+
+def jukebox_route_sweep(torch, jbd, net, pack):
+    """K8's cluster kernel at both cluster sizes and its block kernel at each
+    of ``JB_SWEEP_BATCHES`` streams (T=0.9, ``JB_SWEEP_N`` steps a call,
+    medians of 3): the measurement behind ``K8_CLUSTER_ROUTE``.  Checks that
+    ``generate`` takes the kernel and cluster size the route names at each B
+    (its launches there are not the path's) and says whether the route sends
+    any B to a slower choice than the fastest of this run."""
+    W, q = pack.window, JB_FULL["q_levels"]
+    slower = []
+    for B in JB_SWEEP_BATCHES:
+        prompt = make_prompt(torch, B, W, q, seed=80 + B)
+        route = jbd.cluster_size_for(pack, B)
+        with uncounted(jbd.decode_pyramid):
+            before = jbd.decode_pyramid.launches_cluster
+            net.generate((prompt,), 1, seed=SEED)
+            took = (jbd.decode_pyramid.last_cluster_size
+                    if jbd.decode_pyramid.launches_cluster > before else None)
+            if took != route:
+                raise AssertionError(f"jukebox generate B={B} took {took}, not {route}")
+            times, fit = {}, {}
+            for cl in (16, 8, None):
+                launch = jbd._launch if cl is None else (
+                    lambda *args, cl=cl: jbd._launch_cluster(*args, cl=cl))
+                fn = lambda: launch(pack, jbd.lead_window(prompt, W), W,  # noqa: E731
+                                    JB_SWEEP_N, SEED, TEMPERATURE)
+                fn()
+                fit[cl] = jbd.decode_pyramid.last_clusters
+                times[cl] = spread(cuda_ms(torch, fn, reps=3))
+        fastest = min(times, key=lambda k: times[k][0])
+        if times[route][0] > times[fastest][0]:
+            slower.append(B)
+        log(f"  jukebox B={B} x {JB_SWEEP_N} steps, us a step (median of 3, spread): cluster"
+            f" kernel at 16 blocks {1e3 * times[16][0] / JB_SWEEP_N:.2f} ({times[16][1]:.2%};"
+            f" {fit[16]} clusters fit), at 8 blocks {1e3 * times[8][0] / JB_SWEEP_N:.2f}"
+            f" ({times[8][1]:.2%}; {fit[8]} fit), block kernel"
+            f" {1e3 * times[None][0] / JB_SWEEP_N:.2f} ({times[None][1]:.2%}); generate takes"
+            f" {'the block kernel' if route is None else f'clusters of {route}'}")
+    log(f"  K8_CLUSTER_ROUTE = {jbd.K8_CLUSTER_ROUTE}: "
+        + (f"sends B = {slower} to a slower choice than this run's fastest" if slower
+           else "sends no B of the sweep to a slower choice than this run's fastest"))
+
+
+def jukebox_bench(torch, jbd, net):
+    """--bench: one cluster exchange's cost (``tools/cluster_exchange_probe.py``),
+    the cluster size the route launches, the clusters that fit and the
+    cluster barriers a step; then the route sweep."""
+    from pathlib import Path
+
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import cluster_exchange_probe
+
+    us = cluster_exchange_probe.measure(Path(ROOT))
+    pack = jbd.jukebox_weight_pack(net)
+    p = make_prompt(torch, 1, pack.window, JB_FULL["q_levels"], seed=61)
+    n = 64
+    jbd._launch_cluster(pack, jbd.lead_window(p, pack.window), pack.window, n, SEED, TEMPERATURE)
+    plan = jbd.cluster_plan(pack)
+    log(f"  cluster kernel: clusters of {jbd.K8_CLUSTER_SIZE} blocks (an exchange: push + barrier"
+        f" {us[f'CL{jbd.K8_CLUSTER_SIZE} mode1']:.4f} us), {jbd.decode_pyramid.last_clusters}"
+        f" clusters fit, {int(jbd.decode_pyramid.last_barriers) / n:g} cluster barriers a step,"
+        f" {plan.smem_bytes} bytes of shared memory a block, rank 0 {plan.bytes(0, True)} bytes"
+        f" resident and {plan.bytes(0, False)} streamed a step")
+    jukebox_route_sweep(torch, jbd, net, pack)
 
 
 def pyramid_flops(pack):
@@ -1804,19 +1943,21 @@ def mulaw_bound(n):
 
 
 def jukebox_rows(torch, jbd, mu, net, prompts, launches, err):
-    """Phase 5 rows of K8, K10a and K10b: kernel, plain twin (K8's over
-    JB_PLAIN_STEPS steps, scaled), bound; K8 also at B = 16 and 32.  No
-    single PyTorch call computes either function."""
+    """Phase 5 rows of K8's two kernels (the block kernel, the cluster
+    kernel), K10a and K10b: kernel, plain twin (K8's over JB_PLAIN_STEPS
+    steps, scaled), bound; the block kernel also at B = 16 and 32 (the route
+    sweep times the cluster kernel there).  No single PyTorch call computes
+    either function."""
     pack = jbd.jukebox_weight_pack(net)
     W, q = pack.window, JB_FULL["q_levels"]
-    for B in (JB_B, 32):
+    for B in (JB_B, JB_WIDE):
         p = prompts.get(B, make_prompt(torch, B, W, q, seed=60 + B))
-        fn = lambda: jbd.decode_pyramid(pack, jbd.lead_window(p, W), W, JB_N, SEED,  # noqa: E731
-                                        TEMPERATURE)
+        fn = lambda: jbd._launch(pack, jbd.lead_window(p, W), W, JB_N, SEED,  # noqa: E731
+                                 TEMPERATURE)
         fn()
         med, spr = spread(cuda_ms(torch, fn, reps=3))
         bound, by = pyramid_bound(pack, B, JB_N)
-        log(f"  jukebox decode_pyramid B={B} steps={JB_N}: {med:.3f} ms ({1e3 * med / JB_N:.2f} us a"
+        log(f"  jukebox block kernel B={B} steps={JB_N}: {med:.3f} ms ({1e3 * med / JB_N:.2f} us a"
             f" step, {B * JB_N / (med / 1e3):.6g} samples/s; median of 3, spread {spr:.3%}); bound"
             f" {bound:.4f} ms by {by}")
     p1 = prompts[1]
@@ -1840,13 +1981,18 @@ def jukebox_rows(torch, jbd, mu, net, prompts, launches, err):
     def graph(fn, reps):
         return graph_ms(torch, fn, per, reps)
 
+    plain = lambda: jbd.decode_pyramid_plain(pack, jbd.lead_window(p1, W), W,  # noqa: E731
+                                             JB_PLAIN_STEPS, SEED, TEMPERATURE)
     calls = {
         "jukebox_decode_pyramid": (
-            lambda: jbd.decode_pyramid(pack, jbd.lead_window(p1, W), W, JB_N, SEED, TEMPERATURE),
-            lambda: jbd.decode_pyramid_plain(pack, jbd.lead_window(p1, W), W, JB_PLAIN_STEPS, SEED,
-                                             TEMPERATURE),
+            lambda: jbd._launch(pack, jbd.lead_window(p1, W), W, JB_N, SEED, TEMPERATURE), plain,
             events, JB_N / JB_PLAIN_STEPS, pyramid_bound(pack, 1, JB_N),
             "mimikit_tpu/ops/pallas_decode.py:2386", "mimikit_tpu_torch/csrc/jukebox_decode.cu",
+            "cuda", f"B=1 steps={JB_N}", "one call between CUDA events"),
+        "jukebox_decode_cluster": (
+            lambda: jbd._launch_cluster(pack, jbd.lead_window(p1, W), W, JB_N, SEED, TEMPERATURE),
+            plain, events, JB_N / JB_PLAIN_STEPS, pyramid_bound(pack, 1, JB_N),
+            "mimikit_tpu/ops/pallas_decode.py:2386", "mimikit_tpu_torch/csrc/jukebox_cluster.cu",
             "cuda", f"B=1 steps={JB_N}", "one call between CUDA events"),
         "mulaw_compress": (
             cycled(mu.mulaw_compress, xs), cycled(mu.mulaw_compress_plain, xs),
@@ -2362,16 +2508,21 @@ def main(argv=None) -> int:
         return time.perf_counter() - t
 
     t = time.perf_counter()
-    sources = ((sd, sd.build_kernel), (fl, fl.build_lstm_kernel), (wd, wd.build_kernel),
-               (td, td.build_kernel), (tk, tk.build_kernel), (jbd, jbd.build_kernel))
+    # (source, the holder of its compiler output, its build)
+    sources = ((sd.SOURCE, sd._Kernel, sd.build_kernel),
+               (fl.SOURCE, fl._Kernel, fl.build_lstm_kernel),
+               (wd.SOURCE, wd._Kernel, wd.build_kernel), (td.SOURCE, td._Kernel, td.build_kernel),
+               (tk.SOURCE, tk._Kernel, tk.build_kernel),
+               (jbd.SOURCE, jbd._Kernel, jbd.build_kernel),
+               (jbd.CLUSTER_SOURCE, jbd._ClusterKernel, jbd.build_cluster_kernel))
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, started together
-        builds = [(mod, pool.submit(timed_build, b)) for mod, b in sources]
-        builds = [(mod, f.result()) for mod, f in builds]
-    for mod, build_s in builds:
-        for line in mod._Kernel.build_log.splitlines():
+        builds = [(src, held, pool.submit(timed_build, b)) for src, held, b in sources]
+        builds = [(src, held, f.result()) for src, held, f in builds]
+    for src, held, build_s in builds:
+        for line in held.build_log.splitlines():
             if "registers" in line or "spill" in line:
                 log("  ptxas:", line.strip())
-        log(f"  built {mod.SOURCE.name} for sm_90a in {build_s:.1f} s")
+        log(f"  built {src.name} for sm_90a in {build_s:.1f} s")
     log(f"  the {len(sources)} builds took {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
     cat.categorical(torch.zeros(2, 8).cuda(), 1.0, 0)  # compiles the Triton kernel
@@ -2387,9 +2538,11 @@ def main(argv=None) -> int:
         wavenet_bench(torch, mmk, wd, cat)
         transformer_bench(torch, mmk, td, tk)
         jb_net, jb_prompts, jb_launches, _ = jukebox_path(torch, mmk, jbd)
+        jukebox_bench(torch, jbd, jb_net)
         jukebox_rows(torch, jbd, mu, jb_net, jb_prompts,
                      {**jb_launches, "mulaw_compress": 0, "mulaw_expand": 0},
-                     {"jukebox_decode_pyramid": 0.0, "mulaw_compress": 0.0, "mulaw_expand": 0.0})
+                     {"jukebox_decode_pyramid": 0.0, "jukebox_decode_cluster": 0.0,
+                      "mulaw_compress": 0.0, "mulaw_expand": 0.0})
         log(card)
         return 0
 
@@ -2419,8 +2572,8 @@ def main(argv=None) -> int:
     err = merge_max(err, check_transformer(torch, mmk, td, tk, TF_SMALL_LONG, 100, (1, 2), (1, 16),
                                            (100 + 15, 7, 64), jitter=0.5))
     stamp("K6 and K7, small, f32 and bf16")
-    err.update(check_jukebox(torch, mmk, jbd, JB_SMALL, (1, JB_B), 300, (300 + 15, 7, 64),
-                             jitter=0.3))
+    err.update(check_jukebox(torch, mmk, jbd, JB_SMALL, JB_CHECK_BATCHES, 300,
+                             (300 + 15, 7, 64), jitter=0.3))
     err.update(check_mulaw(torch, mu))
     stamp("K8 and K10, small")
     if args.quick:
@@ -2446,8 +2599,8 @@ def main(argv=None) -> int:
     err_full = merge_max(err_full, check_transformer(torch, mmk, td, tk, TF_LONG, 48, (1, 2),
                                                      (1, 16), (48 + 63, 20), jitter=0.0))
     stamp("K6 and K7 at rf 512")
-    err_full.update(check_jukebox(torch, mmk, jbd, JB_FULL, (1, JB_B), 256, (256 + 15, 100),
-                                  jitter=0.0))
+    err_full.update(check_jukebox(torch, mmk, jbd, JB_FULL, JB_CHECK_BATCHES, 256,
+                                  (256 + 15, 100), jitter=0.0))
     stamp("K8, full width")
     err = {k: max(err[k], err_full.get(k, 0.0)) for k in err}
     check_train_step(torch, mmk)
@@ -2483,9 +2636,10 @@ def main(argv=None) -> int:
     tf16_launches, gap = transformer_bf16_path(torch, mmk, td, tk, tf_net, tf_prompts)
     err["transformer_decode_chunk_bf16"] = max(err["transformer_decode_chunk_bf16"], gap)
     stamp("transformer8l, bf16")
-    jb_net, jb_prompts, jb_launches, gap = jukebox_path(torch, mmk, jbd)
+    jb_net, jb_prompts, jb_launches, gaps = jukebox_path(torch, mmk, jbd)
+    err = merge_max(err, gaps)
+    jukebox_route_sweep(torch, jbd, jb_net, jbd.jukebox_weight_pack(jb_net))
     stamp("jukebox3")
-    err["jukebox_decode_pyramid"] = max(err["jukebox_decode_pyramid"], gap)
 
     # -- phase 4 -------------------------------------------------------------
     log(f"phase 4: the training path at full width (at {time.perf_counter() - t_start:.1f} s)")

@@ -37,10 +37,11 @@
 // 8 rows) and a slice of K, with 8 loads in flight; the K slices' partial
 // sums meet in shared memory.  So a step is bound by one SM's L2 read rate
 // and the chain of ~60 block-barrier stages, each opening on an L2 round
-// trip; B streams cost about the same as one up to one stream an SM.
-// Holding each tier's weights in the shared memory of a cluster of blocks
-// (one stream spread over 8-16 SMs, activations exchanged through
-// distributed shared memory) is the next step.
+// trip; B streams cost about the same as one up to one stream an SM.  This
+// kernel serves batches of more than _K8_CLUSTER_MAX_B streams
+// (ops/jukebox_decode.decode_pyramid); narrower ones go to the cluster kernel
+// of jukebox_cluster.cu, which spreads one stream over a thread-block
+// cluster and keeps each block's slice of the weights in its shared memory.
 //
 // Randomness: the port's counter hash of (seed, absolute position, stream,
 // class) (noise.cuh), which the plain twin computes too.

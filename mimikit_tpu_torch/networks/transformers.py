@@ -40,11 +40,15 @@ JukeBox serving routes:
 * ``generate``: the prompt left-padded with zeros to the window, then, for a
   net in the tier-pyramid kernel's scope
   (:func:`~..ops.jukebox_decode.supports_kernel_decode`), one launch of K8
-  (:func:`~..ops.jukebox_decode.decode_pyramid`) at every B; outside the
-  scope the window re-feed with its one-token lead;
+  (:func:`~..ops.jukebox_decode.decode_pyramid`) at every B: up to
+  ``_K8_CLUSTER_MAX_B`` streams on the cluster kernel (a stream a cluster
+  of blocks, ``csrc/jukebox_cluster.cu``), more on the block kernel (a
+  stream a block, ``csrc/jukebox_decode.cu``); outside the scope the window
+  re-feed with its one-token lead;
 * ``stream``: in the scope, one K8 launch a chunk with the (B, W) lead window
-  carried on the card and the weight pack built once a stream; outside it,
-  the window re-feed (``_refeed_stream``, which re-feeds ``_window_len()``
+  carried on the card and the weight pack built once a stream (the kernel
+  chosen by B alone, so every chunk takes the same one); outside it, the
+  window re-feed (``_refeed_stream``, which re-feeds ``_window_len()``
   tokens).
 
 bf16 routes, ``MMK_DECODE_BF16=1`` (``transformers.py:326-372,735-748``):
@@ -804,7 +808,9 @@ class JukeBox(_StatefulTransformerARM, JukeBoxCore):
         """Decode ``n_steps`` tokens after each prompt (``:1216-1247``); a
         prompt shorter than the window is left-padded with zeros, then
         stripped.  A net in the kernel's scope decodes in one launch of the
-        tier-pyramid kernel (K8) at every B; others run the window re-feed.
+        tier-pyramid kernel (K8) at every B, the cluster kernel up to
+        ``_K8_CLUSTER_MAX_B`` streams, the block kernel beyond; others run
+        the window re-feed.
         ``temperature`` None is argmax.  Returns a tuple of one (B, prior_t +
         n_steps) tensor on the network's device."""
         return self._generate(prompts, n_steps, temperature, seed, None)
@@ -829,8 +835,10 @@ class JukeBox(_StatefulTransformerARM, JukeBoxCore):
                seed: Optional[int] = None):
         """Unbounded generation: yield (B, chunk_steps) numpy token chunks
         forever (``:1249-1385``).  In the kernel's scope: one K8 launch a
-        chunk, the (B, W) lead window — JukeBox's whole decode state — carried
-        on the device between launches, the weight pack built once; noise is
+        chunk (the cluster or the block kernel, chosen by B alone, so one for
+        the whole stream), the (B, W) lead window — JukeBox's whole decode
+        state — carried on the device between launches, the weight pack
+        built once; noise is
         keyed by absolute position, so the stream equals one long ``generate``
         with the same seed, argmax or sampled.  Otherwise the window
         re-feed."""

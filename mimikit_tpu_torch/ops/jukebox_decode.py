@@ -1,6 +1,6 @@
-"""JukeBox tier-pyramid decode: the CUDA kernel, its wrapper and its plain twin.
+"""JukeBox tier-pyramid decode: two CUDA kernels, their wrapper and their plain twin.
 
-The kernel (``csrc/jukebox_decode.cu``) replaces the TPU kernel
+The kernels replace the TPU kernel
 ``make_jukebox_pallas_decoder`` (K8, ``mimikit_tpu/ops/pallas_decode.py:2386``,
 gate ``supports_pallas_jukebox`` ``:2227``, pack ``jukebox_weight_pack``
 ``:2286``): the whole autoregressive loop in one launch.  Each step reads
@@ -17,32 +17,51 @@ head divides its logits by max(sigmoid(extra logit), min_temperature), then
 by the temperature plus Gumbel noise when sampling; the argmax token fills
 the placeholder and the window moves on by one.
 
+Two kernels compute that step, on the same pack, window and noise:
+
+* the cluster kernel (``csrc/jukebox_cluster.cu``): one stream on a
+  thread-block cluster of 8 or 16 blocks, each holding its slice
+  of every product's weights in its shared memory (:func:`cluster_plan`,
+  laid out by :func:`cluster_layout`), the activations exchanged through
+  distributed shared memory;
+* the block kernel (``csrc/jukebox_decode.cu``): one stream a block, the
+  weights read from L2.
+
+:func:`decode_pyramid` routes a CUDA window of at most ``_K8_CLUSTER_MAX_B``
+streams, of a net whose plan fits, to the cluster kernel (clusters of 16
+blocks up to 7 streams, of 8 up to 15: ``K8_CLUSTER_ROUTE``), wider batches
+to the block kernel: by B and the widths alone, so a stream keeps one kernel.
+
 This module holds:
 
 * :func:`supports_kernel_decode`, the scope gate (``supports_pallas_jukebox``
-  plus the kernel's own limits);
+  plus the block kernel's own limits);
 * :func:`jukebox_weight_pack`, the kernel's view of the weights;
 * :func:`lead_window`, the (B, W) window of a padded prompt;
 * :func:`pyramid_scores` (a batch of windows at once, for teacher forcing)
   and :func:`decode_pyramid_plain`, the plain twin;
-* :func:`decode_pyramid`, the counted wrapper, which leaves the advanced
+* :func:`cluster_plan` and :func:`cluster_layout`, the cluster kernel's
+  residency plan and its relaid weights;
+* :func:`decode_pyramid`, the counted wrapper (``launches``, both kernels;
+  ``launches_cluster``, the cluster kernel), which leaves the advanced
   window in place, so a stream carries it from one launch to the next.
 
 Not carried over: the per-row bias tiling of ``jukebox_weight_pack``
 (``pallas_decode.py:2289-2307``), which works around a Mosaic layout rule,
 and the ``pltpu.roll`` framing and frame-major row order (``:2417-2423,
 2536-2559``), Mosaic layout choices; the kernel's rows are a stream's frames
-in order.  What bounds the kernel on an H100, and what its design does about
-it, is in the source note of the ``.cu`` file.  The wrapper's rule: a CPU
-tensor takes the plain twin, a CUDA tensor launches the kernel or raises;
-there is no fallback.  The kernel is built with ``nvcc`` at first use into
-``build/kernels/`` (:mod:`.nvcc`); nothing is compiled when this module is
-imported.
+in order.  What bounds each kernel on an H100, and what its design does
+about it, is in the source note of its ``.cu`` file.  The wrapper's rule: a
+CPU tensor takes the plain twin, a CUDA tensor launches a kernel or raises;
+there is no fallback.  Each kernel is built with ``nvcc`` at first use into
+``build/kernels/`` (:mod:`.nvcc`), as a library of its own; nothing is
+compiled when this module is imported.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses as dtc
+import functools
 import warnings
 from pathlib import Path
 from typing import Optional, Tuple
@@ -64,6 +83,13 @@ MAX_HEAD = 8  # head layers, JB_MAX_HEAD
 MAX_ROWS = 8  # rows one pass of a product keeps in registers, JB_MAXR
 MAX_COLS = 2048  # columns of the widest product, JB_MAXN
 SOURCE = CSRC / "jukebox_decode.cu"
+# decode_pyramid's route (chip_smoke.py's jukebox_route_sweep times both kernels,
+# at both cluster sizes, at B = 1 .. 64): (the most streams, the cluster size) in
+# order, the first that admits B and whose plan fits the net; beyond the last,
+# the block kernel.  A cluster decodes one stream at a time: 7 clusters of 16
+# blocks fit on an H100 at jukebox3's shared memory, 15 of 8.
+K8_CLUSTER_ROUTE = ((7, 16), (15, 8))
+_K8_CLUSTER_MAX_B = K8_CLUSTER_ROUTE[-1][0]
 
 
 def _r4(n: int) -> int:
@@ -381,6 +407,318 @@ def decode_pyramid_plain(pack: JukeBoxPack, window: torch.Tensor, t0: int, n_ste
     return out
 
 
+# -- the cluster kernel's residency plan --------------------------------------------
+
+CLUSTER_SOURCE = CSRC / "jukebox_cluster.cu"
+CLUSTER_SIZES = (8, 16)  # the cluster sizes jukebox_cluster.cu instantiates
+K8_CLUSTER_SIZE = 16  # the size a launch takes when none is named (a single stream's)
+RING_SLOTS = 4  # JC ring: streamed pieces in flight
+SLOT_FLOATS = 2048  # floats a ring slot holds (8 KB)
+TAB_HEADER = 4  # ints before a rank's unit table: base, loaded floats, pieces, units
+RED_FLOATS = 4096  # a product's partial sums (JC_RED)
+# the order in which kinds of product stream when a block's slices outgrow its
+# shared memory: every layer's q|k|v first, then the FFN's, ..., so that the
+# streamed pieces spread over the step and each copy is issued stages ahead
+STREAM_ORDER = ("qkv", "w1", "w2", "ckv", "wo", "co", "cq", "up", "fd", "h0", "h1", "h2", "h3",
+                "h4", "h5", "h6", "h7", "bot")
+
+
+Geometry = Tuple  # (d, n_heads, ff, layers, W, Q, frames, n_frames, t_up, head_dims)
+
+
+def geometry(pack: JukeBoxPack) -> Geometry:
+    """The widths a residency plan depends on, as a hashable tuple."""
+    return (pack.dim, pack.n_heads, pack.ff, pack.n_layers, pack.window, pack.q_levels,
+            tuple(pack.frames), tuple(pack.n_frames), tuple(pack.t_up),
+            tuple(tuple(x) for x in pack.head_dims))
+
+
+@dtc.dataclass(frozen=True)
+class ClusterUnit:
+    """One product of a step as the cluster splits it: ``src`` (K, N) in the
+    pack, its bias ``bias`` (and, for a framed dense, the PE rows ``pe``),
+    and for each rank the pack columns of its slice, in the order the
+    kernel writes them (a multiple of 4; possibly none)."""
+
+    name: str
+    src: str
+    bias: str
+    K: int
+    N: int
+    cols: Tuple[Tuple[int, ...], ...]
+    pe: Optional[str] = None
+    pe_rows: int = 0
+
+
+@dtc.dataclass(frozen=True)
+class ClusterPlan:
+    """Where each rank of a cluster of ``cl`` blocks keeps its slice of each
+    product (:func:`cluster_plan`).  ``resident[r][u]``: unit u's slice lies
+    in rank r's shared memory for the whole launch, else it streams through
+    the ring, in pieces of whole column quads of at most ``SLOT_FLOATS``.
+    ``small[r]``: floats of its layer norms, biases and PE rows (always
+    resident); ``act_floats``: the activations, scratch, table and barriers,
+    laid out alike in every block; ``smem_bytes``: one block's dynamic
+    shared memory; ``fits`` False (with ``why``) where the kernel cannot run
+    the net at this cluster size."""
+
+    cl: int
+    units: Tuple[ClusterUnit, ...]
+    resident: Tuple[Tuple[bool, ...], ...]
+    small: Tuple[int, ...]
+    ymax: int
+    tab_ints: int
+    act_floats: int
+    wreg_floats: int
+    smem_bytes: int
+    fits: bool
+    why: str = ""
+
+    def slice_floats(self, u: int, r: int) -> int:
+        unit = self.units[u]
+        return unit.K * len(unit.cols[r])
+
+    def bytes(self, r: int, resident: bool) -> int:
+        """Rank r's weight bytes a step that are resident (or streamed)."""
+        return 4 * sum(self.slice_floats(u, r) for u in range(len(self.units))
+                       if self.resident[r][u] == resident)
+
+    def pieces(self, r: int):
+        """Rank r's streamed pieces of a step, in order: (unit, first quad,
+        quads)."""
+        out = []
+        for u, unit in enumerate(self.units):
+            q = len(unit.cols[r]) // 4
+            if self.resident[r][u] or q == 0:
+                continue
+            per = max(1, SLOT_FLOATS // (4 * unit.K))
+            out += [(u, q0, min(per, q - q0)) for q0 in range(0, q, per)]
+        return out
+
+
+def _split(n: int, cl: int, r: int) -> Tuple[int, int]:
+    """Rank r's share [lo, hi) of n items over cl ranks (jc_split in the .cu)."""
+    return r * n // cl, (r + 1) * n // cl
+
+
+def _heads(nH: int, cl: int, r: int) -> Tuple[int, int, int, int]:
+    """(first head, heads, ranks a head, this rank's part of the head's rows)
+    of rank r: heads are whole within a block; with more ranks than heads,
+    cl / nH ranks share a head and split its query rows."""
+    hpr, rph = max(1, nH // cl), max(1, cl // nH)
+    return (r // rph) * hpr, hpr, rph, r % rph
+
+
+def _units(g: Geometry, cl: int) -> Tuple[ClusterUnit, ...]:
+    """Every product of a step, in the order the kernel runs them."""
+    d, nH, ff, L, W, Q, fs, n_frames, t_up, head_dims = g
+    dH = d // nH
+    rng = lambda lo, hi: tuple(range(lo, hi))  # noqa: E731
+
+    def quads(n):  # rank r's columns of an n-column output split in quads
+        return tuple(rng(4 * _split(n // 4, cl, r)[0], 4 * _split(n // 4, cl, r)[1])
+                     for r in range(cl))
+
+    def heads(offsets):  # rank r's head columns at each offset
+        out = []
+        for r in range(cl):
+            h0, hpr, _, _ = _heads(nH, cl, r)
+            out.append(sum((rng(o + h0 * dH, o + (h0 + hpr) * dH) for o in offsets), ()))
+        return tuple(out)
+
+    dcols, n_up = quads(d), len(fs) - 1
+    units = []
+    for i in range(n_up):
+        units.append(ClusterUnit(f"fd.{i}", f"win.{i}", f"bin.{i}", fs[i], d, dcols, f"pe.{i}",
+                                 n_frames[i]))
+        if i > 0:
+            t = t_up[i - 1]
+            cols = tuple(sum((tuple(c * d + x for x in dcols[r]) for c in range(t)), ())
+                         for r in range(cl))
+            units.append(ClusterUnit(f"up.{i - 1}", f"wup.{i - 1}", f"bup.{i - 1}", d, t * d,
+                                     cols))
+        for l in range(L):
+            if l == 0:
+                for l2 in range(L):
+                    units.append(ClusterUnit(f"ckv.{i}.{l2}", f"wckv.{i}", f"bckv.{i}", d,
+                                             2 * L * d, heads((2 * l2 * d, (2 * l2 + 1) * d))))
+            lay = lambda k: f"{k}.{i}.{l}"  # noqa: E731
+            units += [
+                ClusterUnit(lay("qkv"), lay("wqkv"), lay("bqkv"), d, 3 * d,
+                            heads((0, d, 2 * d))),
+                ClusterUnit(lay("wo"), lay("wo"), lay("bo"), d, d, dcols),
+                ClusterUnit(lay("cq"), lay("wcq"), lay("bcq"), d, d, heads((0,))),
+                ClusterUnit(lay("co"), lay("wco"), lay("bco"), d, d, dcols),
+                ClusterUnit(lay("w1"), lay("w1"), lay("b1"), d, ff, quads(ff)),
+                ClusterUnit(lay("w2"), lay("w2"), lay("b2"), ff, d, dcols),
+            ]
+    t = t_up[-1]
+    units.append(ClusterUnit("bot", "wbot", "bbot", fs[-1], d, dcols))
+    units.append(ClusterUnit(f"up.{n_up - 1}", f"wup.{n_up - 1}", f"bup.{n_up - 1}", d, t * d,
+                             tuple(tuple((t - 1) * d + x for x in dcols[r]) for r in range(cl))))
+    for k, (k_in, k_out) in enumerate(head_dims):
+        units.append(ClusterUnit(f"h{k}", f"wh{k}", f"bh{k}", k_in, k_out, quads(k_out)))
+    return tuple(units)
+
+
+def act_floats(g: Geometry, cl: int, ymax: int, tab_ints: int) -> int:
+    """Floats of the buffers laid out alike in every block (``jc_carve``):
+    the exchanged rows (x0, h, att, ffh, two head rows), the local ones
+    (normed rows, the block's q|k|v and every layer's cross k|v, two product
+    outputs), the partial sums, the window, the argmax's partials, the unit
+    table and the ring's barriers."""
+    d, nH, ff, L, W, Q, fs, n_frames, t_up, head_dims = g
+    R = max(n_frames)
+    _, hpr, _, _ = _heads(nH, cl, 0)
+    dHo = hpr * (d // nH)
+    hw = _r4(max([d] + [w for dims in head_dims for w in dims]))
+    return (4 * R * d + R * ff + 2 * hw + R * 3 * dHo + R * 2 * L * dHo + 2 * R * ymax
+            + RED_FLOATS + 2 * _r4(W) + 32 + _r4(tab_ints) + _r4(2 * (RING_SLOTS + 1)))
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(g: Geometry, cl: int) -> ClusterPlan:
+    d, nH, ff, L, W, Q, fs, n_frames, t_up, head_dims = g
+    units = _units(g, cl) if nH % cl == 0 or cl % nH == 0 else ()
+    n_up, dH = len(fs) - 1, d // nH
+    small = []
+    for r in range(cl):
+        s = n_up * L * 3 * 2 * d
+        for unit in units:
+            s += len(unit.cols[r]) * (1 + unit.pe_rows)
+        small.append(s)
+    ymax = max((len(c) for unit in units for c in unit.cols), default=4)
+    slices = [[unit.K * len(unit.cols[r]) for unit in units] for r in range(cl)]
+    # the table has room for every unit streamed: its size may not depend on the choice
+    most_pieces = max((sum(-(-len(unit.cols[r]) // 4 // max(1, SLOT_FLOATS // (4 * unit.K)))
+                           for unit in units) for r in range(cl)), default=0)
+    tab_ints = TAB_HEADER + 3 * len(units) + 2 * most_pieces
+    act = act_floats(g, cl, ymax, tab_ints)
+    budget = SMEM_PER_BLOCK // 4 - act - RING_SLOTS * SLOT_FLOATS
+    resident = []
+    for r in range(cl):
+        row, over = [True] * len(units), small[r] + sum(slices[r]) - budget
+        for kind in STREAM_ORDER:  # stream kind by kind, each in step order, until the rest fits
+            for u, unit in enumerate(units):
+                if over > 0 and unit.name.split(".")[0] == kind and slices[r][u]:
+                    row[u] = False
+                    over -= slices[r][u]
+        resident.append(tuple(row))
+    wreg = _r4(max((small[r] + sum(f for f, k in zip(slices[r], resident[r]) if k)
+                    for r in range(cl)), default=0))
+    smem = 4 * (act + wreg + RING_SLOTS * SLOT_FLOATS)
+    why = ""
+    if cl not in CLUSTER_SIZES:
+        why = f"cluster size {cl} is not one of {CLUSTER_SIZES}"
+    elif not units:
+        why = f"{nH} heads do not divide among {cl} blocks, nor {cl} blocks among them"
+    elif dH % 4:
+        why = f"a head's width {dH} is not a multiple of 4"
+    elif any(4 * unit.K > SLOT_FLOATS for unit in units):
+        why = "a product's depth outgrows a ring slot"
+    elif max(n_frames) > 32 or MAX_ROWS * ymax > RED_FLOATS:
+        why = "a tier's frames outgrow a warp's attention, or a slice the partial sums"
+    elif min(budget - s for s in small) < 0 or smem > SMEM_PER_BLOCK:
+        why = f"{smem} bytes of shared memory a block"
+    return ClusterPlan(cl=cl, units=units, resident=tuple(resident), small=tuple(small),
+                       ymax=ymax, tab_ints=tab_ints, act_floats=act, wreg_floats=wreg,
+                       smem_bytes=smem, fits=not why, why=why)
+
+
+def cluster_plan(pack: JukeBoxPack, cl: Optional[int] = None) -> ClusterPlan:
+    """The residency plan of ``pack``'s net on a cluster of ``cl`` blocks, a
+    pure function of its widths and ``cl``: for every product of a step, in
+    step order, each rank's column slice (whole heads for q|k|v, the cross
+    q and the cross k|v; an even share of column quads for the rest), its
+    bytes, and whether it stays in the rank's shared memory (first fit in
+    232,448 bytes less the activations, the table and a ring of
+    ``RING_SLOTS`` x ``SLOT_FLOATS``) or streams through the ring; what
+    streams is chosen kind by kind in ``STREAM_ORDER`` (every layer's q|k|v
+    first), each kind in step order, until the rest fits, so that the
+    streamed pieces spread over the step.  ``cl`` defaults to
+    ``K8_CLUSTER_SIZE``."""
+    return _plan(geometry(pack), cl or K8_CLUSTER_SIZE)
+
+
+def _layout_np(plan: ClusterPlan, g: Geometry, offsets: Tuple):
+    """(index into the pack's flat weights of every float of the relaid
+    buffer, (cl, tab_ints) int32 tables).  Rank r's region: its layer norms
+    (tier, layer, norm: scale then offset), each unit's bias slice (a framed
+    dense's PE rows after it), its resident slices, then its streamed pieces;
+    a resident slice, and each piece of a streamed one (whole column quads),
+    is k-major: row k's columns together."""
+    d, nH, ff, L, W, Q, fs, n_frames, t_up, head_dims = g
+    off = dict((name, (o, shape)) for name, o, shape in offsets)
+    n_up = len(fs) - 1
+    parts, tabs, base = [], np.zeros((plan.cl, plan.tab_ints), np.int32), 0
+
+    def slice_idx(unit, cols, q0, nq):  # quads q0 .. q0 + nq of the slice, k-major
+        o, _ = off[unit.src]
+        c = np.asarray(cols, np.int64)[4 * q0 : 4 * (q0 + nq)]
+        return (o + np.arange(unit.K)[:, None] * unit.N + c[None, :]).ravel()
+
+    for r in range(plan.cl):
+        idx = [off[f"{k}_{x}.{i}.{l}"][0] + np.arange(d) for i in range(n_up) for l in range(L)
+               for k in ("ln1", "ln2", "ln3") for x in ("w", "b")]
+        pos, rows = n_up * L * 6 * d, []
+        for u, unit in enumerate(plan.units):
+            cols = np.asarray(unit.cols[r], np.int64)
+            rows.append([0, pos, len(cols) // 4])
+            idx.append(off[unit.bias][0] + cols)
+            pos += len(cols)
+            if unit.pe is not None:
+                pe = off[unit.pe][0] + np.arange(unit.pe_rows)[:, None] * d + cols
+                idx.append(pe.ravel())
+                pos += unit.pe_rows * len(cols)
+        for u, unit in enumerate(plan.units):
+            if plan.resident[r][u]:
+                rows[u][0] = pos
+                idx.append(slice_idx(unit, unit.cols[r], 0, len(unit.cols[r]) // 4))
+                pos += plan.slice_floats(u, r)
+            else:
+                rows[u][0] = -1
+        n_load, pieces = pos, []
+        for u, q0, nq in plan.pieces(r):
+            unit = plan.units[u]
+            pieces.append((pos, nq * 4 * unit.K))
+            idx.append(slice_idx(unit, unit.cols[r], q0, nq))
+            pos += nq * 4 * unit.K
+        tab = [base, n_load, len(pieces), len(plan.units)] + sum(rows, []) + sum(
+            (list(p) for p in pieces), [])
+        tabs[r, : len(tab)] = tab
+        region = np.concatenate(idx) if idx else np.zeros(0, np.int64)
+        parts.append(np.concatenate([region, np.zeros(-len(region) % 4, np.int64)]))
+        base += len(parts[-1])
+    return np.concatenate(parts), tabs
+
+
+@functools.lru_cache(maxsize=8)
+def _layout_cached(g: Geometry, cl: int, offsets: Tuple):
+    return _layout_np(_plan(g, cl), g, offsets)
+
+
+_LAYOUT_ON_DEVICE = {}
+
+
+def cluster_layout(pack: JukeBoxPack, cl: Optional[int] = None):
+    """(relaid weights, tables, plan) of ``pack`` for clusters of ``cl``
+    blocks, on the pack's device: one gather of the pack's flat weights, by
+    an index cached for the net's widths and layout; kept on the pack."""
+    cl = cl or K8_CLUSTER_SIZE
+    cache = pack.__dict__.setdefault("_cluster", {})
+    if cl not in cache:
+        g = geometry(pack)
+        offsets = tuple(sorted((k, o, tuple(s)) for k, (o, s) in pack.offsets.items()))
+        key = (g, cl, offsets, str(pack.flat.device))
+        if key not in _LAYOUT_ON_DEVICE:
+            idx, tabs = _layout_cached(g, cl, offsets)
+            _LAYOUT_ON_DEVICE[key] = (torch.from_numpy(idx).to(pack.flat.device),
+                                      torch.from_numpy(tabs).to(pack.flat.device))
+        idx, tabs = _LAYOUT_ON_DEVICE[key]
+        cache[cl] = (pack.flat.index_select(0, idx), tabs, _plan(g, cl))
+    return cache[cl]
+
+
 # -- the kernel: build, bind, launch -------------------------------------------------
 
 class _Args(ctypes.Structure):
@@ -522,15 +860,154 @@ def _launch(pack: JukeBoxPack, window: torch.Tensor, t0: int, n_steps: int, seed
     return out
 
 
+# -- the cluster kernel: build, bind, launch ---------------------------------------------
+
+class _ClArgs(ctypes.Structure):
+    """Mirror of ``JcArgs`` in ``csrc/jukebox_cluster.cu``."""
+
+    _fields_ = [
+        ("cw", ctypes.c_void_p),
+        ("tab", ctypes.c_void_p),
+        ("window", ctypes.c_void_p),
+        ("out", ctypes.c_void_p),
+        ("barriers", ctypes.c_void_p),
+        ("t0", ctypes.c_longlong),
+        ("frame", ctypes.c_int * (MAX_TIERS + 1)),
+        ("n_frames", ctypes.c_int * MAX_TIERS),
+        ("t_up", ctypes.c_int * MAX_TIERS),
+        ("head_in", ctypes.c_int * MAX_HEAD),
+        ("head_out", ctypes.c_int * MAX_HEAD),
+        *[(name, ctypes.c_int) for name in (
+            "n_up", "B", "n_steps", "W", "d", "n_heads", "ff", "n_layers", "Q", "n_head", "rows",
+            "head_width", "ymax", "tab_ints", "wreg_floats", "n_slots", "slot_floats",
+            "smem_bytes", "mish_ffn", "argmax")],
+        ("seed", ctypes.c_uint),
+        ("temperature", ctypes.c_float),
+        ("min_temperature", ctypes.c_float),
+        ("inv_sqrt_dh", ctypes.c_float),
+    ]
+
+
+class _ClusterKernel:
+    """The cluster kernel's library (one per process) and its compiler output."""
+
+    lib = None
+    build_log = ""
+
+
+def build_cluster_kernel() -> Path:
+    """Compile ``csrc/jukebox_cluster.cu`` for sm_90a into ``build/kernels/``
+    and return the library's path."""
+    path, log = build_library(CLUSTER_SOURCE, "mmk_jukebox_cluster")
+    if log:
+        _ClusterKernel.build_log = log
+    return path
+
+
+def _cluster_library():
+    if _ClusterKernel.lib is None:
+        lib = ctypes.CDLL(str(build_cluster_kernel()))
+        lib.mmk_jc_decode.argtypes = [ctypes.POINTER(_ClArgs), ctypes.c_int, ctypes.c_void_p,
+                                      ctypes.POINTER(ctypes.c_int)]
+        lib.mmk_jc_decode.restype = ctypes.c_int
+        lib.mmk_jc_args_size.argtypes = []
+        lib.mmk_jc_args_size.restype = ctypes.c_int
+        lib.mmk_jc_error_string.argtypes = [ctypes.c_int]
+        lib.mmk_jc_error_string.restype = ctypes.c_char_p
+        if lib.mmk_jc_args_size() != ctypes.sizeof(_ClArgs):
+            raise RuntimeError("JcArgs layout differs between C and Python")
+        _ClusterKernel.lib = lib
+    return _ClusterKernel.lib
+
+
+def _launch_cluster(pack: JukeBoxPack, window: torch.Tensor, t0: int, n_steps: int, seed: int,
+                    temperature: Optional[float], cl: Optional[int] = None) -> torch.Tensor:
+    dev = pack.flat.device
+    if dev.type != "cuda":
+        raise ValueError(f"the cluster tier-pyramid kernel runs on CUDA tensors, got {dev}")
+    B = window.shape[0]
+    _check_pack(pack, dev)
+    _check(window, "window", torch.int32, (B, pack.window), dev)
+    if temperature is not None and not temperature > 0:
+        raise ValueError(f"temperature must be > 0, got {temperature}")
+    cl = cl or K8_CLUSTER_SIZE
+    cw, tabs, plan = cluster_layout(pack, cl)
+    if not plan.fits:
+        raise ValueError(f"the net is outside the cluster kernel's plan at {cl} blocks: {plan.why}")
+    out = torch.empty(B, n_steps, dtype=torch.int32, device=dev)
+    if n_steps == 0 or B == 0:
+        return out
+    lib = _cluster_library()
+    a = _ClArgs()
+    b = _Args()
+    _fill_args(b, pack)
+    for name in ("frame", "n_frames", "t_up", "head_in", "head_out"):
+        getattr(a, name)[:] = getattr(b, name)[:]
+    for name in ("n_up", "W", "d", "n_heads", "ff", "n_layers", "Q", "n_head", "rows",
+                 "head_width", "mish_ffn", "min_temperature", "inv_sqrt_dh"):
+        setattr(a, name, getattr(b, name))
+    a.ymax, a.tab_ints, a.wreg_floats = plan.ymax, plan.tab_ints, plan.wreg_floats
+    a.n_slots, a.slot_floats, a.smem_bytes = RING_SLOTS, SLOT_FLOATS, plan.smem_bytes
+    a.B, a.n_steps, a.t0 = B, n_steps, t0
+    a.argmax = int(temperature is None)
+    a.seed = seed & 0xFFFFFFFF
+    a.temperature = 1.0 if temperature is None else float(temperature)
+    barriers = torch.zeros(1, dtype=torch.int64, device=dev)
+    a.cw, a.tab, a.window, a.out = cw.data_ptr(), tabs.data_ptr(), window.data_ptr(), out.data_ptr()
+    a.barriers = barriers.data_ptr()
+    clusters = ctypes.c_int(0)
+    err = lib.mmk_jc_decode(ctypes.byref(a), cl, torch.cuda.current_stream(dev).cuda_stream,
+                            ctypes.byref(clusters))
+    if err != 0:
+        raise RuntimeError("cluster tier-pyramid decode kernel launch failed: "
+                           f"{lib.mmk_jc_error_string(err).decode()}")
+    decode_pyramid.launches += 1
+    decode_pyramid.launches_cluster += 1
+    decode_pyramid.last_barriers = barriers
+    decode_pyramid.last_clusters = clusters.value
+    decode_pyramid.last_cluster_size = cl
+    return out
+
+
 def decode_pyramid(pack: JukeBoxPack, window: torch.Tensor, t0: int, n_steps: int, seed: int,
                    temperature: Optional[float]) -> torch.Tensor:
     """K8's route: decode ``n_steps`` tokens from the (B, W) int32 lead
     ``window`` in one launch, the first at absolute position ``t0`` (its
     noise keyed by that position).  Returns (B, n_steps) int32 and leaves
-    the advanced window in ``window``."""
+    the advanced window in ``window``.  A CUDA window of at most
+    ``_K8_CLUSTER_MAX_B`` streams, of a net whose residency plan fits,
+    launches the cluster kernel (``csrc/jukebox_cluster.cu``) at the cluster
+    size ``K8_CLUSTER_ROUTE`` names for B, a wider one the block kernel
+    (``csrc/jukebox_decode.cu``): the route depends on B and the widths only,
+    so every chunk of a stream takes one kernel."""
     if window.device.type == "cpu":
         return decode_pyramid_plain(pack, window, t0, n_steps, seed, temperature)
+    cl = cluster_size_for(pack, window.shape[0])
+    if cl is not None:
+        return _launch_cluster(pack, window, t0, n_steps, seed, temperature, cl=cl)
     return _launch(pack, window, t0, n_steps, seed, temperature)
 
 
-decode_pyramid.launches = 0
+def cluster_size_for(pack: JukeBoxPack, B: int) -> Optional[int]:
+    """The cluster size :func:`decode_pyramid` launches B streams of
+    ``pack``'s net with (on a CUDA window), from ``K8_CLUSTER_ROUTE``; None
+    for the block kernel."""
+    for most, cl in K8_CLUSTER_ROUTE:
+        if B <= most and cluster_plan(pack, cl).fits:
+            return cl
+    return None
+
+
+def uses_cluster_kernel(pack: JukeBoxPack, B: int) -> bool:
+    """Whether :func:`decode_pyramid` sends B streams of ``pack``'s net to
+    the cluster kernel (on a CUDA window)."""
+    return cluster_size_for(pack, B) is not None
+
+
+decode_pyramid.launches = 0  # both kernels' launches
+decode_pyramid.launches_cluster = 0  # the cluster kernel's
+# the cluster barriers block 0 passed in its first stream's steps in the last
+# cluster launch (a (1,) device tensor), and the clusters that fitted on the card
+decode_pyramid.last_barriers = None
+decode_pyramid.last_clusters = 0
+decode_pyramid.last_cluster_size = 0

@@ -756,6 +756,124 @@ def jukebox_task(inp: dict) -> dict:
     return out
 
 
+def jukebox_cluster_task(inp: dict) -> dict:
+    """The cluster kernel's residency plan and relayout at each net's widths
+    and cluster size, and ``decode_pyramid``'s route by B (the launchers
+    replaced by recorders, the window on the meta device so that the route
+    is taken without a card), directly over chunks of several lengths and
+    inside a JukeBox stream on the CPU."""
+    from mimikit_tpu_torch.ops import jukebox_decode as jbd
+
+    torch.set_num_threads(1)
+    out = {"limit": np.array(jbd._K8_CLUSTER_MAX_B), "sizes": np.array(jbd.CLUSTER_SIZES),
+           "route": np.array(jbd.K8_CLUSTER_ROUTE)}
+    taken = []
+
+    def block(pack, window, t0, n_steps, seed, temperature):
+        taken.append("block")
+        return torch.zeros(window.shape[0], n_steps, dtype=torch.int32, device=window.device)
+
+    def cluster(pack, window, t0, n_steps, seed, temperature, cl=None):
+        taken.append(f"cluster{cl}")
+        return torch.zeros(window.shape[0], n_steps, dtype=torch.int32, device=window.device)
+
+    jbd._launch, jbd._launch_cluster = block, cluster
+    for tag in sorted({k.split("/")[0] for k in inp if k.startswith("net_")}):
+        p = f"{tag}/"
+        spec = json.loads(str(inp[p + "spec"]))
+        io = mmk.IOSpec.mulaw_io(mmk.IOSpec.MuLawIOConfig(q_levels=spec.pop("q_levels"),
+                                                          mlp_dim=spec.pop("mlp_dim")))
+        net = mmk.JukeBox.from_config(mmk.JukeBox.Config(io_spec=io, input_dropout=0.0, **spec),
+                                      device="cpu", seed=3).eval()
+        pack = jbd.jukebox_weight_pack(net)
+        out[p + "in_gate"] = np.array(jbd.supports_kernel_decode(net))
+        flat = pack.flat.numpy()
+        # the weights a step reads (matrices only), for the plan's coverage
+        used = 0
+        for k, (o, shape) in pack.offsets.items():
+            if len(shape) == 2 and not k.startswith("pe."):
+                used += int(np.prod(shape))
+        t_last, n_up = pack.t_up[-1], pack.n_up
+        used -= pack.dim * (t_last - 1) * pack.dim  # the bottom reads the last chunk only
+        out[p + "step_weights"] = np.array(used)
+        for cl in jbd.CLUSTER_SIZES:
+            q = f"{p}cl{cl}/"
+            plan = jbd.cluster_plan(pack, cl)
+            cw, tabs, _ = jbd.cluster_layout(pack, cl)
+            cw, tabs = cw.numpy(), tabs.numpy()
+            out[q + "fits"] = np.array(plan.fits)
+            out[q + "smem_bytes"] = np.array(plan.smem_bytes)
+            out[q + "act_floats"] = np.array(plan.act_floats)
+            out[q + "wreg_floats"] = np.array(plan.wreg_floats)
+            out[q + "tabs"] = tabs
+            out[q + "resident_bytes"] = np.array([plan.bytes(r, True) for r in range(cl)])
+            out[q + "streamed_bytes"] = np.array([plan.bytes(r, False) for r in range(cl)])
+            out[q + "piece_bytes"] = np.array(
+                [4 * sum(nq * 4 * plan.units[u].K for u, _, nq in plan.pieces(r)) for r in range(cl)])
+            out[q + "small_floats"] = np.array(plan.small)
+            out[q + "units"] = np.array([u.name for u in plan.units])
+            out[q + "unit_K"] = np.array([u.K for u in plan.units])
+            heads = [jbd._heads(pack.n_heads, cl, r) for r in range(cl)]
+            out[q + "heads"] = np.array(heads)
+            ok_slices = []
+            for u, unit in enumerate(plan.units):
+                full = flat[pack.offsets[unit.src][0]:][: unit.K * unit.N].reshape(unit.K, unit.N)
+                out[f"{q}cols/{unit.name}"] = np.array(
+                    [c for r in range(cl) for c in unit.cols[r]] or [-1])
+                out[f"{q}cols_of/{unit.name}"] = np.array([len(unit.cols[r]) for r in range(cl)])
+                good = True
+                for r in range(cl):
+                    tab = tabs[r]
+                    base, n_units = tab[0], tab[3]
+                    wofs, bofs, nq = tab[4 + 3 * u : 7 + 3 * u]
+                    want = full[:, list(unit.cols[r])]
+                    if nq * 4 != len(unit.cols[r]):
+                        good = False
+                        continue
+                    if wofs >= 0:
+                        got = cw[base + wofs : base + wofs + unit.K * 4 * nq].reshape(unit.K, -1)
+                    else:  # its pieces, each k-major over its quads, side by side
+                        got = []
+                        for i, (uu, _, pq) in enumerate(plan.pieces(r)):
+                            if uu == u:
+                                g, fl = tab[4 + 3 * n_units + 2 * i : 6 + 3 * n_units + 2 * i]
+                                got.append(cw[base + g : base + g + fl].reshape(unit.K, 4 * pq))
+                        got = np.concatenate(got, 1) if got else np.zeros((unit.K, 0), np.float32)
+                    bias = flat[pack.offsets[unit.bias][0] + np.asarray(unit.cols[r], int)] \
+                        if len(unit.cols[r]) else np.zeros(0, np.float32)
+                    good &= np.array_equal(got, want) and np.array_equal(
+                        cw[base + bofs : base + bofs + len(unit.cols[r])], bias)
+                ok_slices.append(good)
+            out[q + "slices_equal_pack"] = np.array(ok_slices)
+        for B in sorted({1, 2, 64} | {b + e for b, _ in jbd.K8_CLUSTER_ROUTE for e in (0, 1)}):
+            taken.clear()
+            window = torch.zeros(B, pack.window, dtype=torch.int32, device="meta")
+            for n in (7, 64, 1600):  # chunks of several lengths
+                jbd.decode_pyramid(pack, window, pack.window, n, 0, None)
+            out[f"{p}route_b{B}"] = np.array(taken)
+    # a JukeBox stream on the CPU, each chunk's window also sent through the route
+    spec = json.loads(str(inp[f"net_{inp['stream_net']}/spec"]))
+    io = mmk.IOSpec.mulaw_io(mmk.IOSpec.MuLawIOConfig(q_levels=spec.pop("q_levels"),
+                                                      mlp_dim=spec.pop("mlp_dim")))
+    net = mmk.JukeBox.from_config(mmk.JukeBox.Config(io_spec=io, input_dropout=0.0, **spec),
+                                  device="cpu", seed=3).eval()
+    real = jbd.decode_pyramid
+
+    def routed(pack, window, t0, n_steps, seed, temperature):
+        real(pack, torch.empty(window.shape, dtype=window.dtype, device="meta"), t0, n_steps,
+             seed, temperature)
+        return real(pack, window, t0, n_steps, seed, temperature)
+
+    jbd.decode_pyramid = routed
+    for B in (1, 8, 16):
+        taken.clear()
+        prompt = torch.randint(0, 32, (B, net._window_len()), generator=torch.Generator().manual_seed(B))
+        out[f"stream_b{B}"] = _stream(net, prompt, 8, 3)
+        out[f"stream_route_b{B}"] = np.array(taken)
+    jbd.decode_pyramid = real
+    return out
+
+
 def mulaw_task(inp: dict) -> dict:
     """The K10 wrappers on CPU tensors (their plain twins) for every input
     and level; their launch counts; whether importing the module loaded
@@ -1036,6 +1154,7 @@ TASKS = {"modules": modules_task, "sample_rnn": sample_rnn_task, "fused_lstm": f
          "train": train_task, "train_stateless": train_stateless_task,
          "wavenet": wavenet_task, "categorical": categorical_task,
          "transformer": transformer_task, "jukebox": jukebox_task,
+         "jukebox_cluster": jukebox_cluster_task,
          "mulaw": mulaw_task, "bf16_decode": bf16_decode_task, "bf16_train": bf16_train_task}
 
 if __name__ == "__main__":
