@@ -7,12 +7,14 @@ CUDA device and ``nvcc``; it imports nothing of JAX or of ``mimikit_tpu``.
 Phases (any failure exits non-zero; no exception is swallowed):
 
 1. environment and build: the card's name and power limit, torch/CUDA
-   versions; build ``csrc/samplernn_decode.cu``, ``csrc/fused_lstm.cu``,
-   ``csrc/wavenet_decode.cu``, ``csrc/transformer_decode.cu``,
-   ``csrc/transformer_kv.cu``, ``csrc/jukebox_decode.cu`` and
-   ``csrc/jukebox_cluster.cu`` for sm_90a, the seven nvcc runs started
-   together, and time them; compile the Triton sampler and the Triton mu-law
-   kernel;
+   versions; build ``csrc/samplernn_decode.cu``, ``csrc/samplernn_cluster.cu``,
+   ``csrc/fused_lstm.cu``, ``csrc/wavenet_decode.cu``,
+   ``csrc/transformer_decode.cu``, ``csrc/transformer_kv.cu``,
+   ``csrc/jukebox_decode.cu`` and ``csrc/jukebox_cluster.cu`` for sm_90a,
+   the eight nvcc runs started together, and time them; the SASS digests of
+   ``samplernn_decode.cu`` (K1's kernel, and K2's outside the cluster route)
+   must equal the parent checkout's (``K1_SASS``, ``tools/sass_digest.py``);
+   compile the Triton sampler and the Triton mu-law kernel;
 2. each kernel against its plain twin at a small size and at the main
    paths' widths.  ``decode_single`` and ``decode_chunk``, argmax and
    sampled (temperature 0.9): the kernel's tokens are verified by teacher
@@ -20,7 +22,13 @@ Phases (any failure exits non-zero; no exception is swallowed):
    token must score within 1e-4 * max|score| of its row's maximum, and the
    free-running plain tokens must equal the kernel's up to the first such
    near-tie; several chunk lengths and stream groupings must give identical
-   tokens.  ``lstm_forward`` and ``lstm_backward`` (the fused LSTM layer) at
+   tokens.  K2's cluster kernel (``csrc/samplernn_cluster.cu``, where
+   ``K2_CLUSTER_ROUTE`` sends ``decode_chunk``; the full-width B=256 checks
+   run through it) the same way at a net it takes (``CLUSTER_MID``: B=4 and
+   the ragged B=37, clusters of 8 and 16, f32 and bf16, the bf16 cases with
+   the control below run through the cluster kernel) and at full width at
+   B=37, f32 and bf16, every chunk a cluster launch; the block kernel, which
+   the route leaves past its limits, at full width at B=256, f32 and bf16.  ``lstm_forward`` and ``lstm_backward`` (the fused LSTM layer) at
    (T, B, H) = (12, 4, 16) and at the two tier shapes of the training path,
    (128, 32, 256) and (256, 32, 256): h_all, h_T, c_T within 1e-5 +
    1e-5 * max|plain| and all six gradients within 1e-5 + 1e-4 * max|plain|
@@ -60,9 +68,13 @@ Phases (any failure exits non-zero; no exception is swallowed):
    frame_sizes (16, 8, 8), hidden 256, q 256, a two-layer Mish head; random
    weights from a seed): ``generate`` with B=4 (decode_single's route) and
    with B=256 for 16384 steps at temperature 0.9 (decode_chunk's route),
-   median of 3 with spread, the B=256 output itself verified as in phase 2;
+   median of 3 with spread, the B=256 output itself verified as in phase 2,
+   every B=256 chunk a launch of K2's cluster kernel;
    ``stream_audio`` over 1600-step chunks, which must equal that output
-   mu-law expanded; WaveNet-10 served the same way; transformer8l
+   mu-law expanded; K2's route sweep (the cluster kernel at 16 and 8 blocks
+   and the block kernel at B = 1 … 512 × 256 steps on the f32 and the bf16
+   pack, ``generate``'s choice at each B >= 64 against ``K2_CLUSTER_ROUTE``
+   for the pack's dtype); WaveNet-10 served the same way; transformer8l
    (``benchmarks/bench_decode.py:104-115``: d 256, 8 heads, ff 1,024, 8
    layers, rf 64) ``generate`` at B=1 x 4,096 after a 64-token prompt (one
    K6 launch, its first 512 tokens verified), two chunks of the default
@@ -111,11 +123,14 @@ Phases (any failure exits non-zero; no exception is swallowed):
    scaled; K8's block kernel also at B=16 and 32, K10 at 2,646,000 samples;
    the bf16 decode twins over fewer steps, scaled); a ``kernels`` JSON line
    of eighteen rows (the twelve, K8's cluster kernel, and K1-, K2-, K3a-,
-   K3b- and K7-bf16), the card line, and the device line last.
+   K3b- and K7-bf16; K2's rows name the cluster kernel's source and carry
+   the block kernel's time on the same inputs, measured in the same run,
+   under ``block_kernel_ms``), the card line, and the device line last.
 
 ``--quick`` runs phases 1-2 at the small size only (a build check);
-``--bench`` runs phase 1, phase 3's timings without the checks, decode_chunk
-at B=256 for each number of streams a block owns, the LSTM kernels' timings,
+``--bench`` runs phase 1, phase 3's timings without the checks, decode_chunk's
+block kernel at B=256 for each number of streams a block owns, K2's route
+sweep, the LSTM kernels' timings,
 phase 4, the WaveNet streams-per-block sweep, K6 at B=16 against the
 batched window route, K7 at B = 1, 4, 16 and 32, and the jukebox3 path with
 both K8 kernels at B = 1, 16 and 32, a cluster exchange's cost
@@ -158,6 +173,33 @@ TOL = 1e-4  # a kernel token must score within TOL * max|score| of the row max
 # past 1.5e-2 in most checks), from tools/bf16_check_power.py
 BF16_FLIP_ROWS, BF16_FLIP_MAX = 0.003, 1e-2
 N_SMALL, N_WIDE, STREAM_CHUNK, SEED = 4096, 16384, 1600, 1234
+# K2's cluster kernel (csrc/samplernn_cluster.cu): a small net it takes (8 or
+# more hidden units a block at 16 blocks), a ragged B (groups of 3 streams on
+# the 15 clusters of 8 that fit: the last group holds one), and the route
+# sweep's batches and steps
+CLUSTER_MID = dict(frame_sizes=(8, 4, 2), hidden_dim=128, q_levels=64, mlp_dim=128)
+K2_RAGGED_B = 37
+K2_SWEEP_BATCHES, K2_SWEEP_N = (1, 4, 8, 16, 32, 64, 128, 256, 512), 256
+# samplernn_decode.cu's machine code before the cluster kernel was added
+# (tools/sass_digest.py with the card's toolkit): K1 stays on that kernel
+K1_SASS = {
+    "_Z23samplernn_decode_kernelILi8EfEv14SrnnDecodeArgs":
+        "1612152d55a68532, REG 64 STACK 0",
+    "_Z23samplernn_decode_kernelILi4EfEv14SrnnDecodeArgs":
+        "b378b7517e2792c3, REG 64 STACK 0",
+    "_Z23samplernn_decode_kernelILi2EfEv14SrnnDecodeArgs":
+        "5c1c60a31eb32cd3, REG 64 STACK 0",
+    "_Z23samplernn_decode_kernelILi1EfEv14SrnnDecodeArgs":
+        "3151856a87548c0b, REG 58 STACK 0",
+    "_Z23samplernn_decode_kernelILi8E13__nv_bfloat16Ev14SrnnDecodeArgs":
+        "7eef50fe64fae9ea, REG 64 STACK 16",
+    "_Z23samplernn_decode_kernelILi4E13__nv_bfloat16Ev14SrnnDecodeArgs":
+        "1ebf3bd1441b7f9f, REG 64 STACK 0",
+    "_Z23samplernn_decode_kernelILi2E13__nv_bfloat16Ev14SrnnDecodeArgs":
+        "e052ed847bf128f3, REG 64 STACK 0",
+    "_Z23samplernn_decode_kernelILi1E13__nv_bfloat16Ev14SrnnDecodeArgs":
+        "615f2e92495919e9, REG 56 STACK 0",
+}
 N_BF16_VERIFY = 1024  # phase 3's bf16 B=256 output: its first steps verified
 # (T, B, D, H) of the LSTM checks: small, then the two tier LSTMs of the
 # training path (2048 samples a window, frames of 16 and 8, B=32, H=256)
@@ -480,6 +522,132 @@ def check_kernels(torch, mmk, sd, spec, B_single, B_chunk, n, chunk_lens, jitter
     return {k + sfx: v for k, v in err.items()}
 
 
+def check_cluster(torch, mmk, sd, spec, batches, n, chunk_lens, jitter, bf16=False,
+                  sizes=None, control=False):
+    """Phase 2 for K2's kernels: ``decode_chunk`` at each B of ``batches`` on
+    the cluster kernel at each cluster size of ``sizes`` (0: the block
+    kernel; None: the route's, which must be the cluster kernel), argmax and
+    sampled, the state carried over chunks of each length of ``chunk_lens``
+    (the tokens must not change), verified by teacher forcing against the
+    plain twin (the bf16 one for a bf16 pack).  With ``control`` (bf16), the
+    f32 instantiation of the same kernel on the bf16-valued weights (no input
+    rounding) runs each case too, and the bf16 check must refuse its tokens.
+    Returns {wrapper: largest score gap}."""
+    net = make_net(mmk, torch, spec, seed=1, jitter=jitter)
+    pack = sd.samplernn_weight_pack(net, torch.bfloat16 if bf16 else torch.float32)
+    ctl = sd.samplernn_weight_pack(bf16_valued(torch, net)) if control else None
+    twin = pack if bf16 else net
+    rf, q = net.rf, spec["q_levels"]
+    key = "decode_chunk_bf16" if bf16 else "decode_chunk"
+    worst = 0.0
+    for B in batches:
+        prompt = make_prompt(torch, B, 2 * rf, q, seed=50 + B)
+        prior_t = prompt.shape[1]
+        for cl in sizes or (sd.cluster_size_for(pack, B),):
+            if cl is None:
+                raise AssertionError(f"decode_chunk B={B} does not route to the cluster kernel")
+            force = None if sizes is None else cl
+            for temp in (None, TEMPERATURE):
+                runs = []
+                for C in chunk_lens:
+                    state = sd.init_decode_state(net, prompt)
+                    before = sd.decode_chunk.launches_cluster, sd.decode_chunk.launches
+                    parts = [sd.decode_chunk(pack, prompt, state, t0, min(C, prior_t + n - t0), 13,
+                                             temp, cl=force)
+                             for t0 in range(rf, prior_t + n, C)]
+                    cluster = sd.decode_chunk.launches_cluster - before[0]
+                    if sd.decode_chunk.launches - before[1] != len(parts) or \
+                            cluster != (len(parts) if cl else 0):
+                        raise AssertionError(f"a chunk did not launch the {cl or 'block'} kernel")
+                    runs.append(torch.cat(parts, 1)[:, prior_t - rf :])
+                torch.cuda.synchronize()
+                for C, r in zip(chunk_lens[1:], runs[1:]):
+                    if not torch.equal(r, runs[0]):
+                        raise AssertionError(f"decode_chunk ({cl or 'block'}) with chunk {C}"
+                                             " changed the tokens")
+                gap, parted = verify(torch, sd, twin, prompt, runs[0], 13, temp)
+                worst = max(worst, gap)
+                mode = "argmax" if temp is None else f"T={temp}"
+                how = (f"cluster kernel, {cl} blocks, {sd.decode_chunk.last_streams} streams a"
+                       f" group on {sd.decode_chunk.last_clusters} clusters" if cl
+                       else "block kernel")
+                log(f"  {key} ({how}) B={B} n={n} chunks {chunk_lens} {mode}: ok, max gap"
+                    f" {gap:.3e}, {parted} streams parted at near-ties")
+                if ctl is not None:
+                    with uncounted(sd.decode_chunk):
+                        bad = sd.decode_chunk(ctl, prompt, sd.init_decode_state(net, prompt), rf,
+                                              prior_t + n - rf, 13, temp, cl=cl)
+                    expect_caught(f"decode_chunk ({cl or 'block'}) B={B} {mode}",
+                                  lambda: verify(torch, sd, twin, prompt,
+                                                 bad[:, prior_t - rf :], 13, temp))
+    return {key: worst}
+
+
+def samplernn_route_sweep(torch, sd, net):
+    """K2's cluster kernel at both cluster sizes and its block kernel at each
+    B of ``K2_SWEEP_BATCHES`` (T=0.9, ``K2_SWEEP_N`` steps a call, medians of
+    3), on the f32 pack and the bf16 one: the measurement behind
+    ``K2_CLUSTER_ROUTE``.  Checks that ``generate`` (at B >= 64; under
+    ``MMK_PALLAS_BF16=1`` for the bf16 pack) takes the kernel the route
+    names, and says whether the route sends any B to a slower choice than
+    this run's fastest.  Returns {(dtype name, B): {choice: us a step}}."""
+    rf, q = net.rf, FULL["q_levels"]
+    table = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[-1]
+        pack = sd.samplernn_weight_pack(net, dtype)
+        env = {"MMK_PALLAS_BF16": "1"} if dtype == torch.bfloat16 else {}
+        slower = []
+        with uncounted(sd.decode_chunk, sd.decode_single):
+            for B in K2_SWEEP_BATCHES:
+                prompt = make_prompt(torch, B, 2 * rf, q, seed=90 + B)
+                route = sd.cluster_size_for(pack, B) or 0
+                if B >= net._CHUNKED_MIN_B:
+                    before = sd.decode_chunk.launches_cluster, sd.decode_chunk.launches_bf16
+                    with env_set(**env):
+                        net.generate((prompt,), 1, seed=SEED)
+                    took = sd.decode_chunk.last_cluster_size if \
+                        sd.decode_chunk.launches_cluster > before[0] else 0
+                    if took != route or \
+                            (sd.decode_chunk.launches_bf16 > before[1]) != bool(env):
+                        raise AssertionError(f"SampleRNN generate B={B} ({dn}) took {took}, not"
+                                             f" {route}")
+                times, fit = {}, {}
+                for cl in (16, 8, 0):
+                    fn = lambda: sd.decode_chunk(pack, prompt,  # noqa: E731
+                                                 sd.init_decode_state(net, prompt), rf,
+                                                 K2_SWEEP_N, SEED, TEMPERATURE, cl=cl)
+                    fn()
+                    fit[cl] = (sd.decode_chunk.last_streams, sd.decode_chunk.last_clusters)
+                    times[cl] = spread(cuda_ms(torch, fn, reps=3))
+                us = table[dn, B] = {cl: 1e3 * t[0] / K2_SWEEP_N for cl, t in times.items()}
+                fastest = min(times, key=lambda k: times[k][0])
+                if times[route][0] > times[fastest][0]:
+                    slower.append(B)
+                log(f"  SampleRNN-3 {dn} B={B} x {K2_SWEEP_N} steps, us a step (median of 3,"
+                    f" spread): cluster kernel at 16 blocks {us[16]:.2f} ({times[16][1]:.2%};"
+                    f" groups of {fit[16][0]} on {fit[16][1]} clusters), at 8 blocks"
+                    f" {us[8]:.2f} ({times[8][1]:.2%}; groups of {fit[8][0]} on {fit[8][1]}),"
+                    f" block kernel {us[0]:.2f} ({times[0][1]:.2%}); decode_chunk takes"
+                    f" {'the block kernel' if not route else f'clusters of {route}'}")
+        log(f"  K2_CLUSTER_ROUTE[{dn}] = {sd.K2_CLUSTER_ROUTE[dtype]}: "
+            + (f"sends B = {slower} to a slower choice than this run's fastest" if slower
+               else "sends no B of the sweep to a slower choice than this run's fastest"))
+    return table
+
+
+def k1_sass_check(sd):
+    """K1 stays on the block kernel: its machine code (``tools/sass_digest.py``)
+    must equal ``K1_SASS``, the parent checkout's."""
+    from tools.sass_digest import digests
+
+    got = digests(sd.build_kernel())
+    if got != K1_SASS:
+        raise AssertionError(f"samplernn_decode.cu's SASS changed: {got} against {K1_SASS}")
+    log(f"  samplernn_decode.cu (K1, and K2 outside the cluster route): SASS digests equal the"
+        f" parent's ({len(got)} kernels; {sorted(got.values())[0]}, ...)")
+
+
 def cuda_ms(torch, fn, reps):
     """Milliseconds of ``fn()`` by CUDA events, one per rep."""
     out = []
@@ -591,9 +759,9 @@ def main_path(torch, mmk, net, p4, p256, label=""):
 
 
 def bench(torch, mmk, sd, fl):
-    """--bench: the serving path's timings, decode_chunk at B=256 for each
-    number of streams a block can own, the LSTM kernels' timings and the
-    training path (phase 4)."""
+    """--bench: the serving path's timings, decode_chunk's block kernel at
+    B=256 for each number of streams a block can own, K2's route sweep, the
+    LSTM kernels' timings and the training path (phase 4)."""
     net = make_net(mmk, torch, FULL, seed=0)
     rf = net.rf
     p4, p256 = (make_prompt(torch, B, 2 * rf, FULL["q_levels"], seed=B) for B in (4, 256))
@@ -602,10 +770,11 @@ def bench(torch, mmk, sd, fl):
     for g in (1, 2, 4, 8):
         ms = cuda_ms(torch, lambda: sd.decode_chunk(
             pack, p256, sd.init_decode_state(net, p256), rf, net._CHUNK, SEED, TEMPERATURE,
-            group=g), reps=3)
+            group=g, cl=0), reps=3)
         med, spr = spread(ms)
-        log(f"  decode_chunk B=256 steps={net._CHUNK} group={g}: {med:.3f} ms"
+        log(f"  decode_chunk (the block kernel) B=256 steps={net._CHUNK} group={g}: {med:.3f} ms"
             f" (median of 3, spread {spr:.3%})")
+    samplernn_route_sweep(torch, sd, net)
     lstm_timings(torch, fl, torch.float32)
     lstm_timings(torch, fl, torch.bfloat16)
     train_path(torch, mmk, fl, sd, None)
@@ -1410,6 +1579,7 @@ def samplernn_bf16_path(torch, mmk, sd, net, p4, p256):
     twin; each number beside the f32 run's.  Returns (launches, gap)."""
     for w in (sd.decode_single, sd.decode_chunk):
         w.launches = w.launches_bf16 = 0
+    sd.decode_chunk.launches_cluster = 0
     with env_set(MMK_PALLAS_BF16="1"):
         outs = main_path(torch, mmk, net, p4, p256, label="_bf16")
     launches = {"decode_single_bf16": sd.decode_single.launches_bf16,
@@ -1420,6 +1590,8 @@ def samplernn_bf16_path(torch, mmk, sd, net, p4, p256):
         raise AssertionError("the bf16 serving path launched the f32 instantiation")
     if min(launches.values()) == 0:
         raise AssertionError(f"a kernel of the bf16 serving path was never launched: {launches}")
+    if sd.decode_chunk.launches_cluster != sd.decode_chunk.launches:
+        raise AssertionError("bf16 decode_chunk at B=256 did not take the cluster kernel")
     pack16 = sd.samplernn_weight_pack(net, torch.bfloat16)
     prior_t = p256.shape[1]
     with uncounted(sd.decode_single, sd.decode_chunk):
@@ -1520,7 +1692,7 @@ def bf16_rows(torch, sd, td, tk, net, p4, p256, tf_net, tf_prompts, launches, er
                                     p4.shape[1], n_twin, SEED, TEMPERATURE),
             n4 / n_twin, decode_bound(pack16, 4, p4.shape[1], rf, n4, N_SMALL),
             "mimikit_tpu_torch/csrc/samplernn_decode.cu", "mimikit_tpu/ops/pallas_decode.py:148",
-            f"B=4 steps={n4}"),
+            f"B=4 steps={n4}", None),
         "decode_chunk_bf16": (
             lambda: sd.decode_chunk(pack16, p256, sd.init_decode_state(net, p256), rf,
                                     net._CHUNK, SEED, TEMPERATURE),
@@ -1528,8 +1700,10 @@ def bf16_rows(torch, sd, td, tk, net, p4, p256, tf_net, tf_prompts, launches, er
                                     n_twin, SEED, TEMPERATURE),
             net._CHUNK / n_twin,
             decode_bound(pack16, 256, p256.shape[1], rf, net._CHUNK, net._CHUNK),
-            "mimikit_tpu_torch/csrc/samplernn_decode.cu", "mimikit_tpu/ops/pallas_decode.py:868",
-            f"B=256 steps={net._CHUNK}"),
+            k2_source(sd, pack16, 256), "mimikit_tpu/ops/pallas_decode.py:868",
+            f"B=256 steps={net._CHUNK}",
+            lambda: sd.decode_chunk(pack16, p256, sd.init_decode_state(net, p256), rf,
+                                    net._CHUNK, SEED, TEMPERATURE, cl=0)),
         "transformer_decode_chunk_bf16": (
             lambda: tk.decode_chunk(tpack16, p16.t().contiguous(), tk.init_kv_state(tpack16, p16),
                                     1, C, TEMPERATURE, SEED),
@@ -1538,23 +1712,43 @@ def bf16_rows(torch, sd, td, tk, net, p4, p256, tf_net, tf_prompts, launches, er
                                           SEED, TEMPERATURE),
             C / TF_PLAIN_STEPS, kv_bound(tpack16, TF_KV_B, TF_FULL["rf"], C),
             "mimikit_tpu_torch/csrc/transformer_kv.cu", "mimikit_tpu/ops/pallas_decode.py:1693",
-            f"B={TF_KV_B} steps={C}"),
+            f"B={TF_KV_B} steps={C}", None),
     }
     rows = []
     with uncounted(sd.decode_single, sd.decode_chunk, tk.decode_chunk):
-        for name, (kern, plain, scale, (bound, by), source, replaces, shape) in calls.items():
+        for name, (kern, plain, scale, (bound, by), source, replaces, shape,
+                   block) in calls.items():
             kern()
             k_ms, k_spr = spread(cuda_ms(torch, kern, reps=3))
             p_ms = cuda_ms(torch, plain, reps=1)[0] * scale
+            b_ms = block_kernel_ms(torch, block)
             log(f"  {name} {shape}: kernel {k_ms:.4f} ms (median of 3, spread {k_spr:.2%}),"
                 f" plain twin {p_ms:.3f} ms (fewer steps timed, scaled by {scale:g}), bound"
-                f" {bound:.4f} ms by {by}; library: none (no single PyTorch call)")
+                f" {bound:.4f} ms by {by}; library: none (no single PyTorch call)"
+                + (f"; the block kernel {b_ms:.4f} ms" if b_ms is not None else ""))
             rows.append(dict(
                 name=name, route="cuda", source=source, replaces=replaces,
                 launches=launches[name], max_abs_err=err[name], ms=k_ms, plain_ms=p_ms,
                 bound_ms=bound, bound_by=by, library_ms=None,
+                **({"block_kernel_ms": b_ms} if b_ms is not None else {}),
             ))
     return rows
+
+
+def block_kernel_ms(torch, block):
+    """A K2 row's second time: ``block``, the same call on the block kernel
+    (``decode_chunk(..., cl=0)``), median of 3 ms; None without one."""
+    if block is None:
+        return None
+    block()
+    return spread(cuda_ms(torch, block, reps=3))[0]
+
+
+def k2_source(sd, pack, B):
+    """The source of the kernel ``decode_chunk`` launches B streams of
+    ``pack``'s net with."""
+    return ("mimikit_tpu_torch/csrc/samplernn_cluster.cu" if sd.cluster_size_for(pack, B)
+            else "mimikit_tpu_torch/csrc/samplernn_decode.cu")
 
 
 # -- JukeBox serving (the tier-pyramid kernel K8) and the mu-law pair (K10) -----------
@@ -2510,6 +2704,7 @@ def main(argv=None) -> int:
     t = time.perf_counter()
     # (source, the holder of its compiler output, its build)
     sources = ((sd.SOURCE, sd._Kernel, sd.build_kernel),
+               (sd.CLUSTER_SOURCE, sd._ClusterKernel, sd.build_cluster_kernel),
                (fl.SOURCE, fl._Kernel, fl.build_lstm_kernel),
                (wd.SOURCE, wd._Kernel, wd.build_kernel), (td.SOURCE, td._Kernel, td.build_kernel),
                (tk.SOURCE, tk._Kernel, tk.build_kernel),
@@ -2524,6 +2719,7 @@ def main(argv=None) -> int:
                 log("  ptxas:", line.strip())
         log(f"  built {src.name} for sm_90a in {build_s:.1f} s")
     log(f"  the {len(sources)} builds took {time.perf_counter() - t:.1f} s")
+    k1_sass_check(sd)
     t = time.perf_counter()
     cat.categorical(torch.zeros(2, 8).cuda(), 1.0, 0)  # compiles the Triton kernel
     torch.cuda.synchronize()
@@ -2558,7 +2754,12 @@ def main(argv=None) -> int:
     err = check_kernels(torch, mmk, sd, SMALL, 4, 64, 300, (300 + 16, 7, 64), jitter=0.5)
     err.update(check_kernels(torch, mmk, sd, SMALL, 4, 64, 300, (300 + 16, 7, 64), jitter=0.5,
                              bf16=True, control=True))
-    stamp("SampleRNN decode, small, f32 and bf16")
+    err = merge_max(err, check_cluster(torch, mmk, sd, CLUSTER_MID, (4, K2_RAGGED_B), 200,
+                                       (200 + 16, 7, 64), jitter=0.5, sizes=sd.CLUSTER_SIZES))
+    # (its gaps are logged, not the row's: the jittered small net's scores run to ~1e6)
+    check_cluster(torch, mmk, sd, CLUSTER_MID, (4, K2_RAGGED_B), 200, (200 + 16, 7, 64),
+                  jitter=0.5, bf16=True, sizes=sd.CLUSTER_SIZES, control=True)
+    stamp("SampleRNN decode, small, f32 and bf16 (the block kernel, the cluster kernel)")
     err.update(check_lstm(torch, fl, LSTM_SHAPES[:1]))
     err.update(check_lstm_bf16(torch, fl, LSTM_SHAPES[:1], BF16_LSTM_SHARE[0], seeds=range(4)))
     err.update(check_wavenet(torch, mmk, wd, WN_SMALL, WN_SMALL_B, 40, 300, (300 + 15, 7, 64),
@@ -2584,7 +2785,15 @@ def main(argv=None) -> int:
     stamp("SampleRNN decode, full width, f32")
     err_full.update(check_kernels(torch, mmk, sd, FULL, 4, 256, 1024, (1024 + 32, 700),
                                   jitter=0.0, bf16=True))
-    stamp("SampleRNN decode, full width, bf16")
+    for bf16 in (False, True):
+        err_full = merge_max(err_full, check_cluster(torch, mmk, sd, FULL, (K2_RAGGED_B,), 512,
+                                                     (512 + 32, 100), jitter=0.0, bf16=bf16))
+        # the block kernel, which K2_CLUSTER_ROUTE leaves the batches past its limits
+        err_full = merge_max(err_full, check_cluster(torch, mmk, sd, FULL, (256,), 512,
+                                                     (512 + 32, 100), jitter=0.0, bf16=bf16,
+                                                     sizes=(0,)))
+    stamp("SampleRNN decode, full width, bf16; the cluster kernel at a ragged B, the block"
+          " kernel at B=256")
     err_full.update(check_lstm(torch, fl, LSTM_SHAPES[1:]))
     err_full.update(check_lstm_bf16(torch, fl, LSTM_SHAPES[1:], BF16_LSTM_SHARE[1]))
     err_full.update(check_wavenet(torch, mmk, wd, WN_FULL, WN_SMALL_B, 256, 512, (1543, 700),
@@ -2612,7 +2821,7 @@ def main(argv=None) -> int:
     rf = net.rf
     p4, p256 = (make_prompt(torch, B, 2 * rf, FULL["q_levels"], seed=B) for B in (4, 256))
     sd.decode_single.launches = 0
-    sd.decode_chunk.launches = 0
+    sd.decode_chunk.launches = sd.decode_chunk.launches_cluster = 0
     outs = main_path(torch, mmk, net, p4, p256)
     gap, parted = verify(torch, sd, net, p256, outs[256][:, p256.shape[1]:], SEED, TEMPERATURE)
     err["decode_chunk"] = max(err["decode_chunk"], gap)
@@ -2620,10 +2829,15 @@ def main(argv=None) -> int:
         f" near-ties")
     launches = {"decode_single": sd.decode_single.launches,
                 "decode_chunk": sd.decode_chunk.launches}
-    log(f"  launches on the serving path: {launches}")
+    log(f"  launches on the serving path: {launches}, of which the cluster kernel"
+        f" {sd.decode_chunk.launches_cluster}")
     if min(launches.values()) == 0:
         raise AssertionError(f"a kernel of the serving path was never launched: {launches}")
+    if sd.decode_chunk.launches_cluster != sd.decode_chunk.launches:
+        raise AssertionError("decode_chunk at B=256 did not take the cluster kernel")
     stamp("SampleRNN-3, f32")
+    samplernn_route_sweep(torch, sd, net)
+    stamp("SampleRNN-3's route sweep")
     srnn16_launches, gap = samplernn_bf16_path(torch, mmk, sd, net, p4, p256)
     err["decode_chunk_bf16"] = max(err["decode_chunk_bf16"], gap)
     stamp("SampleRNN-3, bf16")
@@ -2663,20 +2877,26 @@ def main(argv=None) -> int:
                                                  net._CHUNK, rf, net._CHUNK, SEED, TEMPERATURE),
                          rf, net._CHUNK, net._CHUNK),
     }
-    source = "mimikit_tpu_torch/csrc/samplernn_decode.cu"
+    sources = {"decode_single": "mimikit_tpu_torch/csrc/samplernn_decode.cu",
+               "decode_chunk": k2_source(sd, pack, 256)}
     replaces = {"decode_single": "mimikit_tpu/ops/pallas_decode.py:148",
                 "decode_chunk": "mimikit_tpu/ops/pallas_decode.py:868"}
+    block = {"decode_chunk": lambda: sd.decode_chunk(pack, p256, sd.init_decode_state(net, p256),
+                                                     rf, net._CHUNK, SEED, TEMPERATURE, cl=0)}
     rows = []
     for name, (prompt, kern, plain, t0, n, out_len) in calls.items():
         k_ms, _ = spread(cuda_ms(torch, kern, reps=3))
         p_ms = cuda_ms(torch, plain, reps=1)[0]
+        b_ms = block_kernel_ms(torch, block.get(name))
         bound, by = decode_bound(pack, prompt.shape[0], prompt.shape[1], t0, n, out_len)
         log(f"  {name} B={prompt.shape[0]} steps={n}: kernel {k_ms:.3f} ms (median of 3),"
-            f" plain twin {p_ms:.3f} ms, bound {bound:.3f} ms by {by}")
+            f" plain twin {p_ms:.3f} ms, bound {bound:.3f} ms by {by}"
+            + (f"; the block kernel {b_ms:.3f} ms" if b_ms is not None else ""))
         rows.append(dict(
-            name=name, route="cuda", source=source, replaces=replaces[name],
+            name=name, route="cuda", source=sources[name], replaces=replaces[name],
             launches=launches[name], max_abs_err=err[name], ms=k_ms, plain_ms=p_ms,
             bound_ms=bound, bound_by=by, library_ms=None,
+            **({"block_kernel_ms": b_ms} if b_ms is not None else {}),
         ))
     # the LSTM rows at the wider tier shape, (T, B, H) = (256, 32, 256), f32 and bf16
     lstm = {**lstm_timings(torch, fl, torch.float32)[LSTM_SHAPES[-1][0]],

@@ -14,6 +14,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import Config, private_runtime_field
+from . import rounding
 
 __all__ = ["ActivationConfig", "Mish", "Lambda", "mish"]
 
@@ -21,11 +22,16 @@ __all__ = ["ActivationConfig", "Mish", "Lambda", "mish"]
 def mish(x: torch.Tensor) -> torch.Tensor:
     """``x * tanh(softplus(x))`` — the MLP head's hidden activation.  Below
     f32 each step of JAX's softplus (``max(x, 0) + log1p(exp(-|x|))``) and
-    of the product rounds to the input's dtype, as JAX's ops do."""
+    of the product rounds to the input's dtype, as JAX's ops do (and on the
+    CPU their backward too: ``rounding.mish``)."""
     if x.dtype == torch.float32:
         return x * torch.tanh(F.softplus(x))
-    sp = torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-torch.abs(x)))
-    return x * torch.tanh(sp)
+    return rounding.mish(x)
+
+
+def _below_f32(f32, other):
+    """``f32`` on f32 tensors, ``other`` (``rounding``'s op) below f32."""
+    return lambda x: f32(x) if x.dtype == torch.float32 else other(x)
 
 
 class Mish(nn.Module):
@@ -50,8 +56,8 @@ def _glu(x):
 
 
 _PLAIN = {
-    "Tanh": torch.tanh,
-    "Sigmoid": torch.sigmoid,
+    "Tanh": _below_f32(torch.tanh, rounding.tanh),
+    "Sigmoid": _below_f32(torch.sigmoid, rounding.sigmoid),
     "Mish": mish,
     "ReLU": torch.relu,
     "Softplus": F.softplus,

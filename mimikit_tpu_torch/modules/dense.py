@@ -3,9 +3,11 @@
 ``dense`` is ``x @ W^T + b``.  In f32 it is ``F.linear``.  Below f32 the
 product is rounded to the input's dtype before the bias is added, and the
 sum rounds again, as flax's ``Dense`` does with bf16 parameters (a
-``dot_general`` in bf16, then the bias added in bf16).  The port's bf16
-window re-feed runs on a bf16 copy of the net (``precision.cast_floats``), so
-its dense layers take this path.
+``dot_general`` in bf16, then the bias added in bf16); the bias's gradient
+is summed in bf16 in XLA's order on the CPU (``rounding.bias_add``).  The port's bf16
+window re-feed runs on a bf16 copy of the net (``precision.cast_floats``),
+and the bf16 training policy runs the forward on bf16 parameters, so their
+dense layers take this path.
 """
 from __future__ import annotations
 
@@ -15,6 +17,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .rounding import bias_add
+
 __all__ = ["dense", "Dense"]
 
 
@@ -23,7 +27,7 @@ def dense(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor]) -
     module note)."""
     if x.dtype == torch.float32 or bias is None:
         return F.linear(x, weight, bias)
-    return F.linear(x, weight) + bias
+    return bias_add(F.linear(x, weight), bias)
 
 
 class Dense(nn.Linear):

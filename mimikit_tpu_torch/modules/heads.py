@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from . import rounding
 from .activations import Mish
 from .dense import Dense
 
@@ -24,14 +25,17 @@ def sigmoid(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.sigmoid``.  Below f32 it is ``1 / (1 + exp(-x))`` with each
     op rounded to x's dtype, as XLA expands the logistic there (one rounding
     at the end, ``torch.sigmoid``'s, parts from it in about a third of bf16
-    values)."""
+    values), and on the CPU its gradient JAX's (``rounding.sigmoid``)."""
     if x.dtype == torch.float32:
         return torch.sigmoid(x)
-    return 1.0 / (1.0 + torch.exp(-x))
+    return rounding.sigmoid(x)
 
 
 def learned_temperature(logits: torch.Tensor, min_temperature: float) -> torch.Tensor:
-    """``logits[..., :-1] / max(sigmoid(logits[..., -1:]), min_temperature)``."""
+    """``logits[..., :-1] / max(sigmoid(logits[..., -1:]), min_temperature)``
+    (below f32, on the CPU, with JAX's gradient: ``rounding.learned_temperature``)."""
+    if logits.dtype != torch.float32:
+        return rounding.learned_temperature(logits, min_temperature)
     temp = sigmoid(logits[..., -1:])
     return logits[..., :-1] / torch.clamp_min(temp, min_temperature)
 

@@ -21,6 +21,7 @@ from torch import nn
 
 from ..config import Config, private_runtime_field
 from ..precision import compute_dtype
+from . import rounding
 from .activations import ActivationConfig
 from .dense import Dense
 from .heads import MLP
@@ -150,9 +151,13 @@ class FramedLinearIO(IOModule):
 
 
 class _Embedding(nn.Embedding):
-    """``nn.Embedding`` that takes class indices of any integer dtype."""
+    """``nn.Embedding`` that takes class indices of any integer dtype; below
+    f32, on the CPU, its table's gradient accumulates as JAX's does
+    (``rounding.embedding``)."""
 
     def forward(self, x):
+        if self.weight.dtype != torch.float32:
+            return rounding.embedding(x.long(), self.weight)
         return super().forward(x.long())
 
 

@@ -13,6 +13,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .dense import Dense
+from .rounding import bias_add
 
 __all__ = ["LinearResampler", "Conv1dResampler"]
 
@@ -45,5 +46,5 @@ class Conv1dResampler(nn.Module):
         if x.dtype == torch.float32 or self.cv.bias is None:
             return self.cv(x).transpose(1, 2)
         # below f32, rounded as flax's Dense on the window (see modules/dense.py)
-        y = F.conv1d(x, self.cv.weight, None, self.cv.stride) + self.cv.bias[:, None]
+        y = bias_add(F.conv1d(x, self.cv.weight, None, self.cv.stride), self.cv.bias, 1)
         return y.transpose(1, 2)

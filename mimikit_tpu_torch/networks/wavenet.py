@@ -33,11 +33,13 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..features.item_spec import ItemSpec, Step
 from ..modules.activations import _PLAIN
 from ..modules.misc import causal_pad
+from ..modules.rounding import bias_add
 from ..ops.wavenet_decode import (
     decode_chunk,
     decode_single,
@@ -53,8 +55,15 @@ __all__ = ["WNLayer", "WaveNetCore", "WaveNet"]
 
 def _conv(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
     """A Conv1d (or a Sequential around one) on a feature-last (B, T, C)
-    tensor."""
-    return conv(x.transpose(1, 2)).transpose(1, 2)
+    tensor.  Below f32 the product is rounded before the bias is added, as
+    flax's ``nn.Conv`` does with bf16 parameters, and on the CPU the bias's
+    gradient is summed as JAX's (``rounding.bias_add``)."""
+    cv = conv[0] if isinstance(conv, nn.Sequential) else conv
+    if x.dtype == torch.float32 or cv.bias is None:
+        return conv(x.transpose(1, 2)).transpose(1, 2)
+    y = F.conv1d(x.transpose(1, 2), cv.weight, None, cv.stride, cv.padding, cv.dilation,
+                 cv.groups)
+    return bias_add(y.transpose(1, 2), cv.bias)
 
 
 class WNLayer(nn.Module):

@@ -9,7 +9,13 @@ state-carrying CUDA entry serves both, behind two counted wrappers:
 * :func:`decode_single` — K1's route: builds the state from the prompt and
   runs the whole decode in one launch;
 * :func:`decode_chunk` — K2's route: runs ``n_steps`` steps from absolute
-  step ``t0`` on a caller-held :class:`DecodeState`.
+  step ``t0`` on a caller-held :class:`DecodeState`.  A CUDA batch whose B
+  ``K2_CLUSTER_ROUTE`` names launches the cluster kernel
+  (``csrc/samplernn_cluster.cu``: a group of streams on a thread-block
+  cluster, each block holding its slices of the weights in shared memory;
+  :func:`cluster_plan`, :func:`cluster_layout`), other batches the block
+  kernel.  The route depends on B and the net's widths only, so every chunk
+  of a stream takes one kernel.
 
 What bounds the kernel on an H100, and what its design does about it, is in
 the source note at the top of the ``.cu`` file.
@@ -26,10 +32,12 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses as dtc
+import functools
 import math
 from pathlib import Path
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..modules.activations import mish
@@ -47,6 +55,12 @@ __all__ = [
     "decode_single",
     "decode_chunk",
     "build_kernel",
+    "K2_CLUSTER_ROUTE",
+    "ClusterPlan",
+    "cluster_plan",
+    "cluster_layout",
+    "cluster_size_for",
+    "build_cluster_kernel",
 ]
 
 MAX_TIERS = 8
@@ -449,15 +463,13 @@ def _check(x: torch.Tensor, name: str, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _launch(pack: SampleRNNPack, prompt, state: DecodeState, t0: int, n_steps: int,
-            out: torch.Tensor, out_t0: int, seed: int, temperature: Optional[float],
-            group: Optional[int] = None) -> bool:
-    """Launch the kernel on ``state`` and ``out``; False when there are no
-    steps to run (nothing is launched)."""
+def _check_launch(pack: SampleRNNPack, prompt, state: DecodeState, n_steps: int,
+                  out: torch.Tensor, temperature: Optional[float], what: str) -> None:
+    """Raise unless a decode kernel (``what``) takes these tensors."""
     dev = pack.flat.device
     if dev.type != "cuda":
-        raise ValueError(f"the decode kernel runs on CUDA tensors, got {dev}")
-    fs, up, H, Q = pack.frame_sizes, pack.up_factors, pack.hidden_dim, pack.q_levels
+        raise ValueError(f"the {what} runs on CUDA tensors, got {dev}")
+    fs, up, H = pack.frame_sizes, pack.up_factors, pack.hidden_dim
     B, prior_t = prompt.shape
     rf, n_t = fs[0], len(fs) - 1
     if pack.flat.dtype not in (torch.float32, torch.bfloat16):
@@ -473,8 +485,20 @@ def _launch(pack: SampleRNNPack, prompt, state: DecodeState, t0: int, n_steps: i
         raise ValueError("prompt shorter than rf, negative step count or head too deep")
     if temperature is not None and not temperature > 0:
         raise ValueError(f"temperature must be > 0, got {temperature}")
+
+
+def _launch(pack: SampleRNNPack, prompt, state: DecodeState, t0: int, n_steps: int,
+            out: torch.Tensor, out_t0: int, seed: int, temperature: Optional[float],
+            group: Optional[int] = None) -> bool:
+    """Launch the kernel on ``state`` and ``out``; False when there are no
+    steps to run (nothing is launched)."""
+    _check_launch(pack, prompt, state, n_steps, out, temperature, "decode kernel")
     if n_steps == 0:
         return False
+    dev = pack.flat.device
+    fs, up, H, Q = pack.frame_sizes, pack.up_factors, pack.hidden_dim, pack.q_levels
+    B, prior_t = prompt.shape
+    rf, n_t = fs[0], len(fs) - 1
     lib = _library()
     a = _Args()
     a.w, a.prompt, a.win = pack.flat.data_ptr(), prompt.data_ptr(), state.win.data_ptr()
@@ -519,6 +543,423 @@ def _launch(pack: SampleRNNPack, prompt, state: DecodeState, t0: int, n_steps: i
     return True
 
 
+# -- the cluster kernel's plan -------------------------------------------------
+
+CLUSTER_SOURCE = CSRC / "samplernn_cluster.cu"
+CLUSTER_SIZES = (8, 16)  # the cluster sizes samplernn_cluster.cu instantiates
+CLUSTER_THREADS = 256  # SC_THREADS
+SLOT_BYTES = 16384  # a ring slot of streamed weights
+MAX_SLOTS = 8
+MIN_RED_FLOATS = 4096  # the partial sums' floats at least (more slices of K)
+# per weight dtype, (most B, cluster size) in order: decode_chunk launches B
+# streams of a net whose plan fits with clusters of the first entry that
+# admits B; a wider batch takes the block kernel.  chip_smoke.py's sweep
+# times the three choices on both packs (NVIDIA H100 80GB HBM3, 700 W;
+# SampleRNN-3; PERF.md §6): clusters of 16 win while a group holds few
+# streams, clusters of 8 from B=128 (f32) or B=64 (bf16, whose products
+# cost less a stream) to 256, the block kernel at B=512.
+K2_CLUSTER_ROUTE = {
+    torch.float32: ((64, 16), (256, 8)),
+    torch.bfloat16: ((16, 16), (256, 8)),
+}
+
+
+@dtc.dataclass(frozen=True)
+class ClusterUnit:
+    """One product of a step as the cluster splits it: the pack's ``src``
+    (K, N) and ``bias``, and for each rank the pack columns of its slice in
+    the order the kernel computes them (-1: a zero column that pads the
+    last head layer's slice to a whole quad)."""
+
+    name: str
+    src: str
+    bias: str
+    K: int
+    N: int
+    cols: Tuple[Tuple[int, ...], ...]
+    resident: bool
+
+
+@dtc.dataclass(frozen=True)
+class ClusterPlan:
+    """Where each rank of a cluster of ``cl`` blocks keeps its slices, and a
+    block's shared memory for groups of ``S`` streams (:func:`cluster_plan`).
+
+    A rank's region of the relaid weights (elements of the pack's dtype,
+    each run at a multiple of 16 bytes, alike for every rank): the bottom's
+    framed dense whole (``wbot``, ``bbot``), the bias slices of every unit,
+    the resident slices (the head layers, k-major: row k's columns
+    together); ``n_resident`` elements so far, copied into shared memory
+    once a launch; then the streamed slices (each tier's gates and
+    up-sampler, k-major), copied through a ring of ``n_slots`` slots of
+    ``slot_elems`` in pieces of whole rows when the tier fires.
+    ``offsets[name]`` is a run's first element in the region; ``region``
+    the region's length.  ``fits`` False (with ``why``) where the kernel
+    cannot run the net at this cluster size."""
+
+    cl: int
+    S: int
+    units: Tuple[ClusterUnit, ...]
+    offsets: dict
+    n_resident: int
+    region: int
+    red_floats: int
+    n_slots: int
+    slot_elems: int
+    smem_bytes: int
+    fits: bool
+    why: str = ""
+
+    def pieces(self, u: int) -> Tuple[Tuple[int, int], ...]:
+        """A streamed unit's pieces: (first row, rows) each."""
+        unit = self.units[u]
+        nb = len(unit.cols[0])
+        kp = 4 * max(1, self.slot_elems // nb // 4)
+        return tuple((k, min(kp, unit.K - k)) for k in range(0, unit.K, kp))
+
+
+def _r4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+Geometry = Tuple  # (H, Q, frame sizes, up factors, head dims, element size)
+
+
+def geometry(pack: SampleRNNPack) -> Geometry:
+    """The widths a cluster plan depends on, as a hashable tuple."""
+    return (pack.hidden_dim, pack.q_levels, tuple(pack.frame_sizes), tuple(pack.up_factors),
+            tuple(tuple(d) for d in pack.head_dims), pack.flat.element_size())
+
+
+def _units(g: Geometry, cl: int) -> Tuple[ClusterUnit, ...]:
+    """Every sliced product of a step, in the kernel's order of runs: the
+    tiers' gates and up-samplers (streamed), the head layers (resident)."""
+    H, Q, fs, up, head_dims, _ = g
+    Hb, nt = H // cl, len(fs) - 1
+    units = []
+    for i in range(nt):
+        units.append(ClusterUnit(
+            f"wx{i}", f"wx{i}", f"bx{i}", 2 * H, 4 * H,
+            tuple(tuple(gi * H + r * Hb + u for gi in range(4) for u in range(Hb))
+                  for r in range(cl)), False))
+        units.append(ClusterUnit(
+            f"wup{i}", f"wup{i}", f"bup{i}", H, up[i] * H,
+            tuple(tuple(c * H + r * Hb + u for c in range(up[i]) for u in range(Hb))
+                  for r in range(cl)), False))
+    for k, (k_in, k_out) in enumerate(head_dims):
+        if k < len(head_dims) - 1:
+            nb = k_out // cl
+            cols = tuple(tuple(range(r * nb, (r + 1) * nb)) for r in range(cl))
+        else:
+            ql = Q // cl
+            cols = tuple(tuple(range(r * ql, (r + 1) * ql)) + (Q, -1, -1, -1) for r in range(cl))
+        units.append(ClusterUnit(f"wh{k}", f"wh{k}", f"bh{k}", k_in, k_out, cols, True))
+    return tuple(units)
+
+
+def smem_bytes(g: Geometry, cl: int, S: int, red_floats: int, n_resident: int,
+               n_slots: int) -> int:
+    """One block's dynamic shared memory, as ``sc_carve`` lays it out: the
+    [x | h] rows, the partial sums, the units' c, h and cache columns, the
+    candidates, the window (its tokens and its samples as products read
+    them), the resident load's barrier, the resident elements and the
+    ring."""
+    H, _, fs, up, _, esize = g
+    Hb, nt = H // cl, len(fs) - 1
+    floats = (S * (2 * H + 4) + _r4(red_floats) + 2 * _r4(nt * S * Hb)
+              + _r4(sum(S * u * Hb for u in up)) + _r4(cl * S * 2) + 2 * _r4(S * fs[0]) + 4)
+    return 4 * floats + -(-n_resident * esize // 16) * 16 + n_slots * (SLOT_BYTES // esize) * esize
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(g: Geometry, cl: int, S: int) -> ClusterPlan:
+    H, Q, fs, _, head_dims, esize = g
+    align = 16 // esize
+    slot_elems = SLOT_BYTES // esize
+    units = _units(g, cl) if cl in CLUSTER_SIZES and H % cl == 0 else ()
+    offsets, pos = {}, 0
+
+    def run(name, n):
+        nonlocal pos
+        offsets[name] = pos
+        pos += -(-n // align) * align
+
+    run("wbot", fs[-1] * H)
+    run("bbot", H)
+    for unit in units:
+        run(unit.bias, len(unit.cols[0]))
+    for unit in units:
+        if unit.resident:
+            run(unit.src, unit.K * len(unit.cols[0]))
+    n_resident = pos
+    for unit in units:
+        if not unit.resident:
+            run(unit.src, unit.K * len(unit.cols[0]))
+    nb_max = max((len(unit.cols[0]) for unit in units), default=4)
+    red = _r4(max(S * nb_max, MIN_RED_FLOATS))
+    n_slots = MAX_SLOTS
+    while n_slots > 0 and smem_bytes(g, cl, S, red, n_resident, n_slots) > SMEM_PER_BLOCK:
+        n_slots -= 1
+    smem = smem_bytes(g, cl, S, red, n_resident, n_slots)
+    why = ""
+    hidden = [w for dims in head_dims for w in dims][1:-1]
+    if cl not in CLUSTER_SIZES:
+        why = f"cluster size {cl} is not one of {CLUSTER_SIZES}"
+    elif H % (8 * cl) or Q % (4 * cl):
+        why = f"H {H} is not a multiple of {8 * cl}, or Q {Q} of {4 * cl}"
+    elif head_dims[0][0] != H or any(w != H for w in hidden):
+        why = "a hidden head layer is not as wide as the tiers"
+    elif len(head_dims) > MAX_HEAD or len(fs) > MAX_TIERS:
+        why = "too many head layers or tiers"
+    elif any(fs[0] % f for f in fs):
+        why = "a frame size does not divide the first"
+    elif (nb_max // 4) * -(-S // 8) > CLUSTER_THREADS:
+        why = f"{S} streams a group outgrow a product's tasks"
+    elif n_slots < 2:
+        why = f"{smem} bytes of shared memory a block leave no room for the ring"
+    return ClusterPlan(cl=cl, S=S, units=units, offsets=offsets, n_resident=n_resident,
+                       region=pos, red_floats=red, n_slots=n_slots, slot_elems=slot_elems,
+                       smem_bytes=smem, fits=not why, why=why)
+
+
+def cluster_plan(pack: SampleRNNPack, cl: int, S: int = 1) -> ClusterPlan:
+    """The plan of ``pack``'s net on clusters of ``cl`` blocks, groups of
+    ``S`` streams: a pure function of its widths, the pack's dtype, ``cl``
+    and ``S``.  Each rank owns H / cl hidden units of every tier (their four
+    gates' columns and their columns of each up-sampled cache row) and 1 / cl
+    of each head layer's columns (the last layer's Q / cl logits, and the
+    temperature logit, which every rank computes)."""
+    return _plan(geometry(pack), cl, S)
+
+
+def max_streams(pack: SampleRNNPack, cl: int) -> int:
+    """The most streams a group whose plan fits (0: none)."""
+    S = 0
+    while S < 256 and _plan(geometry(pack), cl, S + 1).fits:
+        S += 1
+    return S
+
+
+def _layout_np(plan: ClusterPlan, g: Geometry, offsets: Tuple, n_flat: int) -> np.ndarray:
+    """The index into the pack's flat weights (``n_flat``: a zero) of every
+    element of the relaid buffer: rank r's region at ``r * plan.region``."""
+    off = dict((name, (o, shape)) for name, o, shape in offsets)
+    H = g[0]
+    idx = np.full((plan.cl, plan.region), n_flat, np.int64)
+
+    def put(r, name, values):
+        o = plan.offsets[name]
+        idx[r, o : o + len(values)] = values
+
+    def cols_of(name, cols):
+        o, _ = off[name]
+        c = np.asarray(cols, np.int64)
+        return np.where(c >= 0, o + c, n_flat)
+
+    for r in range(plan.cl):
+        put(r, "wbot", off["wbot"][0] + np.arange(g[2][-1] * H))
+        put(r, "bbot", off["bbot"][0] + np.arange(H))
+        for unit in plan.units:
+            put(r, unit.bias, cols_of(unit.bias, unit.cols[r]))
+            c = np.asarray(unit.cols[r], np.int64)
+            rows = off[unit.src][0] + np.arange(unit.K)[:, None] * unit.N + c[None, :]
+            put(r, unit.src, np.where(c[None, :] >= 0, rows, n_flat).ravel())
+    return idx.ravel()
+
+
+@functools.lru_cache(maxsize=8)
+def _layout_cached(g: Geometry, cl: int, offsets: Tuple, n_flat: int) -> np.ndarray:
+    return _layout_np(_plan(g, cl, 1), g, offsets, n_flat)
+
+
+def cluster_layout(pack: SampleRNNPack, cl: int) -> torch.Tensor:
+    """The relaid weights of ``pack`` for clusters of ``cl`` blocks (every
+    rank's region, one after the other), on the pack's device: one gather of
+    the pack's flat weights by an index cached for the net's widths; kept on
+    the pack.  The region does not depend on the streams a group."""
+    cache = pack.__dict__.setdefault("_cluster", {})
+    if cl not in cache:
+        offsets = tuple(sorted((k, o, tuple(s)) for k, (o, s) in pack.offsets.items()))
+        idx = _layout_cached(geometry(pack), cl, offsets, pack.flat.numel())
+        flat = torch.cat([pack.flat, pack.flat.new_zeros(1)])
+        cache[cl] = flat.index_select(0, torch.from_numpy(idx).to(pack.flat.device))
+    return cache[cl]
+
+
+def cluster_size_for(pack: SampleRNNPack, B: int) -> Optional[int]:
+    """The cluster size :func:`decode_chunk` launches B streams of
+    ``pack``'s net with (on CUDA tensors), from ``K2_CLUSTER_ROUTE`` at the
+    pack's dtype; None for the block kernel."""
+    for most, cl in K2_CLUSTER_ROUTE[pack.flat.dtype]:
+        if B <= most:
+            return cl if cl is not None and max_streams(pack, cl) > 0 else None
+    return None
+
+
+class _ScArgs(ctypes.Structure):
+    """Mirror of ``ScArgs`` in ``csrc/samplernn_cluster.cu``."""
+
+    _fields_ = [
+        ("w", ctypes.c_void_p),
+        ("cw", ctypes.c_void_p),
+        ("prompt", ctypes.c_void_p),
+        ("win", ctypes.c_void_p),
+        ("h", ctypes.c_void_p),
+        ("c", ctypes.c_void_p),
+        ("cache", ctypes.c_void_p),
+        ("out", ctypes.c_void_p),
+        ("t0", ctypes.c_longlong),
+        ("out_t0", ctypes.c_longlong),
+        ("off_win", ctypes.c_longlong * MAX_TIERS),
+        ("off_bin", ctypes.c_longlong * MAX_TIERS),
+        ("region", ctypes.c_longlong),
+        ("o_wbot", ctypes.c_int),
+        ("o_bbot", ctypes.c_int),
+        ("o_bx", ctypes.c_int * MAX_TIERS),
+        ("o_bup", ctypes.c_int * MAX_TIERS),
+        ("o_wx", ctypes.c_int * MAX_TIERS),
+        ("o_wup", ctypes.c_int * MAX_TIERS),
+        ("o_bh", ctypes.c_int * MAX_HEAD),
+        ("o_wh", ctypes.c_int * MAX_HEAD),
+        *[(name, ctypes.c_int) for name in (
+            "n_resident", "n_steps", "out_len", "B", "H", "Q", "rf", "prior_t", "n_tiers",
+            "n_head", "argmax", "S", "red_floats", "n_slots", "slot_elems", "smem_bytes",
+            "cache_rows")],
+        ("seed", ctypes.c_uint),
+        ("temperature", ctypes.c_float),
+        ("min_temperature", ctypes.c_float),
+        ("bf16", ctypes.c_int),
+        ("fs", ctypes.c_int * MAX_TIERS),
+        ("up", ctypes.c_int * MAX_TIERS),
+        ("cache_row", ctypes.c_int * MAX_TIERS),
+        ("head_in", ctypes.c_int * MAX_HEAD),
+        ("head_out", ctypes.c_int * MAX_HEAD),
+    ]
+
+
+class _ClusterKernel:
+    """The cluster kernel's library (one per process), its compiler output,
+    and the clusters that fit, by (device, cluster size, dtype)."""
+
+    lib = None
+    build_log = ""
+    clusters = {}
+
+
+def build_cluster_kernel() -> Path:
+    """Compile ``csrc/samplernn_cluster.cu`` for sm_90a into
+    ``build/kernels/`` and return the library's path."""
+    path, log = build_library(CLUSTER_SOURCE, "mmk_samplernn_cluster")
+    if log:
+        _ClusterKernel.build_log = log
+    return path
+
+
+def _cluster_library():
+    if _ClusterKernel.lib is None:
+        lib = ctypes.CDLL(str(build_cluster_kernel()))
+        lib.mmk_sc_decode.argtypes = [ctypes.POINTER(_ScArgs), ctypes.c_int, ctypes.c_void_p,
+                                      ctypes.POINTER(ctypes.c_int), ctypes.c_int]
+        lib.mmk_sc_decode.restype = ctypes.c_int
+        lib.mmk_sc_args_size.argtypes = []
+        lib.mmk_sc_args_size.restype = ctypes.c_int
+        lib.mmk_sc_error_string.argtypes = [ctypes.c_int]
+        lib.mmk_sc_error_string.restype = ctypes.c_char_p
+        if lib.mmk_sc_args_size() != ctypes.sizeof(_ScArgs):
+            raise RuntimeError("ScArgs layout differs between C and Python")
+        _ClusterKernel.lib = lib
+    return _ClusterKernel.lib
+
+
+def _fill_cluster_args(a: _ScArgs, pack: SampleRNNPack, plan: ClusterPlan) -> None:
+    fs, up, H = pack.frame_sizes, pack.up_factors, pack.hidden_dim
+    n_t = len(fs) - 1
+    o = plan.offsets
+    a.region = plan.region
+    a.o_wbot, a.o_bbot = o["wbot"], o["bbot"]
+    row = 0
+    for i in range(len(fs)):
+        a.fs[i] = fs[i]
+        if i < n_t:
+            a.off_win[i], a.off_bin[i] = pack.offsets[f"win{i}"][0], pack.offsets[f"bin{i}"][0]
+            a.o_bx[i], a.o_bup[i] = o[f"bx{i}"], o[f"bup{i}"]
+            a.o_wx[i], a.o_wup[i] = o[f"wx{i}"], o[f"wup{i}"]
+            a.up[i], a.cache_row[i] = up[i], row
+            row += up[i]
+    for k, (d_in, d_out) in enumerate(pack.head_dims):
+        a.o_bh[k], a.o_wh[k] = o[f"bh{k}"], o[f"wh{k}"]
+        a.head_in[k], a.head_out[k] = d_in, d_out
+    a.n_resident, a.S, a.red_floats = plan.n_resident, plan.S, plan.red_floats
+    a.n_slots, a.slot_elems, a.smem_bytes = plan.n_slots, plan.slot_elems, plan.smem_bytes
+    a.H, a.Q, a.rf, a.n_tiers, a.n_head = H, pack.q_levels, fs[0], len(fs), len(pack.head_dims)
+    a.cache_rows = sum(up)
+    a.min_temperature = pack.min_temperature
+    a.bf16 = int(pack.flat.dtype == torch.bfloat16)
+
+
+def clusters_that_fit(pack: SampleRNNPack, cl: int) -> int:
+    """The clusters of ``cl`` blocks the card runs at once at the largest
+    group's shared memory (``cudaOccupancyMaxActiveClusters``), cached."""
+    dev = pack.flat.device
+    key = (str(dev), cl, pack.flat.dtype)
+    if key not in _ClusterKernel.clusters:
+        plan = cluster_plan(pack, cl, max_streams(pack, cl))
+        a = _ScArgs()
+        _fill_cluster_args(a, pack, plan)
+        n = ctypes.c_int(0)
+        err = _cluster_library().mmk_sc_decode(
+            ctypes.byref(a), cl, torch.cuda.current_stream(dev).cuda_stream, ctypes.byref(n), 1)
+        if err != 0:
+            raise RuntimeError("cluster decode kernel query failed: "
+                               f"{_cluster_library().mmk_sc_error_string(err).decode()}")
+        _ClusterKernel.clusters[key] = n.value
+    return _ClusterKernel.clusters[key]
+
+
+def streams_a_group(pack: SampleRNNPack, cl: int, B: int, clusters: int) -> int:
+    """S: B streams spread over the clusters that fit, at most the plan's
+    largest group (more groups then wait for a cluster)."""
+    return max(1, min(max_streams(pack, cl), -(-B // clusters)))
+
+
+def _launch_cluster(pack: SampleRNNPack, prompt, state: DecodeState, t0: int, n_steps: int,
+                    out: torch.Tensor, out_t0: int, seed: int, temperature: Optional[float],
+                    cl: int) -> bool:
+    """Launch the cluster kernel on ``state`` and ``out``; False when there
+    are no steps to run."""
+    _check_launch(pack, prompt, state, n_steps, out, temperature, "cluster decode kernel")
+    dev = pack.flat.device
+    B, prior_t = prompt.shape
+    if max_streams(pack, cl) == 0:
+        raise ValueError(f"the net is outside the cluster kernel's plan at {cl} blocks: "
+                         f"{cluster_plan(pack, cl).why}")
+    if n_steps == 0:
+        return False
+    clusters = clusters_that_fit(pack, cl)
+    plan = cluster_plan(pack, cl, streams_a_group(pack, cl, B, clusters))
+    cw = cluster_layout(pack, cl)
+    lib = _cluster_library()
+    a = _ScArgs()
+    _fill_cluster_args(a, pack, plan)
+    a.w, a.cw, a.prompt = pack.flat.data_ptr(), cw.data_ptr(), prompt.data_ptr()
+    a.win, a.h, a.c = state.win.data_ptr(), state.h.data_ptr(), state.c.data_ptr()
+    a.cache, a.out = state.cache.data_ptr(), out.data_ptr()
+    a.t0, a.out_t0 = t0, out_t0
+    a.n_steps, a.out_len, a.B, a.prior_t = n_steps, out.shape[1], B, prior_t
+    a.argmax = int(temperature is None)
+    a.seed = seed & 0xFFFFFFFF
+    a.temperature = 1.0 if temperature is None else float(temperature)
+    n = ctypes.c_int(0)
+    err = lib.mmk_sc_decode(ctypes.byref(a), cl, torch.cuda.current_stream(dev).cuda_stream,
+                            ctypes.byref(n), 0)
+    if err != 0:
+        raise RuntimeError(
+            f"cluster decode kernel launch failed: {lib.mmk_sc_error_string(err).decode()}")
+    decode_chunk.last_clusters, decode_chunk.last_cluster_size = n.value, cl
+    decode_chunk.last_streams = plan.S
+    return True
+
+
 def decode_single(pack: SampleRNNPack, prompt: torch.Tensor, n_steps: int, seed: int,
                   temperature: Optional[float], group: Optional[int] = None) -> torch.Tensor:
     """K1's route: decode ``n_steps`` tokens after ``prompt`` (B, prior_t) in
@@ -539,20 +980,33 @@ def decode_single(pack: SampleRNNPack, prompt: torch.Tensor, n_steps: int, seed:
 
 def decode_chunk(pack: SampleRNNPack, prompt: torch.Tensor, state: DecodeState, t0: int,
                  n_steps: int, seed: int, temperature: Optional[float],
-                 group: Optional[int] = None) -> torch.Tensor:
+                 group: Optional[int] = None, cl: Optional[int] = None) -> torch.Tensor:
     """K2's route: run steps ``t0 .. t0+n_steps-1`` on ``state`` (updated in
     place).  Returns the chunk's tokens, (B, n_steps) int32 — prompt tokens
-    where ``t < prior_t``."""
+    where ``t < prior_t``.  On CUDA tensors ``cl`` picks the kernel: None
+    the route (:func:`cluster_size_for`), 8 or 16 the cluster kernel at that
+    size, 0 the block kernel (``group`` streams a block)."""
     B = prompt.shape[0]
     if prompt.device.type == "cpu":
         return decode_plain(pack, prompt, state, t0, n_steps, t0, n_steps, seed, temperature)
     out = torch.empty(B, n_steps, dtype=torch.int32, device=prompt.device)
-    if _launch(pack, prompt, state, t0, n_steps, out, t0, seed, temperature, group):
+    if cl is None:
+        cl = cluster_size_for(pack, B) or 0
+    if cl:
+        launched = _launch_cluster(pack, prompt, state, t0, n_steps, out, t0, seed, temperature,
+                                   cl)
+        decode_chunk.launches_cluster += int(launched)
+    else:
+        launched = _launch(pack, prompt, state, t0, n_steps, out, t0, seed, temperature, group)
+    if launched:
         decode_chunk.launches += 1
         decode_chunk.launches_bf16 += int(pack.flat.dtype == torch.bfloat16)
     return out
 
 
-# kernel launches, all of them and those of the bf16 instantiation
+# kernel launches: all of them, those of the bf16 instantiation, and (for
+# decode_chunk) those of the cluster kernel
 decode_single.launches = decode_single.launches_bf16 = 0
-decode_chunk.launches = decode_chunk.launches_bf16 = 0
+decode_chunk.launches = decode_chunk.launches_bf16 = decode_chunk.launches_cluster = 0
+# the last cluster launch: the clusters that fitted, their size, the streams a group
+decode_chunk.last_clusters = decode_chunk.last_cluster_size = decode_chunk.last_streams = 0

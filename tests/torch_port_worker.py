@@ -377,6 +377,46 @@ def train_stateless_task(inp: dict) -> dict:
     return out
 
 
+def bf16_train_stateless_task(inp: dict) -> dict:
+    """Three TrainARMLoop steps under ``param_dtype="bfloat16"`` of each
+    stateless net of ``inp`` from the JAX weights, and a control (WaveNet's
+    conv bias inside the product, one rounding for both)."""
+    from mimikit_tpu_torch.networks import wavenet as wn
+
+    from_jax = {"wavenet": (mmk.WaveNet, mmk.wavenet_state_dict_from_jax),
+                "transformer": (mmk.SimpleTransformer, mmk.transformer_state_dict_from_jax),
+                "jukebox": (mmk.JukeBox, mmk.jukebox_state_dict_from_jax)}
+    work = str(inp["work"])
+    ds = mmk.DatasetConfig(sources=(str(inp["wav"]),), filename=str(inp["jax_h5"]),
+                           extractors=(mmk.Extractor.signal(16000),))
+
+    def losses(kind, tag):
+        cls, to_sd = from_jax[kind]
+        db = ds.get(mode="r")
+        cfg = mmk.Config.deserialize(str(inp[f"{kind}/train_yaml"]))
+        cfg.root_dir = f"{work}/port_{kind}_{tag}"
+        net_cfg = mmk.Config.deserialize(str(inp[f"{kind}/net_yaml"]))
+        net_cfg.io_spec.bind_to(ds)
+        net = cls.from_config(net_cfg, device="cpu")
+        net.load_state_dict(to_sd(unflatten(inp, f"{kind}/params0/")), strict=True)
+        loop = mmk.TrainARMLoop.from_config(cfg, db, net)
+        loop.run()
+        return np.array([h["loss"] for _, h in loop.metrics.history])
+
+    out = {}
+    kinds = sorted({k.split("/")[0] for k in inp if k.endswith("/net_yaml")})
+    for kind in kinds:
+        out[f"{kind}/losses"] = losses(kind, "bf16")
+    fixed = wn._conv
+    wn._conv = lambda conv, x: conv(x.transpose(1, 2)).transpose(1, 2)
+    try:
+        for kind in [k for k in kinds if k == "wavenet"]:
+            out[f"{kind}/control_losses"] = losses(kind, "control")
+    finally:
+        wn._conv = fixed
+    return out
+
+
 def load_wavenet(inp: dict, p: str):
     """The port's WaveNet from the JAX-written YAML, with the JAX weights."""
     cfg = mmk.Config.deserialize(str(inp[p + "yaml"]))
@@ -874,6 +914,128 @@ def jukebox_cluster_task(inp: dict) -> dict:
     return out
 
 
+def samplernn_cluster_task(inp: dict) -> dict:
+    """The SampleRNN cluster kernel's plan and relayout at each net's widths,
+    cluster size, dtype and group size, and ``decode_chunk``'s route by B
+    (the launchers replaced by recorders, the tensors on the meta device so
+    that the route is taken without a card), directly over chunks of
+    several lengths and inside a SampleRNN stream on the CPU."""
+    torch.set_num_threads(1)
+    out = {f"route/{str(dt).split('.')[-1]}": np.array([[most, cl or 0] for most, cl in route])
+           for dt, route in sd.K2_CLUSTER_ROUTE.items()}
+    out["sizes"] = np.array(sd.CLUSTER_SIZES)
+    taken = []
+
+    def block(pack, prompt, state, t0, n, o, out_t0, seed, temp, group=None):
+        taken.append("block")
+        return True
+
+    def cluster(pack, prompt, state, t0, n, o, out_t0, seed, temp, cl):
+        taken.append(f"cluster{cl}")
+        return True
+
+    real = sd._launch, sd._launch_cluster
+    sd._launch, sd._launch_cluster = block, cluster
+    dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
+    for tag in sorted({k.split("/")[0] for k in inp if k.startswith("net_")}):
+        spec = json.loads(str(inp[f"{tag}/spec"]))
+        io = mmk.IOSpec.mulaw_io(mmk.IOSpec.MuLawIOConfig(q_levels=spec["q_levels"],
+                                                          mlp_dim=spec["mlp_dim"]))
+        net = mmk.SampleRNN.from_config(mmk.SampleRNN.Config(
+            frame_sizes=tuple(spec["frame_sizes"]), hidden_dim=spec["hidden_dim"], io_spec=io),
+            device="cpu", seed=3).eval()
+        for dn, dt in dtypes.items():
+            pack = sd.samplernn_weight_pack(net, dt)
+            for cl in sd.CLUSTER_SIZES:
+                q = f"{tag}/{dn}/cl{cl}/"
+                S_max = sd.max_streams(pack, cl)
+                out[q + "max_streams"] = np.array(S_max)
+                if not S_max:
+                    continue
+                groups = sorted({1, S_max, *[min(S_max, -(-256 // c)) for c in (7, 8, 15, 16)]})
+                out[q + "groups"] = np.array(groups)
+                out[q + "smem"] = np.array([sd.cluster_plan(pack, cl, S).smem_bytes for S in groups])
+                out[q + "slots"] = np.array([sd.cluster_plan(pack, cl, S).n_slots for S in groups])
+                plan = sd.cluster_plan(pack, cl, S_max)
+                cw = sd.cluster_layout(pack, cl).float().numpy().reshape(cl, plan.region)
+                esize = pack.flat.element_size()
+                out[q + "esize"] = np.array(esize)
+                out[q + "offsets_bytes"] = np.array([o * esize for o in plan.offsets.values()]
+                                                    + [plan.region * esize,
+                                                       plan.n_resident * esize])
+                pieces = []
+                for u, unit in enumerate(plan.units):
+                    if not unit.resident:
+                        nb = len(unit.cols[0])
+                        pieces += [(plan.offsets[unit.src] + k0 * nb) * esize
+                                   for k0, _ in plan.pieces(u)]
+                        pieces += [rows * nb * esize for _, rows in plan.pieces(u)]
+                out[q + "piece_bytes"] = np.array(pieces)
+                # each unit: the ranks' columns, and the relaid slices against the pack's
+                for unit in plan.units:
+                    cols = [list(c) for c in unit.cols]
+                    out[f"{q}cols/{unit.name}"] = np.array(cols)
+                    out[f"{q}N/{unit.name}"] = np.array(unit.N)
+                    full = pack.view(unit.src).float().numpy()
+                    bias = pack.view(unit.bias).float().numpy()
+                    good = True
+                    for r in range(cl):
+                        c = np.asarray(cols[r])
+                        o = plan.offsets[unit.src]
+                        got = cw[r, o : o + unit.K * len(c)].reshape(unit.K, len(c))
+                        want = np.where(c[None] >= 0, full[:, np.maximum(c, 0)], 0.0)
+                        gb = cw[r, plan.offsets[unit.bias] : plan.offsets[unit.bias] + len(c)]
+                        good &= np.array_equal(got, want) and np.array_equal(
+                            gb, np.where(c >= 0, bias[np.maximum(c, 0)], 0.0))
+                    out[f"{q}equal/{unit.name}"] = np.array(good)
+                out[q + "units"] = np.array([u.name for u in plan.units])
+                out[q + "resident_units"] = np.array([u.name for u in plan.units if u.resident])
+                out[q + "wbot_equal"] = np.array(all(
+                    np.array_equal(cw[r, plan.offsets[k] : plan.offsets[k] + pack.view(k).numel()],
+                                   pack.view(k).float().numpy().ravel())
+                    for r in range(cl) for k in ("wbot", "bbot")))
+                out[q + "resident_in_load"] = np.array(
+                    all(plan.offsets[u.src] + u.K * len(u.cols[0]) <= plan.n_resident
+                        for u in plan.units if u.resident)
+                    and all(plan.offsets[u.src] >= plan.n_resident
+                            for u in plan.units if not u.resident))
+        # the route by B on each pack, over chunks of several lengths
+        rf = net.rf
+        edges = {m + e for route in sd.K2_CLUSTER_ROUTE.values() for m, _ in route for e in (0, 1)}
+        for dn, dt in dtypes.items():
+            pack = sd.samplernn_weight_pack(net, dt)
+            for B in sorted({1, 4, 64, 256} | edges):
+                taken.clear()
+                prompt = torch.zeros(B, 2 * rf, dtype=torch.int32, device="meta")
+                state = sd.DecodeState(*(torch.zeros(1, device="meta") for _ in range(4)))
+                for n in (7, 64, 2048):
+                    sd.decode_chunk(pack, prompt, state, rf, n, 0, None)
+                out[f"{tag}/{dn}/route_b{B}"] = np.array(taken)
+        # a stream on the CPU, each chunk also sent through the route
+        real_chunk = sd.decode_chunk
+        from mimikit_tpu_torch.networks import sample_rnn as srn
+
+        def routed(pack, prompt, state, t0, n, seed, temperature, **kw):
+            meta = sd.DecodeState(*(torch.zeros(1, device="meta") for _ in range(4)))
+            real_chunk(pack, torch.empty(prompt.shape, dtype=prompt.dtype, device="meta"), meta,
+                       t0, n, seed, temperature)
+            return real_chunk(pack, prompt, state, t0, n, seed, temperature, **kw)
+
+        srn.decode_chunk = routed
+        for B in (2, 64):
+            taken.clear()
+            prompt = torch.randint(0, spec["q_levels"], (B, 2 * rf),
+                                   generator=torch.Generator().manual_seed(B))
+            it = net.stream((prompt,), 8)
+            for _ in range(3):
+                next(it)
+            it.close()
+            out[f"{tag}/stream_route_b{B}"] = np.array(taken)
+        srn.decode_chunk = real_chunk
+    sd._launch, sd._launch_cluster = real
+    return out
+
+
 def mulaw_task(inp: dict) -> dict:
     """The K10 wrappers on CPU tensors (their plain twins) for every input
     and level; their launch counts; whether importing the module loaded
@@ -1154,8 +1316,9 @@ TASKS = {"modules": modules_task, "sample_rnn": sample_rnn_task, "fused_lstm": f
          "train": train_task, "train_stateless": train_stateless_task,
          "wavenet": wavenet_task, "categorical": categorical_task,
          "transformer": transformer_task, "jukebox": jukebox_task,
-         "jukebox_cluster": jukebox_cluster_task,
-         "mulaw": mulaw_task, "bf16_decode": bf16_decode_task, "bf16_train": bf16_train_task}
+         "jukebox_cluster": jukebox_cluster_task, "samplernn_cluster": samplernn_cluster_task,
+         "mulaw": mulaw_task, "bf16_decode": bf16_decode_task, "bf16_train": bf16_train_task,
+         "bf16_train_stateless": bf16_train_stateless_task}
 
 if __name__ == "__main__":
     task, src, dst = sys.argv[1:4]
