@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from . import rounding
 from .rounding import bias_add
 
 __all__ = ["dense", "Dense"]
@@ -27,7 +28,8 @@ def dense(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor]) -
     module note)."""
     if x.dtype == torch.float32 or bias is None:
         return F.linear(x, weight, bias)
-    return bias_add(F.linear(x, weight), bias)
+    y = rounding.linear(x, weight) if x.device.type == "cpu" else F.linear(x, weight)
+    return bias_add(y, bias)
 
 
 class Dense(nn.Linear):

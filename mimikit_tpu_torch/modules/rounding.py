@@ -13,6 +13,12 @@ dtype; :func:`xla_sum` sums in the order XLA's CPU backend does (its
 tree-reduction rewrite: windows of 32 along each reduced dimension, the
 padding split evenly before and after, until no dimension is longer than
 32; each window, then the windows, in row-major order), every add rounded.
+Where JAX computes in f32 inside an op (the softmax's sum, the layer norm's
+statistics and its transpose, every product of bf16 operands) the f32 sums
+follow XLA's CPU order too: a row reduction vectorised over one register's
+lanes (:func:`_row_sum`), a product's terms in the partial sums its dot
+kernel keeps (:func:`matmul`, whose rule ``tools/xla_dot_order.py`` holds to
+``jax.lax.dot``).
 
 The modules call these only below f32; in f32 they keep PyTorch's own ops.
 The forward of each equals the module's bf16 forward before them (each op
@@ -32,7 +38,8 @@ from typing import Sequence
 import torch
 
 __all__ = ["xla_sum", "bias_add", "sigmoid", "tanh", "mish", "learned_temperature",
-           "embedding"]
+           "embedding", "softmax", "layer_norm", "matmul", "linear",
+           "attention_scores", "attention_mix"]
 
 _WINDOW = 32
 
@@ -238,3 +245,241 @@ def embedding(idx: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     if table.device.type == "cpu":
         return _Embedding.apply(idx, table)
     return torch.nn.functional.embedding(idx, table)
+
+
+def _softmax(x: torch.Tensor):
+    """The softmax's bf16 steps (``jax.nn.softmax``): the shifted scores and
+    their exponentials rounded, the sum taken in f32 (``jnp.sum`` upcasts;
+    :func:`_row_sum`) and rounded; returns (exponentials, sum, quotient)."""
+    e = torch.exp(x - x.amax(-1, keepdim=True))
+    s = _row_sum(e.float()).unsqueeze(-1).to(x.dtype)
+    return e, s, e / s
+
+
+class _Softmax(torch.autograd.Function):
+    """Softmax over the last axis; backward JAX's transpose of its primal
+    ops (the max a constant: ``stop_gradient``): ``(g / s - sum(g e / s²))
+    e``, the sum in x's dtype by :func:`xla_sum`."""
+
+    @staticmethod
+    def forward(ctx, x):
+        e, s, y = _softmax(x)
+        ctx.save_for_backward(e, s)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        e, s = ctx.saved_tensors
+        t = -xla_sum((g * _inv_square(s)) * e, [-1]).unsqueeze(-1)
+        return (g / s + t) * e
+
+
+def softmax(x: torch.Tensor) -> torch.Tensor:
+    """flax attention's ``jax.nn.softmax`` of scores below f32 (on the card
+    the sum in PyTorch's order)."""
+    if x.device.type == "cpu":
+        return _Softmax.apply(x)
+    e = torch.exp(x - x.amax(-1, keepdim=True))
+    return e / e.sum(-1, keepdim=True)
+
+
+def _lanes() -> int:
+    """The f32 lanes of one of this CPU's vector registers: XLA's CPU
+    backend sums a row of f32 in that many partial sums."""
+    return 16 if torch.backends.cpu.get_cpu_capability().startswith("AVX512") else 8
+
+
+def _row_sum(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (f32) summed over its last dimension as XLA's CPU backend
+    vectorises a row reduction: one vector register of partial sums, lane
+    l taking elements l, l + lanes, ... in order, then the lanes added in
+    order (a row longer than 32 first in :func:`xla_sum`'s windows, each
+    window so, then the windows' sums so; checked against JAX at rows of
+    8 to 32)."""
+    lanes = _lanes()
+    n = x.shape[-1]
+    if n > _WINDOW:
+        p = (-n) % _WINDOW
+        x = torch.nn.functional.pad(x, [p // 2, p - p // 2])
+        return _row_sum(_row_sum(x.reshape(*x.shape[:-1], -1, _WINDOW)))
+    parts = [x[..., l::lanes] for l in range(min(lanes, n))]
+    acc = []
+    for p in parts:
+        a = p[..., 0]
+        for i in range(1, p.shape[-1]):
+            a = a + p[..., i]
+        acc.append(a)
+    out = acc[0]
+    for a in acc[1:]:
+        out = out + a
+    return out
+
+
+class _LayerNorm(torch.autograd.Function):
+    """flax's ``LayerNorm`` of a bf16 ``x`` with bf16 scale and bias: the
+    statistics and the normalisation in f32 (``mul = rsqrt(var + eps) *
+    scale`` first), rounded at the end; backward JAX's transpose op by op,
+    the sums over a row by :func:`_row_sum` and over the rows by
+    :func:`xla_sum`, the cotangent of x's two uses (the centred x and the
+    statistics) rounded each and added in x's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, eps):
+        n = x.shape[-1]
+        e = x.float()
+        mean = _row_sum(e).unsqueeze(-1) / n
+        var = _row_sum(e * e).unsqueeze(-1) / n - mean * mean
+        var0 = torch.clamp_min(var, 0.0)
+        c = e - mean
+        v = var0 + eps
+        r = torch.rsqrt(v)
+        mul = r * w.float()
+        ctx.save_for_backward(e, mean, var, var0, c, v, r, mul, w)
+        return (c * mul + b.float()).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        e, mean, var, var0, c, v, r, mul, w = ctx.saved_tensors
+        n, dt = e.shape[-1], g.dtype
+        lead = list(range(g.ndim - 1))
+        g = g.float()
+        db = xla_sum(g, lead).to(dt)
+        gc = c * g
+        gx = g * mul
+        dw = xla_sum(r * gc, lead).to(dt)
+        dr = _row_sum(gc * w.float()).unsqueeze(-1)
+        dvar = dr * (-0.5 * (r / v))
+        dmean = _row_sum(-gx).unsqueeze(-1)
+        # max(var, 0)'s derivative: 1 where it passes var, halved at a tie
+        dmax = (var == var0).float() / torch.where(var0 == 0, 2.0, 1.0)
+        dvar = dvar * dmax
+        dmean = dmean + (-dvar) * (2.0 * mean)
+        dx = dmean / n + (dvar / n) * (2.0 * e)
+        return gx.to(dt) + dx.to(dt), dw, db, None
+
+
+def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, eps: float) -> torch.Tensor:
+    """flax's ``LayerNorm`` below f32 with JAX's gradient, on CPU tensors
+    (the caller keeps its own formula on the card)."""
+    return _LayerNorm.apply(x, w, b, eps)
+
+
+def _dot_lanes(m: int, n: int):
+    """How XLA's CPU backend sums each element of an (m, k) by (k, n) f32
+    product: (partial sums, whether they are added pairwise).  Partial sum
+    l takes the terms l, l + lanes, ... in order, up to the last multiple of
+    4; the rest follow one by one.  Read off jax.lax.dot on an AVX-512 CPU
+    by cancelling probes (``tools/xla_dot_order.py``, which holds this rule
+    to jax at m from 4 and k, n from 2 to 256)."""
+    if m == 1:
+        return 1, False
+    if n == 1:
+        return 8, True
+    if n <= 16:
+        return 4, True
+    if m < 64 or n % 64 == 0:
+        return 1, False
+    if n % 64 == 32:
+        return 2, False
+    return 4, True
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor, lhs_transposed: bool = False) -> torch.Tensor:
+    """``a @ b`` ((..., m, k) by (..., k, n)) of tensors below f32 as XLA's
+    CPU backend computes it: the operands widened to f32, each element
+    summed in the order :func:`_dot_lanes` names (in one partial sum where
+    XLA reads ``a`` transposed, ``lhs_transposed``), the result rounded to
+    a's dtype.  The terms of bf16 values are exact in f32, so the sum's
+    order is the only freedom."""
+    dt = a.dtype
+    m, k, n = a.shape[-2], a.shape[-1], b.shape[-1]
+    lanes, pairwise = (1, False) if lhs_transposed else _dot_lanes(m, n)
+    a, b = a.float(), b.float()
+    term = lambda i: a[..., :, i, None] * b[..., i, None, :]  # noqa: E731
+    # with partial sums, the terms past the last multiple of 4 come after them
+    main = k - k % 4 if lanes > 1 else k
+    parts = []
+    for lane in range(min(lanes, main)):
+        acc = term(lane)
+        for i in range(lane + lanes, main, lanes):
+            acc = acc + term(i)
+        parts.append(acc)
+    while len(parts) > 1:
+        if pairwise:
+            parts = [parts[i] + parts[i + 1] if i + 1 < len(parts) else parts[i]
+                     for i in range(0, len(parts), 2)]
+        else:
+            parts = [parts[0] + parts[1]] + parts[2:]
+    acc = parts[0] if parts else None
+    for i in range(main, k):
+        acc = term(i) if acc is None else acc + term(i)
+    return acc.to(dt)
+
+
+class _Linear(torch.autograd.Function):
+    """``x @ w.T`` (x (..., in), w (out, in)); forward and backward
+    products by :func:`matmul`, each in the orientation XLA gives it: the
+    rows by the inputs, the output cotangent by w, and w's cotangent as
+    (out, rows) by (rows, in)."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return matmul(x.reshape(-1, x.shape[-1]), w.t()).reshape(*x.shape[:-1], w.shape[0])
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g2, x2 = g.reshape(-1, g.shape[-1]), x.reshape(-1, x.shape[-1])
+        return matmul(g2, w).reshape(x.shape), matmul(g2.t(), x2)
+
+
+def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``F.linear(x, w)`` below f32 in XLA's order on CPU tensors (the
+    caller keeps ``F.linear`` on the card)."""
+    return _Linear.apply(x, w)
+
+
+class _Scores(torch.autograd.Function):
+    """``q @ k^T`` over (..., T, d) heads, the products in XLA's
+    orientation: forward (Tq, d) by (d, Tk); q's cotangent (Tq, Tk) by
+    (Tk, d), k's (Tk, Tq) by (Tq, d), the first read transposed."""
+
+    @staticmethod
+    def forward(ctx, q, k):
+        ctx.save_for_backward(q, k)
+        return matmul(q, k.transpose(-1, -2))
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k = ctx.saved_tensors
+        return matmul(g, k), matmul(g.transpose(-1, -2), q, lhs_transposed=True)
+
+
+class _Mix(torch.autograd.Function):
+    """``p @ v`` (p (..., Tq, Tk), v (..., Tk, d)), computed as XLA does,
+    transposed: forward (d, Tk) by (Tk, Tq); p's cotangent (Tq, d) by (d,
+    Tk); v's, transposed, (d, Tq) by (Tq, Tk)."""
+
+    @staticmethod
+    def forward(ctx, p, v):
+        ctx.save_for_backward(p, v)
+        return matmul(v.transpose(-1, -2), p.transpose(-1, -2)).transpose(-1, -2)
+
+    @staticmethod
+    def backward(ctx, g):
+        p, v = ctx.saved_tensors
+        gt = g.transpose(-1, -2)
+        return matmul(g, v.transpose(-1, -2)), matmul(gt, p).transpose(-1, -2)
+
+
+def attention_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """flax attention's scores ``q k^T`` below f32 in XLA's order, on CPU
+    tensors: q and k (..., heads, T, d)."""
+    return _Scores.apply(q, k)
+
+
+def attention_mix(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """flax attention's ``p v`` below f32 in XLA's order, on CPU tensors:
+    p (..., heads, Tq, Tk), v (..., heads, Tk, d)."""
+    return _Mix.apply(p, v)

@@ -42,9 +42,11 @@ JukeBox serving routes:
   (:func:`~..ops.jukebox_decode.supports_kernel_decode`), one launch of K8
   (:func:`~..ops.jukebox_decode.decode_pyramid`) at every B: up to
   ``_K8_CLUSTER_MAX_B`` streams on the cluster kernel (a stream a cluster
-  of blocks, ``csrc/jukebox_cluster.cu``), more on the block kernel (a
-  stream a block, ``csrc/jukebox_decode.cu``); outside the scope the window
-  re-feed with its one-token lead;
+  of blocks, ``csrc/jukebox_cluster.cu``), up to ``K8_GROUP_ROUTE``'s limit
+  on the group kernel (a group of streams a cluster,
+  ``csrc/jukebox_group.cu``), more on the block kernel (a stream a block,
+  ``csrc/jukebox_decode.cu``); outside the scope the window re-feed with
+  its one-token lead;
 * ``stream``: in the scope, one K8 launch a chunk with the (B, W) lead window
   carried on the card and the weight pack built once a stream (the kernel
   chosen by B alone, so every chunk takes the same one); outside it, the
@@ -102,6 +104,7 @@ from ..modules.activations import _PLAIN
 from ..modules.dense import Dense, dense
 from ..modules.io import FramedConv1dIO, FramedLinearIO, ZipReduceVariables
 from ..modules.resamplers import LinearResampler
+from ..modules import rounding
 from .. import precision
 from ..ops import jukebox_decode as jbd
 from ..ops.transformer_decode import (
@@ -154,11 +157,11 @@ class PositionalEncoding(nn.Module):
 def _softmax(scores):
     """Softmax over the last axis; below f32 each of flax's steps (the
     shifted scores, their exponentials, the sum, the quotient) is rounded to
-    the scores' dtype."""
+    the scores' dtype, and on the CPU its gradient is JAX's
+    (``rounding.softmax``)."""
     if scores.dtype == torch.float32:
         return torch.softmax(scores, dim=-1)
-    e = torch.exp(scores - scores.amax(-1, keepdim=True))
-    return e / e.sum(-1, keepdim=True)
+    return rounding.softmax(scores)
 
 
 class LayerNorm(nn.Module):
@@ -171,6 +174,9 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(dim))
 
     def forward(self, x):
+        if x.dtype != torch.float32 and x.device.type == "cpu":
+            # below f32 on the CPU, with JAX's gradient
+            return rounding.layer_norm(x, self.weight, self.bias, self.eps)
         return layer_norm(x, self.weight, self.bias, self.eps)
 
 
@@ -198,13 +204,21 @@ class MultiheadAttention(nn.Module):
         divided by sqrt(dH) in q's dtype and masked scores are that dtype's
         lowest value, as flax does them."""
         q = q / torch.tensor(math.sqrt(q.shape[-1]), dtype=q.dtype)
-        scores = torch.einsum("bqhd,bkhd->bhqk", q, k)
+        # below f32 on the CPU, the products in XLA's order (rounding.matmul)
+        xla = q.dtype != torch.float32 and q.device.type == "cpu"
+        if xla:
+            scores = rounding.attention_scores(q.transpose(1, 2), k.transpose(1, 2))
+        else:
+            scores = torch.einsum("bqhd,bkhd->bhqk", q, k)
         if mask is not None:
             scores = scores.masked_fill(~mask, torch.finfo(scores.dtype).min)
         p = _softmax(scores)
         if self.dropout > 0 and self.training:
             p = F.dropout(p, self.dropout)
-        out = torch.einsum("bhqk,bkhd->bqhd", p, v)
+        if xla:
+            out = rounding.attention_mix(p, v.transpose(1, 2)).transpose(1, 2)
+        else:
+            out = torch.einsum("bhqk,bkhd->bqhd", p, v)
         return self.out_proj(out.reshape(*out.shape[:2], -1))
 
     def forward(self, x, kv, mask=None):
@@ -652,7 +666,7 @@ class TransformerTier(nn.Module):
         if self.model_dim is not None:
             if self.pe is not None:
                 x = self.pe(x)
-            x = torch.tanh(self.model(x))
+            x = _PLAIN["Tanh"](self.model(x))
         if self.up_sampler is not None:
             x = self.up_sampler(x)
         return x
@@ -809,8 +823,9 @@ class JukeBox(_StatefulTransformerARM, JukeBoxCore):
         prompt shorter than the window is left-padded with zeros, then
         stripped.  A net in the kernel's scope decodes in one launch of the
         tier-pyramid kernel (K8) at every B, the cluster kernel up to
-        ``_K8_CLUSTER_MAX_B`` streams, the block kernel beyond; others run
-        the window re-feed.
+        ``_K8_CLUSTER_MAX_B`` streams, the group kernel up to
+        ``K8_GROUP_ROUTE``'s limit, the block kernel beyond; others run the
+        window re-feed.
         ``temperature`` None is argmax.  Returns a tuple of one (B, prior_t +
         n_steps) tensor on the network's device."""
         return self._generate(prompts, n_steps, temperature, seed, None)
@@ -835,8 +850,8 @@ class JukeBox(_StatefulTransformerARM, JukeBoxCore):
                seed: Optional[int] = None):
         """Unbounded generation: yield (B, chunk_steps) numpy token chunks
         forever (``:1249-1385``).  In the kernel's scope: one K8 launch a
-        chunk (the cluster or the block kernel, chosen by B alone, so one for
-        the whole stream), the (B, W) lead window — JukeBox's whole decode
+        chunk (the cluster, group or block kernel, chosen by B alone, so one
+        for the whole stream), the (B, W) lead window — JukeBox's whole decode
         state — carried on the device between launches, the weight pack
         built once; noise is
         keyed by absolute position, so the stream equals one long ``generate``

@@ -1,4 +1,4 @@
-"""JukeBox tier-pyramid decode: two CUDA kernels, their wrapper and their plain twin.
+"""JukeBox tier-pyramid decode: three CUDA kernels, their wrapper and their plain twin.
 
 The kernels replace the TPU kernel
 ``make_jukebox_pallas_decoder`` (K8, ``mimikit_tpu/ops/pallas_decode.py:2386``,
@@ -17,20 +17,26 @@ head divides its logits by max(sigmoid(extra logit), min_temperature), then
 by the temperature plus Gumbel noise when sampling; the argmax token fills
 the placeholder and the window moves on by one.
 
-Two kernels compute that step, on the same pack, window and noise:
+Three kernels compute that step, on the same pack, window and noise:
 
 * the cluster kernel (``csrc/jukebox_cluster.cu``): one stream on a
   thread-block cluster of 8 or 16 blocks, each holding its slice
   of every product's weights in its shared memory (:func:`cluster_plan`,
   laid out by :func:`cluster_layout`), the activations exchanged through
   distributed shared memory;
+* the group kernel (``csrc/jukebox_group.cu``): a group of S streams on a
+  cluster of 4, 8 or 16 blocks, the same slices (:func:`group_plan`, whose
+  activations grow with S), each product and exchange shared by the group;
 * the block kernel (``csrc/jukebox_decode.cu``): one stream a block, the
   weights read from L2.
 
-:func:`decode_pyramid` routes a CUDA window of at most ``_K8_CLUSTER_MAX_B``
-streams, of a net whose plan fits, to the cluster kernel (clusters of 16
-blocks up to 7 streams, of 8 up to 15: ``K8_CLUSTER_ROUTE``), wider batches
-to the block kernel: by B and the widths alone, so a stream keeps one kernel.
+:func:`decode_pyramid` routes a CUDA window (:func:`route`) of at most
+``_K8_CLUSTER_MAX_B`` streams, of a net whose plan fits, to the cluster
+kernel (clusters of 16 blocks up to 7 streams, of 8 up to 15:
+``K8_CLUSTER_ROUTE``), wider ones up to ``K8_GROUP_ROUTE``'s limit (60) to
+the group kernel (clusters of 8, S from the clusters that fit:
+:func:`streams_a_group`), wider batches to the block kernel: by B and the
+widths alone, so a stream keeps one kernel.
 
 This module holds:
 
@@ -40,11 +46,13 @@ This module holds:
 * :func:`lead_window`, the (B, W) window of a padded prompt;
 * :func:`pyramid_scores` (a batch of windows at once, for teacher forcing)
   and :func:`decode_pyramid_plain`, the plain twin;
-* :func:`cluster_plan` and :func:`cluster_layout`, the cluster kernel's
-  residency plan and its relaid weights;
-* :func:`decode_pyramid`, the counted wrapper (``launches``, both kernels;
-  ``launches_cluster``, the cluster kernel), which leaves the advanced
-  window in place, so a stream carries it from one launch to the next.
+* :func:`cluster_plan`, :func:`group_plan`, :func:`cluster_layout` and
+  :func:`group_layout`, the cluster and group kernels' residency plans and
+  their relaid weights;
+* :func:`decode_pyramid`, the counted wrapper (``launches``, every kernel;
+  ``launches_cluster`` and ``launches_group``, those two kernels'), which
+  leaves the advanced window in place, so a stream carries it from one
+  launch to the next.
 
 Not carried over: the per-row bias tiling of ``jukebox_weight_pack``
 (``pallas_decode.py:2289-2307``), which works around a Mosaic layout rule,
@@ -90,6 +98,13 @@ SOURCE = CSRC / "jukebox_decode.cu"
 # blocks fit on an H100 at jukebox3's shared memory, 15 of 8.
 K8_CLUSTER_ROUTE = ((7, 16), (15, 8))
 _K8_CLUSTER_MAX_B = K8_CLUSTER_ROUTE[-1][0]
+# past it, the group kernel's route (a group of streams a cluster,
+# csrc/jukebox_group.cu), (the most streams, the cluster size) in order, the first
+# that admits B and where a group of one stream fits; beyond the last, the block
+# kernel.  From the same sweep, which times the group kernel at each cluster size:
+# on an H100 at jukebox3's widths groups of up to 4 streams on the 15 clusters of 8
+# that fit (B <= 60) beat the block kernel, groups of 5 lose to it
+K8_GROUP_ROUTE = ((60, 8),)
 
 
 def _r4(n: int) -> int:
@@ -411,6 +426,9 @@ def decode_pyramid_plain(pack: JukeBoxPack, window: torch.Tensor, t0: int, n_ste
 
 CLUSTER_SOURCE = CSRC / "jukebox_cluster.cu"
 CLUSTER_SIZES = (8, 16)  # the cluster sizes jukebox_cluster.cu instantiates
+GROUP_SOURCE = CSRC / "jukebox_group.cu"
+GROUP_SIZES = (4, 8, 16)  # the cluster sizes jukebox_group.cu instantiates
+GROUP_SLOT_FLOATS = 4096  # the group kernel's ring slot (16 KB: half the pieces of 8 KB)
 K8_CLUSTER_SIZE = 16  # the size a launch takes when none is named (a single stream's)
 RING_SLOTS = 4  # JC ring: streamed pieces in flight
 SLOT_FLOATS = 2048  # floats a ring slot holds (8 KB)
@@ -458,9 +476,10 @@ class ClusterPlan:
     the ring, in pieces of whole column quads of at most ``SLOT_FLOATS``.
     ``small[r]``: floats of its layer norms, biases and PE rows (always
     resident); ``act_floats``: the activations, scratch, table and barriers,
-    laid out alike in every block; ``smem_bytes``: one block's dynamic
+    laid out alike in every block, for ``S`` streams a cluster (the group
+    kernel's; 1 for the cluster kernel); ``smem_bytes``: one block's dynamic
     shared memory; ``fits`` False (with ``why``) where the kernel cannot run
-    the net at this cluster size."""
+    the net at this cluster size and group."""
 
     cl: int
     units: Tuple[ClusterUnit, ...]
@@ -473,6 +492,8 @@ class ClusterPlan:
     smem_bytes: int
     fits: bool
     why: str = ""
+    S: int = 1
+    slot_floats: int = SLOT_FLOATS
 
     def slice_floats(self, u: int, r: int) -> int:
         unit = self.units[u]
@@ -491,7 +512,7 @@ class ClusterPlan:
             q = len(unit.cols[r]) // 4
             if self.resident[r][u] or q == 0:
                 continue
-            per = max(1, SLOT_FLOATS // (4 * unit.K))
+            per = max(1, self.slot_floats // (4 * unit.K))
             out += [(u, q0, min(per, q - q0)) for q0 in range(0, q, per)]
         return out
 
@@ -561,23 +582,26 @@ def _units(g: Geometry, cl: int) -> Tuple[ClusterUnit, ...]:
     return tuple(units)
 
 
-def act_floats(g: Geometry, cl: int, ymax: int, tab_ints: int) -> int:
-    """Floats of the buffers laid out alike in every block (``jc_carve``):
-    the exchanged rows (x0, h, att, ffh, two head rows), the local ones
-    (normed rows, the block's q|k|v and every layer's cross k|v, two product
-    outputs), the partial sums, the window, the argmax's partials, the unit
-    table and the ring's barriers."""
+def act_floats(g: Geometry, cl: int, ymax: int, tab_ints: int, S: int = 1) -> int:
+    """Floats of the buffers laid out alike in every block (``jc_carve``,
+    and ``jg_carve`` for a group of S streams): the exchanged rows (x0, h,
+    att, ffh, two head rows), the local ones (normed rows, the block's q|k|v
+    and every layer's cross k|v, two product outputs), the window, each for
+    every stream of the group; the partial sums, the argmax's partials, the
+    unit table and the ring's barriers."""
     d, nH, ff, L, W, Q, fs, n_frames, t_up, head_dims = g
     R = max(n_frames)
     _, hpr, _, _ = _heads(nH, cl, 0)
     dHo = hpr * (d // nH)
     hw = _r4(max([d] + [w for dims in head_dims for w in dims]))
-    return (4 * R * d + R * ff + 2 * hw + R * 3 * dHo + R * 2 * L * dHo + 2 * R * ymax
-            + RED_FLOATS + 2 * _r4(W) + 32 + _r4(tab_ints) + _r4(2 * (RING_SLOTS + 1)))
+    per_stream = (4 * R * d + R * ff + 2 * hw + R * 3 * dHo + R * 2 * L * dHo + 2 * R * ymax
+                  + 2 * _r4(W))
+    return S * per_stream + RED_FLOATS + 32 + _r4(tab_ints) + _r4(2 * (RING_SLOTS + 1))
 
 
 @functools.lru_cache(maxsize=None)
-def _plan(g: Geometry, cl: int) -> ClusterPlan:
+def _plan(g: Geometry, cl: int, S: int = 1, sizes: Tuple[int, ...] = CLUSTER_SIZES,
+          slot_floats: int = SLOT_FLOATS) -> ClusterPlan:
     d, nH, ff, L, W, Q, fs, n_frames, t_up, head_dims = g
     units = _units(g, cl) if nH % cl == 0 or cl % nH == 0 else ()
     n_up, dH = len(fs) - 1, d // nH
@@ -590,11 +614,11 @@ def _plan(g: Geometry, cl: int) -> ClusterPlan:
     ymax = max((len(c) for unit in units for c in unit.cols), default=4)
     slices = [[unit.K * len(unit.cols[r]) for unit in units] for r in range(cl)]
     # the table has room for every unit streamed: its size may not depend on the choice
-    most_pieces = max((sum(-(-len(unit.cols[r]) // 4 // max(1, SLOT_FLOATS // (4 * unit.K)))
+    most_pieces = max((sum(-(-len(unit.cols[r]) // 4 // max(1, slot_floats // (4 * unit.K)))
                            for unit in units) for r in range(cl)), default=0)
     tab_ints = TAB_HEADER + 3 * len(units) + 2 * most_pieces
-    act = act_floats(g, cl, ymax, tab_ints)
-    budget = SMEM_PER_BLOCK // 4 - act - RING_SLOTS * SLOT_FLOATS
+    act = act_floats(g, cl, ymax, tab_ints, S)
+    budget = SMEM_PER_BLOCK // 4 - act - RING_SLOTS * slot_floats
     resident = []
     for r in range(cl):
         row, over = [True] * len(units), small[r] + sum(slices[r]) - budget
@@ -606,15 +630,17 @@ def _plan(g: Geometry, cl: int) -> ClusterPlan:
         resident.append(tuple(row))
     wreg = _r4(max((small[r] + sum(f for f, k in zip(slices[r], resident[r]) if k)
                     for r in range(cl)), default=0))
-    smem = 4 * (act + wreg + RING_SLOTS * SLOT_FLOATS)
+    smem = 4 * (act + wreg + RING_SLOTS * slot_floats)
     why = ""
-    if cl not in CLUSTER_SIZES:
-        why = f"cluster size {cl} is not one of {CLUSTER_SIZES}"
+    if cl not in sizes:
+        why = f"cluster size {cl} is not one of {sizes}"
+    elif S < 1:
+        why = f"a group of {S} streams"
     elif not units:
         why = f"{nH} heads do not divide among {cl} blocks, nor {cl} blocks among them"
     elif dH % 4:
         why = f"a head's width {dH} is not a multiple of 4"
-    elif any(4 * unit.K > SLOT_FLOATS for unit in units):
+    elif any(4 * unit.K > slot_floats for unit in units):
         why = "a product's depth outgrows a ring slot"
     elif max(n_frames) > 32 or MAX_ROWS * ymax > RED_FLOATS:
         why = "a tier's frames outgrow a warp's attention, or a slice the partial sums"
@@ -622,7 +648,7 @@ def _plan(g: Geometry, cl: int) -> ClusterPlan:
         why = f"{smem} bytes of shared memory a block"
     return ClusterPlan(cl=cl, units=units, resident=tuple(resident), small=tuple(small),
                        ymax=ymax, tab_ints=tab_ints, act_floats=act, wreg_floats=wreg,
-                       smem_bytes=smem, fits=not why, why=why)
+                       smem_bytes=smem, fits=not why, why=why, S=S, slot_floats=slot_floats)
 
 
 def cluster_plan(pack: JukeBoxPack, cl: Optional[int] = None) -> ClusterPlan:
@@ -692,31 +718,44 @@ def _layout_np(plan: ClusterPlan, g: Geometry, offsets: Tuple):
     return np.concatenate(parts), tabs
 
 
-@functools.lru_cache(maxsize=8)
-def _layout_cached(g: Geometry, cl: int, offsets: Tuple):
-    return _layout_np(_plan(g, cl), g, offsets)
+@functools.lru_cache(maxsize=16)
+def _layout_cached(g: Geometry, cl: int, offsets: Tuple, S: int, sizes: Tuple[int, ...],
+                   slot_floats: int):
+    return _layout_np(_plan(g, cl, S, sizes, slot_floats), g, offsets)
 
 
 _LAYOUT_ON_DEVICE = {}
 
 
-def cluster_layout(pack: JukeBoxPack, cl: Optional[int] = None):
-    """(relaid weights, tables, plan) of ``pack`` for clusters of ``cl``
-    blocks, on the pack's device: one gather of the pack's flat weights, by
-    an index cached for the net's widths and layout; kept on the pack."""
-    cl = cl or K8_CLUSTER_SIZE
+def _relaid(pack: JukeBoxPack, cl: int, S: int, sizes: Tuple[int, ...], slot: int):
+    """(relaid weights, tables, plan) of ``pack`` for a plan's arguments, on
+    the pack's device: one gather of the pack's flat weights, by an index
+    cached for the net's widths and layout; kept on the pack."""
     cache = pack.__dict__.setdefault("_cluster", {})
-    if cl not in cache:
+    if (cl, S, sizes, slot) not in cache:
         g = geometry(pack)
         offsets = tuple(sorted((k, o, tuple(s)) for k, (o, s) in pack.offsets.items()))
-        key = (g, cl, offsets, str(pack.flat.device))
+        key = (g, cl, S, sizes, slot, offsets, str(pack.flat.device))
         if key not in _LAYOUT_ON_DEVICE:
-            idx, tabs = _layout_cached(g, cl, offsets)
+            idx, tabs = _layout_cached(g, cl, offsets, S, sizes, slot)
             _LAYOUT_ON_DEVICE[key] = (torch.from_numpy(idx).to(pack.flat.device),
                                       torch.from_numpy(tabs).to(pack.flat.device))
         idx, tabs = _LAYOUT_ON_DEVICE[key]
-        cache[cl] = (pack.flat.index_select(0, idx), tabs, _plan(g, cl))
-    return cache[cl]
+        cache[(cl, S, sizes, slot)] = (pack.flat.index_select(0, idx), tabs,
+                                       _plan(g, cl, S, sizes, slot))
+    return cache[(cl, S, sizes, slot)]
+
+
+def cluster_layout(pack: JukeBoxPack, cl: Optional[int] = None):
+    """(relaid weights, tables, plan) of ``pack`` for the cluster kernel on
+    clusters of ``cl`` blocks (default ``K8_CLUSTER_SIZE``)."""
+    return _relaid(pack, cl or K8_CLUSTER_SIZE, 1, CLUSTER_SIZES, SLOT_FLOATS)
+
+
+def group_layout(pack: JukeBoxPack, cl: int, S: int):
+    """(relaid weights, tables, plan) of ``pack`` for the group kernel on
+    clusters of ``cl`` blocks, groups of ``S`` streams (:func:`group_plan`)."""
+    return _relaid(pack, cl, S, GROUP_SIZES, GROUP_SLOT_FLOATS)
 
 
 # -- the kernel: build, bind, launch -------------------------------------------------
@@ -969,33 +1008,213 @@ def _launch_cluster(pack: JukeBoxPack, window: torch.Tensor, t0: int, n_steps: i
     return out
 
 
+# -- the group kernel: S streams a cluster -------------------------------------------------
+
+class _GpArgs(ctypes.Structure):
+    """Mirror of ``JgArgs`` in ``csrc/jukebox_group.cu``."""
+
+    _fields_ = [
+        ("cw", ctypes.c_void_p),
+        ("tab", ctypes.c_void_p),
+        ("window", ctypes.c_void_p),
+        ("out", ctypes.c_void_p),
+        ("barriers", ctypes.c_void_p),
+        ("t0", ctypes.c_longlong),
+        ("frame", ctypes.c_int * (MAX_TIERS + 1)),
+        ("n_frames", ctypes.c_int * MAX_TIERS),
+        ("t_up", ctypes.c_int * MAX_TIERS),
+        ("head_in", ctypes.c_int * MAX_HEAD),
+        ("head_out", ctypes.c_int * MAX_HEAD),
+        *[(name, ctypes.c_int) for name in (
+            "n_up", "B", "S", "n_steps", "W", "d", "n_heads", "ff", "n_layers", "Q", "n_head",
+            "rows", "head_width", "ymax", "tab_ints", "wreg_floats", "n_slots", "slot_floats",
+            "smem_bytes", "mish_ffn", "argmax")],
+        ("seed", ctypes.c_uint),
+        ("temperature", ctypes.c_float),
+        ("min_temperature", ctypes.c_float),
+        ("inv_sqrt_dh", ctypes.c_float),
+    ]
+
+
+class _GroupKernel:
+    """The group kernel's library (one per process), its compiler output and
+    the clusters that fit, by (device, cluster size, shared memory)."""
+
+    lib = None
+    build_log = ""
+    clusters = {}
+
+
+def build_group_kernel() -> Path:
+    """Compile ``csrc/jukebox_group.cu`` for sm_90a into ``build/kernels/``
+    and return the library's path."""
+    path, log = build_library(GROUP_SOURCE, "mmk_jukebox_group")
+    if log:
+        _GroupKernel.build_log = log
+    return path
+
+
+def _group_library():
+    if _GroupKernel.lib is None:
+        lib = ctypes.CDLL(str(build_group_kernel()))
+        lib.mmk_jg_decode.argtypes = [ctypes.POINTER(_GpArgs), ctypes.c_int, ctypes.c_void_p,
+                                      ctypes.POINTER(ctypes.c_int), ctypes.c_int]
+        lib.mmk_jg_decode.restype = ctypes.c_int
+        lib.mmk_jg_args_size.argtypes = []
+        lib.mmk_jg_args_size.restype = ctypes.c_int
+        lib.mmk_jg_error_string.argtypes = [ctypes.c_int]
+        lib.mmk_jg_error_string.restype = ctypes.c_char_p
+        if lib.mmk_jg_args_size() != ctypes.sizeof(_GpArgs):
+            raise RuntimeError("JgArgs layout differs between C and Python")
+        _GroupKernel.lib = lib
+    return _GroupKernel.lib
+
+
+def group_plan(pack: JukeBoxPack, cl: int, S: int) -> ClusterPlan:
+    """The group kernel's residency plan of ``pack``'s net on clusters of
+    ``cl`` blocks (``GROUP_SIZES``) for groups of ``S`` streams: the
+    cluster kernel's column slices, whose activations (``act_floats``) grow
+    with S, so that fewer slices stay resident."""
+    return _plan(geometry(pack), cl, S, GROUP_SIZES, GROUP_SLOT_FLOATS)
+
+
+def max_streams(pack: JukeBoxPack, cl: int) -> int:
+    """The most streams a group whose plan fits at ``cl`` blocks (0: none)."""
+    S = 0
+    while S < 64 and group_plan(pack, cl, S + 1).fits:
+        S += 1
+    return S
+
+
+def _fill_group_args(a: _GpArgs, pack: JukeBoxPack, plan: ClusterPlan) -> None:
+    b = _Args()
+    _fill_args(b, pack)
+    for name in ("frame", "n_frames", "t_up", "head_in", "head_out"):
+        getattr(a, name)[:] = getattr(b, name)[:]
+    for name in ("n_up", "W", "d", "n_heads", "ff", "n_layers", "Q", "n_head", "rows",
+                 "head_width", "mish_ffn", "min_temperature", "inv_sqrt_dh"):
+        setattr(a, name, getattr(b, name))
+    a.S, a.ymax, a.tab_ints, a.wreg_floats = plan.S, plan.ymax, plan.tab_ints, plan.wreg_floats
+    a.n_slots, a.slot_floats, a.smem_bytes = RING_SLOTS, plan.slot_floats, plan.smem_bytes
+
+
+def clusters_that_fit(pack: JukeBoxPack, cl: int) -> int:
+    """The clusters of ``cl`` blocks the card runs at once at the group
+    kernel's shared memory for the largest group
+    (``cudaOccupancyMaxActiveClusters``), cached."""
+    dev = pack.flat.device
+    plan = group_plan(pack, cl, max(1, max_streams(pack, cl)))
+    key = (str(dev), cl, plan.smem_bytes)
+    if key not in _GroupKernel.clusters:
+        a = _GpArgs()
+        _fill_group_args(a, pack, plan)
+        n = ctypes.c_int(0)
+        err = _group_library().mmk_jg_decode(
+            ctypes.byref(a), cl, torch.cuda.current_stream(dev).cuda_stream, ctypes.byref(n), 1)
+        if err != 0:
+            raise RuntimeError("group tier-pyramid kernel query failed: "
+                               f"{_group_library().mmk_jg_error_string(err).decode()}")
+        _GroupKernel.clusters[key] = n.value
+    return _GroupKernel.clusters[key]
+
+
+def streams_a_group(pack: JukeBoxPack, cl: int, B: int, clusters: int) -> int:
+    """S: B streams spread over the clusters that fit, at most the plan's
+    largest group (more groups then wait for a cluster)."""
+    return max(1, min(max_streams(pack, cl), -(-B // clusters)))
+
+
+def _launch_group(pack: JukeBoxPack, window: torch.Tensor, t0: int, n_steps: int, seed: int,
+                  temperature: Optional[float], cl: int, S: Optional[int] = None
+                  ) -> torch.Tensor:
+    """The group kernel on clusters of ``cl`` blocks, groups of ``S``
+    streams (default: :func:`streams_a_group` over the clusters that fit)."""
+    dev = pack.flat.device
+    if dev.type != "cuda":
+        raise ValueError(f"the group tier-pyramid kernel runs on CUDA tensors, got {dev}")
+    B = window.shape[0]
+    _check_pack(pack, dev)
+    _check(window, "window", torch.int32, (B, pack.window), dev)
+    if temperature is not None and not temperature > 0:
+        raise ValueError(f"temperature must be > 0, got {temperature}")
+    if S is None:
+        S = streams_a_group(pack, cl, B, clusters_that_fit(pack, cl))
+    cw, tabs, plan = group_layout(pack, cl, S)
+    if not plan.fits:
+        raise ValueError(f"the net is outside the group kernel's plan at {cl} blocks and"
+                         f" {S} streams a group: {plan.why}")
+    out = torch.empty(B, n_steps, dtype=torch.int32, device=dev)
+    if n_steps == 0 or B == 0:
+        return out
+    lib = _group_library()
+    a = _GpArgs()
+    _fill_group_args(a, pack, plan)
+    a.B, a.n_steps, a.t0 = B, n_steps, t0
+    a.argmax = int(temperature is None)
+    a.seed = seed & 0xFFFFFFFF
+    a.temperature = 1.0 if temperature is None else float(temperature)
+    barriers = torch.zeros(1, dtype=torch.int64, device=dev)
+    a.cw, a.tab, a.window, a.out = cw.data_ptr(), tabs.data_ptr(), window.data_ptr(), out.data_ptr()
+    a.barriers = barriers.data_ptr()
+    clusters = ctypes.c_int(0)
+    err = lib.mmk_jg_decode(ctypes.byref(a), cl, torch.cuda.current_stream(dev).cuda_stream,
+                            ctypes.byref(clusters), 0)
+    if err != 0:
+        raise RuntimeError("group tier-pyramid decode kernel launch failed: "
+                           f"{lib.mmk_jg_error_string(err).decode()}")
+    decode_pyramid.launches += 1
+    decode_pyramid.launches_group += 1
+    decode_pyramid.last_barriers = barriers
+    decode_pyramid.last_clusters = clusters.value
+    decode_pyramid.last_cluster_size = cl
+    decode_pyramid.last_streams = S
+    return out
+
+
 def decode_pyramid(pack: JukeBoxPack, window: torch.Tensor, t0: int, n_steps: int, seed: int,
                    temperature: Optional[float]) -> torch.Tensor:
     """K8's route: decode ``n_steps`` tokens from the (B, W) int32 lead
     ``window`` in one launch, the first at absolute position ``t0`` (its
     noise keyed by that position).  Returns (B, n_steps) int32 and leaves
-    the advanced window in ``window``.  A CUDA window of at most
-    ``_K8_CLUSTER_MAX_B`` streams, of a net whose residency plan fits,
-    launches the cluster kernel (``csrc/jukebox_cluster.cu``) at the cluster
-    size ``K8_CLUSTER_ROUTE`` names for B, a wider one the block kernel
-    (``csrc/jukebox_decode.cu``): the route depends on B and the widths only,
-    so every chunk of a stream takes one kernel."""
+    the advanced window in ``window``.  A CUDA window goes where
+    :func:`route` names: the cluster kernel (``csrc/jukebox_cluster.cu``) up
+    to ``_K8_CLUSTER_MAX_B`` streams, the group kernel
+    (``csrc/jukebox_group.cu``) up to ``K8_GROUP_ROUTE``'s limit, the block
+    kernel (``csrc/jukebox_decode.cu``) beyond or for a net outside the
+    plans: the route depends on B and the widths only, so every chunk of a
+    stream takes one kernel."""
     if window.device.type == "cpu":
         return decode_pyramid_plain(pack, window, t0, n_steps, seed, temperature)
-    cl = cluster_size_for(pack, window.shape[0])
-    if cl is not None:
+    kernel, cl = route(pack, window.shape[0])
+    if kernel == "cluster":
         return _launch_cluster(pack, window, t0, n_steps, seed, temperature, cl=cl)
+    if kernel == "group":
+        return _launch_group(pack, window, t0, n_steps, seed, temperature, cl)
     return _launch(pack, window, t0, n_steps, seed, temperature)
+
+
+def route(pack: JukeBoxPack, B: int) -> Tuple[str, Optional[int]]:
+    """(kernel, cluster size) :func:`decode_pyramid` launches B streams of
+    ``pack``'s net with (on a CUDA window): ``"cluster"`` where
+    ``K8_CLUSTER_ROUTE`` names B and the cluster kernel's plan fits, else
+    ``"group"`` where ``K8_GROUP_ROUTE`` names B and a group of one stream
+    fits, else ``("block", None)``.  It depends on B and the widths only, so
+    every chunk of a stream takes one kernel."""
+    for most, cl in K8_CLUSTER_ROUTE:
+        if B <= most and cluster_plan(pack, cl).fits:
+            return "cluster", cl
+    for most, cl in K8_GROUP_ROUTE:
+        if B <= most and max_streams(pack, cl) > 0:
+            return "group", cl
+    return "block", None
 
 
 def cluster_size_for(pack: JukeBoxPack, B: int) -> Optional[int]:
     """The cluster size :func:`decode_pyramid` launches B streams of
-    ``pack``'s net with (on a CUDA window), from ``K8_CLUSTER_ROUTE``; None
-    for the block kernel."""
-    for most, cl in K8_CLUSTER_ROUTE:
-        if B <= most and cluster_plan(pack, cl).fits:
-            return cl
-    return None
+    ``pack``'s net with on the cluster kernel (on a CUDA window), from
+    ``K8_CLUSTER_ROUTE``; None for another kernel."""
+    kernel, cl = route(pack, B)
+    return cl if kernel == "cluster" else None
 
 
 def uses_cluster_kernel(pack: JukeBoxPack, B: int) -> bool:
@@ -1004,10 +1223,13 @@ def uses_cluster_kernel(pack: JukeBoxPack, B: int) -> bool:
     return cluster_size_for(pack, B) is not None
 
 
-decode_pyramid.launches = 0  # both kernels' launches
+decode_pyramid.launches = 0  # the three kernels' launches
 decode_pyramid.launches_cluster = 0  # the cluster kernel's
-# the cluster barriers block 0 passed in its first stream's steps in the last
-# cluster launch (a (1,) device tensor), and the clusters that fitted on the card
+decode_pyramid.launches_group = 0  # the group kernel's
+# the cluster barriers block 0 passed in its first stream's (group's) steps in
+# the last cluster or group launch (a (1,) device tensor), the clusters that
+# fitted on the card, their size, and the group kernel's streams a group
 decode_pyramid.last_barriers = None
 decode_pyramid.last_clusters = 0
 decode_pyramid.last_cluster_size = 0
+decode_pyramid.last_streams = 0

@@ -380,7 +380,8 @@ def train_stateless_task(inp: dict) -> dict:
 def bf16_train_stateless_task(inp: dict) -> dict:
     """Three TrainARMLoop steps under ``param_dtype="bfloat16"`` of each
     stateless net of ``inp`` from the JAX weights, and a control (WaveNet's
-    conv bias inside the product, one rounding for both)."""
+    conv bias inside the product, one rounding for both; the transformers'
+    bf16 softmax differentiated by PyTorch's autograd)."""
     from mimikit_tpu_torch.networks import wavenet as wn
 
     from_jax = {"wavenet": (mmk.WaveNet, mmk.wavenet_state_dict_from_jax),
@@ -414,6 +415,17 @@ def bf16_train_stateless_task(inp: dict) -> dict:
             out[f"{kind}/control_losses"] = losses(kind, "control")
     finally:
         wn._conv = fixed
+    # the transformers' control: the bf16 softmax differentiated by autograd
+    from mimikit_tpu_torch.modules import rounding
+
+    fixed = rounding.softmax
+    rounding.softmax = lambda x: (lambda e: e / e.sum(-1, keepdim=True))(
+        torch.exp(x - x.amax(-1, keepdim=True)))
+    try:
+        for kind in [k for k in kinds if k in ("transformer", "jukebox")]:
+            out[f"{kind}/control_losses"] = losses(kind, "control")
+    finally:
+        rounding.softmax = fixed
     return out
 
 
@@ -796,17 +808,72 @@ def jukebox_task(inp: dict) -> dict:
     return out
 
 
+def _jukebox_plan_data(out: dict, q: str, pack, plan, cw, tabs) -> None:
+    """A K8 residency plan's numbers and its relayout's checks under ``q``."""
+    from mimikit_tpu_torch.ops import jukebox_decode as jbd
+
+    cl = plan.cl
+    flat = pack.flat.numpy()
+    cw, tabs = cw.numpy(), tabs.numpy()
+    out[q + "fits"] = np.array(plan.fits)
+    out[q + "smem_bytes"] = np.array(plan.smem_bytes)
+    out[q + "act_floats"] = np.array(plan.act_floats)
+    out[q + "wreg_floats"] = np.array(plan.wreg_floats)
+    out[q + "tabs"] = tabs
+    out[q + "resident_bytes"] = np.array([plan.bytes(r, True) for r in range(cl)])
+    out[q + "streamed_bytes"] = np.array([plan.bytes(r, False) for r in range(cl)])
+    out[q + "piece_bytes"] = np.array(
+        [4 * sum(nq * 4 * plan.units[u].K for u, _, nq in plan.pieces(r)) for r in range(cl)])
+    out[q + "small_floats"] = np.array(plan.small)
+    out[q + "units"] = np.array([u.name for u in plan.units])
+    out[q + "unit_K"] = np.array([u.K for u in plan.units])
+    heads = [jbd._heads(pack.n_heads, cl, r) for r in range(cl)]
+    out[q + "heads"] = np.array(heads)
+    ok_slices = []
+    for u, unit in enumerate(plan.units):
+        full = flat[pack.offsets[unit.src][0]:][: unit.K * unit.N].reshape(unit.K, unit.N)
+        out[f"{q}cols/{unit.name}"] = np.array(
+            [c for r in range(cl) for c in unit.cols[r]] or [-1])
+        out[f"{q}cols_of/{unit.name}"] = np.array([len(unit.cols[r]) for r in range(cl)])
+        good = True
+        for r in range(cl):
+            tab = tabs[r]
+            base, n_units = tab[0], tab[3]
+            wofs, bofs, nq = tab[4 + 3 * u : 7 + 3 * u]
+            want = full[:, list(unit.cols[r])]
+            if nq * 4 != len(unit.cols[r]):
+                good = False
+                continue
+            if wofs >= 0:
+                got = cw[base + wofs : base + wofs + unit.K * 4 * nq].reshape(unit.K, -1)
+            else:  # its pieces, each k-major over its quads, side by side
+                got = []
+                for i, (uu, _, pq) in enumerate(plan.pieces(r)):
+                    if uu == u:
+                        g, fl = tab[4 + 3 * n_units + 2 * i : 6 + 3 * n_units + 2 * i]
+                        got.append(cw[base + g : base + g + fl].reshape(unit.K, 4 * pq))
+                got = np.concatenate(got, 1) if got else np.zeros((unit.K, 0), np.float32)
+            bias = flat[pack.offsets[unit.bias][0] + np.asarray(unit.cols[r], int)] \
+                if len(unit.cols[r]) else np.zeros(0, np.float32)
+            good &= np.array_equal(got, want) and np.array_equal(
+                cw[base + bofs : base + bofs + len(unit.cols[r])], bias)
+        ok_slices.append(good)
+    out[q + "slices_equal_pack"] = np.array(ok_slices)
+
+
 def jukebox_cluster_task(inp: dict) -> dict:
     """The cluster kernel's residency plan and relayout at each net's widths
-    and cluster size, and ``decode_pyramid``'s route by B (the launchers
-    replaced by recorders, the window on the meta device so that the route
-    is taken without a card), directly over chunks of several lengths and
-    inside a JukeBox stream on the CPU."""
+    and cluster size, the group kernel's at each cluster size and group size
+    (1, 2 and the most that fit), and ``decode_pyramid``'s route by B (the
+    launchers replaced by recorders, the window on the meta device so that
+    the route is taken without a card), directly over chunks of several
+    lengths and inside a JukeBox stream on the CPU."""
     from mimikit_tpu_torch.ops import jukebox_decode as jbd
 
     torch.set_num_threads(1)
     out = {"limit": np.array(jbd._K8_CLUSTER_MAX_B), "sizes": np.array(jbd.CLUSTER_SIZES),
-           "route": np.array(jbd.K8_CLUSTER_ROUTE)}
+           "route": np.array(jbd.K8_CLUSTER_ROUTE), "group_sizes": np.array(jbd.GROUP_SIZES),
+           "group_route": np.array(jbd.K8_GROUP_ROUTE)}
     taken = []
 
     def block(pack, window, t0, n_steps, seed, temperature):
@@ -817,7 +884,11 @@ def jukebox_cluster_task(inp: dict) -> dict:
         taken.append(f"cluster{cl}")
         return torch.zeros(window.shape[0], n_steps, dtype=torch.int32, device=window.device)
 
-    jbd._launch, jbd._launch_cluster = block, cluster
+    def group(pack, window, t0, n_steps, seed, temperature, cl, S=None):
+        taken.append(f"group{cl}")
+        return torch.zeros(window.shape[0], n_steps, dtype=torch.int32, device=window.device)
+
+    jbd._launch, jbd._launch_cluster, jbd._launch_group = block, cluster, group
     for tag in sorted({k.split("/")[0] for k in inp if k.startswith("net_")}):
         p = f"{tag}/"
         spec = json.loads(str(inp[p + "spec"]))
@@ -827,7 +898,6 @@ def jukebox_cluster_task(inp: dict) -> dict:
                                       device="cpu", seed=3).eval()
         pack = jbd.jukebox_weight_pack(net)
         out[p + "in_gate"] = np.array(jbd.supports_kernel_decode(net))
-        flat = pack.flat.numpy()
         # the weights a step reads (matrices only), for the plan's coverage
         used = 0
         for k, (o, shape) in pack.offsets.items():
@@ -837,55 +907,26 @@ def jukebox_cluster_task(inp: dict) -> dict:
         used -= pack.dim * (t_last - 1) * pack.dim  # the bottom reads the last chunk only
         out[p + "step_weights"] = np.array(used)
         for cl in jbd.CLUSTER_SIZES:
-            q = f"{p}cl{cl}/"
             plan = jbd.cluster_plan(pack, cl)
-            cw, tabs, _ = jbd.cluster_layout(pack, cl)
-            cw, tabs = cw.numpy(), tabs.numpy()
-            out[q + "fits"] = np.array(plan.fits)
-            out[q + "smem_bytes"] = np.array(plan.smem_bytes)
-            out[q + "act_floats"] = np.array(plan.act_floats)
-            out[q + "wreg_floats"] = np.array(plan.wreg_floats)
-            out[q + "tabs"] = tabs
-            out[q + "resident_bytes"] = np.array([plan.bytes(r, True) for r in range(cl)])
-            out[q + "streamed_bytes"] = np.array([plan.bytes(r, False) for r in range(cl)])
-            out[q + "piece_bytes"] = np.array(
-                [4 * sum(nq * 4 * plan.units[u].K for u, _, nq in plan.pieces(r)) for r in range(cl)])
-            out[q + "small_floats"] = np.array(plan.small)
-            out[q + "units"] = np.array([u.name for u in plan.units])
-            out[q + "unit_K"] = np.array([u.K for u in plan.units])
-            heads = [jbd._heads(pack.n_heads, cl, r) for r in range(cl)]
-            out[q + "heads"] = np.array(heads)
-            ok_slices = []
-            for u, unit in enumerate(plan.units):
-                full = flat[pack.offsets[unit.src][0]:][: unit.K * unit.N].reshape(unit.K, unit.N)
-                out[f"{q}cols/{unit.name}"] = np.array(
-                    [c for r in range(cl) for c in unit.cols[r]] or [-1])
-                out[f"{q}cols_of/{unit.name}"] = np.array([len(unit.cols[r]) for r in range(cl)])
-                good = True
-                for r in range(cl):
-                    tab = tabs[r]
-                    base, n_units = tab[0], tab[3]
-                    wofs, bofs, nq = tab[4 + 3 * u : 7 + 3 * u]
-                    want = full[:, list(unit.cols[r])]
-                    if nq * 4 != len(unit.cols[r]):
-                        good = False
-                        continue
-                    if wofs >= 0:
-                        got = cw[base + wofs : base + wofs + unit.K * 4 * nq].reshape(unit.K, -1)
-                    else:  # its pieces, each k-major over its quads, side by side
-                        got = []
-                        for i, (uu, _, pq) in enumerate(plan.pieces(r)):
-                            if uu == u:
-                                g, fl = tab[4 + 3 * n_units + 2 * i : 6 + 3 * n_units + 2 * i]
-                                got.append(cw[base + g : base + g + fl].reshape(unit.K, 4 * pq))
-                        got = np.concatenate(got, 1) if got else np.zeros((unit.K, 0), np.float32)
-                    bias = flat[pack.offsets[unit.bias][0] + np.asarray(unit.cols[r], int)] \
-                        if len(unit.cols[r]) else np.zeros(0, np.float32)
-                    good &= np.array_equal(got, want) and np.array_equal(
-                        cw[base + bofs : base + bofs + len(unit.cols[r])], bias)
-                ok_slices.append(good)
-            out[q + "slices_equal_pack"] = np.array(ok_slices)
-        for B in sorted({1, 2, 64} | {b + e for b, _ in jbd.K8_CLUSTER_ROUTE for e in (0, 1)}):
+            if plan.fits:
+                cw, tabs, _ = jbd.cluster_layout(pack, cl)
+                _jukebox_plan_data(out, f"{p}cl{cl}/", pack, plan, cw, tabs)
+            else:
+                out[f"{p}cl{cl}/fits"] = np.array(False)
+        for cl in jbd.GROUP_SIZES:
+            S_max = jbd.max_streams(pack, cl)
+            out[f"{p}g{cl}/max_streams"] = np.array(S_max)
+            out[f"{p}g{cl}/groups"] = np.array(sorted({S for S in (1, 2, S_max) if S <= S_max}))
+            out[f"{p}g{cl}/smem_by_S"] = np.array(
+                [jbd.group_plan(pack, cl, S).smem_bytes for S in range(1, S_max + 2)])
+            out[f"{p}g{cl}/act_by_S"] = np.array(
+                [jbd.group_plan(pack, cl, S).act_floats for S in range(1, S_max + 2)])
+            for S in sorted({S for S in (1, 2, S_max) if 1 <= S <= S_max}):
+                plan = jbd.group_plan(pack, cl, S)
+                cw, tabs, _ = jbd.group_layout(pack, cl, S)
+                _jukebox_plan_data(out, f"{p}g{cl}s{S}/", pack, plan, cw, tabs)
+        routes = jbd.K8_CLUSTER_ROUTE + jbd.K8_GROUP_ROUTE
+        for B in sorted({1, 2, 64, 200} | {b + e for b, _ in routes for e in (0, 1)}):
             taken.clear()
             window = torch.zeros(B, pack.window, dtype=torch.int32, device="meta")
             for n in (7, 64, 1600):  # chunks of several lengths
@@ -905,7 +946,7 @@ def jukebox_cluster_task(inp: dict) -> dict:
         return real(pack, window, t0, n_steps, seed, temperature)
 
     jbd.decode_pyramid = routed
-    for B in (1, 8, 16):
+    for B in (1, 8, 16, 17):
         taken.clear()
         prompt = torch.randint(0, 32, (B, net._window_len()), generator=torch.Generator().manual_seed(B))
         out[f"stream_b{B}"] = _stream(net, prompt, 8, 3)
@@ -1312,13 +1353,25 @@ def bf16_train_task(inp: dict) -> dict:
     return out
 
 
+def xla_dot_task(inp: dict) -> dict:
+    """``rounding.matmul`` (f32, before the bf16 rounding) of each case's
+    operands, the left one read transposed where the case says so."""
+    from mimikit_tpu_torch.modules import rounding
+
+    out = {}
+    for key in sorted({k.rsplit("/", 1)[0] for k in inp if k.endswith("/a")}):
+        a, b = torch.from_numpy(inp[key + "/a"]), torch.from_numpy(inp[key + "/b"])
+        out[key] = rounding.matmul(a, b, lhs_transposed=bool(inp[key + "/lhs_t"])).numpy()
+    return out
+
+
 TASKS = {"modules": modules_task, "sample_rnn": sample_rnn_task, "fused_lstm": fused_lstm_task,
          "train": train_task, "train_stateless": train_stateless_task,
          "wavenet": wavenet_task, "categorical": categorical_task,
          "transformer": transformer_task, "jukebox": jukebox_task,
          "jukebox_cluster": jukebox_cluster_task, "samplernn_cluster": samplernn_cluster_task,
          "mulaw": mulaw_task, "bf16_decode": bf16_decode_task, "bf16_train": bf16_train_task,
-         "bf16_train_stateless": bf16_train_stateless_task}
+         "bf16_train_stateless": bf16_train_stateless_task, "xla_dot": xla_dot_task}
 
 if __name__ == "__main__":
     task, src, dst = sys.argv[1:4]
