@@ -9,14 +9,16 @@ Phases (any failure exits non-zero; no exception is swallowed):
 1. environment and build: the card's name and power limit, torch/CUDA
    versions; build ``csrc/samplernn_decode.cu``, ``csrc/samplernn_cluster.cu``,
    ``csrc/fused_lstm.cu``, ``csrc/wavenet_decode.cu``,
-   ``csrc/transformer_decode.cu``, ``csrc/transformer_kv.cu``,
-   ``csrc/jukebox_decode.cu``, ``csrc/jukebox_cluster.cu`` and
-   ``csrc/jukebox_group.cu`` for sm_90a, the nine nvcc runs started
-   together, and time them; the SASS digests of ``samplernn_decode.cu``
-   (K1's kernel, and K2's outside the cluster route) must equal the parent
-   checkout's (``K1_SASS``, ``tools/sass_digest.py``), and those of
-   ``jukebox_decode.cu`` and ``jukebox_cluster.cu`` (K8's block and
-   cluster kernels) theirs (``K8_SASS``);
+   ``csrc/wavenet_cluster.cu``, ``csrc/transformer_decode.cu``,
+   ``csrc/transformer_kv.cu``, ``csrc/jukebox_decode.cu``,
+   ``csrc/jukebox_cluster.cu`` and ``csrc/jukebox_group.cu`` for sm_90a,
+   the ten nvcc runs started together, and time them; the SASS digests of
+   ``samplernn_decode.cu`` (K1's kernel, and K2's outside the cluster
+   route) must equal the parent checkout's (``K1_SASS``,
+   ``tools/sass_digest.py``), those of ``jukebox_decode.cu`` and
+   ``jukebox_cluster.cu`` (K8's block and cluster kernels) theirs
+   (``K8_SASS``), and those of every other kernel this checkout leaves as
+   it was, WaveNet's block kernel among them, theirs (``PARENT_SASS``);
    compile the Triton sampler and the Triton mu-law kernel;
 2. each kernel against its plain twin at a small size and at the main
    paths' widths.  ``decode_single`` and ``decode_chunk``, argmax and
@@ -45,7 +47,14 @@ Phases (any failure exits non-zero; no exception is swallowed):
    SampleRNN-3 train step (B=32 x 2048) with the kernels against the same
    step on the CPU (plain versions): loss within 1e-5 relative, every
    parameter's gradient within 1e-5 + 1e-3 * max|plain|; the WaveNet decode
-   kernel and the categorical sampler as the SampleRNN decode; the
+   kernels and the categorical sampler as the SampleRNN decode, each
+   wrapper through its route (``WN_CLUSTER_ROUTE``: B up to 128 to the
+   cluster kernel, ``csrc/wavenet_cluster.cu``, on clusters of 16 blocks;
+   the block kernel beyond) and, small, the block kernel at every group;
+   the cluster kernel on clusters of 16 whatever the route at B = 3 and 37
+   (small) and 8, 37 (a ragged last group) and 256 (full width), argmax
+   and T=0.9, over two chunkings, with the cluster barriers a step block 0
+   counted (22 at WaveNet-10); the
    transformer kernels by teacher forcing too, K6 (``decode_window``) at
    B=1, 2 and 16 and K7 (``decode_chunk``) at B=1, 16 and 32, each over
    several chunk lengths (K6's window, K7's state carried; the tokens must
@@ -81,7 +90,13 @@ Phases (any failure exits non-zero; no exception is swallowed):
    mu-law expanded; K2's route sweep (the cluster kernel at 16 and 8 blocks
    and the block kernel at B = 1 … 512 × 256 steps on the f32 and the bf16
    pack, ``generate``'s choice at each B >= 64 against ``K2_CLUSTER_ROUTE``
-   for the pack's dtype); WaveNet-10 served the same way; transformer8l
+   for the pack's dtype); WaveNet-10 served the same way, every call's
+   launches on the kernel ``WN_CLUSTER_ROUTE`` names for its B (the
+   counters say so: ``generate`` B=256 on the block kernel, B=8 and the
+   B=64 stream on the cluster kernel), and its route sweep (the block
+   kernel and the cluster kernel at 16 blocks at B = 1 … 256 × 512 steps,
+   in interleaved rounds, 9 at B=128; the route's choice within 2 % of the
+   run's fastest); transformer8l
    (``benchmarks/bench_decode.py:104-115``: d 256, 8 heads, ff 1,024, 8
    layers, rf 64) ``generate`` at B=1 x 4,096 after a 64-token prompt (one
    K6 launch, its first 512 tokens verified), two chunks of the default
@@ -130,14 +145,15 @@ Phases (any failure exits non-zero; no exception is swallowed):
 5. each wrapper, its plain twin and (for the LSTM kernels) cuDNN's
    ``nn.LSTM`` in the same dtype, for K9 ``torch.multinomial``, timed at
    the main paths' shapes (the transformer and JukeBox twins over 64 steps,
-   scaled; K8's block kernel at B=64, the route's shape, and also at
-   B=16 and 32, K10 at 2,646,000 samples; the bf16 decode twins over fewer steps,
-   scaled); a ``kernels`` JSON line of nineteen rows (the twelve, K8's
-   cluster kernel at B=1 and group kernel at B=16, and K1-, K2-, K3a-,
-   K3b- and K7-bf16; K2's rows name the cluster kernel's source; K2's rows
-   and K8's group kernel's row carry the block kernel's time on the same
-   inputs, measured in the same run, under ``block_kernel_ms``), the card
-   line, and the device line last.
+   the SampleRNN twins over 512 and the WaveNet twins over 256, scaled;
+   K8's block kernel at B=64, the route's shape, and also at B=16 and 32,
+   K10 at 2,646,000 samples); a ``kernels`` JSON line of twenty rows (the twelve, K8's
+   cluster kernel at B=1 and group kernel at B=16, K5 at the B=64 stream's
+   width on WaveNet's cluster kernel, and K1-, K2-, K3a-, K3b- and
+   K7-bf16; K2's and WaveNet's rows name the source of the kernel their
+   route takes; K2's, K4's, K5's and K8's group kernel's rows carry the
+   block kernel's time on the same inputs, measured in the same run, under
+   ``block_kernel_ms``), the card line, and the device line last.
 
 ``--quick`` runs phases 1-2 at the small size only (a build check);
 ``--bench`` runs phase 1, phase 3's timings without the checks, decode_chunk's
@@ -221,6 +237,116 @@ K8_SASS = {
         "_Z17jc_pyramid_kernelILi8EEv6JcArgs": "88e084a613494714, REG 215 STACK 0",
     },
 }
+# the machine code of the kernels this checkout leaves as they were, in the parent
+# checkout (tools/sass_digest.py with the card's toolkit): each must stay so
+PARENT_SASS = {
+    "wavenet_decode.cu": {
+        "_Z21wavenet_decode_kernelILi16EEv12WnDecodeArgs":
+            "53ca653eb976431f, REG 64 STACK 24",
+        "_Z21wavenet_decode_kernelILi8EEv12WnDecodeArgs":
+            "202a09ea5b0cbe00, REG 64 STACK 32",
+        "_Z21wavenet_decode_kernelILi4EEv12WnDecodeArgs":
+            "bd2397d98cfda82b, REG 64 STACK 32",
+        "_Z21wavenet_decode_kernelILi2EEv12WnDecodeArgs":
+            "89f2ceccf285d04d, REG 64 STACK 8",
+        "_Z21wavenet_decode_kernelILi1EEv12WnDecodeArgs":
+            "d4d10febc886516b, REG 60 STACK 0",
+    },
+    "samplernn_cluster.cu": {
+        "_Z16sc_decode_kernelILi16EfLi8EEv6ScArgs":
+            "e259765fe29a4407, REG 197 STACK 0",
+        "_Z16sc_decode_kernelILi16EfLi6EEv6ScArgs":
+            "ef95d13781bc5b38, REG 183 STACK 0",
+        "_Z16sc_decode_kernelILi16EfLi4EEv6ScArgs":
+            "bbf6e95be46f7d47, REG 183 STACK 0",
+        "_Z16sc_decode_kernelILi16EfLi2EEv6ScArgs":
+            "fa4ab5d58b1ac952, REG 181 STACK 0",
+        "_Z16sc_decode_kernelILi8EfLi8EEv6ScArgs":
+            "86e4d0013bffc3ea, REG 201 STACK 0",
+        "_Z16sc_decode_kernelILi8EfLi6EEv6ScArgs":
+            "5e8961ed74f79aa9, REG 186 STACK 0",
+        "_Z16sc_decode_kernelILi8EfLi4EEv6ScArgs":
+            "16cfdc67f7cad07c, REG 184 STACK 0",
+        "_Z16sc_decode_kernelILi8EfLi2EEv6ScArgs":
+            "fb04e90d4b724a85, REG 186 STACK 0",
+        "_Z16sc_decode_kernelILi16E13__nv_bfloat16Li8EEv6ScArgs":
+            "cbd99ddd133641d3, REG 197 STACK 0",
+        "_Z16sc_decode_kernelILi16E13__nv_bfloat16Li6EEv6ScArgs":
+            "ccae1158180519a3, REG 179 STACK 0",
+        "_Z16sc_decode_kernelILi16E13__nv_bfloat16Li4EEv6ScArgs":
+            "ce5b61a0e205edbe, REG 163 STACK 0",
+        "_Z16sc_decode_kernelILi16E13__nv_bfloat16Li2EEv6ScArgs":
+            "72d2c6a9536c46f4, REG 157 STACK 0",
+        "_Z16sc_decode_kernelILi8E13__nv_bfloat16Li8EEv6ScArgs":
+            "4c681c4a5327f2c0, REG 199 STACK 0",
+        "_Z16sc_decode_kernelILi8E13__nv_bfloat16Li6EEv6ScArgs":
+            "141c5970cf56bb8b, REG 183 STACK 0",
+        "_Z16sc_decode_kernelILi8E13__nv_bfloat16Li4EEv6ScArgs":
+            "3c0970c3766579d5, REG 165 STACK 0",
+        "_Z16sc_decode_kernelILi8E13__nv_bfloat16Li2EEv6ScArgs":
+            "f7bacf9d85db2e1d, REG 162 STACK 0",
+    },
+    "fused_lstm.cu": {
+        "_Z19lstm_dwh_sum_kernelIfEvPKfPT_ii":
+            "17afce7b6e0b8861, REG 32 STACK 0",
+        "_Z15lstm_dwh_kernelIfEvPKT_S2_S2_Pfiiiii":
+            "dfae7f1ab93768d0, REG 48 STACK 0",
+        "_Z15lstm_bwd_kernelIfLi8EEvPKT_S2_S2_S2_S2_S2_S2_PS0_S3_S3_iii":
+            "2a85a97c9b69450d, REG 64 STACK 0",
+        "_Z15lstm_bwd_kernelIfLi4EEvPKT_S2_S2_S2_S2_S2_S2_PS0_S3_S3_iii":
+            "b96999ff856336b0, REG 64 STACK 8",
+        "_Z15lstm_bwd_kernelIfLi2EEvPKT_S2_S2_S2_S2_S2_S2_PS0_S3_S3_iii":
+            "2d33a84dae3114b6, REG 64 STACK 0",
+        "_Z15lstm_bwd_kernelIfLi1EEvPKT_S2_S2_S2_S2_S2_S2_PS0_S3_S3_iii":
+            "66a1bb16cb3a3a6d, REG 64 STACK 0",
+        "_Z19lstm_dwh_sum_kernelI13__nv_bfloat16EvPKfPT_ii":
+            "ba30b6878677d2ff, REG 32 STACK 0",
+        "_Z15lstm_dwh_kernelI13__nv_bfloat16EvPKT_S3_S3_Pfiiiii":
+            "3bca1a422457708e, REG 48 STACK 0",
+        "_Z15lstm_bwd_kernelI13__nv_bfloat16Li8EEvPKT_S3_S3_S3_S3_S3_S3_PS1_S4_S4_iii":
+            "f40023633d3ffd0d, REG 47 STACK 0",
+        "_Z15lstm_bwd_kernelI13__nv_bfloat16Li4EEvPKT_S3_S3_S3_S3_S3_S3_PS1_S4_S4_iii":
+            "d73ad8f1c831a761, REG 46 STACK 0",
+        "_Z15lstm_bwd_kernelI13__nv_bfloat16Li2EEvPKT_S3_S3_S3_S3_S3_S3_PS1_S4_S4_iii":
+            "efa2e50555255b30, REG 56 STACK 0",
+        "_Z15lstm_bwd_kernelI13__nv_bfloat16Li1EEvPKT_S3_S3_S3_S3_S3_S3_PS1_S4_S4_iii":
+            "5d30e490abf32fb7, REG 57 STACK 0",
+        "_Z15lstm_fwd_kernelIfLi8EEvPKT_S2_S2_S2_PS0_S3_S3_iii":
+            "49ae6a292639974d, REG 80 STACK 0",
+        "_Z15lstm_fwd_kernelIfLi4EEvPKT_S2_S2_S2_PS0_S3_S3_iii":
+            "1a9003bdcea67f2a, REG 80 STACK 0",
+        "_Z15lstm_fwd_kernelIfLi2EEvPKT_S2_S2_S2_PS0_S3_S3_iii":
+            "ad19a970f55f11b8, REG 79 STACK 0",
+        "_Z15lstm_fwd_kernelIfLi1EEvPKT_S2_S2_S2_PS0_S3_S3_iii":
+            "1e6b7e7fb91d240c, REG 64 STACK 0",
+        "_Z15lstm_fwd_kernelI13__nv_bfloat16Li8EEvPKT_S3_S3_S3_PS1_S4_S4_iii":
+            "e34762cd0a7695d7, REG 63 STACK 0",
+        "_Z15lstm_fwd_kernelI13__nv_bfloat16Li4EEvPKT_S3_S3_S3_PS1_S4_S4_iii":
+            "27499a5fe4e09a22, REG 48 STACK 0",
+        "_Z15lstm_fwd_kernelI13__nv_bfloat16Li2EEvPKT_S3_S3_S3_PS1_S4_S4_iii":
+            "ebe8bd474126efe1, REG 64 STACK 0",
+        "_Z15lstm_fwd_kernelI13__nv_bfloat16Li1EEvPKT_S3_S3_S3_PS1_S4_S4_iii":
+            "a371181386ba6d4b, REG 61 STACK 0",
+    },
+    "transformer_decode.cu": {
+        "_Z16tf_window_kernel12TfWindowArgs":
+            "859a40d6768b2a8c, REG 255 STACK 104",
+    },
+    "transformer_kv.cu": {
+        "_Z12tf_kv_kernelIfEv8TfKVArgs":
+            "225f5a664aed9415, REG 255 STACK 120",
+        "_Z12tf_kv_kernelI13__nv_bfloat16Ev8TfKVArgs":
+            "33cfa5ac5fcee00a, REG 255 STACK 160",
+    },
+    "jukebox_group.cu": {
+        "_Z15jg_group_kernelILi16EEv6JgArgs":
+            "95d56ea0c669d211, REG 240 STACK 0",
+        "_Z15jg_group_kernelILi8EEv6JgArgs":
+            "3fb5671fc775445e, REG 240 STACK 0",
+        "_Z15jg_group_kernelILi4EEv6JgArgs":
+            "169dd65a6b83bf44, REG 240 STACK 0",
+    },
+}
 N_BF16_VERIFY = 1024  # phase 3's bf16 B=256 output: its first steps verified
 N_WIDE_VERIFY = 4096  # phase 3's f32 B=256 output: its first steps verified
 # (T, B, D, H) of the LSTM checks: small, then the two tier LSTMs of the
@@ -243,6 +369,15 @@ TRAIN_B, TRAIN_LEN, TRAIN_EPOCHS, TRAIN_STEPS = 32, 2048, 4, 8
 WN_FULL = dict(blocks=(10,), dim=128, q_levels=256, mlp_dim=128)
 WN_SMALL = dict(blocks=(3,), dim=16, q_levels=32, mlp_dim=16)
 WN_N, WN_SMALL_B, WN_STREAM_B, WN_STREAM_CHUNKS = 2048, 8, 64, 8
+# the WaveNet cluster kernel's full-width checks (B=37: groups of 6 on the 7
+# clusters of 16 that fit, the last group ragged) and the route sweep of both
+# kernels (WN_CLUSTER_ROUTE must send each B within WN_SWEEP_TIE of the
+# run's fastest choice), in rounds of one call each, 3 rounds a B and 9 at
+# B=128, where the two kernels lie ~3 % apart; the WaveNet twins' timed steps
+# in phase 5 (scaled: a step of the twin costs the same whatever t)
+WN_CLUSTER_BATCHES = (8, 37, 256)
+WN_SWEEP_BATCHES, WN_SWEEP_N, WN_SWEEP_TIE = (1, 8, 32, 64, 128, 256), 512, 0.02
+WN_SWEEP_ROUNDS, WN_PLAIN_STEPS = {128: 9}, 256
 CAT_SHAPES = ((256, 256), (3, 7, 200))  # the sampler's checks: the path's and a ragged one
 # transformer8l of benchmarks/bench_decode.py:104-115 (mulaw_io q 256, mlp 128, an
 # embedding input; d 256, 8 heads, ff 1,024, 8 post-norm layers, rf 64), and a
@@ -253,7 +388,7 @@ TF_FULL = dict(model_dim=256, n_heads=8, feedforward_dim=1024, num_layers=8, rf=
 TF_SMALL = dict(model_dim=32, n_heads=4, feedforward_dim=64, num_layers=2, rf=16, q_levels=32,
                 mlp_dim=16)
 TF_N, TF_N16, TF_KV_B, TF_KV_CHUNKS, TF_VERIFY, TF_PLAIN_STEPS = 4096, 256, 16, 6, 512, 64
-BF16_PLAIN_STEPS = 512  # the SampleRNN bf16 twins' timed steps (phase 5), scaled
+SRN_PLAIN_STEPS = 512  # the SampleRNN twins' timed steps (phase 5), scaled
 TF_WIN_BATCHES, TF_KV_BATCHES = (1, 2, 16), (1, 16, 32)  # phase 2's K6 and K7 checks
 # windows longer than an attention tile (TF_KT, 64 keys): the small net at rf 160
 # (three tiles, the last one partial), and transformer8l's widths at the rf 512 of
@@ -691,6 +826,26 @@ def k8_sass_check(jbd):
             f" {sorted(got.values())[0]}, ...)")
 
 
+def parent_sass_check(sd, fl, wd, td, tk, jbd):
+    """The kernels this checkout leaves as they were (WaveNet's block
+    kernel, K2's cluster kernel, the LSTM, K6, K7 and K8's group kernel):
+    their machine code (``tools/sass_digest.py``) must equal
+    ``PARENT_SASS``, the parent checkout's."""
+    from tools.sass_digest import digests
+
+    for source, build in (("wavenet_decode.cu", wd.build_kernel),
+                          ("samplernn_cluster.cu", sd.build_cluster_kernel),
+                          ("fused_lstm.cu", fl.build_lstm_kernel),
+                          ("transformer_decode.cu", td.build_kernel),
+                          ("transformer_kv.cu", tk.build_kernel),
+                          ("jukebox_group.cu", jbd.build_group_kernel)):
+        got = digests(build())
+        if got != PARENT_SASS[source]:
+            raise AssertionError(f"{source}'s SASS changed: {got} against {PARENT_SASS[source]}")
+        log(f"  {source}: SASS digests equal the parent's ({len(got)} kernels;"
+            f" {sorted(got.values())[0]}, ...)")
+
+
 def cuda_ms(torch, fn, reps):
     """Milliseconds of ``fn()`` by CUDA events, one per rep."""
     out = []
@@ -844,60 +999,129 @@ def make_wavenet(mmk, torch, wd, spec, seed, sampler_impl="jax", jitter=0.0):
 
 
 def verify_wn(torch, wd, pack, prompt, toks, seed, temperature):
-    """verify_tokens for the WaveNet decode kernel (steps from 1)."""
+    """verify_tokens for the WaveNet decode kernels.  Steps 1 .. prior_t - 1
+    teacher-force the scored run and the free run alike, so the twin runs
+    them once and each run starts at prior_t from a copy of that state."""
     prior_t, n = prompt.shape[1], toks.shape[1]
+    warm = wd.init_decode_state(pack, prompt)
+    wd.decode_plain(pack, prompt, warm, 1, prior_t - 1, 1, 0, seed, temperature)
+
+    def copy():
+        return wd.WaveNetDecodeState(warm.tok.clone(), warm.rings.clone(), warm.dilations)
 
     def tf_scores(full, state, t, m):
-        state = state or wd.init_decode_state(pack, full)
+        state = state or copy()
         _, scores = wd.decode_plain(pack, full, state, t, m, t, m, seed, temperature,
                                     return_scores=True)
         return scores, state
 
     def free_run():
-        state = wd.init_decode_state(pack, prompt)
-        return wd.decode_plain(pack, prompt, state, 1, prior_t + n - 1, prior_t, n, seed,
-                               temperature)
+        return wd.decode_plain(pack, prompt, copy(), prior_t, n, prior_t, n, seed, temperature)
 
-    return verify_tokens(torch, prompt, toks, 1, tf_scores, free_run)
+    return verify_tokens(torch, prompt, toks, prior_t, tf_scores, free_run)
 
 
 def check_wavenet(torch, mmk, wd, spec, B_single, B_chunk, n, chunk_lens, jitter):
-    """Phase 2 for the WaveNet decode kernel at one size; returns {wrapper:
-    largest score gap}."""
+    """Phase 2 for the WaveNet decode kernels at one size, each wrapper
+    through its route (``WN_CLUSTER_ROUTE``: the cluster kernel up to 128
+    streams, the block kernel beyond) and, at the small size, on the block
+    kernel (``cl=0``) at every group too; returns {wrapper: largest score
+    gap}."""
     net = make_wavenet(mmk, torch, wd, spec, seed=1, jitter=jitter)
     pack = wd.wavenet_weight_pack(net)
     prior_t, q = net.rf + 8, spec["q_levels"]
-    err = {"wavenet_decode_single": 0.0, "wavenet_decode_chunk": 0.0}
+    err = {"wavenet_decode_single": 0.0, "wavenet_decode_chunk": 0.0,
+           "wavenet_decode_chunk_cluster": 0.0}
     for temp in (None, TEMPERATURE):
         mode = "argmax" if temp is None else f"T={temp}"
         prompt = make_prompt(torch, B_single, prior_t, q, seed=2)
-        toks = wd.decode_single(pack, prompt, n, 11, temp)
-        torch.cuda.synchronize()
-        if spec is WN_SMALL:
-            for g in wd.GROUPS:
-                if not torch.equal(wd.decode_single(pack, prompt, n, 11, temp, group=g), toks):
-                    raise AssertionError(f"WaveNet decode_single group={g} changed the tokens")
-            if temp is None and len(set(toks[0].tolist())) < 2:
+        kernels = ((None, "route"),) + (((0, "block kernel"),) if spec is WN_SMALL else ())
+        for cl, what in kernels:
+            toks = wd.decode_single(pack, prompt, n, 11, temp, cl=cl)
+            torch.cuda.synchronize()
+            if cl == 0:
+                for g in wd.GROUPS:
+                    if not torch.equal(wd.decode_single(pack, prompt, n, 11, temp, group=g,
+                                                        cl=0), toks):
+                        raise AssertionError(f"WaveNet decode_single group={g} changed the tokens")
+            if spec is WN_SMALL and temp is None and len(set(toks[0].tolist())) < 2:
                 raise AssertionError("argmax tokens are constant: the check is vacuous")
-        gap, parted = verify_wn(torch, wd, pack, prompt, toks, 11, temp)
-        err["wavenet_decode_single"] = max(err["wavenet_decode_single"], gap)
-        log(f"  WaveNet decode_single B={B_single} n={n} {mode}: ok, max gap {gap:.3e},"
-            f" {parted} streams parted at near-ties")
+            gap, parted = verify_wn(torch, wd, pack, prompt, toks, 11, temp)
+            err["wavenet_decode_single"] = max(err["wavenet_decode_single"], gap)
+            log(f"  WaveNet decode_single B={B_single} n={n} {mode} ({what}: "
+                f"{wn_kernel_name(wd, pack, B_single, cl)}): ok, max gap {gap:.3e}, {parted}"
+                f" streams parted at near-ties")
         prompt = make_prompt(torch, B_chunk, prior_t, q, seed=3)
-        runs = []
-        for C in chunk_lens:
-            state = wd.init_decode_state(pack, prompt)
-            parts = [wd.decode_chunk(pack, prompt, state, t0, min(C, prior_t + n - t0), 13, temp)
-                     for t0 in range(1, prior_t + n, C)]
-            runs.append(torch.cat(parts, 1)[:, prior_t - 1 :])
-        torch.cuda.synchronize()
-        for C, r in zip(chunk_lens[1:], runs[1:]):
-            if not torch.equal(r, runs[0]):
-                raise AssertionError(f"WaveNet decode_chunk with chunk {C} changed the tokens")
-        gap, parted = verify_wn(torch, wd, pack, prompt, runs[0], 13, temp)
-        err["wavenet_decode_chunk"] = max(err["wavenet_decode_chunk"], gap)
-        log(f"  WaveNet decode_chunk B={B_chunk} n={n} chunks {chunk_lens} {mode}: ok,"
-            f" max gap {gap:.3e}, {parted} streams parted at near-ties")
+        for cl, what in kernels:
+            runs = []
+            for C in chunk_lens:
+                state = wd.init_decode_state(pack, prompt)
+                parts = [wd.decode_chunk(pack, prompt, state, t0, min(C, prior_t + n - t0), 13,
+                                         temp, cl=cl)
+                         for t0 in range(1, prior_t + n, C)]
+                runs.append(torch.cat(parts, 1)[:, prior_t - 1 :])
+            torch.cuda.synchronize()
+            for C, r in zip(chunk_lens[1:], runs[1:]):
+                if not torch.equal(r, runs[0]):
+                    raise AssertionError(f"WaveNet decode_chunk with chunk {C} changed the tokens")
+            gap, parted = verify_wn(torch, wd, pack, prompt, runs[0], 13, temp)
+            key = "wavenet_decode_chunk" + (
+                "_cluster" if (wd.route(pack, B_chunk) if cl is None else cl) else "")
+            err[key] = max(err[key], gap)
+            log(f"  WaveNet decode_chunk B={B_chunk} n={n} chunks {chunk_lens} {mode} ({what}:"
+                f" {wn_kernel_name(wd, pack, B_chunk, cl)}): ok, max gap {gap:.3e}, {parted}"
+                f" streams parted at near-ties")
+    return err
+
+
+def wn_kernel_name(wd, pack, B, cl=None):
+    """The kernel B streams of ``pack``'s net take with ``cl`` (None: the
+    route's)."""
+    size = wd.route(pack, B) if cl is None else cl
+    return f"the cluster kernel at {size} blocks" if size else "the block kernel"
+
+
+def check_wavenet_cluster(torch, mmk, wd, spec, batches, n, chunk_lens, jitter):
+    """Phase 2 for the WaveNet cluster kernel (``csrc/wavenet_cluster.cu``)
+    on clusters of 16 blocks whatever the route, at each of ``batches``
+    (ragged groups where B is not a multiple of the group), over two
+    chunkings, argmax and T=0.9: teacher forcing against ``decode_plain``,
+    the chunkings' tokens equal to ``decode_single``'s, and the cluster
+    barriers a step block 0 counted equal to ``exchanges_per_step``.
+    Returns {wrapper: largest score gap}."""
+    net = make_wavenet(mmk, torch, wd, spec, seed=1, jitter=jitter)
+    pack = wd.wavenet_weight_pack(net)
+    prior_t, q = net.rf + 8, spec["q_levels"]
+    err = {"wavenet_decode_single": 0.0, "wavenet_decode_chunk_cluster": 0.0}
+    want = wd.exchanges_per_step(pack)
+    for temp in (None, TEMPERATURE):
+        mode = "argmax" if temp is None else f"T={temp}"
+        for B in batches:
+            prompt = make_prompt(torch, B, prior_t, q, seed=40 + B)
+            toks = wd.decode_single(pack, prompt, n, 17, temp, cl=16)
+            torch.cuda.synchronize()
+            w = wd.decode_single
+            got = int(w.last_barriers.item()) / (prior_t + n - 1)
+            if got != want:
+                raise AssertionError(f"WaveNet cluster kernel: {got} cluster barriers a step,"
+                                     f" not {want}")
+            gap, parted = verify_wn(torch, wd, pack, prompt, toks, 17, temp)
+            for key in err:  # decode_chunk's tokens are these (checked below)
+                err[key] = max(err[key], gap)
+            log(f"  WaveNet cluster kernel decode_single B={B} n={n} {mode}, clusters of 16"
+                f" ({w.last_clusters} fit), groups of {w.last_streams}: ok, max gap"
+                f" {gap:.3e}, {parted} streams parted at near-ties; {want} cluster barriers"
+                f" a step")
+            for C in chunk_lens:
+                state = wd.init_decode_state(pack, prompt)
+                parts = [wd.decode_chunk(pack, prompt, state, t0, min(C, prior_t + n - t0), 17,
+                                         temp, cl=16)
+                         for t0 in range(1, prior_t + n, C)]
+                run = torch.cat(parts, 1)[:, prior_t - 1 :]
+                if not torch.equal(run, toks):
+                    raise AssertionError(f"WaveNet cluster kernel B={B}: chunks of {C} changed"
+                                         f" the tokens")
+            log(f"    decode_chunk in chunks of {chunk_lens}: the same tokens")
     return err
 
 
@@ -932,15 +1156,42 @@ def check_categorical(torch, cat):
     return {"categorical": worst}
 
 
+def wn_counts(wd):
+    """The WaveNet wrappers' launch counters: (decode_single's, its cluster
+    kernel's, decode_chunk's, its cluster kernel's)."""
+    return (wd.decode_single.launches, wd.decode_single.launches_cluster,
+            wd.decode_chunk.launches, wd.decode_chunk.launches_cluster)
+
+
+def wn_route_taken(wd, pack, B, before, what):
+    """Raise unless every WaveNet launch since ``before`` (``wn_counts``)
+    went to the kernel ``WN_CLUSTER_ROUTE`` names for B."""
+    d = [a - b for a, b in zip(wn_counts(wd), before)]
+    launches, cluster = d[0] + d[2], d[1] + d[3]
+    want = wd.route(pack, B)
+    if launches == 0 or cluster != (launches if want else 0):
+        raise AssertionError(f"{what}: {cluster} of {launches} launches on the cluster kernel;"
+                             f" the route names {wn_kernel_name(wd, pack, B)}")
+    size = (wd.decode_single if d[1] else wd.decode_chunk).last_cluster_size if want else None
+    if want and size != want:
+        raise AssertionError(f"{what}: clusters of {size}, the route names {want}")
+    log(f"  {what}: {launches} launches, all on {wn_kernel_name(wd, pack, B)} (the route's)")
+
+
 def wavenet_path(torch, mmk, wd, cat):
     """Phase 3b: WaveNet-10 served at full width through the user entry
-    points; returns (net, prompts, launches, gap of the verified output)."""
+    points, each call through the kernel ``WN_CLUSTER_ROUTE`` names for its
+    B (the launch counters say so); returns (net, prompts, launches: the
+    decode_single, the block kernel's and the cluster kernel's decode_chunk
+    and the sampler's, gap of the verified output)."""
     net = make_wavenet(mmk, torch, wd, WN_FULL, seed=0)
     rf, q = net.rf, WN_FULL["q_levels"]
     log(f"  WaveNet-10: {net.n_parameters} parameters, rf {rf}")
     prompts = {B: make_prompt(torch, B, rf + 8, q, seed=B) for B in (256, WN_SMALL_B, WN_STREAM_B)}
     for w in (wd.decode_single, wd.decode_chunk, cat.categorical):
         w.launches = 0
+    wd.decode_single.launches_cluster = wd.decode_chunk.launches_cluster = 0
+    pack = wd.wavenet_weight_pack(net)
     outs = {}
     for B in (256, WN_SMALL_B):
         prompt = prompts[B]
@@ -949,7 +1200,9 @@ def wavenet_path(torch, mmk, wd, cat):
         def run():
             outs[B] = net.generate((prompt,), WN_N, temperature=TEMPERATURE, seed=SEED)[0]
 
+        before = wn_counts(wd)
         ms = cuda_ms(torch, run, reps=3)
+        wn_route_taken(wd, pack, B, before, f"WaveNet generate B={B}")
         med, spr = spread(ms)
         toks = outs[B][:, prompt.shape[1]:]
         if toks.shape != (B, WN_N) or int(toks.min()) < 0 or int(toks.max()) >= q:
@@ -965,6 +1218,7 @@ def wavenet_path(torch, mmk, wd, cat):
 
     p64 = prompts[WN_STREAM_B]
     lat, audio = [], []
+    before = wn_counts(wd)
     it = mmk.stream_audio(net, (p64,), STREAM_CHUNK, temperature=TEMPERATURE, seed=SEED)
     t = time.perf_counter()
     for _ in range(WN_STREAM_CHUNKS):
@@ -973,6 +1227,7 @@ def wavenet_path(torch, mmk, wd, cat):
         lat.append(1e3 * (now - t))
         t = now
     it.close()
+    wn_route_taken(wd, pack, WN_STREAM_B, before, f"WaveNet stream_audio B={WN_STREAM_B}")
     n_cmp = WN_STREAM_CHUNKS * STREAM_CHUNK
     with uncounted(wd.decode_single, wd.decode_chunk, cat.categorical):
         ref = net.generate((p64,), n_cmp, temperature=TEMPERATURE, seed=SEED)[0][:, rf + 8:]
@@ -1008,12 +1263,58 @@ def wavenet_path(torch, mmk, wd, cat):
         raise AssertionError(f"eval forward with sampler_impl='pallas': {tuple(y.shape)}")
     log(f"  eval forward B=256 with sampler_impl='pallas': ok, {tuple(y.shape)}")
     launches = {"wavenet_decode_single": wd.decode_single.launches,
-                "wavenet_decode_chunk": wd.decode_chunk.launches,
+                "wavenet_decode_chunk": wd.decode_chunk.launches - wd.decode_chunk.launches_cluster,
+                "wavenet_decode_chunk_cluster": wd.decode_chunk.launches_cluster,
                 "categorical": cat.categorical.launches}
     log(f"  launches on the WaveNet serving path: {launches}")
     if min(launches.values()) == 0:
         raise AssertionError(f"a kernel of the WaveNet path was never launched: {launches}")
+    wavenet_route_sweep(torch, wd, net, pack)
     return net, prompts, launches, gap
+
+
+def wavenet_route_sweep(torch, wd, net, pack):
+    """WaveNet-10's block kernel and its cluster kernel at each cluster size
+    the plan admits, at each of ``WN_SWEEP_BATCHES`` streams (decode_chunk,
+    T=0.9, ``WN_SWEEP_N`` steps a call; medians of rounds that call each
+    kernel once, ``WN_SWEEP_ROUNDS`` of them, else 3): the measurement behind
+    ``WN_CLUSTER_ROUTE``.  Raises unless the route's choice is within
+    ``WN_SWEEP_TIE`` of this run's fastest at every B."""
+    prior_t, q = net.rf + 8, WN_FULL["q_levels"]
+    slower = []
+    with uncounted(wd.decode_single, wd.decode_chunk):
+        for B in WN_SWEEP_BATCHES:
+            prompt = make_prompt(torch, B, prior_t, q, seed=90 + B)
+            fns, fit, ms = {}, {}, {}
+            for cl in (0,) + tuple(c for c in wd.CLUSTER_SIZES if wd.max_streams(pack, c)):
+                def fn(cl=cl):
+                    wd.decode_chunk(pack, prompt, wd.init_decode_state(pack, prompt), 1,
+                                    WN_SWEEP_N, SEED, TEMPERATURE, cl=cl)
+
+                fn()
+                fns[cl], ms[cl] = fn, []
+                fit[cl] = (wd.decode_chunk.last_clusters, wd.decode_chunk.last_streams)
+            rounds = WN_SWEEP_ROUNDS.get(B, 3)
+            for _ in range(rounds):
+                for cl, fn in fns.items():
+                    ms[cl] += cuda_ms(torch, fn, reps=1)
+            times = {cl: spread(v) for cl, v in ms.items()}
+            route = wd.route(pack, B) or 0
+            fastest = min(times, key=lambda k: times[k][0])
+            if times[route][0] > times[fastest][0] * (1 + WN_SWEEP_TIE):
+                slower.append(B)
+            cells = [f"{'block kernel' if cl == 0 else f'clusters of {cl}'}"
+                     f" {1e3 * v[0] / WN_SWEEP_N:.2f} ({v[1]:.2%}"
+                     + ("" if cl == 0 else f"; {fit[cl][0]} fit, groups of {fit[cl][1]}") + ")"
+                     for cl, v in times.items()]
+            log(f"  WaveNet B={B} x {WN_SWEEP_N} steps, us a step (median of {rounds}, spread): "
+                + ", ".join(cells) + f"; the route takes {wn_kernel_name(wd, pack, B)}")
+    log(f"  WN_CLUSTER_ROUTE = {wd.WN_CLUSTER_ROUTE}: "
+        + (f"sends B = {slower} to a choice slower than this run's fastest by more than"
+           f" {WN_SWEEP_TIE:.0%}" if slower else
+           f"sends every B of the sweep to this run's fastest choice (within {WN_SWEEP_TIE:.0%})"))
+    if slower:
+        raise AssertionError(f"the WaveNet route sends B = {slower} to a slower kernel")
 
 
 def wavenet_bound(pack, B, prior_t, n_steps, out_len):
@@ -1040,9 +1341,12 @@ def categorical_bound(rows, Q):
 
 
 def wavenet_rows(torch, wd, cat, net, prompts, launches, err):
-    """Phase 5 rows of K4, K5 and K9: kernel, plain twin, yardstick, bound."""
+    """Phase 5 rows of K4, K5 and K9: kernel (the one ``WN_CLUSTER_ROUTE``
+    names), plain twin, yardstick, bound, and for K4 and K5 the block kernel
+    on the same call (``block_kernel_ms``).  K5 has two rows: B=256 (the
+    route's block kernel) and the stream's B=64 (its cluster kernel)."""
     pack = wd.wavenet_weight_pack(net)
-    p8, p256 = prompts[WN_SMALL_B], prompts[256]
+    p8, p64, p256 = prompts[WN_SMALL_B], prompts[WN_STREAM_B], prompts[256]
     prior_t = p8.shape[1]
     n_single = prior_t + WN_N - 1
     C = net._CHUNK
@@ -1056,47 +1360,70 @@ def wavenet_rows(torch, wd, cat, net, prompts, launches, err):
             fn()
         return cuda_ms(torch, fn, reps)
 
+    def chunk(prompt, cl=None):
+        return lambda: wd.decode_chunk(pack, prompt, wd.init_decode_state(pack, prompt), 1, C,
+                                       SEED, TEMPERATURE, cl=cl)
+
+    W = WN_PLAIN_STEPS  # the twins' steps timed, scaled to the call's
+
+    def plain_chunk(prompt):
+        return lambda: wd.decode_plain(pack, prompt, wd.init_decode_state(pack, prompt), 1, W, 1,
+                                       W, SEED, TEMPERATURE)
+
     calls = {
         "wavenet_decode_single": (
             lambda: wd.decode_single(pack, p8, WN_N, SEED, TEMPERATURE),
-            lambda: wd.decode_plain(pack, p8, wd.init_decode_state(pack, p8), 1, n_single,
-                                    prior_t, WN_N, SEED, TEMPERATURE),
+            lambda: wd.decode_plain(pack, p8, wd.init_decode_state(pack, p8), 1, W, prior_t,
+                                    WN_N, SEED, TEMPERATURE),
             None, 1, wavenet_bound(pack, WN_SMALL_B, prior_t, n_single, WN_N),
-            "mimikit_tpu/ops/pallas_decode.py:402", f"B={WN_SMALL_B} steps={n_single}"),
+            "mimikit_tpu/ops/pallas_decode.py:402", f"B={WN_SMALL_B} steps={n_single}",
+            lambda: wd.decode_single(pack, p8, WN_N, SEED, TEMPERATURE, cl=0), WN_SMALL_B),
         "wavenet_decode_chunk": (
-            lambda: wd.decode_chunk(pack, p256, wd.init_decode_state(pack, p256), 1, C, SEED,
-                                    TEMPERATURE),
-            lambda: wd.decode_plain(pack, p256, wd.init_decode_state(pack, p256), 1, C, 1, C,
-                                    SEED, TEMPERATURE),
-            None, 1, wavenet_bound(pack, 256, prior_t, C, C),
-            "mimikit_tpu/ops/pallas_decode.py:559", f"B=256 steps={C}"),
+            chunk(p256), plain_chunk(p256), None, 1, wavenet_bound(pack, 256, prior_t, C, C),
+            "mimikit_tpu/ops/pallas_decode.py:559", f"B=256 steps={C}", chunk(p256, 0), 256),
+        "wavenet_decode_chunk_cluster": (
+            chunk(p64), plain_chunk(p64), None, 1,
+            wavenet_bound(pack, WN_STREAM_B, prior_t, C, C),
+            "mimikit_tpu/ops/pallas_decode.py:559", f"B={WN_STREAM_B} steps={C}",
+            chunk(p64, 0), WN_STREAM_B),
         "categorical": (
             lambda: cat.categorical(x, TEMPERATURE, SEED),
             lambda: cat.categorical_plain(x, TEMPERATURE, SEED),
             lambda: torch.multinomial(torch.softmax(x / TEMPERATURE, -1), 1),
             per, categorical_bound(*CAT_SHAPES[0]),
-            "mimikit_tpu/ops/pallas_kernels.py:159", f"(B, Q)={CAT_SHAPES[0]}"),
+            "mimikit_tpu/ops/pallas_kernels.py:159", f"(B, Q)={CAT_SHAPES[0]}", None, None),
     }
-    sources = {"wavenet_decode_single": "mimikit_tpu_torch/csrc/wavenet_decode.cu",
-               "wavenet_decode_chunk": "mimikit_tpu_torch/csrc/wavenet_decode.cu",
-               "categorical": "mimikit_tpu_torch/ops/categorical.py"}
     rows = []
-    for name, (kern, plain, lib, n, (bound, by), replaces, shape) in calls.items():
+    for name, (kern, plain, lib, n, (bound, by), replaces, shape, block, B) in calls.items():
+        if name == "categorical":
+            source = "mimikit_tpu_torch/ops/categorical.py"
+        elif wd.route(pack, B):
+            source = "mimikit_tpu_torch/csrc/wavenet_cluster.cu"
+        else:
+            source = "mimikit_tpu_torch/csrc/wavenet_decode.cu"
         with uncounted(cat.categorical):
             k_ms, k_spr = spread(timed(kern, n, 3))
             # the sampler's plain twin copies its seed to the card, which no graph
             # captures: it is timed as a user runs it, n calls from the host
             p_ms = cuda_ms(torch, lambda: [plain() for _ in range(n)], 1)[0] / n
+            scale = 1 if name == "categorical" else (
+                n_single if name == "wavenet_decode_single" else C) / W
+            p_ms *= scale
             l_ms = None if lib is None else spread(timed(lib, n, 3))[0]
+            b_ms = block_kernel_ms(torch, block)
         how = (f"; kernel and yardstick device time, {n} calls in a CUDA graph; plain twin {n}"
                " calls from the host") if n > 1 else ""
-        log(f"  {name} {shape}: kernel {k_ms:.5f} ms (median of 3, spread {k_spr:.2%}{how}),"
-            f" plain twin {p_ms:.5f} ms, yardstick {l_ms}, bound {bound:.5f} ms by {by}")
+        on = "" if B is None else f" on {wn_kernel_name(wd, pack, B)}"
+        log(f"  {name} {shape}{on}: kernel {k_ms:.5f} ms (median of 3, spread {k_spr:.2%}{how}),"
+            f" plain twin {p_ms:.5f} ms" + (f" ({W} steps timed, scaled by {scale:g})"
+                                             if scale != 1 else "")
+            + f", yardstick {l_ms}, bound {bound:.5f} ms by {by}"
+            + (f"; the block kernel {b_ms:.5f} ms" if b_ms is not None else ""))
         rows.append(dict(
             name=name, route="triton" if name == "categorical" else "cuda",
-            source=sources[name], replaces=replaces, launches=launches[name],
+            source=source, replaces=replaces, launches=launches[name],
             max_abs_err=err[name], ms=k_ms, plain_ms=p_ms, bound_ms=bound, bound_by=by,
-            library_ms=l_ms,
+            library_ms=l_ms, **({"block_kernel_ms": b_ms} if b_ms is not None else {}),
         ))
     return rows
 
@@ -1153,11 +1480,24 @@ def verify_window(torch, td, pack, prompt, toks, seed, temperature):
 
 
 def verify_kv(torch, tk, pack, prompt, toks, seed, temperature):
-    """verify_tokens for the KV-ring kernel (K7; steps from 1)."""
+    """verify_tokens for the KV-ring kernel (K7).  Steps 1 .. prior_t - 1
+    teacher-force the scored run and the free run alike, so the twin runs
+    them once for each sum order and each run starts at prior_t from a copy
+    of that state."""
     prior_t, n = prompt.shape[1], toks.shape[1]
+    prompt_T = prompt.t().contiguous()
+    bf16 = pack.flat.dtype == torch.bfloat16
+    warm = {}
+    for acc in (torch.float32, torch.float64) if bf16 else (torch.float32,):
+        warm[acc] = tk.init_kv_state(pack, prompt)
+        tk.decode_chunk_plain(pack, prompt_T, warm[acc], 1, prior_t - 1, seed, temperature,
+                              accumulate=acc)
+
+    def copy(acc):
+        return tk.TransformerKVState(warm[acc].tok.clone(), warm[acc].ring.clone())
 
     def tf_scores(full, state, t, m, acc=torch.float32):
-        state = state or tk.init_kv_state(pack, full)
+        state = state or copy(acc)
         _, scores = tk.decode_chunk_plain(pack, full.t().contiguous(), state, t, m, seed,
                                           temperature, return_scores=True, accumulate=acc)
         return scores, state
@@ -1166,13 +1506,10 @@ def verify_kv(torch, tk, pack, prompt, toks, seed, temperature):
         return tf_scores(full, state, t, m, torch.float64)
 
     def free_run():
-        state = tk.init_kv_state(pack, prompt)
-        out = tk.decode_chunk_plain(pack, prompt.t().contiguous(), state, 1, prior_t + n - 1, seed,
-                                    temperature)
-        return out[:, prior_t - 1 :]
+        return tk.decode_chunk_plain(pack, prompt_T, copy(torch.float32), prior_t, n, seed,
+                                     temperature)
 
-    bf16 = pack.flat.dtype == torch.bfloat16
-    return verify_tokens(torch, prompt, toks, 1, tf_scores, free_run,
+    return verify_tokens(torch, prompt, toks, prior_t, tf_scores, free_run,
                          tf_scores_alt=tf_scores_alt if bf16 else None)
 
 
@@ -1726,7 +2063,7 @@ def bf16_rows(torch, sd, td, tk, net, p4, p256, tf_net, tf_prompts, launches, er
     pack16 = sd.samplernn_weight_pack(net, torch.bfloat16)
     tpack16 = td.transformer_weight_pack(tf_net, torch.bfloat16)
     p16 = tf_prompts[TF_KV_B]
-    C, n_twin = STREAM_CHUNK, BF16_PLAIN_STEPS
+    C, n_twin = STREAM_CHUNK, SRN_PLAIN_STEPS
     n4 = p4.shape[1] + N_SMALL - rf
     calls = {
         "decode_single_bf16": (
@@ -2805,7 +3142,9 @@ def main(argv=None) -> int:
     sources = ((sd.SOURCE, sd._Kernel, sd.build_kernel),
                (sd.CLUSTER_SOURCE, sd._ClusterKernel, sd.build_cluster_kernel),
                (fl.SOURCE, fl._Kernel, fl.build_lstm_kernel),
-               (wd.SOURCE, wd._Kernel, wd.build_kernel), (td.SOURCE, td._Kernel, td.build_kernel),
+               (wd.SOURCE, wd._Kernel, wd.build_kernel),
+               (wd.CLUSTER_SOURCE, wd._ClusterKernel, wd.build_cluster_kernel),
+               (td.SOURCE, td._Kernel, td.build_kernel),
                (tk.SOURCE, tk._Kernel, tk.build_kernel),
                (jbd.SOURCE, jbd._Kernel, jbd.build_kernel),
                (jbd.CLUSTER_SOURCE, jbd._ClusterKernel, jbd.build_cluster_kernel),
@@ -2821,6 +3160,7 @@ def main(argv=None) -> int:
     log(f"  the {len(sources)} builds took {time.perf_counter() - t:.1f} s")
     k1_sass_check(sd)
     k8_sass_check(jbd)
+    parent_sass_check(sd, fl, wd, td, tk, jbd)
     t = time.perf_counter()
     cat.categorical(torch.zeros(2, 8).cuda(), 1.0, 0)  # compiles the Triton kernel
     torch.cuda.synchronize()
@@ -2865,6 +3205,8 @@ def main(argv=None) -> int:
     err.update(check_lstm_bf16(torch, fl, LSTM_SHAPES[:1], BF16_LSTM_SHARE[0], seeds=range(4)))
     err.update(check_wavenet(torch, mmk, wd, WN_SMALL, WN_SMALL_B, 40, 300, (300 + 15, 7, 64),
                              jitter=0.3))
+    err = merge_max(err, check_wavenet_cluster(torch, mmk, wd, WN_SMALL, (3, 37), 200,
+                                               (215, 64), jitter=0.3))
     err.update(check_categorical(torch, cat))
     stamp("LSTM, WaveNet and the sampler, small")
     err.update(check_transformer(torch, mmk, td, tk, TF_SMALL, 200, TF_WIN_BATCHES,
@@ -2897,8 +3239,11 @@ def main(argv=None) -> int:
           " kernel at B=256")
     err_full.update(check_lstm(torch, fl, LSTM_SHAPES[1:]))
     err_full.update(check_lstm_bf16(torch, fl, LSTM_SHAPES[1:], BF16_LSTM_SHARE[1]))
-    err_full.update(check_wavenet(torch, mmk, wd, WN_FULL, WN_SMALL_B, 256, 512, (1543, 700),
+    err_full.update(check_wavenet(torch, mmk, wd, WN_FULL, WN_SMALL_B, 256, 256, (1287, 500),
                                   jitter=0.0))
+    err_full = merge_max(err_full, check_wavenet_cluster(torch, mmk, wd, WN_FULL,
+                                                         WN_CLUSTER_BATCHES, 256, (1287, 500),
+                                                         jitter=0.0))
     stamp("LSTM and WaveNet, full width")
     err_full.update(check_transformer(torch, mmk, td, tk, TF_FULL, 128, TF_WIN_BATCHES,
                                       TF_KV_BATCHES, (128 + 63, 100), jitter=0.0))
@@ -2966,18 +3311,20 @@ def main(argv=None) -> int:
     log("phase 5: each wrapper, its plain twin and its yardstick at the main paths' shapes"
         f" (at {time.perf_counter() - t_start:.1f} s)")
 
-    # each wrapper, and its plain twin, on one call at the main path's shapes
+    # each wrapper, and its plain twin (over SRN_PLAIN_STEPS steps, scaled), on one
+    # call at the main path's shapes
     pack = sd.samplernn_weight_pack(net)
+    n_twin = SRN_PLAIN_STEPS
     calls = {
         "decode_single": (p4, lambda: sd.decode_single(pack, p4, N_SMALL, SEED, TEMPERATURE),
                           lambda: sd.decode_plain(net, p4, sd.init_decode_state(net, p4), rf,
-                                                  p4.shape[1] + N_SMALL - rf, p4.shape[1],
-                                                  N_SMALL, SEED, TEMPERATURE),
+                                                  n_twin, p4.shape[1], n_twin, SEED,
+                                                  TEMPERATURE),
                           rf, p4.shape[1] + N_SMALL - rf, N_SMALL),
         "decode_chunk": (p256, lambda: sd.decode_chunk(pack, p256, sd.init_decode_state(net, p256),
                                                        rf, net._CHUNK, SEED, TEMPERATURE),
                          lambda: sd.decode_plain(net, p256, sd.init_decode_state(net, p256), rf,
-                                                 net._CHUNK, rf, net._CHUNK, SEED, TEMPERATURE),
+                                                 n_twin, rf, n_twin, SEED, TEMPERATURE),
                          rf, net._CHUNK, net._CHUNK),
     }
     sources = {"decode_single": "mimikit_tpu_torch/csrc/samplernn_decode.cu",
@@ -2989,11 +3336,12 @@ def main(argv=None) -> int:
     rows = []
     for name, (prompt, kern, plain, t0, n, out_len) in calls.items():
         k_ms, _ = spread(cuda_ms(torch, kern, reps=3))
-        p_ms = cuda_ms(torch, plain, reps=1)[0]
+        p_ms = cuda_ms(torch, plain, reps=1)[0] * n / n_twin
         b_ms = block_kernel_ms(torch, block.get(name))
         bound, by = decode_bound(pack, prompt.shape[0], prompt.shape[1], t0, n, out_len)
         log(f"  {name} B={prompt.shape[0]} steps={n}: kernel {k_ms:.3f} ms (median of 3),"
-            f" plain twin {p_ms:.3f} ms, bound {bound:.3f} ms by {by}"
+            f" plain twin {p_ms:.3f} ms ({n_twin} steps timed, scaled by {n / n_twin:g}),"
+            f" bound {bound:.3f} ms by {by}"
             + (f"; the block kernel {b_ms:.3f} ms" if b_ms is not None else ""))
         rows.append(dict(
             name=name, route="cuda", source=sources[name], replaces=replaces[name],

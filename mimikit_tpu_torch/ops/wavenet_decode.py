@@ -25,8 +25,16 @@ TPU core's scoped VMEM and pick which rings stream from HBM by DMA; on the
 card the rings live in device memory and the weights in L2 whatever the
 width, so a net in the gate always takes the kernel.
 
-What bounds the kernel on an H100, and what its design does about it, is in
-the source note at the top of the ``.cu`` file.
+A second kernel, ``csrc/wavenet_cluster.cu``, computes the same step with a
+group of streams on a thread-block cluster, each block holding its column
+slices of the weights in shared memory (:func:`cluster_plan`,
+:func:`cluster_layout`).  Both wrappers send a CUDA batch where
+:func:`route` names by B (``WN_CLUSTER_ROUTE``); nets outside the cluster
+plan and the other batches take the block kernel, so every chunk of a stream
+takes one kernel.
+
+What bounds each kernel on an H100, and what its design does about it, is in
+the source note at the top of its ``.cu`` file.
 
 The wrappers' rule: a CPU tensor takes the plain PyTorch twin
 (:func:`decode_plain`); a CUDA tensor launches the kernel or raises.  There is
@@ -38,8 +46,11 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses as dtc
+import functools
 from pathlib import Path
 from typing import Optional, Tuple
+
+import numpy as np
 
 import torch
 import torch.nn.functional as F
@@ -48,13 +59,26 @@ from .noise import gumbel_noise
 from .nvcc import CSRC, build_library
 from .samplernn_decode import SMEM_PER_BLOCK, _check, _head_is_plain_mish
 
-__all__ = ["wavenet_weight_pack", "WaveNetPack", "WaveNetDecodeState"]
+__all__ = ["wavenet_weight_pack", "WaveNetPack", "WaveNetDecodeState", "cluster_plan",
+           "cluster_layout", "route"]
 
 MAX_LAYERS = 64
 MAX_HEAD = 8
 THREADS = 1024  # a block's threads, WN_THREADS in the .cu file
 GROUPS = (1, 2, 4, 8, 16)  # the streams a block can own
 SOURCE = CSRC / "wavenet_decode.cu"
+CLUSTER_SOURCE = CSRC / "wavenet_cluster.cu"
+CLUSTER_SIZES = (16,)  # the cluster kernel's instantiation (8 blocks never won: PERF.md)
+RING_SLOTS = 3           # the ring of streamed weight pieces (6 streamed no faster)
+SLOT_FLOATS = 4096       # 16 KB a piece
+TAB_HEADER = 4
+MAX_GROUP = 64           # the most streams a group a plan is searched for
+# (the widest B, cluster size): where decode_single and decode_chunk send a
+# CUDA batch to the cluster kernel (csrc/wavenet_cluster.cu), in order; past
+# the last row, or for a net outside the plan, the block kernel.  From
+# chip_smoke.py's route sweep of both kernels at B = 1 .. 256 on an NVIDIA
+# H100 80GB HBM3 (700 W).
+WN_CLUSTER_ROUTE = ((128, 16),)
 
 
 def _round4(n: int) -> int:
@@ -303,7 +327,302 @@ def decode_plain(pack: WaveNetPack, prompt: torch.Tensor, state: WaveNetDecodeSt
     return out
 
 
-# -- the kernel: build, bind, launch -------------------------------------------------
+
+# -- the cluster kernel's plan and layout ------------------------------------------
+
+def _split(n: int, cl: int, r: int) -> Tuple[int, int]:
+    """Rank r's share [lo, hi) of n items over cl ranks (wc_lo in the .cu)."""
+    return r * n // cl, (r + 1) * n // cl
+
+
+@dtc.dataclass(frozen=True)
+class ClusterUnit:
+    """One product of a step: ``K`` rows of the pack's (K, N) matrix ``src``
+    (bias ``bias``); ``cols[r]`` the columns rank r computes, four a quad,
+    -1 for a zero column; its input in two segments, ``ka`` rows and the
+    rest."""
+
+    name: str
+    src: str
+    bias: str
+    K: int
+    N: int
+    cols: Tuple[Tuple[int, ...], ...]
+    ka: int  # the first segment of K (the conv's x(s - d) rows; K elsewhere)
+
+
+@dtc.dataclass(frozen=True)
+class ClusterPlan:
+    """Where each block of a cluster of ``cl`` keeps each weight slice of a
+    step for groups of ``S`` streams, and its shared memory."""
+
+    cl: int
+    S: int
+    units: Tuple[ClusterUnit, ...]
+    resident: Tuple[Tuple[bool, ...], ...]
+    small: Tuple[int, ...]   # each rank's bias floats
+    ow: int
+    skw: int
+    lgw: int
+    tab_ints: int
+    act_floats: int
+    wreg_floats: int
+    smem_bytes: int
+    fits: bool
+    why: str
+
+    def slice_floats(self, u: int, r: int) -> int:
+        return self.units[u].K * len(self.units[u].cols[r])
+
+    def bytes(self, r: int, resident: bool) -> int:
+        """Rank r's weight bytes a step that are resident (or streamed)."""
+        return 4 * sum(self.slice_floats(u, r) for u in range(len(self.units))
+                       if self.resident[r][u] == resident)
+
+    def pieces(self, r: int):
+        """Rank r's streamed pieces of a step, in order: (unit, first quad,
+        quads)."""
+        out = []
+        for u, unit in enumerate(self.units):
+            q = len(unit.cols[r]) // 4
+            if self.resident[r][u] or q == 0:
+                continue
+            per = max(1, SLOT_FLOATS // (4 * unit.K))
+            out += [(u, q0, min(per, q - q0)) for q0 in range(0, q, per)]
+        return out
+
+
+Geometry = Tuple[int, int, int, Tuple[bool, ...], Tuple[Tuple[int, int], ...]]
+
+
+def _geometry(pack: WaveNetPack) -> Geometry:
+    return pack.dim, pack.skips_dim, pack.q_levels, tuple(pack.has_res), tuple(pack.head_dims)
+
+
+def _units(g: Geometry, cl: int) -> Tuple[ClusterUnit, ...]:
+    """Every product of a step, in the order the kernel runs them: each
+    layer's gated conv (rank r's quads of gate units, a quad the tanh and
+    sigmoid columns of units 2q and 2q + 1) and its skip|res product (its
+    skip quads, then its residual quads; none on the last layer, whose x is
+    not used), then the head's layers (the last: its quads of the Q logits,
+    then the temperature column in a quad of its own, on every rank)."""
+    D, Sk, Q, has_res, head = g
+    L = len(has_res)
+
+    def quads(n, r):
+        lo, hi = _split(n, cl, r)
+        return tuple(c for q in range(lo, hi) for c in range(4 * q, 4 * q + 4))
+
+    units = []
+    for l, res in enumerate(has_res):
+        conv = tuple(tuple(c for q in range(*_split(D // 2, cl, r))
+                           for c in (2 * q, D + 2 * q, 2 * q + 1, D + 2 * q + 1))
+                     for r in range(cl))
+        units.append(ClusterUnit(f"conv{l}", f"wc{l}", f"bc{l}", 2 * D, 2 * D, conv, D))
+        keep = res and l + 1 < L
+        sr = tuple(quads(Sk // 4, r) + (tuple(Sk + c for c in quads(D // 4, r)) if keep else ())
+                   for r in range(cl))
+        units.append(ClusterUnit(f"sr{l}", f"wsr{l}", f"bsr{l}", D, Sk + (D if res else 0), sr,
+                                 D))
+    for k, (d_in, d_out) in enumerate(head):
+        if k + 1 < len(head):
+            cols = tuple(quads(d_out // 4, r) for r in range(cl))
+        else:
+            cols = tuple(quads(Q // 4, r) + (Q, -1, -1, -1) for r in range(cl))
+        units.append(ClusterUnit(f"h{k}", f"wh{k}", f"bh{k}", d_in, d_out, cols, d_in))
+    return tuple(units)
+
+
+def _act_floats(D: int, S: int, cl: int, ow: int, skw: int, lgw: int, tab_ints: int) -> int:
+    """Floats of the buffers before the weights (``wc_carve``): x(s), y, the
+    two ring-row and head buffers, the pick's candidates, the skip
+    accumulators, the logits, the token carry, the table, the ring's
+    barriers."""
+    r4 = _round4
+    return (2 * S * D + 2 * S * ow + r4(2 * cl * S) + S * skw + S * lgw + r4(S) + r4(tab_ints)
+            + r4(2 * (RING_SLOTS + 1)))
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(g: Geometry, cl: int, S: int) -> ClusterPlan:
+    D, Sk, Q, has_res, head = g
+    units = _units(g, cl)
+    ow = _round4(max([D, Sk] + [w for dims in head[:-1] for w in dims] + [head[-1][0]]))
+    skw = 4 * max(_split(Sk // 4, cl, r)[1] - _split(Sk // 4, cl, r)[0] for r in range(cl))
+    lgw = 4 * (max(_split(Q // 4, cl, r)[1] - _split(Q // 4, cl, r)[0] for r in range(cl)) + 1)
+    small = tuple(sum(len(u.cols[r]) for u in units) for r in range(cl))
+    slices = [[u.K * len(u.cols[r]) for u in units] for r in range(cl)]
+    # the table has room for every unit streamed: its size does not depend on the choice
+    most_pieces = max(sum(-(-len(u.cols[r]) // 4 // max(1, SLOT_FLOATS // (4 * u.K)))
+                          for u in units) for r in range(cl))
+    tab_ints = TAB_HEADER + 3 * len(units) + 2 * most_pieces
+    act = _act_floats(D, S, cl, ow, skw, lgw, tab_ints)
+    budget = SMEM_PER_BLOCK // 4 - act - RING_SLOTS * SLOT_FLOATS
+    # streamed first: the odd layers' convs, then the even ones', then the
+    # skip|res products the same way, then the head, until the rest fits,
+    # so that the streamed pieces spread over the step
+    L = len(has_res)
+    order = ([2 * l for l in range(1, L, 2)] + [2 * l for l in range(0, L, 2)]
+             + [2 * l + 1 for l in range(1, L, 2)] + [2 * l + 1 for l in range(0, L, 2)]
+             + list(range(2 * L, len(units))))
+    resident = []
+    for r in range(cl):
+        row, over = [True] * len(units), small[r] + sum(slices[r]) - budget
+        for u in order:
+            if over > 0 and slices[r][u]:
+                row[u] = False
+                over -= slices[r][u]
+        resident.append(tuple(row))
+    wreg = _round4(max(small[r] + sum(f for f, k in zip(slices[r], resident[r]) if k)
+                       for r in range(cl)))
+    streams = not all(all(row) for row in resident)
+    smem = 4 * (act + wreg + (RING_SLOTS * SLOT_FLOATS if streams else 0))
+    why = ""
+    if cl not in CLUSTER_SIZES:
+        why = f"cluster size {cl} is not one of {CLUSTER_SIZES}"
+    elif S < 1:
+        why = f"a group of {S} streams"
+    elif D % 8 or Sk % 4 or Q % 4 or any(w % 4 for dims in head[:-1] for w in dims):
+        why = "the widths are not multiples of 8 (dims) and 4 (skips, classes, head)"
+    elif L > MAX_LAYERS or len(head) > MAX_HEAD:
+        why = f"{L} layers / {len(head)} head layers exceed the kernel's limits"
+    elif any(4 * u.K > SLOT_FLOATS for u in units):
+        why = "a product's depth outgrows a ring slot"
+    elif min(budget - x for x in small) < 0 or smem > SMEM_PER_BLOCK:
+        why = f"{smem} bytes of shared memory a block"
+    return ClusterPlan(cl=cl, S=S, units=units, resident=tuple(resident), small=small, ow=ow,
+                       skw=skw, lgw=lgw, tab_ints=tab_ints, act_floats=act, wreg_floats=wreg,
+                       smem_bytes=smem, fits=not why, why=why)
+
+
+def cluster_plan(pack: WaveNetPack, cl: int, S: int) -> ClusterPlan:
+    """The cluster kernel's plan of ``pack``'s net on clusters of ``cl``
+    blocks for groups of ``S`` streams, a pure function of its widths: each
+    product's column slice a rank computes, whether it stays in the rank's
+    shared memory or streams through the ring of ``RING_SLOTS`` pieces of
+    ``SLOT_FLOATS`` (the odd layers' convs first, then the even ones', then
+    the skip|res products, then the head, until the rest fits in 232,448
+    bytes beside the group's rows), and ``why`` a net does not fit."""
+    return _plan(_geometry(pack), cl, S)
+
+
+def max_streams(pack: WaveNetPack, cl: int) -> int:
+    """The most streams a group whose plan fits at ``cl`` blocks (0: none)."""
+    S = 0
+    while S < MAX_GROUP and cluster_plan(pack, cl, S + 1).fits:
+        S += 1
+    return S
+
+
+def exchanges_per_step(pack: WaveNetPack) -> int:
+    """The cluster barriers of a step: y after each layer, x after each
+    residual but the last layer's, the skips, each hidden head layer, the
+    pick."""
+    L = len(pack.dilations)
+    return L + sum(pack.has_res[:-1]) + 1 + len(pack.head_dims) - 1 + 1
+
+
+def _k_order(K: int, ka: int) -> np.ndarray:
+    """The k of each of a quad's K weight rows as the kernel reads them: the
+    segments [0, ka) and [ka, K) in blocks of 128, in a block of nb the row
+    of k = 4 l + e at e nb / 4 + l (lane l reads e's rows side by side)."""
+    out = []
+    for lo, hi in ((0, ka), (ka, K)):
+        for k0 in range(lo, hi, 128):
+            q4 = min(128, hi - k0) // 4
+            out.append((k0 + 4 * np.arange(q4)[None, :] + np.arange(4)[:, None]).ravel())
+    return np.concatenate(out) if out else np.zeros(0, np.int64)
+
+
+def _layout_np(plan: ClusterPlan, offsets: dict, zero: int):
+    """(index into the pack's flat weights, ``zero`` for a zero, of every
+    float of the relaid buffer; (cl, tab_ints) int32 tables).  Rank r's
+    region: each unit's bias slice, its resident slices, then its streamed
+    pieces; a slice, and each piece (whole quads), is quad-major: a quad's K
+    rows of four columns together, in :func:`_k_order`."""
+    parts, tabs, base = [], np.zeros((plan.cl, plan.tab_ints), np.int32), 0
+
+    def slice_idx(unit, cols, q0, nq):  # quads q0 .. q0 + nq: (nq, K, 4), k in _k_order
+        o = offsets[unit.src][0]
+        c = np.asarray(cols, np.int64)[4 * q0 : 4 * (q0 + nq)].reshape(nq, 1, 4)
+        k = _k_order(unit.K, unit.ka)
+        idx = o + k[None, :, None] * unit.N + c
+        return np.where(c < 0, zero, idx).ravel()
+
+    for r in range(plan.cl):
+        idx, rows, pos = [], [], 0
+        for unit in plan.units:
+            c = np.asarray(unit.cols[r], np.int64)
+            rows.append([0, pos, len(c) // 4])
+            idx.append(np.where(c < 0, zero, offsets[unit.bias][0] + c))
+            pos += len(c)
+        for u, unit in enumerate(plan.units):
+            if plan.resident[r][u]:
+                rows[u][0] = pos
+                idx.append(slice_idx(unit, unit.cols[r], 0, len(unit.cols[r]) // 4))
+                pos += plan.slice_floats(u, r)
+            else:
+                rows[u][0] = -1
+        n_load, pieces = pos, []
+        for u, q0, nq in plan.pieces(r):
+            unit = plan.units[u]
+            pieces.append((pos, nq * 4 * unit.K))
+            idx.append(slice_idx(unit, unit.cols[r], q0, nq))
+            pos += nq * 4 * unit.K
+        tab = [base, n_load, len(pieces), len(plan.units)] + sum(rows, []) + sum(
+            (list(p) for p in pieces), [])
+        tabs[r, : len(tab)] = tab
+        region = np.concatenate(idx) if idx else np.zeros(0, np.int64)
+        parts.append(np.concatenate([region, np.full(-len(region) % 4, zero, np.int64)]))
+        base += len(parts[-1])
+    return np.concatenate(parts), tabs
+
+
+@functools.lru_cache(maxsize=8)
+def _layout_index(g: Geometry, cl: int, S: int, offsets: Tuple, zero: int, device: str):
+    """:func:`_layout_np`'s int32 index and tables on ``device``, kept for a
+    few (widths, layout, group, device) keys."""
+    idx, tabs = _layout_np(_plan(g, cl, S), {k: (o, s) for k, o, s in offsets}, zero)
+    assert zero < 2 ** 31
+    return (torch.from_numpy(idx.astype(np.int32)).to(device),
+            torch.from_numpy(tabs).to(device))
+
+
+def cluster_layout(pack: WaveNetPack, cl: int, S: int):
+    """(relaid weights, tables, plan) of ``pack`` for the cluster kernel on
+    clusters of ``cl`` blocks, groups of ``S`` streams, on the pack's device:
+    one gather of the pack's flat weights (a zero appended), by an index
+    cached for the net's widths and layout (``generate`` packs the weights
+    anew each call), kept on the pack."""
+    cache = pack.__dict__.setdefault("_cluster", {})
+    if (cl, S) not in cache:
+        offsets = tuple(sorted((k, o, tuple(s)) for k, (o, s) in pack.offsets.items()))
+        idx, tabs = _layout_index(_geometry(pack), cl, S, offsets, pack.flat.numel(),
+                                  str(pack.flat.device))
+        flat = torch.cat([pack.flat, pack.flat.new_zeros(4)])
+        cache[(cl, S)] = (flat.index_select(0, idx), tabs, cluster_plan(pack, cl, S))
+    return cache[(cl, S)]
+
+
+def route(pack: WaveNetPack, B: int) -> Optional[int]:
+    """The cluster size :func:`decode_single` and :func:`decode_chunk` launch
+    B streams of ``pack``'s net with (on CUDA tensors): the first
+    ``WN_CLUSTER_ROUTE`` row that names B, where a group of one stream
+    fits; None for the block kernel.  It depends on B and the widths only,
+    so every chunk of a stream takes one kernel."""
+    for most, cl in WN_CLUSTER_ROUTE:
+        if B <= most and max_streams(pack, cl) > 0:
+            return cl
+    return None
+
+
+def streams_a_group(pack: WaveNetPack, cl: int, B: int, clusters: int) -> int:
+    """S: B streams spread over the clusters that fit, at most the plan's
+    largest group (more groups then wait for a cluster)."""
+    return max(1, min(max_streams(pack, cl), -(-B // clusters)))
+
+
+# -- the kernels: build, bind, launch ------------------------------------------------
 
 class _Args(ctypes.Structure):
     """Mirror of ``WnDecodeArgs`` in ``csrc/wavenet_decode.cu``."""
@@ -447,36 +766,238 @@ def _launch(pack: WaveNetPack, prompt, state: WaveNetDecodeState, t0: int, n_ste
     return True
 
 
+class _ClArgs(ctypes.Structure):
+    """Mirror of ``WcArgs`` in ``csrc/wavenet_cluster.cu``."""
+
+    _fields_ = [
+        ("cw", ctypes.c_void_p),
+        ("tab", ctypes.c_void_p),
+        ("emb", ctypes.c_void_p),
+        ("prompt", ctypes.c_void_p),
+        ("tok", ctypes.c_void_p),
+        ("rings", ctypes.c_void_p),
+        ("out", ctypes.c_void_p),
+        ("barriers", ctypes.c_void_p),
+        ("t0", ctypes.c_longlong),
+        ("out_t0", ctypes.c_longlong),
+        ("ring_row", ctypes.c_longlong * MAX_LAYERS),
+        ("n_steps", ctypes.c_int),
+        ("out_len", ctypes.c_int),
+        ("B", ctypes.c_int),
+        ("D", ctypes.c_int),
+        ("Sk", ctypes.c_int),
+        ("Q", ctypes.c_int),
+        ("prior_t", ctypes.c_int),
+        ("n_layers", ctypes.c_int),
+        ("n_head", ctypes.c_int),
+        ("S", ctypes.c_int),
+        ("ow", ctypes.c_int),
+        ("skw", ctypes.c_int),
+        ("lgw", ctypes.c_int),
+        ("tab_ints", ctypes.c_int),
+        ("wreg_floats", ctypes.c_int),
+        ("n_slots", ctypes.c_int),
+        ("slot_floats", ctypes.c_int),
+        ("smem_bytes", ctypes.c_int),
+        ("argmax", ctypes.c_int),
+        ("seed", ctypes.c_uint),
+        ("temperature", ctypes.c_float),
+        ("min_temperature", ctypes.c_float),
+        ("dil", ctypes.c_int * MAX_LAYERS),
+        ("has_res", ctypes.c_int * MAX_LAYERS),
+        ("head_in", ctypes.c_int * MAX_HEAD),
+        ("head_out", ctypes.c_int * MAX_HEAD),
+    ]
+
+
+class _ClusterKernel:
+    """The cluster kernel's library (one per process), its compiler output
+    and the clusters that fit, by (device, cluster size, shared memory)."""
+
+    lib = None
+    build_log = ""
+    clusters = {}
+
+
+def build_cluster_kernel() -> Path:
+    """Compile ``csrc/wavenet_cluster.cu`` for sm_90a into ``build/kernels/``
+    and return the library's path."""
+    path, log = build_library(CLUSTER_SOURCE, "mmk_wavenet_cluster")
+    if log:
+        _ClusterKernel.build_log = log
+    return path
+
+
+def _cluster_library():
+    if _ClusterKernel.lib is None:
+        lib = ctypes.CDLL(str(build_cluster_kernel()))
+        lib.mmk_wc_decode.argtypes = [ctypes.POINTER(_ClArgs), ctypes.c_int, ctypes.c_void_p,
+                                      ctypes.POINTER(ctypes.c_int), ctypes.c_int]
+        lib.mmk_wc_decode.restype = ctypes.c_int
+        lib.mmk_wc_args_size.argtypes = []
+        lib.mmk_wc_args_size.restype = ctypes.c_int
+        lib.mmk_wc_error_string.argtypes = [ctypes.c_int]
+        lib.mmk_wc_error_string.restype = ctypes.c_char_p
+        if lib.mmk_wc_args_size() != ctypes.sizeof(_ClArgs):
+            raise RuntimeError("WcArgs layout differs between C and Python")
+        _ClusterKernel.lib = lib
+    return _ClusterKernel.lib
+
+
+def _fill_cluster_args(a: _ClArgs, pack: WaveNetPack, plan: ClusterPlan) -> None:
+    rows = 0
+    for l, (d, r) in enumerate(zip(pack.dilations, pack.has_res)):
+        a.ring_row[l], a.dil[l], a.has_res[l] = rows, d, int(r)
+        rows += d
+    for k, (d_in, d_out) in enumerate(pack.head_dims):
+        a.head_in[k], a.head_out[k] = d_in, d_out
+    a.D, a.Sk, a.Q = pack.dim, pack.skips_dim, pack.q_levels
+    a.n_layers, a.n_head = len(pack.dilations), len(pack.head_dims)
+    a.S, a.ow, a.skw, a.lgw = plan.S, plan.ow, plan.skw, plan.lgw
+    a.tab_ints, a.wreg_floats, a.smem_bytes = plan.tab_ints, plan.wreg_floats, plan.smem_bytes
+    a.n_slots, a.slot_floats = RING_SLOTS, SLOT_FLOATS
+    a.min_temperature = pack.min_temperature
+
+
+def clusters_that_fit(pack: WaveNetPack, cl: int) -> int:
+    """The clusters of ``cl`` blocks the card runs at once at the cluster
+    kernel's shared memory for the largest group
+    (``cudaOccupancyMaxActiveClusters``), cached."""
+    dev = pack.flat.device
+    plan = cluster_plan(pack, cl, max(1, max_streams(pack, cl)))
+    key = (str(dev), cl, plan.smem_bytes)
+    if key not in _ClusterKernel.clusters:
+        a = _ClArgs()
+        _fill_cluster_args(a, pack, plan)
+        n = ctypes.c_int(0)
+        lib = _cluster_library()
+        err = lib.mmk_wc_decode(ctypes.byref(a), cl, torch.cuda.current_stream(dev).cuda_stream,
+                                ctypes.byref(n), 1)
+        if err != 0:
+            raise RuntimeError(f"wavenet cluster kernel query failed: "
+                               f"{lib.mmk_wc_error_string(err).decode()}")
+        _ClusterKernel.clusters[key] = n.value
+    return _ClusterKernel.clusters[key]
+
+
+def _launch_cluster(pack: WaveNetPack, prompt, state: WaveNetDecodeState, t0: int,
+                    n_steps: int, out: torch.Tensor, out_t0: int, seed: int,
+                    temperature: Optional[float], cl: int, S: Optional[int] = None,
+                    record=None) -> bool:
+    """The cluster kernel on clusters of ``cl`` blocks, groups of ``S``
+    streams (default: :func:`streams_a_group` over the clusters that fit);
+    False when there are no steps to run.  ``record`` (a wrapper) gets the
+    launch's ``last_barriers``, ``last_clusters``, ``last_cluster_size`` and
+    ``last_streams``."""
+    dev = pack.flat.device
+    if dev.type != "cuda":
+        raise ValueError(f"the cluster decode kernel runs on CUDA tensors, got {dev}")
+    B, prior_t = prompt.shape
+    D = pack.dim
+    _check(pack.flat, "weights", torch.float32, pack.flat.shape, dev)
+    _check(prompt, "prompt", torch.int32, (B, prior_t), dev)
+    _check(state.tok, "state.tok", torch.int32, (B,), dev)
+    _check(state.rings, "state.rings", torch.float32, (sum(pack.dilations), B, D), dev)
+    _check(out, "out", torch.int32, (B, out.shape[1]), dev)
+    if prior_t < 1 or t0 < 1 or n_steps < 0:
+        raise ValueError("empty prompt, t0 below 1 or negative step count")
+    if temperature is not None and not temperature > 0:
+        raise ValueError(f"temperature must be > 0, got {temperature}")
+    if S is None:
+        S = streams_a_group(pack, cl, B, clusters_that_fit(pack, cl))
+    cw, tabs, plan = cluster_layout(pack, cl, S)
+    if not plan.fits:
+        raise ValueError(f"the net is outside the cluster kernel's plan at {cl} blocks and {S}"
+                         f" streams a group: {plan.why}")
+    if n_steps == 0 or B == 0:
+        return False
+    lib = _cluster_library()
+    a = _ClArgs()
+    _fill_cluster_args(a, pack, plan)
+    barriers = torch.zeros(1, dtype=torch.int64, device=dev)
+    a.cw, a.tab = cw.data_ptr(), tabs.data_ptr()
+    a.emb = pack.flat.data_ptr() + 4 * pack.offsets["emb"][0]
+    a.prompt, a.tok, a.rings = prompt.data_ptr(), state.tok.data_ptr(), state.rings.data_ptr()
+    a.out, a.barriers = out.data_ptr(), barriers.data_ptr()
+    a.t0, a.out_t0, a.n_steps, a.out_len = t0, out_t0, n_steps, out.shape[1]
+    a.B, a.prior_t = B, prior_t
+    a.argmax = int(temperature is None)
+    a.seed = seed & 0xFFFFFFFF
+    a.temperature = 1.0 if temperature is None else float(temperature)
+    clusters = ctypes.c_int(0)
+    err = lib.mmk_wc_decode(ctypes.byref(a), cl, torch.cuda.current_stream(dev).cuda_stream,
+                            ctypes.byref(clusters), 0)
+    if err != 0:
+        raise RuntimeError("wavenet cluster decode kernel launch failed: "
+                           f"{lib.mmk_wc_error_string(err).decode()}")
+    if record is not None:
+        record.last_barriers, record.last_clusters = barriers, clusters.value
+        record.last_cluster_size, record.last_streams = cl, S
+    return True
+
+
+def _kernel_for(pack: WaveNetPack, B: int, cl: Optional[int]) -> int:
+    """0 for the block kernel, else the cluster size: ``cl`` when given (0
+    forces the block kernel), else :func:`route`'s."""
+    if cl is None:
+        cl = route(pack, B)
+    return cl or 0
+
+
 def decode_single(pack: WaveNetPack, prompt: torch.Tensor, n_steps: int, seed: int,
-                  temperature: Optional[float], group: Optional[int] = None) -> torch.Tensor:
+                  temperature: Optional[float], group: Optional[int] = None,
+                  cl: Optional[int] = None) -> torch.Tensor:
     """K4's route: decode ``n_steps`` tokens after ``prompt`` (B, prior_t) in
-    one launch, from zero rings.  Returns (B, n_steps) int32."""
+    one launch, from zero rings.  Returns (B, n_steps) int32.  A CUDA batch
+    takes the kernel :func:`route` names (``cl`` overrides it: 0 the block
+    kernel, 16 the cluster kernel on clusters of 16)."""
     B, prior_t = prompt.shape
     state = init_decode_state(pack, prompt)
     n = prior_t + n_steps - 1
     if prompt.device.type == "cpu":
         return decode_plain(pack, prompt, state, 1, n, prior_t, n_steps, seed, temperature)
     out = torch.empty(B, n_steps, dtype=torch.int32, device=prompt.device)
-    if _launch(pack, prompt.to(torch.int32).contiguous(), state, 1, n, out, prior_t, seed,
-               temperature, group):
+    prompt = prompt.to(torch.int32).contiguous()
+    size = _kernel_for(pack, B, cl)
+    if size:
+        if _launch_cluster(pack, prompt, state, 1, n, out, prior_t, seed, temperature, size,
+                           record=decode_single):
+            decode_single.launches += 1
+            decode_single.launches_cluster += 1
+    elif _launch(pack, prompt, state, 1, n, out, prior_t, seed, temperature, group):
         decode_single.launches += 1
     return out
 
 
 def decode_chunk(pack: WaveNetPack, prompt: torch.Tensor, state: WaveNetDecodeState, t0: int,
                  n_steps: int, seed: int, temperature: Optional[float],
-                 group: Optional[int] = None) -> torch.Tensor:
+                 group: Optional[int] = None, cl: Optional[int] = None) -> torch.Tensor:
     """K5's route: run steps ``t0 .. t0+n_steps-1`` on ``state`` (updated in
     place).  Returns the chunk's tokens, (B, n_steps) int32: column j holds
-    position ``t0 + j`` (the prompt's token where ``t0 + j < prior_t``)."""
+    position ``t0 + j`` (the prompt's token where ``t0 + j < prior_t``).  A
+    CUDA batch takes the kernel :func:`route` names (``cl`` as
+    :func:`decode_single`'s)."""
     B = prompt.shape[0]
     if prompt.device.type == "cpu":
         return decode_plain(pack, prompt, state, t0, n_steps, t0, n_steps, seed, temperature)
     out = torch.empty(B, n_steps, dtype=torch.int32, device=prompt.device)
-    if _launch(pack, prompt, state, t0, n_steps, out, t0, seed, temperature, group):
+    size = _kernel_for(pack, B, cl)
+    if size:
+        if _launch_cluster(pack, prompt, state, t0, n_steps, out, t0, seed, temperature, size,
+                           record=decode_chunk):
+            decode_chunk.launches += 1
+            decode_chunk.launches_cluster += 1
+    elif _launch(pack, prompt, state, t0, n_steps, out, t0, seed, temperature, group):
         decode_chunk.launches += 1
     return out
 
 
-decode_single.launches = 0
+decode_single.launches = 0  # both kernels' launches
 decode_chunk.launches = 0
+decode_single.launches_cluster = 0  # the cluster kernel's
+decode_chunk.launches_cluster = 0
+# the last cluster launch of each wrapper: the cluster barriers block 0 passed
+# in its first group's steps (a (1,) device tensor), the clusters that fitted,
+# their size and the streams a group
+for _w in (decode_single, decode_chunk):
+    _w.last_barriers, _w.last_clusters, _w.last_cluster_size, _w.last_streams = None, 0, 0, 0

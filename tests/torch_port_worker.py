@@ -9,6 +9,7 @@ JAX parameter trees travel flattened with ``/``-joined keys.
 """
 import contextlib
 import copy
+import dataclasses as dtc
 import json
 import os
 import sys
@@ -1365,7 +1366,128 @@ def xla_dot_task(inp: dict) -> dict:
     return out
 
 
-TASKS = {"modules": modules_task, "sample_rnn": sample_rnn_task, "fused_lstm": fused_lstm_task,
+def wavenet_cluster_task(inp: dict) -> dict:
+    """The WaveNet cluster kernel's plan and relayout at each net's widths,
+    cluster size and group size, and the wrappers' route by B (the launchers
+    replaced by recorders, the tensors on the meta device so that the route
+    is taken without a card), over chunks of several lengths."""
+    from mimikit_tpu_torch.ops import wavenet_decode as wd
+
+    torch.set_num_threads(1)
+    out = {"route": np.array(wd.WN_CLUSTER_ROUTE), "sizes": np.array(wd.CLUSTER_SIZES),
+           "smem_per_block": np.array(sd.SMEM_PER_BLOCK)}
+    taken = []
+
+    def block(pack, prompt, state, t0, n, o, out_t0, seed, temp, group=None):
+        taken.append("block")
+        return True
+
+    def cluster(pack, prompt, state, t0, n, o, out_t0, seed, temp, cl, S=None, record=None):
+        taken.append(f"cluster{cl}")
+        return True
+
+    real = wd._launch, wd._launch_cluster
+    wd._launch, wd._launch_cluster = block, cluster
+    try:
+        for tag in sorted({k.split("/")[0] for k in inp if k.startswith("net_")}):
+            spec = json.loads(str(inp[f"{tag}/spec"]))
+            io = mmk.IOSpec.mulaw_io(mmk.IOSpec.MuLawIOConfig(
+                q_levels=spec["q_levels"], mlp_dim=spec["mlp_dim"], input_module_type="embedding"))
+            net = mmk.WaveNet.from_config(mmk.WaveNet.Config(
+                io_spec=io, blocks=tuple(spec["blocks"]), dims_dilated=(spec["dim"],),
+                skips_dim=spec["dim"], residuals_dim=spec["dim"], pad_side=0),
+                device="cpu", seed=3).eval()
+            pack = wd.wavenet_weight_pack(net)
+            out[f"{tag}/gate"] = np.array(wd.supports_kernel_decode(net))
+            out[f"{tag}/exchanges"] = np.array(wd.exchanges_per_step(pack))
+            out[f"{tag}/has_res"] = np.array(pack.has_res)
+            for cl in wd.CLUSTER_SIZES:
+                q = f"{tag}/cl{cl}/"
+                S_max = wd.max_streams(pack, cl)
+                out[q + "max_streams"] = np.array(S_max)
+                out[q + "why"] = np.array(wd.cluster_plan(pack, cl, 1).why)
+                if not S_max:
+                    continue
+                groups = sorted({1, S_max, *[min(S_max, -(-256 // c)) for c in (7, 8, 15, 16)]})
+                out[q + "groups"] = np.array(groups)
+                plans = [wd.cluster_plan(pack, cl, S) for S in groups]
+                out[q + "smem"] = np.array([p.smem_bytes for p in plans])
+                # the buffers the kernel carves, the resident region and the ring
+                out[q + "smem_sum"] = np.array([4 * (p.act_floats + p.wreg_floats) + (
+                    4 * wd.RING_SLOTS * wd.SLOT_FLOATS if any(p.pieces(r) for r in range(cl))
+                    else 0) for p in plans])
+                cw, tabs, plan = wd.cluster_layout(pack, cl, S_max)
+                cw, tabs = cw.numpy(), tabs.numpy()
+                out[q + "units"] = np.array([u.name for u in plan.units])
+                equal, aligned = [], []
+                for u, unit in enumerate(plan.units):
+                    width = max(len(c) for c in unit.cols)  # ragged ranks padded with -2
+                    out[f"{q}cols/{unit.name}"] = np.array(
+                        [list(c) + [-2] * (width - len(c)) for c in unit.cols])
+                    out[f"{q}N/{unit.name}"] = np.array(unit.N)
+                    W = pack.view(unit.src).numpy()
+                    b = pack.view(unit.bias).numpy()
+                    ok = True
+                    for r in range(cl):
+                        t = tabs[r]
+                        base, n_units = int(t[0]), int(t[3])
+                        off, boff, nq = (int(x) for x in t[4 + 3 * u : 7 + 3 * u])
+                        cols = np.asarray(unit.cols[r], np.int64)
+                        assert nq * 4 == len(cols) and n_units == len(plan.units)
+                        want_b = np.where(cols < 0, 0.0, b[np.maximum(cols, 0)])
+                        want = np.where(cols[None, :] < 0, 0.0, W[:, np.maximum(cols, 0)])
+                        ok &= np.array_equal(cw[base + boff : base + boff + len(cols)], want_b)
+                        aligned += [base, boff]
+                        # quad-major: a quad's K rows of four columns together, in
+                        # blocks of 128 of each segment (k < ka, k >= ka) the row
+                        # of k = 4 l + e at e nb / 4 + l
+                        order = []
+                        for lo, hi in ((0, unit.ka), (unit.ka, unit.K)):
+                            for k0 in range(lo, hi, 128):
+                                nb = min(128, hi - k0)
+                                order += [k0 + 4 * ll + ee for ee in range(4)
+                                          for ll in range(nb // 4)]
+                        want = want.reshape(unit.K, -1, 4)[order].transpose(1, 0, 2)
+                        if off >= 0:
+                            got = cw[base + off : base + off + want.size].reshape(want.shape)
+                            ok &= np.array_equal(got, want)
+                            aligned.append(off)
+                        else:  # its pieces, in the table's order, quads at a time
+                            pieces = [p for p in plan.pieces(r) if p[0] == u]
+                            n_pieces = int(t[2])
+                            first = [i for i, p in enumerate(plan.pieces(r)) if p[0] == u][0]
+                            assert n_pieces == len(plan.pieces(r))
+                            for i, (_, q0, nqp) in enumerate(pieces):
+                                poff, pfl = (int(x) for x in t[4 + 3 * n_units + 2 * (first + i):
+                                                                 6 + 3 * n_units + 2 * (first + i)])
+                                got = cw[base + poff : base + poff + pfl]
+                                ok &= np.array_equal(got, want[q0 : q0 + nqp].ravel())
+                                aligned += [poff, pfl]
+                    equal.append(bool(ok))
+                out[q + "equal"] = np.array(equal)
+                out[q + "aligned"] = np.array(aligned) * 4
+                one = wd.cluster_plan(pack, cl, 1)
+                out[q + "resident_bytes"] = np.array([one.bytes(r, True) for r in range(cl)])
+                out[q + "streamed_bytes"] = np.array([one.bytes(r, False) for r in range(cl)])
+                out[q + "load_floats"] = tabs[:, 1]
+                out[q + "wreg_floats"] = np.array(plan.wreg_floats)
+            # the route by B, through both wrappers, over chunks of several lengths
+            mpack = dtc.replace(pack, flat=pack.flat.to("meta"))
+            for B in (1, 8, 32, 64, 65, 128, 129, 256):
+                prompt = torch.zeros(B, 40, dtype=torch.int32, device="meta")
+                taken.clear()
+                wd.decode_single(mpack, prompt, 16, 0, None)
+                state = wd.init_decode_state(mpack, prompt)
+                for t0, n in ((1, 100), (101, 7), (108, 1600)):
+                    wd.decode_chunk(mpack, prompt, state, t0, n, 0, 0.9)
+                out[f"{tag}/route_b{B}"] = np.array(taken)
+                out[f"{tag}/route_fn_b{B}"] = np.array(wd.route(pack, B) or 0)
+    finally:
+        wd._launch, wd._launch_cluster = real
+    return out
+
+
+TASKS = {"wavenet_cluster": wavenet_cluster_task, "modules": modules_task, "sample_rnn": sample_rnn_task, "fused_lstm": fused_lstm_task,
          "train": train_task, "train_stateless": train_stateless_task,
          "wavenet": wavenet_task, "categorical": categorical_task,
          "transformer": transformer_task, "jukebox": jukebox_task,
