@@ -13,12 +13,13 @@ Phases (any failure exits non-zero; no exception is swallowed):
    ``csrc/transformer_kv.cu``, ``csrc/jukebox_decode.cu``,
    ``csrc/jukebox_cluster.cu`` and ``csrc/jukebox_group.cu`` for sm_90a,
    the ten nvcc runs started together, and time them; the SASS digests of
-   ``samplernn_decode.cu`` (K1's kernel, and K2's outside the cluster
-   route) must equal the parent checkout's (``K1_SASS``,
+   ``samplernn_decode.cu`` (the block kernel: K1's and K2's outside the
+   cluster route) must equal the parent checkout's (``SRNN_BLOCK_SASS``,
    ``tools/sass_digest.py``), those of ``jukebox_decode.cu`` and
    ``jukebox_cluster.cu`` (K8's block and cluster kernels) theirs
    (``K8_SASS``), and those of every other kernel this checkout leaves as
-   it was, WaveNet's block kernel among them, theirs (``PARENT_SASS``);
+   it was, WaveNet's block kernel and the LSTM forward among them, theirs
+   (``PARENT_SASS``);
    compile the Triton sampler and the Triton mu-law kernel;
 2. each kernel against its plain twin at a small size and at the main
    paths' widths.  ``decode_single`` and ``decode_chunk``, argmax and
@@ -27,9 +28,11 @@ Phases (any failure exits non-zero; no exception is swallowed):
    token must score within 1e-4 * max|score| of its row's maximum, and the
    free-running plain tokens must equal the kernel's up to the first such
    near-tie; several chunk lengths and stream groupings must give identical
-   tokens.  K2's cluster kernel (``csrc/samplernn_cluster.cu``, where
-   ``K2_CLUSTER_ROUTE`` sends ``decode_chunk``; the full-width B=256 checks
-   run through it) the same way at a net it takes (``CLUSTER_MID``: B=4 and
+   tokens.  ``decode_single`` at full width through its route (K2's
+   cluster kernel at B=4) and on the block kernel (``cl=0``), f32 and bf16.
+   K2's cluster kernel (``csrc/samplernn_cluster.cu``, where
+   ``K2_CLUSTER_ROUTE`` sends ``decode_chunk`` and ``decode_single``; the
+   full-width B=256 checks run through it) the same way at a net it takes (``CLUSTER_MID``: B=4 and
    the ragged B=37, clusters of 8 and 16, f32 and bf16, the bf16 cases with
    the control below run through the cluster kernel) and at full width at
    B=37, f32 and bf16, every chunk a cluster launch; the block kernel, which
@@ -85,12 +88,13 @@ Phases (any failure exits non-zero; no exception is swallowed):
    with B=256 for 16384 steps at temperature 0.9 (decode_chunk's route),
    median of 3 with spread, the B=256 output's first 4,096 steps verified
    as in phase 2,
-   every B=256 chunk a launch of K2's cluster kernel;
+   every launch of both a launch of K2's cluster kernel;
    ``stream_audio`` over 1600-step chunks, which must equal that output
    mu-law expanded; K2's route sweep (the cluster kernel at 16 and 8 blocks
    and the block kernel at B = 1 … 512 × 256 steps on the f32 and the bf16
-   pack, ``generate``'s choice at each B >= 64 against ``K2_CLUSTER_ROUTE``
-   for the pack's dtype); WaveNet-10 served the same way, every call's
+   pack, decode_single's one launch at B = 1 … 63 the same way,
+   ``generate``'s choice at each B against ``K2_CLUSTER_ROUTE`` for the
+   pack's dtype); WaveNet-10 served the same way, every call's
    launches on the kernel ``WN_CLUSTER_ROUTE`` names for its B (the
    counters say so: ``generate`` B=256 on the block kernel, B=8 and the
    B=64 stream on the cluster kernel), and its route sweep (the block
@@ -142,8 +146,10 @@ Phases (any failure exits non-zero; no exception is swallowed):
    K3 launch), epoch mean losses finite and falling, the last within
    max(10 %, 5e-3) of the f32 run's, the step timed and profiled beside the
    f32 one;
-5. each wrapper, its plain twin and (for the LSTM kernels) cuDNN's
-   ``nn.LSTM`` in the same dtype, for K9 ``torch.multinomial``, timed at
+5. the LSTM backward's sweep (its walk on clusters of 8 and 16 at the tier
+   shapes, f32 and bf16, against ``LSTM_BWD_ROUTE``; the walk and dWh split
+   by the profiler); each wrapper, its plain twin and (for the LSTM
+   kernels) cuDNN's ``nn.LSTM`` in the same dtype, for K9 ``torch.multinomial``, timed at
    the main paths' shapes (the transformer and JukeBox twins over 64 steps,
    the SampleRNN twins over 512 and the WaveNet twins over 256, scaled;
    K8's block kernel at B=64, the route's shape, and also at B=16 and 32,
@@ -151,8 +157,9 @@ Phases (any failure exits non-zero; no exception is swallowed):
    cluster kernel at B=1 and group kernel at B=16, K5 at the B=64 stream's
    width on WaveNet's cluster kernel, and K1-, K2-, K3a-, K3b- and
    K7-bf16; K2's and WaveNet's rows name the source of the kernel their
-   route takes; K2's, K4's, K5's and K8's group kernel's rows carry the
-   block kernel's time on the same inputs, measured in the same run, under
+   route takes; K1's, K2's, K4's, K5's and K8's group kernel's rows carry
+   the block kernel's time on the same inputs (K1's also its cluster
+   launches on the main path, ``cluster_launches``), measured in the same run, under
    ``block_kernel_ms``), the card line, and the device line last.
 
 ``--quick`` runs phases 1-2 at the small size only (a build check);
@@ -208,9 +215,12 @@ N_SMALL, N_WIDE, STREAM_CHUNK, SEED = 4096, 16384, 1600, 1234
 CLUSTER_MID = dict(frame_sizes=(8, 4, 2), hidden_dim=128, q_levels=64, mlp_dim=128)
 K2_RAGGED_B = 37
 K2_SWEEP_BATCHES, K2_SWEEP_N = (1, 4, 8, 16, 32, 64, 128, 256, 512), 256
+# decode_single's (K1's) batches in the sweep: every B below 64 takes it
+K1_SWEEP_BATCHES = (1, 4, 8, 16, 32, 63)
 # samplernn_decode.cu's machine code before the cluster kernel was added
-# (tools/sass_digest.py with the card's toolkit): K1 stays on that kernel
-K1_SASS = {
+# (tools/sass_digest.py with the card's toolkit): the block kernel, which
+# serves K2 past K2_CLUSTER_ROUTE and K1 (decode_single) outside it, stays so
+SRNN_BLOCK_SASS = {
     "_Z23samplernn_decode_kernelILi8EfEv14SrnnDecodeArgs":
         "1612152d55a68532, REG 64 STACK 0",
     "_Z23samplernn_decode_kernelILi4EfEv14SrnnDecodeArgs":
@@ -238,7 +248,8 @@ K8_SASS = {
     },
 }
 # the machine code of the kernels this checkout leaves as they were, in the parent
-# checkout (tools/sass_digest.py with the card's toolkit): each must stay so
+# checkout (tools/sass_digest.py with the card's toolkit): each must stay so (a
+# source's other kernels may differ)
 PARENT_SASS = {
     "wavenet_decode.cu": {
         "_Z21wavenet_decode_kernelILi16EEv12WnDecodeArgs":
@@ -251,6 +262,9 @@ PARENT_SASS = {
             "89f2ceccf285d04d, REG 64 STACK 8",
         "_Z21wavenet_decode_kernelILi1EEv12WnDecodeArgs":
             "d4d10febc886516b, REG 60 STACK 0",
+    },
+    "wavenet_cluster.cu": {
+        "_Z17wc_cluster_kernelILi16EEv6WcArgs": "c980e0198c713442, REG 168 STACK 0",
     },
     "samplernn_cluster.cu": {
         "_Z16sc_decode_kernelILi16EfLi8EEv6ScArgs":
@@ -286,31 +300,8 @@ PARENT_SASS = {
         "_Z16sc_decode_kernelILi8E13__nv_bfloat16Li2EEv6ScArgs":
             "f7bacf9d85db2e1d, REG 162 STACK 0",
     },
+    # the forward (K3a) only: the backward walk and dWh are this checkout's
     "fused_lstm.cu": {
-        "_Z19lstm_dwh_sum_kernelIfEvPKfPT_ii":
-            "17afce7b6e0b8861, REG 32 STACK 0",
-        "_Z15lstm_dwh_kernelIfEvPKT_S2_S2_Pfiiiii":
-            "dfae7f1ab93768d0, REG 48 STACK 0",
-        "_Z15lstm_bwd_kernelIfLi8EEvPKT_S2_S2_S2_S2_S2_S2_PS0_S3_S3_iii":
-            "2a85a97c9b69450d, REG 64 STACK 0",
-        "_Z15lstm_bwd_kernelIfLi4EEvPKT_S2_S2_S2_S2_S2_S2_PS0_S3_S3_iii":
-            "b96999ff856336b0, REG 64 STACK 8",
-        "_Z15lstm_bwd_kernelIfLi2EEvPKT_S2_S2_S2_S2_S2_S2_PS0_S3_S3_iii":
-            "2d33a84dae3114b6, REG 64 STACK 0",
-        "_Z15lstm_bwd_kernelIfLi1EEvPKT_S2_S2_S2_S2_S2_S2_PS0_S3_S3_iii":
-            "66a1bb16cb3a3a6d, REG 64 STACK 0",
-        "_Z19lstm_dwh_sum_kernelI13__nv_bfloat16EvPKfPT_ii":
-            "ba30b6878677d2ff, REG 32 STACK 0",
-        "_Z15lstm_dwh_kernelI13__nv_bfloat16EvPKT_S3_S3_Pfiiiii":
-            "3bca1a422457708e, REG 48 STACK 0",
-        "_Z15lstm_bwd_kernelI13__nv_bfloat16Li8EEvPKT_S3_S3_S3_S3_S3_S3_PS1_S4_S4_iii":
-            "f40023633d3ffd0d, REG 47 STACK 0",
-        "_Z15lstm_bwd_kernelI13__nv_bfloat16Li4EEvPKT_S3_S3_S3_S3_S3_S3_PS1_S4_S4_iii":
-            "d73ad8f1c831a761, REG 46 STACK 0",
-        "_Z15lstm_bwd_kernelI13__nv_bfloat16Li2EEvPKT_S3_S3_S3_S3_S3_S3_PS1_S4_S4_iii":
-            "efa2e50555255b30, REG 56 STACK 0",
-        "_Z15lstm_bwd_kernelI13__nv_bfloat16Li1EEvPKT_S3_S3_S3_S3_S3_S3_PS1_S4_S4_iii":
-            "5d30e490abf32fb7, REG 57 STACK 0",
         "_Z15lstm_fwd_kernelIfLi8EEvPKT_S2_S2_S2_PS0_S3_S3_iii":
             "49ae6a292639974d, REG 80 STACK 0",
         "_Z15lstm_fwd_kernelIfLi4EEvPKT_S2_S2_S2_PS0_S3_S3_iii":
@@ -636,12 +627,23 @@ def check_kernels(torch, mmk, sd, spec, B_single, B_chunk, n, chunk_lens, jitter
     rf, q = net.rf, spec["q_levels"]
     sfx = "_bf16" if bf16 else ""
     err = {"decode_single": 0.0, "decode_chunk": 0.0}
-    for temp in (None, TEMPERATURE):
+    # decode_single through its route and, where that is the cluster kernel,
+    # on the block kernel too (cl=0)
+    route = sd.cluster_size_for(pack, B_single) or 0
+    for temp, cl in itertools.product((None, TEMPERATURE), (None, 0) if route else (None,)):
         mode = "argmax" if temp is None else f"T={temp}"
         # decode_single: the whole decode in one launch
         prompt = make_prompt(torch, B_single, 2 * rf, q, seed=2)
-        toks = sd.decode_single(pack, prompt, n, 11, temp)
+        before = sd.decode_single.launches_cluster
+        toks = sd.decode_single(pack, prompt, n, 11, temp, cl=cl)
         torch.cuda.synchronize()
+        took = sd.decode_single.last_cluster_size if \
+            sd.decode_single.launches_cluster > before else 0
+        if took != (route if cl is None else cl):
+            raise AssertionError(f"decode_single B={B_single} cl={cl} took {took or 'the block'}"
+                                 " kernel")
+        how = (f"cluster kernel, {took} blocks, {sd.decode_single.last_streams} streams a group"
+               f" on {sd.decode_single.last_clusters} clusters" if took else "block kernel")
         if spec is SMALL:
             for g in (1, 2, 4, 8):
                 other = sd.decode_single(pack, prompt, n, 11, temp, group=g)
@@ -651,13 +653,15 @@ def check_kernels(torch, mmk, sd, spec, B_single, B_chunk, n, chunk_lens, jitter
                 raise AssertionError("argmax tokens are constant: the check is vacuous")
         gap, parted = verify(torch, sd, twin, prompt, toks, 11, temp)
         err["decode_single"] = max(err["decode_single"], gap)
-        log(f"  decode_single{sfx} B={B_single} n={n} {mode}: ok, max gap {gap:.3e},"
+        log(f"  decode_single{sfx} ({how}) B={B_single} n={n} {mode}: ok, max gap {gap:.3e},"
             f" {parted} streams parted at near-ties")
         if ctl is not None:
             with uncounted(sd.decode_single):
-                bad = sd.decode_single(ctl, prompt, n, 11, temp)
+                bad = sd.decode_single(ctl, prompt, n, 11, temp, cl=took)
             expect_caught(f"decode_single B={B_single} {mode}",
                           lambda: verify(torch, sd, twin, prompt, bad, 11, temp))
+        if cl == 0:
+            continue
         # decode_chunk: the state carried across launches of several lengths
         prompt = make_prompt(torch, B_chunk, 2 * rf, q, seed=3)
         prior_t = prompt.shape[1]
@@ -750,11 +754,14 @@ def check_cluster(torch, mmk, sd, spec, batches, n, chunk_lens, jitter, bf16=Fal
 def samplernn_route_sweep(torch, sd, net):
     """K2's cluster kernel at both cluster sizes and its block kernel at each
     B of ``K2_SWEEP_BATCHES`` (T=0.9, ``K2_SWEEP_N`` steps a call, medians of
-    3), on the f32 pack and the bf16 one: the measurement behind
-    ``K2_CLUSTER_ROUTE``.  Checks that ``generate`` (at B >= 64; under
-    ``MMK_PALLAS_BF16=1`` for the bf16 pack) takes the kernel the route
-    names, and says whether the route sends any B to a slower choice than
-    this run's fastest.  Returns {(dtype name, B): {choice: us a step}}."""
+    3), on the f32 pack and the bf16 one, and the same for ``decode_single``'s
+    one-launch form (K1) at each B of ``K1_SWEEP_BATCHES``: the measurement
+    behind ``K2_CLUSTER_ROUTE``, which both wrappers read.  Checks that
+    ``generate`` (under ``MMK_PALLAS_BF16=1`` for the bf16 pack; B >= 64
+    through decode_chunk, below through decode_single) takes the kernel the
+    route names, and says whether the route sends any B to a slower choice
+    than this run's fastest.  Returns {(wrapper, dtype name, B): {choice: us
+    a step}}."""
     rf, q = net.rf, FULL["q_levels"]
     table = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -763,6 +770,35 @@ def samplernn_route_sweep(torch, sd, net):
         env = {"MMK_PALLAS_BF16": "1"} if dtype == torch.bfloat16 else {}
         slower = []
         with uncounted(sd.decode_chunk, sd.decode_single):
+            for B in K1_SWEEP_BATCHES:
+                prompt = make_prompt(torch, B, 2 * rf, q, seed=70 + B)
+                route = sd.cluster_size_for(pack, B) or 0
+                before = sd.decode_single.launches_cluster, sd.decode_single.launches_bf16
+                with env_set(**env):
+                    net.generate((prompt,), 1, seed=SEED)
+                took = sd.decode_single.last_cluster_size if \
+                    sd.decode_single.launches_cluster > before[0] else 0
+                if took != route or (sd.decode_single.launches_bf16 > before[1]) != bool(env):
+                    raise AssertionError(f"SampleRNN generate B={B} ({dn}) took {took}, not"
+                                         f" {route}")
+                times, fit = {}, {}
+                for cl in (16, 8, 0):
+                    fn = lambda: sd.decode_single(pack, prompt, K2_SWEEP_N, SEED,  # noqa: E731
+                                                  TEMPERATURE, cl=cl)
+                    fn()
+                    fit[cl] = (sd.decode_single.last_streams, sd.decode_single.last_clusters)
+                    times[cl] = spread(cuda_ms(torch, fn, reps=3))
+                us = table["decode_single", dn, B] = {cl: 1e3 * t[0] / K2_SWEEP_N
+                                                      for cl, t in times.items()}
+                fastest = min(times, key=lambda k: times[k][0])
+                if times[route][0] > times[fastest][0]:
+                    slower.append(f"decode_single B={B}")
+                log(f"  SampleRNN-3 {dn} decode_single B={B} x {K2_SWEEP_N} steps, us a step"
+                    f" (median of 3, spread): cluster kernel at 16 blocks {us[16]:.2f}"
+                    f" ({times[16][1]:.2%}; groups of {fit[16][0]} on {fit[16][1]} clusters), at 8"
+                    f" blocks {us[8]:.2f} ({times[8][1]:.2%}; groups of {fit[8][0]} on"
+                    f" {fit[8][1]}), block kernel {us[0]:.2f} ({times[0][1]:.2%}); decode_single"
+                    f" takes {'the block kernel' if not route else f'clusters of {route}'}")
             for B in K2_SWEEP_BATCHES:
                 prompt = make_prompt(torch, B, 2 * rf, q, seed=90 + B)
                 route = sd.cluster_size_for(pack, B) or 0
@@ -784,10 +820,11 @@ def samplernn_route_sweep(torch, sd, net):
                     fn()
                     fit[cl] = (sd.decode_chunk.last_streams, sd.decode_chunk.last_clusters)
                     times[cl] = spread(cuda_ms(torch, fn, reps=3))
-                us = table[dn, B] = {cl: 1e3 * t[0] / K2_SWEEP_N for cl, t in times.items()}
+                us = table["decode_chunk", dn, B] = {cl: 1e3 * t[0] / K2_SWEEP_N
+                                                     for cl, t in times.items()}
                 fastest = min(times, key=lambda k: times[k][0])
                 if times[route][0] > times[fastest][0]:
-                    slower.append(B)
+                    slower.append(f"decode_chunk B={B}")
                 log(f"  SampleRNN-3 {dn} B={B} x {K2_SWEEP_N} steps, us a step (median of 3,"
                     f" spread): cluster kernel at 16 blocks {us[16]:.2f} ({times[16][1]:.2%};"
                     f" groups of {fit[16][0]} on {fit[16][1]} clusters), at 8 blocks"
@@ -795,21 +832,23 @@ def samplernn_route_sweep(torch, sd, net):
                     f" block kernel {us[0]:.2f} ({times[0][1]:.2%}); decode_chunk takes"
                     f" {'the block kernel' if not route else f'clusters of {route}'}")
         log(f"  K2_CLUSTER_ROUTE[{dn}] = {sd.K2_CLUSTER_ROUTE[dtype]}: "
-            + (f"sends B = {slower} to a slower choice than this run's fastest" if slower
+            + (f"sends {slower} to a slower choice than this run's fastest" if slower
                else "sends no B of the sweep to a slower choice than this run's fastest"))
     return table
 
 
-def k1_sass_check(sd):
-    """K1 stays on the block kernel: its machine code (``tools/sass_digest.py``)
-    must equal ``K1_SASS``, the parent checkout's."""
+def srnn_block_sass_check(sd):
+    """SampleRNN's block kernel, which serves K2 past the cluster route and
+    K1 outside it, is the parent checkout's: its machine code
+    (``tools/sass_digest.py``) must equal ``SRNN_BLOCK_SASS``."""
     from tools.sass_digest import digests
 
     got = digests(sd.build_kernel())
-    if got != K1_SASS:
-        raise AssertionError(f"samplernn_decode.cu's SASS changed: {got} against {K1_SASS}")
-    log(f"  samplernn_decode.cu (K1, and K2 outside the cluster route): SASS digests equal the"
-        f" parent's ({len(got)} kernels; {sorted(got.values())[0]}, ...)")
+    if got != SRNN_BLOCK_SASS:
+        raise AssertionError(f"samplernn_decode.cu's SASS changed: {got} against"
+                             f" {SRNN_BLOCK_SASS}")
+    log(f"  samplernn_decode.cu (the block kernel: K2 past the cluster route, K1 outside it):"
+        f" SASS digests equal the parent's ({len(got)} kernels; {sorted(got.values())[0]}, ...)")
 
 
 def k8_sass_check(jbd):
@@ -827,23 +866,25 @@ def k8_sass_check(jbd):
 
 
 def parent_sass_check(sd, fl, wd, td, tk, jbd):
-    """The kernels this checkout leaves as they were (WaveNet's block
-    kernel, K2's cluster kernel, the LSTM, K6, K7 and K8's group kernel):
-    their machine code (``tools/sass_digest.py``) must equal
+    """The kernels this checkout leaves as they were (WaveNet's block and
+    cluster kernels, K2's cluster kernel, the LSTM forward, K6, K7 and K8's
+    group kernel): their machine code (``tools/sass_digest.py``) must equal
     ``PARENT_SASS``, the parent checkout's."""
     from tools.sass_digest import digests
 
     for source, build in (("wavenet_decode.cu", wd.build_kernel),
+                          ("wavenet_cluster.cu", wd.build_cluster_kernel),
                           ("samplernn_cluster.cu", sd.build_cluster_kernel),
                           ("fused_lstm.cu", fl.build_lstm_kernel),
                           ("transformer_decode.cu", td.build_kernel),
                           ("transformer_kv.cu", tk.build_kernel),
                           ("jukebox_group.cu", jbd.build_group_kernel)):
-        got = digests(build())
-        if got != PARENT_SASS[source]:
-            raise AssertionError(f"{source}'s SASS changed: {got} against {PARENT_SASS[source]}")
-        log(f"  {source}: SASS digests equal the parent's ({len(got)} kernels;"
-            f" {sorted(got.values())[0]}, ...)")
+        got, want = digests(build()), PARENT_SASS[source]
+        kept = {k: got.get(k) for k in want}
+        if kept != want:
+            raise AssertionError(f"{source}'s SASS changed: {kept} against {want}")
+        log(f"  {source}: SASS digests of {len(want)} of its {len(got)} kernels equal the"
+            f" parent's ({sorted(want.values())[0]}, ...)")
 
 
 def cuda_ms(torch, fn, reps):
@@ -1958,13 +1999,14 @@ def samplernn_bf16_path(torch, mmk, sd, net, p4, p256):
     B=256 output's first ``N_BF16_VERIFY`` steps verified against the bf16
     twin; each number beside the f32 run's.  Returns (launches, gap)."""
     for w in (sd.decode_single, sd.decode_chunk):
-        w.launches = w.launches_bf16 = 0
-    sd.decode_chunk.launches_cluster = 0
+        w.launches = w.launches_bf16 = w.launches_cluster = 0
     with env_set(MMK_PALLAS_BF16="1"):
         outs = main_path(torch, mmk, net, p4, p256, label="_bf16")
     launches = {"decode_single_bf16": sd.decode_single.launches_bf16,
                 "decode_chunk_bf16": sd.decode_chunk.launches_bf16}
-    log(f"  launches on the bf16 serving path: {launches}")
+    log(f"  launches on the bf16 serving path: {launches}, of which the cluster kernel"
+        f" decode_single {sd.decode_single.launches_cluster}, decode_chunk"
+        f" {sd.decode_chunk.launches_cluster}")
     if (launches["decode_single_bf16"] != sd.decode_single.launches
             or launches["decode_chunk_bf16"] != sd.decode_chunk.launches):
         raise AssertionError("the bf16 serving path launched the f32 instantiation")
@@ -1972,6 +2014,10 @@ def samplernn_bf16_path(torch, mmk, sd, net, p4, p256):
         raise AssertionError(f"a kernel of the bf16 serving path was never launched: {launches}")
     if sd.decode_chunk.launches_cluster != sd.decode_chunk.launches:
         raise AssertionError("bf16 decode_chunk at B=256 did not take the cluster kernel")
+    if sd.decode_single.launches_cluster != sd.decode_single.launches:
+        raise AssertionError("bf16 decode_single at B=4 did not take the cluster kernel")
+    launches["cluster"] = {"decode_single_bf16": sd.decode_single.launches_cluster,
+                           "decode_chunk_bf16": sd.decode_chunk.launches_cluster}
     pack16 = sd.samplernn_weight_pack(net, torch.bfloat16)
     prior_t = p256.shape[1]
     with uncounted(sd.decode_single, sd.decode_chunk):
@@ -2071,8 +2117,9 @@ def bf16_rows(torch, sd, td, tk, net, p4, p256, tf_net, tf_prompts, launches, er
             lambda: sd.decode_plain(pack16, p4, sd.init_decode_state(net, p4), rf, n_twin,
                                     p4.shape[1], n_twin, SEED, TEMPERATURE),
             n4 / n_twin, decode_bound(pack16, 4, p4.shape[1], rf, n4, N_SMALL),
-            "mimikit_tpu_torch/csrc/samplernn_decode.cu", "mimikit_tpu/ops/pallas_decode.py:148",
-            f"B=4 steps={n4}", None),
+            k2_source(sd, pack16, 4), "mimikit_tpu/ops/pallas_decode.py:148",
+            f"B=4 steps={n4}",
+            lambda: sd.decode_single(pack16, p4, N_SMALL, SEED, TEMPERATURE, cl=0)),
         "decode_chunk_bf16": (
             lambda: sd.decode_chunk(pack16, p256, sd.init_decode_state(net, p256), rf,
                                     net._CHUNK, SEED, TEMPERATURE),
@@ -2110,14 +2157,16 @@ def bf16_rows(torch, sd, td, tk, net, p4, p256, tf_net, tf_prompts, launches, er
                 name=name, route="cuda", source=source, replaces=replaces,
                 launches=launches[name], max_abs_err=err[name], ms=k_ms, plain_ms=p_ms,
                 bound_ms=bound, bound_by=by, library_ms=None,
+                **({"cluster_launches": launches["cluster"][name]}
+                   if name in launches.get("cluster", {}) else {}),
                 **({"block_kernel_ms": b_ms} if b_ms is not None else {}),
             ))
     return rows
 
 
 def block_kernel_ms(torch, block):
-    """A K2 row's second time: ``block``, the same call on the block kernel
-    (``decode_chunk(..., cl=0)``), median of 3 ms; None without one."""
+    """A K1 or K2 row's second time: ``block``, the same call on the block
+    kernel (``cl=0``), median of 3 ms; None without one."""
     if block is None:
         return None
     block()
@@ -2125,8 +2174,8 @@ def block_kernel_ms(torch, block):
 
 
 def k2_source(sd, pack, B):
-    """The source of the kernel ``decode_chunk`` launches B streams of
-    ``pack``'s net with."""
+    """The source of the kernel ``decode_single`` and ``decode_chunk`` launch
+    B streams of ``pack``'s net with."""
     return ("mimikit_tpu_torch/csrc/samplernn_cluster.cu" if sd.cluster_size_for(pack, B)
             else "mimikit_tpu_torch/csrc/samplernn_decode.cu")
 
@@ -2936,6 +2985,48 @@ def lstm_timings(torch, fl, dtype):
     return out
 
 
+def lstm_bwd_sweep(torch, fl):
+    """The backward walk on clusters of 8 and of 16 blocks at the training
+    path's tier shapes, f32 and bf16 streams: ``lstm_backward``'s ms (median
+    of 9) and a call's device time by kernel over 5 calls (the walk, dWh and
+    its partial-tile sum; ``torch.profiler``), the clusters that fit, and
+    whether ``LSTM_BWD_ROUTE`` takes the size whose walk is faster (dWh is
+    the same kernel at both): the measurement behind the route."""
+    from tools.lstm_bwd_split import by_kernel
+
+    slower = []
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[-1]
+        for T, B, D, H in LSTM_SHAPES[1:]:
+            args, cts = lstm_inputs(torch, T, B, D, H, seed=T)
+            x, Wi, Wh, b, h0, c0 = (a.to(dtype) for a in args)
+            xi = torch.addmm(b.float(), x.reshape(T * B, D).float(), Wi.float()).to(dtype)
+            h_all, c_all, gates = fl.lstm_forward(xi.reshape(T, B, -1), Wh, h0, c0)
+            bw = (*(c.to(dtype) for c in cts), gates, c_all, h_all, h0, c0, Wh)
+            route = fl.lstm_bwd_plan(B, H, x.element_size())[0]
+            walk = {}
+            with uncounted(fl.lstm_forward, fl.lstm_backward):
+                for cl in fl.BWD_CLUSTER_SIZES:
+                    fn = lambda: fl.lstm_backward(*bw, cl=cl)  # noqa: E731
+                    fn()
+                    rows = fl.lstm_backward.last_rows
+                    ms, spr = spread(cuda_ms(torch, fn, reps=9))
+                    parts = by_kernel(fn, reps=5)
+                    walk[cl] = parts["walk"]
+                    fit = fl.bwd_clusters_that_fit(H, rows, cl, dtype)
+                    log(f"  lstm_backward {dn} (T, B, H) = ({T}, {B}, {H}) on clusters of {cl}"
+                        f" ({rows} rows, {-(-B // rows)} clusters, {fit} fit at once):"
+                        f" {ms:.4f} ms (median of 9, spread {spr:.2%}); a call by kernel"
+                        f" (profiler, 5 calls): "
+                        + ", ".join(f"{k} {v:.4f} ms" for k, v in sorted(parts.items()))
+                        + f" ({1e3 * walk[cl] / T:.3f} us a step of the walk)")
+            if walk[route] > min(walk.values()):
+                slower.append(f"{dn} T={T}")
+    log(f"  LSTM_BWD_ROUTE = {fl.LSTM_BWD_ROUTE}: "
+        + (f"takes the size with the slower walk at {slower}" if slower
+           else "takes the size with the faster walk at every shape of the sweep"))
+
+
 def train_path(torch, mmk, fl, sd, mu):
     """Phase 4; returns the launches of its kernels (with ``mu``, the mu-law
     module, K10's on the training audio too)."""
@@ -3158,7 +3249,7 @@ def main(argv=None) -> int:
                 log("  ptxas:", line.strip())
         log(f"  built {src.name} for sm_90a in {build_s:.1f} s")
     log(f"  the {len(sources)} builds took {time.perf_counter() - t:.1f} s")
-    k1_sass_check(sd)
+    srnn_block_sass_check(sd)
     k8_sass_check(jbd)
     parent_sass_check(sd, fl, wd, td, tk, jbd)
     t = time.perf_counter()
@@ -3266,7 +3357,7 @@ def main(argv=None) -> int:
     net = make_net(mmk, torch, FULL, seed=0)
     rf = net.rf
     p4, p256 = (make_prompt(torch, B, 2 * rf, FULL["q_levels"], seed=B) for B in (4, 256))
-    sd.decode_single.launches = 0
+    sd.decode_single.launches = sd.decode_single.launches_cluster = 0
     sd.decode_chunk.launches = sd.decode_chunk.launches_cluster = 0
     outs = main_path(torch, mmk, net, p4, p256)
     prior_t = p256.shape[1]
@@ -3277,12 +3368,15 @@ def main(argv=None) -> int:
         f" {parted} streams parted at near-ties")
     launches = {"decode_single": sd.decode_single.launches,
                 "decode_chunk": sd.decode_chunk.launches}
+    cluster_launches = {"decode_single": sd.decode_single.launches_cluster,
+                        "decode_chunk": sd.decode_chunk.launches_cluster}
     log(f"  launches on the serving path: {launches}, of which the cluster kernel"
-        f" {sd.decode_chunk.launches_cluster}")
+        f" {cluster_launches}")
     if min(launches.values()) == 0:
         raise AssertionError(f"a kernel of the serving path was never launched: {launches}")
-    if sd.decode_chunk.launches_cluster != sd.decode_chunk.launches:
-        raise AssertionError("decode_chunk at B=256 did not take the cluster kernel")
+    if cluster_launches != launches:
+        raise AssertionError("generate at B=4 (decode_single) or B=256 (decode_chunk) did not"
+                             " take the cluster kernel")
     stamp("SampleRNN-3, f32")
     samplernn_route_sweep(torch, sd, net)
     stamp("SampleRNN-3's route sweep")
@@ -3327,11 +3421,13 @@ def main(argv=None) -> int:
                                                  n_twin, rf, n_twin, SEED, TEMPERATURE),
                          rf, net._CHUNK, net._CHUNK),
     }
-    sources = {"decode_single": "mimikit_tpu_torch/csrc/samplernn_decode.cu",
+    sources = {"decode_single": k2_source(sd, pack, 4),
                "decode_chunk": k2_source(sd, pack, 256)}
     replaces = {"decode_single": "mimikit_tpu/ops/pallas_decode.py:148",
                 "decode_chunk": "mimikit_tpu/ops/pallas_decode.py:868"}
-    block = {"decode_chunk": lambda: sd.decode_chunk(pack, p256, sd.init_decode_state(net, p256),
+    block = {"decode_single": lambda: sd.decode_single(pack, p4, N_SMALL, SEED, TEMPERATURE,
+                                                       cl=0),
+             "decode_chunk": lambda: sd.decode_chunk(pack, p256, sd.init_decode_state(net, p256),
                                                      rf, net._CHUNK, SEED, TEMPERATURE, cl=0)}
     rows = []
     for name, (prompt, kern, plain, t0, n, out_len) in calls.items():
@@ -3347,8 +3443,10 @@ def main(argv=None) -> int:
             name=name, route="cuda", source=sources[name], replaces=replaces[name],
             launches=launches[name], max_abs_err=err[name], ms=k_ms, plain_ms=p_ms,
             bound_ms=bound, bound_by=by, library_ms=None,
+            cluster_launches=cluster_launches[name],
             **({"block_kernel_ms": b_ms} if b_ms is not None else {}),
         ))
+    lstm_bwd_sweep(torch, fl)
     # the LSTM rows at the wider tier shape, (T, B, H) = (256, 32, 256), f32 and bf16
     lstm = {**lstm_timings(torch, fl, torch.float32)[LSTM_SHAPES[-1][0]],
             **lstm_timings(torch, fl, torch.bfloat16)[LSTM_SHAPES[-1][0]]}

@@ -37,6 +37,8 @@ from typing import Sequence
 
 import torch
 
+from .xla_cpu_rsqrt import xla_rsqrt
+
 __all__ = ["xla_sum", "bias_add", "sigmoid", "tanh", "mish", "learned_temperature",
            "embedding", "softmax", "layer_norm", "matmul", "linear",
            "attention_scores", "attention_mix"]
@@ -291,11 +293,15 @@ def _lanes() -> int:
 
 def _row_sum(x: torch.Tensor) -> torch.Tensor:
     """``x`` (f32) summed over its last dimension as XLA's CPU backend
-    vectorises a row reduction: one vector register of partial sums, lane
-    l taking elements l, l + lanes, ... in order, then the lanes added in
-    order (a row longer than 32 first in :func:`xla_sum`'s windows, each
-    window so, then the windows' sums so; checked against JAX at rows of
-    8 to 32)."""
+    vectorises a row reduction: partial sums, lane l taking elements l, l +
+    lanes, ... in order; a row no longer than the lanes (one element a
+    lane) then adds them in order; a longer one keeps its 16 lanes as two
+    8-float registers, as LLVM's vectorizer interleaves XLA's fused row
+    reductions at its 256-bit vector width, adds the registers lane by lane
+    and halves the 8 lanes, 8 -> 4 -> 2 -> 1 (``llvm.vector.reduce.fadd``).
+    A row longer than 32 is summed first in :func:`xla_sum`'s windows, each
+    window so, then the windows' sums so.  Read off the layer norms'
+    reductions of JukeBox's fused bf16 step (``--xla_dump_to``)."""
     lanes = _lanes()
     n = x.shape[-1]
     if n > _WINDOW:
@@ -309,6 +315,12 @@ def _row_sum(x: torch.Tensor) -> torch.Tensor:
         for i in range(1, p.shape[-1]):
             a = a + p[..., i]
         acc.append(a)
+    if n > lanes == 16:
+        acc = [acc[8 + l] + acc[l] for l in range(8)]
+        while len(acc) > 1:
+            h = len(acc) // 2
+            acc = [acc[l] + acc[l + h] for l in range(h)]
+        return acc[0]
     out = acc[0]
     for a in acc[1:]:
         out = out + a
@@ -318,7 +330,8 @@ def _row_sum(x: torch.Tensor) -> torch.Tensor:
 class _LayerNorm(torch.autograd.Function):
     """flax's ``LayerNorm`` of a bf16 ``x`` with bf16 scale and bias: the
     statistics and the normalisation in f32 (``mul = rsqrt(var + eps) *
-    scale`` first), rounded at the end; backward JAX's transpose op by op,
+    scale`` first, the rsqrt as XLA's CPU code computes it), rounded at the
+    end; backward JAX's transpose op by op,
     the sums over a row by :func:`_row_sum` and over the rows by
     :func:`xla_sum`, the cotangent of x's two uses (the centred x and the
     statistics) rounded each and added in x's dtype."""
@@ -332,7 +345,7 @@ class _LayerNorm(torch.autograd.Function):
         var0 = torch.clamp_min(var, 0.0)
         c = e - mean
         v = var0 + eps
-        r = torch.rsqrt(v)
+        r = xla_rsqrt(v)
         mul = r * w.float()
         ctx.save_for_backward(e, mean, var, var0, c, v, r, mul, w)
         return (c * mul + b.float()).to(x.dtype)

@@ -49,15 +49,29 @@ __all__ = [
     "lstm_backward",
     "fused_lstm_layer",
     "lstm_kernel_rows",
+    "lstm_bwd_plan",
+    "LSTM_BWD_ROUTE",
     "build_lstm_kernel",
 ]
 
 SOURCE = CSRC / "fused_lstm.cu"
-CLUSTER = 8       # blocks of a thread block cluster: each owns H/8 hidden units
+CLUSTER = 8       # the forward's blocks of a thread block cluster: each owns H/8 hidden units
 THREADS = 256     # threads of a block
 SMEM_PER_BLOCK = 232448  # bytes of shared memory a block may use on sm_90
 _ROW_GROUPS = (1, 2, 4, 8)
 _MAX_CLUSTERS = 8  # groups of batch rows that run at once with room to spare
+BWD_CLUSTER_SIZES = (8, 16)  # the cluster sizes the backward walk is built for
+# per stream dtype, (cluster size, most clusters) of the backward walk: the
+# batch is split into the fewest rows a cluster (1, 2, 4 or 8) that keep the
+# clusters to that many.  chip_smoke.py's sweep times both sizes at the
+# training path's tier shapes, B=32 (NVIDIA H100 80GB HBM3, 700 W; PERF.md
+# §6): a step of the walk ~3.0 us on 8 blocks against ~3.15 on 16 in f32,
+# ~3.6 against ~3.3 in bf16, whose product costs more on 8 blocks
+# (tools/profile_lstm_bwd.py).
+LSTM_BWD_ROUTE = {
+    torch.float32: (8, 8),
+    torch.bfloat16: (16, 8),
+}
 
 
 # -- plain versions ---------------------------------------------------------------
@@ -145,34 +159,75 @@ def _fwd_smem(H: int, rows: int, esize: int = 4) -> int:
     return esize * H * NC + 4 * (rows * H + 2 * rows * U + (THREADS // NC) * rows * NC)
 
 
-def _bwd_smem(H: int, rows: int, esize: int = 4) -> int:
-    """Bytes of shared memory of the backward kernel (``bwd_smem`` in the .cu)."""
-    U = H // CLUSTER
+def _bwd_smem(H: int, rows: int, cl: int, esize: int = 4) -> int:
+    """Bytes of shared memory of the backward walk (``bwd_smem`` in the .cu)
+    on clusters of ``cl`` blocks: the block's Wh columns (4H/cl rows of H + 4
+    stream elements), its dz, the product's partial sums and the receive
+    area of the exchanged pieces (f32)."""
+    U = H // cl
     NC = 4 * U
-    return esize * 4 * H * U + 4 * (rows * 4 * H + 2 * rows * NC + (THREADS // U) * rows * U)
+    JS = THREADS // (H // 4)
+    return esize * NC * (H + 4) + 4 * (NC * rows + JS * rows * H + 2 * cl * rows * U)
 
 
 def lstm_kernel_rows(B: int, H: int, esize: int = 4) -> int:
-    """Batch rows per cluster for the kernels at (B, H) on ``esize``-byte
-    streams (4: f32, 2: bf16): the fewest that keep the clusters to at most
-    8 (64 SMs), within the kernels' limits.  Raises ``ValueError`` outside
-    the scope: H must be a multiple of 8 and the Wh slice plus buffers must
-    fit a block's shared memory (up to H = 328 in f32)."""
+    """Batch rows per cluster for the forward kernel at (B, H) on
+    ``esize``-byte streams (4: f32, 2: bf16): the fewest that keep the
+    clusters to at most 8 (64 SMs), within the kernel's limits.  Raises
+    ``ValueError`` outside the scope: H must be a multiple of 8 and the Wh
+    slice plus buffers must fit a block's shared memory (up to H = 336 in
+    f32)."""
     if B < 1 or H < CLUSTER or H % CLUSTER:
         raise ValueError(f"the LSTM kernels need B >= 1 and H a multiple of 8, got B={B}, H={H}")
     U = H // CLUSTER
-    fits = [
-        r for r in _ROW_GROUPS
-        if 4 * U <= THREADS and r * U <= THREADS
-        and max(_fwd_smem(H, r, esize), _bwd_smem(H, r, esize)) <= SMEM_PER_BLOCK
-    ]
+    fits = [r for r in _ROW_GROUPS
+            if 4 * U <= THREADS and r * U <= THREADS and _fwd_smem(H, r, esize) <= SMEM_PER_BLOCK]
     if not fits:
-        raise ValueError(f"H={H} exceeds the LSTM kernels' shared-memory budget on"
-                         f" {esize}-byte streams (H <= 328 in f32)")
+        raise ValueError(f"H={H} exceeds the LSTM forward kernel's shared-memory budget on"
+                         f" {esize}-byte streams")
     for r in fits:
         if -(-B // r) <= _MAX_CLUSTERS:
             return r
     return fits[-1]
+
+
+def _bwd_fits(H: int, cl: int, rows: int, esize: int) -> str:
+    """Why the backward walk cannot run (H, ``rows`` a cluster) on clusters
+    of ``cl`` blocks; "" where it can."""
+    if cl not in BWD_CLUSTER_SIZES:
+        return f"cluster size {cl} is not one of {BWD_CLUSTER_SIZES}"
+    if H % cl or H % 4:
+        return f"H={H} is not a multiple of the cluster size {cl} and of 4"
+    if H // 4 > THREADS or rows * (H // cl) > THREADS:
+        return f"H={H} at {rows} rows a cluster needs more than {THREADS} threads a block"
+    smem = _bwd_smem(H, rows, cl, esize)
+    if smem > SMEM_PER_BLOCK:
+        return (f"H={H} on clusters of {cl} needs {smem} bytes of shared memory a block"
+                f" (at most {SMEM_PER_BLOCK})")
+    return ""
+
+
+def lstm_bwd_plan(B: int, H: int, esize: int = 4, cl: Optional[int] = None) -> Tuple[int, int]:
+    """(cluster size, batch rows a cluster) of the backward walk at (B, H) on
+    ``esize``-byte streams: ``cl`` if given, else ``LSTM_BWD_ROUTE``'s size
+    for the streams' dtype (8 where that size cannot take the net); the
+    fewest rows (1, 2, 4 or 8) that keep the clusters to the route's most,
+    within the limits.  Raises ``ValueError`` outside them: H a multiple of
+    the cluster size and of 4, a block's threads, and its shared memory
+    (227 KB)."""
+    dtype = torch.float32 if esize == 4 else torch.bfloat16
+    size, most = LSTM_BWD_ROUTE[dtype]
+    if B < 1:
+        raise ValueError(f"the LSTM backward needs B >= 1, got B={B}")
+    if cl is None:
+        cl = size if not _bwd_fits(H, size, 1, esize) else min(BWD_CLUSTER_SIZES)
+    fits = [r for r in _ROW_GROUPS if not _bwd_fits(H, cl, r, esize)]
+    if not fits:
+        raise ValueError(f"the LSTM backward kernel cannot run: {_bwd_fits(H, cl, 1, esize)}")
+    for r in fits:
+        if -(-B // r) <= most:
+            return cl, r
+    return cl, fits[-1]
 
 
 def dwh_splits(R: int, H: int) -> int:
@@ -205,16 +260,20 @@ def _library():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.mmk_lstm_forward.argtypes = [p] * 7 + [i] * 5 + [p]
         lib.mmk_lstm_forward.restype = i
-        lib.mmk_lstm_backward.argtypes = [p] * 14 + [i] * 6 + [p]
+        lib.mmk_lstm_backward.argtypes = [p] * 14 + [i] * 7 + [p]
         lib.mmk_lstm_backward.restype = i
+        lib.mmk_lstm_fwd_smem.argtypes = [i, i, i]
+        lib.mmk_lstm_bwd_smem.argtypes = [i, i, i, i]
         for fn in (lib.mmk_lstm_fwd_smem, lib.mmk_lstm_bwd_smem):
-            fn.argtypes = [i, i, i]
             fn.restype = ctypes.c_longlong
+        lib.mmk_lstm_bwd_clusters.argtypes = [i] * 4
+        lib.mmk_lstm_bwd_clusters.restype = i
         lib.mmk_lstm_error_string.argtypes = [i]
         lib.mmk_lstm_error_string.restype = ctypes.c_char_p
         for H, r, es in ((256, 4, 4), (16, 1, 4), (256, 4, 2), (16, 1, 2)):
-            if (lib.mmk_lstm_fwd_smem(H, r, es), lib.mmk_lstm_bwd_smem(H, r, es)) != (
-                _fwd_smem(H, r, es), _bwd_smem(H, r, es)
+            if lib.mmk_lstm_fwd_smem(H, r, es) != _fwd_smem(H, r, es) or any(
+                lib.mmk_lstm_bwd_smem(H, r, cl, es) != _bwd_smem(H, r, cl, es)
+                for cl in BWD_CLUSTER_SIZES
             ):
                 raise RuntimeError("the LSTM kernels' shared-memory sizes differ between C and Python")
         _Kernel.lib = lib
@@ -279,15 +338,25 @@ def lstm_forward(xi: torch.Tensor, Wh: torch.Tensor, h0: torch.Tensor, c0: torch
     return h_all, c_all, gates
 
 
-def lstm_backward(dh_all, dh_T, dc_T, gates, c_all, h_all, h0, c0, Wh):
+def bwd_clusters_that_fit(H: int, rows: int, cl: int, dtype: torch.dtype) -> int:
+    """The clusters of ``cl`` blocks (``rows`` batch rows each) of the
+    backward walk that the card holds at once (``cudaOccupancyMaxActiveClusters``)."""
+    n = _library().mmk_lstm_bwd_clusters(H, rows, cl, int(dtype == torch.bfloat16))
+    if n < 0:
+        _raise_on(-n, "LSTM backward cluster query")
+    return n
+
+
+def lstm_backward(dh_all, dh_T, dc_T, gates, c_all, h_all, h0, c0, Wh, cl=None):
     """K3b: the reverse-time walk and dWh.  Returns dxi (T, B, 4H), dWh
     (H, 4H), dh0 and dc0 (B, H), in the streams' dtype (one for all nine
-    inputs)."""
+    inputs).  On CUDA tensors ``cl`` (8 or 16) forces the walk's cluster
+    size; None takes :func:`lstm_bwd_plan`'s."""
     if gates.device.type == "cpu":
         return lstm_backward_plain(dh_all, dh_T, dc_T, gates, c_all, h_all, h0, c0, Wh)
     T, B, H = c_all.shape
     dev, dt = gates.device, _stream_dtype(gates)
-    rows = lstm_kernel_rows(B, H, gates.element_size())
+    cl, rows = lstm_bwd_plan(B, H, gates.element_size(), cl)
     for x, name, shape in (
         (dh_all, "dh_all", (T, B, H)), (dh_T, "dh_T", (B, H)), (dc_T, "dc_T", (B, H)),
         (gates, "gates", (T, B, 4 * H)), (c_all, "c_all", (T, B, H)),
@@ -308,16 +377,18 @@ def lstm_backward(dh_all, dh_T, dc_T, gates, c_all, h_all, h0, c0, Wh):
         dh_all.data_ptr(), dh_T.data_ptr(), dc_T.data_ptr(), gates.data_ptr(),
         c_all.data_ptr(), h_all.data_ptr(), h0.data_ptr(), c0.data_ptr(), Wh.data_ptr(),
         dxi.data_ptr(), dWh.data_ptr(), part.data_ptr(), dh0.data_ptr(), dc0.data_ptr(),
-        T, B, H, rows, splits, int(dt == torch.bfloat16),
+        T, B, H, rows, cl, splits, int(dt == torch.bfloat16),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(err, "LSTM backward kernel")
     _count(lstm_backward, dt)
+    lstm_backward.last_cluster_size, lstm_backward.last_rows = cl, rows
     return dxi, dWh, dh0, dc0
 
 
 lstm_forward.launches = lstm_forward.launches_bf16 = 0
 lstm_backward.launches = lstm_backward.launches_bf16 = 0
+lstm_backward.last_cluster_size = lstm_backward.last_rows = 0  # the last walk's plan
 
 
 # -- the layer ---------------------------------------------------------------------------
@@ -369,7 +440,8 @@ def fused_lstm_layer(x: torch.Tensor, Wi: torch.Tensor, Wh: torch.Tensor, b: tor
     (H, 4H), b (4H,) in gate order i|f|g|o; h0, c0 (B, H).  Returns
     ``(h_all (T, B, H), h_T, c_T)``, differentiable in every argument.  On
     CUDA tensors the kernels run, or the call raises (outside their scope:
-    see :func:`lstm_kernel_rows`); on CPU tensors the plain versions run.
+    see :func:`lstm_kernel_rows` and :func:`lstm_bwd_plan`); on CPU tensors
+    the plain versions run.
 
     The dtype follows ``x`` (``pallas_lstm.py:308``): bfloat16 runs the
     bf16-stream kernels; any other dtype runs the f32 kernels, and a float16

@@ -9,13 +9,14 @@ state-carrying CUDA entry serves both, behind two counted wrappers:
 * :func:`decode_single` — K1's route: builds the state from the prompt and
   runs the whole decode in one launch;
 * :func:`decode_chunk` — K2's route: runs ``n_steps`` steps from absolute
-  step ``t0`` on a caller-held :class:`DecodeState`.  A CUDA batch whose B
-  ``K2_CLUSTER_ROUTE`` names launches the cluster kernel
-  (``csrc/samplernn_cluster.cu``: a group of streams on a thread-block
-  cluster, each block holding its slices of the weights in shared memory;
-  :func:`cluster_plan`, :func:`cluster_layout`), other batches the block
-  kernel.  The route depends on B and the net's widths only, so every chunk
-  of a stream takes one kernel.
+  step ``t0`` on a caller-held :class:`DecodeState`.
+
+On CUDA tensors both launch the cluster kernel (``csrc/samplernn_cluster.cu``:
+a group of streams on a thread-block cluster, each block holding its slices
+of the weights in shared memory; :func:`cluster_plan`,
+:func:`cluster_layout`) where ``K2_CLUSTER_ROUTE`` names B, other batches the
+block kernel.  The route depends on B and the net's widths only, so every
+chunk of a stream takes one kernel.
 
 What bounds the kernel on an H100, and what its design does about it, is in
 the source note at the top of the ``.cu`` file.
@@ -924,9 +925,11 @@ def streams_a_group(pack: SampleRNNPack, cl: int, B: int, clusters: int) -> int:
 
 def _launch_cluster(pack: SampleRNNPack, prompt, state: DecodeState, t0: int, n_steps: int,
                     out: torch.Tensor, out_t0: int, seed: int, temperature: Optional[float],
-                    cl: int) -> bool:
+                    cl: int, counts) -> bool:
     """Launch the cluster kernel on ``state`` and ``out``; False when there
-    are no steps to run."""
+    are no steps to run.  The wrapper ``counts`` (``decode_single`` or
+    ``decode_chunk``) keeps the launch's clusters, their size and the
+    streams a group."""
     _check_launch(pack, prompt, state, n_steps, out, temperature, "cluster decode kernel")
     dev = pack.flat.device
     B, prior_t = prompt.shape
@@ -955,15 +958,38 @@ def _launch_cluster(pack: SampleRNNPack, prompt, state: DecodeState, t0: int, n_
     if err != 0:
         raise RuntimeError(
             f"cluster decode kernel launch failed: {lib.mmk_sc_error_string(err).decode()}")
-    decode_chunk.last_clusters, decode_chunk.last_cluster_size = n.value, cl
-    decode_chunk.last_streams = plan.S
+    counts.last_clusters, counts.last_cluster_size, counts.last_streams = n.value, cl, plan.S
     return True
 
 
+def _routed_launch(counts, pack: SampleRNNPack, prompt, state: DecodeState, t0: int,
+                   n_steps: int, out: torch.Tensor, out_t0: int, seed: int,
+                   temperature: Optional[float], group: Optional[int], cl: Optional[int]):
+    """Launch the kernel ``cl`` picks (None: the route, :func:`cluster_size_for`;
+    8 or 16: the cluster kernel at that size; 0: the block kernel, ``group``
+    streams a block) and count the launch on the wrapper ``counts``."""
+    if cl is None:
+        cl = cluster_size_for(pack, prompt.shape[0]) or 0
+    if cl:
+        launched = _launch_cluster(pack, prompt, state, t0, n_steps, out, out_t0, seed,
+                                   temperature, cl, counts)
+        counts.launches_cluster += int(launched)
+    else:
+        launched = _launch(pack, prompt, state, t0, n_steps, out, out_t0, seed, temperature,
+                           group)
+    if launched:
+        counts.launches += 1
+        counts.launches_bf16 += int(pack.flat.dtype == torch.bfloat16)
+
+
 def decode_single(pack: SampleRNNPack, prompt: torch.Tensor, n_steps: int, seed: int,
-                  temperature: Optional[float], group: Optional[int] = None) -> torch.Tensor:
+                  temperature: Optional[float], group: Optional[int] = None,
+                  cl: Optional[int] = None) -> torch.Tensor:
     """K1's route: decode ``n_steps`` tokens after ``prompt`` (B, prior_t) in
-    one launch.  Returns (B, n_steps) int32."""
+    one launch.  Returns (B, n_steps) int32.  On CUDA tensors ``cl`` picks
+    the kernel as :func:`decode_chunk`'s does: None the route
+    (:func:`cluster_size_for`), 8 or 16 the cluster kernel at that size, 0
+    the block kernel (``group`` streams a block)."""
     B, prior_t = prompt.shape
     rf = pack.frame_sizes[0]
     state = init_decode_state(pack.net, prompt)
@@ -971,10 +997,8 @@ def decode_single(pack: SampleRNNPack, prompt: torch.Tensor, n_steps: int, seed:
     if prompt.device.type == "cpu":
         return decode_plain(pack, prompt, state, rf, n, prior_t, n_steps, seed, temperature)
     out = torch.empty(B, n_steps, dtype=torch.int32, device=prompt.device)
-    if _launch(pack, prompt.to(torch.int32).contiguous(), state, rf, n, out, prior_t, seed,
-               temperature, group):
-        decode_single.launches += 1
-        decode_single.launches_bf16 += int(pack.flat.dtype == torch.bfloat16)
+    _routed_launch(decode_single, pack, prompt.to(torch.int32).contiguous(), state, rf, n, out,
+                   prior_t, seed, temperature, group, cl)
     return out
 
 
@@ -990,23 +1014,14 @@ def decode_chunk(pack: SampleRNNPack, prompt: torch.Tensor, state: DecodeState, 
     if prompt.device.type == "cpu":
         return decode_plain(pack, prompt, state, t0, n_steps, t0, n_steps, seed, temperature)
     out = torch.empty(B, n_steps, dtype=torch.int32, device=prompt.device)
-    if cl is None:
-        cl = cluster_size_for(pack, B) or 0
-    if cl:
-        launched = _launch_cluster(pack, prompt, state, t0, n_steps, out, t0, seed, temperature,
-                                   cl)
-        decode_chunk.launches_cluster += int(launched)
-    else:
-        launched = _launch(pack, prompt, state, t0, n_steps, out, t0, seed, temperature, group)
-    if launched:
-        decode_chunk.launches += 1
-        decode_chunk.launches_bf16 += int(pack.flat.dtype == torch.bfloat16)
+    _routed_launch(decode_chunk, pack, prompt, state, t0, n_steps, out, t0, seed, temperature,
+                   group, cl)
     return out
 
 
-# kernel launches: all of them, those of the bf16 instantiation, and (for
-# decode_chunk) those of the cluster kernel
-decode_single.launches = decode_single.launches_bf16 = 0
-decode_chunk.launches = decode_chunk.launches_bf16 = decode_chunk.launches_cluster = 0
-# the last cluster launch: the clusters that fitted, their size, the streams a group
-decode_chunk.last_clusters = decode_chunk.last_cluster_size = decode_chunk.last_streams = 0
+# kernel launches: all of them, those of the bf16 instantiation, and those
+# of the cluster kernel; the last cluster launch: the clusters that fitted,
+# their size, the streams a group
+for _wrapper in (decode_single, decode_chunk):
+    _wrapper.launches = _wrapper.launches_bf16 = _wrapper.launches_cluster = 0
+    _wrapper.last_clusters = _wrapper.last_cluster_size = _wrapper.last_streams = 0

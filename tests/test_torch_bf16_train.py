@@ -42,10 +42,13 @@ every bf16 op rounds, as the Pallas kernels' ``.astype(bf16)`` asks) and
   rules (``modules/rounding.py``): when this was written the three steps sat
   at 0, 0.003 and 0 of the gap.  A control, the conv's bias back inside the
   product (the port before that fix), must miss the bound;
-* SimpleTransformer and JukeBox the same way, over their first two steps
-  (when this was written 0.0013, 0.0022 and 0, 0.006 of the gap; their
-  third steps, 0.197 and 0.283, miss it).  A control, the bf16 softmax
-  differentiated by PyTorch's autograd, must miss the two-step bound;
+* SimpleTransformer and JukeBox the same way (when this was written
+  0.0013, 0.0022, 0 and 0, 0.006, 0.0036 of the gap).  Their layer norm's
+  rsqrt is XLA's CPU rsqrt (``modules/xla_cpu_rsqrt``) and its f32 row sums
+  of 32 XLA's two 8-lane registers halved (``rounding._row_sum``).  Three
+  controls must miss the bound: the bf16 softmax differentiated by
+  PyTorch's autograd, the layer norm with ``torch.rsqrt``, and (JukeBox)
+  a row's 16 partial sums added in order;
 * cross-entropy of bf16 logits at |x| ~ 1e5 (past 2^15, where one bf16 ulp
   exceeds f32's exp underflow range): finite and equal to the f64 value of
   the same logits on the host (``rtol=1e-6``; JAX's case is
@@ -69,10 +72,9 @@ GRADS = ("dx", "dWi", "dWh", "db", "dh0", "dc0")
 ULPS, SHARE = 1.0, 0.05
 SR, Q, H, FS = 16000, 32, 16, (8, 4, 2)
 # the stateless nets whose bf16 loop the port follows
-STATELESS_BF16 = ("wavenet",)
-# the nets whose first two bf16 steps the port follows, the third not yet
-# (ROADMAP.md queue 3)
-TWO_STEPS_BF16 = ("transformer", "jukebox")
+STATELESS_BF16 = ("wavenet", "transformer", "jukebox")
+# the nets with a bf16 softmax and layer norm (the controls below)
+TRANSFORMERS = ("transformer", "jukebox")
 TRAIN = dict(batch_size=4, batch_length=64, tbptt_chunk_length=256, max_epochs=3,
              limit_train_batches=1, MONITOR_TRAINING=False, every_n_epochs=1,
              CHECKPOINT_TRAINING=False)
@@ -174,7 +176,7 @@ def case(tmp_path_factory):
     return inp, run_port("bf16_train", inp, tmp)
 
 
-def _jax_stateless(path: str, work: str, kinds=STATELESS_BF16 + TWO_STEPS_BF16) -> None:
+def _jax_stateless(path: str, work: str, kinds=STATELESS_BF16) -> None:
     """The f32 and bf16 loops of ``tests/test_torch_train.py``'s stateless
     nets ``kinds`` (the same weights and data), saved to ``path``."""
     from tests.test_torch_train import _stateless_net
@@ -292,7 +294,7 @@ def test_stateless_bf16_losses_per_step_follow_jax_bf16_loop(stateless, kind):
     _follows(inp, port[f"{kind}/losses"], kind)
 
 
-@pytest.mark.parametrize("kind", STATELESS_BF16)
+@pytest.mark.parametrize("kind", ("wavenet",))
 def test_control_with_the_bias_inside_the_product_fails(stateless, kind):
     """The control adds each conv's bias inside the product (one rounding
     for both, ``nn.Conv1d``'s): the check above must refuse it."""
@@ -301,25 +303,32 @@ def test_control_with_the_bias_inside_the_product_fails(stateless, kind):
         _follows(inp, port[f"{kind}/control_losses"], kind)
 
 
-@pytest.mark.parametrize("kind", TWO_STEPS_BF16)
-def test_stateless_bf16_first_two_steps_follow_jax_bf16_loop(stateless, kind):
-    """SimpleTransformer and JukeBox: the first two steps' losses within a
-    tenth of JAX's bf16-to-f32 gap (the third is not yet: ROADMAP.md queue
-    3).  Below f32 on the CPU the port's attention softmax and layer norm
-    take JAX's transpose, their f32 row sums XLA's vectorised order, and the
-    products XLA's summation order (``modules/rounding.py``)."""
-    inp, port = stateless
-    _follows(inp, port[f"{kind}/losses"], kind, steps=2)
-
-
-@pytest.mark.parametrize("kind", TWO_STEPS_BF16)
+@pytest.mark.parametrize("kind", TRANSFORMERS)
 def test_control_with_pytorchs_softmax_gradient_fails(stateless, kind):
     """The control differentiates the bf16 softmax with PyTorch's autograd
-    (the port before JAX's transpose was given to it): the two-step check
-    above must refuse it."""
+    (the port before JAX's transpose was given to it): the three-step check
+    must refuse it."""
     inp, port = stateless
     with pytest.raises(AssertionError):
-        _follows(inp, port[f"{kind}/control_losses"], kind, steps=2)
+        _follows(inp, port[f"{kind}/control_losses"], kind)
+
+
+@pytest.mark.parametrize("kind", TRANSFORMERS)
+def test_control_with_torchs_rsqrt_fails(stateless, kind):
+    """The layer norm with ``torch.rsqrt`` (the port before XLA's CPU rsqrt
+    was given to it): the three-step check must refuse it."""
+    inp, port = stateless
+    with pytest.raises(AssertionError):
+        _follows(inp, port[f"{kind}/rsqrt_control_losses"], kind)
+
+
+def test_control_with_row_partial_sums_added_in_order_fails(stateless):
+    """JukeBox's layer norm with a row's 16 partial sums added in order (the
+    port's row sum before XLA's two registers were read off its fused
+    step): the three-step check must refuse it."""
+    inp, port = stateless
+    with pytest.raises(AssertionError):
+        _follows(inp, port["jukebox/row_sum_control_losses"], "jukebox")
 
 
 def test_master_parameters_and_optimizer_state_stay_f32(case):

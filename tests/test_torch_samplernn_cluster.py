@@ -24,7 +24,11 @@ the plain twin by teacher forcing); what it reads is built here, in Python:
   wider batches to the block kernel, whatever the chunk's
   length (the launchers replaced by recorders, the tensors on the meta
   device), and every chunk of a SampleRNN stream (run on the CPU through the
-  plain twin) routes to one kernel.
+  plain twin) routes to one kernel;
+* ``decode_single``'s route (K1, every B = 1 … 63 that ``SampleRNN.generate``
+  sends it): the same table, reckoned from ``cluster_plan`` and
+  ``max_streams`` (``cluster_size_for``), and ``cl=0`` / 8 / 16 forcing the
+  block kernel or the cluster kernel at that size.
 
 The port runs in one subprocess for the module (``torch_port_worker.py
 samplernn_cluster``).
@@ -165,3 +169,30 @@ def test_a_net_outside_the_plan_takes_the_block_kernel(port):
 def test_every_chunk_of_a_stream_takes_one_kernel(port, B):
     taken = port[f"net_mid/stream_route_b{B}"].tolist()
     assert len(taken) >= 3 and len(set(taken)) == 1, taken
+
+
+@pytest.mark.parametrize("net", ("full", "mid", "small"))
+@pytest.mark.parametrize("dt", DTYPES)
+def test_decode_single_takes_the_route_below_64(port, net, dt):
+    """K1's one-launch decode takes the kernel the pack dtype's route names
+    at every B that ``generate`` sends it, as ``cluster_size_for`` reckons
+    it from the plan (a net outside the plan: the block kernel)."""
+    name = {"f32": "float32", "bf16": "bfloat16"}[dt]
+    route = port[f"route/{name}"].tolist()
+    taken = port[f"net_{net}/{dt}/single_route"].tolist()
+    sizes = port[f"net_{net}/{dt}/cluster_size_for"].tolist()
+    assert len(taken) == len(sizes) == 63
+    fits = {cl: int(port[_q(net, dt, cl) + "max_streams"]) > 0 for cl in SIZES}
+    for B, (got, cl) in enumerate(zip(taken, sizes), start=1):
+        assert got == (f"cluster{cl}" if cl else "block"), (B, got, cl)
+        want = _routed(route, B)
+        if want != "block" and not fits[int(want[len("cluster"):])]:
+            want = "block"
+        assert got == want, (B, got, want)
+    if net != "small":
+        assert set(taken) != {"block"}
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+def test_decode_single_cl_forces_the_kernel(port, dt):
+    assert port[f"net_full/{dt}/single_forced"].tolist() == ["block", "cluster8", "cluster16"]

@@ -382,7 +382,9 @@ def bf16_train_stateless_task(inp: dict) -> dict:
     """Three TrainARMLoop steps under ``param_dtype="bfloat16"`` of each
     stateless net of ``inp`` from the JAX weights, and a control (WaveNet's
     conv bias inside the product, one rounding for both; the transformers'
-    bf16 softmax differentiated by PyTorch's autograd)."""
+    bf16 softmax differentiated by PyTorch's autograd); the transformers'
+    layer norm with ``torch.rsqrt``, and JukeBox's with a row's 16 partial
+    sums added in order."""
     from mimikit_tpu_torch.networks import wavenet as wn
 
     from_jax = {"wavenet": (mmk.WaveNet, mmk.wavenet_state_dict_from_jax),
@@ -427,6 +429,82 @@ def bf16_train_stateless_task(inp: dict) -> dict:
             out[f"{kind}/control_losses"] = losses(kind, "control")
     finally:
         rounding.softmax = fixed
+    # the layer norm's rsqrt as torch.rsqrt computes it, not as XLA's CPU code
+    fixed = rounding.xla_rsqrt
+    rounding.xla_rsqrt = torch.rsqrt
+    try:
+        for kind in [k for k in kinds if k in ("transformer", "jukebox")]:
+            out[f"{kind}/rsqrt_control_losses"] = losses(kind, "rsqrt_control")
+    finally:
+        rounding.xla_rsqrt = fixed
+    # a row's 16 partial sums added in order, not as XLA's two registers
+    fixed = rounding._row_sum
+
+    def in_order(x):
+        if x.shape[-1] > 32:
+            return fixed(x)
+        out = sum_ = None
+        for lane in range(min(16, x.shape[-1])):
+            part = x[..., lane::16]
+            sum_ = part[..., 0]
+            for i in range(1, part.shape[-1]):
+                sum_ = sum_ + part[..., i]
+            out = sum_ if out is None else out + sum_
+        return out
+
+    rounding._row_sum = in_order
+    try:
+        for kind in [k for k in kinds if k == "jukebox"]:
+            out[f"{kind}/row_sum_control_losses"] = losses(kind, "row_sum_control")
+    finally:
+        rounding._row_sum = fixed
+    return out
+
+
+def lstm_plan_task(inp: dict) -> dict:
+    """The fused LSTM kernels' plans at each case of ``inp["cases"]`` (B, H,
+    element bytes, forced cluster size or 0): the forward's rows a cluster
+    and the backward's (cluster size, rows), or the error each raises; the
+    shared memory the backward's plan asks; the route table."""
+    from mimikit_tpu_torch.ops import fused_lstm as fl
+
+    out = {"sizes": np.array(fl.BWD_CLUSTER_SIZES), "smem_limit": np.array(fl.SMEM_PER_BLOCK)}
+    for dt, (cl, most) in fl.LSTM_BWD_ROUTE.items():
+        out[f"route/{str(dt).split('.')[-1]}"] = np.array([cl, most])
+    for B, H, es, cl in inp["cases"].tolist():
+        key = f"b{B}_h{H}_e{es}_cl{cl}"
+        try:
+            out[key + "/fwd_rows"] = np.array(fl.lstm_kernel_rows(B, H, es))
+        except ValueError as e:
+            out[key + "/fwd_error"] = np.array(str(e))
+        try:
+            size, rows = fl.lstm_bwd_plan(B, H, es, cl or None)
+            out[key + "/bwd_plan"] = np.array([size, rows])
+            out[key + "/bwd_smem"] = np.array(fl._bwd_smem(H, rows, size, es))
+        except ValueError as e:
+            out[key + "/bwd_error"] = np.array(str(e))
+    return out
+
+
+def xla_rsqrt_task(inp: dict) -> dict:
+    """The port's CPU rsqrt (``modules/xla_cpu_rsqrt``) and, as a control,
+    ``torch.rsqrt`` of each input array, and of every prefix of ``x`` up to
+    ``n_prefix`` long (the instruction's vector loop and its tail)."""
+    from mimikit_tpu_torch.modules.xla_cpu_rsqrt import xla_rsqrt
+
+    out = {}
+    for k in ("x", "edges"):
+        x = torch.from_numpy(inp[k])
+        out[f"port/{k}"] = xla_rsqrt(x).numpy()
+        out[f"torch/{k}"] = torch.rsqrt(x).numpy()
+    try:
+        xla_rsqrt(torch.ones(4, dtype=torch.bfloat16))
+        out["refuses_bf16"] = np.array(False)
+    except ValueError:
+        out["refuses_bf16"] = np.array(True)
+    x = torch.from_numpy(inp["x"])
+    out["prefixes"] = np.concatenate([xla_rsqrt(x[:n].clone()).numpy()
+                                      for n in range(1, int(inp["n_prefix"]) + 1)])
     return out
 
 
@@ -972,7 +1050,7 @@ def samplernn_cluster_task(inp: dict) -> dict:
         taken.append("block")
         return True
 
-    def cluster(pack, prompt, state, t0, n, o, out_t0, seed, temp, cl):
+    def cluster(pack, prompt, state, t0, n, o, out_t0, seed, temp, cl, counts):
         taken.append(f"cluster{cl}")
         return True
 
@@ -1053,6 +1131,24 @@ def samplernn_cluster_task(inp: dict) -> dict:
                 for n in (7, 64, 2048):
                     sd.decode_chunk(pack, prompt, state, rf, n, 0, None)
                 out[f"{tag}/{dn}/route_b{B}"] = np.array(taken)
+            # decode_single (K1) at every B that SampleRNN.generate sends it,
+            # through the route and with each kernel forced
+            single = []
+            for B in range(1, 64):
+                taken.clear()
+                prompt = torch.zeros(B, 2 * rf, dtype=torch.int32, device="meta")
+                sd.decode_single(pack, prompt, 64, 0, None)
+                single.append(taken[0])
+            out[f"{tag}/{dn}/single_route"] = np.array(single)
+            out[f"{tag}/{dn}/cluster_size_for"] = np.array(
+                [sd.cluster_size_for(pack, B) or 0 for B in range(1, 64)])
+            forced = []
+            for cl in (0, *sd.CLUSTER_SIZES):
+                taken.clear()
+                sd.decode_single(pack, torch.zeros(4, 2 * rf, dtype=torch.int32, device="meta"),
+                                 64, 0, None, cl=cl)
+                forced.append(taken[0])
+            out[f"{tag}/{dn}/single_forced"] = np.array(forced)
         # a stream on the CPU, each chunk also sent through the route
         real_chunk = sd.decode_chunk
         from mimikit_tpu_torch.networks import sample_rnn as srn
@@ -1487,7 +1583,7 @@ def wavenet_cluster_task(inp: dict) -> dict:
     return out
 
 
-TASKS = {"wavenet_cluster": wavenet_cluster_task, "modules": modules_task, "sample_rnn": sample_rnn_task, "fused_lstm": fused_lstm_task,
+TASKS = {"lstm_plan": lstm_plan_task, "xla_rsqrt": xla_rsqrt_task, "wavenet_cluster": wavenet_cluster_task, "modules": modules_task, "sample_rnn": sample_rnn_task, "fused_lstm": fused_lstm_task,
          "train": train_task, "train_stateless": train_stateless_task,
          "wavenet": wavenet_task, "categorical": categorical_task,
          "transformer": transformer_task, "jukebox": jukebox_task,

@@ -5,9 +5,11 @@ Usage, on the CPU, from the root of a checkout (~3 min):
 stateless net of ``tests/test_torch_train.py`` (the same weights, data and
 three steps) it runs JAX's f32 and bf16 loops with XLA's excess precision
 off (as ``tests/test_torch_bf16_train.py`` runs them) and the port's bf16
-loop and, for WaveNet, its control (the conv's bias inside its product),
-and prints each step's |port - JAX bf16| as a share of |JAX bf16 - JAX
-f32|: the measure whose bound, 0.1, the test holds.
+loop and its controls (WaveNet: the conv's bias inside its product; the
+transformers: the softmax differentiated by autograd, the layer norm with
+``torch.rsqrt``; JukeBox: a row's partial sums added in order), and
+prints each step's |port - JAX bf16| as a share of |JAX bf16 - JAX f32|:
+the measure whose bound, 0.1, the test holds.
 """
 import os
 import subprocess
@@ -38,7 +40,8 @@ def main() -> int:
     for kind in kinds.split(","):
         j16, j32 = inp[f"{kind}/jax_losses/bfloat16"], inp[f"{kind}/jax_losses/float32"]
         gap = np.abs(j16 - j32)
-        for who in [w for w in ("losses", "control_losses") if f"{kind}/{w}" in port]:
+        for who in sorted(k.split("/", 1)[1] for k in port
+                          if k.startswith(f"{kind}/") and k.endswith("losses")):
             share = np.abs(port[f"{kind}/{who}"] - j16) / gap
             print(f"{kind} {who.replace('_', ' ')}: each step's |port - JAX bf16| / |JAX bf16 - "
                   f"JAX f32| = {np.array2string(share, precision=4)}")
