@@ -18,7 +18,7 @@ Phases (any failure exits non-zero; no exception is swallowed):
    ``tools/sass_digest.py``), those of ``jukebox_decode.cu`` and
    ``jukebox_cluster.cu`` (K8's block and cluster kernels) theirs
    (``K8_SASS``), and those of every other kernel this checkout leaves as
-   it was, WaveNet's block kernel and the LSTM forward among them, theirs
+   it was, WaveNet's block kernel and the LSTM backward among them, theirs
    (``PARENT_SASS``);
    compile the Triton sampler and the Triton mu-law kernel;
 2. each kernel against its plain twin at a small size and at the main
@@ -38,7 +38,8 @@ Phases (any failure exits non-zero; no exception is swallowed):
    B=37, f32 and bf16, every chunk a cluster launch; the block kernel, which
    the route leaves past its limits, at full width at B=256, f32 and bf16.  ``lstm_forward`` and ``lstm_backward`` (the fused LSTM layer) at
    (T, B, H) = (12, 4, 16) and at the two tier shapes of the training path,
-   (128, 32, 256) and (256, 32, 256): h_all, h_T, c_T within 1e-5 +
+   (128, 32, 256) and (256, 32, 256), through the route and with the forward
+   on clusters of 8 and of 16 blocks: h_all, h_T, c_T within 1e-5 +
    1e-5 * max|plain| and all six gradients within 1e-5 + 1e-4 * max|plain|
    of the plain versions (f32, summed in another order), and their bf16
    instantiation (the ``param_dtype="bfloat16"`` streams) against the bf16
@@ -146,8 +147,9 @@ Phases (any failure exits non-zero; no exception is swallowed):
    K3 launch), epoch mean losses finite and falling, the last within
    max(10 %, 5e-3) of the f32 run's, the step timed and profiled beside the
    f32 one;
-5. the LSTM backward's sweep (its walk on clusters of 8 and 16 at the tier
-   shapes, f32 and bf16, against ``LSTM_BWD_ROUTE``; the walk and dWh split
+5. the LSTM forward's sweep (on clusters of 8 and 16 at the tier shapes, f32
+   and bf16, against ``LSTM_FWD_ROUTE``) and the backward's (its walk on
+   clusters of 8 and 16, against ``LSTM_BWD_ROUTE``; the walk and dWh split
    by the profiler); each wrapper, its plain twin and (for the LSTM
    kernels) cuDNN's ``nn.LSTM`` in the same dtype, for K9 ``torch.multinomial``, timed at
    the main paths' shapes (the transformer and JukeBox twins over 64 steps,
@@ -175,6 +177,7 @@ fit, the cluster barriers a step and the route sweep.
 import argparse
 import contextlib
 import copy
+import functools
 import itertools
 import json
 import os
@@ -300,24 +303,48 @@ PARENT_SASS = {
         "_Z16sc_decode_kernelILi8E13__nv_bfloat16Li2EEv6ScArgs":
             "f7bacf9d85db2e1d, REG 162 STACK 0",
     },
-    # the forward (K3a) only: the backward walk and dWh are this checkout's
+    # the backward walk (K3b), dWh and its sum: the forward (K3a) is this checkout's
     "fused_lstm.cu": {
-        "_Z15lstm_fwd_kernelIfLi8EEvPKT_S2_S2_S2_PS0_S3_S3_iii":
-            "49ae6a292639974d, REG 80 STACK 0",
-        "_Z15lstm_fwd_kernelIfLi4EEvPKT_S2_S2_S2_PS0_S3_S3_iii":
-            "1a9003bdcea67f2a, REG 80 STACK 0",
-        "_Z15lstm_fwd_kernelIfLi2EEvPKT_S2_S2_S2_PS0_S3_S3_iii":
-            "ad19a970f55f11b8, REG 79 STACK 0",
-        "_Z15lstm_fwd_kernelIfLi1EEvPKT_S2_S2_S2_PS0_S3_S3_iii":
-            "1e6b7e7fb91d240c, REG 64 STACK 0",
-        "_Z15lstm_fwd_kernelI13__nv_bfloat16Li8EEvPKT_S3_S3_S3_PS1_S4_S4_iii":
-            "e34762cd0a7695d7, REG 63 STACK 0",
-        "_Z15lstm_fwd_kernelI13__nv_bfloat16Li4EEvPKT_S3_S3_S3_PS1_S4_S4_iii":
-            "27499a5fe4e09a22, REG 48 STACK 0",
-        "_Z15lstm_fwd_kernelI13__nv_bfloat16Li2EEvPKT_S3_S3_S3_PS1_S4_S4_iii":
-            "ebe8bd474126efe1, REG 64 STACK 0",
-        "_Z15lstm_fwd_kernelI13__nv_bfloat16Li1EEvPKT_S3_S3_S3_PS1_S4_S4_iii":
-            "a371181386ba6d4b, REG 61 STACK 0",
+        "_Z15lstm_bwd_kernelI13__nv_bfloat16Li16ELi1EEvPKT_S3_S3_S3_S3_S3_S3_PS1_S4_S4_iii":
+            "6d66785d09caf142, REG 96 STACK 0",
+        "_Z15lstm_bwd_kernelI13__nv_bfloat16Li16ELi2EEvPKT_S3_S3_S3_S3_S3_S3_PS1_S4_S4_iii":
+            "4f4448e8a5096e09, REG 102 STACK 0",
+        "_Z15lstm_bwd_kernelI13__nv_bfloat16Li16ELi4EEvPKT_S3_S3_S3_S3_S3_S3_PS1_S4_S4_iii":
+            "7c516a35174e4ba9, REG 100 STACK 0",
+        "_Z15lstm_bwd_kernelI13__nv_bfloat16Li16ELi8EEvPKT_S3_S3_S3_S3_S3_S3_PS1_S4_S4_iii":
+            "8e87e65a0ee57ead, REG 110 STACK 0",
+        "_Z15lstm_bwd_kernelI13__nv_bfloat16Li8ELi1EEvPKT_S3_S3_S3_S3_S3_S3_PS1_S4_S4_iii":
+            "3ce9fde0e5b97f56, REG 100 STACK 0",
+        "_Z15lstm_bwd_kernelI13__nv_bfloat16Li8ELi2EEvPKT_S3_S3_S3_S3_S3_S3_PS1_S4_S4_iii":
+            "71ca2030ff4a6ab7, REG 103 STACK 0",
+        "_Z15lstm_bwd_kernelI13__nv_bfloat16Li8ELi4EEvPKT_S3_S3_S3_S3_S3_S3_PS1_S4_S4_iii":
+            "71efd6735951c79a, REG 104 STACK 0",
+        "_Z15lstm_bwd_kernelI13__nv_bfloat16Li8ELi8EEvPKT_S3_S3_S3_S3_S3_S3_PS1_S4_S4_iii":
+            "8bb9fc4fe045a4aa, REG 110 STACK 0",
+        "_Z15lstm_bwd_kernelIfLi16ELi1EEvPKT_S2_S2_S2_S2_S2_S2_PS0_S3_S3_iii":
+            "95faef62535f8b1a, REG 104 STACK 0",
+        "_Z15lstm_bwd_kernelIfLi16ELi2EEvPKT_S2_S2_S2_S2_S2_S2_PS0_S3_S3_iii":
+            "547d20bb47d0eb23, REG 106 STACK 0",
+        "_Z15lstm_bwd_kernelIfLi16ELi4EEvPKT_S2_S2_S2_S2_S2_S2_PS0_S3_S3_iii":
+            "f16ff27375c849a0, REG 115 STACK 0",
+        "_Z15lstm_bwd_kernelIfLi16ELi8EEvPKT_S2_S2_S2_S2_S2_S2_PS0_S3_S3_iii":
+            "682399b448142479, REG 112 STACK 0",
+        "_Z15lstm_bwd_kernelIfLi8ELi1EEvPKT_S2_S2_S2_S2_S2_S2_PS0_S3_S3_iii":
+            "c3a13482e99c345b, REG 104 STACK 0",
+        "_Z15lstm_bwd_kernelIfLi8ELi2EEvPKT_S2_S2_S2_S2_S2_S2_PS0_S3_S3_iii":
+            "9042da84cdda16a0, REG 106 STACK 0",
+        "_Z15lstm_bwd_kernelIfLi8ELi4EEvPKT_S2_S2_S2_S2_S2_S2_PS0_S3_S3_iii":
+            "5063d49b09e739de, REG 115 STACK 0",
+        "_Z15lstm_bwd_kernelIfLi8ELi8EEvPKT_S2_S2_S2_S2_S2_S2_PS0_S3_S3_iii":
+            "ded69a27040f181b, REG 112 STACK 0",
+        "_Z15lstm_dwh_kernelI13__nv_bfloat16EvPKT_S3_S3_Pfiiiii":
+            "e10ce5461888352a, REG 57 STACK 0",
+        "_Z15lstm_dwh_kernelIfEvPKT_S2_S2_Pfiiiii":
+            "948f08185f4937d2, REG 88 STACK 0",
+        "_Z19lstm_dwh_sum_kernelI13__nv_bfloat16EvPKfPT_ii":
+            "ba30b6878677d2ff, REG 32 STACK 0",
+        "_Z19lstm_dwh_sum_kernelIfEvPKfPT_ii":
+            "17afce7b6e0b8861, REG 32 STACK 0",
     },
     "transformer_decode.cu": {
         "_Z16tf_window_kernel12TfWindowArgs":
@@ -867,7 +894,7 @@ def k8_sass_check(jbd):
 
 def parent_sass_check(sd, fl, wd, td, tk, jbd):
     """The kernels this checkout leaves as they were (WaveNet's block and
-    cluster kernels, K2's cluster kernel, the LSTM forward, K6, K7 and K8's
+    cluster kernels, K2's cluster kernel, the LSTM backward walk and dWh, K6, K7 and K8's
     group kernel): their machine code (``tools/sass_digest.py``) must equal
     ``PARENT_SASS``, the parent checkout's."""
     from tools.sass_digest import digests
@@ -2779,22 +2806,31 @@ def close(name, k, p, atol, rtol):
 
 
 def check_lstm(torch, fl, shapes):
-    """Phase 2 for the LSTM kernels; returns {wrapper: largest abs error}."""
+    """Phase 2 for the LSTM kernels: the layer through the kernels' route, then
+    with the forward on each of its cluster sizes, against the plain versions;
+    returns {wrapper: largest abs error}."""
     err = {"lstm_forward": 0.0, "lstm_backward": 0.0}
     for T, B, D, H in shapes:
         args, cts = lstm_inputs(torch, T, B, D, H, seed=T + H)
-        k_out, k_grads = lstm_kernel_layer(torch, fl, args, cts)
-        torch.cuda.synchronize()
-        p_out, p_grads = lstm_plain_layer(torch, fl, args, cts)
-        fwd = [close(n, k, p, 1e-5, 1e-5)
-               for n, k, p in zip(("h_all", "h_T", "c_T"), k_out, p_out)]
-        bwd = [close(n, k, p, 1e-5, 1e-4)
-               for n, k, p in zip(("dx", "dWi", "dWh", "db", "dh0", "dc0"), k_grads, p_grads)]
-        err["lstm_forward"] = max(err["lstm_forward"], *fwd)
-        err["lstm_backward"] = max(err["lstm_backward"], *bwd)
-        log(f"  fused LSTM layer (T, B, H) = ({T}, {B}, {H}): ok, max |error| outputs"
-            f" {max(fwd):.3e}, gradients {max(bwd):.3e}"
-            f" (dx, dWi, dWh, db, dh0, dc0: {', '.join(f'{e:.2e}' for e in bwd)})")
+        runs = [("route", lambda: lstm_kernel_layer(torch, fl, args, cts))]
+        runs += [(f"forward on {cl}", lambda cl=cl: lstm_plain_layer(
+            torch, fl, args, cts, functools.partial(fl.lstm_forward, cl=cl), fl.lstm_backward))
+            for cl in fl.FWD_CLUSTER_SIZES]
+        p_out = p_grads = None
+        for what, run in runs:
+            k_out, k_grads = run()
+            torch.cuda.synchronize()
+            if p_out is None:
+                p_out, p_grads = lstm_plain_layer(torch, fl, args, cts)
+            fwd = [close(n, k, p, 1e-5, 1e-5)
+                   for n, k, p in zip(("h_all", "h_T", "c_T"), k_out, p_out)]
+            bwd = [close(n, k, p, 1e-5, 1e-4)
+                   for n, k, p in zip(("dx", "dWi", "dWh", "db", "dh0", "dc0"), k_grads, p_grads)]
+            err["lstm_forward"] = max(err["lstm_forward"], *fwd)
+            err["lstm_backward"] = max(err["lstm_backward"], *bwd)
+            log(f"  fused LSTM layer (T, B, H) = ({T}, {B}, {H}), {what}: ok, max |error|"
+                f" outputs {max(fwd):.3e}, gradients {max(bwd):.3e}"
+                f" (dx, dWi, dWh, db, dh0, dc0: {', '.join(f'{e:.2e}' for e in bwd)})")
     return err
 
 
@@ -2819,12 +2855,17 @@ def unrounded(torch, kernel):
     return run
 
 
-def lstm_bf16_gaps(torch, fl, args, cts, control=False):
+def lstm_bf16_gaps(torch, fl, args, cts, control=False, fwd_cl=None):
     """The bf16 layer through the kernels (with ``control``, through
-    ``unrounded`` kernels) against its bf16 twin on the same inputs:
-    {tensor: (ulps, differing elements, elements)} for the three outputs and
-    the six gradients, the kernels' (outputs, gradients) and the twin's."""
-    if control:
+    ``unrounded`` kernels; with ``fwd_cl``, the forward on clusters of that
+    size) against its bf16 twin on the same inputs: {tensor: (ulps,
+    differing elements, elements)} for the three outputs and the six
+    gradients, the kernels' (outputs, gradients) and the twin's."""
+    if fwd_cl:
+        k_out, k_grads = lstm_plain_layer(torch, fl, args, cts,
+                                          functools.partial(fl.lstm_forward, cl=fwd_cl),
+                                          fl.lstm_backward)
+    elif control:
         with uncounted(fl.lstm_forward, fl.lstm_backward):
             k_out, k_grads = lstm_plain_layer(torch, fl, args, cts,
                                               unrounded(torch, fl.lstm_forward),
@@ -2866,16 +2907,18 @@ def check_lstm_bf16(torch, fl, shapes, share_limit, seeds=(0,)):
     err = {"lstm_forward_bf16": 0.0, "lstm_backward_bf16": 0.0}
     for (T, B, D, H), seed in itertools.product(shapes, seeds):
         args, cts = lstm_bf16_inputs(torch, T, B, D, H, seed=T + H + 1 + seed)
-        gaps, (k_out, k_grads), (p_out, p_grads) = lstm_bf16_gaps(torch, fl, args, cts)
-        worst, share = bf16_lstm_verdict(gaps, share_limit)
-        for key, ks, ps in (("lstm_forward_bf16", k_out, p_out),
-                            ("lstm_backward_bf16", k_grads, p_grads)):
-            err[key] = max(err[key], *(float((k.float() - p.float()).abs().max())
-                                       for k, p in zip(ks, ps)))
-        log(f"  fused LSTM layer bf16 (T, B, H) = ({T}, {B}, {H}) seed {seed}: ok, largest gap"
-            f" {worst:.3f}"
-            f" bf16 ulps of a tensor's scale, {share:.3%} of the elements differ"
-            f" ({', '.join(f'{n} {g[0]:.2f}' for n, g in gaps.items())})")
+        for fwd_cl in (None, *fl.FWD_CLUSTER_SIZES):
+            gaps, (k_out, k_grads), (p_out, p_grads) = lstm_bf16_gaps(torch, fl, args, cts,
+                                                                      fwd_cl=fwd_cl)
+            worst, share = bf16_lstm_verdict(gaps, share_limit)
+            for key, ks, ps in (("lstm_forward_bf16", k_out, p_out),
+                                ("lstm_backward_bf16", k_grads, p_grads)):
+                err[key] = max(err[key], *(float((k.float() - p.float()).abs().max())
+                                           for k, p in zip(ks, ps)))
+            log(f"  fused LSTM layer bf16 (T, B, H) = ({T}, {B}, {H}) seed {seed},"
+                f" {f'forward on {fwd_cl}' if fwd_cl else 'route'}: ok, largest gap {worst:.3f}"
+                f" bf16 ulps of a tensor's scale, {share:.3%} of the elements differ"
+                f" ({', '.join(f'{n} {g[0]:.2f}' for n, g in gaps.items())})")
         bad, _, _ = lstm_bf16_gaps(torch, fl, args, cts, control=True)
         expect_caught(f"fused LSTM layer bf16 ({T}, {B}, {H}) seed {seed}",
                       lambda: bf16_lstm_verdict(bad, share_limit))
@@ -2983,6 +3026,47 @@ def lstm_timings(torch, fl, dtype):
                 f" {bound:.4f} ms by {by}")
         out[T] = row
     return out
+
+
+def lstm_fwd_sweep(torch, fl):
+    """The forward on clusters of 8 and of 16 blocks at the training path's
+    tier shapes, f32 and bf16 streams: ``lstm_forward``'s ms (median of 9
+    calls a size, the sizes in turns so that a drift of the card's clock
+    touches both, with the spread), the clusters that fit, and whether
+    ``LSTM_FWD_ROUTE`` takes the faster size at every shape: the
+    measurement behind the route."""
+    slower = []
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[-1]
+        for T, B, D, H in LSTM_SHAPES[1:]:
+            args, _ = lstm_inputs(torch, T, B, D, H, seed=T)
+            x, Wi, Wh, b, h0, c0 = (a.to(dtype) for a in args)
+            xi = torch.addmm(b.float(), x.reshape(T * B, D).float(), Wi.float()).to(dtype)
+            xi = xi.reshape(T, B, -1)
+            route = fl.lstm_fwd_plan(B, H, x.element_size())[0]
+            fns = {cl: functools.partial(fl.lstm_forward, xi, Wh, h0, c0, cl=cl)
+                   for cl in fl.FWD_CLUSTER_SIZES}
+            runs = {cl: [] for cl in fns}
+            ms = {}
+            with uncounted(fl.lstm_forward, fl.lstm_backward):
+                for fn in fns.values():
+                    fn()
+                for _ in range(9):
+                    for cl, fn in fns.items():
+                        runs[cl] += cuda_ms(torch, fn, reps=1)
+                for cl in fns:
+                    rows = fl.lstm_fwd_plan(B, H, x.element_size(), cl)[1]
+                    ms[cl], spr = spread(runs[cl])
+                    fit = fl.fwd_clusters_that_fit(H, rows, cl, dtype)
+                    log(f"  lstm_forward {dn} (T, B, H) = ({T}, {B}, {H}) on clusters of {cl}"
+                        f" ({rows} rows, {-(-B // rows)} clusters, {fit} fit at once):"
+                        f" {ms[cl]:.4f} ms (median of 9 in turns, spread {spr:.2%};"
+                        f" {1e3 * ms[cl] / T:.3f} us a step)")
+            if ms[route] > min(ms.values()):
+                slower.append(f"{dn} T={T}")
+    log(f"  LSTM_FWD_ROUTE = {fl.LSTM_FWD_ROUTE}: "
+        + (f"takes the slower size at {slower}" if slower
+           else "takes the faster size at every shape of the sweep"))
 
 
 def lstm_bwd_sweep(torch, fl):
@@ -3446,6 +3530,7 @@ def main(argv=None) -> int:
             cluster_launches=cluster_launches[name],
             **({"block_kernel_ms": b_ms} if b_ms is not None else {}),
         ))
+    lstm_fwd_sweep(torch, fl)
     lstm_bwd_sweep(torch, fl)
     # the LSTM rows at the wider tier shape, (T, B, H) = (256, 32, 256), f32 and bf16
     lstm = {**lstm_timings(torch, fl, torch.float32)[LSTM_SHAPES[-1][0]],

@@ -32,12 +32,21 @@
 // for the whole walk.  The time loop runs inside one launch; clusters
 // (groups of batch rows) are independent.
 //
-// Forward (8 blocks a cluster): each block computes its units' gates for the
-// group's rows from the whole h_{t-1}, and after each step the blocks gather
-// the new h from each other through distributed shared memory, with one
-// cluster barrier a step.  Limits: H a multiple of 8, the Wh slice (2*H*H
-// bytes in f32) plus buffers within a block's 227 KB of shared memory (up to
-// H = 336 in f32).
+// Forward (8 or 16 blocks a cluster, ops/fused_lstm.py's LSTM_FWD_ROUTE):
+// each block computes its units' gates for the group's rows from the whole
+// h_{t-1}.  A version of this kernel gathered the new h after each step, a
+// scalar remote load at a time after a full cluster barrier, and summed its
+// products with a scalar load of the slice and of h for every FMA, the
+// partial sums meeting in shared memory behind a block barrier: ~5.7 us a
+// step.  Now each block pushes its new h (BC x H/CL) into every block's
+// buffer for the next step (two buffers, by step parity), so one split
+// cluster barrier a step is safe, with the step's device stores and the load
+// of the xi two steps on between its arrive and its wait; f32 products read
+// the slice and h 16 bytes at a time without bank conflicts, the partial
+// sums meeting by shuffles inside a warp; bf16 products run on the tensor
+// cores (mma.sync, bf16 in, f32 sums).  Limits: H a multiple of the cluster
+// size and of 4, BC x H/CL <= 256, bf16 at most 32 units a block, and the
+// slice (4H/CL rows of about H + 8 elements) plus the h buffers within 227 KB.
 //
 // Backward walk (8 or 16 blocks a cluster, ops/fused_lstm.py's
 // LSTM_BWD_ROUTE): dh_{t-1} = dz_t Wh^T needs every block's dz.  Gathering
@@ -88,7 +97,6 @@
 namespace cg = cooperative_groups;
 using namespace nvcuda;
 
-#define MMK_LSTM_CLUSTER 8
 #define MMK_LSTM_THREADS 256
 
 __device__ __forceinline__ float mmk_sigmoid(float x) { return 1.0f / (1.0f + expf(-x)); }
@@ -99,6 +107,12 @@ __device__ __forceinline__ float mmk_ld(const float* p) { return *p; }
 __device__ __forceinline__ float mmk_ld(const __nv_bfloat16* p) { return __bfloat162float(*p); }
 __device__ __forceinline__ void mmk_st(float* p, float v) { *p = v; }
 __device__ __forceinline__ void mmk_st(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
+template <typename S>
+__device__ __forceinline__ S mmk_from_float(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 mmk_from_float<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);
+}
 template <typename S>
 __device__ __forceinline__ float mmk_round(float v) { return v; }
 template <>
@@ -133,100 +147,373 @@ __device__ __forceinline__ void mmk_lds_rows(const float* p, float* d) {
   }
 }
 
-// Forward.  Cluster `blockIdx.x / 8` owns batch rows [b0, b0 + BC); block
-// rank q owns hidden units [q*U, (q+1)*U), U = H/8, i.e. gate columns
-// g*H + q*U + u of Wh.  Thread p < BC*U owns the pair (row p/U, unit p%U) and
-// keeps its c in a register; for the recurrent product, thread
-// (j, s) = (tid % NC, tid / NC) sums column j over k = s, s+KS, ...
-template <typename S, int BC>
-__global__ void __cluster_dims__(MMK_LSTM_CLUSTER, 1, 1) __launch_bounds__(MMK_LSTM_THREADS)
+// Forward.  A cluster of CL blocks (8 or 16) owns batch rows [b0, b0 + BC);
+// block rank q owns hidden units [q*U, (q+1)*U), U = H/CL, i.e. the gate
+// columns g*H + q*U + u of Wh, and keeps them in shared memory for the whole
+// walk.  Every block holds the whole h_{t-1} of the group's rows in one of
+// two buffers (by step parity).  Step t: the block's product z = h_{t-1} Wh
+// over its columns, the cell of each (row, unit) it owns, then its new h
+// pushed into the other parity's buffer of every block of the cluster
+// (itself too), and one cluster barrier, split: h, c and the gates of step t
+// are stored and xi of step t+2 is loaded between its arrive and its wait.
+// A block pushing at step t has passed barrier t-1, so every peer has
+// finished step t-1's product, the last reader of that buffer.
+//
+// f32 streams: the product on the CUDA cores.  The slice is stored gate-major
+// and transposed, ws[(g*U + u)*HP + k] = Wh[k, g*H + q*U + u]; a warp owns
+// UW units and splits k among KSW = 32/UW lanes a unit (lane = ks*UW + uw),
+// each lane summing the four gates of its unit for every row over the float4
+// chunks c = ks, ks + KSW, ... of k: per chunk four 16-byte loads of the
+// slice (row pitch HP puts a phase's eight lanes on distinct banks) and one
+// of h a row (a broadcast).  The KSW partial sums of a unit meet by shuffles
+// inside the warp: the rows are split among the lanes first (log2 BC
+// halving steps), the rest is a butterfly, so that each of the KSW/BC lanes
+// of a (row, unit) holds its four sums; the first of them owns the pair.
+// bf16 streams: the product on the tensor cores, mma.sync m16n8k16 (bf16
+// in, f32 sums): warp w's 16 gate columns (units 4w .. 4w+3, m = g*4 + u%4)
+// are M, the cluster's rows (BC padded to 8) N, k in tiles of 16; the A
+// fragments of the first 16 tiles (8 on clusters of 16) stay in registers,
+// the B fragments come from the bf16 h buffer (rows padded to 8, zero).
+// Lane l holds two gates of (unit (l>>2)&3, rows 2(l&3) and 2(l&3)+1); one
+// exchange with lane l^16 gives it the four gates of one of them.
+// The stream type's h (bf16: rounded once) is what the buffers carry.
+
+
+__host__ __device__ inline int mmk_pow2_floor(int x) {
+  int p = 1;
+  while (2 * p <= x) p *= 2;
+  return p;
+}
+
+// The forward's layout for hidden size H on clusters of `cl` blocks.  f32:
+// lanes a unit KSW (a power of two, U*KSW <= 256 threads), units a warp UW,
+// the slice's row pitch HP.  bf16: warps with columns NWM (4 units each),
+// k padded to KP, the pitch HB of the slice's rows and of the h buffers'
+// (in elements; HB/2 = 4 mod 32 words keeps a fragment load on 32 banks).
+struct FwdShape {
+  int U, KSW, UW, HP, NWM, KP, HB;
+};
+
+__host__ __device__ inline FwdShape fwd_shape(int H, int cl) {
+  FwdShape s;
+  s.U = H / cl;
+  const int per = s.U > 0 ? MMK_LSTM_THREADS / s.U : 1;
+  s.KSW = mmk_pow2_floor(per < 1 ? 1 : (per > 32 ? 32 : per));
+  s.UW = 32 / s.KSW;
+  s.HP = (H + 31) / 32 * 32 + (s.UW >= 8 ? 4 : (32 / s.UW) % 32);
+  s.NWM = (s.U + 3) / 4;
+  s.KP = (H + 15) / 16 * 16;
+  s.HB = (s.KP + 63) / 64 * 64 + 8;
+  return s;
+}
+
+// The product of one step for the lane's (row, unit): z[g] = sum_k h[r, k]
+// Wh[k, g*H + q*U + u], g = i, f, g, o.
+template <typename S, int CL, int BC>
+struct FwdProduct;
+
+template <int CL, int BC>
+struct FwdProduct<float, CL, BC> {
+  const float* w0;  // the lane's unit's row of gate i in the slice
+  int H, HP, U, UW, KSW, lane, u, cs;
+  // which (row, unit) the lane's sums are for, and whether it owns the pair
+  __device__ void init(const FwdShape& sh, int H_, int warp, int lane_, int* r, int* u_,
+                       bool* own) {
+    H = H_, HP = sh.HP, U = sh.U, UW = sh.UW, KSW = sh.KSW, lane = lane_;
+    const int uw = lane % UW, ks = lane / UW, per = KSW / BC;
+    u = warp * UW + uw;
+    cs = u < U ? ks : H;  // lanes past the units sum nothing but join the shuffles
+    *u_ = u, *r = ks / per;
+    *own = u < U && ks % per == 0;
+  }
+  __device__ void load(const float* ws, int) { w0 = ws + (size_t)(u < U ? u : 0) * HP; }
+  __device__ __forceinline__ void run(const float* hs, float* z) const {
+    float v[4 * BC];
+#pragma unroll
+    for (int i = 0; i < 4 * BC; ++i) v[i] = 0.0f;
+    const size_t gs = (size_t)U * HP;
+    const int nch = H / 4;
+#pragma unroll 2
+    for (int c = cs; c < nch; c += KSW) {
+      float4 w[4];
+#pragma unroll
+      for (int g = 0; g < 4; ++g) w[g] = *reinterpret_cast<const float4*>(w0 + g * gs + 4 * c);
+#pragma unroll
+      for (int rr = 0; rr < BC; ++rr) {
+        const float4 h = *reinterpret_cast<const float4*>(hs + rr * H + 4 * c);
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+          float& a = v[rr * 4 + g];
+          a = fmaf(h.x, w[g].x, a);
+          a = fmaf(h.y, w[g].y, a);
+          a = fmaf(h.z, w[g].z, a);
+          a = fmaf(h.w, w[g].w, a);
+        }
+      }
+    }
+    // split the rows among the lanes of a unit (high ks bits first) ...
+#pragma unroll
+    for (int l = 0; (BC >> (l + 1)) > 0; ++l) {
+      constexpr int n = 4 * BC;
+      const int half = 4 * (BC >> (l + 1)), off = (KSW >> (l + 1)) * UW;
+      const bool up = (lane & off) != 0;
+#pragma unroll
+      for (int i = 0; i < n / 2; ++i) {
+        if (i < half) {
+          const float keep = up ? v[i + half] : v[i], send = up ? v[i] : v[i + half];
+          v[i] = keep + __shfl_xor_sync(0xffffffffu, send, off);
+        }
+      }
+    }
+    // ... then sum the four gates over the lanes left
+    for (int off = (KSW / BC / 2) * UW; off >= UW && off > 0; off >>= 1)
+#pragma unroll
+      for (int g = 0; g < 4; ++g) v[g] += __shfl_xor_sync(0xffffffffu, v[g], off);
+#pragma unroll
+    for (int g = 0; g < 4; ++g) z[g] = v[g];
+  }
+};
+
+__device__ __forceinline__ void mmk_mma_bf16(float* d, const uint32_t* a, uint32_t b0,
+                                             uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7},"
+      " {%8,%9}, {%0,%1,%2,%3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+template <int CL, int BC>
+struct FwdProduct<__nv_bfloat16, CL, BC> {
+  // k tiles whose A fragments stay in registers: 16 (H <= 256) on clusters of
+  // 8; 8 on 16, whose blocks share an SM two by two only within 128 registers
+  static constexpr int KTR = CL == 8 ? 16 : 8;
+  uint32_t af[KTR][4];
+  const uint32_t* wsw;  // the lane's first A word in the slice
+  int KT, HBW, lane, G, boff;
+  bool active;
+  __device__ void init(const FwdShape& sh, int H, int warp, int lane_, int* r, int* u,
+                       bool* own) {
+    lane = lane_, KT = sh.KP / 16, HBW = sh.HB / 2, G = (lane >> 4) & 1;
+    active = warp < sh.NWM;
+    *u = 4 * warp + ((lane >> 2) & 3), *r = 2 * (lane & 3) + G;
+    *own = active && *u < sh.U && *r < BC;
+    boff = (lane >> 2) * HBW + (lane & 3);
+    (void)H;
+  }
+  // after the slice is in shared memory: the A fragments into registers
+  __device__ void load(const __nv_bfloat16* ws, int warp) {
+    wsw = reinterpret_cast<const uint32_t*>(ws) + (size_t)(warp * 16 + (lane >> 2)) * HBW +
+          (lane & 3);
+    if (!active) return;
+#pragma unroll
+    for (int kt = 0; kt < KTR; ++kt) {
+      if (kt < KT) {
+        const uint32_t* p = wsw + kt * 8;
+        af[kt][0] = p[0], af[kt][1] = p[8 * HBW], af[kt][2] = p[4], af[kt][3] = p[8 * HBW + 4];
+      }
+    }
+  }
+  __device__ __forceinline__ void run(const __nv_bfloat16* hs, float* z) const {
+    float acc[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[j][i] = 0.0f;
+    if (active) {
+      const uint32_t* hw = reinterpret_cast<const uint32_t*>(hs) + boff;
+#pragma unroll
+      for (int kt = 0; kt < KTR; ++kt)
+        if (kt < KT) mmk_mma_bf16(acc[kt & 3], af[kt], hw[kt * 8], hw[kt * 8 + 4]);
+      for (int kt = KTR; kt < KT; kt += 4) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (kt + j < KT) {
+            const uint32_t* p = wsw + (kt + j) * 8;
+            const uint32_t a[4] = {p[0], p[8 * HBW], p[4], p[8 * HBW + 4]};
+            mmk_mma_bf16(acc[j], a, hw[(kt + j) * 8], hw[(kt + j) * 8 + 4]);
+          }
+        }
+      }
+    }
+    float c[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) c[i] = (acc[0][i] + acc[1][i]) + (acc[2][i] + acc[3][i]);
+    // c0, c1: gate G of rows 2(l&3), +1; c2, c3: gate G + 2.  Lane l^16 holds
+    // gates 1 - G and 3 - G of the same rows.
+    const float s0 = G ? c[0] : c[1], s1 = G ? c[2] : c[3];
+    const float r0 = __shfl_xor_sync(0xffffffffu, s0, 16);
+    const float r1 = __shfl_xor_sync(0xffffffffu, s1, 16);
+    z[0] = G ? r0 : c[0];
+    z[1] = G ? c[1] : r0;
+    z[2] = G ? r1 : c[2];
+    z[3] = G ? c[3] : r1;
+  }
+};
+
+// The inputs of a step for the lane's pair: xi's four gates.
+struct FwdIn {
+  float x[4];
+};
+
+// What a block's forward steps share (the kernel below says what each is).
+template <typename S, int CL, int BC>
+struct FwdCtx {
+  const S* xi;
+  S *h_all, *c_all, *gates, *hst;
+  S* hs;  // the h buffers, (2, rows, HS)
+  int B, H, H4, U, HS, q, b, hu, r, u, u0, nu, vb;
+  bool own, valid, pusher;
+  FwdProduct<S, CL, BC> prod;
+};
+
+template <typename S, int CL, int BC>
+__device__ __forceinline__ void fwd_load(const FwdCtx<S, CL, BC>& x, int t, int T, FwdIn& in) {
+  if (!x.valid || t >= T) return;
+  const S* p = x.xi + ((size_t)t * x.B + x.b) * x.H4 + x.hu;
+#pragma unroll
+  for (int g = 0; g < 4; ++g) in.x[g] = mmk_ld(p + g * x.H);
+}
+
+// Copies `bytes` bytes from local shared memory to (a peer's) shared memory
+// in pieces of `vb` bytes (16, 8, 4 or 2; both addresses aligned to it).
+__device__ __forceinline__ void fwd_copy(void* dst, const void* src, int bytes, int vb) {
+  char* d = reinterpret_cast<char*>(dst);
+  const char* s = reinterpret_cast<const char*>(src);
+  for (int o = 0; o < bytes; o += vb) {
+    if (vb == 16)
+      *reinterpret_cast<uint4*>(d + o) = *reinterpret_cast<const uint4*>(s + o);
+    else if (vb == 8)
+      *reinterpret_cast<uint2*>(d + o) = *reinterpret_cast<const uint2*>(s + o);
+    else if (vb == 4)
+      *reinterpret_cast<uint32_t*>(d + o) = *reinterpret_cast<const uint32_t*>(s + o);
+    else
+      *reinterpret_cast<unsigned short*>(d + o) = *reinterpret_cast<const unsigned short*>(s + o);
+  }
+}
+
+// Step t: the product over h_{t-1} (buffer t&1), the cell, the push of the
+// new h into every block's buffer (t+1)&1, the split cluster barrier with
+// step t's stores and step t+2's loads (into `in`) between arrive and wait.
+template <typename S, int CL, int BC>
+__device__ __forceinline__ void fwd_step(FwdCtx<S, CL, BC>& x, int t, int T, FwdIn& in,
+                                         float& c) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int par = t & 1;
+  const S* hcur = x.hs + (size_t)par * (sizeof(S) == 2 ? 8 : BC) * x.HS;
+  S* hnext = x.hs + (size_t)(par ^ 1) * (sizeof(S) == 2 ? 8 : BC) * x.HS;
+  float z[4];
+  x.prod.run(hcur, z);
+  float ig = 0.0f, fg = 0.0f, gg = 0.0f, og = 0.0f, h = 0.0f;
+  if (x.own) {
+    ig = mmk_sigmoid(in.x[0] + z[0]);
+    fg = mmk_sigmoid(in.x[1] + z[1]);
+    gg = tanhf(in.x[2] + z[2]);
+    og = mmk_sigmoid(in.x[3] + z[3]);
+    c = fg * c + ig * gg;
+    h = mmk_round<S>(og * tanhf(c));
+    mmk_st(x.hst + x.r * x.U + x.u, h);
+  }
+  __syncwarp();
+  if (x.pusher) {
+    // the warp's units [u0, u0 + nu) of every row, to every block
+    const int lane = threadIdx.x & 31, bytes = x.nu * (int)sizeof(S);
+    for (int e = lane; e < BC * CL; e += 32) {
+      const int rr = e / CL, pq = e % CL;
+      S* dst = cluster.map_shared_rank(hnext + rr * x.HS + x.q * x.U + x.u0, pq);
+      fwd_copy(dst, x.hst + rr * x.U + x.u0, bytes, x.vb);
+    }
+  }
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+  if (x.valid) {
+    const size_t row = (size_t)t * x.B + x.b;
+    mmk_st(x.h_all + row * x.H + x.hu, h);
+    mmk_st(x.c_all + row * x.H + x.hu, c);
+    S* gr = x.gates + row * x.H4 + x.hu;
+    mmk_st(gr, ig);
+    mmk_st(gr + x.H, fg);
+    mmk_st(gr + 2 * x.H, gg);
+    mmk_st(gr + 3 * x.H, og);
+  }
+  fwd_load(x, t + 2, T, in);
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+template <typename S, int CL, int BC>
+__global__ void __launch_bounds__(MMK_LSTM_THREADS, CL == 16 ? 2 : 1)
 lstm_fwd_kernel(const S* __restrict__ xi, const S* __restrict__ wh,
                 const S* __restrict__ h0, const S* __restrict__ c0,
                 S* __restrict__ h_all, S* __restrict__ c_all,
                 S* __restrict__ gates, int T, int B, int H) {
   cg::cluster_group cluster = cg::this_cluster();
-  const int q = (int)cluster.block_rank();
-  const int b0 = (int)(blockIdx.x / MMK_LSTM_CLUSTER) * BC;
-  const int U = H / MMK_LSTM_CLUSTER, NC = 4 * U, H4 = 4 * H;
-  const int KS = MMK_LSTM_THREADS / NC;
-  const int tid = threadIdx.x;
+  constexpr bool BF = sizeof(S) == 2;
+  constexpr int HR = BF ? 8 : BC;  // rows of an h buffer
+  const FwdShape sh = fwd_shape(H, CL);
+  const int U = sh.U, H4 = 4 * H;
+  const int q = (int)cluster.block_rank(), b0 = (int)(blockIdx.x / CL) * BC;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  FwdCtx<S, CL, BC> x;
+  x.xi = xi, x.h_all = h_all, x.c_all = c_all, x.gates = gates;
+  x.B = B, x.H = H, x.H4 = H4, x.U = U, x.q = q;
+  x.HS = BF ? sh.HB : H;
+  const int wrows = BF ? 16 * sh.NWM : 4 * U;  // rows of the slice
+  const int wpitch = BF ? sh.HB : sh.HP;
 
-  extern __shared__ float smem[];
-  S* ws = reinterpret_cast<S*>(smem);   // (H, NC): ws[k*NC + j] = Wh[k, col(j)]
-  float* hs = reinterpret_cast<float*>(ws + (size_t)H * NC);  // (BC, H): h_{t-1} of the group's rows
-  float* hown = hs + BC * H;            // (2, BC, U): this block's new h, by step parity
-  float* red = hown + 2 * BC * U;       // (KS, BC, NC): partial recurrent sums
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  S* ws = reinterpret_cast<S*>(smem_raw);              // the slice, (wrows, wpitch)
+  x.hs = ws + (size_t)wrows * wpitch;                   // (2, HR, HS): h by step parity
+  x.hst = x.hs + (size_t)2 * HR * x.HS;                 // (BC, U): this block's new h
 
-  for (int idx = tid; idx < H * NC; idx += MMK_LSTM_THREADS) {
-    const int k = idx / NC, j = idx % NC;
-    ws[idx] = wh[(size_t)k * H4 + (j / U) * H + q * U + (j % U)];
+  int r, u;
+  bool own;
+  x.prod.init(sh, H, warp, lane, &r, &u, &own);
+  x.r = r < BC ? r : 0, x.u = u < U ? u : 0, x.own = own;
+  x.b = b0 + x.r, x.hu = q * U + x.u;
+  x.valid = own && x.b < B;
+  // the units whose new h this warp pushes
+  x.u0 = warp * (BF ? 4 : sh.UW);
+  x.nu = x.u0 < U ? min(U - x.u0, BF ? 4 : sh.UW) : 0;
+  x.pusher = x.nu > 0;
+  {
+    const int es = (int)sizeof(S);
+    const int al = (x.nu * es) | (x.u0 * es) | (U * es) | (x.HS * es) | 16;
+    x.vb = al & -al;  // the largest power of two (<= 16) dividing them all
   }
-  for (int idx = tid; idx < BC * H; idx += MMK_LSTM_THREADS) {
-    const int b = b0 + idx / H;
-    hs[idx] = b < B ? mmk_ld(h0 + (size_t)b * H + idx % H) : 0.0f;
+
+  // the slice (loads unrolled: each waits on L2 otherwise, ~50 us a launch)
+  if (BF) {
+#pragma unroll 8
+    for (int idx = tid; idx < wrows * wpitch; idx += MMK_LSTM_THREADS) {
+      const int k = idx / wrows, jj = idx % wrows;
+      const int w = jj / 16, m = jj % 16, uu = 4 * w + (m & 3), g = m >> 2;
+      ws[(size_t)jj * wpitch + k] = (uu < U && k < H)
+                                        ? wh[(size_t)k * H4 + g * H + q * U + uu]
+                                        : mmk_from_float<S>(0.0f);
+    }
+  } else {
+#pragma unroll 8
+    for (int idx = tid; idx < H * 4 * U; idx += MMK_LSTM_THREADS) {
+      const int k = idx / (4 * U), j = idx % (4 * U), g = j / U, uu = j % U;
+      ws[(size_t)j * wpitch + k] = wh[(size_t)k * H4 + g * H + q * U + uu];
+    }
   }
-  const bool own = tid < BC * U;
-  const int r = own ? tid / U : 0, u = own ? tid % U : 0;
-  const int b = b0 + r, hu = q * U + u;
-  const bool valid = own && b < B;
-  float c = valid ? mmk_ld(c0 + (size_t)b * H + hu) : 0.0f;
-  float xv[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  if (valid)
-    for (int g = 0; g < 4; ++g) xv[g] = mmk_ld(xi + (size_t)b * H4 + g * H + hu);
-  const int j = tid % NC, s = tid / NC;
+  for (int idx = tid; idx < 2 * HR * x.HS; idx += MMK_LSTM_THREADS) {
+    const int p = idx / (HR * x.HS), rr = (idx / x.HS) % HR, k = idx % x.HS;
+    x.hs[idx] = (p == 0 && rr < BC && k < H && b0 + rr < B) ? h0[(size_t)(b0 + rr) * H + k]
+                                                            : mmk_from_float<S>(0.0f);
+  }
+  float c = x.valid ? mmk_ld(c0 + (size_t)x.b * H + x.hu) : 0.0f;
+  FwdIn xa = {}, xb = {};
+  fwd_load(x, 0, T, xa);
+  fwd_load(x, 1, T, xb);
   __syncthreads();
-
-  for (int t = 0; t < T; ++t) {
-    if (s < KS) {
-      float acc[BC];
-#pragma unroll
-      for (int rr = 0; rr < BC; ++rr) acc[rr] = 0.0f;
-      for (int k = s; k < H; k += KS) {
-        const float w = mmk_ld(ws + k * NC + j);
-#pragma unroll
-        for (int rr = 0; rr < BC; ++rr) acc[rr] = fmaf(hs[rr * H + k], w, acc[rr]);
-      }
-#pragma unroll
-      for (int rr = 0; rr < BC; ++rr) red[(s * BC + rr) * NC + j] = acc[rr];
-    }
-    __syncthreads();
-    float* hnew = hown + (t & 1) * BC * U;
-    if (own) {
-      float z[4];
-#pragma unroll
-      for (int g = 0; g < 4; ++g) {
-        float v = xv[g];
-        for (int ss = 0; ss < KS; ++ss) v += red[(ss * BC + r) * NC + g * U + u];
-        z[g] = v;
-      }
-      const float ig = mmk_sigmoid(z[0]), fg = mmk_sigmoid(z[1]);
-      const float gg = tanhf(z[2]), og = mmk_sigmoid(z[3]);
-      c = fg * c + ig * gg;
-      const float h = mmk_round<S>(og * tanhf(c));
-      hnew[tid] = h;
-      if (valid) {
-        const size_t row = (size_t)t * B + b;
-        mmk_st(h_all + row * H + hu, h);
-        mmk_st(c_all + row * H + hu, c);
-        S* gr = gates + row * H4 + hu;
-        mmk_st(gr, ig);
-        mmk_st(gr + H, fg);
-        mmk_st(gr + 2 * H, gg);
-        mmk_st(gr + 3 * H, og);
-        if (t + 1 < T)
-          for (int g = 0; g < 4; ++g) xv[g] = mmk_ld(xi + (row + B) * H4 + g * H + hu);
-      }
-    }
-    cluster.sync();
-    for (int idx = tid; idx < BC * H; idx += MMK_LSTM_THREADS) {
-      const int rr = idx / H, k = idx % H;
-      const float* src = cluster.map_shared_rank(hnew, k / U);
-      hs[idx] = src[rr * U + k % U];
-    }
-    __syncthreads();
-  }
-  // no block may leave while another still reads its shared memory
+  x.prod.load(ws, warp);
+  // every block has started (its shared memory may be written) and holds its slice
   cluster.sync();
+
+  for (int t = 0; t < T; t += 2) {
+    fwd_step<S, CL, BC>(x, t, T, xa, c);
+    if (t + 1 < T) fwd_step<S, CL, BC>(x, t + 1, T, xb, c);
+  }
 }
 
 // Backward: the reverse-time walk.  A cluster of CL blocks (8 or 16) owns
@@ -585,12 +872,14 @@ lstm_dwh_sum_kernel(const float* __restrict__ part, S* __restrict__ dwh, int spl
 }
 
 // Shared memory of the forward for hidden size H, `bc` batch rows per
-// cluster and `es` bytes a stream element (the Wh slice's type; the other
-// buffers are f32); of the backward on clusters of `cl` blocks.
-static size_t fwd_smem(int H, int bc, int es) {
-  const int U = H / MMK_LSTM_CLUSTER, NC = 4 * U, KS = MMK_LSTM_THREADS / NC;
-  return (size_t)es * H * NC +
-         sizeof(float) * ((size_t)bc * H + 2 * bc * U + (size_t)KS * bc * NC);
+// cluster, clusters of `cl` blocks and `es` bytes a stream element: the
+// slice, the two h buffers and the block's new h, all of the stream type;
+// of the backward likewise.
+static size_t fwd_smem(int H, int bc, int cl, int es) {
+  const FwdShape s = fwd_shape(H, cl);
+  if (es == 4)
+    return sizeof(float) * ((size_t)4 * s.U * s.HP + 2 * (size_t)bc * H + (size_t)bc * s.U);
+  return 2 * ((size_t)16 * s.NWM * s.HB + 2 * 8 * (size_t)s.HB + (size_t)bc * s.U);
 }
 
 static size_t bwd_smem(int H, int bc, int cl, int es) {
@@ -599,50 +888,19 @@ static size_t bwd_smem(int H, int bc, int cl, int es) {
          sizeof(float) * ((size_t)NC * bc + (size_t)JS * bc * H + 2 * (size_t)cl * bc * U);
 }
 
-template <typename K>
-static int launch_cluster(K kernel, size_t smem, int B, int bc, cudaStream_t stream,
-                          void** args) {
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  const int clusters = (B + bc - 1) / bc;
-  e = cudaLaunchKernel((const void*)kernel, dim3(clusters * MMK_LSTM_CLUSTER),
-                       dim3(MMK_LSTM_THREADS), args, smem, stream);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
-}
-
-template <typename S>
-static int forward(const void* xi_, const void* wh_, const void* h0_, const void* c0_,
-                   void* h_all_, void* c_all_, void* gates_, int T, int B, int H, int bc,
-                   cudaStream_t s) {
-  const S *xi = (const S*)xi_, *wh = (const S*)wh_, *h0 = (const S*)h0_, *c0 = (const S*)c0_;
-  S *h_all = (S*)h_all_, *c_all = (S*)c_all_, *gates = (S*)gates_;
-  void* args[] = {&xi, &wh, &h0, &c0, &h_all, &c_all, &gates, &T, &B, &H};
-  const size_t smem = fwd_smem(H, bc, sizeof(S));
-  switch (bc) {
-    case 1: return launch_cluster(lstm_fwd_kernel<S, 1>, smem, B, bc, s, args);
-    case 2: return launch_cluster(lstm_fwd_kernel<S, 2>, smem, B, bc, s, args);
-    case 4: return launch_cluster(lstm_fwd_kernel<S, 4>, smem, B, bc, s, args);
-    case 8: return launch_cluster(lstm_fwd_kernel<S, 8>, smem, B, bc, s, args);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
-// The walk on clusters of CL blocks launched with cudaLaunchKernelEx (16 is a
-// non-portable cluster size); with `query` set, only the clusters of the
-// card can hold at once, in *clusters.
-template <typename S, int CL, int BC>
-static int walk(void** args, int B, int H, cudaStream_t s, int* clusters, int query) {
-  auto kernel = lstm_bwd_kernel<S, CL, BC>;
-  const size_t smem = bwd_smem(H, BC, CL, sizeof(S));
+// Launches `kernel` on clusters of CL blocks, `bc` rows each, with
+// cudaLaunchKernelEx (16 is a non-portable cluster size); with `query` set,
+// only the clusters the card can hold at once, in *clusters.
+template <int CL, typename K>
+static int launch_clusters(K kernel, size_t smem, void** args, int B, int bc, cudaStream_t s,
+                           int* clusters, int query) {
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (e != cudaSuccess) return (int)e;
   e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr[1];
-  cfg.gridDim = dim3(((B + BC - 1) / BC) * CL);
+  cfg.gridDim = dim3(((B + bc - 1) / bc) * CL);
   cfg.blockDim = dim3(MMK_LSTM_THREADS);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = s;
@@ -656,6 +914,56 @@ static int walk(void** args, int B, int H, cudaStream_t s, int* clusters, int qu
   e = cudaLaunchKernelExC(&cfg, (const void*)kernel, args);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+// The forward's limits (ops/fused_lstm.py's lstm_fwd_plan raises outside
+// them): H a multiple of the cluster size and of 4, a lane a (row, unit)
+// after the product (bc * U <= 256), bf16 at most 8 warps of 4 units.
+static bool fwd_fits(int H, int bc, int cl, int es) {
+  const int U = H / cl;
+  return H >= cl && H % cl == 0 && H % 4 == 0 && bc * U <= MMK_LSTM_THREADS &&
+         (es == 4 || U <= 32);
+}
+
+template <typename S, int CL>
+static int fwd_rows(void** args, int B, int H, int bc, cudaStream_t s, int* clusters,
+                    int query) {
+  const size_t smem = fwd_smem(H, bc, CL, sizeof(S));
+  switch (bc) {
+    case 1: return launch_clusters<CL>(lstm_fwd_kernel<S, CL, 1>, smem, args, B, bc, s, clusters, query);
+    case 2: return launch_clusters<CL>(lstm_fwd_kernel<S, CL, 2>, smem, args, B, bc, s, clusters, query);
+    case 4: return launch_clusters<CL>(lstm_fwd_kernel<S, CL, 4>, smem, args, B, bc, s, clusters, query);
+    case 8: return launch_clusters<CL>(lstm_fwd_kernel<S, CL, 8>, smem, args, B, bc, s, clusters, query);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <typename S>
+static int fwd_any(void** args, int B, int H, int bc, int cl, cudaStream_t s, int* clusters,
+                   int query) {
+  if (!fwd_fits(H, bc, cl, sizeof(S))) return (int)cudaErrorInvalidValue;
+  switch (cl) {
+    case 8: return fwd_rows<S, 8>(args, B, H, bc, s, clusters, query);
+    case 16: return fwd_rows<S, 16>(args, B, H, bc, s, clusters, query);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <typename S>
+static int forward(const void* xi_, const void* wh_, const void* h0_, const void* c0_,
+                   void* h_all_, void* c_all_, void* gates_, int T, int B, int H, int bc,
+                   int cl, cudaStream_t s) {
+  const S *xi = (const S*)xi_, *wh = (const S*)wh_, *h0 = (const S*)h0_, *c0 = (const S*)c0_;
+  S *h_all = (S*)h_all_, *c_all = (S*)c_all_, *gates = (S*)gates_;
+  void* args[] = {&xi, &wh, &h0, &c0, &h_all, &c_all, &gates, &T, &B, &H};
+  return fwd_any<S>(args, B, H, bc, cl, s, nullptr, 0);
+}
+
+// The walk on clusters of CL blocks (see launch_clusters).
+template <typename S, int CL, int BC>
+static int walk(void** args, int B, int H, cudaStream_t s, int* clusters, int query) {
+  return launch_clusters<CL>(lstm_bwd_kernel<S, CL, BC>, bwd_smem(H, BC, CL, sizeof(S)), args,
+                             B, BC, s, clusters, query);
 }
 
 template <typename S, int CL>
@@ -714,16 +1022,25 @@ static int backward(const void* dh_all_, const void* dh_T_, const void* dc_T_,
 
 extern "C" {
 
-// Shared memory (bytes) the forward needs for hidden size H, `bc` batch rows
-// per cluster and `es` bytes a stream element (4 or 2), and the backward on
-// clusters of `cl` blocks; the wrapper checks them against the card.
-long long mmk_lstm_fwd_smem(int H, int bc, int es) { return (long long)fwd_smem(H, bc, es); }
+// Shared memory (bytes) the forward and the backward need for hidden size H,
+// `bc` batch rows per cluster, clusters of `cl` blocks and `es` bytes a
+// stream element (4 or 2); the wrapper checks them against the card.
+long long mmk_lstm_fwd_smem(int H, int bc, int cl, int es) {
+  return (long long)fwd_smem(H, bc, cl, es);
+}
 long long mmk_lstm_bwd_smem(int H, int bc, int cl, int es) {
   return (long long)bwd_smem(H, bc, cl, es);
 }
 
 // The clusters of `cl` blocks (`bc` rows each) the card holds at once for
-// the backward walk at hidden size H, or minus the cudaError_t of the query.
+// the forward or the backward walk at hidden size H, or minus the
+// cudaError_t of the query.
+int mmk_lstm_fwd_clusters(int H, int bc, int cl, int bf16) {
+  int n = 0;
+  const int err = bf16 ? fwd_any<__nv_bfloat16>(nullptr, bc, H, bc, cl, 0, &n, 1)
+                       : fwd_any<float>(nullptr, bc, H, bc, cl, 0, &n, 1);
+  return err != 0 ? -err : n;
+}
 int mmk_lstm_bwd_clusters(int H, int bc, int cl, int bf16) {
   int n = 0;
   const int err = bf16 ? walk_any<__nv_bfloat16>(nullptr, bc, H, bc, cl, 0, &n, 1)
@@ -735,12 +1052,13 @@ int mmk_lstm_bwd_clusters(int H, int bc, int cl, int bf16) {
 // synchronise, and returns the cudaError_t of the launch (0 on success).
 // `bf16` picks the stream type: every tensor argument is __nv_bfloat16 if it
 // is set, float otherwise (dwh_part is f32 either way).
+// The forward runs on clusters of `cl` blocks, `bc` rows each.
 int mmk_lstm_forward(const void* xi, const void* wh, const void* h0, const void* c0,
                      void* h_all, void* c_all, void* gates, int T, int B, int H, int bc,
-                     int bf16, void* stream) {
+                     int cl, int bf16, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  return bf16 ? forward<__nv_bfloat16>(xi, wh, h0, c0, h_all, c_all, gates, T, B, H, bc, s)
-              : forward<float>(xi, wh, h0, c0, h_all, c_all, gates, T, B, H, bc, s);
+  return bf16 ? forward<__nv_bfloat16>(xi, wh, h0, c0, h_all, c_all, gates, T, B, H, bc, cl, s)
+              : forward<float>(xi, wh, h0, c0, h_all, c_all, gates, T, B, H, bc, cl, s);
 }
 
 // The reverse-time walk (dxi, dh0, dc0) on clusters of `cl` blocks, `bc`

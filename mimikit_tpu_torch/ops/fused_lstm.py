@@ -5,7 +5,11 @@ The kernels (``csrc/fused_lstm.cu``) replace the TPU kernels of
 ``mimikit_tpu/ops/pallas_lstm.py:76`` ``_make_fused_calls``: the forward
 (K3a, ``pallas_call`` at :111) and the backward (K3b, :197).  What bounds
 them on an H100 and what their design does about it is in the source note at
-the top of the ``.cu`` file.
+the top of the ``.cu`` file.  Both recurrences run on thread block clusters
+of 8 or 16 blocks, each block owning H/cl hidden units: the size by stream
+dtype is a route from a sweep on the card (``LSTM_FWD_ROUTE``,
+``LSTM_BWD_ROUTE``), and the plans (``lstm_fwd_plan``, ``lstm_bwd_plan``)
+pick the batch rows a cluster and raise outside the kernels' limits.
 
 * :func:`lstm_forward` ``(xi, Wh, h0, c0) -> (h_all, c_all, gates)``;
 * :func:`lstm_backward` ``(dh_all, dh_T, dc_T, gates, c_all, h_all, h0, c0,
@@ -48,19 +52,31 @@ __all__ = [
     "lstm_forward",
     "lstm_backward",
     "fused_lstm_layer",
-    "lstm_kernel_rows",
+    "lstm_fwd_plan",
     "lstm_bwd_plan",
+    "LSTM_FWD_ROUTE",
     "LSTM_BWD_ROUTE",
     "build_lstm_kernel",
 ]
 
 SOURCE = CSRC / "fused_lstm.cu"
-CLUSTER = 8       # the forward's blocks of a thread block cluster: each owns H/8 hidden units
 THREADS = 256     # threads of a block
 SMEM_PER_BLOCK = 232448  # bytes of shared memory a block may use on sm_90
 _ROW_GROUPS = (1, 2, 4, 8)
-_MAX_CLUSTERS = 8  # groups of batch rows that run at once with room to spare
-BWD_CLUSTER_SIZES = (8, 16)  # the cluster sizes the backward walk is built for
+# the cluster sizes the forward and the backward walk are built for: a
+# block of a cluster of cl owns H/cl hidden units
+FWD_CLUSTER_SIZES = (8, 16)
+BWD_CLUSTER_SIZES = (8, 16)
+# per stream dtype, (cluster size, most clusters) of the forward, as the
+# backward's below.  chip_smoke.py's sweep times both sizes at the training
+# path's tier shapes, B=32 (NVIDIA H100 80GB HBM3, 700 W; PERF.md §6): a
+# step ~2.6 us on 8 blocks against ~3.7 on 16 in f32, ~2.3 against ~2.9 in
+# bf16 (tools/profile_lstm_fwd.py: on 16 the push and barrier cost more, and
+# two blocks may share an SM)
+LSTM_FWD_ROUTE = {
+    torch.float32: (8, 8),
+    torch.bfloat16: (8, 8),
+}
 # per stream dtype, (cluster size, most clusters) of the backward walk: the
 # batch is split into the fewest rows a cluster (1, 2, 4 or 8) that keep the
 # clusters to that many.  chip_smoke.py's sweep times both sizes at the
@@ -151,12 +167,32 @@ def lstm_backward_plain(dh_all, dh_T, dc_T, gates, c_all, h_all, h0, c0, Wh):
 
 # -- the kernels: scope, build, bind, launch ------------------------------------------
 
-def _fwd_smem(H: int, rows: int, esize: int = 4) -> int:
+def _fwd_shape(H: int, cl: int) -> dict:
+    """The forward's layout (``fwd_shape`` in the .cu) on clusters of ``cl``:
+    units a block U; f32: lanes a unit KSW (a power of two, at most 32, U *
+    KSW <= 256), units a warp UW, the slice's row pitch HP (a phase of eight
+    lanes on distinct banks); bf16: warps with columns NWM (4 units each), k
+    padded to KP (tiles of 16), the pitch HB of the slice's and the h
+    buffers' rows."""
+    U = H // cl
+    per = min(32, max(1, THREADS // U)) if U > 0 else 1
+    ksw = 1 << (per.bit_length() - 1)
+    uw = 32 // ksw
+    KP = -(-H // 16) * 16
+    return dict(U=U, KSW=ksw, UW=uw, HP=-(-H // 32) * 32 + (4 if uw >= 8 else (32 // uw) % 32),
+                NWM=-(-U // 4), KP=KP, HB=-(-KP // 64) * 64 + 8)
+
+
+def _fwd_smem(H: int, rows: int, cl: int, esize: int = 4) -> int:
     """Bytes of shared memory of the forward kernel (``fwd_smem`` in the .cu)
-    for ``esize``-byte streams (the Wh slice's element; the rest is f32)."""
-    U = H // CLUSTER
-    NC = 4 * U
-    return esize * H * NC + 4 * (rows * H + 2 * rows * U + (THREADS // NC) * rows * NC)
+    on clusters of ``cl`` blocks for ``esize``-byte streams: the block's Wh
+    slice, two h buffers (by step parity) and its new h, all of the stream
+    type (bf16: the slice in 16-column warp tiles, the h buffers of 8
+    rows)."""
+    s = _fwd_shape(H, cl)
+    if esize == 4:
+        return 4 * (4 * s["U"] * s["HP"] + 2 * rows * H + rows * s["U"])
+    return 2 * (16 * s["NWM"] * s["HB"] + 2 * 8 * s["HB"] + rows * s["U"])
 
 
 def _bwd_smem(H: int, rows: int, cl: int, esize: int = 4) -> int:
@@ -170,25 +206,54 @@ def _bwd_smem(H: int, rows: int, cl: int, esize: int = 4) -> int:
     return esize * NC * (H + 4) + 4 * (NC * rows + JS * rows * H + 2 * cl * rows * U)
 
 
-def lstm_kernel_rows(B: int, H: int, esize: int = 4) -> int:
-    """Batch rows per cluster for the forward kernel at (B, H) on
-    ``esize``-byte streams (4: f32, 2: bf16): the fewest that keep the
-    clusters to at most 8 (64 SMs), within the kernel's limits.  Raises
-    ``ValueError`` outside the scope: H must be a multiple of 8 and the Wh
-    slice plus buffers must fit a block's shared memory (up to H = 336 in
-    f32)."""
-    if B < 1 or H < CLUSTER or H % CLUSTER:
-        raise ValueError(f"the LSTM kernels need B >= 1 and H a multiple of 8, got B={B}, H={H}")
-    U = H // CLUSTER
-    fits = [r for r in _ROW_GROUPS
-            if 4 * U <= THREADS and r * U <= THREADS and _fwd_smem(H, r, esize) <= SMEM_PER_BLOCK]
-    if not fits:
-        raise ValueError(f"H={H} exceeds the LSTM forward kernel's shared-memory budget on"
-                         f" {esize}-byte streams")
-    for r in fits:
-        if -(-B // r) <= _MAX_CLUSTERS:
-            return r
-    return fits[-1]
+def _fwd_fits(H: int, cl: int, rows: int, esize: int) -> str:
+    """Why the forward cannot run (H, ``rows`` a cluster) on clusters of
+    ``cl`` blocks; "" where it can (``fwd_fits`` in the .cu, and the shared
+    memory)."""
+    if cl not in FWD_CLUSTER_SIZES:
+        return f"cluster size {cl} is not one of {FWD_CLUSTER_SIZES}"
+    if H < cl or H % cl or H % 4:
+        return f"H={H} is not a multiple of the cluster size {cl} and of 4"
+    if rows * (H // cl) > THREADS:
+        return f"H={H} at {rows} rows a cluster needs more than {THREADS} threads a block"
+    if esize == 2 and H // cl > 32:
+        return (f"H={H} on clusters of {cl} puts more than 32 units on a block"
+                f" (the bf16 product's 8 warps of 4)")
+    smem = _fwd_smem(H, rows, cl, esize)
+    if smem > SMEM_PER_BLOCK:
+        return (f"H={H} on clusters of {cl} needs {smem} bytes of shared memory a block"
+                f" (at most {SMEM_PER_BLOCK})")
+    return ""
+
+
+def _plan(B: int, H: int, esize: int, cl: Optional[int], route: dict, sizes: tuple,
+          fits, what: str) -> Tuple[int, int]:
+    """(cluster size, rows a cluster) from ``route`` (the other sizes in
+    order where the route's cannot take the net at one row), the fewest rows
+    (1, 2, 4 or 8) that keep the clusters to the route's most; ``fits`` says
+    why a plan cannot run (where no size takes the net, the smallest's
+    reason is raised)."""
+    size, most = route[torch.float32 if esize == 4 else torch.bfloat16]
+    if B < 1:
+        raise ValueError(f"the LSTM {what} needs B >= 1, got B={B}")
+    if cl is None:
+        cl = next((c for c in (size, *sizes) if not fits(H, c, 1, esize)), min(sizes))
+    rows = [r for r in _ROW_GROUPS if not fits(H, cl, r, esize)]
+    if not rows:
+        raise ValueError(f"the LSTM {what} kernel cannot run: {fits(H, cl, 1, esize)}")
+    return cl, next((r for r in rows if -(-B // r) <= most), rows[-1])
+
+
+def lstm_fwd_plan(B: int, H: int, esize: int = 4, cl: Optional[int] = None) -> Tuple[int, int]:
+    """(cluster size, batch rows a cluster) of the forward at (B, H) on
+    ``esize``-byte streams: ``cl`` if given, else ``LSTM_FWD_ROUTE``'s size
+    for the streams' dtype (another built size where that one cannot take
+    the net); the fewest rows (1, 2, 4 or 8) that keep the clusters to the
+    route's most, within the limits.  Raises ``ValueError`` outside them: H a
+    multiple of the cluster size and of 4, rows x H/cl within a block's 256
+    threads, bf16 at most 32 units a block, and a block's shared memory (227
+    KB)."""
+    return _plan(B, H, esize, cl, LSTM_FWD_ROUTE, FWD_CLUSTER_SIZES, _fwd_fits, "forward")
 
 
 def _bwd_fits(H: int, cl: int, rows: int, esize: int) -> str:
@@ -215,19 +280,7 @@ def lstm_bwd_plan(B: int, H: int, esize: int = 4, cl: Optional[int] = None) -> T
     within the limits.  Raises ``ValueError`` outside them: H a multiple of
     the cluster size and of 4, a block's threads, and its shared memory
     (227 KB)."""
-    dtype = torch.float32 if esize == 4 else torch.bfloat16
-    size, most = LSTM_BWD_ROUTE[dtype]
-    if B < 1:
-        raise ValueError(f"the LSTM backward needs B >= 1, got B={B}")
-    if cl is None:
-        cl = size if not _bwd_fits(H, size, 1, esize) else min(BWD_CLUSTER_SIZES)
-    fits = [r for r in _ROW_GROUPS if not _bwd_fits(H, cl, r, esize)]
-    if not fits:
-        raise ValueError(f"the LSTM backward kernel cannot run: {_bwd_fits(H, cl, 1, esize)}")
-    for r in fits:
-        if -(-B // r) <= most:
-            return cl, r
-    return cl, fits[-1]
+    return _plan(B, H, esize, cl, LSTM_BWD_ROUTE, BWD_CLUSTER_SIZES, _bwd_fits, "backward")
 
 
 def dwh_splits(R: int, H: int) -> int:
@@ -258,20 +311,21 @@ def _library():
     if _Kernel.lib is None:
         lib = ctypes.CDLL(str(build_lstm_kernel()))
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.mmk_lstm_forward.argtypes = [p] * 7 + [i] * 5 + [p]
+        lib.mmk_lstm_forward.argtypes = [p] * 7 + [i] * 6 + [p]
         lib.mmk_lstm_forward.restype = i
         lib.mmk_lstm_backward.argtypes = [p] * 14 + [i] * 7 + [p]
         lib.mmk_lstm_backward.restype = i
-        lib.mmk_lstm_fwd_smem.argtypes = [i, i, i]
-        lib.mmk_lstm_bwd_smem.argtypes = [i, i, i, i]
         for fn in (lib.mmk_lstm_fwd_smem, lib.mmk_lstm_bwd_smem):
+            fn.argtypes = [i] * 4
             fn.restype = ctypes.c_longlong
-        lib.mmk_lstm_bwd_clusters.argtypes = [i] * 4
-        lib.mmk_lstm_bwd_clusters.restype = i
+        for fn in (lib.mmk_lstm_fwd_clusters, lib.mmk_lstm_bwd_clusters):
+            fn.argtypes = [i] * 4
+            fn.restype = i
         lib.mmk_lstm_error_string.argtypes = [i]
         lib.mmk_lstm_error_string.restype = ctypes.c_char_p
-        for H, r, es in ((256, 4, 4), (16, 1, 4), (256, 4, 2), (16, 1, 2)):
-            if lib.mmk_lstm_fwd_smem(H, r, es) != _fwd_smem(H, r, es) or any(
+        for H, r, es in ((256, 4, 4), (16, 1, 4), (256, 8, 2), (16, 1, 2), (320, 2, 4)):
+            if any(lib.mmk_lstm_fwd_smem(H, r, cl, es) != _fwd_smem(H, r, cl, es)
+                   for cl in FWD_CLUSTER_SIZES) or any(
                 lib.mmk_lstm_bwd_smem(H, r, cl, es) != _bwd_smem(H, r, cl, es)
                 for cl in BWD_CLUSTER_SIZES
             ):
@@ -309,16 +363,19 @@ def _raise_on(err: int, what: str):
         raise RuntimeError(f"{what} launch failed: {_library().mmk_lstm_error_string(err).decode()}")
 
 
-def lstm_forward(xi: torch.Tensor, Wh: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor):
+def lstm_forward(xi: torch.Tensor, Wh: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor,
+                 cl: Optional[int] = None):
     """K3a: the recurrence over xi (T, B, 4H) from (h0, c0) (B, H) with Wh
     (H, 4H).  Returns h_all, c_all (T, B, H) and gates (T, B, 4H), in the
-    streams' dtype (float32 or bfloat16, one for all four inputs)."""
+    streams' dtype (float32 or bfloat16, one for all four inputs).  On CUDA
+    tensors ``cl`` (8 or 16) forces the cluster size; None takes
+    :func:`lstm_fwd_plan`'s."""
     if xi.device.type == "cpu":
         return lstm_forward_plain(xi, Wh, h0, c0)
     T, B, H4 = xi.shape
     H = Wh.shape[0]
     dev, dt = xi.device, _stream_dtype(xi)
-    rows = lstm_kernel_rows(B, H, xi.element_size())
+    cl, rows = lstm_fwd_plan(B, H, xi.element_size(), cl)
     if T < 1 or H4 != 4 * H:
         raise ValueError(f"xi has shape {tuple(xi.shape)}, expected (T >= 1, B, {4 * H})")
     for x, name, shape in ((xi, "xi", (T, B, H4)), (Wh, "Wh", (H, H4)),
@@ -330,12 +387,22 @@ def lstm_forward(xi: torch.Tensor, Wh: torch.Tensor, h0: torch.Tensor, c0: torch
     gates = torch.empty(T, B, H4, device=dev, dtype=dt)
     err = lib.mmk_lstm_forward(
         xi.data_ptr(), Wh.data_ptr(), h0.data_ptr(), c0.data_ptr(), h_all.data_ptr(),
-        c_all.data_ptr(), gates.data_ptr(), T, B, H, rows, int(dt == torch.bfloat16),
+        c_all.data_ptr(), gates.data_ptr(), T, B, H, rows, cl, int(dt == torch.bfloat16),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(err, "LSTM forward kernel")
     _count(lstm_forward, dt)
+    lstm_forward.last_cluster_size, lstm_forward.last_rows = cl, rows
     return h_all, c_all, gates
+
+
+def fwd_clusters_that_fit(H: int, rows: int, cl: int, dtype: torch.dtype) -> int:
+    """The clusters of ``cl`` blocks (``rows`` batch rows each) of the
+    forward that the card holds at once (``cudaOccupancyMaxActiveClusters``)."""
+    n = _library().mmk_lstm_fwd_clusters(H, rows, cl, int(dtype == torch.bfloat16))
+    if n < 0:
+        _raise_on(-n, "LSTM forward cluster query")
+    return n
 
 
 def bwd_clusters_that_fit(H: int, rows: int, cl: int, dtype: torch.dtype) -> int:
@@ -388,7 +455,9 @@ def lstm_backward(dh_all, dh_T, dc_T, gates, c_all, h_all, h0, c0, Wh, cl=None):
 
 lstm_forward.launches = lstm_forward.launches_bf16 = 0
 lstm_backward.launches = lstm_backward.launches_bf16 = 0
-lstm_backward.last_cluster_size = lstm_backward.last_rows = 0  # the last walk's plan
+# the last launch's plan
+lstm_forward.last_cluster_size = lstm_forward.last_rows = 0
+lstm_backward.last_cluster_size = lstm_backward.last_rows = 0
 
 
 # -- the layer ---------------------------------------------------------------------------
@@ -440,7 +509,7 @@ def fused_lstm_layer(x: torch.Tensor, Wi: torch.Tensor, Wh: torch.Tensor, b: tor
     (H, 4H), b (4H,) in gate order i|f|g|o; h0, c0 (B, H).  Returns
     ``(h_all (T, B, H), h_T, c_T)``, differentiable in every argument.  On
     CUDA tensors the kernels run, or the call raises (outside their scope:
-    see :func:`lstm_kernel_rows` and :func:`lstm_bwd_plan`); on CPU tensors
+    see :func:`lstm_fwd_plan` and :func:`lstm_bwd_plan`); on CPU tensors
     the plain versions run.
 
     The dtype follows ``x`` (``pallas_lstm.py:308``): bfloat16 runs the

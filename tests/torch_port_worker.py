@@ -463,26 +463,30 @@ def bf16_train_stateless_task(inp: dict) -> dict:
 
 def lstm_plan_task(inp: dict) -> dict:
     """The fused LSTM kernels' plans at each case of ``inp["cases"]`` (B, H,
-    element bytes, forced cluster size or 0): the forward's rows a cluster
-    and the backward's (cluster size, rows), or the error each raises; the
-    shared memory the backward's plan asks; the route table."""
+    element bytes, forced cluster size or 0): the forward's and the
+    backward's (cluster size, rows), or the error each raises, and the shared
+    memory each plan asks; the route tables; and the shared memory the
+    wrapper computes for each (H, rows, cluster size, element bytes) of
+    ``inp["smem_grid"]`` (the forward's and the backward's)."""
     from mimikit_tpu_torch.ops import fused_lstm as fl
 
-    out = {"sizes": np.array(fl.BWD_CLUSTER_SIZES), "smem_limit": np.array(fl.SMEM_PER_BLOCK)}
-    for dt, (cl, most) in fl.LSTM_BWD_ROUTE.items():
-        out[f"route/{str(dt).split('.')[-1]}"] = np.array([cl, most])
+    out = {"sizes": np.array(fl.BWD_CLUSTER_SIZES), "fwd_sizes": np.array(fl.FWD_CLUSTER_SIZES),
+           "smem_limit": np.array(fl.SMEM_PER_BLOCK)}
+    for name, route in (("route", fl.LSTM_BWD_ROUTE), ("fwd_route", fl.LSTM_FWD_ROUTE)):
+        for dt, (cl, most) in route.items():
+            out[f"{name}/{str(dt).split('.')[-1]}"] = np.array([cl, most])
     for B, H, es, cl in inp["cases"].tolist():
         key = f"b{B}_h{H}_e{es}_cl{cl}"
-        try:
-            out[key + "/fwd_rows"] = np.array(fl.lstm_kernel_rows(B, H, es))
-        except ValueError as e:
-            out[key + "/fwd_error"] = np.array(str(e))
-        try:
-            size, rows = fl.lstm_bwd_plan(B, H, es, cl or None)
-            out[key + "/bwd_plan"] = np.array([size, rows])
-            out[key + "/bwd_smem"] = np.array(fl._bwd_smem(H, rows, size, es))
-        except ValueError as e:
-            out[key + "/bwd_error"] = np.array(str(e))
+        for part, plan, smem in (("fwd", fl.lstm_fwd_plan, fl._fwd_smem),
+                                 ("bwd", fl.lstm_bwd_plan, fl._bwd_smem)):
+            try:
+                size, rows = plan(B, H, es, cl or None)
+                out[f"{key}/{part}_plan"] = np.array([size, rows])
+                out[f"{key}/{part}_smem"] = np.array(smem(H, rows, size, es))
+            except ValueError as e:
+                out[f"{key}/{part}_error"] = np.array(str(e))
+    out["smem_grid"] = np.array([[H, r, cl, es, fl._fwd_smem(H, r, cl, es), fl._bwd_smem(H, r, cl, es)]
+                                 for H, r, cl, es in inp["smem_grid"].tolist()])
     return out
 
 

@@ -9,7 +9,8 @@ line: CUDA-event times (median and all of 5 runs, after a warm-up) of
 tier shapes (T, B, H) = (128, 32, 256) and (256, 32, 256), the same on bf16
 streams where the checkout has them, and a digest of each kernel's SASS
 (``cuobjdump -sass`` of the built library, addresses and encodings dropped),
-keyed by kernel, rows per cluster and stream type: equal digests are equal
+keyed by kernel, template integers (cluster size, rows a cluster) and stream
+type: equal digests are equal
 machine code; beside each digest, the kernel's registers and stack bytes a
 thread (``cuobjdump -res-usage``).
 """
@@ -46,11 +47,13 @@ def event_ms(fn, reps=5):
 
 
 def kernel_key(name):
-    """A mangled kernel name -> "kernel rows stream"."""
+    """A mangled kernel name -> "kernel template-ints stream" (the cluster
+    size and the rows a cluster where the kernel takes them, e.g.
+    "lstm_fwd_kernel 8,4 f32")."""
     kernel = re.search(r"(lstm_\w+?_kernel)", name).group(1)
-    rows = re.search(r"Li(\d+)E", name)
+    ints = re.findall(r"Li(\d+)E", name)
     stream = "bf16" if "bfloat16" in name else "f32"
-    return f"{kernel} {rows.group(1) if rows else '-'} {stream}"
+    return f"{kernel} {','.join(ints) or '-'} {stream}"
 
 
 def sass_digests(lib_path):

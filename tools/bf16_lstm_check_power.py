@@ -7,7 +7,9 @@ at eight input seeds, and the two tier shapes of the training path, (128,
 32, 256) and (256, 32, 256), at two, with three sources against the bf16 twin
 on the card:
 
-* ``bf16``: the layer through the bf16 kernels (the route under test);
+* ``bf16``: the layer through the bf16 kernels (the route under test), and
+  ``bf16 forward on 8`` / ``on 16``: the same with the forward on clusters of
+  that size (``lstm_forward(..., cl=)``, as chip_smoke's phase 2 runs it);
 * ``control``: the f32 instantiation on the bf16 streams' values, outputs
   rounded where stored: kernels that skip the rounding of h and dz (the
   fault the check must catch, ``chip_smoke.unrounded``);
@@ -51,6 +53,9 @@ def main():
         args, cts = cs.lstm_bf16_inputs(torch, T, B, D, H, seed=1000 + seed)
         gaps, _, (p_out, p_grads) = cs.lstm_bf16_gaps(torch, fl, args, cts)
         line(tag, "bf16", gaps)
+        for cl in fl.FWD_CLUSTER_SIZES:
+            line(tag, f"bf16 forward on {cl}",
+                 cs.lstm_bf16_gaps(torch, fl, args, cts, fwd_cl=cl)[0])
         bad, _, _ = cs.lstm_bf16_gaps(torch, fl, args, cts, control=True)
         line(tag, "control", bad)
         c_out, c_grads = cs.lstm_plain_layer(torch, fl, tuple(a.cpu() for a in args),
