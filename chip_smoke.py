@@ -11,16 +11,17 @@ Phases (any failure exits non-zero; no exception is swallowed):
    ``csrc/fused_lstm.cu``, ``csrc/wavenet_decode.cu``,
    ``csrc/wavenet_cluster.cu``, ``csrc/transformer_decode.cu``,
    ``csrc/transformer_kv.cu``, ``csrc/jukebox_decode.cu``,
-   ``csrc/jukebox_cluster.cu`` and ``csrc/jukebox_group.cu`` for sm_90a,
-   the ten nvcc runs started together, and time them; the SASS digests of
+   ``csrc/jukebox_cluster.cu``, ``csrc/jukebox_group.cu`` and
+   ``csrc/categorical.cu`` for sm_90a, the eleven nvcc runs started
+   together, and time them; the SASS digests of
    ``samplernn_decode.cu`` (the block kernel: K1's and K2's outside the
    cluster route) must equal the parent checkout's (``SRNN_BLOCK_SASS``,
    ``tools/sass_digest.py``), those of ``jukebox_decode.cu`` and
    ``jukebox_cluster.cu`` (K8's block and cluster kernels) theirs
    (``K8_SASS``), and those of every other kernel this checkout leaves as
-   it was, WaveNet's block kernel and the LSTM backward among them, theirs
-   (``PARENT_SASS``);
-   compile the Triton sampler and the Triton mu-law kernel;
+   it was, WaveNet's block kernel and the LSTM cluster kernels among them,
+   theirs (``PARENT_SASS``);
+   compile the Triton mu-law kernel;
 2. each kernel against its plain twin at a small size and at the main
    paths' widths.  ``decode_single`` and ``decode_chunk``, argmax and
    sampled (temperature 0.9): the kernel's tokens are verified by teacher
@@ -47,10 +48,18 @@ Phases (any failure exits non-zero; no exception is swallowed):
    output and gradient within 2 bf16 ulps of its scale and at most 1 %
    (small) or 25 % (the tier shapes) of a case's elements different, limits
    that a control (the f32 instantiation on the bf16 values: no rounding of
-   h and dz) must fail at every case; and one full
+   h and dz) must fail at every case; the wide kernels (K3a-wide, K3b-wide:
+   ``lstm_route`` sends H a multiple of 128 past a cluster's shared memory
+   to them) the same way through the route, f32 at (T, B, H) = (8, 32,
+   512), (128, 32, 512) and (64, 32, 1024), bf16 at (128, 32, 768) and (64,
+   32, 1024) against the larger of the tier shapes' 25 % and the share in
+   which the twin computed on the CPU differs from the card's twin, and its
+   control, each call's launches on its route's wrappers only; one full
    SampleRNN-3 train step (B=32 x 2048) with the kernels against the same
    step on the CPU (plain versions): loss within 1e-5 relative, every
-   parameter's gradient within 1e-5 + 1e-3 * max|plain|; the WaveNet decode
+   parameter's gradient within 1e-5 + 1e-3 * max|plain|, at hidden 256 and,
+   on the wide kernels, 512 and 768, and at 768 the bf16 step on the card
+   (its loss within max(10 %, 5e-3) of the f32 CPU step's); the WaveNet decode
    kernels and the categorical sampler as the SampleRNN decode, each
    wrapper through its route (``WN_CLUSTER_ROUTE``: B up to 128 to the
    cluster kernel, ``csrc/wavenet_cluster.cu``, on clusters of 16 blocks;
@@ -58,7 +67,9 @@ Phases (any failure exits non-zero; no exception is swallowed):
    the cluster kernel on clusters of 16 whatever the route at B = 3 and 37
    (small) and 8, 37 (a ragged last group) and 256 (full width), argmax
    and T=0.9, over two chunkings, with the cluster barriers a step block 0
-   counted (22 at WaveNet-10); the
+   counted (22 at WaveNet-10); the sampler (K9, ``csrc/categorical.cu``)
+   also on bf16 and f16 logits and on strided views read in place (Q = 200,
+   an offset that breaks its four-logit loads); the
    transformer kernels by teacher forcing too, K6 (``decode_window``) at
    B=1, 2 and 16 and K7 (``decode_chunk``) at B=1, 16 and 32, each over
    several chunk lengths (K6's window, K7's state carried; the tokens must
@@ -146,7 +157,11 @@ Phases (any failure exits non-zero; no exception is swallowed):
    and optimizer state f32, every LSTM call the bf16 instantiation (no f32
    K3 launch), epoch mean losses finite and falling, the last within
    max(10 %, 5e-3) of the f32 run's, the step timed and profiled beside the
-   f32 one;
+   f32 one; then SampleRNN-3 with hidden 512 (f32) and 768 (bf16) for one
+   epoch of 8 steps each on the wide kernels: every step's loss finite and
+   the last below the first, every LSTM call a wide kernel's of the
+   streams' dtype and no call of a plain version, the step timed and
+   profiled;
 5. the LSTM forward's sweep (on clusters of 8 and 16 at the tier shapes, f32
    and bf16, against ``LSTM_FWD_ROUTE``) and the backward's (its walk on
    clusters of 8 and 16, against ``LSTM_BWD_ROUTE``; the walk and dWh split
@@ -155,10 +170,14 @@ Phases (any failure exits non-zero; no exception is swallowed):
    the main paths' shapes (the transformer and JukeBox twins over 64 steps,
    the SampleRNN twins over 512 and the WaveNet twins over 256, scaled;
    K8's block kernel at B=64, the route's shape, and also at B=16 and 32,
-   K10 at 2,646,000 samples); a ``kernels`` JSON line of twenty rows (the twelve, K8's
+   K10 at 2,646,000 samples; K3a-wide and K3b-wide at (256, 32, 512) f32
+   and (256, 32, 768) bf16, the wider tier at phase 4's wide widths; K9's
+   row with an empty kernel's time, the floor of a launch, and a call's
+   host time); a ``kernels`` JSON line of twenty-four rows (the twelve, K8's
    cluster kernel at B=1 and group kernel at B=16, K5 at the B=64 stream's
-   width on WaveNet's cluster kernel, and K1-, K2-, K3a-, K3b- and
-   K7-bf16; K2's and WaveNet's rows name the source of the kernel their
+   width on WaveNet's cluster kernel, K1-, K2-, K3a-, K3b- and
+   K7-bf16, and K3a-wide, K3b-wide and their bf16 instantiations; K2's and
+   WaveNet's rows name the source of the kernel their
    route takes; K1's, K2's, K4's, K5's and K8's group kernel's rows carry
    the block kernel's time on the same inputs (K1's also its cluster
    launches on the main path, ``cluster_launches``), measured in the same run, under
@@ -345,6 +364,38 @@ PARENT_SASS = {
             "ba30b6878677d2ff, REG 32 STACK 0",
         "_Z19lstm_dwh_sum_kernelIfEvPKfPT_ii":
             "17afce7b6e0b8861, REG 32 STACK 0",
+        "_Z15lstm_fwd_kernelI13__nv_bfloat16Li16ELi1EEvPKT_S3_S3_S3_PS1_S4_S4_iii":
+            "df805d32d831cedf, REG 110 STACK 0",
+        "_Z15lstm_fwd_kernelI13__nv_bfloat16Li16ELi2EEvPKT_S3_S3_S3_PS1_S4_S4_iii":
+            "93c4e80ea23c5347, REG 111 STACK 0",
+        "_Z15lstm_fwd_kernelI13__nv_bfloat16Li16ELi4EEvPKT_S3_S3_S3_PS1_S4_S4_iii":
+            "fdc2bb628bbfdfbb, REG 114 STACK 0",
+        "_Z15lstm_fwd_kernelI13__nv_bfloat16Li16ELi8EEvPKT_S3_S3_S3_PS1_S4_S4_iii":
+            "42e0f3182ae8fd70, REG 115 STACK 0",
+        "_Z15lstm_fwd_kernelI13__nv_bfloat16Li8ELi1EEvPKT_S3_S3_S3_PS1_S4_S4_iii":
+            "eeb40a23a6e83f13, REG 142 STACK 0",
+        "_Z15lstm_fwd_kernelI13__nv_bfloat16Li8ELi2EEvPKT_S3_S3_S3_PS1_S4_S4_iii":
+            "d187714d7139d04e, REG 142 STACK 0",
+        "_Z15lstm_fwd_kernelI13__nv_bfloat16Li8ELi4EEvPKT_S3_S3_S3_PS1_S4_S4_iii":
+            "b06000cd2ccd8c81, REG 144 STACK 0",
+        "_Z15lstm_fwd_kernelI13__nv_bfloat16Li8ELi8EEvPKT_S3_S3_S3_PS1_S4_S4_iii":
+            "f967f53267b963ab, REG 156 STACK 0",
+        "_Z15lstm_fwd_kernelIfLi16ELi1EEvPKT_S2_S2_S2_PS0_S3_S3_iii":
+            "cdc2c85a87f2a46e, REG 92 STACK 0",
+        "_Z15lstm_fwd_kernelIfLi16ELi2EEvPKT_S2_S2_S2_PS0_S3_S3_iii":
+            "c9d6f18ba4da5eff, REG 108 STACK 0",
+        "_Z15lstm_fwd_kernelIfLi16ELi4EEvPKT_S2_S2_S2_PS0_S3_S3_iii":
+            "025074be3fe2dac4, REG 128 STACK 0",
+        "_Z15lstm_fwd_kernelIfLi16ELi8EEvPKT_S2_S2_S2_PS0_S3_S3_iii":
+            "4ed439cbe8109900, REG 128 STACK 0",
+        "_Z15lstm_fwd_kernelIfLi8ELi1EEvPKT_S2_S2_S2_PS0_S3_S3_iii":
+            "eac2b95e2b9b146d, REG 92 STACK 0",
+        "_Z15lstm_fwd_kernelIfLi8ELi2EEvPKT_S2_S2_S2_PS0_S3_S3_iii":
+            "398210b9e26b0b16, REG 108 STACK 0",
+        "_Z15lstm_fwd_kernelIfLi8ELi4EEvPKT_S2_S2_S2_PS0_S3_S3_iii":
+            "ca0ce2c6f085f6c8, REG 128 STACK 0",
+        "_Z15lstm_fwd_kernelIfLi8ELi8EEvPKT_S2_S2_S2_PS0_S3_S3_iii":
+            "8a0c6178a9913ff3, REG 128 STACK 0",
     },
     "transformer_decode.cu": {
         "_Z16tf_window_kernel12TfWindowArgs":
@@ -370,6 +421,17 @@ N_WIDE_VERIFY = 4096  # phase 3's f32 B=256 output: its first steps verified
 # (T, B, D, H) of the LSTM checks: small, then the two tier LSTMs of the
 # training path (2048 samples a window, frames of 16 and 8, B=32, H=256)
 LSTM_SHAPES = ((12, 4, 8, 16), (128, 32, 256, 256), (256, 32, 256, 256))
+# (T, B, D, H) of the wide route's checks (K3a-wide, K3b-wide: a cluster cannot hold
+# Wh): JAX's seq2seq training shape (mimikit_tpu/modules/rnn.py:104-106, B=32 x T=8,
+# networks/s2s_lstm.py:142's model_dim 512), a SampleRNN tier's T at H=512, and the
+# wide route's limit, f32; then bf16 at H=768 and at the limit.  The phase-5 rows
+# time the wider tier shape of the training path at the widths phase 4 trains
+LSTM_WIDE_SHAPES = ((8, 32, 512, 512), (128, 32, 512, 512), (64, 32, 1024, 1024))
+LSTM_WIDE_BF16_SHAPES = ((128, 32, 768, 768), (64, 32, 1024, 1024))
+LSTM_WIDE_ROWS = {"float32": (256, 32, 512, 512), "bfloat16": (256, 32, 768, 768)}
+# phase 4's wide runs: SampleRNN-3 (FULL) with only hidden_dim changed, one epoch of
+# TRAIN_STEPS steps, f32 at 512 and bf16 at 768 (both on the wide route)
+WIDE_TRAIN = ((512, None), (768, "bfloat16"))
 # the bf16 LSTM kernels against their bf16 twin: every output and gradient
 # within BF16_LSTM_ULPS bf16 ulps of its scale, and at most BF16_LSTM_SHARE
 # (the small case; the tier shapes) of a case's elements different.  The two
@@ -378,8 +440,22 @@ LSTM_SHAPES = ((12, 4, 8, 16), (128, 32, 256, 256), (256, 32, 256, 256))
 # wider the layer.  Set between the correct kernels (at most 0.17 % small,
 # 18.7 % at the tier shapes; the twin on the CPU against the twin on the card
 # 20.1 %) and a control that skips the rounding of h and dz (at least 33.7 %
-# small, 34.1 % at the tier shapes), from tools/bf16_lstm_check_power.py
+# small, 34.1 % at the tier shapes), from tools/bf16_lstm_check_power.py.
 BF16_LSTM_ULPS, BF16_LSTM_SHARE = 2.0, (0.01, 0.25)
+# At the wide kernels' shapes (LSTM_WIDE_BF16_SHAPES) a correct layer summing in
+# another order parts from the card's twin in more elements than 25 %: the twin
+# on the CPU in 31-35 % of the case's.  There each tensor is held to its own
+# share of elements that differ, set between the larger of the kernels' and the
+# CPU twin's readings and the control's, over 6 input seeds at both shapes
+# (tools/bf16_lstm_check_power.py --wide; NVIDIA H100 80GB HBM3, 700 W):
+# tensor: kernels, CPU twin, control -> limit
+# h_all 2.8-4.3 %, 6.7-7.5, 15.1-15.3 -> 11 %; h_T 5.2-7.1, 8.0-9.1, 15.3-15.9 -> 12;
+# c_T 5.2-7.3, 8.0-8.9, 15.1-15.6 -> 12; dx 30.6-34.7, 39.9-41.1, 49.4-49.7 -> 45;
+# dWi 34.1-37.2, 40.3-41.4, 48.7-49.1 -> 45; dWh 34.5-37.8, 41.2-42.5, 51.9-52.1 -> 47;
+# db 31.6-35.2, 36.7-39.7, 45.2-48.3 -> 42; dh0 26.0-29.1, 26.2-30.2, 44.4-45.8 -> 37;
+# dc0 10.0-11.7, 10.0-12.6, 23.6-24.9 -> 18
+BF16_LSTM_WIDE_SHARES = dict(h_all=0.11, h_T=0.12, c_T=0.12, dx=0.45, dWi=0.45, dWh=0.47,
+                             db=0.42, dh0=0.37, dc0=0.18)
 TRAIN_B, TRAIN_LEN, TRAIN_EPOCHS, TRAIN_STEPS = 32, 2048, 4, 8
 # WaveNet-10 of benchmarks/bench_decode.py:91-101 (10 kernel-2 layers, dilations
 # 1..512, rf 1,024, dims 128, q 256, a two-layer Mish head of 128), and a
@@ -397,6 +473,14 @@ WN_CLUSTER_BATCHES = (8, 37, 256)
 WN_SWEEP_BATCHES, WN_SWEEP_N, WN_SWEEP_TIE = (1, 8, 32, 64, 128, 256), 512, 0.02
 WN_SWEEP_ROUNDS, WN_PLAIN_STEPS = {128: 9}, 256
 CAT_SHAPES = ((256, 256), (3, 7, 200))  # the sampler's checks: the path's and a ragged one
+# and, on views that the kernel reads in place: (rows, Q, row stride, offset, dtype)
+CAT_VIEWS = ((256, 256, 256, 0, "bfloat16"), (256, 256, 320, 0, "float32"),
+             (300, 200, 512, 7, "float32"), (64, 200, 208, 8, "float16"))
+# logits past the range of the kernel's hoisted division, which its threads send
+# back through `/`: CAT_FAR's rows 0-15 with every 7th logit -inf, rows 16-31
+# scaled by 1e-13 and rows 32-47 by 1e13 (2^40 is ~1.1e12)
+CAT_FAR = (64, 256)
+HOST_CALLS = 2000  # the sampler's calls from the host that time its launch path
 # transformer8l of benchmarks/bench_decode.py:104-115 (mulaw_io q 256, mlp 128, an
 # embedding input; d 256, 8 heads, ff 1,024, 8 post-norm layers, rf 64), and a
 # small net of the same shape; generate B=1 x 4,096 after a 64-token prompt
@@ -894,8 +978,9 @@ def k8_sass_check(jbd):
 
 def parent_sass_check(sd, fl, wd, td, tk, jbd):
     """The kernels this checkout leaves as they were (WaveNet's block and
-    cluster kernels, K2's cluster kernel, the LSTM backward walk and dWh, K6, K7 and K8's
-    group kernel): their machine code (``tools/sass_digest.py``) must equal
+    cluster kernels, K2's cluster kernel, the LSTM cluster kernels (forward,
+    backward walk) and dWh, K6, K7 and K8's group kernel): their machine code
+    (``tools/sass_digest.py``) must equal
     ``PARENT_SASS``, the parent checkout's."""
     from tools.sass_digest import digests
 
@@ -1202,24 +1287,49 @@ def categorical_scores(torch, x, temperature, seed):
 
 
 def check_categorical(torch, cat):
-    """Phase 2 for the Triton sampler: every drawn index scores within TOL *
-    max|score| of its row's maximum under the plain twin's scores."""
+    """Phase 2 for the sampler: every drawn index scores within TOL *
+    max|score| of its row's maximum under the plain twin's scores, at
+    CAT_SHAPES (f32), on CAT_FAR's logits past the kernel's fast division
+    (max|score| over the finite scores) and on the views of CAT_VIEWS (bf16
+    and f16 logits, rows apart by a stride, an offset that breaks the
+    four-logit loads), each read in place (the wrapper's view of the rows is
+    the logits' own memory) in one launch."""
     worst = 0.0
-    for shape in CAT_SHAPES:
-        x = torch.randn(*shape, generator=torch.Generator().manual_seed(len(shape))).cuda()
+    cases = [(shape, torch.randn(*shape, generator=torch.Generator().manual_seed(len(shape))))
+             for shape in CAT_SHAPES]
+    far = torch.randn(*CAT_FAR, generator=torch.Generator().manual_seed(11))
+    far[:16, ::7] = -float("inf")
+    far[16:32] *= 1e-13
+    far[32:48] *= 1e13
+    cases.append((f"{CAT_FAR} past the fast division (-inf, 1e-13, 1e13)", far))
+    for rows, Q, stride, off, dt in CAT_VIEWS:
+        base = torch.randn(rows * stride + off, generator=torch.Generator().manual_seed(Q))
+        cases.append((f"{dt} {rows} x {Q} at stride {stride}, offset {off}",
+                      (base, rows, Q, stride, off, getattr(torch, dt))))
+    for what, x in cases:
+        if isinstance(x, tuple):
+            base, rows, Q, stride, off, dt = x
+            x = base.to(dt).cuda().as_strided((rows, Q), (stride, 1), off)
+        else:
+            x = x.cuda()
+        shape = tuple(x.shape)
+        if cat._rows(x).data_ptr() != x.data_ptr():
+            raise AssertionError(f"categorical {what}: the wrapper copies the logits")
+        n = cat.categorical.launches
         k = cat.categorical(x, TEMPERATURE, SEED)
         torch.cuda.synchronize()
-        if tuple(k.shape) != shape[:-1]:
-            raise AssertionError(f"categorical {shape}: output shape {tuple(k.shape)}")
+        if tuple(k.shape) != shape[:-1] or cat.categorical.launches != n + 1:
+            raise AssertionError(f"categorical {what}: output shape {tuple(k.shape)},"
+                                 f" {cat.categorical.launches - n} launches")
         s = categorical_scores(torch, x, TEMPERATURE, SEED)
         gap = s.amax(-1) - s.gather(-1, k.reshape(-1, 1).long())[:, 0]
-        tol = TOL * s.abs().amax(-1)
+        tol = TOL * s.masked_fill(~torch.isfinite(s), 0).abs().amax(-1)
         if bool((gap > tol).any()):
-            raise AssertionError(f"categorical {shape}: a drawn index {float(gap.max()):.3e}"
+            raise AssertionError(f"categorical {what}: a drawn index {float(gap.max()):.3e}"
                                  f" below its row max")
         same = int((k == cat.categorical_plain(x, TEMPERATURE, SEED)).sum())
         worst = max(worst, float(gap.max()))
-        log(f"  categorical {shape}: ok, max gap {float(gap.max()):.3e}, {same} of {k.numel()}"
+        log(f"  categorical {what}: ok, max gap {float(gap.max()):.3e}, {same} of {k.numel()}"
             f" indices equal to the plain twin's")
     return {"categorical": worst}
 
@@ -1464,7 +1574,7 @@ def wavenet_rows(torch, wd, cat, net, prompts, launches, err):
     rows = []
     for name, (kern, plain, lib, n, (bound, by), replaces, shape, block, B) in calls.items():
         if name == "categorical":
-            source = "mimikit_tpu_torch/ops/categorical.py"
+            source = "mimikit_tpu_torch/csrc/categorical.cu"
         elif wd.route(pack, B):
             source = "mimikit_tpu_torch/csrc/wavenet_cluster.cu"
         else:
@@ -1479,6 +1589,25 @@ def wavenet_rows(torch, wd, cat, net, prompts, launches, err):
             p_ms *= scale
             l_ms = None if lib is None else spread(timed(lib, n, 3))[0]
             b_ms = block_kernel_ms(torch, block)
+        extra = {}
+        if name == "categorical":
+            import launch_floor
+
+            # the floor of one launch (an empty kernel, timed as the kernel is), and a
+            # call's host time: HOST_CALLS calls from the host, then a synchronize
+            extra["empty_kernel_ms"] = spread(graph_ms(torch, launch_floor.empty_launch, n,
+                                                       3))[0]
+            with uncounted(cat.categorical):
+                kern()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(HOST_CALLS):
+                    kern()
+                torch.cuda.synchronize()
+            extra["host_us"] = 1e6 * (time.perf_counter() - t0) / HOST_CALLS
+            log(f"  categorical: an empty kernel {extra['empty_kernel_ms']:.5f} ms (the floor of"
+                f" a launch, {n} in a CUDA graph); a call from the host {extra['host_us']:.2f} us"
+                f" (the mean over {HOST_CALLS} calls)")
         how = (f"; kernel and yardstick device time, {n} calls in a CUDA graph; plain twin {n}"
                " calls from the host") if n > 1 else ""
         on = "" if B is None else f" on {wn_kernel_name(wd, pack, B)}"
@@ -1488,10 +1617,10 @@ def wavenet_rows(torch, wd, cat, net, prompts, launches, err):
             + f", yardstick {l_ms}, bound {bound:.5f} ms by {by}"
             + (f"; the block kernel {b_ms:.5f} ms" if b_ms is not None else ""))
         rows.append(dict(
-            name=name, route="triton" if name == "categorical" else "cuda",
-            source=source, replaces=replaces, launches=launches[name],
+            name=name, route="cuda", source=source, replaces=replaces, launches=launches[name],
             max_abs_err=err[name], ms=k_ms, plain_ms=p_ms, bound_ms=bound, bound_by=by,
             library_ms=l_ms, **({"block_kernel_ms": b_ms} if b_ms is not None else {}),
+            **extra,
         ))
     return rows
 
@@ -2805,32 +2934,60 @@ def close(name, k, p, atol, rtol):
     return err
 
 
+def lstm_wrappers(fl, T, B, H, dtype):
+    """(forward, backward, row-name suffix) of the kernels ``fl.lstm_route``
+    names for the layer: the cluster wrappers, or the wide ones ("_wide")."""
+    route = fl.lstm_route(B, T, H, dtype)
+    if route == "cluster":
+        return fl.lstm_forward, fl.lstm_backward, ""
+    if route == "wide":
+        return fl.lstm_forward_wide, fl.lstm_backward_wide, "_wide"
+    raise AssertionError(f"(T, B, H) = ({T}, {B}, {H}) takes the scan: no kernel to check")
+
+
+def launch_counts(fl, attr="launches"):
+    return tuple(getattr(w, attr) for w in (fl.lstm_forward, fl.lstm_backward,
+                                            fl.lstm_forward_wide, fl.lstm_backward_wide))
+
+
 def check_lstm(torch, fl, shapes):
-    """Phase 2 for the LSTM kernels: the layer through the kernels' route, then
-    with the forward on each of its cluster sizes, against the plain versions;
-    returns {wrapper: largest abs error}."""
-    err = {"lstm_forward": 0.0, "lstm_backward": 0.0}
+    """Phase 2 for the LSTM kernels: the layer through the kernels' route (its
+    wrappers' counters must rise, and no other's), then, on the cluster
+    route, with the forward on each of its cluster sizes, against the plain
+    versions; returns {wrapper: largest abs error}."""
+    err = {}
     for T, B, D, H in shapes:
+        fwd, bwd, sfx = lstm_wrappers(fl, T, B, H, torch.float32)
         args, cts = lstm_inputs(torch, T, B, D, H, seed=T + H)
         runs = [("route", lambda: lstm_kernel_layer(torch, fl, args, cts))]
-        runs += [(f"forward on {cl}", lambda cl=cl: lstm_plain_layer(
-            torch, fl, args, cts, functools.partial(fl.lstm_forward, cl=cl), fl.lstm_backward))
-            for cl in fl.FWD_CLUSTER_SIZES]
+        if not sfx:
+            runs += [(f"forward on {cl}", lambda cl=cl: lstm_plain_layer(
+                torch, fl, args, cts, functools.partial(fl.lstm_forward, cl=cl),
+                fl.lstm_backward)) for cl in fl.FWD_CLUSTER_SIZES]
         p_out = p_grads = None
         for what, run in runs:
+            before = launch_counts(fl)
             k_out, k_grads = run()
             torch.cuda.synchronize()
+            ran = [a - b for a, b in zip(launch_counts(fl), before)]
+            want = [0, 0, 1, 1] if sfx else [1, 1, 0, 0]
+            if what == "route" and ran != want:
+                raise AssertionError(f"fused LSTM layer ({T}, {B}, {H}): launches (forward,"
+                                     f" backward, forward_wide, backward_wide) {ran}, expected"
+                                     f" {want}")
             if p_out is None:
                 p_out, p_grads = lstm_plain_layer(torch, fl, args, cts)
-            fwd = [close(n, k, p, 1e-5, 1e-5)
-                   for n, k, p in zip(("h_all", "h_T", "c_T"), k_out, p_out)]
-            bwd = [close(n, k, p, 1e-5, 1e-4)
-                   for n, k, p in zip(("dx", "dWi", "dWh", "db", "dh0", "dc0"), k_grads, p_grads)]
-            err["lstm_forward"] = max(err["lstm_forward"], *fwd)
-            err["lstm_backward"] = max(err["lstm_backward"], *bwd)
-            log(f"  fused LSTM layer (T, B, H) = ({T}, {B}, {H}), {what}: ok, max |error|"
-                f" outputs {max(fwd):.3e}, gradients {max(bwd):.3e}"
-                f" (dx, dWi, dWh, db, dh0, dc0: {', '.join(f'{e:.2e}' for e in bwd)})")
+            f_err = [close(n, k, p, 1e-5, 1e-5)
+                     for n, k, p in zip(("h_all", "h_T", "c_T"), k_out, p_out)]
+            b_err = [close(n, k, p, 1e-5, 1e-4)
+                     for n, k, p in zip(("dx", "dWi", "dWh", "db", "dh0", "dc0"), k_grads,
+                                        p_grads)]
+            for key, e in ((fwd.__name__, f_err), (bwd.__name__, b_err)):
+                err[key] = max(err.get(key, 0.0), *e)
+            log(f"  fused LSTM layer (T, B, H) = ({T}, {B}, {H}), {what}"
+                f"{' (wide kernels)' if sfx else ''}: ok, max |error| outputs {max(f_err):.3e},"
+                f" gradients {max(b_err):.3e} (dx, dWi, dWh, db, dh0, dc0:"
+                f" {', '.join(f'{e:.2e}' for e in b_err)})")
     return err
 
 
@@ -2856,20 +3013,21 @@ def unrounded(torch, kernel):
 
 
 def lstm_bf16_gaps(torch, fl, args, cts, control=False, fwd_cl=None):
-    """The bf16 layer through the kernels (with ``control``, through
-    ``unrounded`` kernels; with ``fwd_cl``, the forward on clusters of that
-    size) against its bf16 twin on the same inputs: {tensor: (ulps,
-    differing elements, elements)} for the three outputs and the six
+    """The bf16 layer through the kernels of its route (with ``control``,
+    through ``unrounded`` kernels; with ``fwd_cl``, the cluster forward on
+    clusters of that size) against its bf16 twin on the same inputs: {tensor:
+    (ulps, differing elements, elements)} for the three outputs and the six
     gradients, the kernels' (outputs, gradients) and the twin's."""
+    T, B, _ = args[0].shape
+    fwd, bwd, _ = lstm_wrappers(fl, T, B, args[2].shape[0], torch.bfloat16)
     if fwd_cl:
         k_out, k_grads = lstm_plain_layer(torch, fl, args, cts,
                                           functools.partial(fl.lstm_forward, cl=fwd_cl),
                                           fl.lstm_backward)
     elif control:
-        with uncounted(fl.lstm_forward, fl.lstm_backward):
-            k_out, k_grads = lstm_plain_layer(torch, fl, args, cts,
-                                              unrounded(torch, fl.lstm_forward),
-                                              unrounded(torch, fl.lstm_backward))
+        with uncounted(fwd, bwd):
+            k_out, k_grads = lstm_plain_layer(torch, fl, args, cts, unrounded(torch, fwd),
+                                              unrounded(torch, bwd))
     else:
         k_out, k_grads = lstm_kernel_layer(torch, fl, args, cts)
     torch.cuda.synchronize()
@@ -2881,12 +3039,21 @@ def lstm_bf16_gaps(torch, fl, args, cts, control=False, fwd_cl=None):
 
 def bf16_lstm_verdict(gaps, share_limit):
     """Raise unless every tensor lies within BF16_LSTM_ULPS ulps of its scale
-    and at most ``share_limit`` of the case's elements differ; returns
-    (largest ulps, share of elements that differ)."""
+    and the elements that differ stay within ``share_limit``: a share of the
+    case's elements, or {tensor: share of its elements} (the wide kernels'
+    BF16_LSTM_WIDE_SHARES); returns (largest ulps, share of the case's
+    elements that differ)."""
     worst = max(g[0] for g in gaps.values())
     share = sum(g[1] for g in gaps.values()) / sum(g[2] for g in gaps.values())
     over = [n for n, g in gaps.items() if g[0] > BF16_LSTM_ULPS]
-    if over or share > share_limit:
+    if isinstance(share_limit, dict):
+        wide = [f"{n} {gaps[n][1] / gaps[n][2]:.2%} (limit {lim:.0%})"
+                for n, lim in share_limit.items() if gaps[n][1] / gaps[n][2] > lim]
+        if over or wide:
+            raise AssertionError(f"{over or 'no tensor'} beyond {BF16_LSTM_ULPS} ulps (largest"
+                                 f" {worst:.3f}); {', '.join(wide) or 'no tensor'} past its"
+                                 " share of elements that differ")
+    elif over or share > share_limit:
         raise AssertionError(f"{over or 'no tensor'} beyond {BF16_LSTM_ULPS} ulps (largest"
                              f" {worst:.3f}); {share:.3%} of the elements differ (limit"
                              f" {share_limit:.0%})")
@@ -2900,48 +3067,89 @@ def lstm_bf16_inputs(torch, T, B, D, H, seed):
 
 
 def check_lstm_bf16(torch, fl, shapes, share_limit, seeds=(0,)):
-    """Phase 2 for the bf16 instantiation: the layer through the bf16 kernels
-    against its bf16 twin (``bf16_lstm_verdict``), each shape at each input
-    seed, then the control (``unrounded`` kernels) on the same inputs, which
-    the check must refuse.  Returns {wrapper_bf16: largest abs error}."""
-    err = {"lstm_forward_bf16": 0.0, "lstm_backward_bf16": 0.0}
+    """Phase 2 for the bf16 instantiations: the layer through the bf16 kernels
+    of its route (on the cluster route also with the forward on each cluster
+    size) against its bf16 twin (``bf16_lstm_verdict`` at ``share_limit``),
+    each shape at each input seed, then the control (``unrounded`` kernels)
+    on the same inputs, which the check must refuse.  Returns
+    {wrapper_bf16: largest abs error}."""
+    err = {}
     for (T, B, D, H), seed in itertools.product(shapes, seeds):
+        fwd, bwd, sfx = lstm_wrappers(fl, T, B, H, torch.bfloat16)
         args, cts = lstm_bf16_inputs(torch, T, B, D, H, seed=T + H + 1 + seed)
-        for fwd_cl in (None, *fl.FWD_CLUSTER_SIZES):
+        for fwd_cl in (None, *(() if sfx else fl.FWD_CLUSTER_SIZES)):
+            before = launch_counts(fl, "launches_bf16")
             gaps, (k_out, k_grads), (p_out, p_grads) = lstm_bf16_gaps(torch, fl, args, cts,
                                                                       fwd_cl=fwd_cl)
+            ran = [a - b for a, b in zip(launch_counts(fl, "launches_bf16"), before)]
+            if fwd_cl is None and ran != ([0, 0, 1, 1] if sfx else [1, 1, 0, 0]):
+                raise AssertionError(f"fused LSTM layer bf16 ({T}, {B}, {H}): bf16 launches"
+                                     f" (forward, backward, forward_wide, backward_wide) {ran}")
             worst, share = bf16_lstm_verdict(gaps, share_limit)
-            for key, ks, ps in (("lstm_forward_bf16", k_out, p_out),
-                                ("lstm_backward_bf16", k_grads, p_grads)):
-                err[key] = max(err[key], *(float((k.float() - p.float()).abs().max())
-                                           for k, p in zip(ks, ps)))
+            for key, ks, ps in ((fwd.__name__ + "_bf16", k_out, p_out),
+                                (bwd.__name__ + "_bf16", k_grads, p_grads)):
+                err[key] = max(err.get(key, 0.0), *(float((k.float() - p.float()).abs().max())
+                                                    for k, p in zip(ks, ps)))
             log(f"  fused LSTM layer bf16 (T, B, H) = ({T}, {B}, {H}) seed {seed},"
-                f" {f'forward on {fwd_cl}' if fwd_cl else 'route'}: ok, largest gap {worst:.3f}"
+                f" {f'forward on {fwd_cl}' if fwd_cl else 'route'}"
+                f"{' (wide kernels)' if sfx else ''}: ok, largest gap {worst:.3f}"
                 f" bf16 ulps of a tensor's scale, {share:.3%} of the elements differ"
-                f" ({', '.join(f'{n} {g[0]:.2f}' for n, g in gaps.items())})")
+                f" ({', '.join(f'{n} {g[0]:.2f}/{g[1] / g[2]:.2%}' for n, g in gaps.items())})")
         bad, _, _ = lstm_bf16_gaps(torch, fl, args, cts, control=True)
         expect_caught(f"fused LSTM layer bf16 ({T}, {B}, {H}) seed {seed}",
                       lambda: bf16_lstm_verdict(bad, share_limit))
     return err
 
 
-def train_net(mmk, seed, extractor=None):
+def train_net(mmk, seed, extractor=None, hidden_dim=None):
+    """SampleRNN-3 (FULL) on the card, with ``hidden_dim`` in place of FULL's
+    where given."""
     io = mmk.IOSpec.mulaw_io(
         mmk.IOSpec.MuLawIOConfig(q_levels=FULL["q_levels"], mlp_dim=FULL["mlp_dim"]),
         extractor=extractor,
     )
     cfg = mmk.SampleRNN.Config(frame_sizes=FULL["frame_sizes"],
-                               hidden_dim=FULL["hidden_dim"], io_spec=io)
+                               hidden_dim=hidden_dim or FULL["hidden_dim"], io_spec=io)
     return mmk.SampleRNN.from_config(cfg, device="cuda", seed=seed)
 
 
-def check_train_step(torch, mmk):
+def bf16_step_loss(torch, net, x, y):
+    """The loss of one step of ``net`` under ``param_dtype="bfloat16"`` as
+    TrainARMLoop runs it (bf16 copies of the f32 masters through
+    ``functional_call`` inside ``precision.compute``, outputs back in f32),
+    after its backward; every master gradient must be finite."""
+    from torch.func import functional_call
+
+    from mimikit_tpu_torch import precision
+
+    net.zero_grad()
+    params = precision.cast_parameters(net, torch.bfloat16)
+    with precision.compute(torch.bfloat16):
+        outputs, _ = functional_call(net, params, ((x,),))
+    loss = net.config.io_spec.loss_fn(precision.cast_tree(outputs, torch.float32), (y,))["loss"]
+    loss.backward()
+    bad = [k for k, p in net.named_parameters() if not bool(torch.isfinite(p.grad).all())]
+    if bad:
+        raise AssertionError(f"bf16 train step: gradients not finite in {bad}")
+    return loss.item()
+
+
+def check_train_step(torch, mmk, fl, hidden_dim=None, bf16=False):
     """One full-width train step's loss and gradients, kernels (on the card)
-    against the plain versions (the same step on the CPU)."""
-    net = train_net(mmk, seed=3)
+    against the plain versions (the same step on the CPU): loss within 1e-5
+    relative, every gradient within 1e-5 + 1e-3 * max|plain|.  With
+    ``hidden_dim`` the net's width is that (past FULL's, the wide kernels,
+    whose counters must rise); with ``bf16`` also the same step under
+    ``param_dtype="bfloat16"`` on the card (the bf16 kernels of the route),
+    its loss within max(10 %, 5e-3) of the f32 CPU step's (the JAX package's
+    bf16 criterion, tests/test_precision.py:193-205) and its gradients
+    finite."""
+    H = hidden_dim or FULL["hidden_dim"]
+    net = train_net(mmk, seed=3, hidden_dim=H)
     g = torch.Generator().manual_seed(4)
     x = torch.randint(0, FULL["q_levels"], (TRAIN_B, net.rf + TRAIN_LEN), generator=g)
     y = torch.randint(0, FULL["q_levels"], (TRAIN_B, TRAIN_LEN), generator=g)
+    before = launch_counts(fl) + launch_counts(fl, "launches_bf16")
     runs = []
     for n, dev in ((net, "cuda"), (copy.deepcopy(net).cpu(), "cpu")):
         outputs, _ = n((x.to(dev),))
@@ -2950,10 +3158,28 @@ def check_train_step(torch, mmk):
         runs.append((loss.item(), {k: p.grad.cpu() for k, p in n.named_parameters()}))
     (lk, gk), (lp, gp) = runs
     if not abs(lk - lp) <= 1e-5 * abs(lp):
-        raise AssertionError(f"train step loss: kernels {lk!r}, plain {lp!r}")
+        raise AssertionError(f"train step H={H}: loss kernels {lk!r}, plain {lp!r}")
     worst = max(close(f"grad {k}", gk[k], gp[k], 1e-5, 1e-3) for k in gp)
-    log(f"  full train step B={TRAIN_B} x {TRAIN_LEN}: ok, loss kernels {lk:.7f} / plain"
+    log(f"  full train step B={TRAIN_B} x {TRAIN_LEN}, H={H}: ok, loss kernels {lk:.7f} / plain"
         f" {lp:.7f}, max |grad error| {worst:.3e} over {len(gp)} parameters")
+    if bf16:
+        l16 = bf16_step_loss(torch, net, x.cuda(), y.cuda())
+        limit = max(0.1 * abs(lp), 5e-3)
+        if not abs(l16 - lp) <= limit:
+            raise AssertionError(f"bf16 train step H={H}: loss {l16!r} not within {limit:.4g}"
+                                 f" of the f32 CPU step's {lp!r}")
+        log(f"  full train step B={TRAIN_B} x {TRAIN_LEN}, H={H}, param_dtype=bfloat16 on the"
+            f" card: loss {l16:.7f}, within {abs(l16 - lp):.4g} of the f32 CPU step's (limit"
+            f" {limit:.4g}); gradients finite")
+    ran = [a - b for a, b in zip(launch_counts(fl) + launch_counts(fl, "launches_bf16"),
+                                 before)]
+    log(f"  launches (forward, backward, forward_wide, backward_wide; f32 then bf16): {ran}")
+    T = TRAIN_LEN // FULL["frame_sizes"][0]
+    want = [[(i in (2, 3)) == (fl.lstm_route(TRAIN_B, T, H, dt) == "wide") for i in range(4)]
+            for dt in (torch.float32, torch.bfloat16)]
+    if [n > 0 for n in ran[:4]] != want[0] or (bf16 and [n > 0 for n in ran[4:]] != want[1]):
+        raise AssertionError(f"train step H={H}: the LSTM calls did not take their route's"
+                             f" kernels: {ran}")
 
 
 def lstm_bound(T, B, H, backward, esize=4):
@@ -2976,21 +3202,23 @@ def lstm_bound(T, B, H, backward, esize=4):
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def lstm_timings(torch, fl, dtype):
-    """Per tier shape of the training path, on ``dtype`` streams: kernel,
+def lstm_timings(torch, fl, dtype, shapes=LSTM_SHAPES[1:]):
+    """Per (T, B, D, H) of ``shapes`` (by default the training path's tier
+    shapes), on ``dtype`` streams: kernel (those of the layer's route),
     plain twin and cuDNN ``nn.LSTM`` in the same dtype (the yardstick; the
     port never calls it) ms for the forward and for the backward (cuDNN:
     forward + backward; None where cuDNN refuses the dtype).  The rows' names
-    end in ``_bf16`` on bf16 streams."""
+    end in ``_wide`` on the wide route, then ``_bf16`` on bf16 streams."""
     out = {}
-    sfx = "_bf16" if dtype == torch.bfloat16 else ""
-    for T, B, D, H in LSTM_SHAPES[1:]:
+    for T, B, D, H in shapes:
+        fwd, bwd, route = lstm_wrappers(fl, T, B, H, dtype)
+        sfx = route + ("_bf16" if dtype == torch.bfloat16 else "")
         args, cts = lstm_inputs(torch, T, B, D, H, seed=T)
         x, Wi, Wh, b, h0, c0 = (a.to(dtype) for a in args)
         cts = tuple(c.to(dtype) for c in cts)
         xi = torch.addmm(b.float(), x.reshape(T * B, D).float(), Wi.float()).to(dtype)
         xi = xi.reshape(T, B, -1)
-        h_all, c_all, gates = fl.lstm_forward(xi, Wh, h0, c0)
+        h_all, c_all, gates = fwd(xi, Wh, h0, c0)
         bw = (*cts, gates, c_all, h_all, h0, c0, Wh)
         ref = torch.nn.LSTM(D, H).cuda().to(dtype)
         xr = x.clone().requires_grad_()
@@ -3002,9 +3230,9 @@ def lstm_timings(torch, fl, dtype):
 
         row = {}
         for name, kern, plain, lib in (
-            ("lstm_forward", lambda: fl.lstm_forward(xi, Wh, h0, c0),
+            ("lstm_forward", lambda: fwd(xi, Wh, h0, c0),
              lambda: fl.lstm_forward_plain(xi, Wh, h0, c0), lambda: ref(xr, hc)),
-            ("lstm_backward", lambda: fl.lstm_backward(*bw),
+            ("lstm_backward", lambda: bwd(*bw),
              lambda: fl.lstm_backward_plain(*bw), cudnn_fb),
         ):
             kern()
@@ -3175,7 +3403,78 @@ def train_path(torch, mmk, fl, sd, mu):
 
     time_steps(torch, loop, "")
     bf16_launches = train_bf16_path(torch, mmk, fl, ds, cfg, means)
-    return {**launches, **mu_launches, **bf16_launches}
+    wide_launches = {}
+    for H, param_dtype in WIDE_TRAIN:
+        wide_launches.update(wide_train_path(torch, mmk, fl, ds, cfg, H, param_dtype))
+    return {**launches, **mu_launches, **bf16_launches, **wide_launches}
+
+
+def wide_train_path(torch, mmk, fl, ds, cfg32, H, param_dtype):
+    """Phase 4 at a width past the cluster kernels: SampleRNN-3 with
+    ``hidden_dim=H`` through ``TrainARMLoop`` for one epoch of TRAIN_STEPS
+    steps (``param_dtype`` None: f32), on the training audio, the data_seed
+    and the batches of the f32 run.  Every step's loss finite and the last
+    below the first; every LSTM call on the wide kernels of the streams'
+    dtype (their counters rise; the cluster kernels' and the other dtype's
+    stay at 0) and no call of a plain version; the step timed and profiled.
+    Returns the wide kernels' launches."""
+    db = ds.get(mode="r")
+    net = train_net(mmk, seed=0, extractor=ds.extractors[0], hidden_dim=H)
+    cfg = copy.deepcopy(cfg32)
+    sfx = f"_h{H}" + (f"_{param_dtype}" if param_dtype else "")
+    cfg.root_dir = os.path.join(os.path.dirname(cfg32.root_dir), "tr" + sfx)
+    cfg.max_epochs = 1
+    if param_dtype:
+        cfg.trainer_kwargs = {**cfg32.trainer_kwargs, "param_dtype": param_dtype}
+    loop = mmk.TrainARMLoop.from_config(cfg, db, net)
+    losses, step = [], loop.train_step
+
+    def counted_step(*a):
+        d, hidden = step(*a)
+        losses.append(float(d["loss"]))
+        return d, hidden
+
+    loop.train_step = counted_step
+    wrappers = (fl.lstm_forward, fl.lstm_backward, fl.lstm_forward_wide, fl.lstm_backward_wide)
+    for w in wrappers:
+        w.launches = w.launches_bf16 = 0
+    plain = {"lstm_forward_plain": 0, "lstm_backward_plain": 0}
+    real = {k: getattr(fl, k) for k in plain}
+
+    def counting(name):
+        def run(*a):
+            plain[name] += 1
+            return real[name](*a)
+        return run
+
+    for k in plain:
+        setattr(fl, k, counting(k))
+    try:
+        t0 = time.perf_counter()
+        loop.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        for k, f in real.items():
+            setattr(fl, k, f)
+    loop.train_step = step
+    attr = "launches_bf16" if param_dtype else "launches"
+    other = "launches" if param_dtype else "launches_bf16"
+    got = {w.__name__ + ("_bf16" if param_dtype else ""): getattr(w, attr) for w in wrappers[2:]}
+    stray = [getattr(w, a) for w in wrappers for a in (attr, other)
+             if not (w in wrappers[2:] and a == attr)]
+    log(f"  TrainARMLoop SampleRNN-3 hidden_dim={H} ({param_dtype or 'float32'}):"
+        f" {loop.global_step} steps in {wall:.2f} s (first step's set-up included); step losses"
+        f" {losses}; wide launches {got}, other LSTM launches {sum(stray)}, plain-version calls"
+        f" {plain}")
+    if (len(losses) != TRAIN_STEPS or not all(np.isfinite(losses))
+            or not losses[-1] < losses[0]):
+        raise AssertionError(f"hidden_dim={H}: step losses {losses} not finite and falling")
+    if min(got.values()) == 0 or sum(stray) or sum(plain.values()):
+        raise AssertionError(f"hidden_dim={H}: not every LSTM call ran the wide kernels: {got},"
+                             f" {sum(stray)} other launches, plain calls {plain}")
+    time_steps(torch, loop, sfx)
+    return got
 
 
 def time_steps(torch, loop, label):
@@ -3300,6 +3599,9 @@ def main(argv=None) -> int:
     from mimikit_tpu_torch.ops import transformer_kv as tk
     from mimikit_tpu_torch.ops import wavenet_decode as wd
 
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import launch_floor  # the empty kernel timed beside K9
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -3323,7 +3625,9 @@ def main(argv=None) -> int:
                (tk.SOURCE, tk._Kernel, tk.build_kernel),
                (jbd.SOURCE, jbd._Kernel, jbd.build_kernel),
                (jbd.CLUSTER_SOURCE, jbd._ClusterKernel, jbd.build_cluster_kernel),
-               (jbd.GROUP_SOURCE, jbd._GroupKernel, jbd.build_group_kernel))
+               (jbd.GROUP_SOURCE, jbd._GroupKernel, jbd.build_group_kernel),
+               (cat.SOURCE, cat._Kernel, cat.build_kernel),
+               (launch_floor.SOURCE, launch_floor._Kernel, launch_floor.build_kernel))
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, started together
         builds = [(src, held, pool.submit(timed_build, b)) for src, held, b in sources]
         builds = [(src, held, f.result()) for src, held, f in builds]
@@ -3336,10 +3640,6 @@ def main(argv=None) -> int:
     srnn_block_sass_check(sd)
     k8_sass_check(jbd)
     parent_sass_check(sd, fl, wd, td, tk, jbd)
-    t = time.perf_counter()
-    cat.categorical(torch.zeros(2, 8).cuda(), 1.0, 0)  # compiles the Triton kernel
-    torch.cuda.synchronize()
-    log(f"  compiled the Triton sampler (ops/categorical.py) in {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
     mu.mulaw_expand(mu.mulaw_compress(torch.zeros(8).cuda()))  # compiles the Triton mu-law pair
     torch.cuda.synchronize()
@@ -3432,9 +3732,15 @@ def main(argv=None) -> int:
     err_full.update(check_jukebox(torch, mmk, jbd, JB_FULL, JB_CHECK_BATCHES, 256,
                                   (256 + 15, 100), jitter=0.0))
     stamp("K8, full width")
-    err = {k: max(err[k], err_full.get(k, 0.0)) for k in err}
-    check_train_step(torch, mmk)
-    stamp("a full train step")
+    err_full = merge_max(err_full, check_lstm(torch, fl, LSTM_WIDE_SHAPES))
+    err_full = merge_max(err_full, check_lstm_bf16(torch, fl, LSTM_WIDE_BF16_SHAPES,
+                                                   BF16_LSTM_WIDE_SHARES))
+    stamp("the wide LSTM kernels, f32 and bf16")
+    err = merge_max(err, err_full)
+    check_train_step(torch, mmk, fl)
+    for H, param_dtype in WIDE_TRAIN:
+        check_train_step(torch, mmk, fl, hidden_dim=H, bf16=bool(param_dtype))
+    stamp("full train steps at H = 256, 512 and 768")
 
     # -- phase 3 -------------------------------------------------------------
     log(f"phase 3: the serving paths at full width (at {time.perf_counter() - t_start:.1f} s)")
@@ -3535,8 +3841,14 @@ def main(argv=None) -> int:
     # the LSTM rows at the wider tier shape, (T, B, H) = (256, 32, 256), f32 and bf16
     lstm = {**lstm_timings(torch, fl, torch.float32)[LSTM_SHAPES[-1][0]],
             **lstm_timings(torch, fl, torch.bfloat16)[LSTM_SHAPES[-1][0]]}
+    # the wide kernels' rows at the wider tier shape of phase 4's wide runs
+    for dtype, shape in ((torch.float32, LSTM_WIDE_ROWS["float32"]),
+                         (torch.bfloat16, LSTM_WIDE_ROWS["bfloat16"])):
+        lstm.update(lstm_timings(torch, fl, dtype, (shape,))[shape[0]])
     for name, line in (("lstm_forward", 111), ("lstm_backward", 197),
-                       ("lstm_forward_bf16", 111), ("lstm_backward_bf16", 197)):
+                       ("lstm_forward_bf16", 111), ("lstm_backward_bf16", 197),
+                       ("lstm_forward_wide", 111), ("lstm_backward_wide", 197),
+                       ("lstm_forward_wide_bf16", 111), ("lstm_backward_wide_bf16", 197)):
         rows.append(dict(
             name=name, route="cuda", source="mimikit_tpu_torch/csrc/fused_lstm.cu",
             replaces=f"mimikit_tpu/ops/pallas_lstm.py:{line}",

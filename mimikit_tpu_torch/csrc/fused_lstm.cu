@@ -64,6 +64,14 @@
 // waits for its inputs.  Limits: H a multiple of the cluster size and of 4,
 // and the slice (4H/CL rows of H + 4 elements) plus buffers within 227 KB.
 //
+// The wide route (K3a-wide, K3b-wide; ops/fused_lstm.py's lstm_route sends a
+// layer there where the cluster plans refuse it and H is a multiple of 128 up
+// to 1,024): Wh no longer fits a cluster (4 MiB at H = 512 in f32), so one
+// cooperative launch of 128 blocks, one an SM, spreads it over the card's
+// shared memory (H/128 units a block) and a grid barrier ends each step; a
+// step's product reads the previous step's stored h or dz back through L2.
+// The section "the wide route" below says more.
+//
 // dWh is a product hprev^T (H x T*B) times dxi (T*B x 4H) after the walk, on
 // the tensor cores (WMMA): 64 x 64 tiles of dWh, each summed over one of
 // `splits` ranges of the T*B rows (enough blocks to fill the card); a second
@@ -871,6 +879,286 @@ lstm_dwh_sum_kernel(const float* __restrict__ part, S* __restrict__ dwh, int spl
   mmk_st(dwh + i, v);
 }
 
+// -- the wide route: K3a-wide and K3b-wide ------------------------------------------
+//
+// H a multiple of 128 up to 1,024, where a cluster's 16 x 227 KB cannot hold
+// Wh (4 MiB in f32 at H = 512, 16 MiB at 1,024).  One cooperative launch of
+// MMK_WIDE_BLOCKS blocks, one a streaming multiprocessor: block q owns the
+// U = H/128 hidden units [q*U, (q+1)*U) of every batch row and keeps its part
+// of Wh in shared memory for the whole walk; a grid barrier ends each step.
+// The forward keeps the Wh columns of its units' four gates (ws[j][k] =
+// Wh[k, (j/U)*H + q*U + j%U], NJ = 4U rows of H); the backward keeps its
+// units' rows of Wh (ws[u][c] = Wh[q*U + u, c], NJ = U rows of 4H), since
+// dh_{t-1}[b, k] = sum_c dz_t[b, c] Wh[k, c] needs every gate column of the
+// units it owns.  A step's product reads the previous step's stored h
+// (forward: h_all[t-1], or h0) or dz (backward: dxi[t+1]) of all H (4H)
+// columns back from device memory (L2) in tiles of MMK_WIDE_RT batch rows and
+// chunks of at most MMK_WIDE_KC columns, staged in shared memory as f32.
+// Thread (j, kg) of a tile, j = tid % NV over the NJ rows of the slice (NV
+// the power of two above NJ; lanes past NJ repeat row 0 and are dropped),
+// kg = tid / NV, sums the tile's rows over the float4 columns kg, kg + KG,
+// ... of each chunk: one 16-byte load of its slice row (rows of pitch K + 4:
+// the eight lanes of a phase on distinct banks where NV >= 8) and one
+// broadcast load a row of the staged tile for four FMAs a row.  The KG
+// partial sums of a (row, column) meet in shared memory, added in kg order by
+// the thread that owns the (row, unit) pair, which then runs the cell and
+// stores its outputs; the f32 carry (c forward, dc backward) lives in a
+// workspace in device memory that only that thread reads and writes.  The
+// cell rounds each operation where the plain version does, in its order
+// (__fmul_rn, __fadd_rn: no contraction into FMAs), so that only the
+// products' sums part from it; on bf16 streams every rounding flipped by a
+// sum in another order feeds the later steps.  No atomics: every sum's
+// order depends on H only.
+#define MMK_WIDE_BLOCKS 128
+#define MMK_WIDE_RT 16
+#define MMK_WIDE_KC 1024
+
+__host__ __device__ inline int mmk_pow2_ceil(int x) {
+  int p = 1;
+  while (p < x) p *= 2;
+  return p;
+}
+
+// The wide route's layout for hidden size H: units a block U, slice rows NJ
+// (forward 4U gate columns, backward U units), threads a k-group NV, k-groups
+// KG, the product's depth K (H, or 4H backward), its chunk KC and the slice's
+// pitch WP.
+struct WideShape {
+  int U, NJ, NV, KG, K, KC, WP;
+};
+
+__host__ __device__ inline WideShape wide_shape(int H, int backward) {
+  WideShape s;
+  s.U = H / MMK_WIDE_BLOCKS;
+  s.NJ = backward ? s.U : 4 * s.U;
+  s.NV = mmk_pow2_ceil(s.NJ);
+  s.KG = MMK_LSTM_THREADS / s.NV;
+  s.K = backward ? 4 * H : H;
+  s.KC = s.K < MMK_WIDE_KC ? s.K : MMK_WIDE_KC;
+  s.WP = s.K + 4;
+  return s;
+}
+
+// Shared memory of a wide kernel on `es`-byte streams: the slice (rounded up
+// to 16 bytes), the staged tile and the partial sums, both f32.
+static size_t wide_smem(int H, int es, int backward) {
+  const WideShape s = wide_shape(H, backward);
+  return ((size_t)es * s.NJ * s.WP + 15) / 16 * 16 +
+         sizeof(float) * ((size_t)MMK_WIDE_RT * s.KC + (size_t)MMK_LSTM_THREADS * MMK_WIDE_RT);
+}
+// -- end of the wide layout
+
+// Four consecutive stream elements from device memory through L2 (another
+// block wrote them during this launch), in f32.
+__device__ __forceinline__ void wide_ldcg4(const float* p, float* w) {
+  const float4 v = __ldcg(reinterpret_cast<const float4*>(p));
+  w[0] = v.x, w[1] = v.y, w[2] = v.z, w[3] = v.w;
+}
+__device__ __forceinline__ void wide_ldcg4(const __nv_bfloat16* p, float* w) {
+  const uint2 v = __ldcg(reinterpret_cast<const uint2*>(p));
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
+  w[0] = lo.x, w[1] = lo.y, w[2] = hi.x, w[3] = hi.y;
+}
+
+// Rows [r0, r0 + RT) and columns [k0, k0 + kw) of a (B, K) into as (RT, KC),
+// f32, zeros past B.
+template <typename S>
+__device__ __forceinline__ void wide_stage(float* as, const S* a, int r0, int B, int K, int k0,
+                                           int kw, int KC) {
+  const int n4 = kw / 4;
+#pragma unroll 4
+  for (int idx = threadIdx.x; idx < MMK_WIDE_RT * n4; idx += MMK_LSTM_THREADS) {
+    const int rr = idx / n4, c = idx % n4, b = r0 + rr;
+    float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    if (b < B) wide_ldcg4(a + (size_t)b * K + k0 + 4 * c, v);
+    *reinterpret_cast<float4*>(as + rr * KC + 4 * c) = make_float4(v[0], v[1], v[2], v[3]);
+  }
+}
+
+// acc[rr] += the staged rows' products with the thread's slice row `w` (at
+// the chunk's first column) over its float4 columns kg, kg + KG, ... < kw/4.
+template <typename S>
+__device__ __forceinline__ void wide_product(const float* as, int KC, int kw, const S* w, int kg,
+                                             int KG, float* acc) {
+  for (int c = kg; c < kw / 4; c += KG) {
+    float wv[4];
+    mmk_ld4(w + 4 * c, wv);
+#pragma unroll
+    for (int rr = 0; rr < MMK_WIDE_RT; ++rr) {
+      const float4 a = *reinterpret_cast<const float4*>(as + rr * KC + 4 * c);
+      acc[rr] = fmaf(a.x, wv[0], acc[rr]);
+      acc[rr] = fmaf(a.y, wv[1], acc[rr]);
+      acc[rr] = fmaf(a.z, wv[2], acc[rr]);
+      acc[rr] = fmaf(a.w, wv[3], acc[rr]);
+    }
+  }
+}
+
+// The product of one tile, rows [r0, r0 + RT) of a (B, K) times the slice,
+// over chunks of KC columns; the partial sums into red (KG, RT, NV).  Ends
+// with a block barrier, after which red holds the tile's partial sums and as
+// is free.
+template <typename S>
+__device__ __forceinline__ void wide_tile(const WideShape& s, float* as, float* red, const S* a,
+                                          int r0, int B, const S* wrow, int j, int kg) {
+  float acc[MMK_WIDE_RT];
+#pragma unroll
+  for (int rr = 0; rr < MMK_WIDE_RT; ++rr) acc[rr] = 0.0f;
+  for (int k0 = 0; k0 < s.K; k0 += s.KC) {
+    const int kw = min(s.KC, s.K - k0);
+    if (k0 > 0) __syncthreads();  // the last chunk's readers are done with as
+    wide_stage<S>(as, a, r0, B, s.K, k0, kw, s.KC);
+    __syncthreads();
+    wide_product<S>(as, s.KC, kw, wrow + k0, kg, s.KG, acc);
+  }
+#pragma unroll
+  for (int rr = 0; rr < MMK_WIDE_RT; ++rr) red[(kg * MMK_WIDE_RT + rr) * s.NV + j] = acc[rr];
+  __syncthreads();
+}
+
+// The sum over the k-groups of (row rr, slice row j), in kg order.
+__device__ __forceinline__ float wide_sum(const WideShape& s, const float* red, int rr, int j) {
+  float v = 0.0f;
+  for (int kg = 0; kg < s.KG; ++kg) v += red[(kg * MMK_WIDE_RT + rr) * s.NV + j];
+  return v;
+}
+
+// K3a-wide: the forward over T steps (the step formulas at the top).  cbuf
+// (B, H) f32 carries c between steps.
+template <typename S>
+__global__ void __launch_bounds__(MMK_LSTM_THREADS, 1)
+lstm_wide_fwd_kernel(const S* __restrict__ xi, const S* __restrict__ wh,
+                     const S* __restrict__ h0, const S* __restrict__ c0, S* h_all,
+                     S* __restrict__ c_all, S* __restrict__ gates, float* __restrict__ cbuf,
+                     int T, int B, int H) {
+  cg::grid_group grid = cg::this_grid();
+  const WideShape s = wide_shape(H, 0);
+  const int U = s.U, H4 = 4 * H, q = blockIdx.x, tid = threadIdx.x;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  S* ws = reinterpret_cast<S*>(smem_raw);  // (NJ, WP)
+  float* as = reinterpret_cast<float*>(smem_raw + ((size_t)sizeof(S) * s.NJ * s.WP + 15) / 16 * 16);
+  float* red = as + MMK_WIDE_RT * s.KC;    // (KG, RT, NV)
+#pragma unroll 8
+  for (int idx = tid; idx < H * s.NJ; idx += MMK_LSTM_THREADS) {
+    const int k = idx / s.NJ, j = idx % s.NJ;
+    ws[(size_t)j * s.WP + k] = wh[(size_t)k * H4 + (j / U) * H + q * U + j % U];
+  }
+  const int j = tid % s.NV, kg = tid / s.NV;
+  const S* wrow = ws + (size_t)(j < s.NJ ? j : 0) * s.WP;
+  const bool cell = tid < MMK_WIDE_RT * U;
+  const int cr = cell ? tid / U : 0, cu = cell ? tid % U : 0, hu = q * U + cu;
+  __syncthreads();
+
+  for (int t = 0; t < T; ++t) {
+    const S* hprev = t == 0 ? h0 : h_all + (size_t)(t - 1) * B * H;
+    for (int r0 = 0; r0 < B; r0 += MMK_WIDE_RT) {
+      const int b = r0 + cr;
+      const bool valid = cell && b < B;
+      float x[4] = {0.0f, 0.0f, 0.0f, 0.0f}, c = 0.0f;
+      if (valid) {  // the cell's inputs, in flight during the product
+        const S* xr = xi + ((size_t)t * B + b) * H4 + hu;
+#pragma unroll
+        for (int g = 0; g < 4; ++g) x[g] = mmk_ld(xr + g * H);
+        c = t == 0 ? mmk_ld(c0 + (size_t)b * H + hu) : cbuf[(size_t)b * H + hu];
+      }
+      wide_tile<S>(s, as, red, hprev, r0, B, wrow, j, kg);
+      if (valid) {  // the cell, each operation rounded as the plain version's
+        const float ig = mmk_sigmoid(x[0] + wide_sum(s, red, cr, cu));
+        const float fg = mmk_sigmoid(x[1] + wide_sum(s, red, cr, U + cu));
+        const float gg = tanhf(x[2] + wide_sum(s, red, cr, 2 * U + cu));
+        const float og = mmk_sigmoid(x[3] + wide_sum(s, red, cr, 3 * U + cu));
+        c = __fadd_rn(__fmul_rn(fg, c), __fmul_rn(ig, gg));
+        const float h = mmk_round<S>(__fmul_rn(og, tanhf(c)));
+        const size_t row = (size_t)t * B + b;
+        mmk_st(h_all + row * H + hu, h);
+        mmk_st(c_all + row * H + hu, c);
+        S* gr = gates + row * H4 + hu;
+        mmk_st(gr, ig);
+        mmk_st(gr + H, fg);
+        mmk_st(gr + 2 * H, gg);
+        mmk_st(gr + 3 * H, og);
+        cbuf[(size_t)b * H + hu] = c;
+      }
+    }
+    grid.sync();
+  }
+}
+
+// K3b-wide: the reverse-time walk (dxi, dh0, dc0).  Step t's dh carry is
+// dz_{t+1} Wh^T from the stored dxi[t+1] (dh_T at t = T-1); after step 0 one
+// more product gives dh0.  dcbuf (B, H) f32 carries dc between steps.
+template <typename S>
+__global__ void __launch_bounds__(MMK_LSTM_THREADS, 1)
+lstm_wide_bwd_kernel(const S* __restrict__ dh_all, const S* __restrict__ dh_T,
+                     const S* __restrict__ dc_T, const S* __restrict__ gates,
+                     const S* __restrict__ c_all, const S* __restrict__ c0,
+                     const S* __restrict__ wh, S* dxi, S* __restrict__ dh0,
+                     S* __restrict__ dc0, float* __restrict__ dcbuf, int T, int B, int H) {
+  cg::grid_group grid = cg::this_grid();
+  const WideShape s = wide_shape(H, 1);
+  const int U = s.U, H4 = 4 * H, q = blockIdx.x, tid = threadIdx.x;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  S* ws = reinterpret_cast<S*>(smem_raw);  // (NJ, WP)
+  float* as = reinterpret_cast<float*>(smem_raw + ((size_t)sizeof(S) * s.NJ * s.WP + 15) / 16 * 16);
+  float* red = as + MMK_WIDE_RT * s.KC;    // (KG, RT, NV)
+#pragma unroll 8
+  for (int idx = tid; idx < U * H4; idx += MMK_LSTM_THREADS) {
+    const int u = idx / H4, cc = idx % H4;
+    ws[(size_t)u * s.WP + cc] = wh[(size_t)(q * U + u) * H4 + cc];
+  }
+  const int j = tid % s.NV, kg = tid / s.NV;
+  const S* wrow = ws + (size_t)(j < s.NJ ? j : 0) * s.WP;
+  const bool cell = tid < MMK_WIDE_RT * U;
+  const int cr = cell ? tid / U : 0, cu = cell ? tid % U : 0, hu = q * U + cu;
+  __syncthreads();
+
+  for (int t = T - 1; t >= -1; --t) {
+    for (int r0 = 0; r0 < B; r0 += MMK_WIDE_RT) {
+      const int b = r0 + cr;
+      const bool valid = cell && b < B;
+      const size_t at = (size_t)b * H + hu;
+      float ig = 0.0f, fg = 0.0f, gg = 0.0f, og = 0.0f, cc = 0.0f, cp = 0.0f, dha = 0.0f;
+      float dcc = 0.0f, dhc = 0.0f;
+      if (valid && t >= 0) {  // the cell's inputs, in flight during the product
+        const size_t row = (size_t)t * B + b;
+        const S* gr = gates + row * H4 + hu;
+        ig = mmk_ld(gr), fg = mmk_ld(gr + H), gg = mmk_ld(gr + 2 * H), og = mmk_ld(gr + 3 * H);
+        cc = mmk_ld(c_all + row * H + hu);
+        cp = t > 0 ? mmk_ld(c_all + (row - B) * H + hu) : mmk_ld(c0 + at);
+        dha = mmk_ld(dh_all + row * H + hu);
+        dcc = t == T - 1 ? mmk_ld(dc_T + at) : dcbuf[at];
+        if (t == T - 1) dhc = mmk_ld(dh_T + at);
+      }
+      if (t < T - 1) {
+        wide_tile<S>(s, as, red, dxi + (size_t)(t + 1) * B * H4, r0, B, wrow, j, kg);
+        if (valid) dhc = wide_sum(s, red, cr, cu);
+      }
+      if (!valid) continue;
+      if (t < 0) {
+        mmk_st(dh0 + at, dhc);
+        mmk_st(dc0 + at, dcbuf[at]);
+        continue;
+      }
+      // the cell, each operation rounded as the plain version's, in its order
+      const float tc = tanhf(cc);
+      const float dh = __fadd_rn(dha, dhc);
+      const float dc =
+          __fadd_rn(dcc, __fmul_rn(__fmul_rn(dh, og), __fsub_rn(1.0f, __fmul_rn(tc, tc))));
+      S* dr = dxi + ((size_t)t * B + b) * H4 + hu;
+      mmk_st(dr, mmk_round<S>(__fmul_rn(__fmul_rn(__fmul_rn(dc, gg), ig), __fsub_rn(1.0f, ig))));
+      mmk_st(dr + H,
+             mmk_round<S>(__fmul_rn(__fmul_rn(__fmul_rn(dc, cp), fg), __fsub_rn(1.0f, fg))));
+      mmk_st(dr + 2 * H,
+             mmk_round<S>(__fmul_rn(__fmul_rn(dc, ig), __fsub_rn(1.0f, __fmul_rn(gg, gg)))));
+      mmk_st(dr + 3 * H,
+             mmk_round<S>(__fmul_rn(__fmul_rn(__fmul_rn(dh, tc), og), __fsub_rn(1.0f, og))));
+      dcbuf[at] = __fmul_rn(dc, fg);
+    }
+    if (t >= 0) grid.sync();
+  }
+}
+
 // Shared memory of the forward for hidden size H, `bc` batch rows per
 // cluster, clusters of `cl` blocks and `es` bytes a stream element: the
 // slice, the two h buffers and the block's new h, all of the stream type;
@@ -988,6 +1276,29 @@ static int walk_any(void** args, int B, int H, int bc, int cl, cudaStream_t s, i
   }
 }
 
+// dWh = hprev^T dxi over the stored dxi (lstm_dwh_kernel), in `splits` row
+// ranges whose partial tiles lstm_dwh_sum_kernel adds (f32 with one
+// split writes dwh directly).
+template <typename S>
+static int dwh_product(const S* h0, const S* h_all, const S* dxi, S* dwh, float* dwh_part, int T,
+                       int B, int H, int splits, cudaStream_t s) {
+  if (splits < 1) return (int)cudaErrorInvalidValue;
+  const int M = H, N = 4 * H, R = T * B;
+  const int rows = (R + splits - 1) / splits;
+  const dim3 grid((N + DWH_TN - 1) / DWH_TN, (M + DWH_TM - 1) / DWH_TM, splits);
+  // f32 with one split writes dWh directly; otherwise partial tiles, summed
+  // (and, for bf16, rounded) by the second kernel
+  const bool direct = splits == 1 && sizeof(S) == sizeof(float);
+  lstm_dwh_kernel<S><<<grid, 256, 0, s>>>(h0, h_all, dxi, direct ? (float*)dwh : dwh_part, R, B,
+                                          M, N, rows);
+  if (!direct) {
+    const int err = (int)cudaGetLastError();
+    if (err != 0) return err;
+    lstm_dwh_sum_kernel<S><<<(M * N + 255) / 256, 256, 0, s>>>(dwh_part, dwh, splits, M * N);
+  }
+  return (int)cudaGetLastError();
+}
+
 template <typename S>
 static int backward(const void* dh_all_, const void* dh_T_, const void* dc_T_,
                     const void* gates_, const void* c_all_, const void* h_all_,
@@ -1003,21 +1314,56 @@ static int backward(const void* dh_all_, const void* dh_T_, const void* dc_T_,
   int clusters = 0;
   int err = walk_any<S>(args, B, H, bc, cl, s, &clusters, 0);
   if (err != 0) return err;
-  if (splits < 1) return (int)cudaErrorInvalidValue;
-  const int M = H, N = 4 * H, R = T * B;
-  const int rows = (R + splits - 1) / splits;
-  const dim3 grid((N + DWH_TN - 1) / DWH_TN, (M + DWH_TM - 1) / DWH_TM, splits);
-  // f32 with one split writes dWh directly; otherwise partial tiles, summed
-  // (and, for bf16, rounded) by the second kernel
-  const bool direct = splits == 1 && sizeof(S) == sizeof(float);
-  lstm_dwh_kernel<S><<<grid, 256, 0, s>>>(h0, h_all, dxi, direct ? (float*)dwh : dwh_part, R, B,
-                                          M, N, rows);
-  if (!direct) {
-    err = (int)cudaGetLastError();
-    if (err != 0) return err;
-    lstm_dwh_sum_kernel<S><<<(M * N + 255) / 256, 256, 0, s>>>(dwh_part, dwh, splits, M * N);
-  }
+  return dwh_product<S>(h0, h_all, dxi, dwh, dwh_part, T, B, H, splits, s);
+}
+
+// The wide route's limits (ops/fused_lstm.py's lstm_wide_plan raises outside
+// them): H a multiple of 128 up to 1,024, and each kernel's shared memory.
+static bool wide_fits(int H, int es) {
+  return H >= MMK_WIDE_BLOCKS && H % MMK_WIDE_BLOCKS == 0 && H <= 8 * MMK_WIDE_BLOCKS &&
+         wide_smem(H, es, 0) <= 232448 && wide_smem(H, es, 1) <= 232448;
+}
+
+// One cooperative launch of MMK_WIDE_BLOCKS blocks (the grid barriers need
+// every block resident: the launch is refused on a card that cannot hold
+// them at once).
+static int wide_launch(const void* fn, void** args, size_t smem, cudaStream_t s) {
+  cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaLaunchCooperativeKernel(fn, dim3(MMK_WIDE_BLOCKS), dim3(MMK_LSTM_THREADS), args, smem,
+                                  s);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+template <typename S>
+static int wide_forward(const void* xi_, const void* wh_, const void* h0_, const void* c0_,
+                        void* h_all_, void* c_all_, void* gates_, float* cbuf, int T, int B,
+                        int H, cudaStream_t s) {
+  if (!wide_fits(H, sizeof(S)) || T < 1 || B < 1) return (int)cudaErrorInvalidValue;
+  const S *xi = (const S*)xi_, *wh = (const S*)wh_, *h0 = (const S*)h0_, *c0 = (const S*)c0_;
+  S *h_all = (S*)h_all_, *c_all = (S*)c_all_, *gates = (S*)gates_;
+  void* args[] = {&xi, &wh, &h0, &c0, &h_all, &c_all, &gates, &cbuf, &T, &B, &H};
+  return wide_launch((const void*)lstm_wide_fwd_kernel<S>, args, wide_smem(H, sizeof(S), 0), s);
+}
+
+template <typename S>
+static int wide_backward(const void* dh_all_, const void* dh_T_, const void* dc_T_,
+                         const void* gates_, const void* c_all_, const void* h_all_,
+                         const void* h0_, const void* c0_, const void* wh_, void* dxi_,
+                         void* dwh_, float* dwh_part, void* dh0_, void* dc0_, float* dcbuf, int T,
+                         int B, int H, int splits, cudaStream_t s) {
+  if (!wide_fits(H, sizeof(S)) || T < 1 || B < 1) return (int)cudaErrorInvalidValue;
+  const S *dh_all = (const S*)dh_all_, *dh_T = (const S*)dh_T_, *dc_T = (const S*)dc_T_;
+  const S *gates = (const S*)gates_, *c_all = (const S*)c_all_, *h_all = (const S*)h_all_;
+  const S *h0 = (const S*)h0_, *c0 = (const S*)c0_, *wh = (const S*)wh_;
+  S *dxi = (S*)dxi_, *dwh = (S*)dwh_, *dh0 = (S*)dh0_, *dc0 = (S*)dc0_;
+  void* args[] = {&dh_all, &dh_T, &dc_T, &gates, &c_all, &c0, &wh, &dxi, &dh0, &dc0, &dcbuf,
+                  &T, &B, &H};
+  const int err =
+      wide_launch((const void*)lstm_wide_bwd_kernel<S>, args, wide_smem(H, sizeof(S), 1), s);
+  if (err != 0) return err;
+  return dwh_product<S>(h0, h_all, dxi, dwh, dwh_part, T, B, H, splits, s);
 }
 
 extern "C" {
@@ -1076,6 +1422,36 @@ int mmk_lstm_backward(const void* dh_all, const void* dh_T, const void* dc_T,
                                         s)
               : backward<float>(dh_all, dh_T, dc_T, gates, c_all, h_all, h0, c0, wh, dxi, dwh,
                                 dwh_part, dh0, dc0, T, B, H, bc, cl, splits, s);
+}
+
+// The wide route (K3a-wide, K3b-wide): shared memory (bytes) of its forward
+// (backward = 0) or backward walk on `es`-byte streams.
+long long mmk_lstm_wide_smem(int H, int es, int backward) {
+  return (long long)wide_smem(H, es, backward);
+}
+
+// The forward on MMK_WIDE_BLOCKS blocks; cbuf is a (B, H) f32 workspace.
+int mmk_lstm_wide_forward(const void* xi, const void* wh, const void* h0, const void* c0,
+                          void* h_all, void* c_all, void* gates, float* cbuf, int T, int B,
+                          int H, int bf16, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  return bf16 ? wide_forward<__nv_bfloat16>(xi, wh, h0, c0, h_all, c_all, gates, cbuf, T, B, H, s)
+              : wide_forward<float>(xi, wh, h0, c0, h_all, c_all, gates, cbuf, T, B, H, s);
+}
+
+// The walk on MMK_WIDE_BLOCKS blocks (dcbuf a (B, H) f32 workspace), then dWh
+// as mmk_lstm_backward computes it.
+int mmk_lstm_wide_backward(const void* dh_all, const void* dh_T, const void* dc_T,
+                           const void* gates, const void* c_all, const void* h_all,
+                           const void* h0, const void* c0, const void* wh, void* dxi, void* dwh,
+                           float* dwh_part, void* dh0, void* dc0, float* dcbuf, int T, int B,
+                           int H, int splits, int bf16, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  return bf16 ? wide_backward<__nv_bfloat16>(dh_all, dh_T, dc_T, gates, c_all, h_all, h0, c0, wh,
+                                             dxi, dwh, dwh_part, dh0, dc0, dcbuf, T, B, H,
+                                             splits, s)
+              : wide_backward<float>(dh_all, dh_T, dc_T, gates, c_all, h_all, h0, c0, wh, dxi,
+                                     dwh, dwh_part, dh0, dc0, dcbuf, T, B, H, splits, s);
 }
 
 const char* mmk_lstm_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

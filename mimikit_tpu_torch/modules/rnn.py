@@ -10,10 +10,16 @@ but is a buffer held at zero, so no optimizer moves it.  A non-zero
 ``bias_ih`` in a loaded state_dict (a PyTorch mimikit checkpoint) is folded
 into ``bias_hh``, as ``mimikit_tpu/migrate.py`` sums the two.
 
-The sequence path (:meth:`LSTM.forward_seq`, the train forward) runs every
-layer through :func:`~mimikit_tpu_torch.ops.fused_lstm.fused_lstm_layer`:
-on the card the hand-written forward and backward kernels, on the CPU their
-plain versions.  :meth:`LSTM.step` advances one timestep (the decode path).
+The sequence path (:meth:`LSTM.forward_seq`, the train forward) asks
+:func:`~mimikit_tpu_torch.ops.fused_lstm.lstm_route` for each layer, as the
+JAX package's ``RNNStack._use_fused_lstm`` decides between its Pallas kernel
+and its ``lax.scan``: on the "cluster" and "wide" routes the layer runs
+through :func:`~mimikit_tpu_torch.ops.fused_lstm.fused_lstm_layer` (on the
+card the hand-written forward and backward kernels, on the CPU their plain
+versions); on the "scan" route, outside JAX's kernel gate, a step loop of
+:func:`lstm_step` under autograd.  The CPU takes the same route as the card,
+and past the kernels' limits, where the card raises, the plain versions.
+:meth:`LSTM.step` advances one timestep (the decode path).
 
 Carry layout, as in the JAX package: a tuple over layers of ``(c, h)``
 pairs of (B, H) tensors.
@@ -27,7 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.fused_lstm import fused_lstm_layer
+from ..ops.fused_lstm import fused_lstm_layer, lstm_route
 
 __all__ = ["LSTM", "lstm_step", "init_rnn_carry"]
 
@@ -112,14 +118,16 @@ class LSTM(nn.Module):
         return y, tuple(new_carry)
 
     def forward_seq(self, x, carry=None):
-        """x: (B, T, H) -> (y (B, T, H), new_carry), each layer through the
-        fused LSTM layer (kernels on CUDA, plain versions on the CPU).  The
-        default carry is made in x's dtype, and each layer's outputs and carry
-        come back in it (``mimikit_tpu/modules/rnn.py:172-177``): under a bf16
-        policy the rest of the net stays bf16."""
+        """x: (B, T, H) -> (y (B, T, H), new_carry), each layer on its
+        :func:`lstm_route`: the fused LSTM layer (kernels on CUDA, plain
+        versions on the CPU), or outside JAX's kernel gate a step loop
+        (``mimikit_tpu/modules/rnn.py:181-187``).  The default carry is made
+        in x's dtype, and each layer's outputs and carry come back in it
+        (``mimikit_tpu/modules/rnn.py:172-177``): under a bf16 policy the rest
+        of the net stays bf16."""
         if self.dropout > 0 and self.training:
             raise NotImplementedError("rnn_dropout is not ported")
-        B, dt = x.shape[0], x.dtype
+        B, T, dt = x.shape[0], x.shape[1], x.dtype
         if carry is None:
             carry = init_rnn_carry(self.num_layers, B, self.hidden_size, device=x.device,
                                    dtype=dt)
@@ -127,7 +135,21 @@ class LSTM(nn.Module):
         new_carry = []
         for k, (c0, h0) in enumerate(carry):
             w_ih, w_hh, b_ih, b_hh = self._layer(k)
-            ys, h_T, c_T = fused_lstm_layer(ys, w_ih.t(), w_hh.t(), b_ih + b_hh, h0, c0)
+            route = lstm_route(B, T, self.hidden_size, dt, cpu=x.device.type == "cpu")
+            if route == "scan":
+                ys, h_T, c_T = self._scan(k, ys, h0, c0)
+            else:
+                ys, h_T, c_T = fused_lstm_layer(ys, w_ih.t(), w_hh.t(), b_ih + b_hh, h0, c0,
+                                                route=route)
             ys = ys.to(dt)
             new_carry.append((c_T.to(dt), h_T.to(dt)))
         return ys.transpose(0, 1), tuple(new_carry)
+
+    def _scan(self, k: int, xs, h, c):
+        """Layer ``k`` over xs (T, B, D) as a step loop of :func:`lstm_step`:
+        ``(h_all (T, B, H), h_T, c_T)``."""
+        hs = []
+        for x_t in xs:
+            c, h = lstm_step(x_t, c, h, *self._layer(k))
+            hs.append(h)
+        return torch.stack(hs), h, c

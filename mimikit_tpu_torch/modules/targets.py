@@ -25,7 +25,7 @@ class CategoricalSampler(nn.Module):
     * ``"jax"`` (default): the port's plain sampling, ``torch.multinomial``
       over ``softmax(logits / temperature)``;
     * ``"pallas"``: with a scalar temperature, the Gumbel-argmax sampler
-      ``ops.categorical.categorical`` — the Triton kernel on a CUDA tensor,
+      ``ops.categorical.categorical`` — the CUDA kernel on a CUDA tensor,
       its plain twin on a CPU one — seeded with a draw from ``generator``.
       A per-example temperature tuple takes the plain route, as in JAX.
     """

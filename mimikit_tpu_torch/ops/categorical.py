@@ -1,33 +1,42 @@
 """Fused categorical sampling: ``argmax(logits / t + Gumbel)`` per row.
 
-A Triton kernel replaces the TPU kernel ``_categorical_call`` (K9,
-``mimikit_tpu/ops/pallas_kernels.py:159``, reached through ``categorical``
-``:196``), which ``CategoricalSampler(impl="pallas")`` calls.
+A CUDA kernel (``csrc/categorical.cu``) replaces the TPU kernel
+``_categorical_call`` (K9, ``mimikit_tpu/ops/pallas_kernels.py:159``,
+reached through ``categorical`` ``:196``), which
+``CategoricalSampler(impl="pallas")`` calls.
 
-The work is one pass over each (Q,) row of logits: scale by 1/t, add
-Gumbel noise, take the row's argmax.  That is an elementwise pass and a row
-reduction, so Triton serves as well as CUDA would: one program owns a row,
-lanes past Q (Q padded to a power of two) are masked with -inf, as the JAX
-wrapper pads its lanes, so they never win.  Bound on the card: bytes — each
-logit is read once (4 B) and each index written once, against ~30 integer
-and float operations a logit for the hash, the logs and the compare.
+The work is one pass over each (Q,) row of logits: scale by 1/t, add Gumbel
+noise, take the row's argmax (ties to the lowest index).  A row's logits are
+spread over its threads at about four a thread, read four at once in the
+logits' own dtype (float32, bfloat16 or float16) and row stride, so a call
+neither casts nor copies.
+Bound on the card: bytes, and at the decode path's widths the launch itself.
 
-Noise: the port's counter hash keyed (seed, row, class) (:mod:`.noise`), so
-the plain twin :func:`categorical_plain` draws the kernel's noise exactly.
-The TPU kernel's bits came from the chip's own generator and are not
-reproduced: draws match JAX's in distribution only.
+Noise: the port's counter hash keyed (seed, row, class) from
+``csrc/noise.cuh``, which every decode kernel includes; the plain twin
+:func:`categorical_plain` draws the same noise through :mod:`.noise`.  The
+TPU kernel's bits came from the chip's own generator and are not reproduced:
+draws match JAX's in distribution only.
 
 The wrapper's rule: a CPU tensor takes the plain twin; a CUDA tensor
-launches the kernel or raises.  ``triton`` is imported, and the kernel
-compiled, on the first launch — never when this module is imported.
+launches the kernel or raises.  The kernel is built with nvcc on the first
+launch (``ops/nvcc.py``), never when this module is imported.
 """
 from __future__ import annotations
 
+import ctypes
+from pathlib import Path
+
 import torch
 
-from .noise import gumbel_rows, mix32_int
+from .noise import gumbel_rows
+from .nvcc import CSRC, build_library
 
-__all__ = ["categorical", "categorical_plain"]
+__all__ = ["categorical", "categorical_plain", "build_kernel"]
+
+SOURCE = CSRC / "categorical.cu"
+# the logits' dtypes the kernel reads, by its code
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def categorical_plain(logits: torch.Tensor, temperature: float, seed: int) -> torch.Tensor:
@@ -38,75 +47,88 @@ def categorical_plain(logits: torch.Tensor, temperature: float, seed: int) -> to
     return torch.argmax(scores, dim=-1).to(torch.int32).reshape(lead)
 
 
-# The Triton source.  ``tl`` and ``_mix32`` are bound by ``_triton_kernel``
-# on the first launch (the kernel is compiled then, reading these globals);
-# until then they are None and nothing here touches triton.
-tl = None
-_mix32 = None
-
-
-def _mix32_src(x):
-    x = x ^ (x >> 16)
-    x = x * tl.full(x.shape, 0x7FEB352D, tl.uint32)
-    x = x ^ (x >> 15)
-    x = x * tl.full(x.shape, 0x846CA68B, tl.uint32)
-    return x ^ (x >> 16)
-
-
-def _categorical_src(logits_ptr, out_ptr, Q, stride, temperature, seed_key, BLOCK_Q: tl.constexpr):
-    row = tl.program_id(0)
-    q = tl.arange(0, BLOCK_Q)
-    mask = q < Q
-    x = tl.load(logits_ptr + row.to(tl.int64) * stride + q, mask=mask,
-                other=float("-inf")).to(tl.float32)
-    # seed_key = mix32(seed), computed by the wrapper (a uint32 in an int64)
-    key = _mix32(tl.full((BLOCK_Q,), 0, tl.uint32) + (seed_key.to(tl.uint32) ^ row.to(tl.uint32)))
-    bits = _mix32(key ^ q.to(tl.uint32))
-    u = (bits >> 8).to(tl.float32) * (1.0 / 16777216.0) + 1e-12
-    g = -tl.log(-tl.log(u))
-    v = tl.where(mask, x / temperature + g, float("-inf"))
-    tl.store(out_ptr + row, tl.argmax(v, axis=0).to(tl.int32))
-
-
 class _Kernel:
-    """The jitted Triton kernel (one per process)."""
+    """The built library (one per process) and its compiler output."""
 
-    fn = None
+    lib = None
+    build_log = ""
 
 
-def _triton_kernel():
-    global tl, _mix32
-    if _Kernel.fn is None:
-        import triton
-        import triton.language
+def build_kernel() -> Path:
+    """Compile ``csrc/categorical.cu`` for sm_90a into ``build/kernels/``
+    and return the library's path."""
+    path, log = build_library(SOURCE, "mmk_categorical")
+    if log:
+        _Kernel.build_log = log
+    return path
 
-        tl = triton.language
-        _mix32 = triton.jit(_mix32_src)
-        _Kernel.fn = triton.jit(_categorical_src)
-    return _Kernel.fn
+
+def _library():
+    if _Kernel.lib is None:
+        lib = ctypes.CDLL(str(build_kernel()))
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.mmk_categorical.argtypes = [p, p, i, i, ctypes.c_longlong, i, ctypes.c_float,
+                                        ctypes.c_uint, i, p]
+        lib.mmk_categorical.restype = i
+        lib.mmk_categorical_error_string.argtypes = [i]
+        lib.mmk_categorical_error_string.restype = ctypes.c_char_p
+        _Kernel.lib = lib
+    return _Kernel.lib
+
+
+def _raise_on(err: int, what: str):
+    if err != 0:
+        msg = _library().mmk_categorical_error_string(err).decode()
+        raise RuntimeError(f"{what} failed: {msg}")
+
+
+def _stream(x: torch.Tensor) -> int:
+    """The handle of PyTorch's current stream on ``x``'s device, read as
+    Triton's launcher reads it (``torch.cuda.current_stream`` builds a
+    Stream object a call, several microseconds of a sampler call's host
+    time)."""
+    return torch._C._cuda_getCurrentRawStream(x.device.index)
+
+
+def _rows(logits: torch.Tensor) -> torch.Tensor:
+    """(rows, Q) of ``logits`` with unit stride along Q: a view where the
+    leading dims collapse into one stride, else a copy."""
+    Q = logits.shape[-1]
+    if logits.dtype not in _DTYPES:
+        logits = logits.to(torch.float32)
+    if logits.stride(-1) == 1 or Q == 1:
+        try:
+            return logits.view(-1, Q)
+        except RuntimeError:
+            pass
+    return logits.reshape(-1, Q).contiguous()
 
 
 def categorical(logits: torch.Tensor, temperature: float, seed: int) -> torch.Tensor:
     """Sample class indices from (..., Q) logits with temperature by the
     Gumbel-argmax trick.  Returns (...,) int32.  CPU tensors take
-    :func:`categorical_plain`; CUDA tensors launch the Triton kernel."""
+    :func:`categorical_plain`; CUDA tensors launch the kernel."""
     if not temperature > 0:
         raise ValueError(f"temperature must be > 0, got {temperature}")
     if logits.device.type == "cpu":
         return categorical_plain(logits, temperature, seed)
     if logits.device.type != "cuda":
         raise ValueError(f"the categorical kernel runs on CUDA tensors, got {logits.device}")
-    import triton
-
     lead, Q = logits.shape[:-1], logits.shape[-1]
-    flat = logits.reshape(-1, Q).to(torch.float32).contiguous()
+    if Q < 1:
+        raise ValueError("the categorical kernel needs at least one class")
+    flat = _rows(logits)
     B = flat.shape[0]
     out = torch.empty(B, dtype=torch.int32, device=flat.device)
     if B:
-        block = triton.next_power_of_2(Q)
-        _triton_kernel()[(B,)](flat, out, Q, flat.stride(0), float(temperature),
-                               mix32_int(seed), BLOCK_Q=block,
-                               num_warps=max(1, min(8, block // 256)))
+        stride = flat.stride(0) if B > 1 else Q
+        # the kernel reads four logits at once where every row starts aligned to them
+        vec = int(flat.data_ptr() % (4 * flat.element_size()) == 0 and stride % 4 == 0)
+        err = _library().mmk_categorical(
+            flat.data_ptr(), out.data_ptr(), B, Q, stride, _DTYPES[flat.dtype],
+            float(temperature), seed & 0xFFFFFFFF, vec, _stream(flat),
+        )
+        _raise_on(err, "categorical kernel launch")
         categorical.launches += 1
     return out.reshape(lead)
 

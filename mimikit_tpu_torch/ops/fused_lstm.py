@@ -5,11 +5,25 @@ The kernels (``csrc/fused_lstm.cu``) replace the TPU kernels of
 ``mimikit_tpu/ops/pallas_lstm.py:76`` ``_make_fused_calls``: the forward
 (K3a, ``pallas_call`` at :111) and the backward (K3b, :197).  What bounds
 them on an H100 and what their design does about it is in the source note at
-the top of the ``.cu`` file.  Both recurrences run on thread block clusters
-of 8 or 16 blocks, each block owning H/cl hidden units: the size by stream
-dtype is a route from a sweep on the card (``LSTM_FWD_ROUTE``,
-``LSTM_BWD_ROUTE``), and the plans (``lstm_fwd_plan``, ``lstm_bwd_plan``)
-pick the batch rows a cluster and raise outside the kernels' limits.
+the top of the ``.cu`` file.  A layer takes one of three routes
+(:func:`lstm_route`, in the order of JAX's gate,
+``mimikit_tpu/modules/rnn.py:99-128``):
+
+* ``"cluster"``: both recurrences on thread block clusters of 8 or 16
+  blocks, each block owning H/cl hidden units with its slice of Wh in shared
+  memory: the size by stream dtype is a route from a sweep on the card
+  (``LSTM_FWD_ROUTE``, ``LSTM_BWD_ROUTE``), and the plans
+  (``lstm_fwd_plan``, ``lstm_bwd_plan``) pick the batch rows a cluster and
+  raise outside the kernels' limits (:func:`lstm_forward`,
+  :func:`lstm_backward`);
+* ``"wide"``: where a cluster cannot hold Wh, H a multiple of 128 up to
+  1,024 (:func:`lstm_wide_plan`): one cooperative launch of 128 blocks, each
+  owning H/128 units with its part of Wh in shared memory, a grid barrier a
+  step (K3a-wide :func:`lstm_forward_wide`, K3b-wide
+  :func:`lstm_backward_wide`);
+* ``"scan"``: outside JAX's kernel gate (H not a multiple of 128, B < 8 or
+  B*T < 64), where JAX runs a ``lax.scan``: ``LSTM.forward_seq`` runs a step
+  loop under autograd, and no kernel.
 
 * :func:`lstm_forward` ``(xi, Wh, h0, c0) -> (h_all, c_all, gates)``;
 * :func:`lstm_backward` ``(dh_all, dh_T, dc_T, gates, c_all, h_all, h0, c0,
@@ -54,6 +68,10 @@ __all__ = [
     "fused_lstm_layer",
     "lstm_fwd_plan",
     "lstm_bwd_plan",
+    "lstm_wide_plan",
+    "lstm_route",
+    "lstm_forward_wide",
+    "lstm_backward_wide",
     "LSTM_FWD_ROUTE",
     "LSTM_BWD_ROUTE",
     "build_lstm_kernel",
@@ -88,6 +106,10 @@ LSTM_BWD_ROUTE = {
     torch.float32: (8, 8),
     torch.bfloat16: (16, 8),
 }
+# the wide route (``MMK_WIDE_*`` in the .cu): blocks of its cooperative
+# launch, batch rows of a product's tile, columns of a staged chunk; H a
+# multiple of WIDE_BLOCKS up to WIDE_MAX_H
+WIDE_BLOCKS, WIDE_RT, WIDE_KC, WIDE_MAX_H = 128, 16, 1024, 1024
 
 
 # -- plain versions ---------------------------------------------------------------
@@ -283,6 +305,86 @@ def lstm_bwd_plan(B: int, H: int, esize: int = 4, cl: Optional[int] = None) -> T
     return _plan(B, H, esize, cl, LSTM_BWD_ROUTE, BWD_CLUSTER_SIZES, _bwd_fits, "backward")
 
 
+def _wide_shape(H: int, backward: bool) -> dict:
+    """The wide route's layout (``wide_shape`` in the .cu): units a block U,
+    slice rows NJ (forward: the 4U gate columns; backward: the U units' rows
+    of Wh), threads a k-group NV (the power of two from NJ), k-groups KG, the
+    product's depth K, its staged chunk KC and the slice's pitch WP."""
+    U = H // WIDE_BLOCKS
+    NJ = U if backward else 4 * U
+    NV = 1 << max(0, (NJ - 1).bit_length())
+    K = 4 * H if backward else H
+    return dict(U=U, NJ=NJ, NV=NV, KG=THREADS // NV, K=K, KC=min(K, WIDE_KC), WP=K + 4)
+
+
+def _wide_smem(H: int, esize: int, backward: bool) -> int:
+    """Bytes of shared memory of K3a-wide (K3b-wide with ``backward``) on
+    ``esize``-byte streams (``wide_smem`` in the .cu): the slice, rounded up
+    to 16 bytes, the staged tile and the partial sums (f32)."""
+    s = _wide_shape(H, backward)
+    return -(-esize * s["NJ"] * s["WP"] // 16) * 16 + 4 * (WIDE_RT * s["KC"] + THREADS * WIDE_RT)
+
+
+def _wide_fits(H: int, esize: int) -> str:
+    """Why the wide route cannot take H; "" where it can (``wide_fits`` in
+    the .cu)."""
+    if H < WIDE_BLOCKS or H % WIDE_BLOCKS:
+        return f"H={H} is not a multiple of {WIDE_BLOCKS}"
+    if H > WIDE_MAX_H:
+        return f"H={H} is past the wide kernels' {WIDE_MAX_H}"
+    smem = max(_wide_smem(H, esize, False), _wide_smem(H, esize, True))
+    if smem > SMEM_PER_BLOCK:
+        return (f"H={H} needs {smem} bytes of shared memory a block (at most"
+                f" {SMEM_PER_BLOCK})")
+    return ""
+
+
+def lstm_wide_plan(B: int, H: int, esize: int = 4) -> Tuple[int, int]:
+    """(blocks, hidden units a block) of K3a-wide and K3b-wide at (B, H) on
+    ``esize``-byte streams: ``WIDE_BLOCKS`` blocks of H/128 units, any B >= 1.
+    Raises ``ValueError`` outside the limits: H a multiple of 128 up to
+    1,024, and a block's shared memory (227 KB)."""
+    if B < 1:
+        raise ValueError(f"the wide LSTM kernels need B >= 1, got B={B}")
+    why = _wide_fits(H, esize)
+    if why:
+        raise ValueError(f"the wide LSTM kernels cannot run: {why}")
+    return WIDE_BLOCKS, H // WIDE_BLOCKS
+
+
+def _jax_runs_a_scan(B: int, T: int, H: int) -> bool:
+    """Outside the JAX package's kernel gate (``mimikit_tpu/modules/rnn.py:
+    126-128``, ``_use_fused_lstm``), where it runs a ``lax.scan``."""
+    return H % 128 != 0 or B < 8 or B * T < 64
+
+
+def lstm_route(B: int, T: int, H: int, dtype: torch.dtype = torch.float32,
+               cpu: bool = False) -> str:
+    """The route of one LSTM layer at (B, T, H) on ``dtype`` streams
+    (bfloat16, or float32 for any other dtype): ``"cluster"`` where both
+    cluster plans take it, else ``"wide"`` where :func:`lstm_wide_plan` does,
+    else ``"scan"`` where JAX runs its scan.  Otherwise (H past the wide
+    route's 1,024 inside JAX's gate) it raises ``ValueError`` naming both
+    plans' reasons, or with ``cpu`` gives ``"plain"``: on CPU tensors the
+    fused layer runs its plain versions at any width."""
+    es = 2 if dtype == torch.bfloat16 else 4
+    try:
+        lstm_fwd_plan(B, H, es)
+        lstm_bwd_plan(B, H, es)
+        return "cluster"
+    except ValueError as e:
+        cluster = str(e)
+    wide = _wide_fits(H, es)
+    if not wide:
+        return "wide"
+    if _jax_runs_a_scan(B, T, H):
+        return "scan"
+    if cpu:
+        return "plain"
+    raise ValueError(f"no LSTM route takes (B, T, H) = ({B}, {T}, {H}) on {dtype} streams:"
+                     f" {cluster}; the wide kernels: {wide}")
+
+
 def dwh_splits(R: int, H: int) -> int:
     """Row ranges the dWh product splits its R = T*B rows into: enough for
     about 512 blocks of 64 x 64 tiles (several per SM), each range at least
@@ -321,6 +423,12 @@ def _library():
         for fn in (lib.mmk_lstm_fwd_clusters, lib.mmk_lstm_bwd_clusters):
             fn.argtypes = [i] * 4
             fn.restype = i
+        lib.mmk_lstm_wide_forward.argtypes = [p] * 8 + [i] * 4 + [p]
+        lib.mmk_lstm_wide_forward.restype = i
+        lib.mmk_lstm_wide_backward.argtypes = [p] * 15 + [i] * 5 + [p]
+        lib.mmk_lstm_wide_backward.restype = i
+        lib.mmk_lstm_wide_smem.argtypes = [i] * 3
+        lib.mmk_lstm_wide_smem.restype = ctypes.c_longlong
         lib.mmk_lstm_error_string.argtypes = [i]
         lib.mmk_lstm_error_string.restype = ctypes.c_char_p
         for H, r, es in ((256, 4, 4), (16, 1, 4), (256, 8, 2), (16, 1, 2), (320, 2, 4)):
@@ -330,6 +438,10 @@ def _library():
                 for cl in BWD_CLUSTER_SIZES
             ):
                 raise RuntimeError("the LSTM kernels' shared-memory sizes differ between C and Python")
+        if any(lib.mmk_lstm_wide_smem(H, es, bw) != _wide_smem(H, es, bool(bw))
+               for H in (128, 384, 512, 1024) for es in (4, 2) for bw in (0, 1)):
+            raise RuntimeError("the wide LSTM kernels' shared-memory sizes differ between C and"
+                               " Python")
         _Kernel.lib = lib
     return _Kernel.lib
 
@@ -453,8 +565,83 @@ def lstm_backward(dh_all, dh_T, dc_T, gates, c_all, h_all, h0, c0, Wh, cl=None):
     return dxi, dWh, dh0, dc0
 
 
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """``x``, or a copy of it where its data is not 16-byte aligned (the wide
+    kernels read h0 16 bytes at a time)."""
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+def lstm_forward_wide(xi: torch.Tensor, Wh: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor):
+    """K3a-wide: :func:`lstm_forward` for H past a cluster's shared memory
+    (:func:`lstm_wide_plan`): the same outputs, on one cooperative launch of
+    128 blocks."""
+    if xi.device.type == "cpu":
+        return lstm_forward_plain(xi, Wh, h0, c0)
+    T, B, H4 = xi.shape
+    H = Wh.shape[0]
+    dev, dt = xi.device, _stream_dtype(xi)
+    lstm_wide_plan(B, H, xi.element_size())
+    if T < 1 or H4 != 4 * H:
+        raise ValueError(f"xi has shape {tuple(xi.shape)}, expected (T >= 1, B, {4 * H})")
+    for x, name, shape in ((xi, "xi", (T, B, H4)), (Wh, "Wh", (H, H4)),
+                           (h0, "h0", (B, H)), (c0, "c0", (B, H))):
+        _check(x, name, shape, dev, dt)
+    lib = _library()
+    h_all = torch.empty(T, B, H, device=dev, dtype=dt)
+    c_all = torch.empty(T, B, H, device=dev, dtype=dt)
+    gates = torch.empty(T, B, H4, device=dev, dtype=dt)
+    cbuf = torch.empty(B, H, device=dev)
+    err = lib.mmk_lstm_wide_forward(
+        xi.data_ptr(), Wh.data_ptr(), _aligned(h0).data_ptr(), c0.data_ptr(), h_all.data_ptr(),
+        c_all.data_ptr(), gates.data_ptr(), cbuf.data_ptr(), T, B, H,
+        int(dt == torch.bfloat16), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(err, "wide LSTM forward kernel")
+    _count(lstm_forward_wide, dt)
+    return h_all, c_all, gates
+
+
+def lstm_backward_wide(dh_all, dh_T, dc_T, gates, c_all, h_all, h0, c0, Wh):
+    """K3b-wide: :func:`lstm_backward` for H past a cluster's shared memory
+    (:func:`lstm_wide_plan`): the walk on one cooperative launch of 128
+    blocks, then the same dWh product."""
+    if gates.device.type == "cpu":
+        return lstm_backward_plain(dh_all, dh_T, dc_T, gates, c_all, h_all, h0, c0, Wh)
+    T, B, H = c_all.shape
+    dev, dt = gates.device, _stream_dtype(gates)
+    lstm_wide_plan(B, H, gates.element_size())
+    for x, name, shape in (
+        (dh_all, "dh_all", (T, B, H)), (dh_T, "dh_T", (B, H)), (dc_T, "dc_T", (B, H)),
+        (gates, "gates", (T, B, 4 * H)), (c_all, "c_all", (T, B, H)),
+        (h_all, "h_all", (T, B, H)), (h0, "h0", (B, H)), (c0, "c0", (B, H)),
+        (Wh, "Wh", (H, 4 * H)),
+    ):
+        _check(x, name, shape, dev, dt)
+    lib = _library()
+    dxi = torch.empty(T, B, 4 * H, device=dev, dtype=dt)
+    dWh = torch.empty(H, 4 * H, device=dev, dtype=dt)
+    dh0 = torch.empty(B, H, device=dev, dtype=dt)
+    dc0 = torch.empty(B, H, device=dev, dtype=dt)
+    dcbuf = torch.empty(B, H, device=dev)
+    splits = dwh_splits(T * B, H)
+    part = (torch.empty(splits, H, 4 * H, device=dev)
+            if splits > 1 or dt != torch.float32 else dWh)
+    err = lib.mmk_lstm_wide_backward(
+        dh_all.data_ptr(), dh_T.data_ptr(), dc_T.data_ptr(), gates.data_ptr(),
+        c_all.data_ptr(), h_all.data_ptr(), h0.data_ptr(), c0.data_ptr(), Wh.data_ptr(),
+        dxi.data_ptr(), dWh.data_ptr(), part.data_ptr(), dh0.data_ptr(), dc0.data_ptr(),
+        dcbuf.data_ptr(), T, B, H, splits, int(dt == torch.bfloat16),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(err, "wide LSTM backward kernel")
+    _count(lstm_backward_wide, dt)
+    return dxi, dWh, dh0, dc0
+
+
 lstm_forward.launches = lstm_forward.launches_bf16 = 0
 lstm_backward.launches = lstm_backward.launches_bf16 = 0
+lstm_forward_wide.launches = lstm_forward_wide.launches_bf16 = 0
+lstm_backward_wide.launches = lstm_backward_wide.launches_bf16 = 0
 # the last launch's plan
 lstm_forward.last_cluster_size = lstm_forward.last_rows = 0
 lstm_backward.last_cluster_size = lstm_backward.last_rows = 0
@@ -468,6 +655,22 @@ def _materialize(ct: Optional[torch.Tensor], like: torch.Tensor) -> torch.Tensor
     return torch.zeros_like(like) if ct is None else ct.contiguous()
 
 
+def _kernels(x: torch.Tensor, H: int, route: Optional[str]):
+    """(forward, backward) wrappers of the layer: on CPU tensors the cluster
+    wrappers, which run the plain versions whatever the route; on CUDA
+    tensors those of ``route`` (:func:`lstm_route`'s, asked here where
+    None), raising where it names no kernel."""
+    if x.device.type == "cpu":
+        return lstm_forward, lstm_backward
+    if route is None:
+        route = lstm_route(x.shape[1], x.shape[0], H, x.dtype)
+    if route not in ("cluster", "wide"):
+        raise ValueError(f"the LSTM kernels have no {route!r} route: LSTM.forward_seq runs a"
+                         " step loop outside their gate")
+    return ((lstm_forward, lstm_backward) if route == "cluster"
+            else (lstm_forward_wide, lstm_backward_wide))
+
+
 class _FusedLSTMLayer(torch.autograd.Function):
     """The layer with the kernels' backward (``pallas_lstm.py:239-289``).
     Its products outside the kernels take the streams' values in f32 and
@@ -476,12 +679,13 @@ class _FusedLSTMLayer(torch.autograd.Function):
     ``preferred_element_type=f32`` do; f32: the plain products)."""
 
     @staticmethod
-    def forward(ctx, x, Wi, Wh, b, h0, c0):
+    def forward(ctx, x, Wi, Wh, b, h0, c0, kernels):
         T, B, D = x.shape
         dt = x.dtype
         xi = torch.addmm(b.float(), x.reshape(T * B, D).float(), Wi.float())
         xi = xi.to(dt).reshape(T, B, -1)
-        h_all, c_all, gates = lstm_forward(xi, Wh, h0, c0)
+        ctx.kernels = kernels
+        h_all, c_all, gates = ctx.kernels[0](xi, Wh, h0, c0)
         ctx.save_for_backward(x, Wi, Wh, h0, c0, h_all, c_all, gates)
         ctx.set_materialize_grads(False)
         return h_all, h_all[-1].clone(), c_all[-1].clone()
@@ -491,7 +695,7 @@ class _FusedLSTMLayer(torch.autograd.Function):
         x, Wi, Wh, h0, c0, h_all, c_all, gates = ctx.saved_tensors
         T, B, D = x.shape
         dt = x.dtype
-        dxi, dWh, dh0, dc0 = lstm_backward(
+        dxi, dWh, dh0, dc0 = ctx.kernels[1](
             _materialize(dh_all, h_all), _materialize(dh_T, h0), _materialize(dc_T, c0),
             gates, c_all, h_all, h0, c0, Wh,
         )
@@ -500,27 +704,31 @@ class _FusedLSTMLayer(torch.autograd.Function):
         dx = (dxi2 @ Wi.float().t()).to(dt).reshape(T, B, D) if need[0] else None
         dWi = (x.reshape(T * B, D).float().t() @ dxi2).to(dt) if need[1] else None
         db = dxi2.sum(0).to(dt) if need[3] else None
-        return dx, dWi, dWh, db, dh0, dc0
+        return dx, dWi, dWh, db, dh0, dc0, None
 
 
 def fused_lstm_layer(x: torch.Tensor, Wi: torch.Tensor, Wh: torch.Tensor, b: torch.Tensor,
-                     h0: torch.Tensor, c0: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+                     h0: torch.Tensor, c0: torch.Tensor,
+                     route: Optional[str] = None) -> Tuple[torch.Tensor, ...]:
     """One LSTM layer over time.  x (T, B, D) time-major; Wi (D, 4H), Wh
     (H, 4H), b (4H,) in gate order i|f|g|o; h0, c0 (B, H).  Returns
     ``(h_all (T, B, H), h_T, c_T)``, differentiable in every argument.  On
     CUDA tensors the kernels run, or the call raises (outside their scope:
-    see :func:`lstm_fwd_plan` and :func:`lstm_bwd_plan`); on CPU tensors
-    the plain versions run.
+    see :func:`lstm_route`); on CPU tensors the plain versions run.
 
     The dtype follows ``x`` (``pallas_lstm.py:308``): bfloat16 runs the
     bf16-stream kernels; any other dtype runs the f32 kernels, and a float16
     ``x`` gets float16 outputs back.  Every argument is cast to the layer's
-    dtype."""
+    dtype.  The kernels are those of ``route``, the layer's
+    :func:`lstm_route` ("cluster" or "wide"; asked here where None, as
+    ``LSTM.forward_seq`` has it already); a shape on the "scan" route raises
+    on CUDA tensors."""
     if x.dim() != 3 or Wh.dim() != 2 or Wh.shape[1] != 4 * Wh.shape[0]:
         raise ValueError(f"bad shapes: x {tuple(x.shape)}, Wh {tuple(Wh.shape)}")
     dt = torch.bfloat16 if x.dtype == torch.bfloat16 else torch.float32
     out = _FusedLSTMLayer.apply(
-        *(a.to(dt).contiguous() for a in (x, Wi, Wh, b, h0, c0))
+        *(a.to(dt).contiguous() for a in (x, Wi, Wh, b, h0, c0)),
+        _kernels(x, Wh.shape[0], route),
     )
     if x.dtype == torch.float16:
         return tuple(o.to(x.dtype) for o in out)

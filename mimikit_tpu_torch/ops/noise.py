@@ -3,11 +3,11 @@
 A TPU kernel drew its random bits from the chip's own generator, which no
 other device reproduces.  The port's kernels and their plain twins instead
 hash a counter: ``mix32`` chained over the seed and the draw's keys, 24 bits
-kept, ``u = bits / 2^24 + 1e-12``, ``g = -log(-log(u))``.  The CUDA kernels
-include the same hash from ``csrc/noise.cuh`` and the Triton sampler spells
-it out in ``ops/categorical.py``, so a kernel and its plain twin see the same
-noise, and a decode's noise does not depend on how its steps are split into
-launches.
+kept, ``u = bits / 2^24 + 1e-12``, ``g = -log(-log(u))``.  The CUDA kernels,
+the decode kernels and the categorical sampler (``csrc/categorical.cu``)
+alike, include the same hash from ``csrc/noise.cuh``, so a kernel and its
+plain twin see the same noise, and a decode's noise does not depend on how
+its steps are split into launches.
 
 Keys: the decode kernels hash (seed, absolute step, stream, class)
 (:func:`gumbel_noise`); the categorical sampler hashes (seed, row, class)

@@ -1,7 +1,7 @@
 """The categorical sampler (K9's port) and the ``sampler_impl`` route, on the CPU.
 
 On the CPU ``ops.categorical.categorical`` runs its plain PyTorch twin, the
-Gumbel-argmax the Triton kernel computes (the kernel itself is held to the
+Gumbel-argmax the CUDA kernel computes (the kernel itself is held to the
 twin on the card by ``chip_smoke.py``):
 
 * leading dims are kept, Q need not be a power of two, every index is a
@@ -19,9 +19,19 @@ twin on the card by ``chip_smoke.py``):
   other.
 
 JAX runs in this process; the port in one subprocess
-(``torch_port_worker.py categorical``).
+(``torch_port_worker.py categorical``).  The card cases (marked ``cuda``,
+skipped without a card) hold the CUDA kernel to the plain twin in a
+subprocess that imports no JAX: f32 logits at the decode path's 256 x 256
+and the ragged 3 x 7 x 200 (Q = 200), logits past the kernel's fast
+division (-inf, 1e-13, 1e13), bf16 and f16 logits, and strided views
+read in place (rows apart by a stride, an offset that breaks the kernel's
+four-logit loads): every drawn index within 1e-4 * max|score| of its row's
+maximum under the twin's scores, one launch a call.
 """
 import json
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -30,7 +40,7 @@ from scipy import stats
 import jax
 import mimikit_tpu as mmk
 
-from tests.torch_port_harness import run_port
+from tests.torch_port_harness import ROOT, run_port
 
 CHI_Q, CHI_N, CHI_T = 8, 40000, 0.8
 
@@ -138,3 +148,28 @@ def test_sampler_impl_round_trips_between_packages(case, impl):
     _, jx, port = case
     assert str(port[f"io/{impl}/loaded_impl"]) == impl
     assert jx[f"io/{impl}/loaded_impl"] == impl
+
+
+_CARD_CHECK = """
+import torch
+import chip_smoke as cs
+from mimikit_tpu_torch.ops import categorical as cat
+n = cat.categorical.launches
+cs.check_categorical(torch, cat)
+assert cat.categorical.launches == n + len(cs.CAT_SHAPES) + 1 + len(cs.CAT_VIEWS)
+assert {v[1] for v in cs.CAT_VIEWS} >= {200} and {v[4] for v in cs.CAT_VIEWS} >= {"bfloat16"}
+assert any(v[3] % 4 for v in cs.CAT_VIEWS)  # a view the kernel reads one logit at a time
+print("ok")
+"""
+
+
+@pytest.mark.cuda
+def test_kernel_matches_plain_twin_on_card():
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    probe = subprocess.run([sys.executable, "-c", "import torch; print(torch.cuda.is_available())"],
+                           capture_output=True, text=True, env=env)
+    if probe.stdout.strip() != "True":
+        pytest.skip("needs a CUDA device and nvcc (run on the card: python3 chip_smoke.py)")
+    res = subprocess.run([sys.executable, "-c", _CARD_CHECK], capture_output=True, text=True,
+                         env=env, cwd=ROOT, timeout=600)
+    assert res.returncode == 0 and res.stdout.strip().endswith("ok"), res.stderr[-3000:]

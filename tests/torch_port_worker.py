@@ -1587,7 +1587,102 @@ def wavenet_cluster_task(inp: dict) -> dict:
     return out
 
 
-TASKS = {"lstm_plan": lstm_plan_task, "xla_rsqrt": xla_rsqrt_task, "wavenet_cluster": wavenet_cluster_task, "modules": modules_task, "sample_rnn": sample_rnn_task, "fused_lstm": fused_lstm_task,
+def _lstm_module(inp: dict, p: str, H: int, n_layers: int):
+    """The port's LSTM with the weights under ``p`` (``w_ih{k}`` (4H, D),
+    ``w_hh{k}``, ``b_hh{k}``), and a counter of its fused-layer calls."""
+    from mimikit_tpu_torch.modules import rnn
+
+    m = rnn.LSTM(H, n_layers)
+    with torch.no_grad():
+        for k in range(n_layers):
+            getattr(m, f"weight_ih_l{k}").copy_(t(inp[f"{p}w_ih{k}"]))
+            getattr(m, f"weight_hh_l{k}").copy_(t(inp[f"{p}w_hh{k}"]))
+            getattr(m, f"bias_hh_l{k}").copy_(t(inp[f"{p}b_hh{k}"]))
+    return m
+
+
+def lstm_route_task(inp: dict) -> dict:
+    """``lstm_route`` at each case of ``inp["route_cases"]`` (B, T, H,
+    element bytes), or its error; the wide plan and the wide kernels' shared
+    memory at each H of ``inp["wide_h"]``; and the LSTM module at the "scan"
+    and the "wide" cases: outputs, final carries and the gradients of
+    sum(y * gy) + sum over layers of sum(c * gc + h * gh) with respect to x,
+    every parameter and the initial carry, with the route each layer took and
+    the module's calls of the fused layer; at the "past" case (H past the
+    wide kernels' limit inside JAX's gate) also the module's own step loop's
+    outputs and the error the card's route raises."""
+    from mimikit_tpu_torch.modules import rnn
+    from mimikit_tpu_torch.ops import fused_lstm as fl
+
+    out = {}
+    for B, T, H, es in inp["route_cases"].tolist():
+        key = f"route/b{B}_t{T}_h{H}_e{es}"
+        try:
+            dtype = torch.float32 if es == 4 else torch.bfloat16
+            out[key] = np.array(fl.lstm_route(B, T, H, dtype))
+        except ValueError as e:
+            out[key + "_error"] = np.array(str(e))
+    for H in inp["wide_h"].tolist():
+        for es in (4, 2):
+            try:
+                out[f"wide/h{H}_e{es}/plan"] = np.array(fl.lstm_wide_plan(32, H, es))
+            except ValueError as e:
+                out[f"wide/h{H}_e{es}/error"] = np.array(str(e))
+            for bw in (0, 1):
+                out[f"wide/h{H}_e{es}_bw{bw}/smem"] = np.array(fl._wide_smem(H, es, bool(bw)))
+    out["smem_limit"] = np.array(fl.SMEM_PER_BLOCK)
+
+    real, calls = rnn.fused_lstm_layer, []
+
+    def counted(*a, **kw):
+        calls.append(1)
+        return real(*a, **kw)
+
+    rnn.fused_lstm_layer = counted
+    try:
+        for case in ("scan", "wide", "past"):
+            p = f"{case}/"
+            L = int(inp[p + "layers"])
+            x = t(inp[p + "x"]).clone().requires_grad_()
+            B, T, H = x.shape
+            m = _lstm_module(inp, p, H, L)
+            carry = tuple((t(inp[f"{p}c0_{k}"]).clone().requires_grad_(),
+                           t(inp[f"{p}h0_{k}"]).clone().requires_grad_()) for k in range(L))
+            calls.clear()
+            y, final = m.forward_seq(x, carry)
+            out[p + "fused_calls"] = np.array(len(calls))
+            out[p + "route"] = np.array(fl.lstm_route(B, T, H, x.dtype, cpu=True))
+            if case == "past":
+                try:
+                    fl.lstm_route(B, T, H, x.dtype)
+                except ValueError as e:
+                    out[p + "card_error"] = np.array(str(e))
+                with torch.no_grad():
+                    ys, h, c = m._scan(0, x.transpose(0, 1), carry[0][1], carry[0][0])
+                out[p + "scan_y"], out[p + "scan_h_0"] = ys.transpose(0, 1).numpy(), h.numpy()
+                out[p + "scan_c_0"] = c.numpy()
+            loss = (y * t(inp[p + "gy"])).sum()
+            for k, (c, h) in enumerate(final):
+                loss = loss + (c * t(inp[f"{p}gc_{k}"])).sum() + (h * t(inp[f"{p}gh_{k}"])).sum()
+                out[f"{p}c_{k}"], out[f"{p}h_{k}"] = c.detach().numpy(), h.detach().numpy()
+            loss.backward()
+            out[p + "y"] = y.detach().numpy()
+            out[p + "grad_x"] = x.grad.numpy()
+            for k in range(L):
+                for n in ("weight_ih", "weight_hh", "bias_hh"):
+                    out[f"{p}grad_{n}{k}"] = getattr(m, f"{n}_l{k}").grad.numpy()
+                out[f"{p}grad_c0_{k}"] = carry[k][0].grad.numpy()
+                out[f"{p}grad_h0_{k}"] = carry[k][1].grad.numpy()
+            out[p + "launches"] = np.array(fl.lstm_forward.launches + fl.lstm_backward.launches
+                                           + fl.lstm_forward_wide.launches
+                                           + fl.lstm_backward_wide.launches)
+    finally:
+        rnn.fused_lstm_layer = real
+    return out
+
+
+TASKS = {"lstm_route": lstm_route_task,
+         "lstm_plan": lstm_plan_task, "xla_rsqrt": xla_rsqrt_task, "wavenet_cluster": wavenet_cluster_task, "modules": modules_task, "sample_rnn": sample_rnn_task, "fused_lstm": fused_lstm_task,
          "train": train_task, "train_stateless": train_stateless_task,
          "wavenet": wavenet_task, "categorical": categorical_task,
          "transformer": transformer_task, "jukebox": jukebox_task,

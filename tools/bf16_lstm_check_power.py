@@ -16,6 +16,12 @@ on the card:
 * ``alt``: the bf16 twin on the CPU (a correct computation that sums in
   another order).
 
+With ``--wide`` it runs the wide kernels' cases instead (K3a-wide, K3b-wide:
+``chip_smoke.LSTM_WIDE_BF16_SHAPES`` at input seeds T + H + 1 + s for s = 0
+to 5, s = 0 being chip_smoke's own case), without the cluster sizes, and
+ends with each source's range per tensor over those cases: what
+``chip_smoke.BF16_LSTM_WIDE_SHARES`` is set between.
+
 Per case and source it prints the largest gap over the outputs and the six
 gradients in bf16 ulps of each tensor's scale, the share of the case's
 elements that differ from the twin, and each tensor's gap: what
@@ -37,7 +43,11 @@ CASES = [((12, 4, 8, 16), seed) for seed in range(8)] + [
     ((T, 32, 256, 256), seed) for T in (128, 256) for seed in range(2)]
 
 
-def line(tag, source, gaps):
+def line(tag, source, gaps, ranges=None):
+    if ranges is not None:
+        for n, g in gaps.items():
+            lo, hi = ranges.setdefault((source, n), (1.0, 0.0))
+            ranges[source, n] = (min(lo, g[1] / g[2]), max(hi, g[1] / g[2]))
     worst = max(g[0] for g in gaps.values())
     share = sum(g[1] for g in gaps.values()) / sum(g[2] for g in gaps.values())
     each = ", ".join(f"{n} {g[0]:.2f}/{g[1] / g[2]:.1%}" for n, g in gaps.items())
@@ -48,21 +58,29 @@ def line(tag, source, gaps):
 def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     print(cs.card_line(), flush=True)
-    for (T, B, D, H), seed in CASES:
+    wide = "--wide" in sys.argv[1:]
+    cases = ([(s, T + H + 1 + seed) for s in cs.LSTM_WIDE_BF16_SHAPES for seed in range(6)
+              for T, _, _, H in (s,)] if wide else [(s, 1000 + seed) for s, seed in CASES])
+    ranges = {} if wide else None
+    for (T, B, D, H), seed in cases:
         tag = f"(T, B, H) = ({T}, {B}, {H}) seed {seed}"
-        args, cts = cs.lstm_bf16_inputs(torch, T, B, D, H, seed=1000 + seed)
+        args, cts = cs.lstm_bf16_inputs(torch, T, B, D, H, seed=seed)
         gaps, _, (p_out, p_grads) = cs.lstm_bf16_gaps(torch, fl, args, cts)
-        line(tag, "bf16", gaps)
-        for cl in fl.FWD_CLUSTER_SIZES:
+        line(tag, "bf16", gaps, ranges)
+        for cl in () if wide else fl.FWD_CLUSTER_SIZES:
             line(tag, f"bf16 forward on {cl}",
                  cs.lstm_bf16_gaps(torch, fl, args, cts, fwd_cl=cl)[0])
         bad, _, _ = cs.lstm_bf16_gaps(torch, fl, args, cts, control=True)
-        line(tag, "control", bad)
+        line(tag, "control", bad, ranges)
         c_out, c_grads = cs.lstm_plain_layer(torch, fl, tuple(a.cpu() for a in args),
                                              tuple(c.cpu() for c in cts))
         alt = {n: (*cs.bf16_ulps(c.cuda(), p), p.numel())
                for n, c, p in zip(cs.LSTM_NAMES, (*c_out, *c_grads), (*p_out, *p_grads))}
-        line(tag, "alt", alt)
+        line(tag, "alt", alt, ranges)
+    for source in ("bf16", "alt", "control") if wide else ():
+        print(f"{source} over the wide cases, share of each tensor's elements that differ: "
+              + ", ".join(f"{n} {ranges[source, n][0]:.2%}-{ranges[source, n][1]:.2%}"
+                          for n in cs.LSTM_NAMES), flush=True)
 
 
 if __name__ == "__main__":
