@@ -51,10 +51,14 @@ Phases (any failure exits non-zero; no exception is swallowed):
    h and dz) must fail at every case; the wide kernels (K3a-wide, K3b-wide:
    ``lstm_route`` sends H a multiple of 128 past a cluster's shared memory
    to them) the same way through the route, f32 at (T, B, H) = (8, 32,
-   512), (128, 32, 512) and (64, 32, 1024), bf16 at (128, 32, 768) and (64,
-   32, 1024) against the larger of the tier shapes' 25 % and the share in
-   which the twin computed on the CPU differs from the card's twin, and its
-   control, each call's launches on its route's wrappers only; one full
+   512), (128, 32, 512) and (64, 32, 1024) and at B = 8, 48 and 128 (T =
+   16, H = 512), bf16 at (128, 32, 768) and (64, 32, 1024) and at B = 8, 48
+   and 128 (T = 32, H = 768), each tensor against its share of elements
+   that differ (``BF16_LSTM_WIDE_SHARES``), and its control, each call's
+   launches on its route's wrappers only, and the clusters of 2 blocks
+   the card holds at once at each H, at least the 64 a launch needs
+   (``wide_clusters_that_fit``), and at B = 48 and 128 twenty calls of each
+   wide kernel on the same inputs giving the same bits; one full
    SampleRNN-3 train step (B=32 x 2048) with the kernels against the same
    step on the CPU (plain versions): loss within 1e-5 relative, every
    parameter's gradient within 1e-5 + 1e-3 * max|plain|, at hidden 256 and,
@@ -322,7 +326,8 @@ PARENT_SASS = {
         "_Z16sc_decode_kernelILi8E13__nv_bfloat16Li2EEv6ScArgs":
             "f7bacf9d85db2e1d, REG 162 STACK 0",
     },
-    # the backward walk (K3b), dWh and its sum: the forward (K3a) is this checkout's
+    # the cluster kernels' forward (K3a) and backward walk (K3b), dWh and its sum; the
+    # wide kernels are this checkout's
     "fused_lstm.cu": {
         "_Z15lstm_bwd_kernelI13__nv_bfloat16Li16ELi1EEvPKT_S3_S3_S3_S3_S3_S3_PS1_S4_S4_iii":
             "6d66785d09caf142, REG 96 STACK 0",
@@ -428,6 +433,13 @@ LSTM_SHAPES = ((12, 4, 8, 16), (128, 32, 256, 256), (256, 32, 256, 256))
 # time the wider tier shape of the training path at the widths phase 4 trains
 LSTM_WIDE_SHAPES = ((8, 32, 512, 512), (128, 32, 512, 512), (64, 32, 1024, 1024))
 LSTM_WIDE_BF16_SHAPES = ((128, 32, 768, 768), (64, 32, 1024, 1024))
+# the wide kernels at other batch sizes, short T: B = 8 (the least JAX's gate sends to its
+# kernel), 48 (past one pass of 32 rows, the second ragged) and 128 (four passes); bf16 at
+# T = 32, long enough for its control to part past BF16_LSTM_WIDE_SHARES
+LSTM_WIDE_B_SHAPES = ((16, 8, 512, 512), (16, 48, 512, 512), (16, 128, 512, 512))
+LSTM_WIDE_BF16_B_SHAPES = ((32, 8, 768, 768), (32, 48, 768, 768), (32, 128, 768, 768))
+# calls of each wide kernel on the same inputs in check_wide_repeatable
+WIDE_REPEATS = 20
 LSTM_WIDE_ROWS = {"float32": (256, 32, 512, 512), "bfloat16": (256, 32, 768, 768)}
 # phase 4's wide runs: SampleRNN-3 (FULL) with only hidden_dim changed, one epoch of
 # TRAIN_STEPS steps, f32 at 512 and bf16 at 768 (both on the wide route)
@@ -2950,6 +2962,38 @@ def launch_counts(fl, attr="launches"):
                                             fl.lstm_forward_wide, fl.lstm_backward_wide))
 
 
+def check_wide_repeatable(torch, fl):
+    """K3a-wide and K3b-wide where B takes more than one pass (the cases of
+    LSTM_WIDE_B_SHAPES and LSTM_WIDE_BF16_B_SHAPES past 32 rows), each called
+    WIDE_REPEATS times on the same inputs: every sum's order depends on H,
+    the stream type and the cluster size only, so a pass that read shared
+    memory the next one was writing shows as outputs that differ."""
+    g = torch.Generator().manual_seed(17)
+    for dt, shapes in ((torch.float32, LSTM_WIDE_B_SHAPES),
+                       (torch.bfloat16, LSTM_WIDE_BF16_B_SHAPES)):
+        for T, B, _, H in shapes:
+            if B <= fl.WIDE_RP:
+                continue
+            xi, Wh, h0, c0, dh_all, dh_T, dc_T = (
+                (torch.randn(*shape, generator=g) * sc).to("cuda", dt) for shape, sc in (
+                    ((T, B, 4 * H), 0.5), ((H, 4 * H), H ** -0.5), ((B, H), 0.3),
+                    ((B, H), 0.3), ((T, B, H), 0.1), ((B, H), 0.1), ((B, H), 0.1)))
+            first = None
+            for _ in range(WIDE_REPEATS):
+                h_all, c_all, gates = fl.lstm_forward_wide(xi, Wh, h0, c0)
+                out = (h_all, c_all, gates) + fl.lstm_backward_wide(
+                    dh_all, dh_T, dc_T, gates, c_all, h_all, h0, c0, Wh)
+                if first is None:
+                    first = [o.clone() for o in out]
+                elif not all(torch.equal(a, b) for a, b in zip(first, out)):
+                    bad = [n for n, a, b in zip(("h_all", "c_all", "gates", "dxi", "dWh", "dh0",
+                                                 "dc0"), first, out) if not torch.equal(a, b)]
+                    raise AssertionError(f"wide LSTM (T, B, H) = ({T}, {B}, {H}) {dt}: repeated"
+                                         f" calls differ in {bad}")
+            log(f"  wide LSTM (T, B, H) = ({T}, {B}, {H}) {str(dt).split('.')[-1]}:"
+                f" {WIDE_REPEATS} calls, the same bits")
+
+
 def check_lstm(torch, fl, shapes):
     """Phase 2 for the LSTM kernels: the layer through the kernels' route (its
     wrappers' counters must rise, and no other's), then, on the cluster
@@ -3732,9 +3776,20 @@ def main(argv=None) -> int:
     err_full.update(check_jukebox(torch, mmk, jbd, JB_FULL, JB_CHECK_BATCHES, 256,
                                   (256 + 15, 100), jitter=0.0))
     stamp("K8, full width")
-    err_full = merge_max(err_full, check_lstm(torch, fl, LSTM_WIDE_SHAPES))
-    err_full = merge_max(err_full, check_lstm_bf16(torch, fl, LSTM_WIDE_BF16_SHAPES,
+    need = fl.WIDE_BLOCKS // fl.WIDE_CL
+    fits = {(H, str(dt).split(".")[-1], bw): fl.wide_clusters_that_fit(H, bw, dt)
+            for H, dt in ((512, torch.float32), (1024, torch.float32), (768, torch.bfloat16),
+                          (1024, torch.bfloat16)) for bw in (False, True)}
+    log("  the wide kernels' clusters of %d blocks the card holds (%d needed): %s"
+        % (fl.WIDE_CL, need, ", ".join(f"H={H} {d} {'walk' if bw else 'forward'} {n}"
+                                       for (H, d, bw), n in fits.items())))
+    if min(fits.values()) < need:
+        raise AssertionError(f"the card holds fewer than {need} wide clusters: {fits}")
+    err_full = merge_max(err_full, check_lstm(torch, fl, LSTM_WIDE_SHAPES + LSTM_WIDE_B_SHAPES))
+    err_full = merge_max(err_full, check_lstm_bf16(torch, fl, LSTM_WIDE_BF16_SHAPES
+                                                   + LSTM_WIDE_BF16_B_SHAPES,
                                                    BF16_LSTM_WIDE_SHARES))
+    check_wide_repeatable(torch, fl)
     stamp("the wide LSTM kernels, f32 and bf16")
     err = merge_max(err, err_full)
     check_train_step(torch, mmk, fl)

@@ -67,11 +67,13 @@
 // The wide route (K3a-wide, K3b-wide; ops/fused_lstm.py's lstm_route sends a
 // layer there where the cluster plans refuse it and H is a multiple of 128 up
 // to 1,024): Wh no longer fits a cluster (4 MiB at H = 512 in f32), so one
-// cooperative launch of 128 blocks, one an SM, spreads it over the card's
-// shared memory (H/128 units a block) and a grid barrier ends each step; a
-// step's product reads the previous step's stored h or dz back through L2.
-// The section "the wide route" below says more.
-//
+// cooperative launch of 128 blocks in clusters of 2 spreads it over the
+// card's shared memory (H/128 units a block) and a grid barrier ends each
+// step; the forward fetches h once a cluster by multicast bulk copies, the
+// backward reduce-scatters each block's partial dh through the cluster and a
+// small exchange in device memory.  The section "the wide route" below says
+// more.
+
 // dWh is a product hprev^T (H x T*B) times dxi (T*B x 4H) after the walk, on
 // the tensor cores (WMMA): 64 x 64 tiles of dWh, each summed over one of
 // `splits` ranges of the T*B rows (enough blocks to fill the card); a second
@@ -879,286 +881,6 @@ lstm_dwh_sum_kernel(const float* __restrict__ part, S* __restrict__ dwh, int spl
   mmk_st(dwh + i, v);
 }
 
-// -- the wide route: K3a-wide and K3b-wide ------------------------------------------
-//
-// H a multiple of 128 up to 1,024, where a cluster's 16 x 227 KB cannot hold
-// Wh (4 MiB in f32 at H = 512, 16 MiB at 1,024).  One cooperative launch of
-// MMK_WIDE_BLOCKS blocks, one a streaming multiprocessor: block q owns the
-// U = H/128 hidden units [q*U, (q+1)*U) of every batch row and keeps its part
-// of Wh in shared memory for the whole walk; a grid barrier ends each step.
-// The forward keeps the Wh columns of its units' four gates (ws[j][k] =
-// Wh[k, (j/U)*H + q*U + j%U], NJ = 4U rows of H); the backward keeps its
-// units' rows of Wh (ws[u][c] = Wh[q*U + u, c], NJ = U rows of 4H), since
-// dh_{t-1}[b, k] = sum_c dz_t[b, c] Wh[k, c] needs every gate column of the
-// units it owns.  A step's product reads the previous step's stored h
-// (forward: h_all[t-1], or h0) or dz (backward: dxi[t+1]) of all H (4H)
-// columns back from device memory (L2) in tiles of MMK_WIDE_RT batch rows and
-// chunks of at most MMK_WIDE_KC columns, staged in shared memory as f32.
-// Thread (j, kg) of a tile, j = tid % NV over the NJ rows of the slice (NV
-// the power of two above NJ; lanes past NJ repeat row 0 and are dropped),
-// kg = tid / NV, sums the tile's rows over the float4 columns kg, kg + KG,
-// ... of each chunk: one 16-byte load of its slice row (rows of pitch K + 4:
-// the eight lanes of a phase on distinct banks where NV >= 8) and one
-// broadcast load a row of the staged tile for four FMAs a row.  The KG
-// partial sums of a (row, column) meet in shared memory, added in kg order by
-// the thread that owns the (row, unit) pair, which then runs the cell and
-// stores its outputs; the f32 carry (c forward, dc backward) lives in a
-// workspace in device memory that only that thread reads and writes.  The
-// cell rounds each operation where the plain version does, in its order
-// (__fmul_rn, __fadd_rn: no contraction into FMAs), so that only the
-// products' sums part from it; on bf16 streams every rounding flipped by a
-// sum in another order feeds the later steps.  No atomics: every sum's
-// order depends on H only.
-#define MMK_WIDE_BLOCKS 128
-#define MMK_WIDE_RT 16
-#define MMK_WIDE_KC 1024
-
-__host__ __device__ inline int mmk_pow2_ceil(int x) {
-  int p = 1;
-  while (p < x) p *= 2;
-  return p;
-}
-
-// The wide route's layout for hidden size H: units a block U, slice rows NJ
-// (forward 4U gate columns, backward U units), threads a k-group NV, k-groups
-// KG, the product's depth K (H, or 4H backward), its chunk KC and the slice's
-// pitch WP.
-struct WideShape {
-  int U, NJ, NV, KG, K, KC, WP;
-};
-
-__host__ __device__ inline WideShape wide_shape(int H, int backward) {
-  WideShape s;
-  s.U = H / MMK_WIDE_BLOCKS;
-  s.NJ = backward ? s.U : 4 * s.U;
-  s.NV = mmk_pow2_ceil(s.NJ);
-  s.KG = MMK_LSTM_THREADS / s.NV;
-  s.K = backward ? 4 * H : H;
-  s.KC = s.K < MMK_WIDE_KC ? s.K : MMK_WIDE_KC;
-  s.WP = s.K + 4;
-  return s;
-}
-
-// Shared memory of a wide kernel on `es`-byte streams: the slice (rounded up
-// to 16 bytes), the staged tile and the partial sums, both f32.
-static size_t wide_smem(int H, int es, int backward) {
-  const WideShape s = wide_shape(H, backward);
-  return ((size_t)es * s.NJ * s.WP + 15) / 16 * 16 +
-         sizeof(float) * ((size_t)MMK_WIDE_RT * s.KC + (size_t)MMK_LSTM_THREADS * MMK_WIDE_RT);
-}
-// -- end of the wide layout
-
-// Four consecutive stream elements from device memory through L2 (another
-// block wrote them during this launch), in f32.
-__device__ __forceinline__ void wide_ldcg4(const float* p, float* w) {
-  const float4 v = __ldcg(reinterpret_cast<const float4*>(p));
-  w[0] = v.x, w[1] = v.y, w[2] = v.z, w[3] = v.w;
-}
-__device__ __forceinline__ void wide_ldcg4(const __nv_bfloat16* p, float* w) {
-  const uint2 v = __ldcg(reinterpret_cast<const uint2*>(p));
-  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
-  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
-  w[0] = lo.x, w[1] = lo.y, w[2] = hi.x, w[3] = hi.y;
-}
-
-// Rows [r0, r0 + RT) and columns [k0, k0 + kw) of a (B, K) into as (RT, KC),
-// f32, zeros past B.
-template <typename S>
-__device__ __forceinline__ void wide_stage(float* as, const S* a, int r0, int B, int K, int k0,
-                                           int kw, int KC) {
-  const int n4 = kw / 4;
-#pragma unroll 4
-  for (int idx = threadIdx.x; idx < MMK_WIDE_RT * n4; idx += MMK_LSTM_THREADS) {
-    const int rr = idx / n4, c = idx % n4, b = r0 + rr;
-    float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    if (b < B) wide_ldcg4(a + (size_t)b * K + k0 + 4 * c, v);
-    *reinterpret_cast<float4*>(as + rr * KC + 4 * c) = make_float4(v[0], v[1], v[2], v[3]);
-  }
-}
-
-// acc[rr] += the staged rows' products with the thread's slice row `w` (at
-// the chunk's first column) over its float4 columns kg, kg + KG, ... < kw/4.
-template <typename S>
-__device__ __forceinline__ void wide_product(const float* as, int KC, int kw, const S* w, int kg,
-                                             int KG, float* acc) {
-  for (int c = kg; c < kw / 4; c += KG) {
-    float wv[4];
-    mmk_ld4(w + 4 * c, wv);
-#pragma unroll
-    for (int rr = 0; rr < MMK_WIDE_RT; ++rr) {
-      const float4 a = *reinterpret_cast<const float4*>(as + rr * KC + 4 * c);
-      acc[rr] = fmaf(a.x, wv[0], acc[rr]);
-      acc[rr] = fmaf(a.y, wv[1], acc[rr]);
-      acc[rr] = fmaf(a.z, wv[2], acc[rr]);
-      acc[rr] = fmaf(a.w, wv[3], acc[rr]);
-    }
-  }
-}
-
-// The product of one tile, rows [r0, r0 + RT) of a (B, K) times the slice,
-// over chunks of KC columns; the partial sums into red (KG, RT, NV).  Ends
-// with a block barrier, after which red holds the tile's partial sums and as
-// is free.
-template <typename S>
-__device__ __forceinline__ void wide_tile(const WideShape& s, float* as, float* red, const S* a,
-                                          int r0, int B, const S* wrow, int j, int kg) {
-  float acc[MMK_WIDE_RT];
-#pragma unroll
-  for (int rr = 0; rr < MMK_WIDE_RT; ++rr) acc[rr] = 0.0f;
-  for (int k0 = 0; k0 < s.K; k0 += s.KC) {
-    const int kw = min(s.KC, s.K - k0);
-    if (k0 > 0) __syncthreads();  // the last chunk's readers are done with as
-    wide_stage<S>(as, a, r0, B, s.K, k0, kw, s.KC);
-    __syncthreads();
-    wide_product<S>(as, s.KC, kw, wrow + k0, kg, s.KG, acc);
-  }
-#pragma unroll
-  for (int rr = 0; rr < MMK_WIDE_RT; ++rr) red[(kg * MMK_WIDE_RT + rr) * s.NV + j] = acc[rr];
-  __syncthreads();
-}
-
-// The sum over the k-groups of (row rr, slice row j), in kg order.
-__device__ __forceinline__ float wide_sum(const WideShape& s, const float* red, int rr, int j) {
-  float v = 0.0f;
-  for (int kg = 0; kg < s.KG; ++kg) v += red[(kg * MMK_WIDE_RT + rr) * s.NV + j];
-  return v;
-}
-
-// K3a-wide: the forward over T steps (the step formulas at the top).  cbuf
-// (B, H) f32 carries c between steps.
-template <typename S>
-__global__ void __launch_bounds__(MMK_LSTM_THREADS, 1)
-lstm_wide_fwd_kernel(const S* __restrict__ xi, const S* __restrict__ wh,
-                     const S* __restrict__ h0, const S* __restrict__ c0, S* h_all,
-                     S* __restrict__ c_all, S* __restrict__ gates, float* __restrict__ cbuf,
-                     int T, int B, int H) {
-  cg::grid_group grid = cg::this_grid();
-  const WideShape s = wide_shape(H, 0);
-  const int U = s.U, H4 = 4 * H, q = blockIdx.x, tid = threadIdx.x;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  S* ws = reinterpret_cast<S*>(smem_raw);  // (NJ, WP)
-  float* as = reinterpret_cast<float*>(smem_raw + ((size_t)sizeof(S) * s.NJ * s.WP + 15) / 16 * 16);
-  float* red = as + MMK_WIDE_RT * s.KC;    // (KG, RT, NV)
-#pragma unroll 8
-  for (int idx = tid; idx < H * s.NJ; idx += MMK_LSTM_THREADS) {
-    const int k = idx / s.NJ, j = idx % s.NJ;
-    ws[(size_t)j * s.WP + k] = wh[(size_t)k * H4 + (j / U) * H + q * U + j % U];
-  }
-  const int j = tid % s.NV, kg = tid / s.NV;
-  const S* wrow = ws + (size_t)(j < s.NJ ? j : 0) * s.WP;
-  const bool cell = tid < MMK_WIDE_RT * U;
-  const int cr = cell ? tid / U : 0, cu = cell ? tid % U : 0, hu = q * U + cu;
-  __syncthreads();
-
-  for (int t = 0; t < T; ++t) {
-    const S* hprev = t == 0 ? h0 : h_all + (size_t)(t - 1) * B * H;
-    for (int r0 = 0; r0 < B; r0 += MMK_WIDE_RT) {
-      const int b = r0 + cr;
-      const bool valid = cell && b < B;
-      float x[4] = {0.0f, 0.0f, 0.0f, 0.0f}, c = 0.0f;
-      if (valid) {  // the cell's inputs, in flight during the product
-        const S* xr = xi + ((size_t)t * B + b) * H4 + hu;
-#pragma unroll
-        for (int g = 0; g < 4; ++g) x[g] = mmk_ld(xr + g * H);
-        c = t == 0 ? mmk_ld(c0 + (size_t)b * H + hu) : cbuf[(size_t)b * H + hu];
-      }
-      wide_tile<S>(s, as, red, hprev, r0, B, wrow, j, kg);
-      if (valid) {  // the cell, each operation rounded as the plain version's
-        const float ig = mmk_sigmoid(x[0] + wide_sum(s, red, cr, cu));
-        const float fg = mmk_sigmoid(x[1] + wide_sum(s, red, cr, U + cu));
-        const float gg = tanhf(x[2] + wide_sum(s, red, cr, 2 * U + cu));
-        const float og = mmk_sigmoid(x[3] + wide_sum(s, red, cr, 3 * U + cu));
-        c = __fadd_rn(__fmul_rn(fg, c), __fmul_rn(ig, gg));
-        const float h = mmk_round<S>(__fmul_rn(og, tanhf(c)));
-        const size_t row = (size_t)t * B + b;
-        mmk_st(h_all + row * H + hu, h);
-        mmk_st(c_all + row * H + hu, c);
-        S* gr = gates + row * H4 + hu;
-        mmk_st(gr, ig);
-        mmk_st(gr + H, fg);
-        mmk_st(gr + 2 * H, gg);
-        mmk_st(gr + 3 * H, og);
-        cbuf[(size_t)b * H + hu] = c;
-      }
-    }
-    grid.sync();
-  }
-}
-
-// K3b-wide: the reverse-time walk (dxi, dh0, dc0).  Step t's dh carry is
-// dz_{t+1} Wh^T from the stored dxi[t+1] (dh_T at t = T-1); after step 0 one
-// more product gives dh0.  dcbuf (B, H) f32 carries dc between steps.
-template <typename S>
-__global__ void __launch_bounds__(MMK_LSTM_THREADS, 1)
-lstm_wide_bwd_kernel(const S* __restrict__ dh_all, const S* __restrict__ dh_T,
-                     const S* __restrict__ dc_T, const S* __restrict__ gates,
-                     const S* __restrict__ c_all, const S* __restrict__ c0,
-                     const S* __restrict__ wh, S* dxi, S* __restrict__ dh0,
-                     S* __restrict__ dc0, float* __restrict__ dcbuf, int T, int B, int H) {
-  cg::grid_group grid = cg::this_grid();
-  const WideShape s = wide_shape(H, 1);
-  const int U = s.U, H4 = 4 * H, q = blockIdx.x, tid = threadIdx.x;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  S* ws = reinterpret_cast<S*>(smem_raw);  // (NJ, WP)
-  float* as = reinterpret_cast<float*>(smem_raw + ((size_t)sizeof(S) * s.NJ * s.WP + 15) / 16 * 16);
-  float* red = as + MMK_WIDE_RT * s.KC;    // (KG, RT, NV)
-#pragma unroll 8
-  for (int idx = tid; idx < U * H4; idx += MMK_LSTM_THREADS) {
-    const int u = idx / H4, cc = idx % H4;
-    ws[(size_t)u * s.WP + cc] = wh[(size_t)(q * U + u) * H4 + cc];
-  }
-  const int j = tid % s.NV, kg = tid / s.NV;
-  const S* wrow = ws + (size_t)(j < s.NJ ? j : 0) * s.WP;
-  const bool cell = tid < MMK_WIDE_RT * U;
-  const int cr = cell ? tid / U : 0, cu = cell ? tid % U : 0, hu = q * U + cu;
-  __syncthreads();
-
-  for (int t = T - 1; t >= -1; --t) {
-    for (int r0 = 0; r0 < B; r0 += MMK_WIDE_RT) {
-      const int b = r0 + cr;
-      const bool valid = cell && b < B;
-      const size_t at = (size_t)b * H + hu;
-      float ig = 0.0f, fg = 0.0f, gg = 0.0f, og = 0.0f, cc = 0.0f, cp = 0.0f, dha = 0.0f;
-      float dcc = 0.0f, dhc = 0.0f;
-      if (valid && t >= 0) {  // the cell's inputs, in flight during the product
-        const size_t row = (size_t)t * B + b;
-        const S* gr = gates + row * H4 + hu;
-        ig = mmk_ld(gr), fg = mmk_ld(gr + H), gg = mmk_ld(gr + 2 * H), og = mmk_ld(gr + 3 * H);
-        cc = mmk_ld(c_all + row * H + hu);
-        cp = t > 0 ? mmk_ld(c_all + (row - B) * H + hu) : mmk_ld(c0 + at);
-        dha = mmk_ld(dh_all + row * H + hu);
-        dcc = t == T - 1 ? mmk_ld(dc_T + at) : dcbuf[at];
-        if (t == T - 1) dhc = mmk_ld(dh_T + at);
-      }
-      if (t < T - 1) {
-        wide_tile<S>(s, as, red, dxi + (size_t)(t + 1) * B * H4, r0, B, wrow, j, kg);
-        if (valid) dhc = wide_sum(s, red, cr, cu);
-      }
-      if (!valid) continue;
-      if (t < 0) {
-        mmk_st(dh0 + at, dhc);
-        mmk_st(dc0 + at, dcbuf[at]);
-        continue;
-      }
-      // the cell, each operation rounded as the plain version's, in its order
-      const float tc = tanhf(cc);
-      const float dh = __fadd_rn(dha, dhc);
-      const float dc =
-          __fadd_rn(dcc, __fmul_rn(__fmul_rn(dh, og), __fsub_rn(1.0f, __fmul_rn(tc, tc))));
-      S* dr = dxi + ((size_t)t * B + b) * H4 + hu;
-      mmk_st(dr, mmk_round<S>(__fmul_rn(__fmul_rn(__fmul_rn(dc, gg), ig), __fsub_rn(1.0f, ig))));
-      mmk_st(dr + H,
-             mmk_round<S>(__fmul_rn(__fmul_rn(__fmul_rn(dc, cp), fg), __fsub_rn(1.0f, fg))));
-      mmk_st(dr + 2 * H,
-             mmk_round<S>(__fmul_rn(__fmul_rn(dc, ig), __fsub_rn(1.0f, __fmul_rn(gg, gg)))));
-      mmk_st(dr + 3 * H,
-             mmk_round<S>(__fmul_rn(__fmul_rn(__fmul_rn(dh, tc), og), __fsub_rn(1.0f, og))));
-      dcbuf[at] = __fmul_rn(dc, fg);
-    }
-    if (t >= 0) grid.sync();
-  }
-}
-
 // Shared memory of the forward for hidden size H, `bc` batch rows per
 // cluster, clusters of `cl` blocks and `es` bytes a stream element: the
 // slice, the two h buffers and the block's new h, all of the stream type;
@@ -1317,6 +1039,733 @@ static int backward(const void* dh_all_, const void* dh_T_, const void* dc_T_,
   return dwh_product<S>(h0, h_all, dxi, dwh, dwh_part, T, B, H, splits, s);
 }
 
+// -- the wide route: K3a-wide and K3b-wide ------------------------------------------
+//
+// H a multiple of 128 up to 1,024, where a cluster's 16 x 227 KB cannot hold
+// Wh (4 MiB in f32 at H = 512, 16 MiB at 1,024).  One launch of
+// MMK_WIDE_BLOCKS blocks, one a streaming multiprocessor, in thread-block
+// clusters of MMK_WIDE_CL: block q owns the U = H/128 hidden units
+// [q*U, (q+1)*U) of every batch row and keeps the Wh columns of its units'
+// four gates in shared memory for the whole walk (the forward as ws[j][k],
+// the backward as wt[k][j], Wh[k, (j/U)*H + q*U + j%U], j < NJ = 4U); a grid
+// barrier (cooperative groups') ends each step.  The launch carries the
+// cluster dimension and the cooperative attribute (cudaLaunchKernelEx), so
+// that every block is resident at once or the launch is refused.  Clusters
+// of 2: an H100's 132 SMs hold 66 clusters of 2 blocks of this size but only
+// 30 of 4 and 15 of 8 (120 blocks; tools/wide_cluster_probe.py).
+//
+// Where the previous wide kernels spent a step on an H100 (f32 at (T, B,
+// H) = (256, 32, 512), tools/profile_lstm_wide.py: ~9.4 us forward, ~16
+// walk): every block staged the whole previous h (dz in the walk: 4H a row)
+// from L2 through its registers in tiles of 16 rows, multiplied on the CUDA
+// cores (bf16 too), and one thread added each sum's 16 partials in a chain.
+// Here:
+//
+// A step takes the batch in passes of RP rows (32, or 16 where 32 do not fit
+// in shared memory; B = 32 is one pass, and more rows only take more passes)
+// and runs its products on the tensor cores: mma.sync m16n8k16 on bf16
+// streams (bf16 in, f32 sums), m16n8k8 in 3xTF32 on f32 streams (each
+// operand split into a TF32 high part, rounded by an integer add, and the
+// rest; lo*hi and hi*lo summed apart from hi*hi, then added: about as close
+// as f32 products), the batch rows as M.  Every row of a 32-bit word pitch 4
+// mod 32 (H + 4 floats, H + 8 bf16) keeps a fragment's loads on 32 banks.
+// The tile counts are template arguments: predicated tiles were serialised
+// by the compiler through one accumulator.
+//
+// Forward: the product z = h_{t-1} Wh over the block's gate columns (M rows,
+// N the columns in tiles of 8, K = H split among the 8 warps, each warp's
+// partial sums into shared memory; the cell thread of a (row, unit) adds the
+// 8 warps' in a fixed tree, then runs the cell).  h_{t-1} comes from h_all
+// (h0 at t = 0) through L2 once a cluster: after the step's grid barrier
+// each block copies its share of the pass's rows with the bulk copy engine
+// (cp.async.bulk, multicast to the cluster's blocks), each block's mbarrier
+// counting the bytes of all rows.  A pass after another first waits at a
+// cluster barrier for every peer to be done with the buffer.  With one pass
+// a step the cell keeps c in a register and stores c and the gates after the
+// next grid barrier, which then waits for the h stores alone.
+//
+// Backward: dh_{t-1}[b, k] = sum_c dz_t[b, c] Wh[k, c] needs every gate
+// column's dz; a block holds its own (B x 4U) where it makes it, and the
+// columns of Wh that multiply it.  Its product (M rows, N = H in tiles of 8
+// split among the warps, K = 4U) is a partial dh over all H units, which is
+// reduce-scattered: each block stores the columns that rank r of its cluster
+// sums into r's shared memory (st.async, 16 bytes a lane, counted on r's
+// mbarrier; its own piece with plain stores), rank r adds the CL pieces in
+// rank order and stores the cluster's sum of its H/CL columns into a device
+// exchange (two parities by step, laid out by owner block, consecutive
+// threads on consecutive addresses); after the grid barrier the owner of a
+// unit adds the 128/CL clusters' sums in up to eight groups, each in
+// cluster order, then the groups in order.  A step moves B x H x 4 bytes a
+// block through the cluster and B x H x 4 x 128/CL through L2 (the whole dz,
+// 4H a row, is never read back).  With one pass a step the cell keeps dc in
+// a register and loads step t-1's inputs during step t.  dWh runs after the
+// walk on K3b's WMMA kernel.
+//
+// The cell rounds each operation where the plain version does, in its order
+// (__fmul_rn, __fadd_rn: no contraction into FMAs), so that only the
+// products' sums part from it; on bf16 streams every rounding flipped by a
+// sum in another order feeds the later steps.  With more than one pass a
+// step the f32 carries (c forward, dc backward) live in a workspace in device
+// memory that only the thread of the (row, unit) reads and writes.  No
+// atomics: every sum's order depends on H, the stream type and the cluster
+// size only.
+#ifndef MMK_WIDE_OFF
+// parts of the step taken out (bits, tools/profile_lstm_wide.py): 1 the
+// product, 2 the L2 traffic, 4 the cluster exchange, 8 the partial sums'
+// reduction, 16 the cell, 32 the grid barrier, 64 the dWh product
+#define MMK_WIDE_OFF 0
+#endif
+#define MMK_WIDE_BLOCKS 128
+#ifndef MMK_WIDE_CL
+// blocks a cluster (tools/profile_lstm_wide.py times a copy built with 1)
+#define MMK_WIDE_CL 2
+#endif
+#define MMK_WIDE_RP 32
+#define MMK_WIDE_GROUPS 8
+#define MMK_WIDE_WARPS (MMK_LSTM_THREADS / 32)
+
+// The wide route's layout for hidden size H on `es`-byte streams: units a
+// block U, gate columns NJ = 4U, padded to an mma's N (NJP, forward) and K
+// (KJ, backward); the row pitch of h and the forward's slice P, of the
+// backward's slice and dz PJ (elements); batch rows a pass RP; the
+// backward's 128/CL clusters' sums of partial dh added in G groups of CPG
+// (G from U and RP only: at most 8, and about one group a thread).
+struct WideShape {
+  int U, NJ, NJP, KJ, P, PJ, RP, G, CPG;
+};
+
+__host__ __device__ inline size_t wide_round16(size_t n) { return (n + 15) / 16 * 16; }
+
+// Shared memory of a wide kernel: forward, the slice (NJP x P), the h rows of
+// a pass (RP x P), the warps' partial sums (8 x RP x NJP f32) and an mbarrier;
+// backward, the slice (H x PJ), the pass's dz (RP x PJ), the cluster's
+// pieces of partial dh (CL x RP x (H/CL + 4) f32: rows of 4 mod 32 words)
+// the exchange's partial sums (8 x RP x U f32) and an mbarrier.
+__host__ __device__ inline size_t wide_bytes(int H, int es, int backward, const WideShape& s) {
+  if (backward)
+    return wide_round16((size_t)es * H * s.PJ) + wide_round16((size_t)es * s.RP * s.PJ) +
+           sizeof(float) * ((size_t)s.RP * (H + 4 * MMK_WIDE_CL) +
+                            (size_t)MMK_WIDE_GROUPS * s.RP * s.U) + 16;
+  return wide_round16((size_t)es * s.NJP * s.P) + wide_round16((size_t)es * s.RP * s.P) +
+         sizeof(float) * (size_t)MMK_WIDE_WARPS * s.RP * s.NJP + 16;
+}
+
+__host__ __device__ inline WideShape wide_shape(int H, int es, int backward) {
+  WideShape s;
+  s.U = H / MMK_WIDE_BLOCKS;
+  s.NJ = 4 * s.U;
+  s.NJP = (s.NJ + 7) / 8 * 8;
+  const int kd = es == 2 ? 16 : 8;  // an mma's depth
+  s.KJ = (s.NJ + kd - 1) / kd * kd;
+  s.P = H + 16 / es;
+  s.PJ = s.KJ + 16 / es;
+  s.RP = MMK_WIDE_RP;
+  if (wide_bytes(H, es, backward, s) > 232448) s.RP = MMK_WIDE_RP / 2;
+  const int G = 4 * MMK_LSTM_THREADS / (s.RP * s.U);
+  s.G = G < 1 ? 1 : (G > MMK_WIDE_GROUPS ? MMK_WIDE_GROUPS : G);
+  s.CPG = (MMK_WIDE_BLOCKS / MMK_WIDE_CL + s.G - 1) / s.G;
+  return s;
+}
+
+static size_t wide_smem(int H, int es, int backward) {
+  return wide_bytes(H, es, backward, wide_shape(H, es, backward));
+}
+
+// The f32 workspace of a wide kernel at (B, H), in floats: the carry (B x H)
+// and, backward, the exchange of the clusters' sums (2 x 128/CL x B x H).
+static size_t wide_work(int B, int H, int backward) {
+  return (size_t)B * H * (backward ? 1 + 2 * MMK_WIDE_BLOCKS / MMK_WIDE_CL : 1);
+}
+// -- end of the wide layout
+
+__device__ __forceinline__ unsigned wide_smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mmk_mma_tf32(float* d, const uint32_t* a, uint32_t b0,
+                                             uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7},"
+      " {%8,%9}, {%0,%1,%2,%3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The wide kernels' mma on stream type S: A a 16 x KD tile (element (r, k) at
+// a[r*pa + k]), B a KD x 8 tile (element (k, n) at b[n*pb + k]), lane l's
+// fragments (g = l/4, t = l%4).
+template <typename S>
+struct WideMma;
+
+template <>
+struct WideMma<float> {
+  static constexpr int KD = 8;
+  struct A {
+    uint32_t hi[4], lo[4];
+  };
+  struct Bf {
+    uint32_t hi[2], lo[2];
+  };
+  // hi: v rounded to TF32 (to nearest, ties away: the bits below TF32's 10
+  // mantissa bits rounded off with an integer add); lo: v - hi, exact in
+  // f32, whose bits below TF32's the tensor cores ignore (two integer
+  // operations and an add where two cvt.rna.tf32.f32 would do).
+  __device__ static void split(float v, uint32_t& hi, uint32_t& lo) {
+    hi = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+    lo = __float_as_uint(v - __uint_as_float(hi));
+  }
+  __device__ static void load_a(A& f, const float* a, int pa, int lane) {
+    const float* p = a + (lane >> 2) * pa + (lane & 3);
+    split(p[0], f.hi[0], f.lo[0]);
+    split(p[8 * pa], f.hi[1], f.lo[1]);
+    split(p[4], f.hi[2], f.lo[2]);
+    split(p[8 * pa + 4], f.hi[3], f.lo[3]);
+  }
+  __device__ static void load_b(Bf& f, const float* b, int pb, int lane) {
+    const float* p = b + (lane >> 2) * pb + (lane & 3);
+    split(p[0], f.hi[0], f.lo[0]);
+    split(p[4], f.hi[1], f.lo[1]);
+  }
+  __device__ static void mma(float* d, const A& a, const Bf& b) {
+    mmk_mma_tf32(d, a.lo, b.hi[0], b.hi[1]);
+    mmk_mma_tf32(d, a.hi, b.lo[0], b.lo[1]);
+    mmk_mma_tf32(d, a.hi, b.hi[0], b.hi[1]);
+  }
+  // the same into two sums: d the hi*hi products, dl the small ones (two
+  // chains a step instead of one of three), added at the end by `join`
+  __device__ static void mma2(float* d, float* dl, const A& a, const Bf& b) {
+    mmk_mma_tf32(dl, a.lo, b.hi[0], b.hi[1]);
+    mmk_mma_tf32(d, a.hi, b.hi[0], b.hi[1]);
+    mmk_mma_tf32(dl, a.hi, b.lo[0], b.lo[1]);
+  }
+  __device__ static void join(float* d, const float* dl) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) d[e] += dl[e];
+  }
+};
+
+template <>
+struct WideMma<__nv_bfloat16> {
+  static constexpr int KD = 16;
+  struct A {
+    uint32_t w[4];
+  };
+  struct Bf {
+    uint32_t w[2];
+  };
+  __device__ static void load_a(A& f, const __nv_bfloat16* a, int pa, int lane) {
+    const uint32_t* p = reinterpret_cast<const uint32_t*>(a + (lane >> 2) * pa) + (lane & 3);
+    const int pw = 4 * pa;  // eight rows, in words
+    f.w[0] = p[0], f.w[1] = p[pw], f.w[2] = p[4], f.w[3] = p[pw + 4];
+  }
+  __device__ static void load_b(Bf& f, const __nv_bfloat16* b, int pb, int lane) {
+    const uint32_t* p = reinterpret_cast<const uint32_t*>(b + (lane >> 2) * pb) + (lane & 3);
+    f.w[0] = p[0], f.w[1] = p[4];
+  }
+  __device__ static void mma(float* d, const A& a, const Bf& b) {
+    mmk_mma_bf16(d, a.w, b.w[0], b.w[1]);
+  }
+  __device__ static void mma2(float* d, float*, const A& a, const Bf& b) { mma(d, a, b); }
+  __device__ static void join(float*, const float*) {}
+};
+
+// The grid barrier: every block's threads' earlier writes are seen by every
+// block's after it.
+__device__ __forceinline__ void wide_grid_sync() {
+  if (MMK_WIDE_OFF & 32)
+    __syncthreads();
+  else
+    cg::this_grid().sync();
+}
+
+// Waits for the mbarrier's phase `parity`; a wait of more than ~2^32 cycles
+// (a copy that never lands) ends the kernel with an error, not a hung card.
+__device__ __forceinline__ void wide_mbar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done = 0;
+  const long long t0 = clock64();
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(wide_smem_addr(bar)), "r"(parity) : "memory");
+    if (!done && clock64() - t0 > (1LL << 32)) __trap();
+  }
+}
+
+// The shared::cluster address of `p` (this block's shared memory) in the
+// block of rank `rank` of the cluster.
+__device__ __forceinline__ unsigned wide_mapa(const void* p, int rank) {
+  unsigned r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(r)
+               : "r"(wide_smem_addr(p)), "r"(rank));
+  return r;
+}
+
+// Four floats into a peer's shared memory (shared::cluster address, 16-byte
+// aligned), their bytes counted on the peer's mbarrier.
+__device__ __forceinline__ void wide_st_async4(unsigned addr, float4 v, unsigned mbar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], {%1, %2, %3, %4}, [%5];"
+      ::"r"(addr), "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(mbar) : "memory");
+}
+
+// Warp 0 of every block of the cluster: rows [0, rows) of src (a (rows, H)
+// of the stream type in device memory) into hs (rows of pitch P) of every
+// block, the block of rank `rank` copying rows rank, rank + CL, ... by
+// multicast bulk copies; each block's mbarrier counts all rows' bytes.
+template <typename S>
+__device__ __forceinline__ void wide_fetch(S* hs, const S* src, int rows, int H, int P,
+                                           uint64_t* mbar, int rank) {
+  if (MMK_WIDE_OFF & 2) return;
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x >= 32) return;
+  const unsigned bytes = (unsigned)(H * sizeof(S));
+  // the rows were written by generic stores behind the grid barrier
+  asm volatile("fence.proxy.async.global;" ::: "memory");
+  if (lane == 0)
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 ::"r"(wide_smem_addr(mbar)), "r"(bytes * rows) : "memory");
+  const unsigned short mask = (unsigned short)((1u << MMK_WIDE_CL) - 1);
+  for (int i = rank + lane * MMK_WIDE_CL; i < rows; i += 32 * MMK_WIDE_CL)
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster"
+        " [%0], [%1], %2, [%3], %4;\n"
+        ::"r"(wide_smem_addr(hs + (size_t)i * P)), "l"(src + (size_t)i * H), "r"(bytes),
+        "r"(wide_smem_addr(mbar)), "h"(mask)
+        : "memory");
+}
+
+// K3a-wide: the forward over T steps (the step formulas at the top).
+// cbuf (B, H) f32 carries c between steps.  MT = RP/16 row tiles and NT =
+// NJP/8 column tiles are template arguments: predicated mma.sync tiles
+// (runtime counts) were serialised by the compiler through one scratch
+// accumulator, which cost ~4 us a step in f32 at (32, 512) on an H100.
+template <typename S, int MT, int NT>
+__global__ void __launch_bounds__(MMK_LSTM_THREADS, 1)
+lstm_wide_fwd_kernel(const S* __restrict__ xi, const S* __restrict__ wh,
+                     const S* __restrict__ h0, const S* __restrict__ c0, S* h_all,
+                     S* __restrict__ c_all, S* __restrict__ gates, float* __restrict__ cbuf,
+                     int T, int B, int H) {
+  using M = WideMma<S>;
+  cg::cluster_group cluster = cg::this_cluster();
+  const WideShape s = wide_shape(H, sizeof(S), 0);
+  const int U = s.U, H4 = 4 * H, P = s.P, NJP = s.NJP, RP = s.RP;
+  const int q = blockIdx.x, rank = (int)cluster.block_rank();
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  S* ws = reinterpret_cast<S*>(smem_raw);  // (NJP, P): the slice
+  S* hs = reinterpret_cast<S*>(smem_raw + wide_round16(sizeof(S) * NJP * P));  // (RP, P)
+  float* red = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(hs) +
+                                        wide_round16(sizeof(S) * RP * P));  // (8, RP, NJP)
+  uint64_t* mbar = reinterpret_cast<uint64_t*>(red + MMK_WIDE_WARPS * RP * NJP);
+#pragma unroll 8
+  for (int idx = tid; idx < H * NJP; idx += MMK_LSTM_THREADS) {
+    const int k = idx / NJP, j = idx % NJP;
+    ws[(size_t)j * P + k] = j < s.NJ ? wh[(size_t)k * H4 + (j / U) * H + q * U + j % U]
+                                     : mmk_from_float<S>(0.0f);
+  }
+  if (tid == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(wide_smem_addr(mbar)));
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  cluster.sync();  // every block of the cluster holds its slice and its mbarrier
+  // the warp's share of K and the pass's tiles: rows M (16 each), columns N (8)
+  const int kw = H / MMK_WIDE_WARPS, kb = warp * kw;
+  unsigned phase = 0;
+  wide_fetch<S>(hs, h0, min(RP, B), H, P, mbar, rank);
+  // one pass a step (B <= RP): the cell thread keeps c in a register and
+  // stores step t's c and gates after the grid barrier that ends it, so that
+  // the barrier waits for the h stores alone
+  const bool one = B <= RP;
+  float cr = 0.0f, st[5];
+  size_t srow = 0;
+  bool pending = false;
+  auto store_rest = [&](size_t row, int hu) {
+    mmk_st(c_all + row * H + hu, st[4]);
+    S* gr = gates + row * H4 + hu;
+#pragma unroll
+    for (int g = 0; g < 4; ++g) mmk_st(gr + g * H, st[g]);
+  };
+
+  for (int t = 0; t < T; ++t) {
+    const S* hsrc = t == 0 ? h0 : h_all + (size_t)(t - 1) * B * H;
+    for (int r0 = 0; r0 < B; r0 += RP) {
+      const int rows = min(RP, B - r0);
+      const bool more = r0 + RP < B;
+      const bool cell = !(MMK_WIDE_OFF & 16) && tid < rows * U;
+      const int r = tid / U, u = tid % U, b = r0 + r, hu = q * U + u;
+      float x[4] = {0.0f, 0.0f, 0.0f, 0.0f}, c = 0.0f;
+      if (cell) {  // the cell's inputs, in flight during the wait and the product
+        const S* xr = xi + ((size_t)t * B + b) * H4 + hu;
+#pragma unroll
+        for (int g = 0; g < 4; ++g) x[g] = mmk_ld(xr + g * H);
+        c = t == 0 ? mmk_ld(c0 + (size_t)b * H + hu) : (one ? cr : cbuf[(size_t)b * H + hu]);
+      }
+      if (!(MMK_WIDE_OFF & 2)) wide_mbar_wait(mbar, phase);
+      phase ^= 1;
+      // the product over the warp's share of K, every tile of the pass
+      float acc[MT][NT][4], accl[MT][NT][4];
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][n][e] = accl[i][n][e] = 0.0f;
+      if (!(MMK_WIDE_OFF & 1)) {
+#pragma unroll 2
+        for (int k = kb; k < kb + kw; k += M::KD) {
+          typename M::A a[MT];
+          typename M::Bf w[NT];
+#pragma unroll
+          for (int i = 0; i < MT; ++i) M::load_a(a[i], hs + (size_t)(16 * i) * P + k, P, lane);
+#pragma unroll
+          for (int n = 0; n < NT; ++n) M::load_b(w[n], ws + (size_t)(8 * n) * P + k, P, lane);
+#pragma unroll
+          for (int i = 0; i < MT; ++i)
+#pragma unroll
+            for (int n = 0; n < NT; ++n) M::mma2(acc[i][n], accl[i][n], a[i], w[n]);
+        }
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+#pragma unroll
+          for (int n = 0; n < NT; ++n) M::join(acc[i][n], accl[i][n]);
+      }
+      {
+        const int g = lane >> 2, tc = 2 * (lane & 3);
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+#pragma unroll
+          for (int n = 0; n < NT; ++n) {
+            float* p = red + ((size_t)warp * RP + 16 * i + g) * NJP + 8 * n + tc;
+            *reinterpret_cast<float2*>(p) = make_float2(acc[i][n][0], acc[i][n][1]);
+            *reinterpret_cast<float2*>(p + 8 * NJP) = make_float2(acc[i][n][2], acc[i][n][3]);
+          }
+      }
+      __syncthreads();
+      // a next pass reuses the h buffer: every block of the cluster is done with it
+      if (more) asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+      if (cell) {  // the cell, each operation rounded as the plain version's
+        float z[4];
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+          const float* p = red + (size_t)r * NJP + g * U + u;
+          const size_t ws8 = (size_t)RP * NJP;
+          if (MMK_WIDE_OFF & 8) {
+            z[g] = p[0];
+          } else {
+            z[g] = ((p[0] + p[ws8]) + (p[2 * ws8] + p[3 * ws8])) +
+                   ((p[4 * ws8] + p[5 * ws8]) + (p[6 * ws8] + p[7 * ws8]));
+          }
+        }
+        const float ig = mmk_sigmoid(x[0] + z[0]);
+        const float fg = mmk_sigmoid(x[1] + z[1]);
+        const float gg = tanhf(x[2] + z[2]);
+        const float og = mmk_sigmoid(x[3] + z[3]);
+        c = __fadd_rn(__fmul_rn(fg, c), __fmul_rn(ig, gg));
+        const float h = mmk_round<S>(__fmul_rn(og, tanhf(c)));
+        const size_t row = (size_t)t * B + b;
+        mmk_st(h_all + row * H + hu, h);
+        st[0] = ig, st[1] = fg, st[2] = gg, st[3] = og, st[4] = c;
+        if (one) {
+          cr = c, srow = row, pending = true;
+        } else {
+          store_rest(row, hu);
+          cbuf[(size_t)b * H + hu] = c;
+        }
+      }
+      if (more) {
+        asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+        wide_fetch<S>(hs, hsrc + (size_t)(r0 + RP) * H, min(RP, B - r0 - RP), H, P, mbar, rank);
+        __syncthreads();  // the cell's reads of red come before the next pass's writes
+      }
+    }
+    if (t + 1 < T) {
+      wide_grid_sync();
+      wide_fetch<S>(hs, h_all + (size_t)t * B * H, min(RP, B), H, P, mbar, rank);
+    }
+    if (pending) {
+      store_rest(srow, q * U + tid % U);
+      pending = false;
+    }
+  }
+  cluster.sync();  // no block leaves while a peer's copies may still reach it
+}
+
+// K3b-wide: the reverse-time walk (dxi, dh0, dc0).  work: dcbuf (B, H) f32
+// (the dc carry), then the exchange xch (2, 128, 128/CL, B, U) f32: by step
+// parity, for each owner block q, each cluster's sum of its blocks' partial
+// dh over q's units.  MT = RP/16 row tiles and KS = KJ/KD depth steps are
+// template arguments (the forward says why).
+template <typename S, int MT, int KS>
+__global__ void __launch_bounds__(MMK_LSTM_THREADS, 1)
+lstm_wide_bwd_kernel(const S* __restrict__ dh_all, const S* __restrict__ dh_T,
+                     const S* __restrict__ dc_T, const S* __restrict__ gates,
+                     const S* __restrict__ c_all, const S* __restrict__ c0,
+                     const S* __restrict__ wh, S* __restrict__ dxi, S* __restrict__ dh0,
+                     S* __restrict__ dc0, float* __restrict__ work, int T, int B, int H) {
+  using M = WideMma<S>;
+  cg::cluster_group cluster = cg::this_cluster();
+  constexpr int CL = MMK_WIDE_CL, NCL = MMK_WIDE_BLOCKS / MMK_WIDE_CL;
+  const WideShape s = wide_shape(H, sizeof(S), 1);
+  const int U = s.U, H4 = 4 * H, PJ = s.PJ, RP = s.RP, HC = H / CL, HCP = HC + 4;
+  const int q = blockIdx.x, rank = (int)cluster.block_rank(), cid = q / CL;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  float* dcbuf = work;
+  float* xch = dcbuf + (size_t)B * H;
+  // the exchange: an owner's (rows, U) of a cluster taken V floats at a time
+  // (4, 2 or 1, dividing B*U), the clusters added in G groups of CPG
+  const int V = (B * U) % 4 == 0 ? 4 : ((B * U) % 2 == 0 ? 2 : 1);
+  const int G = s.G, CPG = s.CPG;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  S* wt = reinterpret_cast<S*>(smem_raw);  // (H, PJ): the slice, k-major
+  S* dzs = reinterpret_cast<S*>(smem_raw + wide_round16(sizeof(S) * H * PJ));  // (RP, PJ)
+  float* recv = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(dzs) +
+                                         wide_round16(sizeof(S) * RP * PJ));  // (CL, RP, HCP)
+  float* part = recv + (size_t)CL * RP * HCP;  // (WIDE_GROUPS, RP, U): the exchange's partial sums
+  // counts the bytes the peers' pieces bring (st.async)
+  uint64_t* mbar = reinterpret_cast<uint64_t*>(part + (size_t)MMK_WIDE_GROUPS * RP * U);
+#pragma unroll 8
+  for (int idx = tid; idx < H * s.KJ; idx += MMK_LSTM_THREADS) {
+    const int k = idx / s.KJ, j = idx % s.KJ;
+    wt[(size_t)k * PJ + j] = j < s.NJ ? wh[(size_t)k * H4 + (j / U) * H + q * U + j % U]
+                                      : mmk_from_float<S>(0.0f);
+  }
+  for (int idx = tid; idx < RP * PJ; idx += MMK_LSTM_THREADS) dzs[idx] = mmk_from_float<S>(0.0f);
+  if (tid == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(wide_smem_addr(mbar)));
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  cluster.sync();  // every block of the cluster has started and holds its mbarrier
+  // the warp's columns of dh: n tiles [nb, nb + NW) of 8 (H/64 a warp), all in
+  // the piece of rank nb*8 / HC
+  const int NW = H / (8 * MMK_WIDE_WARPS), nb = warp * NW;
+  const int dest = nb * 8 / HC;
+  float* dst_piece = recv + (size_t)rank * RP * HCP - dest * HC;
+  // a remote piece: its address and its mbarrier's in the peer's shared memory
+  const unsigned rdst = wide_mapa(dst_piece, dest), rbar = wide_mapa(mbar, dest);
+  // the bytes of the peers' pieces (the rows of every row tile) a pass
+  const unsigned peer_bytes = (unsigned)((CL - 1) * MT * 16 * HC * sizeof(float));
+  unsigned phase = 0;
+  // one pass a step (B <= RP): the cell thread keeps dc in a register and
+  // loads step t-1's inputs while step t's product and exchange run
+  const bool one = B <= RP;
+  float dcr = 0.0f;
+  BwdIn nxt = {};
+  auto load_in = [&](int t, int b, int hu, BwdIn& in) {
+    const size_t row = (size_t)t * B + b;
+    const S* gr = gates + row * H4 + hu;
+    in.ig = mmk_ld(gr), in.fg = mmk_ld(gr + H), in.gg = mmk_ld(gr + 2 * H);
+    in.og = mmk_ld(gr + 3 * H);
+    in.c = mmk_ld(c_all + row * H + hu);
+    in.cp = t > 0 ? mmk_ld(c_all + (row - B) * H + hu) : mmk_ld(c0 + (size_t)b * H + hu);
+    in.dha = mmk_ld(dh_all + row * H + hu);
+  };
+  if (one && tid < B * U && !(MMK_WIDE_OFF & 16)) load_in(T - 1, tid / U, q * U + tid % U, nxt);
+
+  for (int t = T - 1; t >= -1; --t) {
+    const int par = t & 1;
+    for (int r0 = 0; r0 < B; r0 += RP) {
+      const int rows = min(RP, B - r0);
+      const bool own = tid < rows * U;
+      const bool cell = own && !(MMK_WIDE_OFF & 16);
+      const int r = tid / U, u = tid % U, b = r0 + r, hu = q * U + u;
+      const size_t at = (size_t)b * H + hu;
+      BwdIn in = {};
+      float dcc = 0.0f, dhc = 0.0f;
+      if (cell && t >= 0) {  // the cell's inputs
+        if (one)
+          in = nxt;
+        else
+          load_in(t, b, hu, in);
+        dcc = t == T - 1 ? mmk_ld(dc_T + at) : (one ? dcr : dcbuf[at]);
+        if (t == T - 1) dhc = mmk_ld(dh_T + at);
+      }
+      if (t < T - 1) {  // dz_{t+1} Wh^T: the clusters' sums, in a fixed order
+        // the owner's (rows, U) of each cluster is contiguous, taken V floats
+        // at a time; group gi adds clusters [gi*CPG, (gi+1)*CPG) in order, the
+        // cell thread the groups in order
+        const int E = rows * U, NE = E / V;
+        const float* xp = xch + ((size_t)(par ^ 1) * MMK_WIDE_BLOCKS + q) * NCL * B * U +
+                          (size_t)r0 * U;
+        for (int task = tid; task < NE * G; task += MMK_LSTM_THREADS) {
+          const int e = V * (task % NE), gi = task / NE;
+          const int c1 = min(NCL, (gi + 1) * CPG);
+          float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+          if (!(MMK_WIDE_OFF & 2)) {
+            // up to 16 clusters' loads in flight before their sums
+            for (int cb = gi * CPG; cb < c1; cb += 16) {
+              float4 w[16];
+#pragma unroll
+              for (int j = 0; j < 16; ++j) {
+                w[j] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+                if (cb + j < c1) {
+                  const float* p = xp + (size_t)(cb + j) * B * U + e;
+                  if (V == 4) {
+                    w[j] = __ldcg(reinterpret_cast<const float4*>(p));
+                  } else if (V == 2) {
+                    const float2 x = __ldcg(reinterpret_cast<const float2*>(p));
+                    w[j].x = x.x, w[j].y = x.y;
+                  } else {
+                    w[j].x = __ldcg(p);
+                  }
+                }
+              }
+#pragma unroll
+              for (int j = 0; j < 16; ++j)
+                if (cb + j < c1) v[0] += w[j].x, v[1] += w[j].y, v[2] += w[j].z, v[3] += w[j].w;
+            }
+          }
+          for (int i = 0; i < V; ++i) part[(size_t)gi * E + e + i] = v[i];
+        }
+        __syncthreads();
+        if (cell) {
+          float sum = 0.0f;
+          for (int gi = 0; gi < G; ++gi) sum += part[(size_t)gi * E + tid];
+          dhc = sum;
+        }
+      }
+      if (t < 0) {  // after step 0: dh0 and dc0
+        if (cell) {
+          mmk_st(dh0 + at, dhc);
+          mmk_st(dc0 + at, one ? dcr : dcbuf[at]);
+        }
+        // a next pass writes part: every cell thread has read it
+        if (r0 + RP < B) __syncthreads();
+        continue;
+      }
+      if (cell) {  // the cell, each operation rounded as the plain version's, in its order
+        const float ig = in.ig, fg = in.fg, gg = in.gg, og = in.og;
+        const float tc = tanhf(in.c);
+        const float dh = __fadd_rn(in.dha, dhc);
+        const float dc =
+            __fadd_rn(dcc, __fmul_rn(__fmul_rn(dh, og), __fsub_rn(1.0f, __fmul_rn(tc, tc))));
+        float dz[4];
+        dz[0] = mmk_round<S>(__fmul_rn(__fmul_rn(__fmul_rn(dc, gg), ig), __fsub_rn(1.0f, ig)));
+        dz[1] = mmk_round<S>(__fmul_rn(__fmul_rn(__fmul_rn(dc, in.cp), fg), __fsub_rn(1.0f, fg)));
+        dz[2] = mmk_round<S>(__fmul_rn(__fmul_rn(dc, ig), __fsub_rn(1.0f, __fmul_rn(gg, gg))));
+        dz[3] = mmk_round<S>(__fmul_rn(__fmul_rn(__fmul_rn(dh, tc), og), __fsub_rn(1.0f, og)));
+        S* dr = dxi + ((size_t)t * B + b) * H4 + hu;
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+          mmk_st(dr + g * H, dz[g]);
+          dzs[(size_t)r * PJ + g * U + u] = mmk_from_float<S>(dz[g]);
+        }
+        if (one) {
+          dcr = __fmul_rn(dc, fg);
+          if (t > 0) load_in(t - 1, b, hu, nxt);
+        } else {
+          dcbuf[at] = __fmul_rn(dc, fg);
+        }
+      } else if (own) {
+#pragma unroll
+        for (int g = 0; g < 4; ++g) dzs[(size_t)r * PJ + g * U + u] = mmk_from_float<S>(0.0f);
+      }
+      __syncthreads();
+      // the partial dh over the warp's columns, pushed to the rank that sums them
+      if (!(MMK_WIDE_OFF & 1)) {
+        typename M::A a[MT][KS];
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+#pragma unroll
+          for (int kk = 0; kk < KS; ++kk)
+            M::load_a(a[i][kk], dzs + (size_t)(16 * i) * PJ + kk * M::KD, PJ, lane);
+        const int g = lane >> 2, tc = 2 * (lane & 3);
+        // two column tiles at a time (NW = 2U is even)
+        for (int n = nb; n < nb + NW; n += 2) {
+          float acc[2][MT][4];
+#pragma unroll
+          for (int m = 0; m < 2; ++m)
+#pragma unroll
+            for (int i = 0; i < MT; ++i)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) acc[m][i][e] = 0.0f;
+#pragma unroll
+          for (int kk = 0; kk < KS; ++kk) {
+            typename M::Bf w[2];
+#pragma unroll
+            for (int m = 0; m < 2; ++m)
+              M::load_b(w[m], wt + (size_t)(8 * (n + m)) * PJ + kk * M::KD, PJ, lane);
+#pragma unroll
+            for (int m = 0; m < 2; ++m)
+#pragma unroll
+              for (int i = 0; i < MT; ++i) M::mma(acc[m][i], a[i][kk], w[m]);
+          }
+          if (!(MMK_WIDE_OFF & 4)) {
+            // lanes t, t^1 swap halves: an even t holds columns 2t .. 2t+3 of
+            // row g, an odd t columns 2t-2 .. 2t+1 of row g+8 (16 bytes)
+            const bool odd = lane & 1;
+#pragma unroll
+            for (int m = 0; m < 2; ++m)
+#pragma unroll
+              for (int i = 0; i < MT; ++i) {
+                const float* a4 = acc[m][i];
+                const float x0 = __shfl_xor_sync(0xffffffffu, odd ? a4[0] : a4[2], 1);
+                const float x1 = __shfl_xor_sync(0xffffffffu, odd ? a4[1] : a4[3], 1);
+                const float4 v = odd ? make_float4(x0, x1, a4[2], a4[3])
+                                     : make_float4(a4[0], a4[1], x0, x1);
+                const size_t o = (size_t)(16 * i + g + (odd ? 8 : 0)) * HCP + 8 * (n + m) + tc -
+                                 (odd ? 2 : 0);
+                if (dest == rank)
+                  *reinterpret_cast<float4*>(dst_piece + o) = v;
+                else
+                  wide_st_async4(rdst + 4 * (unsigned)o, v, rbar);
+              }
+          }
+        }
+      }
+      // the local piece behind the block barrier, the peers' on the mbarrier
+      __syncthreads();
+      if (!(MMK_WIDE_OFF & 5)) {
+        if (tid == 0)
+          asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                       ::"r"(wide_smem_addr(mbar)), "r"(peer_bytes) : "memory");
+        wide_mbar_wait(mbar, phase);
+        phase ^= 1;
+      }
+      // this rank's columns [rank*HC, (rank+1)*HC): the CL pieces in rank order,
+      // into the exchange by owner block (an owner's (rows, U) contiguous, V
+      // floats a store); thread t takes vector t % nv of every (QS)th owner
+      {
+        const int nv = rows * U / V, QS = MMK_LSTM_THREADS / nv, e = V * (tid % nv);
+        int off[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) off[i] = ((e + i) / U) * HCP + (e + i) % U;
+        float* x0 = xch + (((size_t)par * MMK_WIDE_BLOCKS + (rank * HC) / U) * NCL + cid) * B * U +
+                    (size_t)r0 * U + e;
+        if (tid < QS * nv && !(MMK_WIDE_OFF & 2)) {
+#pragma unroll 4
+          for (int qo = tid / nv; qo < HC / U; qo += QS) {
+            float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              if (i < V) {
+                const float* p = recv + off[i] + qo * U;
+                v[i] = p[0];
+                if (!(MMK_WIDE_OFF & 8))
+#pragma unroll
+                  for (int sr = 1; sr < CL; ++sr) v[i] += p[(size_t)sr * RP * HCP];
+              }
+            }
+            float* xo = x0 + (size_t)qo * NCL * B * U;
+            if (V == 4)
+              __stcg(reinterpret_cast<float4*>(xo), make_float4(v[0], v[1], v[2], v[3]));
+            else if (V == 2)
+              __stcg(reinterpret_cast<float2*>(xo), make_float2(v[0], v[1]));
+            else
+              __stcg(xo, v[0]);
+          }
+        }
+      }
+      // a next pass pushes into the pieces: every block of the cluster has summed them
+      if (r0 + RP < B) cluster.sync();
+    }
+    if (t >= 0) wide_grid_sync();
+  }
+  cluster.sync();  // no block leaves while a peer may still push into it
+}
+
 // The wide route's limits (ops/fused_lstm.py's lstm_wide_plan raises outside
 // them): H a multiple of 128 up to 1,024, and each kernel's shared memory.
 static bool wide_fits(int H, int es) {
@@ -1324,45 +1773,93 @@ static bool wide_fits(int H, int es) {
          wide_smem(H, es, 0) <= 232448 && wide_smem(H, es, 1) <= 232448;
 }
 
-// One cooperative launch of MMK_WIDE_BLOCKS blocks (the grid barriers need
-// every block resident: the launch is refused on a card that cannot hold
-// them at once).
-static int wide_launch(const void* fn, void** args, size_t smem, cudaStream_t s) {
+// One launch of MMK_WIDE_BLOCKS blocks on clusters of MMK_WIDE_CL with the
+// cooperative attribute (the grid barriers need every block resident: the
+// launch is refused on a card that cannot hold them at once); with
+// `clusters` set, only the clusters the card holds at once, in *clusters.
+static int wide_launch(const void* fn, void** args, size_t smem, cudaStream_t s, int* clusters) {
   cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  e = cudaLaunchCooperativeKernel(fn, dim3(MMK_WIDE_BLOCKS), dim3(MMK_LSTM_THREADS), args, smem,
-                                  s);
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[2];
+  cfg.gridDim = dim3(MMK_WIDE_BLOCKS);
+  cfg.blockDim = dim3(MMK_LSTM_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = MMK_WIDE_CL;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  attr[1].id = cudaLaunchAttributeCooperative;
+  attr[1].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = clusters ? 1 : 2;
+  if (clusters) return (int)cudaOccupancyMaxActiveClusters(clusters, fn, &cfg);
+  e = cudaLaunchKernelExC(&cfg, fn, args);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+// The kernels' instantiation for H (MT, NT or KS from the layout: f32
+// halves RP at H = 896 and 1,024), or null.
+template <typename S>
+static const void* wide_fwd_fn(int H) {
+  const WideShape s = wide_shape(H, sizeof(S), 0);
+  const int mt = s.RP / 16, nt = s.NJP / 8;
+  if (mt == 2 && nt == 1) return (const void*)lstm_wide_fwd_kernel<S, 2, 1>;
+  if (mt == 2 && nt == 2) return (const void*)lstm_wide_fwd_kernel<S, 2, 2>;
+  if (mt == 2 && nt == 3) return (const void*)lstm_wide_fwd_kernel<S, 2, 3>;
+  if constexpr (sizeof(S) == 2) {
+    if (mt == 2 && nt == 4) return (const void*)lstm_wide_fwd_kernel<S, 2, 4>;
+  } else {
+    if (mt == 1 && nt == 4) return (const void*)lstm_wide_fwd_kernel<S, 1, 4>;
+  }
+  return nullptr;
+}
+
+template <typename S>
+static const void* wide_bwd_fn(int H) {
+  const WideShape s = wide_shape(H, sizeof(S), 1);
+  const int mt = s.RP / 16, ks = s.KJ / WideMma<S>::KD;
+  if (mt == 2 && ks == 1) return (const void*)lstm_wide_bwd_kernel<S, 2, 1>;
+  if (mt == 2 && ks == 2) return (const void*)lstm_wide_bwd_kernel<S, 2, 2>;
+  if constexpr (sizeof(S) == 4) {
+    if (mt == 2 && ks == 3) return (const void*)lstm_wide_bwd_kernel<S, 2, 3>;
+    if (mt == 1 && ks == 4) return (const void*)lstm_wide_bwd_kernel<S, 1, 4>;
+  }
+  return nullptr;
 }
 
 template <typename S>
 static int wide_forward(const void* xi_, const void* wh_, const void* h0_, const void* c0_,
                         void* h_all_, void* c_all_, void* gates_, float* cbuf, int T, int B,
-                        int H, cudaStream_t s) {
+                        int H, cudaStream_t s, int* clusters) {
   if (!wide_fits(H, sizeof(S)) || T < 1 || B < 1) return (int)cudaErrorInvalidValue;
   const S *xi = (const S*)xi_, *wh = (const S*)wh_, *h0 = (const S*)h0_, *c0 = (const S*)c0_;
   S *h_all = (S*)h_all_, *c_all = (S*)c_all_, *gates = (S*)gates_;
   void* args[] = {&xi, &wh, &h0, &c0, &h_all, &c_all, &gates, &cbuf, &T, &B, &H};
-  return wide_launch((const void*)lstm_wide_fwd_kernel<S>, args, wide_smem(H, sizeof(S), 0), s);
+  const void* fn = wide_fwd_fn<S>(H);
+  if (!fn) return (int)cudaErrorInvalidValue;
+  return wide_launch(fn, args, wide_smem(H, sizeof(S), 0), s, clusters);
 }
 
 template <typename S>
 static int wide_backward(const void* dh_all_, const void* dh_T_, const void* dc_T_,
                          const void* gates_, const void* c_all_, const void* h_all_,
                          const void* h0_, const void* c0_, const void* wh_, void* dxi_,
-                         void* dwh_, float* dwh_part, void* dh0_, void* dc0_, float* dcbuf, int T,
-                         int B, int H, int splits, cudaStream_t s) {
+                         void* dwh_, float* dwh_part, void* dh0_, void* dc0_, float* work, int T,
+                         int B, int H, int splits, cudaStream_t s, int* clusters) {
   if (!wide_fits(H, sizeof(S)) || T < 1 || B < 1) return (int)cudaErrorInvalidValue;
   const S *dh_all = (const S*)dh_all_, *dh_T = (const S*)dh_T_, *dc_T = (const S*)dc_T_;
   const S *gates = (const S*)gates_, *c_all = (const S*)c_all_, *h_all = (const S*)h_all_;
   const S *h0 = (const S*)h0_, *c0 = (const S*)c0_, *wh = (const S*)wh_;
   S *dxi = (S*)dxi_, *dwh = (S*)dwh_, *dh0 = (S*)dh0_, *dc0 = (S*)dc0_;
-  void* args[] = {&dh_all, &dh_T, &dc_T, &gates, &c_all, &c0, &wh, &dxi, &dh0, &dc0, &dcbuf,
+  void* args[] = {&dh_all, &dh_T, &dc_T, &gates, &c_all, &c0, &wh, &dxi, &dh0, &dc0, &work,
                   &T, &B, &H};
-  const int err =
-      wide_launch((const void*)lstm_wide_bwd_kernel<S>, args, wide_smem(H, sizeof(S), 1), s);
-  if (err != 0) return err;
+  const void* fn = wide_bwd_fn<S>(H);
+  if (!fn) return (int)cudaErrorInvalidValue;
+  const int err = wide_launch(fn, args, wide_smem(H, sizeof(S), 1), s, clusters);
+  if (err != 0 || clusters || (MMK_WIDE_OFF & 64)) return err;
   return dwh_product<S>(h0, h_all, dxi, dwh, dwh_part, T, B, H, splits, s);
 }
 
@@ -1425,33 +1922,62 @@ int mmk_lstm_backward(const void* dh_all, const void* dh_T, const void* dc_T,
 }
 
 // The wide route (K3a-wide, K3b-wide): shared memory (bytes) of its forward
-// (backward = 0) or backward walk on `es`-byte streams.
+// (backward = 0) or backward walk on `es`-byte streams, and the floats of
+// its f32 workspace at (B, H).
 long long mmk_lstm_wide_smem(int H, int es, int backward) {
   return (long long)wide_smem(H, es, backward);
 }
+long long mmk_lstm_wide_work(int B, int H, int backward) {
+  return (long long)wide_work(B, H, backward);
+}
+// Its layout (wide_shape) in out: U, NJ, NJP, KJ, P, PJ, RP, G, CPG.
+void mmk_lstm_wide_layout(int H, int es, int backward, int* out) {
+  const WideShape s = wide_shape(H, es, backward);
+  const int v[] = {s.U, s.NJ, s.NJP, s.KJ, s.P, s.PJ, s.RP, s.G, s.CPG};
+  for (int i = 0; i < 9; ++i) out[i] = v[i];
+}
 
-// The forward on MMK_WIDE_BLOCKS blocks; cbuf is a (B, H) f32 workspace.
+// The clusters of MMK_WIDE_CL blocks of the forward (backward = 0) or the
+// walk at hidden size H that the card holds at once, or minus the
+// cudaError_t of the query.
+int mmk_lstm_wide_clusters(int H, int backward, int bf16) {
+  int n = 0, err;
+  if (backward)
+    err = bf16 ? wide_backward<__nv_bfloat16>(0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 1, 1,
+                                              H, 1, 0, &n)
+               : wide_backward<float>(0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 1, 1, H, 1, 0,
+                                      &n);
+  else
+    err = bf16 ? wide_forward<__nv_bfloat16>(0, 0, 0, 0, 0, 0, 0, 0, 1, 1, H, 0, &n)
+               : wide_forward<float>(0, 0, 0, 0, 0, 0, 0, 0, 1, 1, H, 0, &n);
+  return err != 0 ? -err : n;
+}
+
+// The forward on MMK_WIDE_BLOCKS blocks; cbuf is a (B, H) f32 workspace
+// (mmk_lstm_wide_work floats).
 int mmk_lstm_wide_forward(const void* xi, const void* wh, const void* h0, const void* c0,
                           void* h_all, void* c_all, void* gates, float* cbuf, int T, int B,
                           int H, int bf16, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  return bf16 ? wide_forward<__nv_bfloat16>(xi, wh, h0, c0, h_all, c_all, gates, cbuf, T, B, H, s)
-              : wide_forward<float>(xi, wh, h0, c0, h_all, c_all, gates, cbuf, T, B, H, s);
+  return bf16 ? wide_forward<__nv_bfloat16>(xi, wh, h0, c0, h_all, c_all, gates, cbuf, T, B, H, s,
+                                            nullptr)
+              : wide_forward<float>(xi, wh, h0, c0, h_all, c_all, gates, cbuf, T, B, H, s,
+                                    nullptr);
 }
 
-// The walk on MMK_WIDE_BLOCKS blocks (dcbuf a (B, H) f32 workspace), then dWh
-// as mmk_lstm_backward computes it.
+// The walk on MMK_WIDE_BLOCKS blocks (work: mmk_lstm_wide_work floats), then
+// dWh as mmk_lstm_backward computes it.
 int mmk_lstm_wide_backward(const void* dh_all, const void* dh_T, const void* dc_T,
                            const void* gates, const void* c_all, const void* h_all,
                            const void* h0, const void* c0, const void* wh, void* dxi, void* dwh,
-                           float* dwh_part, void* dh0, void* dc0, float* dcbuf, int T, int B,
+                           float* dwh_part, void* dh0, void* dc0, float* work, int T, int B,
                            int H, int splits, int bf16, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   return bf16 ? wide_backward<__nv_bfloat16>(dh_all, dh_T, dc_T, gates, c_all, h_all, h0, c0, wh,
-                                             dxi, dwh, dwh_part, dh0, dc0, dcbuf, T, B, H,
-                                             splits, s)
+                                             dxi, dwh, dwh_part, dh0, dc0, work, T, B, H,
+                                             splits, s, nullptr)
               : wide_backward<float>(dh_all, dh_T, dc_T, gates, c_all, h_all, h0, c0, wh, dxi,
-                                     dwh, dwh_part, dh0, dc0, dcbuf, T, B, H, splits, s);
+                                     dwh, dwh_part, dh0, dc0, work, T, B, H, splits, s, nullptr);
 }
 
 const char* mmk_lstm_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

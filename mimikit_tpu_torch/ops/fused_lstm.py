@@ -17,10 +17,10 @@ the top of the ``.cu`` file.  A layer takes one of three routes
   raise outside the kernels' limits (:func:`lstm_forward`,
   :func:`lstm_backward`);
 * ``"wide"``: where a cluster cannot hold Wh, H a multiple of 128 up to
-  1,024 (:func:`lstm_wide_plan`): one cooperative launch of 128 blocks, each
-  owning H/128 units with its part of Wh in shared memory, a grid barrier a
-  step (K3a-wide :func:`lstm_forward_wide`, K3b-wide
-  :func:`lstm_backward_wide`);
+  1,024 (:func:`lstm_wide_plan`): one cooperative launch of 128 blocks in
+  clusters of 2, each owning H/128 units with its part of Wh in shared
+  memory, a grid barrier a step, the products on the tensor cores
+  (K3a-wide :func:`lstm_forward_wide`, K3b-wide :func:`lstm_backward_wide`);
 * ``"scan"``: outside JAX's kernel gate (H not a multiple of 128, B < 8 or
   B*T < 64), where JAX runs a ``lax.scan``: ``LSTM.forward_seq`` runs a step
   loop under autograd, and no kernel.
@@ -107,9 +107,12 @@ LSTM_BWD_ROUTE = {
     torch.bfloat16: (16, 8),
 }
 # the wide route (``MMK_WIDE_*`` in the .cu): blocks of its cooperative
-# launch, batch rows of a product's tile, columns of a staged chunk; H a
-# multiple of WIDE_BLOCKS up to WIDE_MAX_H
-WIDE_BLOCKS, WIDE_RT, WIDE_KC, WIDE_MAX_H = 128, 16, 1024, 1024
+# launch, blocks a cluster (an H100 holds 66 clusters of 2 such blocks, 30 of
+# 4: tools/wide_cluster_probe.py), batch rows a pass (halved where they do
+# not fit), groups of clusters in the backward's sum of the clusters'
+# partial dh; H a multiple of WIDE_BLOCKS up to WIDE_MAX_H
+WIDE_BLOCKS, WIDE_CL, WIDE_RP, WIDE_GROUPS, WIDE_MAX_H = 128, 2, 32, 8, 1024
+WARPS = THREADS // 32
 
 
 # -- plain versions ---------------------------------------------------------------
@@ -305,24 +308,54 @@ def lstm_bwd_plan(B: int, H: int, esize: int = 4, cl: Optional[int] = None) -> T
     return _plan(B, H, esize, cl, LSTM_BWD_ROUTE, BWD_CLUSTER_SIZES, _bwd_fits, "backward")
 
 
-def _wide_shape(H: int, backward: bool) -> dict:
+def _wide_bytes(H: int, esize: int, backward: bool, s: dict) -> int:
+    """Bytes of shared memory of a wide kernel at the layout ``s``
+    (``wide_bytes`` in the .cu): forward, the slice (NJP x P), a pass's h
+    rows (RP x P), the warps' partial sums (8 x RP x NJP f32) and an
+    mbarrier; backward, the slice (H x PJ), a pass's dz (RP x PJ), the
+    cluster's pieces of partial dh (WIDE_CL x RP x (H/WIDE_CL + 4) f32) and
+    the exchange's partial sums (8 x RP x U f32) and an mbarrier."""
+    def r16(n):
+        return -(-n // 16) * 16
+    if backward:
+        return (r16(esize * H * s["PJ"]) + r16(esize * s["RP"] * s["PJ"])
+                + 4 * (s["RP"] * (H + 4 * WIDE_CL) + WIDE_GROUPS * s["RP"] * s["U"]) + 16)
+    return (r16(esize * s["NJP"] * s["P"]) + r16(esize * s["RP"] * s["P"])
+            + 4 * WARPS * s["RP"] * s["NJP"] + 16)
+
+
+def _wide_shape(H: int, esize: int, backward: bool) -> dict:
     """The wide route's layout (``wide_shape`` in the .cu): units a block U,
-    slice rows NJ (forward: the 4U gate columns; backward: the U units' rows
-    of Wh), threads a k-group NV (the power of two from NJ), k-groups KG, the
-    product's depth K, its staged chunk KC and the slice's pitch WP."""
+    gate columns NJ = 4U, padded to an mma's N (NJP, 8) and K (KJ: 16 bf16,
+    8 f32), the pitch P of h's and the forward slice's rows (H + 4 floats,
+    H + 8 bf16: 4 mod 32 words), the pitch PJ of the backward slice's and
+    dz's rows, batch rows a pass RP (WIDE_RP, or half where that does not
+    fit); the backward's clusters NCL = 128/WIDE_CL, whose sums of partial
+    dh an owner adds in G groups of CPG clusters (each group in cluster
+    order, then the groups in order)."""
     U = H // WIDE_BLOCKS
-    NJ = U if backward else 4 * U
-    NV = 1 << max(0, (NJ - 1).bit_length())
-    K = 4 * H if backward else H
-    return dict(U=U, NJ=NJ, NV=NV, KG=THREADS // NV, K=K, KC=min(K, WIDE_KC), WP=K + 4)
+    kd = 16 if esize == 2 else 8
+    s = dict(U=U, NJ=4 * U, NJP=-(-4 * U // 8) * 8, KJ=-(-4 * U // kd) * kd,
+             P=H + 16 // esize, RP=WIDE_RP, NCL=WIDE_BLOCKS // WIDE_CL)
+    s["PJ"] = s["KJ"] + 16 // esize
+    if _wide_bytes(H, esize, backward, s) > SMEM_PER_BLOCK:
+        s["RP"] = WIDE_RP // 2
+    s["G"] = min(WIDE_GROUPS, max(1, 4 * THREADS // max(1, s["RP"] * U)))
+    s["CPG"] = -(-s["NCL"] // s["G"])
+    return s
 
 
 def _wide_smem(H: int, esize: int, backward: bool) -> int:
     """Bytes of shared memory of K3a-wide (K3b-wide with ``backward``) on
-    ``esize``-byte streams (``wide_smem`` in the .cu): the slice, rounded up
-    to 16 bytes, the staged tile and the partial sums (f32)."""
-    s = _wide_shape(H, backward)
-    return -(-esize * s["NJ"] * s["WP"] // 16) * 16 + 4 * (WIDE_RT * s["KC"] + THREADS * WIDE_RT)
+    ``esize``-byte streams (``wide_smem`` in the .cu)."""
+    return _wide_bytes(H, esize, backward, _wide_shape(H, esize, backward))
+
+
+def _wide_work(B: int, H: int, backward: bool) -> int:
+    """Floats of a wide kernel's f32 workspace at (B, H) (``wide_work`` in
+    the .cu): the carry (B x H) and, backward, the exchange of the clusters'
+    sums of partial dh (2 x 128/WIDE_CL x B x H)."""
+    return B * H * (1 + 2 * WIDE_BLOCKS // WIDE_CL if backward else 1)
 
 
 def _wide_fits(H: int, esize: int) -> str:
@@ -398,6 +431,8 @@ class _Kernel:
 
     lib = None
     build_log = ""
+    # {(device, H, backward, dtype): clusters}: wide_clusters_that_fit's answers
+    wide_clusters = {}
 
 
 def build_lstm_kernel() -> Path:
@@ -409,28 +444,55 @@ def build_lstm_kernel() -> Path:
     return path
 
 
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` (a build of ``csrc/fused_lstm.cu``) with its functions'
+    argument and result types set."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.mmk_lstm_forward.argtypes = [p] * 7 + [i] * 6 + [p]
+    lib.mmk_lstm_forward.restype = i
+    lib.mmk_lstm_backward.argtypes = [p] * 14 + [i] * 7 + [p]
+    lib.mmk_lstm_backward.restype = i
+    for fn in (lib.mmk_lstm_fwd_smem, lib.mmk_lstm_bwd_smem):
+        fn.argtypes = [i] * 4
+        fn.restype = ctypes.c_longlong
+    for fn in (lib.mmk_lstm_fwd_clusters, lib.mmk_lstm_bwd_clusters):
+        fn.argtypes = [i] * 4
+        fn.restype = i
+    lib.mmk_lstm_wide_forward.argtypes = [p] * 8 + [i] * 4 + [p]
+    lib.mmk_lstm_wide_forward.restype = i
+    lib.mmk_lstm_wide_backward.argtypes = [p] * 15 + [i] * 5 + [p]
+    lib.mmk_lstm_wide_backward.restype = i
+    lib.mmk_lstm_wide_smem.argtypes = [i] * 3
+    lib.mmk_lstm_wide_smem.restype = ctypes.c_longlong
+    lib.mmk_lstm_wide_work.argtypes = [i] * 3
+    lib.mmk_lstm_wide_work.restype = ctypes.c_longlong
+    lib.mmk_lstm_wide_clusters.argtypes = [i] * 3
+    lib.mmk_lstm_wide_clusters.restype = i
+    lib.mmk_lstm_wide_layout.argtypes = [i] * 3 + [ctypes.POINTER(i)]
+    lib.mmk_lstm_wide_layout.restype = None
+    lib.mmk_lstm_error_string.argtypes = [i]
+    lib.mmk_lstm_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+# the fields of the wide layout, in the order mmk_lstm_wide_layout gives them
+_WIDE_LAYOUT = ("U", "NJ", "NJP", "KJ", "P", "PJ", "RP", "G", "CPG")
+
+
+def _source_wide_layout(lib, H: int, es: int, bw: int) -> tuple:
+    out = (ctypes.c_int * len(_WIDE_LAYOUT))()
+    lib.mmk_lstm_wide_layout(H, es, bw, out)
+    return tuple(out)
+
+
+def _mirror_wide_layout(H: int, es: int, bw: int) -> tuple:
+    s = _wide_shape(H, es, bool(bw))
+    return tuple(s[k] for k in _WIDE_LAYOUT)
+
+
 def _library():
     if _Kernel.lib is None:
-        lib = ctypes.CDLL(str(build_lstm_kernel()))
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.mmk_lstm_forward.argtypes = [p] * 7 + [i] * 6 + [p]
-        lib.mmk_lstm_forward.restype = i
-        lib.mmk_lstm_backward.argtypes = [p] * 14 + [i] * 7 + [p]
-        lib.mmk_lstm_backward.restype = i
-        for fn in (lib.mmk_lstm_fwd_smem, lib.mmk_lstm_bwd_smem):
-            fn.argtypes = [i] * 4
-            fn.restype = ctypes.c_longlong
-        for fn in (lib.mmk_lstm_fwd_clusters, lib.mmk_lstm_bwd_clusters):
-            fn.argtypes = [i] * 4
-            fn.restype = i
-        lib.mmk_lstm_wide_forward.argtypes = [p] * 8 + [i] * 4 + [p]
-        lib.mmk_lstm_wide_forward.restype = i
-        lib.mmk_lstm_wide_backward.argtypes = [p] * 15 + [i] * 5 + [p]
-        lib.mmk_lstm_wide_backward.restype = i
-        lib.mmk_lstm_wide_smem.argtypes = [i] * 3
-        lib.mmk_lstm_wide_smem.restype = ctypes.c_longlong
-        lib.mmk_lstm_error_string.argtypes = [i]
-        lib.mmk_lstm_error_string.restype = ctypes.c_char_p
+        lib = _bind(ctypes.CDLL(str(build_lstm_kernel())))
         for H, r, es in ((256, 4, 4), (16, 1, 4), (256, 8, 2), (16, 1, 2), (320, 2, 4)):
             if any(lib.mmk_lstm_fwd_smem(H, r, cl, es) != _fwd_smem(H, r, cl, es)
                    for cl in FWD_CLUSTER_SIZES) or any(
@@ -439,9 +501,12 @@ def _library():
             ):
                 raise RuntimeError("the LSTM kernels' shared-memory sizes differ between C and Python")
         if any(lib.mmk_lstm_wide_smem(H, es, bw) != _wide_smem(H, es, bool(bw))
-               for H in (128, 384, 512, 1024) for es in (4, 2) for bw in (0, 1)):
-            raise RuntimeError("the wide LSTM kernels' shared-memory sizes differ between C and"
-                               " Python")
+               or lib.mmk_lstm_wide_work(5, H, bw) != _wide_work(5, H, bool(bw))
+               or _source_wide_layout(lib, H, es, bw) != _mirror_wide_layout(H, es, bw)
+               for H in range(WIDE_BLOCKS, WIDE_MAX_H + 1, WIDE_BLOCKS)
+               for es in (4, 2) for bw in (0, 1)):
+            raise RuntimeError("the wide LSTM kernels' layout, shared-memory or workspace sizes"
+                               " differ between C and Python")
         _Kernel.lib = lib
     return _Kernel.lib
 
@@ -567,14 +632,38 @@ def lstm_backward(dh_all, dh_T, dc_T, gates, c_all, h_all, h0, c0, Wh, cl=None):
 
 def _aligned(x: torch.Tensor) -> torch.Tensor:
     """``x``, or a copy of it where its data is not 16-byte aligned (the wide
-    kernels read h0 16 bytes at a time)."""
+    forward copies h0's rows with the bulk copy engine)."""
     return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+def wide_clusters_that_fit(H: int, backward: bool, dtype: torch.dtype) -> int:
+    """The clusters of WIDE_CL blocks of K3a-wide (K3b-wide's walk with
+    ``backward``) at hidden size H that the current card holds at once
+    (``cudaOccupancyMaxActiveClusters``, asked once a card, H, direction
+    and dtype); a launch needs WIDE_BLOCKS / WIDE_CL of them."""
+    key = (torch.cuda.current_device(), H, bool(backward), dtype)
+    if key not in _Kernel.wide_clusters:
+        n = _library().mmk_lstm_wide_clusters(H, int(backward), int(dtype == torch.bfloat16))
+        if n < 0:
+            _raise_on(-n, "wide LSTM cluster query")
+        _Kernel.wide_clusters[key] = n
+    return _Kernel.wide_clusters[key]
+
+
+def _wide_resident(H: int, backward: bool, dtype: torch.dtype):
+    """Raises where the card cannot hold all WIDE_BLOCKS blocks of a wide
+    launch at once: its grid barriers would wait for blocks that never run."""
+    n, need = wide_clusters_that_fit(H, backward, dtype), WIDE_BLOCKS // WIDE_CL
+    if n < need:
+        raise RuntimeError(
+            f"K3{'b' if backward else 'a'}-wide at H={H} needs {need} clusters of {WIDE_CL}"
+            f" blocks resident at once; this card holds {n}")
 
 
 def lstm_forward_wide(xi: torch.Tensor, Wh: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor):
     """K3a-wide: :func:`lstm_forward` for H past a cluster's shared memory
     (:func:`lstm_wide_plan`): the same outputs, on one cooperative launch of
-    128 blocks."""
+    128 blocks in clusters of WIDE_CL."""
     if xi.device.type == "cpu":
         return lstm_forward_plain(xi, Wh, h0, c0)
     T, B, H4 = xi.shape
@@ -590,7 +679,8 @@ def lstm_forward_wide(xi: torch.Tensor, Wh: torch.Tensor, h0: torch.Tensor, c0: 
     h_all = torch.empty(T, B, H, device=dev, dtype=dt)
     c_all = torch.empty(T, B, H, device=dev, dtype=dt)
     gates = torch.empty(T, B, H4, device=dev, dtype=dt)
-    cbuf = torch.empty(B, H, device=dev)
+    _wide_resident(H, False, dt)
+    cbuf = torch.empty(_wide_work(B, H, False), device=dev)
     err = lib.mmk_lstm_wide_forward(
         xi.data_ptr(), Wh.data_ptr(), _aligned(h0).data_ptr(), c0.data_ptr(), h_all.data_ptr(),
         c_all.data_ptr(), gates.data_ptr(), cbuf.data_ptr(), T, B, H,
@@ -604,7 +694,7 @@ def lstm_forward_wide(xi: torch.Tensor, Wh: torch.Tensor, h0: torch.Tensor, c0: 
 def lstm_backward_wide(dh_all, dh_T, dc_T, gates, c_all, h_all, h0, c0, Wh):
     """K3b-wide: :func:`lstm_backward` for H past a cluster's shared memory
     (:func:`lstm_wide_plan`): the walk on one cooperative launch of 128
-    blocks, then the same dWh product."""
+    blocks in clusters of WIDE_CL, then the same dWh product."""
     if gates.device.type == "cpu":
         return lstm_backward_plain(dh_all, dh_T, dc_T, gates, c_all, h_all, h0, c0, Wh)
     T, B, H = c_all.shape
@@ -622,7 +712,8 @@ def lstm_backward_wide(dh_all, dh_T, dc_T, gates, c_all, h_all, h0, c0, Wh):
     dWh = torch.empty(H, 4 * H, device=dev, dtype=dt)
     dh0 = torch.empty(B, H, device=dev, dtype=dt)
     dc0 = torch.empty(B, H, device=dev, dtype=dt)
-    dcbuf = torch.empty(B, H, device=dev)
+    _wide_resident(H, True, dt)
+    work = torch.empty(_wide_work(B, H, True), device=dev)
     splits = dwh_splits(T * B, H)
     part = (torch.empty(splits, H, 4 * H, device=dev)
             if splits > 1 or dt != torch.float32 else dWh)
@@ -630,7 +721,7 @@ def lstm_backward_wide(dh_all, dh_T, dc_T, gates, c_all, h_all, h0, c0, Wh):
         dh_all.data_ptr(), dh_T.data_ptr(), dc_T.data_ptr(), gates.data_ptr(),
         c_all.data_ptr(), h_all.data_ptr(), h0.data_ptr(), c0.data_ptr(), Wh.data_ptr(),
         dxi.data_ptr(), dWh.data_ptr(), part.data_ptr(), dh0.data_ptr(), dc0.data_ptr(),
-        dcbuf.data_ptr(), T, B, H, splits, int(dt == torch.bfloat16),
+        work.data_ptr(), T, B, H, splits, int(dt == torch.bfloat16),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(err, "wide LSTM backward kernel")

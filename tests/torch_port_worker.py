@@ -1681,7 +1681,100 @@ def lstm_route_task(inp: dict) -> dict:
     return out
 
 
-TASKS = {"lstm_route": lstm_route_task,
+def _wide_dh(fl, dz, Wh):
+    """dz @ Wh^T (B x 4H times 4H x H) summed in the order of K3b-wide's
+    walk: block q's partial over its units' four gate columns, the blocks
+    of a cluster in rank order, then the clusters in ``G`` groups of
+    ``CPG``, each group in cluster order from 0, the groups in order."""
+    B, H = dz.shape[0], Wh.shape[0]
+    s = fl._wide_shape(H, 4, True)
+    U, CL = s["U"], fl.WIDE_CL
+    parts = []
+    for q in range(fl.WIDE_BLOCKS):
+        cols = [g * H + q * U + u for g in range(4) for u in range(U)]
+        parts.append(dz[:, cols] @ Wh[:, cols].t())
+    clusters = []
+    for c in range(s["NCL"]):
+        v = parts[c * CL]
+        for r in range(1, CL):
+            v = v + parts[c * CL + r]
+        clusters.append(v)
+    dh = torch.zeros(B, H)
+    for gi in range(s["G"]):
+        v = torch.zeros(B, H)
+        for c in range(gi * s["CPG"], min(s["NCL"], (gi + 1) * s["CPG"])):
+            v = v + clusters[c]
+        dh = dh + v
+    return dh
+
+
+def _wide_walk(fl, dh_all, dh_T, dc_T, gates, c_all, c0, Wh):
+    """``lstm_backward_plain``'s walk (f32) with each step's dz @ Wh^T summed
+    by ``_wide_dh``: (dxi, dh0, dc0)."""
+    T, B, H = c_all.shape
+    dh_c, dc_c = dh_T, dc_T
+    dxi = torch.empty(gates.shape)
+    for t in range(T - 1, -1, -1):
+        dh = dh_all[t] + dh_c
+        i, f, g, o = gates[t].split(H, dim=1)
+        tc = torch.tanh(c_all[t])
+        dc = dc_c + dh * o * (1.0 - tc * tc)
+        c_prev = c_all[t - 1] if t > 0 else c0
+        dz = torch.cat([dc * g * i * (1.0 - i), dc * c_prev * f * (1.0 - f),
+                        dc * i * (1.0 - g * g), dh * tc * o * (1.0 - o)], dim=1)
+        dxi[t] = dz
+        dh_c = _wide_dh(fl, dz, Wh)
+        dc_c = dc * f
+    return dxi, dh_c, dc_c
+
+
+def lstm_wide_layout_task(inp: dict) -> dict:
+    """The wide kernels' layout (``_wide_shape``, ``_wide_smem``) at each H
+    of ``inp["wide_h"]``, both stream types and both directions, with the
+    constants it rests on; and at each case of ``inp["walk_cases"]`` (T, B,
+    H) the backward walk with dh summed in K3b-wide's order (``_wide_walk``)
+    beside ``lstm_backward_plain`` on the same inputs."""
+    from mimikit_tpu_torch.ops import fused_lstm as fl
+
+    out = {"blocks": np.array(fl.WIDE_BLOCKS), "cl": np.array(fl.WIDE_CL),
+           "rp": np.array(fl.WIDE_RP), "smem_limit": np.array(fl.SMEM_PER_BLOCK),
+           "threads": np.array(fl.THREADS)}
+    for H in inp["wide_h"].tolist():
+        for es in (4, 2):
+            for bw in (0, 1):
+                k = f"h{H}_e{es}_bw{bw}/"
+                for name, v in fl._wide_shape(H, es, bool(bw)).items():
+                    out[k + name] = np.array(v)
+                out[k + "smem"] = np.array(fl._wide_smem(H, es, bool(bw)))
+    for T, B, H in inp["walk_cases"].tolist():
+        p = f"walk/t{T}_b{B}_h{H}/"
+        xi, Wh, h0, c0, dh_all, dh_T, dc_T = (torch.from_numpy(inp[p + n]) for n in (
+            "xi", "Wh", "h0", "c0", "dh_all", "dh_T", "dc_T"))
+        h_all, c_all, gates = fl.lstm_forward_plain(xi, Wh, h0, c0)
+        dxi, _, dh0, dc0 = fl.lstm_backward_plain(dh_all, dh_T, dc_T, gates, c_all, h_all, h0,
+                                                  c0, Wh)
+        wdxi, wdh0, wdc0 = _wide_walk(fl, dh_all, dh_T, dc_T, gates, c_all, c0, Wh)
+        for n, v in (("dxi", dxi), ("dh0", dh0), ("dc0", dc0), ("wide_dxi", wdxi),
+                     ("wide_dh0", wdh0), ("wide_dc0", wdc0)):
+            out[p + n] = v.numpy()
+        dz = dxi[-1]
+        out[p + "dz_wh"] = (dz @ Wh.t()).numpy()
+        out[p + "wide_dz_wh"] = _wide_dh(fl, dz, Wh).numpy()
+    # the residency check, with the card's answer replaced: one cluster short, then enough
+    real = fl.wide_clusters_that_fit
+    for name, short in (("resident_short", 1), ("resident_enough", 0)):
+        fl.wide_clusters_that_fit = lambda H, bw, dt, k=short: fl.WIDE_BLOCKS // fl.WIDE_CL - k
+        try:
+            fl._wide_resident(512, True, torch.float32)
+            out[name] = np.array("")
+        except RuntimeError as e:
+            out[name] = np.array(str(e))
+        finally:
+            fl.wide_clusters_that_fit = real
+    return out
+
+
+TASKS = {"lstm_route": lstm_route_task, "lstm_wide_layout": lstm_wide_layout_task,
          "lstm_plan": lstm_plan_task, "xla_rsqrt": xla_rsqrt_task, "wavenet_cluster": wavenet_cluster_task, "modules": modules_task, "sample_rnn": sample_rnn_task, "fused_lstm": fused_lstm_task,
          "train": train_task, "train_stateless": train_stateless_task,
          "wavenet": wavenet_task, "categorical": categorical_task,

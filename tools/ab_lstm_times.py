@@ -7,7 +7,10 @@ It builds ``<root>/mimikit_tpu_torch/csrc/fused_lstm.cu`` and prints one JSON
 line: CUDA-event times (median and all of 5 runs, after a warm-up) of
 ``lstm_forward`` and ``lstm_backward`` on f32 streams at the training path's
 tier shapes (T, B, H) = (128, 32, 256) and (256, 32, 256), the same on bf16
-streams where the checkout has them, and a digest of each kernel's SASS
+streams where the checkout has them, ``lstm_forward_wide`` and
+``lstm_backward_wide`` (K3a-wide, K3b-wide) at the wide train step's tier
+shape, (256, 32, 512) on f32 and (256, 32, 768) on bf16 streams, where the
+checkout has them, and a digest of each kernel's SASS
 (``cuobjdump -sass`` of the built library, addresses and encodings dropped),
 keyed by kernel, template integers (cluster size, rows a cluster) and stream
 type: equal digests are equal
@@ -31,6 +34,7 @@ sys.path.insert(0, ROOT)
 from mimikit_tpu_torch.ops import fused_lstm as fl  # noqa: E402
 
 SHAPES = ((128, 32, 256), (256, 32, 256))
+WIDE_SHAPES = ((torch.float32, 256, 32, 512), (torch.bfloat16, 256, 32, 768))
 
 
 def event_ms(fn, reps=5):
@@ -109,6 +113,19 @@ def main():
                              ("lstm_backward", lambda: fl.lstm_backward(*bw))):
                 ms = event_ms(fn)
                 res["ms"][f"{name} {tag} T={T}"] = [statistics.median(ms), ms]
+    if hasattr(fl, "lstm_forward_wide"):
+        for dt, T, B, H in WIDE_SHAPES:
+            def mk(*s, sc=1.0):
+                return (torch.randn(*s, generator=g) * sc).cuda().to(dt)
+
+            xi, Wh, h0, c0 = mk(T, B, 4 * H), mk(H, 4 * H, sc=H ** -0.5), mk(B, H), mk(B, H)
+            h_all, c_all, gates = fl.lstm_forward_wide(xi, Wh, h0, c0)
+            bw = (mk(T, B, H), mk(B, H), mk(B, H), gates, c_all, h_all, h0, c0, Wh)
+            tag = "bf16" if dt == torch.bfloat16 else "f32"
+            for name, fn in (("lstm_forward_wide", lambda: fl.lstm_forward_wide(xi, Wh, h0, c0)),
+                             ("lstm_backward_wide", lambda: fl.lstm_backward_wide(*bw))):
+                ms = event_ms(fn)
+                res["ms"][f"{name} {tag} (T, B, H)=({T}, {B}, {H})"] = [statistics.median(ms), ms]
     print(json.dumps(res), flush=True)
 
 
