@@ -13,14 +13,10 @@ Phases (any failure exits non-zero; no exception is swallowed):
    ``csrc/transformer_kv.cu``, ``csrc/jukebox_decode.cu``,
    ``csrc/jukebox_cluster.cu``, ``csrc/jukebox_group.cu`` and
    ``csrc/categorical.cu`` for sm_90a, the eleven nvcc runs started
-   together, and time them; the SASS digests of
-   ``samplernn_decode.cu`` (the block kernel: K1's and K2's outside the
-   cluster route) must equal the parent checkout's (``SRNN_BLOCK_SASS``,
-   ``tools/sass_digest.py``), those of ``jukebox_decode.cu`` and
-   ``jukebox_cluster.cu`` (K8's block and cluster kernels) theirs
-   (``K8_SASS``), and those of every other kernel this checkout leaves as
-   it was, WaveNet's block kernel and the LSTM cluster kernels among them,
-   theirs (``PARENT_SASS``);
+   together, and time them; the SASS digest of every kernel of those
+   sources (``tools/sass_digest.py``) must equal ``tools/sass_digests.json``
+   (the LSTM kernels', dWh's and K9's as the parent checkout left them, the
+   decode kernels' as their per-row temperatures made them);
    compile the Triton mu-law kernel;
 2. each kernel against its plain twin at a small size and at the main
    paths' widths.  ``decode_single`` and ``decode_chunk``, argmax and
@@ -82,7 +78,7 @@ Phases (any failure exits non-zero; no exception is swallowed):
    tier-pyramid kernels (``decode_pyramid``, K8) by teacher forcing at B=1,
    2, 8, 16, 17, 32 and 64 through the route (the cluster kernel in clusters
    of 16 blocks up to 7 streams, of 8 up to 15, ``K8_CLUSTER_ROUTE``; the
-   group kernel, groups of streams on clusters of 8, up to 60,
+   group kernel, groups of streams on clusters of 8, up to 45,
    ``K8_GROUP_ROUTE``; the block kernel beyond), the cluster kernel at one
    stream more than the clusters of 16 that fit (clusters loop over
    streams), the group kernel at B=31 in groups of 2 (at full width one
@@ -98,6 +94,13 @@ Phases (any failure exits non-zero; no exception is swallowed):
    16 and 32, small and full width, argmax and T=0.9; at the small width a
    control too, the f32 instantiation on bf16-valued weights (a kernel
    that skips the input rounding), whose tokens the bf16 check must refuse;
+   one temperature a stream (``ROW_TEMPERATURES`` cycled over ``ROW_B``
+   streams) through every decode kernel and route at the small widths (K1
+   and K2 on the cluster and the block kernel, f32 and bf16 packs; K4 and
+   K5 on both WaveNet kernels; K6; K7 f32 and bf16; K8's cluster, group and
+   block kernels): the tokens verified by teacher forcing at those
+   temperatures, and each row equal, bit for bit, to that row of the same
+   decode at its row's temperature (``check_row_temperatures``);
 3. the serving path at full width (bench.py's mu-law SampleRNN-3:
    frame_sizes (16, 8, 8), hidden 256, q 256, a two-layer Mish head; random
    weights from a seed): ``generate`` with B=4 (decode_single's route) and
@@ -165,7 +168,13 @@ Phases (any failure exits non-zero; no exception is swallowed):
    epoch of 8 steps each on the wide kernels: every step's loss finite and
    the last below the first, every LSTM call a wide kernel's of the
    streams' dtype and no call of a plain version, the step timed and
-   profiled;
+   profiled; then SampleRNN-3 as a user monitors its training
+   (``monitored_train_path``): two epochs with ``MONITOR_TRAINING``,
+   ``OUTPUT_TRAINING="wav"``, one temperature an example, four examples of
+   0.25 s every second epoch and ``loss_logs_file``: the wav files written,
+   K1's cluster kernel launched by ``GenerateCallback`` (its time logged),
+   the loss log read back; and one epoch under ``remat=True``, every loss
+   finite and K3a launched twice a step for each tier;
 5. the LSTM forward's sweep (on clusters of 8 and 16 at the tier shapes, f32
    and bf16, against ``LSTM_FWD_ROUTE``) and the backward's (its walk on
    clusters of 8 and 16, against ``LSTM_BWD_ROUTE``; the walk and dWh split
@@ -243,184 +252,11 @@ K2_RAGGED_B = 37
 K2_SWEEP_BATCHES, K2_SWEEP_N = (1, 4, 8, 16, 32, 64, 128, 256, 512), 256
 # decode_single's (K1's) batches in the sweep: every B below 64 takes it
 K1_SWEEP_BATCHES = (1, 4, 8, 16, 32, 63)
-# samplernn_decode.cu's machine code before the cluster kernel was added
-# (tools/sass_digest.py with the card's toolkit): the block kernel, which
-# serves K2 past K2_CLUSTER_ROUTE and K1 (decode_single) outside it, stays so
-SRNN_BLOCK_SASS = {
-    "_Z23samplernn_decode_kernelILi8EfEv14SrnnDecodeArgs":
-        "1612152d55a68532, REG 64 STACK 0",
-    "_Z23samplernn_decode_kernelILi4EfEv14SrnnDecodeArgs":
-        "b378b7517e2792c3, REG 64 STACK 0",
-    "_Z23samplernn_decode_kernelILi2EfEv14SrnnDecodeArgs":
-        "5c1c60a31eb32cd3, REG 64 STACK 0",
-    "_Z23samplernn_decode_kernelILi1EfEv14SrnnDecodeArgs":
-        "3151856a87548c0b, REG 58 STACK 0",
-    "_Z23samplernn_decode_kernelILi8E13__nv_bfloat16Ev14SrnnDecodeArgs":
-        "7eef50fe64fae9ea, REG 64 STACK 16",
-    "_Z23samplernn_decode_kernelILi4E13__nv_bfloat16Ev14SrnnDecodeArgs":
-        "1ebf3bd1441b7f9f, REG 64 STACK 0",
-    "_Z23samplernn_decode_kernelILi2E13__nv_bfloat16Ev14SrnnDecodeArgs":
-        "e052ed847bf128f3, REG 64 STACK 0",
-    "_Z23samplernn_decode_kernelILi1E13__nv_bfloat16Ev14SrnnDecodeArgs":
-        "615f2e92495919e9, REG 56 STACK 0",
-}
-# jukebox_decode.cu's and jukebox_cluster.cu's machine code before the group kernel
-# was added (tools/sass_digest.py with the card's toolkit): both stay as they were
-K8_SASS = {
-    "jukebox_decode.cu": {"_Z17jb_pyramid_kernel6JbArgs": "a0b3b7a1fb5b6d36, REG 128 STACK 32"},
-    "jukebox_cluster.cu": {
-        "_Z17jc_pyramid_kernelILi16EEv6JcArgs": "bb7472d632a66b3e, REG 215 STACK 0",
-        "_Z17jc_pyramid_kernelILi8EEv6JcArgs": "88e084a613494714, REG 215 STACK 0",
-    },
-}
-# the machine code of the kernels this checkout leaves as they were, in the parent
-# checkout (tools/sass_digest.py with the card's toolkit): each must stay so (a
-# source's other kernels may differ)
-PARENT_SASS = {
-    "wavenet_decode.cu": {
-        "_Z21wavenet_decode_kernelILi16EEv12WnDecodeArgs":
-            "53ca653eb976431f, REG 64 STACK 24",
-        "_Z21wavenet_decode_kernelILi8EEv12WnDecodeArgs":
-            "202a09ea5b0cbe00, REG 64 STACK 32",
-        "_Z21wavenet_decode_kernelILi4EEv12WnDecodeArgs":
-            "bd2397d98cfda82b, REG 64 STACK 32",
-        "_Z21wavenet_decode_kernelILi2EEv12WnDecodeArgs":
-            "89f2ceccf285d04d, REG 64 STACK 8",
-        "_Z21wavenet_decode_kernelILi1EEv12WnDecodeArgs":
-            "d4d10febc886516b, REG 60 STACK 0",
-    },
-    "wavenet_cluster.cu": {
-        "_Z17wc_cluster_kernelILi16EEv6WcArgs": "c980e0198c713442, REG 168 STACK 0",
-    },
-    "samplernn_cluster.cu": {
-        "_Z16sc_decode_kernelILi16EfLi8EEv6ScArgs":
-            "e259765fe29a4407, REG 197 STACK 0",
-        "_Z16sc_decode_kernelILi16EfLi6EEv6ScArgs":
-            "ef95d13781bc5b38, REG 183 STACK 0",
-        "_Z16sc_decode_kernelILi16EfLi4EEv6ScArgs":
-            "bbf6e95be46f7d47, REG 183 STACK 0",
-        "_Z16sc_decode_kernelILi16EfLi2EEv6ScArgs":
-            "fa4ab5d58b1ac952, REG 181 STACK 0",
-        "_Z16sc_decode_kernelILi8EfLi8EEv6ScArgs":
-            "86e4d0013bffc3ea, REG 201 STACK 0",
-        "_Z16sc_decode_kernelILi8EfLi6EEv6ScArgs":
-            "5e8961ed74f79aa9, REG 186 STACK 0",
-        "_Z16sc_decode_kernelILi8EfLi4EEv6ScArgs":
-            "16cfdc67f7cad07c, REG 184 STACK 0",
-        "_Z16sc_decode_kernelILi8EfLi2EEv6ScArgs":
-            "fb04e90d4b724a85, REG 186 STACK 0",
-        "_Z16sc_decode_kernelILi16E13__nv_bfloat16Li8EEv6ScArgs":
-            "cbd99ddd133641d3, REG 197 STACK 0",
-        "_Z16sc_decode_kernelILi16E13__nv_bfloat16Li6EEv6ScArgs":
-            "ccae1158180519a3, REG 179 STACK 0",
-        "_Z16sc_decode_kernelILi16E13__nv_bfloat16Li4EEv6ScArgs":
-            "ce5b61a0e205edbe, REG 163 STACK 0",
-        "_Z16sc_decode_kernelILi16E13__nv_bfloat16Li2EEv6ScArgs":
-            "72d2c6a9536c46f4, REG 157 STACK 0",
-        "_Z16sc_decode_kernelILi8E13__nv_bfloat16Li8EEv6ScArgs":
-            "4c681c4a5327f2c0, REG 199 STACK 0",
-        "_Z16sc_decode_kernelILi8E13__nv_bfloat16Li6EEv6ScArgs":
-            "141c5970cf56bb8b, REG 183 STACK 0",
-        "_Z16sc_decode_kernelILi8E13__nv_bfloat16Li4EEv6ScArgs":
-            "3c0970c3766579d5, REG 165 STACK 0",
-        "_Z16sc_decode_kernelILi8E13__nv_bfloat16Li2EEv6ScArgs":
-            "f7bacf9d85db2e1d, REG 162 STACK 0",
-    },
-    # the cluster kernels' forward (K3a) and backward walk (K3b), dWh and its sum; the
-    # wide kernels are this checkout's
-    "fused_lstm.cu": {
-        "_Z15lstm_bwd_kernelI13__nv_bfloat16Li16ELi1EEvPKT_S3_S3_S3_S3_S3_S3_PS1_S4_S4_iii":
-            "6d66785d09caf142, REG 96 STACK 0",
-        "_Z15lstm_bwd_kernelI13__nv_bfloat16Li16ELi2EEvPKT_S3_S3_S3_S3_S3_S3_PS1_S4_S4_iii":
-            "4f4448e8a5096e09, REG 102 STACK 0",
-        "_Z15lstm_bwd_kernelI13__nv_bfloat16Li16ELi4EEvPKT_S3_S3_S3_S3_S3_S3_PS1_S4_S4_iii":
-            "7c516a35174e4ba9, REG 100 STACK 0",
-        "_Z15lstm_bwd_kernelI13__nv_bfloat16Li16ELi8EEvPKT_S3_S3_S3_S3_S3_S3_PS1_S4_S4_iii":
-            "8e87e65a0ee57ead, REG 110 STACK 0",
-        "_Z15lstm_bwd_kernelI13__nv_bfloat16Li8ELi1EEvPKT_S3_S3_S3_S3_S3_S3_PS1_S4_S4_iii":
-            "3ce9fde0e5b97f56, REG 100 STACK 0",
-        "_Z15lstm_bwd_kernelI13__nv_bfloat16Li8ELi2EEvPKT_S3_S3_S3_S3_S3_S3_PS1_S4_S4_iii":
-            "71ca2030ff4a6ab7, REG 103 STACK 0",
-        "_Z15lstm_bwd_kernelI13__nv_bfloat16Li8ELi4EEvPKT_S3_S3_S3_S3_S3_S3_PS1_S4_S4_iii":
-            "71efd6735951c79a, REG 104 STACK 0",
-        "_Z15lstm_bwd_kernelI13__nv_bfloat16Li8ELi8EEvPKT_S3_S3_S3_S3_S3_S3_PS1_S4_S4_iii":
-            "8bb9fc4fe045a4aa, REG 110 STACK 0",
-        "_Z15lstm_bwd_kernelIfLi16ELi1EEvPKT_S2_S2_S2_S2_S2_S2_PS0_S3_S3_iii":
-            "95faef62535f8b1a, REG 104 STACK 0",
-        "_Z15lstm_bwd_kernelIfLi16ELi2EEvPKT_S2_S2_S2_S2_S2_S2_PS0_S3_S3_iii":
-            "547d20bb47d0eb23, REG 106 STACK 0",
-        "_Z15lstm_bwd_kernelIfLi16ELi4EEvPKT_S2_S2_S2_S2_S2_S2_PS0_S3_S3_iii":
-            "f16ff27375c849a0, REG 115 STACK 0",
-        "_Z15lstm_bwd_kernelIfLi16ELi8EEvPKT_S2_S2_S2_S2_S2_S2_PS0_S3_S3_iii":
-            "682399b448142479, REG 112 STACK 0",
-        "_Z15lstm_bwd_kernelIfLi8ELi1EEvPKT_S2_S2_S2_S2_S2_S2_PS0_S3_S3_iii":
-            "c3a13482e99c345b, REG 104 STACK 0",
-        "_Z15lstm_bwd_kernelIfLi8ELi2EEvPKT_S2_S2_S2_S2_S2_S2_PS0_S3_S3_iii":
-            "9042da84cdda16a0, REG 106 STACK 0",
-        "_Z15lstm_bwd_kernelIfLi8ELi4EEvPKT_S2_S2_S2_S2_S2_S2_PS0_S3_S3_iii":
-            "5063d49b09e739de, REG 115 STACK 0",
-        "_Z15lstm_bwd_kernelIfLi8ELi8EEvPKT_S2_S2_S2_S2_S2_S2_PS0_S3_S3_iii":
-            "ded69a27040f181b, REG 112 STACK 0",
-        "_Z15lstm_dwh_kernelI13__nv_bfloat16EvPKT_S3_S3_Pfiiiii":
-            "e10ce5461888352a, REG 57 STACK 0",
-        "_Z15lstm_dwh_kernelIfEvPKT_S2_S2_Pfiiiii":
-            "948f08185f4937d2, REG 88 STACK 0",
-        "_Z19lstm_dwh_sum_kernelI13__nv_bfloat16EvPKfPT_ii":
-            "ba30b6878677d2ff, REG 32 STACK 0",
-        "_Z19lstm_dwh_sum_kernelIfEvPKfPT_ii":
-            "17afce7b6e0b8861, REG 32 STACK 0",
-        "_Z15lstm_fwd_kernelI13__nv_bfloat16Li16ELi1EEvPKT_S3_S3_S3_PS1_S4_S4_iii":
-            "df805d32d831cedf, REG 110 STACK 0",
-        "_Z15lstm_fwd_kernelI13__nv_bfloat16Li16ELi2EEvPKT_S3_S3_S3_PS1_S4_S4_iii":
-            "93c4e80ea23c5347, REG 111 STACK 0",
-        "_Z15lstm_fwd_kernelI13__nv_bfloat16Li16ELi4EEvPKT_S3_S3_S3_PS1_S4_S4_iii":
-            "fdc2bb628bbfdfbb, REG 114 STACK 0",
-        "_Z15lstm_fwd_kernelI13__nv_bfloat16Li16ELi8EEvPKT_S3_S3_S3_PS1_S4_S4_iii":
-            "42e0f3182ae8fd70, REG 115 STACK 0",
-        "_Z15lstm_fwd_kernelI13__nv_bfloat16Li8ELi1EEvPKT_S3_S3_S3_PS1_S4_S4_iii":
-            "eeb40a23a6e83f13, REG 142 STACK 0",
-        "_Z15lstm_fwd_kernelI13__nv_bfloat16Li8ELi2EEvPKT_S3_S3_S3_PS1_S4_S4_iii":
-            "d187714d7139d04e, REG 142 STACK 0",
-        "_Z15lstm_fwd_kernelI13__nv_bfloat16Li8ELi4EEvPKT_S3_S3_S3_PS1_S4_S4_iii":
-            "b06000cd2ccd8c81, REG 144 STACK 0",
-        "_Z15lstm_fwd_kernelI13__nv_bfloat16Li8ELi8EEvPKT_S3_S3_S3_PS1_S4_S4_iii":
-            "f967f53267b963ab, REG 156 STACK 0",
-        "_Z15lstm_fwd_kernelIfLi16ELi1EEvPKT_S2_S2_S2_PS0_S3_S3_iii":
-            "cdc2c85a87f2a46e, REG 92 STACK 0",
-        "_Z15lstm_fwd_kernelIfLi16ELi2EEvPKT_S2_S2_S2_PS0_S3_S3_iii":
-            "c9d6f18ba4da5eff, REG 108 STACK 0",
-        "_Z15lstm_fwd_kernelIfLi16ELi4EEvPKT_S2_S2_S2_PS0_S3_S3_iii":
-            "025074be3fe2dac4, REG 128 STACK 0",
-        "_Z15lstm_fwd_kernelIfLi16ELi8EEvPKT_S2_S2_S2_PS0_S3_S3_iii":
-            "4ed439cbe8109900, REG 128 STACK 0",
-        "_Z15lstm_fwd_kernelIfLi8ELi1EEvPKT_S2_S2_S2_PS0_S3_S3_iii":
-            "eac2b95e2b9b146d, REG 92 STACK 0",
-        "_Z15lstm_fwd_kernelIfLi8ELi2EEvPKT_S2_S2_S2_PS0_S3_S3_iii":
-            "398210b9e26b0b16, REG 108 STACK 0",
-        "_Z15lstm_fwd_kernelIfLi8ELi4EEvPKT_S2_S2_S2_PS0_S3_S3_iii":
-            "ca0ce2c6f085f6c8, REG 128 STACK 0",
-        "_Z15lstm_fwd_kernelIfLi8ELi8EEvPKT_S2_S2_S2_PS0_S3_S3_iii":
-            "8a0c6178a9913ff3, REG 128 STACK 0",
-    },
-    "transformer_decode.cu": {
-        "_Z16tf_window_kernel12TfWindowArgs":
-            "859a40d6768b2a8c, REG 255 STACK 104",
-    },
-    "transformer_kv.cu": {
-        "_Z12tf_kv_kernelIfEv8TfKVArgs":
-            "225f5a664aed9415, REG 255 STACK 120",
-        "_Z12tf_kv_kernelI13__nv_bfloat16Ev8TfKVArgs":
-            "33cfa5ac5fcee00a, REG 255 STACK 160",
-    },
-    "jukebox_group.cu": {
-        "_Z15jg_group_kernelILi16EEv6JgArgs":
-            "95d56ea0c669d211, REG 240 STACK 0",
-        "_Z15jg_group_kernelILi8EEv6JgArgs":
-            "3fb5671fc775445e, REG 240 STACK 0",
-        "_Z15jg_group_kernelILi4EEv6JgArgs":
-            "169dd65a6b83bf44, REG 240 STACK 0",
-    },
-}
+# every kernel's machine code, by source (tools/sass_digest.py with the card's toolkit,
+# each kernel's digest, registers and stack): a change to a kernel renews its entry.  An
+# entry may list several digests: of ~90 builds of one source of wavenet_decode.cu, 2 gave
+# wavenet_decode_kernel<2> another schedule (same registers and stack) than the rest
+SASS_DIGESTS = os.path.join(ROOT, "tools", "sass_digests.json")
 N_BF16_VERIFY = 1024  # phase 3's bf16 B=256 output: its first steps verified
 N_WIDE_VERIFY = 4096  # phase 3's f32 B=256 output: its first steps verified
 # (T, B, D, H) of the LSTM checks: small, then the two tier LSTMs of the
@@ -535,6 +371,11 @@ JB_CHECK_BATCHES, JB_PATH_BATCHES = (1, 2, 8, 16, 17, 32, 64), (1, 8, 16, 32, 64
 JB_GROUP_LOOP_B = 31
 JB_WIDE, JB_SWEEP_BATCHES, JB_SWEEP_N, JB_SWEEP_TIE = 64, (1, 2, 4, 8, 16, 32, 48, 64, 128), 256, 0.02
 MULAW_N = 2_646_000  # benchmarks/bench_preprocessing.py:33-59: 120 s at 22,050 Hz
+# per-row temperatures (phase 2): the training monitor's (mimikit_tpu/demos/srnn.py:58),
+# one a stream, cycled over ROW_B streams of ROW_N steps at the small widths
+ROW_TEMPERATURES, ROW_B, ROW_N = (1.0, 0.75, 0.5, 0.1), 6, 160
+# phase 4's monitored run: epochs (generation at the second), prompts' and outputs' seconds
+MONITOR_EPOCHS, MONITOR_SEC = 2, 0.25
 
 
 # the main paths' headline numbers, f32 and bf16, for the lines that print
@@ -960,55 +801,23 @@ def samplernn_route_sweep(torch, sd, net):
     return table
 
 
-def srnn_block_sass_check(sd):
-    """SampleRNN's block kernel, which serves K2 past the cluster route and
-    K1 outside it, is the parent checkout's: its machine code
-    (``tools/sass_digest.py``) must equal ``SRNN_BLOCK_SASS``."""
+def sass_check(sources):
+    """Every kernel of each built source (``sources``: (path, library)) has
+    the machine code ``SASS_DIGESTS`` holds for it (``tools/sass_digest.py``),
+    and no kernel is missing or new."""
     from tools.sass_digest import digests
 
-    got = digests(sd.build_kernel())
-    if got != SRNN_BLOCK_SASS:
-        raise AssertionError(f"samplernn_decode.cu's SASS changed: {got} against"
-                             f" {SRNN_BLOCK_SASS}")
-    log(f"  samplernn_decode.cu (the block kernel: K2 past the cluster route, K1 outside it):"
-        f" SASS digests equal the parent's ({len(got)} kernels; {sorted(got.values())[0]}, ...)")
-
-
-def k8_sass_check(jbd):
-    """K8's block and cluster kernels are the parent checkout's: their
-    machine code (``tools/sass_digest.py``) must equal ``K8_SASS``."""
-    from tools.sass_digest import digests
-
-    for source, build in (("jukebox_decode.cu", jbd.build_kernel),
-                          ("jukebox_cluster.cu", jbd.build_cluster_kernel)):
-        got = digests(build())
-        if got != K8_SASS[source]:
-            raise AssertionError(f"{source}'s SASS changed: {got} against {K8_SASS[source]}")
-        log(f"  {source}: SASS digests equal the parent's ({len(got)} kernels;"
-            f" {sorted(got.values())[0]}, ...)")
-
-
-def parent_sass_check(sd, fl, wd, td, tk, jbd):
-    """The kernels this checkout leaves as they were (WaveNet's block and
-    cluster kernels, K2's cluster kernel, the LSTM cluster kernels (forward,
-    backward walk) and dWh, K6, K7 and K8's group kernel): their machine code
-    (``tools/sass_digest.py``) must equal
-    ``PARENT_SASS``, the parent checkout's."""
-    from tools.sass_digest import digests
-
-    for source, build in (("wavenet_decode.cu", wd.build_kernel),
-                          ("wavenet_cluster.cu", wd.build_cluster_kernel),
-                          ("samplernn_cluster.cu", sd.build_cluster_kernel),
-                          ("fused_lstm.cu", fl.build_lstm_kernel),
-                          ("transformer_decode.cu", td.build_kernel),
-                          ("transformer_kv.cu", tk.build_kernel),
-                          ("jukebox_group.cu", jbd.build_group_kernel)):
-        got, want = digests(build()), PARENT_SASS[source]
-        kept = {k: got.get(k) for k in want}
-        if kept != want:
-            raise AssertionError(f"{source}'s SASS changed: {kept} against {want}")
-        log(f"  {source}: SASS digests of {len(want)} of its {len(got)} kernels equal the"
-            f" parent's ({sorted(want.values())[0]}, ...)")
+    with open(SASS_DIGESTS) as f:
+        want = json.load(f)
+    for src, lib in sources:
+        got = digests(lib)
+        allowed = {k: v if isinstance(v, list) else [v] for k, v in want[src.name].items()}
+        changed = {k: got.get(k) for k in set(got) | set(allowed)
+                   if got.get(k) not in allowed.get(k, ())}
+        if changed:
+            raise AssertionError(f"{src.name}'s SASS differs from {SASS_DIGESTS}: {changed}")
+        log(f"  {src.name}: the SASS digests of its {len(got)} kernels equal"
+            f" tools/sass_digests.json's")
 
 
 def cuda_ms(torch, fn, reps):
@@ -2373,13 +2182,15 @@ def pyramid_tf_scores(torch, jbd, pack, full, t, m, seed, temperature):
     (B, T): position p read from its lead window, full[p - W + 1 : p + 1]
     with the last slot the placeholder (0)."""
     from mimikit_tpu_torch.ops.noise import gumbel_noise
+    from mimikit_tpu_torch.ops.temperature import row_temperatures
 
     B, W, Q = full.shape[0], pack.window, pack.q_levels
     wins = full.unfold(1, W, 1)[:, t - W + 1 : t + m - W + 1].clone()  # (B, m, W)
     wins[..., -1] = 0
     s = jbd.pyramid_scores(pack, wins.transpose(0, 1).reshape(m * B, W)).reshape(m, B, Q)
-    if temperature is not None:
-        s = s / temperature + torch.stack(
+    temps = row_temperatures(temperature, B, full.device)
+    if temps is not None:
+        s = s / temps.tensor[:, None] + torch.stack(
             [gumbel_noise(seed, p, B, Q, full.device) for p in range(t, t + m)])
     return s
 
@@ -2488,6 +2299,81 @@ def check_jukebox(torch, mmk, jbd, spec, batches, n, chunk_lens, jitter):
             log(f"  jukebox {name} B={B} n={n} chunks {chunk_lens} {mode}: ok, max gap"
                 f" {gap:.3e}, {parted} streams parted at near-ties{extra}")
     return worst
+
+
+def check_row_temperatures(torch, mmk, sd, wd, td, tk, jbd, B=ROW_B, n=ROW_N):
+    """Phase 2's per-row temperatures: every decode kernel and route (K1 and
+    K2 on the cluster and the block kernel, f32 and bf16 packs; K4 and K5 on
+    both WaveNet kernels; K6; K7 f32 and bf16; K8's cluster, group and block
+    kernels) at the small widths decodes B streams at ``ROW_TEMPERATURES``
+    (one a row, cycled).  The tokens must pass the teacher-forcing check
+    against the plain twin at the same temperatures, and each row must equal,
+    bit for bit, that row of the same decode (same seed) at its row's
+    temperature for every row."""
+    temps = tuple(ROW_TEMPERATURES[b % len(ROW_TEMPERATURES)] for b in range(B))
+
+    def case(name, run, check):
+        toks = run(temps)
+        gap, parted = check(toks, temps)
+        for v in sorted(set(temps)):
+            rows = [b for b in range(B) if temps[b] == v]
+            if not torch.equal(run(v)[rows], toks[rows]):
+                raise AssertionError(f"{name}: rows {rows} at T={v} differ from the per-row"
+                                     " decode")
+        log(f"  {name} B={B} n={n} T={temps}: ok, max gap {gap:.3e}, {parted} streams parted at"
+            f" near-ties; each row equals its row at its scalar temperature")
+
+    net = make_net(mmk, torch, CLUSTER_MID, seed=1, jitter=0.5)
+    rf, seed = net.rf, 19
+    prompt = make_prompt(torch, B, 2 * rf, CLUSTER_MID["q_levels"], seed=21)
+    prior_t = prompt.shape[1]
+    for dt in (torch.float32, torch.bfloat16):
+        pack = sd.samplernn_weight_pack(net, dt)
+        twin = pack if dt == torch.bfloat16 else net
+        sfx = "_bf16" if dt == torch.bfloat16 else ""
+        for cl in (sd.cluster_size_for(pack, B), 0):
+            how = f"cluster kernel, {cl} blocks" if cl else "block kernel"
+            check = lambda toks, t, twin=twin: verify(torch, sd, twin, prompt, toks, seed, t)
+            case(f"decode_single{sfx} ({how})",
+                 lambda t, pack=pack, cl=cl: sd.decode_single(pack, prompt, n, seed, t, cl=cl),
+                 check)
+            case(f"decode_chunk{sfx} ({how})",
+                 lambda t, pack=pack, cl=cl: sd.decode_chunk(
+                     pack, prompt, sd.init_decode_state(net, prompt), rf, prior_t + n - rf, seed,
+                     t, cl=cl)[:, prior_t - rf :],
+                 check)
+    wn = make_wavenet(mmk, torch, wd, WN_SMALL, seed=1, jitter=0.3)
+    pack = wd.wavenet_weight_pack(wn)
+    prompt = make_prompt(torch, B, wn.rf + 8, WN_SMALL["q_levels"], seed=22)
+    prior_t = prompt.shape[1]
+    check = lambda toks, t: verify_wn(torch, wd, pack, prompt, toks, seed, t)  # noqa: E731
+    for cl in (16, 0):
+        how = f"cluster kernel, {cl} blocks" if cl else "block kernel"
+        case(f"wavenet_decode_single ({how})",
+             lambda t, cl=cl: wd.decode_single(pack, prompt, n, seed, t, cl=cl), check)
+        case(f"wavenet_decode_chunk ({how})",
+             lambda t, cl=cl: wd.decode_chunk(pack, prompt, wd.init_decode_state(pack, prompt), 1,
+                                              prior_t + n - 1, seed, t, cl=cl)[:, prior_t - 1 :],
+             check)
+    tf = make_transformer(mmk, torch, td, TF_SMALL, seed=1, jitter=0.5)
+    prompt = make_prompt(torch, B, 2 * TF_SMALL["rf"], TF_SMALL["q_levels"], seed=23)
+    pack = td.transformer_weight_pack(tf)
+    case("transformer_decode_window", lambda t: td.decode_window(pack, prompt, n, seed, t),
+         lambda toks, t: verify_window(torch, td, pack, prompt, toks, seed, t))
+    for dt in (torch.float32, torch.bfloat16):
+        kv = td.transformer_weight_pack(tf, dt)
+        case("transformer_decode_chunk" + ("_bf16" if dt == torch.bfloat16 else ""),
+             lambda t, kv=kv: kv_run(torch, tk, kv, prompt, n, n + prompt.shape[1], t, seed),
+             lambda toks, t, kv=kv: verify_kv(torch, tk, kv, prompt, toks, seed, t))
+    jb = make_jukebox(mmk, torch, jbd, JB_SMALL, seed=1, jitter=0.3)
+    pack = jbd.jukebox_weight_pack(jb)
+    prompt = make_prompt(torch, B, jb._window_len(), JB_SMALL["q_levels"], seed=24)
+    for name, launch in (("cluster", jbd._launch_cluster),
+                         ("group", lambda *a: jbd._launch_group(*a, 8)),
+                         ("block", jbd._launch)):
+        case(f"jukebox {name} kernel",
+             lambda t, launch=launch: pyramid_run(torch, jbd, pack, prompt, n, n, t, seed, launch),
+             lambda toks, t: verify_pyramid(torch, jbd, pack, prompt, toks, seed, t))
 
 
 def mulaw_near_integer(v, tol=1e-5):
@@ -3446,11 +3332,100 @@ def train_path(torch, mmk, fl, sd, mu):
         raise AssertionError(f"a kernel of the training path was never launched: {launches}")
 
     time_steps(torch, loop, "")
+    monitored_train_path(torch, mmk, fl, sd, ds, cfg)
     bf16_launches = train_bf16_path(torch, mmk, fl, ds, cfg, means)
     wide_launches = {}
     for H, param_dtype in WIDE_TRAIN:
         wide_launches.update(wide_train_path(torch, mmk, fl, ds, cfg, H, param_dtype))
     return {**launches, **mu_launches, **bf16_launches, **wide_launches}
+
+
+def monitored_train_path(torch, mmk, fl, sd, ds, cfg32):
+    """Phase 4 as a user monitors training: SampleRNN-3 on the f32 run's data
+    and steps for ``MONITOR_EPOCHS`` epochs with ``MONITOR_TRAINING``,
+    ``OUTPUT_TRAINING="wav"``, ``ROW_TEMPERATURES`` (one an example, the
+    recipe's), ``n_examples=4``, ``every_n_epochs=2``, ``loss_logs_file`` and
+    prompts and outputs of ``MONITOR_SEC``: ``GenerateCallback`` writes
+    ``outputs/epoch{e}_prm{i}.wav`` for the four prompts of each monitored
+    epoch, launching K1 (its cluster kernel, B=4) while it runs, and the loss
+    log reads back each epoch's loss; then one epoch of the same net under
+    ``remat=True``: every loss finite, K3a launched twice a step for each
+    tier (the forward recomputed in the backward), K3b once."""
+    from mimikit_tpu_torch.data import h5
+
+    net = train_net(mmk, seed=0, extractor=ds.extractors[0])
+    cfg = copy.deepcopy(cfg32)
+    cfg.root_dir = os.path.join(os.path.dirname(cfg32.root_dir), "tr_monitored")
+    cfg.max_epochs, cfg.every_n_epochs, cfg.n_examples = MONITOR_EPOCHS, 2, 4
+    cfg.MONITOR_TRAINING, cfg.OUTPUT_TRAINING = True, "wav"
+    cfg.temperature = ROW_TEMPERATURES
+    cfg.prompt_length_sec = cfg.outputs_duration_sec = MONITOR_SEC
+    cfg.trainer_kwargs = {**cfg32.trainer_kwargs, "loss_logs_file": "loss.h5"}
+    loop = mmk.TrainARMLoop.from_config(cfg, ds.get(mode="r"), net)
+    gen_cb = next(cb for cb in loop.callbacks if isinstance(cb, mmk.GenerateCallback))
+    calls = []
+    epoch_end = gen_cb.on_train_epoch_end
+
+    def timed(trainer, epoch):
+        before = sd.decode_single.launches, sd.decode_single.launches_cluster
+        t0 = time.perf_counter()
+        epoch_end(trainer, epoch)
+        torch.cuda.synchronize()
+        calls.append((epoch, time.perf_counter() - t0, sd.decode_single.launches - before[0],
+                      sd.decode_single.launches_cluster - before[1]))
+
+    gen_cb.on_train_epoch_end = timed
+    t0 = time.perf_counter()
+    loop.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    losses = [h["loss"] for _, h in loop.metrics.history]
+    if len(losses) != MONITOR_EPOCHS or not all(np.isfinite(losses)):
+        raise AssertionError(f"monitored epoch losses {losses}: not finite")
+    run_dir = os.path.join(cfg.root_dir, loop.hash_)
+    written = sorted(os.listdir(os.path.join(run_dir, "outputs")))
+    monitored = [e for e in range(1, MONITOR_EPOCHS + 1) if e % cfg.every_n_epochs == 0]
+    if len(written) != cfg.n_examples * len(monitored) or not all(
+            any(name.startswith(f"epoch{e}_prm") and name.endswith(".wav") for name in written)
+            for e in monitored):
+        raise AssertionError(f"outputs/ holds {written}, not {cfg.n_examples} wav files an"
+                             f" epoch of {monitored}")
+    ran = [c for c in calls if c[2]]
+    if [c[0] for c in ran] != monitored or any(c[3] != c[2] for c in ran):
+        raise AssertionError(f"GenerateCallback's K1 launches by epoch {calls}: not one or more"
+                             f" cluster launches at each of the epochs {monitored}")
+    with h5.File(os.path.join(run_dir, "loss.h5"), "r") as f:
+        logged = [float(f[str(e)]["loss"][0]) for e in range(1, MONITOR_EPOCHS + 1)]
+    if logged != losses:
+        raise AssertionError(f"the loss log holds {logged}, the run's losses are {losses}")
+    n_gen = gen_cb.loop.n_steps
+    for epoch, secs, n_k1, _ in ran:
+        SUMMARY["monitor_s"] = secs
+        log(f"  monitored training: GenerateCallback at epoch {epoch}, {cfg.n_examples} prompts"
+            f" of {MONITOR_SEC} s and {n_gen} steps at T={ROW_TEMPERATURES}, in {secs:.3f} s"
+            f" ({n_k1} K1 launches, all on the cluster kernel; the wav files written)")
+    log(f"  monitored training: {loop.global_step} steps over {MONITOR_EPOCHS} epochs in"
+        f" {wall:.2f} s; losses {losses}, read back from loss.h5 ({h5.backend()}); outputs"
+        f" {written}")
+
+    rcfg = copy.deepcopy(cfg32)
+    rcfg.root_dir = os.path.join(os.path.dirname(cfg32.root_dir), "tr_remat")
+    rcfg.max_epochs = 1
+    rcfg.trainer_kwargs = {**cfg32.trainer_kwargs, "remat": True}
+    rloop = mmk.TrainARMLoop.from_config(rcfg, ds.get(mode="r"), net)
+    for w in (fl.lstm_forward, fl.lstm_backward):
+        w.launches = 0
+    rloop.run()
+    torch.cuda.synchronize()
+    rlosses = [h["loss"] for _, h in rloop.metrics.history]
+    tiers = len(FULL["frame_sizes"]) - 1
+    want = {"lstm_forward": 2 * tiers * rloop.global_step,
+            "lstm_backward": tiers * rloop.global_step}
+    got = {w.__name__: w.launches for w in (fl.lstm_forward, fl.lstm_backward)}
+    if not all(np.isfinite(rlosses)) or got != want:
+        raise AssertionError(f"remat epoch: losses {rlosses}, launches {got} (want {want})")
+    log(f"  remat=True: {rloop.global_step} steps, losses {rlosses}; launches {got}: K3a twice"
+        " a step for each tier")
 
 
 def wide_train_path(torch, mmk, fl, ds, cfg32, H, param_dtype):
@@ -3681,9 +3656,7 @@ def main(argv=None) -> int:
                 log("  ptxas:", line.strip())
         log(f"  built {src.name} for sm_90a in {build_s:.1f} s")
     log(f"  the {len(sources)} builds took {time.perf_counter() - t:.1f} s")
-    srnn_block_sass_check(sd)
-    k8_sass_check(jbd)
-    parent_sass_check(sd, fl, wd, td, tk, jbd)
+    sass_check([(src, build()) for src, _, build in sources if src.parent.name == "csrc"])
     t = time.perf_counter()
     mu.mulaw_expand(mu.mulaw_compress(torch.zeros(8).cuda()))  # compiles the Triton mu-law pair
     torch.cuda.synchronize()
@@ -3739,6 +3712,8 @@ def main(argv=None) -> int:
                              (200 + 15, 7, 64), jitter=0.3))
     err.update(check_mulaw(torch, mu))
     stamp("K8 and K10, small")
+    check_row_temperatures(torch, mmk, sd, wd, td, tk, jbd)
+    stamp("per-row temperatures through every decode kernel and route, small")
     if args.quick:
         log(json.dumps({"ok": True, "quick": True, "max_err": err}))
         return 0

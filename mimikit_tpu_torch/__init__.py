@@ -6,7 +6,9 @@ the JAX package's module layout and flat ``mmk.<Name>`` namespace, and runs
 its hot paths through kernels written by hand for NVIDIA Hopper
 (``csrc/``).  It trains mu-law SampleRNN (``DatasetConfig.create``,
 ``TrainARMLoop``, ``Checkpoint``; the LSTM tiers through hand-written forward
-and backward kernels) and serves SampleRNN, WaveNet, SimpleTransformer and
+and backward kernels), monitors the training (``GenerateLoopV2`` through a
+``GenerateCallback``, the ``AudioLogger``'s wav files, the ``LossLogger``)
+and serves SampleRNN, WaveNet, SimpleTransformer and
 JukeBox (``generate``, ``stream``, ``stream_tokens`` and ``stream_audio``; the
 transformer's window re-feed and its ``MMK_DECODE_KV=1`` KV-ring stream;
 JukeBox's tier pyramid with its window carried across stream chunks), each

@@ -129,7 +129,7 @@ struct JcArgs {
   int mish_ffn;
   int argmax;
   unsigned int seed;
-  float temperature;
+  const float* temperature;  // (B,) a stream's temperature, read when sampling
   float min_temperature;
   float inv_sqrt_dh;
 };
@@ -685,8 +685,8 @@ __global__ void __launch_bounds__(JC_THREADS, 1) jc_pyramid_kernel(const JcArgs 
         in = o;
       }
       if (w.unit != w.n_units) __trap();
-      const int tok = jc_pick(in, a.Q, a.min_temperature, a.argmax, a.seed, a.temperature,
-                              a.t0 + step, s, m.ared);
+      const int tok = jc_pick(in, a.Q, a.min_temperature, a.argmax, a.seed,
+                              a.argmax ? 1.0f : a.temperature[s], a.t0 + step, s, m.ared);
       if (threadIdx.x == 0) {
         if (rank == 0) a.out[(long long)s * a.n_steps + step] = tok;
         const int p = head + W - 1;

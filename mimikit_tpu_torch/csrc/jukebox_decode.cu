@@ -12,7 +12,7 @@
 // linear up-sampler (for the last upper tier only the chunk the bottom reads,
 // the last of its last frame); the bottom's framed conv over window slots
 // W - 1 - fs_b .. W - 2 plus that row; the Mish head, logits / max(sigmoid(
-// extra logit), min_temperature), / temperature + Gumbel noise when sampling,
+// extra logit), min_temperature), / the stream's temperature + Gumbel noise when sampling,
 // argmax (ties to the lowest index); the token fills the placeholder, the
 // oldest token drops out and a new placeholder is appended.
 //
@@ -94,7 +94,7 @@ struct JbArgs {
   int mish_ffn;
   int argmax;
   unsigned int seed;
-  float temperature;
+  const float* temperature;  // (B,) a stream's temperature, read when sampling
   float min_temperature;
   float inv_sqrt_dh;                  // 1 / sqrt(d / n_heads), rounded as the plain twin rounds it
 };
@@ -266,18 +266,18 @@ __device__ void jb_attend(const float* Qm, int ldq, const float* Km, const float
 }
 
 // The token from the head's logits (Q + 1, in shared memory): logits[:Q] /
-// max(sigmoid(logits[Q]), min_temperature), / temperature + the noise of
-// (seed, t, s) when sampling, argmax with ties to the lowest index.  Every
+// max(sigmoid(logits[Q]), min_temperature), / stream s's temperature + the
+// noise of (seed, t, s) when sampling, argmax with ties to the lowest index.  Every
 // thread returns it.
-__device__ int jb_pick(const float* logits, const JbArgs& a, long long t, int s, float* ared) {
-  const int Q = a.Q;
-  const float lt = fmaxf(tf_sigmoid(logits[Q]), a.min_temperature);
-  const uint32_t key = a.argmax ? 0u : decode_noise_key(a.seed, t, s);
+__device__ __noinline__ int jb_pick(const float* logits, int Q, float min_temperature, int argmax,
+                                    unsigned seed, float temp, long long t, int s, float* ared) {
+  const float lt = fmaxf(tf_sigmoid(logits[Q]), min_temperature);
+  const uint32_t key = argmax ? 0u : decode_noise_key(seed, t, s);
   float best = -INFINITY;
   int bestq = 0x7fffffff;
   for (int q = threadIdx.x; q < Q; q += JB_THREADS) {
     float v = logits[q] / lt;
-    if (!a.argmax) v = v / a.temperature + gumbel_from_bits(mix32(key ^ (uint32_t)q));
+    if (!argmax) v = v / temp + gumbel_from_bits(mix32(key ^ (uint32_t)q));
     if (v > best) {
       best = v;
       bestq = q;
@@ -388,7 +388,8 @@ __global__ void __launch_bounds__(JB_THREADS, 1) jb_pyramid_kernel(const JbArgs 
                 w + a.off_bh[k], k < a.n_head - 1 ? 2 : 0, nullptr, 0, o, a.head_out[k], m.red);
         in = o;
       }
-      const int tok = jb_pick(in, a, a.t0 + i, s, m.ared);
+      const int tok = jb_pick(in, a.Q, a.min_temperature, a.argmax, a.seed,
+                              a.argmax ? 1.0f : a.temperature[s], a.t0 + i, s, m.ared);
       if (threadIdx.x == 0) {
         a.out[(long long)s * a.n_steps + i] = tok;
         // slot W - 1 (the placeholder) takes the token and becomes slot W - 2;

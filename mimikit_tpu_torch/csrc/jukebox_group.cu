@@ -109,7 +109,7 @@ struct JgArgs {
   int mish_ffn;
   int argmax;
   unsigned int seed;
-  float temperature;
+  const float* temperature;  // (B,) a stream's temperature, read when sampling
   float min_temperature;
   float inv_sqrt_dh;
 };
@@ -783,7 +783,8 @@ __global__ void __launch_bounds__(JG_THREADS, 1) jg_group_kernel(const JgArgs a)
       if (w.unit != w.n_units) __trap();
       for (int s = 0; s < S; ++s) {
         const int tok = jg_pick(in + s * hw, a.Q, a.min_temperature, a.argmax, a.seed,
-                                a.temperature, a.t0 + step, s0 + s, m.ared);
+                                a.argmax ? 1.0f : a.temperature[s0 + s], a.t0 + step, s0 + s,
+                                m.ared);
         if (threadIdx.x == 0) {
           if (rank == 0) a.out[(long long)(s0 + s) * a.n_steps + step] = tok;
           const int p = head + W - 1;

@@ -121,7 +121,8 @@ struct ScArgs {
   int smem_bytes;
   int cache_rows;
   unsigned int seed;
-  float temperature, min_temperature;
+  const float* temperature;  // (B,) a stream's temperature, read when sampling
+  float min_temperature;
   int bf16;
   int fs[SC_MAX_TIERS], up[SC_MAX_TIERS], cache_row[SC_MAX_TIERS];
   int head_in[SC_MAX_HEAD], head_out[SC_MAX_HEAD];
@@ -697,12 +698,13 @@ __global__ void __launch_bounds__(SC_THREADS, 1)
           const float lt = fmaxf(sc_sigmoid(L[ql] + sc_w1(bh + ql)), a.min_temperature);
           const int b = b0 + s;
           const uint32_t key = a.argmax ? 0u : decode_noise_key(a.seed, t, b);
+          const float temp = a.argmax ? 1.0f : a.temperature[min(b, a.B - 1)];
           float best = -INFINITY;
           int bestq = 0x7fffffff;
           for (int j = lane; j < ql; j += 32) {
             const int qg = rank * ql + j;
             float v = (L[j] + sc_w1(bh + j)) / lt;
-            if (!a.argmax) v = v / a.temperature + gumbel_from_bits(mix32(key ^ (uint32_t)qg));
+            if (!a.argmax) v = v / temp + gumbel_from_bits(mix32(key ^ (uint32_t)qg));
             if (v > best) {
               best = v;
               bestq = qg;

@@ -13,7 +13,8 @@
 //     upsampler into this tier's cache (up[i] rows of H);
 //   * bottom tier: framed dense on the last fs[-1] samples + cache row
 //     t % fs[-2] -> Mish MLP -> Q+1 logits; logits[:Q] / max(sigmoid(l[Q]),
-//     min_temperature), then / temperature + Gumbel noise when sampling;
+//     min_temperature), then / the stream's temperature + Gumbel noise when
+//     sampling;
 //     argmax with ties to the first index;
 //   * teacher-forcing while t < prior_t, then the window takes the token.
 //
@@ -104,7 +105,7 @@ struct SrnnDecodeArgs {
   int dstride;         // row stride of the shared buffers, a multiple of 4
   int cache_rows;      // sum(up)
   unsigned int seed;
-  float temperature;
+  const float* temperature;  // (B,) a stream's temperature, read when sampling
   float min_temperature;
   int bf16;            // the weights are __nv_bfloat16 (else float)
   int fs[MMK_MAX_TIERS];
@@ -341,12 +342,16 @@ samplernn_decode_kernel(const SrnnDecodeArgs a) {
       const float* L = logits + g * D;
       const float lt = fmaxf(sigmoid_f(L[Q]), a.min_temperature);
       uint32_t htb = 0;
-      if (!a.argmax) htb = decode_noise_key(a.seed, t, b);
+      float temp = 1.0f;
+      if (!a.argmax) {
+        htb = decode_noise_key(a.seed, t, b);
+        temp = a.temperature[bb];
+      }
       float best = -INFINITY;
       int bestq = 0x7fffffff;
       for (int q = lane; q < Q; q += 32) {
         float v = L[q] / lt;
-        if (!a.argmax) v = v / a.temperature + gumbel_from_bits(mix32(htb ^ (uint32_t)q));
+        if (!a.argmax) v = v / temp + gumbel_from_bits(mix32(htb ^ (uint32_t)q));
         if (v > best) {
           best = v;
           bestq = q;

@@ -813,8 +813,8 @@ __device__ __forceinline__ void tf_block_dense(const float* in, int K, int N, co
 // The token after one stream's last row: `smem` starts with that row (d
 // floats, after the last layer's third norm), read from either kernel's
 // arguments `a`.  The optional final norm, the Mish MLP, logits[:Q] /
-// max(sigmoid(logits[Q]), min_temperature), / temperature + the noise of
-// (seed, t, b) when sampling, argmax with ties to the lowest index.  Every
+// max(sigmoid(logits[Q]), min_temperature), / stream b's temperature + the
+// noise of (seed, t, b) when sampling, argmax with ties to the lowest index.  Every
 // thread returns the token.
 template <class WT = float, class A>
 __device__ __forceinline__ int tf_head_token(const A& a, long long t, int b, float* smem) {
@@ -836,11 +836,12 @@ __device__ __forceinline__ int tf_head_token(const A& a, long long t, int b, flo
   const int Q = a.Q;
   const float lt = fmaxf(tf_sigmoid(in[Q]), a.min_temperature);
   const uint32_t key = a.argmax ? 0u : decode_noise_key(a.seed, t, b);
+  const float temp = a.argmax ? 1.0f : a.temperature[b];
   float best = -INFINITY;
   int bestq = 0x7fffffff;
   for (int q = threadIdx.x; q < Q; q += TF_THREADS) {
     float v = in[q] / lt;
-    if (!a.argmax) v = v / a.temperature + gumbel_from_bits(mix32(key ^ (uint32_t)q));
+    if (!a.argmax) v = v / temp + gumbel_from_bits(mix32(key ^ (uint32_t)q));
     if (v > best) {
       best = v;
       bestq = q;

@@ -8,7 +8,7 @@
 // post-norm layer: causal self-attention, causal cross-attention on x0, a
 // ReLU FFN, three layer norms; the optional final norm and the Mish head on
 // each stream's last row; logits / max(sigmoid(extra logit), min_temperature),
-// / temperature + Gumbel noise when sampling, argmax (ties to the lowest
+// / the stream's temperature + Gumbel noise when sampling, argmax (ties to the lowest
 // index); the token is appended and the window moves on by one.
 //
 // Bound.  One stream's step at full width (d 256, 8 heads, ff 1,024, 8
@@ -95,7 +95,7 @@ struct TfWindowArgs {
   int final_ln;
   int argmax;
   unsigned int seed;
-  float temperature;
+  const float* temperature;  // (B,) a stream's temperature, read when sampling
   float min_temperature;
   float inv_sqrt_dh;   // 1 / sqrt(d / n_heads), rounded as the plain twin rounds it
 };

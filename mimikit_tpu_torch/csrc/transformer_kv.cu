@@ -116,7 +116,7 @@ struct TfKVArgs {
   int final_ln;
   int argmax;
   unsigned int seed;
-  float temperature;
+  const float* temperature;  // (B,) a stream's temperature, read when sampling
   float min_temperature;
   float inv_sqrt_dh;
   int bf16;            // the weights are __nv_bfloat16 (else float)

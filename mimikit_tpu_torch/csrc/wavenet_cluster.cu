@@ -117,7 +117,7 @@ struct WcArgs {
   int smem_bytes;
   int argmax;
   unsigned int seed;
-  float temperature;
+  const float* temperature;  // (B,) a stream's temperature, read when sampling
   float min_temperature;
   int dil[WC_MAX_LAYERS];
   int has_res[WC_MAX_LAYERS];
@@ -627,12 +627,13 @@ __global__ void __launch_bounds__(WC_THREADS, 1) wc_cluster_kernel(const WcArgs 
           const float* lr = m.lg + (live ? r : 0) * a.lgw;
           const float lt = fmaxf(wc_sigmoid(lr[per]), a.min_temperature);
           const uint32_t key = a.argmax ? 0u : decode_noise_key(a.seed, t, b0 + r);
+          const float temp = a.argmax ? 1.0f : a.temperature[b0 + (live ? r : 0)];
           float best = -INFINITY;
           int bestq = 0x7fffffff;
           for (int i = i0; i < per; i += gs) {
             const int q = 4 * qq0 + i;
             float v = lr[i] / lt;
-            if (!a.argmax) v = v / a.temperature + gumbel_from_bits(mix32(key ^ (uint32_t)q));
+            if (!a.argmax) v = v / temp + gumbel_from_bits(mix32(key ^ (uint32_t)q));
             if (v > best) {
               best = v;
               bestq = q;

@@ -14,8 +14,8 @@
 // at s, fg = [x(s-d) | x(s)] . [K0; K1] + b, y = tanh(fg[:D]) * sigmoid(fg[D:]),
 // skips += y . Wsk + bsk, x = x + y . Wr + br (x = y on a layer without a
 // residual); then the Mish MLP head gives Q+1 logits, logits[:Q] /
-// max(sigmoid(l[Q]), min_temperature), then / temperature + Gumbel noise
-// when sampling; argmax with ties to the first index; the token at t is the
+// max(sigmoid(l[Q]), min_temperature), then / the stream's temperature +
+// Gumbel noise when sampling; argmax with ties to the first index; the token at t is the
 // prompt's while t < prior_t.
 //
 // Design.  Streams are independent, so a block owns `group` streams (a
@@ -91,7 +91,7 @@ struct WnDecodeArgs {
   int ds;              // row stride of the shared rows, a multiple of 4
   int red;             // floats of split-K partial sums per stream
   unsigned int seed;
-  float temperature;
+  const float* temperature;  // (B,) a stream's temperature, read when sampling
   float min_temperature;
   int dil[WN_MAX_LAYERS];
   int has_res[WN_MAX_LAYERS];
@@ -297,12 +297,16 @@ wavenet_decode_kernel(const WnDecodeArgs a) {
       const float* L = logits + g * ds;
       const float lt = fmaxf(sigmoid_f(L[Q]), a.min_temperature);
       uint32_t key = 0;
-      if (!a.argmax) key = decode_noise_key(a.seed, t, b);
+      float temp = 1.0f;
+      if (!a.argmax) {
+        key = decode_noise_key(a.seed, t, b);
+        temp = a.temperature[bb];
+      }
       float best = -INFINITY;
       int bestq = 0x7fffffff;
       for (int q = lane; q < Q; q += 32) {
         float v = L[q] / lt;
-        if (!a.argmax) v = v / a.temperature + gumbel_from_bits(mix32(key ^ (uint32_t)q));
+        if (!a.argmax) v = v / temp + gumbel_from_bits(mix32(key ^ (uint32_t)q));
         if (v > best) {
           best = v;
           bestq = q;

@@ -2,7 +2,7 @@
 
 Counterpart of ``mimikit_tpu/features/functionals.py``, reduced to what the
 mu-law SampleRNN serving path needs: ``Discrete``/``Continuous`` element
-types, ``FileToSignal`` (WAV and ``.npy`` at their native rate),
+types, ``FileToSignal`` (through ``audio_io.load_audio``, resampled to ``sr``),
 ``Normalize``, ``RemoveDC``, ``Compose`` and the centered mu-law pair.  Each
 ``Functional`` has a numpy path (``np_func``, the host/extraction path) and a
 torch path (``torch_func``, device tensors) where the JAX package had a
@@ -12,13 +12,13 @@ from __future__ import annotations
 
 import abc
 import dataclasses as dtc
-import os
 from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from ..config import Config
+from .audio_io import load_audio
 from .item_spec import Sample, Unit
 
 __all__ = [
@@ -99,9 +99,10 @@ class Identity(Functional):
 
 @dtc.dataclass
 class FileToSignal(Functional):
-    """Read an audio file as a float32 mono signal.  WAV and ``.npy`` are
-    read at their own rate, which must equal ``sr``: resampling and other
-    formats are not ported yet."""
+    """Read an audio file as a float32 mono signal at ``sr``
+    (``features/audio_io.load_audio``: WAV and ``.npy`` natively, other
+    formats through soundfile or ffmpeg where installed; a file at another
+    rate is resampled)."""
 
     sr: int = SR
     offset: float = 0.0
@@ -116,29 +117,7 @@ class FileToSignal(Functional):
         return Continuous(-float("inf"), float("inf"), 1)
 
     def np_func(self, path):
-        ext = os.path.splitext(path)[1].lower()
-        if ext == ".npy":
-            y, file_sr = np.load(path).astype(np.float32), self.sr
-        elif ext in (".wav", ".wave"):
-            from scipy.io import wavfile
-
-            file_sr, y = wavfile.read(path)
-            scale = {np.dtype(np.int16): 32768.0, np.dtype(np.int32): 2147483648.0}
-            y = y.astype(np.float32) / scale.get(y.dtype, 1.0)
-        else:
-            raise ValueError(f"cannot read '{path}': only .wav and .npy are supported")
-        if file_sr != self.sr:
-            raise ValueError(
-                f"'{path}' is at {file_sr} Hz, expected {self.sr} Hz"
-                " (resampling is not supported)"
-            )
-        if y.ndim > 1:
-            y = y.mean(axis=-1)
-        if self.offset > 0.0:
-            y = y[int(self.offset * file_sr):]
-        if self.duration is not None:
-            y = y[: int(self.duration * file_sr)]
-        return np.ascontiguousarray(y, dtype=np.float32)
+        return load_audio(path, sr=self.sr, offset=self.offset, duration=self.duration)
 
     def __call__(self, path):
         return self.np_func(path)

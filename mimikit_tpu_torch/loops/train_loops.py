@@ -1,4 +1,5 @@
-"""Training loop: TBPTT steps, Adam on the one-cycle schedule, checkpoints.
+"""Training loop: TBPTT steps, Adam on the one-cycle schedule, checkpoints,
+monitoring.
 
 Counterpart of ``mimikit_tpu/loops/train_loops.py``.  One step is the
 network's train forward, the loss, the backward (through the fused LSTM
@@ -31,17 +32,31 @@ the steps are a plain Python loop.
   ``"medium"``), the previous value restored after the step;
 * ``steps_per_dispatch`` and ``flat_optimizer``: accepted and ignored.  They
   group TPU dispatches and lay out the optimizer state for XLA
-  (``train_loops.py:568,788``); the port's loop runs one step a call.
+  (``train_loops.py:568,788``); the port's loop runs one step a call;
+* ``remat``: the train forward under ``torch.utils.checkpoint.checkpoint``
+  (non-reentrant), its activations recomputed in the backward
+  (``train_loops.py:352-391``).  ``True`` recomputes everything; a JAX policy
+  name maps to its PyTorch counterpart (``REMAT_POLICIES``), another name
+  raises ``NotImplementedError``; a callable is a selective-checkpoint policy
+  (``torch.utils.checkpoint.create_selective_checkpoint_contexts``); any
+  other value raises ``TypeError``.  On the card the LSTM forward kernel then
+  runs twice a step;
+* ``loss_logs_file``: each epoch's averages written to ``<run dir>/<path>``
+  by ``LossLogger``.
 
-Every other key raises ``NotImplementedError`` naming it (``remat``,
-``data_parallel``, ``n_model``, ``fsdp``, ``loss_logs_file``, ...), as do
-``MONITOR_TRAINING`` and ``OUTPUT_TRAINING``, which need ``GenerateLoopV2``
-(not ported).
+Every other key raises ``NotImplementedError`` naming it (``data_parallel``,
+``n_model``, ``fsdp``, ...).  ``MONITOR_TRAINING`` and ``OUTPUT_TRAINING``
+add a ``GenerateCallback``: every ``every_n_epochs`` epochs,
+``GenerateLoopV2`` decodes ``n_examples`` prompts of the dataset at
+``temperature`` (one value, or one an example), shows them
+(``MONITOR_TRAINING``) and writes them to ``outputs/epoch{e}_prm{i}.wav``
+(``OUTPUT_TRAINING``).
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses as dtc
+import functools
 import hashlib
 import os
 import warnings
@@ -49,29 +64,41 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.utils.checkpoint as torch_checkpoint
 from torch.func import functional_call
 
 from .. import precision
 from ..config import Config
 from ..features.dataset import DatasetConfig
-from ..networks.arm import ARMWithHidden
+from ..networks.arm import ARM, ARMWithHidden
 from ..optim import TrainOptimizer, onecycle_schedule
-from .callbacks import MMKCheckpoint
+from .callbacks import GenerateCallback, MMKCheckpoint, tqdm
 from .device_loader import make_train_loader
-from .logger import EpochMetrics
+from .generate import GenerateLoopV2
+from .logger import EpochMetrics, LossLogger
 
 __all__ = ["TrainARMConfig", "ARMHP", "TrainARMLoop"]
 
 PORTED_TRAINER_KWARGS = frozenset({
     "device_batching", "data_seed", "gradient_clip_val", "accumulate_grad_batches",
     "nan_check_every", "param_dtype", "matmul_precision", "steps_per_dispatch",
-    "flat_optimizer",
+    "flat_optimizer", "remat", "loss_logs_file",
 })
 # JAX's matmul precision names -> torch.set_float32_matmul_precision's
 MATMUL_PRECISION = {
     "float32": "highest", "highest": "highest",
     "tensorfloat32": "high", "high": "high", "bfloat16_3x": "high",
     "bfloat16": "medium", "default": "medium", "fastest": "medium",
+}
+# jax.checkpoint_policies names -> the ops whose outputs the backward keeps (None:
+# none, everything is recomputed); "everything_saveable" recomputes nothing
+_DOTS = ("mm", "addmm", "bmm")
+REMAT_POLICIES = {
+    "nothing_saveable": None,
+    "everything_saveable": "all",
+    "dots_saveable": _DOTS,
+    "checkpoint_dots": _DOTS,
+    "dots_with_no_batch_dims_saveable": ("mm", "addmm"),
 }
 
 
@@ -119,14 +146,37 @@ def _check_ported(cfg: TrainARMConfig) -> None:
     for key in cfg.trainer_kwargs:
         if key not in PORTED_TRAINER_KWARGS:
             raise NotImplementedError(f"trainer_kwargs['{key}'] is not ported")
-    if cfg.MONITOR_TRAINING or cfg.OUTPUT_TRAINING:
-        raise NotImplementedError(
-            "MONITOR_TRAINING and OUTPUT_TRAINING need GenerateLoopV2, which is not"
-            " ported: set MONITOR_TRAINING=False and OUTPUT_TRAINING=''"
-        )
     name = cfg.trainer_kwargs.get("matmul_precision")
     if name is not None and str(name).lower() not in MATMUL_PRECISION:
         raise ValueError(f"unknown matmul_precision {name!r}")
+    remat_context(cfg.trainer_kwargs.get("remat", False))
+
+
+def remat_context(remat):
+    """What ``trainer_kwargs["remat"]`` asks of the train forward: None (no
+    rematerialisation), or the ``context_fn`` of a non-reentrant
+    ``torch.utils.checkpoint.checkpoint`` (``noop_context_fn``: everything
+    recomputed).  Raises as the docstring of this module says."""
+    if not remat:
+        return None
+    if isinstance(remat, str):
+        if remat not in REMAT_POLICIES:
+            raise NotImplementedError(
+                f"trainer_kwargs['remat'] policy {remat!r} has no PyTorch counterpart in the"
+                f" port (ported: {sorted(REMAT_POLICIES)})")
+        saved = REMAT_POLICIES[remat]
+        if saved == "all":
+            return None
+        if saved is None:
+            return torch_checkpoint.noop_context_fn
+        ops = [getattr(torch.ops.aten, op).default for op in saved]
+        return functools.partial(torch_checkpoint.create_selective_checkpoint_contexts, ops)
+    if remat is True:
+        return torch_checkpoint.noop_context_fn
+    if callable(remat):
+        return functools.partial(torch_checkpoint.create_selective_checkpoint_contexts, remat)
+    raise TypeError("trainer_kwargs['remat'] must be True, a jax.checkpoint_policies member"
+                    f" name, or a selective-checkpoint policy callable — got {remat!r}")
 
 
 @contextlib.contextmanager
@@ -245,6 +295,7 @@ class TrainARMLoop:
         self.net = net
         self._carries_hidden = isinstance(net, ARMWithHidden)
         self.half = precision.resolve_dtype(self.train_cfg.trainer_kwargs.get("param_dtype"))
+        self.remat = remat_context(self.train_cfg.trainer_kwargs.get("remat", False))
         self.tbptt_len = self.train_cfg.tbptt_chunk_length
         if self.tbptt_len is not None:
             self.tbptt_len //= self.train_cfg.batch_length
@@ -253,15 +304,44 @@ class TrainARMLoop:
         self.start_epoch = 0
         self.metrics = EpochMetrics()
         self._restored_opt_state = None
-        self.callbacks = []
-        if self.train_cfg.CHECKPOINT_TRAINING:
-            self.callbacks.append(
-                MMKCheckpoint(epochs=self.train_cfg.every_n_epochs, root_dir=self.root_dir)
-            )
+        self.callbacks = self.get_callbacks(net, dataset, self.root_dir, self.output_template,
+                                            self.train_cfg)
 
     @property
     def config(self) -> ARMHP:
         return self._config
+
+    @classmethod
+    def get_callbacks(cls, net, dataset, root_dir, filename_template, cfg: TrainARMConfig):
+        """``MMKCheckpoint`` (``CHECKPOINT_TRAINING``), then a
+        ``GenerateCallback`` over ``GenerateLoopV2`` (``MONITOR_TRAINING`` or
+        ``OUTPUT_TRAINING``), as ``train_loops.py:281-329``."""
+        callbacks = []
+        if cfg.CHECKPOINT_TRAINING:
+            callbacks.append(MMKCheckpoint(epochs=cfg.every_n_epochs, root_dir=root_dir))
+        if cfg.MONITOR_TRAINING or cfg.OUTPUT_TRAINING:
+            if not isinstance(net, ARM):
+                raise NotImplementedError(
+                    f"monitoring a {type(net).__name__} needs EncodeDecodeLoop, which is not"
+                    " ported (it comes with networks/tied_autoencoder.py)")
+            gen_loop = GenerateLoopV2.from_config(
+                GenerateLoopV2.Config(
+                    output_duration_sec=cfg.outputs_duration_sec,
+                    prompts_length_sec=cfg.prompt_length_sec,
+                    prompts_position_sec=(None,) * cfg.n_examples,
+                    parameters=dict(temperature=cfg.temperature),
+                    batch_size=cfg.n_examples,
+                    downsampling=cfg.downsampling,
+                    output_name_template=filename_template,
+                    display_waveform=cfg.MONITOR_TRAINING,
+                    write_waveform=bool(cfg.OUTPUT_TRAINING),
+                ),
+                dataset=dataset,
+                network=net,
+            )
+            callbacks.append(GenerateCallback(generate_loop=gen_loop,
+                                              every_n_epochs=cfg.every_n_epochs))
+        return callbacks
 
     def _batches(self):
         """The loader's batches as tensors on the network's device."""
@@ -277,20 +357,40 @@ class TrainARMLoop:
         ``apply_train`` gets None back from them.  Under ``param_dtype`` the
         parameters, float inputs and carry are cast to the policy's dtype,
         the forward runs inside ``precision.compute``, and the outputs and the
-        new carry come back in f32 (``train_loops.py:397-408``)."""
+        new carry come back in f32 (``train_loops.py:397-408``).  Under
+        ``remat`` the forward (the cast parameters' use included) runs inside
+        a non-reentrant ``torch.utils.checkpoint.checkpoint``."""
         if self.half is None:
             if self._carries_hidden:
-                return self.net(inputs, hidden)
-            return self.net(inputs), None
+                return self._remat(self.net, inputs, hidden)
+            return self._remat(self.net, inputs), None
         params = precision.cast_parameters(self.net, self.half)
         args = (precision.cast_tree(inputs, self.half),)
         if self._carries_hidden:
             args += (precision.cast_tree(hidden, self.half),)
-        with precision.compute(self.half):
-            out = functional_call(self.net, params, args)
+
+        def forward(*args):
+            with precision.compute(self.half):
+                return functional_call(self.net, params, args)
+
+        out = self._remat(forward, *args)
         outputs, new_hidden = out if self._carries_hidden else (out, None)
         return (precision.cast_tree(outputs, torch.float32),
                 precision.cast_tree(new_hidden, torch.float32))
+
+    def _remat(self, fn, *args):
+        """``fn(*args)``, under ``torch.utils.checkpoint.checkpoint`` with the
+        loop's ``remat`` context where it asks for one."""
+        if self.remat is None:
+            return fn(*args)
+        return torch_checkpoint.checkpoint(fn, *args, use_reentrant=False,
+                                           context_fn=self.remat)
+
+    def _loss_logger(self) -> Optional[LossLogger]:
+        """``trainer_kwargs={"loss_logs_file": path}``: a ``LossLogger`` at
+        ``<run dir>/<path>`` (``train_loops.py:886-894``)."""
+        path = self.train_cfg.trainer_kwargs.get("loss_logs_file")
+        return LossLogger(os.path.join(self.root_dir, path)) if path else None
 
     def train_step(self, inputs, targets, hidden):
         """One step: forward from the (detached) carry ``hidden``, loss (in
@@ -321,7 +421,8 @@ class TrainARMLoop:
             self.opt.load_state_dict(self._restored_opt_state)
             self._restored_opt_state = None
         for cb in self.callbacks:
-            cb.on_fit_start(self)
+            if hasattr(cb, "on_fit_start"):
+                cb.on_fit_start(self)
         self.metrics.on_fit_start()
         self.net.train()
         nan_check_every = int(cfg.trainer_kwargs.get("nan_check_every", 25))
@@ -330,7 +431,9 @@ class TrainARMLoop:
             for epoch in range(self.start_epoch + 1, cfg.max_epochs + 1):
                 self.metrics.on_epoch_start()
                 sums, n_batches, hidden, last_B = None, 0, None, None
-                for batch_idx, (inputs, targets) in enumerate(self._batches()):
+                bar = tqdm(self._batches(), total=len(self.loader), desc=f"Epoch {epoch}",
+                           leave=False, mininterval=1.0)
+                for batch_idx, (inputs, targets) in enumerate(bar):
                     if cfg.limit_train_batches is not None and batch_idx >= cfg.limit_train_batches:
                         break
                     B = inputs[0].shape[0]
@@ -343,25 +446,36 @@ class TrainARMLoop:
                     sums = d if sums is None else {k: sums[k] + v for k, v in d.items()}
                     if batch_idx % nan_check_every == 0:
                         self.metrics.check_loss(float(d["loss"]))
+                if hasattr(bar, "close"):
+                    bar.close()
                 if sums is not None:
                     avgs = {k: float(v) / n_batches for k, v in sums.items()}
                     self.metrics.check_loss(avgs["loss"])
                     self.metrics.log_output(avgs)
-                self.metrics.flush_epoch(epoch)
+                self.metrics.flush_epoch(epoch, logger=self._loss_logger())
+                # the checkpoint, then generation, then the overridable hook
+                # (train_loops.py:760-767)
                 for cb in self.callbacks:
-                    cb.on_train_epoch_end(self, epoch, self.global_step)
+                    if isinstance(cb, GenerateCallback):
+                        cb.on_train_epoch_end(self, epoch)
+                    else:
+                        cb.on_train_epoch_end(self, epoch, self.global_step)
                 self.on_train_epoch_end(epoch)
         except KeyboardInterrupt:
             interrupted = True
         if interrupted:
             for cb in self.callbacks:
-                cb.on_train_epoch_end(self, epoch, self.global_step, interrupted=True)
+                if isinstance(cb, MMKCheckpoint):
+                    cb.on_train_epoch_end(self, epoch, self.global_step, interrupted=True)
         self.metrics.on_fit_end()
         self.dataset.close()
         return self
 
     def on_train_epoch_end(self, *args):
         """Overridable per-epoch hook."""
+
+    def teardown(self, stage: str = "fit"):
+        """For the JAX loop's API: the loop holds nothing to release."""
 
     def save_hp(self):
         with open(os.path.join(self.root_dir, "hp.yaml"), "w") as fp:

@@ -6,7 +6,9 @@ parameter names follow PyTorch mimikit's ``SampleRNN`` (``tiers.{i}``,
 ``output_modules.{j}``), the names ``mimikit_tpu/migrate.py`` reads.
 
 Training: ``forward`` is the train-mode forward, ``train_batch`` the
-windows a training step reads; ``TrainARMLoop`` drives both.
+windows a training step reads; ``TrainARMLoop`` drives both.  ``test_batch``
+gives the prompts ``GenerateLoopV2`` reads, and ``before_generate``,
+``generate_step`` and ``after_generate`` its stepwise loop (no kernel).
 
 Serving: ``generate`` and ``stream`` run on the network's device.  A network
 inside the decode kernel's scope (:func:`supports_kernel_decode`) on CUDA
@@ -45,6 +47,7 @@ from ..ops.samplernn_decode import (
     samplernn_weight_pack,
     supports_kernel_decode,
 )
+from ..ops.temperature import Temperature, row_temperatures
 from ..utils import AutoStrEnum, resolve_device
 from .arm import ARMWithHidden, NetworkConfig
 
@@ -183,6 +186,18 @@ class SampleRNN(ARMWithHidden):
             for spec in self.config.io_spec.targets
         )
 
+    def test_batch(self, item_spec: ItemSpec):
+        """(inputs, targets) reads for a prompt: each input the window itself,
+        each target the window less its first ``frame_sizes[0]`` samples
+        (``mimikit_tpu/networks/sample_rnn.py:368-383``)."""
+        fs0 = self.frame_sizes[0]
+        return tuple(
+            spec.to_batch_item(item_spec.to(spec.unit)) for spec in self.config.io_spec.inputs
+        ), tuple(
+            spec.to_batch_item(ItemSpec(shift=fs0, length=-fs0, unit=spec.unit) + item_spec)
+            for spec in self.config.io_spec.targets
+        )
+
     # -- training forward (sample_rnn.py:96-124) ------------------------------
     def forward(self, inputs: Tuple, hidden=None):
         """inputs: tuple of (B, fs0 + T) tensors.  Returns (outputs, hidden):
@@ -241,6 +256,55 @@ class SampleRNN(ARMWithHidden):
         logits = tuple(mod.estimator(x)[:, 0] for mod in self.output_modules)
         return logits, tuple(new_hidden), tuple(new_tier_out)
 
+    # -- step-wise generation API (sample_rnn.py:994-1032) ---------------------
+    # The reference semantics, for GenerateLoopV2's stepwise loop: one
+    # decode_step a sample on the tiers' carried state, sampled by the output
+    # modules' samplers.  It launches no kernel, as in JAX.
+    def _sample_generator(self) -> torch.Generator:
+        return torch.Generator(device=self.device).manual_seed(self.next_seed())
+
+    @torch.no_grad()
+    def before_generate(self, prompts: Tuple, batch_index: int) -> None:
+        """Fresh tier state for the prompts' batch, then warm it up on the
+        prompt: a prompt of ``rf * k + offset`` samples steps over its last
+        ``rf * k``, the first ``offset`` dropped."""
+        first = torch.as_tensor(prompts[0]).to(self.device)
+        state = init_decode_state(self, first, self._generator)
+        rows = np.cumsum((0, *self.up_factors))
+        self._gen_hidden = tuple(
+            tuple((state.c[i, l], state.h[i, l]) for l in range(state.h.shape[1]))
+            for i in range(len(self.up_factors))
+        )
+        self._gen_tier_out = tuple(state.cache[:, rows[i] : rows[i + 1]]
+                                   for i in range(len(self.up_factors)))
+        prompt_length = first.shape[1]
+        offset = prompt_length % self.rf
+        self._gen_prompt_length = prompt_length - offset
+        for t in range(self.rf, self._gen_prompt_length):
+            self.generate_step(
+                tuple(torch.as_tensor(p)[:, t + offset - self.rf : t + offset] for p in prompts),
+                t=t)
+
+    @torch.no_grad()
+    def generate_step(self, inputs: Tuple, *, t: int = 0, **parameters):
+        """One sample at absolute step ``t`` from the inputs' last ``rf``
+        samples, the tiers' state carried.  Returns an empty tuple while ``t``
+        lies in the prompt, else one (B, 1) tensor a target."""
+        win = tuple(torch.as_tensor(x).to(self.device, torch.int64)[:, -self.rf :]
+                    for x in inputs)
+        logits, self._gen_hidden, self._gen_tier_out = self.decode_step(
+            t, win, self._gen_hidden, self._gen_tier_out)
+        if t < self._gen_prompt_length:
+            return tuple()
+        gen = self._sample_generator()
+        return tuple(mod.sampler(l[:, None], temperature=parameters.get("temperature"),
+                                 generator=gen)
+                     for mod, l in zip(self.output_modules, logits))
+
+    def after_generate(self, final_outputs: Tuple, batch_index: int) -> None:
+        self._gen_hidden = self._gen_tier_out = None
+        self._gen_prompt_length = 0
+
     # -- serving ---------------------------------------------------------------
     def _prompt(self, prompts: Tuple) -> torch.Tensor:
         if len(prompts) != 1 or len(self.config.io_spec.targets) != 1:
@@ -272,13 +336,15 @@ class SampleRNN(ARMWithHidden):
         return decode_plain(self, prompt, state, t0, n, t0, n, seed, temperature)
 
     @torch.no_grad()
-    def generate(self, prompts: Tuple, n_steps: int, temperature: Optional[float] = None,
+    def generate(self, prompts: Tuple, n_steps: int, temperature: Temperature = None,
                  seed: Optional[int] = None) -> Tuple[torch.Tensor]:
         """Decode ``n_steps`` new samples after each prompt.  ``temperature``
-        None is argmax.  Returns a tuple of one (B, prior_t + n_steps) tensor
-        (prompt + generation) on the network's device."""
+        None is argmax; one value, or one a prompt.  Returns a tuple of one
+        (B, prior_t + n_steps) tensor (prompt + generation) on the network's
+        device."""
         prompt = self._prompt(prompts)
         B, prior_t = prompt.shape
+        temperature = row_temperatures(temperature, B, prompt.device)
         rf = self.rf
         if seed is None:
             seed = self.next_seed()
@@ -295,7 +361,7 @@ class SampleRNN(ARMWithHidden):
         out = torch.cat([prompt, toks], dim=1)
         return (out.to(torch.as_tensor(prompts[0]).dtype),)
 
-    def stream(self, prompts: Tuple, chunk_steps: int, temperature: Optional[float] = None,
+    def stream(self, prompts: Tuple, chunk_steps: int, temperature: Temperature = None,
                seed: Optional[int] = None):
         """Unbounded generation: yield (B, chunk_steps) numpy token chunks
         forever, continuing exactly across chunks (the decode state is
@@ -303,7 +369,8 @@ class SampleRNN(ARMWithHidden):
         is keyed by absolute step, so sampled streams do not depend on
         ``chunk_steps`` either."""
         prompt = self._prompt(prompts)
-        prior_t = prompt.shape[1]
+        B, prior_t = prompt.shape
+        temperature = row_temperatures(temperature, B, prompt.device)
         if seed is None:
             seed = self.next_seed()
         pack = self._pack()

@@ -114,6 +114,7 @@ from ..ops.transformer_decode import (
     transformer_weight_pack,
 )
 from ..ops.transformer_kv import decode_chunk, init_kv_state
+from ..ops.temperature import Temperature, row_temperatures
 from ..utils import resolve_device
 from .arm import ARM, NetworkConfig
 
@@ -557,11 +558,12 @@ class SimpleTransformer(_StatefulTransformerARM, SimpleTransformerCore):
         return torch.cat([prompt, torch.stack(preds, 1)], 1)
 
     @torch.no_grad()
-    def generate(self, prompts: Tuple, n_steps: int, temperature: Optional[float] = None,
+    def generate(self, prompts: Tuple, n_steps: int, temperature: Temperature = None,
                  seed: Optional[int] = None) -> Tuple[torch.Tensor]:
         """Decode ``n_steps`` tokens after each prompt.  ``temperature`` None
-        is argmax.  Returns a tuple of one (B, prior_t + n_steps) tensor
-        (prompt + generation) on the network's device."""
+        is argmax; one value, or one a prompt.  Returns a tuple of one (B,
+        prior_t + n_steps) tensor (prompt + generation) on the network's
+        device."""
         return self._generate(prompts, n_steps, temperature, seed, None)
 
     def _generate(self, prompts: Tuple, n_steps: int, temperature, seed, built):
@@ -570,6 +572,7 @@ class SimpleTransformer(_StatefulTransformerARM, SimpleTransformerCore):
         ``_window_net()``) or built here."""
         prompt = self._prompt(prompts)
         B, prior_t = prompt.shape
+        temps = row_temperatures(temperature, B, prompt.device)
         if seed is None:
             seed = self.next_seed()
         if prior_t < self.rf:
@@ -577,7 +580,7 @@ class SimpleTransformer(_StatefulTransformerARM, SimpleTransformerCore):
         elif self._k6_route(B):
             if built is None:
                 built = transformer_weight_pack(self)
-            out = torch.cat([prompt, decode_window(built, prompt, n_steps, seed, temperature)], 1)
+            out = torch.cat([prompt, decode_window(built, prompt, n_steps, seed, temps)], 1)
         else:
             out = self._window_loop(prompt, n_steps, temperature, seed, built)
         return (out.to(torch.as_tensor(prompts[0]).dtype),)
@@ -587,7 +590,7 @@ class SimpleTransformer(_StatefulTransformerARM, SimpleTransformerCore):
         least rf) through K6."""
         return B <= self._K6_MAX_BATCH and supports_kernel_decode(self)
 
-    def stream(self, prompts: Tuple, chunk_steps: int, temperature: Optional[float] = None,
+    def stream(self, prompts: Tuple, chunk_steps: int, temperature: Temperature = None,
                seed: Optional[int] = None):
         """Unbounded generation: yield (B, chunk_steps) numpy token chunks
         forever.  Default: window re-feeding (exact: the window is the decode
@@ -600,6 +603,7 @@ class SimpleTransformer(_StatefulTransformerARM, SimpleTransformerCore):
         bf16."""
         prompt = self._prompt(prompts)
         B, prior_t = prompt.shape
+        temps = row_temperatures(temperature, B, prompt.device)
         if seed is None:
             seed = self.next_seed()
         from ..loops.streaming import _read_behind_chunks, _refeed_stream
@@ -623,7 +627,7 @@ class SimpleTransformer(_StatefulTransformerARM, SimpleTransformerCore):
             t_abs = 1
             while True:
                 with torch.no_grad():
-                    out = decode_chunk(pack, prompt_T, state, t_abs, C, temperature, seed)
+                    out = decode_chunk(pack, prompt_T, state, t_abs, C, temps, seed)
                 drop = min(C, max(0, prior_t - t_abs))  # prompt echo rows
                 t_abs += C
                 yield out, drop
@@ -817,7 +821,7 @@ class JukeBox(_StatefulTransformerARM, JukeBoxCore):
         return prompt, pad
 
     @torch.no_grad()
-    def generate(self, prompts: Tuple, n_steps: int, temperature: Optional[float] = None,
+    def generate(self, prompts: Tuple, n_steps: int, temperature: Temperature = None,
                  seed: Optional[int] = None) -> Tuple[torch.Tensor]:
         """Decode ``n_steps`` tokens after each prompt (``:1216-1247``); a
         prompt shorter than the window is left-padded with zeros, then
@@ -826,27 +830,29 @@ class JukeBox(_StatefulTransformerARM, JukeBoxCore):
         ``_K8_CLUSTER_MAX_B`` streams, the group kernel up to
         ``K8_GROUP_ROUTE``'s limit, the block kernel beyond; others run the
         window re-feed.
-        ``temperature`` None is argmax.  Returns a tuple of one (B, prior_t +
-        n_steps) tensor on the network's device."""
+        ``temperature`` None is argmax; one value, or one a prompt.  Returns
+        a tuple of one (B, prior_t + n_steps) tensor on the network's
+        device."""
         return self._generate(prompts, n_steps, temperature, seed, None)
 
     def _generate(self, prompts: Tuple, n_steps: int, temperature, seed, net):
         """``generate``, with the window route's net (``_window_net()``)
         given (a re-feed stream builds it once) or built here."""
         prompt = self._prompt(prompts)
+        temps = row_temperatures(temperature, prompt.shape[0], prompt.device)
         if seed is None:
             seed = self.next_seed()
         x, pad = self._padded(prompt)
         if jbd.supports_kernel_decode(self):
             window = jbd.lead_window(x, self._window_len())
             toks = jbd.decode_pyramid(jbd.jukebox_weight_pack(self), window, x.shape[1], n_steps,
-                                      seed, temperature)
+                                      seed, temps)
             out = torch.cat([x, toks.to(x.dtype)], 1)
         else:
             out = self._window_loop(x, n_steps, temperature, seed, net)
         return (out[:, pad:].to(torch.as_tensor(prompts[0]).dtype),)
 
-    def stream(self, prompts: Tuple, chunk_steps: int, temperature: Optional[float] = None,
+    def stream(self, prompts: Tuple, chunk_steps: int, temperature: Temperature = None,
                seed: Optional[int] = None):
         """Unbounded generation: yield (B, chunk_steps) numpy token chunks
         forever (``:1249-1385``).  In the kernel's scope: one K8 launch a
@@ -858,6 +864,7 @@ class JukeBox(_StatefulTransformerARM, JukeBoxCore):
         with the same seed, argmax or sampled.  Otherwise the window
         re-feed."""
         prompt = self._prompt(prompts)
+        temps = row_temperatures(temperature, prompt.shape[0], prompt.device)
         if seed is None:
             seed = self.next_seed()
         from ..loops.streaming import _read_behind_chunks, _refeed_stream
@@ -878,7 +885,7 @@ class JukeBox(_StatefulTransformerARM, JukeBoxCore):
             t = x.shape[1]
             while True:
                 with torch.no_grad():
-                    out = jbd.decode_pyramid(pack, window, t, chunk_steps, seed, temperature)
+                    out = jbd.decode_pyramid(pack, window, t, chunk_steps, seed, temps)
                 t += chunk_steps
                 yield out, 0
 

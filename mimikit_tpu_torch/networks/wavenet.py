@@ -47,6 +47,7 @@ from ..ops.wavenet_decode import (
     supports_kernel_decode,
     wavenet_weight_pack,
 )
+from ..ops.temperature import Temperature, row_temperatures
 from ..utils import resolve_device
 from .arm import ARM, NetworkConfig
 
@@ -481,18 +482,21 @@ class WaveNet(WaveNetCore, ARM):
         return buf[:, pad_left:]
 
     @torch.no_grad()
-    def generate(self, prompts: Tuple, n_steps: int, temperature: Optional[float] = None,
+    def generate(self, prompts: Tuple, n_steps: int, temperature: Temperature = None,
                  seed: Optional[int] = None) -> Tuple[torch.Tensor]:
         """Decode ``n_steps`` new samples after each prompt.  ``temperature``
-        None is argmax.  Returns a tuple of one (B, prior_t + n_steps) tensor
-        (prompt + generation) on the network's device."""
+        None is argmax; one value, or one a prompt.  Returns a tuple of one
+        (B, prior_t + n_steps) tensor (prompt + generation) on the network's
+        device."""
         prompt = self._prompt(prompts)
         B, prior_t = prompt.shape
+        temps = row_temperatures(temperature, B, prompt.device)
         if seed is None:
             seed = self.next_seed()
         if not self._kernel_route(prior_t):
             out = self._step_loop(prompt, n_steps, temperature, seed)
         else:
+            temperature = temps
             pack = wavenet_weight_pack(self)
             if B < self._CHUNKED_MIN_B:
                 toks = decode_single(pack, prompt, n_steps, seed, temperature)
@@ -507,7 +511,7 @@ class WaveNet(WaveNetCore, ARM):
             out = torch.cat([prompt, toks], dim=1)
         return (out.to(torch.as_tensor(prompts[0]).dtype),)
 
-    def stream(self, prompts: Tuple, chunk_steps: int, temperature: Optional[float] = None,
+    def stream(self, prompts: Tuple, chunk_steps: int, temperature: Temperature = None,
                seed: Optional[int] = None):
         """Unbounded generation: yield (B, chunk_steps) numpy token chunks
         forever, continuing exactly across chunks.  In the kernel's route the
@@ -517,7 +521,8 @@ class WaveNet(WaveNetCore, ARM):
         the same seed.  Otherwise the last ``rf + 1`` samples are re-fed
         (exact for WaveNet, whose state is that window)."""
         prompt = self._prompt(prompts)
-        prior_t = prompt.shape[1]
+        B, prior_t = prompt.shape
+        temps = row_temperatures(temperature, B, prompt.device)
         if seed is None:
             seed = self.next_seed()
         from ..loops.streaming import _read_behind_chunks, _refeed_stream
@@ -525,6 +530,7 @@ class WaveNet(WaveNetCore, ARM):
         if not self._kernel_route(prior_t):
             yield from _refeed_stream(self, prompt, chunk_steps, temperature, seed)
             return
+        temperature = temps
         pack = wavenet_weight_pack(self)
         state = init_decode_state(pack, prompt)
 

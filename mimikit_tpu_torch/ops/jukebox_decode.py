@@ -33,7 +33,7 @@ Three kernels compute that step, on the same pack, window and noise:
 :func:`decode_pyramid` routes a CUDA window (:func:`route`) of at most
 ``_K8_CLUSTER_MAX_B`` streams, of a net whose plan fits, to the cluster
 kernel (clusters of 16 blocks up to 7 streams, of 8 up to 15:
-``K8_CLUSTER_ROUTE``), wider ones up to ``K8_GROUP_ROUTE``'s limit (60) to
+``K8_CLUSTER_ROUTE``), wider ones up to ``K8_GROUP_ROUTE``'s limit (45) to
 the group kernel (clusters of 8, S from the clusters that fit:
 :func:`streams_a_group`), wider batches to the block kernel: by B and the
 widths alone, so a stream keeps one kernel.
@@ -80,6 +80,7 @@ import torch.nn.functional as F
 
 from .noise import gumbel_noise
 from .nvcc import CSRC, build_library
+from .temperature import Temperature, row_temperatures
 from .samplernn_decode import SMEM_PER_BLOCK, _check, _head_is_plain_mish
 from .transformer_decode import LAYER_KINDS, _attend_causal, layer_norm
 
@@ -102,9 +103,10 @@ _K8_CLUSTER_MAX_B = K8_CLUSTER_ROUTE[-1][0]
 # csrc/jukebox_group.cu), (the most streams, the cluster size) in order, the first
 # that admits B and where a group of one stream fits; beyond the last, the block
 # kernel.  From the same sweep, which times the group kernel at each cluster size:
-# on an H100 at jukebox3's widths groups of up to 4 streams on the 15 clusters of 8
-# that fit (B <= 60) beat the block kernel, groups of 5 lose to it
-K8_GROUP_ROUTE = ((60, 8),)
+# on an H100 at jukebox3's widths groups of up to 3 streams on the 15 clusters of 8
+# that fit (B <= 45) beat the block kernel; groups of 4 tie with it (B = 48: either
+# ahead by up to 3 % from run to run), and it takes them; groups of 5 lose to it
+K8_GROUP_ROUTE = ((45, 8),)
 
 
 def _r4(n: int) -> int:
@@ -404,17 +406,18 @@ def pyramid_scores(pack: JukeBoxPack, win: torch.Tensor) -> torch.Tensor:
 
 @torch.no_grad()
 def decode_pyramid_plain(pack: JukeBoxPack, window: torch.Tensor, t0: int, n_steps: int,
-                         seed: int, temperature: Optional[float]) -> torch.Tensor:
+                         seed: int, temperature: Temperature) -> torch.Tensor:
     """The plain PyTorch twin of the kernel: ``n_steps`` tokens from the
     (B, W) lead ``window``, the first at absolute position ``t0``; sampling
     adds the noise of (seed, position, stream, class).  Advances ``window``
     in place.  Returns (B, n_steps) int32."""
     B, W = window.shape
+    temps = row_temperatures(temperature, B, window.device)
     out = torch.zeros(B, n_steps, dtype=torch.int32, device=window.device)
     for i in range(n_steps):
         s = pyramid_scores(pack, window)
-        if temperature is not None:
-            s = s / temperature + gumbel_noise(seed, t0 + i, B, pack.q_levels, window.device)
+        if temps is not None:
+            s = s / temps.column() + gumbel_noise(seed, t0 + i, B, pack.q_levels, window.device)
         tok = torch.argmax(s, dim=-1).to(torch.int32)
         out[:, i] = tok
         window.copy_(torch.cat([window[:, 1 : W - 1], tok[:, None], torch.zeros_like(tok)[:, None]],
@@ -801,7 +804,7 @@ class _Args(ctypes.Structure):
         ("mish_ffn", ctypes.c_int),
         ("argmax", ctypes.c_int),
         ("seed", ctypes.c_uint),
-        ("temperature", ctypes.c_float),
+        ("temperature", ctypes.c_void_p),
         ("min_temperature", ctypes.c_float),
         ("inv_sqrt_dh", ctypes.c_float),
     ]
@@ -871,15 +874,14 @@ def _library():
 
 
 def _launch(pack: JukeBoxPack, window: torch.Tensor, t0: int, n_steps: int, seed: int,
-            temperature: Optional[float]) -> torch.Tensor:
+            temperature: Temperature) -> torch.Tensor:
     dev = pack.flat.device
     if dev.type != "cuda":
         raise ValueError(f"the tier-pyramid decode kernel runs on CUDA tensors, got {dev}")
     B = window.shape[0]
     _check_pack(pack, dev)
     _check(window, "window", torch.int32, (B, pack.window), dev)
-    if temperature is not None and not temperature > 0:
-        raise ValueError(f"temperature must be > 0, got {temperature}")
+    temps = row_temperatures(temperature, B, dev)
     out = torch.empty(B, n_steps, dtype=torch.int32, device=dev)
     if n_steps == 0 or B == 0:
         return out
@@ -887,9 +889,9 @@ def _launch(pack: JukeBoxPack, window: torch.Tensor, t0: int, n_steps: int, seed
     a = _Args()
     _fill_args(a, pack)
     a.B, a.n_steps, a.t0 = B, n_steps, t0
-    a.argmax = int(temperature is None)
+    a.argmax = int(temps is None)
     a.seed = seed & 0xFFFFFFFF
-    a.temperature = 1.0 if temperature is None else float(temperature)
+    a.temperature = None if temps is None else temps.tensor.data_ptr()
     a.w, a.window, a.out = pack.flat.data_ptr(), window.data_ptr(), out.data_ptr()
     err = lib.mmk_jb_decode(ctypes.byref(a), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
@@ -921,7 +923,7 @@ class _ClArgs(ctypes.Structure):
             "head_width", "ymax", "tab_ints", "wreg_floats", "n_slots", "slot_floats",
             "smem_bytes", "mish_ffn", "argmax")],
         ("seed", ctypes.c_uint),
-        ("temperature", ctypes.c_float),
+        ("temperature", ctypes.c_void_p),
         ("min_temperature", ctypes.c_float),
         ("inv_sqrt_dh", ctypes.c_float),
     ]
@@ -960,15 +962,14 @@ def _cluster_library():
 
 
 def _launch_cluster(pack: JukeBoxPack, window: torch.Tensor, t0: int, n_steps: int, seed: int,
-                    temperature: Optional[float], cl: Optional[int] = None) -> torch.Tensor:
+                    temperature: Temperature, cl: Optional[int] = None) -> torch.Tensor:
     dev = pack.flat.device
     if dev.type != "cuda":
         raise ValueError(f"the cluster tier-pyramid kernel runs on CUDA tensors, got {dev}")
     B = window.shape[0]
     _check_pack(pack, dev)
     _check(window, "window", torch.int32, (B, pack.window), dev)
-    if temperature is not None and not temperature > 0:
-        raise ValueError(f"temperature must be > 0, got {temperature}")
+    temps = row_temperatures(temperature, B, dev)
     cl = cl or K8_CLUSTER_SIZE
     cw, tabs, plan = cluster_layout(pack, cl)
     if not plan.fits:
@@ -988,9 +989,9 @@ def _launch_cluster(pack: JukeBoxPack, window: torch.Tensor, t0: int, n_steps: i
     a.ymax, a.tab_ints, a.wreg_floats = plan.ymax, plan.tab_ints, plan.wreg_floats
     a.n_slots, a.slot_floats, a.smem_bytes = RING_SLOTS, SLOT_FLOATS, plan.smem_bytes
     a.B, a.n_steps, a.t0 = B, n_steps, t0
-    a.argmax = int(temperature is None)
+    a.argmax = int(temps is None)
     a.seed = seed & 0xFFFFFFFF
-    a.temperature = 1.0 if temperature is None else float(temperature)
+    a.temperature = None if temps is None else temps.tensor.data_ptr()
     barriers = torch.zeros(1, dtype=torch.int64, device=dev)
     a.cw, a.tab, a.window, a.out = cw.data_ptr(), tabs.data_ptr(), window.data_ptr(), out.data_ptr()
     a.barriers = barriers.data_ptr()
@@ -1030,7 +1031,7 @@ class _GpArgs(ctypes.Structure):
             "rows", "head_width", "ymax", "tab_ints", "wreg_floats", "n_slots", "slot_floats",
             "smem_bytes", "mish_ffn", "argmax")],
         ("seed", ctypes.c_uint),
-        ("temperature", ctypes.c_float),
+        ("temperature", ctypes.c_void_p),
         ("min_temperature", ctypes.c_float),
         ("inv_sqrt_dh", ctypes.c_float),
     ]
@@ -1125,7 +1126,7 @@ def streams_a_group(pack: JukeBoxPack, cl: int, B: int, clusters: int) -> int:
 
 
 def _launch_group(pack: JukeBoxPack, window: torch.Tensor, t0: int, n_steps: int, seed: int,
-                  temperature: Optional[float], cl: int, S: Optional[int] = None
+                  temperature: Temperature, cl: int, S: Optional[int] = None
                   ) -> torch.Tensor:
     """The group kernel on clusters of ``cl`` blocks, groups of ``S``
     streams (default: :func:`streams_a_group` over the clusters that fit)."""
@@ -1135,8 +1136,7 @@ def _launch_group(pack: JukeBoxPack, window: torch.Tensor, t0: int, n_steps: int
     B = window.shape[0]
     _check_pack(pack, dev)
     _check(window, "window", torch.int32, (B, pack.window), dev)
-    if temperature is not None and not temperature > 0:
-        raise ValueError(f"temperature must be > 0, got {temperature}")
+    temps = row_temperatures(temperature, B, dev)
     if S is None:
         S = streams_a_group(pack, cl, B, clusters_that_fit(pack, cl))
     cw, tabs, plan = group_layout(pack, cl, S)
@@ -1150,9 +1150,9 @@ def _launch_group(pack: JukeBoxPack, window: torch.Tensor, t0: int, n_steps: int
     a = _GpArgs()
     _fill_group_args(a, pack, plan)
     a.B, a.n_steps, a.t0 = B, n_steps, t0
-    a.argmax = int(temperature is None)
+    a.argmax = int(temps is None)
     a.seed = seed & 0xFFFFFFFF
-    a.temperature = 1.0 if temperature is None else float(temperature)
+    a.temperature = None if temps is None else temps.tensor.data_ptr()
     barriers = torch.zeros(1, dtype=torch.int64, device=dev)
     a.cw, a.tab, a.window, a.out = cw.data_ptr(), tabs.data_ptr(), window.data_ptr(), out.data_ptr()
     a.barriers = barriers.data_ptr()
@@ -1172,7 +1172,7 @@ def _launch_group(pack: JukeBoxPack, window: torch.Tensor, t0: int, n_steps: int
 
 
 def decode_pyramid(pack: JukeBoxPack, window: torch.Tensor, t0: int, n_steps: int, seed: int,
-                   temperature: Optional[float]) -> torch.Tensor:
+                   temperature: Temperature) -> torch.Tensor:
     """K8's route: decode ``n_steps`` tokens from the (B, W) int32 lead
     ``window`` in one launch, the first at absolute position ``t0`` (its
     noise keyed by that position).  Returns (B, n_steps) int32 and leaves
@@ -1183,6 +1183,7 @@ def decode_pyramid(pack: JukeBoxPack, window: torch.Tensor, t0: int, n_steps: in
     kernel (``csrc/jukebox_decode.cu``) beyond or for a net outside the
     plans: the route depends on B and the widths only, so every chunk of a
     stream takes one kernel."""
+    temperature = row_temperatures(temperature, window.shape[0], window.device)
     if window.device.type == "cpu":
         return decode_pyramid_plain(pack, window, t0, n_steps, seed, temperature)
     kernel, cl = route(pack, window.shape[0])

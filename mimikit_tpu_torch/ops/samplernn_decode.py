@@ -44,6 +44,7 @@ import torch
 from ..modules.activations import mish
 from .noise import gumbel_noise
 from .nvcc import CSRC, build_library
+from .temperature import Temperature, row_temperatures
 
 __all__ = [
     "supports_kernel_decode",
@@ -230,7 +231,7 @@ def init_decode_state(net, prompt: torch.Tensor, generator=None) -> DecodeState:
     h = torch.stack([torch.stack([h for _, h in tier]) for tier in carries])
     c = torch.stack([torch.stack([c for c, _ in tier]) for tier in carries])
     return DecodeState(
-        win=prompt[:, : net.rf].to(torch.int32).contiguous(),
+        win=prompt[:, : net.rf].to(torch.int32).clone(),  # a copy: written in place
         h=h.contiguous(),
         c=c.contiguous(),
         cache=torch.zeros(B, sum(net.up_factors), H, device=prompt.device),
@@ -290,7 +291,7 @@ def _step_bf16(pack: SampleRNNPack, t: int, win: torch.Tensor, h: torch.Tensor,
 @torch.no_grad()
 def decode_plain(model, prompt: torch.Tensor, state: DecodeState, t0: int,
                  n_steps: int, out_t0: int, out_len: int, seed: int,
-                 temperature: Optional[float], return_scores: bool = False,
+                 temperature: Temperature, return_scores: bool = False,
                  accumulate: torch.dtype = torch.float32):
     """The plain PyTorch twin of the kernel: ``n_steps`` steps from absolute
     step ``t0``, the same sampling rule and noise, teacher-forcing while ``t
@@ -306,6 +307,7 @@ def decode_plain(model, prompt: torch.Tensor, state: DecodeState, t0: int,
     bf16 = isinstance(model, SampleRNNPack) and model.flat.dtype == torch.bfloat16
     net = model.net if isinstance(model, SampleRNNPack) else model
     B, prior_t = prompt.shape
+    temps = row_temperatures(temperature, B, prompt.device)
     n_t = len(net.frame_sizes) - 1
     rows = [0]
     for u in net.up_factors:
@@ -328,8 +330,8 @@ def decode_plain(model, prompt: torch.Tensor, state: DecodeState, t0: int,
         else:
             logits, hidden, tier_out = net.decode_step(t, (win,), hidden, tier_out)
             scores = logits[0]
-        if temperature is not None:
-            scores = scores / temperature + gumbel_noise(
+        if temps is not None:
+            scores = scores / temps.column() + gumbel_noise(
                 seed, t, B, scores.shape[-1], scores.device
             )
         tok = torch.argmax(scores, dim=-1)
@@ -395,7 +397,7 @@ class _Args(ctypes.Structure):
         ("dstride", ctypes.c_int),
         ("cache_rows", ctypes.c_int),
         ("seed", ctypes.c_uint),
-        ("temperature", ctypes.c_float),
+        ("temperature", ctypes.c_void_p),
         ("min_temperature", ctypes.c_float),
         ("bf16", ctypes.c_int),
         ("fs", ctypes.c_int * MAX_TIERS),
@@ -465,7 +467,7 @@ def _check(x: torch.Tensor, name: str, dtype, shape, device):
 
 
 def _check_launch(pack: SampleRNNPack, prompt, state: DecodeState, n_steps: int,
-                  out: torch.Tensor, temperature: Optional[float], what: str) -> None:
+                  out: torch.Tensor, what: str) -> None:
     """Raise unless a decode kernel (``what``) takes these tensors."""
     dev = pack.flat.device
     if dev.type != "cuda":
@@ -484,16 +486,15 @@ def _check_launch(pack: SampleRNNPack, prompt, state: DecodeState, n_steps: int,
     _check(out, "out", torch.int32, (B, out.shape[1]), dev)
     if prior_t < rf or n_steps < 0 or len(pack.head_dims) > MAX_HEAD:
         raise ValueError("prompt shorter than rf, negative step count or head too deep")
-    if temperature is not None and not temperature > 0:
-        raise ValueError(f"temperature must be > 0, got {temperature}")
 
 
 def _launch(pack: SampleRNNPack, prompt, state: DecodeState, t0: int, n_steps: int,
-            out: torch.Tensor, out_t0: int, seed: int, temperature: Optional[float],
+            out: torch.Tensor, out_t0: int, seed: int, temperature: Temperature,
             group: Optional[int] = None) -> bool:
     """Launch the kernel on ``state`` and ``out``; False when there are no
     steps to run (nothing is launched)."""
-    _check_launch(pack, prompt, state, n_steps, out, temperature, "decode kernel")
+    _check_launch(pack, prompt, state, n_steps, out, "decode kernel")
+    temps = row_temperatures(temperature, prompt.shape[0], pack.flat.device)
     if n_steps == 0:
         return False
     dev = pack.flat.device
@@ -519,14 +520,14 @@ def _launch(pack: SampleRNNPack, prompt, state: DecodeState, t0: int, n_steps: i
         a.head_in[k], a.head_out[k] = d_in, d_out
     a.n_steps, a.out_len, a.B, a.H, a.Q = n_steps, out.shape[1], B, H, Q
     a.rf, a.prior_t, a.n_tiers, a.n_head = rf, prior_t, len(fs), len(pack.head_dims)
-    a.argmax = int(temperature is None)
+    a.argmax = int(temps is None)
     widest = max(4 * H, Q + 1, *(d for dims in pack.head_dims for d in dims))
     a.dstride = -(-widest // 4) * 4
     # per stream: three rows of dstride floats and the window, as the kernel lays out
     a.group = group or _group_for(B, dev, 4 * (3 * a.dstride + rf))
     a.cache_rows = sum(up)
     a.seed = seed & 0xFFFFFFFF
-    a.temperature = 1.0 if temperature is None else float(temperature)
+    a.temperature = None if temps is None else temps.tensor.data_ptr()
     a.min_temperature = pack.min_temperature
     a.bf16 = int(pack.flat.dtype == torch.bfloat16)
     row = 0
@@ -827,7 +828,7 @@ class _ScArgs(ctypes.Structure):
             "n_head", "argmax", "S", "red_floats", "n_slots", "slot_elems", "smem_bytes",
             "cache_rows")],
         ("seed", ctypes.c_uint),
-        ("temperature", ctypes.c_float),
+        ("temperature", ctypes.c_void_p),
         ("min_temperature", ctypes.c_float),
         ("bf16", ctypes.c_int),
         ("fs", ctypes.c_int * MAX_TIERS),
@@ -924,13 +925,14 @@ def streams_a_group(pack: SampleRNNPack, cl: int, B: int, clusters: int) -> int:
 
 
 def _launch_cluster(pack: SampleRNNPack, prompt, state: DecodeState, t0: int, n_steps: int,
-                    out: torch.Tensor, out_t0: int, seed: int, temperature: Optional[float],
+                    out: torch.Tensor, out_t0: int, seed: int, temperature: Temperature,
                     cl: int, counts) -> bool:
     """Launch the cluster kernel on ``state`` and ``out``; False when there
     are no steps to run.  The wrapper ``counts`` (``decode_single`` or
     ``decode_chunk``) keeps the launch's clusters, their size and the
     streams a group."""
-    _check_launch(pack, prompt, state, n_steps, out, temperature, "cluster decode kernel")
+    _check_launch(pack, prompt, state, n_steps, out, "cluster decode kernel")
+    temps = row_temperatures(temperature, prompt.shape[0], pack.flat.device)
     dev = pack.flat.device
     B, prior_t = prompt.shape
     if max_streams(pack, cl) == 0:
@@ -949,9 +951,9 @@ def _launch_cluster(pack: SampleRNNPack, prompt, state: DecodeState, t0: int, n_
     a.cache, a.out = state.cache.data_ptr(), out.data_ptr()
     a.t0, a.out_t0 = t0, out_t0
     a.n_steps, a.out_len, a.B, a.prior_t = n_steps, out.shape[1], B, prior_t
-    a.argmax = int(temperature is None)
+    a.argmax = int(temps is None)
     a.seed = seed & 0xFFFFFFFF
-    a.temperature = 1.0 if temperature is None else float(temperature)
+    a.temperature = None if temps is None else temps.tensor.data_ptr()
     n = ctypes.c_int(0)
     err = lib.mmk_sc_decode(ctypes.byref(a), cl, torch.cuda.current_stream(dev).cuda_stream,
                             ctypes.byref(n), 0)
@@ -964,7 +966,7 @@ def _launch_cluster(pack: SampleRNNPack, prompt, state: DecodeState, t0: int, n_
 
 def _routed_launch(counts, pack: SampleRNNPack, prompt, state: DecodeState, t0: int,
                    n_steps: int, out: torch.Tensor, out_t0: int, seed: int,
-                   temperature: Optional[float], group: Optional[int], cl: Optional[int]):
+                   temperature: Temperature, group: Optional[int], cl: Optional[int]):
     """Launch the kernel ``cl`` picks (None: the route, :func:`cluster_size_for`;
     8 or 16: the cluster kernel at that size; 0: the block kernel, ``group``
     streams a block) and count the launch on the wrapper ``counts``."""
@@ -983,7 +985,7 @@ def _routed_launch(counts, pack: SampleRNNPack, prompt, state: DecodeState, t0: 
 
 
 def decode_single(pack: SampleRNNPack, prompt: torch.Tensor, n_steps: int, seed: int,
-                  temperature: Optional[float], group: Optional[int] = None,
+                  temperature: Temperature, group: Optional[int] = None,
                   cl: Optional[int] = None) -> torch.Tensor:
     """K1's route: decode ``n_steps`` tokens after ``prompt`` (B, prior_t) in
     one launch.  Returns (B, n_steps) int32.  On CUDA tensors ``cl`` picks
@@ -992,6 +994,7 @@ def decode_single(pack: SampleRNNPack, prompt: torch.Tensor, n_steps: int, seed:
     the block kernel (``group`` streams a block)."""
     B, prior_t = prompt.shape
     rf = pack.frame_sizes[0]
+    temperature = row_temperatures(temperature, B, prompt.device)
     state = init_decode_state(pack.net, prompt)
     n = prior_t + n_steps - rf
     if prompt.device.type == "cpu":
@@ -1003,7 +1006,7 @@ def decode_single(pack: SampleRNNPack, prompt: torch.Tensor, n_steps: int, seed:
 
 
 def decode_chunk(pack: SampleRNNPack, prompt: torch.Tensor, state: DecodeState, t0: int,
-                 n_steps: int, seed: int, temperature: Optional[float],
+                 n_steps: int, seed: int, temperature: Temperature,
                  group: Optional[int] = None, cl: Optional[int] = None) -> torch.Tensor:
     """K2's route: run steps ``t0 .. t0+n_steps-1`` on ``state`` (updated in
     place).  Returns the chunk's tokens, (B, n_steps) int32 — prompt tokens
@@ -1011,6 +1014,7 @@ def decode_chunk(pack: SampleRNNPack, prompt: torch.Tensor, state: DecodeState, 
     the route (:func:`cluster_size_for`), 8 or 16 the cluster kernel at that
     size, 0 the block kernel (``group`` streams a block)."""
     B = prompt.shape[0]
+    temperature = row_temperatures(temperature, B, prompt.device)
     if prompt.device.type == "cpu":
         return decode_plain(pack, prompt, state, t0, n_steps, t0, n_steps, seed, temperature)
     out = torch.empty(B, n_steps, dtype=torch.int32, device=prompt.device)

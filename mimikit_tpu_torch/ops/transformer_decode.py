@@ -44,6 +44,7 @@ import torch.nn.functional as F
 
 from .noise import gumbel_noise
 from .nvcc import CSRC, build_library
+from .temperature import Temperature, row_temperatures
 from .samplernn_decode import SMEM_PER_BLOCK, _check, _head_is_plain_mish
 
 __all__ = ["transformer_weight_pack", "TransformerPack"]
@@ -396,7 +397,7 @@ def window_scores(pack: TransformerPack, win: torch.Tensor) -> torch.Tensor:
 
 @torch.no_grad()
 def decode_window_plain(pack: TransformerPack, tokens: torch.Tensor, t0: int, n_steps: int,
-                        seed: int, temperature: Optional[float], return_scores: bool = False):
+                        seed: int, temperature: Temperature, return_scores: bool = False):
     """The plain PyTorch twin of the kernel: the tokens at positions ``t0 ..
     t0 + n_steps - 1`` after ``tokens`` (B, T), position p read from the
     window of the rf tokens before it.  Positions below T are the given
@@ -406,6 +407,7 @@ def decode_window_plain(pack: TransformerPack, tokens: torch.Tensor, t0: int, n_
     scores the argmax ran over."""
     B, T = tokens.shape
     rf, Q = pack.rf, pack.q_levels
+    temps = row_temperatures(temperature, B, tokens.device)
     if t0 < rf:
         raise ValueError(f"position {t0} has no full window of {rf} tokens")
     buf = torch.cat([tokens.long(), tokens.new_zeros(B, max(0, t0 + n_steps - T)).long()], 1)
@@ -418,8 +420,8 @@ def decode_window_plain(pack: TransformerPack, tokens: torch.Tensor, t0: int, n_
         sc = window_scores(pack, wins.reshape(m * B, rf)).reshape(m, B, Q)
         for j in range(m):
             s = sc[j]
-            if temperature is not None:
-                s = s / temperature + gumbel_noise(seed, p + j, B, Q, tokens.device)
+            if temps is not None:
+                s = s / temps.column() + gumbel_noise(seed, p + j, B, Q, tokens.device)
             if p + j >= T:
                 buf[:, p + j] = torch.argmax(s, dim=-1)
             out[:, p + j - t0] = buf[:, p + j].to(torch.int32)
@@ -466,7 +468,7 @@ class _Args(ctypes.Structure):
         ("final_ln", ctypes.c_int),
         ("argmax", ctypes.c_int),
         ("seed", ctypes.c_uint),
-        ("temperature", ctypes.c_float),
+        ("temperature", ctypes.c_void_p),
         ("min_temperature", ctypes.c_float),
         ("inv_sqrt_dh", ctypes.c_float),
     ]
@@ -538,7 +540,7 @@ def _library():
 
 
 def _launch(pack: TransformerPack, window: torch.Tensor, n_steps: int, t0: int, seed: int,
-            temperature: Optional[float]) -> torch.Tensor:
+            temperature: Temperature) -> torch.Tensor:
     dev = pack.flat.device
     if dev.type != "cuda":
         raise ValueError(f"the window decode kernel runs on CUDA tensors, got {dev}")
@@ -546,8 +548,7 @@ def _launch(pack: TransformerPack, window: torch.Tensor, n_steps: int, t0: int, 
     check_pack(pack, dev)
     _check(window, "window", torch.int32, (B, pack.rf), dev)
     _check(pack.pe_window, "pe_window", torch.float32, (rf, pack.dim), dev)
-    if temperature is not None and not temperature > 0:
-        raise ValueError(f"temperature must be > 0, got {temperature}")
+    temps = row_temperatures(temperature, B, dev)
     buf = torch.cat([window, window.new_empty(B, n_steps)], 1).contiguous()
     if n_steps == 0:
         return buf[:, rf:]
@@ -555,9 +556,9 @@ def _launch(pack: TransformerPack, window: torch.Tensor, n_steps: int, t0: int, 
     a = _Args()
     fill_weight_args(a, pack)
     a.B, a.n_steps, a.t0 = B, n_steps, t0
-    a.argmax = int(temperature is None)
+    a.argmax = int(temps is None)
     a.seed = seed & 0xFFFFFFFF
-    a.temperature = 1.0 if temperature is None else float(temperature)
+    a.temperature = None if temps is None else temps.tensor.data_ptr()
     widest = max(max(dims) for dims in pack.head_dims)
     if lib.mmk_tf_window_smem_bytes(ctypes.byref(a)) != smem_bytes(
             pack.dim, pack.n_heads, pack.ff, widest):
@@ -577,7 +578,7 @@ def _launch(pack: TransformerPack, window: torch.Tensor, n_steps: int, t0: int, 
 
 
 def decode_window(pack: TransformerPack, prompt: torch.Tensor, n_steps: int, seed: int,
-                  temperature: Optional[float]) -> torch.Tensor:
+                  temperature: Temperature) -> torch.Tensor:
     """K6's route: decode ``n_steps`` tokens after ``prompt`` (B, prior_t >=
     rf) in one launch.  Returns (B, n_steps) int32; token i is position
     ``prior_t + i``, its noise keyed by that position."""

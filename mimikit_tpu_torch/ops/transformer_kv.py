@@ -36,6 +36,7 @@ import torch
 
 from .noise import gumbel_noise
 from .nvcc import CSRC, build_library
+from .temperature import Temperature, row_temperatures
 from .samplernn_decode import SMEM_PER_BLOCK, _check
 from .transformer_decode import (
     _NEG,
@@ -102,7 +103,7 @@ def _attend_ring(q, K, V, vcount: int, n_heads: int):
 
 @torch.no_grad()
 def decode_chunk_plain(pack: TransformerPack, prompt_T: torch.Tensor, state: TransformerKVState,
-                       t0: int, n_steps: int, seed: int, temperature: Optional[float],
+                       t0: int, n_steps: int, seed: int, temperature: Temperature,
                        return_scores: bool = False, accumulate: torch.dtype = torch.float32):
     """The plain PyTorch twin of the kernel (the oracle's step): steps ``t0 ..
     t0 + n_steps - 1`` on ``state`` (updated in place), teacher-forcing and
@@ -118,6 +119,7 @@ def decode_chunk_plain(pack: TransformerPack, prompt_T: torch.Tensor, state: Tra
     prior_t, B = prompt_T.shape
     d, rf, L, Q = pack.dim, pack.rf, pack.n_layers, pack.q_levels
     dev = prompt_T.device
+    temps = row_temperatures(temperature, B, dev)
     prompt_T = prompt_T.long()
     rnd, addmm = dot_input(pack), addmm_in(accumulate)
     emb, wckv, bckv = (pack.view(k).float() for k in ("emb", "wckv", "bckv"))
@@ -149,8 +151,8 @@ def decode_chunk_plain(pack: TransformerPack, prompt_T: torch.Tensor, state: Tra
             h = torch.relu(addmm(b1, rnd(x), w1))
             x = layer_norm(x + addmm(b2, rnd(h), w2), g3, b3_)
         scores = head_scores(pack, x, accumulate)
-        if temperature is not None:
-            scores = scores / temperature + gumbel_noise(seed, t, B, Q, dev)
+        if temps is not None:
+            scores = scores / temps.column() + gumbel_noise(seed, t, B, Q, dev)
         tok = prompt_T[t] if t < prior_t else torch.argmax(scores, dim=-1)
         out[:, i] = tok.to(torch.int32)
         if return_scores:
@@ -200,7 +202,7 @@ class _Args(ctypes.Structure):
         ("final_ln", ctypes.c_int),
         ("argmax", ctypes.c_int),
         ("seed", ctypes.c_uint),
-        ("temperature", ctypes.c_float),
+        ("temperature", ctypes.c_void_p),
         ("min_temperature", ctypes.c_float),
         ("inv_sqrt_dh", ctypes.c_float),
         ("bf16", ctypes.c_int),
@@ -243,13 +245,14 @@ def _library():
 
 
 def decode_chunk(pack: TransformerPack, prompt_T: torch.Tensor, state: TransformerKVState,
-                 t0: int, n_steps: int, temperature: Optional[float], seed: int) -> torch.Tensor:
+                 t0: int, n_steps: int, temperature: Temperature, seed: int) -> torch.Tensor:
     """K7's route: run steps ``t0 .. t0 + n_steps - 1`` on ``state`` (updated
     in place) after ``prompt_T`` (prior_t, B).  Returns the chunk's tokens,
     (B, n_steps) int32: column i holds position ``t0 + i`` (the prompt's token
     where ``t0 + i < prior_t``)."""
     prior_t, B = prompt_T.shape
     dev = prompt_T.device
+    temperature = row_temperatures(temperature, B, dev)
     if dev.type == "cpu":
         return decode_chunk_plain(pack, prompt_T, state, t0, n_steps, seed, temperature)
     check_pack(pack, dev, (torch.float32, torch.bfloat16))
@@ -259,8 +262,6 @@ def decode_chunk(pack: TransformerPack, prompt_T: torch.Tensor, state: Transform
            (pack.n_layers, B, pack.rf, 4 * pack.dim), dev)
     if prior_t < 1 or t0 < 1 or n_steps < 0:
         raise ValueError("empty prompt, t0 below 1 or negative step count")
-    if temperature is not None and not temperature > 0:
-        raise ValueError(f"temperature must be > 0, got {temperature}")
     out = torch.empty(B, n_steps, dtype=torch.int32, device=dev)
     if n_steps == 0:
         return out
@@ -271,7 +272,7 @@ def decode_chunk(pack: TransformerPack, prompt_T: torch.Tensor, state: Transform
     a.B, a.n_steps, a.prior_t, a.t0 = B, n_steps, prior_t, t0
     a.argmax = int(temperature is None)
     a.seed = seed & 0xFFFFFFFF
-    a.temperature = 1.0 if temperature is None else float(temperature)
+    a.temperature = None if temperature is None else temperature.tensor.data_ptr()
     a.bf16 = int(pack.flat.dtype == torch.bfloat16)
     if lib.mmk_tf_kv_smem_bytes(ctypes.byref(a)) > SMEM_PER_BLOCK:
         raise ValueError("the net is outside the transformer kernels' limits")

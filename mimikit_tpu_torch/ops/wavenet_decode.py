@@ -57,6 +57,7 @@ import torch.nn.functional as F
 
 from .noise import gumbel_noise
 from .nvcc import CSRC, build_library
+from .temperature import Temperature, row_temperatures
 from .samplernn_decode import SMEM_PER_BLOCK, _check, _head_is_plain_mish
 
 __all__ = ["wavenet_weight_pack", "WaveNetPack", "WaveNetDecodeState", "cluster_plan",
@@ -263,7 +264,7 @@ def init_decode_state(pack: WaveNetPack, prompt: torch.Tensor) -> WaveNetDecodeS
     """State before step 1: the carry is ``prompt[:, 0]``, the rings zero."""
     B = prompt.shape[0]
     return WaveNetDecodeState(
-        tok=prompt[:, 0].to(torch.int32).contiguous(),
+        tok=prompt[:, 0].to(torch.int32).clone(),  # a copy: the carry is written in place
         rings=torch.zeros(sum(pack.dilations), B, pack.dim, device=prompt.device),
         dilations=pack.dilations,
     )
@@ -274,7 +275,7 @@ def init_decode_state(pack: WaveNetPack, prompt: torch.Tensor) -> WaveNetDecodeS
 @torch.no_grad()
 def decode_plain(pack: WaveNetPack, prompt: torch.Tensor, state: WaveNetDecodeState, t0: int,
                  n_steps: int, out_t0: int, out_len: int, seed: int,
-                 temperature: Optional[float], return_scores: bool = False):
+                 temperature: Temperature, return_scores: bool = False):
     """The plain PyTorch twin of the kernel: ``n_steps`` steps from absolute
     step ``t0`` with the kernel's arithmetic, sampling rule and noise,
     teacher-forcing while ``t < prior_t``.  ``state`` is updated in place.
@@ -284,6 +285,7 @@ def decode_plain(pack: WaveNetPack, prompt: torch.Tensor, state: WaveNetDecodeSt
     B, prior_t = prompt.shape
     D, S, Q = pack.dim, pack.skips_dim, pack.q_levels
     dev = prompt.device
+    temps = row_temperatures(temperature, B, dev)
     prompt = prompt.to(torch.int64)
     emb = pack.view("emb")
     layers = [
@@ -314,8 +316,8 @@ def decode_plain(pack: WaveNetPack, prompt: torch.Tensor, state: WaveNetDecodeSt
             if k < len(head) - 1:
                 h = h * torch.tanh(F.softplus(h))
         scores = h[:, :Q] / torch.clamp_min(torch.sigmoid(h[:, Q : Q + 1]), pack.min_temperature)
-        if temperature is not None:
-            scores = scores / temperature + gumbel_noise(seed, t, B, Q, dev)
+        if temps is not None:
+            scores = scores / temps.column() + gumbel_noise(seed, t, B, Q, dev)
         tok = prompt[:, t] if t < prior_t else torch.argmax(scores, dim=-1)
         if 0 <= t - out_t0 < out_len:
             out[:, t - out_t0] = tok.to(torch.int32)
@@ -657,7 +659,7 @@ class _Args(ctypes.Structure):
         ("ds", ctypes.c_int),
         ("red", ctypes.c_int),
         ("seed", ctypes.c_uint),
-        ("temperature", ctypes.c_float),
+        ("temperature", ctypes.c_void_p),
         ("min_temperature", ctypes.c_float),
         ("dil", ctypes.c_int * MAX_LAYERS),
         ("has_res", ctypes.c_int * MAX_LAYERS),
@@ -711,7 +713,7 @@ def group_for(pack: WaveNetPack, B: int, device) -> int:
 
 
 def _launch(pack: WaveNetPack, prompt, state: WaveNetDecodeState, t0: int, n_steps: int,
-            out: torch.Tensor, out_t0: int, seed: int, temperature: Optional[float],
+            out: torch.Tensor, out_t0: int, seed: int, temperature: Temperature,
             group: Optional[int] = None) -> bool:
     """Launch the kernel on ``state`` and ``out``; False when there are no
     steps to run (nothing is launched)."""
@@ -730,8 +732,7 @@ def _launch(pack: WaveNetPack, prompt, state: WaveNetDecodeState, t0: int, n_ste
         raise ValueError("empty prompt, t0 below 1 or negative step count")
     if L > MAX_LAYERS or n_head > MAX_HEAD:
         raise ValueError(f"{L} layers / {n_head} head layers exceed the kernel's limits")
-    if temperature is not None and not temperature > 0:
-        raise ValueError(f"temperature must be > 0, got {temperature}")
+    temps = row_temperatures(temperature, B, dev)
     group = group or group_for(pack, B, dev)
     per, ds, red = _smem_per_stream(D, S, Q, pack.head_dims, L)
     if group not in GROUPS or group * per > SMEM_PER_BLOCK:
@@ -752,10 +753,10 @@ def _launch(pack: WaveNetPack, prompt, state: WaveNetDecodeState, t0: int, n_ste
         a.head_in[k], a.head_out[k] = d_in, d_out
     a.n_steps, a.out_len, a.B, a.D, a.S, a.Q = n_steps, out.shape[1], B, D, S, Q
     a.prior_t, a.n_layers, a.n_head = prior_t, L, n_head
-    a.argmax, a.group = int(temperature is None), group
+    a.argmax, a.group = int(temps is None), group
     a.ds, a.red = ds, red
     a.seed = seed & 0xFFFFFFFF
-    a.temperature = 1.0 if temperature is None else float(temperature)
+    a.temperature = None if temps is None else temps.tensor.data_ptr()
     a.min_temperature = pack.min_temperature
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.mmk_wavenet_decode(ctypes.byref(a), stream)
@@ -801,7 +802,7 @@ class _ClArgs(ctypes.Structure):
         ("smem_bytes", ctypes.c_int),
         ("argmax", ctypes.c_int),
         ("seed", ctypes.c_uint),
-        ("temperature", ctypes.c_float),
+        ("temperature", ctypes.c_void_p),
         ("min_temperature", ctypes.c_float),
         ("dil", ctypes.c_int * MAX_LAYERS),
         ("has_res", ctypes.c_int * MAX_LAYERS),
@@ -882,7 +883,7 @@ def clusters_that_fit(pack: WaveNetPack, cl: int) -> int:
 
 def _launch_cluster(pack: WaveNetPack, prompt, state: WaveNetDecodeState, t0: int,
                     n_steps: int, out: torch.Tensor, out_t0: int, seed: int,
-                    temperature: Optional[float], cl: int, S: Optional[int] = None,
+                    temperature: Temperature, cl: int, S: Optional[int] = None,
                     record=None) -> bool:
     """The cluster kernel on clusters of ``cl`` blocks, groups of ``S``
     streams (default: :func:`streams_a_group` over the clusters that fit);
@@ -901,8 +902,7 @@ def _launch_cluster(pack: WaveNetPack, prompt, state: WaveNetDecodeState, t0: in
     _check(out, "out", torch.int32, (B, out.shape[1]), dev)
     if prior_t < 1 or t0 < 1 or n_steps < 0:
         raise ValueError("empty prompt, t0 below 1 or negative step count")
-    if temperature is not None and not temperature > 0:
-        raise ValueError(f"temperature must be > 0, got {temperature}")
+    temps = row_temperatures(temperature, B, dev)
     if S is None:
         S = streams_a_group(pack, cl, B, clusters_that_fit(pack, cl))
     cw, tabs, plan = cluster_layout(pack, cl, S)
@@ -921,9 +921,9 @@ def _launch_cluster(pack: WaveNetPack, prompt, state: WaveNetDecodeState, t0: in
     a.out, a.barriers = out.data_ptr(), barriers.data_ptr()
     a.t0, a.out_t0, a.n_steps, a.out_len = t0, out_t0, n_steps, out.shape[1]
     a.B, a.prior_t = B, prior_t
-    a.argmax = int(temperature is None)
+    a.argmax = int(temps is None)
     a.seed = seed & 0xFFFFFFFF
-    a.temperature = 1.0 if temperature is None else float(temperature)
+    a.temperature = None if temps is None else temps.tensor.data_ptr()
     clusters = ctypes.c_int(0)
     err = lib.mmk_wc_decode(ctypes.byref(a), cl, torch.cuda.current_stream(dev).cuda_stream,
                             ctypes.byref(clusters), 0)
@@ -945,13 +945,14 @@ def _kernel_for(pack: WaveNetPack, B: int, cl: Optional[int]) -> int:
 
 
 def decode_single(pack: WaveNetPack, prompt: torch.Tensor, n_steps: int, seed: int,
-                  temperature: Optional[float], group: Optional[int] = None,
+                  temperature: Temperature, group: Optional[int] = None,
                   cl: Optional[int] = None) -> torch.Tensor:
     """K4's route: decode ``n_steps`` tokens after ``prompt`` (B, prior_t) in
     one launch, from zero rings.  Returns (B, n_steps) int32.  A CUDA batch
     takes the kernel :func:`route` names (``cl`` overrides it: 0 the block
     kernel, 16 the cluster kernel on clusters of 16)."""
     B, prior_t = prompt.shape
+    temperature = row_temperatures(temperature, B, prompt.device)
     state = init_decode_state(pack, prompt)
     n = prior_t + n_steps - 1
     if prompt.device.type == "cpu":
@@ -970,7 +971,7 @@ def decode_single(pack: WaveNetPack, prompt: torch.Tensor, n_steps: int, seed: i
 
 
 def decode_chunk(pack: WaveNetPack, prompt: torch.Tensor, state: WaveNetDecodeState, t0: int,
-                 n_steps: int, seed: int, temperature: Optional[float],
+                 n_steps: int, seed: int, temperature: Temperature,
                  group: Optional[int] = None, cl: Optional[int] = None) -> torch.Tensor:
     """K5's route: run steps ``t0 .. t0+n_steps-1`` on ``state`` (updated in
     place).  Returns the chunk's tokens, (B, n_steps) int32: column j holds
@@ -978,6 +979,7 @@ def decode_chunk(pack: WaveNetPack, prompt: torch.Tensor, state: WaveNetDecodeSt
     CUDA batch takes the kernel :func:`route` names (``cl`` as
     :func:`decode_single`'s)."""
     B = prompt.shape[0]
+    temperature = row_temperatures(temperature, B, prompt.device)
     if prompt.device.type == "cpu":
         return decode_plain(pack, prompt, state, t0, n_steps, t0, n_steps, seed, temperature)
     out = torch.empty(B, n_steps, dtype=torch.int32, device=prompt.device)

@@ -278,14 +278,14 @@ def _expected(port, B):
 
 
 @pytest.mark.parametrize("net", PLANNED)
-@pytest.mark.parametrize("B", [1, 2, 7, 8, 15, 16, 60, 61, 64, 200])
+@pytest.mark.parametrize("B", [1, 2, 7, 8, 15, 16, 45, 46, 60, 61, 64, 200])
 def test_route_by_batch(port, net, B):
     """Clusters of 16 blocks up to 7 streams, of 8 up to 15
     (``K8_CLUSTER_ROUTE``), then the group kernel up to
     ``K8_GROUP_ROUTE``'s limit, the block kernel beyond, for chunks of 7,
     64 and 1,600 steps alike."""
     assert port["route"].tolist() == [[7, 16], [15, 8]]
-    assert port["group_route"].tolist() == [[60, 8]]
+    assert port["group_route"].tolist() == [[45, 8]]
     assert int(port["limit"]) == 15
     assert port[f"net_{net}/route_b{B}"].tolist() == [_expected(port, B)] * 3
 

@@ -33,8 +33,9 @@
   step (JAX's names mapped to torch's) and puts the previous value back;
   ``steps_per_dispatch`` and ``flat_optimizer`` (TPU dispatch and optimizer
   layout) leave the losses as they are;
-* unported ``trainer_kwargs`` (and ``MONITOR_TRAINING``) raise
-  ``NotImplementedError`` naming the key.
+* unported ``trainer_kwargs`` raise ``NotImplementedError`` naming the key
+  (``remat``, ``loss_logs_file`` and ``MONITOR_TRAINING`` run:
+  ``tests/test_torch_train_monitor.py``).
 
 JAX runs in this process; the port in one subprocess for the module
 (``torch_port_worker.py train``).
@@ -296,8 +297,7 @@ def test_tpu_dispatch_kwargs_are_no_ops(case, key):
     np.testing.assert_array_equal(port[f"noop/{key}"], port["losses"])
 
 
-@pytest.mark.parametrize("key", ["remat", "data_parallel", "n_model", "fsdp", "loss_logs_file",
-                                 "MONITOR_TRAINING"])
+@pytest.mark.parametrize("key", ["data_parallel", "n_model", "fsdp"])
 def test_unported_trainer_kwargs_raise(case, key):
     _, port, _ = case
     msg = str(port[f"unported/{key}"])

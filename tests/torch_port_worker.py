@@ -338,14 +338,9 @@ def train_task(inp: dict) -> dict:
         nloop.run()
         out[f"noop/{key}"] = np.array([h["loss"] for _, h in nloop.metrics.history])
 
-    for key, value in (("remat", True), ("data_parallel", True),
-                       ("n_model", 2), ("fsdp", True), ("loss_logs_file", "l.h5"),
-                       ("MONITOR_TRAINING", True)):
+    for key, value in (("data_parallel", True), ("n_model", 2), ("fsdp", True)):
         bad = copy.deepcopy(cfg)
-        if key == "MONITOR_TRAINING":
-            bad.MONITOR_TRAINING = True
-        else:
-            bad.trainer_kwargs[key] = value
+        bad.trainer_kwargs[key] = value
         try:
             mmk.TrainARMLoop.from_config(bad, db, net)
             out[f"unported/{key}"] = np.array("ran")
@@ -1009,7 +1004,7 @@ def jukebox_cluster_task(inp: dict) -> dict:
                 cw, tabs, _ = jbd.group_layout(pack, cl, S)
                 _jukebox_plan_data(out, f"{p}g{cl}s{S}/", pack, plan, cw, tabs)
         routes = jbd.K8_CLUSTER_ROUTE + jbd.K8_GROUP_ROUTE
-        for B in sorted({1, 2, 64, 200} | {b + e for b, _ in routes for e in (0, 1)}):
+        for B in sorted({1, 2, 60, 61, 64, 200} | {b + e for b, _ in routes for e in (0, 1)}):
             taken.clear()
             window = torch.zeros(B, pack.window, dtype=torch.int32, device="meta")
             for n in (7, 64, 1600):  # chunks of several lengths
@@ -1774,6 +1769,472 @@ def lstm_wide_layout_task(inp: dict) -> dict:
     return out
 
 
+# -- per-row temperatures ----------------------------------------------------------------
+
+def _jittered(net, seed, scale):
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p_ in net.parameters():
+            p_.add_(torch.randn(p_.shape, generator=g) * scale)
+    return net.eval()
+
+
+def _temperature_nets():
+    """The small nets of each family (weights from a seed, jittered so the
+    decodes vary), on the CPU."""
+    def io(emb, **kw):
+        return mmk.IOSpec.mulaw_io(mmk.IOSpec.MuLawIOConfig(
+            q_levels=32, mlp_dim=16, input_module_type="embedding" if emb else "framed_linear",
+            **kw))
+
+    return {
+        "samplernn": _jittered(mmk.SampleRNN.from_config(mmk.SampleRNN.Config(
+            frame_sizes=(8, 4, 2), hidden_dim=16, io_spec=io(False)), device="cpu", seed=1), 2,
+            0.5),
+        "wavenet": _jittered(mmk.WaveNet.from_config(mmk.WaveNet.Config(
+            io_spec=io(True), blocks=(3,), dims_dilated=(16,), skips_dim=16, residuals_dim=16,
+            pad_side=0), device="cpu", seed=1), 2, 0.3),
+        "transformer": _jittered(mmk.SimpleTransformer.from_config(mmk.SimpleTransformer.Config(
+            io_spec=io(True), model_dim=32, n_heads=4, feedforward_dim=64, num_layers=2, rf=16,
+            input_dropout=0.0), device="cpu", seed=1), 2, 0.1),
+        "jukebox": _jittered(mmk.JukeBox.from_config(mmk.JukeBox.Config(
+            io_spec=io(False), frame_sizes=(8, 4, 2), model_dim=32, n_heads=4,
+            feedforward_dim=64, num_layers=2, rf=16, input_dropout=0.0), device="cpu", seed=1),
+            2, 0.1),
+    }
+
+
+class _Recorder:
+    """``torch`` with ``argmax`` recording its input (a decode's scores)."""
+
+    def __init__(self):
+        self.seen = []
+
+    def __getattr__(self, name):
+        return getattr(torch, name)
+
+    def argmax(self, x, *a, **k):
+        self.seen.append(x.clone())
+        return torch.argmax(x, *a, **k)
+
+
+def temperature_task(inp: dict) -> dict:
+    """Each decode path of each family at one temperature, a 1-tuple, one
+    temperature a row (``inp["temps"]``) and each row's own scalar, all with
+    one seed; a wrong length; and the plain twins' scores with the noise set
+    to zero, at argmax and at the per-row temperatures."""
+    from unittest import mock
+
+    from mimikit_tpu_torch.ops import jukebox_decode as jbd
+    from mimikit_tpu_torch.ops import noise
+    from mimikit_tpu_torch.ops import transformer_decode as td
+    from mimikit_tpu_torch.ops import transformer_kv as tk
+    from mimikit_tpu_torch.ops import wavenet_decode as wd
+
+    torch.set_num_threads(1)
+    temps = tuple(float(x) for x in inp["temps"])
+    B, n, seed = len(temps), int(inp["n_steps"]), 5
+    nets = _temperature_nets()
+    g = torch.Generator().manual_seed(3)
+    prompts = {k: torch.randint(0, 32, (B, L), generator=g, dtype=torch.int32)
+               for k, L in (("samplernn", 16), ("wavenet", 16), ("wavenet_short", 4),
+                            ("transformer", 32), ("jukebox", 32))}
+    chunked = copy.deepcopy(nets["samplernn"])
+    chunked._CHUNKED_MIN_B, chunked._CHUNK = 1, 16
+    k6_less = copy.deepcopy(nets["transformer"])
+    k6_less._K6_MAX_BATCH = 0
+
+    def stream(net, prompt, chunk, **kw):
+        return _stream(net, prompt, chunk, n // chunk, **kw)
+
+    def kv_stream(prompt, **kw):
+        with _env(MMK_DECODE_KV="1"):
+            return stream(nets["transformer"], prompt, 8, **kw)
+
+    def jukebox_window(prompt, **kw):
+        with mock.patch.object(jbd, "supports_kernel_decode", lambda net: False):
+            return nets["jukebox"].generate((prompt,), n, **kw)[0].numpy()
+
+    paths = {
+        "samplernn": lambda p, **kw: nets["samplernn"].generate((p,), n, **kw)[0].numpy(),
+        "samplernn_chunked": lambda p, **kw: chunked.generate((p,), n, **kw)[0].numpy(),
+        "samplernn_stream": lambda p, **kw: stream(nets["samplernn"], p, 8, **kw),
+        "wavenet": lambda p, **kw: nets["wavenet"].generate((p,), n, **kw)[0].numpy(),
+        "wavenet_stream": lambda p, **kw: stream(nets["wavenet"], p, 8, **kw),
+        "wavenet_step_loop": lambda p, **kw: nets["wavenet"].generate((p,), n, **kw)[0].numpy(),
+        "transformer": lambda p, **kw: nets["transformer"].generate((p,), n, **kw)[0].numpy(),
+        "transformer_window": lambda p, **kw: k6_less.generate((p,), n, **kw)[0].numpy(),
+        "transformer_kv": kv_stream,
+        "jukebox": lambda p, **kw: nets["jukebox"].generate((p,), n, **kw)[0].numpy(),
+        "jukebox_stream": lambda p, **kw: stream(nets["jukebox"], p, 8, **kw),
+        "jukebox_window": jukebox_window,
+    }
+    prompt_of = {"wavenet_step_loop": "wavenet_short"}
+    out = {}
+    for name, run in paths.items():
+        p = prompts[prompt_of.get(name, name.split("_")[0])]
+        out[f"{name}/scalar"] = run(p, temperature=temps[0], seed=seed)
+        out[f"{name}/one"] = run(p, temperature=(temps[0],), seed=seed)
+        out[f"{name}/rows"] = run(p, temperature=temps, seed=seed)
+        out[f"{name}/each"] = np.stack([run(p, temperature=v, seed=seed)[b]
+                                        for b, v in enumerate(temps)])
+        try:
+            run(p, temperature=temps + temps[:1], seed=seed)
+            out[f"{name}/wrong"] = np.array("ran")
+        except Exception as e:  # noqa: BLE001 - the type is the result
+            out[f"{name}/wrong"] = np.array(type(e).__name__)
+
+    # the plain twins' scores, the noise set to zero: argmax, then per-row
+    zero = lambda seed_, t_, B_, Q, dev: torch.zeros(B_, Q, device=dev)  # noqa: E731
+    srnn, wn, tf, jb = (nets[k] for k in ("samplernn", "wavenet", "transformer", "jukebox"))
+    wpack, tpack, jpack = (wd.wavenet_weight_pack(wn), td.transformer_weight_pack(tf),
+                           jbd.jukebox_weight_pack(jb))
+
+    def twin_scores(t):
+        res = {}
+        p = prompts["samplernn"]
+        res["samplernn"] = sd.decode_plain(srnn, p, sd.init_decode_state(srnn, p), srnn.rf, n,
+                                           srnn.rf, n, seed, t, return_scores=True)[1]
+        p = prompts["wavenet"]
+        res["wavenet"] = wd.decode_plain(wpack, p, wd.init_decode_state(wpack, p), 1, n, 1, n,
+                                         seed, t, return_scores=True)[1]
+        p = prompts["transformer"]
+        res["transformer"] = td.decode_window_plain(tpack, p, p.shape[1], n, seed, t,
+                                                    return_scores=True)[1]
+        res["transformer_kv"] = tk.decode_chunk_plain(
+            tpack, p.t().contiguous(), tk.init_kv_state(tpack, p), 1, n, seed, t,
+            return_scores=True)[1]
+        rec = _Recorder()
+        p = prompts["jukebox"]
+        with mock.patch.object(jbd, "torch", rec):
+            jbd.decode_pyramid_plain(jpack, jbd.lead_window(p, jpack.window), p.shape[1], n,
+                                     seed, t)
+        res["jukebox"] = torch.stack(rec.seen)
+        return res
+
+    mods = (sd, wd, td, tk, jbd)
+    with contextlib.ExitStack() as stack:
+        for m in mods:
+            stack.enter_context(mock.patch.object(m, "gumbel_noise", zero))
+        logits, tempered = twin_scores(None), twin_scores(temps)
+    for k in logits:
+        # (B, steps, Q), as a step's logits reach the sampler
+        out[f"scores/{k}/logits"] = logits[k].transpose(0, 1).numpy()
+        out[f"scores/{k}/tempered"] = tempered[k].transpose(0, 1).numpy()
+    out["noise_is_the_decodes"] = np.array(all(m.gumbel_noise is noise.gumbel_noise
+                                               for m in mods))
+    return out
+
+
+# -- GenerateLoopV2 ------------------------------------------------------------------------
+
+_FROM_JAX = {"samplernn": (mmk.SampleRNN, mmk.samplernn_state_dict_from_jax),
+             "wavenet": (mmk.WaveNet, mmk.wavenet_state_dict_from_jax),
+             "transformer": (mmk.SimpleTransformer, mmk.transformer_state_dict_from_jax),
+             "jukebox": (mmk.JukeBox, mmk.jukebox_state_dict_from_jax)}
+
+
+def _net_from_jax(inp: dict, kind: str, ds):
+    """The port's ``kind`` net from the JAX-written YAML (bound to ``ds``),
+    with the JAX weights, on the CPU."""
+    cls, to_sd = _FROM_JAX[kind]
+    cfg = mmk.Config.deserialize(str(inp[f"{kind}/yaml"]))
+    cfg.io_spec.bind_to(ds)
+    net = cls.from_config(cfg, device="cpu")
+    net.load_state_dict(to_sd(unflatten(inp, f"{kind}/params/")), strict=True)
+    return net
+
+
+def _gen_config(inp: dict, pre: str = "", **kw):
+    """The loop's config from ``inp``'s ``<pre>output_sec``, ``<pre>prompt_sec``
+    and ``<pre>positions``."""
+    return mmk.GenerateLoopV2.Config(
+        output_duration_sec=float(inp[pre + "output_sec"]),
+        prompts_length_sec=float(kw.pop("prompt_sec", inp[pre + "prompt_sec"])),
+        prompts_position_sec=tuple(float(x) for x in inp[pre + "positions"]),
+        parameters=dict(temperature=None), batch_size=int(inp["batch_size"]),
+        display_waveform=False, **kw)
+
+
+def _loop_outputs(loop):
+    return np.concatenate([np.asarray(o[0]) for o in loop.run()], 0)
+
+
+class _UntilARM(mmk.ARM):
+    """A two-input, two-target ARM whose step writes one step of the first
+    buffer and three of the second (the loop then visits every third step),
+    as ``tests/test_generate_loop``'s JAX counterpart of ``TestARM``."""
+
+    @classmethod
+    def from_config(cls, config):
+        return cls()
+
+    def __init__(self):
+        super().__init__()
+        self.fc = torch.nn.Linear(1, 1)
+
+    config = property(lambda self: None)
+    rf = property(lambda self: 8)
+    generate_params = property(lambda self: set())
+
+    def train_batch(self, item_spec):
+        raise NotImplementedError
+
+    def test_batch(self, item_spec):
+        raise NotImplementedError
+
+    def before_generate(self, prompts, batch_index):
+        self.calls = 0
+
+    def generate_step(self, inputs, *, t=0, **parameters):
+        self.calls += 1
+        x0, x1 = inputs
+        return x0[:, -1:] * 0.5 + t, (torch.cat([x1[:, -1:] + k for k in range(3)], 1) % 256)
+
+    def after_generate(self, final_outputs, batch_index):
+        self.done = True
+
+
+def generate_loop_task(inp: dict) -> dict:
+    """GenerateLoopV2 over the JAX-written dataset for each net (argmax
+    tokens and mu-law expanded outputs), SampleRNN's stepwise loop (a prompt
+    of a multiple of rf samples and one with an offset), the warning of a
+    ``generate`` that takes no temperature, and the until-writing ARM."""
+    torch.set_num_threads(1)
+    ds = mmk.DatasetConfig(sources=(str(inp["wav"]),), filename=str(inp["jax_h5"]),
+                           extractors=(mmk.Extractor.signal(int(inp["sr"])),))
+    db = ds.get(mode="r")
+    out = {}
+    for kind in _FROM_JAX:
+        net = _net_from_jax(inp, kind, ds)
+        loop = mmk.GenerateLoopV2.from_config(_gen_config(inp, yield_inversed_outputs=False),
+                                              db, net)
+        out[f"{kind}/n_steps"] = np.array(loop.n_steps)
+        out[f"{kind}/tokens"] = _loop_outputs(loop)
+        out[f"{kind}/training_restored"] = np.array(net.training)
+        loop = mmk.GenerateLoopV2.from_config(_gen_config(inp), db, net)
+        out[f"{kind}/audio"] = _loop_outputs(loop)
+    srnn = _net_from_jax(inp, "samplernn", ds).eval()
+    for tag, prompt_sec in (("aligned", inp["step_prompt_sec"]),
+                            ("offset", inp["offset_prompt_sec"])):
+        cfg = _gen_config(inp, "step_", prompt_sec=prompt_sec, yield_inversed_outputs=False)
+        loop = mmk.GenerateLoopV2.from_config(cfg, db, srnn)
+        batch = next(iter(loop.dataloader))
+        idx, batch = np.asarray(batch[0]).reshape(-1), batch[1:]
+        out[f"stepwise/{tag}"] = loop._stepwise(batch, idx, {"temperature": None})[0]
+        out[f"stepwise/{tag}/generate"] = srnn.generate(batch, loop.n_steps)[0].numpy()
+    # a generate that does not take the temperature: the stepwise loop, and a warning
+    cfg = _gen_config(inp, "step_", yield_inversed_outputs=False)
+    out["warned/generate"] = _loop_outputs(mmk.GenerateLoopV2.from_config(cfg, db, srnn))
+    gen = srnn.generate
+    srnn.generate = lambda prompts, n_steps: gen(prompts, n_steps)
+    loop = mmk.GenerateLoopV2.from_config(cfg, db, srnn)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        out["warned/tokens"] = _loop_outputs(loop)
+        _loop_outputs(loop)  # once a loop
+    out["warned/messages"] = np.array([str(w.message) for w in caught])
+    # the until-writing ARM
+    arm = _UntilARM()
+    loop = mmk.GenerateLoopV2(mmk.GenerateLoopV2.Config(), arm, int(inp["until_steps"]), None)
+    res = loop._stepwise((inp["until_x0"], inp["until_x1"]), np.arange(2), {})
+    out["until/x0"], out["until/x1"] = res
+    out["until/calls"], out["until/done"] = np.array(arm.calls), np.array(arm.done)
+    db.close()
+    return out
+
+
+# -- the loggers, audio in and out ---------------------------------------------------------
+
+def loggers_task(inp: dict) -> dict:
+    """``EpochMetrics``, ``LossLogger`` (h5py, then the npz container),
+    ``AudioLogger`` (a template, a WAV, the fallback of another extension, a
+    multichannel refusal), ``write_wav``, ``load_audio`` and ``FileToSignal``
+    across rates, and ``GradNormCallback.grad_norm``."""
+    from mimikit_tpu_torch.data import h5
+    from mimikit_tpu_torch.features import audio_io
+    from mimikit_tpu_torch.loops import callbacks, logger
+
+    work, out = str(inp["work"]), {}
+    m = logger.EpochMetrics(print_fn=lambda *_: None)
+    m.on_epoch_start()
+    m.log_output({"loss": 2.0, "acc": 0.5})
+    m.log_output({"loss": 4.0, "acc": 1.0})
+    avg = m.averages()
+    out["metrics/avg"] = np.array([avg["loss"], avg["acc"]])
+    try:
+        m.check_loss(float("nan"))
+        out["metrics/nan"] = np.array("ran")
+    except RuntimeError as e:
+        out["metrics/nan"] = np.array(f"RuntimeError: {e}")
+    for backend in ("h5py", "npz"):
+        h5py_module = h5.h5py
+        if backend == "npz":
+            h5.h5py = None
+        try:
+            path = f"{work}/{backend}/logs/metrics.h5"
+            ll = logger.LossLogger(path)
+            ll.log_metrics({"loss": 1.5, "lr": 1e-3}, step=0)
+            ll.log_metrics({"loss": 1.25}, step=1)
+            ll.log_metrics({"loss": 1.0}, step=1)  # the same step again
+            m.flush_epoch(2, logger=ll)
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                with h5.File(path, "r") as f:
+                    out[f"{backend}/read"] = np.array(
+                        [float(f[k][0]) for k in ("0/loss", "0/lr", "1/loss", "2/loss", "2/acc")])
+                    out[f"{backend}/groups"] = np.array(sorted(f.keys()))
+            out[f"{backend}/path"] = np.array(path)
+        finally:
+            h5.h5py = h5py_module
+    y = inp["y"]
+    al = logger.AudioLogger(sr=8000, file_template=f"{work}/out/epoch={{epoch}}_p={{prompt_idx}}.wav")
+    out["audio/path"] = np.array(al.write(y, epoch=3, prompt_idx=7))
+    out["audio/torch_path"] = np.array(logger.AudioLogger(
+        sr=8000, file_template=f"{work}/out/t{{epoch}}.wav").write(torch.from_numpy(y), epoch=1))
+    out["audio/mp3_path"] = np.array(logger.AudioLogger(
+        sr=8000, file_template=f"{work}/out/take_{{epoch}}.mp3").write(y, epoch=1))
+    al.display(y, epoch=3, prompt_idx=7)
+    try:
+        al.to_numpy(np.zeros((2, 100, 3)))
+        out["audio/multichannel"] = np.array("ran")
+    except ValueError:
+        out["audio/multichannel"] = np.array("ValueError")
+    out["write_wav"] = np.array(audio_io.write_wav(f"{work}/loud.wav", 3 * y, 8000))
+    for sr in (22050, 16000):
+        out[f"load_audio/{sr}"] = audio_io.load_audio(str(inp["wav22"]), sr=sr)
+    out["load_audio/offset"] = audio_io.load_audio(str(inp["wav22"]), sr=16000, offset=0.1,
+                                                  duration=0.2)
+    out["file_to_signal"] = mmk.FileToSignal(16000)(str(inp["wav22"]))
+    out["file_to_signal/u8"] = mmk.FileToSignal(8000)(str(inp["wav_u8"]))
+    grads = [t(g) for g in (inp["g0"], inp["g1"])]
+    out["grad_norm"] = np.array([float(callbacks.GradNormCallback.grad_norm(grads, ord=o))
+                                 for o in (1.0, 2.0, 3.0)])
+    cb = callbacks.GradNormCallback()
+    cb.on_after_backward(dict(a=grads[0], b=grads[1]))
+    out["grad_norm/callback"] = np.array(cb.gradnorms)
+    out["is_notebook"] = np.array(callbacks.is_notebook())
+    return out
+
+
+# -- monitored training -----------------------------------------------------------------------
+
+def _pin_prompts(loop):
+    """The generation callback's prompt positions drawn from RandomState(0),
+    as the JAX side pins them."""
+    for cb in loop.callbacks:
+        if isinstance(cb, mmk.GenerateCallback):
+            s_ = cb.loop.dataloader.sampler
+            s_._rng = np.random.RandomState(0)
+            s_.indices = s_.draw_indices(s_.N, s_._indices)
+
+
+def train_monitor_task(inp: dict) -> dict:
+    """The default ``TrainARMConfig()`` on a short dataset; an interrupted,
+    monitored run resumed from its checkpoint (per-epoch losses, the loss
+    log, the output files); three steps under each ``remat`` value against
+    the plain run (f32 and bf16), with the LSTM forward's calls counted; the
+    values ``remat`` refuses."""
+    from unittest import mock
+
+    from mimikit_tpu_torch.loops.train_loops import remat_context
+    from mimikit_tpu_torch.ops import fused_lstm as fl
+
+    torch.set_num_threads(1)
+    work, out = str(inp["work"]), {}
+    # the defaults (MONITOR_TRAINING on), on 0.6 s at 8 kHz
+    ds8 = mmk.DatasetConfig(sources=(str(inp["wav8"]),), filename=f"{work}/short.h5",
+                            extractors=(mmk.Extractor.signal(8000),))
+    db8 = ds8.create(mode="w")
+    io8 = mmk.IOSpec.mulaw_io(mmk.IOSpec.MuLawIOConfig(q_levels=32, mlp_dim=16),
+                              extractor=ds8.extractors[0])
+    net8 = mmk.SampleRNN.from_config(mmk.SampleRNN.Config(frame_sizes=(8, 4, 2), hidden_dim=16,
+                                                          io_spec=io8), device="cpu")
+    shown = []
+    with mock.patch.object(mmk.AudioLogger, "display", lambda self, y, **kw: shown.append(kw)):
+        loop = mmk.TrainARMLoop.from_config(mmk.TrainARMConfig(root_dir=f"{work}/default"), db8,
+                                            net8)
+        out["default/callbacks"] = np.array([type(cb).__name__ for cb in loop.callbacks])
+        loop.run()
+    out["default/losses"] = np.array([h["loss"] for _, h in loop.metrics.history])
+    out["default/shown"] = np.array([[kw["epoch"], kw["prompt_idx"]] for kw in shown])
+    out["default/n_steps"] = np.array(loop.callbacks[1].loop.n_steps)
+
+    # an interrupted, monitored run resumed from its checkpoint
+    ds = mmk.DatasetConfig(sources=(str(inp["wav"]),), filename=str(inp["jax_h5"]),
+                           extractors=(mmk.Extractor.signal(16000),))
+    cfg = mmk.Config.deserialize(str(inp["train_yaml"]))
+    cfg.root_dir = f"{work}/monitored"
+    net_cfg = mmk.Config.deserialize(str(inp["net_yaml"]))
+    net_cfg.io_spec.bind_to(ds)
+
+    def fresh_net():
+        net = mmk.SampleRNN.from_config(net_cfg, device="cpu")
+        net.load_state_dict(mmk.samplernn_state_dict_from_jax(unflatten(inp, "params0/")))
+        return net
+
+    def stop(*_):
+        raise KeyboardInterrupt
+
+    first = mmk.TrainARMLoop.from_config(cfg, ds.get(mode="r"), fresh_net())
+    _pin_prompts(first)
+    first.on_train_epoch_end = stop
+    first.run()
+    resumed = mmk.TrainARMLoop.from_checkpoint(
+        mmk.Checkpoint(first.hash_, 1, cfg.root_dir, device="cpu"))
+    _pin_prompts(resumed)
+    out["resume/start"] = np.array([resumed.start_epoch, resumed.global_step])
+    resumed.run()
+    out["resume/losses"] = np.array([h["loss"] for _, h in first.metrics.history]
+                                    + [h["loss"] for _, h in resumed.metrics.history])
+    run_dir = f"{cfg.root_dir}/{first.hash_}"
+    out["resume/outputs"] = np.array(sorted(os.listdir(f"{run_dir}/outputs")))
+    out["resume/log_path"] = np.array(f"{run_dir}/{cfg.trainer_kwargs['loss_logs_file']}")
+    out["resume/end"] = np.array([resumed.global_step, resumed.opt.count])
+
+    # remat: three steps under each value against the plain run, f32 and bf16
+    rcfg = copy.deepcopy(cfg)
+    rcfg.MONITOR_TRAINING, rcfg.OUTPUT_TRAINING = False, ""
+    rcfg.trainer_kwargs.pop("loss_logs_file")
+
+    def dots(ctx, op, *args, **kwargs):
+        from torch.utils.checkpoint import CheckpointPolicy
+
+        return (CheckpointPolicy.MUST_SAVE if op in (torch.ops.aten.mm.default,
+                                                     torch.ops.aten.addmm.default)
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+
+    for dtype in ("float32", "bfloat16"):
+        for name, remat in (("plain", False), ("true", True), ("dots_saveable", "dots_saveable"),
+                            ("nothing_saveable", "nothing_saveable"),
+                            ("everything_saveable", "everything_saveable"), ("callable", dots)):
+            c = copy.deepcopy(rcfg)
+            c.root_dir = f"{work}/remat_{dtype}_{name}"
+            # a callable is no YAML: it goes to the loop after the config's True
+            c.trainer_kwargs = {**c.trainer_kwargs, "remat": remat if name != "callable" else True}
+            if dtype == "bfloat16":
+                c.trainer_kwargs["param_dtype"] = "bfloat16"
+            net = fresh_net()
+            with _counting(fl, "lstm_forward") as calls:
+                loop = mmk.TrainARMLoop.from_config(c, ds.get(mode="r"), net)
+                if name == "callable":
+                    loop.remat = remat_context(remat)
+                loop.run()
+            p = f"remat/{dtype}/{name}"
+            out[p + "/calls"] = np.array([calls[0], loop.global_step])
+            out[p + "/losses"] = np.array([h["loss"] for _, h in loop.metrics.history])
+            out.update(_flax_flat(net.state_dict(), p + "/params/"))
+    for name, remat in (("unknown", "offload_dot_with_no_batch_dims"), ("int", 3)):
+        c = copy.deepcopy(rcfg)
+        c.trainer_kwargs = {**c.trainer_kwargs, "remat": remat}
+        try:
+            mmk.TrainARMLoop.from_config(c, ds.get(mode="r"), fresh_net())
+            out[f"remat/refused/{name}"] = np.array("ran")
+        except (NotImplementedError, TypeError) as e:
+            out[f"remat/refused/{name}"] = np.array(f"{type(e).__name__}: {e}")
+    return out
+
+
 TASKS = {"lstm_route": lstm_route_task, "lstm_wide_layout": lstm_wide_layout_task,
          "lstm_plan": lstm_plan_task, "xla_rsqrt": xla_rsqrt_task, "wavenet_cluster": wavenet_cluster_task, "modules": modules_task, "sample_rnn": sample_rnn_task, "fused_lstm": fused_lstm_task,
          "train": train_task, "train_stateless": train_stateless_task,
@@ -1781,7 +2242,9 @@ TASKS = {"lstm_route": lstm_route_task, "lstm_wide_layout": lstm_wide_layout_tas
          "transformer": transformer_task, "jukebox": jukebox_task,
          "jukebox_cluster": jukebox_cluster_task, "samplernn_cluster": samplernn_cluster_task,
          "mulaw": mulaw_task, "bf16_decode": bf16_decode_task, "bf16_train": bf16_train_task,
-         "bf16_train_stateless": bf16_train_stateless_task, "xla_dot": xla_dot_task}
+         "bf16_train_stateless": bf16_train_stateless_task, "xla_dot": xla_dot_task,
+         "temperature": temperature_task, "generate_loop": generate_loop_task,
+         "loggers": loggers_task, "train_monitor": train_monitor_task}
 
 if __name__ == "__main__":
     task, src, dst = sys.argv[1:4]
