@@ -122,7 +122,7 @@ Phases (any failure exits non-zero; no exception is swallowed):
    run's fastest); transformer8l
    (``benchmarks/bench_decode.py:104-115``: d 256, 8 heads, ff 1,024, 8
    layers, rf 64) ``generate`` at B=1 x 4,096 after a 64-token prompt (one
-   K6 launch, its first 512 tokens verified), two chunks of the default
+   K6 launch, its first 256 tokens verified), two chunks of the default
    re-feed ``stream_audio`` at B=1 (each one ``generate``), ``stream_audio``
    with ``MMK_DECODE_KV=1`` at B=1 and B=16 (one K7 launch a 1,600-step
    chunk; chunk latencies against the 100 ms of audio a chunk holds),
@@ -134,7 +134,7 @@ Phases (any failure exits non-zero; no exception is swallowed):
    heads, ff 256, 2 layers a tier, rf 128) ``generate`` at B=1 and B=8 ×
    4,096 after a 128-token prompt (one launch of the cluster kernel each, in
    clusters of 16 and of 8 blocks), at B=16 and 32 (one of the group
-   kernel each) and at B=64 (one of the block kernel), the first 512 tokens
+   kernel each) and at B=64 (one of the block kernel), the first 256 tokens
    verified,
    ``stream_audio`` at B=1 (one launch of the cluster kernel a 1,600-step
    chunk, the window carried; equal to the expanded ``generate`` output),
@@ -175,7 +175,27 @@ Phases (any failure exits non-zero; no exception is swallowed):
    K1's cluster kernel launched by ``GenerateCallback`` (its time logged),
    the loss log read back; and one epoch under ``remat=True``, every loss
    finite and K3a launched twice a step for each tier;
-5. the LSTM forward's sweep (on clusters of 8 and 16 at the tier shapes, f32
+5. the recipes, on a 60 s synthesized wav (tones and noise): one train step
+   of ``mimikit_tpu/demos/srnn.py``'s net (``RECIPE``: eight tiers, frames
+   (256, 128, 64, 32, 16, 8, 4, 8), hidden 128, weight norm) on the card
+   against the same step on the CPU (loss within 1e-5 relative, every
+   gradient, each ``_g`` and ``_v``, within 1e-5 + 1e-3 * max|plain|), K3a
+   and K3b once a tier and no plain call; ``demos.srnn.demo`` as a user
+   starts it, cut to two epochs of eight steps (``RECIPE_SRNN``), its
+   monitor decoding four prompts at the recipe's four temperatures every
+   epoch through K1's cluster kernel, every LSTM call on the cluster
+   kernels, no plain call, a checkpoint an epoch; the trained net's decode
+   at B=4 (K1, through its route and on the block kernel) and B=64 (K2),
+   argmax and T=0.9, by teacher forcing as in phase 2; ``generate_chunks``
+   from its checkpoint (B=64, three chunks of 0.5 s after 5 s prompts, on
+   K2's cluster kernel), each chunk's prompt the tail of the track before
+   it, the file read back; the recipe net's train step (median of 3
+   windows, profiled) and its decode a step at B=4 and 64 timed;
+   ``demos.serving.demo`` cut to one epoch: its ten 1,600-step stream chunks
+   (p50 and p95 of their latencies) and its sharded decode (one card: the
+   unsharded fallback, with its warning), then ``sharded_generate`` at B=8
+   over ``[cuda:0, cuda:0]``, argmax rows equal to the unsharded call's;
+6. the LSTM forward's sweep (on clusters of 8 and 16 at the tier shapes, f32
    and bf16, against ``LSTM_FWD_ROUTE``) and the backward's (its walk on
    clusters of 8 and 16, against ``LSTM_BWD_ROUTE``; the walk and dWh split
    by the profiler); each wrapper, its plain twin and (for the LSTM
@@ -194,7 +214,8 @@ Phases (any failure exits non-zero; no exception is swallowed):
    route takes; K1's, K2's, K4's, K5's and K8's group kernel's rows carry
    the block kernel's time on the same inputs (K1's also its cluster
    launches on the main path, ``cluster_launches``), measured in the same run, under
-   ``block_kernel_ms``), the card line, and the device line last.
+   ``block_kernel_ms``; K1's, K2's, K3a's and K3b's rows carry their launches
+   in phase 5, ``recipe_launches``), the card line, and the device line last.
 
 ``--quick`` runs phases 1-2 at the small size only (a build check);
 ``--bench`` runs phase 1, phase 3's timings without the checks, decode_chunk's
@@ -265,7 +286,7 @@ LSTM_SHAPES = ((12, 4, 8, 16), (128, 32, 256, 256), (256, 32, 256, 256))
 # (T, B, D, H) of the wide route's checks (K3a-wide, K3b-wide: a cluster cannot hold
 # Wh): JAX's seq2seq training shape (mimikit_tpu/modules/rnn.py:104-106, B=32 x T=8,
 # networks/s2s_lstm.py:142's model_dim 512), a SampleRNN tier's T at H=512, and the
-# wide route's limit, f32; then bf16 at H=768 and at the limit.  The phase-5 rows
+# wide route's limit, f32; then bf16 at H=768 and at the limit.  The phase-6 rows
 # time the wider tier shape of the training path at the widths phase 4 trains
 LSTM_WIDE_SHAPES = ((8, 32, 512, 512), (128, 32, 512, 512), (64, 32, 1024, 1024))
 LSTM_WIDE_BF16_SHAPES = ((128, 32, 768, 768), (64, 32, 1024, 1024))
@@ -316,7 +337,7 @@ WN_N, WN_SMALL_B, WN_STREAM_B, WN_STREAM_CHUNKS = 2048, 8, 64, 8
 # kernels (WN_CLUSTER_ROUTE must send each B within WN_SWEEP_TIE of the
 # run's fastest choice), in rounds of one call each, 3 rounds a B and 9 at
 # B=128, where the two kernels lie ~3 % apart; the WaveNet twins' timed steps
-# in phase 5 (scaled: a step of the twin costs the same whatever t)
+# in phase 6 (scaled: a step of the twin costs the same whatever t)
 WN_CLUSTER_BATCHES = (8, 37, 256)
 WN_SWEEP_BATCHES, WN_SWEEP_N, WN_SWEEP_TIE = (1, 8, 32, 64, 128, 256), 512, 0.02
 WN_SWEEP_ROUNDS, WN_PLAIN_STEPS = {128: 9}, 256
@@ -337,8 +358,8 @@ TF_FULL = dict(model_dim=256, n_heads=8, feedforward_dim=1024, num_layers=8, rf=
                q_levels=256, mlp_dim=128)
 TF_SMALL = dict(model_dim=32, n_heads=4, feedforward_dim=64, num_layers=2, rf=16, q_levels=32,
                 mlp_dim=16)
-TF_N, TF_N16, TF_KV_B, TF_KV_CHUNKS, TF_VERIFY, TF_PLAIN_STEPS = 4096, 256, 16, 6, 512, 64
-SRN_PLAIN_STEPS = 512  # the SampleRNN twins' timed steps (phase 5), scaled
+TF_N, TF_N16, TF_KV_B, TF_KV_CHUNKS, TF_VERIFY, TF_PLAIN_STEPS = 4096, 256, 16, 6, 256, 64
+SRN_PLAIN_STEPS = 512  # the SampleRNN twins' timed steps (phase 6), scaled
 TF_WIN_BATCHES, TF_KV_BATCHES = (1, 2, 16), (1, 16, 32)  # phase 2's K6 and K7 checks
 # windows longer than an attention tile (TF_KT, 64 keys): the small net at rf 160
 # (three tiles, the last one partial), and transformer8l's widths at the rf 512 of
@@ -356,7 +377,11 @@ JB_FULL = dict(frame_sizes=(32, 16, 4), model_dim=128, n_heads=8, feedforward_di
                num_layers=2, rf=128, q_levels=256, mlp_dim=128)
 JB_SMALL = dict(frame_sizes=(8, 4, 2), model_dim=32, n_heads=4, feedforward_dim=64, num_layers=2,
                 rf=16, q_levels=32, mlp_dim=16)
-JB_N, JB_B, JB_VERIFY, JB_WIN_STEPS, JB_PLAIN_STEPS, JB_STREAM_CHUNKS = 4096, 16, 512, 64, 64, 6
+JB_N, JB_B, JB_VERIFY, JB_WIN_STEPS, JB_PLAIN_STEPS, JB_STREAM_CHUNKS = 4096, 16, 256, 64, 64, 6
+# the steps of phase 2's f32 K6/K7 check at the small width and of its K8 checks, small and
+# full width (cut from 200, 200 and 256, and TF_VERIFY and JB_VERIFY from 512, to keep the
+# script near 900 s with phase 5 added; each still runs several window lengths)
+TF_CHECK_N, JB_CHECK_N, JB_FULL_CHECK_N = 100, 100, 192
 # phase 2 checks K8 at these B through the route (clusters of 16 blocks, of 8, the
 # group kernel, then the block kernel: ops/jukebox_decode.K8_CLUSTER_ROUTE,
 # K8_GROUP_ROUTE: B = 16, 17 and 32 take the group kernel) and the group kernel at
@@ -376,6 +401,18 @@ MULAW_N = 2_646_000  # benchmarks/bench_preprocessing.py:33-59: 120 s at 22,050 
 ROW_TEMPERATURES, ROW_B, ROW_N = (1.0, 0.75, 0.5, 0.1), 6, 160
 # phase 4's monitored run: epochs (generation at the second), prompts' and outputs' seconds
 MONITOR_EPOCHS, MONITOR_SEC = 2, 0.25
+# phase 5, the recipes: mimikit_tpu/demos/srnn.py's net at its own widths (eight tiers,
+# hidden 128, a Mish head with no hidden layer of 128, weight norm), the demo's run cut to
+# two epochs of eight steps with audio monitoring (its four temperatures) every epoch,
+# generate_chunks from its checkpoint, and the serving demo cut to one epoch; the decode
+# checks' steps after a prompt of 2 rf, and the timed decodes' steps
+RECIPE = dict(frame_sizes=(256, 128, 64, 32, 16, 8, 4, 8), hidden_dim=128, q_levels=256,
+              mlp_dim=128)
+RECIPE_SRNN = dict(max_epochs=2, limit_train_batches=8, every_n_epochs=1,
+                   outputs_duration_sec=0.5)
+RECIPE_CHUNKS = dict(batch_size=64, n_chunks=3, chunk_seconds=0.5, prompt_seconds=5.0)
+RECIPE_SERVING = dict(max_epochs=1)
+RECIPE_N, RECIPE_TIMED_N, SERVING_SHARD_B = 512, 4096, 8
 
 
 # the main paths' headline numbers, f32 and bf16, for the lines that print
@@ -578,13 +615,15 @@ def expect_caught(what, check):
 
 
 def check_kernels(torch, mmk, sd, spec, B_single, B_chunk, n, chunk_lens, jitter, bf16=False,
-                  control=False):
+                  control=False, net=None):
     """Phase 2 at one size, on the f32 pack or (``bf16``) the bf16 one, each
     against its own twin; returns {wrapper: largest score gap} (the bf16
     instantiation's keys end in ``_bf16``).  With ``control`` (bf16), the
     f32 instantiation on the bf16-valued weights (no input rounding) runs the
-    same calls, and the bf16 check must refuse its tokens."""
-    net = make_net(mmk, torch, spec, seed=1, jitter=jitter)
+    same calls, and the bf16 check must refuse its tokens.  ``net``: that
+    net (of ``spec``'s widths) in place of a new one."""
+    if net is None:
+        net = make_net(mmk, torch, spec, seed=1, jitter=jitter)
     pack = sd.samplernn_weight_pack(net, torch.bfloat16 if bf16 else torch.float32)
     ctl = sd.samplernn_weight_pack(bf16_valued(torch, net)) if control else None
     twin = pack if bf16 else net
@@ -1340,7 +1379,7 @@ def categorical_bound(rows, Q):
 
 
 def wavenet_rows(torch, wd, cat, net, prompts, launches, err):
-    """Phase 5 rows of K4, K5 and K9: kernel (the one ``WN_CLUSTER_ROUTE``
+    """Phase 6 rows of K4, K5 and K9: kernel (the one ``WN_CLUSTER_ROUTE``
     names), plain twin, yardstick, bound, and for K4 and K5 the block kernel
     on the same call (``block_kernel_ms``).  K5 has two rows: B=256 (the
     route's block kernel) and the stream's B=64 (its cluster kernel)."""
@@ -1869,7 +1908,7 @@ def kv_bound(pack, B, prior_t, n_steps):
 
 
 def transformer_rows(torch, td, tk, net, prompts, launches, err):
-    """Phase 5 rows of K6 and K7: kernel, plain twin (fewer steps, scaled),
+    """Phase 6 rows of K6 and K7: kernel, plain twin (fewer steps, scaled),
     bound.  No single PyTorch call computes either decode."""
     pack = td.transformer_weight_pack(net)
     p1, p16 = prompts[1], prompts[TF_KV_B]
@@ -2077,7 +2116,7 @@ def transformer_bf16_path(torch, mmk, td, tk, net, prompts):
 
 
 def bf16_rows(torch, sd, td, tk, net, p4, p256, tf_net, tf_prompts, launches, err):
-    """Phase 5 rows of the bf16 instantiations at the bf16 main paths'
+    """Phase 6 rows of the bf16 instantiations at the bf16 main paths'
     shapes: K1-bf16 (decode_single B=4), K2-bf16 (decode_chunk B=256), K7-bf16
     (B=16, steps 1-1,600); each plain twin (the bf16 twin) over fewer steps,
     scaled; bounds with the weights at 2 bytes and the operations at the
@@ -2652,7 +2691,7 @@ def mulaw_bound(n):
 
 
 def jukebox_rows(torch, jbd, mu, net, prompts, launches, err):
-    """Phase 5 rows of K8's three kernels (the block kernel at B=64, the
+    """Phase 6 rows of K8's three kernels (the block kernel at B=64, the
     route's shape, the cluster kernel at B=1, the group kernel at B=16 with
     the block kernel's time on the same inputs, ``block_kernel_ms``), K10a
     and K10b: kernel, plain twin (K8's over JB_PLAIN_STEPS steps, scaled),
@@ -3496,10 +3535,11 @@ def wide_train_path(torch, mmk, fl, ds, cfg32, H, param_dtype):
     return got
 
 
-def time_steps(torch, loop, label):
+def time_steps(torch, loop, label, card=None):
     """The train step as the loop runs it (gather + step) over TBPTT chunks:
     median of 3 windows of TRAIN_STEPS steps (CUDA events), then one window
-    profiled; the median goes to SUMMARY["train_step{label}_ms"]."""
+    profiled; the median goes to SUMMARY["train_step{label}_ms"] (the line
+    names ``card`` where given)."""
     def window():
         hidden = None
         for k, (inputs, targets) in enumerate(loop._batches()):
@@ -3513,7 +3553,7 @@ def time_steps(torch, loop, label):
     SUMMARY[f"train_step{label}_ms"] = med
     log(f"  train step{label} B={TRAIN_B} x {TRAIN_LEN}: {TRAIN_B * TRAIN_LEN / (med / 1e3):.6g}"
         f" samples/s (median of 3 windows of {TRAIN_STEPS} steps: {med:.4f} ms/step,"
-        f" spread {spr:.3%}; {ms})")
+        f" spread {spr:.3%}; {ms})" + (f" on {card}" if card else ""))
     profile_steps(torch, window)
 
 
@@ -3562,6 +3602,297 @@ def train_bf16_path(torch, mmk, fl, ds, cfg32, means32):
     time_steps(torch, loop, "_bf16")
     versus(f"SampleRNN-3 train step B={TRAIN_B} x {TRAIN_LEN}", "train_step_bf16_ms",
            "train_step_ms", "ms")
+    return launches
+
+
+def recipe_net(mmk, device, seed):
+    """``mimikit_tpu/demos/srnn.py``'s net (``RECIPE``; mu-law compression
+    0.5, ``min_temperature`` 1e-3, weight norm) on ``device``."""
+    io = mmk.IOSpec.mulaw_io(
+        config=mmk.IOSpec.MuLawIOConfig(sr=16000, compression=0.5, mlp_dim=RECIPE["mlp_dim"],
+                                        n_mlp_layers=0, min_temperature=1e-3),
+    )
+    cfg = mmk.SampleRNN.Config(rnn_class="lstm", n_rnn=1, rnn_dropout=0.0,
+                               frame_sizes=RECIPE["frame_sizes"],
+                               hidden_dim=RECIPE["hidden_dim"], weight_norm=True, io_spec=io)
+    return mmk.SampleRNN.from_config(cfg, device=device, seed=seed)
+
+
+@contextlib.contextmanager
+def plain_calls(fl, sd):
+    """Counts of the plain versions' calls made inside: the LSTM layer's
+    (``lstm_forward_plain``, ``lstm_backward_plain``) and the decode twin's
+    (``decode_plain``, also under the name SampleRNN imported)."""
+    from mimikit_tpu_torch.networks import sample_rnn as srn
+
+    counts = {"lstm_forward_plain": 0, "lstm_backward_plain": 0, "decode_plain": 0}
+    real = [(m, n, getattr(m, n)) for m, n in ((fl, "lstm_forward_plain"),
+                                                (fl, "lstm_backward_plain"),
+                                                (sd, "decode_plain"), (srn, "decode_plain"))]
+
+    def counting(name, f):
+        def run(*a, **kw):
+            counts[name] += 1
+            return f(*a, **kw)
+        return run
+
+    for m, n, f in real:
+        setattr(m, n, counting(n, f))
+    try:
+        yield counts
+    finally:
+        for m, n, f in real:
+            setattr(m, n, f)
+
+
+def reset_counts(*wrappers):
+    for w in wrappers:
+        for k in ("launches", "launches_bf16", "launches_cluster"):
+            if hasattr(w, k):
+                setattr(w, k, 0)
+
+
+def check_recipe_step(torch, mmk, fl, sd, card):
+    """One train step of the recipe net (B=32 x 2048) with the kernels on the
+    card against the same step on the CPU (plain versions): loss within 1e-5
+    relative, every gradient (each ``_g`` and ``_v`` among them) within
+    1e-5 + 1e-3 * max|plain|; the card step's LSTM calls all on the cluster
+    route (K3a and K3b once a tier) and no plain call."""
+    net = recipe_net(mmk, "cuda", seed=3)
+    g = torch.Generator().manual_seed(4)
+    q = RECIPE["q_levels"]
+    x = torch.randint(0, q, (TRAIN_B, net.rf + TRAIN_LEN), generator=g)
+    y = torch.randint(0, q, (TRAIN_B, TRAIN_LEN), generator=g)
+    runs = []
+    for n, dev in ((net, "cuda"), (copy.deepcopy(net).cpu(), "cpu")):
+        before = launch_counts(fl) + launch_counts(fl, "launches_bf16")
+        with plain_calls(fl, sd) as plain:
+            outputs, _ = n((x.to(dev),))
+            loss = n.config.io_spec.loss_fn(outputs, (y.to(dev),))["loss"]
+            loss.backward()
+            if dev == "cuda":
+                torch.cuda.synchronize()
+        ran = [a - b for a, b in zip(launch_counts(fl) + launch_counts(fl, "launches_bf16"),
+                                     before)]
+        runs.append((loss.item(), {k: p.grad.cpu() for k, p in n.named_parameters()}, ran,
+                     dict(plain)))
+    (lk, gk, ran, plain), (lp, gp, _, _) = runs
+    if not abs(lk - lp) <= 1e-5 * abs(lp):
+        raise AssertionError(f"recipe train step: loss kernels {lk!r}, plain {lp!r}")
+    worst = max(close(f"grad {k}", gk[k], gp[k], 1e-5, 1e-3) for k in gp)
+    wn = [k for k in gp if k.endswith(("_g", "_v"))]
+    tiers = len(RECIPE["frame_sizes"]) - 1
+    log(f"  recipe net train step B={TRAIN_B} x {TRAIN_LEN} ({card}): ok, loss kernels"
+        f" {lk:.7f} / plain {lp:.7f}, max |grad error| {worst:.3e} over {len(gp)} parameters"
+        f" ({len(wn)} of them weight norm's _g and _v); launches (forward, backward,"
+        f" forward_wide, backward_wide; f32 then bf16) {ran}, plain calls {plain}")
+    if ran != [tiers, tiers, 0, 0, 0, 0, 0, 0] or sum(plain.values()):
+        raise AssertionError(f"recipe train step: the LSTM calls did not all take the cluster"
+                             f" kernels once a tier: {ran}, plain calls {plain}")
+
+
+def recipe_wav(path, seconds=60, sr=16000):
+    """``seconds`` of tones and noise, 16-bit, seeded."""
+    from scipy.io import wavfile
+
+    t = np.arange(sr * seconds) / sr
+    rng = np.random.default_rng(SEED)
+    y = (0.4 * np.sin(2 * np.pi * 220 * t) + 0.2 * np.sin(2 * np.pi * 587 * t)
+         + 0.15 * np.sin(2 * np.pi * 97 * t * (1 + 0.1 * np.sin(2 * np.pi * 0.25 * t)))
+         + 0.05 * rng.standard_normal(t.size))
+    wavfile.write(path, sr, (y / np.abs(y).max() * 0.9 * 32767).astype(np.int16))
+
+
+def recipes_path(torch, mmk, fl, sd, card):
+    """Phase 5: the main path's recipes as a user starts them, on a 60 s
+    synthesized wav in a temporary directory.  Returns each kernel's
+    launches in them."""
+    import tempfile
+    import warnings
+
+    from mimikit_tpu_torch.data import h5
+    from mimikit_tpu_torch.demos import serving, srnn
+    from mimikit_tpu_torch.loops import generate as gen
+    from mimikit_tpu_torch.loops.generate_chunks import generate_chunks
+
+    check_recipe_step(torch, mmk, fl, sd, card)
+    lstm = (fl.lstm_forward, fl.lstm_backward, fl.lstm_forward_wide, fl.lstm_backward_wide)
+    decode = (sd.decode_single, sd.decode_chunk)
+    launches = {w.__name__: 0 for w in lstm[:2] + decode}
+
+    def add(what):
+        got = {w.__name__: w.launches for w in lstm[:2] + decode}
+        log(f"  {what}: launches {got}, of which the cluster kernels"
+            f" {[w.launches_cluster for w in decode]}")
+        for k, v in got.items():
+            launches[k] += v
+        return got
+
+    with tempfile.TemporaryDirectory() as work:
+        wav = os.path.join(work, "recipe.wav")
+        recipe_wav(wav)
+        # demos.srnn at its own net, monitored, checkpointed
+        reset_counts(*lstm, *decode)
+        t0 = time.perf_counter()
+        with plain_calls(fl, sd) as plain:
+            loop = srnn.demo(sources=(wav,), db_path=os.path.join(work, "train-srnn.h5"),
+                             root_dir=os.path.join(work, "trainings"), **RECIPE_SRNN)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        net = loop.net
+        losses = [h["loss"] for _, h in loop.metrics.history]
+        files = sorted(os.listdir(loop.root_dir))
+        got = add("demos.srnn")
+        tiers = len(RECIPE["frame_sizes"]) - 1
+        epochs = RECIPE_SRNN["max_epochs"]
+        log(f"  demos.srnn ({sum(p.numel() for p in net.parameters())} parameters):"
+            f" {loop.global_step} steps over {epochs} epochs in {wall:.2f} s (dataset, monitor"
+            f" and checkpoints included); losses {losses}; files {files}; plain calls {plain}")
+        if (tuple(net.config.frame_sizes) != RECIPE["frame_sizes"] or not net.config.weight_norm
+                or net.config.hidden_dim != RECIPE["hidden_dim"]):
+            raise AssertionError(f"the demo's net is not RECIPE's: {net.config}")
+        if len(losses) != epochs or not all(np.isfinite(losses)):
+            raise AssertionError(f"demos.srnn: epoch losses {losses} not finite")
+        if not {f"epoch={e}.ckpt" for e in range(1, epochs + 1)} <= set(files):
+            raise AssertionError(f"demos.srnn wrote {files}")
+        want = tiers * loop.global_step
+        if (got["lstm_forward"] != want or got["lstm_backward"] != want
+                or fl.lstm_forward_wide.launches or fl.lstm_backward_wide.launches
+                or sum(w.launches_bf16 for w in lstm) or sum(plain.values())):
+            raise AssertionError(f"demos.srnn: not every LSTM call on the cluster kernels ({want}"
+                                 f" each): {got}, plain calls {plain}")
+        if (got["decode_single"] < epochs
+                or sd.decode_single.launches_cluster != sd.decode_single.launches):
+            raise AssertionError("demos.srnn: the monitor did not decode through K1's cluster"
+                                 f" kernel each epoch: {got}")
+
+        # the demo net's decode, through K1 and K2, by teacher forcing
+        net.eval()
+        err = check_kernels(torch, mmk, sd, RECIPE, 4, 64, RECIPE_N, (RECIPE_N + 32, 100),
+                            jitter=0.0, net=net)
+        log(f"  the recipe net's decode checks: max gaps {err}")
+
+        # generate_chunks from the demo's checkpoint
+        reset_counts(*lstm, *decode)
+        run, seen = gen.GenerateLoopV2.run, []
+
+        def recorded(self):
+            if isinstance(self.dataloader, list):
+                seen.append(np.asarray(self.dataloader[0][1]).copy())
+            yield from run(self)
+
+        ck = mmk.Checkpoint(loop.hash_, epochs, os.path.join(work, "trainings"), device="cuda")
+        out = os.path.join(work, "chunked_outputs.h5")
+        gen.GenerateLoopV2.run = recorded
+        t0 = time.perf_counter()
+        with plain_calls(fl, sd) as plain, warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # the npz container's notice
+            try:
+                tracks = generate_chunks(ck, out_filename=out, **RECIPE_CHUNKS)
+            finally:
+                gen.GenerateLoopV2.run = run
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        B, n_chunks = RECIPE_CHUNKS["batch_size"], RECIPE_CHUNKS["n_chunks"]
+        n_prompt = int(16000 * RECIPE_CHUNKS["prompt_seconds"])
+        n_chunk = int(16000 * RECIPE_CHUNKS["chunk_seconds"])
+        with h5.File(out, "r") as f:
+            shapes = {k: tuple(f[k].shape) for k in sorted(f.keys())}
+            stored = np.concatenate([np.asarray(f[str(i)][:]) for i in range(n_chunks)], 1)
+        want = {"0": (B, n_prompt), **{str(i): (B, n_chunk) for i in range(1, n_chunks)}}
+        if shapes != want or not np.array_equal(stored, tracks):
+            raise AssertionError(f"generate_chunks wrote {shapes} (want {want}), or not the"
+                                 " tracks it returned")
+        for i, prompt in enumerate(seen, 1):
+            end = n_prompt + (i - 1) * n_chunk
+            if not np.array_equal(prompt, tracks[:, end - n_prompt : end]):
+                raise AssertionError(f"chunk {i}'s prompt is not the tail of the track before it")
+        got = add("generate_chunks")
+        log(f"  generate_chunks B={B}, {n_chunks} chunks of {n_chunk} steps after {n_prompt}-step"
+            f" prompts in {wall:.2f} s: {shapes} read back ({h5.backend()}); each chunk's prompt"
+            f" the tail of the track before it; plain calls {plain}")
+        k = sd.decode_chunk if B >= net._CHUNKED_MIN_B else sd.decode_single
+        if (len(seen) != n_chunks - 1 or k.launches == 0 or sum(plain.values())
+                or k.launches_cluster != k.launches):
+            raise AssertionError(f"generate_chunks: {len(seen)} chunk decodes, launches {got},"
+                                 f" not all on {k.__name__}'s cluster kernel; plain calls {plain}")
+
+        # the timings, beside the card's line
+        time_steps(torch, loop, "_recipe", card)
+        for Bt in (4, 64):
+            p = make_prompt(torch, Bt, 2 * net.rf, RECIPE["q_levels"], seed=20 + Bt)
+
+            def timed_decode():
+                net.generate((p,), RECIPE_TIMED_N, temperature=TEMPERATURE, seed=SEED)
+
+            timed_decode()
+            med, spr = spread(cuda_ms(torch, timed_decode, reps=3))
+            log(f"  recipe net generate B={Bt} x {RECIPE_TIMED_N} at T={TEMPERATURE}"
+                f" ({'decode_single' if Bt < net._CHUNKED_MIN_B else 'decode_chunk'}):"
+                f" {1e3 * med / RECIPE_TIMED_N:.3f} us a step (median of 3, spread {spr:.2%};"
+                f" the prompt's {net.rf} warm-up steps included) on {card}")
+
+        # demos.serving: its stream and its sharded decode
+        reset_counts(*lstm, *decode)
+        lat, taken = [], {}
+        real_stream, real_shard = mmk.stream_audio, mmk.parallel.sharded_generate
+
+        def timed_stream(*a, **kw):
+            it = real_stream(*a, **kw)
+            try:
+                t = time.perf_counter()
+                for chunk in it:
+                    lat.append(1e3 * (time.perf_counter() - t))
+                    yield chunk
+                    t = time.perf_counter()
+            finally:
+                it.close()
+
+        def shard(net_, prompts, n_steps, **kw):
+            taken["net"] = net_
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                outs = real_shard(net_, prompts, n_steps, **kw)
+            taken["warnings"] = [str(w.message) for w in caught]
+            return outs
+
+        mmk.stream_audio, mmk.parallel.sharded_generate = timed_stream, shard
+        t0 = time.perf_counter()
+        try:
+            with plain_calls(fl, sd) as plain:
+                audio, outs = serving.demo(sources=(wav,),
+                                           db_path=os.path.join(work, "train-serving.h5"),
+                                           root_dir=os.path.join(work, "trainings-serving"),
+                                           **RECIPE_SERVING)
+                torch.cuda.synchronize()
+        finally:
+            mmk.stream_audio, mmk.parallel.sharded_generate = real_stream, real_shard
+        wall = time.perf_counter() - t0
+        got = add("demos.serving")
+        if (len(lat) != 10 or audio.shape != (10 * 1600,) or not np.isfinite(audio).all()
+                or min(got.values()) == 0 or sum(plain.values())
+                or sd.decode_chunk.launches_cluster != sd.decode_chunk.launches):
+            raise AssertionError(f"demos.serving: {len(lat)} chunks, audio {audio.shape},"
+                                 f" launches {got}, plain calls {plain}")
+        log(f"  demos.serving in {wall:.2f} s (training included): 10 stream chunks of 1600"
+            f" steps, {latency_line(lat)} on {card}; sharded decode {outs[0].shape} (warnings"
+            f" {taken['warnings']})")
+        # sharded over two slices on the one card: argmax rows equal the unsharded call's
+        snet = taken["net"]
+        prompt = make_prompt(torch, SERVING_SHARD_B, 2 * snet.rf, 256, seed=31).cpu().numpy()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            a = mmk.parallel.sharded_generate(snet, (prompt,), 1600, temperature=None,
+                                              devices=[snet.device] * 2)[0]  # cuda:0 twice
+        if any("unsharded" in str(w.message) for w in caught):
+            raise AssertionError("sharded_generate over [cuda:0, cuda:0] did not shard")
+        b = snet.generate((prompt,), 1600, temperature=None)[0].cpu().numpy()
+        if not np.array_equal(a, b):
+            rows = [i for i in range(len(a)) if not np.array_equal(a[i], b[i])]
+            raise AssertionError(f"sharded_generate over [cuda:0, cuda:0]: rows {rows} differ"
+                                 " from the unsharded call's")
+        log(f"  sharded_generate B={SERVING_SHARD_B} x 1600 over [cuda:0, cuda:0], argmax: every"
+            " row equal to the unsharded call's")
     return launches
 
 
@@ -3701,15 +4032,15 @@ def main(argv=None) -> int:
                                                (215, 64), jitter=0.3))
     err.update(check_categorical(torch, cat))
     stamp("LSTM, WaveNet and the sampler, small")
-    err.update(check_transformer(torch, mmk, td, tk, TF_SMALL, 200, TF_WIN_BATCHES,
-                                 TF_KV_BATCHES, (200 + 15, 7, 64), jitter=0.5))
+    err.update(check_transformer(torch, mmk, td, tk, TF_SMALL, TF_CHECK_N, TF_WIN_BATCHES,
+                                 TF_KV_BATCHES, (TF_CHECK_N + 15, 7, 64), jitter=0.5))
     err.update(check_transformer(torch, mmk, td, tk, TF_SMALL, 150, (), TF_KV_BATCHES,
                                  (150 + 15, 7, 64), jitter=0.5, bf16=True, control=True))
     err = merge_max(err, check_transformer(torch, mmk, td, tk, TF_SMALL_LONG, 100, (1, 2), (1, 16),
                                            (100 + 15, 7, 64), jitter=0.5))
     stamp("K6 and K7, small, f32 and bf16")
-    err.update(check_jukebox(torch, mmk, jbd, JB_SMALL, JB_CHECK_BATCHES, 200,
-                             (200 + 15, 7, 64), jitter=0.3))
+    err.update(check_jukebox(torch, mmk, jbd, JB_SMALL, JB_CHECK_BATCHES, JB_CHECK_N,
+                             (JB_CHECK_N + 15, 7, 64), jitter=0.3))
     err.update(check_mulaw(torch, mu))
     stamp("K8 and K10, small")
     check_row_temperatures(torch, mmk, sd, wd, td, tk, jbd)
@@ -3748,8 +4079,8 @@ def main(argv=None) -> int:
     err_full = merge_max(err_full, check_transformer(torch, mmk, td, tk, TF_LONG, 48, (1, 2),
                                                      (1, 16), (48 + 63, 20), jitter=0.0))
     stamp("K6 and K7 at rf 512")
-    err_full.update(check_jukebox(torch, mmk, jbd, JB_FULL, JB_CHECK_BATCHES, 256,
-                                  (256 + 15, 100), jitter=0.0))
+    err_full.update(check_jukebox(torch, mmk, jbd, JB_FULL, JB_CHECK_BATCHES, JB_FULL_CHECK_N,
+                                  (JB_FULL_CHECK_N + 15, 100), jitter=0.0))
     stamp("K8, full width")
     need = fl.WIDE_BLOCKS // fl.WIDE_CL
     fits = {(H, str(dt).split(".")[-1], bw): fl.wide_clusters_that_fit(H, bw, dt)
@@ -3822,7 +4153,14 @@ def main(argv=None) -> int:
     train_launches = train_path(torch, mmk, fl, sd, mu)
 
     # -- phase 5 -------------------------------------------------------------
-    log("phase 5: each wrapper, its plain twin and its yardstick at the main paths' shapes"
+    log(f"phase 5: the recipes (at {time.perf_counter() - t_start:.1f} s)")
+    t_recipes = time.perf_counter()
+    recipe_launches = recipes_path(torch, mmk, fl, sd, card)
+    log(f"  the recipes took {time.perf_counter() - t_recipes:.1f} s; their launches"
+        f" {recipe_launches}")
+
+    # -- phase 6 -------------------------------------------------------------
+    log("phase 6: each wrapper, its plain twin and its yardstick at the main paths' shapes"
         f" (at {time.perf_counter() - t_start:.1f} s)")
 
     # each wrapper, and its plain twin (over SRN_PLAIN_STEPS steps, scaled), on one
@@ -3863,7 +4201,7 @@ def main(argv=None) -> int:
             name=name, route="cuda", source=sources[name], replaces=replaces[name],
             launches=launches[name], max_abs_err=err[name], ms=k_ms, plain_ms=p_ms,
             bound_ms=bound, bound_by=by, library_ms=None,
-            cluster_launches=cluster_launches[name],
+            cluster_launches=cluster_launches[name], recipe_launches=recipe_launches[name],
             **({"block_kernel_ms": b_ms} if b_ms is not None else {}),
         ))
     lstm_fwd_sweep(torch, fl)
@@ -3883,6 +4221,7 @@ def main(argv=None) -> int:
             name=name, route="cuda", source="mimikit_tpu_torch/csrc/fused_lstm.cu",
             replaces=f"mimikit_tpu/ops/pallas_lstm.py:{line}",
             launches=train_launches[name], max_abs_err=err[name], **lstm[name],
+            **({"recipe_launches": recipe_launches[name]} if name in recipe_launches else {}),
         ))
     rows += wavenet_rows(torch, wd, cat, wn_net, wn_prompts, wn_launches, err)
     rows += transformer_rows(torch, td, tk, tf_net, tf_prompts, tf_launches, err)

@@ -33,3 +33,5 @@ from .ops import *
 from .weights import *
 from .optim import *
 from .checkpoint import *
+from . import parallel
+from . import demos

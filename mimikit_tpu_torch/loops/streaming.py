@@ -17,16 +17,25 @@ enqueued on a side CUDA stream into pinned memory (``non_blocking``) as soon
 as the chunk's kernel is launched, and the host reads a chunk only after the
 NEXT chunk's kernel has been launched — so the copy and the host-side
 conversion overlap the next chunk's device work.  Tokens are unchanged; only
-the read moves one chunk behind.
+the read moves one chunk behind.  ``MMK_STREAM_PIPELINE=0`` opts out (as in
+the JAX package, ``mimikit_tpu/loops/streaming.py:35``): each chunk is read
+as soon as it is launched, with a plain synchronous copy, and the chunks are
+the same.
 """
 from __future__ import annotations
 
+import os
 from typing import Iterator, Tuple
 
 import numpy as np
 import torch
 
 __all__ = ["stream_tokens", "stream_audio"]
+
+
+def _pipeline_on() -> bool:
+    """False under ``MMK_STREAM_PIPELINE=0``."""
+    return os.environ.get("MMK_STREAM_PIPELINE", "1") != "0"
 
 
 def _to_host_async(x: torch.Tensor, copy_stream):
@@ -50,9 +59,11 @@ def _read_behind_chunks(dev_chunks, chunk_steps: int) -> Iterator[np.ndarray]:
     launches the next chunk (``out`` is a (B, C) tensor, possibly still being
     computed on the card) and ``drop`` counts prompt warm-up columns to
     discard.  Re-chunks the read columns into exact ``(B, chunk_steps)``
-    yields, one chunk behind the launch front."""
+    yields, one chunk behind the launch front (under ``MMK_STREAM_PIPELINE=0``
+    at it: each chunk copied and read before the next is launched)."""
     buf = None
     copy_stream = None
+    pipelined = _pipeline_on()
 
     def emit(host: np.ndarray, drop: int):
         nonlocal buf
@@ -64,6 +75,9 @@ def _read_behind_chunks(dev_chunks, chunk_steps: int) -> Iterator[np.ndarray]:
 
     pending = None
     for out, drop in dev_chunks:
+        if not pipelined:
+            yield from emit(out.cpu().numpy(), drop)
+            continue
         if out.is_cuda:
             if copy_stream is None:
                 copy_stream = torch.cuda.Stream(out.device)

@@ -4,7 +4,8 @@
 The last logit parameterizes a per-position temperature (sigmoid, floored at
 ``min_temperature``) dividing the remaining logits.  The dense layers live in
 ``self.fc`` interleaved with the activations, so the state_dict names are
-PyTorch mimikit's (``fc.0.weight``, ``fc.2.weight``, ...).
+PyTorch mimikit's (``fc.0.weight``, ``fc.2.weight``, ...; under
+``weight_norm`` ``fc.0.weight_g`` and ``fc.0.weight_v``).
 """
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ from torch import nn
 
 from . import rounding
 from .activations import Mish
-from .dense import Dense
+from .weight_norm import make_dense
 
 __all__ = ["MLP", "learned_temperature", "sigmoid"]
 
@@ -51,16 +52,21 @@ class MLP(nn.Module):
         use_bias: bool = True,
         dropout: float = 0.0,
         min_temperature: Optional[float] = 1e-4,
+        weight_norm: bool = False,
     ):
         super().__init__()
         act = activation if activation is not None else Mish()
         self.min_temperature = min_temperature
         self.dropout = dropout
-        layers = [Dense(in_dim, hidden_dim, bias=use_bias), act]
+
+        def dense(i, o):
+            return make_dense(i, o, bias=use_bias, weight_norm=weight_norm)
+
+        layers = [dense(in_dim, hidden_dim), act]
         for _ in range(n_hidden_layers):
-            layers += [Dense(hidden_dim, hidden_dim, bias=use_bias), act]
+            layers += [dense(hidden_dim, hidden_dim), act]
         out = out_dim + int(min_temperature is not None)
-        layers.append(Dense(hidden_dim, out, bias=use_bias))
+        layers.append(dense(hidden_dim, out))
         self.fc = nn.Sequential(*layers)
 
     def forward(self, x):

@@ -23,10 +23,10 @@ from ..config import Config, private_runtime_field
 from ..precision import compute_dtype
 from . import rounding
 from .activations import ActivationConfig
-from .dense import Dense
 from .heads import MLP
 from .resamplers import Conv1dResampler
 from .targets import OutputWrapper
+from .weight_norm import make_dense
 
 __all__ = [
     "EmbeddingIO",
@@ -120,8 +120,8 @@ class IOModule(Config, abc.ABC):
         ...
 
     def wrap(self, core: nn.Module, core_owns_after: bool = False) -> nn.Module:
-        if self.weight_norm or self.dropout1d > 0:
-            raise NotImplementedError("weight_norm and dropout1d are not ported")
+        if self.dropout1d > 0:
+            raise NotImplementedError("dropout1d is not ported")
         before = []
         if self.with_linearizer:
             before.append(Linearizer(self.class_size))
@@ -141,13 +141,14 @@ class IOModule(Config, abc.ABC):
 
 @dtc.dataclass
 class FramedLinearIO(IOModule):
-    """linearize + unfold(frame) + dense — the SampleRNN frame input."""
+    """linearize + unfold(frame) + dense — the SampleRNN frame input; its
+    dense under weight norm where ``weight_norm`` is set."""
 
     def module(self) -> nn.Module:
         self.not_none("frame_size", "hop_length", "out_dim", "class_size")
         self.with_linearizer = True
         self.with_unfold = True
-        return self.wrap(Dense(self.frame_size, self.out_dim))
+        return self.wrap(make_dense(self.frame_size, self.out_dim, weight_norm=self.weight_norm))
 
 
 class _Embedding(nn.Embedding):
@@ -211,6 +212,7 @@ class MLPIO(IOModule):
             use_bias=self.bias,
             dropout=self.dropout,
             min_temperature=self.min_temperature,
+            weight_norm=self.weight_norm,
         )
         self.activation = None
         return self.wrap(mod, core_owns_after=True)

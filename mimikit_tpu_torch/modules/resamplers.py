@@ -12,17 +12,21 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .dense import Dense
 from .rounding import bias_add
+from .weight_norm import make_dense
 
 __all__ = ["LinearResampler", "Conv1dResampler"]
 
 
 class LinearResampler(nn.Module):
-    def __init__(self, in_dim: int, t_factor: float, d_factor: float = 1):
+    """One dense layer (``fc``, under weight norm where ``weight_norm`` is
+    set) whose outputs are reshaped from features into ``t_factor`` steps."""
+
+    def __init__(self, in_dim: int, t_factor: float, d_factor: float = 1,
+                 weight_norm: bool = False):
         super().__init__()
         self.t_factor, self.d_factor = t_factor, d_factor
-        self.fc = Dense(in_dim, int(in_dim * t_factor * d_factor))
+        self.fc = make_dense(in_dim, int(in_dim * t_factor * d_factor), weight_norm=weight_norm)
 
     def forward(self, x):
         B, T, D = x.shape

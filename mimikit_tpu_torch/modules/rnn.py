@@ -21,6 +21,17 @@ versions); on the "scan" route, outside JAX's kernel gate, a step loop of
 and past the kernels' limits, where the card raises, the plain versions.
 :meth:`LSTM.step` advances one timestep (the decode path).
 
+Under ``weight_norm`` (flax's ``nn.WeightNorm`` around each
+``OptimizedLSTMCell``, ``mimikit_tpu/modules/rnn.py:89-90``) the eight gate
+kernels of a layer are normalised per unit, which in torch's packed i|f|g|o
+matrices is per row: the parameters are ``weight_ih_l{k}_g`` (4H,) and
+``weight_ih_l{k}_v`` (4H, H), and the same for ``weight_hh``
+(:func:`~.weight_norm.weight_norm`).  :meth:`LSTM.forward_seq` computes the
+effective weights once a call, under autograd, and they go through
+``lstm_route`` as a plain layer's do (JAX sends weight-normed stacks to its
+scan, a limit of flax's wrapper: the kernel computes the same function on
+the effective weights).
+
 Carry layout, as in the JAX package: a tuple over layers of ``(c, h)``
 pairs of (B, H) tensors.
 """
@@ -34,6 +45,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.fused_lstm import fused_lstm_layer, lstm_route
+from .weight_norm import weight_norm as _weight_norm
 
 __all__ = ["LSTM", "lstm_step", "init_rnn_carry"]
 
@@ -73,15 +85,21 @@ def init_rnn_carry(
 
 
 class LSTM(nn.Module):
-    def __init__(self, hidden_dim: int, n_layers: int = 1, dropout: float = 0.0):
+    def __init__(self, hidden_dim: int, n_layers: int = 1, dropout: float = 0.0,
+                 weight_norm: bool = False):
         super().__init__()
         self.hidden_size = hidden_dim
         self.num_layers = n_layers
         self.dropout = dropout
+        self.weight_norm = weight_norm
         H = hidden_dim
         for k in range(n_layers):
-            setattr(self, f"weight_ih_l{k}", nn.Parameter(torch.empty(4 * H, H)))
-            setattr(self, f"weight_hh_l{k}", nn.Parameter(torch.empty(4 * H, H)))
+            for w in (f"weight_ih_l{k}", f"weight_hh_l{k}"):
+                if weight_norm:
+                    setattr(self, f"{w}_g", nn.Parameter(torch.ones(4 * H)))
+                    setattr(self, f"{w}_v", nn.Parameter(torch.empty(4 * H, H)))
+                else:
+                    setattr(self, w, nn.Parameter(torch.empty(4 * H, H)))
             self.register_buffer(f"bias_ih_l{k}", torch.zeros(4 * H))
             setattr(self, f"bias_hh_l{k}", nn.Parameter(torch.empty(4 * H)))
         self._register_load_state_dict_pre_hook(self._fold_input_bias)
@@ -96,16 +114,29 @@ class LSTM(nn.Module):
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
         """PyTorch's LSTM initialisation, U(-1/sqrt(H), 1/sqrt(H)), drawn from
-        ``generator`` for the weights and the single bias; ``bias_ih`` stays 0."""
+        ``generator`` for the weights (under weight norm their ``_v``; ``_g``
+        is ones, flax's ``scale_init``) and the single bias; ``bias_ih``
+        stays 0."""
         bound = 1.0 / np.sqrt(self.hidden_size)
+        sfx = "_v" if self.weight_norm else ""
         for k in range(self.num_layers):
-            for name in (f"weight_ih_l{k}", f"weight_hh_l{k}", f"bias_hh_l{k}"):
+            for name in (f"weight_ih_l{k}{sfx}", f"weight_hh_l{k}{sfx}", f"bias_hh_l{k}"):
                 p = getattr(self, name)
                 p.copy_(torch.rand(p.shape, generator=generator) * (2 * bound) - bound)
+            if self.weight_norm:
+                getattr(self, f"weight_ih_l{k}_g").fill_(1.0)
+                getattr(self, f"weight_hh_l{k}_g").fill_(1.0)
             getattr(self, f"bias_ih_l{k}").zero_()
 
-    def _layer(self, k: int):
-        return (getattr(self, f"weight_ih_l{k}"), getattr(self, f"weight_hh_l{k}"),
+    def _weight(self, name: str) -> torch.Tensor:
+        if self.weight_norm:
+            return _weight_norm(getattr(self, f"{name}_v"), getattr(self, f"{name}_g"))
+        return getattr(self, name)
+
+    def layer_weights(self, k: int):
+        """Layer ``k``'s ``(W_ih, W_hh, b_ih, b_hh)`` in torch's layout (4H, H),
+        under weight norm the effective weights."""
+        return (self._weight(f"weight_ih_l{k}"), self._weight(f"weight_hh_l{k}"),
                 getattr(self, f"bias_ih_l{k}"), getattr(self, f"bias_hh_l{k}"))
 
     def step(self, x, carry):
@@ -113,7 +144,7 @@ class LSTM(nn.Module):
         new_carry = []
         y = x
         for layer, (c, h) in enumerate(carry):
-            c, y = lstm_step(y, c, h, *self._layer(layer))
+            c, y = lstm_step(y, c, h, *self.layer_weights(layer))
             new_carry.append((c, y))
         return y, tuple(new_carry)
 
@@ -134,10 +165,11 @@ class LSTM(nn.Module):
         ys = x.transpose(0, 1)
         new_carry = []
         for k, (c0, h0) in enumerate(carry):
-            w_ih, w_hh, b_ih, b_hh = self._layer(k)
+            weights = self.layer_weights(k)  # under weight norm computed once a call
+            w_ih, w_hh, b_ih, b_hh = weights
             route = lstm_route(B, T, self.hidden_size, dt, cpu=x.device.type == "cpu")
             if route == "scan":
-                ys, h_T, c_T = self._scan(k, ys, h0, c0)
+                ys, h_T, c_T = self._scan(ys, h0, c0, weights)
             else:
                 ys, h_T, c_T = fused_lstm_layer(ys, w_ih.t(), w_hh.t(), b_ih + b_hh, h0, c0,
                                                 route=route)
@@ -145,11 +177,12 @@ class LSTM(nn.Module):
             new_carry.append((c_T.to(dt), h_T.to(dt)))
         return ys.transpose(0, 1), tuple(new_carry)
 
-    def _scan(self, k: int, xs, h, c):
-        """Layer ``k`` over xs (T, B, D) as a step loop of :func:`lstm_step`:
-        ``(h_all (T, B, H), h_T, c_T)``."""
+    @staticmethod
+    def _scan(xs, h, c, weights):
+        """A layer of ``weights`` over xs (T, B, D) as a step loop of
+        :func:`lstm_step`: ``(h_all (T, B, H), h_T, c_T)``."""
         hs = []
         for x_t in xs:
-            c, h = lstm_step(x_t, c, h, *self._layer(k))
+            c, h = lstm_step(x_t, c, h, *weights)
             hs.append(h)
         return torch.stack(hs), h, c

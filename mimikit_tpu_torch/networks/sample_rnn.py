@@ -10,6 +10,11 @@ windows a training step reads; ``TrainARMLoop`` drives both.  ``test_batch``
 gives the prompts ``GenerateLoopV2`` reads, and ``before_generate``,
 ``generate_step`` and ``after_generate`` its stepwise loop (no kernel).
 
+``weight_norm=True`` (the recipe of ``demos/srnn.py``) puts weight norm
+where the JAX package does: on the upper tiers' input denses, the LSTMs, the
+up-samplers and the head's denses (``modules/weight_norm.py``).  Training
+and decoding read the effective weights, through the same kernels.
+
 Serving: ``generate`` and ``stream`` run on the network's device.  A network
 inside the decode kernel's scope (:func:`supports_kernel_decode`) on CUDA
 always goes through the hand-written kernel: ``decode_single`` for fewer than
@@ -39,6 +44,7 @@ from ..features.item_spec import ItemSpec
 from ..modules.io import FramedConv1dIO, FramedLinearIO, ZipReduceVariables
 from ..modules.resamplers import LinearResampler
 from ..modules.rnn import LSTM
+from ..modules.weight_norm import WeightNormDense
 from ..ops.samplernn_decode import (
     decode_chunk,
     decode_plain,
@@ -94,27 +100,28 @@ class SampleRNN(ARMWithHidden):
         """Build the network on ``device`` (default: the card), with weights
         drawn from ``seed``."""
         device = resolve_device(device)
-        if str(config.rnn_class) not in RNNType.__members__ or config.weight_norm:
-            raise NotImplementedError(
-                f"rnn_class={config.rnn_class!r}, weight_norm={config.weight_norm}"
-                " are not ported"
-            )
+        if str(config.rnn_class) not in RNNType.__members__:
+            raise NotImplementedError(f"rnn_class={config.rnn_class!r} is not ported")
         h, fs = config.hidden_dim, tuple(config.frame_sizes)
+        # weight norm where JAX puts it (sample_rnn.py:212-248): the upper tiers'
+        # inputs, the LSTMs, the up-samplers and the heads; not the bottom's conv
+        wn = config.weight_norm
         tiers, up_factors = [], []
         for i, f in enumerate(fs[:-1]):
             mods = tuple(
-                in_spec.module.copy().set(frame_size=f, hop_length=f, out_dim=h).module()
+                in_spec.module.copy().set(frame_size=f, hop_length=f, out_dim=h,
+                                          weight_norm=wn).module()
                 for in_spec in config.io_spec.inputs
             )
             up = f // (fs[i + 1] if i < len(fs) - 2 else 1)
             up_factors.append(up)
             rnn = (
-                LSTM(h, config.n_rnn, config.rnn_dropout)
+                LSTM(h, config.n_rnn, config.rnn_dropout, weight_norm=wn)
                 if str(config.rnn_class) == "lstm" else None
             )
             tiers.append(
                 Tier(ZipReduceVariables(config.inputs_mode, mods), rnn,
-                     LinearResampler(h, t_factor=up, d_factor=1))
+                     LinearResampler(h, t_factor=up, d_factor=1, weight_norm=wn))
             )
         mods = []
         for in_spec in config.io_spec.inputs:
@@ -128,7 +135,7 @@ class SampleRNN(ARMWithHidden):
             )
         tiers.append(Tier(ZipReduceVariables(config.inputs_mode, tuple(mods))))
         outputs = [
-            t_spec.module.copy().set(in_dim=h).module()
+            t_spec.module.copy().set(in_dim=h, weight_norm=wn).module()
             for t_spec in config.io_spec.targets
         ]
         net = cls(config=config, tiers=tiers, output_modules=outputs, up_factors=up_factors)
@@ -147,9 +154,10 @@ class SampleRNN(ARMWithHidden):
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
         """PyTorch's default initialisation, U(-1/sqrt(fan_in), 1/sqrt(fan_in)),
-        drawn from ``generator``; the LSTMs' ``bias_ih`` stays zero."""
+        drawn from ``generator``; the LSTMs' ``bias_ih`` stays zero; under
+        weight norm each ``_v`` is drawn so and each ``_g`` is ones."""
         for m in self.modules():
-            if isinstance(m, LSTM):
+            if isinstance(m, (LSTM, WeightNormDense)):
                 m.reset_parameters(generator)
             elif isinstance(m, (nn.Linear, nn.Conv1d)):
                 bound = 1.0 / np.sqrt(m.weight[0].numel())

@@ -86,14 +86,16 @@ def supports_kernel_decode(net) -> bool:
     """True when ``net`` is a SampleRNN in the kernel's configuration: LSTM
     tiers with one layer and zero h0, summed single discrete framed-linear
     input, one learned-temperature Mish MLP head with at most two hidden
-    layers, a categorical objective."""
+    layers, a categorical objective.  Weight-normed nets are in scope: the
+    pack holds their effective weights (JAX's gate refuses them,
+    ``mimikit_tpu/ops/pallas_decode.py:77``, a limit of flax's wrapper)."""
     from ..features.functionals import Discrete
     from ..modules.io import FramedLinearIO, MLPIO
 
     cfg = net.config
     if str(cfg.rnn_class) != "lstm" or cfg.n_rnn != 1:
         return False
-    if str(cfg.h0_init) != "zeros" or cfg.weight_norm:
+    if str(cfg.h0_init) != "zeros":
         return False
     if str(cfg.inputs_mode) != "sum" or not 2 <= len(cfg.frame_sizes) <= MAX_TIERS:
         return False
@@ -151,7 +153,8 @@ def samplernn_weight_pack(net, dtype: torch.dtype = torch.float32) -> SampleRNNP
     Q+1 logits, the extra one being the learned temperature).  Each tensor
     starts at a multiple of 16 bytes.  Every tensor is summed or concatenated
     in f32 and then cast, so a bf16 pack holds the f32 pack's values rounded
-    once.
+    once.  Under weight norm each layer's effective weight is read (computed
+    from its ``_g`` and ``_v`` in f32, then cast).
     """
     if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"the decode kernel takes float32 or bfloat16 weights, not {dtype}")
@@ -175,9 +178,9 @@ def samplernn_weight_pack(net, dtype: torch.dtype = torch.float32) -> SampleRNNP
         lin = tier.input_module.heads[0][2]
         add(f"win{i}", lin.weight.t())
         add(f"bin{i}", lin.bias)
-        rnn = tier.rnn
-        add(f"wx{i}", torch.cat([rnn.weight_ih_l0.t(), rnn.weight_hh_l0.t()], 0))
-        add(f"bx{i}", rnn.bias_ih_l0 + rnn.bias_hh_l0)
+        w_ih, w_hh, b_ih, b_hh = tier.rnn.layer_weights(0)
+        add(f"wx{i}", torch.cat([w_ih.t(), w_hh.t()], 0))
+        add(f"bx{i}", b_ih + b_hh)
         add(f"wup{i}", tier.up_sampler.fc.weight.t())
         add(f"bup{i}", tier.up_sampler.fc.bias)
     cv = net.tiers[-1].input_module.heads[0][2][2].cv

@@ -1,10 +1,24 @@
 """Small shared utilities (counterpart of ``mimikit_tpu/utils.py``)."""
+import os
+import re
 from enum import Enum
 from typing import Optional, Union
 
 import torch
 
-__all__ = ["AutoStrEnum", "default_device", "resolve_device"]
+__all__ = [
+    "AutoStrEnum",
+    "SOUND_FILE_REGEX",
+    "DATASET_REGEX",
+    "CHECKPOINT_REGEX",
+    "FileWalker",
+    "default_device",
+    "resolve_device",
+]
+
+SOUND_FILE_REGEX = re.compile(r".*\.(wav|aif|aiff|mp3|m4a|mp4|flac|ogg|npy)$")
+DATASET_REGEX = re.compile(r".*\.h5$")
+CHECKPOINT_REGEX = re.compile(r".*\.ckpt$")
 
 
 class AutoStrEnum(str, Enum):
@@ -16,6 +30,23 @@ class AutoStrEnum(str, Enum):
 
     def __str__(self):
         return self.value
+
+
+def FileWalker(pattern, root="./"):
+    """Yield the files under ``root`` (a path or a list of paths) whose name
+    or path matches the regex ``pattern``, each directory's files in sorted
+    order (h5mapper's ``FileWalker``, as ``mimikit_tpu/utils.py:31-45``)."""
+    rex = re.compile(pattern) if isinstance(pattern, str) else pattern
+    roots = [root] if isinstance(root, (str, bytes)) else list(root)
+    for r in roots:
+        if os.path.isfile(r):
+            if rex.match(r):
+                yield r
+            continue
+        for dirpath, _, files in os.walk(r):
+            for f in sorted(files):
+                if rex.match(f) or rex.match(os.path.join(dirpath, f)):
+                    yield os.path.join(dirpath, f)
 
 
 def default_device() -> torch.device:

@@ -10,7 +10,14 @@ kernels are packed i|f|g|o, and the flax cell's single hidden bias goes into
 ``bias_hh`` with ``bias_ih`` zero (``migrate`` sums the two back).
 ``samplernn_params_to_jax`` is its inverse (the checkpoint writer's map): the
 port's state_dict -> the flax tree of numpy arrays, with the LSTM's one
-bias ``bias_hh + bias_ih`` on the hidden projections.
+bias ``bias_hh + bias_ih`` on the hidden projections.  A weight-normed net's
+layers carry flax's own parametrisation both ways: the wrapped kernel is the
+port's ``_v`` (transposed as a plain kernel is) and the scale of the sibling
+``WeightNorm_{k}`` collection (key ``Dense_{k}/kernel/scale``; an LSTM
+layer's ``cells_{l}``, keys ``l{l}/{i|h}{gate}/kernel/scale``) its ``_g``
+(``mimikit_tpu/migrate.py:305-325`` reads that layout).  Carrying the kernel
+and the scale, not the effective weight, keeps both packages' optimisers on
+the same parameters.
 
 ``wavenet_state_dict_from_jax`` and ``wavenet_params_to_jax`` do the same
 for WaveNet, the inverse pair of ``migrate.py:wavenet_params_from_state_dict``:
@@ -56,13 +63,27 @@ __all__ = [
 _GATES = "ifgo"
 
 
+def _wn_scale(node: Mapping, layer: str):
+    """The scale flax's ``WeightNorm`` keeps for ``node[layer]``'s kernel (in a
+    sibling ``WeightNorm_*`` collection), or None for a plain layer."""
+    for name, coll in node.items():
+        if name.startswith("WeightNorm_") and f"{layer}/kernel/scale" in coll:
+            return np.asarray(coll[f"{layer}/kernel/scale"])
+    return None
+
+
 def samplernn_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     """JAX SampleRNN params -> the port's ``SampleRNN`` state_dict (CPU f32)."""
     sd: Dict[str, np.ndarray] = {}
     n_tiers = sum(1 for k in params if re.fullmatch(r"tier_inputs_\d+", k))
 
-    def dense(prefix, d):
-        sd[f"{prefix}.weight"] = np.asarray(d["kernel"]).T
+    def dense(prefix, node, layer):
+        d, scale = node[layer], _wn_scale(node, layer)
+        if scale is None:
+            sd[f"{prefix}.weight"] = np.asarray(d["kernel"]).T
+        else:
+            sd[f"{prefix}.weight_g"] = scale
+            sd[f"{prefix}.weight_v"] = np.asarray(d["kernel"]).T
         sd[f"{prefix}.bias"] = np.asarray(d["bias"])
 
     for i in range(n_tiers):
@@ -76,7 +97,7 @@ def samplernn_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
             base = f"tiers.{i}.input_module.heads.{m.group(1)}.2"
             core = head["core"]
             if "Dense_0" in core:
-                dense(base, core["Dense_0"])
+                dense(base, core, "Dense_0")
             else:
                 d = core["Conv1dResampler_0"]["Dense_0"]
                 kernel = np.asarray(d["kernel"])  # (k * c, out), c == 1
@@ -84,28 +105,37 @@ def samplernn_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
                 sd[f"{base}.2.cv.weight"] = kernel.reshape(k, 1, out).transpose(2, 1, 0)
                 sd[f"{base}.2.cv.bias"] = np.asarray(d["bias"])
         if f"rnn_t{i}" in params:
-            for name, cell in params[f"rnn_t{i}"].items():
+            stack = params[f"rnn_t{i}"]
+            for name, cell in stack.items():
+                if not re.fullmatch(r"l\d+", name):
+                    continue  # cells_{l}: the layer's weight-norm scales, read below
                 layer = int(name[1:])
                 pre = f"tiers.{i}.rnn"
-                sd[f"{pre}.weight_ih_l{layer}"] = np.concatenate(
-                    [np.asarray(cell[f"i{g}"]["kernel"]).T for g in _GATES]
-                )
-                sd[f"{pre}.weight_hh_l{layer}"] = np.concatenate(
-                    [np.asarray(cell[f"h{g}"]["kernel"]).T for g in _GATES]
-                )
+                scales = stack.get(f"cells_{layer}")
+                for p in "ih":
+                    w = f"{pre}.weight_{p}h_l{layer}"
+                    kernel = np.concatenate(
+                        [np.asarray(cell[f"{p}{g}"]["kernel"]).T for g in _GATES])
+                    if scales is None:
+                        sd[w] = kernel
+                    else:
+                        sd[f"{w}_v"] = kernel
+                        sd[f"{w}_g"] = np.concatenate(
+                            [np.asarray(scales[f"{name}/{p}{g}/kernel/scale"]) for g in _GATES])
                 b = np.concatenate([np.asarray(cell[f"h{g}"]["bias"]) for g in _GATES])
                 sd[f"{pre}.bias_hh_l{layer}"] = b
                 sd[f"{pre}.bias_ih_l{layer}"] = np.zeros_like(b)
         if f"up_t{i}" in params:
-            dense(f"tiers.{i}.up_sampler.fc", params[f"up_t{i}"]["Dense_0"])
+            dense(f"tiers.{i}.up_sampler.fc", params[f"up_t{i}"], "Dense_0")
     for name, out in params.items():
         m = re.fullmatch(r"outputs_(\d+)", name)
         if not m:
             continue
         core = out["estimator"]["core"]
-        for dname, d in core.items():
-            k = int(dname.split("_")[1])
-            dense(f"output_modules.{m.group(1)}.estimator.0.fc.{2 * k}", d)
+        for dname in core:
+            if dname.startswith("Dense_"):
+                k = int(dname.split("_")[1])
+                dense(f"output_modules.{m.group(1)}.estimator.0.fc.{2 * k}", core, dname)
     return {
         k: torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32))
         for k, v in sd.items()
@@ -125,15 +155,30 @@ def samplernn_params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
             node = node.setdefault(p, {})
         node[parts[-1]] = np.ascontiguousarray(arr)
 
+    def scale(node_path, key, arr):
+        """A weight-norm scale: ``key`` holds '/' and is one leaf's name."""
+        node = tree
+        for p in node_path.split("/"):
+            node = node.setdefault(p, {})
+        node[key] = np.ascontiguousarray(arr)
+
     def dense(path, prefix):
-        put(f"{path}/kernel", sd[f"{prefix}.weight"].T)
+        """``path``: the flax Dense (``.../Dense_{k}``); under weight norm its
+        scale goes to the sibling ``WeightNorm_{k}``."""
+        if f"{prefix}.weight_v" in sd:
+            parent, layer = path.rsplit("/", 1)
+            put(f"{path}/kernel", sd[f"{prefix}.weight_v"].T)
+            scale(f"{parent}/WeightNorm_{layer.split('_')[1]}", f"{layer}/kernel/scale",
+                  sd[f"{prefix}.weight_g"])
+        else:
+            put(f"{path}/kernel", sd[f"{prefix}.weight"].T)
         put(f"{path}/bias", sd[f"{prefix}.bias"])
 
     for key in sd:
-        m = re.fullmatch(r"tiers\.(\d+)\.input_module\.heads\.(\d+)\.2\.weight", key)
+        m = re.fullmatch(r"tiers\.(\d+)\.input_module\.heads\.(\d+)\.2\.weight(_v)?", key)
         if m:
-            i, j = m.groups()
-            dense(f"tier_inputs_{i}/heads_{j}/core/Dense_0", key[: -len(".weight")])
+            i, j, _ = m.groups()
+            dense(f"tier_inputs_{i}/heads_{j}/core/Dense_0", key.rsplit(".", 1)[0])
             continue
         m = re.fullmatch(r"tiers\.(\d+)\.input_module\.heads\.(\d+)\.2\.2\.cv\.weight", key)
         if m:
@@ -148,27 +193,32 @@ def samplernn_params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
         if m:
             put(f"tier_inputs_{m.group(1)}/weights", sd[key])
             continue
-        m = re.fullmatch(r"tiers\.(\d+)\.rnn\.weight_ih_l(\d+)", key)
+        m = re.fullmatch(r"tiers\.(\d+)\.rnn\.weight_ih_l(\d+)(_v)?", key)
         if m:
-            i, layer = m.groups()
+            i, layer, wn = m.groups()
             pre, base = f"tiers.{i}.rnn", f"rnn_t{i}/l{layer}"
-            w_ih, w_hh = sd[key], sd[f"{pre}.weight_hh_l{layer}"]
+            sfx = "_v" if wn else ""
+            w = {"i": sd[key], "h": sd[f"{pre}.weight_hh_l{layer}{sfx}"]}
             b = sd[f"{pre}.bias_hh_l{layer}"] + sd[f"{pre}.bias_ih_l{layer}"]
-            H = w_hh.shape[1]
+            H = w["h"].shape[1]
             for n, g in enumerate(_GATES):
                 rows = slice(n * H, (n + 1) * H)
-                put(f"{base}/i{g}/kernel", w_ih[rows].T)
-                put(f"{base}/h{g}/kernel", w_hh[rows].T)
+                for p in "ih":
+                    put(f"{base}/{p}{g}/kernel", w[p][rows].T)
+                    if wn:
+                        scale(f"rnn_t{i}/cells_{layer}", f"l{layer}/{p}{g}/kernel/scale",
+                              sd[f"{pre}.weight_{p}h_l{layer}_g"][rows])
                 put(f"{base}/h{g}/bias", b[rows])
             continue
-        m = re.fullmatch(r"tiers\.(\d+)\.up_sampler\.fc\.weight", key)
+        m = re.fullmatch(r"tiers\.(\d+)\.up_sampler\.fc\.weight(_v)?", key)
         if m:
-            dense(f"up_t{m.group(1)}/Dense_0", key[: -len(".weight")])
+            dense(f"up_t{m.group(1)}/Dense_0", key.rsplit(".", 1)[0])
             continue
-        m = re.fullmatch(r"output_modules\.(\d+)\.estimator\.0\.fc\.(\d+)\.weight", key)
+        m = re.fullmatch(r"output_modules\.(\d+)\.estimator\.0\.fc\.(\d+)\.weight(_v)?",
+                         key)
         if m:
-            j, k = m.groups()
-            dense(f"outputs_{j}/estimator/core/Dense_{int(k) // 2}", key[: -len(".weight")])
+            j, k, _ = m.groups()
+            dense(f"outputs_{j}/estimator/core/Dense_{int(k) // 2}", key.rsplit(".", 1)[0])
     return tree
 
 

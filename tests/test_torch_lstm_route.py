@@ -21,6 +21,13 @@ the order of the JAX package's gate (``mimikit_tpu/modules/rnn.py:99-128``):
   versions) against JAX's ``fused_lstm_layer(..., interpret=True)``, as
   ``tests/test_pallas_lstm.py:56`` runs it: outputs and gradients within
   1e-5;
+* a weight-normed layer (flax's ``nn.WeightNorm`` around the cell, the
+  demo recipe's LSTM) at (B, T, H) = (8, 16, 16): the port takes the
+  "cluster" route on the effective weights (on the CPU the fused layer's
+  plain versions), JAX its ``lax.scan`` (its gate refuses weight-normed
+  stacks); outputs, final carries and the gradients of x, the carry, the
+  bias and each ``_g`` and ``_v`` against JAX's scale and kernel gradients,
+  with random scales, within 1e-5;
 * past the wide kernels' limit inside JAX's gate, (T, B, H) = (8, 8, 1152),
   where the card's route raises, the CPU runs the fused layer's plain
   versions ("plain"): its outputs against the module's own step loop within
@@ -55,6 +62,7 @@ WIDE_H = (128, 256, 384, 512, 640, 768, 896, 1024, 600, 1152)
 SCAN = dict(B=4, T=16, H=100, layers=2)
 WIDE = dict(B=8, T=4, H=512)
 PAST = dict(B=8, T=8, H=1152)
+WN = dict(B=8, T=16, H=16)
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 
@@ -125,6 +133,68 @@ def _jax_scan(inp):
     return params, out
 
 
+def _wn_params(rng):
+    """A weight-normed RNNStack's flax params (one layer of WN's width): its
+    initialisation with the scales drawn from U(0.5, 1.5)."""
+    import jax
+    import jax.numpy as jnp
+
+    from mimikit_tpu.modules.rnn import RNNStack
+
+    B, T, H = WN["B"], WN["T"], WN["H"]
+    zeros = jnp.zeros((B, H))
+    params = jax.device_get(RNNStack(hidden_dim=H, n_layers=1, weight_norm=True).init(
+        jax.random.PRNGKey(1), jnp.zeros((B, T, H)), ((zeros, zeros),))["params"])
+    params = jax.tree_util.tree_map(np.asarray, params)
+    scales = params["cells_0"]
+    for key in scales:
+        scales[key] = rng.uniform(0.5, 1.5, scales[key].shape).astype(np.float32)
+    return params
+
+
+def _wn_port_weights(params):
+    """The weight-normed layer in the port's layout: ``w_ih_v0`` (4H, H) and
+    ``g_ih0`` (4H,) (and the same for hh) from the kernels and scales."""
+    out = _port_weights(params, 1, WN["H"], WN["H"], None)
+    for p in "ih":
+        out[f"w_{p}h_v0"] = out.pop(f"w_{p}h0")
+        out[f"g_{p}h0"] = np.concatenate(
+            [params["cells_0"][f"l0/{p}{g}/kernel/scale"] for g in "ifgo"])
+    return out
+
+
+def _jax_wn(inp, params):
+    """JAX's weight-normed RNNStack (its scan) on the wn case: outputs, final
+    carries and the gradients of the kernels and scales in the port's layout."""
+    import jax
+    import jax.numpy as jnp
+
+    from mimikit_tpu.modules.rnn import RNNStack
+
+    p = "wn/"
+    stack = RNNStack(hidden_dim=WN["H"], n_layers=1, weight_norm=True)
+    assert not stack.bind({})._use_fused_lstm(WN["B"], WN["T"])  # JAX takes its scan
+    x = jnp.asarray(inp[p + "x"])
+    carry = ((jnp.asarray(inp[p + "c0_0"]), jnp.asarray(inp[p + "h0_0"])),)
+
+    def loss(params, x, carry):
+        y, final = stack.apply({"params": params}, x, carry)
+        (c, h), = final
+        v = (y * inp[p + "gy"]).sum() + (c * inp[p + "gc_0"]).sum() + (h * inp[p + "gh_0"]).sum()
+        return v, (y, final)
+
+    (_, (y, final)), (gp, gx, gc) = jax.value_and_grad(loss, argnums=(0, 1, 2), has_aux=True)(
+        params, x, carry)
+    gp = jax.tree_util.tree_map(np.asarray, jax.device_get(gp))
+    g = _wn_port_weights(gp)
+    out = {"y": np.asarray(y), "grad_x": np.asarray(gx), "c_0": np.asarray(final[0][0]),
+           "h_0": np.asarray(final[0][1]), "grad_c0_0": np.asarray(gc[0][0]),
+           "grad_h0_0": np.asarray(gc[0][1]), "grad_bias_hh0": g["b_hh0"]}
+    for q in "ih":
+        out[f"grad_weight_{q}h_g0"], out[f"grad_weight_{q}h_v0"] = g[f"g_{q}h0"], g[f"w_{q}h_v0"]
+    return out
+
+
 def _jax_wide(inp):
     """JAX's fused_lstm_layer in interpret mode on the wide case (one layer):
     outputs and gradients in the port's layout."""
@@ -166,7 +236,9 @@ def case(tmp_path_factory):
                             _port_weights(None, 1, WIDE["H"], WIDE["H"], rng)))
     inp.update(_case_inputs("past/", PAST["B"], PAST["T"], PAST["H"], 1, rng,
                             _port_weights(None, 1, PAST["H"], PAST["H"], rng)))
-    jx = {"scan": _jax_scan(inp)[1], "wide": _jax_wide(inp)}
+    wn_params = _wn_params(rng)
+    inp.update(_case_inputs("wn/", WN["B"], WN["T"], WN["H"], 1, rng, _wn_port_weights(wn_params)))
+    jx = {"scan": _jax_scan(inp)[1], "wide": _jax_wide(inp), "wn": _jax_wn(inp, wn_params)}
     port = run_port("lstm_route", inp, str(tmp_path_factory.mktemp("route")))
     return jx, port
 
@@ -263,6 +335,27 @@ def test_scan_route_matches_jax_scan(case, which, name):
 def test_wide_route_matches_pallas_interpret(case, which, name):
     jx, port = case
     np.testing.assert_allclose(port[f"{which}/{name}"], jx[which][name], **TOL, err_msg=name)
+
+
+def test_weight_normed_layer_takes_the_fused_layer(case):
+    """A weight-normed layer goes through lstm_route like a plain one: at
+    the demo recipe's kind of shape the "cluster" route, one fused-layer
+    call on the effective weights (on the CPU its plain versions)."""
+    _, port = case
+    assert str(port["wn/route"]) == "cluster"
+    assert int(port["wn/fused_calls"]) == 1 and int(port["wn/launches"]) == 0
+
+
+WN_NAMES = ["y", "c_0", "h_0", "grad_x", "grad_c0_0", "grad_h0_0", "grad_bias_hh0"] + [
+    f"grad_weight_{p}h_{w}0" for p in "ih" for w in "gv"]
+
+
+@pytest.mark.parametrize("name", WN_NAMES)
+def test_weight_normed_layer_matches_jax(case, name):
+    """Outputs and gradients of the weight-normed layer (``_g`` against JAX's
+    scale, ``_v`` against its kernel) against JAX's scan."""
+    jx, port = case
+    np.testing.assert_allclose(port[f"wn/{name}"], jx["wn"][name], **TOL, err_msg=name)
 
 
 def test_cpu_runs_the_plain_versions_past_the_wide_limit(case):

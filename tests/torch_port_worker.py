@@ -25,14 +25,21 @@ from mimikit_tpu_torch.ops import samplernn_decode as sd
 
 
 def unflatten(flat: dict, prefix: str) -> dict:
+    """The nested tree of the ``prefix`` keys.  A flax weight-norm
+    collection's leaves (``WeightNorm_{k}``: ``Dense_{k}/kernel/scale``;
+    ``cells_{l}``: ``l{l}/ii/kernel/scale``) are named with '/' and stay one
+    level under their collection."""
     tree = {}
     for key, v in flat.items():
         if not key.startswith(prefix):
             continue
         node = tree
         parts = key[len(prefix):].split("/")
-        for p in parts[:-1]:
+        for i, p in enumerate(parts[:-1]):
             node = node.setdefault(p, {})
+            if p.startswith(("WeightNorm_", "cells_")):
+                parts = parts[: i + 1] + ["/".join(parts[i + 1:])]
+                break
         node[parts[-1]] = v
     return tree
 
@@ -1584,14 +1591,20 @@ def wavenet_cluster_task(inp: dict) -> dict:
 
 def _lstm_module(inp: dict, p: str, H: int, n_layers: int):
     """The port's LSTM with the weights under ``p`` (``w_ih{k}`` (4H, D),
-    ``w_hh{k}``, ``b_hh{k}``), and a counter of its fused-layer calls."""
+    ``w_hh{k}``, ``b_hh{k}``; weight-normed where ``g_ih0`` is given:
+    ``w_ih_v{k}``, ``g_ih{k}`` and the same for hh)."""
     from mimikit_tpu_torch.modules import rnn
 
-    m = rnn.LSTM(H, n_layers)
+    wn = f"{p}g_ih0" in inp
+    m = rnn.LSTM(H, n_layers, weight_norm=wn)
     with torch.no_grad():
         for k in range(n_layers):
-            getattr(m, f"weight_ih_l{k}").copy_(t(inp[f"{p}w_ih{k}"]))
-            getattr(m, f"weight_hh_l{k}").copy_(t(inp[f"{p}w_hh{k}"]))
+            for q in "ih":
+                if wn:
+                    getattr(m, f"weight_{q}h_l{k}_v").copy_(t(inp[f"{p}w_{q}h_v{k}"]))
+                    getattr(m, f"weight_{q}h_l{k}_g").copy_(t(inp[f"{p}g_{q}h{k}"]))
+                else:
+                    getattr(m, f"weight_{q}h_l{k}").copy_(t(inp[f"{p}w_{q}h{k}"]))
             getattr(m, f"bias_hh_l{k}").copy_(t(inp[f"{p}b_hh{k}"]))
     return m
 
@@ -1635,7 +1648,7 @@ def lstm_route_task(inp: dict) -> dict:
 
     rnn.fused_lstm_layer = counted
     try:
-        for case in ("scan", "wide", "past"):
+        for case in ("scan", "wide", "past", "wn"):
             p = f"{case}/"
             L = int(inp[p + "layers"])
             x = t(inp[p + "x"]).clone().requires_grad_()
@@ -1653,7 +1666,8 @@ def lstm_route_task(inp: dict) -> dict:
                 except ValueError as e:
                     out[p + "card_error"] = np.array(str(e))
                 with torch.no_grad():
-                    ys, h, c = m._scan(0, x.transpose(0, 1), carry[0][1], carry[0][0])
+                    ys, h, c = m._scan(x.transpose(0, 1), carry[0][1], carry[0][0],
+                                       m.layer_weights(0))
                 out[p + "scan_y"], out[p + "scan_h_0"] = ys.transpose(0, 1).numpy(), h.numpy()
                 out[p + "scan_c_0"] = c.numpy()
             loss = (y * t(inp[p + "gy"])).sum()
@@ -1664,8 +1678,12 @@ def lstm_route_task(inp: dict) -> dict:
             out[p + "y"] = y.detach().numpy()
             out[p + "grad_x"] = x.grad.numpy()
             for k in range(L):
-                for n in ("weight_ih", "weight_hh", "bias_hh"):
-                    out[f"{p}grad_{n}{k}"] = getattr(m, f"{n}_l{k}").grad.numpy()
+                names = ("weight_ih_g", "weight_ih_v", "weight_hh_g", "weight_hh_v", "bias_hh") \
+                    if m.weight_norm else ("weight_ih", "weight_hh", "bias_hh")
+                for n in names:
+                    w = n[:-2] + f"_l{k}" + n[-2:] if m.weight_norm and n != "bias_hh" \
+                        else f"{n}_l{k}"
+                    out[f"{p}grad_{n}{k}"] = getattr(m, w).grad.numpy()
                 out[f"{p}grad_c0_{k}"] = carry[k][0].grad.numpy()
                 out[f"{p}grad_h0_{k}"] = carry[k][1].grad.numpy()
             out[p + "launches"] = np.array(fl.lstm_forward.launches + fl.lstm_backward.launches
@@ -2235,7 +2253,272 @@ def train_monitor_task(inp: dict) -> dict:
     return out
 
 
-TASKS = {"lstm_route": lstm_route_task, "lstm_wide_layout": lstm_wide_layout_task,
+# -- weight norm and the recipe net ------------------------------------------------------------
+
+def weight_norm_task(inp: dict) -> dict:
+    """A ``WeightNormDense`` and a weight-normed LSTM step at each seed of the
+    ``dense/`` and ``cell/`` cases (outputs and gradients); the recipe net
+    (``demos/srnn.py``'s, small) from the JAX weights: its state_dict's names
+    and their round trip, the kernel gate, the forward's logits and the first
+    step's gradients on JAX's first batch, three TrainARMLoop steps, the JAX
+    bank opened and decoded (argmax; ``decode_single``'s and ``decode_chunk``'s
+    plain twins), and the loop's own bank written for JAX."""
+    from mimikit_tpu_torch.modules import rnn
+
+    out, work = {}, str(inp["work"])
+    for key in inp:
+        if key.startswith("dense/") and key.endswith("/x"):
+            p = key[: -len("x")]
+            v = t(inp[p + "v"])
+            m = mmk.WeightNormDense(v.shape[1], v.shape[0])
+            with torch.no_grad():
+                m.weight_v.copy_(v)
+                m.weight_g.copy_(t(inp[p + "g"]))
+                m.bias.copy_(t(inp[p + "b"]))
+            x = t(inp[p + "x"]).clone().requires_grad_()
+            y = m(x)
+            (y * t(inp[p + "gy"])).sum().backward()
+            out.update({p + "y": y.detach().numpy(), p + "grad_x": x.grad.numpy(),
+                        p + "grad_g": m.weight_g.grad.numpy(),
+                        p + "grad_v": m.weight_v.grad.numpy(), p + "grad_b": m.bias.grad.numpy()})
+        if key.startswith("cell/") and key.endswith("/x"):
+            p = key[: -len("x")]
+            H = inp[p + "h"].shape[1]
+            m = rnn.LSTM(H, 1, weight_norm=True)
+            with torch.no_grad():
+                for q in "ih":
+                    getattr(m, f"weight_{q}h_l0_v").copy_(t(inp[f"{p}v_{q}"]))
+                    getattr(m, f"weight_{q}h_l0_g").copy_(t(inp[f"{p}g_{q}"]))
+                m.bias_hh_l0.copy_(t(inp[p + "b"]))
+            x, c, h = (t(inp[p + n]).clone().requires_grad_() for n in "xch")
+            _, ((c2, h2),) = m.step(x, ((c, h),))
+            ((c2 * t(inp[p + "gc"])).sum() + (h2 * t(inp[p + "gh"])).sum()).backward()
+            out.update({p + "c2": c2.detach().numpy(), p + "h2": h2.detach().numpy(),
+                        p + "grad_x": x.grad.numpy(), p + "grad_c": c.grad.numpy(),
+                        p + "grad_h": h.grad.numpy(), p + "grad_b": m.bias_hh_l0.grad.numpy()})
+            for q in "ih":
+                out[f"{p}grad_v_{q}"] = getattr(m, f"weight_{q}h_l0_v").grad.numpy()
+                out[f"{p}grad_g_{q}"] = getattr(m, f"weight_{q}h_l0_g").grad.numpy()
+
+    ds = mmk.DatasetConfig(sources=(str(inp["wav"]),), filename=str(inp["jax_h5"]),
+                           extractors=(mmk.Extractor.signal(16000),))
+    db = ds.get(mode="r")
+    cfg = mmk.Config.deserialize(str(inp["train_yaml"]))
+    cfg.root_dir = f"{work}/port_tr"
+    net_cfg = mmk.Config.deserialize(str(inp["net_yaml"]))
+    net_cfg.io_spec.bind_to(ds)
+    net = mmk.SampleRNN.from_config(net_cfg, device="cpu")
+    sd0 = mmk.samplernn_state_dict_from_jax(unflatten(inp, "params0/"))
+    net.load_state_dict(sd0, strict=True)
+    out["state_dict_keys"] = np.array(sorted(net.state_dict()))
+    back = mmk.samplernn_state_dict_from_jax(mmk.samplernn_params_to_jax(net.state_dict()))
+    out["round_trip"] = np.array(set(back) == set(net.state_dict()) and all(
+        torch.equal(v, net.state_dict()[k]) for k, v in back.items()))
+    out["kernel_gate"] = np.array(mmk.supports_kernel_decode(net))
+
+    outputs, _ = net((t(inp["first_in"]).long(),))
+    out["logits"] = outputs[0].detach().numpy()
+    net.config.io_spec.loss_fn(outputs, (t(inp["first_tgt"]).long(),))["loss"].backward()
+    grads = {k: torch.zeros_like(v) for k, v in net.state_dict().items()}
+    grads.update({k: p.grad for k, p in net.named_parameters()})
+    out.update(_flax_flat(grads, "grads0/"))
+    net.zero_grad(set_to_none=True)
+
+    loop = mmk.TrainARMLoop.from_config(cfg, db, net)
+    loop.run()
+    out["losses"] = np.array([h["loss"] for _, h in loop.metrics.history])
+    out.update(_flax_flat(net.state_dict(), "params/"))
+    out["port_bank_root"], out["port_bank_id"] = np.array(cfg.root_dir), np.array(loop.hash_)
+
+    bank = mmk.Checkpoint(str(inp["jax_bank_id"]), 3, str(inp["jax_bank_root"]), device="cpu")
+    jnet = bank.network
+    out.update(_flax_flat(jnet.state_dict(), "jax_bank_params/"))
+    prompt, n = inp["prompt"], int(inp["n_steps"])
+    out["jax_bank_tokens/single"] = jnet.generate((prompt,), n)[0].numpy()
+    jnet._CHUNKED_MIN_B, jnet._CHUNK = 1, 24  # decode_chunk, several chunks
+    out["jax_bank_tokens/chunked"] = jnet.generate((prompt,), n)[0].numpy()
+    return out
+
+
+# -- the recipes: generate_chunks, the demos, sharded serving, the stream opt-out -----------
+
+def _generate_chunks(inp: dict, out: dict, layer: str) -> None:
+    """``generate_chunks`` from the JAX bank, its file written through the
+    ``layer`` file layer ("h5py", or "npz": h5py taken away once the HDF5
+    bank and dataset are open), each chunk's temperatures and prompts
+    recorded from ``GenerateLoopV2``; the file read back."""
+    from mimikit_tpu_torch.data import h5
+    from mimikit_tpu_torch.loops import generate as gen
+    from mimikit_tpu_torch.loops.generate_chunks import generate_chunks
+
+    p = f"chunks/{layer}/"
+    run, seen = gen.GenerateLoopV2.run, []
+
+    def recorded(self):
+        prompts = self.dataloader[0][1] if isinstance(self.dataloader, list) else None
+        seen.append((np.array(self.config.parameters["temperature"]), prompts))
+        yield from run(self)
+
+    kw = {k.split("/")[1]: inp[k].item() for k in inp if k.startswith("chunks/")}
+    ck = mmk.Checkpoint(str(inp["bank_id"]), 1, str(inp["bank_root"]), device="cpu")
+    ck.dataset, ck.network, ck.training_config  # noqa: B018 (opened while h5py is there)
+    saved = h5.h5py
+    gen.GenerateLoopV2.run = recorded
+    if layer == "npz":
+        h5.h5py = None
+    try:
+        fname = f"{inp['work']}/port_chunks_{layer}.h5"
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # the npz container's notice
+            tracks = generate_chunks(ck, out_filename=fname, **kw)
+        with h5.File(fname, "r") as f:
+            keys = sorted(f.keys())
+            out[p + "keys"] = np.array(keys)
+            for k in keys:
+                out[f"{p}shape/{k}"] = np.array(f[k].shape)
+            out[p + "prompts"] = np.asarray(f["0"][:])
+    finally:
+        gen.GenerateLoopV2.run = run
+        h5.h5py = saved
+    out[p + "temps"] = np.stack([tmp for tmp, _ in seen])
+    out[p + "tracks"], out[p + "tracks_shape"] = tracks, np.array(tracks.shape)
+    for i, (_, prompts) in enumerate(seen):
+        if prompts is not None:
+            out[f"{p}prompt/{i + 1}"] = np.asarray(prompts)
+
+
+def _launch_order(take):
+    """``take()``'s chunks, and for each the device chunks launched when it
+    was yielded (``loops.streaming._read_behind_chunks`` counted)."""
+    from mimikit_tpu_torch.loops import streaming
+
+    real, launched = streaming._read_behind_chunks, []
+
+    def counting(dev_chunks, chunk_steps):
+        n = [0]
+
+        def counted():
+            for x in dev_chunks:
+                n[0] += 1
+                yield x
+
+        for chunk in real(counted(), chunk_steps):
+            launched.append(n[0])
+            yield chunk
+
+    streaming._read_behind_chunks = counting
+    try:
+        return take(), np.array(launched)
+    finally:
+        streaming._read_behind_chunks = real
+
+
+def recipes_task(inp: dict) -> dict:
+    """``generate_chunks`` (both file layers), the two demos on the CPU,
+    ``sharded_generate`` and ``sharded_stream_tokens`` over CPU devices for
+    each family, their fallbacks, the device copies' cache, and
+    ``MMK_STREAM_PIPELINE=0``."""
+    from mimikit_tpu_torch.demos import serving, srnn
+    from mimikit_tpu_torch.parallel import serving as par
+
+    torch.set_num_threads(1)
+    work, out = str(inp["work"]), {}
+    for layer in ("h5py", "npz"):
+        _generate_chunks(inp, out, layer)
+    out["chunks/flat"] = np.array(hasattr(mmk, "generate_chunks"))
+
+    # the demos at tests/test_demos.py's tiny overrides
+    demos = f"{work}/demos"
+    tiny = dict(max_epochs=1, limit_train_batches=2, batch_size=2, every_n_epochs=1,
+                n_examples=1, prompt_length_sec=0.02, outputs_duration_sec=0.02,
+                MONITOR_TRAINING=False, OUTPUT_TRAINING="", root_dir=f"{demos}/trainings")
+    cwd = os.getcwd()
+    os.chdir(demos)
+    try:
+        loop = srnn.demo(sources=(f"{demos}/tone.wav",), db_path=f"{demos}/srnn.h5",
+                         batch_length=512, tbptt_chunk_length=4096, device="cpu", **tiny)
+        out["demo/srnn/files"] = np.array(sorted(os.listdir(loop.root_dir)))
+        out["demo/srnn/weight_norm"] = np.array(loop.net.config.weight_norm)
+        out["demo/srnn/kernel_gate"] = np.array(mmk.supports_kernel_decode(loop.net))
+        out["demo/srnn/losses"] = np.array([h["loss"] for _, h in loop.metrics.history])
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            audio, outs = serving.demo(sources=(f"{demos}/tone.wav",),
+                                       db_path=f"{demos}/serving.h5", n_chunks=2,
+                                       chunk_seconds=0.005, device="cpu", **tiny)
+        out["demo/serving/audio"], out["demo/serving/outs_shape"] = audio, np.array(outs[0].shape)
+        out["demo/serving/warnings"] = np.array(sum("unsharded" in str(w.message)
+                                                    for w in caught))
+    finally:
+        os.chdir(cwd)
+
+    # sharded serving over two CPU devices, each family
+    cpu2 = ["cpu", "cpu"]
+    for family, net in _temperature_nets().items():
+        p = f"sharded/{family}/"
+        prior_t = max(2 * net.rf, 16) if family != "jukebox" else net._window_len()
+        prompt = np.random.RandomState(4).randint(0, 32, (8, prior_t)).astype(np.int32)
+        out[p + "generate"] = mmk.parallel.sharded_generate(net, (prompt,), 12, seed=1,
+                                                            devices=cpu2)[0]
+        out[p + "unsharded"] = net.generate((prompt,), 12, seed=1)[0].numpy()
+        sh = mmk.parallel.sharded_stream_tokens(net, (prompt,), 8, seed=2, devices=cpu2)
+        out[p + "stream"] = np.concatenate([next(sh) for _ in range(3)], axis=1)
+        sh.close()
+        one = mmk.stream_tokens(net, (prompt,), 8, seed=2)
+        out[p + "stream_unsharded"] = np.concatenate([next(one) for _ in range(3)], axis=1)
+        one.close()
+        if family != "samplernn":
+            continue
+        # the fallbacks: a batch three devices do not divide, and one device
+        for what in ("generate", "stream"):
+            got, msgs = [], []
+            for devices in (["cpu"] * 3, ["cpu"]):
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    if what == "generate":
+                        got.append(mmk.parallel.sharded_generate(net, (prompt,), 12, seed=1,
+                                                                 devices=devices)[0])
+                    else:
+                        sh = mmk.parallel.sharded_stream_tokens(net, (prompt,), 8, seed=2,
+                                                                devices=devices)
+                        got.append(np.concatenate([next(sh) for _ in range(3)], axis=1))
+                        sh.close()
+                msgs += [str(w.message) for w in caught]
+            want = out[p + ("unsharded" if what == "generate" else "stream_unsharded")]
+            out[f"fallback/{what}/warnings"] = np.array(msgs)
+            out[f"fallback/{what}/equal"] = np.array(all(np.array_equal(g, want) for g in got))
+        # the device copies' cache: kept while the parameters stand
+        devs = [torch.device("cpu"), torch.device("meta")]
+        c1 = par._device_copies(net, devs)[devs[1]]
+        c2 = par._device_copies(net, devs)[devs[1]]
+        with torch.no_grad():
+            next(net.parameters()).add_(0.0)  # a training step's in-place update
+        c3 = par._device_copies(net, devs)[devs[1]]
+        net.load_state_dict(net.state_dict())
+        c4 = par._device_copies(net, devs)[devs[1]]
+        c5 = par._device_copies(net, devs)[devs[1]]
+        out["copies"] = np.array([c1 is c2, c3 is c2, c4 is c3, c5 is c4])
+
+    # MMK_STREAM_PIPELINE=0: the same chunks, each read before the next launch
+    nets = _temperature_nets()
+    for family in ("samplernn", "wavenet"):
+        net, p = nets[family], f"pipeline/{family}/"
+        prompt = np.random.RandomState(5).randint(0, 32, (2, 2 * net.rf)).astype(np.int32)
+
+        def take():
+            it = mmk.stream_tokens(net, (prompt,), 16, seed=3)
+            try:
+                return np.concatenate([next(it) for _ in range(4)], axis=1)
+            finally:
+                it.close()
+
+        out[p + "on"], out[p + "on_launched"] = _launch_order(take)
+        with _env(MMK_STREAM_PIPELINE="0"):
+            out[p + "off"], out[p + "off_launched"] = _launch_order(take)
+    return out
+
+
+TASKS = {"recipes": recipes_task, "weight_norm": weight_norm_task, "lstm_route": lstm_route_task, "lstm_wide_layout": lstm_wide_layout_task,
          "lstm_plan": lstm_plan_task, "xla_rsqrt": xla_rsqrt_task, "wavenet_cluster": wavenet_cluster_task, "modules": modules_task, "sample_rnn": sample_rnn_task, "fused_lstm": fused_lstm_task,
          "train": train_task, "train_stateless": train_stateless_task,
          "wavenet": wavenet_task, "categorical": categorical_task,
