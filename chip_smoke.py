@@ -215,7 +215,28 @@ Phases (any failure exits non-zero; no exception is swallowed):
    the block kernel's time on the same inputs (K1's also its cluster
    launches on the main path, ``cluster_launches``), measured in the same run, under
    ``block_kernel_ms``; K1's, K2's, K3a's and K3b's rows carry their launches
-   in phase 5, ``recipe_launches``), the card line, and the device line last.
+   in phase 5, ``recipe_launches``; the wide rows and the bf16 K3a/K3b rows
+   their launches in phase 7, ``spectral_launches``), printed after phase 7
+   with the card line, and the device line last;
+7. the spectral path (``BASELINE.json`` config 3) on 60 s of synthesized
+   audio at 22,050 Hz: K3a-wide and K3b-wide at the seq2seq shapes, (T, B,
+   H) = (4, 16, 512) for training and (4, 4, 512) for the 4-stream block
+   decode, with the first layer's 1,025-wide input and 512, non-zero h0/c0
+   and cotangents on h_T/c_T (``check_lstm``); the bf16 cluster kernels at
+   (4, 16, 512) against their bf16 twin, each tensor within its share of
+   elements that differ (``BF16_LSTM_S2S_SHARES``), the control refused
+   (``check_lstm_bf16``); two LSTMs chained
+   through a seeded carry against the CPU (``check_lstm_chain``); one train
+   step of ``demos/seq2seq.py``'s net on the card against the CPU step (the
+   recipe step's tolerance, every LSTM call on the wide kernels);
+   ``demos.seq2seq`` for one epoch of 8 steps at B=16 (routes, launches 8 + 8
+   a step, no plain call, its bank reloaded, the step timed over 3 windows
+   and profiled), its ``generate`` B=4 x 64 frames through ``GenerateLoopV2``
+   with Griffin-Lim on the card to wavs; the same epoch under
+   ``param_dtype="bfloat16"`` on the bf16 cluster kernels, its loss within
+   max(10 %, 5e-3) of the f32 epoch's; ``demos.freqnet`` for 4 steps at
+   B=16 x 64 frames, then B=4 x 32 frames decoded on the plain step loop,
+   each within 1e-4 * max|frame| of the eval forward on the frames before it.
 
 ``--quick`` runs phases 1-2 at the small size only (a build check);
 ``--bench`` runs phase 1, phase 3's timings without the checks, decode_chunk's
@@ -380,8 +401,14 @@ JB_SMALL = dict(frame_sizes=(8, 4, 2), model_dim=32, n_heads=4, feedforward_dim=
 JB_N, JB_B, JB_VERIFY, JB_WIN_STEPS, JB_PLAIN_STEPS, JB_STREAM_CHUNKS = 4096, 16, 256, 64, 64, 6
 # the steps of phase 2's f32 K6/K7 check at the small width and of its K8 checks, small and
 # full width (cut from 200, 200 and 256, and TF_VERIFY and JB_VERIFY from 512, to keep the
-# script near 900 s with phase 5 added; each still runs several window lengths)
-TF_CHECK_N, JB_CHECK_N, JB_FULL_CHECK_N = 100, 100, 192
+# script near 900 s with phase 5 added; then TF_CHECK_N 100 -> 80 and JB_FULL_CHECK_N
+# 192 -> 128 to make room for phase 7; each still runs several window lengths)
+TF_CHECK_N, JB_CHECK_N, JB_FULL_CHECK_N = 80, 100, 128
+# the steps of phase 2's full-width checks of K7 bf16 and of K6/K7 at rf 512 (cut from 64
+# and 48 to make room for phase 7; each still runs its batches and chunkings), of K6/K7
+# f32 (second chunking in pieces of 100 steps) and of SampleRNN's decode f32 (chunkings in
+# pieces of 700 and 1,600)
+TF_FULL_BF16_N, TF_LONG_N, TF_FULL_CHECK_N, SRN_FULL_CHECK_N = 48, 32, 128, 2048
 # phase 2 checks K8 at these B through the route (clusters of 16 blocks, of 8, the
 # group kernel, then the block kernel: ops/jukebox_decode.K8_CLUSTER_ROUTE,
 # K8_GROUP_ROUTE: B = 16, 17 and 32 take the group kernel) and the group kernel at
@@ -413,6 +440,37 @@ RECIPE_SRNN = dict(max_epochs=2, limit_train_batches=8, every_n_epochs=1,
 RECIPE_CHUNKS = dict(batch_size=64, n_chunks=3, chunk_seconds=0.5, prompt_seconds=5.0)
 RECIPE_SERVING = dict(max_epochs=1)
 RECIPE_N, RECIPE_TIMED_N, SERVING_SHARD_B = 512, 4096, 8
+# phase 7, the spectral path: mimikit_tpu/demos/seq2seq.py's and freqnet.py's nets at their
+# own widths (n_fft 2048, hop_length 512: 1,025 bins) on SPECTRAL_SECONDS of synthesized
+# audio at 22,050 Hz.  seq2seq (model_dim 512, hop 4, 2 + 2 bidirectional layers): one epoch
+# of S2S_STEPS steps at B=16, f32 and under param_dtype="bfloat16", the same data_seed; its
+# LSTM kernels alone at (T, B, H) = (4, 16, 512) with the first layer's 1,025-wide input and
+# chained through a seeded carry (LSTM_S2S_SHAPES); generate B=S2S_GEN_B x S2S_GEN_FRAMES
+# through GenerateLoopV2 to wavs (Griffin-Lim on the card), whose 4-stream block decode
+# runs the wide forward at (4, 4, 512) (LSTM_S2S_SHAPES' last two); the bf16 epoch's
+# cluster kernels alone at (4, 16, 512) (LSTM_S2S_BF16_SHAPES).  FreqNet (dims 2048, groups 8):
+# FREQNET_STEPS steps at B=16 x 64 frames (downsampling 1: the demo's stride of 64 reads
+# windows of 2.2 M samples, more than SPECTRAL_SECONDS hold), then generate B=4 x
+# FREQNET_GEN_FRAMES frames, each frame within FREQNET_RTOL * max|frame| of the eval forward
+# on the window before it
+SPECTRAL_SR, SPECTRAL_SECONDS = 22050, 60
+S2S_STEPS, S2S_GEN_B, S2S_GEN_FRAMES = 8, 4, 64
+LSTM_S2S_SHAPES = ((4, 16, 1025, 512), (4, 16, 512, 512), (4, 4, 1025, 512), (4, 4, 512, 512))
+LSTM_S2S_BF16_SHAPES = ((4, 16, 1025, 512), (4, 16, 512, 512))
+# At T = 4 few roundings can flip, and a flipped h feeds at most three later steps: each
+# tensor is held to its own share of elements that differ from the bf16 twin, set between
+# the larger of the kernels' and the CPU twin's readings and the control's, over 6 input
+# seeds at both shapes (tools/bf16_lstm_check_power.py --s2s; NVIDIA H100 80GB HBM3, 700 W):
+# tensor: kernels, CPU twin, control -> limit
+# h_all 0.00-0.14 %, 0.01-0.26, 10.2-10.8 -> 3 %; h_T 0.00-0.32, 0.00-0.60, 14.3-15.3 -> 4;
+# c_T 0.00-0.45, 0.01-0.54, 14.1-15.2 -> 4; dx 0.09-3.9, 0.60-5.6, 44.7-47.1 -> 20;
+# dWi 0.02-4.0, 0.38-5.4, 39.8-41.1 -> 20; dWh 0.03-4.2, 0.44-5.7, 47.6-48.3 -> 20;
+# db 0.05-4.5, 0.24-5.9, 38.6-40.7 -> 20; dh0 0.22-5.7, 1.6-8.4, 45.0-46.9 -> 25;
+# dc0 0.02-1.8, 0.37-2.8, 25.6-27.6 -> 12 (the control: the f32 wide kernels on the bf16
+# values, as the f32 layer takes the wide route at H = 512)
+BF16_LSTM_S2S_SHARES = dict(h_all=0.03, h_T=0.04, c_T=0.04, dx=0.20, dWi=0.20, dWh=0.20,
+                            db=0.20, dh0=0.25, dc0=0.12)
+FREQNET_STEPS, FREQNET_GEN_FRAMES, FREQNET_RTOL = 4, 32, 1e-4
 
 
 # the main paths' headline numbers, f32 and bf16, for the lines that print
@@ -2919,6 +2977,19 @@ def check_wide_repeatable(torch, fl):
                 f" {WIDE_REPEATS} calls, the same bits")
 
 
+def fwd_cluster_sizes(torch, fl, B, H, dtype):
+    """The forward's cluster sizes whose plan takes (B, H) on ``dtype`` streams."""
+    es = 2 if dtype == torch.bfloat16 else 4
+    sizes = []
+    for cl in fl.FWD_CLUSTER_SIZES:
+        try:
+            fl.lstm_fwd_plan(B, H, es, cl)
+        except ValueError:
+            continue
+        sizes.append(cl)
+    return tuple(sizes)
+
+
 def check_lstm(torch, fl, shapes):
     """Phase 2 for the LSTM kernels: the layer through the kernels' route (its
     wrappers' counters must rise, and no other's), then, on the cluster
@@ -2932,7 +3003,7 @@ def check_lstm(torch, fl, shapes):
         if not sfx:
             runs += [(f"forward on {cl}", lambda cl=cl: lstm_plain_layer(
                 torch, fl, args, cts, functools.partial(fl.lstm_forward, cl=cl),
-                fl.lstm_backward)) for cl in fl.FWD_CLUSTER_SIZES]
+                fl.lstm_backward)) for cl in fwd_cluster_sizes(torch, fl, B, H, torch.float32)]
         p_out = p_grads = None
         for what, run in runs:
             before = launch_counts(fl)
@@ -2973,9 +3044,9 @@ def bf16_ulps(k, p):
 
 
 def unrounded(torch, kernel):
-    """``kernel`` (an LSTM wrapper) as the f32 instantiation on the bf16
-    streams' values, its outputs rounded to bf16 where stored: a kernel that
-    skips the rounding of h and dz, the control of the bf16 check."""
+    """``kernel`` (an f32 LSTM wrapper) on the bf16 streams' values, its
+    outputs rounded to bf16 where stored: a kernel that skips the rounding of
+    h and dz, the control of the bf16 check."""
     def run(*streams):
         return tuple(o.to(torch.bfloat16) for o in kernel(*(v.float() for v in streams)))
     return run
@@ -2994,9 +3065,11 @@ def lstm_bf16_gaps(torch, fl, args, cts, control=False, fwd_cl=None):
                                           functools.partial(fl.lstm_forward, cl=fwd_cl),
                                           fl.lstm_backward)
     elif control:
-        with uncounted(fwd, bwd):
-            k_out, k_grads = lstm_plain_layer(torch, fl, args, cts, unrounded(torch, fwd),
-                                              unrounded(torch, bwd))
+        # the f32 route's kernels: at H = 512 the f32 layer leaves the cluster for the wide route
+        cfwd, cbwd, _ = lstm_wrappers(fl, T, B, args[2].shape[0], torch.float32)
+        with uncounted(cfwd, cbwd):
+            k_out, k_grads = lstm_plain_layer(torch, fl, args, cts, unrounded(torch, cfwd),
+                                              unrounded(torch, cbwd))
     else:
         k_out, k_grads = lstm_kernel_layer(torch, fl, args, cts)
     torch.cuda.synchronize()
@@ -3010,8 +3083,8 @@ def bf16_lstm_verdict(gaps, share_limit):
     """Raise unless every tensor lies within BF16_LSTM_ULPS ulps of its scale
     and the elements that differ stay within ``share_limit``: a share of the
     case's elements, or {tensor: share of its elements} (the wide kernels'
-    BF16_LSTM_WIDE_SHARES); returns (largest ulps, share of the case's
-    elements that differ)."""
+    BF16_LSTM_WIDE_SHARES, the seq2seq shapes' BF16_LSTM_S2S_SHARES);
+    returns (largest ulps, share of the case's elements that differ)."""
     worst = max(g[0] for g in gaps.values())
     share = sum(g[1] for g in gaps.values()) / sum(g[2] for g in gaps.values())
     over = [n for n, g in gaps.items() if g[0] > BF16_LSTM_ULPS]
@@ -3046,7 +3119,8 @@ def check_lstm_bf16(torch, fl, shapes, share_limit, seeds=(0,)):
     for (T, B, D, H), seed in itertools.product(shapes, seeds):
         fwd, bwd, sfx = lstm_wrappers(fl, T, B, H, torch.bfloat16)
         args, cts = lstm_bf16_inputs(torch, T, B, D, H, seed=T + H + 1 + seed)
-        for fwd_cl in (None, *(() if sfx else fl.FWD_CLUSTER_SIZES)):
+        sizes = () if sfx else fwd_cluster_sizes(torch, fl, B, H, torch.bfloat16)
+        for fwd_cl in (None, *sizes):
             before = launch_counts(fl, "launches_bf16")
             gaps, (k_out, k_grads), (p_out, p_grads) = lstm_bf16_gaps(torch, fl, args, cts,
                                                                       fwd_cl=fwd_cl)
@@ -3896,8 +3970,310 @@ def recipes_path(torch, mmk, fl, sd, card):
     return launches
 
 
-def profile_steps(torch, window):
-    """Device time by kernel over one window of train steps (torch.profiler)."""
+def check_lstm_chain(torch, fl, shapes):
+    """Two LSTM modules chained as the seq2seq net chains them: the first
+    (input width D) from a non-zero carry, the second from the first's final
+    carry, a loss on the second's outputs only, so the first layer's every
+    gradient comes through h_T and c_T (K3b's dh_T/dc_T in, the second
+    layer's dh0/dc0 out).  On the card through the route's kernels (each
+    wrapper twice) against the same on the CPU (plain versions): outputs
+    within 1e-5 + 1e-5 * max|plain|, gradients within 1e-5 + 1e-4 * max|plain|."""
+    from mimikit_tpu_torch.modules import rnn
+
+    for T, B, D, H in shapes:
+        g = torch.Generator().manual_seed(T + B + H)
+        mods = [rnn.LSTM(H, 1, input_dim=d) for d in (D, H)]
+        for m in mods:
+            m.reset_parameters(g)
+        ins = [torch.randn(*shape, generator=g) * sc for shape, sc in (
+            ((B, T, D), 1.0), ((B, T, H), 0.5), ((B, H), 0.3), ((B, H), 0.3))]
+        gy = torch.randn(B, T, H, generator=g)
+        runs = []
+        for dev in ("cuda", "cpu"):
+            ms = [copy.deepcopy(m).to(dev) for m in mods]
+            x, x2, c0, h0 = (a.to(dev).requires_grad_() for a in ins)
+            before = launch_counts(fl)
+            y1, carry = ms[0].forward_seq(x, ((c0, h0),))
+            y2, ((c2, h2),) = ms[1].forward_seq(x2, carry)
+            (y2 * gy.to(dev)).sum().backward()
+            ran = [a - b for a, b in zip(launch_counts(fl), before)]
+            outs = [t.detach().cpu() for t in (y1, carry[0][0], carry[0][1], y2, c2, h2)]
+            grads = [t.grad.cpu() for t in (x, x2, c0, h0)] + [
+                p.grad.cpu() for m in ms for p in m.parameters()]
+            runs.append((outs, grads, ran))
+        (ko, kg, ran), (po, pg, _) = runs
+        route = fl.lstm_route(B, T, H)
+        want = [2, 2, 0, 0] if route == "cluster" else [0, 0, 2, 2]
+        if ran != want:
+            raise AssertionError(f"chained LSTMs ({T}, {B}, {D}, {H}): launches {ran}, expected"
+                                 f" {want} ({route})")
+        f_err = max(close("chained output", k, p, 1e-5, 1e-5) for k, p in zip(ko, po))
+        b_err = max(close("chained gradient", k, p, 1e-5, 1e-4) for k, p in zip(kg, pg))
+        log(f"  two LSTMs chained through a seeded carry (T, B, D, H) = ({T}, {B}, {D}, {H}),"
+            f" {route} kernels: ok, max |error| outputs {f_err:.3e}, gradients {b_err:.3e}"
+            f" ({len(kg)} tensors: x, the carry, both layers' weights)")
+
+
+def s2s_net(mmk, device, seed, extractor=None):
+    """``mimikit_tpu/demos/seq2seq.py``'s net (1,025 bins, model_dim 512,
+    hop 4, ``edge_sum``/``repeat``, 2 + 2 layers with residuals), its IO on
+    ``extractor`` where given."""
+    io = mmk.IOSpec.magspec_io(mmk.IOSpec.MagSpecIOConfig(
+        sr=SPECTRAL_SR, n_fft=2048, hop_length=512, activation="Identity"), extractor)
+    return mmk.Seq2SeqLSTMNetwork.from_config(mmk.Seq2SeqLSTMNetwork.Config(
+        io_spec=io, model_dim=512, hop=4, enc_downsampling="edge_sum", enc_n_lstm=2,
+        enc_apply_residuals=True, dec_upsampling="repeat", dec_n_lstm=2,
+        dec_apply_residuals=True), device=device, seed=seed)
+
+
+def check_s2s_step(torch, mmk, fl, sd, card):
+    """One train step of the seq2seq net (B=16, hop 4, 1,025 bins) with the
+    kernels on the card against the same step on the CPU (plain versions):
+    the loss within 1e-5 relative and every gradient within 1e-5 + 1e-3 *
+    max|plain| (the recipe step's tolerance); the card's LSTM calls all on
+    the wide kernels (K3a-wide and K3b-wide 8 times each) and no plain call."""
+    net = s2s_net(mmk, "cuda", seed=3)
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(16, 4, 1025, generator=g).abs()
+    y = torch.randn(16, 4, 1025, generator=g).abs()
+    runs = []
+    for n, dev in ((net, "cuda"), (copy.deepcopy(net).cpu(), "cpu")):
+        before = launch_counts(fl) + launch_counts(fl, "launches_bf16")
+        with plain_calls(fl, sd) as plain:
+            outputs = n((x.to(dev),))
+            loss = n.config.io_spec.loss_fn(outputs, (y.to(dev),))["loss"]
+            loss.backward()
+            if dev == "cuda":
+                torch.cuda.synchronize()
+        ran = [a - b for a, b in zip(launch_counts(fl) + launch_counts(fl, "launches_bf16"),
+                                     before)]
+        runs.append((loss.item(), {k: p.grad.cpu() for k, p in n.named_parameters()}, ran,
+                     dict(plain)))
+    (lk, gk, ran, plain), (lp, gp, _, _) = runs
+    if not abs(lk - lp) <= 1e-5 * abs(lp):
+        raise AssertionError(f"seq2seq train step: loss kernels {lk!r}, plain {lp!r}")
+    worst = max(close(f"grad {k}", gk[k], gp[k], 1e-5, 1e-3) for k in gp)
+    log(f"  seq2seq train step B=16 x 4 frames ({card}): ok, loss kernels {lk:.7f} / plain"
+        f" {lp:.7f}, max |grad error| {worst:.3e} over {len(gp)} parameters; launches (forward,"
+        f" backward, forward_wide, backward_wide; f32 then bf16) {ran}, plain calls {plain}")
+    if ran != [0, 0, 8, 8, 0, 0, 0, 0] or sum(plain.values()):
+        raise AssertionError(f"seq2seq train step: the LSTM calls did not all take the wide"
+                             f" kernels (8 each): {ran}, plain calls {plain}")
+
+
+@contextlib.contextmanager
+def lstm_routes():
+    """{(route, B, T, H, dtype): calls} of ``lstm_route`` as the LSTM module
+    asks it inside."""
+    from mimikit_tpu_torch.modules import rnn
+
+    real, seen = rnn.lstm_route, {}
+
+    def recorded(B, T, H, dtype=None, cpu=False):
+        route = real(B, T, H, dtype, cpu=cpu)
+        key = (route, B, T, H, str(dtype).split(".")[-1])
+        seen[key] = seen.get(key, 0) + 1
+        return route
+
+    rnn.lstm_route = recorded
+    try:
+        yield seen
+    finally:
+        rnn.lstm_route = real
+
+
+def s2s_time_steps(torch, loop, label, card):
+    """The seq2seq step as the loop runs it (gather + step): median of 3
+    windows of S2S_STEPS steps (CUDA events), then one window profiled.  The
+    windows take their batches from one pass over the loader, as an epoch
+    does (a new pass shuffles the indices of every window of the audio)."""
+    batches = loop._batches()
+
+    def window():
+        for _ in range(S2S_STEPS):
+            inputs, targets = next(batches)
+            loop.train_step(inputs, targets, None)
+
+    window()
+    ms = [w / S2S_STEPS for w in cuda_ms(torch, window, reps=3)]
+    med, spr = spread(ms)
+    SUMMARY[f"s2s_step{label}_ms"] = med
+    log(f"  seq2seq train step{label} B=16 x 4 frames: median of 3 windows of {S2S_STEPS} steps"
+        f" {med:.4f} ms/step, spread {spr:.3%}; {ms} on {card}")
+    profile_steps(torch, window, S2S_STEPS)
+
+
+def spectral_wav(path, seconds=SPECTRAL_SECONDS, sr=SPECTRAL_SR):
+    """``seconds`` of gliding tones and noise, 16-bit, seeded; returns the
+    float signal."""
+    from scipy.io import wavfile
+
+    t = np.arange(sr * seconds) / sr
+    rng = np.random.default_rng(SEED + 7)
+    y = (0.4 * np.sin(2 * np.pi * 220 * t * (1 + 0.2 * np.sin(2 * np.pi * 0.1 * t)))
+         + 0.25 * np.sin(2 * np.pi * 1320 * t) + 0.1 * np.sin(2 * np.pi * 97 * t)
+         + 0.05 * rng.standard_normal(t.size))
+    y = (y / np.abs(y).max() * 0.9).astype(np.float32)
+    wavfile.write(path, sr, (y * 32767).astype(np.int16))
+    return y
+
+
+def spectral_path(torch, mmk, fl, sd, card):
+    """Phase 7: the spectral path (BASELINE config 3) as its users start it,
+    the seq2seq and FreqNet demos on a synthesized wav in a temporary
+    directory.  Returns the LSTM wrappers' launches in it."""
+    import tempfile
+
+    from scipy.io import wavfile
+
+    from mimikit_tpu_torch.demos import freqnet, seq2seq
+    from mimikit_tpu_torch.loops import generate as gen
+
+    lstm = (fl.lstm_forward, fl.lstm_backward, fl.lstm_forward_wide, fl.lstm_backward_wide)
+    names = ("lstm_forward", "lstm_backward", "lstm_forward_wide", "lstm_backward_wide")
+    err = check_lstm(torch, fl, LSTM_S2S_SHAPES)
+    err.update(check_lstm_bf16(torch, fl, LSTM_S2S_BF16_SHAPES, BF16_LSTM_S2S_SHARES))
+    check_lstm_chain(torch, fl, LSTM_S2S_SHAPES[:1])
+    check_s2s_step(torch, mmk, fl, sd, card)
+    launches = {}
+    with tempfile.TemporaryDirectory() as work:
+        wav = os.path.join(work, "spectral.wav")
+        signal = spectral_wav(wav)
+        common = dict(sources=(wav,), root_dir=os.path.join(work, "trainings"),
+                      max_epochs=1, every_n_epochs=1, MONITOR_TRAINING=False,
+                      OUTPUT_TRAINING="")
+        # seq2seq, f32: one epoch, every LSTM call on the wide kernels
+        reset_counts(*lstm)
+        t0 = time.perf_counter()
+        with plain_calls(fl, sd) as plain, lstm_routes() as routes:
+            loop = seq2seq.demo(db_path=os.path.join(work, "s2s.h5"),
+                                limit_train_batches=S2S_STEPS,
+                                trainer_kwargs={"data_seed": SEED}, **common)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        net = loop.net
+        got = dict(zip(names, launch_counts(fl)))
+        loss32 = [h["loss"] for _, h in loop.metrics.history]
+        log(f"  demos.seq2seq ({sum(p.numel() for p in net.parameters())} parameters):"
+            f" {loop.global_step} steps at B={loop.train_cfg.batch_size} in {wall:.2f} s (dataset"
+            f" and checkpoint included); epoch loss {loss32}; routes {routes}; launches {got};"
+            f" plain calls {plain}")
+        want = 8 * S2S_STEPS
+        if (loop.global_step != S2S_STEPS or not all(np.isfinite(loss32))
+                or got != dict(zip(names, (0, 0, want, want))) or sum(plain.values())
+                or set(routes) != {("wide", 16, 4, 512, "float32")}):
+            raise AssertionError(f"demos.seq2seq: {loop.global_step} steps, losses {loss32},"
+                                 f" routes {routes}, launches {got} (want {want} on each wide"
+                                 f" kernel), plain calls {plain}")
+        launches.update({k: v for k, v in got.items() if v})
+        back = mmk.Checkpoint(loop.hash_, 1, common["root_dir"], device="cuda").network
+        if not all(torch.equal(a, b) for a, b in zip(net.state_dict().values(),
+                                                      back.state_dict().values())):
+            raise AssertionError("the seq2seq bank did not reload the trained parameters")
+        s2s_time_steps(torch, loop, "", card)
+
+        # generate B=4 x 64 frames through GenerateLoopV2, Griffin-Lim to wavs on the card
+        reset_counts(*lstm)
+        db = mmk.DatasetConfig(sources=(wav,), filename=os.path.join(work, "s2s.h5"),
+                               extractors=(net.config.io_spec.inputs[0].extractor,)).get(
+                                   mode="r")
+        glp = gen.GenerateLoopV2.from_config(gen.GenerateLoopV2.Config(
+            prompts_length_sec=3.0, prompts_position_sec=(None,) * S2S_GEN_B,
+            batch_size=S2S_GEN_B, output_name_template=os.path.join(work, "s2s_{prompt_idx}.wav"),
+            display_waveform=False, write_waveform=True), dataset=db, network=net)
+        glp.n_steps = S2S_GEN_FRAMES
+        t0 = time.perf_counter()
+        with plain_calls(fl, sd) as plain:
+            audio = list(glp.run())[0][0]
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        db.close()
+        wavs = sorted(f for f in os.listdir(work) if f.startswith("s2s_"))
+        got = dict(zip(names, launch_counts(fl)))
+        blocks = S2S_GEN_FRAMES // net.config.hop
+        log(f"  seq2seq generate B={S2S_GEN_B} x {S2S_GEN_FRAMES} frames (GenerateLoopV2,"
+            f" Griffin-Lim on the card, {len(wavs)} wavs) in {wall:.3f} s (host clock); audio"
+            f" {audio.shape}; launches {got}; plain calls {plain}; route"
+            f" {fl.lstm_route(S2S_GEN_B, 4, 512)} on {card}")
+        if (len(wavs) != S2S_GEN_B or audio.shape[0] != S2S_GEN_B or not np.isfinite(audio).all()
+                or got != dict(zip(names, (0, 0, 8 * blocks, 0))) or sum(plain.values())):
+            raise AssertionError(f"seq2seq generate: {wavs}, audio {audio.shape}, launches {got}"
+                                 f" (want {8 * blocks} K3a-wide), plain calls {plain}")
+        sr_back, first = wavfile.read(os.path.join(work, wavs[0]))
+        if sr_back != SPECTRAL_SR or first.size == 0:
+            raise AssertionError(f"the wav read back: sr {sr_back}, {first.size} samples")
+        launches["lstm_forward_wide"] += got["lstm_forward_wide"]
+
+        # seq2seq under param_dtype="bfloat16": the cluster kernels' bf16 instantiation
+        reset_counts(*lstm)
+        with plain_calls(fl, sd) as plain, lstm_routes() as routes:
+            loop16 = seq2seq.demo(db_path=os.path.join(work, "s2s16.h5"),
+                                  limit_train_batches=S2S_STEPS,
+                                  trainer_kwargs={"data_seed": SEED, "param_dtype": "bfloat16"},
+                                  root_dir=os.path.join(work, "trainings16"),
+                                  **{k: v for k, v in common.items() if k != "root_dir"})
+            torch.cuda.synchronize()
+        loss16 = [h["loss"] for _, h in loop16.metrics.history]
+        got16 = dict(zip(names, launch_counts(fl, "launches_bf16")))
+        f32 = sum(launch_counts(fl))
+        limit = max(0.1 * abs(loss32[-1]), 5e-3)
+        log(f"  demos.seq2seq (param_dtype=bfloat16): epoch loss {loss16} (f32 {loss32}, within"
+            f" {abs(loss16[-1] - loss32[-1]):.4g}, limit {limit:.4g}); routes {routes}; bf16"
+            f" launches {got16}; f32 launches {f32}; plain calls {plain}")
+        if (got16 != dict(zip(names, (want, want, 0, 0))) or f32 or sum(plain.values())
+                or set(routes) != {("cluster", 16, 4, 512, "bfloat16")}
+                or not abs(loss16[-1] - loss32[-1]) <= limit):
+            raise AssertionError(f"bf16 seq2seq: routes {routes}, launches {got16} (want {want}"
+                                 f" on each cluster kernel), f32 {f32}, losses {loss16} against"
+                                 f" {loss32}")
+        launches.update({f"{k}_bf16": v for k, v in got16.items() if v})
+        s2s_time_steps(torch, loop16, "_bf16", card)
+
+        # FreqNet: a few steps, then frames decoded on the plain loop
+        reset_counts(*lstm)
+        t0 = time.perf_counter()
+        fq_loop = freqnet.demo(db_path=os.path.join(work, "fq.h5"), downsampling=1,
+                               limit_train_batches=FREQNET_STEPS,
+                               trainer_kwargs={"data_seed": SEED}, **common)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        fq = fq_loop.net
+        losses = [h["loss"] for _, h in fq_loop.metrics.history]
+        log(f"  demos.freqnet ({sum(p.numel() for p in fq.parameters())} parameters, rf"
+            f" {fq.rf} frames): {fq_loop.global_step} steps at B={fq_loop.train_cfg.batch_size}"
+            f" x {fq_loop.train_cfg.batch_length} frames in {wall:.2f} s; epoch loss {losses}")
+        if fq_loop.global_step != FREQNET_STEPS or not all(np.isfinite(losses)):
+            raise AssertionError(f"demos.freqnet: {fq_loop.global_step} steps, losses {losses}")
+        mag = mmk.MagSpec(2048, 512, center=False, window="hann")
+        n = 2048 + 15 * 512  # 16 frames
+        starts = (0, 300_000, 600_000, 900_000)
+        prompt = mag(torch.from_numpy(np.stack([signal[a : a + n] for a in starts])).cuda())
+        fq.eval()
+        t0 = time.perf_counter()
+        out = fq.generate((prompt,), FREQNET_GEN_FRAMES)[0]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rf, T0 = fq.rf, prompt.shape[1]
+        with torch.no_grad():
+            wins = torch.stack([out[:, t - rf : t] for t in range(T0, T0 + FREQNET_GEN_FRAMES)], 1)
+            tf = fq((wins.reshape(-1, rf, wins.shape[-1]),))[0].reshape(
+                S2S_GEN_B, FREQNET_GEN_FRAMES, -1)
+        gen_frames = out[:, T0:]
+        gap = float((gen_frames - tf).abs().max())
+        scale = float(tf.abs().max())
+        log(f"  FreqNet generate B={S2S_GEN_B} x {FREQNET_GEN_FRAMES} frames in {wall:.3f} s"
+            f" (host clock, the plain step loop) on {card}: each frame against the eval forward"
+            f" on the {rf} frames before it, max |gap| {gap:.3e} (limit {FREQNET_RTOL:g} *"
+            f" {scale:.3e})")
+        if not (np.isfinite(gap) and gap <= FREQNET_RTOL * scale) or fq._kernel_route(T0):
+            raise AssertionError(f"FreqNet frames: gap {gap:.3e} past {FREQNET_RTOL} * {scale:.3e},"
+                                 f" or the decode kernels' gate took the net")
+    return launches, err
+
+
+def profile_steps(torch, window, steps=TRAIN_STEPS):
+    """Device time by kernel over one window of ``steps`` train steps
+    (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -3917,11 +4293,11 @@ def profile_steps(torch, window):
             rows.append((dev, e.key, e.count))
     rows.sort(reverse=True)
     total = sum(r[0] for r in rows)
-    log(f"  profile of one window ({TRAIN_STEPS} steps): kernels {total / 1e3:.3f} ms of"
+    log(f"  profile of one window ({steps} steps): kernels {total / 1e3:.3f} ms of"
         f" {wall_us / 1e3:.3f} ms wall (profiler on; idle share {1 - total / wall_us:.1%})")
     for dev, key, count in rows[:16]:
-        log(f"    {dev / 1e3 / TRAIN_STEPS:9.4f} ms/step  {100 * dev / total:5.1f}%"
-            f"  x{count // TRAIN_STEPS:<3d} {key[:90]}")
+        log(f"    {dev / 1e3 / steps:9.4f} ms/step  {100 * dev / total:5.1f}%"
+            f"  x{count // steps:<3d} {key[:90]}")
 
 
 def main(argv=None) -> int:
@@ -4048,8 +4424,8 @@ def main(argv=None) -> int:
     if args.quick:
         log(json.dumps({"ok": True, "quick": True, "max_err": err}))
         return 0
-    err_full = check_kernels(torch, mmk, sd, FULL, 4, 256, 2048, (2048 + 32, 700, 1600),
-                             jitter=0.0)
+    err_full = check_kernels(torch, mmk, sd, FULL, 4, 256, SRN_FULL_CHECK_N,
+                             (SRN_FULL_CHECK_N + 32, 700, 1600), jitter=0.0)
     stamp("SampleRNN decode, full width, f32")
     err_full.update(check_kernels(torch, mmk, sd, FULL, 4, 256, 1024, (1024 + 32, 700),
                                   jitter=0.0, bf16=True))
@@ -4070,14 +4446,17 @@ def main(argv=None) -> int:
                                                          WN_CLUSTER_BATCHES, 256, (1287, 500),
                                                          jitter=0.0))
     stamp("LSTM and WaveNet, full width")
-    err_full.update(check_transformer(torch, mmk, td, tk, TF_FULL, 128, TF_WIN_BATCHES,
-                                      TF_KV_BATCHES, (128 + 63, 100), jitter=0.0))
+    err_full.update(check_transformer(torch, mmk, td, tk, TF_FULL, TF_FULL_CHECK_N,
+                                      TF_WIN_BATCHES, TF_KV_BATCHES, (TF_FULL_CHECK_N + 63, 100),
+                                      jitter=0.0))
     stamp("K6 and K7, full width, f32")
-    err_full.update(check_transformer(torch, mmk, td, tk, TF_FULL, 64, (), TF_KV_BATCHES,
-                                      (64 + 63, 100), jitter=0.0, bf16=True))
+    err_full.update(check_transformer(torch, mmk, td, tk, TF_FULL, TF_FULL_BF16_N, (),
+                                      TF_KV_BATCHES, (TF_FULL_BF16_N + 63, 100), jitter=0.0,
+                                      bf16=True))
     stamp("K7, full width, bf16")
-    err_full = merge_max(err_full, check_transformer(torch, mmk, td, tk, TF_LONG, 48, (1, 2),
-                                                     (1, 16), (48 + 63, 20), jitter=0.0))
+    err_full = merge_max(err_full, check_transformer(torch, mmk, td, tk, TF_LONG, TF_LONG_N,
+                                                     (1, 2), (1, 16), (TF_LONG_N + 63, 20),
+                                                     jitter=0.0))
     stamp("K6 and K7 at rf 512")
     err_full.update(check_jukebox(torch, mmk, jbd, JB_FULL, JB_CHECK_BATCHES, JB_FULL_CHECK_N,
                                   (JB_FULL_CHECK_N + 15, 100), jitter=0.0))
@@ -4230,6 +4609,18 @@ def main(argv=None) -> int:
     rows += jukebox_rows(torch, jbd, mu, jb_net, jb_prompts,
                          {**jb_launches, **{k: train_launches[k] for k in ("mulaw_compress",
                                                                             "mulaw_expand")}}, err)
+
+    # -- phase 7 -------------------------------------------------------------
+    log(f"phase 7: the spectral path (at {time.perf_counter() - t_start:.1f} s)")
+    t_spectral = time.perf_counter()
+    spectral_launches, spectral_err = spectral_path(torch, mmk, fl, sd, card)
+    log(f"  the spectral path took {time.perf_counter() - t_spectral:.1f} s; its launches"
+        f" {spectral_launches}")
+    for row in rows:
+        if row["name"] in spectral_launches:
+            row["spectral_launches"] = spectral_launches[row["name"]]
+        if row["name"] in spectral_err:
+            row["max_abs_err"] = max(row["max_abs_err"], spectral_err[row["name"]])
     log(f"chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
 
     log(json.dumps({"kernels": rows}))

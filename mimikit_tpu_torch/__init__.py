@@ -13,7 +13,9 @@ JukeBox (``generate``, ``stream``, ``stream_tokens`` and ``stream_audio``; the
 transformer's window re-feed and its ``MMK_DECODE_KV=1`` KV-ring stream;
 JukeBox's tier pyramid with its window carried across stream chunks), each
 through hand-written decode kernels.  ``ops.mulaw`` is the mu-law pair as
-one Triton kernel.
+one Triton kernel.  The spectral path (``IOSpec.magspec_io``: ``MagSpec``
+frames in and out, ``GLA`` back to audio) trains ``Seq2SeqLSTMNetwork`` (its
+LSTMs on the same LSTM kernels) and FreqNet (``WaveNet`` on frames).
 
 Entry points run on the card (``cuda``) unless the caller passes
 ``device="cpu"``.

@@ -6,8 +6,8 @@ under ``network/state_dict/<path>`` (the port maps its state_dict there and
 back with the maps of :mod:`.weights`), the network, dataset and training
 configs as YAML attrs, and the trainer state.  The optimizer state goes to a
 sibling ``epoch=N.opt`` as torch's own ``state_dict`` (``torch.save``).
-Files go through :mod:`.data.h5`.  SampleRNN, WaveNet, SimpleTransformer and
-JukeBox networks are ported.
+Files go through :mod:`.data.h5`.  SampleRNN, WaveNet (FreqNet too),
+SimpleTransformer, JukeBox and Seq2SeqLSTMNetwork networks are ported.
 """
 from __future__ import annotations
 
@@ -28,6 +28,8 @@ from .weights import (
     jukebox_state_dict_from_jax,
     samplernn_params_to_jax,
     samplernn_state_dict_from_jax,
+    seq2seq_params_to_jax,
+    seq2seq_state_dict_from_jax,
     transformer_params_to_jax,
     transformer_state_dict_from_jax,
     wavenet_params_to_jax,
@@ -70,12 +72,15 @@ def _unflatten(flat: dict) -> dict:
 
 def _weight_maps(network):
     """(state_dict -> flax tree, flax tree -> state_dict) for ``network``."""
+    from .networks.s2s_lstm import Seq2SeqLSTMNetwork
     from .networks.sample_rnn import SampleRNN
     from .networks.transformers import JukeBox, SimpleTransformer
     from .networks.wavenet import WaveNet
 
     if isinstance(network, SampleRNN):
         return samplernn_params_to_jax, samplernn_state_dict_from_jax
+    if isinstance(network, Seq2SeqLSTMNetwork):
+        return seq2seq_params_to_jax, seq2seq_state_dict_from_jax
     if isinstance(network, WaveNet):
         return wavenet_params_to_jax, wavenet_state_dict_from_jax
     if isinstance(network, SimpleTransformer):

@@ -1,9 +1,10 @@
 """Signal-processing functionals: configurable, invertible, dual-backend.
 
 Counterpart of ``mimikit_tpu/features/functionals.py``, reduced to what the
-mu-law SampleRNN serving path needs: ``Discrete``/``Continuous`` element
-types, ``FileToSignal`` (through ``audio_io.load_audio``, resampled to ``sr``),
-``Normalize``, ``RemoveDC``, ``Compose`` and the centered mu-law pair.  Each
+mu-law and spectral paths need: ``Discrete``/``Continuous`` element types,
+``FileToSignal`` (through ``audio_io.load_audio``, resampled to ``sr``),
+``Normalize``, ``RemoveDC``, ``Compose``, the centered mu-law pair, and
+``STFT``, ``ISTFT``, ``MagSpec`` and its inverse ``GLA`` (``dsp.py``).  Each
 ``Functional`` has a numpy path (``np_func``, the host/extraction path) and a
 torch path (``torch_func``, device tensors) where the JAX package had a
 ``jax_func``; ``__call__`` dispatches on the input type.
@@ -18,8 +19,9 @@ import numpy as np
 import torch
 
 from ..config import Config
+from . import dsp
 from .audio_io import load_audio
-from .item_spec import Sample, Unit
+from .item_spec import Frame, Sample, Unit, convert
 
 __all__ = [
     "Continuous",
@@ -32,8 +34,14 @@ __all__ = [
     "Normalize",
     "MuLawCompress",
     "MuLawExpand",
+    "STFT",
+    "ISTFT",
+    "MagSpec",
+    "GLA",
 ]
 
+N_FFT = 2048
+HOP_LENGTH = 512
 SR = 22050
 Q_LEVELS = 256
 
@@ -77,6 +85,12 @@ class Functional(Config, abc.ABC):
         if isinstance(inputs, torch.Tensor):
             return self.torch_func(inputs)
         return self.np_func(inputs)
+
+    def apply_to_outputs(self, outputs: np.ndarray, device) -> np.ndarray:
+        """This transform of a network's outputs (numpy, off ``device``, the
+        network's): on the host, unless the transform runs where the network
+        does (``GLA``)."""
+        return np.asarray(self(outputs))
 
     @property
     @abc.abstractmethod
@@ -291,3 +305,186 @@ class MuLawExpand(Functional):
     @property
     def inv(self):
         return MuLawCompress(self.q_levels, self.compression)
+
+
+def _coord(S, coordinate: str):
+    """A complex spectrogram in ``coordinate``: "pol" (magnitude, angle),
+    "car" (real, imaginary), "mag", "angle", or complex."""
+    xp = torch if isinstance(S, torch.Tensor) else np
+    if coordinate == "pol":
+        return xp.stack((xp.abs(S), xp.angle(S)), -1)
+    if coordinate == "car":
+        return xp.stack((S.real, S.imag), -1)
+    if coordinate == "mag":
+        return xp.abs(S)
+    if coordinate == "angle":
+        return xp.angle(S)
+    return S
+
+
+@dtc.dataclass
+class STFT(Functional):
+    """Short-time Fourier transform, (time, freq) layout.  ``alignment``
+    trims the signal to the length a whole number of frames covers, keeping
+    its end ("end") or its start ("start")."""
+
+    n_fft: int = N_FFT
+    hop_length: int = HOP_LENGTH
+    coordinate: str = "pol"
+    center: bool = True
+    window: Optional[str] = "hann"
+    pad_mode: str = "constant"
+    alignment: Optional[str] = "end"
+
+    @property
+    def unit(self) -> Optional[Unit]:
+        return Frame(self.n_fft, self.hop_length, padding=self.center)
+
+    @property
+    def elem_type(self) -> Optional[EventType]:
+        return Continuous(0.0, float("inf"), 1 + self.n_fft // 2)
+
+    def _fix_length(self, inputs):
+        if self.alignment is None:
+            return inputs
+        n = inputs.shape[-1]
+        target_length = convert(
+            convert(n, Sample(1), self.unit, as_length=True) + int(self.center),
+            self.unit, Sample(1), as_length=True,
+        )
+        if self.alignment == "end":
+            return inputs[..., -target_length:]
+        if self.alignment == "start":
+            return inputs[..., :target_length]
+        return inputs
+
+    def np_func(self, inputs):
+        S = dsp.stft_np(self._fix_length(np.asarray(inputs)), self.n_fft, self.hop_length,
+                        self.center, self.window, self.pad_mode)
+        return _coord(S, self.coordinate)
+
+    def torch_func(self, inputs):
+        S = dsp.stft_torch(self._fix_length(inputs), self.n_fft, self.hop_length, self.center,
+                           self.window, self.pad_mode)
+        return _coord(S, self.coordinate)
+
+    @property
+    def inv(self):
+        return ISTFT(self.n_fft, self.hop_length, self.coordinate, self.center, self.window)
+
+
+@dtc.dataclass
+class ISTFT(Functional):
+    n_fft: int = N_FFT
+    hop_length: int = HOP_LENGTH
+    coordinate: str = "pol"
+    center: bool = True
+    window: Optional[str] = None
+    pad_mode: str = "constant"
+
+    @property
+    def unit(self) -> Optional[Unit]:
+        return Sample(None)
+
+    @property
+    def elem_type(self) -> Optional[EventType]:
+        return Continuous(-1.0, 1.0, 1)
+
+    def _to_complex(self, inputs):
+        xp = torch if isinstance(inputs, torch.Tensor) else np
+        if self.coordinate == "pol":
+            return inputs[..., 0] * xp.exp(1j * inputs[..., 1])
+        if self.coordinate == "car":
+            return inputs[..., 0] + 1j * inputs[..., 1]
+        return inputs
+
+    def np_func(self, inputs):
+        S = self._to_complex(np.asarray(inputs))
+        return dsp.istft_np(S, self.n_fft, self.hop_length, self.center, self.window)
+
+    def torch_func(self, inputs):
+        return dsp.istft_torch(self._to_complex(inputs), self.n_fft, self.hop_length,
+                               self.center, self.window)
+
+    @property
+    def inv(self):
+        return STFT(self.n_fft, self.hop_length, self.coordinate, self.center, self.window,
+                    self.pad_mode)
+
+
+@dtc.dataclass
+class MagSpec(Functional):
+    """Magnitude spectrogram (an ``STFT`` in "mag" coordinates); ``inv`` is
+    Griffin-Lim."""
+
+    n_fft: int = N_FFT
+    hop_length: int = HOP_LENGTH
+    center: bool = True
+    window: Optional[str] = "hann"
+    pad_mode: str = "constant"
+    alignment: Optional[str] = "end"
+
+    @property
+    def stft(self):
+        return STFT(self.n_fft, self.hop_length, "mag", self.center, self.window,
+                    self.pad_mode, alignment=self.alignment)
+
+    @property
+    def unit(self) -> Optional[Unit]:
+        return Frame(self.n_fft, self.hop_length, padding=self.center)
+
+    @property
+    def elem_type(self) -> Optional[EventType]:
+        return Continuous(0.0, float("inf"), 1 + self.n_fft // 2)
+
+    def np_func(self, inputs):
+        return self.stft.np_func(inputs)
+
+    def torch_func(self, inputs):
+        return self.stft.torch_func(inputs)
+
+    @property
+    def inv(self):
+        return GLA(self.n_fft, self.hop_length, self.center, self.window, self.pad_mode)
+
+
+@dtc.dataclass
+class GLA(Functional):
+    """Griffin-Lim phase reconstruction, ``n_iter`` iterations at momentum
+    0.99 (a hann window where ``window`` is None).  The torch path runs where
+    its tensor lies (``apply_to_outputs`` hands it a network's frames on the
+    network's device); its first phase comes from ``generator`` (seeded 0
+    where None), so it agrees with the JAX package's in distribution
+    (``dsp.griffinlim_torch``)."""
+
+    n_fft: int = N_FFT
+    hop_length: int = HOP_LENGTH
+    center: bool = True
+    window: Optional[str] = None
+    pad_mode: str = "constant"
+    n_iter: int = 32
+
+    @property
+    def unit(self) -> Optional[Unit]:
+        return Sample(None)
+
+    @property
+    def elem_type(self) -> Optional[EventType]:
+        return Continuous(-1.0, 1.0, 1)
+
+    def np_func(self, inputs):
+        return dsp.griffinlim_np(np.asarray(inputs), self.n_fft, self.hop_length, self.center,
+                                 self.window if self.window is not None else "hann",
+                                 self.n_iter)
+
+    def torch_func(self, inputs, generator: Optional[torch.Generator] = None):
+        return dsp.griffinlim_torch(inputs, self.n_fft, self.hop_length, self.center,
+                                    self.window if self.window is not None else "hann",
+                                    self.n_iter, generator=generator)
+
+    def apply_to_outputs(self, outputs, device):
+        return self.torch_func(torch.as_tensor(outputs, device=device)).cpu().numpy()
+
+    @property
+    def inv(self):
+        return MagSpec(self.n_fft, self.hop_length, self.center, self.window, self.pad_mode)

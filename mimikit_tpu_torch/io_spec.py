@@ -1,7 +1,9 @@
 """IOSpec: the wiring layer between data features and modules.
 
 Counterpart of ``mimikit_tpu/io_spec.py``, reduced to ``mulaw_io`` (with a
-framed-linear input for SampleRNN or an embedding input for WaveNet):
+framed-linear input for SampleRNN or an embedding input for WaveNet) and
+``magspec_io`` (STFT magnitude frames in and out, the "reconstruction"
+objective, for ``Seq2SeqLSTMNetwork`` and FreqNet):
 ``InputSpec``/``TargetSpec`` bind an extractor to a transform and an
 IO-module and turn a network's ``ItemSpec`` into a windowed read
 (``to_batch_item``); ``TargetSpec.loss_fn``/``IOSpec.loss_fn`` score
@@ -22,13 +24,15 @@ from .features.functionals import (
     Discrete,
     FileToSignal,
     Functional,
+    MagSpec,
     MuLawCompress,
     Normalize,
     RemoveDC,
 )
-from .features.item_spec import ItemSpec, Sample, Unit
+from .features.item_spec import Frame, ItemSpec, Sample, Unit
 from .modules import loss_functions as lfuncs
-from .modules.io import EmbeddingIO, FramedLinearIO, IOModule, MLPIO
+from .modules.activations import ActivationConfig
+from .modules.io import ChunkedLinearIO, EmbeddingIO, FramedLinearIO, IOModule, MLPIO
 from .modules.targets import CategoricalSampler
 
 __all__ = [
@@ -80,6 +84,15 @@ class _FeatureSpec(Config, type_field=False):
         ]
         return srs[-1] if any(srs) else None
 
+    @property
+    def hop_length(self):
+        hops = [
+            f.unit.hop_length
+            for f in [self.extractor.functional, self.transform]
+            if isinstance(f.unit, Frame)
+        ]
+        return hops[-1] if any(hops) else None
+
     def to_batch_item(self, item_spec: ItemSpec) -> Input:
         """A network ItemSpec as a windowed read of the extractor's array
         (``mimikit_tpu/io_spec.py:102-116``)."""
@@ -118,10 +131,14 @@ class Objective(Config, type_field=False):
     weight: float = 1.0
 
     def get_criterion(self):
-        """The loss of this objective: cross-entropy for 'categorical_dist',
-        none for 'none' (a target served but not scored); the other
-        objectives of the JAX package are not ported."""
+        """The loss of this objective: ``MeanL1Prop(**params)`` for
+        'reconstruction', cross-entropy for 'categorical_dist', none for
+        'none' (a target served but not scored).  The JAX package's other
+        objectives (``DiffOverTime``, ``WeightedL1``, ...) are not ported and
+        raise ``NotImplementedError``."""
         ot = str(self.objective_type)
+        if ot == "reconstruction":
+            return lfuncs.MeanL1Prop(**self.params)
         if ot == "categorical_dist":
             return lfuncs.cross_entropy
         if ot == "none":
@@ -145,6 +162,8 @@ class TargetSpec(_FeatureSpec, type_field=False):
         super().bind_to(extractor)
         ot = str(self.objective.objective_type)
         if ot == "reconstruction":
+            if not isinstance(self.elem_type, Continuous):
+                raise TypeError("reconstruction needs a Continuous target")
             self.module.set(out_dim=self.elem_type.size)
         elif ot == "categorical_dist":
             if not isinstance(self.elem_type, Discrete):
@@ -194,6 +213,10 @@ class IOSpec(Config, type_field=False):
     @property
     def sr(self):
         return self._unanimous("sr", "sample_rate")
+
+    @property
+    def hop_length(self):
+        return self._unanimous("hop_length", "hop_length")
 
     @property
     def unit(self) -> Unit:
@@ -268,6 +291,44 @@ class IOSpec(Config, type_field=False):
                             else {}
                         ),
                     ),
+                ).bind_to(extractor),
+            ),
+        )
+
+    @dtc.dataclass
+    class MagSpecIOConfig(Config):
+        sr: int = 22050
+        n_fft: int = 2048
+        hop_length: int = 512
+        activation: str = "Abs"
+
+    @staticmethod
+    def magspec_io(config: "IOSpec.MagSpecIOConfig", extractor: Extractor = None):
+        """STFT magnitude frames (``MagSpec``, not centered, hann) in and out:
+        a ``ChunkedLinearIO`` input head, a ``ChunkedLinearIO`` output head
+        with ``config.activation``, and the "reconstruction" objective
+        (``mimikit_tpu/io_spec.py:316-348``)."""
+        c = config
+        if extractor is None:
+            extractor = Extractor(
+                "signal", Compose(FileToSignal(c.sr), Normalize(), RemoveDC())
+            )
+        return IOSpec(
+            inputs=(
+                InputSpec(
+                    extractor_name=extractor.name,
+                    transform=MagSpec(c.n_fft, c.hop_length, center=False, window="hann"),
+                    module=ChunkedLinearIO(n_chunks=1),
+                ).bind_to(extractor),
+            ),
+            targets=(
+                TargetSpec(
+                    extractor_name=extractor.name,
+                    transform=MagSpec(c.n_fft, c.hop_length, center=False, window="hann"),
+                    module=ChunkedLinearIO(
+                        n_chunks=1, activation=ActivationConfig(act=c.activation),
+                    ),
+                    objective=Objective("reconstruction"),
                 ).bind_to(extractor),
             ),
         )

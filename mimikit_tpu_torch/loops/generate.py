@@ -9,7 +9,8 @@ parameter; otherwise through the stepwise loop, which calls the ARM
 contract's ``generate_step`` once a step (the reference semantics,
 multi-step ``until`` writes included).  The outputs leave the device once
 a batch, then go through the targets' inverse transforms to the
-``AudioLogger``.
+``AudioLogger`` (``Functional.apply_to_outputs``: mu-law expansion on the
+host, Griffin-Lim, ``MagSpec``'s inverse, on the network's device).
 
 ``EncodeDecodeLoop`` (``:427``, the autoencoders' loop) is not ported: it
 comes with ``networks/tied_autoencoder.py``.
@@ -252,7 +253,7 @@ class GenerateLoopV2:
                 and not self.config.yield_inversed_outputs:
             return final_outputs
         features = self.network.config.io_spec.targets
-        outputs = tuple(np.asarray(feature.inv(out))
+        outputs = tuple(feature.inv.apply_to_outputs(out, self.network.device)
                         for feature, out in zip(features, final_outputs))
         for output in outputs:
             for example, idx in zip(output, prompt_idx):

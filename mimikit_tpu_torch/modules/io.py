@@ -29,6 +29,8 @@ from .targets import OutputWrapper
 from .weight_norm import make_dense
 
 __all__ = [
+    "LinearIO",
+    "ChunkedLinearIO",
     "EmbeddingIO",
     "FramedLinearIO",
     "FramedConv1dIO",
@@ -74,6 +76,18 @@ class _Unsqueeze(nn.Module):
         return x.unsqueeze(-1)
 
 
+class ChunkSum(nn.Module):
+    """The sum of ``n_chunks`` equal slices of the last axis
+    (``mimikit_tpu/modules/io.py:148``)."""
+
+    def __init__(self, n_chunks: int):
+        super().__init__()
+        self.n_chunks = n_chunks
+
+    def forward(self, x):
+        return sum(torch.chunk(x, self.n_chunks, dim=-1))
+
+
 @dtc.dataclass
 class IOModule(Config, abc.ABC):
     activation: Optional[ActivationConfig] = None
@@ -89,6 +103,7 @@ class IOModule(Config, abc.ABC):
     weight_norm: bool = private_runtime_field(False)
     with_linearizer: bool = private_runtime_field(False)
     with_unfold: bool = private_runtime_field(False)
+    with_n_chunks: Optional[int] = private_runtime_field(None)
 
     def set(self, **kwargs):
         for k, v in kwargs.items():
@@ -129,6 +144,8 @@ class IOModule(Config, abc.ABC):
             self.not_none("frame_size", "hop_length")
             before.append(Unfold(self.frame_size, self.hop_length))
         after = []
+        if self.with_n_chunks is not None:
+            after.append(ChunkSum(self.with_n_chunks))
         if self.activation is not None and str(self.activation.act) != "Identity":
             after.append(self.activation.get())
         if self.dropout > 0 and not core_owns_after:
@@ -137,6 +154,35 @@ class IOModule(Config, abc.ABC):
         if self.sampler is not None:
             return OutputWrapper(estimator=mod, sampler=self.sampler)
         return mod
+
+
+@dtc.dataclass
+class LinearIO(IOModule):
+    """A dense layer (``mimikit_tpu/modules/io.py:234``): the spectral
+    nets' input and output heads.  Its dense is ``0.weight``."""
+
+    bias: bool = True
+
+    def module(self) -> nn.Module:
+        self.not_none("in_dim", "out_dim")
+        return self.wrap(make_dense(self.in_dim, self.out_dim, bias=self.bias,
+                                    weight_norm=self.weight_norm))
+
+
+@dtc.dataclass
+class ChunkedLinearIO(IOModule):
+    """A dense layer to ``n_chunks * out_dim`` features whose ``n_chunks``
+    slices are summed (``mimikit_tpu/modules/io.py:254``), then the
+    activation: ``IOSpec.magspec_io``'s heads."""
+
+    bias: bool = True
+    n_chunks: int = 1
+
+    def module(self) -> nn.Module:
+        self.not_none("in_dim", "out_dim")
+        self.with_n_chunks = self.n_chunks
+        return self.wrap(make_dense(self.in_dim, self.out_dim * self.n_chunks, bias=self.bias,
+                                    weight_norm=self.weight_norm))
 
 
 @dtc.dataclass

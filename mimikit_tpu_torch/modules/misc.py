@@ -6,7 +6,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-__all__ = ["causal_pad"]
+__all__ = ["causal_pad", "unfold"]
 
 
 def causal_pad(x: torch.Tensor, pad: Tuple[int, ...], value: float = 0.0) -> torch.Tensor:
@@ -21,3 +21,10 @@ def causal_pad(x: torch.Tensor, pad: Tuple[int, ...], value: float = 0.0) -> tor
     for p in reversed(pad):
         widths += [p, 0] if p >= 0 else [0, -p]
     return F.pad(x, widths, value=value)
+
+
+def unfold(x: torch.Tensor, dim: int, size: int, step: int) -> torch.Tensor:
+    """Sliding windows of ``size`` every ``step`` along ``dim``, the window
+    axis appended last (``mimikit_tpu/modules/misc.py:36``, which follows
+    ``torch.Tensor.unfold``)."""
+    return x.unfold(dim, size, step)

@@ -25,7 +25,7 @@ Under ``weight_norm`` (flax's ``nn.WeightNorm`` around each
 ``OptimizedLSTMCell``, ``mimikit_tpu/modules/rnn.py:89-90``) the eight gate
 kernels of a layer are normalised per unit, which in torch's packed i|f|g|o
 matrices is per row: the parameters are ``weight_ih_l{k}_g`` (4H,) and
-``weight_ih_l{k}_v`` (4H, H), and the same for ``weight_hh``
+``weight_ih_l{k}_v`` (4H, D), and the same for ``weight_hh`` (4H, H)
 (:func:`~.weight_norm.weight_norm`).  :meth:`LSTM.forward_seq` computes the
 effective weights once a call, under autograd, and they go through
 ``lstm_route`` as a plain layer's do (JAX sends weight-normed stacks to its
@@ -85,31 +85,47 @@ def init_rnn_carry(
 
 
 class LSTM(nn.Module):
+    """Stacked LSTM over (B, T, D) with an explicit carry.  ``input_dim`` is
+    the first layer's input width (default ``hidden_dim``: every other layer
+    reads H); ``x @ W_ih`` is the product outside the recurrence, as the JAX
+    package computes it outside its ``pallas_call``
+    (``mimikit_tpu/ops/pallas_lstm.py:244-251``).  ``bidirectional`` adds a
+    second set of weights a layer, torch's ``*_reverse`` (one layer only: the
+    seq2seq net's ``_BiLSTMSum`` runs it on the flipped sequence)."""
+
     def __init__(self, hidden_dim: int, n_layers: int = 1, dropout: float = 0.0,
-                 weight_norm: bool = False):
+                 weight_norm: bool = False, input_dim: Optional[int] = None,
+                 bidirectional: bool = False):
         super().__init__()
+        if bidirectional and n_layers != 1:
+            raise ValueError("a bidirectional LSTM here has one layer")
         self.hidden_size = hidden_dim
+        self.input_size = hidden_dim if input_dim is None else input_dim
         self.num_layers = n_layers
         self.dropout = dropout
         self.weight_norm = weight_norm
+        self.suffixes = ("", "_reverse") if bidirectional else ("",)
         H = hidden_dim
         for k in range(n_layers):
-            for w in (f"weight_ih_l{k}", f"weight_hh_l{k}"):
-                if weight_norm:
-                    setattr(self, f"{w}_g", nn.Parameter(torch.ones(4 * H)))
-                    setattr(self, f"{w}_v", nn.Parameter(torch.empty(4 * H, H)))
-                else:
-                    setattr(self, w, nn.Parameter(torch.empty(4 * H, H)))
-            self.register_buffer(f"bias_ih_l{k}", torch.zeros(4 * H))
-            setattr(self, f"bias_hh_l{k}", nn.Parameter(torch.empty(4 * H)))
+            for sfx in self.suffixes:
+                for w, cols in ((f"weight_ih_l{k}{sfx}", self.input_size if k == 0 else H),
+                                (f"weight_hh_l{k}{sfx}", H)):
+                    if weight_norm:
+                        setattr(self, f"{w}_g", nn.Parameter(torch.ones(4 * H)))
+                        setattr(self, f"{w}_v", nn.Parameter(torch.empty(4 * H, cols)))
+                    else:
+                        setattr(self, w, nn.Parameter(torch.empty(4 * H, cols)))
+                self.register_buffer(f"bias_ih_l{k}{sfx}", torch.zeros(4 * H))
+                setattr(self, f"bias_hh_l{k}{sfx}", nn.Parameter(torch.empty(4 * H)))
         self._register_load_state_dict_pre_hook(self._fold_input_bias)
 
     def _fold_input_bias(self, state_dict, prefix, *args):
         for k in range(self.num_layers):
-            b_ih, b_hh = f"{prefix}bias_ih_l{k}", f"{prefix}bias_hh_l{k}"
-            if b_ih in state_dict and b_hh in state_dict:
-                state_dict[b_hh] = state_dict[b_hh] + state_dict[b_ih]
-                state_dict[b_ih] = torch.zeros_like(state_dict[b_ih])
+            for sfx in self.suffixes:
+                b_ih, b_hh = f"{prefix}bias_ih_l{k}{sfx}", f"{prefix}bias_hh_l{k}{sfx}"
+                if b_ih in state_dict and b_hh in state_dict:
+                    state_dict[b_hh] = state_dict[b_hh] + state_dict[b_ih]
+                    state_dict[b_ih] = torch.zeros_like(state_dict[b_ih])
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -120,27 +136,31 @@ class LSTM(nn.Module):
         bound = 1.0 / np.sqrt(self.hidden_size)
         sfx = "_v" if self.weight_norm else ""
         for k in range(self.num_layers):
-            for name in (f"weight_ih_l{k}{sfx}", f"weight_hh_l{k}{sfx}", f"bias_hh_l{k}"):
-                p = getattr(self, name)
-                p.copy_(torch.rand(p.shape, generator=generator) * (2 * bound) - bound)
-            if self.weight_norm:
-                getattr(self, f"weight_ih_l{k}_g").fill_(1.0)
-                getattr(self, f"weight_hh_l{k}_g").fill_(1.0)
-            getattr(self, f"bias_ih_l{k}").zero_()
+            for d in self.suffixes:
+                for name in (f"weight_ih_l{k}{d}{sfx}", f"weight_hh_l{k}{d}{sfx}",
+                             f"bias_hh_l{k}{d}"):
+                    p = getattr(self, name)
+                    p.copy_(torch.rand(p.shape, generator=generator) * (2 * bound) - bound)
+                if self.weight_norm:
+                    getattr(self, f"weight_ih_l{k}{d}_g").fill_(1.0)
+                    getattr(self, f"weight_hh_l{k}{d}_g").fill_(1.0)
+                getattr(self, f"bias_ih_l{k}{d}").zero_()
 
     def _weight(self, name: str) -> torch.Tensor:
         if self.weight_norm:
             return _weight_norm(getattr(self, f"{name}_v"), getattr(self, f"{name}_g"))
         return getattr(self, name)
 
-    def layer_weights(self, k: int):
-        """Layer ``k``'s ``(W_ih, W_hh, b_ih, b_hh)`` in torch's layout (4H, H),
-        under weight norm the effective weights."""
-        return (self._weight(f"weight_ih_l{k}"), self._weight(f"weight_hh_l{k}"),
-                getattr(self, f"bias_ih_l{k}"), getattr(self, f"bias_hh_l{k}"))
+    def layer_weights(self, k: int, reverse: bool = False):
+        """Layer ``k``'s ``(W_ih, W_hh, b_ih, b_hh)`` in torch's layout (4H, D)
+        and (4H, H), under weight norm the effective weights; ``reverse``:
+        the ``*_reverse`` set."""
+        sfx = "_reverse" if reverse else ""
+        return (self._weight(f"weight_ih_l{k}{sfx}"), self._weight(f"weight_hh_l{k}{sfx}"),
+                getattr(self, f"bias_ih_l{k}{sfx}"), getattr(self, f"bias_hh_l{k}{sfx}"))
 
     def step(self, x, carry):
-        """x: (B, H) one timestep -> (y, new_carry)."""
+        """x: (B, D) one timestep -> (y, new_carry)."""
         new_carry = []
         y = x
         for layer, (c, h) in enumerate(carry):
@@ -149,33 +169,41 @@ class LSTM(nn.Module):
         return y, tuple(new_carry)
 
     def forward_seq(self, x, carry=None):
-        """x: (B, T, H) -> (y (B, T, H), new_carry), each layer on its
-        :func:`lstm_route`: the fused LSTM layer (kernels on CUDA, plain
-        versions on the CPU), or outside JAX's kernel gate a step loop
-        (``mimikit_tpu/modules/rnn.py:181-187``).  The default carry is made
+        """x: (B, T, D) -> (y (B, T, H), new_carry), each layer on its
+        :func:`lstm_route` (:meth:`run_layer`).  The default carry is made
         in x's dtype, and each layer's outputs and carry come back in it
         (``mimikit_tpu/modules/rnn.py:172-177``): under a bf16 policy the rest
         of the net stays bf16."""
         if self.dropout > 0 and self.training:
             raise NotImplementedError("rnn_dropout is not ported")
-        B, T, dt = x.shape[0], x.shape[1], x.dtype
+        B = x.shape[0]
         if carry is None:
             carry = init_rnn_carry(self.num_layers, B, self.hidden_size, device=x.device,
-                                   dtype=dt)
+                                   dtype=x.dtype)
         ys = x.transpose(0, 1)
         new_carry = []
         for k, (c0, h0) in enumerate(carry):
-            weights = self.layer_weights(k)  # under weight norm computed once a call
-            w_ih, w_hh, b_ih, b_hh = weights
-            route = lstm_route(B, T, self.hidden_size, dt, cpu=x.device.type == "cpu")
-            if route == "scan":
-                ys, h_T, c_T = self._scan(ys, h0, c0, weights)
-            else:
-                ys, h_T, c_T = fused_lstm_layer(ys, w_ih.t(), w_hh.t(), b_ih + b_hh, h0, c0,
-                                                route=route)
-            ys = ys.to(dt)
-            new_carry.append((c_T.to(dt), h_T.to(dt)))
+            ys, h_T, c_T = self.run_layer(k, ys, h0, c0)
+            new_carry.append((c_T, h_T))
         return ys.transpose(0, 1), tuple(new_carry)
+
+    def run_layer(self, k: int, xs, h0, c0, reverse: bool = False):
+        """Layer ``k`` (its ``*_reverse`` weights where ``reverse``) over xs
+        (T, B, D) time-major from the carry (h0, c0): ``(h_all (T, B, H), h_T,
+        c_T)`` in xs's dtype, differentiable in xs, the weights and the
+        carry.  The layer takes its :func:`lstm_route`: the fused LSTM layer
+        (kernels on CUDA, plain versions on the CPU), or outside JAX's kernel
+        gate a step loop (``mimikit_tpu/modules/rnn.py:181-187``)."""
+        T, B, dt = xs.shape[0], xs.shape[1], xs.dtype
+        weights = self.layer_weights(k, reverse)  # under weight norm computed once a call
+        w_ih, w_hh, b_ih, b_hh = weights
+        route = lstm_route(B, T, self.hidden_size, dt, cpu=xs.device.type == "cpu")
+        if route == "scan":
+            ys, h_T, c_T = self._scan(xs, h0, c0, weights)
+        else:
+            ys, h_T, c_T = fused_lstm_layer(xs, w_ih.t(), w_hh.t(), b_ih + b_hh, h0, c0,
+                                            route=route)
+        return ys.to(dt), h_T.to(dt), c_T.to(dt)
 
     @staticmethod
     def _scan(xs, h, c, weights):

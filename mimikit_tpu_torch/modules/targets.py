@@ -13,7 +13,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-__all__ = ["OutputWrapper", "CategoricalSampler"]
+__all__ = ["OutputWrapper", "CategoricalSampler", "call_head"]
 
 
 class CategoricalSampler(nn.Module):
@@ -75,3 +75,15 @@ class OutputWrapper(nn.Module):
     @property
     def sampling_params(self):
         return getattr(self.sampler, "sampling_params", frozenset())
+
+
+def call_head(mod: nn.Module, x, train: bool, temperature=None,
+              generator: Optional[torch.Generator] = None):
+    """An output head on x: a sampler's :class:`OutputWrapper` takes the
+    train flag and the sampler's arguments, a plain head (a dense one, as
+    ``IOSpec.magspec_io``'s) only x."""
+    if not isinstance(mod, OutputWrapper):
+        return mod(x)
+    if train:
+        return mod(x, train=True)
+    return mod(x, train=False, temperature=temperature, generator=generator)

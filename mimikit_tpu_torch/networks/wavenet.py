@@ -19,6 +19,12 @@ the plain step loop over :meth:`WaveNetCore.warm_up` and
 the JAX scan decoder does), and streams by re-feeding its last ``rf + 1``
 samples (``loops.streaming._refeed_stream``).
 
+A WaveNet on STFT frames (FreqNet: ``IOSpec.magspec_io``, dense heads in
+and out) trains as any WaveNet; it decodes (B, T, F) frame prompts on the
+plain step loop, each step's frame written back as the next input, as the
+JAX scan decoder does (``mimikit_tpu/networks/wavenet.py:871-893``): the
+decode kernels take tokens only.
+
 ``tie_io_weights``: the JAX package ties an output Dense to the input
 Dense's kernel at apply time; an embedding input has no such kernel and an
 MLP head takes none, so with the port's IO modules (embedding in, MLP head
@@ -40,6 +46,7 @@ from ..features.item_spec import ItemSpec, Step
 from ..modules.activations import _PLAIN
 from ..modules.misc import causal_pad
 from ..modules.rounding import bias_add
+from ..modules.targets import call_head
 from ..ops.wavenet_decode import (
     decode_chunk,
     decode_single,
@@ -210,9 +217,7 @@ class WaveNetCore(nn.Module):
         return tuple(mod(x) for mod, x in zip(self.input_modules, inputs))
 
     def _heads(self, y, train: bool, temperature=None, generator=None):
-        if train:
-            return tuple(mod(y, train=True) for mod in self.output_modules)
-        return tuple(mod(y, train=False, temperature=temperature, generator=generator)
+        return tuple(call_head(mod, y, train, temperature, generator)
                      for mod in self.output_modules)
 
     def forward(self, inputs: Tuple, train: bool = False, temperature=None,
@@ -455,10 +460,18 @@ class WaveNet(WaveNetCore, ARM):
         return self.train_batch(item_spec)
 
     # -- serving -------------------------------------------------------------------
+    def _frames(self) -> bool:
+        """True for a net on continuous frames (FreqNet)."""
+        from ..features.functionals import Continuous
+
+        return isinstance(self.config.io_spec.inputs[0].elem_type, Continuous)
+
     def _prompt(self, prompts: Tuple) -> torch.Tensor:
+        """The one prompt on the net's device: int32 tokens, or f32 frames."""
         if len(prompts) != 1 or len(self.config.io_spec.targets) != 1:
             raise NotImplementedError("decoding supports one input and one target")
-        return torch.as_tensor(prompts[0]).to(self.device, torch.int32).contiguous()
+        dtype = torch.float32 if self._frames() else torch.int32
+        return torch.as_tensor(prompts[0]).to(self.device, dtype).contiguous()
 
     def _kernel_route(self, prior_t: int) -> bool:
         return prior_t >= self.rf + 1 and supports_kernel_decode(self)
@@ -467,12 +480,16 @@ class WaveNet(WaveNetCore, ARM):
     def _step_loop(self, prompt: torch.Tensor, n_steps: int, temperature, seed: int):
         """The plain step loop (the JAX scan decoder's semantics): warm up on
         the rf samples before ``prior_t - 1`` (a short prompt zero-padded on
-        the left), then one :meth:`decode_step` a sample."""
-        B, prior_t = prompt.shape
+        the left), then one :meth:`decode_step` a sample (tokens, or f32
+        frames for a net on frames)."""
+        B, prior_t = prompt.shape[:2]
         rf = self.rf
         pad_left = max(0, rf + 1 - prior_t)
-        buf = torch.cat([prompt.new_zeros(B, pad_left), prompt, prompt.new_zeros(B, n_steps)], 1)
-        buf = buf.long()
+        tail = prompt.shape[2:]
+        buf = torch.cat([prompt.new_zeros(B, pad_left, *tail), prompt,
+                         prompt.new_zeros(B, n_steps, *tail)], 1)
+        if not tail:
+            buf = buf.long()
         start = prior_t + pad_left
         gen = torch.Generator(device=self.device).manual_seed(seed)
         buffers = self.warm_up((buf[:, start - 1 - rf : start - 1],))
@@ -487,10 +504,10 @@ class WaveNet(WaveNetCore, ARM):
         """Decode ``n_steps`` new samples after each prompt.  ``temperature``
         None is argmax; one value, or one a prompt.  Returns a tuple of one
         (B, prior_t + n_steps) tensor (prompt + generation) on the network's
-        device."""
+        device; (B, prior_t + n_steps, F) frames for a net on frames."""
         prompt = self._prompt(prompts)
-        B, prior_t = prompt.shape
-        temps = row_temperatures(temperature, B, prompt.device)
+        B, prior_t = prompt.shape[:2]
+        temps = None if self._frames() else row_temperatures(temperature, B, prompt.device)
         if seed is None:
             seed = self.next_seed()
         if not self._kernel_route(prior_t):

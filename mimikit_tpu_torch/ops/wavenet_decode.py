@@ -106,11 +106,16 @@ def supports_kernel_decode(net) -> bool:
     one embedding input and one learned-temperature plain-Mish MLP head, a
     categorical objective.  The port adds the kernel's own limits: at most
     ``MAX_LAYERS`` layers and ``MAX_HEAD`` head layers, and one stream's
-    shared memory within a block's."""
+    shared memory within a block's.  A net on continuous frames (FreqNet,
+    ``IOSpec.magspec_io``) is refused first, without a word: the kernels
+    decode tokens, and JAX's gate does not take such a net either."""
     from ..features.functionals import Discrete
     from ..modules.io import EmbeddingIO, MLPIO
 
     cfg = net.config
+    if not all(isinstance(s.elem_type, Discrete)
+               for s in (*cfg.io_spec.inputs, *cfg.io_spec.targets)):
+        return False
     if cfg.dims_1x1 or cfg.groups != 1 or cfg.stride != 1:
         return False
     if cfg.with_affine_residuals or cfg.layerwise_inputs:

@@ -25,6 +25,23 @@ a flax conv kernel (k, in, out) is a torch conv weight (out, in, k), a dense
 kernel (in, out) a linear weight (out, in), the embedding table is shared
 as it is.
 
+A WaveNet on frames (FreqNet: ``IOSpec.magspec_io``) has dense input and
+output heads: flax's ``input_modules_{j}/core/Dense_0`` and
+``output_modules_{j}/core/Dense_0`` are the port's ``input_modules.{j}.0``
+and ``output_modules.{j}.0``, as ``migrate`` maps a framed-linear input.
+
+``seq2seq_state_dict_from_jax`` and ``seq2seq_params_to_jax`` do the same for
+``Seq2SeqLSTMNetwork`` under PyTorch mimikit's names, which
+``migrate.py:seq2seq_params_from_state_dict`` reads (``:523-600``): each
+``_BiLSTMSum``'s ``fwd``/``bwd`` cell is ``{enc,dec}.lstm.{n}.*_l0`` and
+``*_l0_reverse`` (per-gate kernels packed i|f|g|o, the cell's one bias in
+``bias_hh``), ``enc/fc_out`` is ``enc.fc_out.weight``, a linear resampler
+``{enc,dec}.fc.fc.*``, the output heads ``output_module.heads.{i}.0.*`` and
+dense or embedding input heads ``input_module.heads.{j}.0.*``.
+``migrate``'s map takes only nets built with ``ref_compat=True`` (the
+reference's own function); these two carry any net's parameters, whatever
+its ``ref_compat``.
+
 ``transformer_state_dict_from_jax`` and ``transformer_params_to_jax`` do the
 same for SimpleTransformer, the inverse pair of
 ``migrate.py:transformer_params_from_state_dict``: flax's q/k/v kernels (d, nH,
@@ -54,6 +71,8 @@ __all__ = [
     "samplernn_params_to_jax",
     "wavenet_state_dict_from_jax",
     "wavenet_params_to_jax",
+    "seq2seq_state_dict_from_jax",
+    "seq2seq_params_to_jax",
     "transformer_state_dict_from_jax",
     "transformer_params_to_jax",
     "jukebox_state_dict_from_jax",
@@ -239,6 +258,19 @@ def _conv_t(kernel) -> np.ndarray:
     return np.asarray(kernel).transpose(2, 1, 0)
 
 
+def _dense_from_jax(node: Mapping, base: str, sd: Dict[str, np.ndarray]) -> None:
+    """A flax Dense (kernel (in, out), bias) -> ``{base}.weight`` (out, in)
+    and ``{base}.bias``."""
+    sd[f"{base}.weight"] = np.asarray(node["kernel"]).T
+    if "bias" in node:
+        sd[f"{base}.bias"] = np.asarray(node["bias"])
+
+
+def _dense_to_jax(tree: Dict, path: str, what: str, v: np.ndarray) -> None:
+    _put(tree, f"{path}/{'kernel' if what == 'weight' else 'bias'}",
+         v.T if what == "weight" else v)
+
+
 # WaveNet layer submodules: flax name pattern -> the port's module path
 _WN_LAYER = (
     (r"conv_dil(\d+)", "conv_dil.{}.0", True),
@@ -254,9 +286,11 @@ def wavenet_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     for name, node in params.items():
         m = re.fullmatch(r"input_modules_(\d+)", name)
         if m:
-            # the port's WaveNet inputs are embeddings (EmbeddingIO)
-            sd[f"input_modules.{m.group(1)}.0.weight"] = np.asarray(
-                node["core"]["Embed_0"]["embedding"])
+            core = node["core"]
+            if "Embed_0" in core:  # EmbeddingIO
+                sd[f"input_modules.{m.group(1)}.0.weight"] = np.asarray(core["Embed_0"]["embedding"])
+            else:  # a dense input (LinearIO, ChunkedLinearIO)
+                _dense_from_jax(core["Dense_0"], f"input_modules.{m.group(1)}.0", sd)
             continue
         m = re.fullmatch(r"layer(\d+)", name)
         if m:
@@ -274,6 +308,9 @@ def wavenet_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
                     raise ValueError(f"unmapped WaveNet layer parameter {name}/{sub}")
             continue
         m = re.fullmatch(r"output_modules_(\d+)", name)
+        if m and "estimator" not in node:  # a dense head (LinearIO, ChunkedLinearIO)
+            _dense_from_jax(node["core"]["Dense_0"], f"output_modules.{m.group(1)}.0", sd)
+            continue
         if m:
             for dname, d in node["estimator"]["core"].items():
                 k = int(dname.split("_")[1])
@@ -298,8 +335,12 @@ def wavenet_params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
     ]
     for key, v in sd.items():
         m = re.fullmatch(r"input_modules\.(\d+)\.0\.weight", key)
-        if m:
+        if m and v.ndim == 2 and f"input_modules.{m.group(1)}.0.bias" not in sd:
             _put(tree, f"input_modules_{m.group(1)}/core/Embed_0/embedding", v)
+            continue
+        m = re.fullmatch(r"(input|output)_modules\.(\d+)\.0\.(weight|bias)", key)
+        if m:
+            _dense_to_jax(tree, f"{m.group(1)}_modules_{m.group(2)}/core/Dense_0", m.group(3), v)
             continue
         for pattern, sub, is_conv in layer_paths:
             m = pattern.fullmatch(key)
@@ -534,4 +575,97 @@ def jukebox_params_to_jax(state_dict: Mapping[str, torch.Tensor], n_heads: int) 
                 continue
         if not _head_key_to_jax(tree, key, v):
             raise ValueError(f"unmapped JukeBox state_dict entry {key}")
+    return tree
+
+
+_GATES = "ifgo"  # torch's packed LSTM gate order
+
+
+def _cell_from_jax(cell: Mapping, base: str, sfx: str, sd: Dict[str, np.ndarray]) -> None:
+    """A flax ``OptimizedLSTMCell``'s per-gate kernels and hidden biases ->
+    ``{base}.weight_ih_l0{sfx}`` (4H, D), ``weight_hh_l0{sfx}`` (4H, H),
+    ``bias_hh_l0{sfx}`` (4H,) and a zero ``bias_ih_l0{sfx}``."""
+    sd[f"{base}.weight_ih_l0{sfx}"] = np.concatenate(
+        [np.asarray(cell[f"i{g}"]["kernel"]).T for g in _GATES])
+    sd[f"{base}.weight_hh_l0{sfx}"] = np.concatenate(
+        [np.asarray(cell[f"h{g}"]["kernel"]).T for g in _GATES])
+    sd[f"{base}.bias_hh_l0{sfx}"] = np.concatenate(
+        [np.asarray(cell[f"h{g}"]["bias"]) for g in _GATES])
+    sd[f"{base}.bias_ih_l0{sfx}"] = np.zeros_like(sd[f"{base}.bias_hh_l0{sfx}"])
+
+
+def seq2seq_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ``Seq2SeqLSTMNetwork`` params -> the port's state_dict (CPU f32)."""
+    sd: Dict[str, np.ndarray] = {}
+    for name, node in params.items():
+        if name in ("enc", "dec"):
+            for sub, p in node.items():
+                m = re.fullmatch(r"lstm(\d+)", sub)
+                if m:
+                    for direction, sfx in (("fwd", ""), ("bwd", "_reverse")):
+                        _cell_from_jax(p[direction]["l0"], f"{name}.lstm.{m.group(1)}", sfx, sd)
+                elif sub == "fc_out":
+                    sd["enc.fc_out.weight"] = np.asarray(p["kernel"]).T
+                elif sub == "fc":
+                    _dense_from_jax(p["Dense_0"], f"{name}.fc.fc", sd)
+                else:
+                    raise ValueError(f"unmapped Seq2Seq parameter {name}/{sub}")
+            continue
+        m = re.fullmatch(r"output_heads_(\d+)", name)
+        if m and "Dense_0" in node.get("core", {}):
+            _dense_from_jax(node["core"]["Dense_0"], f"output_module.heads.{m.group(1)}.0", sd)
+            continue
+        if name == "input_module":
+            for head, p in node.items():
+                j = re.fullmatch(r"heads_(\d+)", head).group(1)
+                core = p["core"]
+                if "Embed_0" in core:
+                    sd[f"input_module.heads.{j}.0.weight"] = np.asarray(core["Embed_0"]["embedding"])
+                else:
+                    _dense_from_jax(core["Dense_0"], f"input_module.heads.{j}.0", sd)
+            continue
+        raise ValueError(f"unmapped Seq2Seq parameter {name}")
+    return _to_torch(sd)
+
+
+def seq2seq_params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
+    """The port's ``Seq2SeqLSTMNetwork`` state_dict -> the JAX parameter tree
+    (nested dicts of f32 numpy arrays), the LSTM cells' one bias
+    ``bias_hh + bias_ih``."""
+    sd = {k: v.detach().cpu().numpy().astype(np.float32) for k, v in state_dict.items()}
+    tree: Dict = {}
+    for key, v in sd.items():
+        m = re.fullmatch(r"(enc|dec)\.lstm\.(\d+)\.(weight|bias)_(ih|hh)_l0(_reverse)?", key)
+        if m:
+            side, n, kind, which, rev = m.groups()
+            base = f"{side}/lstm{n}/{'bwd' if rev else 'fwd'}/l0"
+            if kind == "bias":
+                if which == "hh":
+                    b = v + sd[key.replace("bias_hh", "bias_ih")]
+                    for g, chunk in zip(_GATES, np.split(b, 4)):
+                        _put(tree, f"{base}/h{g}/bias", chunk)
+                continue
+            for g, chunk in zip(_GATES, np.split(v, 4, axis=0)):
+                _put(tree, f"{base}/{'i' if which == 'ih' else 'h'}{g}/kernel", chunk.T)
+            continue
+        if key == "enc.fc_out.weight":
+            _put(tree, "enc/fc_out/kernel", v.T)
+            continue
+        m = re.fullmatch(r"(enc|dec)\.fc\.fc\.(weight|bias)", key)
+        if m:
+            _dense_to_jax(tree, f"{m.group(1)}/fc/Dense_0", m.group(2), v)
+            continue
+        m = re.fullmatch(r"output_module\.heads\.(\d+)\.0\.(weight|bias)", key)
+        if m:
+            _dense_to_jax(tree, f"output_heads_{m.group(1)}/core/Dense_0", m.group(2), v)
+            continue
+        m = re.fullmatch(r"input_module\.heads\.(\d+)\.0\.(weight|bias)", key)
+        if m:
+            j, what = m.groups()
+            if what == "weight" and f"input_module.heads.{j}.0.bias" not in sd:
+                _put(tree, f"input_module/heads_{j}/core/Embed_0/embedding", v)
+            else:
+                _dense_to_jax(tree, f"input_module/heads_{j}/core/Dense_0", what, v)
+            continue
+        raise ValueError(f"unmapped Seq2Seq state_dict entry {key}")
     return tree

@@ -1,7 +1,8 @@
 """The port's boundaries: what it imports, where it runs, and the card test.
 
 * ``mimikit_tpu_torch`` imports torch and never jax nor ``mimikit_tpu``;
-  ``chip_smoke.py`` neither (checked in a fresh process and by a source scan);
+  ``chip_smoke.py`` neither (checked in a fresh process and by a source scan
+  of every module, the spectral path's among them);
 * its entry points run on the card unless the caller asks for the CPU, and a
   CUDA request on a machine without CUDA raises instead of running on the
   CPU;
@@ -70,7 +71,14 @@ _CUDA_CALLS = [
     "jbd.decode_pyramid(jpack, torch.zeros(1, 16, dtype=torch.int32, device='cuda'), 16, 4, 0, None)",
     "mu.mulaw_compress(torch.zeros(8, device='cuda'))",
     "mu.mulaw_expand(torch.zeros(8, dtype=torch.int32, device='cuda'))",
+    "mmk.Seq2SeqLSTMNetwork.from_config(scfg)",
+    "mmk.Seq2SeqLSTMNetwork.from_config(scfg, device='cuda')",
 ]
+# the spectral path's modules, which the source scan must reach
+SPECTRAL = ("features/dsp.py", "features/functionals.py", "modules/io.py", "modules/misc.py",
+            "modules/loss_functions.py", "modules/rnn.py", "networks/s2s_lstm.py",
+            "networks/wavenet.py", "io_spec.py", "weights.py", "checkpoint.py",
+            "loops/generate.py", "demos/seq2seq.py", "demos/freqnet.py")
 
 _PROBE = """
 import json, sys
@@ -111,6 +119,8 @@ tst = tk.init_kv_state(tpack, tp)
 jcfg = mmk.JukeBox.Config(io_spec=io, frame_sizes=(8, 4, 2), model_dim=16, n_heads=2,
                           feedforward_dim=32, num_layers=1, rf=16)
 jpack = jbd.jukebox_weight_pack(mmk.JukeBox.from_config(jcfg, device="cpu"))
+sio = mmk.IOSpec.magspec_io(mmk.IOSpec.MagSpecIOConfig(sr=16000, n_fft=64, hop_length=16))
+scfg = mmk.Seq2SeqLSTMNetwork.Config(io_spec=sio, model_dim=16, hop=4)
 for call in CALLS:
     try:
         eval(call)
@@ -176,6 +186,11 @@ def probe():
 
 def test_fresh_import_loads_neither_jax_nor_the_jax_package(probe):
     assert probe["foreign"] == []
+
+
+@pytest.mark.parametrize("rel", SPECTRAL)
+def test_source_scan_reaches_the_spectral_modules(rel):
+    assert os.path.join(PKG, rel) in _sources()
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: os.path.relpath(p, ROOT))

@@ -33,6 +33,17 @@ the order of the JAX package's gate (``mimikit_tpu/modules/rnn.py:99-128``):
   versions ("plain"): its outputs against the module's own step loop within
   1e-5, its gradients finite.
 
+* an LSTM whose input width differs from its hidden width (the seq2seq
+  encoder's first layer reads STFT bins) seeding a second LSTM with its final
+  carry, on each route: "scan" (B, T, H) = (4, 16, 100), "cluster" (8, 8,
+  16), "wide" (8, 4, 512) and "plain" (8, 8, 1152), the first layer's input
+  width D = 24, 40, 72 and 40: both layers' outputs and final carries, and
+  the gradients of a loss on the second layer's outputs only, so every
+  gradient of the first layer (its weights, x, its initial carry) reaches it
+  through h_T and c_T, and the second layer's carry gradient is dh0/dc0 of
+  a seeded layer; against two JAX ``RNNStack`` s chained the same way (their
+  scans), within 1e-5 (rtol 1e-5, atol 1e-5 * max|JAX|).
+
 JAX runs in this process; the port in one subprocess for the module
 (``torch_port_worker.py lstm_route``).
 """
@@ -64,6 +75,12 @@ WIDE = dict(B=8, T=4, H=512)
 PAST = dict(B=8, T=8, H=1152)
 WN = dict(B=8, T=16, H=16)
 TOL = dict(rtol=1e-5, atol=1e-5)
+# the chained pair: (B, T, H, D) on each route of the first layer
+CHAIN = {"scan": (4, 16, 100, 24), "cluster": (8, 8, 16, 40), "wide": (8, 4, 512, 72),
+         "plain": (8, 8, 1152, 40)}
+CHAIN_NAMES = (["y_enc", "y_dec", "c_enc", "h_enc", "c_dec", "h_dec", "grad_x", "grad_x2",
+                "grad_c0", "grad_h0"]
+               + [f"grad_{w}_{m}" for m in ("enc", "dec") for w in ("w_ih", "w_hh", "b_hh")])
 
 
 def _key(B, T, H, es):
@@ -216,6 +233,57 @@ def _jax_wide(inp):
             "grad_h0_0": np.asarray(dh0), "grad_c0_0": np.asarray(dc0)}
 
 
+def _chain_inputs(tag, rng):
+    """The chained pair's inputs: x (B, T, D), x2 (B, T, H), the first
+    layer's non-zero carry, the cotangent of the second layer's outputs,
+    random weights of both layers."""
+    B, T, H, D = CHAIN[tag]
+    f = lambda *s, sc=1.0: (rng.standard_normal(s) * sc).astype(np.float32)  # noqa: E731
+    enc = {f"enc_{k[:-1]}": v for k, v in _port_weights(None, 1, H, D, rng).items()}
+    dec = {f"dec_{k[:-1]}": v for k, v in _port_weights(None, 1, H, H, rng).items()}
+    d = {"x": f(B, T, D), "x2": f(B, T, H, sc=0.5), "c0": f(B, H, sc=0.3), "h0": f(B, H, sc=0.3),
+         "gy": f(B, T, H), **enc, **dec}
+    return {f"chain/{tag}/{k}": v for k, v in d.items()}
+
+
+def _jax_chain(inp, tag):
+    """Two JAX RNNStacks chained (their scans): the first (input D) from the
+    given carry, the second from the first's final carry; outputs, carries
+    and the gradients of sum(y_dec * gy) in the port's layout."""
+    import jax
+    import jax.numpy as jnp
+
+    from mimikit_tpu.modules.rnn import RNNStack
+
+    p = f"chain/{tag}/"
+    B, T, H, D = CHAIN[tag]
+    enc, dec = RNNStack(hidden_dim=H, n_layers=1), RNNStack(hidden_dim=H, n_layers=1)
+
+    def cell(m):
+        g = lambda w: np.split(inp[f"{p}{m}_{w}"], 4)  # noqa: E731
+        return {"l0": {**{f"i{q}": {"kernel": jnp.asarray(k.T)} for q, k in zip("ifgo", g("w_ih"))},
+                       **{f"h{q}": {"kernel": jnp.asarray(k.T), "bias": jnp.asarray(b)}
+                          for q, k, b in zip("ifgo", g("w_hh"), g("b_hh"))}}}
+
+    def loss(pe, pd, x, x2, carry):
+        y_e, fe = enc.apply({"params": pe}, x, carry)
+        y_d, fd = dec.apply({"params": pd}, x2, fe)
+        return (y_d * inp[p + "gy"]).sum(), (y_e, y_d, fe, fd)
+
+    args = (cell("enc"), cell("dec"), jnp.asarray(inp[p + "x"]), jnp.asarray(inp[p + "x2"]),
+            ((jnp.asarray(inp[p + "c0"]), jnp.asarray(inp[p + "h0"])),))
+    (_, (y_e, y_d, fe, fd)), (ge, gd, gx, gx2, gc) = jax.jit(jax.value_and_grad(
+        loss, argnums=(0, 1, 2, 3, 4), has_aux=True))(*args)
+    out = {"y_enc": y_e, "y_dec": y_d, "c_enc": fe[0][0], "h_enc": fe[0][1], "c_dec": fd[0][0],
+           "h_dec": fd[0][1], "grad_x": gx, "grad_x2": gx2, "grad_c0": gc[0][0],
+           "grad_h0": gc[0][1]}
+    for m, g, d_in in (("enc", ge, D), ("dec", gd, H)):
+        w = _port_weights(jax.device_get(g), 1, H, d_in, None)
+        out.update({f"grad_w_ih_{m}": w["w_ih0"], f"grad_w_hh_{m}": w["w_hh0"],
+                    f"grad_b_hh_{m}": w["b_hh0"]})
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
 @pytest.fixture(scope="module")
 def case(tmp_path_factory):
     import jax
@@ -238,7 +306,10 @@ def case(tmp_path_factory):
                             _port_weights(None, 1, PAST["H"], PAST["H"], rng)))
     wn_params = _wn_params(rng)
     inp.update(_case_inputs("wn/", WN["B"], WN["T"], WN["H"], 1, rng, _wn_port_weights(wn_params)))
+    for tag in CHAIN:
+        inp.update(_chain_inputs(tag, rng))
     jx = {"scan": _jax_scan(inp)[1], "wide": _jax_wide(inp), "wn": _jax_wn(inp, wn_params)}
+    jx.update({f"chain/{tag}": _jax_chain(inp, tag) for tag in CHAIN})
     port = run_port("lstm_route", inp, str(tmp_path_factory.mktemp("route")))
     return jx, port
 
@@ -371,3 +442,25 @@ def test_cpu_runs_the_plain_versions_past_the_wide_limit(case):
     for name in ("grad_x", "grad_weight_ih0", "grad_weight_hh0", "grad_bias_hh0", "grad_c0_0",
                  "grad_h0_0"):
         assert np.isfinite(port[f"past/{name}"]).all(), name
+
+
+@pytest.mark.parametrize("tag", list(CHAIN))
+def test_chained_layers_take_their_routes(case, tag):
+    """The first layer (input width D) and the second take the route of
+    their (B, T, H): the width of the input plays no part."""
+    _, port = case
+    assert str(port[f"chain/{tag}/route_enc"]) == tag
+    assert str(port[f"chain/{tag}/route_dec"]) == tag
+
+
+@pytest.mark.parametrize("tag", list(CHAIN))
+@pytest.mark.parametrize("name", CHAIN_NAMES)
+def test_chained_carry_gradients_match_jax(case, tag, name):
+    """The seeded carry on every route: the second layer's dh0/dc0 carry the
+    whole gradient of the first layer, its weights, x and initial carry."""
+    jx, port = case
+    want = jx[f"chain/{tag}"][name]
+    got = port[f"chain/{tag}/{name}"]
+    assert got.shape == want.shape, name
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5 * float(np.abs(want).max()),
+                               err_msg=name)

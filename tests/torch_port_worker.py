@@ -1691,6 +1691,60 @@ def lstm_route_task(inp: dict) -> dict:
                                            + fl.lstm_backward_wide.launches)
     finally:
         rnn.fused_lstm_layer = real
+    for tag in sorted({k.split("/")[1] for k in inp if k.startswith("chain/")}):
+        out.update(_chain(inp, f"chain/{tag}/"))
+    return out
+
+
+@contextlib.contextmanager
+def _recorded_routes():
+    """The routes ``lstm_route`` gives the LSTM module inside, in order."""
+    from mimikit_tpu_torch.modules import rnn
+
+    real, routes = rnn.lstm_route, []
+
+    def recorded(*a, **kw):
+        routes.append(real(*a, **kw))
+        return routes[-1]
+
+    rnn.lstm_route = recorded
+    try:
+        yield routes
+    finally:
+        rnn.lstm_route = real
+
+
+def _chain(inp: dict, p: str) -> dict:
+    """Two LSTMs chained: the first (input width D) from the given carry,
+    the second from the first's final carry; outputs, carries, routes and
+    the gradients of sum(y_dec * gy)."""
+    from mimikit_tpu_torch.modules import rnn
+
+    x = t(inp[p + "x"]).clone().requires_grad_()
+    x2 = t(inp[p + "x2"]).clone().requires_grad_()
+    c0, h0 = (t(inp[p + n]).clone().requires_grad_() for n in ("c0", "h0"))
+    D, H = x.shape[-1], x2.shape[-1]
+    mods = {}
+    for m, d_in in (("enc", D), ("dec", H)):
+        lstm = rnn.LSTM(H, 1, input_dim=d_in)
+        with torch.no_grad():
+            lstm.weight_ih_l0.copy_(t(inp[f"{p}{m}_w_ih"]))
+            lstm.weight_hh_l0.copy_(t(inp[f"{p}{m}_w_hh"]))
+            lstm.bias_hh_l0.copy_(t(inp[f"{p}{m}_b_hh"]))
+        mods[m] = lstm
+    with _recorded_routes() as routes:
+        y_e, fe = mods["enc"].forward_seq(x, ((c0, h0),))
+        y_d, fd = mods["dec"].forward_seq(x2, fe)
+    (y_d * t(inp[p + "gy"])).sum().backward()
+    out = {"y_enc": y_e, "y_dec": y_d, "c_enc": fe[0][0], "h_enc": fe[0][1], "c_dec": fd[0][0],
+           "h_dec": fd[0][1], "grad_x": x.grad, "grad_x2": x2.grad, "grad_c0": c0.grad,
+           "grad_h0": h0.grad}
+    for m, lstm in mods.items():
+        out.update({f"grad_w_ih_{m}": lstm.weight_ih_l0.grad,
+                    f"grad_w_hh_{m}": lstm.weight_hh_l0.grad,
+                    f"grad_b_hh_{m}": lstm.bias_hh_l0.grad})
+    out = {p + k: v.detach().numpy() for k, v in out.items()}
+    out[p + "route_enc"], out[p + "route_dec"] = (np.array(r) for r in routes)
     return out
 
 
@@ -2518,6 +2572,204 @@ def recipes_task(inp: dict) -> dict:
     return out
 
 
+def _loader_batches(loader, n):
+    """The first ``n`` batches of a loader, each (inputs[0], targets[0])."""
+    out = []
+    for k, (inputs, targets) in enumerate(loader):
+        if k == n:
+            break
+        out.append((np.asarray(inputs[0]), np.asarray(targets[0])))
+    return out
+
+
+def spectral_task(inp: dict) -> dict:
+    """The spectral functionals and modules on the CPU: STFT (each center and
+    alignment), ISTFT, MagSpec and Griffin-Lim (from ``init_phase``) through
+    their torch and numpy paths, the dense IO heads with the JAX weights,
+    MeanL1Prop and its gradient, magspec_io's YAML, and magspec_io's batches
+    through the port's DeviceBatcher on the JAX-written store."""
+    torch.set_num_threads(1)  # as wavenet_task
+    from mimikit_tpu_torch.features import dsp
+
+    out = {}
+    y = inp["signal"]
+    n_fft, hop = int(inp["n_fft"]), int(inp["hop"])
+    for center in (True, False):
+        for al in ("end", "start"):
+            f = mmk.STFT(n_fft, hop, "pol", center, "hann", alignment=al)
+            out[f"stft/{center}/{al}/torch"] = f(t(y)).numpy()
+            out[f"stft/{center}/{al}/np"] = f(y)
+    spec = inp["pol"]
+    for center in (True, False):
+        f = mmk.ISTFT(n_fft, hop, "pol", center, "hann")
+        out[f"istft/{center}/torch"] = f(t(spec)).numpy()
+        out[f"istft/{center}/np"] = f(spec)
+    m = mmk.MagSpec(n_fft, hop, center=False, window="hann")
+    out["magspec/torch"] = m(t(y)).numpy()
+    out["magspec/np"] = m(y)
+    mag, phase = inp["gla_mag"], inp["gla_phase"]
+    out["gla/torch"] = dsp._griffinlim_torch(t(mag), n_fft, hop, False, "hann", 3, 0.99,
+                                             t(phase)).numpy()
+    out["gla/np"] = mmk.GLA(n_fft, hop, center=False, n_iter=3)(mag)
+    g = torch.Generator().manual_seed(0)
+    out["gla/functional"] = mmk.GLA(n_fft, hop, center=False, n_iter=3).torch_func(
+        t(mag), generator=g).numpy()
+    for tag in sorted({k.split("/")[1] for k in inp if k.startswith("io/")}):
+        p = f"io/{tag}/"
+        cfg = mmk.Config.deserialize(str(inp[p + "yaml"]))
+        cfg.set(in_dim=int(inp[p + "in_dim"]), out_dim=int(inp[p + "out_dim"]))
+        mod = cfg.module()
+        mod.load_state_dict({"0.weight": t(inp[p + "kernel"].T.copy()), "0.bias": t(inp[p + "bias"])})
+        with torch.no_grad():
+            out[p + "y"] = mod(t(inp[p + "x"])).numpy()
+    for tag in ("big", "small"):
+        o = t(inp[f"l1/{tag}/output"]).clone().requires_grad_()
+        loss = mmk.MeanL1Prop()(o, t(inp[f"l1/{tag}/target"]))
+        loss.backward()
+        out[f"l1/{tag}/loss"], out[f"l1/{tag}/grad"] = loss.detach().numpy(), o.grad.numpy()
+    io = mmk.Config.deserialize(str(inp["io_yaml"]), as_type=mmk.IOSpec)
+    out["io_yaml"] = np.array(io.serialize())
+    out["criterion"] = np.array(type(io.targets[0].objective.get_criterion()).__name__)
+    ds = mmk.DatasetConfig(sources=(str(inp["wav"]),), filename=str(inp["jax_h5"]),
+                           extractors=(mmk.Extractor.signal(16000),))
+    db = ds.get(mode="r")
+    net_cfg = mmk.Config.deserialize(str(inp["net_yaml"]))
+    net_cfg.io_spec.bind_to(ds)
+    net = mmk.Seq2SeqLSTMNetwork.from_config(net_cfg, device="cpu")
+    cfg = mmk.Config.deserialize(str(inp["train_yaml"]))
+    loader = mmk.TrainARMLoop.get_dataloader(db, net, cfg)
+    out["loader"] = np.array(type(loader).__name__)
+    for k, (x, y_) in enumerate(_loader_batches(loader, 3)):
+        out[f"batches/{k}/in"], out[f"batches/{k}/tgt"] = x, y_
+    return out
+
+
+_S2S_FROM_JAX = {"seq2seq": (mmk.Seq2SeqLSTMNetwork, mmk.seq2seq_state_dict_from_jax),
+                 "freqnet": (mmk.WaveNet, mmk.wavenet_state_dict_from_jax)}
+
+
+def _spectral_net(inp: dict, p: str, kind: str, extractors):
+    cls, to_sd = _S2S_FROM_JAX[kind]
+    cfg = mmk.Config.deserialize(str(inp[p + "yaml"]))
+    cfg.io_spec.bind_to(extractors)
+    net = cls.from_config(cfg, device="cpu")
+    net.load_state_dict(to_sd(unflatten(inp, p + "params/")), strict=True)
+    return net
+
+
+def seq2seq_task(inp: dict) -> dict:
+    """The seq2seq net and FreqNet on the CPU from the JAX weights: every
+    encoder and decoder variant with its hidden outputs, the net's forward
+    and gradients, the block-AR generate, three TrainARMLoop steps, the
+    weight maps both ways and a bank written and reloaded; FreqNet's
+    forward, three steps and frame generate."""
+    torch.set_num_threads(1)  # as wavenet_task
+    from mimikit_tpu_torch.networks import s2s_lstm as s2s
+    from mimikit_tpu_torch.ops import wavenet_decode as wd
+
+    out = {}
+    signal = {"signal": mmk.Extractor.signal(16000)}
+    # the encoder and decoder variants
+    for tag in sorted({k.split("/")[1] for k in inp if k.startswith("enc/")}):
+        p = f"enc/{tag}/"
+        kw = json.loads(str(inp[p + "kw"]))
+        m = s2s.EncoderLSTM(**kw)
+        m.load_state_dict({k[len("enc."):]: v for k, v in mmk.seq2seq_state_dict_from_jax(
+            {"enc": unflatten(inp, p + "params/")}).items()}, strict=True)
+        with torch.no_grad():
+            y, (h, c) = m(t(inp[p + "x"]))
+        out[p + "y"], out[p + "h"], out[p + "c"] = y.numpy(), h.numpy(), c.numpy()
+    for tag in sorted({k.split("/")[1] for k in inp if k.startswith("dec/")}):
+        p = f"dec/{tag}/"
+        kw = json.loads(str(inp[p + "kw"]))
+        m = s2s.DecoderLSTM(**kw)
+        sd_ = mmk.seq2seq_state_dict_from_jax({"dec": unflatten(inp, p + "params/")})
+        m.load_state_dict({k[len("dec."):]: v for k, v in sd_.items()}, strict=True)
+        with torch.no_grad():
+            y = m(t(inp[p + "x"]), (t(inp[p + "h0"]), t(inp[p + "c0"])))
+        out[p + "y"] = y.numpy()
+    # the net: forward and gradients of sum(y * ct)
+    net = _spectral_net(inp, "net/", "seq2seq", signal)
+    x = t(inp["net/x"]).clone().requires_grad_()
+    net.train()
+    with _recorded_routes() as routes:
+        y = net((x,))[0]
+    out["net/routes"] = np.array(routes)
+    (y * t(inp["net/ct"])).sum().backward()
+    out["net/y"], out["net/grad_x"] = y.detach().numpy(), x.grad.numpy()
+    grads = {n: p.grad for n, p in net.named_parameters()}
+    grads.update({n: torch.zeros_like(b) for n, b in net.named_buffers()})
+    out.update(_flat_tree(mmk.seq2seq_params_to_jax(grads), "net/grad/"))
+    # block-AR generate
+    net.zero_grad()
+    out["net/generate"] = net.generate((inp["net/prompt"],), int(inp["net/n_steps"]))[0].numpy()
+    # the weight maps: JAX tree -> state_dict -> JAX tree
+    out.update(_flat_tree(mmk.seq2seq_params_to_jax(
+        mmk.seq2seq_state_dict_from_jax(unflatten(inp, "net/params/"))), "roundtrip/"))
+    # a ref_compat net's state_dict (for migrate) and its tree
+    rc = _spectral_net(inp, "rc/", "seq2seq", signal)
+    for k, v in rc.state_dict().items():
+        out[f"rc/sd/{k}"] = v.numpy()
+    # a bank written by the port and reloaded
+    work = str(inp["work"])
+    ck = mmk.Checkpoint("s2s", 1, work, device="cpu").create(net)
+    back = mmk.Checkpoint("s2s", 1, work, device="cpu").network
+    out["bank/equal"] = np.array(all(torch.equal(a, b) for a, b in
+                                     zip(net.state_dict().values(), back.state_dict().values())))
+    out["bank/path"] = np.array(ck.os_path)
+    # three TrainARMLoop steps on the JAX-written store, for both nets
+    ds = mmk.DatasetConfig(sources=(str(inp["wav"]),), filename=str(inp["jax_h5"]),
+                           extractors=(mmk.Extractor.signal(16000),))
+    for kind in ("seq2seq", "freqnet"):
+        db = ds.get(mode="r")
+        n = _spectral_net(inp, f"{kind}/", kind, ds)
+        cfg = mmk.Config.deserialize(str(inp[f"{kind}/train_yaml"]))
+        cfg.root_dir = f"{work}/port_{kind}"
+        loop = mmk.TrainARMLoop.from_config(cfg, db, n)
+        loop.run()
+        out[f"{kind}/losses"] = np.array([h["loss"] for _, h in loop.metrics.history])
+    # FreqNet: train forward, eval frame generate
+    fq = _spectral_net(inp, "fq/", "freqnet", signal)
+    fq.train()
+    with torch.no_grad():
+        out["fq/y"] = fq((t(inp["fq/x"]),))[0].numpy()
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")  # the gate refuses the net without a word
+        out["fq/in_gate"] = np.array(wd.supports_kernel_decode(fq))
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        out["fq/generate"] = fq.generate((inp["fq/prompt"],), int(inp["fq/n_steps"]))[0].numpy()
+    return out
+
+
+def spectral_demos_task(inp: dict) -> dict:
+    """``demos.seq2seq`` and ``demos.freqnet`` as a user starts them, on the
+    CPU at a test size: their run directories, epoch losses and the wavs
+    their monitor wrote through Griffin-Lim."""
+    torch.set_num_threads(1)  # as wavenet_task
+    from scipy.io import wavfile
+
+    out = {}
+    work = str(inp["work"])
+    for name, kw in (("seq2seq", {}), ("freqnet", dict(batch_length=16, downsampling=1))):
+        loop = getattr(mmk.demos, name).demo(
+            sources=(str(inp["wav"]),), sample_rate=int(inp["sr"]),
+            db_path=os.path.join(work, f"{name}.h5"), device="cpu",
+            root_dir=os.path.join(work, f"trainings_{name}"), max_epochs=1,
+            limit_train_batches=2, batch_size=2, every_n_epochs=1, n_examples=1,
+            prompt_length_sec=0.2, outputs_duration_sec=0.2, MONITOR_TRAINING=False,
+            OUTPUT_TRAINING="wav", **kw)
+        out[f"{name}/files"] = np.array(sorted(os.listdir(loop.root_dir)))
+        wavs = sorted(os.listdir(os.path.join(loop.root_dir, "outputs")))
+        out[f"{name}/wavs"] = np.array(wavs)
+        sr, y = wavfile.read(os.path.join(loop.root_dir, "outputs", wavs[0]))
+        out[f"{name}/wav_sr"], out[f"{name}/wav"] = np.array(sr), np.asarray(y, np.float32)
+        out[f"{name}/losses"] = np.array([h["loss"] for _, h in loop.metrics.history])
+        out[f"{name}/device"] = np.array(str(loop.net.device))
+        out[f"{name}/n_params"] = np.array(loop.net.n_parameters)
+    return out
+
+
 TASKS = {"recipes": recipes_task, "weight_norm": weight_norm_task, "lstm_route": lstm_route_task, "lstm_wide_layout": lstm_wide_layout_task,
          "lstm_plan": lstm_plan_task, "xla_rsqrt": xla_rsqrt_task, "wavenet_cluster": wavenet_cluster_task, "modules": modules_task, "sample_rnn": sample_rnn_task, "fused_lstm": fused_lstm_task,
          "train": train_task, "train_stateless": train_stateless_task,
@@ -2527,7 +2779,9 @@ TASKS = {"recipes": recipes_task, "weight_norm": weight_norm_task, "lstm_route":
          "mulaw": mulaw_task, "bf16_decode": bf16_decode_task, "bf16_train": bf16_train_task,
          "bf16_train_stateless": bf16_train_stateless_task, "xla_dot": xla_dot_task,
          "temperature": temperature_task, "generate_loop": generate_loop_task,
-         "loggers": loggers_task, "train_monitor": train_monitor_task}
+         "loggers": loggers_task, "train_monitor": train_monitor_task,
+         "spectral": spectral_task, "seq2seq": seq2seq_task,
+         "spectral_demos": spectral_demos_task}
 
 if __name__ == "__main__":
     task, src, dst = sys.argv[1:4]

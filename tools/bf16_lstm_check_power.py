@@ -20,7 +20,11 @@ With ``--wide`` it runs the wide kernels' cases instead (K3a-wide, K3b-wide:
 ``chip_smoke.LSTM_WIDE_BF16_SHAPES`` at input seeds T + H + 1 + s for s = 0
 to 5, s = 0 being chip_smoke's own case), without the cluster sizes, and
 ends with each source's range per tensor over those cases: what
-``chip_smoke.BF16_LSTM_WIDE_SHARES`` is set between.
+``chip_smoke.BF16_LSTM_WIDE_SHARES`` is set between.  With ``--s2s`` it runs
+the seq2seq demo net's bf16 cases (``chip_smoke.LSTM_S2S_BF16_SHAPES``: T = 4,
+B = 16, H = 512 on the cluster kernels, the forward on each cluster size
+that takes H) at the same six seeds each, and ends with the same ranges:
+what ``chip_smoke.BF16_LSTM_S2S_SHARES`` is set between.
 
 Per case and source it prints the largest gap over the outputs and the six
 gradients in bf16 ulps of each tensor's scale, the share of the case's
@@ -58,16 +62,18 @@ def line(tag, source, gaps, ranges=None):
 def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     print(cs.card_line(), flush=True)
-    wide = "--wide" in sys.argv[1:]
-    cases = ([(s, T + H + 1 + seed) for s in cs.LSTM_WIDE_BF16_SHAPES for seed in range(6)
-              for T, _, _, H in (s,)] if wide else [(s, 1000 + seed) for s, seed in CASES])
-    ranges = {} if wide else None
+    wide, s2s = "--wide" in sys.argv[1:], "--s2s" in sys.argv[1:]
+    shapes = cs.LSTM_S2S_BF16_SHAPES if s2s else cs.LSTM_WIDE_BF16_SHAPES
+    ranged = wide or s2s
+    cases = ([(s, T + H + 1 + seed) for s in shapes for seed in range(6)
+              for T, _, _, H in (s,)] if ranged else [(s, 1000 + seed) for s, seed in CASES])
+    ranges = {} if ranged else None
     for (T, B, D, H), seed in cases:
         tag = f"(T, B, H) = ({T}, {B}, {H}) seed {seed}"
         args, cts = cs.lstm_bf16_inputs(torch, T, B, D, H, seed=seed)
         gaps, _, (p_out, p_grads) = cs.lstm_bf16_gaps(torch, fl, args, cts)
         line(tag, "bf16", gaps, ranges)
-        for cl in () if wide else fl.FWD_CLUSTER_SIZES:
+        for cl in () if wide else cs.fwd_cluster_sizes(torch, fl, B, H, torch.bfloat16):
             line(tag, f"bf16 forward on {cl}",
                  cs.lstm_bf16_gaps(torch, fl, args, cts, fwd_cl=cl)[0])
         bad, _, _ = cs.lstm_bf16_gaps(torch, fl, args, cts, control=True)
@@ -77,8 +83,9 @@ def main():
         alt = {n: (*cs.bf16_ulps(c.cuda(), p), p.numel())
                for n, c, p in zip(cs.LSTM_NAMES, (*c_out, *c_grads), (*p_out, *p_grads))}
         line(tag, "alt", alt, ranges)
-    for source in ("bf16", "alt", "control") if wide else ():
-        print(f"{source} over the wide cases, share of each tensor's elements that differ: "
+    for source in ("bf16", "alt", "control") if ranged else ():
+        print(f"{source} over the {'seq2seq' if s2s else 'wide'} cases, share of each"
+              " tensor's elements that differ: "
               + ", ".join(f"{n} {ranges[source, n][0]:.2%}-{ranges[source, n][1]:.2%}"
                           for n in cs.LSTM_NAMES), flush=True)
 
