@@ -236,7 +236,26 @@ Phases (any failure exits non-zero; no exception is swallowed):
    ``param_dtype="bfloat16"`` on the bf16 cluster kernels, its loss within
    max(10 %, 5e-3) of the f32 epoch's; ``demos.freqnet`` for 4 steps at
    B=16 x 64 frames, then B=4 x 32 frames decoded on the plain step loop,
-   each within 1e-4 * max|frame| of the eval forward on the frames before it.
+   each within 1e-4 * max|frame| of the eval forward on the frames before it;
+8. ensembles and the autoencoder (``BASELINE.json`` configs 5 and 4):
+   SampleRNN-3 at 16 kHz and WaveNet-10 at 22,050 Hz trained a few steps
+   through ``TrainARMLoop`` on synthesized audio (K3a/K3b for the first),
+   each reopened as a ``Checkpoint`` on the card with equal parameters;
+   ``demos.ensemble_generator`` over both (base rate 22,050 Hz, its three
+   1 s prompts, four events of 0.5 s: argmax on each net, then T=0.5 and
+   T=1.0), every decode on K1 or K4 (no plain twin called), each event's
+   wall time and its decode's printed, and each event's tokens checked by
+   teacher forcing through the net's plain forward (``verify_forward``: every
+   token within 1e-4 * max|score| of its row's maximum, so the argmax events
+   equal the plain decode up to any near-tie); ``Resample``'s tensor path
+   against its numpy path, 22,050 -> 16,000 -> 22,050 Hz on 2 s, within
+   1e-5 of the peak; ``TiedAE`` (kernel sizes (3, 5, 7), dims (32, 16, 8))
+   on ``magspec_io``'s 1,025 bins, trained 8 steps with
+   ``OUTPUT_TRAINING="wav"`` (``EncodeDecodeLoop``, Griffin-Lim on the
+   card), its bank reloaded, its step and its monitor timed; MelSpec (128),
+   MFCC (20, lifter 22) and Chroma (12) on those frames, each within 1e-5
+   of the largest value of its numpy path.  The decode and LSTM rows of the
+   ``kernels`` line carry their launches here, ``ensemble_launches``.
 
 ``--quick`` runs phases 1-2 at the small size only (a build check);
 ``--bench`` runs phase 1, phase 3's timings without the checks, decode_chunk's
@@ -471,6 +490,26 @@ LSTM_S2S_BF16_SHAPES = ((4, 16, 1025, 512), (4, 16, 512, 512))
 BF16_LSTM_S2S_SHARES = dict(h_all=0.03, h_T=0.04, c_T=0.04, dx=0.20, dWi=0.20, dWh=0.20,
                             db=0.20, dh0=0.25, dc0=0.12)
 FREQNET_STEPS, FREQNET_GEN_FRAMES, FREQNET_RTOL = 4, 32, 1e-4
+# phase 8, ensembles and the autoencoder (BASELINE configs 5 and 4): SampleRNN-3 (FULL) at
+# 16 kHz and WaveNet-10 (WN_FULL) at 22,050 Hz, each trained ENSEMBLE_TRAIN_STEPS steps of
+# B=ENSEMBLE_TRAIN_B x ENSEMBLE_TRAIN_LEN on ENSEMBLE_SECONDS of synthesized audio at its rate,
+# reopened as Checkpoints on the card and chained by demos.ensemble_generator (base rate
+# 22,050 Hz, its three 1 s prompts) over ENSEMBLE_EVENTS (checkpoint, seconds, temperature),
+# ENSEMBLE_TOTAL seconds in all; Resample's tensor path against its numpy path on
+# RESAMPLE_SECONDS of audio, 22,050 -> 16,000 -> 22,050 Hz, within RESAMPLE_TOL of the peak;
+# TiedAE (TIED: the JAX tests' widest net) on IOSpec.magspec_io's defaults (n_fft 2048, hop
+# 512: 1,025 bins) for TIED_STEPS steps of B=TIED_B x TIED_LEN frames under
+# OUTPUT_TRAINING="wav" (EncodeDecodeLoop and Griffin-Lim on the card); MelSpec (128 mels),
+# MFCC (20 coefficients, lifter 22) and Chroma (12) on FEATURE_B x FEATURE_SECONDS of those
+# frames, each within FEATURE_TOL of the largest value of its numpy path
+ENSEMBLE_SECONDS, ENSEMBLE_TRAIN_B, ENSEMBLE_TRAIN_LEN, ENSEMBLE_TRAIN_STEPS = 30, 16, 2048, 4
+ENSEMBLE_EVENTS = (("srnn", 0.5, None), ("wn", 0.5, None), ("srnn", 0.5, 0.5),
+                   ("wn", 0.5, 1.0))
+ENSEMBLE_TOTAL = 3.1
+RESAMPLE_SECONDS, RESAMPLE_TOL = 2.0, 1e-5
+TIED = dict(kernel_sizes=(3, 5, 7), dims=(32, 16, 8), independence_reg=0.25)
+TIED_B, TIED_LEN, TIED_STEPS = 16, 32, 8
+FEATURE_B, FEATURE_SECONDS, FEATURE_TOL = 4, 2.0, 1e-5
 
 
 # the main paths' headline numbers, f32 and bf16, for the lines that print
@@ -3693,25 +3732,30 @@ def recipe_net(mmk, device, seed):
 
 
 @contextlib.contextmanager
-def plain_calls(fl, sd):
+def plain_calls(fl, sd, wd=None):
     """Counts of the plain versions' calls made inside: the LSTM layer's
-    (``lstm_forward_plain``, ``lstm_backward_plain``) and the decode twin's
-    (``decode_plain``, also under the name SampleRNN imported)."""
+    (``lstm_forward_plain``, ``lstm_backward_plain``), the SampleRNN decode
+    twin's (``decode_plain``, also under the name SampleRNN imported) and,
+    with ``wd``, the WaveNet decode twin's (``wavenet_decode_plain``)."""
     from mimikit_tpu_torch.networks import sample_rnn as srn
 
     counts = {"lstm_forward_plain": 0, "lstm_backward_plain": 0, "decode_plain": 0}
-    real = [(m, n, getattr(m, n)) for m, n in ((fl, "lstm_forward_plain"),
-                                                (fl, "lstm_backward_plain"),
-                                                (sd, "decode_plain"), (srn, "decode_plain"))]
+    names = [(fl, "lstm_forward_plain", "lstm_forward_plain"),
+             (fl, "lstm_backward_plain", "lstm_backward_plain"),
+             (sd, "decode_plain", "decode_plain"), (srn, "decode_plain", "decode_plain")]
+    if wd is not None:
+        counts["wavenet_decode_plain"] = 0
+        names.append((wd, "decode_plain", "wavenet_decode_plain"))
+    real = [(m, n, getattr(m, n)) for m, n, _ in names]
 
-    def counting(name, f):
+    def counting(key, f):
         def run(*a, **kw):
-            counts[name] += 1
+            counts[key] += 1
             return f(*a, **kw)
         return run
 
-    for m, n, f in real:
-        setattr(m, n, counting(n, f))
+    for (m, n, f), (_, _, key) in zip(real, names):
+        setattr(m, n, counting(key, f))
     try:
         yield counts
     finally:
@@ -4271,6 +4315,310 @@ def spectral_path(torch, mmk, fl, sd, card):
     return launches, err
 
 
+def verify_forward(torch, net, prompt, toks, seed, temperature):
+    """Teacher forcing of a decode's tokens ``toks`` (B, n) after ``prompt``
+    through the net's training forward on the CPU (a copy of the net: plain
+    PyTorch, the LSTM layers' plain versions): one batched call over prompt
+    + tokens gives the scores of every step (output j is step rf + j, for
+    SampleRNN and WaveNet alike; ``tests/test_torch_sample_rnn.py`` holds
+    the twin's teacher-forced logits to the forward), tempered and given the
+    decode's noise (``gumbel_noise``) where sampled.  Every kernel token must
+    score within TOL * max|score| of its row's maximum, so before a stream's
+    first near-tie (a top-two margin within that tolerance) it is the row's
+    argmax, the token the plain decode takes from the same prompt.  The step
+    twins (``verify``/``verify_wn``) would take ~2 ms a step over the
+    one-second prompts (PERF.md §6's plain twin times).  Returns (the
+    largest gap, streams with a near-tie, streams equal to the argmax at
+    every step)."""
+    from mimikit_tpu_torch.ops.noise import gumbel_noise
+    from mimikit_tpu_torch.ops.temperature import row_temperatures
+
+    B, prior_t = prompt.shape
+    n, rf = toks.shape[1], net.rf
+    full = torch.cat([prompt, toks.to(prompt.dtype)], 1).long().cpu()
+    ref = copy.deepcopy(net).cpu().train()
+    with torch.no_grad():
+        logits = ref((full,))[0]
+    if isinstance(logits, (tuple, list)):
+        logits = logits[0]
+    s = logits[:, prior_t - rf : prior_t - rf + n].transpose(0, 1).float()  # (n, B, Q)
+    temps = row_temperatures(temperature, B, s.device)
+    if temps is not None:
+        noise = torch.stack([gumbel_noise(seed, prior_t + i, B, s.shape[-1], s.device)
+                             for i in range(n)])
+        s = s / temps.column() + noise
+    tok = toks.T.long().cpu()
+    top2 = s.topk(2, dim=-1).values
+    tol = TOL * s.abs().amax(-1)
+    gap = top2[..., 0] - s.gather(-1, tok[..., None])[..., 0]
+    if bool((gap > tol).any()):
+        k, b = (int(v) for v in (gap > tol).nonzero()[0])
+        raise AssertionError(f"kernel token at step {prior_t + k}, stream {b}:"
+                             f" {float(gap[k, b]):.3e} below the row max (tolerance"
+                             f" {float(tol[k, b]):.3e})")
+    ties = (top2[..., 0] - top2[..., 1]) <= tol
+    argmax_equal = (s.argmax(-1) == tok).all(0)
+    return float(gap.max()), int(ties.any(0).sum()), int(argmax_equal.sum())
+
+
+def check_decode_launches(got, plain):
+    """The ensemble's decodes went through K1 and K4 (B=3 prompts: the
+    routes' one-launch wrappers), and no plain twin ran."""
+    if got["decode_single"] == 0 or got["wavenet_decode_single"] == 0 or sum(plain.values()):
+        raise AssertionError(f"the ensemble's decodes: launches {got}, plain calls {plain}")
+
+
+def train_checkpoint(torch, mmk, net, ds, root, steps, B, length):
+    """``net`` trained ``steps`` steps (one epoch, ``CHECKPOINT_TRAINING``) on
+    ``ds``; returns (the loop, its epoch losses, the Checkpoint reopened on
+    the card, the wall seconds)."""
+    db = ds.create(mode="w")
+    cfg = mmk.TrainARMConfig(root_dir=root, batch_size=B, batch_length=length, max_epochs=1,
+                             limit_train_batches=steps, every_n_epochs=1, MONITOR_TRAINING=False,
+                             OUTPUT_TRAINING="", trainer_kwargs={"data_seed": SEED})
+    loop = mmk.TrainARMLoop.from_config(cfg, db, net)
+    t0 = time.perf_counter()
+    loop.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    losses = [h["loss"] for _, h in loop.metrics.history]
+    ck = mmk.Checkpoint(loop.hash_, 1, root, device="cuda")
+    back = ck.network
+    live = net.state_dict()
+    if not all(torch.equal(v, live[k]) for k, v in back.state_dict().items()):
+        raise AssertionError(f"{type(net).__name__}: the bank did not reload the parameters")
+    if loop.global_step != steps or not all(np.isfinite(losses)):
+        raise AssertionError(f"{type(net).__name__}: {loop.global_step} steps, losses {losses}")
+    return loop, losses, ck, wall
+
+
+def ensemble_path(torch, mmk, fl, sd, wd, card):
+    """Phase 8: BASELINE config 5, ensemble generation chaining SampleRNN-3
+    and WaveNet-10 checkpoints across sample rates (``demos.ensemble_generator``
+    over ``EnsembleGenerator``) on their decode kernels, with ``Resample``'s
+    tensor path on the card; and config 4, ``TiedAE`` trained on magnitude
+    frames and monitored by ``EncodeDecodeLoop`` (Griffin-Lim on the card),
+    with MelSpec, MFCC and Chroma on the card.  Returns the kernels'
+    launches in it."""
+    import tempfile
+
+    from mimikit_tpu_torch.demos import ensemble_generator as ens_demo
+    from mimikit_tpu_torch.models import ensemble_generator as eg
+
+    decoders = (sd.decode_single, sd.decode_chunk, wd.decode_single, wd.decode_chunk)
+    dec_names = ("decode_single", "decode_chunk", "wavenet_decode_single",
+                 "wavenet_decode_chunk")
+    lstm = (fl.lstm_forward, fl.lstm_backward)
+    launches = {}
+    with tempfile.TemporaryDirectory() as work:
+        # 1. two checkpoints, trained here and reopened on the card
+        wavs = {}
+        for sr in (16000, 22050):
+            wavs[sr] = os.path.join(work, f"a{sr}.wav")
+            spectral_wav(wavs[sr], seconds=ENSEMBLE_SECONDS, sr=sr)
+        ds16 = mmk.DatasetConfig(sources=(wavs[16000],), filename=os.path.join(work, "db16.h5"),
+                                 extractors=(mmk.Extractor.signal(sr=16000),))
+        ds22 = mmk.DatasetConfig(sources=(wavs[22050],), filename=os.path.join(work, "db22.h5"),
+                                 extractors=(mmk.Extractor.signal(sr=22050),))
+        reset_counts(*lstm)
+        srnn_loop, srnn_losses, ck_srnn, wall = train_checkpoint(
+            torch, mmk, train_net(mmk, seed=1, extractor=ds16.extractors[0]), ds16,
+            os.path.join(work, "srnn"), ENSEMBLE_TRAIN_STEPS, ENSEMBLE_TRAIN_B, ENSEMBLE_TRAIN_LEN)
+        launches.update({w.__name__: w.launches for w in lstm})
+        log(f"  SampleRNN-3 at 16 kHz: {ENSEMBLE_TRAIN_STEPS} steps of B={ENSEMBLE_TRAIN_B} x"
+            f" {ENSEMBLE_TRAIN_LEN} in {wall:.2f} s (dataset and bank included), losses"
+            f" {srnn_losses}, K3a/K3b launches {launches}; reopened on the card")
+        if min(launches.values()) == 0:
+            raise AssertionError(f"training the SampleRNN checkpoint launched no LSTM kernel:"
+                                 f" {launches}")
+        wio = mmk.IOSpec.mulaw_io(mmk.IOSpec.MuLawIOConfig(
+            sr=22050, q_levels=WN_FULL["q_levels"], mlp_dim=WN_FULL["mlp_dim"],
+            input_module_type="embedding"), extractor=ds22.extractors[0])
+        wn = mmk.WaveNet.from_config(mmk.WaveNet.Config(
+            io_spec=wio, blocks=WN_FULL["blocks"], dims_dilated=(WN_FULL["dim"],),
+            skips_dim=WN_FULL["dim"], residuals_dim=WN_FULL["dim"], pad_side=0),
+            device="cuda", seed=2)
+        wn_loop, wn_losses, ck_wn, wall = train_checkpoint(
+            torch, mmk, wn, ds22, os.path.join(work, "wn"), ENSEMBLE_TRAIN_STEPS,
+            ENSEMBLE_TRAIN_B, ENSEMBLE_TRAIN_LEN)
+        log(f"  WaveNet-10 at 22,050 Hz: {ENSEMBLE_TRAIN_STEPS} steps in {wall:.2f} s, losses"
+            f" {wn_losses}; reopened on the card")
+        if not wd.supports_kernel_decode(ck_wn.network):
+            raise AssertionError("the WaveNet decode kernels' gate refused the checkpoint's net")
+
+        # 2. the ensemble demo over both checkpoints, each decode recorded
+        events = []
+
+        def recording(net, kind):
+            real = net.generate
+
+            def generate(prompts, n_steps, temperature=None, seed=None):
+                seed = net.next_seed() if seed is None else seed
+                prompt = torch.as_tensor(prompts[0]).to(net.device)
+                t0 = time.perf_counter()
+                res = real(prompts, n_steps, temperature=temperature, seed=seed)
+                torch.cuda.synchronize()
+                events.append(dict(kind=kind, net=net, prompt=prompt, seed=seed,
+                                   temperature=temperature, n=n_steps,
+                                   toks=res[0][:, prompt.shape[1]:],
+                                   decode_s=time.perf_counter() - t0))
+                return res
+
+            net.generate = generate
+
+        recording(ck_srnn.network, "SampleRNN")
+        recording(ck_wn.network, "WaveNet")
+        event_walls, real_run_event = [], eg.EnsembleGenerator.run_event
+
+        def timed_run_event(self, *a, **kw):
+            t0 = time.perf_counter()
+            out = real_run_event(self, *a, **kw)
+            torch.cuda.synchronize()
+            event_walls.append(time.perf_counter() - t0)
+            return out
+
+        ck_of = {"srnn": ck_srnn, "wn": ck_wn}
+        stream = [dict(generator=ck_of[g], seconds=sec, temperature=tp)
+                  for g, sec, tp in ENSEMBLE_EVENTS]
+        reset_counts(*decoders)
+        eg.EnsembleGenerator.run_event = timed_run_event
+        try:
+            t0 = time.perf_counter()
+            with plain_calls(fl, sd, wd) as plain:
+                out = ens_demo.demo(root_dir=os.path.join(work, "wn"),
+                                    total_seconds=ENSEMBLE_TOTAL, output_sr=22050,
+                                    stream=iter(stream), device="cuda")
+                torch.cuda.synchronize()
+            run_wall = time.perf_counter() - t0
+        finally:
+            eg.EnsembleGenerator.run_event = real_run_event
+        got = dict(zip(dec_names, (w.launches for w in decoders)))
+        log(f"  demos.ensemble_generator: {len(events)} events over 3 prompts of 1 s in"
+            f" {run_wall:.3f} s (host clock, the prompts' read included); output {out.shape};"
+            f" launches {got}; plain calls {plain} on {card}")
+        if (len(events) != len(ENSEMBLE_EVENTS) or len(event_walls) != len(events)
+                or out.shape != (3, int(ENSEMBLE_TOTAL * 22050)) or not np.isfinite(out).all()
+                or not np.any(out[:, 22050:] != 0)):
+            raise AssertionError(f"the ensemble: {len(events)} events, output {out.shape}")
+        check_decode_launches(got, plain)
+        launches.update({k: v for k, v in got.items() if v})
+        for k, (ev, wall) in enumerate(zip(events, event_walls)):
+            gap, ties, equal = verify_forward(torch, ev["net"], ev["prompt"], ev["toks"],
+                                              ev["seed"], ev["temperature"])
+            steps = ev["prompt"].shape[1] + ev["n"]
+            log(f"    event {k}: {ev['kind']} T={ev['temperature']} B={ev['prompt'].shape[0]} x"
+                f" {ev['n']} steps after {ev['prompt'].shape[1]}: event {wall:.3f} s, its decode"
+                f" {ev['decode_s']:.3f} s ({1e6 * ev['decode_s'] / steps:.2f} us a step, the"
+                f" prompt's included), host share {1 - ev['decode_s'] / wall:.1%}; tokens"
+                f" verified (max gap {gap:.3e}; {ties} streams with a near-tie; {equal} streams"
+                f" equal to the argmax at every step)")
+            if ev["temperature"] is None and equal + ties < ev["prompt"].shape[0]:
+                raise AssertionError(f"event {k}: an argmax stream parts from the plain decode")
+        SUMMARY["ensemble_events"] = [(ev["kind"], ev["temperature"], w, ev["decode_s"])
+                                      for ev, w in zip(events, event_walls)]
+
+        # 3. Resample's tensor path on the card against its numpy path
+        y = spectral_wav(os.path.join(work, "r.wav"), seconds=int(RESAMPLE_SECONDS), sr=22050)
+        y = np.stack([y, y[::-1].copy()])
+        down, up = mmk.Resample(22050, 16000), mmk.Resample(16000, 22050)
+        y_t = torch.from_numpy(y).cuda()
+        t0 = time.perf_counter()
+        want16 = down(y)
+        want22 = up(want16)
+        np_ms = 1e3 * (time.perf_counter() - t0)
+        got16 = down(y_t)
+        got22 = up(got16)
+        ms, spr = spread(cuda_ms(torch, lambda: up(down(y_t)), reps=3))
+        peak = float(np.abs(y).max())
+        err16 = float(np.abs(got16.cpu().numpy() - want16).max()) / peak
+        err22 = float(np.abs(got22.cpu().numpy() - up(got16.cpu().numpy())).max()) / peak
+        log(f"  Resample 22,050 -> 16,000 -> 22,050 Hz, B=2 x {RESAMPLE_SECONDS:g} s: tensor path"
+            f" {ms:.3f} ms (median of 3, spread {spr:.1%}), numpy path {np_ms:.1f} ms (host);"
+            f" max |tensor - numpy| {err16:.3e} and {err22:.3e} of the peak (limit"
+            f" {RESAMPLE_TOL:g}); shapes {tuple(got16.shape)}, {tuple(got22.shape)} on {card}")
+        if (tuple(got16.shape) != want16.shape or tuple(got22.shape) != want22.shape
+                or not max(err16, err22) <= RESAMPLE_TOL):
+            raise AssertionError(f"Resample's tensor path: errors {err16:.3e}, {err22:.3e}")
+        SUMMARY["resample"] = (ms, err16, err22)
+
+        # 4. TiedAE on magspec_io's defaults, trained and monitored on the card
+        io = mmk.IOSpec.magspec_io(mmk.IOSpec.MagSpecIOConfig(sr=22050),
+                                   extractor=ds22.extractors[0])
+        ae = mmk.TiedAE.from_config(mmk.TiedAE.Config(io_spec=io, **TIED), device="cuda", seed=3)
+        db = ds22.get(mode="r")
+        cfg = mmk.TrainARMConfig(
+            root_dir=os.path.join(work, "tied"), batch_size=TIED_B, batch_length=TIED_LEN,
+            max_epochs=1, limit_train_batches=TIED_STEPS, every_n_epochs=1,
+            CHECKPOINT_TRAINING=True, MONITOR_TRAINING=False, OUTPUT_TRAINING="wav",
+            n_examples=4, prompt_length_sec=1.0, outputs_duration_sec=1.0,
+            trainer_kwargs={"data_seed": SEED})
+        loop = mmk.TrainARMLoop.from_config(cfg, db, ae)
+        monitor = loop.callbacks[-1].loop
+        t0 = time.perf_counter()
+        loop.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        losses = [h["loss"] for _, h in loop.metrics.history]
+        run_dir = os.path.join(cfg.root_dir, loop.hash_)
+        wav_out = sorted(os.listdir(os.path.join(run_dir, "outputs")))
+        back = mmk.Checkpoint(loop.hash_, 1, cfg.root_dir, device="cuda").network
+        same = all(torch.equal(v, ae.state_dict()[k]) for k, v in back.state_dict().items())
+        if (type(monitor).__name__ != "EncodeDecodeLoop" or loop.global_step != TIED_STEPS
+                or not all(np.isfinite(losses)) or len(wav_out) != 4 or not same):
+            raise AssertionError(f"TiedAE: monitor {type(monitor).__name__}, {loop.global_step}"
+                                 f" steps, losses {losses}, wavs {wav_out}, reloaded {same}")
+        # the monitor again, timed, on the store the training closed at its end
+        db = ds22.get(mode="r")
+        monitor = mmk.EncodeDecodeLoop.from_config(monitor.config, db, ae)
+        monitor.template_vars = dict(epoch=1)
+        t0 = time.perf_counter()
+        audio = list(monitor.run())[0][0]
+        torch.cuda.synchronize()
+        monitor_s = time.perf_counter() - t0
+        if audio.shape[0] != 4 or not np.isfinite(audio).all():
+            raise AssertionError(f"EncodeDecodeLoop's audio: {audio.shape}")
+        batches = loop._batches()
+
+        def window():
+            for _ in range(TIED_STEPS):
+                inputs, targets = next(batches)
+                loop.train_step(inputs, targets, None)
+
+        window()
+        step_ms = [w / TIED_STEPS for w in cuda_ms(torch, window, reps=3)]
+        med, spr = spread(step_ms)
+        db.close()
+        log(f"  TiedAE {TIED} on 1,025 bins: {TIED_STEPS} steps of B={TIED_B} x {TIED_LEN} frames"
+            f" in {wall:.2f} s (the EncodeDecodeLoop monitor and the bank included), losses"
+            f" {losses}; wavs {wav_out}; train step {med:.4f} ms (median of 3 windows of"
+            f" {TIED_STEPS}, spread {spr:.1%}; {step_ms}); EncodeDecodeLoop B=4 x 1 s with"
+            f" Griffin-Lim on the card {monitor_s:.3f} s (host clock) on {card}")
+        SUMMARY["tied"] = (med, spr, monitor_s)
+
+        # 5. MelSpec, MFCC and Chroma on the card against their numpy paths
+        sig = spectral_wav(os.path.join(work, "f.wav"), seconds=int(FEATURE_SECONDS) * FEATURE_B,
+                           sr=22050).reshape(FEATURE_B, -1)
+        frames = mmk.MagSpec(2048, 512, center=False, window="hann")(torch.from_numpy(sig).cuda())
+        mel_f, mfcc_f = mmk.MelSpec(n_mels=128, sr=22050, n_fft=2048), mmk.MFCC(n_mfcc=20,
+                                                                                 lifter=22)
+        chroma_f = mmk.Chroma(n_chroma=12, sr=22050, n_fft=2048)
+        mel_t = mel_f(frames)
+        for name, f, x in (("MelSpec", mel_f, frames), ("MFCC", mfcc_f, mel_t),
+                           ("Chroma", chroma_f, frames)):
+            got = f(x)
+            want = f(x.cpu().numpy())
+            err = float(np.abs(got.cpu().numpy() - want).max()) / float(np.abs(want).max())
+            ms = statistics.median(w / 20 for w in cuda_ms(
+                torch, lambda: [f(x) for _ in range(20)], reps=3))
+            log(f"  {name} on {tuple(x.shape)} -> {tuple(got.shape)}: {ms:.4f} ms a call (median"
+                f" of 3 runs of 20); max |torch - numpy| {err:.3e} of the largest value (limit"
+                f" {FEATURE_TOL:g}) on {card}")
+            if tuple(got.shape) != want.shape or not err <= FEATURE_TOL:
+                raise AssertionError(f"{name}: shape {tuple(got.shape)}, error {err:.3e}")
+            SUMMARY[f"feature_{name}"] = (ms, err)
+    return launches
+
+
 def profile_steps(torch, window, steps=TRAIN_STEPS):
     """Device time by kernel over one window of ``steps`` train steps
     (torch.profiler)."""
@@ -4621,6 +4969,16 @@ def main(argv=None) -> int:
             row["spectral_launches"] = spectral_launches[row["name"]]
         if row["name"] in spectral_err:
             row["max_abs_err"] = max(row["max_abs_err"], spectral_err[row["name"]])
+
+    # -- phase 8 -------------------------------------------------------------
+    log(f"phase 8: ensembles and the autoencoder (at {time.perf_counter() - t_start:.1f} s)")
+    t_ensemble = time.perf_counter()
+    ensemble_launches = ensemble_path(torch, mmk, fl, sd, wd, card)
+    log(f"  ensembles and the autoencoder took {time.perf_counter() - t_ensemble:.1f} s; their"
+        f" launches {ensemble_launches}")
+    for row in rows:
+        if row["name"] in ensemble_launches:
+            row["ensemble_launches"] = ensemble_launches[row["name"]]
     log(f"chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
 
     log(json.dumps({"kernels": rows}))

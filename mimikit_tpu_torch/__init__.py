@@ -16,6 +16,9 @@ through hand-written decode kernels.  ``ops.mulaw`` is the mu-law pair as
 one Triton kernel.  The spectral path (``IOSpec.magspec_io``: ``MagSpec``
 frames in and out, ``GLA`` back to audio) trains ``Seq2SeqLSTMNetwork`` (its
 LSTMs on the same LSTM kernels) and FreqNet (``WaveNet`` on frames).
+``EnsembleGenerator`` chains SampleRNN and WaveNet checkpoints across sample
+rates on their decode kernels (``models/``), and ``TiedAE`` trains on mel or
+magnitude frames, monitored by ``EncodeDecodeLoop``.
 
 Entry points run on the card (``cuda``) unless the caller passes
 ``device="cpu"``.
@@ -35,5 +38,7 @@ from .ops import *
 from .weights import *
 from .optim import *
 from .checkpoint import *
+from .extract import *
+from .models import *
 from . import parallel
 from . import demos

@@ -7,7 +7,8 @@ back with the maps of :mod:`.weights`), the network, dataset and training
 configs as YAML attrs, and the trainer state.  The optimizer state goes to a
 sibling ``epoch=N.opt`` as torch's own ``state_dict`` (``torch.save``).
 Files go through :mod:`.data.h5`.  SampleRNN, WaveNet (FreqNet too),
-SimpleTransformer, JukeBox and Seq2SeqLSTMNetwork networks are ported.
+SimpleTransformer, JukeBox, Seq2SeqLSTMNetwork and TiedAE networks are
+ported.
 """
 from __future__ import annotations
 
@@ -30,6 +31,8 @@ from .weights import (
     samplernn_state_dict_from_jax,
     seq2seq_params_to_jax,
     seq2seq_state_dict_from_jax,
+    tiedae_params_to_jax,
+    tiedae_state_dict_from_jax,
     transformer_params_to_jax,
     transformer_state_dict_from_jax,
     wavenet_params_to_jax,
@@ -74,6 +77,7 @@ def _weight_maps(network):
     """(state_dict -> flax tree, flax tree -> state_dict) for ``network``."""
     from .networks.s2s_lstm import Seq2SeqLSTMNetwork
     from .networks.sample_rnn import SampleRNN
+    from .networks.tied_autoencoder import TiedAE
     from .networks.transformers import JukeBox, SimpleTransformer
     from .networks.wavenet import WaveNet
 
@@ -81,6 +85,8 @@ def _weight_maps(network):
         return samplernn_params_to_jax, samplernn_state_dict_from_jax
     if isinstance(network, Seq2SeqLSTMNetwork):
         return seq2seq_params_to_jax, seq2seq_state_dict_from_jax
+    if isinstance(network, TiedAE):
+        return tiedae_params_to_jax, tiedae_state_dict_from_jax
     if isinstance(network, WaveNet):
         return wavenet_params_to_jax, wavenet_state_dict_from_jax
     if isinstance(network, SimpleTransformer):

@@ -21,11 +21,17 @@ Griffin-Lim draws its first phase from U(-pi, pi): ``griffinlim_torch``
 takes a ``torch.Generator`` (seeded 0 where none is given) and cannot draw
 ``jax.random.uniform``'s phase, so a seeded call matches the JAX package's
 in distribution, not in value; both run the same iteration from the same
-``init_phase`` (``_griffinlim_torch``).  Mel, MFCC and chroma are not
-ported yet.
+``init_phase`` (``_griffinlim_torch``).
+
+``resample_poly_filter`` builds scipy ``resample_poly``'s Kaiser FIR once a
+rate pair, the filter of ``Resample``'s tensor path; ``mel_filterbank``
+(Slaney or HTK mels) and ``dct_matrix`` (DCT-II) are the host-built
+projections of ``MelSpec`` and ``MFCC``, the JAX package's
+(``mimikit_tpu/features/dsp.py:322-382,514``).
 """
 from __future__ import annotations
 
+from functools import lru_cache
 from math import gcd
 from typing import Optional
 
@@ -35,6 +41,9 @@ import torch.nn.functional as F
 
 __all__ = [
     "resample_np",
+    "resample_poly_filter",
+    "mel_filterbank",
+    "dct_matrix",
     "hann_window",
     "get_window",
     "frame_count",
@@ -58,6 +67,83 @@ def resample_np(y: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:
     if up == down:
         return np.asarray(y)
     return resample_poly(np.asarray(y, dtype=np.float32), up, down, axis=-1).astype(np.float32)
+
+
+@lru_cache(maxsize=None)
+def resample_poly_filter(orig_sr: int, target_sr: int):
+    """(up, down, h): the FIR scipy's ``resample_poly`` builds for this rate
+    pair (a Kaiser window of beta 5.0, cutoff 1 / max(up, down), scaled by
+    up), so the tensor path and the numpy path filter alike; built once a
+    pair (``h`` is shared: not to be written)."""
+    from scipy.signal import firwin
+
+    g = gcd(int(orig_sr), int(target_sr))
+    up, down = target_sr // g, orig_sr // g
+    if up == down:
+        return up, down, np.ones(1, np.float32)
+    max_rate = max(up, down)
+    half_len = 10 * max_rate
+    h = firwin(2 * half_len + 1, 1.0 / max_rate, window=("kaiser", 5.0))
+    return up, down, (h * up).astype(np.float32)
+
+
+# -- mel and DCT projections -----------------------------------------------------------
+
+def _hz_to_mel(f, htk=False):
+    f = np.asarray(f, dtype=np.float64)
+    if htk:
+        return 2595.0 * np.log10(1.0 + f / 700.0)
+    # Slaney: linear below 1 kHz, logarithmic above
+    f_min, f_sp = 0.0, 200.0 / 3
+    mels = (f - f_min) / f_sp
+    min_log_hz = 1000.0
+    min_log_mel = (min_log_hz - f_min) / f_sp
+    logstep = np.log(6.4) / 27.0
+    above = f >= min_log_hz
+    return np.where(above, min_log_mel + np.log(np.maximum(f, 1e-10) / min_log_hz) / logstep,
+                    mels)
+
+
+def _mel_to_hz(m, htk=False):
+    m = np.asarray(m, dtype=np.float64)
+    if htk:
+        return 700.0 * (10.0 ** (m / 2595.0) - 1.0)
+    f_min, f_sp = 0.0, 200.0 / 3
+    freqs = f_min + f_sp * m
+    min_log_hz = 1000.0
+    min_log_mel = (min_log_hz - f_min) / f_sp
+    logstep = np.log(6.4) / 27.0
+    above = m >= min_log_mel
+    return np.where(above, min_log_hz * np.exp(logstep * (m - min_log_mel)), freqs)
+
+
+def mel_filterbank(sr, n_fft, n_mels=128, fmin=0.0, fmax=None, htk=False) -> np.ndarray:
+    """Slaney-normalised triangular mel filterbank, (n_mels, 1 + n_fft // 2)."""
+    if fmax is None:
+        fmax = sr / 2.0
+    fft_freqs = np.linspace(0, sr / 2.0, 1 + n_fft // 2)
+    mel_pts = np.linspace(_hz_to_mel(fmin, htk), _hz_to_mel(fmax, htk), n_mels + 2)
+    hz_pts = _mel_to_hz(mel_pts, htk)
+    fdiff = np.diff(hz_pts)
+    ramps = hz_pts[:, None] - fft_freqs[None, :]
+    lower = -ramps[:-2] / fdiff[:-1, None]
+    upper = ramps[2:] / fdiff[1:, None]
+    weights = np.maximum(0, np.minimum(lower, upper))
+    # equal energy a channel
+    enorm = 2.0 / (hz_pts[2 : n_mels + 2] - hz_pts[:n_mels])
+    weights *= enorm[:, None]
+    return weights.astype(np.float32)
+
+
+def dct_matrix(n_out: int, n_in: int, norm: Optional[str] = "ortho") -> np.ndarray:
+    """DCT-II basis, (n_out, n_in): mfcc = basis @ log_mel."""
+    n = np.arange(n_in)
+    k = np.arange(n_out)[:, None]
+    basis = 2.0 * np.cos(np.pi * k * (2 * n + 1) / (2.0 * n_in))
+    if norm == "ortho":
+        basis[0] *= np.sqrt(1.0 / (4 * n_in))
+        basis[1:] *= np.sqrt(1.0 / (2 * n_in))
+    return basis.astype(np.float32)
 
 
 # -- windows and shapes ------------------------------------------------------------------

@@ -3,11 +3,14 @@
 Counterpart of ``mimikit_tpu/features/functionals.py``, reduced to what the
 mu-law and spectral paths need: ``Discrete``/``Continuous`` element types,
 ``FileToSignal`` (through ``audio_io.load_audio``, resampled to ``sr``),
-``Normalize``, ``RemoveDC``, ``Compose``, the centered mu-law pair, and
-``STFT``, ``ISTFT``, ``MagSpec`` and its inverse ``GLA`` (``dsp.py``).  Each
-``Functional`` has a numpy path (``np_func``, the host/extraction path) and a
-torch path (``torch_func``, device tensors) where the JAX package had a
-``jax_func``; ``__call__`` dispatches on the input type.
+``Normalize``, ``RemoveDC``, ``Compose``, ``Resample``, the centered mu-law
+pair, ``STFT``, ``ISTFT``, ``MagSpec`` and its inverse ``GLA``
+(``dsp.py``), and the projections of a magnitude spectrogram ``MelSpec``,
+``MFCC`` and ``Chroma``.  Each ``Functional`` has a numpy path (``np_func``,
+the host/extraction path) and a torch path (``torch_func``, device tensors)
+where the JAX package had a ``jax_func``; ``__call__`` dispatches on the
+input type.  A numpy output may carry metadata on its dtype (``Resample``'s
+``sr``, ``get_metadata``), as in the JAX package.
 """
 from __future__ import annotations
 
@@ -32,12 +35,17 @@ __all__ = [
     "FileToSignal",
     "RemoveDC",
     "Normalize",
+    "Resample",
     "MuLawCompress",
     "MuLawExpand",
     "STFT",
     "ISTFT",
     "MagSpec",
     "GLA",
+    "MelSpec",
+    "MFCC",
+    "Chroma",
+    "get_metadata",
 ]
 
 N_FFT = 2048
@@ -59,6 +67,39 @@ class Discrete:
 
 
 EventType = Union[Continuous, Discrete]
+
+
+def _to_dict(value):
+    return {} if value is None else dict(value)
+
+
+def _add_metadata(x, **metadata):
+    """Metadata (e.g. ``sr``) carried on a numpy array's dtype; a tensor
+    passes unchanged."""
+    if isinstance(x, np.ndarray):
+        prev = _to_dict(x.dtype.metadata)
+        prev.update(metadata)
+        return x.view(np.dtype(x.dtype, metadata=prev))
+    return x
+
+
+def get_metadata(x, key: str, default=None):
+    """``key`` of the metadata a numpy array carries on its dtype."""
+    if isinstance(x, np.ndarray) and x.dtype.metadata is not None:
+        return x.dtype.metadata.get(key, default)
+    return default
+
+
+# host-built projections (filterbanks, DCT bases, lifters) as tensors, once a device
+_DEVICE_CONSTS: dict = {}
+
+
+def _device_const(key, device, build):
+    k = (key, str(device))
+    t = _DEVICE_CONSTS.get(k)
+    if t is None:
+        t = _DEVICE_CONSTS[k] = torch.as_tensor(build(), device=device)
+    return t
 
 
 @dtc.dataclass
@@ -223,6 +264,55 @@ class Normalize(Functional):
     @property
     def inv(self):
         return Identity()
+
+
+@dtc.dataclass
+class Resample(Functional):
+    """Polyphase resampling from ``orig_sr`` to ``target_sr``.  The numpy path
+    is scipy's ``resample_poly`` (``dsp.resample_np``); the tensor path
+    applies the same FIR (``dsp.resample_poly_filter``) with the same output
+    alignment where the tensor lies, as one strided convolution of the
+    zero-stuffed signal (``mimikit_tpu/features/functionals.py:388-432``:
+    ``lhs_dilation=up``, ``window_strides=down``)."""
+
+    orig_sr: int = 22050
+    target_sr: int = 16000
+
+    @property
+    def unit(self) -> Optional[Unit]:
+        return Sample(self.target_sr)
+
+    def np_func(self, inputs):
+        y = dsp.resample_np(inputs, self.orig_sr, self.target_sr)
+        return _add_metadata(y, sr=self.target_sr)
+
+    def torch_func(self, inputs):
+        up, down, h = dsp.resample_poly_filter(self.orig_sr, self.target_sr)
+        x = inputs.to(torch.float32)
+        if up == down:
+            return x
+        shape, n_in = x.shape, x.shape[-1]
+        n_out = (n_in * up) // down + bool((n_in * up) % down)
+        half_len = (len(h) - 1) // 2
+        n_pre_pad = down - half_len % down
+        n_pre_remove = (half_len + n_pre_pad) // down
+        h_p = np.concatenate([np.zeros(n_pre_pad, np.float32), h])
+        L = len(h_p)
+        # correlation with the reversed padded filter is the convolution; a
+        # left pad of L - 1 puts output i at sample i * down of the full one
+        w = _device_const(("resample", self.orig_sr, self.target_sr), x.device,
+                          lambda: np.ascontiguousarray(h_p[::-1])[None, None, :])
+        n_up = (n_in - 1) * up + 1
+        need = (n_pre_remove + n_out - 1) * down + L - n_up - (L - 1) + 1
+        pad_r = max(L - 1, need)
+        stuffed = x.new_zeros(x.numel() // n_in, 1, L - 1 + n_up + pad_r)
+        stuffed[:, 0, L - 1 : L - 1 + n_up : up] = x.reshape(-1, n_in)
+        y = torch.nn.functional.conv1d(stuffed, w, stride=down)
+        return y[:, 0, n_pre_remove : n_pre_remove + n_out].reshape(*shape[:-1], n_out)
+
+    @property
+    def inv(self):
+        return Resample(self.target_sr, self.orig_sr)
 
 
 def mu_compress_np(x, q_levels: int, compression: float):
@@ -488,3 +578,121 @@ class GLA(Functional):
     @property
     def inv(self):
         return MagSpec(self.n_fft, self.hop_length, self.center, self.window, self.pad_mode)
+
+
+@dtc.dataclass
+class MelSpec(Functional):
+    """Mel projection of a magnitude spectrogram, (time, freq) -> (time,
+    n_mels): the power ``|S|^2`` times the filterbank's transpose
+    (``dsp.mel_filterbank``, built once and kept on each device)."""
+
+    n_mels: int = 128
+    fmin: float = 0.0
+    fmax: Optional[float] = None
+    htk: bool = False
+    sr: int = SR
+    n_fft: int = N_FFT
+
+    @property
+    def elem_type(self) -> Optional[EventType]:
+        return Continuous(0.0, float("inf"), self.n_mels)
+
+    def _fb(self):
+        return dsp.mel_filterbank(self.sr, self.n_fft, self.n_mels, self.fmin, self.fmax,
+                                  self.htk)
+
+    def np_func(self, inputs):
+        return (np.asarray(inputs) ** 2) @ self._fb().T
+
+    def torch_func(self, inputs):
+        fbT = _device_const(("mel", self.sr, self.n_fft, self.n_mels, self.fmin, self.fmax,
+                             self.htk), inputs.device,
+                            lambda: np.ascontiguousarray(self._fb().T))
+        return (inputs * inputs) @ fbT
+
+    @property
+    def inv(self) -> "Functional":
+        return Identity()
+
+
+def _lifter(n_mfcc: int, lifter: int) -> np.ndarray:
+    n = np.arange(n_mfcc)
+    return (1 + (lifter / 2) * np.sin(np.pi * (n + 1) / lifter)).astype(np.float32)
+
+
+@dtc.dataclass
+class MFCC(Functional):
+    """DCT-II (``dsp.dct_matrix``) of the log of a mel input along its
+    feature axis, the log floored at 1e-10, then the sinusoidal lifter where
+    ``lifter`` > 0."""
+
+    n_mfcc: int = 20
+    dct_type: int = 2
+    norm: Optional[str] = "ortho"
+    lifter: int = 0
+
+    @property
+    def elem_type(self) -> Optional[EventType]:
+        return Continuous(0.0, float("inf"), self.n_mfcc)
+
+    def np_func(self, inputs):
+        S = np.asarray(inputs)
+        m = np.log(np.maximum(S, 1e-10)) @ dsp.dct_matrix(self.n_mfcc, S.shape[-1], self.norm).T
+        if self.lifter > 0:
+            m = m * _lifter(self.n_mfcc, self.lifter)
+        return m
+
+    def torch_func(self, inputs):
+        n_in = int(inputs.shape[-1])
+        basisT = _device_const(("dct", self.n_mfcc, n_in, self.norm), inputs.device,
+                               lambda: np.ascontiguousarray(
+                                   dsp.dct_matrix(self.n_mfcc, n_in, self.norm).T))
+        m = torch.log(torch.clamp_min(inputs, 1e-10)) @ basisT
+        if self.lifter > 0:
+            m = m * _device_const(("lifter", self.n_mfcc, self.lifter), inputs.device,
+                                  lambda: _lifter(self.n_mfcc, self.lifter))
+        return m
+
+    @property
+    def inv(self) -> "Functional":
+        return Identity()
+
+
+@dtc.dataclass
+class Chroma(Functional):
+    """Chroma projection of a magnitude spectrogram: a Gaussian bump a
+    chroma bin over the FFT bins' pitch classes, each bin's weights summing
+    to one."""
+
+    n_chroma: int = 12
+    sr: int = SR
+    n_fft: int = N_FFT
+
+    @property
+    def elem_type(self) -> Optional[EventType]:
+        return Continuous(0.0, float("inf"), self.n_chroma)
+
+    def _fb(self) -> np.ndarray:
+        n_bins = 1 + self.n_fft // 2
+        freqs = np.linspace(0, self.sr / 2, n_bins)[1:]
+        pitches = 12 * np.log2(freqs / 440.0) + 69.0  # midi
+        chroma_of_bin = pitches % 12
+        fb = np.zeros((self.n_chroma, n_bins), dtype=np.float32)
+        c = np.arange(self.n_chroma)[:, None]
+        dist = np.abs(chroma_of_bin[None, :] * self.n_chroma / 12 - c) % self.n_chroma
+        d = np.minimum(dist, self.n_chroma - dist)
+        fb[:, 1:] = np.exp(-0.5 * d ** 2).astype(np.float32)
+        fb /= np.maximum(fb.sum(axis=0, keepdims=True), 1e-8)
+        return fb
+
+    def np_func(self, inputs):
+        return np.asarray(inputs) @ self._fb().T
+
+    def torch_func(self, inputs):
+        fbT = _device_const(("chroma", self.sr, self.n_fft, self.n_chroma), inputs.device,
+                            lambda: np.ascontiguousarray(self._fb().T))
+        return inputs @ fbT
+
+    @property
+    def inv(self) -> "Functional":
+        return Identity()

@@ -132,18 +132,20 @@ class Objective(Config, type_field=False):
 
     def get_criterion(self):
         """The loss of this objective: ``MeanL1Prop(**params)`` for
-        'reconstruction', cross-entropy for 'categorical_dist', none for
-        'none' (a target served but not scored).  The JAX package's other
-        objectives (``DiffOverTime``, ``WeightedL1``, ...) are not ported and
-        raise ``NotImplementedError``."""
+        'reconstruction', cross-entropy for 'categorical_dist', the loss of
+        ``modules/loss_functions.py`` of that name for the other objectives
+        (``WeightedL1``, ``DiffOverTime``, ``MaximizeMagnitude``,
+        ``MaximizeStd``, ``ElementWiseAngularDistance``), built with
+        ``params``; none for 'none' (a target served but not scored), as
+        ``mimikit_tpu/io_spec.py:150-158``."""
         ot = str(self.objective_type)
         if ot == "reconstruction":
             return lfuncs.MeanL1Prop(**self.params)
         if ot == "categorical_dist":
             return lfuncs.cross_entropy
-        if ot == "none":
-            return None
-        raise NotImplementedError(f"objective '{ot}' is not ported")
+        if hasattr(lfuncs, ot):
+            return getattr(lfuncs, ot)(**self.params)
+        return None
 
     def get_sampler(self):
         """'categorical_dist' -> a :class:`CategoricalSampler` whose ``impl``

@@ -4,3 +4,4 @@ from .callbacks import *
 from .generate import *
 from .device_loader import *
 from .train_loops import *
+from .beta_scheduler import *

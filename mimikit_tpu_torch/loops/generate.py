@@ -12,8 +12,13 @@ a batch, then go through the targets' inverse transforms to the
 ``AudioLogger`` (``Functional.apply_to_outputs``: mu-law expansion on the
 host, Griffin-Lim, ``MagSpec``'s inverse, on the network's device).
 
-``EncodeDecodeLoop`` (``:427``, the autoencoders' loop) is not ported: it
-comes with ``networks/tied_autoencoder.py``.
+``EncodeDecodeLoop`` (``:427-494``) is the autoencoders' loop: it re-encodes
+each prompt in windows of the net's ``rf`` (one pass over the whole prompt
+where ``rf`` is 0, ``TiedAE``), writing each window's outputs in place over
+the window's last samples (JAX's write, ``tensor[:, t - n_out : t]`` with
+``n_out = min(len(out), prior_t - t)``: at ``t == prior_t`` that is no
+sample, so a one-pass net leaves the prompt as it was), on the net's
+device; the buffers leave the device once a batch.
 """
 from __future__ import annotations
 
@@ -32,7 +37,7 @@ from ..features.item_spec import Frame, ItemSpec, Sample, Second, convert
 from .callbacks import tqdm
 from .logger import AudioLogger
 
-__all__ = ["GenerateLoopV2", "prepare_prompt", "generate_tqdm"]
+__all__ = ["GenerateLoopV2", "EncodeDecodeLoop", "prepare_prompt", "generate_tqdm"]
 
 
 def prepare_prompt(prompt, n_blanks: int, at_least_nd: int = 2):
@@ -156,10 +161,13 @@ class GenerateLoopV2:
             params = self._gather_params()
             if self._fast_path_accepts(params):
                 # the whole decode in one call, every gathered sampler parameter
-                # passed on; the outputs leave the device once
+                # passed on: the host prompts go to the net's device once, the
+                # outputs leave it once
+                dev = self.network.device
+                prompts = tuple(torch.as_tensor(b).to(dev) for b in batch)
                 final_outputs = tuple(
                     b.cpu().numpy() if isinstance(b, torch.Tensor) else np.asarray(b)
-                    for b in self.network.generate(batch, self.n_steps, **params)
+                    for b in self.network.generate(prompts, self.n_steps, **params)
                 )
             else:
                 if (getattr(self.network, "generate", None) is not None
@@ -262,3 +270,69 @@ class GenerateLoopV2:
                 if self.config.display_waveform:
                     self.logger.display(example, prompt_idx=int(idx), **template_vars)
         return outputs if self.config.yield_inversed_outputs else final_outputs
+
+
+class EncodeDecodeLoop(GenerateLoopV2):
+    """Reconstruction loop for autoencoders: steps ``range(rf, prior_t, rf)``
+    re-encoding the prompt in place (``mimikit_tpu/loops/generate.py:
+    427-494``)."""
+
+    @dtc.dataclass
+    class Config(Config):
+        prompts_length_sec: float = 1.0
+        prompts_position_sec: Tuple[Optional[float], ...] = (None,)
+        parameters: Optional[Dict[str, Any]] = None
+        batch_size: int = 1
+        downsampling: int = 1
+
+        output_name_template: Optional[str] = None
+        display_waveform: bool = True
+        write_waveform: bool = False
+        yield_inversed_outputs: bool = True
+        callback: Optional[Callable] = None
+
+    @classmethod
+    def from_config(cls, config, dataset, network):
+        dataloader = cls.get_dataloader(config, dataset, network)
+        logger = AudioLogger(
+            sr=network.config.io_spec.sr,
+            file_template=config.output_name_template if config.write_waveform else None,
+            title_template=config.output_name_template if config.display_waveform else None,
+        )
+        return cls(config, network, 0, dataloader, logger)
+
+    def run(self):
+        self.setup()
+        net = self.network
+        dev = net.device
+        for batch in self.dataloader:
+            prompt_idx, batch = batch[0], batch[1:]
+            prompt_idx = np.asarray(prompt_idx).reshape(-1)
+            params = self._gather_params()
+            net.before_generate(batch, prompt_idx)
+            rf, prior_t = net.rf, np.shape(batch[0])[1]
+            # rf == 0 (TiedAE has no receptive field): the whole prompt in one pass
+            rf = rf if rf and rf > 0 else prior_t
+            tensors = [torch.as_tensor(np.array(x)).to(dev) for x in batch]
+            until = 0
+            with torch.no_grad():
+                for t in generate_tqdm(range(rf, prior_t + (rf == prior_t), rf)):
+                    if t < until:
+                        continue
+                    inputs = tuple(tensor[:, t - rf : t] for tensor in tensors)
+                    outputs = net.generate_step(inputs, t=t, **params)
+                    if not isinstance(outputs, tuple):
+                        outputs = (outputs,)
+                    for tensor, out in zip(tensors, outputs):
+                        if out is not None:
+                            out = torch.as_tensor(out).to(dev)
+                            n_out = min(out.shape[1], tensor.shape[1] - t)
+                            tensor[:, t - n_out : t] = out[:, :n_out].to(tensor.dtype)
+                            until = t + n_out
+            final_outputs = tuple(tensor.cpu().numpy() for tensor in tensors)
+            net.after_generate(final_outputs, prompt_idx)
+            outputs = self.process_outputs(final_outputs, prompt_idx, **self.template_vars)
+            yield outputs
+            if self.config.callback is not None:
+                self.config.callback(outputs)
+        self.teardown()

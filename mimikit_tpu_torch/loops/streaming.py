@@ -106,6 +106,7 @@ def _refeed_stream(net, prompt, chunk_steps: int, temperature, seed,
     if not callable(getattr(net, "generate", None)):
         raise TypeError(
             f"{type(net).__name__} has no batch `generate` — streaming needs one"
+            " (autoencoder models run under EncodeDecodeLoop instead)"
         )
     # block-AR nets are exact only when chunk boundaries fall on block ones
     hop = getattr(getattr(net, "config", None), "hop", None)

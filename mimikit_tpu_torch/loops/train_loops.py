@@ -50,7 +50,10 @@ add a ``GenerateCallback``: every ``every_n_epochs`` epochs,
 ``GenerateLoopV2`` decodes ``n_examples`` prompts of the dataset at
 ``temperature`` (one value, or one an example), shows them
 (``MONITOR_TRAINING``) and writes them to ``outputs/epoch{e}_prm{i}.wav``
-(``OUTPUT_TRAINING``).
+(``OUTPUT_TRAINING``); a net that is not an ``ARM`` (``TiedAE``) is
+monitored by ``EncodeDecodeLoop``'s reconstructions instead.  A net whose
+forward returns ``(y, indp)`` with no carry (``TiedAE``) trains as the
+stateless nets do: the loss zips its outputs with the targets.
 """
 from __future__ import annotations
 
@@ -74,7 +77,7 @@ from ..networks.arm import ARM, ARMWithHidden
 from ..optim import TrainOptimizer, onecycle_schedule
 from .callbacks import GenerateCallback, MMKCheckpoint, tqdm
 from .device_loader import make_train_loader
-from .generate import GenerateLoopV2
+from .generate import EncodeDecodeLoop, GenerateLoopV2
 from .logger import EpochMetrics, LossLogger
 
 __all__ = ["TrainARMConfig", "ARMHP", "TrainARMLoop"]
@@ -314,31 +317,35 @@ class TrainARMLoop:
     @classmethod
     def get_callbacks(cls, net, dataset, root_dir, filename_template, cfg: TrainARMConfig):
         """``MMKCheckpoint`` (``CHECKPOINT_TRAINING``), then a
-        ``GenerateCallback`` over ``GenerateLoopV2`` (``MONITOR_TRAINING`` or
-        ``OUTPUT_TRAINING``), as ``train_loops.py:281-329``."""
+        ``GenerateCallback`` (``MONITOR_TRAINING`` or ``OUTPUT_TRAINING``) over
+        ``GenerateLoopV2`` for an ``ARM``, over ``EncodeDecodeLoop`` for any
+        other net (an autoencoder: its prompts as long as the larger of
+        ``prompt_length_sec`` and ``outputs_duration_sec``), as
+        ``train_loops.py:281-329``."""
         callbacks = []
         if cfg.CHECKPOINT_TRAINING:
             callbacks.append(MMKCheckpoint(epochs=cfg.every_n_epochs, root_dir=root_dir))
         if cfg.MONITOR_TRAINING or cfg.OUTPUT_TRAINING:
-            if not isinstance(net, ARM):
-                raise NotImplementedError(
-                    f"monitoring a {type(net).__name__} needs EncodeDecodeLoop, which is not"
-                    " ported (it comes with networks/tied_autoencoder.py)")
-            gen_loop = GenerateLoopV2.from_config(
-                GenerateLoopV2.Config(
-                    output_duration_sec=cfg.outputs_duration_sec,
-                    prompts_length_sec=cfg.prompt_length_sec,
-                    prompts_position_sec=(None,) * cfg.n_examples,
-                    parameters=dict(temperature=cfg.temperature),
-                    batch_size=cfg.n_examples,
-                    downsampling=cfg.downsampling,
-                    output_name_template=filename_template,
-                    display_waveform=cfg.MONITOR_TRAINING,
-                    write_waveform=bool(cfg.OUTPUT_TRAINING),
-                ),
-                dataset=dataset,
-                network=net,
+            common = dict(
+                prompts_position_sec=(None,) * cfg.n_examples,
+                parameters=dict(temperature=cfg.temperature),
+                batch_size=cfg.n_examples,
+                downsampling=cfg.downsampling,
+                output_name_template=filename_template,
+                display_waveform=cfg.MONITOR_TRAINING,
+                write_waveform=bool(cfg.OUTPUT_TRAINING),
             )
+            if isinstance(net, ARM):
+                gen_loop = GenerateLoopV2.from_config(
+                    GenerateLoopV2.Config(output_duration_sec=cfg.outputs_duration_sec,
+                                          prompts_length_sec=cfg.prompt_length_sec, **common),
+                    dataset=dataset, network=net)
+            else:
+                gen_loop = EncodeDecodeLoop.from_config(
+                    EncodeDecodeLoop.Config(
+                        prompts_length_sec=max(cfg.prompt_length_sec, cfg.outputs_duration_sec),
+                        **common),
+                    dataset=dataset, network=net)
             callbacks.append(GenerateCallback(generate_loop=gen_loop,
                                               every_n_epochs=cfg.every_n_epochs))
         return callbacks

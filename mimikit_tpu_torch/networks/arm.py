@@ -6,7 +6,9 @@ randomness (the JAX package's rng key stream).  Besides ``rf`` and the batch
 specs, the contract holds the stepwise generation API that
 ``loops/generate.GenerateLoopV2`` drives where a net's ``generate`` cannot
 take the sampler parameters (``before_generate``, ``generate_step``,
-``after_generate``), and the optional ``stepwise_step_fn``.
+``after_generate``), and the optional ``stepwise_step_fn``.  ``AutoEncoder``
+is the same surface for the nets that are not autoregressive (``TiedAE``):
+``EncodeDecodeLoop`` monitors them.
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ from ..features.item_spec import ItemSpec
 if TYPE_CHECKING:
     from ..io_spec import IOSpec
 
-__all__ = ["NetworkConfig", "ARM", "ARMWithHidden"]
+__all__ = ["NetworkConfig", "ARM", "ARMWithHidden", "AutoEncoder"]
 
 
 @dtc.dataclass
@@ -111,3 +113,8 @@ class ARMWithHidden(ARM):
     @abc.abstractmethod
     def reset_hidden(self) -> None:
         ...
+
+
+class AutoEncoder(_NetworkBase):
+    """The same surface for networks that are not autoregressive
+    (``mimikit_tpu/networks/arm.py:131``)."""

@@ -57,6 +57,12 @@ framed dense ``tiers.{i}.input_module.heads.{j}.2``, its up-sampler
 ``tiers.{i}.up_sampler.fc``, and the bottom tier's framed conv
 ``tiers.{n-1}.input_module.heads.{j}.2.2.cv.weight`` (out, 1, k), the flax
 (k, out) kernel transposed.
+
+``tiedae_state_dict_from_jax`` and ``tiedae_params_to_jax`` do the same for
+``TiedAE`` (``migrate.py`` has no map for it): flax's shared kernel ``w{i}``
+(k, d_in, d_out) is the conv weight ``kernels.{i}`` (d_out, d_in, k), the
+heads ``{input,output}_modules_{j}/core/Dense_0`` (an embedding input's
+``Embed_0``) are ``{input,output}_modules.{j}.0``.
 """
 from __future__ import annotations
 
@@ -77,6 +83,8 @@ __all__ = [
     "transformer_params_to_jax",
     "jukebox_state_dict_from_jax",
     "jukebox_params_to_jax",
+    "tiedae_state_dict_from_jax",
+    "tiedae_params_to_jax",
 ]
 
 _GATES = "ifgo"
@@ -668,4 +676,48 @@ def seq2seq_params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
                 _dense_to_jax(tree, f"input_module/heads_{j}/core/Dense_0", what, v)
             continue
         raise ValueError(f"unmapped Seq2Seq state_dict entry {key}")
+    return tree
+
+
+def tiedae_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ``TiedAE`` params -> the port's state_dict (CPU f32)."""
+    sd: Dict[str, np.ndarray] = {}
+    for name, node in params.items():
+        m = re.fullmatch(r"w(\d+)", name)
+        if m:
+            sd[f"kernels.{m.group(1)}"] = _conv_t(node)
+            continue
+        m = re.fullmatch(r"(input|output)_modules_(\d+)", name)
+        if m:
+            base = f"{m.group(1)}_modules.{m.group(2)}.0"
+            core = node["core"]
+            if "Embed_0" in core:
+                sd[f"{base}.weight"] = np.asarray(core["Embed_0"]["embedding"])
+            else:
+                _dense_from_jax(core["Dense_0"], base, sd)
+            continue
+        raise ValueError(f"unmapped TiedAE parameter {name}")
+    return _to_torch(sd)
+
+
+def tiedae_params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
+    """The port's ``TiedAE`` state_dict -> the JAX parameter tree (nested
+    dicts of f32 numpy arrays)."""
+    sd = {k: v.detach().cpu().numpy().astype(np.float32) for k, v in state_dict.items()}
+    tree: Dict = {}
+    for key, v in sd.items():
+        m = re.fullmatch(r"kernels\.(\d+)", key)
+        if m:
+            _put(tree, f"w{m.group(1)}", _conv_t(v))
+            continue
+        m = re.fullmatch(r"(input|output)_modules\.(\d+)\.0\.(weight|bias)", key)
+        if m:
+            side, j, what = m.groups()
+            path = f"{side}_modules_{j}/core"
+            if what == "weight" and f"{side}_modules.{j}.0.bias" not in sd:
+                _put(tree, f"{path}/Embed_0/embedding", v)
+            else:
+                _dense_to_jax(tree, f"{path}/Dense_0", what, v)
+            continue
+        raise ValueError(f"unmapped TiedAE state_dict entry {key}")
     return tree

@@ -2,7 +2,8 @@
 
 * ``mimikit_tpu_torch`` imports torch and never jax nor ``mimikit_tpu``;
   ``chip_smoke.py`` neither (checked in a fresh process and by a source scan
-  of every module, the spectral path's among them);
+  of every module, the spectral path's and the ensemble and autoencoder
+  modules among them); the ensemble and autoencoder names are in ``mmk``;
 * its entry points run on the card unless the caller asks for the CPU, and a
   CUDA request on a machine without CUDA raises instead of running on the
   CPU;
@@ -73,12 +74,29 @@ _CUDA_CALLS = [
     "mu.mulaw_expand(torch.zeros(8, dtype=torch.int32, device='cuda'))",
     "mmk.Seq2SeqLSTMNetwork.from_config(scfg)",
     "mmk.Seq2SeqLSTMNetwork.from_config(scfg, device='cuda')",
+    "mmk.TiedAE.from_config(acfg)",
+    "mmk.TiedAE.from_config(acfg, device='cuda')",
 ]
 # the spectral path's modules, which the source scan must reach
 SPECTRAL = ("features/dsp.py", "features/functionals.py", "modules/io.py", "modules/misc.py",
             "modules/loss_functions.py", "modules/rnn.py", "networks/s2s_lstm.py",
             "networks/wavenet.py", "io_spec.py", "weights.py", "checkpoint.py",
             "loops/generate.py", "demos/seq2seq.py", "demos/freqnet.py")
+# the ensemble and autoencoder modules, which the source scan must reach too
+MODELS = ("models/ensemble_generator.py", "models/nnn.py", "models/patterns.py",
+          "extract/segment.py", "extract/from_neighbors.py", "networks/tied_autoencoder.py",
+          "loops/beta_scheduler.py", "modules/threefry.py", "demos/ensemble_generator.py",
+          "demos/checkpoint_k_bests.py")
+# the names the ensemble and autoencoder slice adds to the flat namespace
+SLICE_NAMES = ("EnsembleGenerator", "Event", "VotingEnsemble", "NearestNextNeighbor", "Pbind",
+               "Pseq", "Pwhite", "Prand", "Pattern", "inf", "Resample", "MelSpec", "MFCC",
+               "Chroma", "get_metadata", "TiedAE", "AutoEncoder", "EncodeDecodeLoop",
+               "beta_schedule", "adam_with_beta_schedule", "BetaScheduledAdam",
+               "nearest_neighbor", "cum_entropy", "repeat_rate", "frame", "dtw",
+               "optimal_path", "WeightedL1", "DiffOverTime", "DistanceOverTime", "MaximizeStd",
+               "MaximizeMagnitude", "ScaledOutputsL1", "Mean2dDiff", "CosineSimilarity",
+               "AngularDistance", "ElementWiseAngularDistance", "tiedae_state_dict_from_jax",
+               "tiedae_params_to_jax")
 
 _PROBE = """
 import json, sys
@@ -121,6 +139,9 @@ jcfg = mmk.JukeBox.Config(io_spec=io, frame_sizes=(8, 4, 2), model_dim=16, n_hea
 jpack = jbd.jukebox_weight_pack(mmk.JukeBox.from_config(jcfg, device="cpu"))
 sio = mmk.IOSpec.magspec_io(mmk.IOSpec.MagSpecIOConfig(sr=16000, n_fft=64, hop_length=16))
 scfg = mmk.Seq2SeqLSTMNetwork.Config(io_spec=sio, model_dim=16, hop=4)
+acfg = mmk.TiedAE.Config(io_spec=sio, kernel_sizes=(3,), dims=(8,))
+res["missing"] = [n for n in SLICE_NAMES if not hasattr(mmk, n)]
+res["demos"] = [hasattr(mmk.demos, d) for d in ("ensemble_generator", "checkpoint_k_bests")]
 for call in CALLS:
     try:
         eval(call)
@@ -179,7 +200,7 @@ print(json.dumps(res))
 def probe():
     """One fresh process: what importing the port loads, and how each call
     behaves on this machine."""
-    res = _python(f"CALLS = {_CUDA_CALLS!r}\n" + _PROBE)
+    res = _python(f"CALLS = {_CUDA_CALLS!r}\nSLICE_NAMES = {SLICE_NAMES!r}\n" + _PROBE)
     assert res.returncode == 0, res.stderr[-3000:]
     return json.loads(res.stdout.strip().splitlines()[-1])
 
@@ -191,6 +212,18 @@ def test_fresh_import_loads_neither_jax_nor_the_jax_package(probe):
 @pytest.mark.parametrize("rel", SPECTRAL)
 def test_source_scan_reaches_the_spectral_modules(rel):
     assert os.path.join(PKG, rel) in _sources()
+
+
+@pytest.mark.parametrize("rel", MODELS)
+def test_source_scan_reaches_the_ensemble_and_autoencoder_modules(rel):
+    assert os.path.join(PKG, rel) in _sources()
+
+
+def test_slice_names_in_the_flat_namespace(probe):
+    """The ensemble and autoencoder slice's classes and functions are
+    ``mmk.<Name>``, and its two demos are ``mmk.demos`` modules."""
+    assert probe["missing"] == []
+    assert probe["demos"] == [True, True]
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: os.path.relpath(p, ROOT))

@@ -22,6 +22,7 @@ import torch
 
 import mimikit_tpu_torch as mmk
 from mimikit_tpu_torch.ops import samplernn_decode as sd
+from torch_port_worker_patterns import ensemble_patterns
 
 
 def unflatten(flat: dict, prefix: str) -> dict:
@@ -2770,6 +2771,269 @@ def spectral_demos_task(inp: dict) -> dict:
     return out
 
 
+# -- the ensemble and autoencoder slice ------------------------------------------------------
+
+_LOSS_ARGS = {"CosineSimilarity": "xy", "AngularDistance": "xy"}
+
+
+def losses_task(inp: dict) -> dict:
+    """Each loss of ``modules/loss_functions.py`` (and the objectives'
+    criteria through ``Objective.get_criterion``) on the given outputs and
+    targets: its value and its gradient with respect to the output (of the
+    sum, for a matrix)."""
+    torch.set_num_threads(1)
+    out = {}
+    cases = json.loads(str(inp["cases"]))
+    for tag, (name, kw, kind) in cases.items():
+        if kind == "objective":
+            crit = mmk.Objective(name, params=kw).get_criterion()
+        else:
+            crit = getattr(mmk, name)(**kw)
+        o = t(inp[f"{tag}/a"]).clone().requires_grad_()
+        v = crit(o, t(inp[f"{tag}/b"]))
+        v.sum().backward()
+        out[f"{tag}/value"], out[f"{tag}/grad"] = v.detach().numpy(), o.grad.numpy()
+        out[f"{tag}/type"] = np.array(type(crit).__name__)
+    return out
+
+
+def spectral_features_task(inp: dict) -> dict:
+    """The filterbanks at the goldens' sizes, and MelSpec, MFCC and Chroma
+    through their numpy and torch paths."""
+    torch.set_num_threads(1)
+    from mimikit_tpu_torch.features import dsp
+
+    out = {}
+    for sr, n_fft, n_mels in ((16000, 512, 40), (22050, 2048, 128)):
+        out[f"mel_{sr}_{n_fft}_{n_mels}"] = dsp.mel_filterbank(sr, n_fft, n_mels)
+    for n_out, n_in in ((13, 40), (20, 128)):
+        out[f"dct_{n_out}_{n_in}"] = dsp.dct_matrix(n_out, n_in)
+    out["dct_full_40"] = dsp.dct_matrix(40, 40)
+    out["chroma_12_512"] = mmk.Chroma(n_chroma=12, sr=16000, n_fft=512)._fb()
+    out["mel_anchors"] = dsp._hz_to_mel(np.array([0.0, 1000.0, 200.0 / 3, 6400.0]))
+    out["hz_anchor"] = dsp._mel_to_hz(42.0)
+    cfgs = json.loads(str(inp["features"]))
+    for tag, (name, kw, src) in cfgs.items():
+        f = getattr(mmk, name)(**kw)
+        x = inp[src]
+        out[f"{tag}/np"] = np.asarray(f(x))
+        out[f"{tag}/torch"] = f(t(x)).numpy()
+    return out
+
+
+def _tied_ae(yaml: str, params=None, seed: int = 0):
+    """The port's TiedAE from the JAX-written YAML (bound to a 16 kHz signal
+    extractor), with ``params`` (a JAX tree) where given."""
+    cfg = mmk.Config.deserialize(yaml)
+    cfg.io_spec.bind_to({"signal": mmk.Extractor.signal(16000)})
+    net = mmk.TiedAE.from_config(cfg, device="cpu", seed=seed)
+    if params is not None:
+        net.load_state_dict(mmk.tiedae_state_dict_from_jax(params), strict=True)
+    return net
+
+
+def tied_ae_task(inp: dict) -> dict:
+    """TiedAE on the CPU: the forward of each case with the JAX weights, the
+    weight maps both ways, the loss gradient with and without the
+    independence term, banks both ways, a monitored TrainARMLoop, and the
+    beta-scheduled Adam."""
+    torch.set_num_threads(1)
+    out = {}
+    x = t(inp["x"])
+    for tag in sorted({k.split("/")[1] for k in inp if k.startswith("ae/")}):
+        p = f"ae/{tag}/"
+        params = unflatten(inp, p + "params/")
+        net = _tied_ae(str(inp[p + "yaml"]), params)
+        with torch.no_grad():
+            y, indp = net((x,))
+        out[p + "y"], out[p + "indp"] = y.numpy(), np.asarray(float(indp))
+        out.update(_flat_tree(mmk.tiedae_params_to_jax(net.state_dict()), p + "back/"))
+        out[p + "keys"] = np.array(sorted(net.state_dict()))
+    # the loss gradient: the independence term is computed and dropped by the zip
+    for reg in ("reg", "none"):
+        p = f"grad/{reg}/"
+        net = _tied_ae(str(inp[p + "yaml"]), unflatten(inp, "grad/params/"))
+        outputs = net((x,))
+        d = net.config.io_spec.loss_fn(outputs, (t(inp["target"]),))
+        d["loss"].backward()
+        out[p + "loss"] = d["loss"].detach().numpy()
+        out[p + "indp"] = np.asarray(float(outputs[1].detach()))
+        for k, v in net.named_parameters():
+            out[p + "d/" + k] = v.grad.numpy()
+    # banks: the port writes one for JAX, and opens JAX's
+    work = str(inp["work"])
+    net = _tied_ae(str(inp["bank/yaml"]), seed=3).eval()
+    mmk.Checkpoint(id="port_ae", epoch=1, root_dir=work).create(network=net)
+    with torch.no_grad():
+        out["bank/port_y"] = net((x,))[0].numpy()
+        back = mmk.Checkpoint(id="jax_ae", epoch=1, root_dir=work, device="cpu").network.eval()
+        out["bank/jax_y"] = back((x,))[0].numpy()
+    out["bank/jax_type"] = np.array(type(back).__name__)
+    # TrainARMLoop with the EncodeDecodeLoop monitor (OUTPUT_TRAINING="wav")
+    ds = mmk.DatasetConfig(sources=(str(inp["wav"]),), filename=os.path.join(work, "tied.h5"),
+                           extractors=(mmk.Extractor.signal(16000),))
+    db = ds.create(mode="w")
+    io = mmk.IOSpec.magspec_io(mmk.IOSpec.MagSpecIOConfig(sr=16000, n_fft=256, hop_length=64),
+                               extractor=ds.extractors[0])
+    ae = mmk.TiedAE.from_config(mmk.TiedAE.Config(io_spec=io, kernel_sizes=(3,), dims=(16,)),
+                                device="cpu")
+    cfg = mmk.TrainARMConfig(root_dir=os.path.join(work, "train"), limit_train_batches=2,
+                             batch_size=2, batch_length=8, max_epochs=1, every_n_epochs=1,
+                             CHECKPOINT_TRAINING=True, MONITOR_TRAINING=False,
+                             OUTPUT_TRAINING="wav", prompt_length_sec=0.05, n_examples=1)
+    loop = mmk.TrainARMLoop.from_config(cfg, dataset=db, network=ae)
+    out["train/callbacks"] = np.array([type(cb).__name__ for cb in loop.callbacks])
+    out["train/monitor"] = np.array(type(loop.callbacks[-1].loop).__name__)
+    loop.run()
+    run_dir = os.path.join(cfg.root_dir, loop.hash_)
+    out["train/files"] = np.array(sorted(os.listdir(run_dir)))
+    out["train/outputs"] = np.array(sorted(os.listdir(os.path.join(run_dir, "outputs"))))
+    out["train/losses"] = np.array([h["loss"] for _, h in loop.metrics.history])
+    # beta_schedule and the Adam whose beta1 follows it
+    sched = mmk.beta_schedule(max_beta=0.9, total_steps=100, pct_start=0.3)
+    out["beta/values"] = np.array([sched(k) for k in range(101)])
+    w = torch.nn.Parameter(t(inp["adam/w0"]).clone())
+    opt = mmk.adam_with_beta_schedule([w], 1e-2, max_beta=0.9, total_steps=10)
+    for k in range(5):
+        w.grad = t(inp["adam/grads"][k]).clone()
+        opt.step()
+        out[f"adam/w{k + 1}"] = w.detach().numpy().copy()
+    out["adam/type"] = np.array(type(opt).__mro__[1].__name__)
+    return out
+
+
+def _recording(net, log):
+    """``net.generate`` recording each call's prompt, new tokens and
+    temperature in ``log`` (the ensemble's events)."""
+    real = net.generate
+
+    def generate(prompts, n_steps, temperature=None, seed=None):
+        res = real(prompts, n_steps, temperature=temperature, seed=seed)
+        prompt = torch.as_tensor(prompts[0]).cpu().numpy()
+        log.append(dict(kind=type(net).__name__, prompt=prompt, n_steps=n_steps,
+                        tokens=res[0].cpu().numpy()[:, prompt.shape[1]:],
+                        temperature=np.nan if temperature is None else float(temperature)))
+        return res
+
+    net.generate = generate
+
+
+def _train_checkpoint(net, wav, sr, root):
+    os.makedirs(root, exist_ok=True)
+    ds = mmk.DatasetConfig(sources=(wav,), filename=os.path.join(root, "db.h5"),
+                           extractors=(mmk.Extractor.signal(sr),))
+    db = ds.create(mode="w")
+    cfg = mmk.TrainARMConfig(root_dir=root, limit_train_batches=2, batch_size=2, batch_length=8,
+                             max_epochs=1, every_n_epochs=1, CHECKPOINT_TRAINING=True,
+                             MONITOR_TRAINING=False, OUTPUT_TRAINING="",
+                             trainer_kwargs={"data_seed": 1})
+    loop = mmk.TrainARMLoop.from_config(cfg, dataset=db, network=net)
+    loop.run()
+    return mmk.Checkpoint(id=loop.hash_, epoch=1, root_dir=root, device="cpu")
+
+
+def ensemble_task(inp: dict) -> dict:
+    """The ensemble slice on the CPU: Resample's two paths, the seeded
+    patterns, DTW, NNN, the neighbor scores, VotingEnsemble, and
+    EnsembleGenerator over two port checkpoints (SampleRNN at 16 kHz, WaveNet
+    at 22.05 kHz) with each event's decode recorded; then the two demos."""
+    torch.set_num_threads(1)
+    from mimikit_tpu_torch.models.nnn import cosine_distances
+
+    out = {}
+    x = inp["resample/x"]
+    for a, b in json.loads(str(inp["resample/pairs"])):
+        r = mmk.Resample(a, b)
+        y = r(x)
+        out[f"resample/{a}_{b}/np"] = np.asarray(y, np.float32)
+        out[f"resample/{a}_{b}/sr"] = np.array(mmk.get_metadata(y, "sr"))
+        out[f"resample/{a}_{b}/torch"] = r(t(x)).numpy()
+        out[f"resample/{a}_{b}/inv"] = np.array([r.inv.orig_sr, r.inv.target_sr, r.unit.sr])
+    out["patterns"] = np.array(json.dumps(list(ensemble_patterns(mmk).asStream())))
+    for k in range(int(inp["dtw/n"])):
+        D, path = mmk.dtw(inp[f"dtw/{k}/C"], subseq=bool(inp[f"dtw/{k}/subseq"]))
+        out[f"dtw/{k}/D"], out[f"dtw/{k}/path"] = D, path
+    # NNN (tests/test_ensemble.py:84-95)
+    corpus, prompt = inp["nnn/corpus"], inp["nnn/prompt"]
+    nnn = mmk.NearestNextNeighbor(feature=lambda v: v, snd=corpus)
+    out["nnn/out1"] = nnn.generate_step((prompt[None],), t=100)
+    out["nnn/starts1"] = np.array(nnn._starts)
+    out["nnn/out2"] = nnn.generate_step((prompt[None],), t=101)
+    out["nnn/out3"] = nnn.generate_step((prompt[None],), t=5)  # a new prompt: matched again
+    out["nnn/cos"] = cosine_distances(np.abs(inp["nnn/x"]), np.abs(inp["nnn/y"]))
+    out["nnn/path"] = mmk.optimal_path(inp["nnn/x"], inp["nnn/y"])
+    # neighbor scores
+    dists, idx = mmk.nearest_neighbor(inp["nn/X"], inp["nn/Y"])
+    out["nn/dists"], out["nn/idx"] = dists, idx
+    out["nn/cum_sum"] = np.array(mmk.cum_entropy(inp["nn/seq"]))
+    out["nn/cum_t"] = mmk.cum_entropy(inp["nn/seq"], reduce="none", neg_diff=False)
+    out["nn/repeat"] = mmk.repeat_rate(inp["nn/seq"], 4, 2)
+    out["nn/frame"] = mmk.frame(inp["nn/seq"], 4, 3)
+
+    class Const:
+        def __init__(self, v):
+            self.v = v
+
+        def before_generate(self, *a):
+            pass
+
+        def after_generate(self, *a):
+            return None
+
+        def generate_step(self, inputs, *, t=0, **kw):
+            return (torch.full((1, 1), self.v),)
+
+    ens = mmk.VotingEnsemble([Const(1.0), Const(3.0), Const(-2.0)], weights=[1, 2, 1])
+    out["vote/weights"] = np.array(ens.weights)
+    out["vote/step"] = np.asarray(ens.generate_step((np.zeros((1, 4)),), t=0))
+
+    # EnsembleGenerator over two checkpoints trained here
+    work = str(inp["work"])
+    io16 = mmk.IOSpec.mulaw_io(mmk.IOSpec.MuLawIOConfig(sr=16000, q_levels=32, mlp_dim=16),
+                               extractor=mmk.Extractor.signal(16000))
+    srnn = mmk.SampleRNN.from_config(mmk.SampleRNN.Config(frame_sizes=(4, 2, 2), hidden_dim=16,
+                                                          io_spec=io16), device="cpu", seed=1)
+    ck1 = _train_checkpoint(srnn, str(inp["wav16"]), 16000, os.path.join(work, "srnn"))
+    io22 = mmk.IOSpec.mulaw_io(mmk.IOSpec.MuLawIOConfig(sr=22050, q_levels=32, mlp_dim=16,
+                                                        input_module_type="embedding"),
+                               extractor=mmk.Extractor.signal(22050))
+    wn = mmk.WaveNet.from_config(mmk.WaveNet.Config(io_spec=io22, blocks=(3,),
+                                                    dims_dilated=(16,)), device="cpu", seed=2)
+    ck2 = _train_checkpoint(wn, str(inp["wav22"]), 22050, os.path.join(work, "wn"))
+    out["ens/ckpts"] = np.array([[ck.root_dir, ck.id] for ck in (ck1, ck2)])
+    log = []
+    for ck in (ck1, ck2):
+        _recording(ck.network, log)
+    ck_of = {"srnn": ck1, "wn": ck2}
+    stream = [dict(generator=ck_of[g], seconds=s, temperature=tp)
+              for g, s, tp in json.loads(str(inp["ens/events"]))]
+    ens = mmk.EnsembleGenerator(inp["ens/prompt"], max_seconds=float(inp["ens/max_seconds"]),
+                                base_sr=22050, stream=stream)
+    out["ens/out"] = ens.run()
+    for k, ev in enumerate(log):
+        for key, v in ev.items():
+            out[f"ens/{k}/{key}"] = np.asarray(v)
+    out["ens/n_events"] = np.array(len(log))
+    out["ens/device"] = np.array(str(ck1.network.device))
+    # the demos as a user starts them, on the CPU at a test size: a SampleRNN at
+    # 250 Hz, whose one-second prompts the plain decode steps through quickly
+    io250 = mmk.IOSpec.mulaw_io(mmk.IOSpec.MuLawIOConfig(sr=250, q_levels=32, mlp_dim=16),
+                                extractor=mmk.Extractor.signal(250))
+    srnn250 = mmk.SampleRNN.from_config(mmk.SampleRNN.Config(
+        frame_sizes=(4, 2, 2), hidden_dim=16, io_spec=io250), device="cpu", seed=3)
+    ck3 = _train_checkpoint(srnn250, str(inp["wav250"]), 250, os.path.join(work, "srnn250"))
+    demo_stream = iter([dict(generator=ck3, seconds=0.1), dict(generator=ck3, seconds=0.1,
+                                                               temperature=0.8)])
+    out["demo/ensemble"] = mmk.demos.ensemble_generator.demo(
+        root_dir=os.path.join(work, "srnn250"), total_seconds=1.2, output_sr=250,
+        stream=demo_stream, device="cpu")
+    bests = mmk.demos.checkpoint_k_bests.demo(
+        root_dir=os.path.join(work, "srnn250"), n_trials=2, k_bests=1, output_duration_sec=0.02,
+        prompts_position_sec=(0.1, 0.6), batch_size=2, device="cpu")
+    out["demo/bests"] = np.stack(bests)
+    return out
+
+
 TASKS = {"recipes": recipes_task, "weight_norm": weight_norm_task, "lstm_route": lstm_route_task, "lstm_wide_layout": lstm_wide_layout_task,
          "lstm_plan": lstm_plan_task, "xla_rsqrt": xla_rsqrt_task, "wavenet_cluster": wavenet_cluster_task, "modules": modules_task, "sample_rnn": sample_rnn_task, "fused_lstm": fused_lstm_task,
          "train": train_task, "train_stateless": train_stateless_task,
@@ -2781,7 +3045,9 @@ TASKS = {"recipes": recipes_task, "weight_norm": weight_norm_task, "lstm_route":
          "temperature": temperature_task, "generate_loop": generate_loop_task,
          "loggers": loggers_task, "train_monitor": train_monitor_task,
          "spectral": spectral_task, "seq2seq": seq2seq_task,
-         "spectral_demos": spectral_demos_task}
+         "spectral_demos": spectral_demos_task, "losses": losses_task,
+         "spectral_features": spectral_features_task, "tied_ae": tied_ae_task,
+         "ensemble": ensemble_task}
 
 if __name__ == "__main__":
     task, src, dst = sys.argv[1:4]
